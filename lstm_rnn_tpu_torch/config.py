@@ -1,0 +1,329 @@
+"""Configuration: the CURRENNT flag surface on argparse.
+
+Counterpart of lstm_rnn_tpu/config.py, with the same flags, defaults and
+options-file parser (`option = value` per line, usable as positional
+argument #1, CLI flags taking priority; `--continue <autosave>` re-parses
+the configuration stored in the autosave,
+Configuration.cpp:236-250).
+
+Port-specific:
+  --device       auto|cpu|cuda (auto follows --cuda); tpu is refused
+  --lstm_backend auto|scan|pallas: pallas names the Hopper kernel
+Flags the port does not support yet raise a ValueError naming ROADMAP.md,
+never silently ignored: --num_devices, --model_devices,
+--pipeline_devices and --seq_devices other than 1, --stream_chunk > 0,
+--f32_matmul 3x, --compilation_cache_dir and the multi-host flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import shlex
+import sys
+from typing import List, Optional
+
+
+def _str2bool(v: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("true", "1", "yes"):
+        return True
+    if v.lower() in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"boolean expected, got '{v}'")
+
+
+DEFAULT_UINT_MAX = 2**32 - 1
+
+
+def _bucket_arg(v: str):
+    if isinstance(v, str) and v.lower() == "single":
+        return "single"
+    # '1'/'0' are the boolean spellings every other flag accepts — a
+    # one-bucket inventory of length 1 is meaningless, so they are not
+    # ambiguous with the explicit-inventory form
+    if isinstance(v, str) and v in ("0", "1"):
+        return _str2bool(v)
+    if isinstance(v, str) and ("," in v or v.isdigit()):
+        try:
+            lengths = tuple(sorted(int(x) for x in v.split(",") if x))
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"bucket inventory expected (e.g. 384,512,768), got '{v}'")
+        if not lengths or any(x <= 0 for x in lengths):
+            raise argparse.ArgumentTypeError(
+                f"bucket lengths must be positive, got '{v}'")
+        return lengths
+    return _str2bool(v)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="currennt",
+        description="lstm_rnn_tpu_torch - CURRENNT-compatible RNN toolkit on PyTorch + CUDA",
+        add_help=True)
+    p.add_argument("options_file", nargs="?", default=None,
+                   help="reads the command line options from the file")
+
+    g = p.add_argument_group("Common options")
+    g.add_argument("--options_file", dest="options_file_flag", default=None)
+    g.add_argument("--network", default="network.jsn")
+    g.add_argument("--cuda", type=_str2bool, default=True,
+                   help="accepted for compatibility; selects the accelerator")
+    g.add_argument("--list_devices", type=_str2bool, default=False)
+    g.add_argument("--parallel_sequences", type=int, default=1)
+    g.add_argument("--random_seed", type=int, default=0)
+
+    g = p.add_argument_group("Forward pass options")
+    g.add_argument("--ff_output_format", default="single_csv",
+                   choices=["single_csv", "csv", "htk"])
+    g.add_argument("--ff_output_file", default="ff_output.csv")
+    g.add_argument("--ff_output_kind", type=int, default=9)
+    g.add_argument("--feature_period", type=float, default=10)
+    g.add_argument("--ff_input_file", default="")
+    g.add_argument("--revert_std", type=_str2bool, default=True)
+
+    g = p.add_argument_group("Training options")
+    g.add_argument("--train", type=_str2bool, default=False)
+    g.add_argument("--stochastic", type=_str2bool, default=False)
+    g.add_argument("--hybrid_online_batch", type=_str2bool, default=None,
+                   help="same as --stochastic (for compatibility)")
+    g.add_argument("--shuffle_fractions", type=_str2bool, default=False)
+    g.add_argument("--shuffle_sequences", type=_str2bool, default=False)
+    g.add_argument("--max_epochs", type=int, default=DEFAULT_UINT_MAX)
+    g.add_argument("--max_epochs_no_best", type=int, default=20)
+    g.add_argument("--validate_every", type=int, default=1)
+    g.add_argument("--test_every", type=int, default=1)
+    g.add_argument("--optimizer", default="steepest_descent",
+                   choices=["steepest_descent", "rprop"])
+    g.add_argument("--learning_rate", type=float, default=1e-5)
+    g.add_argument("--momentum", type=float, default=0.9)
+    g.add_argument("--weight_noise_sigma", type=float, default=0.0)
+    g.add_argument("--save_network", default="trained_network.jsn")
+
+    g = p.add_argument_group("Autosave options")
+    g.add_argument("--autosave", type=_str2bool, default=False)
+    g.add_argument("--autosave_best", type=_str2bool, default=False)
+    g.add_argument("--autosave_prefix", default="")
+    g.add_argument("--continue", dest="continue_file", default="")
+
+    g = p.add_argument_group("Data file options")
+    g.add_argument("--train_file", default="")
+    g.add_argument("--val_file", default="")
+    g.add_argument("--test_file", default="")
+    g.add_argument("--train_fraction", type=float, default=1.0)
+    g.add_argument("--val_fraction", type=float, default=1.0)
+    g.add_argument("--test_fraction", type=float, default=1.0)
+    g.add_argument("--truncate_seq", type=int, default=0)
+    g.add_argument("--input_noise_sigma", type=float, default=0.0)
+    g.add_argument("--input_left_context", type=int, default=0)
+    g.add_argument("--input_right_context", type=int, default=0)
+    g.add_argument("--output_time_lag", type=int, default=0)
+    g.add_argument("--cache_path", default="")
+
+    g = p.add_argument_group("Weight initialization options")
+    g.add_argument("--weights_dist", default="uniform", choices=["uniform", "normal"])
+    g.add_argument("--weights_uniform_min", type=float, default=-0.1)
+    g.add_argument("--weights_uniform_max", type=float, default=0.1)
+    g.add_argument("--weights_normal_sigma", type=float, default=0.1)
+    g.add_argument("--weights_normal_mean", type=float, default=0.0)
+    g.add_argument("--init_rng", default="numpy",
+                   choices=["numpy", "currennt"],
+                   help="'currennt' replays the reference's boost::mt19937 "
+                        "init stream so same-seed runs start byte-identical "
+                        "to the reference (uniform init only)")
+
+    g = p.add_argument_group("Port options (extensions)")
+    g.add_argument("--device", default="auto",
+                   choices=["auto", "cpu", "cuda", "tpu"],
+                   help="auto = cuda when --cuda is true, else cpu; cuda "
+                        "raises when no GPU is visible")
+    g.add_argument("--num_devices", type=int, default=1,
+                   help="data-parallel devices (only 1 is ported)")
+    g.add_argument("--model_devices", type=int, default=1,
+                   help="tensor-parallel shard count (only 1 is ported)")
+    g.add_argument("--pipeline_devices", type=int, default=1,
+                   help="pipeline-parallel stage count (only 1 is ported)")
+    g.add_argument("--pipeline_microbatches", type=int, default=0,
+                   help="microbatches per pipeline data shard (pipeline "
+                        "parallelism is not ported yet)")
+    g.add_argument("--stream_chunk", type=int, default=0,
+                   help="chunked streaming serving (not ported yet: only "
+                        "0, whole sequences)")
+    g.add_argument("--remat_blocks", type=int, default=0,
+                   help="training only: gradient checkpointing of the "
+                        "recurrence in K time blocks")
+    g.add_argument("--seq_devices", type=int, default=1,
+                   help="sequence-parallel shard count (only 1 is ported)")
+    g.add_argument("--bucket_lengths", type=_bucket_arg, default=False,
+                   help="false = exact lengths, true = power-of-2 bucket "
+                        "inventory, single = one bucket at the corpus max, "
+                        "or an explicit comma-separated inventory (e.g. "
+                        "384,512,768); fractions above the largest bucket "
+                        "pad to their exact length. Padding is numerically "
+                        "inert")
+    g.add_argument("--bucket_major_shuffle", type=_str2bool, default=True,
+                   help="with bucket_lengths + shuffle_fractions: shuffle "
+                        "within each length bucket but emit buckets "
+                        "contiguously (false = unrestricted order)")
+    g.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="float32 = true fp32 (TF32 off); bfloat16 = bf16 "
+                        "matmul operands, f32 state and accumulation")
+    g.add_argument("--f32_matmul", default="6x", choices=["6x", "3x"],
+                   help="6x = true fp32 (the only mode ported yet)")
+    g.add_argument("--lstm_backend", default="auto",
+                   choices=["auto", "scan", "pallas"],
+                   help="LSTM recurrence: auto/pallas = the Hopper kernel "
+                        "on CUDA (its plain twin on CPU), scan = the plain "
+                        "PyTorch scan")
+    g.add_argument("--fuse_fractions", type=int, default=1,
+                   help="training only: K same-shape updates per dispatch")
+    g.add_argument("--device_cache", type=_str2bool, default=None,
+                   help="training only: keep assembled fractions on the "
+                        "device across epochs")
+    g.add_argument("--compilation_cache_dir", default="",
+                   help="compile cache of the JAX package; the port "
+                        "compiles nothing per shape and refuses it")
+    g.add_argument("--profile_dir", default="",
+                   help="training only: profiler trace of the first epoch")
+
+    g = p.add_argument_group("Multi-host options (extensions)")
+    g.add_argument("--coordinator_address", default="",
+                   help="multi-host coordinator (not ported yet)")
+    g.add_argument("--num_processes", type=int, default=0,
+                   help="multi-host process count (not ported yet)")
+    g.add_argument("--process_id", type=int, default=-1,
+                   help="multi-host rank (not ported yet)")
+    return p
+
+
+def _split_files(s: str) -> List[str]:
+    return [f for f in s.replace(";", ",").split(",") if f]
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Immutable parsed configuration. The training-side views (file lists,
+    the autosave serialization) come with the training step."""
+    args: argparse.Namespace
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "args"), name)
+
+    @property
+    def feedforward_input_files(self) -> List[str]:
+        return _split_files(self.args.ff_input_file)
+
+
+def _read_options_file(path: str) -> List[str]:
+    """`option = value` per line; '#' comments (Configuration.cpp options-file
+    format via boost program_options parse_config_file)."""
+    argv = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            if "=" not in line:
+                raise ValueError(f"bad options file line: {line!r}")
+            k, v = line.split("=", 1)
+            argv += [f"--{k.strip()}", v.strip()]
+    return argv
+
+
+def parse_config(argv: Optional[List[str]] = None) -> Config:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    ns = parser.parse_args(argv)
+    opts_file = ns.options_file or ns.options_file_flag
+    if opts_file:
+        # CLI takes priority over the options file (README:110-117): parse
+        # file first, then re-apply the CLI on top — with the options-file
+        # reference itself removed (for the --options_file flag form, BOTH
+        # the flag token and its value; naive value filtering left a bare
+        # '--options_file' behind and crashed argparse)
+        # whether the CLI used the positional form must be captured BEFORE
+        # ns is rebound to the options-file parse (where the positional is
+        # never set — the file expands to --flag tokens only)
+        used_positional = bool(ns.options_file)
+        file_argv = _read_options_file(opts_file)
+        ns = parser.parse_args(file_argv)
+        cli_argv = []
+        strip_positional = opts_file if used_positional else None
+        skip_next = False
+        for a in argv:
+            if skip_next:
+                skip_next = False
+                continue
+            if a == "--options_file":
+                skip_next = True
+                continue
+            if a.startswith("--options_file="):
+                continue
+            if strip_positional is not None and a == strip_positional:
+                strip_positional = None  # the positional form, once
+                continue
+            cli_argv.append(a)
+        ns = parser.parse_args(cli_argv, namespace=ns)
+
+    if ns.continue_file:
+        # --continue ignores all other flags: re-parse the configuration
+        # stored in the autosave file (Configuration.cpp:236-250).
+        import json
+        with open(ns.continue_file) as f:
+            doc = json.load(f)
+        stored = doc.get("configuration", "")
+        cont = ns.continue_file
+        # process-identity flags are NOT stored in autosaves (each resumed
+        # job has its own coordinator/rank) — carry the live CLI values over
+        coord, nproc, pid = ns.coordinator_address, ns.num_processes, ns.process_id
+        ns = parser.parse_args(shlex.split(stored))
+        ns.continue_file = cont
+        ns.coordinator_address, ns.num_processes, ns.process_id = coord, nproc, pid
+
+    # validation (Configuration.cpp:264-310)
+    for frac, nm in ((ns.train_fraction, "training"), (ns.val_fraction, "validation"),
+                     (ns.test_fraction, "test")):
+        if not (0 < frac <= 1):
+            raise ValueError(f"Invalid {nm} set fraction. Should be 0 < x <= 1")
+    for val, nm in ((ns.validate_every, "validate_every"),
+                    (ns.test_every, "test_every")):
+        if val < 1:
+            raise ValueError(f"Invalid {nm}: must be >= 1")
+
+    # random seed auto-generation (Configuration.cpp:272-274)
+    if ns.random_seed == 0:
+        import random
+        ns.random_seed = random.SystemRandom().randrange(1, 2**32)
+
+    _check_supported(ns)
+    return Config(args=ns)
+
+
+def _check_supported(ns: argparse.Namespace) -> None:
+    """Refuse the flags whose features the port does not have yet."""
+    unsupported = [
+        (f"--{k} {getattr(ns, k)}", "parallelism")
+        for k in ("num_devices", "model_devices", "pipeline_devices",
+                  "seq_devices") if getattr(ns, k) != 1]
+    if ns.stream_chunk > 0:
+        unsupported.append((f"--stream_chunk {ns.stream_chunk}", "streaming"))
+    if ns.f32_matmul != "6x":
+        unsupported.append((f"--f32_matmul {ns.f32_matmul}",
+                            "the training step and its precision modes"))
+    if ns.coordinator_address or ns.num_processes > 1 or ns.process_id > 0:
+        unsupported.append(("multi-host (--coordinator_address/"
+                            "--num_processes/--process_id)", "parallelism"))
+    if ns.compilation_cache_dir:
+        unsupported.append(("--compilation_cache_dir",
+                            "the port compiles nothing per shape"))
+    if ns.device == "tpu":
+        unsupported.append(("--device tpu", "the JAX package (lstm_rnn_tpu)"))
+    if unsupported:
+        flag, item = unsupported[0]
+        raise ValueError(
+            f"{flag} is not supported by the PyTorch port yet; see "
+            f"ROADMAP.md ({item})")
+

@@ -1,0 +1,452 @@
+// Inference forward of one (B)LSTM layer, for NVIDIA Hopper (sm_90a).
+//
+// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_fwd_kernel with save=False (no
+// carry, no step mask): the TPU kernel behind lstm_scan_fused's primal,
+// which every frame of the forward-pass (posterior dump) mode goes through.
+// It computes, for each direction d (d = 0 walks time ascending, d = 1
+// descending) and each row b with `lengths[b]` valid frames:
+//
+//   a  = x[t, b] . W_in[d] + bias_mult * bias[d]              (4H gates)
+//   g  = a + h_prev . W_rec[d]
+//   ni = tanh(g_ni)
+//   ig = sigma(g_ig + c_prev * p_ig),  fg = sigma(g_fg + c_prev * p_fg)
+//   c  = ni * ig + fg * c_prev
+//   og = sigma(g_og + c * p_og)                          (NEW-c peephole)
+//   h  = tanh(c) * og;   h = c = 0 where t >= lengths[b]
+//
+// and writes h into column d*H of the [T, B, D*H] output ([fw | bw]).
+// float32 mode: true f32 FMAs, CURRENNT logistic (hard saturation at
+// +-88.722839) and tanh = 2*logistic(2x) - 1. bfloat16 mode: bf16 x, W_in,
+// W_rec and fed-back h, f32 state and accumulation, plain sigma/tanh, h
+// stored in bf16.
+//
+// Design and what bounds it on this card. Two launches per layer:
+//
+// 1. proj_kernel, a tiled shared-memory GEMM [T*B, P] x [P, 4H] per
+//    direction into an f32 scratch buffer. The TPU kernel computes this
+//    product in its own body, chunk by chunk, so the [D, T, B, 4H] tensor
+//    never reaches HBM; here it makes one round trip through device memory
+//    (160 MB at T=800, B=50, H=125 in f32). Fusing it back into the
+//    recurrence is later work. The GEMM runs on the FP32 pipes (bf16
+//    products are exact in f32), not on the tensor cores.
+// 2. rec_kernel, the recurrence: grid (D, ceil(B / 4)), a time loop
+//    inside each block. It is latency-bound, not throughput-bound: T steps
+//    depend on each other, each step is a [4, H] x [H, 4H] product that
+//    fills a few hundred threads, and only D * ceil(B / 4) SMs work.
+//    Each step reads all of W_rec[d]. When W_rec fits in shared memory
+//    beside the block's state (bf16 at H = 125: 125 KB), the block stages
+//    it there once; otherwise (f32 at H = 125: 250 KB, more than an SM
+//    holds) it is re-read from global memory every step and stays in the
+//    50 MB L2. What bounds a step is latency: the loads of W in flight,
+//    the FMA chains, and the step's a[t]. So each thread takes four
+//    adjacent gate columns with one 16-byte (f32) or 8-byte (bf16) load of
+//    W per k; k is split over up to 8 thread groups whose partial sums the
+//    cell phase adds, which shortens the chains and multiplies the loads
+//    in flight; and a[t+1] is copied into shared memory (cp.async) while
+//    step t computes. h for the block's rows lives in shared memory,
+//    k-major so that every thread reads the same h words (a broadcast); c
+//    lives in shared memory. Each block stops at the longest row of its
+//    block: later steps are padding for all its rows and are written as
+//    zeros. Splitting W_rec over a thread-block cluster (so f32 stays on
+//    chip too) and using the tensor cores are later work.
+//
+// Launch rules: both entry points launch on the caller's stream, allocate
+// nothing, never synchronise, and return cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr float kExpLimit = 88.722839f;
+
+__device__ __forceinline__ float logistic_exact(float x) {
+  if (x >= kExpLimit) return 1.0f;
+  if (x <= -kExpLimit) return 0.0f;
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float tanh2_exact(float x) {
+  return 2.0f * logistic_exact(2.0f * x) - 1.0f;
+}
+
+__device__ __forceinline__ float sigmoid_plain(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// ------------------------------------------------------------ projection
+constexpr int kTileM = 64;
+constexpr int kTileN = 64;
+constexpr int kTileK = 16;
+constexpr int kProjThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+// a[d, m, n] = sum_k x[m, k] * w[d, k, n] + bias_mult * bias[d, n]
+template <typename In>
+__global__ void __launch_bounds__(kProjThreads)
+    proj_kernel(const In* __restrict__ x, const In* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ a, int M,
+                int K, int N, float bias_mult) {
+  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // k-major
+  __shared__ __align__(16) float ws[kTileK][kTileN + 4];
+  const int d = blockIdx.z;
+  const int m0 = blockIdx.x * kTileM;
+  const int n0 = blockIdx.y * kTileN;
+  const In* wd = w + static_cast<size_t>(d) * K * N;
+  const int tid = threadIdx.x;
+  const int tm = (tid / 16) * 4;
+  const int tn = (tid % 16) * 4;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+    for (int i = tid; i < kTileM * kTileK; i += kProjThreads) {
+      const int mm = i / kTileK, kk = i % kTileK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      xs[kk][mm] = (gm < M && gk < K)
+                       ? to_f32(x[static_cast<size_t>(gm) * K + gk])
+                       : 0.0f;
+    }
+    for (int i = tid; i < kTileK * kTileN; i += kProjThreads) {
+      const int kk = i / kTileN, nn = i % kTileN;
+      const int gk = k0 + kk, gn = n0 + nn;
+      ws[kk][nn] = (gk < K && gn < N)
+                       ? to_f32(wd[static_cast<size_t>(gk) * N + gn])
+                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      const float4 xv = *reinterpret_cast<const float4*>(&xs[kk][tm]);
+      const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][tn]);
+      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + tm + i;
+    if (gm >= M) continue;
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tn + j;
+      if (gn < N)
+        // the bias product is rounded on its own, as the reference adds
+        // bias_mult * bias to the finished matmul
+        a[(static_cast<size_t>(d) * M + gm) * N + gn] =
+            acc[i][j] + __fmul_rn(bias_mult, bias[d * N + gn]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ recurrence
+constexpr int kRecThreads = 512;
+constexpr int kMaxKSplit = 8;
+// Batch rows per block. Measured at T=800, B=50, H=125, D=2 on an H100
+// (700 W): 4 rows beat 8 in f32 (4.3 vs 6.5 ms) and in bf16 (2.9 vs 4.9 ms).
+constexpr int kRows = 4;
+
+__host__ __device__ inline size_t align4(size_t n) {
+  return (n + 3) & ~static_cast<size_t>(3);
+}
+
+// Shared-memory layout of rec_kernel, offsets in floats (each part 16-byte
+// aligned). The h . W_rec product of a step is split over `ksplit` groups
+// of threads, each summing a slice of k; the cell phase adds the slices.
+struct RecLayout {
+  int ksplit;
+  size_t a;     // [2][rows][4H] a[t] of this step and (prefetched) the next
+  size_t part;  // [ksplit][rows][4H] partial products
+  size_t h;     // [H][rows] h as the recurrent operand (k-major)
+  size_t c;     // [rows][H] cell state
+  size_t peep;  // [3][H] peepholes
+  size_t w;     // [H][4H] W_rec[d], when staged in shared memory
+};
+
+__host__ __device__ inline RecLayout rec_layout(int rows, int H) {
+  RecLayout L;
+  const size_t G = 4 * static_cast<size_t>(H);
+  const int by_threads = kRecThreads / H;
+  L.ksplit = by_threads < 1 ? 1 : by_threads;
+  if (L.ksplit > kMaxKSplit) L.ksplit = kMaxKSplit;
+  if (L.ksplit > H) L.ksplit = H;
+  L.a = 0;
+  L.part = L.a + align4(2 * rows * G);
+  L.h = L.part + align4(L.ksplit * rows * G);
+  L.c = L.h + align4(static_cast<size_t>(H) * rows);
+  L.peep = L.c + align4(static_cast<size_t>(rows) * H);
+  L.w = L.peep + align4(3 * static_cast<size_t>(H));
+  return L;
+}
+
+// four adjacent W_rec entries as floats (16-byte f32 or 8-byte bf16 load)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// a [D, T, B, 4H] f32, w_rec [D, H, 4H], peep [D, 3, H], out [T, B, D*H].
+// kWShared: W_rec[d] is staged in shared memory (RecLayout::w).
+template <typename W, typename Out, bool kPlainActs, bool kWShared>
+__global__ void __launch_bounds__(kRecThreads)
+    rec_kernel(const float* __restrict__ a, const W* __restrict__ w_rec,
+               const float* __restrict__ peep,
+               const int* __restrict__ lengths, Out* __restrict__ out, int T,
+               int B, int H) {
+  static_assert(kRows % 4 == 0, "h is read as float4 groups of rows");
+  extern __shared__ __align__(16) float smem[];
+  const RecLayout L = rec_layout(kRows, H);
+  const int G = 4 * H;
+  const int KS = L.ksplit;
+  const int KC = (H + KS - 1) / KS;  // k per split
+  float* as = smem + L.a;
+  float* part = smem + L.part;
+  float* hs = smem + L.h;
+  float* cs = smem + L.c;
+  float* ps = smem + L.peep;
+  W* ws = reinterpret_cast<W*>(smem + L.w);
+  __shared__ int len_s[kRows];
+  __shared__ int tmax_s;
+
+  const int d = blockIdx.x;
+  const int D = gridDim.x;
+  const int b0 = blockIdx.y * kRows;
+  const int nb = min(kRows, B - b0);
+  const int tid = threadIdx.x;
+  const size_t DH = static_cast<size_t>(D) * H;
+
+  for (int i = tid; i < H * kRows; i += kRecThreads) {
+    hs[i] = 0.0f;
+    cs[i] = 0.0f;
+  }
+  for (int i = tid; i < 3 * H; i += kRecThreads) ps[i] = peep[d * 3 * H + i];
+  const W* wd = w_rec + static_cast<size_t>(d) * H * G;
+  if (kWShared) {
+    for (int i = tid; i < H * G; i += kRecThreads) ws[i] = wd[i];
+    wd = ws;
+  }
+  if (tid < kRows)
+    len_s[tid] = tid < nb ? min(max(lengths[b0 + tid], 0), T) : 0;
+  __syncthreads();
+  if (tid == 0) {
+    int m = 0;
+    for (int r = 0; r < kRows; ++r) m = max(m, len_s[r]);
+    tmax_s = m;
+  }
+  __syncthreads();
+  const int tmax = tmax_s;
+
+  // a[d, t] for the block's rows is nb * G contiguous floats; it is copied
+  // into shared memory one step ahead, so its latency hides behind the
+  // product of the step before
+  auto prefetch_a = [&](int s, int buf) {
+    const int t = d == 0 ? s : tmax - 1 - s;
+    const float* src = a + ((static_cast<size_t>(d) * T + t) * B + b0) * G;
+    float* dst = as + buf * kRows * G;
+    for (int i = tid; i < nb * H; i += kRecThreads)  // nb * G / 4 copies
+      __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+    __pipeline_commit();
+  };
+  if (tmax > 0) prefetch_a(0, 0);
+
+  for (int s = 0; s < tmax; ++s) {
+    const int t = d == 0 ? s : tmax - 1 - s;
+    const int buf = s & 1;
+    if (s + 1 < tmax) prefetch_a(s + 1, buf ^ 1);
+    // partial products h . W_rec[d]: one (k slice, 4 adjacent gate
+    // columns) item per thread, kRows rows each
+    for (int item = tid; item < KS * H; item += kRecThreads) {
+      const int kq = item / H, q = item - kq * H;
+      const int k0 = kq * KC, k1 = min(H, k0 + KC);
+      float acc[kRows][4] = {};
+      const W* wq = wd + 4 * q;
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) {
+        const float4 w4 = load4(wq + static_cast<size_t>(k) * G);
+#pragma unroll
+        for (int rq = 0; rq < kRows / 4; ++rq) {
+          const float4 h4 =
+              *reinterpret_cast<const float4*>(hs + k * kRows + 4 * rq);
+          const float hr[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[4 * rq + i][0] = fmaf(hr[i], w4.x, acc[4 * rq + i][0]);
+            acc[4 * rq + i][1] = fmaf(hr[i], w4.y, acc[4 * rq + i][1]);
+            acc[4 * rq + i][2] = fmaf(hr[i], w4.z, acc[4 * rq + i][2]);
+            acc[4 * rq + i][3] = fmaf(hr[i], w4.w, acc[4 * rq + i][3]);
+          }
+        }
+      }
+      float* pq = part + static_cast<size_t>(kq) * kRows * G + 4 * q;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        *reinterpret_cast<float4*>(pq + r * G) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    // this step's a has landed; the next step's copy may still be in flight
+    if (s + 1 < tmax)
+      __pipeline_wait_prior(1);
+    else
+      __pipeline_wait_prior(0);
+    __syncthreads();
+    // the cell, one (row, cell) pair per thread; g = a + the partial sums
+    const float* at = as + buf * kRows * G;
+    for (int p = tid; p < nb * H; p += kRecThreads) {
+      const int r = p / H, j = p - r * H;
+      float gv[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        const int n = r * G + gi * H + j;
+        float v = at[n];
+        for (int kq = 0; kq < KS; ++kq)
+          v += part[static_cast<size_t>(kq) * kRows * G + n];
+        gv[gi] = v;
+      }
+      const float c_prev = cs[r * H + j];
+      float c_new, h_new;
+      if (kPlainActs) {
+        const float ni = tanhf(gv[0]);
+        const float ig = sigmoid_plain(gv[1] + c_prev * ps[j]);
+        const float fg = sigmoid_plain(gv[2] + c_prev * ps[H + j]);
+        c_new = ni * ig + fg * c_prev;
+        const float og = sigmoid_plain(gv[3] + c_new * ps[2 * H + j]);
+        h_new = tanhf(c_new) * og;
+      } else {
+        const float ni = tanh2_exact(gv[0]);
+        const float ig = logistic_exact(gv[1] + c_prev * ps[j]);
+        const float fg = logistic_exact(gv[2] + c_prev * ps[H + j]);
+        c_new = ni * ig + fg * c_prev;
+        const float og = logistic_exact(gv[3] + c_new * ps[2 * H + j]);
+        h_new = tanh2_exact(c_new) * og;
+      }
+      const bool valid = t < len_s[r];
+      const Out hv = from_f32<Out>(valid ? h_new : 0.0f);
+      cs[r * H + j] = valid ? c_new : 0.0f;
+      hs[j * kRows + r] = to_f32(hv);
+      out[(static_cast<size_t>(t) * B + b0 + r) * DH +
+          static_cast<size_t>(d) * H + j] = hv;
+    }
+    __syncthreads();
+  }
+  // steps past the block's longest row are padding for all its rows
+  const size_t per_t = static_cast<size_t>(nb) * H;
+  const size_t n_pad = static_cast<size_t>(T - tmax) * per_t;
+  for (size_t i = tid; i < n_pad; i += kRecThreads) {
+    const size_t t = tmax + i / per_t;
+    const int rem = static_cast<int>(i % per_t);
+    const int r = rem / H, j = rem - r * H;
+    out[(t * B + b0 + r) * DH + static_cast<size_t>(d) * H + j] =
+        from_f32<Out>(0.0f);
+  }
+}
+
+template <typename W, typename Out, bool kPlainActs, bool kWShared>
+cudaError_t launch_rec(const float* a, const void* w_rec, const float* peep,
+                       const int* lengths, void* out, int T, int B, int H,
+                       int D, size_t smem, cudaStream_t stream) {
+  auto kernel = rec_kernel<W, Out, kPlainActs, kWShared>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(D, (B + kRows - 1) / kRows);
+  kernel<<<grid, kRecThreads, smem, stream>>>(
+      a, static_cast<const W*>(w_rec), peep, lengths, static_cast<Out*>(out),
+      T, B, H);
+  return cudaGetLastError();
+}
+
+// Stages W_rec in shared memory when it fits beside the state; a state
+// that does not fit (H above ~500 in f32) is refused.
+template <typename W, typename Out, bool kPlainActs>
+cudaError_t launch_rec_w(const float* a, const void* w_rec, const float* peep,
+                         const int* lengths, void* out, int T, int B, int H,
+                         int D, int device, cudaStream_t stream) {
+  int smem_max = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const RecLayout L = rec_layout(kRows, H);
+  const size_t state = L.w * sizeof(float);
+  const size_t with_w = state + static_cast<size_t>(H) * 4 * H * sizeof(W);
+  if (with_w <= static_cast<size_t>(smem_max))
+    return launch_rec<W, Out, kPlainActs, true>(
+        a, w_rec, peep, lengths, out, T, B, H, D, with_w, stream);
+  if (state > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
+  return launch_rec<W, Out, kPlainActs, false>(
+      a, w_rec, peep, lengths, out, T, B, H, D, state, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Input projection. x [M, K] and w [D, K, N] are both f32 (bf16 = 0) or
+// both bf16 (bf16 = 1); bias [D, N] f32; a [D, M, N] f32.
+int lstm_fwd_proj(const void* x, const void* w, const float* bias, float* a,
+                  int M, int K, int N, int D, float bias_mult, int bf16,
+                  int device, cudaStream_t stream) {
+  if (M < 1 || K < 1 || N < 1 || D < 1 || D > 2)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN, D);
+  if (bf16)
+    proj_kernel<__nv_bfloat16><<<grid, kProjThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w), bias, a, M, K, N, bias_mult);
+  else
+    proj_kernel<float><<<grid, kProjThreads, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), bias, a,
+        M, K, N, bias_mult);
+  return cudaGetLastError();
+}
+
+// Recurrence. a [D, T, B, 4H] f32; w_rec [D, H, 4H] f32 or bf16; peep
+// [D, 3, H] f32; lengths [B] int32; out [T, B, D*H] f32 or bf16 (as w_rec).
+int lstm_fwd_rec(const float* a, const void* w_rec, const float* peep,
+                 const int* lengths, void* out, int T, int B, int H, int D,
+                 int bf16, int device, cudaStream_t stream) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (bf16)
+    return launch_rec_w<__nv_bfloat16, __nv_bfloat16, true>(
+        a, w_rec, peep, lengths, out, T, B, H, D, device, stream);
+  return launch_rec_w<float, float, false>(a, w_rec, peep, lengths, out, T, B,
+                                           H, D, device, stream);
+}
+
+const char* lstm_err_str(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,348 @@
+"""Dataset pipeline: NetCDF corpora -> padded, masked fractions.
+
+Reproduces `currennt_lib/src/data_sets/DataSet.cpp` semantics:
+
+- multi-file corpora with consistency checks (DataSet.cpp:499-513);
+  classification detected by the `numLabels` dim (:488), `numLabels==2`
+  collapses to 1 output (:493);
+- fraction assembly (:300-414): `parallel_sequences` sequences padded to the
+  fraction max length, patTypes FIRST/NORMAL/LAST/NONE, frame splicing
+  (input_left_context/right_context with edge duplication), output_time_lag
+  target shifting (default class 0 / default value 1.0 for the first lag
+  frames), per-epoch input noise N(0, sigma);
+- background prefetch: the next fraction is assembled on a worker thread
+  while the accelerator computes (:190-223, 632-668).
+
+Counterpart of lstm_rnn_tpu/data/dataset.py, numpy only, for the
+forward-pass mode: the training-set features (`fraction` subsetting,
+sequence truncation, length sorting, shuffling, the Trainer's fraction
+cache keys) and the native C++ assembly are not ported yet (ROADMAP.md).
+
+Length bucketing (off unless asked for) pads fractions up to a small set
+of bucket lengths (powers-of-two progression) instead of their exact max
+length, as the JAX package does to bound its compile count; the extra
+padding is pure PATTYPE_NONE and numerically inert, and the LSTM kernel
+stops each block at its longest row, so bucketing changes no result.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from lstm_rnn_tpu_torch.data.netcdf3 import NetCDF3File
+from lstm_rnn_tpu_torch.ops.masking import PATTYPE_FIRST, PATTYPE_LAST, PATTYPE_NONE, PATTYPE_NORMAL
+
+
+class _DiskCache:
+    """Binary spill file for large corpora (mirrors the reference's cache
+    file, DataSet.cpp:550-566): sequences are appended once at load and
+    re-read by seek+read each epoch, so host RAM stays bounded."""
+
+    def __init__(self, cache_dir: str = ""):
+        import tempfile
+        fd, self.path = tempfile.mkstemp(
+            suffix=".cache", dir=cache_dir or None)
+        self._f = os.fdopen(fd, "w+b")
+
+    def put(self, arr: np.ndarray):
+        arr = np.ascontiguousarray(arr)
+        off = self._f.seek(0, 2)
+        self._f.write(arr.tobytes())
+        return (off, arr.shape, arr.dtype)
+
+    def get(self, ref) -> np.ndarray:
+        off, shape, dtype = ref
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        self._f.seek(off)
+        return np.frombuffer(self._f.read(n), dtype=dtype).reshape(shape)
+
+    def close(self):
+        if self._f:
+            self._f.close()
+            self._f = None
+            try:
+                os.remove(self.path)
+            except OSError:
+                pass
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+@dataclass
+class SequenceRef:
+    """One sequence in the corpus.
+
+    `inputs`/`targets` are ndarrays for RAM-resident corpora, or
+    (offset, shape, dtype) cache references resolved via the DataSet's
+    _DiskCache when the corpus is spilled to disk.
+    """
+    tag: str
+    length: int
+    inputs: object  # [length, input_size] float32 (array or cache ref)
+    targets: object  # [length, target_size] float32 / [length] int32
+
+
+@dataclass
+class Fraction:
+    """A padded mini-batch of parallel sequences (DataSetFraction.hpp)."""
+    inputs: np.ndarray        # [T, B, input_size] float32
+    pattypes: np.ndarray      # [T, B] int8
+    targets: np.ndarray       # [T, B, out] float32 or [T, B] int32 (classes)
+    seq_info: List[dict] = field(default_factory=list)  # {tag, length, originalSeqIdx}
+
+
+def _bucket_lengths(max_len: int) -> List[int]:
+    """Bucket inventory: 16, 24, 32, 48, 64, ... up to >= max_len."""
+    buckets = []
+    b = 16
+    while b < max_len:
+        buckets.append(b)
+        buckets.append(b + b // 2)
+        b *= 2
+    buckets.append(max(b, max_len))
+    return sorted(set(x for x in buckets if x <= max(b, max_len)))
+
+
+class DataSet:
+    """Corpus with reference-equivalent fraction iteration.
+
+    Sequences are held in RAM for small corpora; above
+    `cache_threshold_bytes` (1 GiB) — or whenever `cache_path` is set — they
+    spill to a binary disk cache and are re-read by seek per epoch, exactly
+    the reference's scheme (DataSet.cpp:550-566).
+    """
+
+    CACHE_THRESHOLD_BYTES = 1 << 30
+
+    def __init__(self, ncfiles: Sequence[str], parallel_sequences: int = 1,
+                 noise_deviation: float = 0.0, cache_path: str = "",
+                 input_left_context: int = 0, input_right_context: int = 0,
+                 output_time_lag: int = 0, seed: int = 0,
+                 bucket_lengths: bool = False, prefetch: bool = True):
+        self.parallel_sequences = parallel_sequences
+        self.noise_deviation = noise_deviation
+        self.left_context = input_left_context
+        self.right_context = input_right_context
+        self.output_time_lag = output_time_lag
+        self.prefetch = prefetch
+        self._rng = np.random.RandomState(seed & 0x7FFFFFFF if seed else None)
+        # spill to a disk cache when the corpus is large or a cache path is
+        # explicitly configured (cache_threshold_bytes, default 1 GiB)
+        self._cache: Optional[_DiskCache] = None
+        self._cache_dir = cache_path
+        self.cache_threshold_bytes = self.CACHE_THRESHOLD_BYTES
+
+        self.sequences: List[SequenceRef] = []
+        self.total_sequences = 0
+        self.total_timesteps = 0
+        self.min_seq_length = 1 << 30
+        self.max_seq_length = 0
+        self.input_pattern_size = 0
+        self.output_pattern_size = 0
+        self.is_classification = False
+        self.output_means: Optional[np.ndarray] = None
+        self.output_stdevs: Optional[np.ndarray] = None
+        self.has_output_standardization = False
+
+        first = True
+        for path in ncfiles:
+            if not path:
+                continue
+            self._load_file(path, first)
+            first = False
+
+        self.total_sequences = len(self.sequences)
+        if self.output_means is None:
+            self.output_means = np.zeros(self.output_pattern_size, np.float32)
+            self.output_stdevs = np.ones(self.output_pattern_size, np.float32)
+        # bucket_lengths: False = exact fraction lengths, True = power-of-2
+        # inventory, "single" = ONE bucket at the corpus max (every fraction
+        # the same shape), or an explicit inventory
+        if bucket_lengths == "single" and self.sequences:
+            self._buckets = [self.max_seq_length]
+        elif isinstance(bucket_lengths, (tuple, list)) and self.sequences:
+            # explicit inventory; fractions above the largest bucket pad to
+            # their exact length (_padded_length falls through)
+            self._buckets = sorted(int(x) for x in bucket_lengths)
+        elif bucket_lengths and self.sequences:
+            self._buckets = _bucket_lengths(self.max_seq_length)
+        else:
+            self._buckets = None
+
+    # ----------------------------------------------------------------- loading
+    def _load_file(self, path: str, first: bool):
+        with NetCDF3File(path) as f:
+            is_cls = "numLabels" in f.dimensions
+            in_size = f.dimensions["inputPattSize"]
+            if is_cls:
+                num_labels = f.dimensions["numLabels"]
+                out_size = 1 if num_labels == 2 else num_labels
+            else:
+                out_size = f.dimensions["targetPattSize"]
+            if first:
+                self.is_classification = is_cls
+                self.input_pattern_size = in_size
+                self.output_pattern_size = out_size
+            else:
+                if is_cls != self.is_classification:
+                    raise ValueError("Cannot combine classification with regression NC")
+                if in_size != self.input_pattern_size:
+                    raise ValueError("Number of inputs mismatch in NC files")
+                if out_size != self.output_pattern_size:
+                    raise ValueError("Number of outputs mismatch in NC files")
+
+            n_seq = f.dimensions["numSeqs"]
+            lengths = f.read("seqLengths", 0, n_seq)
+            tags = f.read_strings("seqTags")[:n_seq]
+
+            est_bytes = 4 * f.dimensions["numTimesteps"] * (
+                self.input_pattern_size + (1 if self.is_classification
+                                           else self.output_pattern_size))
+            if self._cache is None and (self._cache_dir
+                                        or est_bytes > self.cache_threshold_bytes):
+                self._cache = _DiskCache(self._cache_dir)
+
+            off = 0
+            for i in range(n_seq):
+                n = int(lengths[i])
+                xs = f.read("inputs", off, n).astype(np.float32)
+                if self.is_classification:
+                    ts = f.read("targetClasses", off, n).astype(np.int32)
+                else:
+                    ts = f.read("targetPatterns", off, n).astype(np.float32)
+                if self._cache is not None:
+                    xs = self._cache.put(xs)
+                    ts = self._cache.put(ts)
+                self.sequences.append(SequenceRef(tag=tags[i], length=n,
+                                                  inputs=xs, targets=ts))
+                self.total_timesteps += n
+                self.min_seq_length = min(self.min_seq_length, n)
+                self.max_seq_length = max(self.max_seq_length, n)
+                off += n
+
+            if first:
+                if "outputMeans" in f.variables and "outputStdevs" in f.variables:
+                    self.output_means = f.read("outputMeans").astype(np.float32)
+                    self.output_stdevs = f.read("outputStdevs").astype(np.float32)
+                    self.has_output_standardization = True
+
+    # ------------------------------------------------------------------- misc
+    def _padded_length(self, max_len: int) -> int:
+        if self._buckets is None:
+            return max_len
+        for b in self._buckets:
+            if b >= max_len:
+                return b
+        return max_len
+
+    def _seq_arrays(self, seq: SequenceRef):
+        """Resolve (inputs, targets) arrays, reading from the disk cache if
+        the corpus is spilled."""
+        if self._cache is None or isinstance(seq.inputs, np.ndarray):
+            # raw arrays: no cache, or this sequence came from an earlier
+            # (small) file loaded before a LATER file's size estimate
+            # created the cache — a mixed corpus holds both kinds of refs
+            return seq.inputs, seq.targets
+        return self._cache.get(seq.inputs), self._cache.get(seq.targets)
+
+    # -------------------------------------------------------- fraction builder
+    def _make_fraction(self, first_idx: int) -> Fraction:
+        b = self.parallel_sequences
+        seqs = self.sequences[first_idx : first_idx + b]
+        max_len = max(s.length for s in seqs)
+        t_pad = self._padded_length(max_len)
+        ctx_len = self.left_context + self.right_context + 1
+        in_size = self.input_pattern_size * ctx_len
+        lag = self.output_time_lag
+
+        inputs = np.zeros((t_pad, b, in_size), np.float32)
+        pattypes = np.full((t_pad, b), PATTYPE_NONE, np.int8)
+        if self.is_classification:
+            targets = np.full((t_pad, b), -1, np.int32)
+        else:
+            targets = np.zeros((t_pad, b, self.output_pattern_size), np.float32)
+
+        info = []
+        for i, seq in enumerate(seqs):
+            L = seq.length
+            xs, seq_targets = self._seq_arrays(seq)
+            if self.noise_deviation:
+                xs = xs + self._rng.normal(
+                    0.0, self.noise_deviation, xs.shape).astype(np.float32)
+            if ctx_len == 1:
+                inputs[:L, i, :] = xs
+            else:
+                # frame splicing with edge duplication (DataSet.cpp:302-364)
+                cols = []
+                for off in range(-self.left_context, self.right_context + 1):
+                    idx = np.clip(np.arange(L) + off, 0, L - 1)
+                    cols.append(xs[idx])
+                inputs[:L, i, :] = np.concatenate(cols, axis=1)
+
+            # lagged frames: t in [lag, L) reads seq_targets[t - lag]
+            # (DataSet.cpp lag handling); lag >= L means EVERY frame gets
+            # the default — [:L - lag] alone would wrap negatively and
+            # crash the assignment for lag >= L + 2
+            n_lag = max(0, L - lag)
+            if self.is_classification:
+                if lag > 0:
+                    targets[lag:lag + n_lag, i] = seq_targets[:n_lag]
+                    targets[:min(lag, L), i] = 0  # default class
+                else:
+                    targets[:L, i] = seq_targets
+            else:
+                if lag > 0:
+                    targets[lag:lag + n_lag, i, :] = seq_targets[:n_lag]
+                    targets[:min(lag, L), i, :] = 1.0  # default value
+                else:
+                    targets[:L, i, :] = seq_targets
+
+            pattypes[1 : L - 1, i] = PATTYPE_NORMAL
+            if L > 1:
+                pattypes[L - 1, i] = PATTYPE_LAST
+            pattypes[0, i] = PATTYPE_FIRST
+
+            info.append({"tag": seq.tag, "length": L, "originalSeqIdx": 0})
+        return Fraction(inputs=inputs, pattypes=pattypes, targets=targets,
+                        seq_info=info)
+
+    # --------------------------------------------------------------- iteration
+    def fractions(self):
+        """One pass over the fractions, in corpus order; prefetches assembly
+        on a background thread (DataSet.cpp:632-668)."""
+        starts = range(0, len(self.sequences), self.parallel_sequences)
+        if not self.prefetch:
+            for s in starts:
+                yield self._make_fraction(s)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+
+        def worker():
+            try:
+                for s in starts:
+                    q.put(("ok", self._make_fraction(s)))
+            except Exception as e:  # pragma: no cover
+                q.put(("err", e))
+            q.put(("done", None))
+
+        th = threading.Thread(target=worker, daemon=True)
+        th.start()
+        while True:
+            kind, val = q.get()
+            if kind == "done":
+                break
+            if kind == "err":
+                raise val
+            yield val
+        th.join()

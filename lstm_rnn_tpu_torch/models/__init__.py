@@ -1,0 +1,2 @@
+"""Layers of the port: models/lstm.py (LSTM/BLSTM), models/feedforward.py
+(feedforward and softmax), models/flagship.py (the TIMIT recipe)."""

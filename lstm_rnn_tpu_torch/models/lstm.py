@@ -1,0 +1,108 @@
+"""LSTM / bidirectional LSTM with forget gates and peepholes, forward only.
+
+Counterpart of lstm_rnn_tpu/models/lstm.py; semantics of
+`currennt_lib/src/layers/LstmLayer.cu` (cell: ComputeBlockOutputFn,
+LstmLayer.cu:47-138; padding slots force h = c = 0; a bidirectional layer
+of size L runs two halves of H = L/2 cells, the backward half walking time
+in reverse, output [fw | bw] per frame).
+
+Parameters, as in the JAX package (gate order [ni, ig, fg, og], peephole
+order [ig, fg, og]):
+    {"W_in": [D, P, 4, H], "W_rec": [D, H, 4, H], "b": [D, 4, H],
+     "peep": [D, 3, H]}
+
+Routing in `lstm_forward`: backend "auto" or "pallas" (the flag keeps its
+spelling; it names the Hopper kernel) goes through `lstm_scan_fused`, which
+launches the CUDA kernel for a CUDA tensor and runs its twin for a CPU
+tensor; backend "scan" runs `_lstm_scan` on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lstm_rnn_tpu_torch.models.feedforward import round_operand
+from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_cell_step,
+                                              lstm_scan_fused, storage_dtype)
+
+BACKENDS = ("auto", "scan", "pallas")
+
+
+def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype):
+    """The scan path: a Python time loop over both (or one) directions.
+
+    acts [T, D, B, 4, H] input projections + bias, with the backward
+    direction already time-reversed; w_rec [D, H, 4, H]; peep [D, 3, H];
+    mask [T, D, B, 1] (1.0 valid / 0.0 pad, any pattern). Returns
+    [T, D, B, H] in the storage dtype. Rounds where the kernel does: in
+    bfloat16 mode the fed-back h and the output are bf16."""
+    T, D, B, _, H = acts.shape
+    fast = compute_dtype == torch.bfloat16
+    sdtype = storage_dtype(compute_dtype)
+    w = round_operand(w_rec, compute_dtype).reshape(D, H, 4 * H)
+    h = acts.new_zeros(D, B, H)
+    c = acts.new_zeros(D, B, H)
+    ys = acts.new_empty((T, D, B, H), dtype=sdtype)
+    for t in range(T):
+        a = acts[t] + torch.bmm(h, w).view(D, B, 4, H)
+        h_new, c_new = lstm_cell_step(a, c, peep, fast)
+        ys[t] = h_new * mask[t]
+        h = ys[t].float()
+        c = c_new * mask[t]
+    return ys
+
+
+def _scan_acts_valid(x, pattypes, w_in, b, bias_mult: float,
+                     compute_dtype: torch.dtype):
+    """Input projection + bias as [T, D, B, 4, H] f32, and the validity
+    mask [T, 1, B, 1]."""
+    T, B, P = x.shape
+    D, _, _, H = w_in.shape
+    acts = torch.matmul(round_operand(x.reshape(T * B, P), compute_dtype),
+                        round_operand(w_in.reshape(D, P, 4 * H),
+                                      compute_dtype))
+    acts = acts.view(D, T, B, 4, H).permute(1, 0, 2, 3, 4)
+    acts = acts + bias_mult * b[None, :, None]
+    valid = (pattypes != 0).float()[:, None, :, None]
+    return acts, valid
+
+
+def lstm_forward(params, x, pattypes, bias_mult: float, bidirectional: bool,
+                 backend: str = "auto",
+                 compute_dtype: torch.dtype = torch.float32):
+    """x: [T, B, P], pattypes: [T, B] int8 -> outputs [T, B, L] in x's dtype.
+
+    L = H unidirectional, 2H bidirectional ([fw | bw] per frame). The
+    kernel path needs each row's valid frames to be a prefix (trailing
+    padding only), which every DataSet fraction is by construction; the
+    scan path masks per step and takes any pattern."""
+    w_in, w_rec, b, peep = (params["W_in"], params["W_rec"], params["b"],
+                            params["peep"])
+    T, B, P = x.shape
+    D, _, _, H = w_in.shape
+    if D != (2 if bidirectional else 1):
+        raise ValueError(f"W_in has {D} directions; bidirectional="
+                         f"{bidirectional}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend != "scan":
+        lengths = (pattypes != 0).sum(dim=0, dtype=torch.int32)
+        ys = lstm_scan_fused(x, w_in.reshape(D, P, 4 * H),
+                             w_rec.reshape(D, H, 4 * H), peep,
+                             b.reshape(D, 4 * H), lengths, float(bias_mult),
+                             compute_dtype)
+        return ys.to(x.dtype)
+
+    acts, valid = _scan_acts_valid(x, pattypes, w_in, b, bias_mult,
+                                   compute_dtype)
+    if bidirectional:
+        acts = torch.cat([acts[:, 0:1], acts.flip(0)[:, 1:2]], dim=1)
+        mask = torch.cat([valid, valid.flip(0)], dim=1)
+    else:
+        mask = valid
+    ys = _lstm_scan(acts, w_rec, peep, mask, compute_dtype)  # [T, D, B, H]
+    if bidirectional:
+        ys = torch.cat([ys[:, 0], ys.flip(0)[:, 1]], dim=-1)
+    else:
+        ys = ys[:, 0]
+    return ys.to(x.dtype)

@@ -1,0 +1,223 @@
+"""Network container: CURRENNT JSON topology -> forward pass in torch.
+
+Counterpart of lstm_rnn_tpu/network.py (forward path). Builds the layer list
+from the JSON "layers" array and validates the topology as
+`NeuralNetwork.cpp:96-125` does (input first, exactly one post-output last,
+>= 3 layers, unique names). Parameters are held as the JAX package holds
+them — numpy arrays per layer in `net.params`, read from the JSON weights
+section or drawn by `init_params` — and `params_from_numpy` moves them to a
+device as tensors for `apply`.
+
+Not ported yet (ROADMAP.md): the losses and training, tensor/pipeline/
+sequence parallelism, streaming, and the fused classification tail.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from lstm_rnn_tpu_torch import io_currennt as ioc
+from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
+                                                   softmax_forward)
+from lstm_rnn_tpu_torch.models.lstm import lstm_forward
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class LayerSpec:
+    name: str
+    type: str
+    size: int
+    bias: float = 0.0
+
+    def to_json(self) -> Dict[str, Any]:
+        # Layer::exportLayer + TrainableLayer::exportLayer (Layer.cpp:144-157,
+        # TrainableLayer.cu:251-255): name/type/size, plus bias on trainable
+        # layers; post-output types under their canonical type() string
+        canonical = {"weighted_sse": "weightedsse", "sse_mask": "wf"}.get(self.type, self.type)
+        d: Dict[str, Any] = {"name": self.name, "type": canonical, "size": self.size}
+        if self.type != "input" and self.type not in ioc.POSTOUTPUT_TYPES:
+            d["bias"] = self.bias
+        return d
+
+
+def params_from_numpy(params_np, device, dtype=torch.float32):
+    """The JAX package's parameter tree (numpy arrays per layer) -> the
+    port's tensors on `device`, in the same layout (contiguous: the JSON
+    reader's arrays are transposed views)."""
+    return {name: {k: torch.as_tensor(np.ascontiguousarray(v), dtype=dtype,
+                                      device=device)
+                   for k, v in layer.items()}
+            for name, layer in params_np.items()}
+
+
+class Network:
+    """Functional network with CURRENNT JSON interop."""
+
+    def __init__(self, layers_json: List[Dict[str, Any]],
+                 weights_json: Optional[Dict[str, Any]] = None,
+                 input_size_override: Optional[int] = None,
+                 backend: str = "auto", compute_dtype: str = "float32"):
+        specs: List[LayerSpec] = []
+        for lc in layers_json:
+            if "type" not in lc:
+                raise ValueError("Missing value 'type' in layer description")
+            ltype = lc["type"]
+            size = int(lc["size"])
+            if ltype == "input" and input_size_override and input_size_override > 0:
+                size = input_size_override
+            known = (
+                ltype == "input"
+                or ltype == "softmax"
+                or ltype in ioc.FEEDFORWARD_TYPES
+                or ltype in ioc.LSTM_TYPES
+                or ltype in ioc.POSTOUTPUT_TYPES
+            )
+            if not known:
+                raise ValueError(f"Unknown layer type '{ltype}'")
+            trainable = ltype not in ioc.POSTOUTPUT_TYPES and ltype != "input"
+            if trainable and "bias" not in lc:
+                raise ValueError(f"Missing value 'bias' in layer '{lc.get('name')}'")
+            if ltype == "blstm" and size % 2 != 0:
+                raise ValueError("Cannot create a bidirectional layer with an odd layer size")
+            specs.append(LayerSpec(
+                name=lc["name"], type=ltype, size=size,
+                bias=float(lc.get("bias", 0.0)),
+            ))
+
+        # topology validation (NeuralNetwork.cpp:96-125)
+        if len(specs) < 3:
+            raise ValueError("Not enough layers defined")
+        if specs[0].type != "input":
+            raise ValueError("The first layer is not an input layer")
+        if any(s.type == "input" for s in specs[1:]):
+            raise ValueError("Multiple input layers defined")
+        if specs[-1].type not in ioc.POSTOUTPUT_TYPES:
+            raise ValueError("The last layer is not a post output layer")
+        if any(s.type in ioc.POSTOUTPUT_TYPES for s in specs[:-1]):
+            raise ValueError("Multiple post output layers defined")
+        names = [s.name for s in specs]
+        if len(set(names)) != len(names):
+            raise ValueError("Different layers have the same name")
+
+        # post-output size must equal the output layer size (x2 for the
+        # interleaved-target losses) — PostOutputLayer.cpp:48-79
+        po, ol = specs[-1], specs[-2]
+        mult = 2 if po.type in ("weighted_sse", "weightedsse", "sse_mask", "wf") else 1
+        if po.type == "binary_classification" and po.size != 1:
+            raise ValueError("The binary classification post output layer "
+                             "cannot be used for an output layer size != 1")
+        if po.type == "multiclass_classification" and po.size == 1:
+            raise ValueError("The multiclass classification post output layer "
+                             "cannot be used for an output layer size of 1")
+        if po.size != ol.size * mult:
+            raise ValueError(f"Size mismatch: {po.size} vs. {ol.size * mult}")
+
+        if compute_dtype not in DTYPES:
+            raise ValueError(f"compute_dtype must be one of {list(DTYPES)}")
+        self.specs = specs
+        self.backend = backend  # LSTM backend: auto|scan|pallas
+        self.compute_dtype = DTYPES[compute_dtype]  # matmul operand dtype
+
+        # numpy parameters: from the JSON weights section, the rest drawn
+        # on demand by init_params
+        self.params: Dict[str, Any] = {}
+        if weights_json:
+            layers_dicts = [s.to_json() for s in specs]
+            self.params = ioc.params_from_weights_section(layers_dicts, weights_json)
+
+    @property
+    def output_size(self) -> int:
+        return self.specs[-2].size
+
+    # ------------------------------------------------------------------- init
+    def init_params(self, seed: int, dist: str = "uniform",
+                    uniform_min: float = -0.1, uniform_max: float = 0.1,
+                    normal_mean: float = 0.0, normal_sigma: float = 0.1) -> None:
+        """Randomly initialize any layer missing from the weights section
+        (TrainableLayer.cu:103-125 distributions) from the numpy stream the
+        JAX package uses: the same seed gives the same arrays."""
+        rng = np.random.RandomState(seed & 0x7FFFFFFF)
+
+        def draw(shape):
+            if dist == "uniform":
+                return rng.uniform(uniform_min, uniform_max, size=shape).astype(np.float32)
+            return rng.normal(normal_mean, normal_sigma, size=shape).astype(np.float32)
+
+        prev = self.specs[0].size
+        for s in self.specs[1:-1]:
+            if s.name not in self.params:
+                if s.type in ioc.LSTM_TYPES:
+                    d = 2 if ioc.LSTM_TYPES[s.type] else 1
+                    h = s.size // d
+                    self.params[s.name] = {
+                        "W_in": draw((d, prev, 4, h)),
+                        "W_rec": draw((d, h, 4, h)),
+                        "b": draw((d, 4, h)),
+                        "peep": draw((d, 3, h)),
+                    }
+                else:
+                    self.params[s.name] = {"W": draw((prev, s.size)), "b": draw((s.size,))}
+            prev = s.size
+
+    def device_params(self, device):
+        """`self.params` as float32 tensors on `device`."""
+        return params_from_numpy(self.params, device)
+
+    # ---------------------------------------------------------------- forward
+    def apply(self, params, inputs: torch.Tensor,
+              pattypes: torch.Tensor) -> torch.Tensor:
+        """Forward pass to the output layer's activations.
+
+        params: from device_params; inputs: [T, B, input_size] float32;
+        pattypes: [T, B] int8, on the params' device.
+        Returns [T, B, output_size] float32.
+        """
+        x = inputs
+        for s in self.specs[1:-1]:
+            p = params[s.name]
+            if s.type in ioc.LSTM_TYPES:
+                x = lstm_forward(p, x, pattypes, s.bias, ioc.LSTM_TYPES[s.type],
+                                 backend=self.backend,
+                                 compute_dtype=self.compute_dtype)
+            elif s.type == "softmax":
+                x = softmax_forward(p, x, s.bias, self.compute_dtype)
+            else:
+                x = feedforward_forward(p, x, ioc.FEEDFORWARD_TYPES[s.type],
+                                        s.bias, self.compute_dtype)
+        return x
+
+    def get_outputs(self, y, seq_info) -> tuple:
+        """Segment padded activations back into per-sequence outputs
+        (NeuralNetwork::getOutputs, NeuralNetwork.cpp:238-262).
+
+        y: [T, B, out] (tensor or array); seq_info: the Fraction's
+        per-sequence metadata. Returns (tags, [np.ndarray [len_i, out]]).
+        """
+        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+        tags, outs = [], []
+        for i, info in enumerate(seq_info):
+            tags.append(info["tag"])
+            outs.append(y[: info["length"], i, :])
+        return tags, outs
+
+    # ------------------------------------------------------------------- JSON
+    @classmethod
+    def from_json_file(cls, path: str, input_size_override: Optional[int] = None,
+                       **kwargs) -> "Network":
+        doc = ioc.load_network_json(path)
+        if "layers" not in doc:
+            raise ValueError("Missing section 'layers'")
+        return cls(doc["layers"], doc.get("weights"),
+                   input_size_override=input_size_override, **kwargs)
+
+    def layers_json(self) -> List[Dict[str, Any]]:
+        return [s.to_json() for s in self.specs]
+
+    def save(self, path: str) -> None:
+        ioc.save_network_json(path, self.layers_json(), self.params)

@@ -1,0 +1,119 @@
+"""Build the CUDA kernels (csrc/*.cu) with nvcc and bind them with ctypes.
+
+The sources compile into one shared library with a plain C interface,
+`_build/liblstm_kernels_<hash>.so` inside the package; the hash covers the
+sources and the flags, so an edited source rebuilds and an unchanged one
+loads the library already built. Only the repository's sources and the
+installed CUDA toolkit are used. Importing this module builds nothing: the
+first kernel launch calls `load()`. The package imports on a machine with
+no nvcc; only a launch needs it.
+
+Usage: `load()` returns the ctypes library; `python -m
+lstm_rnn_tpu_torch.ops._build` builds and prints the compiler's report
+(registers, shared memory and spills per kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+# seconds the last build in this process took (None: loaded a built library)
+build_seconds = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels build at first launch on a machine "
+        "with the CUDA toolkit (put nvcc on PATH or set CUDA_HOME)")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"liblstm_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build_log() -> str:
+    """The compiler's report of the library `load()` uses ('' if none)."""
+    path = library_path() + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def _compile(out: str) -> None:
+    global build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
+                           f"{r.stdout}{r.stderr}")
+    build_seconds = time.perf_counter() - t0
+    with open(out + ".log", "w") as f:
+        f.write(r.stdout + r.stderr)
+    os.replace(tmp, out)
+
+
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_fwd_proj.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i,
+                                  i, p]
+    lib.lstm_fwd_proj.restype = i
+    lib.lstm_fwd_rec.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.lstm_fwd_rec.restype = i
+    lib.lstm_err_str.argtypes = [i]
+    lib.lstm_err_str.restype = ctypes.c_char_p
+
+
+def load():
+    """Build (if needed) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _compile(path)
+            lib = ctypes.CDLL(path)
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+if __name__ == "__main__":
+    load()
+    print(build_log())

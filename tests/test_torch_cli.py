@@ -1,0 +1,101 @@
+"""The port's CLI (lstm_rnn_tpu_torch.cli) in forward-pass mode against the
+JAX package's, on the same tiny .nc file and network.jsn: the posterior
+dumps must match (single_csv and HTK), and the flags the port does not
+support yet must fail loudly."""
+
+import json
+
+import numpy as np
+import pytest
+
+from lstm_rnn_tpu import cli as jax_cli
+from lstm_rnn_tpu import writers as jax_writers
+from lstm_rnn_tpu_torch import cli
+from lstm_rnn_tpu_torch import writers
+from tests.test_cli import _assert_csv_close
+from tests.test_data import _write_classification_nc
+
+# sequences of 6, 5, 1, 7 and 3 frames over 2 fractions of 3 rows (the
+# last fraction has an all-padding row)
+LENGTHS = [6, 5, 1, 7, 3]
+
+
+def _setup(tmp_path):
+    nc = str(tmp_path / "ff.nc")
+    _write_classification_nc(nc, LENGTHS, in_size=3, num_labels=4, seed=5)
+    net = {"layers": [
+        {"name": "input", "type": "input", "size": 3},
+        {"name": "l1", "type": "blstm", "size": 6, "bias": 1.0},
+        {"name": "l2", "type": "lstm", "size": 5, "bias": 0.5},
+        {"name": "output", "type": "softmax", "size": 4, "bias": 1.0},
+        {"name": "postoutput", "type": "multiclass_classification",
+         "size": 4},
+    ]}
+    net_path = str(tmp_path / "network.jsn")
+    with open(net_path, "w") as f:
+        json.dump(net, f)
+    # no weights in the JSON: both CLIs draw them from --random_seed
+    return ["--network", net_path, "--train", "false", "--ff_input_file", nc,
+            "--parallel_sequences", "3", "--random_seed", "17"]
+
+
+def test_forward_single_csv_matches_jax(tmp_path):
+    common = _setup(tmp_path)
+    assert jax_cli.main(common + ["--device", "cpu", "--ff_output_file",
+                                  str(tmp_path / "jax.csv")]) == 0
+    assert cli.main(common + ["--device", "cpu", "--ff_output_file",
+                              str(tmp_path / "port.csv")]) == 0
+    lines = (tmp_path / "port.csv").read_text().strip().split("\n")
+    assert [ln.split(";")[0] for ln in lines] == [
+        f"seq{i}" for i in range(len(LENGTHS))]
+    for ln, n in zip(lines, LENGTHS):
+        assert len(ln.split(";")) == 1 + 4 * n
+    # both are true-f32 forward passes of the same weights, summed in
+    # another order (the default tolerance of test_cli's serving checks)
+    _assert_csv_close(tmp_path / "port.csv", tmp_path / "jax.csv")
+
+
+def test_forward_htk_matches_jax(tmp_path):
+    common = _setup(tmp_path) + ["--ff_output_format", "htk",
+                                 "--ff_output_kind", "9",
+                                 "--feature_period", "10"]
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    assert jax_cli.main(common + ["--device", "cpu", "--ff_output_file",
+                                  str(tmp_path / "jax")]) == 0
+    assert cli.main(common + ["--cuda", "false", "--ff_output_file",
+                              str(tmp_path / "port")]) == 0
+    for i, n in enumerate(LENGTHS):
+        got, period, kind = writers.read_htk(str(tmp_path / "port" /
+                                                 f"seq{i}.htk"))
+        want, period_j, kind_j = jax_writers.read_htk(
+            str(tmp_path / "jax" / f"seq{i}.htk"))
+        assert got.shape == want.shape == (n, 4)
+        assert (period, kind) == (period_j, kind_j) == (100000, 9)
+        np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--num_devices", "2"], ["--model_devices", "2"],
+    ["--pipeline_devices", "2"], ["--seq_devices", "2"],
+    ["--stream_chunk", "4"], ["--f32_matmul", "3x"],
+    ["--coordinator_address", "localhost:1234"], ["--device", "tpu"],
+])
+def test_unsupported_flags_raise(tmp_path, flag):
+    with pytest.raises(ValueError, match="ROADMAP"):
+        cli.main(_setup(tmp_path) + ["--device", "cpu"] + flag)
+
+
+def test_train_mode_is_not_ported(tmp_path):
+    args = _setup(tmp_path)
+    args[args.index("--train") + 1] = "true"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(args + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", [["--device", "cuda"], ["--cuda", "true"]])
+def test_cuda_request_without_gpu_raises(tmp_path, monkeypatch, flag):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        cli.main(_setup(tmp_path) + flag)
