@@ -3,23 +3,39 @@
 
     python3 chip_smoke.py
 
-Drives the forward-pass (posterior dump) mode end to end at the full width
-of the TIMIT recipe (117 inputs -> 5 x BLSTM(250) -> softmax(183),
-parallel_sequences 50), with random weights from a seed:
+Drives the port's two paths end to end at the full width of the TIMIT
+recipe (117 inputs -> 5 x BLSTM(250) -> softmax(183), parallel_sequences
+50), with random weights from a seed, and holds every kernel against its
+plain twin:
 
 1. device: torch/CUDA versions, the card's name and power limit; TF32 off;
-2. build: compiles the CUDA kernels from csrc/ with nvcc;
-3. kernel against its plain twin at one layer's full width (D=2, H=125,
-   B=50, T=800, P=117 and P=250), float32 and bfloat16, with times;
-4. the slice end to end: writes a TIMIT-shaped .nc and network.jsn, runs
-   `lstm_rnn_tpu_torch.cli.main(--train false ... htk)` in f32 and in
-   bf16, checks the files, the posteriors, the kernel launch count, and a
-   rerun with `--lstm_backend scan`;
-5. times: forward frames/s of the kernel path and of the twin path.
+2. build: compiles the CUDA kernels from csrc/ with nvcc (one process per
+   source, in parallel);
+3. the inference forward kernel (K0) against its twin at one layer's full
+   width (D=2, H=125, B=50, T=800, P=117 and P=250), float32 and bfloat16;
+4. the training kernels against their twins, with times: the forward with
+   residuals (K1) and the BPTT (K2) at T=500, B=50, P=117 (the first
+   layer: no dx) and P=250, and the softmax + CE tail's forward and
+   backward (K3f, K3b) at N=25,000, P=250, S=183; float32 and bfloat16;
+5. serving end to end: writes a TIMIT-shaped .nc and network.jsn, runs
+   `cli.main(--train false ... htk)` in f32 and bf16 and with
+   `--lstm_backend scan`, checks the files, the posteriors and the K0
+   launch count; forward frames/s and a profile of one fraction;
+6. one SGD step of the kernel path against the scan path's autograd, from
+   the same weights (f32): the loss and the parameter update;
+7. training end to end: a TIMIT-shaped train and val corpus, `cli.main(
+   --train true --truncate_seq 500 --parallel_sequences 50 --stochastic
+   true --shuffle_fractions true ... --max_epochs 2)` in f32 and bf16:
+   the epoch table, trained_network.jsn (exists, moved, serves in forward
+   mode) and the exact launch count of every kernel;
+8. training frames/s of the bench.py recipe step (T=500, B=50, every row
+   full, lr 1e-4, momentum 0.9) on the kernel path (f32, bf16) and the
+   scan path, and a profile of one kernel-path step by kernel.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
-no GPU. The last line of stdout is the contract line
+no GPU. The line before last is the card's name and power limit, the one
+before it the kernels' JSON; the last line of stdout is the contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -46,6 +62,36 @@ TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
 # posteriors of the kernel path vs the scan path (f32): errors of ~1e-5 in
 # h move near-uniform posteriors (~1/183) by far less than this
 SCAN_TOL = 1e-5
+
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; FP32 outside the
+# tensor cores and dense bf16 FLOP/s (the rate for the operands' type)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the training kernels' shapes: one BLSTM layer of the recipe at the
+# bench.py sequence length, and the tail over one fraction's frames
+T_TRAIN, N_TAIL, S_STATES = 500, 25_000, 183
+# kernel vs twin, relative to the largest entry of each of the twin's
+# outputs. K1 as K0 (TOL): f32 sums in another order through 500 steps;
+# bf16 one rounding flip of h carried forward. K2: the same through the
+# backward recurrence, then summed over 25,000 rows into the weight
+# gradients; in bf16 a delta stored on the other side of a bf16 boundary
+# moves every sum it enters by up to one bf16 ulp (2^-8), and the
+# recurrence carries it. K3: f32 sums in another order; bf16 p and dz
+# stored in bf16 (2^-7).
+REL = {"lstm_fwd_save": {"float32": 1e-5, "bfloat16": 1.6e-2},
+       "lstm_bwd": {"float32": 1e-4, "bfloat16": 2.0 ** -6},
+       "softmax_ce": {"float32": 1e-5, "bfloat16": 2.0 ** -7}}
+# the tail's p element by element against its own size: f32 sums in
+# another order; bf16 both sides round the same f32 value, and a rounding
+# flip moves p by one bf16 ulp, at most 2^-7 of |p|
+P_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# one SGD step, kernel path vs scan path (f32, 5 layers, T=500): the loss
+# to f32 sum-order noise; the update (-lr * grad on the first step)
+# relative to its largest entry. Sound f32 runs read 2.3e-6 on an H100
+# (700 W); the control, the bf16 kernel step against the same f32 scan
+# step, must read above the limit
+STEP_TOL = {"loss": 1e-5, "update": 1e-4}
 
 
 def phase(name, msg):
@@ -123,7 +169,9 @@ def kernel_vs_twin(torch):
             if not err <= TOL[name]:
                 raise AssertionError(f"kernel disagrees with its twin: "
                                      f"{err} > {TOL[name]} (P={P}, {name})")
-            res[(P, name)] = {"err": err, "ms": ms, "plain_ms": plain}
+            res[(P, name)] = {"err": err, "ms": ms, "plain_ms": plain,
+                              "cost": lstm_cost("lstm_fwd", P,
+                                                args[5].cpu().numpy(), name)}
     return res
 
 
@@ -303,19 +351,462 @@ def profile_fraction(torch, nc):
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
 
+    report_profile(prof, wall_us, f"one forward fraction T={x.shape[0]}")
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|, and max |got - want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    return err / max(1e-30, want.abs().max().item()), err
+
+
+def elem_rel(got, want):
+    """max over elements of |got - want| / |want| (0 where both are 0)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+def per_output(names, errs):
+    return ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(names, errs))
+
+
+def bound(nbytes, flops, dtype):
+    """(least ms the card could take, what bounds it): each input read
+    once and each output written once at HBM rate, the products at the
+    peak rate for the operands' type."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def lstm_cost(kind, P, lengths, dtype, need_dx=True):
+    """(bytes, flops) of one BLSTM layer at D=2, H=125, B=50, T=T_TRAIN (or
+    T_LAYER for K0) for this run's lengths. Padded rows add nothing to any
+    output, so every product counts the valid frames only, and every
+    per-frame input is read at the valid frames; the outputs are written
+    whole."""
+    T = T_LAYER if kind == "lstm_fwd" else T_TRAIN
+    G = 4 * H
+    es = 2 if dtype == "bfloat16" else 4
+    frames = int(lengths.sum())
+    weights = D * (P + H) * G * es + D * (3 * H + G) * 4 + B * 4
+    if kind in ("lstm_fwd", "lstm_fwd_save"):
+        nbytes = frames * P * es + weights + T * B * D * H * es
+        if kind == "lstm_fwd_save":
+            nbytes += D * T * B * (H * 4 + G * es)
+        # the input projection and the recurrent product
+        flops = 2 * D * frames * (P + H) * G
+        return nbytes, flops
+    # reads x, the weights, h (for h_prev), dh, c and the gates; writes
+    # dW_in, dW_rec, dpeep, dbias and dx
+    nbytes = (frames * P * es + weights + frames * D * H * es * 2
+              + D * frames * (H * 4 + G * es)
+              + D * (P + H) * G * 4 + D * (3 * H + G) * 4
+              + (T * B * P * 4 if need_dx else 0))
+    # da_next . W_rec^T, dW_in, dW_rec, and dx
+    flops = 2 * D * frames * G * (H + P + H + (P if need_dx else 0))
+    return nbytes, flops
+
+
+def tail_cost(kind, P, dtype):
+    es = 2 if dtype == "bfloat16" else 4
+    N, S = N_TAIL, S_STATES
+    if kind == "softmax_ce_proj_fwd":
+        return (N * P * es + P * S * es + S * 4 + N * 4 + N * S * es + 8,
+                2 * N * P * S)
+    return (N * S * es + N * P * es + P * S * es + N * 4 + 4
+            + N * P * es + P * S * 4 + S * 4, 4 * N * P * S)
+
+
+def train_layer(torch, P, seed):
+    """One BLSTM layer's operands at T_TRAIN: the recipe's +-0.1 weights,
+    N(0, 1) inputs, and lengths near a training fraction's (most rows full
+    after truncation at 500), with ragged rows, a row of length 1 and a
+    kernel block of empty rows."""
+    rng = np.random.RandomState(seed)
+
+    def u(*s):
+        return torch.tensor(rng.uniform(-0.1, 0.1, s), dtype=torch.float32,
+                            device="cuda")
+    x = torch.tensor(rng.randn(T_TRAIN, B, P), dtype=torch.float32,
+                     device="cuda")
+    lengths = np.full(B, T_TRAIN)
+    lengths[8:20] = rng.randint(1, T_TRAIN, 12)
+    lengths[1], lengths[4:8] = 1, 0
+    dh = torch.tensor(rng.randn(T_TRAIN, B, D * H), dtype=torch.float32,
+                      device="cuda")
+    return (x, u(D, P, 4 * H), u(D, H, 4 * H), u(D, 3, H), u(D, 4 * H),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda")), dh
+
+
+def train_kernels_vs_twins(torch):
+    """K1 and K2 at one layer's full width, K3f and K3b over one fraction
+    of frames: max error against the twin, kernel and twin ms."""
+    import torch.nn.functional as F
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    res = {}
+    for P, need_dx in ((117, False), (250, True)):
+        args, dh = train_layer(torch, P, seed=P)
+        lens = args[5].cpu().numpy()
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            got = lc.lstm_fwd_save(*args, 1.0, dt)
+            want = lc.lstm_scan_reference(*args, 1.0, dt, save=True)
+            torch.cuda.synchronize()
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            rel, err = max(e[0] for e in errs), max(e[1] for e in errs)
+            each = per_output(("h", "c", "gates"), errs)
+            ms = time_ms(torch, lambda: lc.lstm_fwd_save(*args, 1.0, dt), 10)
+            plain = time_ms(torch, lambda: lc.lstm_scan_reference(
+                *args, 1.0, dt, save=True), 1)
+            res[("lstm_fwd_save", P, name)] = dict(
+                err=err, rel=rel, ms=ms, plain_ms=plain,
+                cost=lstm_cost("lstm_fwd_save", P, lens, name))
+            phase("train-kernel", f"K1 lstm_fwd_save P={P} {name}: "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} [{each}] (tol "
+                  f"{REL['lstm_fwd_save'][name]:.1e}); kernel {ms:.3f} ms; "
+                  f"twin {plain:.1f} ms [T={T_TRAIN} B={B} H={H} D={D}]")
+            if not (rel <= REL["lstm_fwd_save"][name]
+                    and all(torch.isfinite(g.float()).all() for g in got)):
+                raise AssertionError(f"K1 disagrees with its twin: {rel}")
+            h, c, g = got
+            bwd_args = (args[0], args[1], args[2], args[3], args[5], h, c, g,
+                        dh, 1.0, True, dt, need_dx)
+            got = lc.lstm_bwd(*bwd_args)
+            want = lc.lstm_scan_bwd_reference(*bwd_args)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) if a is not None else (0.0, 0.0)
+                    for a, b in zip(got, want)]
+            rel, err = max(e[0] for e in errs), max(e[1] for e in errs)
+            each = per_output(("dx", "dW_in", "dW_rec", "dpeep", "dbias"),
+                              errs)
+            ms = time_ms(torch, lambda: lc.lstm_bwd(*bwd_args), 5)
+            plain = time_ms(torch, lambda: lc.lstm_scan_bwd_reference(
+                *bwd_args), 1)
+            res[("lstm_bwd", P, name)] = dict(
+                err=err, rel=rel, ms=ms, plain_ms=plain,
+                cost=lstm_cost("lstm_bwd", P, lens, name, need_dx))
+            phase("train-kernel", f"K2 lstm_bwd P={P} need_dx={need_dx} "
+                  f"{name}: max_abs_err={err:.3e} rel={rel:.3e} [{each}] "
+                  f"(tol {REL['lstm_bwd'][name]:.1e}); kernel {ms:.3f} ms; twin "
+                  f"{plain:.1f} ms")
+            if not (rel <= REL["lstm_bwd"][name] and all(
+                    torch.isfinite(a).all() for a in got if a is not None)):
+                raise AssertionError(f"K2 disagrees with its twin: {rel}")
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    P, N, S = 2 * H, N_TAIL, S_STATES
+    h2 = torch.randn(N, P, device="cuda", generator=gen) * 0.5
+    W = (torch.rand(P, S, device="cuda", generator=gen) - 0.5) * 0.2
+    b = (torch.rand(S, device="cuda", generator=gen) - 0.5) * 0.2
+    tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    tc[::10] = -1  # dummy frames
+    g = torch.tensor(1.0, device="cuda")
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        loss, cnt, p = sc.softmax_ce_proj_fwd(h2, W, b, tc, 1.0, dt)
+        loss_r, cnt_r, p_r = sc.softmax_ce_fwd_reference(h2, W, b, tc, 1.0,
+                                                         dt)
+        torch.cuda.synchronize()
+        rel, err = elem_rel(p, p_r), rel_err(p, p_r)[1]
+        # controls: a zero, a uniform and a column-rolled p must fail
+        controls = {"zero": torch.zeros_like(p_r),
+                    "uniform": torch.full_like(p_r, 1.0 / S),
+                    "rolled": p_r.roll(1, dims=1)}
+        ctrl = {k: elem_rel(v, p_r) for k, v in controls.items()}
+        lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
+        ms = time_ms(torch, lambda: sc.softmax_ce_proj_fwd(
+            h2, W, b, tc, 1.0, dt), 10)
+        ms_nop = time_ms(torch, lambda: sc.softmax_ce_proj_fwd(
+            h2, W, b, tc, 1.0, dt, want_p=False), 10)
+        plain = time_ms(torch, lambda: sc.softmax_ce_fwd_reference(
+            h2, W, b, tc, 1.0, dt), 10)
+        hs, Ws = h2.to(dt), W.to(dt)
+        tl = tc.long()
+        lib = time_ms(torch, lambda: F.cross_entropy(
+            torch.addmm(b.to(dt), hs, Ws), tl, reduction="sum",
+            ignore_index=-1), 10)
+        res[("softmax_ce_proj_fwd", P, name)] = dict(
+            err=err, rel=rel, loss_rel=lrel, ms=ms, plain_ms=plain,
+            library_ms=lib,
+            cost=tail_cost("softmax_ce_proj_fwd", P, name))
+        phase("train-kernel", f"K3f softmax_ce_proj_fwd {name}: p "
+              f"max_abs_err={err:.3e} elementwise rel={rel:.3e} (tol "
+              f"{P_REL[name]:.1e}; controls " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in ctrl.items()) + f"), loss rel "
+              f"{lrel:.2e}, "
+              f"count {cnt.item()} vs {cnt_r.item()}; kernel {ms:.3f} ms "
+              f"({ms_nop:.3f} ms without p); twin {plain:.3f} ms; "
+              f"F.cross_entropy(addmm) {lib:.3f} ms [N={N} P={P} S={S}]")
+        if not all(v > P_REL[name] for v in ctrl.values()):
+            raise AssertionError(f"the p check passes a wrong p: {ctrl}")
+        if not (rel <= P_REL[name] and lrel <= 1e-5
+                and abs(cnt.item() - cnt_r.item()) <= 1):
+            raise AssertionError("K3f disagrees with its twin")
+        got = sc.softmax_ce_proj_bwd(p, h2, W, tc, g, 1.0, dt)
+        want = sc.softmax_ce_bwd_reference(p, h2, W, tc, g, 1.0, dt)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, c) for a, c in zip(got, want)]
+        rel, err = max(e[0] for e in errs), max(e[1] for e in errs)
+        each = per_output(("dh", "dW", "db"), errs)
+        ms = time_ms(torch, lambda: sc.softmax_ce_proj_bwd(
+            p, h2, W, tc, g, 1.0, dt), 10)
+        plain = time_ms(torch, lambda: sc.softmax_ce_bwd_reference(
+            p, h2, W, tc, g, 1.0, dt), 10)
+        res[("softmax_ce_proj_bwd", P, name)] = dict(
+            err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=None,
+            cost=tail_cost("softmax_ce_proj_bwd", P, name))
+        phase("train-kernel", f"K3b softmax_ce_proj_bwd {name}: "
+              f"max_abs_err={err:.3e} rel={rel:.3e} [{each}] (tol "
+              f"{REL['softmax_ce'][name]:.1e}); kernel {ms:.3f} ms; twin "
+              f"{plain:.3f} ms")
+        if not rel <= REL["softmax_ce"][name]:
+            raise AssertionError(f"K3b disagrees with its twin: {rel}")
+    return res
+
+
+def recipe_batch(torch, T=T_TRAIN, full=True, seed=0):
+    """bench.py's fraction: N(0, 1) inputs, random targets of 183 states,
+    every row full (or ragged lengths 300..T with full=False)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(T, B, 117).astype(np.float32)
+    lengths = np.full(B, T) if full else rng.randint(300, T + 1, B)
+    pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
+    tc = rng.randint(0, S_STATES, (T, B)).astype(np.int32)
+    tc[pt == 0] = -1
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(tc).cuda(),
+            torch.from_numpy(pt).cuda()), int(lengths.sum())
+
+
+def make_trainer(backend, dtype):
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    net = build_timit_network(seed=3, backend=backend, compute_dtype=dtype)
+    # no device named: the Trainer takes the card
+    return Trainer(net, None, learning_rate=1e-4, momentum=0.9,
+                   hybrid_online_batch=True)
+
+
+def step_kernel_vs_scan(torch):
+    """One SGD step from the same weights, kernel path vs scan path (f32,
+    ragged rows): the loss and the update; and the control, the bf16
+    kernel step against the same f32 scan step, which the check must
+    reject."""
+    batch, _ = recipe_batch(torch, full=False, seed=1)
+    out = {}
+    for label, backend, dtype in (("kernel", "auto", "float32"),
+                                  ("scan", "scan", "float32"),
+                                  ("control", "auto", "bfloat16")):
+        tr = make_trainer(backend, dtype)
+        before = {n: {k: v.detach().clone() for k, v in l.items()}
+                  for n, l in tr.params.items()}
+        t0 = time.perf_counter()
+        err, _ = tr.train_step(*batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        upd = torch.cat([(tr.params[n][k].detach() - before[n][k]).flatten()
+                         for n in sorted(before) for k in sorted(before[n])])
+        out[label] = (err.item(), upd, dt)
+    l_s, u_s, t_s = out["scan"]
+
+    def rels(label):
+        loss, upd, _ = out[label]
+        return (abs(loss - l_s) / abs(l_s),
+                ((upd - u_s).abs().max() / u_s.abs().max()).item())
+    (lrel, urel), (lrel_c, urel_c) = rels("kernel"), rels("control")
+    l_k, _, t_k = out["kernel"]
+    phase("step", f"one SGD step f32 T={T_TRAIN} B={B}: loss kernel "
+          f"{l_k:.6f} scan {l_s:.6f} (rel {lrel:.2e}, tol "
+          f"{STEP_TOL['loss']:.0e}); update rel {urel:.2e} (tol "
+          f"{STEP_TOL['update']:.0e}, max |update| "
+          f"{u_s.abs().max().item():.3e}); control (bf16 kernel step): "
+          f"loss rel {lrel_c:.2e}, update rel {urel_c:.2e}; wall kernel "
+          f"{t_k:.2f} s, scan {t_s:.2f} s (first calls)")
+    if not (lrel <= STEP_TOL["loss"] and urel <= STEP_TOL["update"]):
+        raise AssertionError("kernel step and scan step disagree")
+    if not urel_c > STEP_TOL["update"]:
+        raise AssertionError("the update check passes the bf16 control")
+
+
+def write_train_corpus(workdir):
+    """TIMIT-shaped train and val corpora (lengths 300-800, random labels
+    of 183 states) and the recipe's network.jsn (weights from SEED)."""
+    from lstm_rnn_tpu_torch.data.netcdf3 import strings_to_chars, write_netcdf
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    rng = np.random.RandomState(SEED + 1)
+    paths = {}
+    for name, n_seq in (("train", 200), ("val", 100)):
+        lengths = rng.randint(300, 801, n_seq)
+        total = int(lengths.sum())
+        path = os.path.join(workdir, f"timit_{name}.nc")
+        write_netcdf(path, {"numSeqs": n_seq, "numTimesteps": total,
+                            "inputPattSize": 117, "numLabels": S_STATES,
+                            "maxSeqTagLength": 24}, [
+            ("seqTags", ["numSeqs", "maxSeqTagLength"],
+             strings_to_chars([f"{name}{i:04d}" for i in range(n_seq)], 24)),
+            ("seqLengths", ["numSeqs"], lengths.astype(np.int32)),
+            ("inputs", ["numTimesteps", "inputPattSize"],
+             rng.randn(total, 117).astype(np.float32)),
+            ("targetClasses", ["numTimesteps"],
+             rng.randint(0, S_STATES, total).astype(np.int32)),
+        ])
+        paths[name] = (path, lengths)
+    net_path = os.path.join(workdir, "network_train.jsn")
+    build_timit_network(seed=SEED).save(net_path)
+    return paths, net_path
+
+
+def wrappers():
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    return {"lstm_fwd": lc.lstm_scan_fused, "lstm_fwd_save": lc.lstm_fwd_save,
+            "lstm_bwd": lc.lstm_bwd,
+            "softmax_ce_proj_fwd": sc.softmax_ce_proj_fwd,
+            "softmax_ce_proj_bwd": sc.softmax_ce_proj_bwd}
+
+
+def train_end_to_end(torch, workdir):
+    """cli.main(--train true) on the TIMIT recipe, f32 and bf16: the epoch
+    table, the saved network, and every kernel's exact launch count."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.network import Network
+    paths, net_path = write_train_corpus(workdir)
+    (train_nc, train_len), (val_nc, val_len) = paths["train"], paths["val"]
+    n_train = DataSet([train_nc], parallel_sequences=50,
+                      trunc_seq_length=500).num_fractions()
+    n_val = DataSet([val_nc], parallel_sequences=50).num_fractions()
+    epochs = 2
+    expect = {"lstm_fwd": 5 * n_val * epochs,
+              "lstm_fwd_save": 5 * n_train * epochs,
+              "lstm_bwd": 5 * n_train * epochs,
+              "softmax_ce_proj_fwd": (n_train + n_val) * epochs,
+              "softmax_ce_proj_bwd": n_train * epochs}
+    phase("train", f"train {len(train_len)} sequences "
+          f"({int(train_len.sum())} frames, lengths {train_len.min()}.."
+          f"{train_len.max()}, {n_train} fractions after truncation at "
+          f"500), val {len(val_len)} ({n_val} fractions)")
+    launches = None
+    for name in ("float32", "bfloat16"):
+        out = os.path.join(workdir, f"trained_{name}.jsn")
+        args = ["--network", net_path, "--train", "true",
+                "--train_file", train_nc, "--val_file", val_nc,
+                "--truncate_seq", "500", "--parallel_sequences", "50",
+                "--stochastic", "true", "--shuffle_fractions", "true",
+                "--learning_rate", "1e-4", "--momentum", "0.9",
+                "--max_epochs", str(epochs), "--random_seed", str(SEED),
+                "--compute_dtype", name, "--save_network", out]
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0  # the training path's run starts here
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        wall = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in w.items()}
+        text = buf.getvalue()
+        rows = [ln for ln in text.splitlines()
+                if ln.strip()[:1].isdigit() and "|" in ln]
+        for ln in rows:
+            phase("train", f"{name} |{ln}")
+        if rc != 0 or len(rows) != epochs:
+            print(text[-3000:])
+            raise AssertionError(f"cli --train true {name} returned {rc}")
+        for ln in rows:
+            cells = ln.replace("%", " ").replace("|", " ").split()
+            vals = [float(c) for c in cells[2:6]]
+            if not np.isfinite(vals).all():
+                raise AssertionError(f"non-finite epoch row: {ln}")
+        phase("train", f"{name}: {wall:.1f} s wall for {epochs} epochs; "
+              f"launches {counts}")
+        if counts != expect:
+            raise AssertionError(f"launch counts {counts}, expected {expect}")
+        if launches is None:
+            launches = counts
+        start = Network.from_json_file(net_path)
+        trained = Network.from_json_file(out)
+        moved = max(float(np.abs(trained.params[n][k]
+                                 - start.params[n][k]).max())
+                    for n in start.params for k in start.params[n])
+        if not moved > 0:
+            raise AssertionError("training did not move the weights")
+        phase("train", f"{name}: trained_network.jsn written, max |w - w0| "
+              f"= {moved:.3e}")
+    # the trained network serves in forward mode
+    outdir = os.path.join(workdir, "served")
+    run_cli(val_nc, os.path.join(workdir, "trained_float32.jsn"), outdir)
+    tags = [f"val{i:04d}" for i in range(len(val_len))]
+    _, worst = read_outputs(outdir, tags, val_len)
+    phase("train", f"the trained network serves the val set in forward "
+          f"mode: {len(tags)} HTK files, rows sum to 1 within {worst:.1e}")
+    return launches
+
+
+def train_rates(torch, card):
+    """Training frames/s of the bench.py recipe step (T=500, B=50, every
+    row full, lr 1e-4, momentum 0.9), synchronised, after a warm-up: the
+    kernel path f32 and bf16 and the scan path f32."""
+    batch, frames = recipe_batch(torch)
+    rates = {}
+    for label, backend, dtype, reps in (("kernel f32", "auto", "float32", 5),
+                                        ("kernel bf16", "auto", "bfloat16",
+                                         5),
+                                        ("scan f32", "scan", "float32", 1)):
+        tr = make_trainer(backend, dtype)
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tr.train_step(*batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        rates[label] = frames / dt
+        phase("rate", f"train step {label}: {frames / dt:,.0f} frames/s "
+              f"({1e3 * dt:.1f} ms per step of {frames} frames, mean of "
+              f"{reps}) on {card}")
+    return rates
+
+
+def profile_step(torch):
+    """Device time by kernel over one kernel-path training step (f32)."""
+    from torch.profiler import ProfilerActivity, profile
+    batch, _ = recipe_batch(torch)
+    tr = make_trainer("auto", "float32")
+    tr.train_step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    report_profile(prof, wall_us, f"one training step T={T_TRAIN} f32")
+
+
+def report_profile(prof, wall_us, what):
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0) or 0)
-    events = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    # device-side events only: a host op (an autograd node) also reports
+    # the device time of the kernels it launched, which would count twice
+    events = sorted((e for e in prof.key_averages()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                    key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events)
     if busy <= 0:
-        phase("profile", "device time by kernel: not measured (the "
+        phase("profile", f"{what}: device time by kernel not measured (the "
               "profiler recorded no device time)")
         return
-    phase("profile", f"one fraction T={x.shape[0]}: device busy "
-          f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
-          f"({100 * busy / wall_us:.1f}%)")
-    for e in events[:8]:
+    phase("profile", f"{what}: device busy {busy / 1e3:.2f} ms of "
+          f"{wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}%)")
+    for e in events[:12]:
         if dev_us(e) > 0:
             phase("profile", f"  {dev_us(e) / 1e3:9.3f} ms  "
                   f"{e.count:5d}x  {e.key[:90]}")
@@ -349,28 +840,49 @@ def main():
 
     with torch.inference_mode():
         res = kernel_vs_twin(torch)
+    with torch.no_grad():
+        tres = train_kernels_vs_twins(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches, nc = end_to_end(torch, workdir)
+        launches_fwd, nc = end_to_end(torch, workdir)
         forward_rates(torch, nc, card)
         profile_fraction(torch, nc)
+        step_kernel_vs_scan(torch)
+        launches = train_end_to_end(torch, workdir)
+    launches["lstm_fwd"] = launches_fwd
+    train_rates(torch, card)
+    profile_step(torch)
 
-    main_shape = res[(250, "float32")]
-    kernels = {"kernels": [{
-        "name": "lstm_fwd",
-        "route": "cuda",
-        "source": "lstm_rnn_tpu_torch/csrc/lstm_fwd.cu",
-        "replaces": "lstm_rnn_tpu/ops/lstm_cell.py:164",
-        "launches": launches,
-        "max_abs_err": max(r["err"] for (_, n), r in res.items()
-                           if n == "float32"),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "max_abs_err_bf16": max(r["err"] for (_, n), r in res.items()
-                                if n == "bfloat16"),
-        "ms_bf16": res[(250, "bfloat16")]["ms"],
-        "plain_ms_bf16": res[(250, "bfloat16")]["plain_ms"],
-    }]}
-    print(json.dumps(kernels))
+    source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
+              "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
+              "softmax_ce.cu", "softmax_ce_proj_bwd": "softmax_ce.cu"}
+    replaces = {"lstm_fwd": "lstm_rnn_tpu/ops/lstm_cell.py:164",
+                "lstm_fwd_save": "lstm_rnn_tpu/ops/lstm_cell.py:164",
+                "lstm_bwd": "lstm_rnn_tpu/ops/lstm_cell.py:284",
+                "softmax_ce_proj_fwd": "lstm_rnn_tpu/ops/softmax_ce.py:350",
+                "softmax_ce_proj_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:361"}
+    # each kernel at the shape its path gives it: K0 at P=250, T=800; K1
+    # and K2 at P=250, T=500; the tail over 25,000 frames
+    rows = {"lstm_fwd": (res[(250, "float32")], res[(250, "bfloat16")])}
+    for k in ("lstm_fwd_save", "lstm_bwd", "softmax_ce_proj_fwd",
+              "softmax_ce_proj_bwd"):
+        rows[k] = (tres[(k, 250, "float32")], tres[(k, 250, "bfloat16")])
+    kernels = []
+    for k, (r32, r16) in rows.items():
+        b32, by32 = bound(*r32["cost"], "float32")
+        b16, _ = bound(*r16["cost"], "bfloat16")
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": f"lstm_rnn_tpu_torch/csrc/{source[k]}",
+            "replaces": replaces[k], "launches": launches[k],
+            "max_abs_err": r32["err"], "ms": r32["ms"],
+            "plain_ms": r32["plain_ms"], "bound_ms": b32, "bound_by": by32,
+            "library_ms": r32.get("library_ms"),
+            "max_abs_err_bf16": r16["err"], "ms_bf16": r16["ms"],
+            "plain_ms_bf16": r16["plain_ms"], "bound_ms_bf16": b16,
+            "library_ms_bf16": r16.get("library_ms")})
+        if "loss_rel" in r32:
+            kernels[-1]["loss_rel_err"] = r32["loss_rel"]
+    print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,13 @@
 
 The same CURRENNT-compatible network JSON, NetCDF data, flag surface and
 numerics as the JAX package, running on an NVIDIA Hopper GPU. The LSTM
-recurrence runs in a CUDA kernel written for sm_90a (csrc/lstm_fwd.cu);
-everything else is plain PyTorch. This package imports torch and numpy
-only — never jax and never lstm_rnn_tpu.
+layers (forward and BPTT) and the fused softmax + cross-entropy tail run in
+CUDA kernels written for sm_90a (csrc/); everything else is plain PyTorch.
+This package imports torch and numpy only — never jax and never
+lstm_rnn_tpu.
 
-This slice ports the forward-pass (posterior dump) mode; training follows
-(ROADMAP.md).
+Ported: the forward-pass (posterior dump) mode and training; the rest
+follows (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -1,21 +1,28 @@
 """Command line: `python -m lstm_rnn_tpu_torch.cli [options] [options-file]`.
 
 Counterpart of lstm_rnn_tpu/cli.py (the `currennt` binary's behaviour,
-`currennt/src/main.cpp`). This slice ports the forward-pass mode
-(`--train false`): it runs the network over `--ff_input_file` and writes
-the output layer's activations as single_csv, per-sequence csv or HTK
-files. `--train true` raises NotImplementedError until the training step
-is ported (ROADMAP.md).
+`currennt/src/main.cpp`):
+
+- `--train true`: trains on `--train_file` (validating on `--val_file`,
+  testing on `--test_file`) with momentum SGD, stochastic or batch, prints
+  the epoch table, stops as the reference does and writes the best
+  weights to `--save_network`. Weight noise, input noise, autosave and
+  `--continue` are not ported yet and raise (ROADMAP.md);
+- `--train false`: runs the network over `--ff_input_file` and writes the
+  output layer's activations as single_csv, per-sequence csv or HTK files.
 
 Device: `--cuda true` (the default) or `--device cuda` runs on the GPU, the
-LSTM layers through the Hopper kernel; a missing GPU is an error, not a
-move to the CPU. `--device cpu` / `--cuda false` runs the plain PyTorch
-twins. float32 matmuls run in true fp32: TF32 is switched off.
+LSTM layers and the classification tail through the Hopper kernels; a
+missing GPU is an error, not a move to the CPU. `--device cpu` /
+`--cuda false` runs the plain PyTorch twins. float32 matmuls run in true
+fp32: TF32 is switched off.
 """
 
 from __future__ import annotations
 
+import os
 import sys
+import time
 import traceback
 from typing import List, Optional
 
@@ -27,27 +34,47 @@ from lstm_rnn_tpu_torch import writers
 from lstm_rnn_tpu_torch.config import Config, parse_config
 from lstm_rnn_tpu_torch.data.dataset import DataSet
 from lstm_rnn_tpu_torch.network import Network
+from lstm_rnn_tpu_torch.trainer import Trainer
 from lstm_rnn_tpu_torch.utils.device import describe, select_device
 
 
-def _load_dataset(cfg: Config) -> Optional[DataSet]:
-    """The forward-pass set; input noise applies if sigma > 0
-    (README:169-171). Fractions pad to their exact longest sequence unless
-    --bucket_lengths asks for buckets: the JAX package always buckets here
-    to bound its per-shape compiles, which the port does not have, and
-    padding is numerically inert either way (get_outputs slices by true
-    length)."""
-    files = cfg.feedforward_input_files
+def _load_dataset(cfg: Config, which: str) -> Optional[DataSet]:
+    """The train, val, test or ff ("ff") set, as the JAX CLI loads it:
+    the training set truncates and shuffles as configured, every training
+    -mode set is sorted by length; input noise applies to the training and
+    forward-pass sets if sigma > 0 (README:169-171). Fractions pad to their
+    exact longest sequence unless --bucket_lengths asks for buckets: the
+    JAX package always buckets forward-pass sets to bound its per-shape
+    compiles, which the port does not have, and padding is numerically
+    inert either way (get_outputs slices by true length)."""
+    frac_shuf = seq_shuf = False
+    noise, trunc, sort = 0.0, 0, True
+    if which == "train":
+        files, frac = cfg.training_files, cfg.train_fraction
+        frac_shuf, seq_shuf = cfg.shuffle_fractions, cfg.shuffle_sequences
+        noise, trunc = cfg.input_noise_sigma, cfg.truncate_seq
+    elif which == "val":
+        files, frac = cfg.validation_files, cfg.val_fraction
+    elif which == "test":
+        files, frac = cfg.test_files, cfg.test_fraction
+    else:
+        files, frac = cfg.feedforward_input_files, 1.0
+        noise, sort = cfg.input_noise_sigma, False
     if not files:
         return None
-    print("Loading ff set " + " ".join(f"'{f}'" for f in files) + " ...")
+    print(f"Loading {which} set " + " ".join(f"'{f}'" for f in files)
+          + " ...")
     ds = DataSet(files, parallel_sequences=cfg.parallel_sequences,
-                 noise_deviation=cfg.input_noise_sigma,
+                 fraction=frac, trunc_seq_length=trunc,
+                 fraction_shuffling=frac_shuf, sequence_shuffling=seq_shuf,
+                 noise_deviation=noise,
                  input_left_context=cfg.input_left_context,
                  input_right_context=cfg.input_right_context,
-                 output_time_lag=cfg.output_time_lag, seed=cfg.random_seed,
-                 bucket_lengths=cfg.bucket_lengths, cache_path=cfg.cache_path)
-    print("Loaded fraction:  100%")
+                 output_time_lag=cfg.output_time_lag, sort_by_length=sort,
+                 seed=cfg.random_seed, bucket_lengths=cfg.bucket_lengths,
+                 bucket_major_shuffle=cfg.bucket_major_shuffle,
+                 cache_path=cfg.cache_path)
+    print(f"Loaded fraction:  {int(frac * 100)}%")
     print(f"Sequences:        {ds.total_sequences}")
     print(f"Sequence lengths: {ds.min_seq_length}..{ds.max_seq_length}")
     print(f"Total timesteps:  {ds.total_timesteps}")
@@ -74,7 +101,7 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
     print(f"Reading network from '{cfg.network}'... ", end="")
     net_doc = ioc.load_network_json(cfg.network)
     print("done.\n")
-    ff_set = _load_dataset(cfg)
+    ff_set = _load_dataset(cfg, "ff")
     if ff_set is None:
         raise RuntimeError("no ff_input_file given")
     net = Network(net_doc["layers"], net_doc.get("weights"),
@@ -122,10 +149,151 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
     return 0
 
 
+def _check_trainable(cfg: Config) -> None:
+    """Refuse the training features the port does not have yet."""
+    missing = [
+        (cfg.weight_noise_sigma > 0, "--weight_noise_sigma", "item 7"),
+        (cfg.input_noise_sigma > 0, "--input_noise_sigma", "item 7"),
+        (cfg.autosave or cfg.autosave_best, "--autosave/--autosave_best",
+         "item 8"),
+        (bool(cfg.continue_file), "--continue", "item 8"),
+        (cfg.init_rng != "numpy", "--init_rng currennt", "item 5"),
+        (cfg.remat_blocks != 0, "--remat_blocks", "item 3"),
+        (cfg.fuse_fractions != 1 or bool(cfg.device_cache)
+         or bool(cfg.profile_dir),
+         "--fuse_fractions/--device_cache/--profile_dir",
+         "the JAX package's TPU dispatch machinery; CUDA Graphs come later"),
+    ]
+    for bad, flag, where in missing:
+        if bad:
+            raise NotImplementedError(
+                f"{flag} is not ported to PyTorch yet (ROADMAP.md, queue 1: "
+                f"{where})")
+
+
+def train_mode(cfg: Config, device: torch.device) -> int:
+    print(f"Reading network from '{cfg.network}'... ", end="")
+    net_doc = ioc.load_network_json(cfg.network)
+    print("done.\n")
+    train_set = _load_dataset(cfg, "train")
+    if train_set is None:
+        raise RuntimeError("no train_file given")
+    val_set = _load_dataset(cfg, "val")
+    test_set = _load_dataset(cfg, "test")
+    net = Network(net_doc["layers"], net_doc.get("weights"),
+                  input_size_override=train_set.input_pattern_size,
+                  backend=cfg.lstm_backend, compute_dtype=cfg.compute_dtype)
+    if train_set.output_pattern_size != net.target_size:
+        raise RuntimeError("Post output layer size != target pattern size "
+                           "of the training set")
+    net.init_params(cfg.random_seed, dist=cfg.weights_dist,
+                    uniform_min=cfg.weights_uniform_min,
+                    uniform_max=cfg.weights_uniform_max,
+                    normal_mean=cfg.weights_normal_mean,
+                    normal_sigma=cfg.weights_normal_sigma)
+    _print_layers(net)
+    if cfg.optimizer != "steepest_descent":
+        raise RuntimeError("Unknown optimizer type")
+
+    max_epochs = cfg.max_epochs if cfg.max_epochs != 2**32 - 1 else -1
+    trainer = Trainer(
+        net, train_set, val_set, test_set,
+        learning_rate=cfg.learning_rate, momentum=cfg.momentum,
+        max_epochs=max_epochs, max_epochs_no_best=cfg.max_epochs_no_best,
+        validate_every=cfg.validate_every, test_every=cfg.test_every,
+        hybrid_online_batch=cfg.hybrid_online_batch,
+        weight_noise_sigma=cfg.weight_noise_sigma, device=device)
+
+    classification = net.is_classification
+    print("Starting training...\n")
+    print(" Epoch | Duration |  Training error  | Validation error |    "
+          "Test error    | New best | Throughput")
+    print("-------+----------+------------------+------------------+"
+          "------------------+----------+-----------")
+    err_space = "                  |"
+
+    def fmt_err(err, cls_err):
+        if classification:
+            return f"{cls_err * 100:6.2f}%{err:10.3f} |"
+        return f"{err:17.3f} |"
+
+    finished = False
+    while not finished:
+        t0 = time.time()
+        finished = trainer.train_epoch()
+        duration = time.time() - t0
+        row = f" {trainer.cur_epoch:5d} | {duration:8.1f} |"
+        row += fmt_err(trainer.cur_training_error,
+                       trainer.cur_training_class_error)
+        row += (fmt_err(trainer.cur_validation_error,
+                        trainer.cur_validation_class_error)
+                if trainer.did_validate else err_space)
+        row += (fmt_err(trainer.cur_test_error,
+                        trainer.cur_test_class_error)
+                if trainer.did_test else err_space)
+        if trainer.did_validate:
+            row += "  yes   " if trainer.epochs_since_lowest == 0 \
+                else "  no    "
+        else:
+            row += "        "
+        fps = train_set.total_timesteps / max(duration, 1e-9)
+        print(row + f"| {fps:,.0f} fr/s", flush=True)
+
+    print()
+    if trainer.epochs_since_lowest >= cfg.max_epochs_no_best:
+        print(f"No new lowest error since {cfg.max_epochs_no_best} epochs. "
+              "Training stopped.")
+    else:
+        print("Maximum number of training epochs reached. Training stopped.")
+    if val_set is not None and not val_set.empty:
+        print(f"Lowest validation error: {trainer.lowest_validation_error}")
+    else:
+        print(f"Final training set error: {trainer.cur_training_error}")
+    print()
+    print(f"Storing the trained network in '{cfg.save_network}'... ", end="")
+    net.params = trainer.exact_params()
+    net.save(cfg.save_network)
+    print("done.")
+    return 0
+
+
 def _echo_settings(cfg: Config):
     """Startup echo of the effective settings (Configuration.cpp:312-369)."""
-    print("Started in forward pass mode.")
-    print(f"The forward pass output will be written to '{cfg.ff_output_file}'.")
+    if cfg.train:
+        mode = "hybrid online/batch" if cfg.hybrid_online_batch else "batch"
+        print(f"Started in {mode} training mode.")
+        if cfg.shuffle_fractions:
+            print(f"Mini-batches ({cfg.parallel_sequences} sequences each) "
+                  "will be shuffled during training.")
+        if cfg.shuffle_sequences:
+            print("Sequences will be shuffled within and across mini-batches "
+                  "during training.")
+        print(f"The trained network will be written to "
+              f"'{cfg.save_network}'.")
+        if os.path.exists(cfg.save_network):
+            print(f"WARNING: The output file '{cfg.save_network}' already "
+                  "exists. It will be overwritten!")
+        if cfg.validation_files:
+            print(f"Validation error will be calculated every "
+                  f"{cfg.validate_every} epochs.")
+        if cfg.test_files:
+            print(f"Test error will be calculated every {cfg.test_every} "
+                  "epochs.")
+        stop = "Training will be stopped"
+        if cfg.max_epochs != 2**32 - 1:
+            stop += f" after {cfg.max_epochs} epochs or"
+        print(stop + " if there is no new lowest validation error within "
+              f"{cfg.max_epochs_no_best} epochs.")
+        dist = (f"Normal distribution with mean={cfg.weights_normal_mean} "
+                f"and sigma={cfg.weights_normal_sigma}"
+                if cfg.weights_dist == "normal" else
+                f"Uniform distribution with range "
+                f"[{cfg.weights_uniform_min}, {cfg.weights_uniform_max}]")
+        print(f"{dist}. Random seed: {cfg.random_seed}")
+    else:
+        print("Started in forward pass mode.")
+        print(f"The forward pass output will be written to "
+              f"'{cfg.ff_output_file}'.")
     print()
 
 
@@ -138,9 +306,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"{i}: {torch.cuda.get_device_name(i)}")
         return 0
     if cfg.train:
-        raise NotImplementedError(
-            "--train true: the training step is not ported to PyTorch yet "
-            "(ROADMAP.md, 'training step'); use lstm_rnn_tpu.cli to train")
+        _check_trainable(cfg)
     device = select_device(cfg.device, cfg.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -148,6 +314,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     print("TF32 is off: float32 matmuls run in true fp32.")
     _echo_settings(cfg)
     try:
+        if cfg.train:
+            return train_mode(cfg, device)
         return forward_mode(cfg, device)
     except Exception as e:
         print(f"FAILED: {e}")

@@ -205,12 +205,31 @@ def _split_files(s: str) -> List[str]:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Immutable parsed configuration. The training-side views (file lists,
-    the autosave serialization) come with the training step."""
+    """Immutable parsed configuration. The autosave serialization comes
+    with autosave (ROADMAP.md)."""
     args: argparse.Namespace
 
     def __getattr__(self, name):
         return getattr(object.__getattribute__(self, "args"), name)
+
+    @property
+    def hybrid_online_batch(self) -> bool:
+        a = self.args
+        if a.hybrid_online_batch is not None:
+            return a.hybrid_online_batch
+        return a.stochastic
+
+    @property
+    def training_files(self) -> List[str]:
+        return _split_files(self.args.train_file)
+
+    @property
+    def validation_files(self) -> List[str]:
+        return _split_files(self.args.val_file)
+
+    @property
+    def test_files(self) -> List[str]:
+        return _split_files(self.args.test_file)
 
     @property
     def feedforward_input_files(self) -> List[str]:

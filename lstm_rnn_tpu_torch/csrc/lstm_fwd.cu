@@ -1,8 +1,16 @@
-// Inference forward of one (B)LSTM layer, for NVIDIA Hopper (sm_90a).
+// Forward of one (B)LSTM layer, for NVIDIA Hopper (sm_90a).
 //
-// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_fwd_kernel with save=False (no
-// carry, no step mask): the TPU kernel behind lstm_scan_fused's primal,
-// which every frame of the forward-pass (posterior dump) mode goes through.
+// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_fwd_kernel (no carry, no step
+// mask) in both its variants: save=False, the TPU kernel behind
+// lstm_scan_fused's primal, which every frame of the forward-pass
+// (posterior dump) mode and of a validation pass goes through; and
+// save=True (`_fused_fwd`), the training forward, which also writes the
+// residuals the BPTT kernel (lstm_bwd.cu) reads: the cell state c
+// [D, T, B, H] f32 and the post-activation gates [ni, ig, fg, og]
+// [D, T, B, 4H] in the storage dtype, both zero at padding. The TPU
+// kernel's per-chunk boundary rows (cb, hb) exist because Mosaic streams
+// chunks through VMEM; the backward here reads c[t +- 1] and h[t +- 1]
+// from the full arrays and needs neither.
 // It computes, for each direction d (d = 0 walks time ascending, d = 1
 // descending) and each row b with `lengths[b]` valid frames:
 //
@@ -213,11 +221,15 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 
 // a [D, T, B, 4H] f32, w_rec [D, H, 4H], peep [D, 3, H], out [T, B, D*H].
 // kWShared: W_rec[d] is staged in shared memory (RecLayout::w).
-template <typename W, typename Out, bool kPlainActs, bool kWShared>
+// kSave: also write the residuals c_out [D, T, B, H] and g_out
+// [D, T, B, 4H] (zero at padding).
+template <typename W, typename Out, bool kPlainActs, bool kWShared,
+          bool kSave>
 __global__ void __launch_bounds__(kRecThreads)
     rec_kernel(const float* __restrict__ a, const W* __restrict__ w_rec,
                const float* __restrict__ peep,
-               const int* __restrict__ lengths, Out* __restrict__ out, int T,
+               const int* __restrict__ lengths, Out* __restrict__ out,
+               float* __restrict__ c_out, Out* __restrict__ g_out, int T,
                int B, int H) {
   static_assert(kRows % 4 == 0, "h is read as float4 groups of rows");
   extern __shared__ __align__(16) float smem[];
@@ -329,20 +341,20 @@ __global__ void __launch_bounds__(kRecThreads)
         gv[gi] = v;
       }
       const float c_prev = cs[r * H + j];
-      float c_new, h_new;
+      float ni, ig, fg, og, c_new, h_new;
       if (kPlainActs) {
-        const float ni = tanhf(gv[0]);
-        const float ig = sigmoid_plain(gv[1] + c_prev * ps[j]);
-        const float fg = sigmoid_plain(gv[2] + c_prev * ps[H + j]);
+        ni = tanhf(gv[0]);
+        ig = sigmoid_plain(gv[1] + c_prev * ps[j]);
+        fg = sigmoid_plain(gv[2] + c_prev * ps[H + j]);
         c_new = ni * ig + fg * c_prev;
-        const float og = sigmoid_plain(gv[3] + c_new * ps[2 * H + j]);
+        og = sigmoid_plain(gv[3] + c_new * ps[2 * H + j]);
         h_new = tanhf(c_new) * og;
       } else {
-        const float ni = tanh2_exact(gv[0]);
-        const float ig = logistic_exact(gv[1] + c_prev * ps[j]);
-        const float fg = logistic_exact(gv[2] + c_prev * ps[H + j]);
+        ni = tanh2_exact(gv[0]);
+        ig = logistic_exact(gv[1] + c_prev * ps[j]);
+        fg = logistic_exact(gv[2] + c_prev * ps[H + j]);
         c_new = ni * ig + fg * c_prev;
-        const float og = logistic_exact(gv[3] + c_new * ps[2 * H + j]);
+        og = logistic_exact(gv[3] + c_new * ps[2 * H + j]);
         h_new = tanh2_exact(c_new) * og;
       }
       const bool valid = t < len_s[r];
@@ -351,6 +363,15 @@ __global__ void __launch_bounds__(kRecThreads)
       hs[j * kRows + r] = to_f32(hv);
       out[(static_cast<size_t>(t) * B + b0 + r) * DH +
           static_cast<size_t>(d) * H + j] = hv;
+      if (kSave) {
+        const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
+        c_out[row * H + j] = valid ? c_new : 0.0f;
+        Out* gr = g_out + row * G + j;
+        gr[0] = from_f32<Out>(valid ? ni : 0.0f);
+        gr[H] = from_f32<Out>(valid ? ig : 0.0f);
+        gr[2 * H] = from_f32<Out>(valid ? fg : 0.0f);
+        gr[3 * H] = from_f32<Out>(valid ? og : 0.0f);
+      }
     }
     __syncthreads();
   }
@@ -363,14 +384,22 @@ __global__ void __launch_bounds__(kRecThreads)
     const int r = rem / H, j = rem - r * H;
     out[(t * B + b0 + r) * DH + static_cast<size_t>(d) * H + j] =
         from_f32<Out>(0.0f);
+    if (kSave) {
+      const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
+      c_out[row * H + j] = 0.0f;
+      for (int gi = 0; gi < 4; ++gi)
+        g_out[row * G + gi * H + j] = from_f32<Out>(0.0f);
+    }
   }
 }
 
-template <typename W, typename Out, bool kPlainActs, bool kWShared>
+template <typename W, typename Out, bool kPlainActs, bool kWShared,
+          bool kSave>
 cudaError_t launch_rec(const float* a, const void* w_rec, const float* peep,
-                       const int* lengths, void* out, int T, int B, int H,
-                       int D, size_t smem, cudaStream_t stream) {
-  auto kernel = rec_kernel<W, Out, kPlainActs, kWShared>;
+                       const int* lengths, void* out, float* c_out,
+                       void* g_out, int T, int B, int H, int D, size_t smem,
+                       cudaStream_t stream) {
+  auto kernel = rec_kernel<W, Out, kPlainActs, kWShared, kSave>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -380,16 +409,17 @@ cudaError_t launch_rec(const float* a, const void* w_rec, const float* peep,
   const dim3 grid(D, (B + kRows - 1) / kRows);
   kernel<<<grid, kRecThreads, smem, stream>>>(
       a, static_cast<const W*>(w_rec), peep, lengths, static_cast<Out*>(out),
-      T, B, H);
+      c_out, static_cast<Out*>(g_out), T, B, H);
   return cudaGetLastError();
 }
 
 // Stages W_rec in shared memory when it fits beside the state; a state
 // that does not fit (H above ~500 in f32) is refused.
-template <typename W, typename Out, bool kPlainActs>
+template <typename W, typename Out, bool kPlainActs, bool kSave>
 cudaError_t launch_rec_w(const float* a, const void* w_rec, const float* peep,
-                         const int* lengths, void* out, int T, int B, int H,
-                         int D, int device, cudaStream_t stream) {
+                         const int* lengths, void* out, float* c_out,
+                         void* g_out, int T, int B, int H, int D, int device,
+                         cudaStream_t stream) {
   int smem_max = 0;
   const cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -398,11 +428,26 @@ cudaError_t launch_rec_w(const float* a, const void* w_rec, const float* peep,
   const size_t state = L.w * sizeof(float);
   const size_t with_w = state + static_cast<size_t>(H) * 4 * H * sizeof(W);
   if (with_w <= static_cast<size_t>(smem_max))
-    return launch_rec<W, Out, kPlainActs, true>(
-        a, w_rec, peep, lengths, out, T, B, H, D, with_w, stream);
+    return launch_rec<W, Out, kPlainActs, true, kSave>(
+        a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, with_w,
+        stream);
   if (state > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
-  return launch_rec<W, Out, kPlainActs, false>(
-      a, w_rec, peep, lengths, out, T, B, H, D, state, stream);
+  return launch_rec<W, Out, kPlainActs, false, kSave>(
+      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, state, stream);
+}
+
+template <bool kSave>
+cudaError_t launch_rec_dtype(const float* a, const void* w_rec,
+                             const float* peep, const int* lengths, void* out,
+                             float* c_out, void* g_out, int T, int B, int H,
+                             int D, int bf16, int device,
+                             cudaStream_t stream) {
+  if (bf16)
+    return launch_rec_w<__nv_bfloat16, __nv_bfloat16, true, kSave>(
+        a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, device,
+        stream);
+  return launch_rec_w<float, float, false, kSave>(
+      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, device, stream);
 }
 
 }  // namespace
@@ -432,17 +477,21 @@ int lstm_fwd_proj(const void* x, const void* w, const float* bias, float* a,
 
 // Recurrence. a [D, T, B, 4H] f32; w_rec [D, H, 4H] f32 or bf16; peep
 // [D, 3, H] f32; lengths [B] int32; out [T, B, D*H] f32 or bf16 (as w_rec).
+// c_out [D, T, B, H] f32 and g_out [D, T, B, 4H] (as out) are the training
+// residuals: both null (save=False) or both given (save=True).
 int lstm_fwd_rec(const float* a, const void* w_rec, const float* peep,
-                 const int* lengths, void* out, int T, int B, int H, int D,
-                 int bf16, int device, cudaStream_t stream) {
+                 const int* lengths, void* out, float* c_out, void* g_out,
+                 int T, int B, int H, int D, int bf16, int device,
+                 cudaStream_t stream) {
   if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return cudaErrorInvalidValue;
+  if ((c_out == nullptr) != (g_out == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (bf16)
-    return launch_rec_w<__nv_bfloat16, __nv_bfloat16, true>(
-        a, w_rec, peep, lengths, out, T, B, H, D, device, stream);
-  return launch_rec_w<float, float, false>(a, w_rec, peep, lengths, out, T, B,
-                                           H, D, device, stream);
+  if (c_out != nullptr)
+    return launch_rec_dtype<true>(a, w_rec, peep, lengths, out, c_out, g_out,
+                                  T, B, H, D, bf16, device, stream);
+  return launch_rec_dtype<false>(a, w_rec, peep, lengths, out, nullptr,
+                                 nullptr, T, B, H, D, bf16, device, stream);
 }
 
 const char* lstm_err_str(int err) {

@@ -1,4 +1,4 @@
-"""LSTM / bidirectional LSTM with forget gates and peepholes, forward only.
+"""LSTM / bidirectional LSTM with forget gates and peepholes.
 
 Counterpart of lstm_rnn_tpu/models/lstm.py; semantics of
 `currennt_lib/src/layers/LstmLayer.cu` (cell: ComputeBlockOutputFn,
@@ -12,9 +12,14 @@ order [ig, fg, og]):
      "peep": [D, 3, H]}
 
 Routing in `lstm_forward`: backend "auto" or "pallas" (the flag keeps its
-spelling; it names the Hopper kernel) goes through `lstm_scan_fused`, which
-launches the CUDA kernel for a CUDA tensor and runs its twin for a CPU
-tensor; backend "scan" runs `_lstm_scan` on either device.
+spelling; it names the Hopper kernels) goes through `lstm_scan_fused`,
+which launches the CUDA kernels for a CUDA tensor and runs their twins for
+a CPU tensor, and whose gradient is the BPTT kernel; backend "scan" runs
+`_lstm_scan` on either device, and autograd differentiates it. Both
+routes clip the gate deltas to +-1 (the reference's limitedError): the
+scan route through grad_clip on each preactivation and the split
+og-peephole path of `lstm_cell_step`, so that it reproduces the BPTT
+kernel's deltas and is an independent check of it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from lstm_rnn_tpu_torch.models.feedforward import round_operand
+from lstm_rnn_tpu_torch.ops.activations import grad_clip
 from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_cell_step,
                                               lstm_scan_fused, storage_dtype)
 
@@ -29,7 +35,8 @@ BACKENDS = ("auto", "scan", "pallas")
 
 
 def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype):
-    """The scan path: a Python time loop over both (or one) directions.
+    """The scan path: a Python time loop over both (or one) directions,
+    differentiable by autograd.
 
     acts [T, D, B, 4, H] input projections + bias, with the backward
     direction already time-reversed; w_rec [D, H, 4, H]; peep [D, 3, H];
@@ -42,14 +49,14 @@ def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype):
     w = round_operand(w_rec, compute_dtype).reshape(D, H, 4 * H)
     h = acts.new_zeros(D, B, H)
     c = acts.new_zeros(D, B, H)
-    ys = acts.new_empty((T, D, B, H), dtype=sdtype)
+    ys = []
     for t in range(T):
         a = acts[t] + torch.bmm(h, w).view(D, B, 4, H)
-        h_new, c_new = lstm_cell_step(a, c, peep, fast)
-        ys[t] = h_new * mask[t]
-        h = ys[t].float()
+        h_new, c_new, _ = lstm_cell_step(a, c, peep, fast, grad_clip)
+        ys.append((h_new * mask[t]).to(sdtype))
+        h = ys[-1].float()
         c = c_new * mask[t]
-    return ys
+    return torch.stack(ys)
 
 
 def _scan_acts_valid(x, pattypes, w_in, b, bias_mult: float,

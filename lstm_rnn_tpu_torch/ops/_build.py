@@ -1,6 +1,7 @@
 """Build the CUDA kernels (csrc/*.cu) with nvcc and bind them with ctypes.
 
-The sources compile into one shared library with a plain C interface,
+Each source compiles in its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface,
 `_build/liblstm_kernels_<hash>.so` inside the package; the hash covers the
 sources and the flags, so an edited source rebuilds and an unchanged one
 loads the library already built. Only the repository's sources and the
@@ -28,8 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -72,20 +72,35 @@ def build_log() -> str:
         return f.read()
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise on the first that failed.
+    Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{o}")
+    return "".join(outs)
+
+
 def _compile(out: str) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cus]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
+    log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, p]
+                    for p, o in zip(cus, objs)])
+    log += _run_all([[_nvcc(), "-shared", "-o", tmp, *objs]])
     build_seconds = time.perf_counter() - t0
+    for o in objs:
+        os.remove(o)
     with open(out + ".log", "w") as f:
-        f.write(r.stdout + r.stderr)
+        f.write(log)
     os.replace(tmp, out)
 
 
@@ -94,8 +109,20 @@ def _declare(lib) -> None:
     lib.lstm_fwd_proj.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i,
                                   i, p]
     lib.lstm_fwd_proj.restype = i
-    lib.lstm_fwd_rec.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.lstm_fwd_rec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.lstm_fwd_rec.restype = i
+    lib.lstm_bwd.argtypes = [p] * 15 + [i] * 5 + [ctypes.c_float] + [i] * 4 \
+        + [p]
+    lib.lstm_bwd.restype = i
+    lib.softmax_ce_fwd.argtypes = [p] * 9 + [i] * 3 + [ctypes.c_float, i, i,
+                                                       p]
+    lib.softmax_ce_fwd.restype = i
+    lib.softmax_ce_bwd.argtypes = [p] * 11 + [i] * 3 + [ctypes.c_float, i, i,
+                                                        p]
+    lib.softmax_ce_bwd.restype = i
+    for name in ("lstm_bwd_splits", "softmax_ce_splits", "softmax_ce_smem"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
     lib.lstm_err_str.argtypes = [i]
     lib.lstm_err_str.restype = ctypes.c_char_p
 

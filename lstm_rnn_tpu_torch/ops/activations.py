@@ -9,7 +9,10 @@ reference (`currennt_lib/src/activation_functions/*.cuh`,
 - `logistic` saturates hard at +-expLimit, and `safeExp` clamps:
   x <= -1e30 -> 0, x >= 88.722839 -> FLT_MAX, else exp(x).
 
-`grad_clip` (the reference's limitedError) comes with the training step.
+`grad_clip` is the reference's limitedError (`helpers/limitedError.cuh`):
+identity forward, the cotangent clamped to [-1, 1] on the way back. Wrapping
+each LSTM gate preactivation with it makes autograd through the scan path
+reproduce the hand-written BPTT's delta clipping (LstmLayer.cu:281-284).
 """
 
 from __future__ import annotations
@@ -64,6 +67,21 @@ def safe_exp(x: torch.Tensor) -> torch.Tensor:
     e = torch.where(x >= EXP_LIMIT,
                     torch.full_like(x, torch.finfo(torch.float32).max), e)
     return torch.where(x <= LOG_ZERO, torch.zeros_like(x), e)
+
+
+class _GradClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, -1.0, 1.0)
+
+
+def grad_clip(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; clamps the cotangent to [-1, 1] on the way back."""
+    return _GradClip.apply(x)
 
 
 ACTIVATIONS = {

@@ -1,10 +1,20 @@
-"""The LSTM layer's forward on the GPU: the wrapper of the Hopper kernel.
+"""The LSTM layer on the GPU: the wrappers of the Hopper kernels, their
+plain twins, and the autograd Function that joins them.
 
-Counterpart of lstm_rnn_tpu/ops/lstm_cell.py (`lstm_scan_fused`, whose
-inference primal launches `_fwd_kernel` with save=False). The kernel lives
-in csrc/lstm_fwd.cu and runs in two launches per layer: a tiled input
-projection into an f32 scratch buffer, then the recurrence over both
-directions (see the note at the top of the source).
+Counterpart of lstm_rnn_tpu/ops/lstm_cell.py (`lstm_scan_fused` and its
+custom VJP). Three kernels, each behind one wrapper with a launch count:
+
+- `lstm_scan_fused` without gradients: the inference forward
+  (`_fwd_kernel` save=False), csrc/lstm_fwd.cu, two launches per layer: a
+  tiled input projection into an f32 scratch buffer, then the recurrence
+  over both directions (see the note at the top of the source);
+- `lstm_fwd_save`: the training forward (`_fwd_kernel` save=True), the
+  same launches, with the residuals c and gates written by the recurrence;
+- `lstm_bwd`: the BPTT (`_bwd_kernel`), csrc/lstm_bwd.cu, with the weight
+  gradients and dx in hand-written GEMMs (csrc/gemm.cuh).
+
+`lstm_scan_fused` with gradients goes through `LstmScanFused`, whose
+forward is `lstm_fwd_save` and whose backward is `lstm_bwd`.
 
 Shapes, as in the JAX package: x [T, B, P] in natural time order,
 w_in [D, P, 4H], w_rec [D, H, 4H], peep [D, 3, H] f32, bias [D, 4H] f32,
@@ -16,12 +26,12 @@ Precision. float32 mode: true f32 products and the CURRENNT forms of
 logistic (saturating at +-EXP_LIMIT) and tanh (2*logistic(2x) - 1).
 bfloat16 mode: x, W_in, W_rec and the h fed back into the recurrent
 product are bf16; state and accumulation stay f32; sigma and tanh are the
-plain functions (the JAX kernel's `_cell_acts(fast=True)`); h is stored in
-bf16.
+plain functions (the JAX kernel's `_cell_acts(fast=True)`); h, the gates
+and the BPTT deltas are stored in bf16.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain twin `lstm_scan_reference`. Forward only: the backward
-kernel comes with the training step.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs its plain twin (`lstm_scan_reference`,
+`lstm_scan_bwd_reference`).
 """
 
 from __future__ import annotations
@@ -40,26 +50,50 @@ def storage_dtype(compute_dtype: torch.dtype) -> torch.dtype:
     return torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
 
 
-def lstm_cell_step(a, c, peep, fast: bool):
+def lstm_cell_step(a, c, peep, fast: bool, gclip=None):
     """CURRENNT cell (ComputeBlockOutputFn, LstmLayer.cu:47-138) from
     complete gate preactivations a [D, B, 4, H] and cell state c [D, B, H];
     peep [D, 3, H]. fast=True takes the plain sigma/tanh of bf16 mode.
-    Returns (h_new, c_new), unmasked."""
+
+    gclip (autograd through the scan path): wrapped around each complete
+    preactivation, with the og peephole split so that autograd gives the
+    clipped og delta to a_og and p_og but the UNCLIPPED one to the cell
+    state (LstmLayer.cu:246-250 vs :284), as the JAX package's
+    lstm_cell_step does; the forward values are unchanged.
+    Returns (h_new, c_new, (ni, ig, fg, og)), unmasked."""
     sig, tanh = (torch.sigmoid, torch.tanh) if fast else (logistic, tanh2)
-    ni = tanh(a[:, :, 0])
-    ig = sig(a[:, :, 1] + c * peep[:, None, 0])
-    fg = sig(a[:, :, 2] + c * peep[:, None, 1])
+    clip = gclip or (lambda v: v)
+    ni = tanh(clip(a[:, :, 0]))
+    ig = sig(clip(a[:, :, 1] + c * peep[:, None, 0]))
+    fg = sig(clip(a[:, :, 2] + c * peep[:, None, 1]))
     c_new = ni * ig + fg * c
-    og = sig(a[:, :, 3] + c_new * peep[:, None, 2])  # peephole from NEW c
-    return tanh(c_new) * og, c_new
+    p_og = peep[:, None, 2]  # peephole from the NEW cell state
+    if gclip is None:
+        og = sig(a[:, :, 3] + c_new * p_og)
+    else:
+        c_sg = c_new.detach()
+        og = sig(gclip(a[:, :, 3] + c_sg * p_og)
+                 + (c_new - c_sg) * p_og.detach())
+    return tanh(c_new) * og, c_new, (ni, ig, fg, og)
+
+
+def _validity(lengths, T: int, device):
+    """[T, B] float: 1 where t < lengths[b]."""
+    return (torch.arange(T, device=device)[:, None]
+            < lengths.to(device)[None, :]).float()
 
 
 def lstm_scan_reference(x, w_in, w_rec, peep, bias, lengths,
                         bias_mult: float = 1.0,
-                        compute_dtype: torch.dtype = torch.float32):
-    """The kernel's plain-torch twin: a Python time loop over the same
-    math, rounding at the same points. Direction 1 walks time descending
-    over the natural-order arrays, as the kernel does."""
+                        compute_dtype: torch.dtype = torch.float32,
+                        save: bool = False):
+    """The forward kernels' plain-torch twin: a Python time loop over the
+    same math, rounding at the same points. Direction 1 walks time
+    descending over the natural-order arrays, as the kernel does.
+
+    save=True also returns the training residuals, as lstm_fwd_save:
+    (h, c [D, T, B, H] f32, gates [D, T, B, 4H] in the storage dtype),
+    both zero at padding."""
     T, B, P = x.shape
     D, _, G = w_in.shape
     H = G // 4
@@ -69,23 +103,122 @@ def lstm_scan_reference(x, w_in, w_rec, peep, bias, lengths,
                      round_operand(w_in, compute_dtype))
     a = (a + bias_mult * bias[:, None]).view(D, T, B, G)
     w = round_operand(w_rec, compute_dtype)
-    valid = (torch.arange(T, device=x.device)[:, None]
-             < lengths.to(x.device)[None, :]).float()
+    valid = _validity(lengths, T, x.device)
     h = torch.zeros(D, B, H, device=x.device)
     c = torch.zeros(D, B, H, device=x.device)
     out = torch.empty(T, B, D * H, dtype=sdtype, device=x.device)
+    if save:
+        c_res = torch.empty(D, T, B, H, device=x.device)
+        g_res = torch.empty(D, T, B, G, dtype=sdtype, device=x.device)
     for s in range(T):
         ts = (s, T - 1 - s)[:D]
         g = torch.stack([a[d, t] for d, t in enumerate(ts)])
         g = g + torch.bmm(round_operand(h, compute_dtype), w)
-        h_new, c_new = lstm_cell_step(g.view(D, B, 4, H), c, peep, fast)
+        h_new, c_new, gates = lstm_cell_step(g.view(D, B, 4, H), c, peep,
+                                             fast)
         m = torch.stack([valid[t] for t in ts])[..., None]
         h = (h_new * m).to(sdtype)
         c = c_new * m
+        if save:
+            gm = (torch.cat(gates, dim=-1) * m).to(sdtype)
         for d, t in enumerate(ts):
             out[t, :, d * H:(d + 1) * H] = h[d]
+            if save:
+                c_res[d, t] = c[d]
+                g_res[d, t] = gm[d]
         h = h.float()
+    if save:
+        return out, c_res, g_res
     return out
+
+
+def _scan_prev(full, d: int):
+    """Direction d's scan-previous rows of full [T, B, ...] (t-1 for d=0,
+    t+1 for d=1), zero at the sequence edge."""
+    z = torch.zeros_like(full[:1])
+    if d == 0:
+        return torch.cat([z, full[:-1]])
+    return torch.cat([full[1:], z])
+
+
+def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
+                            bias_mult: float = 1.0, clip: bool = True,
+                            compute_dtype: torch.dtype = torch.float32,
+                            need_dx: bool = True):
+    """The BPTT kernel's plain-torch twin: a Python loop over the math of
+    the JAX package's `_bwd_kernel` (lstm_rnn_tpu/ops/lstm_cell.py:346-494),
+    rounding at the same points, then the weight gradients as plain
+    products. h, c, gates are lstm_fwd_save's outputs; dh [T, B, D*H].
+    Returns (dx [T, B, P] f32 or None, dW_in [D, P, 4H], dW_rec [D, H, 4H],
+    dpeep [D, 3, H], dbias [D, 4H]), all f32."""
+    T, B, P = x.shape
+    D, _, G = w_in.shape
+    H = G // 4
+    fast = compute_dtype == torch.bfloat16
+    sdtype = storage_dtype(compute_dtype)
+    tanh = torch.tanh if fast else tanh2
+    dev = x.device
+    w_t = round_operand(w_rec, compute_dtype).transpose(1, 2)  # [D, 4H, H]
+    valid = _validity(lengths, T, dev)
+    gf = gates.float()
+    dhf = dh.to(sdtype).float().reshape(T, B, D, H)
+    zeros = torch.zeros(B, H, device=dev)
+    p_ig, p_fg, p_og = (peep[:, None, i] for i in range(3))
+    da_next = torch.zeros(D, B, G, device=dev)
+    cse = torch.zeros(D, B, H, device=dev)
+    fgn = torch.zeros(D, B, H, device=dev)
+    da = torch.empty(D, T, B, G, dtype=sdtype, device=dev)
+    for s in range(T):
+        ts = (T - 1 - s, s)[:D]  # BPTT walks each scan in reverse
+        e = torch.stack([dhf[t, :, d] for d, t in enumerate(ts)]) + \
+            torch.bmm(round_operand(da_next, compute_dtype), w_t)
+        ni, ig, fg, og = torch.stack(
+            [gf[d, t] for d, t in enumerate(ts)]).split(H, dim=-1)
+        cc = torch.stack([c[d, t] for d, t in enumerate(ts)])
+        edge = [t <= 0 if d == 0 else t >= T - 1 for d, t in enumerate(ts)]
+        c_prev = torch.stack([
+            zeros if edge[d] else c[d, t - 1 if d == 0 else t + 1]
+            for d, t in enumerate(ts)])
+        has_prev = torch.tensor([0.0 if e_ else 1.0 for e_ in edge],
+                                device=dev)[:, None, None]
+        m = torch.stack([valid[t] for t in ts])[..., None]
+        tanh_c = tanh(cc)
+        og_delta = og * (1.0 - og) * tanh_c * e
+        # the UNCLIPPED og delta feeds the cell-state error (the clipped
+        # ig/fg deltas of the step before feed it through the peepholes)
+        cs_err = (og * (1.0 - tanh_c * tanh_c) * e + p_og * og_delta
+                  + fgn * cse + p_ig * da_next[..., H:2 * H]
+                  + p_fg * da_next[..., 2 * H:3 * H])
+        deltas = [ig * (1.0 - ni * ni) * cs_err,
+                  ig * (1.0 - ig) * ni * cs_err,
+                  fg * (1.0 - fg) * c_prev * cs_err * has_prev,
+                  og_delta]
+        if clip:
+            deltas = [torch.clamp(v, -1.0, 1.0) for v in deltas]
+        da_next = torch.cat(deltas, dim=-1) * m
+        cse = cs_err * m
+        fgn = fg * m
+        for d, t in enumerate(ts):
+            da[d, t] = da_next[d]
+    daf = da.float()  # the stored deltas feed every product and sum
+    da2 = daf.view(D, T * B, G)
+    xr = round_operand(x, compute_dtype).reshape(T * B, P)
+    dw_in = torch.einsum("mp,dmg->dpg", xr, da2)
+    hs = h.float().view(T, B, D, H)
+    h_prev = torch.stack([_scan_prev(hs[:, :, d], d) for d in range(D)])
+    dw_rec = torch.einsum("dmh,dmg->dhg", h_prev.reshape(D, T * B, H), da2)
+    c_prev = torch.stack([_scan_prev(c[d], d) for d in range(D)])
+    dpeep = torch.stack([(c_prev * daf[..., H:2 * H]).sum((1, 2)),
+                         (c_prev * daf[..., 2 * H:3 * H]).sum((1, 2)),
+                         (c * daf[..., 3 * H:]).sum((1, 2))], dim=1)
+    dbias = bias_mult * daf.sum((1, 2))
+    dx = None
+    if need_dx:
+        # one plane per direction in the storage dtype, summed in f32
+        planes = torch.einsum("dmg,dpg->dmp", da2,
+                              round_operand(w_in, compute_dtype))
+        dx = planes.to(sdtype).float().sum(0).view(T, B, P)
+    return dx, dw_in, dw_rec, dpeep, dbias
 
 
 def _check_shapes(x, w_in, w_rec, peep, bias, lengths):
@@ -107,26 +240,44 @@ def _check_shapes(x, w_in, w_rec, peep, bias, lengths):
                              f"{shape} for x {tuple(x.shape)}")
 
 
-def lstm_scan_fused(x, w_in, w_rec, peep, bias, lengths,
-                    bias_mult: float = 1.0,
-                    compute_dtype: torch.dtype = torch.float32):
-    """One (B)LSTM layer's forward: the CUDA kernel on a CUDA tensor, the
-    twin on a CPU tensor. See the module docstring for shapes."""
+def _check_compute_dtype(compute_dtype):
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                          f"got {compute_dtype}")
-    args = (x, w_in, w_rec, peep, bias, lengths)
-    if any(t.requires_grad for t in args):
-        raise RuntimeError(
-            "lstm_scan_fused is forward-only: its backward kernel comes with "
-            "the training step (ROADMAP.md); run under torch.inference_mode()")
-    _check_shapes(*args)
+
+
+def _on_cuda(x, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the twin runs)."""
     if x.device.type == "cpu":
-        return lstm_scan_reference(*args, bias_mult, compute_dtype)
+        return False
     if x.device.type != "cuda":
-        raise ValueError(f"lstm_scan_fused runs on CUDA or CPU, not "
-                         f"{x.device}")
-    _check_cuda_operands(*args)
+        raise ValueError(f"{what} runs on CUDA or CPU, not {x.device}")
+    return True
+
+
+def lstm_scan_fused(x, w_in, w_rec, peep, bias, lengths,
+                    bias_mult: float = 1.0,
+                    compute_dtype: torch.dtype = torch.float32,
+                    clip: bool = True):
+    """One (B)LSTM layer's forward: the CUDA kernels on a CUDA tensor, the
+    twins on a CPU tensor. See the module docstring for shapes.
+
+    When autograd records (a gradient is wanted for x or a weight), the
+    layer goes through LstmScanFused: the training forward (lstm_fwd_save)
+    now and the BPTT kernel (lstm_bwd) on the way back, with the deltas
+    clipped to +-1 when `clip`. Otherwise (inference mode, no_grad) it runs
+    the inference forward, which writes no residuals."""
+    _check_compute_dtype(compute_dtype)
+    args = (x, w_in, w_rec, peep, bias, lengths)
+    _check_shapes(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:5]):
+        return LstmScanFused.apply(x, w_in, w_rec, peep, bias, lengths,
+                                   float(bias_mult), bool(clip),
+                                   compute_dtype)
+    if not _on_cuda(x, "lstm_scan_fused"):
+        return lstm_scan_reference(*args, bias_mult, compute_dtype)
+    _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
+                         lengths=lengths)
     a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
                      bias_mult)
     out = _launch_rec(a, w_rec.to(compute_dtype), peep, lengths)
@@ -134,32 +285,120 @@ def lstm_scan_fused(x, w_in, w_rec, peep, bias, lengths,
     return out
 
 
-# Kernel launches on the main path (chip_smoke.py resets and reads it).
+# Kernel launches on the main path (chip_smoke.py resets and reads them).
 lstm_scan_fused.launches = 0
 
 
-def _check_cuda_operands(x, w_in, w_rec, peep, bias, lengths):
-    named = {"x": x, "w_in": w_in, "w_rec": w_rec, "peep": peep,
-             "bias": bias, "lengths": lengths}
+def lstm_fwd_save(x, w_in, w_rec, peep, bias, lengths,
+                  bias_mult: float = 1.0,
+                  compute_dtype: torch.dtype = torch.float32):
+    """The training forward: (h, c, gates) as lstm_scan_reference(save=True)
+    returns them; the CUDA kernels on a CUDA tensor, the twin on a CPU
+    one."""
+    _check_compute_dtype(compute_dtype)
+    args = (x, w_in, w_rec, peep, bias, lengths)
+    _check_shapes(*args)
+    if not _on_cuda(x, "lstm_fwd_save"):
+        return lstm_scan_reference(*args, bias_mult, compute_dtype,
+                                   save=True)
+    _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
+                         lengths=lengths)
+    a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
+                     bias_mult)
+    out = _launch_rec(a, w_rec.to(compute_dtype), peep, lengths, save=True)
+    lstm_fwd_save.launches += 1
+    return out
+
+
+lstm_fwd_save.launches = 0
+
+
+def lstm_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
+             bias_mult: float = 1.0, clip: bool = True,
+             compute_dtype: torch.dtype = torch.float32,
+             need_dx: bool = True):
+    """The BPTT of one layer from lstm_fwd_save's residuals: (dx or None,
+    dW_in, dW_rec, dpeep, dbias) as lstm_scan_bwd_reference returns them;
+    the CUDA kernels on a CUDA tensor, the twin on a CPU one."""
+    _check_compute_dtype(compute_dtype)
+    T, B, _ = x.shape
+    D, _, G = w_in.shape
+    sdtype = storage_dtype(compute_dtype)
+    want = {"h": ((T, B, D * G // 4), h), "dh": ((T, B, D * G // 4), dh),
+            "c": ((D, T, B, G // 4), c), "gates": ((D, T, B, G), gates)}
+    for name, (shape, t) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if not _on_cuda(x, "lstm_bwd"):
+        return lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c,
+                                       gates, dh, bias_mult, clip,
+                                       compute_dtype, need_dx)
+    _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep,
+                         lengths=lengths, h=h, c=c, gates=gates)
+    if h.dtype != sdtype or gates.dtype != sdtype:
+        raise TypeError(f"h and gates must be {sdtype} (lstm_fwd_save's "
+                        f"residuals), got {h.dtype} and {gates.dtype}")
+    out = _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates,
+                      dh.to(sdtype).contiguous(), bias_mult, clip,
+                      compute_dtype, need_dx)
+    lstm_bwd.launches += 1
+    return out
+
+
+lstm_bwd.launches = 0
+
+
+class LstmScanFused(torch.autograd.Function):
+    """lstm_scan_fused with gradients (the JAX package's custom VJP):
+    forward = lstm_fwd_save, backward = lstm_bwd. need_dx follows
+    needs_input_grad: the first hidden layer's input is the data, whose
+    gradient nobody wants, so its dx product is skipped."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, w_rec, peep, bias, lengths, bias_mult, clip,
+                compute_dtype):
+        h, c, gates = lstm_fwd_save(x, w_in, w_rec, peep, bias, lengths,
+                                    bias_mult, compute_dtype)
+        ctx.save_for_backward(x, w_in, w_rec, peep, lengths, h, c, gates)
+        ctx.cfg = (bias_mult, clip, compute_dtype)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w_in, w_rec, peep, lengths, h, c, gates = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        dx, dw_in, dw_rec, dpeep, dbias = lstm_bwd(
+            x, w_in, w_rec, peep, lengths, h, c, gates, dh, *ctx.cfg,
+            need_dx=need_dx)
+        return (dx.to(x.dtype) if need_dx else None, dw_in, dw_rec, dpeep,
+                dbias, None, None, None, None)
+
+
+def _check_cuda_operands(x, **named):
+    """Every operand on x's device and contiguous, in the dtype its kernel
+    reads."""
+    named = {"x": x, **named}
     for name, t in named.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("x", "w_in", "w_rec"):
-        if named[name].dtype not in COMPUTE_DTYPES:
+        if name in ("x", "w_in", "w_rec") and t.dtype not in COMPUTE_DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{named[name].dtype}")
-    for name in ("peep", "bias"):
-        if named[name].dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got "
-                            f"{named[name].dtype}")
-    if lengths.dtype != torch.int32:
-        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+                            f"{t.dtype}")
+        if name in ("peep", "bias", "c") and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if name == "lengths" and t.dtype != torch.int32:
+            raise TypeError(f"lengths must be int32, got {t.dtype}")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -179,15 +418,15 @@ def _launch_proj(x, w_in, bias, bias_mult: float):
     err = _build.load().lstm_fwd_proj(
         _ptr(x), _ptr(w_in), _ptr(bias), _ptr(a), T * B, P, G, D,
         ctypes.c_float(bias_mult), int(x.dtype == torch.bfloat16),
-        x.device.index, ctypes.c_void_p(
-            torch.cuda.current_stream(x.device).cuda_stream))
+        x.device.index, _stream(x))
     _raise_on(err, "lstm_fwd_proj launch")
     return a
 
 
-def _launch_rec(a, w_rec, peep, lengths):
+def _launch_rec(a, w_rec, peep, lengths, save: bool = False):
     """Recurrence over the projected a [D, T, B, 4H] -> h [T, B, D*H] in
-    the storage dtype of w_rec's compute dtype."""
+    the storage dtype of w_rec's compute dtype; save=True also returns the
+    residuals c [D, T, B, H] f32 and gates [D, T, B, 4H]."""
     from lstm_rnn_tpu_torch.ops import _build
     D, T, B, G = a.shape
     H = G // 4
@@ -196,12 +435,56 @@ def _launch_rec(a, w_rec, peep, lengths):
     if w_rec.data_ptr() % (4 * w_rec.element_size()):
         raise ValueError(f"w_rec must be {4 * w_rec.element_size()}-byte "
                          f"aligned (a contiguous copy is)")
-    out = torch.empty((T, B, D * H),
-                      dtype=torch.bfloat16 if bf16 else torch.float32,
-                      device=a.device)
+    sdtype = torch.bfloat16 if bf16 else torch.float32
+    out = torch.empty((T, B, D * H), dtype=sdtype, device=a.device)
+    c = g = None
+    if save:
+        c = torch.empty((D, T, B, H), dtype=torch.float32, device=a.device)
+        g = torch.empty((D, T, B, G), dtype=sdtype, device=a.device)
     err = _build.load().lstm_fwd_rec(
         _ptr(a), _ptr(w_rec), _ptr(peep), _ptr(lengths), _ptr(out),
-        T, B, H, D, int(bf16), a.device.index,
-        ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream))
+        _ptr(c) if save else None, _ptr(g) if save else None,
+        T, B, H, D, int(bf16), a.device.index, _stream(a))
     _raise_on(err, "lstm_fwd_rec launch")
-    return out
+    return (out, c, g) if save else out
+
+
+def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
+                clip, compute_dtype, need_dx):
+    """BPTT, weight gradients and dx (csrc/lstm_bwd.cu). dh is in the
+    storage dtype."""
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
+    T, B, P = x.shape
+    D, _, G = w_in.shape
+    H = G // 4
+    hp = (H + 3) // 4 * 4
+    dev = x.device
+    sdtype = storage_dtype(compute_dtype)
+    # W_rec^T with zero-padded columns: the product da . W_rec^T reads four
+    # adjacent output columns per load
+    w_rec_t = torch.zeros((D, G, hp), dtype=compute_dtype, device=dev)
+    w_rec_t[:, :, :H] = w_rec.to(compute_dtype).transpose(1, 2)
+    xc = x.to(compute_dtype).contiguous()
+    w_in_c = w_in.to(compute_dtype).contiguous()
+    nsplit = lib.lstm_bwd_splits(T * B)
+    n_w = D * P * G + D * H * G
+    f32 = dict(dtype=torch.float32, device=dev)
+    da = torch.empty((D, T, B, G), dtype=sdtype, device=dev)
+    pb_part = torch.empty(((B + 3) // 4, D, 7 * H), **f32)
+    w_part = torch.empty((nsplit, n_w), **f32)
+    w_out = torch.empty(n_w, **f32)
+    pb_out = torch.empty((D, 7 * H), **f32)
+    dx = torch.empty((T, B, P), **f32) if need_dx else None
+    err = lib.lstm_bwd(
+        _ptr(xc), _ptr(dh), _ptr(gates), _ptr(c), _ptr(h), _ptr(w_in_c),
+        _ptr(w_rec_t), _ptr(peep), _ptr(lengths), _ptr(da), _ptr(pb_part),
+        _ptr(w_part), _ptr(w_out), _ptr(pb_out),
+        _ptr(dx) if need_dx else None, T, B, P, H, D,
+        ctypes.c_float(bias_mult), int(clip), int(need_dx),
+        int(compute_dtype == torch.bfloat16), dev.index, _stream(x))
+    _raise_on(err, "lstm_bwd launch")
+    return (dx, w_out[:D * P * G].view(D, P, G),
+            w_out[D * P * G:].view(D, H, G),
+            pb_out[:, :3 * H].reshape(D, 3, H),
+            pb_out[:, 3 * H:].contiguous())

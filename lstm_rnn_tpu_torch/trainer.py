@@ -1,0 +1,251 @@
+"""Training loop: momentum SGD, the epoch driver, best-weight tracking.
+
+Counterpart of lstm_rnn_tpu/trainer.py, reproducing
+`currennt_lib/src/optimizers/`:
+
+- SteepestDescentOptimizer (SteepestDescentOptimizer.cu:39-94):
+  v <- momentum * v - lr * grad, then w <- w + v, with the per-layer
+  `learningRate` JSON override (>= 0 replaces the global lr);
+- the epoch driver (Optimizer.cu:284-324): a training pass with updates,
+  validation every `validate_every` epochs (tracking the lowest error and
+  snapshotting the best weights), a test pass every `test_every` epochs,
+  and a stop after `max_epochs_no_best` epochs without a new best or at
+  `max_epochs`, restoring the best weights; with no validation set the
+  best weights are those of every epoch (Optimizer.cu:306-309);
+- _processDataSet (Optimizer.cu:38-104): per fraction the forward, the
+  error sum and the classification count; stochastic (hybrid online/batch)
+  mode updates after every fraction, batch mode accumulates the gradients
+  of the whole pass and updates once; epoch error = sum of fraction errors
+  / sequences, classification error = 1 - correct / timesteps.
+
+One fraction's step is the network's forward, the loss, autograd's
+backward and the update, in place on the parameter tensors. With the
+kernel backend ("auto"/"pallas") on a softmax -> multiclass net the loss
+is the fused tail (Network.loss_and_count_fused): per training fraction
+the LSTM layers run the training forward and the BPTT kernel and the tail
+its forward and backward kernels; validation and test passes run without
+gradients, through the inference forward and the tail's forward only.
+The metrics stay on the device until the end of a pass.
+
+Not ported (ROADMAP.md): weight noise, input noise, autosave and
+`--continue` (queue items 7/8) raise; the JAX package's TPU machinery
+(stacked epochs, the device cache, warm compiles, VMEM probes,
+fuse_fractions) has no counterpart here, and CUDA Graphs come later.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from lstm_rnn_tpu_torch.data.dataset import DataSet, Fraction
+from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
+                                        params_to_numpy)
+from lstm_rnn_tpu_torch.utils.device import select_device
+
+
+def _clone(tree):
+    return {n: {k: v.detach().clone() for k, v in layer.items()}
+            for n, layer in tree.items()}
+
+
+class Trainer:
+    def __init__(self, net: Network, train_set: DataSet,
+                 validation_set: Optional[DataSet] = None,
+                 test_set: Optional[DataSet] = None, *,
+                 learning_rate: float = 1e-5, momentum: float = 0.9,
+                 max_epochs: int = -1, max_epochs_no_best: int = 20,
+                 validate_every: int = 1, test_every: int = 1,
+                 hybrid_online_batch: bool = False,
+                 weight_noise_sigma: float = 0.0, device=None):
+        if weight_noise_sigma > 0:
+            raise NotImplementedError(
+                "weight noise is not ported to PyTorch yet (ROADMAP.md, "
+                "queue 1 item 7)")
+        if any(ds is not None and ds.noise_deviation > 0
+               for ds in (train_set, validation_set, test_set)):
+            raise NotImplementedError(
+                "input noise is not ported to PyTorch yet (ROADMAP.md, "
+                "queue 1 item 7)")
+        self.net = net
+        self.train_set = train_set
+        self.validation_set = validation_set
+        self.test_set = test_set
+        self.momentum = momentum
+        self.max_epochs = max_epochs
+        self.max_epochs_no_best = max_epochs_no_best
+        self.validate_every = validate_every
+        self.test_every = test_every
+        self.hybrid_online_batch = hybrid_online_batch
+        # the card unless the caller names a device (raises without a GPU)
+        self.device = select_device() if device is None \
+            else torch.device(device)
+        # per-layer learning rates (>= 0 overrides the global one,
+        # SteepestDescentOptimizer.cu:78-80)
+        self.layer_lr: Dict[str, float] = {
+            s.name: (s.learning_rate if s.learning_rate >= 0
+                     else learning_rate)
+            for s in net.trainable_specs()}
+        self.fused_tail = (net.backend != "scan"
+                           and net.supports_fused_tail())
+        self.params = params_from_numpy(net.params, self.device)
+        for layer in self.params.values():
+            for v in layer.values():
+                v.requires_grad_(True)
+        self.velocity = {n: {k: torch.zeros_like(v) for k, v in l.items()}
+                         for n, l in self.params.items()}
+        self.best_params = _clone(self.params)
+
+        # optimizer state (Optimizer.cu constructor)
+        self.finished = False
+        self.cur_epoch = 0
+        self.epochs_since_lowest = 0
+        self.lowest_validation_error = float("inf")
+        self.cur_training_error = float("inf")
+        self.cur_validation_error = float("inf")
+        self.cur_test_error = float("inf")
+        self.cur_training_class_error = 0.0
+        self.cur_validation_class_error = 0.0
+        self.cur_test_class_error = 0.0
+
+    # ------------------------------------------------------------------ steps
+    def loss_and_metrics(self, params, inputs, targets, pattypes):
+        """(error sum, correct count) of one fraction, as device scalars."""
+        if self.fused_tail:
+            return self.net.loss_and_count_fused(params, inputs, targets,
+                                                 pattypes)
+        y = self.net.apply(params, inputs, pattypes)
+        return (self.net.loss_fn(y, targets, pattypes),
+                self.net.correct_count(y, targets, pattypes))
+
+    def _leaves(self, tree):
+        return [tree[n][k] for n in sorted(tree) for k in sorted(tree[n])]
+
+    def grad_fraction(self, inputs, targets, pattypes):
+        """(error, correct, grads) at the current parameters; grads in the
+        parameter tree's layout."""
+        err, correct = self.loss_and_metrics(self.params, inputs, targets,
+                                             pattypes)
+        grads = torch.autograd.grad(err, self._leaves(self.params))
+        it = iter(grads)
+        tree = {n: {k: next(it) for k in sorted(self.params[n])}
+                for n in sorted(self.params)}
+        return err.detach(), correct, tree
+
+    @torch.no_grad()
+    def sgd_update(self, grads) -> None:
+        """v <- momentum * v - lr * g, then w <- w + v, in that order
+        (trainer.py:486-495 of the JAX package), per layer's lr."""
+        for name, layer in grads.items():
+            lr = self.layer_lr[name]
+            for k, g in layer.items():
+                v = self.velocity[name][k]
+                v.copy_(self.momentum * v - lr * g)
+                self.params[name][k].add_(v)
+
+    def train_step(self, inputs, targets, pattypes):
+        """Stochastic mode: gradients at the current weights, then the
+        update. Returns (error, correct) of the fraction before it."""
+        err, correct, grads = self.grad_fraction(inputs, targets, pattypes)
+        self.sgd_update(grads)
+        return err, correct
+
+    def accum_step(self, grad_acc, inputs, targets, pattypes):
+        """Batch mode: add the fraction's gradients to grad_acc (None on
+        the first fraction), no update. Returns (grad_acc, error,
+        correct)."""
+        err, correct, grads = self.grad_fraction(inputs, targets, pattypes)
+        if grad_acc is None:
+            return grads, err, correct
+        for name, layer in grads.items():
+            for k, g in layer.items():
+                grad_acc[name][k].add_(g)
+        return grad_acc, err, correct
+
+    @torch.no_grad()
+    def eval_step(self, inputs, targets, pattypes):
+        return self.loss_and_metrics(self.params, inputs, targets, pattypes)
+
+    # ------------------------------------------------------------------ epoch
+    def _device_batch(self, frac: Fraction):
+        dev = self.device
+        return (torch.from_numpy(frac.inputs).to(dev),
+                torch.from_numpy(frac.targets).to(dev),
+                torch.from_numpy(frac.pattypes).to(dev))
+
+    def _process_dataset(self, ds: DataSet, update: bool):
+        """One pass over ds; returns (error sum, correct) device scalars."""
+        errs, corrs = [], []
+        grad_acc = None
+        for frac in ds.fractions():
+            batch = self._device_batch(frac)
+            if not update:
+                err, corr = self.eval_step(*batch)
+            elif self.hybrid_online_batch:
+                err, corr = self.train_step(*batch)
+            else:
+                grad_acc, err, corr = self.accum_step(grad_acc, *batch)
+            errs.append(err)
+            corrs.append(corr)
+        if update and not self.hybrid_online_batch and grad_acc is not None:
+            self.sgd_update(grad_acc)
+        if not errs:
+            return None, None
+        return (torch.stack([e.float() for e in errs]).sum(),
+                torch.stack([c.to(torch.int64) for c in corrs]).sum())
+
+    @staticmethod
+    def _fetch_metrics(ds: DataSet, err_dev, corr_dev):
+        total_err = float(err_dev) if err_dev is not None else 0.0
+        correct = int(corr_dev) if corr_dev is not None else 0
+        return (total_err / ds.total_sequences,
+                1.0 - correct / ds.total_timesteps)
+
+    def train_epoch(self) -> bool:
+        """One epoch (Optimizer::train, Optimizer.cu:284-324); returns True
+        when training is finished."""
+        if self.finished:
+            return True
+        self.cur_epoch += 1
+        train_res = self._process_dataset(self.train_set, update=True)
+        has_val = (self.validation_set is not None
+                   and not self.validation_set.empty)
+        self.did_validate = (has_val
+                             and self.cur_epoch % self.validate_every == 0)
+        val_res = (self._process_dataset(self.validation_set, update=False)
+                   if self.did_validate else None)
+        self.did_test = (self.test_set is not None and not self.test_set.empty
+                         and self.cur_epoch % self.test_every == 0)
+        test_res = (self._process_dataset(self.test_set, update=False)
+                    if self.did_test else None)
+
+        self.cur_training_error, self.cur_training_class_error = \
+            self._fetch_metrics(self.train_set, *train_res)
+        if self.did_validate:
+            self.cur_validation_error, self.cur_validation_class_error = \
+                self._fetch_metrics(self.validation_set, *val_res)
+            if self.cur_validation_error < self.lowest_validation_error:
+                self.lowest_validation_error = self.cur_validation_error
+                self.epochs_since_lowest = 0
+                self.best_params = _clone(self.params)
+            else:
+                self.epochs_since_lowest += self.validate_every
+        elif not has_val:
+            self.epochs_since_lowest = 0
+            self.best_params = _clone(self.params)
+        if self.did_test:
+            self.cur_test_error, self.cur_test_class_error = \
+                self._fetch_metrics(self.test_set, *test_res)
+
+        if (self.epochs_since_lowest >= self.max_epochs_no_best
+                or (self.max_epochs >= 0
+                    and self.cur_epoch >= self.max_epochs)):
+            self.params = self.best_params
+            self.finished = True
+        return self.finished
+
+    def exact_params(self, tree=None) -> Dict[str, Any]:
+        """The current (or given) parameters as numpy arrays in the JAX
+        package's tree layout, for Network.params and saving."""
+        return params_to_numpy(self.params if tree is None else tree)

@@ -88,10 +88,31 @@ def test_unsupported_flags_raise(tmp_path, flag):
 
 
 def test_train_mode_is_not_ported(tmp_path):
+    """Train mode is ported; the training features that are not (weight
+    noise here; the rest in test_unported_training_flags_raise) refuse to
+    run instead of being ignored."""
     args = _setup(tmp_path)
     args[args.index("--train") + 1] = "true"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(args + ["--device", "cpu"])
+        cli.main(args + ["--device", "cpu", "--weight_noise_sigma", "0.1"])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--input_noise_sigma", "0.5"], ["--autosave", "true"],
+    ["--autosave_best", "true"], ["--continue", "x.autosave"],
+    ["--init_rng", "currennt"], ["--remat_blocks", "2"],
+    ["--fuse_fractions", "4"], ["--device_cache", "true"],
+])
+def test_unported_training_flags_raise(tmp_path, flag):
+    args = _setup(tmp_path) + ["--device", "cpu"]
+    args[args.index("--train") + 1] = "true"
+    if flag[0] == "--continue":
+        # an autosave stores the configuration it resumes with
+        flag = ["--continue", str(tmp_path / "epoch001.autosave")]
+        with open(flag[1], "w") as f:
+            json.dump({"configuration": " ".join(args)}, f)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(args + flag)
 
 
 @pytest.mark.parametrize("flag", [["--device", "cuda"], ["--cuda", "true"]])
@@ -99,3 +120,45 @@ def test_cuda_request_without_gpu_raises(tmp_path, monkeypatch, flag):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no GPU"):
         cli.main(_setup(tmp_path) + flag)
+
+
+def _train_args(tmp_path, out):
+    nc_val = str(tmp_path / "val.nc")
+    _write_classification_nc(nc_val, [4, 6, 2], in_size=3, num_labels=4,
+                             seed=6)
+    args = _setup(tmp_path)
+    args[args.index("--train") + 1] = "true"
+    return args + ["--train_file", args[args.index("--ff_input_file") + 1],
+                   "--val_file", nc_val, "--max_epochs", "2",
+                   "--stochastic", "true", "--shuffle_fractions", "true",
+                   "--truncate_seq", "4", "--learning_rate", "0.05",
+                   "--momentum", "0.9", "--save_network", out,
+                   "--device", "cpu"]
+
+
+def test_train_matches_jax(tmp_path, capsys):
+    from lstm_rnn_tpu import io_currennt as jax_ioc
+    jax_out, port_out = str(tmp_path / "jax.jsn"), str(tmp_path / "port.jsn")
+    assert jax_cli.main(_train_args(tmp_path, jax_out)) == 0
+    assert cli.main(_train_args(tmp_path, port_out)) == 0
+    out = capsys.readouterr().out
+    assert "Maximum number of training epochs reached" in out
+    assert "Storing the trained network" in out
+    want = jax_ioc.load_network_json(jax_out)
+    got = jax_ioc.load_network_json(port_out)
+    assert got["layers"] == want["layers"]
+    # training moved the weights away from the ones the seed drew
+    from lstm_rnn_tpu_torch.network import Network
+    with open(_setup(tmp_path)[1]) as f:
+        start = Network(json.load(f)["layers"])
+    start.init_params(17)
+    trained = Network.from_json_file(port_out)
+    assert not np.allclose(trained.params["l1"]["W_in"],
+                           start.params["l1"]["W_in"])
+    for name, layer in want["weights"].items():
+        for part, values in layer.items():
+            # true f32 on both sides after 2 epochs of stochastic updates
+            # (test_torch_trainer holds the epoch errors)
+            np.testing.assert_allclose(got["weights"][name][part], values,
+                                       rtol=0, atol=1e-5,
+                                       err_msg=f"{name}/{part}")

@@ -1,6 +1,8 @@
-"""The Hopper LSTM kernel (csrc/lstm_fwd.cu) against its plain twin, on the
-card: small and full TIMIT width, float32 and bfloat16 modes, and the
-wrapper's refusals.
+"""The Hopper kernels against their plain twins, on the card: the LSTM
+forward (csrc/lstm_fwd.cu, inference and training variants), its BPTT
+(csrc/lstm_bwd.cu) and the fused softmax + CE tail (csrc/softmax_ce.cu), at
+small and full TIMIT width, float32 and bfloat16 modes, and the wrappers'
+refusals.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -15,8 +17,14 @@ import pytest
 import torch
 
 from lstm_rnn_tpu_torch.ops import lstm_cell
-from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_scan_fused,
+from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_bwd, lstm_fwd_save,
+                                              lstm_scan_bwd_reference,
+                                              lstm_scan_fused,
                                               lstm_scan_reference)
+from lstm_rnn_tpu_torch.ops.softmax_ce import (softmax_ce_bwd_reference,
+                                               softmax_ce_fwd_reference,
+                                               softmax_ce_proj_bwd,
+                                               softmax_ce_proj_fwd)
 
 # f32: true-f32 FMAs in another order than the twin's matmuls, amplified
 # through up to 800 recurrent steps (5.7e-7 seen on an H100). bf16: the
@@ -134,3 +142,153 @@ def test_rejects_what_the_kernel_does_not_take():
         shifted = shifted.view(w_rec.shape).copy_(w_rec)
         with pytest.raises(ValueError, match="aligned"):
             lstm_scan_fused(x, w_in, shifted, peep, bias, lengths)
+
+
+# ------------------------------------------------------------- training
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / max(1e-30, want.abs().max().item())
+            ).item()
+
+
+def _elem_rel(got, want):
+    """max over elements of |got - want| / |want| (0 where both are 0)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+# K1 residuals and K2 outputs, relative to the largest entry. f32: true
+# f32 in another sum order, through up to 500 recurrent steps forward and
+# back. bf16: as TOL, plus the deltas stored in bf16 can round the other
+# way and every weight-gradient sum downstream moves by up to a bf16 ulp.
+REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+TRAIN_SHAPES = [(9, 5, 7, 5, 1), (9, 5, 7, 5, 2), (13, 11, 131, 130, 2),
+                (60, 50, 117, 125, 2), (60, 50, 250, 125, 2)]
+
+
+def _empty_block(args):
+    """Rows 4-7 (one whole kernel block) empty, row 1 of length 1."""
+    args = list(args)
+    lengths = args[5].clone()
+    if lengths.numel() >= 8:
+        lengths[4:8] = 0
+    lengths[1] = 1
+    args[5] = lengths
+    return args
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_fwd_save_matches_twin(shape, dtype):
+    args = _empty_block(make_layer(*shape))
+    got = lstm_fwd_save(*args, 0.7, dtype)
+    want = lstm_scan_reference(*args, 0.7, dtype, save=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("h", "c", "gates"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+    # padding (and the empty block) is exactly zero in every residual
+    valid = (torch.arange(shape[0], device="cuda")[:, None]
+             < args[5][None, :])
+    assert not got[1][:, ~valid].any() and not got[2][:, ~valid].any()
+    # the inference forward gives the same h
+    with torch.inference_mode():
+        h0 = lstm_scan_fused(*args, 0.7, dtype)
+    assert torch.equal(h0, got[0])
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_bwd_matches_twin(shape, dtype, need_dx):
+    args = _empty_block(make_layer(*shape, seed=5))
+    T, B, _, H, D = shape
+    h, c, gates = lstm_fwd_save(*args, 0.7, dtype)
+    dh = torch.randn(T, B, D * H, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(1)) * 3.0
+    x, w_in, w_rec, peep, _, lengths = args
+    got = lstm_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, 0.7,
+                   True, dtype, need_dx)
+    want = lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c,
+                                   gates, dh, 0.7, True, dtype, need_dx)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dW_in", "dW_rec", "dpeep", "dbias"), got,
+                          want):
+        if not need_dx and name == "dx":
+            assert g is None and w is None
+            continue
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+    if need_dx and B >= 8:
+        assert not got[0][:, 4:8].any()  # the empty block's dx
+
+
+def test_autograd_routes_through_the_training_kernels():
+    args = [t.requires_grad_(i < 5) for i, t in
+            enumerate(make_layer(7, 6, 5, 4, 2))]
+    before = (lstm_scan_fused.launches, lstm_fwd_save.launches,
+              lstm_bwd.launches)
+    lstm_scan_fused(*args).sum().backward()
+    assert (lstm_scan_fused.launches, lstm_fwd_save.launches,
+            lstm_bwd.launches) == (before[0], before[1] + 1, before[2] + 1)
+    assert all(t.grad is not None for t in args[:5])
+
+
+def _tail(N, P, S, seed=0):
+    g = torch.Generator("cuda").manual_seed(seed)
+    h = torch.randn(N, P, device="cuda", generator=g) * 0.5
+    w = (torch.rand(P, S, device="cuda", generator=g) - 0.5) * 0.2
+    b = (torch.rand(S, device="cuda", generator=g) - 0.5) * 0.2
+    tc = torch.randint(0, S, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    tc[::7] = -1
+    return h, w, b, tc
+
+
+# the tail: f32 true-f32 sums in another order; bf16 p and dz stored in
+# bf16 (a rounding flip moves a product by up to one bf16 ulp)
+TAIL_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# p element by element against its own size: f32 sums in another order;
+# bf16 both sides round the same f32 value, and a rounding flip moves p by
+# one bf16 ulp, at most 2^-7 of |p|
+P_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(70, 7, 5), (1000, 131, 65),
+                                   (2500, 250, 183)])
+def test_tail_matches_twin(shape, dtype):
+    h, w, b, tc = _tail(*shape)
+    loss, cnt, p = softmax_ce_proj_fwd(h, w, b, tc, 0.8, dtype)
+    loss_r, cnt_r, p_r = softmax_ce_fwd_reference(h, w, b, tc, 0.8, dtype)
+    loss0, cnt0, p0 = softmax_ce_proj_fwd(h, w, b, tc, 0.8, dtype,
+                                          want_p=False)
+    torch.cuda.synchronize()
+    assert p0 is None and loss0.item() == loss.item()
+    assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
+    # a near-tie between the two sum orders may flip one argmax
+    assert abs(cnt.item() - cnt_r.item()) <= 1 and cnt0.item() == cnt.item()
+    assert _elem_rel(p, p_r) <= P_REL[dtype], _elem_rel(p, p_r)
+    # the check rejects a zero, a uniform and a column-rolled p
+    for wrong in (torch.zeros_like(p_r), torch.full_like(p_r, 1.0 / shape[2]),
+                  p_r.roll(1, dims=1)):
+        assert _elem_rel(wrong, p_r) > P_REL[dtype]
+    g = torch.tensor(0.37, device="cuda")
+    got = softmax_ce_proj_bwd(p, h, w, tc, g, 0.8, dtype)
+    want = softmax_ce_bwd_reference(p, h, w, tc, g, 0.8, dtype)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dh", "dW", "db"), got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert _rel_err(x, y) <= TAIL_REL[dtype], (name, _rel_err(x, y))
+    assert not got[0][::7].any()  # dummy rows
+
+
+def test_tail_too_wide_for_shared_memory_raises():
+    """An LVCSR-scale softmax (10112 states) does not fit the kernel's
+    shared memory: the wrapper refuses it and names the wide tail."""
+    h, w, b, tc = _tail(64, 8, 10112)
+    with pytest.raises(NotImplementedError, match="ROADMAP K4"):
+        softmax_ce_proj_fwd(h, w, b, tc)
