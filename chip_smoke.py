@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths end to end at the full width of the TIMIT
-recipe (117 inputs -> 5 x BLSTM(250) -> softmax(183), parallel_sequences
-50), with random weights from a seed, and holds every kernel against its
-plain twin:
+Drives the port's paths end to end at the full width of the TIMIT recipe
+(117 inputs -> 5 x BLSTM(250) -> softmax(183), parallel_sequences 50) and
+of the LVCSR recipe (the same stack -> softmax(10112)), with random
+weights from a seed, and holds every kernel against its plain twin:
 
 1. device: torch/CUDA versions, the card's name and power limit; TF32 off;
 2. build: compiles the CUDA kernels from csrc/ with nvcc (one process per
@@ -30,7 +30,19 @@ plain twin:
    mode) and the exact launch count of every kernel;
 8. training frames/s of the bench.py recipe step (T=500, B=50, every row
    full, lr 1e-4, momentum 0.9) on the kernel path (f32, bf16) and the
-   scan path, and a profile of one kernel-path step by kernel.
+   scan path, and a profile of one kernel-path step by kernel;
+9. the wide tail's kernels (K4f, K4b) against their twins at the LVCSR
+   tail (N=25,000, P=250, S=10,112), f32 and bf16, with controls and a
+   row tile of dummy frames, and their times (phase 4's order);
+10. one LVCSR SGD step, fused tail (K4) vs unfused tail, f32;
+11. the LVCSR recipe through `cli.main(examples/lvcsr_physical_states/
+    config.cfg ...)` on a synthetic 10,112-state corpus, f32 with its
+    autosave and bf16 without: the exact launch count of every kernel (no
+    K3), the autosaves, `--continue epoch001.autosave` against the
+    uninterrupted run, and the seconds an LVCSR autosave's dump takes;
+12. LVCSR training frames/s (f32, bf16) and a profile of one f32 step;
+13. the K3/K4 crossover: both tails, forward + backward, at S = 183, 512
+    and 832 (measured only).
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -92,6 +104,21 @@ P_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # (700 W); the control, the bf16 kernel step against the same f32 scan
 # step, must read above the limit
 STEP_TOL = {"loss": 1e-5, "update": 1e-4}
+# the LVCSR recipe (examples/lvcsr_physical_states): the same stack with a
+# softmax over 10,112 physical HMM states, whose tail is K4
+S_LVCSR = 10112
+LVCSR_DIR = os.path.join(REPO, "examples", "lvcsr_physical_states")
+# K4 vs its twins on the same logits. The stats element by element: f32
+# math on the same values in both modes, sums in another order. The rest
+# relative to each output's largest entry: f32 sum-order noise; bf16 dz is
+# stored rounded, a rounding flip moves it by one bf16 ulp (2^-8, bound
+# 2^-7), and each flip moves the dW and dh sums by up to that much (2^-6)
+WIDE_REL = {"stats": {"float32": 1e-5, "bfloat16": 1e-5},
+            "dz": {"float32": 1e-5, "bfloat16": 2.0 ** -7},
+            "dW": {"float32": 1e-5, "bfloat16": 2.0 ** -6}}
+# a resumed LVCSR run (--continue) against the uninterrupted one: the same
+# kernels on the same inputs in the same order, weights within 1e-6
+CONTINUE_TOL = 1e-6
 
 
 def phase(name, msg):
@@ -569,23 +596,25 @@ def train_kernels_vs_twins(torch):
     return res
 
 
-def recipe_batch(torch, T=T_TRAIN, full=True, seed=0):
-    """bench.py's fraction: N(0, 1) inputs, random targets of 183 states,
-    every row full (or ragged lengths 300..T with full=False)."""
+def recipe_batch(torch, T=T_TRAIN, full=True, seed=0, states=S_STATES):
+    """bench.py's fraction: N(0, 1) inputs, random targets of `states`
+    states, every row full (or ragged lengths 300..T with full=False)."""
     rng = np.random.RandomState(seed)
     x = rng.randn(T, B, 117).astype(np.float32)
     lengths = np.full(B, T) if full else rng.randint(300, T + 1, B)
     pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
-    tc = rng.randint(0, S_STATES, (T, B)).astype(np.int32)
+    tc = rng.randint(0, states, (T, B)).astype(np.int32)
     tc[pt == 0] = -1
     return (torch.from_numpy(x).cuda(), torch.from_numpy(tc).cuda(),
             torch.from_numpy(pt).cuda()), int(lengths.sum())
 
 
-def make_trainer(backend, dtype):
-    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+def make_trainer(backend, dtype, lvcsr=False):
+    from lstm_rnn_tpu_torch.models.flagship import (build_lvcsr_network,
+                                                    build_timit_network)
     from lstm_rnn_tpu_torch.trainer import Trainer
-    net = build_timit_network(seed=3, backend=backend, compute_dtype=dtype)
+    build = build_lvcsr_network if lvcsr else build_timit_network
+    net = build(seed=3, backend=backend, compute_dtype=dtype)
     # no device named: the Trainer takes the card
     return Trainer(net, None, learning_rate=1e-4, momentum=0.9,
                    hybrid_online_batch=True)
@@ -632,19 +661,18 @@ def step_kernel_vs_scan(torch):
         raise AssertionError("the update check passes the bf16 control")
 
 
-def write_train_corpus(workdir):
-    """TIMIT-shaped train and val corpora (lengths 300-800, random labels
-    of 183 states) and the recipe's network.jsn (weights from SEED)."""
+def write_corpus(workdir, prefix, states, sizes, seed):
+    """Train and val corpora (lengths 300-800, N(0, 1) inputs of 117
+    features, random labels of `states` states) as .nc files."""
     from lstm_rnn_tpu_torch.data.netcdf3 import strings_to_chars, write_netcdf
-    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
-    rng = np.random.RandomState(SEED + 1)
+    rng = np.random.RandomState(seed)
     paths = {}
-    for name, n_seq in (("train", 200), ("val", 100)):
+    for name, n_seq in zip(("train", "val"), sizes):
         lengths = rng.randint(300, 801, n_seq)
         total = int(lengths.sum())
-        path = os.path.join(workdir, f"timit_{name}.nc")
+        path = os.path.join(workdir, f"{prefix}_{name}.nc")
         write_netcdf(path, {"numSeqs": n_seq, "numTimesteps": total,
-                            "inputPattSize": 117, "numLabels": S_STATES,
+                            "inputPattSize": 117, "numLabels": states,
                             "maxSeqTagLength": 24}, [
             ("seqTags", ["numSeqs", "maxSeqTagLength"],
              strings_to_chars([f"{name}{i:04d}" for i in range(n_seq)], 24)),
@@ -652,9 +680,17 @@ def write_train_corpus(workdir):
             ("inputs", ["numTimesteps", "inputPattSize"],
              rng.randn(total, 117).astype(np.float32)),
             ("targetClasses", ["numTimesteps"],
-             rng.randint(0, S_STATES, total).astype(np.int32)),
+             rng.randint(0, states, total).astype(np.int32)),
         ])
         paths[name] = (path, lengths)
+    return paths
+
+
+def write_train_corpus(workdir):
+    """TIMIT-shaped train and val corpora (200 and 100 sequences, 183
+    states) and the recipe's network.jsn (weights from SEED)."""
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    paths = write_corpus(workdir, "timit", S_STATES, (200, 100), SEED + 1)
     net_path = os.path.join(workdir, "network_train.jsn")
     build_timit_network(seed=SEED).save(net_path)
     return paths, net_path
@@ -666,7 +702,15 @@ def wrappers():
     return {"lstm_fwd": lc.lstm_scan_fused, "lstm_fwd_save": lc.lstm_fwd_save,
             "lstm_bwd": lc.lstm_bwd,
             "softmax_ce_proj_fwd": sc.softmax_ce_proj_fwd,
-            "softmax_ce_proj_bwd": sc.softmax_ce_proj_bwd}
+            "softmax_ce_proj_bwd": sc.softmax_ce_proj_bwd,
+            "softmax_ce_wide_fwd": sc.softmax_ce_wide_fwd,
+            "softmax_ce_wide_bwd": sc.softmax_ce_wide_bwd}
+
+
+def check_counts(counts, expect):
+    """Every kernel's launches on a path's run, exactly as expected."""
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts}, expected {expect}")
 
 
 def train_end_to_end(torch, workdir):
@@ -687,7 +731,8 @@ def train_end_to_end(torch, workdir):
               "lstm_fwd_save": 5 * n_train * epochs,
               "lstm_bwd": 5 * n_train * epochs,
               "softmax_ce_proj_fwd": (n_train + n_val) * epochs,
-              "softmax_ce_proj_bwd": n_train * epochs}
+              "softmax_ce_proj_bwd": n_train * epochs,
+              "softmax_ce_wide_fwd": 0, "softmax_ce_wide_bwd": 0}
     phase("train", f"train {len(train_len)} sequences "
           f"({int(train_len.sum())} frames, lengths {train_len.min()}.."
           f"{train_len.max()}, {n_train} fractions after truncation at "
@@ -726,8 +771,7 @@ def train_end_to_end(torch, workdir):
                 raise AssertionError(f"non-finite epoch row: {ln}")
         phase("train", f"{name}: {wall:.1f} s wall for {epochs} epochs; "
               f"launches {counts}")
-        if counts != expect:
-            raise AssertionError(f"launch counts {counts}, expected {expect}")
+        check_counts(counts, expect)
         if launches is None:
             launches = counts
         start = Network.from_json_file(net_path)
@@ -774,11 +818,11 @@ def train_rates(torch, card):
     return rates
 
 
-def profile_step(torch):
+def profile_step(torch, lvcsr=False):
     """Device time by kernel over one kernel-path training step (f32)."""
     from torch.profiler import ProfilerActivity, profile
-    batch, _ = recipe_batch(torch)
-    tr = make_trainer("auto", "float32")
+    batch, _ = recipe_batch(torch, states=S_LVCSR if lvcsr else S_STATES)
+    tr = make_trainer("auto", "float32", lvcsr)
     tr.train_step(*batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -787,7 +831,8 @@ def profile_step(torch):
         tr.train_step(*batch)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    report_profile(prof, wall_us, f"one training step T={T_TRAIN} f32")
+    report_profile(prof, wall_us, f"one {'LVCSR' if lvcsr else 'TIMIT'} "
+                   f"training step T={T_TRAIN} f32")
 
 
 def report_profile(prof, wall_us, what):
@@ -810,6 +855,340 @@ def report_profile(prof, wall_us, what):
         if dev_us(e) > 0:
             phase("profile", f"  {dev_us(e) / 1e3:9.3f} ms  "
                   f"{e.count:5d}x  {e.key[:90]}")
+
+
+def wide_cost(kind, dtype):
+    """(bytes, flops) of K4f and K4b at the LVCSR tail: K4f reads the
+    logits, the targets and writes three per-row stats (its elementwise
+    work, a few FP32 operations per logit, counted as 4); K4b reads the
+    logits, h, the targets and the stats, writes dz, dW and db, and runs
+    the dW product."""
+    es = 2 if dtype == "bfloat16" else 4
+    N, P, S = N_TAIL, 2 * H, S_LVCSR
+    if kind == "softmax_ce_wide_fwd":
+        return N * S * es + N * 4 + 3 * N * 4 + 8, 4 * N * S
+    return (N * S * es + N * P * es + N * 4 + 3 * N * 4 + 4 + N * S * es
+            + P * S * 4 + S * 4, 2 * N * P * S)
+
+
+def wide_kernels_vs_twins(torch):
+    """K4f and K4b against their twins on the card at the LVCSR tail
+    (N = 25,000 frames, P = 250, S = 10,112), float32 and bfloat16, with
+    controls that the checks must reject and a row tile of dummy frames
+    that must give exactly zero; kernel, twin and library times."""
+    import torch.nn.functional as F
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    N, P, S = N_TAIL, 2 * H, S_LVCSR
+    h2 = torch.randn(N, P, device="cuda", generator=gen) * 0.5
+    W = (torch.rand(P, S, device="cuda", generator=gen) - 0.5) * 0.2
+    b = (torch.rand(S, device="cuda", generator=gen) - 0.5) * 0.2
+    tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    tc[::10] = -1  # dummy frames
+    tc[:64] = -1  # one whole K4b row tile of them
+    tl = tc.long()
+    g = torch.tensor(1.0, device="cuda")
+    res = {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h2, W, b, tc,
+                                                             1.0, dt)
+        loss_r, cnt_r, off_r, ssum_r, pt_r = sc.wide_stats_reference(a, tc)
+        torch.cuda.synchronize()
+        pairs = {"off": (off, off_r), "ssum": (ssum, ssum_r),
+                 "pt": (pt, pt_r)}
+        srel = {k: elem_rel(x, y) for k, (x, y) in pairs.items()}
+        serr = max(rel_err(x, y)[1] for x, y in pairs.values())
+        lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
+        lim = WIDE_REL["stats"][name]
+        ctrl = {}
+        if name == "bfloat16":
+            # control: the stats of the f32 logits, before their rounding,
+            # must fail the check (off and pt move by ~2^-9 relative)
+            a32 = torch.matmul(h2.to(dt).float(), W.to(dt).float()) + b
+            _, _, *st = sc.wide_stats_reference(a32, tc)
+            each = {k: elem_rel(x, pairs[k][1]) for k, x in zip(pairs, st)}
+            ctrl["stats of f32 a"] = max(each.values())
+            phase("wide-kernel", "control, stats of f32 a: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in each.items()))
+            del a32, st
+        ms = time_ms(torch, lambda: sc._launch_wide_fwd(a, tc), 10)
+        ms_all = time_ms(torch, lambda: sc.softmax_ce_wide_fwd(
+            h2, W, b, tc, 1.0, dt), 5)
+        plain = time_ms(torch, lambda: sc.wide_stats_reference(a, tc), 3)
+        lib = time_ms(torch, lambda: F.cross_entropy(
+            a, tl, reduction="sum", ignore_index=-1), 10)
+        res[("softmax_ce_wide_fwd", name)] = dict(
+            err=serr, rel=max(srel.values()), loss_rel=lrel, ms=ms,
+            plain_ms=plain, library_ms=lib,
+            cost=wide_cost("softmax_ce_wide_fwd", name))
+        phase("wide-kernel", f"K4f softmax_ce_wide_fwd {name}: stats "
+              f"max_abs_err={serr:.3e}, elementwise rel " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in srel.items())
+              + f" (tol {lim:.0e}" + "".join(
+                  f"; control {k} {v:.2e}" for k, v in ctrl.items())
+              + f"), loss rel {lrel:.2e}, count {cnt.item()} vs "
+              f"{cnt_r.item()}; kernel {ms:.3f} ms ({ms_all:.3f} ms with "
+              f"the logits product); twin {plain:.3f} ms; F.cross_entropy "
+              f"{lib:.3f} ms [N={N} P={P} S={S}]")
+        if not all(v > lim for v in ctrl.values()):
+            raise AssertionError(f"the stats check passes a wrong one: {ctrl}")
+        if not (max(srel.values()) <= lim and lrel <= 1e-5
+                and abs(cnt.item() - cnt_r.item()) <= 1):
+            raise AssertionError("K4f disagrees with its twin")
+
+        hc = h2.to(a.dtype)
+        dz, dw, db = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, 1.0)
+        dz_r = sc.wide_dz_reference(a, tc, off, ssum, pt, g)
+        dzc_r = dz_r.to(a.dtype)
+        dw_r = torch.matmul(hc.float().t(), dzc_r.float())
+        db_r = dz_r.sum(dim=0)
+        del dz_r
+        dh = sc._wide_dh(dz, W, h2.dtype, dt)
+        dh_r = sc._wide_dh(dzc_r, W, h2.dtype, dt)
+        torch.cuda.synchronize()
+        outs = {"dz": (dz, dzc_r), "dW": (dw, dw_r), "db": (db, db_r),
+                "dh": (dh, dh_r)}
+        errs = {k: rel_err(x, y) for k, (x, y) in outs.items()}
+        lims = {"dz": WIDE_REL["dz"][name], "dW": WIDE_REL["dW"][name],
+                "db": WIDE_REL["dW"][name], "dh": WIDE_REL["dW"][name]}
+        ctrl = {"zero dz": rel_err(torch.zeros_like(dzc_r), dzc_r)[0],
+                "rolled dz": rel_err(dzc_r.roll(1, dims=1), dzc_r)[0]}
+        dummy_zero = not dz[:64].any() and not dh[:64].any()
+        ms = time_ms(torch, lambda: sc._launch_wide_bwd(
+            a, hc, tc, off, ssum, pt, g, 1.0), 5)
+        ms_all = time_ms(torch, lambda: sc.softmax_ce_wide_bwd(
+            a, h2, W, tc, off, ssum, pt, g, 1.0, dt), 5)
+
+        def plain_bwd():
+            d = sc.wide_dz_reference(a, tc, off, ssum, pt, g)
+            dc = d.to(a.dtype)
+            return dc, torch.matmul(hc.float().t(), dc.float()), d.sum(0)
+        plain = time_ms(torch, plain_bwd, 3)
+        res[("softmax_ce_wide_bwd", name)] = dict(
+            err=max(e[1] for k, e in errs.items() if k != "dh"),
+            rel=max(e[0] for e in errs.values()), ms=ms, plain_ms=plain,
+            library_ms=None, cost=wide_cost("softmax_ce_wide_bwd", name))
+        phase("wide-kernel", f"K4b softmax_ce_wide_bwd {name}: " + ", ".join(
+            f"{k} rel {e[0]:.2e} (tol {lims[k]:.1e})"
+            for k, e in errs.items()) + "; controls " + ", ".join(
+            f"{k} {v:.2e}" for k, v in ctrl.items()) + f"; dummy tile "
+            f"exactly zero: {dummy_zero}; kernel {ms:.3f} ms ({ms_all:.3f} "
+            f"ms with the dh product); twin {plain:.3f} ms")
+        if not all(v > lims["dz"] for v in ctrl.values()):
+            raise AssertionError(f"the dz check passes a wrong dz: {ctrl}")
+        if not (dummy_zero and all(errs[k][0] <= lims[k] for k in errs)):
+            raise AssertionError("K4b disagrees with its twin")
+        del loss, a, off, ssum, pt, dz, dw, db, dzc_r, dw_r, db_r, dh, dh_r
+        torch.cuda.empty_cache()
+    return res
+
+
+def lvcsr_step_fused_vs_unfused(torch):
+    """One LVCSR SGD step from the same weights, the fused tail (K4) vs
+    the unfused one (softmax_forward + the multiclass loss under
+    autograd), both f32, ragged rows: the loss and the update; and the
+    control, the bf16 fused step against the same f32 unfused step,
+    which the update check must reject."""
+    batch, _ = recipe_batch(torch, full=False, seed=2, states=S_LVCSR)
+    out = {}
+    for label, fused, dtype in (("fused", True, "float32"),
+                                ("unfused", False, "float32"),
+                                ("control", True, "bfloat16")):
+        tr = make_trainer("auto", dtype, lvcsr=True)
+        tr.fused_tail = fused
+        before = {n: {k: v.detach().clone() for k, v in l.items()}
+                  for n, l in tr.params.items()}
+        err, _ = tr.train_step(*batch)
+        torch.cuda.synchronize()
+        upd = torch.cat([(tr.params[n][k].detach() - before[n][k]).flatten()
+                         for n in sorted(before) for k in sorted(before[n])])
+        out[label] = (err.item(), upd)
+        del tr, before
+    l_u, u_u = out["unfused"]
+
+    def rels(label):
+        loss, upd = out[label]
+        return (abs(loss - l_u) / abs(l_u),
+                ((upd - u_u).abs().max() / u_u.abs().max()).item())
+    (lrel, urel), (_, urel_c) = rels("fused"), rels("control")
+    phase("lvcsr-step", f"one LVCSR SGD step f32 T={T_TRAIN} B={B} "
+          f"S={S_LVCSR}: loss fused {out['fused'][0]:.6f} unfused "
+          f"{l_u:.6f} (rel {lrel:.2e}, tol {STEP_TOL['loss']:.0e}); update "
+          f"rel {urel:.2e} (tol {STEP_TOL['update']:.0e}, max |update| "
+          f"{u_u.abs().max().item():.3e}); control (bf16 fused step) update "
+          f"rel {urel_c:.2e}")
+    if not (lrel <= STEP_TOL["loss"] and urel <= STEP_TOL["update"]):
+        raise AssertionError("fused and unfused LVCSR steps disagree")
+    if not urel_c > STEP_TOL["update"]:
+        raise AssertionError("the update check passes the bf16 control")
+
+
+def _weights(path):
+    with open(path) as f:
+        doc = json.load(f)
+    return {(n, k): np.asarray(v) for n, sec in doc["weights"].items()
+            for k, v in sec.items()}
+
+
+def lvcsr_cli(torch, workdir):
+    """The LVCSR recipe through cli.main (examples/lvcsr_physical_states
+    config.cfg and network.jsn) on a synthetic 10,112-state corpus: f32
+    with the recipe's autosave, bf16 without; exact launch counts (K4, no
+    K3); the autosaves, and --continue from the first one against the
+    uninterrupted run; the autosave dump's seconds."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.config import parse_config
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    paths = write_corpus(workdir, "lvcsr", S_LVCSR, (100, 50), SEED + 2)
+    (train_nc, train_len), (val_nc, val_len) = paths["train"], paths["val"]
+    n_train = DataSet([train_nc], parallel_sequences=50,
+                      trunc_seq_length=500).num_fractions()
+    n_val = DataSet([val_nc], parallel_sequences=50).num_fractions()
+    if n_train < 3 or n_val < 1:
+        raise AssertionError(f"{n_train} train / {n_val} val fractions")
+    phase("lvcsr", f"train {len(train_len)} sequences "
+          f"({int(train_len.sum())} frames, {n_train} fractions after "
+          f"truncation at 500), val {len(val_len)} ({n_val} fraction(s)), "
+          f"{S_LVCSR} states")
+    cfg_path = os.path.join(LVCSR_DIR, "config.cfg")
+    base = [cfg_path, "--network", os.path.join(LVCSR_DIR, "network.jsn"),
+            "--train_file", train_nc, "--val_file", val_nc,
+            "--max_epochs", "2", "--random_seed", str(SEED)]
+    per_epoch = {"lstm_fwd": 5 * n_val, "lstm_fwd_save": 5 * n_train,
+                 "lstm_bwd": 5 * n_train, "softmax_ce_proj_fwd": 0,
+                 "softmax_ce_proj_bwd": 0,
+                 "softmax_ce_wide_fwd": n_train + n_val,
+                 "softmax_ce_wide_bwd": n_train}
+    here = os.getcwd()
+    launches, outs = None, {}
+    for label, args, epochs in (
+            ("float32", base, 2),
+            ("bfloat16", base + ["--compute_dtype", "bfloat16",
+                                 "--autosave", "false"], 2),
+            ("continue", ["--continue", os.path.join(
+                workdir, "lvcsr_float32", "epoch001.autosave")], 1)):
+        rundir = os.path.join(workdir, f"lvcsr_{label}")
+        os.makedirs(rundir)
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0  # the LVCSR path's run starts here
+        buf = io.StringIO()
+        os.chdir(rundir)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(args)
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        counts = {k: f.launches for k, f in w.items()}
+        text = buf.getvalue()
+        rows = [ln for ln in text.splitlines()
+                if ln.strip()[:1].isdigit() and "|" in ln]
+        for ln in rows:
+            phase("lvcsr", f"{label} |{ln}")
+        if rc != 0 or len(rows) != 2:
+            print(text[-3000:])
+            raise AssertionError(f"cli (LVCSR, {label}) returned {rc}")
+        phase("lvcsr", f"{label}: {wall:.1f} s wall for {epochs} epoch(s); "
+              f"launches {counts}")
+        check_counts(counts, {k: v * epochs for k, v in per_epoch.items()})
+        if label == "float32":
+            launches = counts
+            saves = sorted(os.listdir(rundir))
+            phase("lvcsr", f"{label}: files {saves}")
+            for name in ("epoch001.autosave", "epoch002.autosave"):
+                if name not in saves:
+                    raise AssertionError(f"{name} was not written")
+        outs[label] = _weights(os.path.join(rundir, "trained_network.jsn"))
+    def maxabs(label, k, v):
+        return float(np.abs(outs[label][k] - v).max(initial=0.0))
+    ref = outs["float32"]
+    wmax = max(float(np.abs(v).max(initial=0.0)) for v in ref.values())
+    diff = max(maxabs("continue", k, v) for k, v in ref.items())
+    d16 = max(maxabs("bfloat16", k, v) for k, v in ref.items())
+    phase("lvcsr", f"--continue epoch001.autosave vs the uninterrupted run: "
+          f"max |w - w_straight| = {diff:.3e} (tol {CONTINUE_TOL:.0e}); "
+          f"bf16 vs f32 trained weights {d16:.3e}; max |w| {wmax:.3e}")
+    if not diff <= CONTINUE_TOL:
+        raise AssertionError("the resumed run differs from the straight run")
+
+    # the dump alone: one LVCSR-width autosave written as the CLI writes it
+    from lstm_rnn_tpu_torch.models.flagship import build_lvcsr_network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    cfg = parse_config(base + ["--autosave_prefix",
+                               os.path.join(workdir, "dump")])
+    net = build_lvcsr_network(seed=SEED)
+    tr = Trainer(net, None)
+    t0 = time.perf_counter()
+    saver = cli._save_autosave(cfg, net, tr, "rows")
+    t1 = time.perf_counter()
+    cli._join_saver(saver)
+    t2 = time.perf_counter()
+    n = sum(v.size for layer in net.params.values() for v in layer.values())
+    phase("lvcsr", f"autosave of the LVCSR net ({n} weights, {3 * n} floats "
+          f"with the best weights and deltas): {t1 - t0:.3f} s on the "
+          f"calling thread (copies to the host), {saver.seconds:.1f} s JSON "
+          f"dump on the worker thread, {t2 - t0:.1f} s in all, "
+          f"{os.path.getsize(saver.path) / 2**20:.0f} MiB")
+    os.remove(saver.path)
+    return launches
+
+
+def lvcsr_rates(torch, card):
+    """Training frames/s of bench.py --recipe lvcsr's step (T=500, B=50,
+    every row full, lr 1e-4, momentum 0.9), f32 and bf16, synchronised,
+    mean of 5 after a warm-up step."""
+    batch, frames = recipe_batch(torch, states=S_LVCSR)
+    for label, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        tr = make_trainer("auto", dtype, lvcsr=True)
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tr.train_step(*batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+        phase("rate", f"LVCSR train step {label}: {frames / dt:,.0f} "
+              f"frames/s ({1e3 * dt:.1f} ms per step of {frames} frames, "
+              f"mean of 5) on {card}")
+        del tr
+
+
+def tail_crossover(torch):
+    """Both tails, forward + backward, at N = 25,000, P = 250 and the
+    state counts K3 serves (K4 with its products outside): measured only,
+    the route stays K3 where it fits."""
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    gen = torch.Generator("cuda").manual_seed(SEED + 9)
+    N, P = N_TAIL, 2 * H
+    g = torch.tensor(1.0, device="cuda")
+    for S in (183, 512, 832):
+        h2 = torch.randn(N, P, device="cuda", generator=gen) * 0.5
+        W = (torch.rand(P, S, device="cuda", generator=gen) - 0.5) * 0.2
+        b = (torch.rand(S, device="cuda", generator=gen) - 0.5) * 0.2
+        tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+
+            def k3():
+                _, _, p = sc.softmax_ce_proj_fwd(h2, W, b, tc, 1.0, dt)
+                sc.softmax_ce_proj_bwd(p, h2, W, tc, g, 1.0, dt)
+
+            def k4():
+                _, _, a, off, ssum, pt = sc.softmax_ce_wide_fwd(
+                    h2, W, b, tc, 1.0, dt)
+                sc.softmax_ce_wide_bwd(a, h2, W, tc, off, ssum, pt, g, 1.0,
+                                       dt)
+            t3, t4 = time_ms(torch, k3, 10), time_ms(torch, k4, 10)
+            phase("crossover", f"S={S} {name}: K3 fwd+bwd {t3:.3f} ms, K4 "
+                  f"fwd+bwd (products included) {t4:.3f} ms "
+                  f"[N={N} P={P}]")
 
 
 def main():
@@ -842,30 +1221,46 @@ def main():
         res = kernel_vs_twin(torch)
     with torch.no_grad():
         tres = train_kernels_vs_twins(torch)
+        wres = wide_kernels_vs_twins(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         launches_fwd, nc = end_to_end(torch, workdir)
         forward_rates(torch, nc, card)
         profile_fraction(torch, nc)
         step_kernel_vs_scan(torch)
         launches = train_end_to_end(torch, workdir)
+        lvcsr_step_fused_vs_unfused(torch)
+        lvcsr_launches = lvcsr_cli(torch, workdir)
     launches["lstm_fwd"] = launches_fwd
+    for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
+        launches[k] = lvcsr_launches[k]
     train_rates(torch, card)
     profile_step(torch)
+    lvcsr_rates(torch, card)
+    profile_step(torch, lvcsr=True)
+    with torch.no_grad():
+        tail_crossover(torch)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
-              "softmax_ce.cu", "softmax_ce_proj_bwd": "softmax_ce.cu"}
+              "softmax_ce.cu", "softmax_ce_proj_bwd": "softmax_ce.cu",
+              "softmax_ce_wide_fwd": "softmax_ce_wide.cu",
+              "softmax_ce_wide_bwd": "softmax_ce_wide.cu"}
     replaces = {"lstm_fwd": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_fwd_save": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_bwd": "lstm_rnn_tpu/ops/lstm_cell.py:284",
                 "softmax_ce_proj_fwd": "lstm_rnn_tpu/ops/softmax_ce.py:350",
-                "softmax_ce_proj_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:361"}
+                "softmax_ce_proj_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:361",
+                "softmax_ce_wide_fwd": "lstm_rnn_tpu/ops/softmax_ce.py:568",
+                "softmax_ce_wide_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:575"}
     # each kernel at the shape its path gives it: K0 at P=250, T=800; K1
-    # and K2 at P=250, T=500; the tail over 25,000 frames
+    # and K2 at P=250, T=500; the tails over 25,000 frames (K3 at 183
+    # states, K4 at 10,112)
     rows = {"lstm_fwd": (res[(250, "float32")], res[(250, "bfloat16")])}
     for k in ("lstm_fwd_save", "lstm_bwd", "softmax_ce_proj_fwd",
               "softmax_ce_proj_bwd"):
         rows[k] = (tres[(k, 250, "float32")], tres[(k, 250, "bfloat16")])
+    for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
+        rows[k] = (wres[(k, "float32")], wres[(k, "bfloat16")])
     kernels = []
     for k, (r32, r16) in rows.items():
         b32, by32 = bound(*r32["cost"], "float32")

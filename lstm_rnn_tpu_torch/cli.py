@@ -6,8 +6,12 @@ Counterpart of lstm_rnn_tpu/cli.py (the `currennt` binary's behaviour,
 - `--train true`: trains on `--train_file` (validating on `--val_file`,
   testing on `--test_file`) with momentum SGD, stochastic or batch, prints
   the epoch table, stops as the reference does and writes the best
-  weights to `--save_network`. Weight noise, input noise, autosave and
-  `--continue` are not ported yet and raise (ROADMAP.md);
+  weights to `--save_network`; `--autosave` writes the network and the
+  optimizer state after every epoch (`[prefix_]epochNNN.autosave`, the JSON
+  dump on a worker thread while the next epoch trains), `--autosave_best`
+  the best network at every new lowest validation error, and `--continue
+  FILE` resumes from an autosave with the configuration it stores. Weight
+  noise and input noise are not ported yet and raise (ROADMAP.md);
 - `--train false`: runs the network over `--ff_input_file` and writes the
   output layer's activations as single_csv, per-sequence csv or HTK files.
 
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 import time
 import traceback
 from typing import List, Optional
@@ -154,9 +159,6 @@ def _check_trainable(cfg: Config) -> None:
     missing = [
         (cfg.weight_noise_sigma > 0, "--weight_noise_sigma", "item 7"),
         (cfg.input_noise_sigma > 0, "--input_noise_sigma", "item 7"),
-        (cfg.autosave or cfg.autosave_best, "--autosave/--autosave_best",
-         "item 8"),
-        (bool(cfg.continue_file), "--continue", "item 8"),
         (cfg.init_rng != "numpy", "--init_rng currennt", "item 5"),
         (cfg.remat_blocks != 0, "--remat_blocks", "item 3"),
         (cfg.fuse_fractions != 1 or bool(cfg.device_cache)
@@ -171,9 +173,61 @@ def _check_trainable(cfg: Config) -> None:
                 f"{where})")
 
 
+def _save_autosave(cfg: Config, net: Network, trainer: Trainer,
+                   info_rows: str) -> threading.Thread:
+    """Write this epoch's autosave: the network, the configuration, the
+    epoch table so far and the optimizer state. Returns the worker thread
+    that formats and writes the JSON (the caller joins it through
+    _join_saver before the next save and before exiting: one write in
+    flight, overlapping the next epoch).
+
+    torch updates the parameters in place, so the epoch's weights, best
+    weights and momentum deltas are copied to host numpy here, on the
+    calling thread, before the worker starts: the worker never reads a
+    live tensor. The terminal epoch's autosave stores the restored best
+    weights (the reference restores inside Optimizer::train,
+    Optimizer.cu:318, before main.cpp:276-277 saves the state): once
+    trainer.finished, trainer.params are the best weights."""
+    prefix = cfg.autosave_prefix
+    name = (prefix + "_" if prefix else "") + \
+        f"epoch{trainer.cur_epoch:03d}.autosave"
+    extra = {"configuration": cfg.serialized_options,
+             "info_rows": info_rows.replace("\n", ";;;")}
+    extra.update(trainer.export_state_meta())
+    params = trainer.exact_params()
+    best = trainer.exact_params(trainer.best_params)
+    velocity = trainer.exact_params(trainer.velocity)
+    layers = net.layers_json()
+    holder = []  # the worker's exception, re-raised by _join_saver
+
+    def dump():
+        try:
+            t0 = time.perf_counter()
+            extra.update(trainer.export_state_arrays(best, velocity))
+            ioc.save_network_json(name, layers, params, extra=extra)
+            t.seconds = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 (re-raised at the join)
+            holder.append(e)
+
+    t = threading.Thread(target=dump, name="autosave-dump")
+    t.holder, t.path, t.seconds = holder, name, None
+    t.start()
+    return t
+
+
+def _join_saver(t: threading.Thread) -> None:
+    """Join an autosave dump thread, re-raising what it raised: a failed
+    checkpoint write (disk full, permissions) aborts the run instead of
+    training on with no autosaves landing."""
+    t.join()
+    if t.holder:
+        raise t.holder[0]
+
+
 def train_mode(cfg: Config, device: torch.device) -> int:
-    print(f"Reading network from '{cfg.network}'... ", end="")
-    net_doc = ioc.load_network_json(cfg.network)
+    network_file = cfg.continue_file or cfg.network
+    print(f"Reading network from '{network_file}'... ", end="")
+    net_doc = ioc.load_network_json(network_file)
     print("done.\n")
     train_set = _load_dataset(cfg, "train")
     if train_set is None:
@@ -204,12 +258,19 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         hybrid_online_batch=cfg.hybrid_online_batch,
         weight_noise_sigma=cfg.weight_noise_sigma, device=device)
 
+    info_rows = ""
+    if cfg.continue_file:
+        print(f"Restoring state from '{cfg.continue_file}'...")
+        info_rows = net_doc.get("info_rows", "").replace(";;;", "\n")
+        trainer.import_state(net_doc)
+
     classification = net.is_classification
     print("Starting training...\n")
     print(" Epoch | Duration |  Training error  | Validation error |    "
           "Test error    | New best | Throughput")
     print("-------+----------+------------------+------------------+"
           "------------------+----------+-----------")
+    sys.stdout.write(info_rows)
     err_space = "                  |"
 
     def fmt_err(err, cls_err):
@@ -217,7 +278,8 @@ def train_mode(cfg: Config, device: torch.device) -> int:
             return f"{cls_err * 100:6.2f}%{err:10.3f} |"
         return f"{err:17.3f} |"
 
-    finished = False
+    saver = None  # the autosave dump in flight
+    finished = trainer.finished  # a restored autosave may be finished
     while not finished:
         t0 = time.time()
         finished = trainer.train_epoch()
@@ -232,12 +294,26 @@ def train_mode(cfg: Config, device: torch.device) -> int:
                         trainer.cur_test_class_error)
                 if trainer.did_test else err_space)
         if trainer.did_validate:
-            row += "  yes   " if trainer.epochs_since_lowest == 0 \
-                else "  no    "
+            best = trainer.epochs_since_lowest == 0
+            row += "  yes   " if best else "  no    "
+            if best and cfg.autosave_best:
+                base = cfg.autosave_prefix or os.path.splitext(cfg.network)[0]
+                net.params = trainer.exact_params(trainer.best_params)
+                net.save(base + ".best.jsn")
         else:
             row += "        "
         fps = train_set.total_timesteps / max(duration, 1e-9)
-        print(row + f"| {fps:,.0f} fr/s", flush=True)
+        row += f"| {fps:,.0f} fr/s\n"
+        sys.stdout.write(row)
+        sys.stdout.flush()
+        info_rows += row
+        if cfg.autosave:
+            if saver is not None:
+                _join_saver(saver)
+            saver = _save_autosave(cfg, net, trainer, info_rows)
+
+    if saver is not None:
+        _join_saver(saver)  # the last autosave lands before the final save
 
     print()
     if trainer.epochs_since_lowest >= cfg.max_epochs_no_best:

@@ -205,9 +205,10 @@ def _split_files(s: str) -> List[str]:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Immutable parsed configuration. The autosave serialization comes
-    with autosave (ROADMAP.md)."""
+    """Immutable parsed configuration; `serialized_options` is the flag
+    string an autosave stores and `--continue` re-parses."""
     args: argparse.Namespace
+    serialized_options: str
 
     def __getattr__(self, name):
         return getattr(object.__getattribute__(self, "args"), name)
@@ -318,7 +319,29 @@ def parse_config(argv: Optional[List[str]] = None) -> Config:
         ns.random_seed = random.SystemRandom().randrange(1, 2**32)
 
     _check_supported(ns)
-    return Config(args=ns)
+    return Config(args=ns, serialized_options=serialize_options(ns))
+
+
+_SERIALIZE_SKIP = {"options_file", "options_file_flag", "continue_file",
+                   "list_devices",
+                   # process identity is per-job, never replayed from an
+                   # autosave (--continue keeps the live values instead)
+                   "coordinator_address", "num_processes", "process_id"}
+
+
+def serialize_options(ns: argparse.Namespace) -> str:
+    """Flatten the effective options to a flag string stored in autosaves
+    (Configuration.cpp:47-67)."""
+    parts = []
+    for k, v in sorted(vars(ns).items()):
+        if k in _SERIALIZE_SKIP or v is None:
+            continue
+        if isinstance(v, bool):
+            v = "true" if v else "false"
+        elif isinstance(v, tuple):  # explicit bucket inventory
+            v = ",".join(str(x) for x in v)
+        parts.append(f"--{k} {shlex.quote(str(v))}")
+    return " ".join(parts)
 
 
 def _check_supported(ns: argparse.Namespace) -> None:

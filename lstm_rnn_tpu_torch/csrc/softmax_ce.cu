@@ -46,23 +46,15 @@
 #include <cstddef>
 
 #include "gemm.cuh"
+#include "softmax_common.cuh"
 
 namespace {
 
-constexpr float kCeExpLimit = 88.722839f;
-constexpr float kRealMin = 1.1754944e-38f;
-constexpr float kRealMax = 3.4028235e38f;
-constexpr float kLogZero = -1e30f;
 constexpr int kCeRows = 64;  // rows per block (the GEMM tile's M)
 constexpr int kCeWarps = kGemmThreads / 32;
 
-__device__ __forceinline__ float safe_exp(float x) {
-  if (x <= kLogZero) return 0.0f;
-  if (x >= kCeExpLimit) return kRealMax;
-  return expf(x);
-}
-
-// the padded logits width held in shared memory per row
+// the padded logits width held in shared memory per row (ops/softmax_ce.py
+// proj_tail_fits reproduces the block's size, kCeRows * ce_width(S) * 4)
 __host__ __device__ inline int ce_width(int S) {
   return (S + kGemmTileN - 1) / kGemmTileN * kGemmTileN;
 }
@@ -170,35 +162,6 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-// loss[0] = sum of part_loss, cnt[0] = sum of part_cnt, in a fixed order
-__global__ void ce_reduce_kernel(const float* __restrict__ part_loss,
-                                 const int* __restrict__ part_cnt, int n,
-                                 float* __restrict__ loss,
-                                 int* __restrict__ cnt) {
-  __shared__ float sl[256];
-  __shared__ int sc[256];
-  float l = 0.0f;
-  int c = 0;
-  for (int i = threadIdx.x; i < n; i += 256) {
-    l += part_loss[i];
-    c += part_cnt[i];
-  }
-  sl[threadIdx.x] = l;
-  sc[threadIdx.x] = c;
-  __syncthreads();
-  for (int s = 128; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      sl[threadIdx.x] += sl[threadIdx.x + s];
-      sc[threadIdx.x] += sc[threadIdx.x + s];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    loss[0] = sl[0];
-    cnt[0] = sc[0];
-  }
-}
-
 // dzc [N, S] (storage dtype) and per-block db partials [nblk, S] from the
 // stored p; g is the loss cotangent (one f32 on the device)
 template <typename PT>
@@ -256,9 +219,7 @@ cudaError_t ce_fwd(const void* h, const void* w, const float* b,
       static_cast<T*>(p_out), part_loss, part_cnt, N, P, S, bias_mult);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ce_reduce_kernel<<<1, 256, 0, stream>>>(part_loss, part_cnt, nblk, loss,
-                                          cnt);
-  return cudaGetLastError();
+  return launch_ce_reduce(part_loss, part_cnt, nblk, loss, cnt, stream);
 }
 
 template <typename T>
@@ -349,8 +310,5 @@ int softmax_ce_bwd(const void* p, const void* h, const void* w,
 }
 
 int softmax_ce_splits(int N) { return gemm_splits(N); }
-
-// the shared memory the forward needs per block for S classes
-int softmax_ce_smem(int S) { return kCeRows * ce_width(S) * 4; }
 
 }  // extern "C"

@@ -296,6 +296,18 @@ class DataSet:
                     max(q.length for q in self.sequences[s:s + b])))
         return starts
 
+    def skip_epochs(self, n: int) -> None:
+        """Draw the per-epoch shuffles of n epochs without assembling them,
+        so that a run restored after n epochs goes on with the fraction
+        order the uninterrupted run had. Input noise draws from the same
+        stream per fraction and cannot be skipped this way."""
+        if self.noise_deviation:
+            raise NotImplementedError(
+                "skip_epochs with input noise (not ported: ROADMAP.md, "
+                "queue 1 item 7)")
+        for _ in range(n):
+            self._shuffle()
+
     def _padded_length(self, max_len: int) -> int:
         if self._buckets is None:
             return max_len

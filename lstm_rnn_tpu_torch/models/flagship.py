@@ -1,9 +1,11 @@
-"""Flagship model builder: the TIMIT 183-state DBLSTM recipe.
+"""Flagship model builders: the TIMIT 183-state DBLSTM recipe and the
+LVCSR physical-state recipe.
 
 Counterpart of lstm_rnn_tpu/models/flagship.py.
 `examples/phoneme_recognition_timit/{config.cfg,network.jsn}`: 117-dim
 fbank input -> 5 x BLSTM(250) -> softmax(183) -> multiclass_classification,
-parallel_sequences 50.
+parallel_sequences 50. `examples/lvcsr_physical_states/`: the same stack
+with a softmax over 10,112 physical HMM states.
 """
 
 from __future__ import annotations
@@ -31,3 +33,12 @@ def build_timit_network(input_size: int = 117, hidden: int = 250,
                   **net_kwargs)
     net.init_params(seed)
     return net
+
+
+def build_lvcsr_network(num_states: int = 10112, seed: int = 42,
+                        **net_kwargs) -> Network:
+    """The LVCSR recipe: the TIMIT stack with a softmax over physical
+    HMM-state indices (~10k decision-tree states, `htk2nc --no_label_map`).
+    The state count routes its tail through the wide kernels (K4)."""
+    return build_timit_network(num_states=num_states, seed=seed,
+                               **net_kwargs)

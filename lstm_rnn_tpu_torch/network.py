@@ -12,7 +12,7 @@ them (or their gradients, in the same tree layout) back.
 Training runs on the exact parameters: the JAX package's padded training
 view (128-lane cells, network.py:352-488) is a TPU tiling rule the Hopper
 kernels do not need. Not ported yet (ROADMAP.md): tensor/pipeline/sequence
-parallelism, streaming, and the wide (K4) and plain (K5) softmax tails.
+parallelism, streaming, and the plain (K5) softmax tail.
 """
 
 from __future__ import annotations
@@ -28,7 +28,10 @@ from lstm_rnn_tpu_torch.models import losses as losses_mod
 from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
                                                    softmax_forward)
 from lstm_rnn_tpu_torch.models.lstm import lstm_forward
-from lstm_rnn_tpu_torch.ops.softmax_ce import softmax_ce_proj_fused
+from lstm_rnn_tpu_torch.ops.softmax_ce import (proj_tail_fits,
+                                               softmax_ce_proj_fused,
+                                               softmax_ce_wide_fused,
+                                               tail_smem_optin)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -64,8 +67,10 @@ def params_from_numpy(params_np, device, dtype=torch.float32):
 
 def params_to_numpy(params):
     """The inverse of params_from_numpy: tensors (parameters or their
-    gradients) -> float32 numpy arrays in the same tree layout."""
-    return {name: {k: v.detach().float().cpu().numpy()
+    gradients) -> float32 numpy arrays in the same tree layout. Always
+    copies, on the CPU too: the arrays stay as they are while training
+    updates the tensors in place (the autosave thread reads them)."""
+    return {name: {k: v.detach().to("cpu", torch.float32, copy=True).numpy()
                    for k, v in layer.items()}
             for name, layer in params.items()}
 
@@ -245,19 +250,24 @@ class Network:
     def loss_and_count_fused(self, params, inputs, targets, pattypes):
         """(total error, correct count) through the fused softmax + CE tail:
         the hidden layers as in `apply`, then the softmax layer's product,
-        the softmax, the loss and the count in one kernel (K3), with its
-        backward kernel under autograd. targets [T, B] int (-1 = dummy).
+        the softmax, the loss and the count, with the tail's backward
+        kernels under autograd. targets [T, B] int (-1 = dummy).
 
-        On the card, a softmax layer too wide for the kernel's shared
-        memory (LVCSR-scale state counts) raises: the wide tail that
-        serves it is not ported yet (ROADMAP K4)."""
+        The tail is K3 (the product inside the kernel) when its logits
+        block fits a block's shared memory (`proj_tail_fits`: S <= 832 on
+        the H100, and on the CPU, which takes the H100's route), and K4
+        (the product outside, the wide kernels) otherwise: the LVCSR
+        recipe's 10,112 states."""
         if not self.supports_fused_tail():
             raise ValueError("the fused tail needs a softmax -> "
                              "multiclass_classification net")
         s = self.specs[-2]
         x = self._apply_layers(params, inputs, pattypes, self.specs[1:-2])
         t, b, p_dim = x.shape
-        return softmax_ce_proj_fused(
+        tail = (softmax_ce_proj_fused
+                if proj_tail_fits(s.size, tail_smem_optin(x.device))
+                else softmax_ce_wide_fused)
+        return tail(
             x.reshape(t * b, p_dim), params[s.name]["W"], params[s.name]["b"],
             targets.reshape(t * b), s.size, float(s.bias), self.compute_dtype)
 

@@ -120,7 +120,13 @@ def _declare(lib) -> None:
     lib.softmax_ce_bwd.argtypes = [p] * 11 + [i] * 3 + [ctypes.c_float, i, i,
                                                         p]
     lib.softmax_ce_bwd.restype = i
-    for name in ("lstm_bwd_splits", "softmax_ce_splits", "softmax_ce_smem"):
+    lib.softmax_ce_wide_fwd.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.softmax_ce_wide_fwd.restype = i
+    lib.softmax_ce_wide_bwd.argtypes = [p] * 12 + [i] * 3 + [
+        ctypes.c_float, i, i, p]
+    lib.softmax_ce_wide_bwd.restype = i
+    for name in ("lstm_bwd_splits", "softmax_ce_splits",
+                 "softmax_ce_wide_row_tiles"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = i
     lib.lstm_err_str.argtypes = [i]

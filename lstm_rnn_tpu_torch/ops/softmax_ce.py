@@ -1,10 +1,13 @@
 """The fused classification tail on the GPU: identity feedforward ->
 CURRENNT softmax -> multiclass cross-entropy -> accuracy count.
 
-Counterpart of lstm_rnn_tpu/ops/softmax_ce.py (`softmax_ce_proj_fused`,
-whose custom VJP launches `_fwd_proj_kernel` and `_bwd_proj_kernel`). Two
-kernels, in csrc/softmax_ce.cu, each behind one wrapper with a launch
-count:
+Counterpart of lstm_rnn_tpu/ops/softmax_ce.py. Two tails, each a pair of
+kernels behind wrappers with a launch count; `proj_tail_fits` picks one.
+
+The projection tail (`softmax_ce_proj_fused`, whose custom VJP in the JAX
+package launches `_fwd_proj_kernel` and `_bwd_proj_kernel`; K3), in
+csrc/softmax_ce.cu, for nets whose [64, S] logits block fits a block's
+shared memory (S <= 832 on the H100):
 
 - `softmax_ce_proj_fwd`: logits = h . W + bias_mult * b in the kernel's
   own tiled product, the CURRENNT softmax (offset (min + max) / 2 with the
@@ -19,11 +22,26 @@ count:
 want_p off. Widths are exact: W [P, S], b [S]; the JAX package's 128-lane
 padding of S and P is a TPU tiling rule the kernels do not need.
 
+The wide tail (`softmax_ce_wide_fused`: `_fwd_wide_kernel` and
+`_bwd_wide_kernel`; K4), in csrc/softmax_ce_wide.cu, for LVCSR-scale
+softmaxes (~10k states). The logits a = h . W + bias_mult * b are one
+product outside the kernels, as in the JAX package (`wide_logits`):
+
+- `softmax_ce_wide_fwd`: from a, the loss, the count and three per-row
+  stats (offset, exp sum, target probability) when the caller trains
+  (want_stats); the [N, S] probabilities are never stored;
+- `softmax_ce_wide_bwd`: p recomputed from a and the stats, dz, dW =
+  h^T . dz (the kernel's own GEMM) and db = bias_mult * sum dz; dh =
+  dz . W^T is one product outside.
+
 Precision: float32 mode is true f32. bfloat16 mode rounds h and W to bf16
-(f32 accumulation), stores p in bf16, rounds dz to bf16 before the two
-products (db sums the unrounded dz) and returns dh in bf16, as the JAX
-kernels do. On a CUDA tensor each wrapper launches its kernel or raises;
-on a CPU tensor it runs its plain twin.
+(f32 accumulation), stores p (K3) or the logits (K4) in bf16, rounds dz to
+bf16 before the products (db sums the unrounded dz), as the JAX kernels
+do; K3 returns dh in bf16, K4 in h's dtype. The two products outside K4
+run in f32 on the storage dtype's values (a product of two bf16 values is
+exact in f32); in float32 mode they refuse to run with TF32 on. On a CUDA
+tensor each wrapper launches its kernel or raises; on a CPU tensor it runs
+its plain twin.
 """
 
 from __future__ import annotations
@@ -81,6 +99,33 @@ def softmax_ce_bwd_reference(p, h2, W, targets, g, bias_mult: float,
     return dh, dw, bias_mult * dz.sum(dim=0)
 
 
+# K3's forward keeps a [64, S] f32 logits block in shared memory (S rounded
+# up to the GEMM tile's 64 columns: csrc/softmax_ce.cu, ce_width) beside
+# its GEMM tiles (16 KB is their margin)
+_PROJ_ROWS = 64
+_PROJ_SMEM_MARGIN = 16 * 1024
+# an H100's shared memory per block (opt-in): the budget on the CPU, so
+# that the twins take the route the card takes
+H100_SMEM_OPTIN = 232_448
+
+
+def proj_tail_fits(S: int, smem_optin: int) -> bool:
+    """True when K3's forward fits S classes in `smem_optin` bytes of
+    shared memory per block (S <= 832 on the H100); wider nets take K4."""
+    width = -(-S // 64) * 64
+    return _PROJ_ROWS * width * 4 + _PROJ_SMEM_MARGIN <= smem_optin
+
+
+def tail_smem_optin(device) -> int:
+    """The shared memory per block the tail may use on `device`: the
+    card's opt-in limit, or the H100's on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+    return H100_SMEM_OPTIN
+
+
 def _check(h2, W, b, targets):
     if h2.dim() != 2 or W.dim() != 2 or W.shape[0] != h2.shape[1]:
         raise ValueError(f"h2 must be [N, P] and W [P, S]; got "
@@ -101,18 +146,16 @@ def softmax_ce_proj_fwd(h2, W, b, targets, bias_mult: float = 1.0,
     if not _on_cuda(h2, "softmax_ce_proj_fwd"):
         return softmax_ce_fwd_reference(h2, W, b, targets, bias_mult,
                                         compute_dtype, want_p)
-    from lstm_rnn_tpu_torch.ops import _build
-    lib = _build.load()
     N, P = h2.shape
     S = W.shape[1]
-    need = lib.softmax_ce_smem(S) + 16 * 1024
-    have = torch.cuda.get_device_properties(h2.device) \
-        .shared_memory_per_block_optin
-    if need > have:
-        raise NotImplementedError(
-            f"softmax_ce_proj_fwd: S={S} classes need {need} bytes of "
-            f"shared memory per block, the card has {have}; the wide tail "
-            f"that serves such nets is not ported yet (ROADMAP K4)")
+    have = tail_smem_optin(h2.device)
+    if not proj_tail_fits(S, have):
+        raise ValueError(
+            f"softmax_ce_proj_fwd: the [64, {S}] logits block does not fit "
+            f"the card's {have} bytes of shared memory per block; "
+            f"softmax_ce_wide_fused serves such nets")
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
     sdtype = storage_dtype(compute_dtype)
     dev = h2.device
     hc = h2.to(sdtype).contiguous()
@@ -218,4 +261,247 @@ def softmax_ce_proj_fused(h2, W, b, targets, S: int, bias_mult: float,
                                         compute_dtype)
     loss, cnt, _ = softmax_ce_proj_fwd(h2, W, b, targets, bias_mult,
                                        compute_dtype, want_p=False)
+    return loss, cnt
+
+
+# ------------------------------------------------------------ the wide tail
+def _no_tf32(compute_dtype) -> None:
+    """float32 mode is true fp32: the products outside K4 run in cuBLAS and
+    would round their operands to TF32 if it were on."""
+    if compute_dtype == torch.float32 and \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the wide softmax tail's products run in true fp32 in float32 "
+            "mode: set torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def wide_logits(h2, W, b, bias_mult: float,
+                compute_dtype: torch.dtype = torch.float32):
+    """a = h . W + bias_mult * b [N, S]: the product outside K4 (an XLA
+    product in the JAX package), in f32 on the storage dtype's values,
+    then rounded once to the storage dtype; K4's stats come from this
+    rounded a."""
+    sdtype = storage_dtype(compute_dtype)
+    a = torch.matmul(h2.to(sdtype).float(), W.to(sdtype).float())
+    a += bias_mult * b.float()
+    return a.to(sdtype)
+
+
+def wide_stats_reference(a, targets):
+    """K4f's plain twin: (loss, count, off, ssum, pt) from the logits."""
+    af = a.float()
+    mn = af.amin(dim=-1, keepdim=True)
+    mx = torch.clamp_min(af.amax(dim=-1, keepdim=True), REAL_MIN)
+    off = 0.5 * (mn + mx)
+    e = safe_exp(af - off)
+    ssum = e.sum(dim=-1, keepdim=True)
+    p = e / ssum
+    tc = targets.long()
+    valid = tc >= 0
+    pt = torch.where(valid, p.gather(1, tc.clamp_min(0)[:, None])[:, 0],
+                     torch.zeros_like(p[:, 0]))
+    loss = -(torch.log(torch.clamp_min(pt, REAL_MIN)) * valid).sum()
+    # the first argmax of p, not of e: two different e can round to the
+    # same p (torch.argmax returns the first maximal index)
+    cnt = ((p.argmax(dim=-1) == tc) & valid).sum().to(torch.int32)
+    return loss, cnt, off[:, 0], ssum[:, 0], pt
+
+
+def softmax_ce_wide_fwd_reference(h2, W, b, targets, bias_mult: float,
+                                  compute_dtype: torch.dtype = torch.float32,
+                                  want_stats: bool = True):
+    """The wide forward's plain-torch twin. h2 [N, P], W [P, S], b [S],
+    targets [N] int (-1 = dummy). Returns (loss f32 scalar, count int32
+    scalar, a [N, S] in the storage dtype, off, ssum, pt [N] f32 or three
+    None without want_stats)."""
+    a = wide_logits(h2, W, b, bias_mult, compute_dtype)
+    loss, cnt, off, ssum, pt = wide_stats_reference(a, targets)
+    if not want_stats:
+        off = ssum = pt = None
+    return loss, cnt, a, off, ssum, pt
+
+
+def softmax_ce_wide_bwd_reference(a, h2, W, targets, off, ssum, pt, g,
+                                  bias_mult: float,
+                                  compute_dtype: torch.dtype = torch.float32):
+    """The wide backward's plain-torch twin, from the forward's logits and
+    stats and the loss cotangent g (a scalar tensor). Returns (dh [N, P] in
+    h2's dtype, dW [P, S] f32, db [S] f32)."""
+    sdtype = storage_dtype(compute_dtype)
+    dz = wide_dz_reference(a, targets, off, ssum, pt, g)
+    dzc = dz.to(sdtype)
+    dw = torch.matmul(h2.to(sdtype).float().t(), dzc.float())
+    return (_wide_dh(dzc, W, h2.dtype, compute_dtype), dw,
+            bias_mult * dz.sum(dim=0))
+
+
+def wide_dz_reference(a, targets, off, ssum, pt, g):
+    """dz [N, S] f32 (not rounded) of K4b's twin: p recomputed from the
+    logits and the forward's stats, dz = g p (onehot inv - pt inv) valid
+    with inv = -1/max(pt, REAL_MIN)."""
+    p = safe_exp(a.float() - off[:, None]) / ssum[:, None]
+    tc = targets.long()
+    valid = (tc >= 0).float()[:, None]
+    onehot = torch.zeros_like(p).scatter_(
+        1, tc.clamp_min(0)[:, None], 1.0) * valid
+    inv = -1.0 / torch.clamp_min(pt, REAL_MIN)[:, None]
+    srow = pt[:, None] * inv
+    return p * (onehot * inv - srow) * valid * g.float()
+
+
+def _wide_dh(dzc, W, out_dtype, compute_dtype):
+    """dh = dzc . W^T: the product outside K4b, in f32, cast to h's
+    dtype."""
+    wc = W.to(storage_dtype(compute_dtype)).float()
+    return torch.matmul(dzc.float(), wc.t()).to(out_dtype)
+
+
+def _check_stats(N, *stats):
+    for t in stats:
+        if t.dtype != torch.float32 or tuple(t.shape) != (N,):
+            raise ValueError(f"the wide tail's stats must be [N] float32; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _launch_wide_fwd(a, targets, want_stats: bool = True):
+    """K4f alone on the logits a [N, S] (storage dtype, on the card).
+    Returns (loss, count, off, ssum, pt), the stats None without
+    want_stats."""
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
+    if a.dtype not in (torch.float32, torch.bfloat16) or a.dim() != 2:
+        raise ValueError(f"a must be [N, S] float32 or bfloat16; got "
+                         f"{a.dtype} {tuple(a.shape)}")
+    N, S = a.shape
+    dev = a.device
+    ac = a.contiguous()
+    tc = targets.to(device=dev, dtype=torch.int32).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    stats = [torch.empty(N, **f32) for _ in range(3)] if want_stats \
+        else [None] * 3
+    part_loss = torch.empty(N, **f32)
+    part_cnt = torch.empty(N, dtype=torch.int32, device=dev)
+    loss = torch.empty((), **f32)
+    cnt = torch.empty((), dtype=torch.int32, device=dev)
+    err = lib.softmax_ce_wide_fwd(
+        _ptr(ac), _ptr(tc), *[_ptr(t) if want_stats else None
+                              for t in stats],
+        _ptr(part_loss), _ptr(part_cnt), _ptr(loss), _ptr(cnt), N, S,
+        int(a.dtype == torch.bfloat16), dev.index, _stream(a))
+    _raise_on(err, "softmax_ce_wide_fwd launch")
+    return (loss, cnt, *stats)
+
+
+def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):
+    """K4b alone: dz, then dW = hc^T . dz in the kernel's GEMM and db.
+    a [N, S] and hc [N, P] in the storage dtype, on the card. Returns
+    (dz [N, S] storage dtype, dW [P, S] f32, db [S] f32)."""
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
+    N, S = a.shape
+    P = hc.shape[1]
+    if hc.dtype != a.dtype or tuple(hc.shape) != (N, P):
+        raise ValueError(f"h must be [N, P] in {a.dtype}; got {hc.dtype} "
+                         f"{tuple(hc.shape)}")
+    _check_stats(N, off, ssum, pt)
+    dev = a.device
+    tc = targets.to(device=dev, dtype=torch.int32).contiguous()
+    gc = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dz = torch.empty((N, S), dtype=a.dtype, device=dev)
+    db_part = torch.empty((lib.softmax_ce_wide_row_tiles(N), S), **f32)
+    w_part = torch.empty((lib.softmax_ce_splits(N), P * S), **f32)
+    dw = torch.empty((P, S), **f32)
+    db = torch.empty(S, **f32)
+    err = lib.softmax_ce_wide_bwd(
+        _ptr(a.contiguous()), _ptr(hc.contiguous()), _ptr(tc),
+        _ptr(off.contiguous()), _ptr(ssum.contiguous()),
+        _ptr(pt.contiguous()), _ptr(gc), _ptr(dz), _ptr(db_part),
+        _ptr(w_part), _ptr(dw), _ptr(db), N, P, S, ctypes.c_float(bias_mult),
+        int(a.dtype == torch.bfloat16), dev.index, _stream(a))
+    _raise_on(err, "softmax_ce_wide_bwd launch")
+    return dz, dw, db
+
+
+def softmax_ce_wide_fwd(h2, W, b, targets, bias_mult: float = 1.0,
+                        compute_dtype: torch.dtype = torch.float32,
+                        want_stats: bool = True):
+    """(loss, count, a, off, ssum, pt): the logits product and K4f on a
+    CUDA tensor, the twin on a CPU one. The stats are None without
+    want_stats."""
+    _check_compute_dtype(compute_dtype)
+    _check(h2, W, b, targets)
+    if not _on_cuda(h2, "softmax_ce_wide_fwd"):
+        return softmax_ce_wide_fwd_reference(h2, W, b, targets, bias_mult,
+                                             compute_dtype, want_stats)
+    _no_tf32(compute_dtype)
+    a = wide_logits(h2, W, b, bias_mult, compute_dtype)
+    out = _launch_wide_fwd(a, targets, want_stats)
+    softmax_ce_wide_fwd.launches += 1
+    return out[0], out[1], a, *out[2:]
+
+
+softmax_ce_wide_fwd.launches = 0
+
+
+def softmax_ce_wide_bwd(a, h2, W, targets, off, ssum, pt, g,
+                        bias_mult: float = 1.0,
+                        compute_dtype: torch.dtype = torch.float32):
+    """(dh, dW, db): K4b and the dh product on a CUDA tensor, the twin on a
+    CPU one. a and the stats are the forward's; g is the loss cotangent (a
+    scalar tensor on the same device: the kernel reads it, no host
+    sync)."""
+    _check_compute_dtype(compute_dtype)
+    _check(h2, W, W.new_empty(W.shape[1]), targets)
+    sdtype = storage_dtype(compute_dtype)
+    if a.dtype != sdtype or tuple(a.shape) != (h2.shape[0], W.shape[1]):
+        raise ValueError(f"a must be [N, S] in {sdtype}")
+    if not _on_cuda(h2, "softmax_ce_wide_bwd"):
+        return softmax_ce_wide_bwd_reference(a, h2, W, targets, off, ssum,
+                                             pt, g, bias_mult,
+                                             compute_dtype)
+    _no_tf32(compute_dtype)
+    dz, dw, db = _launch_wide_bwd(a, h2.to(sdtype), targets, off, ssum, pt,
+                                  g, bias_mult)
+    softmax_ce_wide_bwd.launches += 1
+    return _wide_dh(dz, W, h2.dtype, compute_dtype), dw, db
+
+
+softmax_ce_wide_bwd.launches = 0
+
+
+class SoftmaxCeWideFused(torch.autograd.Function):
+    """softmax_ce_wide_fused with gradients to h2, W and b. The residuals
+    are the logits, h2, W, the targets and the three per-row stats."""
+
+    @staticmethod
+    def forward(ctx, h2, W, b, targets, bias_mult, compute_dtype):
+        loss, cnt, a, off, ssum, pt = softmax_ce_wide_fwd(
+            h2, W, b, targets, bias_mult, compute_dtype, want_stats=True)
+        ctx.save_for_backward(a, h2, W, targets, off, ssum, pt)
+        ctx.cfg = (bias_mult, compute_dtype)
+        ctx.mark_non_differentiable(cnt)
+        return loss, cnt
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_cnt):
+        saved = ctx.saved_tensors  # a, h2, W, targets, off, ssum, pt
+        dh, dw, db = softmax_ce_wide_bwd(*saved, g_loss, *ctx.cfg)
+        return dh, dw.to(saved[2].dtype), db, None, None, None
+
+
+def softmax_ce_wide_fused(h2, W, b, targets, S: int, bias_mult: float,
+                          compute_dtype: torch.dtype = torch.float32):
+    """The wide (LVCSR-scale) tail: softmax_ce_proj_fused's contract for
+    any S. Returns (loss f32 scalar, correct count int32 scalar);
+    gradients flow to h2, W and b when autograd records, else the forward
+    runs alone and keeps no stats."""
+    if W.shape[-1] != S:
+        raise ValueError(f"W has {W.shape[-1]} columns, expected S={S}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h2, W, b)):
+        return SoftmaxCeWideFused.apply(h2, W, b, targets, float(bias_mult),
+                                        compute_dtype)
+    loss, cnt, *_ = softmax_ce_wide_fwd(h2, W, b, targets, bias_mult,
+                                        compute_dtype, want_stats=False)
     return loss, cnt

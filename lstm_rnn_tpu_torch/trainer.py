@@ -27,18 +27,27 @@ its forward and backward kernels; validation and test passes run without
 gradients, through the inference forward and the tail's forward only.
 The metrics stay on the device until the end of a pass.
 
-Not ported (ROADMAP.md): weight noise, input noise, autosave and
-`--continue` (queue items 7/8) raise; the JAX package's TPU machinery
-(stacked epochs, the device cache, warm compiles, VMEM probes,
-fuse_fractions) has no counterpart here, and CUDA Graphs come later.
+The optimizer state for autosaves (Optimizer.cu:326-341,
+SteepestDescentOptimizer.cu:118-123) goes out through `export_state` and
+comes back through `import_state`, in the reference's layer-array layout.
+A restored run also replays the training set's per-epoch shuffles of the
+epochs already done, so that it sees the fraction order the uninterrupted
+run would have seen (the JAX package starts the shuffle stream afresh).
+
+Not ported (ROADMAP.md): weight noise and input noise (queue item 7)
+raise; the JAX package's TPU machinery (stacked epochs, the device cache,
+warm compiles, VMEM probes, fuse_fractions) has no counterpart here, and
+CUDA Graphs come later.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
+from lstm_rnn_tpu_torch import io_currennt as ioc
 from lstm_rnn_tpu_torch.data.dataset import DataSet, Fraction
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
@@ -249,3 +258,97 @@ class Trainer:
         """The current (or given) parameters as numpy arrays in the JAX
         package's tree layout, for Network.params and saving."""
         return params_to_numpy(self.params if tree is None else tree)
+
+    # ------------------------------------------------------ state (autosave)
+    def export_state(self) -> Dict[str, Any]:
+        """Optimizer state for the autosave JSON, format-compatible with the
+        reference's autosave files."""
+        out = self.export_state_meta()
+        out.update(self.export_state_arrays(self.exact_params(self.best_params),
+                                            self.exact_params(self.velocity)))
+        return out
+
+    def export_state_meta(self) -> Dict[str, Any]:
+        """The scalar half of export_state."""
+        return {
+            "optimizer_finished": self.finished,
+            "optimizer_cur_epoch": self.cur_epoch,
+            "optimizer_epochs_since_lowest_error": self.epochs_since_lowest,
+            "optimizer_lowest_validation_error": self.lowest_validation_error,
+            "optimizer_cur_training_error": self.cur_training_error,
+            "optimizer_cur_validation_error": self.cur_validation_error,
+            "optimizer_cur_test_error": self.cur_test_error,
+            "optimizer_cur_training_class_error":
+                self.cur_training_class_error,
+            "optimizer_cur_validation_class_error":
+                self.cur_validation_class_error,
+            "optimizer_cur_test_class_error": self.cur_test_class_error,
+        }
+
+    def export_state_arrays(self, best_params, velocity) -> Dict[str, Any]:
+        """The array half of export_state: the best weights and the momentum
+        deltas, both numpy trees (exact_params), in the reference's
+        layer-array layout. Touches no tensor, so it may run on a worker
+        thread while the next epoch updates the live ones."""
+        return {
+            "optimizer_best_weights": self._params_to_layer_arrays(
+                best_params),
+            "steepest_descent_optimizer_weight_deltas":
+                self._params_to_layer_arrays(velocity),
+        }
+
+    def _params_to_layer_arrays(self, params) -> List[np.ndarray]:
+        """One flat [input|bias|internal] float64 array per layer position,
+        empty for the input and post-output layers (Optimizer.cu:326-341
+        exports m_bestWeights indexed by layer)."""
+        out: List[np.ndarray] = []
+        for s in self.net.specs:
+            if s.name not in params:
+                out.append(np.zeros(0))
+                continue
+            flat = (ioc.lstm_to_flat if s.type in ioc.LSTM_TYPES
+                    else ioc.ff_to_flat)(params[s.name])
+            out.append(np.concatenate(flat).astype(np.float64))
+        return out
+
+    def _params_from_layer_arrays(self, arrays) -> Dict[str, Any]:
+        params = {}
+        prev = None
+        for s, arr in zip(self.net.specs, arrays):
+            if s.type == "input" or s.type in ioc.POSTOUTPUT_TYPES:
+                prev = s.size
+                continue
+            flat = np.asarray(arr, dtype=np.float32)
+            if s.type in ioc.LSTM_TYPES:
+                n_in, n_b = 4 * s.size * prev, 4 * s.size
+                params[s.name] = ioc.lstm_from_flat(
+                    flat[:n_in], flat[n_in:n_in + n_b], flat[n_in + n_b:],
+                    prev, s.size, ioc.LSTM_TYPES[s.type])
+            else:
+                n_in = s.size * prev
+                params[s.name] = ioc.ff_from_flat(
+                    flat[:n_in], flat[n_in:n_in + s.size], prev, s.size)
+            prev = s.size
+        return params
+
+    def import_state(self, doc: Dict[str, Any]) -> None:
+        """Restore an autosave's optimizer state: the counters and errors,
+        and the best weights and momentum deltas as fresh tensors on the
+        trainer's device (the current weights are the autosave's network
+        weights, which the Network was built from). Replays the training
+        set's shuffles of the epochs done."""
+        self.finished = bool(doc["optimizer_finished"])
+        self.cur_epoch = int(doc["optimizer_cur_epoch"])
+        self.epochs_since_lowest = int(
+            doc["optimizer_epochs_since_lowest_error"])
+        for key in ("lowest_validation_error", "cur_training_error",
+                    "cur_validation_error", "cur_test_error",
+                    "cur_training_class_error", "cur_validation_class_error",
+                    "cur_test_class_error"):
+            setattr(self, key, float(doc["optimizer_" + key]))
+        self.best_params = params_from_numpy(self._params_from_layer_arrays(
+            doc["optimizer_best_weights"]), self.device)
+        self.velocity = params_from_numpy(self._params_from_layer_arrays(
+            doc["steepest_descent_optimizer_weight_deltas"]), self.device)
+        if self.train_set is not None:
+            self.train_set.skip_epochs(self.cur_epoch)

@@ -1,8 +1,8 @@
 """The Hopper kernels against their plain twins, on the card: the LSTM
 forward (csrc/lstm_fwd.cu, inference and training variants), its BPTT
-(csrc/lstm_bwd.cu) and the fused softmax + CE tail (csrc/softmax_ce.cu), at
-small and full TIMIT width, float32 and bfloat16 modes, and the wrappers'
-refusals.
+(csrc/lstm_bwd.cu), the fused softmax + CE tail (csrc/softmax_ce.cu) and
+the wide tail (csrc/softmax_ce_wide.cu), at small and full TIMIT and LVCSR
+width, float32 and bfloat16 modes, and the wrappers' refusals.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from lstm_rnn_tpu_torch.ops import lstm_cell
+from lstm_rnn_tpu_torch.ops import softmax_ce as sc
 from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_bwd, lstm_fwd_save,
                                               lstm_scan_bwd_reference,
                                               lstm_scan_fused,
@@ -290,5 +291,83 @@ def test_tail_too_wide_for_shared_memory_raises():
     """An LVCSR-scale softmax (10112 states) does not fit the kernel's
     shared memory: the wrapper refuses it and names the wide tail."""
     h, w, b, tc = _tail(64, 8, 10112)
-    with pytest.raises(NotImplementedError, match="ROADMAP K4"):
+    with pytest.raises(ValueError, match="softmax_ce_wide_fused"):
         softmax_ce_proj_fwd(h, w, b, tc)
+
+
+# the wide tail (K4). Stats element by element: f32 math on the same
+# logits in both modes, sums in another order. dz relative to its largest
+# entry: f32 sum-order noise in p; bf16 both sides round the same f32
+# value, a rounding flip moves dz by one bf16 ulp. dW, dh: f32 sums in
+# another order; bf16 each flip of dz moves the products by up to one bf16
+# ulp.
+STAT_REL = 1e-5
+DZ_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+WIDE_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(70, 7, 1001), (1000, 131, 2049),
+                                   (2500, 250, 10112)])
+def test_wide_tail_matches_twin(shape, dtype):
+    """S off every multiple of 32/64/128 but the last, N off the 64-row
+    tile; the first tile's rows are all dummies."""
+    h, w, b, tc = _tail(*shape)
+    tc[:64] = -1
+    loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h, w, b, tc, 0.8,
+                                                         dtype)
+    loss_r, cnt_r, off_r, ssum_r, pt_r = sc.wide_stats_reference(a, tc)
+    torch.cuda.synchronize()
+    assert a.dtype == lstm_cell.storage_dtype(dtype)
+    assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
+    assert abs(cnt.item() - cnt_r.item()) <= 1
+    for name, x, y in (("off", off, off_r), ("ssum", ssum, ssum_r),
+                       ("pt", pt, pt_r)):
+        assert _elem_rel(x, y) <= STAT_REL, (name, _elem_rel(x, y))
+    loss0, cnt0, _, *none = sc.softmax_ce_wide_fwd(h, w, b, tc, 0.8, dtype,
+                                                   want_stats=False)
+    assert none == [None] * 3 and loss0.item() == loss.item()
+    g = torch.tensor(0.37, device="cuda")
+    hc = h.to(a.dtype)
+    dz, dw, db = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, 0.8)
+    dz_r = sc.wide_dz_reference(a, tc, off, ssum, pt, g).to(a.dtype)
+    got = sc.softmax_ce_wide_bwd(a, h, w, tc, off, ssum, pt, g, 0.8, dtype)
+    want = sc.softmax_ce_wide_bwd_reference(a, h, w, tc, off, ssum, pt, g,
+                                            0.8, dtype)
+    torch.cuda.synchronize()
+    assert _rel_err(dz, dz_r) <= DZ_REL[dtype], _rel_err(dz, dz_r)
+    for name, x, y in zip(("dh", "dW", "db"), got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert _rel_err(x, y) <= WIDE_REL[dtype], (name, _rel_err(x, y))
+    # the all-dummy tile: exactly zero
+    assert not dz[:64].any() and not got[0][:64].any()
+
+
+def test_loss_and_count_fused_takes_the_wide_tail():
+    """At the LVCSR recipe's 10,112 states the network's tail is K4 (one
+    forward and one backward launch), never K3."""
+    from lstm_rnn_tpu_torch.network import Network
+    net = Network([
+        {"name": "input", "type": "input", "size": 5},
+        {"name": "l1", "type": "blstm", "size": 8, "bias": 1.0},
+        {"name": "output", "type": "softmax", "size": 10112, "bias": 1.0},
+        {"name": "postoutput", "type": "multiclass_classification",
+         "size": 10112}])
+    net.init_params(3)
+    params = net.device_params("cuda")
+    for layer in params.values():
+        for v in layer.values():
+            v.requires_grad_(True)
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn(9, 4, 5, device="cuda", generator=g)
+    pt = torch.ones(9, 4, dtype=torch.int8, device="cuda")
+    tc = torch.randint(0, 10112, (9, 4), device="cuda", generator=g,
+                       dtype=torch.int32)
+    wrappers = (sc.softmax_ce_proj_fwd, sc.softmax_ce_proj_bwd,
+                sc.softmax_ce_wide_fwd, sc.softmax_ce_wide_bwd)
+    before = [f.launches for f in wrappers]
+    loss, _ = net.loss_and_count_fused(params, x, tc, pt)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [0, 0, 1, 1]
+    assert torch.isfinite(params["output"]["W"].grad).all()

@@ -1,0 +1,150 @@
+"""The port's wide classification tail (K4, ops/softmax_ce.py) against the
+JAX package's softmax_ce_wide_fused with its Pallas kernels in interpret
+mode, on the same numpy inputs made from a seed, through jax.vjp with a
+loss cotangent G != 1; and the route between the two tails.
+
+On the CPU the port runs the twins of its two wide kernels. The JAX tail
+wants P % 128 == 0 and S padded to wide_plan's Sp_w, so the JAX side gets
+h and W zero-padded (zero h columns and W rows add nothing; padded logit
+columns are masked by construction); the port takes the exact widths. The
+Hopper kernels are held against the twins on the card
+(tests/test_torch_kernels_cuda.py).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lstm_rnn_tpu.ops.softmax_ce import _wide_fwd_impl, wide_plan
+from lstm_rnn_tpu.ops.softmax_ce import softmax_ce_wide_fused as jax_tail
+from lstm_rnn_tpu_torch.ops.softmax_ce import (H100_SMEM_OPTIN,
+                                               proj_tail_fits,
+                                               softmax_ce_wide_bwd,
+                                               softmax_ce_wide_fused,
+                                               softmax_ce_wide_fwd,
+                                               tail_smem_optin)
+
+N, P, PP, S = 512, 100, 128, 1500
+BIAS_MULT, G = 0.8, 0.37  # G: the loss cotangent
+DUMMY = (5, 17, 40, 300)  # rows with target -1
+DTYPES = ["float32", "bfloat16"]
+
+
+def _inputs():
+    rng = np.random.RandomState(S)
+    h = (0.5 * rng.randn(N, P)).astype(np.float32)
+    w = rng.uniform(-0.3, 0.3, (P, S)).astype(np.float32)
+    b = rng.uniform(-0.3, 0.3, S).astype(np.float32)
+    tc = rng.randint(0, S, N).astype(np.int32)
+    tc[list(DUMMY)] = -1
+    # rows 10 and 11 see only the bias, whose maximum is tied at classes 1
+    # and 3: the first argmax (1) counts for row 11, not for row 10
+    h[10:12] = 0.0
+    b[1] = b[3] = b.max() + 1.0
+    tc[10], tc[11] = 3, 1
+    return h, w, b, tc
+
+
+@functools.lru_cache(maxsize=None)
+def _jax(dtype):
+    h, w, b, tc = _inputs()
+    dt = jnp.dtype(dtype)
+    spw = wide_plan(N, PP, S, dt)[0]
+    hp = jnp.asarray(np.pad(h, ((0, 0), (0, PP - P))))
+    wp = jnp.asarray(np.pad(w, ((0, PP - P), (0, spw - S))))
+    bp = jnp.asarray(np.pad(b, (0, spw - S)))
+    t2 = jnp.asarray(tc[:, None])
+    f = functools.partial(jax_tail, targets=t2, S=S, bias_mult=BIAS_MULT,
+                          interpret=True, compute_dtype=dt)
+    loss, vjp = jax.vjp(lambda *a: f(*a)[0], hp, wp, bp)
+    cnt = f(hp, wp, bp)[1]
+    dh, dw, db = vjp(jnp.asarray(G, jnp.float32))
+    (_, _), (a, _, _, _, off, ssum, pt) = _wide_fwd_impl(
+        hp, wp, bp, t2, S, BIAS_MULT, True, dt)
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return dict(loss=float(loss), cnt=int(cnt), a=f32(a)[:, :S],
+                off=f32(off)[:, 0], ssum=f32(ssum)[:, 0], pt=f32(pt)[:, 0],
+                dh=f32(dh)[:, :P], dW=f32(dw)[:P, :S], db=f32(db)[:S])
+
+
+def _tolerance(dtype, ref):
+    if dtype == "float32":
+        # true f32 on both sides, sums in another order
+        return 1e-5 * float(np.abs(ref).max())
+    # the logits and dz are stored in bf16: a value rounded to the other
+    # side of a bf16 boundary moves what it enters by up to one bf16 ulp
+    # (2^-8) of the largest entry
+    return 2.0 ** -8 * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wide_forward_matches_jax(dtype):
+    want = _jax(dtype)
+    h, w, b, tc = (torch.tensor(x) for x in _inputs())
+    dt = getattr(torch, dtype)
+    loss, cnt, a, off, ssum, pt = softmax_ce_wide_fwd(h, w, b, tc, BIAS_MULT,
+                                                      dt)
+    assert loss.dtype == torch.float32 and cnt.dtype == torch.int32
+    assert a.dtype == dt and a.shape == (N, S)
+    # loss over 508 rows: f32 sum order (bf16: p in f32 from the same a)
+    np.testing.assert_allclose(float(loss), want["loss"], rtol=1e-5)
+    assert int(cnt) == want["cnt"]
+    got = dict(a=a.float(), off=off, ssum=ssum, pt=pt)
+    for name, x in got.items():
+        assert x.shape[0] == N, name
+        np.testing.assert_allclose(x.numpy(), want[name], rtol=0,
+                                   atol=_tolerance(dtype, want[name]),
+                                   err_msg=name)
+    assert not pt[list(DUMMY)].any()  # dummy rows: no target probability
+    # the tie row: classes 1 and 3 hold the same logit, so the first
+    # argmax (class 1) is row 11's target and not row 10's
+    assert a[10, 1] == a[10, 3] == a[10].max()
+    # without stats the forward keeps none, and gives the same loss
+    loss0, cnt0, _, *stats = softmax_ce_wide_fwd(h, w, b, tc, BIAS_MULT, dt,
+                                                 want_stats=False)
+    assert stats == [None] * 3
+    assert float(loss0) == float(loss) and int(cnt0) == int(cnt)
+    with torch.no_grad():
+        loss1, cnt1 = softmax_ce_wide_fused(h, w, b, tc, S, BIAS_MULT, dt)
+    assert float(loss1) == float(loss) and int(cnt1) == int(cnt)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wide_gradients_match_jax(dtype):
+    want = _jax(dtype)
+    h, w, b, tc = _inputs()
+    ts = [torch.tensor(x, requires_grad=True) for x in (h, w, b)]
+    loss, cnt = softmax_ce_wide_fused(*ts, torch.tensor(tc), S, BIAS_MULT,
+                                      getattr(torch, dtype))
+    np.testing.assert_allclose(float(loss.detach()), want["loss"], rtol=1e-5)
+    dh, dw, db = torch.autograd.grad(loss, ts, torch.tensor(G))
+    assert dh.dtype == dw.dtype == db.dtype == torch.float32
+    for name, got in (("dh", dh), ("dW", dw), ("db", db)):
+        assert got.shape == want[name].shape, name
+        np.testing.assert_allclose(got.numpy(), want[name], rtol=0,
+                                   atol=_tolerance(dtype, want[name]),
+                                   err_msg=name)
+    assert not dh[list(DUMMY)].any()  # dummy rows get no gradient
+
+
+def test_twins_count_no_launch():
+    h, w, b, tc = (torch.tensor(x) for x in _inputs())
+    before = (softmax_ce_wide_fwd.launches, softmax_ce_wide_bwd.launches)
+    _, _, a, off, ssum, pt = softmax_ce_wide_fwd(h, w, b, tc)
+    softmax_ce_wide_bwd(a, h, w, tc, off, ssum, pt, torch.tensor(1.0))
+    assert (softmax_ce_wide_fwd.launches,
+            softmax_ce_wide_bwd.launches) == before
+
+
+@pytest.mark.parametrize("S_, fits", [(183, True), (832, True),
+                                      (833, False), (10112, False)])
+def test_route_at_the_h100_budget(S_, fits):
+    """K3 holds a [64, S] f32 logits block (S rounded up to 64) plus 16 KB
+    of GEMM tiles in shared memory: 832 classes fit an H100's 232,448
+    bytes, 833 do not. The CPU takes the H100's budget."""
+    assert tail_smem_optin("cpu") == H100_SMEM_OPTIN == 232_448
+    assert proj_tail_fits(S_, H100_SMEM_OPTIN) is fits
