@@ -42,7 +42,23 @@ weights from a seed, and holds every kernel against its plain twin:
     uninterrupted run, and the seconds an LVCSR autosave's dump takes;
 12. LVCSR training frames/s (f32, bf16) and a profile of one f32 step;
 13. the K3/K4 crossover: both tails, forward + backward, at S = 183, 512
-    and 832 (measured only).
+    and 832 (measured only);
+14. the carry kernel (K6 forward + K7) against its twin at the streaming
+    width (117 -> 5 x LSTM(250) -> softmax(183), the TIMIT stack with every
+    BLSTM made an LSTM: one layer, D=1, H=250, B=64, a 64-frame chunk, P=117
+    and P=250), f32 and bf16, from non-zero (h0, c0) with a step mask of
+    every pattern a chunk has, with two controls that must fail (zero
+    carries; the same chunk masked by prefix lengths only), and its times;
+15. `Network.apply_streaming` over 8 chained 64-frame chunks (T=512, B=64)
+    against `Network.apply` (K0) on the whole sequence: the last LSTM
+    layer's output and the posteriors;
+16. streaming serving through `cli.main(--stream_chunk 64 ...)` on phase
+    5's corpus with the unidirectional net, f32 and bf16: the posteriors
+    against the `--stream_chunk 0` run, the exact launch counts (5 carry
+    launches per chunk, no K0), and a BLSTM net refused;
+17. streaming frames/s against whole-sequence frames/s on the same stack
+    (f32, bf16), the latency of one 64-frame chunk (host wall and device),
+    and a profile of one chunk.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -119,6 +135,15 @@ WIDE_REL = {"stats": {"float32": 1e-5, "bfloat16": 1e-5},
 # a resumed LVCSR run (--continue) against the uninterrupted one: the same
 # kernels on the same inputs in the same order, weights within 1e-6
 CONTINUE_TOL = 1e-6
+# streaming serving, as the JAX package measured it (scripts/
+# tpu_measure_r5b.py:53-62): the TIMIT stack with every BLSTM an LSTM(250),
+# 64 concurrent streams, T=512 fed in 64-frame chunks
+T_STREAM, B_STREAM, CHUNK, H_STREAM = 512, 64, 64, 250
+# the carry kernel against its twin: K0's bounds (TOL) over a 64-step
+# chunk; streamed posteriors against the whole-sequence ones: f32 sum-order
+# noise of the softmax product on chunks of rows (the hidden output of the
+# two is expected bit-identical)
+STREAM_TOL = 1e-5
 
 
 def phase(name, msg):
@@ -408,21 +433,27 @@ def bound(nbytes, flops, dtype):
                                        else "operations")
 
 
-def lstm_cost(kind, P, lengths, dtype, need_dx=True):
+def lstm_cost(kind, P, lengths, dtype, need_dx=True, T=None, D=D, H=H):
     """(bytes, flops) of one BLSTM layer at D=2, H=125, B=50, T=T_TRAIN (or
-    T_LAYER for K0) for this run's lengths. Padded rows add nothing to any
-    output, so every product counts the valid frames only, and every
-    per-frame input is read at the valid frames; the outputs are written
-    whole."""
-    T = T_LAYER if kind == "lstm_fwd" else T_TRAIN
+    T_LAYER for K0) for this run's lengths, or of one chunk of a streaming
+    LSTM layer (lstm_fwd_carry: T, D and H given, lengths the valid steps
+    per row). Padded rows add nothing to any output, so every product
+    counts the valid frames only, and every per-frame input is read at the
+    valid frames; the outputs are written whole. The carry kernel also
+    reads the [B, T] step mask and (h0, c0), and writes (hf, cf)."""
+    if T is None:
+        T = T_LAYER if kind == "lstm_fwd" else T_TRAIN
+    B = len(lengths)
     G = 4 * H
     es = 2 if dtype == "bfloat16" else 4
     frames = int(lengths.sum())
     weights = D * (P + H) * G * es + D * (3 * H + G) * 4 + B * 4
-    if kind in ("lstm_fwd", "lstm_fwd_save"):
+    if kind in ("lstm_fwd", "lstm_fwd_save", "lstm_fwd_carry"):
         nbytes = frames * P * es + weights + T * B * D * H * es
         if kind == "lstm_fwd_save":
             nbytes += D * T * B * (H * 4 + G * es)
+        if kind == "lstm_fwd_carry":
+            nbytes += B * T + 4 * D * B * H * 4
         # the input projection and the recurrent product
         flops = 2 * D * frames * (P + H) * G
         return nbytes, flops
@@ -704,7 +735,8 @@ def wrappers():
             "softmax_ce_proj_fwd": sc.softmax_ce_proj_fwd,
             "softmax_ce_proj_bwd": sc.softmax_ce_proj_bwd,
             "softmax_ce_wide_fwd": sc.softmax_ce_wide_fwd,
-            "softmax_ce_wide_bwd": sc.softmax_ce_wide_bwd}
+            "softmax_ce_wide_bwd": sc.softmax_ce_wide_bwd,
+            "lstm_fwd_carry": lc.lstm_scan_fused_carry}
 
 
 def check_counts(counts, expect):
@@ -732,7 +764,8 @@ def train_end_to_end(torch, workdir):
               "lstm_bwd": 5 * n_train * epochs,
               "softmax_ce_proj_fwd": (n_train + n_val) * epochs,
               "softmax_ce_proj_bwd": n_train * epochs,
-              "softmax_ce_wide_fwd": 0, "softmax_ce_wide_bwd": 0}
+              "softmax_ce_wide_fwd": 0, "softmax_ce_wide_bwd": 0,
+              "lstm_fwd_carry": 0}
     phase("train", f"train {len(train_len)} sequences "
           f"({int(train_len.sum())} frames, lengths {train_len.min()}.."
           f"{train_len.max()}, {n_train} fractions after truncation at "
@@ -840,9 +873,11 @@ def report_profile(prof, wall_us, what):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0) or 0)
     # device-side events only: a host op (an autograd node) also reports
-    # the device time of the kernels it launched, which would count twice
+    # the device time of the kernels it launched, which would count twice,
+    # and so does a scheduled profile's step annotation
     events = sorted((e for e in prof.key_averages()
-                     if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")
+                     and not e.key.startswith("ProfilerStep")),
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events)
     if busy <= 0:
@@ -1062,7 +1097,7 @@ def lvcsr_cli(torch, workdir):
                  "lstm_bwd": 5 * n_train, "softmax_ce_proj_fwd": 0,
                  "softmax_ce_proj_bwd": 0,
                  "softmax_ce_wide_fwd": n_train + n_val,
-                 "softmax_ce_wide_bwd": n_train}
+                 "softmax_ce_wide_bwd": n_train, "lstm_fwd_carry": 0}
     here = os.getcwd()
     launches, outs = None, {}
     for label, args, epochs in (
@@ -1191,6 +1226,293 @@ def tail_crossover(torch):
                   f"[N={N} P={P}]")
 
 
+def streaming_network(seed, **net_kwargs):
+    """The streaming stack: the TIMIT recipe's layers with every BLSTM made
+    an LSTM of the same size (117 -> 5 x LSTM(250) -> softmax(183)), as
+    scripts/tpu_measure_r5b.py:59-62 builds it; random weights from seed."""
+    from lstm_rnn_tpu_torch.models.flagship import timit_dblstm_layers
+    from lstm_rnn_tpu_torch.network import Network
+    layers = timit_dblstm_layers()
+    for layer in layers:
+        if layer["type"] == "blstm":
+            layer["type"] = "lstm"
+    net = Network(layers, **net_kwargs)
+    net.init_params(seed)
+    return net
+
+
+def chunk_mask(torch, T, Bs):
+    """[B, T] step mask of a streamed chunk: rows 0 and 5+ full, row 1 ends
+    at step 20, row 2 has a NONE gap (steps 10-19) and restarts, row 3
+    starts at step 32, row 4 has no valid step."""
+    m = torch.ones(Bs, T, dtype=torch.bool, device="cuda")
+    m[1, 20:] = False
+    m[2, 10:20] = False
+    m[3, :32] = False
+    m[4] = False
+    return m
+
+
+def carry_kernel_vs_twin(torch):
+    """Phase 14: the carry kernel against its twin at one streaming layer's
+    width, f32 and bf16, with two controls that must fail; kernel, twin
+    and recurrence-only times."""
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    T, Bs, Hs = CHUNK, B_STREAM, H_STREAM
+    mask = chunk_mask(torch, T, Bs)
+    steps = mask.sum(dim=1).cpu().numpy()
+    res = {}
+    for P in (117, 250):
+        rng = np.random.RandomState(P + 14)
+
+        def u(lo, hi, *shape):
+            return torch.tensor(rng.uniform(lo, hi, shape),
+                                dtype=torch.float32, device="cuda")
+        x = torch.tensor(rng.randn(T, Bs, P), dtype=torch.float32,
+                         device="cuda")
+        args = (x, u(-0.1, 0.1, 1, P, 4 * Hs), u(-0.1, 0.1, 1, Hs, 4 * Hs),
+                u(-0.1, 0.1, 1, 3, Hs), u(-0.1, 0.1, 1, 4 * Hs),
+                torch.full((Bs,), T, dtype=torch.int32, device="cuda"))
+        # a carried state of the size a stream reaches
+        h0, c0 = u(-0.9, 0.9, 1, Bs, Hs), u(-3.0, 3.0, 1, Bs, Hs)
+        prefix = mask.sum(dim=1, dtype=torch.int32)
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+
+            def kernel(h=h0, c=c0, m=mask, lengths=args[5]):
+                return lc.lstm_scan_fused_carry(
+                    *args[:5], lengths, h, c, 1.0, True, dt, True, None, 0,
+                    m)
+            want = lc.lstm_scan_carry_reference(*args, h0, c0, 1.0, dt,
+                                                None, 0, mask)
+
+            def errs(got):
+                return [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip((got[0], *got[1]),
+                                        (want[0], *want[1]))]
+            got = kernel()
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(g.float()).all()
+                       for g in (got[0], *got[1])):
+                raise AssertionError(f"carry kernel output not finite "
+                                     f"(P={P}, {name})")
+            err = errs(got)
+            z = torch.zeros_like(h0)
+            ctrl = {"zero carries": max(errs(kernel(h=z, c=z))),
+                    "prefix lengths": max(errs(kernel(m=None,
+                                                      lengths=prefix)))}
+            ms = time_ms(torch, kernel, 20)
+            plain = time_ms(torch, lambda: lc.lstm_scan_carry_reference(
+                *args, h0, c0, 1.0, dt, None, 0, mask), 1)
+            a = lc._launch_proj(x.to(dt), args[1].to(dt), args[4], 1.0)
+            w_rec = args[2].to(dt)
+            m8 = mask.to(torch.uint8)
+            rec = time_ms(torch, lambda: lc._launch_rec_carry(
+                a, w_rec, args[3], args[5], m8, h0, c0, T, 0), 20)
+            # K0's recurrence on the same chunk (every row full): what the
+            # carry variant's state, mask and full-length walk cost
+            rec0 = time_ms(torch, lambda: lc._launch_rec(
+                a, w_rec, args[3], args[5]), 20)
+            phase("carry-kernel", f"P={P} {name}: max_abs_err h "
+                  f"{err[0]:.3e}, hf {err[1]:.3e}, cf {err[2]:.3e} (tol "
+                  f"{TOL[name]:.0e}); controls " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in ctrl.items())
+                  + f"; kernel {ms:.3f} ms (recurrence {rec:.3f} ms = "
+                  f"{1e3 * rec / T:.2f} us per step; K0's on the same "
+                  f"chunk {1e3 * rec0 / T:.2f} us); twin {plain:.1f} ms "
+                  f"[T={T} B={Bs} H={Hs} D=1, {int(steps.sum())} valid "
+                  "steps]")
+            if not max(err) <= TOL[name]:
+                raise AssertionError(f"carry kernel disagrees with its twin: "
+                                     f"{err} > {TOL[name]} (P={P}, {name})")
+            if not all(v > TOL[name] for v in ctrl.values()):
+                raise AssertionError(f"the carry check passes a wrong "
+                                     f"chunk: {ctrl}")
+            res[(P, name)] = {
+                "err": max(err), "ms": ms, "plain_ms": plain,
+                "us_per_step": 1e3 * rec / T,
+                "cost": lstm_cost("lstm_fwd_carry", P, steps, name, T=T,
+                                  D=1, H=Hs)}
+    return res
+
+
+def stream_batch(torch, seed):
+    """T_STREAM frames of B_STREAM streams: N(0, 1) inputs, most rows full,
+    every eighth row ending early (a stream whose utterance ends)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(T_STREAM, B_STREAM, 117).astype(np.float32)
+    lengths = np.full(B_STREAM, T_STREAM)
+    lengths[::8] = rng.randint(100, T_STREAM, B_STREAM // 8)
+    pt = (np.arange(T_STREAM)[:, None] < lengths[None, :]).astype(np.int8)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(pt).cuda()
+
+
+def stream(net, params, x, pt, hidden_only=False):
+    """x through net.apply_streaming in CHUNK-frame chunks from a fresh
+    state, the outputs concatenated; with hidden_only, through the layers
+    below the softmax only."""
+    import torch
+    state = net.init_stream_state(x.shape[1], x.device)
+    outs = []
+    for lo in range(0, x.shape[0], CHUNK):
+        xc, pc = x[lo:lo + CHUNK], pt[lo:lo + CHUNK]
+        if hidden_only:
+            y, state = net._apply_layers(params, xc, pc, net.specs[1:-2],
+                                         state)
+        else:
+            y, state = net.apply_streaming(params, xc, pc, state)
+        outs.append(y)
+    return torch.cat(outs)
+
+
+def chained_vs_whole(torch):
+    """Phase 15: apply_streaming over 8 chained chunks against apply (K0)
+    on the whole sequence, f32 and bf16: the last LSTM layer's output and
+    the posteriors."""
+    x, pt = stream_batch(torch, SEED + 15)
+    for name in ("float32", "bfloat16"):
+        net = streaming_network(SEED, compute_dtype=name)
+        params = net.device_params("cuda")
+        hidden_whole = net._apply_layers(params, x, pt, net.specs[1:-2])
+        hidden = stream(net, params, x, pt, hidden_only=True)
+        y_whole = net.apply(params, x, pt)
+        y = stream(net, params, x, pt)
+        torch.cuda.synchronize()
+        same = torch.equal(hidden, hidden_whole)
+        dh = (hidden - hidden_whole).abs().max().item()
+        dp = (y - y_whole).abs().max().item()
+        phase("chained", f"{name}: {T_STREAM // CHUNK} chained {CHUNK}-frame "
+              f"chunks vs the whole sequence (T={T_STREAM} B={B_STREAM}): "
+              f"last LSTM layer bit-identical: {same} (max diff {dh:.3e}); "
+              f"posteriors max diff {dp:.3e} (tol {STREAM_TOL:.0e})")
+        if not (torch.isfinite(y).all() and dp <= STREAM_TOL
+                and dh <= TOL[name]):
+            raise AssertionError(f"chained chunks disagree with the whole "
+                                 f"sequence ({name}): {dh}, {dp}")
+
+
+def stream_cli(torch, workdir, nc, tags, lengths):
+    """Phase 16: streaming serving through cli.main on phase 5's corpus
+    with the unidirectional net: f32 and bf16 against the whole-sequence
+    run of the same net, exact launch counts, and a BLSTM net refused."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    net_path = os.path.join(workdir, "network_uni.jsn")
+    streaming_network(SEED).save(net_path)
+    t_frac = [f.inputs.shape[0] for f in DataSet(
+        [nc], parallel_sequences=50, prefetch=False).fractions()]
+    chunks = sum(-(-t // CHUNK) for t in t_frac)
+    none = {k: 0 for k in wrappers()}
+    launches = None
+    for name in ("float32", "bfloat16"):
+        outs = {}
+        for label, extra, expect in (
+                ("stream", ["--stream_chunk", str(CHUNK)],
+                 {**none, "lstm_fwd_carry": 5 * chunks}),
+                ("whole", [], {**none, "lstm_fwd": 5 * len(t_frac)})):
+            w = wrappers()
+            for f in w.values():
+                f.launches = 0  # the streaming path's run starts here
+            outdir = os.path.join(workdir, f"uni_{label}_{name}")
+            wall = run_cli(nc, net_path, outdir, "--compute_dtype", name,
+                           *extra)
+            counts = {k: f.launches for k, f in w.items()}
+            outs[label], worst = read_outputs(outdir, tags, lengths)
+            phase("stream-cli", f"{name} {label}: {wall:.2f} s wall; "
+                  f"launches {counts}; row sums within {worst:.1e}")
+            check_counts(counts, expect)
+            if label == "stream" and name == "float32":
+                launches = counts
+        d = max(float(np.abs(a - b).max())
+                for a, b in zip(outs["stream"], outs["whole"]))
+        phase("stream-cli", f"{name}: --stream_chunk {CHUNK} vs whole "
+              f"sequence, {len(t_frac)} fractions of T={t_frac} "
+              f"({chunks} chunks): max |p_stream - p_whole| = {d:.3e} (tol "
+              f"{STREAM_TOL:.0e})")
+        if not d <= STREAM_TOL:
+            raise AssertionError(f"streamed CLI posteriors differ: {d}")
+    # the TIMIT recipe's BLSTM net cannot stream
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["--network", os.path.join(workdir, "network.jsn"),
+                       "--train", "false", "--ff_input_file", nc,
+                       "--ff_output_file", os.path.join(workdir, "blstm"),
+                       "--stream_chunk", str(CHUNK)])
+    text = buf.getvalue()
+    if rc == 0 or "bidirectional" not in text or "Computing" in text:
+        raise AssertionError(f"a BLSTM net streamed (rc {rc})")
+    phase("stream-cli", f"BLSTM net with --stream_chunk {CHUNK}: refused "
+          f"(rc {rc}): {text.strip().splitlines()[-1][:100]}")
+    return launches
+
+
+def stream_rates(torch, card):
+    """Phase 17: streaming frames/s (T=512 in 64-frame chunks, B=64, every
+    row full) against whole-sequence apply on the same stack, f32 and
+    bf16; the latency of one chunk, host wall and device; a profile of
+    one chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(SEED + 17)
+    x = torch.from_numpy(rng.randn(T_STREAM, B_STREAM, 117).astype(
+        np.float32)).cuda()
+    pt = torch.ones(T_STREAM, B_STREAM, dtype=torch.int8, device="cuda")
+    frames = T_STREAM * B_STREAM
+    for name in ("float32", "bfloat16"):
+        net = streaming_network(SEED, compute_dtype=name)
+        params = net.device_params("cuda")
+        rates = {}
+        for label, fn in (("streamed", lambda: stream(net, params, x, pt)),
+                          ("whole", lambda: net.apply(params, x, pt))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            rates[label] = 3 * frames / (time.perf_counter() - t0)
+        # one chunk at a time, each synchronised: what a stream waits for
+        state = net.init_stream_state(B_STREAM, "cuda")
+        walls, devs = [], []
+        for lo in range(0, T_STREAM, CHUNK):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            _, state = net.apply_streaming(params, x[lo:lo + CHUNK],
+                                           pt[lo:lo + CHUNK], state)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            devs.append(start.elapsed_time(end))
+        phase("stream-rate", f"{name}: streamed {rates['streamed']:,.0f} "
+              f"frames/s, whole sequence {rates['whole']:,.0f} frames/s "
+              f"(T={T_STREAM} B={B_STREAM}, {CHUNK}-frame chunks, mean of "
+              f"3); one chunk: host wall {np.mean(walls):.3f} ms (min "
+              f"{min(walls):.3f}), device {np.mean(devs):.3f} ms (mean of "
+              f"{len(walls)}) on {card}")
+        if name == "float32":
+            # chunks 1 and 2 open the trace (a window's first launches go
+            # missing), chunk 3 is the one recorded
+            state = net.init_stream_state(B_STREAM, "cuda")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=torch.profiler.schedule(
+                             wait=1, warmup=1, active=1)) as prof:
+                for lo in range(0, 3 * CHUNK, CHUNK):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, state = net.apply_streaming(
+                        params, x[lo:lo + CHUNK], pt[lo:lo + CHUNK], state)
+                    torch.cuda.synchronize()
+                    wall_us = 1e6 * (time.perf_counter() - t0)
+                    prof.step()
+            report_profile(prof, wall_us, f"one streamed {CHUNK}-frame "
+                           f"chunk f32, B={B_STREAM}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1239,28 +1561,40 @@ def main():
     profile_step(torch, lvcsr=True)
     with torch.no_grad():
         tail_crossover(torch)
+    with torch.inference_mode():
+        cres = carry_kernel_vs_twin(torch)
+        chained_vs_whole(torch)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            nc, _, tags, lengths = write_inputs(workdir)
+            launches["lstm_fwd_carry"] = stream_cli(torch, workdir, nc, tags,
+                                                    lengths)["lstm_fwd_carry"]
+        stream_rates(torch, card)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
               "softmax_ce.cu", "softmax_ce_proj_bwd": "softmax_ce.cu",
               "softmax_ce_wide_fwd": "softmax_ce_wide.cu",
-              "softmax_ce_wide_bwd": "softmax_ce_wide.cu"}
+              "softmax_ce_wide_bwd": "softmax_ce_wide.cu",
+              "lstm_fwd_carry": "lstm_fwd.cu"}
     replaces = {"lstm_fwd": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_fwd_save": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_bwd": "lstm_rnn_tpu/ops/lstm_cell.py:284",
                 "softmax_ce_proj_fwd": "lstm_rnn_tpu/ops/softmax_ce.py:350",
                 "softmax_ce_proj_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:361",
                 "softmax_ce_wide_fwd": "lstm_rnn_tpu/ops/softmax_ce.py:568",
-                "softmax_ce_wide_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:575"}
+                "softmax_ce_wide_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:575",
+                "lstm_fwd_carry": "lstm_rnn_tpu/ops/lstm_cell.py:164"}
     # each kernel at the shape its path gives it: K0 at P=250, T=800; K1
     # and K2 at P=250, T=500; the tails over 25,000 frames (K3 at 183
-    # states, K4 at 10,112)
+    # states, K4 at 10,112); the carry kernel at P=250 over one 64-frame
+    # chunk of the streaming stack
     rows = {"lstm_fwd": (res[(250, "float32")], res[(250, "bfloat16")])}
     for k in ("lstm_fwd_save", "lstm_bwd", "softmax_ce_proj_fwd",
               "softmax_ce_proj_bwd"):
         rows[k] = (tres[(k, 250, "float32")], tres[(k, 250, "bfloat16")])
     for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
         rows[k] = (wres[(k, "float32")], wres[(k, "bfloat16")])
+    rows["lstm_fwd_carry"] = (cres[(250, "float32")], cres[(250, "bfloat16")])
     kernels = []
     for k, (r32, r16) in rows.items():
         b32, by32 = bound(*r32["cost"], "float32")
@@ -1277,6 +1611,10 @@ def main():
             "library_ms_bf16": r16.get("library_ms")})
         if "loss_rel" in r32:
             kernels[-1]["loss_rel_err"] = r32["loss_rel"]
+        if k == "lstm_fwd_carry":
+            kernels[-1]["variant"] = "carry=True, with_mask=True"
+            kernels[-1]["us_per_step"] = r32["us_per_step"]
+            kernels[-1]["us_per_step_bf16"] = r16["us_per_step"]
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

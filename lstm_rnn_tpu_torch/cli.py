@@ -13,7 +13,10 @@ Counterpart of lstm_rnn_tpu/cli.py (the `currennt` binary's behaviour,
   FILE` resumes from an autosave with the configuration it stores. Weight
   noise and input noise are not ported yet and raise (ROADMAP.md);
 - `--train false`: runs the network over `--ff_input_file` and writes the
-  output layer's activations as single_csv, per-sequence csv or HTK files.
+  output layer's activations as single_csv, per-sequence csv or HTK files;
+  with `--stream_chunk N` each fraction streams through a unidirectional
+  net in N-frame chunks, each LSTM layer's state carried from chunk to
+  chunk (online serving; the output equals the whole-sequence forward).
 
 Device: `--cuda true` (the default) or `--device cuda` runs on the GPU, the
 LSTM layers and the classification tail through the Hopper kernels; a
@@ -114,6 +117,11 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
                   backend=cfg.lstm_backend, compute_dtype=cfg.compute_dtype)
     net.init_params(cfg.random_seed)
     _print_layers(net)
+    chunk = cfg.stream_chunk
+    if chunk > 0:
+        net.init_stream_state(1, device)  # refuses a bidirectional net
+        print(f"Streaming forward: {chunk}-frame chunks, carried LSTM "
+              "state")
     params = net.device_params(device)
 
     means = stdevs = None
@@ -138,7 +146,8 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
         with torch.inference_mode():
             x = torch.from_numpy(frac.inputs).to(device)
             pt = torch.from_numpy(frac.pattypes).to(device)
-            y = net.apply(params, x, pt)
+            y = (_apply_streamed(net, params, x, pt, chunk) if chunk > 0
+                 else net.apply(params, x, pt))
         tags, outs = net.get_outputs(y, frac.seq_info)
         if fmt == "single_csv":
             writers.write_single_csv(cfg.ff_output_file, tags, outs, lag,
@@ -152,6 +161,18 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
                               kind=cfg.ff_output_kind)
         print(" done.")
     return 0
+
+
+def _apply_streamed(net: Network, params, x, pt, chunk: int):
+    """One fraction through the net in `chunk`-frame slices (the last may
+    be shorter) from a fresh stream state; the outputs concatenated."""
+    state = net.init_stream_state(x.shape[1], x.device)
+    outs = []
+    for lo in range(0, x.shape[0], chunk):
+        y, state = net.apply_streaming(params, x[lo:lo + chunk],
+                                       pt[lo:lo + chunk], state)
+        outs.append(y)
+    return torch.cat(outs)
 
 
 def _check_trainable(cfg: Config) -> None:

@@ -11,8 +11,8 @@ Port-specific:
   --lstm_backend auto|scan|pallas: pallas names the Hopper kernel
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
 never silently ignored: --num_devices, --model_devices,
---pipeline_devices and --seq_devices other than 1, --stream_chunk > 0,
---f32_matmul 3x, --compilation_cache_dir and the multi-host flags.
+--pipeline_devices and --seq_devices other than 1, --f32_matmul 3x,
+--compilation_cache_dir and the multi-host flags.
 """
 
 from __future__ import annotations
@@ -149,8 +149,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="microbatches per pipeline data shard (pipeline "
                         "parallelism is not ported yet)")
     g.add_argument("--stream_chunk", type=int, default=0,
-                   help="chunked streaming serving (not ported yet: only "
-                        "0, whole sequences)")
+                   help="forward mode: stream each fraction through a "
+                        "unidirectional net in N-frame chunks with carried "
+                        "LSTM state (0 = whole sequences)")
     g.add_argument("--remat_blocks", type=int, default=0,
                    help="training only: gradient checkpointing of the "
                         "recurrence in K time blocks")
@@ -350,8 +351,6 @@ def _check_supported(ns: argparse.Namespace) -> None:
         (f"--{k} {getattr(ns, k)}", "parallelism")
         for k in ("num_devices", "model_devices", "pipeline_devices",
                   "seq_devices") if getattr(ns, k) != 1]
-    if ns.stream_chunk > 0:
-        unsupported.append((f"--stream_chunk {ns.stream_chunk}", "streaming"))
     if ns.f32_matmul != "6x":
         unsupported.append((f"--f32_matmul {ns.f32_matmul}",
                             "the training step and its precision modes"))

@@ -1,7 +1,8 @@
 // Forward of one (B)LSTM layer, for NVIDIA Hopper (sm_90a).
 //
-// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_fwd_kernel (no carry, no step
-// mask) in both its variants: save=False, the TPU kernel behind
+// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_fwd_kernel in three of its
+// variants (the third, carry=True with a step mask, is item 3 below):
+// save=False, the TPU kernel behind
 // lstm_scan_fused's primal, which every frame of the forward-pass
 // (posterior dump) mode and of a validation pass goes through; and
 // save=True (`_fused_fwd`), the training forward, which also writes the
@@ -28,7 +29,8 @@
 // W_rec and fed-back h, f32 state and accumulation, plain sigma/tanh, h
 // stored in bf16.
 //
-// Design and what bounds it on this card. Two launches per layer:
+// Design and what bounds it on this card. Two launches per layer (all
+// variants):
 //
 // 1. proj_kernel, a tiled shared-memory GEMM [T*B, P] x [P, 4H] per
 //    direction into an f32 scratch buffer. The TPU kernel computes this
@@ -58,8 +60,29 @@
 //    zeros. Splitting W_rec over a thread-block cluster (so f32 stays on
 //    chip too) and using the tensor cores are later work.
 //
-// Launch rules: both entry points launch on the caller's stream, allocate
-// nothing, never synchronise, and return cudaGetLastError().
+// 3. The carry variant (lstm_fwd_rec_carry) replaces the same TPU kernel
+//    with carry=True, save=False and an optional step mask (K6 forward +
+//    K7: `lstm_scan_fused_carry`, streaming serving's primitive). It is
+//    rec_carry_kernel, rec_kernel's body with kCarry: the state starts
+//    from (h0, c0) [D, B, H] f32 instead of zeros (h0 rounded to the
+//    storage dtype, as the product reads the fed-back h); validity comes from a [B, T] step mask (any
+//    pattern: a sequence may end and the next begin inside a chunk) or,
+//    without one, from lengths; the final state (hf, cf) [D, B, H] f32 is
+//    the masked state of an ascending direction at step carry_t - 1 and of
+//    a descending one at t = 0, with hf unrounded, as the TPU kernel emits
+//    it. A direction is descending when d + dir_offset != 0 (dir_offset = 1
+//    runs a D = 1 layer's single direction backward in time). Every block
+//    runs every step of the chunk: the longest-row shortcut would start a
+//    row that is invalid at its first steps too late, skip the zeroing of
+//    a descending carry at T - 1 and leave h0 as the final state of a
+//    block that never reached carry_t - 1. Chunks are short, so this costs
+//    little. At the streaming width (H = 250, D = 1) W_rec is 1.0 MB in
+//    f32 and 500 KB in bf16: it does not fit a block's shared memory, so
+//    the carry variant reads it from L2 every step, and only ceil(B / 4)
+//    SMs work.
+//
+// Launch rules: every entry point launches on the caller's stream,
+// allocates nothing, never synchronises, and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -219,19 +242,37 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+// The carry variant's operands (unused without kCarry).
+struct CarryArgs {
+  const float* h0;            // [D, B, H] initial state
+  const float* c0;
+  const unsigned char* mask;  // [B, T] step validity; null: t < lengths[b]
+  float* hf;                  // [D, B, H] final state
+  float* cf;
+  int carry_t;                // ascending directions capture at carry_t - 1
+  int dir_offset;             // direction d walks descending if d + it > 0
+};
+
+// The recurrence, shared by rec_kernel and rec_carry_kernel.
 // a [D, T, B, 4H] f32, w_rec [D, H, 4H], peep [D, 3, H], out [T, B, D*H].
 // kWShared: W_rec[d] is staged in shared memory (RecLayout::w).
 // kSave: also write the residuals c_out [D, T, B, H] and g_out
 // [D, T, B, 4H] (zero at padding).
+// kCarry: start from ca.h0/ca.c0, mask per step, write ca.hf/ca.cf, and
+// run every step (see the note at the top). The carry variant is its own
+// entry point so that the other instances compile as they did without it:
+// one kernel taking CarryArgs gave them more registers and spills, and
+// slowed their f32 recurrences on an H100 (scripts/torch_ab_recurrence.py
+// compares two checkouts).
 template <typename W, typename Out, bool kPlainActs, bool kWShared,
-          bool kSave>
-__global__ void __launch_bounds__(kRecThreads)
-    rec_kernel(const float* __restrict__ a, const W* __restrict__ w_rec,
-               const float* __restrict__ peep,
-               const int* __restrict__ lengths, Out* __restrict__ out,
-               float* __restrict__ c_out, Out* __restrict__ g_out, int T,
-               int B, int H) {
+          bool kSave, bool kCarry>
+__device__ __forceinline__ void rec_body(
+    const float* __restrict__ a, const W* __restrict__ w_rec,
+    const float* __restrict__ peep, const int* __restrict__ lengths,
+    Out* __restrict__ out, float* __restrict__ c_out,
+    Out* __restrict__ g_out, int T, int B, int H, const CarryArgs& ca) {
   static_assert(kRows % 4 == 0, "h is read as float4 groups of rows");
+  static_assert(!(kSave && kCarry), "the carry variant writes no residuals");
   extern __shared__ __align__(16) float smem[];
   const RecLayout L = rec_layout(kRows, H);
   const int G = 4 * H;
@@ -245,6 +286,7 @@ __global__ void __launch_bounds__(kRecThreads)
   W* ws = reinterpret_cast<W*>(smem + L.w);
   __shared__ int len_s[kRows];
   __shared__ int tmax_s;
+  __shared__ int step_valid_s[kRows];  // this step's rows (kCarry + mask)
 
   const int d = blockIdx.x;
   const int D = gridDim.x;
@@ -252,10 +294,27 @@ __global__ void __launch_bounds__(kRecThreads)
   const int nb = min(kRows, B - b0);
   const int tid = threadIdx.x;
   const size_t DH = static_cast<size_t>(D) * H;
+  const bool desc = d + (kCarry ? ca.dir_offset : 0) != 0;
+  const bool use_mask = kCarry && ca.mask != nullptr;
 
-  for (int i = tid; i < H * kRows; i += kRecThreads) {
-    hs[i] = 0.0f;
-    cs[i] = 0.0f;
+  if constexpr (kCarry) {
+    for (int i = tid; i < H * kRows; i += kRecThreads) {
+      const int r = i / H, j = i - r * H;
+      float h = 0.0f, c = 0.0f;
+      if (r < nb) {
+        const size_t src = (static_cast<size_t>(d) * B + b0 + r) * H + j;
+        // the product reads the fed-back h as stored (rounded in bf16)
+        h = to_f32(from_f32<Out>(ca.h0[src]));
+        c = ca.c0[src];
+      }
+      hs[j * kRows + r] = h;
+      cs[r * H + j] = c;
+    }
+  } else {
+    for (int i = tid; i < H * kRows; i += kRecThreads) {
+      hs[i] = 0.0f;
+      cs[i] = 0.0f;
+    }
   }
   for (int i = tid; i < 3 * H; i += kRecThreads) ps[i] = peep[d * 3 * H + i];
   const W* wd = w_rec + static_cast<size_t>(d) * H * G;
@@ -272,13 +331,15 @@ __global__ void __launch_bounds__(kRecThreads)
     tmax_s = m;
   }
   __syncthreads();
-  const int tmax = tmax_s;
+  const int tmax = kCarry ? T : tmax_s;
+  // the step whose state is the final one (kCarry)
+  const int s_cap = desc ? T - 1 : ca.carry_t - 1;
 
   // a[d, t] for the block's rows is nb * G contiguous floats; it is copied
   // into shared memory one step ahead, so its latency hides behind the
   // product of the step before
   auto prefetch_a = [&](int s, int buf) {
-    const int t = d == 0 ? s : tmax - 1 - s;
+    const int t = desc ? tmax - 1 - s : s;
     const float* src = a + ((static_cast<size_t>(d) * T + t) * B + b0) * G;
     float* dst = as + buf * kRows * G;
     for (int i = tid; i < nb * H; i += kRecThreads)  // nb * G / 4 copies
@@ -288,9 +349,14 @@ __global__ void __launch_bounds__(kRecThreads)
   if (tmax > 0) prefetch_a(0, 0);
 
   for (int s = 0; s < tmax; ++s) {
-    const int t = d == 0 ? s : tmax - 1 - s;
+    const int t = desc ? tmax - 1 - s : s;
     const int buf = s & 1;
     if (s + 1 < tmax) prefetch_a(s + 1, buf ^ 1);
+    // read by the cell phase, after the barrier below; the last step's
+    // readers finished before the barrier that ended it
+    if (use_mask && tid < kRows)
+      step_valid_s[tid] =
+          tid < nb ? ca.mask[static_cast<size_t>(b0 + tid) * T + t] != 0 : 0;
     // partial products h . W_rec[d]: one (k slice, 4 adjacent gate
     // columns) item per thread, kRows rows each
     for (int item = tid; item < KS * H; item += kRecThreads) {
@@ -357,12 +423,17 @@ __global__ void __launch_bounds__(kRecThreads)
         og = logistic_exact(gv[3] + c_new * ps[2 * H + j]);
         h_new = tanh2_exact(c_new) * og;
       }
-      const bool valid = t < len_s[r];
+      const bool valid = use_mask ? step_valid_s[r] != 0 : t < len_s[r];
       const Out hv = from_f32<Out>(valid ? h_new : 0.0f);
       cs[r * H + j] = valid ? c_new : 0.0f;
       hs[j * kRows + r] = to_f32(hv);
       out[(static_cast<size_t>(t) * B + b0 + r) * DH +
           static_cast<size_t>(d) * H + j] = hv;
+      if (kCarry && s == s_cap) {
+        const size_t dst = (static_cast<size_t>(d) * B + b0 + r) * H + j;
+        ca.hf[dst] = valid ? h_new : 0.0f;  // unrounded, as the TPU kernel
+        ca.cf[dst] = valid ? c_new : 0.0f;
+      }
       if (kSave) {
         const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
         c_out[row * H + j] = valid ? c_new : 0.0f;
@@ -395,30 +466,68 @@ __global__ void __launch_bounds__(kRecThreads)
 
 template <typename W, typename Out, bool kPlainActs, bool kWShared,
           bool kSave>
+__global__ void __launch_bounds__(kRecThreads)
+    rec_kernel(const float* __restrict__ a, const W* __restrict__ w_rec,
+               const float* __restrict__ peep,
+               const int* __restrict__ lengths, Out* __restrict__ out,
+               float* __restrict__ c_out, Out* __restrict__ g_out, int T,
+               int B, int H) {
+  rec_body<W, Out, kPlainActs, kWShared, kSave, false>(
+      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, CarryArgs{});
+}
+
+template <typename W, typename Out, bool kPlainActs, bool kWShared>
+__global__ void __launch_bounds__(kRecThreads)
+    rec_carry_kernel(const float* __restrict__ a,
+                     const W* __restrict__ w_rec,
+                     const float* __restrict__ peep,
+                     const int* __restrict__ lengths, Out* __restrict__ out,
+                     int T, int B, int H, CarryArgs ca) {
+  rec_body<W, Out, kPlainActs, kWShared, false, true>(
+      a, w_rec, peep, lengths, out, nullptr, nullptr, T, B, H, ca);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename W, typename Out, bool kPlainActs, bool kWShared,
+          bool kSave, bool kCarry>
 cudaError_t launch_rec(const float* a, const void* w_rec, const float* peep,
                        const int* lengths, void* out, float* c_out,
-                       void* g_out, int T, int B, int H, int D, size_t smem,
+                       void* g_out, int T, int B, int H, int D,
+                       const CarryArgs& ca, size_t smem,
                        cudaStream_t stream) {
-  auto kernel = rec_kernel<W, Out, kPlainActs, kWShared, kSave>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   const dim3 grid(D, (B + kRows - 1) / kRows);
-  kernel<<<grid, kRecThreads, smem, stream>>>(
-      a, static_cast<const W*>(w_rec), peep, lengths, static_cast<Out*>(out),
-      c_out, static_cast<Out*>(g_out), T, B, H);
+  cudaError_t err;
+  if constexpr (kCarry) {
+    auto kernel = rec_carry_kernel<W, Out, kPlainActs, kWShared>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kRecThreads, smem, stream>>>(
+        a, static_cast<const W*>(w_rec), peep, lengths,
+        static_cast<Out*>(out), T, B, H, ca);
+  } else {
+    auto kernel = rec_kernel<W, Out, kPlainActs, kWShared, kSave>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kRecThreads, smem, stream>>>(
+        a, static_cast<const W*>(w_rec), peep, lengths,
+        static_cast<Out*>(out), c_out, static_cast<Out*>(g_out), T, B, H);
+  }
   return cudaGetLastError();
 }
 
 // Stages W_rec in shared memory when it fits beside the state; a state
 // that does not fit (H above ~500 in f32) is refused.
-template <typename W, typename Out, bool kPlainActs, bool kSave>
+template <typename W, typename Out, bool kPlainActs, bool kSave,
+          bool kCarry>
 cudaError_t launch_rec_w(const float* a, const void* w_rec, const float* peep,
                          const int* lengths, void* out, float* c_out,
-                         void* g_out, int T, int B, int H, int D, int device,
+                         void* g_out, int T, int B, int H, int D,
+                         const CarryArgs& ca, int device,
                          cudaStream_t stream) {
   int smem_max = 0;
   const cudaError_t err = cudaDeviceGetAttribute(
@@ -428,26 +537,28 @@ cudaError_t launch_rec_w(const float* a, const void* w_rec, const float* peep,
   const size_t state = L.w * sizeof(float);
   const size_t with_w = state + static_cast<size_t>(H) * 4 * H * sizeof(W);
   if (with_w <= static_cast<size_t>(smem_max))
-    return launch_rec<W, Out, kPlainActs, true, kSave>(
-        a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, with_w,
+    return launch_rec<W, Out, kPlainActs, true, kSave, kCarry>(
+        a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, ca, with_w,
         stream);
   if (state > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
-  return launch_rec<W, Out, kPlainActs, false, kSave>(
-      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, state, stream);
+  return launch_rec<W, Out, kPlainActs, false, kSave, kCarry>(
+      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, ca, state,
+      stream);
 }
 
-template <bool kSave>
+template <bool kSave, bool kCarry>
 cudaError_t launch_rec_dtype(const float* a, const void* w_rec,
                              const float* peep, const int* lengths, void* out,
                              float* c_out, void* g_out, int T, int B, int H,
-                             int D, int bf16, int device,
+                             int D, const CarryArgs& ca, int bf16, int device,
                              cudaStream_t stream) {
   if (bf16)
-    return launch_rec_w<__nv_bfloat16, __nv_bfloat16, true, kSave>(
-        a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, device,
+    return launch_rec_w<__nv_bfloat16, __nv_bfloat16, true, kSave, kCarry>(
+        a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, ca, device,
         stream);
-  return launch_rec_w<float, float, false, kSave>(
-      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, device, stream);
+  return launch_rec_w<float, float, false, kSave, kCarry>(
+      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, ca, device,
+      stream);
 }
 
 }  // namespace
@@ -487,11 +598,39 @@ int lstm_fwd_rec(const float* a, const void* w_rec, const float* peep,
   if ((c_out == nullptr) != (g_out == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const CarryArgs none = {};
   if (c_out != nullptr)
-    return launch_rec_dtype<true>(a, w_rec, peep, lengths, out, c_out, g_out,
-                                  T, B, H, D, bf16, device, stream);
-  return launch_rec_dtype<false>(a, w_rec, peep, lengths, out, nullptr,
-                                 nullptr, T, B, H, D, bf16, device, stream);
+    return launch_rec_dtype<true, false>(a, w_rec, peep, lengths, out, c_out,
+                                         g_out, T, B, H, D, none, bf16,
+                                         device, stream);
+  return launch_rec_dtype<false, false>(a, w_rec, peep, lengths, out, nullptr,
+                                        nullptr, T, B, H, D, none, bf16,
+                                        device, stream);
+}
+
+// Recurrence from an initial state (K6 forward + K7). As lstm_fwd_rec
+// without residuals, plus h0, c0 [D, B, H] f32 in; hf, cf [D, B, H] f32
+// out; mask [B, T] uint8 (nonzero = valid) or null (lengths then give a
+// valid prefix per row). carry_t in [1, T]; dir_offset 0, or 1 with D = 1;
+// a descending direction needs carry_t = T.
+int lstm_fwd_rec_carry(const float* a, const void* w_rec, const float* peep,
+                       const int* lengths, const unsigned char* mask,
+                       const float* h0, const float* c0, void* out, float* hf,
+                       float* cf, int T, int B, int H, int D, int carry_t,
+                       int dir_offset, int bf16, int device,
+                       cudaStream_t stream) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return cudaErrorInvalidValue;
+  if (dir_offset < 0 || dir_offset > 1 || (D == 2 && dir_offset != 0))
+    return cudaErrorInvalidValue;
+  if (carry_t < 1 || carry_t > T) return cudaErrorInvalidValue;
+  if ((D == 2 || dir_offset == 1) && carry_t != T)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const CarryArgs ca = {h0, c0, mask, hf, cf, carry_t, dir_offset};
+  return launch_rec_dtype<false, true>(a, w_rec, peep, lengths, out, nullptr,
+                                       nullptr, T, B, H, D, ca, bf16, device,
+                                       stream);
 }
 
 const char* lstm_err_str(int err) {

@@ -11,11 +11,13 @@ order [ig, fg, og]):
     {"W_in": [D, P, 4, H], "W_rec": [D, H, 4, H], "b": [D, 4, H],
      "peep": [D, 3, H]}
 
-Routing in `lstm_forward`: backend "auto" or "pallas" (the flag keeps its
-spelling; it names the Hopper kernels) goes through `lstm_scan_fused`,
-which launches the CUDA kernels for a CUDA tensor and runs their twins for
-a CPU tensor, and whose gradient is the BPTT kernel; backend "scan" runs
-`_lstm_scan` on either device, and autograd differentiates it. Both
+Routing in `lstm_forward` and `lstm_forward_streaming` (one chunk of a
+unidirectional layer from a carried state): backend "auto" or "pallas"
+(the flag keeps its spelling; it names the Hopper kernels) goes through
+`lstm_scan_fused` (streaming: `lstm_scan_fused_carry`, inference only),
+which launches the CUDA kernels for a CUDA tensor and runs their twins
+for a CPU tensor, and whose gradient is the BPTT kernel; backend "scan"
+runs `_lstm_scan` on either device, and autograd differentiates it. Both
 routes clip the gate deltas to +-1 (the reference's limitedError): the
 scan route through grad_clip on each preactivation and the split
 og-peephole path of `lstm_cell_step`, so that it reproduces the BPTT
@@ -29,12 +31,15 @@ import torch
 from lstm_rnn_tpu_torch.models.feedforward import round_operand
 from lstm_rnn_tpu_torch.ops.activations import grad_clip
 from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_cell_step,
-                                              lstm_scan_fused, storage_dtype)
+                                              lstm_scan_fused,
+                                              lstm_scan_fused_carry,
+                                              storage_dtype)
 
 BACKENDS = ("auto", "scan", "pallas")
 
 
-def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype):
+def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype,
+               init=None, return_carry: bool = False):
     """The scan path: a Python time loop over both (or one) directions,
     differentiable by autograd.
 
@@ -42,21 +47,32 @@ def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype):
     direction already time-reversed; w_rec [D, H, 4, H]; peep [D, 3, H];
     mask [T, D, B, 1] (1.0 valid / 0.0 pad, any pattern). Returns
     [T, D, B, H] in the storage dtype. Rounds where the kernel does: in
-    bfloat16 mode the fed-back h and the output are bf16."""
+    bfloat16 mode the fed-back h and the output are bf16.
+
+    init: an explicit starting state (h, c), [D, B, H] f32 each, and
+    return_carry=True also returns the final (h, c), h before storage
+    rounding: the streaming hooks (lstm_forward_streaming carries the
+    state from chunk to chunk)."""
     T, D, B, _, H = acts.shape
     fast = compute_dtype == torch.bfloat16
     sdtype = storage_dtype(compute_dtype)
     w = round_operand(w_rec, compute_dtype).reshape(D, H, 4 * H)
-    h = acts.new_zeros(D, B, H)
-    c = acts.new_zeros(D, B, H)
+    if init is None:
+        h = acts.new_zeros(D, B, H)
+        c = acts.new_zeros(D, B, H)
+    else:
+        h = round_operand(init[0], compute_dtype)  # as the product reads it
+        c = init[1]
     ys = []
     for t in range(T):
         a = acts[t] + torch.bmm(h, w).view(D, B, 4, H)
         h_new, c_new, _ = lstm_cell_step(a, c, peep, fast, grad_clip)
-        ys.append((h_new * mask[t]).to(sdtype))
+        h_m = h_new * mask[t]
+        ys.append(h_m.to(sdtype))
         h = ys[-1].float()
         c = c_new * mask[t]
-    return torch.stack(ys)
+    ys = torch.stack(ys)
+    return (ys, (h_m, c)) if return_carry else ys
 
 
 def _scan_acts_valid(x, pattypes, w_in, b, bias_mult: float,
@@ -113,3 +129,56 @@ def lstm_forward(params, x, pattypes, bias_mult: float, bidirectional: bool,
     else:
         ys = ys[:, 0]
     return ys.to(x.dtype)
+
+
+def lstm_forward_streaming(params, x, pattypes, bias_mult: float, carry,
+                           backend: str = "auto",
+                           compute_dtype: torch.dtype = torch.float32):
+    """One chunk of a UNIDIRECTIONAL layer from an explicit (h, c) state.
+
+    x: [T, B, P] chunk; pattypes: [T, B]; carry: (h, c), [1, B, H] f32
+    each, from the previous chunk (or Network.init_stream_state). Returns
+    (y [T, B, H] in x's dtype, new carry). Chaining chunks gives
+    lstm_forward on their concatenation: the streaming-serving primitive
+    (Network.apply_streaming). A bidirectional layer cannot stream (its
+    backward half consumes the future) and raises.
+
+    backend "auto"/"pallas": the carry kernel (`_streaming_fused`); "scan":
+    `_lstm_scan` with init/return_carry, which autograd differentiates
+    (truncated BPTT over chunks). The kernel route is inference only."""
+    w_in, w_rec, b, peep = (params["W_in"], params["W_rec"], params["b"],
+                            params["peep"])
+    if w_in.shape[0] != 1:
+        raise ValueError("a bidirectional layer cannot stream (its backward "
+                         "half consumes the future)")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend != "scan":
+        return _streaming_fused(params, x, pattypes, bias_mult, carry,
+                                compute_dtype)
+    acts, valid = _scan_acts_valid(x, pattypes, w_in, b, bias_mult,
+                                   compute_dtype)
+    ys, new_carry = _lstm_scan(acts, w_rec, peep, valid, compute_dtype,
+                               init=carry, return_carry=True)
+    return ys[:, 0].to(x.dtype), new_carry
+
+
+def _streaming_fused(params, x, pattypes, bias_mult: float, carry,
+                     compute_dtype: torch.dtype):
+    """The streaming chunk on the carry kernel. A chunk carries PER-STEP
+    validity, not a prefix: a sequence may end and another begin inside
+    one chunk, and the state must be zeroed exactly at each NONE step, so
+    the kernel gets the [B, T] step mask. carry_t is the chunk's length:
+    the port pads nothing, so the final state is the last step's."""
+    w_in, w_rec, b, peep = (params["W_in"], params["W_rec"], params["b"],
+                            params["peep"])
+    T, B, P = x.shape
+    H = w_in.shape[-1]
+    valid = pattypes != 0
+    h0, c0 = carry
+    ys, new_carry = lstm_scan_fused_carry(
+        x, w_in.reshape(1, P, 4 * H), w_rec.reshape(1, H, 4 * H), peep,
+        b.reshape(1, 4 * H), valid.sum(dim=0, dtype=torch.int32), h0, c0,
+        float(bias_mult), True, compute_dtype, True, carry_t=T,
+        step_mask=valid.t())
+    return ys.to(x.dtype), new_carry

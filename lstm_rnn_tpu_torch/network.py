@@ -11,8 +11,10 @@ them (or their gradients, in the same tree layout) back.
 
 Training runs on the exact parameters: the JAX package's padded training
 view (128-lane cells, network.py:352-488) is a TPU tiling rule the Hopper
-kernels do not need. Not ported yet (ROADMAP.md): tensor/pipeline/sequence
-parallelism, streaming, and the plain (K5) softmax tail.
+kernels do not need. Streaming serving (`init_stream_state`,
+`apply_streaming`) runs unidirectional stacks chunk by chunk on the carry
+kernel. Not ported yet (ROADMAP.md): tensor/pipeline/sequence
+parallelism, and the plain (K5) softmax tail.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from lstm_rnn_tpu_torch import io_currennt as ioc
 from lstm_rnn_tpu_torch.models import losses as losses_mod
 from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
                                                    softmax_forward)
-from lstm_rnn_tpu_torch.models.lstm import lstm_forward
+from lstm_rnn_tpu_torch.models.lstm import (lstm_forward,
+                                            lstm_forward_streaming)
 from lstm_rnn_tpu_torch.ops.softmax_ce import (proj_tail_fits,
                                                softmax_ce_proj_fused,
                                                softmax_ce_wide_fused,
@@ -211,10 +214,18 @@ class Network:
         return self._apply_layers(params, inputs, pattypes,
                                   self.specs[1:-1])
 
-    def _apply_layers(self, params, x, pattypes, specs):
+    def _apply_layers(self, params, x, pattypes, specs, state=None):
+        """The layers of `specs` in order. With `state` (streaming), each
+        LSTM layer runs one chunk from its carried state and the new state
+        is returned beside the output."""
+        new_state = {}
         for s in specs:
             p = params[s.name]
-            if s.type in ioc.LSTM_TYPES:
+            if s.type in ioc.LSTM_TYPES and state is not None:
+                x, new_state[s.name] = lstm_forward_streaming(
+                    p, x, pattypes, s.bias, state[s.name],
+                    backend=self.backend, compute_dtype=self.compute_dtype)
+            elif s.type in ioc.LSTM_TYPES:
                 x = lstm_forward(p, x, pattypes, s.bias, ioc.LSTM_TYPES[s.type],
                                  backend=self.backend,
                                  compute_dtype=self.compute_dtype)
@@ -223,7 +234,40 @@ class Network:
             else:
                 x = feedforward_forward(p, x, ioc.FEEDFORWARD_TYPES[s.type],
                                         s.bias, self.compute_dtype)
-        return x
+        return x if state is None else (x, new_state)
+
+    # ------------------------------------------------- streaming inference
+    #
+    # Online serving for UNIDIRECTIONAL stacks: the input arrives in time
+    # chunks and each LSTM layer's (h, c) is carried from call to call.
+    # Chained chunks give apply() on the concatenation. Bidirectional
+    # layers cannot stream (the backward half needs the future) and are
+    # refused up front.
+
+    def init_stream_state(self, batch: int, device="cuda"):
+        """Zero (h, c), [1, batch, H] f32 each, per LSTM layer, on `device`
+        (the card unless the caller asks for the CPU), for apply_streaming.
+        Raises ValueError naming a bidirectional layer."""
+        state = {}
+        for s in self.specs[1:-1]:
+            if s.type in ioc.LSTM_TYPES:
+                if ioc.LSTM_TYPES[s.type]:
+                    raise ValueError(
+                        f"layer '{s.name}' is bidirectional — blstm nets "
+                        "cannot stream (the backward half consumes the "
+                        "future); use the whole-sequence forward mode")
+                z = torch.zeros((1, batch, s.size), dtype=torch.float32,
+                                device=device)
+                state[s.name] = (z, z)
+        return state
+
+    def apply_streaming(self, params, inputs: torch.Tensor,
+                        pattypes: torch.Tensor, state):
+        """One chunk's forward pass: inputs [Tc, B, input_size], pattypes
+        [Tc, B], state from init_stream_state or the previous chunk.
+        Returns (y [Tc, B, output_size], new_state)."""
+        return self._apply_layers(params, inputs, pattypes, self.specs[1:-1],
+                                  state)
 
     def loss(self, params, inputs, targets, pattypes):
         """Total error over the fraction (the reference's calculateError

@@ -111,6 +111,8 @@ def _declare(lib) -> None:
     lib.lstm_fwd_proj.restype = i
     lib.lstm_fwd_rec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.lstm_fwd_rec.restype = i
+    lib.lstm_fwd_rec_carry.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.lstm_fwd_rec_carry.restype = i
     lib.lstm_bwd.argtypes = [p] * 15 + [i] * 5 + [ctypes.c_float] + [i] * 4 \
         + [p]
     lib.lstm_bwd.restype = i

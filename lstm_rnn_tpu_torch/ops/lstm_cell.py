@@ -2,7 +2,8 @@
 plain twins, and the autograd Function that joins them.
 
 Counterpart of lstm_rnn_tpu/ops/lstm_cell.py (`lstm_scan_fused` and its
-custom VJP). Three kernels, each behind one wrapper with a launch count:
+custom VJP, and the forward of `lstm_scan_fused_carry`). Four kernels,
+each behind one wrapper with a launch count:
 
 - `lstm_scan_fused` without gradients: the inference forward
   (`_fwd_kernel` save=False), csrc/lstm_fwd.cu, two launches per layer: a
@@ -11,7 +12,13 @@ custom VJP). Three kernels, each behind one wrapper with a launch count:
 - `lstm_fwd_save`: the training forward (`_fwd_kernel` save=True), the
   same launches, with the residuals c and gates written by the recurrence;
 - `lstm_bwd`: the BPTT (`_bwd_kernel`), csrc/lstm_bwd.cu, with the weight
-  gradients and dx in hand-written GEMMs (csrc/gemm.cuh).
+  gradients and dx in hand-written GEMMs (csrc/gemm.cuh);
+- `lstm_scan_fused_carry`: the forward from an initial state (h0, c0)
+  with the final state out and an optional per-step mask (`_fwd_kernel`
+  carry=True, save=False, with_mask), the carry variant of
+  csrc/lstm_fwd.cu's recurrence: streaming serving's chunk. Inference
+  only, as in the JAX package with a mask; its backward (K6b) is not
+  ported yet.
 
 `lstm_scan_fused` with gradients goes through `LstmScanFused`, whose
 forward is `lstm_fwd_save` and whose backward is `lstm_bwd`.
@@ -31,7 +38,7 @@ and the BPTT deltas are stored in bf16.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain twin (`lstm_scan_reference`,
-`lstm_scan_bwd_reference`).
+`lstm_scan_bwd_reference`, `lstm_scan_carry_reference`).
 """
 
 from __future__ import annotations
@@ -83,6 +90,55 @@ def _validity(lengths, T: int, device):
             < lengths.to(device)[None, :]).float()
 
 
+def _twin_loop(x, w_in, w_rec, peep, bias, bias_mult, compute_dtype,
+               valid, h, c, desc, save=False, cap=None):
+    """The forward kernels' time loop, shared by their twins. valid [T, B]
+    float (1 valid, 0 not); h, c [D, B, H] f32 starting state (the product
+    reads h rounded to the compute dtype, as the kernel does); desc[d]:
+    direction d walks time descending over the natural-order arrays;
+    cap[d]: the step s whose state is direction d's final one (returned as
+    (hf, cf), hf before storage rounding). Returns (out, c_res, g_res, hf,
+    cf), the residuals None unless save."""
+    T, B, P = x.shape
+    D, _, G = w_in.shape
+    H = G // 4
+    fast = compute_dtype == torch.bfloat16
+    sdtype = storage_dtype(compute_dtype)
+    a = torch.matmul(round_operand(x.reshape(T * B, P), compute_dtype),
+                     round_operand(w_in, compute_dtype))
+    a = (a + bias_mult * bias[:, None]).view(D, T, B, G)
+    w = round_operand(w_rec, compute_dtype)
+    out = torch.empty(T, B, D * H, dtype=sdtype, device=x.device)
+    c_res = g_res = hf = cf = None
+    if save:
+        c_res = torch.empty(D, T, B, H, device=x.device)
+        g_res = torch.empty(D, T, B, G, dtype=sdtype, device=x.device)
+    if cap is not None:
+        hf = torch.zeros(D, B, H, device=x.device)
+        cf = torch.zeros(D, B, H, device=x.device)
+    for s in range(T):
+        ts = [T - 1 - s if desc[d] else s for d in range(D)]
+        g = torch.stack([a[d, t] for d, t in enumerate(ts)])
+        g = g + torch.bmm(round_operand(h, compute_dtype), w)
+        h_new, c_new, gates = lstm_cell_step(g.view(D, B, 4, H), c, peep,
+                                             fast)
+        m = torch.stack([valid[t] for t in ts])[..., None]
+        h_m = h_new * m
+        c = c_new * m
+        h = h_m.to(sdtype)
+        if save:
+            gm = (torch.cat(gates, dim=-1) * m).to(sdtype)
+        for d, t in enumerate(ts):
+            out[t, :, d * H:(d + 1) * H] = h[d]
+            if save:
+                c_res[d, t] = c[d]
+                g_res[d, t] = gm[d]
+            if cap is not None and s == cap[d]:
+                hf[d], cf[d] = h_m[d], c[d]
+        h = h.float()
+    return out, c_res, g_res, hf, cf
+
+
 def lstm_scan_reference(x, w_in, w_rec, peep, bias, lengths,
                         bias_mult: float = 1.0,
                         compute_dtype: torch.dtype = torch.float32,
@@ -94,42 +150,42 @@ def lstm_scan_reference(x, w_in, w_rec, peep, bias, lengths,
     save=True also returns the training residuals, as lstm_fwd_save:
     (h, c [D, T, B, H] f32, gates [D, T, B, 4H] in the storage dtype),
     both zero at padding."""
-    T, B, P = x.shape
+    T, B, _ = x.shape
     D, _, G = w_in.shape
-    H = G // 4
-    fast = compute_dtype == torch.bfloat16
-    sdtype = storage_dtype(compute_dtype)
-    a = torch.matmul(round_operand(x.reshape(T * B, P), compute_dtype),
-                     round_operand(w_in, compute_dtype))
-    a = (a + bias_mult * bias[:, None]).view(D, T, B, G)
-    w = round_operand(w_rec, compute_dtype)
-    valid = _validity(lengths, T, x.device)
-    h = torch.zeros(D, B, H, device=x.device)
-    c = torch.zeros(D, B, H, device=x.device)
-    out = torch.empty(T, B, D * H, dtype=sdtype, device=x.device)
-    if save:
-        c_res = torch.empty(D, T, B, H, device=x.device)
-        g_res = torch.empty(D, T, B, G, dtype=sdtype, device=x.device)
-    for s in range(T):
-        ts = (s, T - 1 - s)[:D]
-        g = torch.stack([a[d, t] for d, t in enumerate(ts)])
-        g = g + torch.bmm(round_operand(h, compute_dtype), w)
-        h_new, c_new, gates = lstm_cell_step(g.view(D, B, 4, H), c, peep,
-                                             fast)
-        m = torch.stack([valid[t] for t in ts])[..., None]
-        h = (h_new * m).to(sdtype)
-        c = c_new * m
-        if save:
-            gm = (torch.cat(gates, dim=-1) * m).to(sdtype)
-        for d, t in enumerate(ts):
-            out[t, :, d * H:(d + 1) * H] = h[d]
-            if save:
-                c_res[d, t] = c[d]
-                g_res[d, t] = gm[d]
-        h = h.float()
+    zero = torch.zeros(D, B, G // 4, device=x.device)
+    out, c_res, g_res, _, _ = _twin_loop(
+        x, w_in, w_rec, peep, bias, bias_mult, compute_dtype,
+        _validity(lengths, T, x.device), zero, zero, (False, True)[:D], save)
     if save:
         return out, c_res, g_res
     return out
+
+
+def lstm_scan_carry_reference(x, w_in, w_rec, peep, bias, lengths, h0, c0,
+                              bias_mult: float = 1.0,
+                              compute_dtype: torch.dtype = torch.float32,
+                              carry_t=None, dir_offset: int = 0,
+                              step_mask=None):
+    """The carry kernel's plain-torch twin (the JAX package's `_fwd_kernel`
+    with carry=True, save=False and an optional step mask): the time loop
+    of lstm_scan_reference from (h0, c0) [D, B, H] f32, with validity from
+    step_mask [B, T] (nonzero = valid, any pattern) or, without one, from
+    lengths. Returns (h [T, B, D*H] in the storage dtype, (hf, cf)
+    [D, B, H] f32): the masked state of an ascending direction at step
+    carry_t - 1 (default T) and of a descending one (d + dir_offset > 0)
+    at t = 0, hf before storage rounding. Arguments as
+    lstm_scan_fused_carry, which checks them."""
+    T = x.shape[0]
+    D = w_in.shape[0]
+    carry_t = T if carry_t is None else carry_t
+    valid = (_validity(lengths, T, x.device) if step_mask is None
+             else (step_mask != 0).float().t().to(x.device))
+    desc = [d + dir_offset != 0 for d in range(D)]
+    out, _, _, hf, cf = _twin_loop(
+        x, w_in, w_rec, peep, bias, bias_mult, compute_dtype, valid,
+        h0.float(), c0.float(), desc,
+        cap=[T - 1 if desc[d] else carry_t - 1 for d in range(D)])
+    return out, (hf, cf)
 
 
 def _scan_prev(full, d: int):
@@ -349,6 +405,93 @@ def lstm_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
 lstm_bwd.launches = 0
 
 
+def _check_carry(x, w_in, h0, c0, carry_t, dir_offset, step_mask):
+    """The carry operands against x [T, B, P] and w_in [D, P, 4H], as the
+    JAX package's _fwd_impl checks them."""
+    T, B, _ = x.shape
+    D, _, G = w_in.shape
+    for name, t, shape in (("h0", h0, (D, B, G // 4)),
+                           ("c0", c0, (D, B, G // 4)),
+                           ("step_mask", step_mask, (B, T))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape} for x {tuple(x.shape)}")
+    if dir_offset not in (0, 1) or (D == 2 and dir_offset):
+        raise ValueError(f"dir_offset must be 0, or 1 with D == 1; got "
+                         f"{dir_offset} with D == {D}")
+    if not 1 <= carry_t <= T:
+        raise ValueError(f"carry_t must be in [1, T={T}], got {carry_t}")
+    if (D == 2 or dir_offset == 1) and carry_t != T:
+        # a descending direction enters at t = T-1: trailing padding would
+        # sit at its entry and zero the incoming carry
+        raise ValueError(
+            "descending-direction carries (D == 2 or dir_offset == 1) "
+            f"require carry_t == T (got carry_t={carry_t}, T={T}): pad the "
+            "chunk before chaining, or chain ascending directions only")
+
+
+def lstm_scan_fused_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
+                          bias_mult: float = 1.0, clip: bool = True,
+                          compute_dtype: torch.dtype = torch.float32,
+                          need_dx: bool = True, carry_t=None,
+                          dir_offset: int = 0, step_mask=None):
+    """One LSTM layer's forward from an explicit initial state, emitting
+    the final state: streaming serving's chunk (the JAX package's
+    `lstm_scan_fused_carry`, whose signature it keeps). The carry kernel
+    on a CUDA tensor, `lstm_scan_carry_reference` on a CPU one.
+
+    h0, c0 [D, B, H] f32: the state each direction enters with (d = 0 at
+    t = 0, a descending direction at t = T-1). Returns (h [T, B, D*H] in
+    the storage dtype, (hf, cf) [D, B, H] f32): the masked state of an
+    ascending direction at step carry_t - 1 (default T) and of a
+    descending one at t = 0; chaining calls through (hf, cf) equals one
+    call on the concatenated chunks. dir_offset=1 (D = 1) runs the single
+    direction descending; descending directions need carry_t == T.
+    step_mask [B, T] (nonzero = valid, any pattern) replaces the prefix
+    validity of `lengths`, which it then ignores.
+
+    Inference only: when autograd records, it raises NotImplementedError
+    (with a step mask, as the JAX package does; without one, because the
+    carry backward, K6b, is not ported). clip and need_dx only matter to
+    that backward."""
+    _check_compute_dtype(compute_dtype)
+    args = (x, w_in, w_rec, peep, bias, lengths)
+    _check_shapes(*args)
+    carry_t = x.shape[0] if carry_t is None else int(carry_t)
+    _check_carry(x, w_in, h0, c0, carry_t, dir_offset, step_mask)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_in, w_rec, peep, bias, h0, c0)):
+        if step_mask is not None:
+            raise NotImplementedError(
+                "lstm_scan_fused_carry(step_mask=...) is inference-only; "
+                "training paths must express validity as prefix lengths")
+        raise NotImplementedError(
+            "the gradient of lstm_scan_fused_carry (the carry forward with "
+            "residuals and the carry BPTT, K6b) is not ported to PyTorch "
+            "yet (ROADMAP.md, section 2, K6b)")
+    if not _on_cuda(x, "lstm_scan_fused_carry"):
+        return lstm_scan_carry_reference(*args, h0, c0, bias_mult,
+                                         compute_dtype, carry_t, dir_offset,
+                                         step_mask)
+    _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
+                         lengths=lengths, h0=h0, c0=c0)
+    mask = None
+    if step_mask is not None:
+        if step_mask.device != x.device:
+            raise ValueError(f"step_mask is on {step_mask.device}, x on "
+                             f"{x.device}")
+        mask = (step_mask != 0).to(torch.uint8).contiguous()
+    a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
+                     bias_mult)
+    out = _launch_rec_carry(a, w_rec.to(compute_dtype), peep, lengths, mask,
+                            h0, c0, carry_t, dir_offset)
+    lstm_scan_fused_carry.launches += 1
+    return out
+
+
+lstm_scan_fused_carry.launches = 0
+
+
 class LstmScanFused(torch.autograd.Function):
     """lstm_scan_fused with gradients (the JAX package's custom VJP):
     forward = lstm_fwd_save, backward = lstm_bwd. need_dx follows
@@ -387,7 +530,8 @@ def _check_cuda_operands(x, **named):
         if name in ("x", "w_in", "w_rec") and t.dtype not in COMPUTE_DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got "
                             f"{t.dtype}")
-        if name in ("peep", "bias", "c") and t.dtype != torch.float32:
+        if (name in ("peep", "bias", "c", "h0", "c0")
+                and t.dtype != torch.float32):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if name == "lengths" and t.dtype != torch.int32:
             raise TypeError(f"lengths must be int32, got {t.dtype}")
@@ -423,6 +567,15 @@ def _launch_proj(x, w_in, bias, bias_mult: float):
     return a
 
 
+def _rec_w_is_bf16(w_rec) -> bool:
+    """The recurrence kernels read four adjacent W_rec entries in one vector
+    load: refuse a misaligned w_rec. True for bf16 mode."""
+    if w_rec.data_ptr() % (4 * w_rec.element_size()):
+        raise ValueError(f"w_rec must be {4 * w_rec.element_size()}-byte "
+                         f"aligned (a contiguous copy is)")
+    return w_rec.dtype == torch.bfloat16
+
+
 def _launch_rec(a, w_rec, peep, lengths, save: bool = False):
     """Recurrence over the projected a [D, T, B, 4H] -> h [T, B, D*H] in
     the storage dtype of w_rec's compute dtype; save=True also returns the
@@ -430,11 +583,7 @@ def _launch_rec(a, w_rec, peep, lengths, save: bool = False):
     from lstm_rnn_tpu_torch.ops import _build
     D, T, B, G = a.shape
     H = G // 4
-    bf16 = w_rec.dtype == torch.bfloat16
-    # the kernel reads four adjacent W_rec entries in one vector load
-    if w_rec.data_ptr() % (4 * w_rec.element_size()):
-        raise ValueError(f"w_rec must be {4 * w_rec.element_size()}-byte "
-                         f"aligned (a contiguous copy is)")
+    bf16 = _rec_w_is_bf16(w_rec)
     sdtype = torch.bfloat16 if bf16 else torch.float32
     out = torch.empty((T, B, D * H), dtype=sdtype, device=a.device)
     c = g = None
@@ -447,6 +596,28 @@ def _launch_rec(a, w_rec, peep, lengths, save: bool = False):
         T, B, H, D, int(bf16), a.device.index, _stream(a))
     _raise_on(err, "lstm_fwd_rec launch")
     return (out, c, g) if save else out
+
+
+def _launch_rec_carry(a, w_rec, peep, lengths, mask, h0, c0, carry_t: int,
+                      dir_offset: int):
+    """The carry variant of the recurrence over the projected a
+    [D, T, B, 4H]: (h [T, B, D*H] in the storage dtype, (hf, cf)
+    [D, B, H] f32). mask: [B, T] uint8 or None."""
+    from lstm_rnn_tpu_torch.ops import _build
+    D, T, B, G = a.shape
+    H = G // 4
+    bf16 = _rec_w_is_bf16(w_rec)
+    sdtype = torch.bfloat16 if bf16 else torch.float32
+    out = torch.empty((T, B, D * H), dtype=sdtype, device=a.device)
+    hf = torch.empty((D, B, H), dtype=torch.float32, device=a.device)
+    cf = torch.empty_like(hf)
+    err = _build.load().lstm_fwd_rec_carry(
+        _ptr(a), _ptr(w_rec), _ptr(peep), _ptr(lengths),
+        _ptr(mask) if mask is not None else None, _ptr(h0), _ptr(c0),
+        _ptr(out), _ptr(hf), _ptr(cf), T, B, H, D, carry_t, dir_offset,
+        int(bf16), a.device.index, _stream(a))
+    _raise_on(err, "lstm_fwd_rec_carry launch")
+    return out, (hf, cf)
 
 
 def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,

@@ -79,12 +79,26 @@ def test_forward_htk_matches_jax(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--num_devices", "2"], ["--model_devices", "2"],
     ["--pipeline_devices", "2"], ["--seq_devices", "2"],
-    ["--stream_chunk", "4"], ["--f32_matmul", "3x"],
+    ["--f32_matmul", "3x"],
     ["--coordinator_address", "localhost:1234"], ["--device", "tpu"],
 ])
 def test_unsupported_flags_raise(tmp_path, flag):
     with pytest.raises(ValueError, match="ROADMAP"):
         cli.main(_setup(tmp_path) + ["--device", "cpu"] + flag)
+
+
+def test_stream_chunk_refuses_blstm(tmp_path, capsys):
+    """`--stream_chunk 4` on a net with a BLSTM layer fails with the
+    ValueError naming the layer, in both CLIs, before any fraction is
+    computed (a bidirectional layer cannot stream)."""
+    args = _setup(tmp_path) + ["--device", "cpu", "--stream_chunk", "4",
+                               "--ff_output_file", str(tmp_path / "x.csv")]
+    for main in (jax_cli.main, cli.main):
+        assert main(args) == 2
+        out, err = capsys.readouterr()
+        assert "'l1' is bidirectional" in out
+        assert "ValueError" in err
+        assert "Computing outputs" not in out
 
 
 def test_train_mode_is_not_ported(tmp_path):

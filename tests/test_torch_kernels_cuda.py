@@ -1,5 +1,6 @@
 """The Hopper kernels against their plain twins, on the card: the LSTM
-forward (csrc/lstm_fwd.cu, inference and training variants), its BPTT
+forward (csrc/lstm_fwd.cu, inference, training and carry/step-mask
+variants), its BPTT
 (csrc/lstm_bwd.cu), the fused softmax + CE tail (csrc/softmax_ce.cu) and
 the wide tail (csrc/softmax_ce_wide.cu), at small and full TIMIT and LVCSR
 width, float32 and bfloat16 modes, and the wrappers' refusals.
@@ -20,7 +21,9 @@ from lstm_rnn_tpu_torch.ops import lstm_cell
 from lstm_rnn_tpu_torch.ops import softmax_ce as sc
 from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_bwd, lstm_fwd_save,
                                               lstm_scan_bwd_reference,
+                                              lstm_scan_carry_reference,
                                               lstm_scan_fused,
+                                              lstm_scan_fused_carry,
                                               lstm_scan_reference)
 from lstm_rnn_tpu_torch.ops.softmax_ce import (softmax_ce_bwd_reference,
                                                softmax_ce_fwd_reference,
@@ -143,6 +146,111 @@ def test_rejects_what_the_kernel_does_not_take():
         shifted = shifted.view(w_rec.shape).copy_(w_rec)
         with pytest.raises(ValueError, match="aligned"):
             lstm_scan_fused(x, w_in, shifted, peep, bias, lengths)
+
+
+# ------------------------------------------------- carry and step mask
+def carry_inputs(T, B, P, H, D, mask_kind, seed=0):
+    """make_layer's operands with non-zero (h0, c0) and a [B, T] step mask:
+    "gaps" holds a full row, a row ending mid-chunk, a gap and a restart, a
+    row starting mid-chunk, an all-NONE row and random rows; "none" gives
+    no mask (the lengths are the validity)."""
+    args = make_layer(T, B, P, H, D, seed)
+    rng = np.random.RandomState(seed + 100)
+    h0 = torch.tensor(rng.uniform(-1, 1, (D, B, H)), dtype=torch.float32,
+                      device="cuda")
+    c0 = torch.tensor(rng.uniform(-3, 3, (D, B, H)), dtype=torch.float32,
+                      device="cuda")
+    mask = None
+    if mask_kind == "gaps":
+        m = rng.rand(B, T) > 0.3
+        m[0] = True
+        if B > 4:
+            m[1, T // 2:] = False
+            m[2, T // 3:T // 2] = False
+            m[3, :T // 2] = False
+            m[4] = False
+        mask = torch.tensor(m, device="cuda")
+    return args, h0, c0, mask
+
+
+def _carry_errs(args, h0, c0, mask, dtype, carry_t=None, dir_offset=0):
+    """max |kernel - twin| of h, hf and cf."""
+    with torch.inference_mode():
+        got = lstm_scan_fused_carry(*args, h0, c0, 0.7, True, dtype, True,
+                                    carry_t, dir_offset, mask)
+        want = lstm_scan_carry_reference(*args, h0, c0, 0.7, dtype, carry_t,
+                                         dir_offset, mask)
+        torch.cuda.synchronize()
+    errs = []
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        errs.append((g.float() - w.float()).abs().max().item())
+    return errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, mask_kind, carry_t, dir_offset", [
+    ((9, 5, 7, 5, 1), "gaps", None, 0),
+    ((9, 5, 7, 5, 1), "none", 6, 0),
+    ((9, 5, 7, 5, 1), "gaps", None, 1),
+    ((9, 6, 7, 5, 2), "gaps", None, 0),
+    ((9, 6, 7, 5, 2), "none", None, 0),
+    ((1, 5, 7, 5, 1), "gaps", None, 0),  # T = 1
+    ((13, 11, 131, 130, 1), "gaps", 10, 0),
+    ((7, 9, 33, 300, 2), "gaps", None, 0),  # H > 256
+    ((7, 9, 33, 300, 1), "none", None, 1),
+])
+def test_carry_matches_twin(shape, mask_kind, carry_t, dir_offset, dtype):
+    args, h0, c0, mask = carry_inputs(*shape, mask_kind)
+    errs = _carry_errs(args, h0, c0, mask, dtype, carry_t, dir_offset)
+    assert max(errs) <= TOL[dtype], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [117, 250])
+def test_carry_streaming_width_matches_twin(P, dtype):
+    """One layer of the streaming stack (LSTM(250): W_rec from L2) over a
+    64-frame chunk of 64 streams."""
+    args, h0, c0, mask = carry_inputs(64, 64, P, 250, 1, "gaps", seed=P)
+    assert max(_carry_errs(args, h0, c0, mask, dtype)) <= TOL[dtype]
+
+
+def test_carry_all_none_rows_are_zero():
+    """Rows with no valid step give h = 0 and a zero final state whatever
+    state they entered with; the rows of a block that never reaches
+    carry_t - 1 valid still write their final state."""
+    args, h0, c0, mask = carry_inputs(8, 9, 5, 7, 1, "gaps", seed=4)
+    mask[4:8] = False  # one whole kernel block
+    with torch.inference_mode():
+        y, (hf, cf) = lstm_scan_fused_carry(*args, h0, c0, step_mask=mask)
+    assert not y[:, 4:8].any() and not hf[:, 4:8].any()
+    assert not cf[:, 4:8].any()
+
+
+def test_carry_zero_state_equals_plain_kernel():
+    """With zero carries and the lengths as validity, the carry kernel
+    gives K0's output."""
+    args, h0, _, _ = carry_inputs(9, 6, 7, 5, 2, "none", seed=2)
+    z = torch.zeros_like(h0)
+    with torch.inference_mode():
+        y, _ = lstm_scan_fused_carry(*args, z, z)
+        assert torch.equal(y, lstm_scan_fused(*args))
+
+
+def test_carry_counts_launches_and_refuses():
+    args, h0, c0, mask = carry_inputs(5, 3, 4, 3, 1, "gaps")
+    before = lstm_scan_fused_carry.launches
+    with torch.inference_mode():
+        lstm_scan_fused_carry(*args, h0, c0, step_mask=mask)
+        assert lstm_scan_fused_carry.launches == before + 1
+        with pytest.raises(TypeError, match="h0 must be float32"):
+            lstm_scan_fused_carry(*args, h0.double(), c0)
+        with pytest.raises(ValueError, match="is on cpu"):
+            lstm_scan_fused_carry(*args, h0.cpu(), c0)
+        with pytest.raises(ValueError, match="step_mask is on cpu"):
+            lstm_scan_fused_carry(*args, h0, c0, step_mask=mask.cpu())
+    assert lstm_scan_fused_carry.launches == before + 1
 
 
 # ------------------------------------------------------------- training
