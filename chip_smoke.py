@@ -58,7 +58,28 @@ weights from a seed, and holds every kernel against its plain twin:
     launches per chunk, no K0), and a BLSTM net refused;
 17. streaming frames/s against whole-sequence frames/s on the same stack
     (f32, bf16), the latency of one 64-frame chunk (host wall and device),
-    and a profile of one chunk.
+    and a profile of one chunk;
+18. the carry kernels with gradients (K6b: the carry forward with
+    residuals and the carry BPTT) against their twins at one TIMIT
+    layer's sequence-parallel block (D=1, H=125, B=50, T=125, P=117
+    without dx and P=250 with it), both directions (dir_offset 0 and 1),
+    f32 and bf16, from non-zero (h0, c0) with non-zero final-state
+    cotangents and lengths full, ending inside the block and 0; three
+    controls that must fail (zero dhf/dcf, c0 replaced by zero in the
+    backward, the forward from zero carries); times;
+19. four chained K6b blocks per direction (parallel/sequence.py's kernel
+    wavefront on a mesh of cuda:0 four times) against K1 + K2 on the whole
+    T=500 BLSTM layer: h and every gradient, f32;
+20. sequence parallelism at full width on a 4-block mesh (cuda:0 four
+    times): one TIMIT training step on bench.py's fraction against the
+    single-device kernel step from the same weights, with the exact
+    launches (40 K6b-f, 40 K6b-b, no K0-K3); `Trainer(seq_mesh=)` over
+    phase 7's corpus for 2 epochs against the same run without the mesh;
+    `apply_seq` over phase 5's corpus against `apply` (40 K6f launches per
+    fraction); SP training frames/s, f32 and bf16;
+21. the CLI's `--seq_devices 2`, train and forward, against the runs
+    without it when torch sees two GPUs; on one GPU, that the flag is
+    refused with the JAX CLI's message.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -440,7 +461,10 @@ def lstm_cost(kind, P, lengths, dtype, need_dx=True, T=None, D=D, H=H):
     per row). Padded rows add nothing to any output, so every product
     counts the valid frames only, and every per-frame input is read at the
     valid frames; the outputs are written whole. The carry kernel also
-    reads the [B, T] step mask and (h0, c0), and writes (hf, cf)."""
+    reads the [B, T] step mask and (h0, c0), and writes (hf, cf); the K6b
+    forward (lstm_fwd_carry_save) is lstm_fwd_save plus (h0, c0) in and
+    (hf, cf) out, the K6b backward (lstm_bwd_carry) lstm_bwd plus h0, c0,
+    dhf, dcf in, dh0, dc0 out, and the dh0 and edge dW_rec products."""
     if T is None:
         T = T_LAYER if kind == "lstm_fwd" else T_TRAIN
     B = len(lengths)
@@ -448,12 +472,15 @@ def lstm_cost(kind, P, lengths, dtype, need_dx=True, T=None, D=D, H=H):
     es = 2 if dtype == "bfloat16" else 4
     frames = int(lengths.sum())
     weights = D * (P + H) * G * es + D * (3 * H + G) * 4 + B * 4
-    if kind in ("lstm_fwd", "lstm_fwd_save", "lstm_fwd_carry"):
+    if kind in ("lstm_fwd", "lstm_fwd_save", "lstm_fwd_carry",
+                "lstm_fwd_carry_save"):
         nbytes = frames * P * es + weights + T * B * D * H * es
-        if kind == "lstm_fwd_save":
+        if kind in ("lstm_fwd_save", "lstm_fwd_carry_save"):
             nbytes += D * T * B * (H * 4 + G * es)
         if kind == "lstm_fwd_carry":
             nbytes += B * T + 4 * D * B * H * 4
+        if kind == "lstm_fwd_carry_save":
+            nbytes += 4 * D * B * H * 4
         # the input projection and the recurrent product
         flops = 2 * D * frames * (P + H) * G
         return nbytes, flops
@@ -465,6 +492,9 @@ def lstm_cost(kind, P, lengths, dtype, need_dx=True, T=None, D=D, H=H):
               + (T * B * P * 4 if need_dx else 0))
     # da_next . W_rec^T, dW_in, dW_rec, and dx
     flops = 2 * D * frames * G * (H + P + H + (P if need_dx else 0))
+    if kind == "lstm_bwd_carry":
+        nbytes += 6 * D * B * H * 4
+        flops += 2 * 2 * D * B * G * H
     return nbytes, flops
 
 
@@ -736,7 +766,9 @@ def wrappers():
             "softmax_ce_proj_bwd": sc.softmax_ce_proj_bwd,
             "softmax_ce_wide_fwd": sc.softmax_ce_wide_fwd,
             "softmax_ce_wide_bwd": sc.softmax_ce_wide_bwd,
-            "lstm_fwd_carry": lc.lstm_scan_fused_carry}
+            "lstm_fwd_carry": lc.lstm_scan_fused_carry,
+            "lstm_fwd_carry_save": lc.lstm_fwd_save_carry,
+            "lstm_bwd_carry": lc.lstm_bwd_carry}
 
 
 def check_counts(counts, expect):
@@ -765,7 +797,8 @@ def train_end_to_end(torch, workdir):
               "softmax_ce_proj_fwd": (n_train + n_val) * epochs,
               "softmax_ce_proj_bwd": n_train * epochs,
               "softmax_ce_wide_fwd": 0, "softmax_ce_wide_bwd": 0,
-              "lstm_fwd_carry": 0}
+              "lstm_fwd_carry": 0, "lstm_fwd_carry_save": 0,
+              "lstm_bwd_carry": 0}
     phase("train", f"train {len(train_len)} sequences "
           f"({int(train_len.sum())} frames, lengths {train_len.min()}.."
           f"{train_len.max()}, {n_train} fractions after truncation at "
@@ -1097,7 +1130,8 @@ def lvcsr_cli(torch, workdir):
                  "lstm_bwd": 5 * n_train, "softmax_ce_proj_fwd": 0,
                  "softmax_ce_proj_bwd": 0,
                  "softmax_ce_wide_fwd": n_train + n_val,
-                 "softmax_ce_wide_bwd": n_train, "lstm_fwd_carry": 0}
+                 "softmax_ce_wide_bwd": n_train, "lstm_fwd_carry": 0,
+                 "lstm_fwd_carry_save": 0, "lstm_bwd_carry": 0}
     here = os.getcwd()
     launches, outs = None, {}
     for label, args, epochs in (
@@ -1513,6 +1547,430 @@ def stream_rates(torch, card):
                            f"chunk f32, B={B_STREAM}")
 
 
+# sequence parallelism (phases 18-21): the TIMIT layer's time block on a
+# 4-block mesh at bench.py's T=500
+N_SEQ = 4
+T_BLOCK = T_TRAIN // N_SEQ
+# four chained K6b blocks against K1 + K2 on the whole layer, f32: the
+# same f32 operations summed in another order (the chain hands its
+# cell-state terms on as dc0), relative to each output's largest entry
+CHAIN_REL = 1e-5
+# the SP training step against the single-device kernel step (f32): the
+# loss to sum-order noise; every gradient relative to its largest entry
+SP_STEP_TOL = {"loss": 1e-5, "grad": 1e-4}
+# SP Trainer's epoch errors against the single-device Trainer's, relative
+SP_EPOCH_TOL = 1e-5
+
+
+def carry_grad_layer(torch, P, seed):
+    """One SP block of a TIMIT layer, one direction: the recipe's +-0.1
+    weights, N(0, 1) inputs; non-zero (h0, c0) of the size a block hands
+    on and non-zero cotangents; lengths full, ending inside the block
+    (rows 8-19), 0 (rows 4-7: one whole kernel block, and row 1) and 1
+    (row 2)."""
+    rng = np.random.RandomState(seed)
+
+    def u(lo, hi, *s):
+        return torch.tensor(rng.uniform(lo, hi, s), dtype=torch.float32,
+                            device="cuda")
+    T = T_BLOCK
+    x = torch.tensor(rng.randn(T, B, P), dtype=torch.float32, device="cuda")
+    lengths = np.full(B, T)
+    lengths[8:20] = rng.randint(1, T, 12)
+    lengths[4:8], lengths[1], lengths[2] = 0, 0, 1
+    args = (x, u(-0.1, 0.1, 1, P, 4 * H), u(-0.1, 0.1, 1, H, 4 * H),
+            u(-0.1, 0.1, 1, 3, H), u(-0.1, 0.1, 1, 4 * H),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    carry = (u(-0.9, 0.9, 1, B, H), u(-3.0, 3.0, 1, B, H))
+    cts = (torch.tensor(rng.randn(T, B, H), dtype=torch.float32,
+                        device="cuda"),
+           u(-1.0, 1.0, 1, B, H), u(-1.0, 1.0, 1, B, H))
+    return args, carry, cts
+
+
+def carry_grad_kernels_vs_twins(torch):
+    """Phase 18: K6b forward and backward against their twins at one SP
+    block of a TIMIT layer, both directions, f32 and bf16, with three
+    controls that must fail; kernel and twin times."""
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    res = {}
+    for P, need_dx in ((117, False), (250, True)):
+        args, (h0, c0), (dh, dhf, dcf) = carry_grad_layer(torch, P, P + 18)
+        lens = args[5].cpu().numpy()
+        z = torch.zeros_like(h0)
+        for dir_offset in (0, 1):
+            for name in ("float32", "bfloat16"):
+                dt = getattr(torch, name)
+
+                def fwd(hh=h0, cc=c0):
+                    return lc.lstm_fwd_save_carry(*args, hh, cc, 1.0, dt,
+                                                  None, dir_offset)
+                got = fwd()
+                want = lc.lstm_scan_carry_reference(
+                    *args, h0, c0, 1.0, dt, None, dir_offset, None, True)
+                torch.cuda.synchronize()
+
+                def f_errs(out):
+                    return [rel_err(g, w) for g, w in zip(
+                        (*out[:3], *out[3]), (*want[:3], *want[3]))]
+                errs = f_errs(got)
+                frel = max(e[0] for e in errs)
+                ferr = max(e[1] for e in errs)
+                fctrl = max(e[0] for e in f_errs(fwd(z, z)))
+                h, c, g, _ = got
+                bwd_args = (args[0], args[1], args[2], args[3], args[5], h,
+                            c, g, h0, c0, dh, dhf, dcf, 1.0, True, dt,
+                            need_dx, None, dir_offset)
+
+                def bwd(hf_ct=dhf, cf_ct=dcf, cc=c0):
+                    a = list(bwd_args)
+                    a[9], a[11], a[12] = cc, hf_ct, cf_ct
+                    return lc.lstm_bwd_carry(*a)
+                got_b = bwd()
+                want_b = lc.lstm_scan_carry_bwd_reference(*bwd_args)
+                torch.cuda.synchronize()
+
+                def b_errs(out):
+                    return [rel_err(a, b) if a is not None else (0.0, 0.0)
+                            for a, b in zip(out, want_b)]
+                errs_b = b_errs(got_b)
+                brel = max(e[0] for e in errs_b)
+                berr = max(e[1] for e in errs_b)
+                bctrl = {"zero dhf/dcf": max(
+                             e[0] for e in b_errs(bwd(z, z))),
+                         "zero c0": max(e[0] for e in b_errs(bwd(cc=z)))}
+                finite = all(torch.isfinite(t.float()).all() for t in
+                             (*got[:3], *got[3], *[a for a in got_b
+                                                   if a is not None]))
+                ms_f = time_ms(torch, fwd, 10)
+                ms_b = time_ms(torch, bwd, 5)
+                plain_f = time_ms(torch, lambda: (
+                    lc.lstm_scan_carry_reference(*args, h0, c0, 1.0, dt,
+                                                 None, dir_offset, None,
+                                                 True)), 1)
+                plain_b = time_ms(torch, lambda: (
+                    lc.lstm_scan_carry_bwd_reference(*bwd_args)), 1)
+                lim_f = REL["lstm_fwd_save"][name]
+                lim_b = REL["lstm_bwd"][name]
+                b_f = bound(*lstm_cost("lstm_fwd_carry_save", P, lens, name,
+                                       T=T_BLOCK, D=1), name)[0]
+                b_b = bound(*lstm_cost("lstm_bwd_carry", P, lens, name,
+                                       need_dx, T=T_BLOCK, D=1), name)[0]
+                phase("carry-grad", f"K6b-f P={P} dir_offset={dir_offset} "
+                      f"{name}: rel {frel:.2e} [" + per_output(
+                          ("h", "c", "gates", "hf", "cf"), errs) + f"] (tol "
+                      f"{lim_f:.1e}; control zero carries {fctrl:.2e}); "
+                      f"kernel {ms_f:.3f} ms (bound {b_f:.3f}); twin "
+                      f"{plain_f:.1f} ms [T={T_BLOCK} B={B} H={H} D=1]")
+                phase("carry-grad", f"K6b-b P={P} dir_offset={dir_offset} "
+                      f"need_dx={need_dx} {name}: rel {brel:.2e} [" +
+                      per_output(("dx", "dW_in", "dW_rec", "dpeep", "dbias",
+                                  "dh0", "dc0"), errs_b) + f"] (tol "
+                      f"{lim_b:.1e}; controls " + ", ".join(
+                          f"{k} {v:.2e}" for k, v in bctrl.items())
+                      + f"); kernel {ms_b:.3f} ms (bound {b_b:.3f}); twin "
+                      f"{plain_b:.1f} ms")
+                if not (finite and frel <= lim_f and brel <= lim_b):
+                    raise AssertionError(f"K6b disagrees with its twins "
+                                         f"(P={P}, dir_offset={dir_offset}, "
+                                         f"{name}): {frel}, {brel}")
+                if not (fctrl > lim_f and all(v > lim_b
+                                              for v in bctrl.values())):
+                    raise AssertionError(f"the K6b check passes a wrong "
+                                         f"input: {fctrl}, {bctrl}")
+                for kind, err, rel, ms, plain in (
+                        ("lstm_fwd_carry_save", ferr, frel, ms_f, plain_f),
+                        ("lstm_bwd_carry", berr, brel, ms_b, plain_b)):
+                    res[(kind, P, dir_offset, name)] = dict(
+                        err=err, rel=rel, ms=ms, plain_ms=plain,
+                        cost=lstm_cost(kind, P, lens, name, need_dx,
+                                       T=T_BLOCK, D=1))
+    return res
+
+
+def sp_mesh(torch):
+    """The 4-block seq mesh of one card: cuda:0 four times."""
+    return [torch.device("cuda", 0)] * N_SEQ
+
+
+def chained_blocks_vs_whole(torch):
+    """Phase 19: one BLSTM layer at T=500 as four chained K6b blocks per
+    direction (the SP kernel wavefront) against K1 + K2 on the whole
+    sequence: h and every gradient, f32, with the exact launches."""
+    from lstm_rnn_tpu_torch.models.lstm import lstm_forward
+    from lstm_rnn_tpu_torch.parallel.sequence import lstm_forward_seq
+    rng = np.random.RandomState(19)
+    P = 2 * H
+    params = {k: torch.tensor(rng.uniform(-0.1, 0.1, s), dtype=torch.float32,
+                              device="cuda", requires_grad=True)
+              for k, s in (("W_in", (D, P, 4, H)), ("W_rec", (D, H, 4, H)),
+                           ("b", (D, 4, H)), ("peep", (D, 3, H)))}
+    x = torch.tensor(rng.randn(T_TRAIN, B, P), dtype=torch.float32,
+                     device="cuda", requires_grad=True)
+    lengths = np.full(B, T_TRAIN)
+    lengths[8:20] = rng.randint(1, T_TRAIN, 12)
+    lengths[4:8] = 0
+    pt = torch.tensor((np.arange(T_TRAIN)[:, None] < lengths[None, :])
+                      .astype(np.int8), device="cuda")
+    dy = torch.tensor(rng.randn(T_TRAIN, B, 2 * H), dtype=torch.float32,
+                      device="cuda")
+    leaves = [x] + [params[k] for k in sorted(params)]
+    w = wrappers()
+    outs = {}
+    for label in ("chained", "whole"):
+        for f in w.values():
+            f.launches = 0
+        if label == "whole":
+            y = lstm_forward(params, x, pt, 1.0, True)
+        else:
+            mesh = sp_mesh(torch)
+            xs = list(x.split(T_BLOCK))
+            pts = list(pt.split(T_BLOCK))
+            y = torch.cat(lstm_forward_seq(params, xs, pts, 1.0, True, mesh))
+        grads = torch.autograd.grad((y * dy).sum(), leaves)
+        torch.cuda.synchronize()
+        outs[label] = (y.detach(), grads,
+                       {k: f.launches for k, f in w.items() if f.launches})
+    (y_c, g_c, n_c), (y_w, g_w, n_w) = outs["chained"], outs["whole"]
+    errs = [rel_err(y_c, y_w)] + [rel_err(a, b) for a, b in zip(g_c, g_w)]
+    names = ["h", "dx"] + [f"d{k}" for k in sorted(params)]
+    phase("chain", f"{N_SEQ} chained K6b blocks per direction vs K1 + K2 on "
+          f"the whole layer (T={T_TRAIN} B={B} H={H} P={P}, f32): " +
+          per_output(names, errs) + f" (tol {CHAIN_REL:.0e}); launches "
+          f"chained {n_c}, whole {n_w}")
+    if not max(e[0] for e in errs) <= CHAIN_REL:
+        raise AssertionError(f"chained blocks differ from the whole layer: "
+                             f"{errs}")
+    if n_c != {"lstm_fwd_carry_save": 2 * N_SEQ,
+               "lstm_bwd_carry": 2 * N_SEQ} or n_w != {"lstm_fwd_save": 1,
+                                                         "lstm_bwd": 1}:
+        raise AssertionError(f"launches chained {n_c}, whole {n_w}")
+
+
+def sp_trainer(torch, dtype, train=None, val=None, seed=3, mesh=True):
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    net = build_timit_network(seed=seed, compute_dtype=dtype)
+    return Trainer(net, train, val, learning_rate=1e-4, momentum=0.9,
+                   max_epochs=2, hybrid_online_batch=True,
+                   seq_mesh=sp_mesh(torch) if mesh else None)
+
+
+def sp_step_vs_single(torch):
+    """Phase 20a: one TIMIT training step on bench.py's fraction, SP on 4
+    blocks vs the single-device kernel step (f32): loss, count, every
+    gradient; the SP step's exact launches."""
+    batch, _ = recipe_batch(torch, seed=20)
+    out = {}
+    w = wrappers()
+    for label, mesh in (("sp", True), ("single", False)):
+        tr = sp_trainer(torch, "float32", mesh=mesh)
+        for f in w.values():
+            f.launches = 0  # the SP step's run starts here
+        err, corr, grads = tr.grad_fraction(*batch)
+        torch.cuda.synchronize()
+        out[label] = (err.item(), int(corr), grads,
+                      {k: f.launches for k, f in w.items()})
+    (e_s, c_s, g_s, n_s), (e_1, c_1, g_1, _) = out["sp"], out["single"]
+    lrel = abs(e_s - e_1) / abs(e_1)
+    grel = max(rel_err(g_s[n][k], g_1[n][k])[0] for n in g_1 for k in g_1[n])
+    layers = 5
+    expect = {k: 0 for k in n_s}
+    expect.update(lstm_fwd_carry_save=2 * layers * N_SEQ,
+                  lstm_bwd_carry=2 * layers * N_SEQ)
+    phase("sp-step", f"one TIMIT SGD step's gradients, SP on {N_SEQ} blocks "
+          f"vs single device (f32, T={T_TRAIN} B={B}): loss {e_s:.6f} vs "
+          f"{e_1:.6f} (rel {lrel:.2e}, tol {SP_STEP_TOL['loss']:.0e}); count "
+          f"{c_s} vs {c_1}; gradients rel {grel:.2e} (tol "
+          f"{SP_STEP_TOL['grad']:.0e}); SP launches {n_s}")
+    check_counts(n_s, expect)
+    if not (lrel <= SP_STEP_TOL["loss"] and c_s == c_1
+            and grel <= SP_STEP_TOL["grad"]):
+        raise AssertionError("the SP step differs from the single-device step")
+
+
+def sp_trainer_epochs(torch, workdir):
+    """Phase 20b: Trainer(seq_mesh=) over phase 7's corpus (truncated at
+    500, 50 parallel sequences, shuffled fractions, stochastic) for 2
+    epochs against the same Trainer without the mesh: the epoch errors,
+    and the SP run's exact launches."""
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.config import parse_config
+    paths, _ = write_train_corpus(workdir)
+    cfg = parse_config(["--train", "true", "--network", "x",
+                        "--train_file", paths["train"][0],
+                        "--val_file", paths["val"][0],
+                        "--truncate_seq", "500", "--parallel_sequences", "50",
+                        "--stochastic", "true", "--shuffle_fractions",
+                        "true", "--random_seed", str(SEED)])
+    w = wrappers()
+    rows = {}
+    for label, mesh in (("sp", True), ("single", False)):
+        train = cli._load_dataset(cfg, "train")
+        val = cli._load_dataset(cfg, "val")
+        tr = sp_trainer(torch, "float32", train, val, seed=SEED, mesh=mesh)
+        for f in w.values():
+            f.launches = 0  # the SP Trainer's run starts here
+        t0 = time.perf_counter()
+        rows[label] = []
+        finished = False
+        while not finished:
+            finished = tr.train_epoch()
+            rows[label].append((tr.cur_training_error,
+                                tr.cur_training_class_error,
+                                tr.cur_validation_error,
+                                tr.cur_validation_class_error))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in w.items()}
+        phase("sp-train", f"{label}: epochs {rows[label]}; {wall:.1f} s "
+              f"wall; launches {counts}")
+        if label == "sp":
+            n_train, n_val = train.num_fractions(), val.num_fractions()
+            expect = {k: 0 for k in counts}
+            expect.update(lstm_fwd_carry_save=40 * n_train * 2,
+                          lstm_bwd_carry=40 * n_train * 2,
+                          lstm_fwd_carry=40 * n_val * 2)
+            check_counts(counts, expect)
+            launches = counts
+    diff = float(np.max(np.abs(np.array(rows["sp"]) - np.array(rows["single"]))
+                        / np.abs(np.array(rows["single"]))))
+    phase("sp-train", f"SP Trainer vs single-device Trainer, 2 epochs: epoch "
+          f"errors within {diff:.2e} relative (tol {SP_EPOCH_TOL:.0e})")
+    if not diff <= SP_EPOCH_TOL:
+        raise AssertionError(f"SP training differs: {rows}")
+    return launches
+
+
+def sp_serving(torch, workdir):
+    """Phase 20c: apply_seq over phase 5's serving corpus against apply
+    (K0): posteriors, and 40 K6f launches per fraction."""
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    from lstm_rnn_tpu_torch.parallel.sequence import apply_seq
+    nc, _, _, _ = write_inputs(workdir)
+    net = build_timit_network(seed=SEED)
+    params = net.device_params("cuda")
+    w = wrappers()
+    worst, n_frac = 0.0, 0
+    for f in w.values():
+        f.launches = 0  # the SP serving run starts here
+    with torch.inference_mode():
+        for frac in DataSet([nc], parallel_sequences=50,
+                            prefetch=False).fractions():
+            x = torch.from_numpy(frac.inputs).cuda()
+            pt = torch.from_numpy(frac.pattypes).cuda()
+            y = apply_seq(net, params, x, pt, sp_mesh(torch))
+            y1 = net.apply(params, x, pt)
+            worst = max(worst, (y - y1).abs().max().item())
+            n_frac += 1
+    torch.cuda.synchronize()
+    n = w["lstm_fwd_carry"].launches
+    phase("sp-serve", f"apply_seq on {N_SEQ} blocks vs apply over phase 5's "
+          f"corpus ({n_frac} fractions): max |p_sp - p| = {worst:.3e} (tol "
+          f"{STREAM_TOL:.0e}); {n} K6f launches")
+    if not (worst <= STREAM_TOL and n == 40 * n_frac):
+        raise AssertionError(f"apply_seq: {worst}, {n} launches")
+
+
+def sp_rates(torch, card, rates_single):
+    """Phase 20d: SP training frames/s of bench.py's step on 4 blocks of
+    one card, f32 and bf16, beside phase 8's single-device rates; a
+    profile of one f32 SP step."""
+    from torch.profiler import ProfilerActivity, profile
+    batch, frames = recipe_batch(torch)
+    for label, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        tr = sp_trainer(torch, dtype)
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.train_step(*batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 3
+        one = rates_single[f"kernel {label}"]
+        phase("rate", f"SP train step {label} ({N_SEQ} blocks on one card): "
+              f"{frames / dt:,.0f} frames/s ({1e3 * dt:.1f} ms per step, mean "
+              f"of 3); single device {one:,.0f} ({frames / dt / one:.2f}x) "
+              f"on {card}")
+        if label == "f32":
+            # steps 1 and 2 open the trace (a window's first launches go
+            # missing), step 3 is the one recorded
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=torch.profiler.schedule(
+                             wait=1, warmup=1, active=1)) as prof:
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tr.train_step(*batch)
+                    torch.cuda.synchronize()
+                    wall_us = 1e6 * (time.perf_counter() - t0)
+                    prof.step()
+            report_profile(prof, wall_us, f"one SP training step ({N_SEQ} "
+                           f"blocks on one card) T={T_TRAIN} f32")
+
+
+def sp_cli(torch, workdir):
+    """Phase 21: cli --seq_devices 2, train and forward, against the runs
+    without it on two GPUs; on one GPU, the refusal with the JAX CLI's
+    message."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    nc, net_path, tags, lengths = write_inputs(workdir)
+    if torch.cuda.device_count() < 2:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--network", net_path, "--train", "false",
+                           "--ff_input_file", nc, "--ff_output_file",
+                           os.path.join(workdir, "sp2"), "--seq_devices",
+                           "2"])
+        text = buf.getvalue()
+        want = "num_devices=2 but only 1 devices available"
+        if rc == 0 or want not in text or "Computing" in text:
+            raise AssertionError(f"--seq_devices 2 ran on one GPU (rc {rc})")
+        phase("sp-cli", f"--seq_devices 2 on one GPU: refused (rc {rc}): "
+              f"{text.strip().splitlines()[-1][:100]}")
+        phase("sp-cli", "the multi-GPU CLI runs (--seq_devices 2, train and "
+              "forward) were not made: torch sees one GPU")
+        return
+    outs = {}
+    for label, extra in (("sp", ["--seq_devices", "2"]), ("one", [])):
+        run_cli(nc, net_path, os.path.join(workdir, f"ff_{label}"), *extra)
+        outs[label], _ = read_outputs(os.path.join(workdir, f"ff_{label}"),
+                                      tags, lengths)
+    d = max(float(np.abs(a - b).max()) for a, b in zip(outs["sp"],
+                                                       outs["one"]))
+    phase("sp-cli", f"forward --seq_devices 2 vs 1: max |p_sp - p| = "
+          f"{d:.3e} (tol {STREAM_TOL:.0e})")
+    if not d <= STREAM_TOL:
+        raise AssertionError(f"--seq_devices 2 serving differs: {d}")
+    paths, _ = write_train_corpus(workdir)
+    saved = {}
+    for label, extra in (("sp", ["--seq_devices", "2"]), ("one", [])):
+        saved[label] = os.path.join(workdir, f"sp_{label}.jsn")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--network", net_path, "--train", "true",
+                           "--train_file", paths["train"][0],
+                           "--truncate_seq", "500", "--parallel_sequences",
+                           "50", "--stochastic", "true", "--learning_rate",
+                           "1e-4", "--momentum", "0.9", "--max_epochs", "1",
+                           "--random_seed", str(SEED), "--save_network",
+                           saved[label], *extra])
+        if rc != 0:
+            print(buf.getvalue()[-3000:])
+            raise AssertionError(f"cli --train true {label} returned {rc}")
+    a, b = _weights(saved["sp"]), _weights(saved["one"])
+    d = max(float(np.abs(a[k] - b[k]).max(initial=0.0)) for k in b)
+    phase("sp-cli", f"train --seq_devices 2 vs 1 (1 epoch): max |w_sp - w| "
+          f"= {d:.3e} (tol {CONTINUE_TOL * 10:.0e})")
+    if not d <= CONTINUE_TOL * 10:
+        raise AssertionError(f"--seq_devices 2 training differs: {d}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1555,7 +2013,7 @@ def main():
     launches["lstm_fwd"] = launches_fwd
     for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
         launches[k] = lvcsr_launches[k]
-    train_rates(torch, card)
+    rates_single = train_rates(torch, card)
     profile_step(torch)
     lvcsr_rates(torch, card)
     profile_step(torch, lvcsr=True)
@@ -1569,13 +2027,26 @@ def main():
             launches["lstm_fwd_carry"] = stream_cli(torch, workdir, nc, tags,
                                                     lengths)["lstm_fwd_carry"]
         stream_rates(torch, card)
+    with torch.no_grad():
+        cgres = carry_grad_kernels_vs_twins(torch)
+    chained_blocks_vs_whole(torch)
+    sp_step_vs_single(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        sp_launches = sp_trainer_epochs(torch, workdir)
+        sp_serving(torch, workdir)
+        sp_cli(torch, workdir)
+    for k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
+        launches[k] = sp_launches[k]
+    sp_rates(torch, card, rates_single)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
               "softmax_ce.cu", "softmax_ce_proj_bwd": "softmax_ce.cu",
               "softmax_ce_wide_fwd": "softmax_ce_wide.cu",
               "softmax_ce_wide_bwd": "softmax_ce_wide.cu",
-              "lstm_fwd_carry": "lstm_fwd.cu"}
+              "lstm_fwd_carry": "lstm_fwd.cu",
+              "lstm_fwd_carry_save": "lstm_fwd.cu",
+              "lstm_bwd_carry": "lstm_bwd.cu"}
     replaces = {"lstm_fwd": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_fwd_save": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_bwd": "lstm_rnn_tpu/ops/lstm_cell.py:284",
@@ -1583,11 +2054,14 @@ def main():
                 "softmax_ce_proj_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:361",
                 "softmax_ce_wide_fwd": "lstm_rnn_tpu/ops/softmax_ce.py:568",
                 "softmax_ce_wide_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:575",
-                "lstm_fwd_carry": "lstm_rnn_tpu/ops/lstm_cell.py:164"}
+                "lstm_fwd_carry": "lstm_rnn_tpu/ops/lstm_cell.py:164",
+                "lstm_fwd_carry_save": "lstm_rnn_tpu/ops/lstm_cell.py:164",
+                "lstm_bwd_carry": "lstm_rnn_tpu/ops/lstm_cell.py:284"}
     # each kernel at the shape its path gives it: K0 at P=250, T=800; K1
     # and K2 at P=250, T=500; the tails over 25,000 frames (K3 at 183
     # states, K4 at 10,112); the carry kernel at P=250 over one 64-frame
-    # chunk of the streaming stack
+    # chunk of the streaming stack; the K6b kernels at P=250 over one
+    # 125-frame SP block of a TIMIT layer, dir_offset 0
     rows = {"lstm_fwd": (res[(250, "float32")], res[(250, "bfloat16")])}
     for k in ("lstm_fwd_save", "lstm_bwd", "softmax_ce_proj_fwd",
               "softmax_ce_proj_bwd"):
@@ -1595,6 +2069,9 @@ def main():
     for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
         rows[k] = (wres[(k, "float32")], wres[(k, "bfloat16")])
     rows["lstm_fwd_carry"] = (cres[(250, "float32")], cres[(250, "bfloat16")])
+    for k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
+        rows[k] = (cgres[(k, 250, 0, "float32")],
+                   cgres[(k, 250, 0, "bfloat16")])
     kernels = []
     for k, (r32, r16) in rows.items():
         b32, by32 = bound(*r32["cost"], "float32")
@@ -1615,6 +2092,8 @@ def main():
             kernels[-1]["variant"] = "carry=True, with_mask=True"
             kernels[-1]["us_per_step"] = r32["us_per_step"]
             kernels[-1]["us_per_step_bf16"] = r16["us_per_step"]
+        if k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
+            kernels[-1]["variant"] = "carry=True, save=True, dir_offset=0"
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ CUDA kernels written for sm_90a (csrc/); everything else is plain PyTorch.
 This package imports torch and numpy only — never jax and never
 lstm_rnn_tpu.
 
-Ported: the forward-pass (posterior dump) mode and training; the rest
+Ported: the forward-pass (posterior dump) mode, streaming serving,
+training, and sequence parallelism in one process (`parallel/`); the rest
 follows (ROADMAP.md).
 """
 

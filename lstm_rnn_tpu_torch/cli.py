@@ -18,6 +18,12 @@ Counterpart of lstm_rnn_tpu/cli.py (the `currennt` binary's behaviour,
   net in N-frame chunks, each LSTM layer's state carried from chunk to
   chunk (online serving; the output equals the whole-sequence forward).
 
+`--seq_devices N` (both modes) cuts every fraction's time axis into N
+blocks on the first N GPUs (on the CPU with `--device cpu`: the CPU N
+times) and runs the sequence-parallel path (parallel/sequence.py):
+training through `Trainer(seq_mesh=)`, serving through `apply_seq`.
+`--num_devices` must then be 1 or N.
+
 Device: `--cuda true` (the default) or `--device cuda` runs on the GPU, the
 LSTM layers and the classification tail through the Hopper kernels; a
 missing GPU is an error, not a move to the CPU. `--device cpu` /
@@ -42,6 +48,8 @@ from lstm_rnn_tpu_torch import writers
 from lstm_rnn_tpu_torch.config import Config, parse_config
 from lstm_rnn_tpu_torch.data.dataset import DataSet
 from lstm_rnn_tpu_torch.network import Network
+from lstm_rnn_tpu_torch.parallel.mesh import composed_mesh
+from lstm_rnn_tpu_torch.parallel.sequence import apply_seq
 from lstm_rnn_tpu_torch.trainer import Trainer
 from lstm_rnn_tpu_torch.utils.device import describe, select_device
 
@@ -122,6 +130,10 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
         net.init_stream_state(1, device)  # refuses a bidirectional net
         print(f"Streaming forward: {chunk}-frame chunks, carried LSTM "
               "state")
+    seq_mesh = _seq_mesh(cfg, device)
+    if seq_mesh is not None:
+        device = seq_mesh[0]
+        print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}}")
     params = net.device_params(device)
 
     means = stdevs = None
@@ -146,8 +158,12 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
         with torch.inference_mode():
             x = torch.from_numpy(frac.inputs).to(device)
             pt = torch.from_numpy(frac.pattypes).to(device)
-            y = (_apply_streamed(net, params, x, pt, chunk) if chunk > 0
-                 else net.apply(params, x, pt))
+            if seq_mesh is not None:
+                y = apply_seq(net, params, x, pt, seq_mesh)
+            elif chunk > 0:
+                y = _apply_streamed(net, params, x, pt, chunk)
+            else:
+                y = net.apply(params, x, pt)
         tags, outs = net.get_outputs(y, frac.seq_info)
         if fmt == "single_csv":
             writers.write_single_csv(cfg.ff_output_file, tags, outs, lag,
@@ -161,6 +177,15 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
                               kind=cfg.ff_output_kind)
         print(" done.")
     return 0
+
+
+def _seq_mesh(cfg: Config, device: torch.device):
+    """The seq mesh of --seq_devices N > 1 on `device`'s type (None
+    without): the first N GPUs, or the CPU N times."""
+    if cfg.seq_devices <= 1:
+        return None
+    return composed_mesh(cfg.num_devices, cfg.seq_devices, "seq_devices",
+                         device.type)
 
 
 def _apply_streamed(net: Network, params, x, pt, chunk: int):
@@ -270,6 +295,11 @@ def train_mode(cfg: Config, device: torch.device) -> int:
     if cfg.optimizer != "steepest_descent":
         raise RuntimeError("Unknown optimizer type")
 
+    seq_mesh = _seq_mesh(cfg, device)
+    if seq_mesh is not None:
+        device = seq_mesh[0]
+        print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}} "
+              "(time axis sharded)")
     max_epochs = cfg.max_epochs if cfg.max_epochs != 2**32 - 1 else -1
     trainer = Trainer(
         net, train_set, val_set, test_set,
@@ -277,7 +307,8 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         max_epochs=max_epochs, max_epochs_no_best=cfg.max_epochs_no_best,
         validate_every=cfg.validate_every, test_every=cfg.test_every,
         hybrid_online_batch=cfg.hybrid_online_batch,
-        weight_noise_sigma=cfg.weight_noise_sigma, device=device)
+        weight_noise_sigma=cfg.weight_noise_sigma, device=device,
+        seq_mesh=seq_mesh)
 
     info_rows = ""
     if cfg.continue_file:

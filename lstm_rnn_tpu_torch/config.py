@@ -9,10 +9,14 @@ Configuration.cpp:236-250).
 Port-specific:
   --device       auto|cpu|cuda (auto follows --cuda); tpu is refused
   --lstm_backend auto|scan|pallas: pallas names the Hopper kernel
+  --seq_devices  k > 1: sequence parallelism over a k-block seq mesh, with
+                 --num_devices 1 or k (parallel/)
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
-never silently ignored: --num_devices, --model_devices,
---pipeline_devices and --seq_devices other than 1, --f32_matmul 3x,
---compilation_cache_dir and the multi-host flags.
+never silently ignored: --num_devices other than 1 (or than
+--seq_devices), --model_devices and --pipeline_devices other than 1,
+--f32_matmul 3x, --compilation_cache_dir and the multi-host flags.
+--seq_devices with --stream_chunk, --model_devices or --pipeline_devices
+is refused with the JAX CLI's messages.
 """
 
 from __future__ import annotations
@@ -156,7 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="training only: gradient checkpointing of the "
                         "recurrence in K time blocks")
     g.add_argument("--seq_devices", type=int, default=1,
-                   help="sequence-parallel shard count (only 1 is ported)")
+                   help="sequence-parallel shard count: the time axis of "
+                        "every fraction in this many blocks, one per device")
     g.add_argument("--bucket_lengths", type=_bucket_arg, default=False,
                    help="false = exact lengths, true = power-of-2 bucket "
                         "inventory, single = one bucket at the corpus max, "
@@ -346,11 +351,24 @@ def serialize_options(ns: argparse.Namespace) -> str:
 
 
 def _check_supported(ns: argparse.Namespace) -> None:
-    """Refuse the flags whose features the port does not have yet."""
+    """Refuse the flags whose features the port does not have yet, and
+    the combinations the JAX CLI refuses (lstm_rnn_tpu/cli.py:341-344,
+    :577-586)."""
+    sp = ns.seq_devices
+    if sp > 1 and (ns.model_devices > 1 or ns.pipeline_devices > 1):
+        raise ValueError("seq_devices > 1 does not combine with "
+                         "model_devices or pipeline_devices")
+    if sp > 1 and ns.stream_chunk > 0:
+        raise ValueError("stream_chunk does not combine with "
+                         "pipeline_devices or seq_devices")
     unsupported = [
         (f"--{k} {getattr(ns, k)}", "parallelism")
-        for k in ("num_devices", "model_devices", "pipeline_devices",
-                  "seq_devices") if getattr(ns, k) != 1]
+        for k in ("model_devices", "pipeline_devices", "seq_devices")
+        if getattr(ns, k) != 1 and not (k == "seq_devices" and sp > 1)]
+    if ns.num_devices not in (1, max(sp, 1)):
+        # data parallelism, alone or composed with --seq_devices
+        unsupported.insert(0, (f"--num_devices {ns.num_devices}",
+                               "parallelism"))
     if ns.f32_matmul != "6x":
         unsupported.append((f"--f32_matmul {ns.f32_matmul}",
                             "the training step and its precision modes"))

@@ -1,7 +1,10 @@
 // Backward (BPTT) of one (B)LSTM layer, for NVIDIA Hopper (sm_90a).
 //
-// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_bwd_kernel without carry (the
-// TPU kernel behind lstm_scan_fused's VJP, `_fused_bwd`): the reference
+// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_bwd_kernel in both its variants:
+// without carry (the TPU kernel behind lstm_scan_fused's VJP,
+// `_fused_bwd`), and with carry=True (K6b backward, `_fused_carry_bwd`,
+// the VJP of lstm_scan_fused_carry that sequence parallelism's training
+// runs; item 5 below). Each is the reference
 // BPTT (ComputeBlockErrorsFn, LstmLayer.cu:190-287) over the gates and cell
 // states that the save variant of lstm_fwd.cu wrote, with no gate
 // recompute, then the weight gradients (ComputeWeightUpdateFn,
@@ -32,7 +35,8 @@
 // dpeep/dbias sums, each direction's dx plane is rounded to bf16 before the
 // two are summed in f32; tanh is the plain one.
 //
-// Design and what bounds it on this card. Four launches:
+// Design and what bounds it on this card. Four launches (five with a
+// carry):
 //
 // 1. bptt_kernel, the recurrence: grid (D, ceil(B / 4)), a time loop inside
 //    each block, as lstm_fwd.cu's rec_kernel. Latency-bound: the steps
@@ -55,6 +59,20 @@
 // 3. dx = sum_d da[d] . W_in[d]^T, the same GEMM, both directions in one
 //    launch (skipped for the first hidden layer, need_dx = 0).
 // 4. sum_partials for dpeep/dbias (times bias_mult for dbias).
+// 5. The carry variant (lstm_bwd_carry): bptt_carry_kernel, bptt_kernel's
+//    body with kCarry. The forward started from (h0, c0) and emitted its
+//    state at step carry_t - 1 (ascending) or t = 0 (descending; a
+//    direction descends when d + dir_offset > 0) as (hf, cf). So: c_prev
+//    at the scan edge is c0 and the edge's fg delta is not zeroed; dhf
+//    joins e and dcf joins cs_err at the capture step; after the last BPTT
+//    step, one more product gives dh0 = round(da) . W_rec^T, and dc0 =
+//    fg_next cs_err_next + p_ig da[ig] + p_fg da[fg], all from shared
+//    memory. Every step runs: the longest-row shortcut would leave a
+//    descending direction's dh0/dc0 to an unmasked state, where the
+//    invalid steps after a row's end are what zero them. dW_rec's h_prev
+//    view shifts by the scan direction (dir_offset included) and reads zero
+//    before the edge row; edge_grad_kernel then adds the rank-B term
+//    h0^T . da[edge] (h0 in the storage dtype, as the TPU kernel rounds it).
 //
 // Launch rules: the entry point launches on the caller's stream, allocates
 // nothing (the wrapper passes every buffer), never synchronises, and
@@ -142,15 +160,32 @@ struct CellIn {
   float dh, g[4], c, cp;
 };
 
+// The carry variant's operands (unused without kCarry).
+struct BpttCarry {
+  const float* c0;   // [D, B, H] the forward's initial cell state
+  const float* dhf;  // [D, B, H] cotangents of the forward's final state
+  const float* dcf;
+  float* dh0;        // [D, B, H] gradients of the initial state
+  float* dc0;
+  int carry_t;       // an ascending direction's final state is at carry_t-1
+  int dir_offset;    // direction d walks descending if d + it > 0
+};
+
+// The BPTT, shared by bptt_kernel and bptt_carry_kernel.
 // S: storage dtype (dh, gates, da); W: compute dtype of W_rec^T.
 // kPlain: plain tanh (bf16 mode); kWShared: W_rec^T staged in shared memory.
-template <typename S, typename W, bool kPlain, bool kWShared>
-__global__ void __launch_bounds__(kBpttThreads)
-    bptt_kernel(const S* __restrict__ dh, const S* __restrict__ gates,
-                const float* __restrict__ c, const W* __restrict__ w_rec_t,
-                const float* __restrict__ peep,
-                const int* __restrict__ lengths, S* __restrict__ da_out,
-                float* __restrict__ pb_part, int T, int B, int H, int clip) {
+// kCarry: the K6b backward (see the note at the top): c_prev at the scan
+// edge is ca.c0 (its fg delta is not zeroed), dhf and dcf join at the
+// capture step, every step runs, and dh0/dc0 are written after the last.
+// Each variant is an entry point of its own, so that bptt_kernel compiles
+// as it did without the carry (lstm_fwd.cu's rec_body does the same).
+template <typename S, typename W, bool kPlain, bool kWShared, bool kCarry>
+__device__ __forceinline__ void bptt_body(
+    const S* __restrict__ dh, const S* __restrict__ gates,
+    const float* __restrict__ c, const W* __restrict__ w_rec_t,
+    const float* __restrict__ peep, const int* __restrict__ lengths,
+    S* __restrict__ da_out, float* __restrict__ pb_part, int T, int B, int H,
+    int clip, const BpttCarry& ca) {
   extern __shared__ __align__(16) float smem[];
   const BpttLayout L = bptt_layout(H);
   const int G = 4 * H;
@@ -176,6 +211,9 @@ __global__ void __launch_bounds__(kBpttThreads)
   const int nb = min(kBpttRows, B - b0);
   const int tid = threadIdx.x;
   const size_t DH = static_cast<size_t>(D) * H;
+  // the direction's scan ascends time (BPTT then walks it descending);
+  // without kCarry this is d == 0
+  const int dd = d + (kCarry ? ca.dir_offset : 0);
 
   for (size_t i = tid; i < L.w; i += kBpttThreads) smem[i] = 0.0f;
   const W* wd = w_rec_t + static_cast<size_t>(d) * G * HP;
@@ -193,8 +231,10 @@ __global__ void __launch_bounds__(kBpttThreads)
     tmax_s = m;
   }
   __syncthreads();
-  const int tmax = tmax_s;
+  const int tmax = kCarry ? T : tmax_s;
   const int n_items = nb * H;
+  // the step whose state the forward emitted as (hf, cf) (kCarry)
+  const int t_cap = kCarry && dd == 0 ? ca.carry_t - 1 : 0;
 
   auto load_in = [&](int p, int t) {
     CellIn in;
@@ -205,9 +245,10 @@ __global__ void __launch_bounds__(kBpttThreads)
 #pragma unroll
     for (int gi = 0; gi < 4; ++gi) in.g[gi] = as_f32(gates[row * G + gi * H + j]);
     in.c = c[row * H + j];
-    const bool edge = d == 0 ? t <= 0 : t >= T - 1;
-    const int tn = d == 0 ? t - 1 : t + 1;
-    in.cp = edge ? 0.0f
+    const bool edge = dd == 0 ? t <= 0 : t >= T - 1;
+    const int tn = dd == 0 ? t - 1 : t + 1;
+    const size_t state = (static_cast<size_t>(d) * B + b0 + r) * H + j;
+    in.cp = edge ? (kCarry ? ca.c0[state] : 0.0f)
                  : c[((static_cast<size_t>(d) * T + tn) * B + b0 + r) * H + j];
     return in;
   };
@@ -218,15 +259,25 @@ __global__ void __launch_bounds__(kBpttThreads)
     float e = in.dh;
     for (int kq = 0; kq < KS; ++kq)
       e += part[(static_cast<size_t>(kq) * kBpttRows + r) * HP + j];
+    float dcf = 0.0f;
+    if (kCarry && t == t_cap) {
+      // the final (h, c) are this step's through an identity: their
+      // cotangents join e and the cell-state error here
+      const size_t src = (static_cast<size_t>(d) * B + b0 + r) * H + j;
+      e += ca.dhf[src];
+      dcf = ca.dcf[src];
+    }
     const float ni = in.g[0], ig = in.g[1], fg = in.g[2], og = in.g[3];
     const float tanh_c = kPlain ? tanhf(in.c) : bwd_tanh2(in.c);
     const float og_delta = og * (1.0f - og) * tanh_c * e;
     float* dar = da_s + r * G;
-    const float cs_err = og * (1.0f - tanh_c * tanh_c) * e +
-                         ps[2 * H + j] * og_delta +
-                         fgn[r * H + j] * cse[r * H + j] +
-                         ps[j] * dar[H + j] + ps[H + j] * dar[2 * H + j];
-    const bool edge = d == 0 ? t <= 0 : t >= T - 1;
+    float cs_err = og * (1.0f - tanh_c * tanh_c) * e +
+                   ps[2 * H + j] * og_delta +
+                   fgn[r * H + j] * cse[r * H + j] +
+                   ps[j] * dar[H + j] + ps[H + j] * dar[2 * H + j];
+    if (kCarry) cs_err += dcf;
+    // with a carry the scan edge has a previous cell state, c0
+    const bool edge = !kCarry && (dd == 0 ? t <= 0 : t >= T - 1);
     float dv[4];
     dv[0] = ig * (1.0f - ni * ni) * cs_err;
     dv[1] = ig * (1.0f - ig) * ni * cs_err;
@@ -254,14 +305,17 @@ __global__ void __launch_bounds__(kBpttThreads)
     fgn[r * H + j] = fg * m;
   };
 
-  for (int s = 0; s < tmax; ++s) {
-    const int t = d == 0 ? tmax - 1 - s : s;
+  // kCarry: one pass more after the last step, whose product is dh0
+  const int n_pass = tmax + (kCarry ? 1 : 0);
+  for (int s = 0; s < n_pass; ++s) {
+    const int t = dd == 0 ? tmax - 1 - s : s;
+    const bool after = kCarry && s == tmax;
     // issue this step's cell loads now; they land while the product runs
     CellIn pre[kPre];
 #pragma unroll
     for (int it = 0; it < kPre; ++it) {
       const int p = tid + it * kBpttThreads;
-      if (p < n_items) pre[it] = load_in(p, t);
+      if (p < n_items && !after) pre[it] = load_in(p, t);
     }
     // partial products da_next . W_rec^T: one (k slice, 4 adjacent output
     // columns) item per thread, all rows of the block
@@ -290,6 +344,24 @@ __global__ void __launch_bounds__(kBpttThreads)
             make_float4(a4[r][0], a4[r][1], a4[r][2], a4[r][3]);
     }
     __syncthreads();
+    if (after) {
+      // after the last step the recurrence's remaining terms are the
+      // initial state's gradients: dh0 = round(da) . W_rec^T, the product
+      // just taken, and dc0 = the cell-state terms of the virtual step
+      // before the scan
+      for (int p = tid; p < n_items; p += kBpttThreads) {
+        const int r = p / H, j = p - r * H;
+        float v = 0.0f;
+        for (int kq = 0; kq < KS; ++kq)
+          v += part[(static_cast<size_t>(kq) * kBpttRows + r) * HP + j];
+        const float* dar = da_s + r * G;
+        const size_t dst = (static_cast<size_t>(d) * B + b0 + r) * H + j;
+        ca.dh0[dst] = v;
+        ca.dc0[dst] = fgn[r * H + j] * cse[r * H + j] + ps[j] * dar[H + j] +
+                      ps[H + j] * dar[2 * H + j];
+      }
+      break;
+    }
 #pragma unroll
     for (int it = 0; it < kPre; ++it) {
       const int p = tid + it * kBpttThreads;
@@ -317,31 +389,70 @@ __global__ void __launch_bounds__(kBpttThreads)
 }
 
 template <typename S, typename W, bool kPlain, bool kWShared>
-cudaError_t launch_bptt(const void* dh, const void* gates, const float* c,
-                        const void* w_rec_t, const float* peep,
-                        const int* lengths, void* da, float* pb_part, int T,
-                        int B, int H, int D, int clip, size_t smem,
-                        cudaStream_t stream) {
-  auto kernel = bptt_kernel<S, W, kPlain, kWShared>;
+__global__ void __launch_bounds__(kBpttThreads)
+    bptt_kernel(const S* __restrict__ dh, const S* __restrict__ gates,
+                const float* __restrict__ c, const W* __restrict__ w_rec_t,
+                const float* __restrict__ peep,
+                const int* __restrict__ lengths, S* __restrict__ da_out,
+                float* __restrict__ pb_part, int T, int B, int H, int clip) {
+  bptt_body<S, W, kPlain, kWShared, false>(dh, gates, c, w_rec_t, peep,
+                                           lengths, da_out, pb_part, T, B, H,
+                                           clip, BpttCarry{});
+}
+
+template <typename S, typename W, bool kPlain, bool kWShared>
+__global__ void __launch_bounds__(kBpttThreads)
+    bptt_carry_kernel(const S* __restrict__ dh, const S* __restrict__ gates,
+                      const float* __restrict__ c,
+                      const W* __restrict__ w_rec_t,
+                      const float* __restrict__ peep,
+                      const int* __restrict__ lengths, S* __restrict__ da_out,
+                      float* __restrict__ pb_part, int T, int B, int H,
+                      int clip, BpttCarry ca) {
+  bptt_body<S, W, kPlain, kWShared, true>(dh, gates, c, w_rec_t, peep,
+                                          lengths, da_out, pb_part, T, B, H,
+                                          clip, ca);
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_bptt_kernel(Kernel kernel, size_t smem, dim3 grid,
+                               cudaStream_t stream, Args... args) {
   // opt in whatever the size: the static part counts against 48 KB too
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(D, (B + kBpttRows - 1) / kBpttRows);
-  kernel<<<grid, kBpttThreads, smem, stream>>>(
-      static_cast<const S*>(dh), static_cast<const S*>(gates), c,
-      static_cast<const W*>(w_rec_t), peep, lengths, static_cast<S*>(da),
-      pb_part, T, B, H, clip);
+  kernel<<<grid, kBpttThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename S, typename W, bool kPlain>
+template <typename S, typename W, bool kPlain, bool kWShared, bool kCarry>
+cudaError_t launch_bptt(const void* dh, const void* gates, const float* c,
+                        const void* w_rec_t, const float* peep,
+                        const int* lengths, void* da, float* pb_part, int T,
+                        int B, int H, int D, int clip, const BpttCarry& ca,
+                        size_t smem, cudaStream_t stream) {
+  const dim3 grid(D, (B + kBpttRows - 1) / kBpttRows);
+  const S* dh_s = static_cast<const S*>(dh);
+  const S* g_s = static_cast<const S*>(gates);
+  const W* w_s = static_cast<const W*>(w_rec_t);
+  S* da_s = static_cast<S*>(da);
+  if constexpr (kCarry)
+    return launch_bptt_kernel(bptt_carry_kernel<S, W, kPlain, kWShared>,
+                              smem, grid, stream, dh_s, g_s, c, w_s, peep,
+                              lengths, da_s, pb_part, T, B, H, clip, ca);
+  else
+    return launch_bptt_kernel(bptt_kernel<S, W, kPlain, kWShared>, smem,
+                              grid, stream, dh_s, g_s, c, w_s, peep, lengths,
+                              da_s, pb_part, T, B, H, clip);
+}
+
+template <typename S, typename W, bool kPlain, bool kCarry>
 cudaError_t launch_bptt_w(const void* dh, const void* gates, const float* c,
                           const void* w_rec_t, const float* peep,
                           const int* lengths, void* da, float* pb_part, int T,
-                          int B, int H, int D, int clip, int device,
-                          cudaStream_t stream) {
+                          int B, int H, int D, int clip, const BpttCarry& ca,
+                          int device, cudaStream_t stream) {
   int smem_max = 0;
   const cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -351,22 +462,23 @@ cudaError_t launch_bptt_w(const void* dh, const void* gates, const float* c,
   const size_t with_w =
       state + static_cast<size_t>(4) * H * L.hp * sizeof(W);
   if (with_w <= static_cast<size_t>(smem_max))
-    return launch_bptt<S, W, kPlain, true>(dh, gates, c, w_rec_t, peep,
-                                           lengths, da, pb_part, T, B, H, D,
-                                           clip, with_w, stream);
+    return launch_bptt<S, W, kPlain, true, kCarry>(
+        dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D, clip,
+        ca, with_w, stream);
   if (state > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
-  return launch_bptt<S, W, kPlain, false>(dh, gates, c, w_rec_t, peep,
-                                          lengths, da, pb_part, T, B, H, D,
-                                          clip, state, stream);
+  return launch_bptt<S, W, kPlain, false, kCarry>(
+      dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D, clip, ca,
+      state, stream);
 }
 
 // The weight gradients and dx from da. X: compute dtype of x and W_in;
-// S: storage dtype of h and da.
+// S: storage dtype of h and da. Direction dd's scan ascends time when
+// dd + dir_offset == 0.
 template <typename X, typename S>
 cudaError_t launch_grads(const void* x, const void* h, const void* da,
                          const void* w_in, float* dx, float* w_part,
                          float* w_out, int T, int B, int P, int H, int D,
-                         int need_dx, cudaStream_t stream) {
+                         int dir_offset, int need_dx, cudaStream_t stream) {
   const int G = 4 * H;
   const int M = T * B;
   const int ns = gemm_splits(M);
@@ -396,7 +508,7 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
     for (int dd = 0; dd < D; ++dd) {
       g.a[dd] = make_view<S>(static_cast<const S*>(h) + dd * H,
                              static_cast<long long>(D) * H, M, H,
-                             dd == 0 ? -B : B);
+                             dd + dir_offset == 0 ? -B : B);
       g.b[dd] = make_view<S>(static_cast<const S*>(da) +
                                  static_cast<size_t>(dd) * M * G,
                              G, M, G);
@@ -436,6 +548,61 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
   return err;
 }
 
+// dW_rec[d] += h0[d]^T . da[d, t_edge]: the scan-previous h of the scan's
+// first step is the initial state h0 (in the storage dtype), where
+// launch_grads' shifted h view reads zero. One thread per (k, n), the B
+// rows summed in order.
+template <typename S>
+__global__ void edge_grad_kernel(const S* __restrict__ h0,
+                                 const S* __restrict__ da,
+                                 float* __restrict__ dw_rec, int T, int B,
+                                 int H, int dir_offset) {
+  const int d = blockIdx.y;
+  const int G = 4 * H;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= H * G) return;
+  const int k = i / G, n = i - k * G;
+  const int t = d + dir_offset == 0 ? 0 : T - 1;
+  const S* hd = h0 + static_cast<size_t>(d) * B * H;
+  const S* dd = da + (static_cast<size_t>(d) * T + t) * B * G;
+  float sum = 0.0f;
+  for (int b = 0; b < B; ++b)
+    sum = fmaf(as_f32(hd[static_cast<size_t>(b) * H + k]),
+               as_f32(dd[static_cast<size_t>(b) * G + n]), sum);
+  dw_rec[(static_cast<size_t>(d) * H + k) * G + n] += sum;
+}
+
+// The whole backward: the BPTT (carry variant when kCarry), the weight
+// gradients, dx, the carry's dW_rec edge term, and dpeep/dbias.
+template <typename S, bool kPlain, bool kCarry>
+cudaError_t run_bwd(const void* x, const void* dh, const void* gates,
+                    const float* c, const void* h, const void* w_in,
+                    const void* w_rec_t, const float* peep,
+                    const int* lengths, const void* h0, const BpttCarry& ca,
+                    void* da, float* pb_part, float* w_part, float* w_out,
+                    float* pb_out, float* dx, int T, int B, int P, int H,
+                    int D, float bias_mult, int clip, int need_dx,
+                    int device, cudaStream_t stream) {
+  cudaError_t err = launch_bptt_w<S, S, kPlain, kCarry>(
+      dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D, clip, ca,
+      device, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_grads<S, S>(x, h, da, w_in, dx, w_part, w_out, T, B, P, H, D,
+                           kCarry ? ca.dir_offset : 0, need_dx, stream);
+  if (err != cudaSuccess) return err;
+  if constexpr (kCarry) {
+    const int n = 4 * H * H;
+    edge_grad_kernel<S><<<dim3((n + 255) / 256, D), 256, 0, stream>>>(
+        static_cast<const S*>(h0), static_cast<const S*>(da),
+        w_out + static_cast<size_t>(D) * P * 4 * H, T, B, H, ca.dir_offset);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int nblk = (B + kBpttRows - 1) / kBpttRows;
+  return launch_sum_partials(pb_part, nblk, static_cast<long long>(D) * 7 * H,
+                             pb_out, 7LL * H, 3LL * H, bias_mult, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -462,26 +629,54 @@ int lstm_bwd(const void* x, const void* dh, const void* gates, const float* c,
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (bf16) {
-    using BF = __nv_bfloat16;
-    err = launch_bptt_w<BF, BF, true>(dh, gates, c, w_rec_t, peep, lengths,
-                                      da, pb_part, T, B, H, D, clip, device,
-                                      stream);
-    if (err != cudaSuccess) return err;
-    err = launch_grads<BF, BF>(x, h, da, w_in, dx, w_part, w_out, T, B, P, H,
-                               D, need_dx, stream);
-  } else {
-    err = launch_bptt_w<float, float, false>(dh, gates, c, w_rec_t, peep,
-                                             lengths, da, pb_part, T, B, H, D,
-                                             clip, device, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_grads<float, float>(x, h, da, w_in, dx, w_part, w_out, T, B,
-                                     P, H, D, need_dx, stream);
-  }
+  const BpttCarry none = {};
+  if (bf16)
+    return run_bwd<__nv_bfloat16, true, false>(
+        x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, nullptr, none, da,
+        pb_part, w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip,
+        need_dx, device, stream);
+  return run_bwd<float, false, false>(
+      x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, nullptr, none, da,
+      pb_part, w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip,
+      need_dx, device, stream);
+}
+
+// BPTT of one layer from an initial state (K6b backward). As lstm_bwd,
+// over lstm_fwd_rec_carry_save's residuals, plus: h0 [D, B, H] in the
+// storage dtype (the scan-previous h of the edge row of dW_rec), c0 [D, B,
+// H] f32 (its c_prev), dhf and dcf [D, B, H] f32 (the cotangents of the
+// forward's final state, joining at step carry_t - 1 of an ascending
+// direction and t = 0 of a descending one); out dh0 and dc0 [D, B, H] f32.
+// carry_t and dir_offset as in lstm_fwd_rec_carry_save.
+int lstm_bwd_carry(const void* x, const void* dh, const void* gates,
+                   const float* c, const void* h, const void* w_in,
+                   const void* w_rec_t, const float* peep,
+                   const int* lengths, const void* h0, const float* c0,
+                   const float* dhf, const float* dcf, void* da,
+                   float* pb_part, float* w_part, float* w_out, float* pb_out,
+                   float* dx, float* dh0, float* dc0, int T, int B, int P,
+                   int H, int D, int carry_t, int dir_offset, float bias_mult,
+                   int clip, int need_dx, int bf16, int device,
+                   cudaStream_t stream) {
+  if (T < 1 || B < 1 || P < 1 || H < 1 || D < 1 || D > 2)
+    return cudaErrorInvalidValue;
+  if (dir_offset < 0 || dir_offset > 1 || (D == 2 && dir_offset != 0))
+    return cudaErrorInvalidValue;
+  if (carry_t < 1 || carry_t > T) return cudaErrorInvalidValue;
+  if ((D == 2 || dir_offset == 1) && carry_t != T)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int nblk = (B + kBpttRows - 1) / kBpttRows;
-  return launch_sum_partials(pb_part, nblk, static_cast<long long>(D) * 7 * H,
-                             pb_out, 7LL * H, 3LL * H, bias_mult, stream);
+  const BpttCarry ca = {c0, dhf, dcf, dh0, dc0, carry_t, dir_offset};
+  if (bf16)
+    return run_bwd<__nv_bfloat16, true, true>(
+        x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, h0, ca, da, pb_part,
+        w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip, need_dx,
+        device, stream);
+  return run_bwd<float, false, true>(
+      x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, h0, ca, da, pb_part,
+      w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip, need_dx,
+      device, stream);
 }
 
 // K splits of the weight-gradient reduction over M = T*B rows (the

@@ -1,8 +1,8 @@
 // Forward of one (B)LSTM layer, for NVIDIA Hopper (sm_90a).
 //
-// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_fwd_kernel in three of its
-// variants (the third, carry=True with a step mask, is item 3 below):
-// save=False, the TPU kernel behind
+// Replaces lstm_rnn_tpu/ops/lstm_cell.py::_fwd_kernel in four of its
+// variants (carry=True with a step mask, and carry=True with residuals, are
+// items 3 and 4 below): save=False, the TPU kernel behind
 // lstm_scan_fused's primal, which every frame of the forward-pass
 // (posterior dump) mode and of a validation pass goes through; and
 // save=True (`_fused_fwd`), the training forward, which also writes the
@@ -30,7 +30,7 @@
 // stored in bf16.
 //
 // Design and what bounds it on this card. Two launches per layer (all
-// variants):
+// variants; the recurrence is item 2, 3 or 4):
 //
 // 1. proj_kernel, a tiled shared-memory GEMM [T*B, P] x [P, 4H] per
 //    direction into an f32 scratch buffer. The TPU kernel computes this
@@ -80,6 +80,16 @@
 //    f32 and 500 KB in bf16: it does not fit a block's shared memory, so
 //    the carry variant reads it from L2 every step, and only ceil(B / 4)
 //    SMs work.
+// 4. The carry variant with residuals (lstm_fwd_rec_carry_save) replaces
+//    the same TPU kernel with carry=True and save=True (K6b forward,
+//    `_fused_carry_fwd`: the forward that sequence parallelism's training
+//    differentiates, one time block of one direction per call). It is
+//    rec_carry_save_kernel, the same body with kSave and kCarry: (h0, c0)
+//    in, (hf, cf) out as in item 3, validity from lengths only (a prefix per
+//    row, as the TPU kernel's backward requires), and the residuals c and
+//    gates of item 2 written at every step, zero at invalid ones. Every
+//    step runs, for the reasons of item 3. It is a fourth entry point of
+//    its own, so that the other instances compile as before.
 //
 // Launch rules: every entry point launches on the caller's stream,
 // allocates nothing, never synchronises, and returns cudaGetLastError().
@@ -259,11 +269,12 @@ struct CarryArgs {
 // kSave: also write the residuals c_out [D, T, B, H] and g_out
 // [D, T, B, 4H] (zero at padding).
 // kCarry: start from ca.h0/ca.c0, mask per step, write ca.hf/ca.cf, and
-// run every step (see the note at the top). The carry variant is its own
-// entry point so that the other instances compile as they did without it:
-// one kernel taking CarryArgs gave them more registers and spills, and
-// slowed their f32 recurrences on an H100 (scripts/torch_ab_recurrence.py
-// compares two checkouts).
+// run every step (see the note at the top); with kSave too, the K6b
+// forward. Each carry variant is an entry point of its own
+// (rec_carry_kernel, rec_carry_save_kernel) so that the other instances
+// compile as they did without it: one kernel taking CarryArgs gave them
+// more registers and spills, and slowed their f32 recurrences on an H100
+// (scripts/torch_ab_recurrence.py compares two checkouts).
 template <typename W, typename Out, bool kPlainActs, bool kWShared,
           bool kSave, bool kCarry>
 __device__ __forceinline__ void rec_body(
@@ -272,7 +283,6 @@ __device__ __forceinline__ void rec_body(
     Out* __restrict__ out, float* __restrict__ c_out,
     Out* __restrict__ g_out, int T, int B, int H, const CarryArgs& ca) {
   static_assert(kRows % 4 == 0, "h is read as float4 groups of rows");
-  static_assert(!(kSave && kCarry), "the carry variant writes no residuals");
   extern __shared__ __align__(16) float smem[];
   const RecLayout L = rec_layout(kRows, H);
   const int G = 4 * H;
@@ -487,6 +497,19 @@ __global__ void __launch_bounds__(kRecThreads)
       a, w_rec, peep, lengths, out, nullptr, nullptr, T, B, H, ca);
 }
 
+template <typename W, typename Out, bool kPlainActs, bool kWShared>
+__global__ void __launch_bounds__(kRecThreads)
+    rec_carry_save_kernel(const float* __restrict__ a,
+                          const W* __restrict__ w_rec,
+                          const float* __restrict__ peep,
+                          const int* __restrict__ lengths,
+                          Out* __restrict__ out, float* __restrict__ c_out,
+                          Out* __restrict__ g_out, int T, int B, int H,
+                          CarryArgs ca) {
+  rec_body<W, Out, kPlainActs, kWShared, true, true>(
+      a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, ca);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -504,7 +527,14 @@ cudaError_t launch_rec(const float* a, const void* w_rec, const float* peep,
                        cudaStream_t stream) {
   const dim3 grid(D, (B + kRows - 1) / kRows);
   cudaError_t err;
-  if constexpr (kCarry) {
+  if constexpr (kCarry && kSave) {
+    auto kernel = rec_carry_save_kernel<W, Out, kPlainActs, kWShared>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kRecThreads, smem, stream>>>(
+        a, static_cast<const W*>(w_rec), peep, lengths,
+        static_cast<Out*>(out), c_out, static_cast<Out*>(g_out), T, B, H,
+        ca);
+  } else if constexpr (kCarry) {
     auto kernel = rec_carry_kernel<W, Out, kPlainActs, kWShared>;
     if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, kRecThreads, smem, stream>>>(
@@ -559,6 +589,17 @@ cudaError_t launch_rec_dtype(const float* a, const void* w_rec,
   return launch_rec_w<float, float, false, kSave, kCarry>(
       a, w_rec, peep, lengths, out, c_out, g_out, T, B, H, D, ca, device,
       stream);
+}
+
+// The carry entry points' shape rules (as the wrapper's _check_carry):
+// dir_offset 0, or 1 with D = 1; carry_t in [1, T]; a descending
+// direction needs carry_t = T.
+bool carry_ok(int T, int B, int H, int D, int carry_t, int dir_offset) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return false;
+  if (dir_offset < 0 || dir_offset > 1 || (D == 2 && dir_offset != 0))
+    return false;
+  if (carry_t < 1 || carry_t > T) return false;
+  return !((D == 2 || dir_offset == 1) && carry_t != T);
 }
 
 }  // namespace
@@ -619,18 +660,34 @@ int lstm_fwd_rec_carry(const float* a, const void* w_rec, const float* peep,
                        float* cf, int T, int B, int H, int D, int carry_t,
                        int dir_offset, int bf16, int device,
                        cudaStream_t stream) {
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return cudaErrorInvalidValue;
-  if (dir_offset < 0 || dir_offset > 1 || (D == 2 && dir_offset != 0))
-    return cudaErrorInvalidValue;
-  if (carry_t < 1 || carry_t > T) return cudaErrorInvalidValue;
-  if ((D == 2 || dir_offset == 1) && carry_t != T)
-    return cudaErrorInvalidValue;
+  if (!carry_ok(T, B, H, D, carry_t, dir_offset)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const CarryArgs ca = {h0, c0, mask, hf, cf, carry_t, dir_offset};
   return launch_rec_dtype<false, true>(a, w_rec, peep, lengths, out, nullptr,
                                        nullptr, T, B, H, D, ca, bf16, device,
                                        stream);
+}
+
+// Recurrence from an initial state with the training residuals (K6b
+// forward). As lstm_fwd_rec_carry with mask = null (validity from lengths
+// only), plus c_out [D, T, B, H] f32 and g_out [D, T, B, 4H] (as out),
+// both written at every step and zero at invalid ones.
+int lstm_fwd_rec_carry_save(const float* a, const void* w_rec,
+                            const float* peep, const int* lengths,
+                            const float* h0, const float* c0, void* out,
+                            float* c_out, void* g_out, float* hf, float* cf,
+                            int T, int B, int H, int D, int carry_t,
+                            int dir_offset, int bf16, int device,
+                            cudaStream_t stream) {
+  if (!carry_ok(T, B, H, D, carry_t, dir_offset)) return cudaErrorInvalidValue;
+  if (c_out == nullptr || g_out == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const CarryArgs ca = {h0, c0, nullptr, hf, cf, carry_t, dir_offset};
+  return launch_rec_dtype<true, true>(a, w_rec, peep, lengths, out, c_out,
+                                      g_out, T, B, H, D, ca, bf16, device,
+                                      stream);
 }
 
 const char* lstm_err_str(int err) {

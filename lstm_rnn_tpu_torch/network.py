@@ -13,8 +13,9 @@ Training runs on the exact parameters: the JAX package's padded training
 view (128-lane cells, network.py:352-488) is a TPU tiling rule the Hopper
 kernels do not need. Streaming serving (`init_stream_state`,
 `apply_streaming`) runs unidirectional stacks chunk by chunk on the carry
-kernel. Not ported yet (ROADMAP.md): tensor/pipeline/sequence
-parallelism, and the plain (K5) softmax tail.
+kernel. Sequence parallelism runs the net's layers block by block
+(parallel/sequence.py). Not ported yet (ROADMAP.md): data, tensor and
+pipeline parallelism, and the plain (K5) softmax tail.
 """
 
 from __future__ import annotations

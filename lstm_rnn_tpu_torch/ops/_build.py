@@ -113,9 +113,14 @@ def _declare(lib) -> None:
     lib.lstm_fwd_rec.restype = i
     lib.lstm_fwd_rec_carry.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.lstm_fwd_rec_carry.restype = i
+    lib.lstm_fwd_rec_carry_save.argtypes = [p] * 11 + [i] * 8 + [p]
+    lib.lstm_fwd_rec_carry_save.restype = i
     lib.lstm_bwd.argtypes = [p] * 15 + [i] * 5 + [ctypes.c_float] + [i] * 4 \
         + [p]
     lib.lstm_bwd.restype = i
+    lib.lstm_bwd_carry.argtypes = [p] * 21 + [i] * 7 + [ctypes.c_float] \
+        + [i] * 4 + [p]
+    lib.lstm_bwd_carry.restype = i
     lib.softmax_ce_fwd.argtypes = [p] * 9 + [i] * 3 + [ctypes.c_float, i, i,
                                                        p]
     lib.softmax_ce_fwd.restype = i

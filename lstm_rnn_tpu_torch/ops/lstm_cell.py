@@ -1,9 +1,9 @@
 """The LSTM layer on the GPU: the wrappers of the Hopper kernels, their
 plain twins, and the autograd Function that joins them.
 
-Counterpart of lstm_rnn_tpu/ops/lstm_cell.py (`lstm_scan_fused` and its
-custom VJP, and the forward of `lstm_scan_fused_carry`). Four kernels,
-each behind one wrapper with a launch count:
+Counterpart of lstm_rnn_tpu/ops/lstm_cell.py (`lstm_scan_fused` and
+`lstm_scan_fused_carry`, each with its custom VJP). Six kernels, each
+behind one wrapper with a launch count:
 
 - `lstm_scan_fused` without gradients: the inference forward
   (`_fwd_kernel` save=False), csrc/lstm_fwd.cu, two launches per layer: a
@@ -16,12 +16,18 @@ each behind one wrapper with a launch count:
 - `lstm_scan_fused_carry`: the forward from an initial state (h0, c0)
   with the final state out and an optional per-step mask (`_fwd_kernel`
   carry=True, save=False, with_mask), the carry variant of
-  csrc/lstm_fwd.cu's recurrence: streaming serving's chunk. Inference
-  only, as in the JAX package with a mask; its backward (K6b) is not
-  ported yet.
+  csrc/lstm_fwd.cu's recurrence: streaming serving's chunk and sequence
+  parallelism's serving block;
+- `lstm_fwd_save_carry`: the carry forward with residuals (`_fwd_kernel`
+  carry=True, save=True; K6b forward), csrc/lstm_fwd.cu;
+- `lstm_bwd_carry`: the carry BPTT (`_bwd_kernel` carry=True; K6b
+  backward), csrc/lstm_bwd.cu, with dh0 and dc0 out.
 
 `lstm_scan_fused` with gradients goes through `LstmScanFused`, whose
-forward is `lstm_fwd_save` and whose backward is `lstm_bwd`.
+forward is `lstm_fwd_save` and whose backward is `lstm_bwd`;
+`lstm_scan_fused_carry` with gradients (sequence parallelism's training,
+prefix lengths only) through `LstmScanFusedCarry`, whose forward is
+`lstm_fwd_save_carry` and whose backward is `lstm_bwd_carry`.
 
 Shapes, as in the JAX package: x [T, B, P] in natural time order,
 w_in [D, P, 4H], w_rec [D, H, 4H], peep [D, 3, H] f32, bias [D, 4H] f32,
@@ -38,7 +44,8 @@ and the BPTT deltas are stored in bf16.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain twin (`lstm_scan_reference`,
-`lstm_scan_bwd_reference`, `lstm_scan_carry_reference`).
+`lstm_scan_bwd_reference`, `lstm_scan_carry_reference`,
+`lstm_scan_carry_bwd_reference`).
 """
 
 from __future__ import annotations
@@ -165,8 +172,8 @@ def lstm_scan_carry_reference(x, w_in, w_rec, peep, bias, lengths, h0, c0,
                               bias_mult: float = 1.0,
                               compute_dtype: torch.dtype = torch.float32,
                               carry_t=None, dir_offset: int = 0,
-                              step_mask=None):
-    """The carry kernel's plain-torch twin (the JAX package's `_fwd_kernel`
+                              step_mask=None, save: bool = False):
+    """The carry kernels' plain-torch twin (the JAX package's `_fwd_kernel`
     with carry=True, save=False and an optional step mask): the time loop
     of lstm_scan_reference from (h0, c0) [D, B, H] f32, with validity from
     step_mask [B, T] (nonzero = valid, any pattern) or, without one, from
@@ -174,27 +181,33 @@ def lstm_scan_carry_reference(x, w_in, w_rec, peep, bias, lengths, h0, c0,
     [D, B, H] f32): the masked state of an ascending direction at step
     carry_t - 1 (default T) and of a descending one (d + dir_offset > 0)
     at t = 0, hf before storage rounding. Arguments as
-    lstm_scan_fused_carry, which checks them."""
+    lstm_scan_fused_carry, which checks them.
+
+    save=True is the twin of lstm_fwd_save_carry (carry=True, save=True,
+    the K6b forward): it returns (h, c, gates, (hf, cf)), the residuals as
+    lstm_scan_reference(save=True) returns them."""
     T = x.shape[0]
     D = w_in.shape[0]
     carry_t = T if carry_t is None else carry_t
     valid = (_validity(lengths, T, x.device) if step_mask is None
              else (step_mask != 0).float().t().to(x.device))
     desc = [d + dir_offset != 0 for d in range(D)]
-    out, _, _, hf, cf = _twin_loop(
+    out, c_res, g_res, hf, cf = _twin_loop(
         x, w_in, w_rec, peep, bias, bias_mult, compute_dtype, valid,
-        h0.float(), c0.float(), desc,
+        h0.float(), c0.float(), desc, save,
         cap=[T - 1 if desc[d] else carry_t - 1 for d in range(D)])
+    if save:
+        return out, c_res, g_res, (hf, cf)
     return out, (hf, cf)
 
 
-def _scan_prev(full, d: int):
-    """Direction d's scan-previous rows of full [T, B, ...] (t-1 for d=0,
-    t+1 for d=1), zero at the sequence edge."""
-    z = torch.zeros_like(full[:1])
-    if d == 0:
-        return torch.cat([z, full[:-1]])
-    return torch.cat([full[1:], z])
+def _scan_prev(full, asc: bool, edge):
+    """The scan-previous rows of full [T, B, ...] (t-1 for a scan that
+    ascends time, t+1 for one that descends); at the scan edge, `edge`
+    [B, ...]."""
+    if asc:
+        return torch.cat([edge[None], full[:-1]])
+    return torch.cat([full[1:], edge[None]])
 
 
 def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
@@ -207,6 +220,38 @@ def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
     products. h, c, gates are lstm_fwd_save's outputs; dh [T, B, D*H].
     Returns (dx [T, B, P] f32 or None, dW_in [D, P, 4H], dW_rec [D, H, 4H],
     dpeep [D, 3, H], dbias [D, 4H]), all f32."""
+    return _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
+                     bias_mult, clip, compute_dtype, need_dx)
+
+
+def lstm_scan_carry_bwd_reference(x, w_in, w_rec, peep, lengths, h, c,
+                                  gates, h0, c0, dh, dhf, dcf,
+                                  bias_mult: float = 1.0, clip: bool = True,
+                                  compute_dtype: torch.dtype = torch.float32,
+                                  need_dx: bool = True, carry_t=None,
+                                  dir_offset: int = 0):
+    """The carry BPTT kernel's plain-torch twin (the JAX package's
+    `_bwd_kernel` with carry=True, lstm_cell.py:304-311, :346-440,
+    :471-479): lstm_scan_bwd_reference with the carry's edges. h, c, gates
+    are lstm_fwd_save_carry's residuals of the forward from (h0, c0)
+    [D, B, H] f32; dhf, dcf [D, B, H] f32 the cotangents of its final state.
+    Direction d walks descending when d + dir_offset > 0. At the scan edge
+    c_prev is c0 (and its fg delta counts) and h_prev, for dW_rec, is h0
+    rounded to the compute dtype; dhf joins e and dcf joins the cell-state
+    error at the capture step (carry_t - 1 ascending, t = 0 descending).
+    Returns lstm_scan_bwd_reference's five outputs and then (dh0, dc0)
+    [D, B, H] f32: dh0 = round(da) . W_rec^T and dc0 = fg cs_err + p_ig
+    da[ig] + p_fg da[fg] after the last BPTT step."""
+    carry_t = x.shape[0] if carry_t is None else carry_t
+    return _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
+                     bias_mult, clip, compute_dtype, need_dx,
+                     (h0, c0, dhf, dcf, carry_t, dir_offset))
+
+
+def _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
+              clip, compute_dtype, need_dx, carry=None):
+    """The BPTT twins' shared loop; carry = (h0, c0, dhf, dcf, carry_t,
+    dir_offset) or None (zero state, no final-state cotangents)."""
     T, B, P = x.shape
     D, _, G = w_in.shape
     H = G // 4
@@ -218,25 +263,40 @@ def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
     valid = _validity(lengths, T, dev)
     gf = gates.float()
     dhf = dh.to(sdtype).float().reshape(T, B, D, H)
-    zeros = torch.zeros(B, H, device=dev)
     p_ig, p_fg, p_og = (peep[:, None, i] for i in range(3))
     da_next = torch.zeros(D, B, G, device=dev)
     cse = torch.zeros(D, B, H, device=dev)
     fgn = torch.zeros(D, B, H, device=dev)
     da = torch.empty(D, T, B, G, dtype=sdtype, device=dev)
+    if carry is None:
+        dir_offset, edge_c = 0, torch.zeros(D, B, H, device=dev)
+    else:
+        h0, edge_c, dh_f, dc_f, carry_t, dir_offset = carry
+    asc = [d + dir_offset == 0 for d in range(D)]
     for s in range(T):
-        ts = (T - 1 - s, s)[:D]  # BPTT walks each scan in reverse
+        # BPTT walks each scan in reverse
+        ts = [T - 1 - s if asc[d] else s for d in range(D)]
         e = torch.stack([dhf[t, :, d] for d, t in enumerate(ts)]) + \
             torch.bmm(round_operand(da_next, compute_dtype), w_t)
+        dcf_term = 0.0
+        if carry is not None:
+            # the final (h, c) are the capture step's through an identity
+            cap = torch.tensor([float(t == (carry_t - 1 if asc[d] else 0))
+                                for d, t in enumerate(ts)],
+                               device=dev)[:, None, None]
+            e = e + dh_f * cap
+            dcf_term = dc_f * cap
         ni, ig, fg, og = torch.stack(
             [gf[d, t] for d, t in enumerate(ts)]).split(H, dim=-1)
         cc = torch.stack([c[d, t] for d, t in enumerate(ts)])
-        edge = [t <= 0 if d == 0 else t >= T - 1 for d, t in enumerate(ts)]
+        edge = [t <= 0 if asc[d] else t >= T - 1 for d, t in enumerate(ts)]
         c_prev = torch.stack([
-            zeros if edge[d] else c[d, t - 1 if d == 0 else t + 1]
+            edge_c[d] if edge[d] else c[d, t - 1 if asc[d] else t + 1]
             for d, t in enumerate(ts)])
-        has_prev = torch.tensor([0.0 if e_ else 1.0 for e_ in edge],
-                                device=dev)[:, None, None]
+        # with a carry the scan edge has a previous cell state, c0
+        has_prev = torch.tensor(
+            [0.0 if e_ and carry is None else 1.0 for e_ in edge],
+            device=dev)[:, None, None]
         m = torch.stack([valid[t] for t in ts])[..., None]
         tanh_c = tanh(cc)
         og_delta = og * (1.0 - og) * tanh_c * e
@@ -244,7 +304,7 @@ def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
         # ig/fg deltas of the step before feed it through the peepholes)
         cs_err = (og * (1.0 - tanh_c * tanh_c) * e + p_og * og_delta
                   + fgn * cse + p_ig * da_next[..., H:2 * H]
-                  + p_fg * da_next[..., 2 * H:3 * H])
+                  + p_fg * da_next[..., 2 * H:3 * H]) + dcf_term
         deltas = [ig * (1.0 - ni * ni) * cs_err,
                   ig * (1.0 - ig) * ni * cs_err,
                   fg * (1.0 - fg) * c_prev * cs_err * has_prev,
@@ -261,9 +321,14 @@ def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
     xr = round_operand(x, compute_dtype).reshape(T * B, P)
     dw_in = torch.einsum("mp,dmg->dpg", xr, da2)
     hs = h.float().view(T, B, D, H)
-    h_prev = torch.stack([_scan_prev(hs[:, :, d], d) for d in range(D)])
+    # the edge row's h_prev: h0 as the product reads it (zero without one)
+    edge_h = (torch.zeros(D, B, H, device=dev) if carry is None
+              else round_operand(h0.float(), compute_dtype))
+    h_prev = torch.stack([_scan_prev(hs[:, :, d], asc[d], edge_h[d])
+                          for d in range(D)])
     dw_rec = torch.einsum("dmh,dmg->dhg", h_prev.reshape(D, T * B, H), da2)
-    c_prev = torch.stack([_scan_prev(c[d], d) for d in range(D)])
+    c_prev = torch.stack([_scan_prev(c[d], asc[d], edge_c[d])
+                          for d in range(D)])
     dpeep = torch.stack([(c_prev * daf[..., H:2 * H]).sum((1, 2)),
                          (c_prev * daf[..., 2 * H:3 * H]).sum((1, 2)),
                          (c * daf[..., 3 * H:]).sum((1, 2))], dim=1)
@@ -274,7 +339,14 @@ def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
         planes = torch.einsum("dmg,dpg->dmp", da2,
                               round_operand(w_in, compute_dtype))
         dx = planes.to(sdtype).float().sum(0).view(T, B, P)
-    return dx, dw_in, dw_rec, dpeep, dbias
+    if carry is None:
+        return dx, dw_in, dw_rec, dpeep, dbias
+    # after the last BPTT step: the recurrence's terms at the virtual step
+    # before the scan are the initial state's gradients
+    dh0 = torch.bmm(round_operand(da_next, compute_dtype), w_t)
+    dc0 = (fgn * cse + p_ig * da_next[..., H:2 * H]
+           + p_fg * da_next[..., 2 * H:3 * H])
+    return dx, dw_in, dw_rec, dpeep, dbias, dh0, dc0
 
 
 def _check_shapes(x, w_in, w_rec, peep, bias, lengths):
@@ -450,10 +522,15 @@ def lstm_scan_fused_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
     step_mask [B, T] (nonzero = valid, any pattern) replaces the prefix
     validity of `lengths`, which it then ignores.
 
-    Inference only: when autograd records, it raises NotImplementedError
-    (with a step mask, as the JAX package does; without one, because the
-    carry backward, K6b, is not ported). clip and need_dx only matter to
-    that backward."""
+    When autograd records (a gradient is wanted for x, a weight, h0 or
+    c0), the layer goes through LstmScanFusedCarry: the carry forward with
+    residuals (lstm_fwd_save_carry) now and the carry BPTT (lstm_bwd_carry)
+    on the way back, which gives h0 and c0 their gradients (sequence
+    parallelism's training chains blocks through them). With a step mask
+    it raises NotImplementedError instead, as the JAX package does: the
+    backward takes prefix lengths only. clip and need_dx only matter to
+    the backward; dx is computed when x needs a gradient and need_dx is
+    set."""
     _check_compute_dtype(compute_dtype)
     args = (x, w_in, w_rec, peep, bias, lengths)
     _check_shapes(*args)
@@ -465,10 +542,10 @@ def lstm_scan_fused_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
             raise NotImplementedError(
                 "lstm_scan_fused_carry(step_mask=...) is inference-only; "
                 "training paths must express validity as prefix lengths")
-        raise NotImplementedError(
-            "the gradient of lstm_scan_fused_carry (the carry forward with "
-            "residuals and the carry BPTT, K6b) is not ported to PyTorch "
-            "yet (ROADMAP.md, section 2, K6b)")
+        h, hf, cf = LstmScanFusedCarry.apply(
+            x, w_in, w_rec, peep, bias, lengths, h0, c0, float(bias_mult),
+            bool(clip), compute_dtype, bool(need_dx), carry_t, dir_offset)
+        return h, (hf, cf)
     if not _on_cuda(x, "lstm_scan_fused_carry"):
         return lstm_scan_carry_reference(*args, h0, c0, bias_mult,
                                          compute_dtype, carry_t, dir_offset,
@@ -490,6 +567,82 @@ def lstm_scan_fused_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
 
 
 lstm_scan_fused_carry.launches = 0
+
+
+def lstm_fwd_save_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
+                        bias_mult: float = 1.0,
+                        compute_dtype: torch.dtype = torch.float32,
+                        carry_t=None, dir_offset: int = 0):
+    """The carry forward with residuals (the JAX package's `_fwd_kernel`
+    carry=True, save=True: `_fused_carry_fwd`): (h, c, gates, (hf, cf)) as
+    lstm_scan_carry_reference(save=True) returns them, validity from prefix
+    lengths; the CUDA kernels on a CUDA tensor, the twin on a CPU one."""
+    _check_compute_dtype(compute_dtype)
+    args = (x, w_in, w_rec, peep, bias, lengths)
+    _check_shapes(*args)
+    carry_t = x.shape[0] if carry_t is None else int(carry_t)
+    _check_carry(x, w_in, h0, c0, carry_t, dir_offset, None)
+    if not _on_cuda(x, "lstm_fwd_save_carry"):
+        return lstm_scan_carry_reference(*args, h0, c0, bias_mult,
+                                          compute_dtype, carry_t, dir_offset,
+                                          save=True)
+    _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
+                         lengths=lengths, h0=h0, c0=c0)
+    a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
+                     bias_mult)
+    out = _launch_rec_carry(a, w_rec.to(compute_dtype), peep, lengths, None,
+                            h0, c0, carry_t, dir_offset, save=True)
+    lstm_fwd_save_carry.launches += 1
+    return out
+
+
+lstm_fwd_save_carry.launches = 0
+
+
+def lstm_bwd_carry(x, w_in, w_rec, peep, lengths, h, c, gates, h0, c0, dh,
+                   dhf, dcf, bias_mult: float = 1.0, clip: bool = True,
+                   compute_dtype: torch.dtype = torch.float32,
+                   need_dx: bool = True, carry_t=None, dir_offset: int = 0):
+    """The carry BPTT of one layer (the JAX package's `_bwd_kernel`
+    carry=True: `_fused_carry_bwd`) from lstm_fwd_save_carry's residuals of
+    the forward from (h0, c0), with the cotangents dh of h and (dhf, dcf)
+    of the final state: (dx or None, dW_in, dW_rec, dpeep, dbias, dh0, dc0)
+    as lstm_scan_carry_bwd_reference returns them; the CUDA kernels on a
+    CUDA tensor, the twin on a CPU one."""
+    _check_compute_dtype(compute_dtype)
+    T, B, _ = x.shape
+    D, _, G = w_in.shape
+    H = G // 4
+    sdtype = storage_dtype(compute_dtype)
+    carry_t = T if carry_t is None else int(carry_t)
+    _check_carry(x, w_in, h0, c0, carry_t, dir_offset, None)
+    want = {"h": ((T, B, D * H), h), "dh": ((T, B, D * H), dh),
+            "c": ((D, T, B, H), c), "gates": ((D, T, B, G), gates),
+            "dhf": ((D, B, H), dhf), "dcf": ((D, B, H), dcf)}
+    for name, (shape, t) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if not _on_cuda(x, "lstm_bwd_carry"):
+        return lstm_scan_carry_bwd_reference(
+            x, w_in, w_rec, peep, lengths, h, c, gates, h0.float(),
+            c0.float(), dh, dhf.float(), dcf.float(), bias_mult, clip,
+            compute_dtype, need_dx, carry_t, dir_offset)
+    _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep,
+                         lengths=lengths, h=h, c=c, gates=gates, h0=h0, c0=c0,
+                         dhf=dhf, dcf=dcf)
+    if h.dtype != sdtype or gates.dtype != sdtype:
+        raise TypeError(f"h and gates must be {sdtype} (lstm_fwd_save_carry's "
+                        f"residuals), got {h.dtype} and {gates.dtype}")
+    out = _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates,
+                      dh.to(sdtype).contiguous(), bias_mult, clip,
+                      compute_dtype, need_dx,
+                      (h0, c0, dhf, dcf, carry_t, dir_offset))
+    lstm_bwd_carry.launches += 1
+    return out
+
+
+lstm_bwd_carry.launches = 0
 
 
 class LstmScanFused(torch.autograd.Function):
@@ -518,6 +671,40 @@ class LstmScanFused(torch.autograd.Function):
                 dbias, None, None, None, None)
 
 
+class LstmScanFusedCarry(torch.autograd.Function):
+    """lstm_scan_fused_carry with gradients (the JAX package's custom VJP
+    of `lstm_scan_fused_carry`): forward = lstm_fwd_save_carry, backward =
+    lstm_bwd_carry. Outputs (h, hf, cf); autograd hands an unused output's
+    cotangent in as zeros. need_dx follows needs_input_grad, as in
+    LstmScanFused."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, w_rec, peep, bias, lengths, h0, c0, bias_mult,
+                clip, compute_dtype, need_dx, carry_t, dir_offset):
+        h, c, gates, (hf, cf) = lstm_fwd_save_carry(
+            x, w_in, w_rec, peep, bias, lengths, h0, c0, bias_mult,
+            compute_dtype, carry_t, dir_offset)
+        ctx.save_for_backward(x, w_in, w_rec, peep, lengths, h, c, gates,
+                              h0, c0)
+        ctx.cfg = (bias_mult, clip, compute_dtype)
+        ctx.carry = (need_dx, carry_t, dir_offset)
+        return h, hf, cf
+
+    @staticmethod
+    def backward(ctx, dh, dhf, dcf):
+        x, w_in, w_rec, peep, lengths, h, c, gates, h0, c0 = \
+            ctx.saved_tensors
+        need_dx, carry_t, dir_offset = ctx.carry
+        need_dx = need_dx and ctx.needs_input_grad[0]
+        dx, dw_in, dw_rec, dpeep, dbias, dh0, dc0 = lstm_bwd_carry(
+            x, w_in, w_rec, peep, lengths, h, c, gates, h0, c0, dh,
+            dhf.float().contiguous(), dcf.float().contiguous(), *ctx.cfg,
+            need_dx=need_dx, carry_t=carry_t, dir_offset=dir_offset)
+        return (dx.to(x.dtype) if need_dx else None, dw_in, dw_rec, dpeep,
+                dbias, None, dh0.to(h0.dtype), dc0.to(c0.dtype), None, None,
+                None, None, None, None)
+
+
 def _check_cuda_operands(x, **named):
     """Every operand on x's device and contiguous, in the dtype its kernel
     reads."""
@@ -530,7 +717,7 @@ def _check_cuda_operands(x, **named):
         if name in ("x", "w_in", "w_rec") and t.dtype not in COMPUTE_DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got "
                             f"{t.dtype}")
-        if (name in ("peep", "bias", "c", "h0", "c0")
+        if (name in ("peep", "bias", "c", "h0", "c0", "dhf", "dcf")
                 and t.dtype != torch.float32):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if name == "lengths" and t.dtype != torch.int32:
@@ -599,10 +786,12 @@ def _launch_rec(a, w_rec, peep, lengths, save: bool = False):
 
 
 def _launch_rec_carry(a, w_rec, peep, lengths, mask, h0, c0, carry_t: int,
-                      dir_offset: int):
+                      dir_offset: int, save: bool = False):
     """The carry variant of the recurrence over the projected a
     [D, T, B, 4H]: (h [T, B, D*H] in the storage dtype, (hf, cf)
-    [D, B, H] f32). mask: [B, T] uint8 or None."""
+    [D, B, H] f32). mask: [B, T] uint8 or None. save=True (mask None) is
+    the K6b forward: (h, c, gates, (hf, cf)) with the residuals of
+    _launch_rec(save=True)."""
     from lstm_rnn_tpu_torch.ops import _build
     D, T, B, G = a.shape
     H = G // 4
@@ -611,7 +800,17 @@ def _launch_rec_carry(a, w_rec, peep, lengths, mask, h0, c0, carry_t: int,
     out = torch.empty((T, B, D * H), dtype=sdtype, device=a.device)
     hf = torch.empty((D, B, H), dtype=torch.float32, device=a.device)
     cf = torch.empty_like(hf)
-    err = _build.load().lstm_fwd_rec_carry(
+    lib = _build.load()
+    if save:
+        c = torch.empty((D, T, B, H), dtype=torch.float32, device=a.device)
+        g = torch.empty((D, T, B, G), dtype=sdtype, device=a.device)
+        err = lib.lstm_fwd_rec_carry_save(
+            _ptr(a), _ptr(w_rec), _ptr(peep), _ptr(lengths), _ptr(h0),
+            _ptr(c0), _ptr(out), _ptr(c), _ptr(g), _ptr(hf), _ptr(cf), T, B,
+            H, D, carry_t, dir_offset, int(bf16), a.device.index, _stream(a))
+        _raise_on(err, "lstm_fwd_rec_carry_save launch")
+        return out, c, g, (hf, cf)
+    err = lib.lstm_fwd_rec_carry(
         _ptr(a), _ptr(w_rec), _ptr(peep), _ptr(lengths),
         _ptr(mask) if mask is not None else None, _ptr(h0), _ptr(c0),
         _ptr(out), _ptr(hf), _ptr(cf), T, B, H, D, carry_t, dir_offset,
@@ -621,9 +820,10 @@ def _launch_rec_carry(a, w_rec, peep, lengths, mask, h0, c0, carry_t: int,
 
 
 def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
-                clip, compute_dtype, need_dx):
+                clip, compute_dtype, need_dx, carry=None):
     """BPTT, weight gradients and dx (csrc/lstm_bwd.cu). dh is in the
-    storage dtype."""
+    storage dtype. carry = (h0, c0, dhf, dcf, carry_t, dir_offset) runs
+    the carry variant and also returns (dh0, dc0)."""
     from lstm_rnn_tpu_torch.ops import _build
     lib = _build.load()
     T, B, P = x.shape
@@ -647,15 +847,30 @@ def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
     w_out = torch.empty(n_w, **f32)
     pb_out = torch.empty((D, 7 * H), **f32)
     dx = torch.empty((T, B, P), **f32) if need_dx else None
-    err = lib.lstm_bwd(
-        _ptr(xc), _ptr(dh), _ptr(gates), _ptr(c), _ptr(h), _ptr(w_in_c),
-        _ptr(w_rec_t), _ptr(peep), _ptr(lengths), _ptr(da), _ptr(pb_part),
-        _ptr(w_part), _ptr(w_out), _ptr(pb_out),
-        _ptr(dx) if need_dx else None, T, B, P, H, D,
-        ctypes.c_float(bias_mult), int(clip), int(need_dx),
-        int(compute_dtype == torch.bfloat16), dev.index, _stream(x))
-    _raise_on(err, "lstm_bwd launch")
-    return (dx, w_out[:D * P * G].view(D, P, G),
-            w_out[D * P * G:].view(D, H, G),
-            pb_out[:, :3 * H].reshape(D, 3, H),
-            pb_out[:, 3 * H:].contiguous())
+    tail = (ctypes.c_float(bias_mult), int(clip), int(need_dx),
+            int(compute_dtype == torch.bfloat16), dev.index, _stream(x))
+    if carry is None:
+        err = lib.lstm_bwd(
+            _ptr(xc), _ptr(dh), _ptr(gates), _ptr(c), _ptr(h), _ptr(w_in_c),
+            _ptr(w_rec_t), _ptr(peep), _ptr(lengths), _ptr(da),
+            _ptr(pb_part), _ptr(w_part), _ptr(w_out), _ptr(pb_out),
+            _ptr(dx) if need_dx else None, T, B, P, H, D, *tail)
+        _raise_on(err, "lstm_bwd launch")
+    else:
+        h0, c0, dhf, dcf, carry_t, dir_offset = carry
+        # h0 as dW_rec's edge row reads it: rounded to the storage dtype
+        h0s = h0.to(sdtype).contiguous()
+        dh0 = torch.empty((D, B, H), **f32)
+        dc0 = torch.empty((D, B, H), **f32)
+        err = lib.lstm_bwd_carry(
+            _ptr(xc), _ptr(dh), _ptr(gates), _ptr(c), _ptr(h), _ptr(w_in_c),
+            _ptr(w_rec_t), _ptr(peep), _ptr(lengths), _ptr(h0s), _ptr(c0),
+            _ptr(dhf), _ptr(dcf), _ptr(da), _ptr(pb_part), _ptr(w_part),
+            _ptr(w_out), _ptr(pb_out), _ptr(dx) if need_dx else None,
+            _ptr(dh0), _ptr(dc0), T, B, P, H, D, carry_t, dir_offset, *tail)
+        _raise_on(err, "lstm_bwd_carry launch")
+    grads = (dx, w_out[:D * P * G].view(D, P, G),
+             w_out[D * P * G:].view(D, H, G),
+             pb_out[:, :3 * H].reshape(D, 3, H),
+             pb_out[:, 3 * H:].contiguous())
+    return grads if carry is None else grads + (dh0, dc0)

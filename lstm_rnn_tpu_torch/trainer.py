@@ -27,6 +27,14 @@ its forward and backward kernels; validation and test passes run without
 gradients, through the inference forward and the tail's forward only.
 The metrics stay on the device until the end of a pass.
 
+With `seq_mesh` (sequence parallelism, parallel/sequence.py) each
+fraction's time axis is cut into blocks, one per device of the mesh: the
+loss is `loss_and_count_seq` (the unfused tail: `net.loss_fn` and
+`net.correct_count` per block), its LSTM blocks run the carry kernels
+(K6b under autograd, K6f in the validation and test passes), and the
+parameters, their gradients and the SGD update stay on the mesh's first
+device.
+
 The optimizer state for autosaves (Optimizer.cu:326-341,
 SteepestDescentOptimizer.cu:118-123) goes out through `export_state` and
 comes back through `import_state`, in the reference's layer-array layout.
@@ -51,6 +59,7 @@ from lstm_rnn_tpu_torch import io_currennt as ioc
 from lstm_rnn_tpu_torch.data.dataset import DataSet, Fraction
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
+from lstm_rnn_tpu_torch.parallel.sequence import loss_and_count_seq
 from lstm_rnn_tpu_torch.utils.device import select_device
 
 
@@ -67,7 +76,8 @@ class Trainer:
                  max_epochs: int = -1, max_epochs_no_best: int = 20,
                  validate_every: int = 1, test_every: int = 1,
                  hybrid_online_batch: bool = False,
-                 weight_noise_sigma: float = 0.0, device=None):
+                 weight_noise_sigma: float = 0.0, device=None,
+                 seq_mesh=None):
         if weight_noise_sigma > 0:
             raise NotImplementedError(
                 "weight noise is not ported to PyTorch yet (ROADMAP.md, "
@@ -87,7 +97,14 @@ class Trainer:
         self.validate_every = validate_every
         self.test_every = test_every
         self.hybrid_online_batch = hybrid_online_batch
-        # the card unless the caller names a device (raises without a GPU)
+        # the card unless the caller names a device (raises without a GPU);
+        # under a seq mesh, the mesh's first device
+        self.seq_mesh = seq_mesh
+        if seq_mesh is not None:
+            if device is not None and torch.device(device) != seq_mesh[0]:
+                raise ValueError(f"device {device} is not the seq mesh's "
+                                 f"first device {seq_mesh[0]}")
+            device = seq_mesh[0]
         self.device = select_device() if device is None \
             else torch.device(device)
         # per-layer learning rates (>= 0 overrides the global one,
@@ -96,7 +113,8 @@ class Trainer:
             s.name: (s.learning_rate if s.learning_rate >= 0
                      else learning_rate)
             for s in net.trainable_specs()}
-        self.fused_tail = (net.backend != "scan"
+        # the fused tail is off under a seq mesh, as in the JAX Trainer
+        self.fused_tail = (net.backend != "scan" and seq_mesh is None
                            and net.supports_fused_tail())
         self.params = params_from_numpy(net.params, self.device)
         for layer in self.params.values():
@@ -121,6 +139,9 @@ class Trainer:
     # ------------------------------------------------------------------ steps
     def loss_and_metrics(self, params, inputs, targets, pattypes):
         """(error sum, correct count) of one fraction, as device scalars."""
+        if self.seq_mesh is not None:
+            return loss_and_count_seq(self.net, params, inputs, targets,
+                                      pattypes, self.seq_mesh)
         if self.fused_tail:
             return self.net.loss_and_count_fused(params, inputs, targets,
                                                  pattypes)

@@ -8,11 +8,15 @@ Each directory holds a `lstm_rnn_tpu_torch/` package (for example the
 parent commit unpacked with `git archive` into a directory .gitignore
 lists). The checkouts run in turns, parent, change, change, parent, each
 in its own process (each builds its own kernel library), and each prints:
-the compiler's registers and spills of its recurrence kernels, and the
-device milliseconds of K0's and K1's recurrence (`_launch_rec`, save
-False / True) at one TIMIT BLSTM layer (T=800, B=50, P=250, H=125, D=2),
-f32 and bf16, CUDA events, mean of 20 after a warm-up. Prints the card's
-name and power limit first. Imports torch and the port only.
+the compiler's registers and spills of its recurrence kernels (forward
+and BPTT), and, f32 and bf16, CUDA events, mean of 20 after a warm-up:
+the device milliseconds of K0's and K1's recurrence (`_launch_rec`, save
+False / True) at one TIMIT BLSTM layer (T=800, B=50, P=250, H=125, D=2);
+of K2 (`lstm_bwd`, whole) at the training shape (T=500, the same layer);
+and of the carry kernel's recurrence (K6f, `_launch_rec_carry`) over one
+64-frame chunk of the streaming stack (B=64, H=250, D=1, from a non-zero
+state). Prints the card's name and power limit first. Imports torch and
+the port only.
 """
 
 import os
@@ -33,9 +37,9 @@ def worker(root, label):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-        elif name and "rec" in name and ("spill" in line
-                                         or "registers" in line):
-            short = re.sub(r".*?(rec_\w*kernel)", r"\1", name)[:50]
+        elif name and ("rec" in name or "bptt" in name) and (
+                "spill" in line or "registers" in line):
+            short = re.sub(r".*?((rec|bptt)_\w*kernel)", r"\1", name)[:50]
             print(f"{label} {short}: {line.strip()[:90]}")
 
     def ms(fn, reps=20):
@@ -69,6 +73,28 @@ def worker(root, label):
             k1 = ms(lambda: lc._launch_rec(a, wr, peep, lengths, save=True))
             print(f"{label} {str(dt)[6:]}: K0 recurrence {k0:.3f} ms, K1 "
                   f"recurrence {k1:.3f} ms [T={T} B={B} P={P} H={H} D={D}]",
+                  flush=True)
+            # K2 at the training length
+            tt = 500
+            h, c, g = lc.lstm_fwd_save(x[:tt], w_in, w_rec, peep, bias,
+                                       lengths.clamp(max=tt), 1.0, dt)
+            dh = torch.randn(tt, B, D * H, device="cuda")
+            k2 = ms(lambda: lc.lstm_bwd(x[:tt], w_in, w_rec, peep,
+                                        lengths.clamp(max=tt), h, c, g, dh,
+                                        1.0, True, dt))
+            # K6f over one streaming chunk
+            Tc, Bc, Hc = 64, 64, 250
+            ac = torch.randn(1, Tc, Bc, 4 * Hc, device="cuda")
+            wc = (torch.rand(1, Hc, 4 * Hc, device="cuda") - 0.5) * 0.2
+            pc = (torch.rand(1, 3, Hc, device="cuda") - 0.5) * 0.2
+            lc_ = torch.full((Bc,), Tc, dtype=torch.int32, device="cuda")
+            h0 = torch.rand(1, Bc, Hc, device="cuda") - 0.5
+            c0 = torch.rand(1, Bc, Hc, device="cuda") - 0.5
+            wcd = wc.to(dt)
+            k6 = ms(lambda: lc._launch_rec_carry(ac, wcd, pc, lc_, None, h0,
+                                                 c0, Tc, 0))
+            print(f"{label} {str(dt)[6:]}: K2 {k2:.3f} ms [T={tt}]; K6f "
+                  f"recurrence {k6:.3f} ms [T={Tc} B={Bc} H={Hc} D=1]",
                   flush=True)
 
 

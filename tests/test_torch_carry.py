@@ -181,15 +181,21 @@ def test_descending_carry_rejects_carry_t(case):
 
 
 @pytest.mark.parametrize("with_mask, match", [
-    (True, "inference-only"), (False, "K6b")])
+    (True, "inference-only"),
+    pytest.param(False, "LstmScanFusedCarry", id="False-K6b")])
 def test_gradient_raises(with_mask, match):
-    """Under autograd the carry kernel has no backward: with a step mask it
-    says inference-only, as the JAX package does; without one it names the
-    ROADMAP item of the carry backward."""
+    """Under autograd the masked carry kernel has no backward: with a step
+    mask it says inference-only, as the JAX package does; without one the
+    layer goes through the carry backward (K6b, LstmScanFusedCarry;
+    tests/test_torch_carry_grad.py holds its gradients)."""
     mask = torch.from_numpy(_mask()) if with_mask else None
-    with pytest.raises(NotImplementedError, match=match):
-        lstm_scan_fused_carry(*_torch_args(requires_grad=True),
-                              step_mask=mask)
+    if with_mask:
+        with pytest.raises(NotImplementedError, match=match):
+            lstm_scan_fused_carry(*_torch_args(requires_grad=True),
+                                  step_mask=mask)
+    else:
+        y, _ = lstm_scan_fused_carry(*_torch_args(requires_grad=True))
+        assert match in type(y.grad_fn).__name__
     with torch.no_grad():  # inference runs
         lstm_scan_fused_carry(*_torch_args(requires_grad=True),
                               step_mask=mask)

@@ -78,7 +78,9 @@ def test_forward_htk_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--num_devices", "2"], ["--model_devices", "2"],
-    ["--pipeline_devices", "2"], ["--seq_devices", "2"],
+    # --seq_devices alone is ported (test_torch_sequence.py); composed with
+    # data parallelism it is not
+    ["--pipeline_devices", "2"], ["--seq_devices", "2", "--num_devices", "4"],
     ["--f32_matmul", "3x"],
     ["--coordinator_address", "localhost:1234"], ["--device", "tpu"],
 ])

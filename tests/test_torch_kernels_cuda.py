@@ -1,6 +1,6 @@
 """The Hopper kernels against their plain twins, on the card: the LSTM
-forward (csrc/lstm_fwd.cu, inference, training and carry/step-mask
-variants), its BPTT
+forward (csrc/lstm_fwd.cu, inference, training, carry/step-mask and
+carry-with-residuals variants), its BPTT with and without a carry
 (csrc/lstm_bwd.cu), the fused softmax + CE tail (csrc/softmax_ce.cu) and
 the wide tail (csrc/softmax_ce_wide.cu), at small and full TIMIT and LVCSR
 width, float32 and bfloat16 modes, and the wrappers' refusals.
@@ -19,8 +19,11 @@ import torch
 
 from lstm_rnn_tpu_torch.ops import lstm_cell
 from lstm_rnn_tpu_torch.ops import softmax_ce as sc
-from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_bwd, lstm_fwd_save,
+from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_bwd, lstm_bwd_carry,
+                                              lstm_fwd_save,
+                                              lstm_fwd_save_carry,
                                               lstm_scan_bwd_reference,
+                                              lstm_scan_carry_bwd_reference,
                                               lstm_scan_carry_reference,
                                               lstm_scan_fused,
                                               lstm_scan_fused_carry,
@@ -479,3 +482,105 @@ def test_loss_and_count_fused_takes_the_wide_tail():
     torch.cuda.synchronize()
     assert [f.launches - n for f, n in zip(wrappers, before)] == [0, 0, 1, 1]
     assert torch.isfinite(params["output"]["W"].grad).all()
+
+
+# ------------------------------------------------ carry with gradients (K6b)
+def _carry_grad_inputs(shape, seed, lens_kind):
+    """make_layer's operands with non-zero (h0, c0), dhf and dcf, and
+    lengths "full", "ragged" (rows ending inside the block, one block of
+    empty rows, a row of length 1) or all of them."""
+    T, B, _, H, D = shape
+    args = list(make_layer(*shape, seed=seed))
+    if lens_kind == "ragged":
+        args = _empty_block(args)
+    else:
+        args[5] = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    g = torch.Generator("cuda").manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+        D, B, H, device="cuda", generator=g)
+    h0, c0, dhf, dcf = u(-1, 1), u(-3, 3), u(-2, 2), u(-2, 2)
+    dh = torch.randn(T, B, D * H, device="cuda", generator=g) * 3.0
+    return args, h0, c0, dh, dhf, dcf
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, lens_kind, carry_t, dir_offset", [
+    ((9, 5, 7, 5, 1), "full", None, 0),
+    ((9, 5, 7, 5, 1), "full", 6, 0),
+    ((9, 5, 7, 5, 1), "full", None, 1),
+    ((9, 9, 7, 5, 2), "ragged", None, 0),
+    ((13, 11, 131, 130, 1), "ragged", 10, 0),
+    ((13, 11, 131, 130, 1), "ragged", None, 1),
+    ((7, 9, 33, 300, 1), "ragged", None, 1),  # H > 256
+    ((1, 5, 7, 5, 1), "full", None, 1),  # T = 1
+    ((125, 50, 250, 125, 1), "ragged", None, 1),  # an SP block of TIMIT
+])
+def test_carry_grad_matches_twin(shape, lens_kind, carry_t, dir_offset,
+                                 dtype, need_dx):
+    """K6b forward (h, c, gates, hf, cf) and backward (dx, the weight
+    gradients, dh0, dc0) against their twins."""
+    args, h0, c0, dh, dhf, dcf = _carry_grad_inputs(shape, 3, lens_kind)
+    got = lstm_fwd_save_carry(*args, h0, c0, 0.7, dtype, carry_t, dir_offset)
+    want = lstm_scan_carry_reference(*args, h0, c0, 0.7, dtype, carry_t,
+                                     dir_offset, save=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("h", "c", "gates", "hf", "cf"),
+                          (*got[:3], *got[3]), (*want[:3], *want[3])):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+    h, c, gates, _ = got
+    x, w_in, w_rec, peep, _, lengths = args
+    bwd = (x, w_in, w_rec, peep, lengths, h, c, gates, h0, c0, dh, dhf, dcf,
+           0.7, True, dtype, need_dx, carry_t, dir_offset)
+    got = lstm_bwd_carry(*bwd)
+    want = lstm_scan_carry_bwd_reference(*bwd)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dW_in", "dW_rec", "dpeep", "dbias", "dh0",
+                           "dc0"), got, want):
+        if not need_dx and name == "dx":
+            assert g is None and w is None
+            continue
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+    if lens_kind == "ragged" and shape[1] >= 8:
+        # the empty block: no gradient in or out
+        assert not got[5][:, 4:8].any() and not got[6][:, 4:8].any()
+
+
+def test_carry_grad_zero_state_equals_training_kernels():
+    """Zero carries and cotangents: the K6b kernels give K1's residuals and
+    K2's gradients on a BLSTM layer (one launch each, D = 2)."""
+    args, h0, _, dh, _, _ = _carry_grad_inputs((9, 9, 7, 5, 2), 4, "ragged")
+    z = torch.zeros_like(h0)
+    h, c, g, _ = lstm_fwd_save_carry(*args, z, z, 0.7)
+    h1, c1, g1 = lstm_fwd_save(*args, 0.7)
+    assert torch.equal(h, h1) and torch.equal(c, c1) and torch.equal(g, g1)
+    x, w_in, w_rec, peep, _, lengths = args
+    got = lstm_bwd_carry(x, w_in, w_rec, peep, lengths, h, c, g, z, z, dh, z,
+                         z, 0.7)
+    want = lstm_bwd(x, w_in, w_rec, peep, lengths, h, c, g, dh, 0.7)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-6
+
+
+def test_carry_autograd_routes_through_k6b_and_counts():
+    args, h0, c0, _, _, _ = _carry_grad_inputs((7, 6, 5, 4, 1), 5, "full")
+    args = [t.requires_grad_(i < 5) for i, t in enumerate(args)]
+    h0.requires_grad_(True)
+    before = (lstm_scan_fused_carry.launches, lstm_fwd_save_carry.launches,
+              lstm_bwd_carry.launches)
+    y, (hf, cf) = lstm_scan_fused_carry(*args, h0, c0, dir_offset=1)
+    (y.sum() + hf.sum()).backward()
+    assert h0.grad is not None and torch.isfinite(h0.grad).all()
+    assert (lstm_scan_fused_carry.launches, lstm_fwd_save_carry.launches,
+            lstm_bwd_carry.launches) == (before[0], before[1] + 1,
+                                         before[2] + 1)
+    with pytest.raises(TypeError, match="dhf must be float32"):
+        h, c, g, _ = lstm_fwd_save_carry(*[a.detach() for a in args],
+                                         h0.detach(), c0)
+        lstm_bwd_carry(args[0], args[1], args[2], args[3], args[5], h, c, g,
+                       h0.detach(), c0, torch.zeros_like(h),
+                       hf.detach().double(), cf.detach())
