@@ -66,7 +66,11 @@ weights from a seed, and holds every kernel against its plain twin:
     f32 and bf16, from non-zero (h0, c0) with non-zero final-state
     cotangents and lengths full, ending inside the block and 0; three
     controls that must fail (zero dhf/dcf, c0 replaced by zero in the
-    backward, the forward from zero carries); times;
+    backward, the forward from zero carries); times; and on the same
+    blocks the carry kernel K6f (no residuals, prefix lengths, no step
+    mask: what SP serving and the SP Trainer's validation passes launch)
+    against its twin at phase 14's tolerance, with zero carries as the
+    control that must fail;
 19. four chained K6b blocks per direction (parallel/sequence.py's kernel
     wavefront on a mesh of cuda:0 four times) against K1 + K2 on the whole
     T=500 BLSTM layer: h and every gradient, f32;
@@ -76,10 +80,14 @@ weights from a seed, and holds every kernel against its plain twin:
     launches (40 K6b-f, 40 K6b-b, no K0-K3); `Trainer(seq_mesh=)` over
     phase 7's corpus for 2 epochs against the same run without the mesh;
     `apply_seq` over phase 5's corpus against `apply` (40 K6f launches per
-    fraction); SP training frames/s, f32 and bf16;
+    fraction); SP training frames/s, f32 and bf16, beside the
+    single-device step's;
 21. the CLI's `--seq_devices 2`, train and forward, against the runs
     without it when torch sees two GPUs; on one GPU, that the flag is
     refused with the JAX CLI's message.
+
+scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
+GPUs.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -864,7 +872,6 @@ def train_rates(torch, card):
     row full, lr 1e-4, momentum 0.9), synchronised, after a warm-up: the
     kernel path f32 and bf16 and the scan path f32."""
     batch, frames = recipe_batch(torch)
-    rates = {}
     for label, backend, dtype, reps in (("kernel f32", "auto", "float32", 5),
                                         ("kernel bf16", "auto", "bfloat16",
                                          5),
@@ -877,11 +884,9 @@ def train_rates(torch, card):
             tr.train_step(*batch)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / reps
-        rates[label] = frames / dt
         phase("rate", f"train step {label}: {frames / dt:,.0f} frames/s "
               f"({1e3 * dt:.1f} ms per step of {frames} frames, mean of "
               f"{reps}) on {card}")
-    return rates
 
 
 def profile_step(torch, lvcsr=False):
@@ -1589,8 +1594,8 @@ def carry_grad_layer(torch, P, seed):
 
 
 def carry_grad_kernels_vs_twins(torch):
-    """Phase 18: K6b forward and backward against their twins at one SP
-    block of a TIMIT layer, both directions, f32 and bf16, with three
+    """Phase 18: K6b forward and backward, and K6f, against their twins at
+    one SP block of a TIMIT layer, both directions, f32 and bf16, with
     controls that must fail; kernel and twin times."""
     from lstm_rnn_tpu_torch.ops import lstm_cell as lc
     res = {}
@@ -1617,6 +1622,42 @@ def carry_grad_kernels_vs_twins(torch):
                 frel = max(e[0] for e in errs)
                 ferr = max(e[1] for e in errs)
                 fctrl = max(e[0] for e in f_errs(fwd(z, z)))
+
+                # K6f on the same block: what SP serving and the SP
+                # Trainer's validation passes launch (no residuals, no step
+                # mask: validity from the prefix lengths)
+                def k6f(hh=h0, cc=c0):
+                    return lc.lstm_scan_fused_carry(
+                        *args, hh, cc, 1.0, True, dt, True, None, dir_offset)
+                want_6 = lc.lstm_scan_carry_reference(*args, h0, c0, 1.0, dt,
+                                                      None, dir_offset)
+
+                def k6f_errs(out):
+                    return [(g.float() - w.float()).abs().max().item()
+                            for g, w in zip((out[0], *out[1]),
+                                            (want_6[0], *want_6[1]))]
+                got_6 = k6f()
+                torch.cuda.synchronize()
+                err_6 = k6f_errs(got_6)
+                ctrl_6 = max(k6f_errs(k6f(z, z)))
+                ms_6 = time_ms(torch, k6f, 10)
+                b_6 = bound(*lstm_cost("lstm_fwd_carry", P, lens, name,
+                                       T=T_BLOCK, D=1), name)[0]
+                phase("carry-grad", f"K6f P={P} dir_offset={dir_offset} "
+                      f"{name}, prefix lengths: max_abs_err h {err_6[0]:.3e}"
+                      f", hf {err_6[1]:.3e}, cf {err_6[2]:.3e} (tol "
+                      f"{TOL[name]:.0e}; control zero carries {ctrl_6:.2e});"
+                      f" kernel {ms_6:.3f} ms (bound {b_6:.3f}) [T={T_BLOCK} "
+                      f"B={B} H={H} D=1]")
+                if not (all(torch.isfinite(t.float()).all()
+                            for t in (got_6[0], *got_6[1]))
+                        and max(err_6) <= TOL[name]):
+                    raise AssertionError(f"K6f disagrees with its twin on the "
+                                         f"SP block (P={P}, dir_offset="
+                                         f"{dir_offset}, {name}): {err_6}")
+                if not ctrl_6 > TOL[name]:
+                    raise AssertionError(f"the K6f check passes zero carries: "
+                                         f"{ctrl_6}")
                 h, c, g, _ = got
                 bwd_args = (args[0], args[1], args[2], args[3], args[5], h,
                             c, g, h0, c0, dh, dhf, dcf, 1.0, True, dt,
@@ -1693,6 +1734,17 @@ def sp_mesh(torch):
     return [torch.device("cuda", 0)] * N_SEQ
 
 
+def mesh_name(mesh):
+    gpus = len(set(mesh))
+    return f"{len(mesh)} blocks on " + (f"{gpus} GPUs" if gpus > 1
+                                        else "one card")
+
+
+def sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def chained_blocks_vs_whole(torch):
     """Phase 19: one BLSTM layer at T=500 as four chained K6b blocks per
     direction (the SP kernel wavefront) against K1 + K2 on the whole
@@ -1747,28 +1799,29 @@ def chained_blocks_vs_whole(torch):
         raise AssertionError(f"launches chained {n_c}, whole {n_w}")
 
 
-def sp_trainer(torch, dtype, train=None, val=None, seed=3, mesh=True):
+def sp_trainer(dtype, train=None, val=None, seed=3, mesh=None):
+    """The bench.py recipe's Trainer on the TIMIT net; SP over `mesh`, or
+    on one device without one."""
     from lstm_rnn_tpu_torch.models.flagship import build_timit_network
     from lstm_rnn_tpu_torch.trainer import Trainer
     net = build_timit_network(seed=seed, compute_dtype=dtype)
     return Trainer(net, train, val, learning_rate=1e-4, momentum=0.9,
-                   max_epochs=2, hybrid_online_batch=True,
-                   seq_mesh=sp_mesh(torch) if mesh else None)
+                   max_epochs=2, hybrid_online_batch=True, seq_mesh=mesh)
 
 
-def sp_step_vs_single(torch):
-    """Phase 20a: one TIMIT training step on bench.py's fraction, SP on 4
-    blocks vs the single-device kernel step (f32): loss, count, every
+def sp_step_vs_single(torch, mesh):
+    """Phase 20a: one TIMIT training step on bench.py's fraction, SP on
+    the mesh vs the single-device kernel step (f32): loss, count, every
     gradient; the SP step's exact launches."""
     batch, _ = recipe_batch(torch, seed=20)
     out = {}
     w = wrappers()
-    for label, mesh in (("sp", True), ("single", False)):
-        tr = sp_trainer(torch, "float32", mesh=mesh)
+    for label, m in (("sp", mesh), ("single", None)):
+        tr = sp_trainer("float32", mesh=m)
         for f in w.values():
             f.launches = 0  # the SP step's run starts here
         err, corr, grads = tr.grad_fraction(*batch)
-        torch.cuda.synchronize()
+        sync_all(torch)
         out[label] = (err.item(), int(corr), grads,
                       {k: f.launches for k, f in w.items()})
     (e_s, c_s, g_s, n_s), (e_1, c_1, g_1, _) = out["sp"], out["single"]
@@ -1776,10 +1829,10 @@ def sp_step_vs_single(torch):
     grel = max(rel_err(g_s[n][k], g_1[n][k])[0] for n in g_1 for k in g_1[n])
     layers = 5
     expect = {k: 0 for k in n_s}
-    expect.update(lstm_fwd_carry_save=2 * layers * N_SEQ,
-                  lstm_bwd_carry=2 * layers * N_SEQ)
-    phase("sp-step", f"one TIMIT SGD step's gradients, SP on {N_SEQ} blocks "
-          f"vs single device (f32, T={T_TRAIN} B={B}): loss {e_s:.6f} vs "
+    expect.update(lstm_fwd_carry_save=2 * layers * len(mesh),
+                  lstm_bwd_carry=2 * layers * len(mesh))
+    phase("sp-step", f"one TIMIT SGD step's gradients, SP on "
+          f"{mesh_name(mesh)} vs single device (f32, T={T_TRAIN} B={B}): loss {e_s:.6f} vs "
           f"{e_1:.6f} (rel {lrel:.2e}, tol {SP_STEP_TOL['loss']:.0e}); count "
           f"{c_s} vs {c_1}; gradients rel {grel:.2e} (tol "
           f"{SP_STEP_TOL['grad']:.0e}); SP launches {n_s}")
@@ -1789,9 +1842,9 @@ def sp_step_vs_single(torch):
         raise AssertionError("the SP step differs from the single-device step")
 
 
-def sp_trainer_epochs(torch, workdir):
-    """Phase 20b: Trainer(seq_mesh=) over phase 7's corpus (truncated at
-    500, 50 parallel sequences, shuffled fractions, stochastic) for 2
+def sp_trainer_epochs(torch, workdir, mesh):
+    """Phase 20b: Trainer(seq_mesh=mesh) over phase 7's corpus (truncated
+    at 500, 50 parallel sequences, shuffled fractions, stochastic) for 2
     epochs against the same Trainer without the mesh: the epoch errors,
     and the SP run's exact launches."""
     from lstm_rnn_tpu_torch import cli
@@ -1805,10 +1858,10 @@ def sp_trainer_epochs(torch, workdir):
                         "true", "--random_seed", str(SEED)])
     w = wrappers()
     rows = {}
-    for label, mesh in (("sp", True), ("single", False)):
+    for label, m in (("sp", mesh), ("single", None)):
         train = cli._load_dataset(cfg, "train")
         val = cli._load_dataset(cfg, "val")
-        tr = sp_trainer(torch, "float32", train, val, seed=SEED, mesh=mesh)
+        tr = sp_trainer("float32", train, val, seed=SEED, mesh=m)
         for f in w.values():
             f.launches = 0  # the SP Trainer's run starts here
         t0 = time.perf_counter()
@@ -1820,7 +1873,7 @@ def sp_trainer_epochs(torch, workdir):
                                 tr.cur_training_class_error,
                                 tr.cur_validation_error,
                                 tr.cur_validation_class_error))
-        torch.cuda.synchronize()
+        sync_all(torch)
         wall = time.perf_counter() - t0
         counts = {k: f.launches for k, f in w.items()}
         phase("sp-train", f"{label}: epochs {rows[label]}; {wall:.1f} s "
@@ -1828,23 +1881,26 @@ def sp_trainer_epochs(torch, workdir):
         if label == "sp":
             n_train, n_val = train.num_fractions(), val.num_fractions()
             expect = {k: 0 for k in counts}
-            expect.update(lstm_fwd_carry_save=40 * n_train * 2,
-                          lstm_bwd_carry=40 * n_train * 2,
-                          lstm_fwd_carry=40 * n_val * 2)
+            per = 10 * len(mesh)  # 5 layers x 2 directions per block
+            expect.update(lstm_fwd_carry_save=per * n_train * 2,
+                          lstm_bwd_carry=per * n_train * 2,
+                          lstm_fwd_carry=per * n_val * 2)
             check_counts(counts, expect)
             launches = counts
     diff = float(np.max(np.abs(np.array(rows["sp"]) - np.array(rows["single"]))
                         / np.abs(np.array(rows["single"]))))
-    phase("sp-train", f"SP Trainer vs single-device Trainer, 2 epochs: epoch "
+    phase("sp-train", f"SP Trainer ({mesh_name(mesh)}) vs single-device "
+          f"Trainer, 2 epochs: epoch "
           f"errors within {diff:.2e} relative (tol {SP_EPOCH_TOL:.0e})")
     if not diff <= SP_EPOCH_TOL:
         raise AssertionError(f"SP training differs: {rows}")
     return launches
 
 
-def sp_serving(torch, workdir):
-    """Phase 20c: apply_seq over phase 5's serving corpus against apply
-    (K0): posteriors, and 40 K6f launches per fraction."""
+def sp_serving(torch, workdir, mesh):
+    """Phase 20c: apply_seq on the mesh over phase 5's serving corpus
+    against apply (K0): posteriors, and 10 K6f launches per block and
+    fraction."""
     from lstm_rnn_tpu_torch.data.dataset import DataSet
     from lstm_rnn_tpu_torch.models.flagship import build_timit_network
     from lstm_rnn_tpu_torch.parallel.sequence import apply_seq
@@ -1860,61 +1916,68 @@ def sp_serving(torch, workdir):
                             prefetch=False).fractions():
             x = torch.from_numpy(frac.inputs).cuda()
             pt = torch.from_numpy(frac.pattypes).cuda()
-            y = apply_seq(net, params, x, pt, sp_mesh(torch))
+            y = apply_seq(net, params, x, pt, mesh)
             y1 = net.apply(params, x, pt)
             worst = max(worst, (y - y1).abs().max().item())
             n_frac += 1
-    torch.cuda.synchronize()
+    sync_all(torch)
     n = w["lstm_fwd_carry"].launches
-    phase("sp-serve", f"apply_seq on {N_SEQ} blocks vs apply over phase 5's "
+    phase("sp-serve", f"apply_seq on {mesh_name(mesh)} vs apply over phase "
+          f"5's "
           f"corpus ({n_frac} fractions): max |p_sp - p| = {worst:.3e} (tol "
           f"{STREAM_TOL:.0e}); {n} K6f launches")
-    if not (worst <= STREAM_TOL and n == 40 * n_frac):
+    if not (worst <= STREAM_TOL and n == 10 * len(mesh) * n_frac):
         raise AssertionError(f"apply_seq: {worst}, {n} launches")
 
 
-def sp_rates(torch, card, rates_single):
-    """Phase 20d: SP training frames/s of bench.py's step on 4 blocks of
-    one card, f32 and bf16, beside phase 8's single-device rates; a
-    profile of one f32 SP step."""
+def sp_rates(torch, card, meshes):
+    """Phase 20d: training frames/s of bench.py's step, f32 and bf16, SP
+    on each mesh against the single-device step measured beside it; a
+    profile of one f32 SP step on the first mesh."""
     from torch.profiler import ProfilerActivity, profile
     batch, frames = recipe_batch(torch)
     for label, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
-        tr = sp_trainer(torch, dtype)
-        tr.train_step(*batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
+        rates = {}
+        for mesh in (*meshes, None):
+            tr = sp_trainer(dtype, mesh=mesh)
             tr.train_step(*batch)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / 3
-        one = rates_single[f"kernel {label}"]
-        phase("rate", f"SP train step {label} ({N_SEQ} blocks on one card): "
-              f"{frames / dt:,.0f} frames/s ({1e3 * dt:.1f} ms per step, mean "
-              f"of 3); single device {one:,.0f} ({frames / dt / one:.2f}x) "
-              f"on {card}")
-        if label == "f32":
-            # steps 1 and 2 open the trace (a window's first launches go
-            # missing), step 3 is the one recorded
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         schedule=torch.profiler.schedule(
-                             wait=1, warmup=1, active=1)) as prof:
-                for _ in range(3):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    tr.train_step(*batch)
-                    torch.cuda.synchronize()
-                    wall_us = 1e6 * (time.perf_counter() - t0)
-                    prof.step()
-            report_profile(prof, wall_us, f"one SP training step ({N_SEQ} "
-                           f"blocks on one card) T={T_TRAIN} f32")
+            sync_all(torch)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                tr.train_step(*batch)
+            sync_all(torch)
+            dt = (time.perf_counter() - t0) / 3
+            name = mesh_name(mesh) if mesh else "single device, no SP"
+            rates[name] = frames / dt
+            phase("rate", f"train step {label}, {name}: {frames / dt:,.0f} "
+                  f"frames/s ({1e3 * dt:.1f} ms per step, mean of 3) on "
+                  f"{card}")
+            if label == "f32" and mesh is meshes[0]:
+                # steps 1 and 2 open the trace (a window's first launches
+                # go missing), step 3 is the one recorded
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA],
+                             schedule=torch.profiler.schedule(
+                                 wait=1, warmup=1, active=1)) as prof:
+                    for _ in range(3):
+                        sync_all(torch)
+                        t0 = time.perf_counter()
+                        tr.train_step(*batch)
+                        sync_all(torch)
+                        wall_us = 1e6 * (time.perf_counter() - t0)
+                        prof.step()
+                report_profile(prof, wall_us, f"one SP training step "
+                               f"({name}; device time summed over its GPUs) "
+                               f"T={T_TRAIN} f32")
+        one = rates["single device, no SP"]
+        phase("rate", f"SP train step {label} against the single device: " +
+              ", ".join(f"{k} {v / one:.2f}x" for k, v in rates.items()))
 
 
-def sp_cli(torch, workdir):
-    """Phase 21: cli --seq_devices 2, train and forward, against the runs
-    without it on two GPUs; on one GPU, the refusal with the JAX CLI's
-    message."""
+def sp_cli(torch, workdir, n=2):
+    """Phase 21: cli --seq_devices n, train and forward, against the runs
+    without it when torch sees n GPUs; on one GPU, the refusal of
+    --seq_devices 2 with the JAX CLI's message."""
     import contextlib
     import io
     from lstm_rnn_tpu_torch import cli
@@ -1937,19 +2000,21 @@ def sp_cli(torch, workdir):
               "forward) were not made: torch sees one GPU")
         return
     outs = {}
-    for label, extra in (("sp", ["--seq_devices", "2"]), ("one", [])):
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"--seq_devices {n} needs {n} GPUs")
+    for label, extra in (("sp", ["--seq_devices", str(n)]), ("one", [])):
         run_cli(nc, net_path, os.path.join(workdir, f"ff_{label}"), *extra)
         outs[label], _ = read_outputs(os.path.join(workdir, f"ff_{label}"),
                                       tags, lengths)
     d = max(float(np.abs(a - b).max()) for a, b in zip(outs["sp"],
                                                        outs["one"]))
-    phase("sp-cli", f"forward --seq_devices 2 vs 1: max |p_sp - p| = "
+    phase("sp-cli", f"forward --seq_devices {n} vs 1: max |p_sp - p| = "
           f"{d:.3e} (tol {STREAM_TOL:.0e})")
     if not d <= STREAM_TOL:
-        raise AssertionError(f"--seq_devices 2 serving differs: {d}")
+        raise AssertionError(f"--seq_devices {n} serving differs: {d}")
     paths, _ = write_train_corpus(workdir)
     saved = {}
-    for label, extra in (("sp", ["--seq_devices", "2"]), ("one", [])):
+    for label, extra in (("sp", ["--seq_devices", str(n)]), ("one", [])):
         saved[label] = os.path.join(workdir, f"sp_{label}.jsn")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1965,10 +2030,10 @@ def sp_cli(torch, workdir):
             raise AssertionError(f"cli --train true {label} returned {rc}")
     a, b = _weights(saved["sp"]), _weights(saved["one"])
     d = max(float(np.abs(a[k] - b[k]).max(initial=0.0)) for k in b)
-    phase("sp-cli", f"train --seq_devices 2 vs 1 (1 epoch): max |w_sp - w| "
+    phase("sp-cli", f"train --seq_devices {n} vs 1 (1 epoch): max |w_sp - w| "
           f"= {d:.3e} (tol {CONTINUE_TOL * 10:.0e})")
     if not d <= CONTINUE_TOL * 10:
-        raise AssertionError(f"--seq_devices 2 training differs: {d}")
+        raise AssertionError(f"--seq_devices {n} training differs: {d}")
 
 
 def main():
@@ -2013,7 +2078,7 @@ def main():
     launches["lstm_fwd"] = launches_fwd
     for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
         launches[k] = lvcsr_launches[k]
-    rates_single = train_rates(torch, card)
+    train_rates(torch, card)
     profile_step(torch)
     lvcsr_rates(torch, card)
     profile_step(torch, lvcsr=True)
@@ -2030,14 +2095,14 @@ def main():
     with torch.no_grad():
         cgres = carry_grad_kernels_vs_twins(torch)
     chained_blocks_vs_whole(torch)
-    sp_step_vs_single(torch)
+    sp_step_vs_single(torch, sp_mesh(torch))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        sp_launches = sp_trainer_epochs(torch, workdir)
-        sp_serving(torch, workdir)
+        sp_launches = sp_trainer_epochs(torch, workdir, sp_mesh(torch))
+        sp_serving(torch, workdir, sp_mesh(torch))
         sp_cli(torch, workdir)
     for k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
         launches[k] = sp_launches[k]
-    sp_rates(torch, card, rates_single)
+    sp_rates(torch, card, [sp_mesh(torch)])
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":

@@ -48,7 +48,7 @@ from lstm_rnn_tpu_torch import writers
 from lstm_rnn_tpu_torch.config import Config, parse_config
 from lstm_rnn_tpu_torch.data.dataset import DataSet
 from lstm_rnn_tpu_torch.network import Network
-from lstm_rnn_tpu_torch.parallel.mesh import composed_mesh
+from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
 from lstm_rnn_tpu_torch.parallel.sequence import apply_seq
 from lstm_rnn_tpu_torch.trainer import Trainer
 from lstm_rnn_tpu_torch.utils.device import describe, select_device
@@ -184,8 +184,7 @@ def _seq_mesh(cfg: Config, device: torch.device):
     without): the first N GPUs, or the CPU N times."""
     if cfg.seq_devices <= 1:
         return None
-    return composed_mesh(cfg.num_devices, cfg.seq_devices, "seq_devices",
-                         device.type)
+    return make_seq_mesh(cfg.seq_devices, device.type)
 
 
 def _apply_streamed(net: Network, params, x, pt, chunk: int):

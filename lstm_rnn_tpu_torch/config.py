@@ -355,6 +355,8 @@ def _check_supported(ns: argparse.Namespace) -> None:
     the combinations the JAX CLI refuses (lstm_rnn_tpu/cli.py:341-344,
     :577-586)."""
     sp = ns.seq_devices
+    if sp < 1:
+        raise ValueError(f"--seq_devices must be at least 1, got {sp}")
     if sp > 1 and (ns.model_devices > 1 or ns.pipeline_devices > 1):
         raise ValueError("seq_devices > 1 does not combine with "
                          "model_devices or pipeline_devices")
@@ -363,10 +365,12 @@ def _check_supported(ns: argparse.Namespace) -> None:
                          "pipeline_devices or seq_devices")
     unsupported = [
         (f"--{k} {getattr(ns, k)}", "parallelism")
-        for k in ("model_devices", "pipeline_devices", "seq_devices")
-        if getattr(ns, k) != 1 and not (k == "seq_devices" and sp > 1)]
-    if ns.num_devices not in (1, max(sp, 1)):
-        # data parallelism, alone or composed with --seq_devices
+        for k in ("model_devices", "pipeline_devices")
+        if getattr(ns, k) != 1]
+    if ns.num_devices not in (1, sp):
+        # data parallelism, alone or composed with --seq_devices (the JAX
+        # package's composed_mesh); --num_devices k with --seq_devices k is
+        # the 1-D seq mesh
         unsupported.insert(0, (f"--num_devices {ns.num_devices}",
                                "parallelism"))
     if ns.f32_matmul != "6x":

@@ -8,7 +8,9 @@ torch.distributed process group is involved. A mesh may name one device
 several times (all blocks on one card, or on the CPU): the port's
 counterpart of the JAX tests' forced host devices, which the CPU tests and
 chip_smoke.py on one card use. The CLI on CUDA builds a mesh of distinct
-GPUs only.
+GPUs only. The JAX package's composed_mesh (data parallelism composed with
+sequence parallelism) is not ported: config.py refuses --num_devices other
+than 1 or --seq_devices.
 """
 
 from __future__ import annotations
@@ -33,18 +35,3 @@ def make_seq_mesh(k: int, device_type: str = "cuda") -> List[torch.device]:
         raise RuntimeError(
             f"num_devices={k} but only {n_avail} devices available")
     return [torch.device("cuda", i) for i in range(k)]
-
-
-def composed_mesh(num_devices: int, k: int, flag: str,
-                  device_type: str = "cuda") -> List[torch.device]:
-    """The mesh of a k-way --seq_devices request (the JAX package's
-    composed_mesh, parallel/mesh.py:76-93): num_devices of 1 or k gives a
-    1-D seq mesh of k devices. Any other count composes data parallelism
-    with it (B sharded over 'data'), which the port does not have yet.
-    `flag` names the CLI option."""
-    if num_devices > 1 and num_devices != k:
-        raise NotImplementedError(
-            f"{flag}={k} with num_devices={num_devices} composes data and "
-            "sequence parallelism, which is not ported to PyTorch yet "
-            "(ROADMAP.md, queue 1 item 12: parallelism)")
-    return make_seq_mesh(k, device_type)

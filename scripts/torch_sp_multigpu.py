@@ -3,230 +3,59 @@
 
     python3 scripts/torch_sp_multigpu.py [N]
 
-On a seq mesh of the first N GPUs (default: every GPU torch sees; at
-least 2), with the TIMIT net (117 -> 5 x BLSTM(250) -> softmax(183),
-random weights from a seed) and bench.py's fraction (T=500, B=50, every
-row full, N(0, 1) inputs, random labels):
+Runs chip_smoke.py's sequence-parallel phases 20 and 21 on a seq mesh of
+the first N distinct GPUs (default: every GPU torch sees; at least 2),
+with the TIMIT net (117 -> 5 x BLSTM(250) -> softmax(183), random weights
+from a seed) and bench.py's fraction (T=500, B=50):
 
-1. one training step's loss, count and gradients against the
-   single-device kernel step from the same weights (f32; loss within
-   1e-5 relative, every gradient within 1e-4 of its largest entry), and
-   the exact launches (10 K6b-f and 10 K6b-b per block, nothing else);
-2. training frames/s, f32 and bf16, synchronised on every device, mean
-   of 5 steps after a warm-up: SP on the N GPUs, SP on N blocks of GPU 0,
-   and the single-device step;
-3. the CLI's forward mode with --seq_devices N against --seq_devices 1 on
-   a synthetic corpus of 60 sequences (posteriors within 1e-5), and its
-   train mode (one epoch; trained weights within 1e-5).
+- 20a: one training step's loss, count and gradients against the
+  single-device kernel step, with the exact launches;
+- 20b: Trainer(seq_mesh=) for 2 epochs against the single-device Trainer;
+- 20c: apply_seq against apply;
+- 21: the CLI's --seq_devices N, train and forward, against the runs
+  without it;
+- 20d: training frames/s, f32 and bf16: SP on the N GPUs (profiled), SP
+  on N blocks of GPU 0, and the single-device step.
 
 Prints the cards' names and power limits first. Exits 1 without N GPUs.
-Imports torch and the port only.
+Imports torch, the port and chip_smoke.py only.
 """
 
-import contextlib
-import io
-import json
 import os
 import subprocess
 import sys
 import tempfile
-import time
-
-import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SEED = 1234
-T, B = 500, 50
+sys.path.insert(0, REPO)
 
-
-def sync_all(torch, n):
-    for i in range(n):
-        torch.cuda.synchronize(i)
-
-
-def batch(torch, seed=20):
-    rng = np.random.RandomState(seed)
-    x = torch.tensor(rng.randn(T, B, 117), dtype=torch.float32,
-                     device="cuda:0")
-    tc = torch.tensor(rng.randint(0, 183, (T, B)), dtype=torch.int32,
-                      device="cuda:0")
-    pt = torch.ones(T, B, dtype=torch.int8, device="cuda:0")
-    return x, tc, pt
-
-
-def trainer(torch, dtype, mesh):
-    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
-    from lstm_rnn_tpu_torch.trainer import Trainer
-    net = build_timit_network(seed=3, compute_dtype=dtype)
-    return Trainer(net, None, learning_rate=1e-4, momentum=0.9,
-                   hybrid_online_batch=True, device="cuda:0",
-                   seq_mesh=mesh)
-
-
-def step_check(torch, mesh):
-    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
-    wrappers = {"lstm_fwd": lc.lstm_scan_fused, "lstm_fwd_save":
-                lc.lstm_fwd_save, "lstm_bwd": lc.lstm_bwd,
-                "lstm_fwd_carry": lc.lstm_scan_fused_carry,
-                "lstm_fwd_carry_save": lc.lstm_fwd_save_carry,
-                "lstm_bwd_carry": lc.lstm_bwd_carry}
-    xb = batch(torch)
-    out = {}
-    for label, m in (("sp", mesh), ("single", None)):
-        tr = trainer(torch, "float32", m)
-        for f in wrappers.values():
-            f.launches = 0
-        err, corr, grads = tr.grad_fraction(*xb)
-        sync_all(torch, len(mesh))
-        out[label] = (err.item(), int(corr), grads,
-                      {k: f.launches for k, f in wrappers.items()})
-    (e_s, c_s, g_s, n_s), (e_1, c_1, g_1, _) = out["sp"], out["single"]
-    lrel = abs(e_s - e_1) / abs(e_1)
-    grel = max(((g_s[n][k] - g_1[n][k]).abs().max()
-                / g_1[n][k].abs().max()).item()
-               for n in g_1 for k in g_1[n])
-    n = len(mesh)
-    expect = {k: 0 for k in n_s}
-    expect.update(lstm_fwd_carry_save=10 * n, lstm_bwd_carry=10 * n)
-    print(f"[sp-multi] one TIMIT step's gradients, SP on {n} GPUs vs one "
-          f"GPU (f32, T={T} B={B}): loss {e_s:.6f} vs {e_1:.6f} (rel "
-          f"{lrel:.2e}, tol 1e-05); count {c_s} vs {c_1}; gradients rel "
-          f"{grel:.2e} (tol 1e-04); launches {n_s}", flush=True)
-    if not (lrel <= 1e-5 and c_s == c_1 and grel <= 1e-4 and n_s == expect):
-        raise AssertionError("SP across GPUs differs from one GPU")
-
-
-def rates(torch, mesh):
-    n = len(mesh)
-    xb = batch(torch)
-    frames = T * B
-    one_card = [torch.device("cuda", 0)] * n
-    for dtype in ("float32", "bfloat16"):
-        res = {}
-        for label, m in ((f"SP on {n} GPUs", mesh),
-                         (f"SP on {n} blocks of GPU 0", one_card),
-                         ("one GPU, no SP", None)):
-            tr = trainer(torch, dtype, m)
-            tr.train_step(*xb)
-            sync_all(torch, n)
-            t0 = time.perf_counter()
-            for _ in range(5):
-                tr.train_step(*xb)
-            sync_all(torch, n)
-            dt = (time.perf_counter() - t0) / 5
-            res[label] = frames / dt
-            print(f"[sp-multi] {dtype} {label}: {frames / dt:,.0f} frames/s "
-                  f"({1e3 * dt:.1f} ms per step, mean of 5)", flush=True)
-            del tr
-        base = res["one GPU, no SP"]
-        print(f"[sp-multi] {dtype}: " + ", ".join(
-            f"{k} {v / base:.2f}x" for k, v in res.items()), flush=True)
-
-
-def write_corpus(workdir):
-    from lstm_rnn_tpu_torch.data.netcdf3 import strings_to_chars, write_netcdf
-    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
-    rng = np.random.RandomState(SEED)
-    n_seq = 60
-    lengths = rng.randint(100, 301, n_seq)
-    total = int(lengths.sum())
-    tags = [f"utt{i:03d}" for i in range(n_seq)]
-    nc = os.path.join(workdir, "corpus.nc")
-    write_netcdf(nc, {"numSeqs": n_seq, "numTimesteps": total,
-                      "inputPattSize": 117, "numLabels": 183,
-                      "maxSeqTagLength": 8}, [
-        ("seqTags", ["numSeqs", "maxSeqTagLength"],
-         strings_to_chars(tags, 8)),
-        ("seqLengths", ["numSeqs"], lengths.astype(np.int32)),
-        ("inputs", ["numTimesteps", "inputPattSize"],
-         rng.randn(total, 117).astype(np.float32)),
-        ("targetClasses", ["numTimesteps"],
-         rng.randint(0, 183, total).astype(np.int32)),
-    ])
-    net_path = os.path.join(workdir, "network.jsn")
-    build_timit_network(seed=SEED).save(net_path)
-    return nc, net_path, tags
-
-
-def run_cli(args):
-    from lstm_rnn_tpu_torch import cli
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(args)
-    if rc != 0:
-        print(buf.getvalue()[-3000:])
-        raise AssertionError(f"cli.main {' '.join(args)} returned {rc}")
-    return buf.getvalue()
-
-
-def cli_check(n):
-    from lstm_rnn_tpu_torch.writers import read_htk
-    with tempfile.TemporaryDirectory(prefix="sp_multi_") as wd:
-        nc, net_path, tags = write_corpus(wd)
-        outs = {}
-        for k in (n, 1):
-            out = os.path.join(wd, f"ff{k}")
-            os.makedirs(out)
-            t0 = time.perf_counter()
-            text = run_cli(["--network", net_path, "--train", "false",
-                            "--ff_input_file", nc, "--parallel_sequences",
-                            "50", "--ff_output_format", "htk",
-                            "--ff_output_file", out, "--seq_devices",
-                            str(k)])
-            wall = time.perf_counter() - t0
-            if k > 1 and "Sequence-parallel mesh" not in text:
-                raise AssertionError("the CLI did not build the seq mesh")
-            outs[k] = [read_htk(os.path.join(out, t + ".htk"))[0]
-                       for t in tags]
-            print(f"[sp-multi] cli forward --seq_devices {k}: {wall:.2f} s "
-                  "wall", flush=True)
-        d = max(float(np.abs(a - b).max()) for a, b in zip(outs[n], outs[1]))
-        print(f"[sp-multi] cli forward --seq_devices {n} vs 1: max |p_sp - "
-              f"p| = {d:.3e} (tol 1e-05)", flush=True)
-        if not d <= 1e-5:
-            raise AssertionError(f"SP serving differs: {d}")
-        saved = {}
-        for k in (n, 1):
-            saved[k] = os.path.join(wd, f"trained{k}.jsn")
-            run_cli(["--network", net_path, "--train", "true",
-                     "--train_file", nc, "--parallel_sequences", "50",
-                     "--stochastic", "true", "--learning_rate", "1e-4",
-                     "--momentum", "0.9", "--max_epochs", "1",
-                     "--random_seed", str(SEED), "--save_network", saved[k],
-                     "--seq_devices", str(k)])
-        w = {}
-        for k, path in saved.items():
-            with open(path) as f:
-                doc = json.load(f)
-            w[k] = {(a, b): np.asarray(v) for a, sec in doc["weights"].items()
-                    for b, v in sec.items()}
-        d = max(float(np.abs(w[n][key] - w[1][key]).max(initial=0.0))
-                for key in w[1])
-        print(f"[sp-multi] cli train --seq_devices {n} vs 1 (1 epoch): max "
-              f"|w_sp - w| = {d:.3e} (tol 1e-05)", flush=True)
-        if not d <= 1e-5:
-            raise AssertionError(f"SP training differs: {d}")
+import chip_smoke as cs  # noqa: E402
 
 
 def main():
     import torch
-    sys.path.insert(0, REPO)
-    want = int(sys.argv[1]) if len(sys.argv) > 1 else \
-        torch.cuda.device_count()
-    if want < 2 or torch.cuda.device_count() < want:
-        print(f"needs {max(want, 2)} GPUs; torch sees "
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else torch.cuda.device_count()
+    if n < 2 or torch.cuda.device_count() < n:
+        print(f"needs {max(n, 2)} GPUs; torch sees "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.strip()
+    print(cards, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from lstm_rnn_tpu_torch.ops import _build
     from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
-    mesh = make_seq_mesh(want)
-    step_check(torch, mesh)
-    rates(torch, mesh)
-    cli_check(want)
+    _build.load()
+    mesh = make_seq_mesh(n)
+    cs.sp_step_vs_single(torch, mesh)
+    with tempfile.TemporaryDirectory(prefix="sp_multi_") as workdir:
+        cs.sp_trainer_epochs(torch, workdir, mesh)
+        cs.sp_serving(torch, workdir, mesh)
+        cs.sp_cli(torch, workdir, n)
+    cs.sp_rates(torch, cards.splitlines()[0], [
+        mesh, [torch.device("cuda", 0)] * n])
     return 0
 
 

@@ -219,6 +219,19 @@ def test_carry_streaming_width_matches_twin(P, dtype):
     assert max(_carry_errs(args, h0, c0, mask, dtype)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dir_offset", [0, 1])
+@pytest.mark.parametrize("P", [117, 250])
+def test_carry_sp_block_matches_twin(P, dir_offset, dtype):
+    """One direction of a TIMIT layer's sequence-parallel block (T=125,
+    B=50, H=125), as SP serving launches it: prefix lengths (full, ending
+    inside the block, and 0 for a whole kernel block of rows), no mask."""
+    args, h0, c0, _ = carry_inputs(125, 50, P, 125, 1, "none", seed=P)
+    args[5][4:8] = 0
+    errs = _carry_errs(args, h0, c0, None, dtype, None, dir_offset)
+    assert max(errs) <= TOL[dtype], errs
+
+
 def test_carry_all_none_rows_are_zero():
     """Rows with no valid step give h = 0 and a zero final state whatever
     state they entered with; the rows of a block that never reaches

@@ -30,7 +30,7 @@ from lstm_rnn_tpu.parallel.sequence import \
 from lstm_rnn_tpu_torch import cli
 from lstm_rnn_tpu_torch.network import Network
 from lstm_rnn_tpu_torch.parallel import mesh as port_mesh
-from lstm_rnn_tpu_torch.parallel.mesh import composed_mesh, make_seq_mesh
+from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
 from lstm_rnn_tpu_torch.parallel.sequence import (apply_seq,
                                                   loss_and_count_seq)
 from tests.test_cli import _assert_csv_close
@@ -295,10 +295,12 @@ def test_cli_train_seq_devices_matches_jax(tmp_path, capsys):
      "stream_chunk does not combine with pipeline_devices or seq_devices"),
     (["--pipeline_devices", "2"],
      "seq_devices > 1 does not combine with model_devices"),
+    (["--seq_devices", "0"], "--seq_devices must be at least 1"),
 ])
 def test_cli_refuses_seq_combinations(tmp_path, extra, match):
-    """Composed DP x SP, streaming and pipelines with --seq_devices are
-    refused before any work, the last two with the JAX CLI's messages."""
+    """Composed DP x SP, streaming and pipelines with --seq_devices, and a
+    seq mesh of no block, are refused before any work; streaming and
+    pipelines with the JAX CLI's messages."""
     nc, common = _cli_setup(tmp_path)
     with pytest.raises(ValueError, match=match):
         cli.main(common + ["--train", "false", "--ff_input_file", nc,
@@ -306,14 +308,9 @@ def test_cli_refuses_seq_combinations(tmp_path, extra, match):
 
 
 def test_mesh_refusals(monkeypatch):
-    """composed_mesh refuses DP x SP naming ROADMAP's parallelism item;
-    make_seq_mesh refuses more GPUs than torch sees (a mocked count), with
-    the JAX CLI's message; the CPU mesh repeats the CPU."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 "
-                       "item 12"):
-        composed_mesh(4, 2, "seq_devices")
-    assert composed_mesh(2, 2, "seq_devices", "cpu") == \
-        [torch.device("cpu")] * 2
+    """make_seq_mesh refuses more GPUs than torch sees (a mocked count),
+    with the JAX CLI's message; the CPU mesh repeats the CPU."""
+    assert make_seq_mesh(2, "cpu") == [torch.device("cpu")] * 2
     monkeypatch.setattr(port_mesh.torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError,
                        match="num_devices=2 but only 1 devices available"):
