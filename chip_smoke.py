@@ -41,8 +41,8 @@ weights from a seed, and holds every kernel against its plain twin:
     K3), the autosaves, `--continue epoch001.autosave` against the
     uninterrupted run, and the seconds an LVCSR autosave's dump takes;
 12. LVCSR training frames/s (f32, bf16) and a profile of one f32 step;
-13. the K3/K4 crossover: both tails, forward + backward, at S = 183, 512
-    and 832 (measured only);
+13. the K3/K4/K5 crossover: the three tails, forward + backward with
+    their products, at S = 183, 512 and 832 (measured only);
 14. the carry kernel (K6 forward + K7) against its twin at the streaming
     width (117 -> 5 x LSTM(250) -> softmax(183), the TIMIT stack with every
     BLSTM made an LSTM: one layer, D=1, H=250, B=64, a 64-frame chunk, P=117
@@ -85,6 +85,22 @@ weights from a seed, and holds every kernel against its plain twin:
 21. the CLI's `--seq_devices 2`, train and forward, against the runs
     without it when torch sees two GPUs; on one GPU, that the flag is
     refused with the JAX CLI's message.
+22. the plain tail's kernels (K5f, K5b) against their twins over
+    N=25,000 frames at S=183 and S=10,112, f32 and bf16, with a row tile
+    of dummy frames and controls that must fail (a zero p, rolled
+    targets, dz from the f32 p in bf16 mode), and their times;
+23. one SGD step with `--remat_blocks` against the kernel step from the
+    same weights (f32, ragged rows): TIMIT at K=4 and K=3 (not a divisor
+    of T=500), LVCSR at K=4 against the fused K4 step, the loss, the
+    update and the exact launches (K=4: 80 K6b-f, 40 K6b-b, one K5f and
+    one K5b, no K0-K4); the bf16 remat step as the control;
+24. `cli.main(--train true --remat_blocks 4)` on phase 7's corpus, f32 and
+    bf16, 2 epochs (run beside phase 7, in its directory): the exact
+    launches and the epoch errors and weights against phase 7's runs;
+25. training frames/s and peak device memory of a step with and without
+    `--remat_blocks` at T=500 (K=4) and T=4000 (K=8), f32 and bf16; the
+    T=4000 step's peak must fall at least 1.5x; a profile of one f32
+    remat step (K=4, T=500) by kernel.
 
 scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
 GPUs.
@@ -776,7 +792,9 @@ def wrappers():
             "softmax_ce_wide_bwd": sc.softmax_ce_wide_bwd,
             "lstm_fwd_carry": lc.lstm_scan_fused_carry,
             "lstm_fwd_carry_save": lc.lstm_fwd_save_carry,
-            "lstm_bwd_carry": lc.lstm_bwd_carry}
+            "lstm_bwd_carry": lc.lstm_bwd_carry,
+            "softmax_ce_fwd": sc.softmax_ce_fwd,
+            "softmax_ce_bwd": sc.softmax_ce_bwd}
 
 
 def check_counts(counts, expect):
@@ -806,12 +824,12 @@ def train_end_to_end(torch, workdir):
               "softmax_ce_proj_bwd": n_train * epochs,
               "softmax_ce_wide_fwd": 0, "softmax_ce_wide_bwd": 0,
               "lstm_fwd_carry": 0, "lstm_fwd_carry_save": 0,
-              "lstm_bwd_carry": 0}
+              "lstm_bwd_carry": 0, "softmax_ce_fwd": 0, "softmax_ce_bwd": 0}
     phase("train", f"train {len(train_len)} sequences "
           f"({int(train_len.sum())} frames, lengths {train_len.min()}.."
           f"{train_len.max()}, {n_train} fractions after truncation at "
           f"500), val {len(val_len)} ({n_val} fractions)")
-    launches = None
+    launches, tables = None, {}
     for name in ("float32", "bfloat16"):
         out = os.path.join(workdir, f"trained_{name}.jsn")
         args = ["--network", net_path, "--train", "true",
@@ -838,11 +856,7 @@ def train_end_to_end(torch, workdir):
         if rc != 0 or len(rows) != epochs:
             print(text[-3000:])
             raise AssertionError(f"cli --train true {name} returned {rc}")
-        for ln in rows:
-            cells = ln.replace("%", " ").replace("|", " ").split()
-            vals = [float(c) for c in cells[2:6]]
-            if not np.isfinite(vals).all():
-                raise AssertionError(f"non-finite epoch row: {ln}")
+        tables[name] = epoch_errors(rows)
         phase("train", f"{name}: {wall:.1f} s wall for {epochs} epochs; "
               f"launches {counts}")
         check_counts(counts, expect)
@@ -864,7 +878,20 @@ def train_end_to_end(torch, workdir):
     _, worst = read_outputs(outdir, tags, val_len)
     phase("train", f"the trained network serves the val set in forward "
           f"mode: {len(tags)} HTK files, rows sum to 1 within {worst:.1e}")
-    return launches
+    return launches, tables
+
+
+def epoch_errors(rows):
+    """The training and validation class errors (%) and errors of each
+    epoch row of the CLI's table; raises on a non-finite one."""
+    out = []
+    for ln in rows:
+        cells = ln.replace("%", " ").replace("|", " ").split()
+        vals = [float(c) for c in cells[2:6]]
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"non-finite epoch row: {ln}")
+        out.append(vals)
+    return out
 
 
 def train_rates(torch, card):
@@ -889,11 +916,13 @@ def train_rates(torch, card):
               f"{reps}) on {card}")
 
 
-def profile_step(torch, lvcsr=False):
-    """Device time by kernel over one kernel-path training step (f32)."""
+def profile_step(torch, lvcsr=False, remat_blocks=0):
+    """Device time by kernel over one kernel-path training step (f32),
+    with --remat_blocks when remat_blocks > 0."""
     from torch.profiler import ProfilerActivity, profile
     batch, _ = recipe_batch(torch, states=S_LVCSR if lvcsr else S_STATES)
     tr = make_trainer("auto", "float32", lvcsr)
+    tr.net.remat_blocks = remat_blocks
     tr.train_step(*batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -903,7 +932,9 @@ def profile_step(torch, lvcsr=False):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     report_profile(prof, wall_us, f"one {'LVCSR' if lvcsr else 'TIMIT'} "
-                   f"training step T={T_TRAIN} f32")
+                   f"training step T={T_TRAIN} f32"
+                   + (f" remat_blocks={remat_blocks}" if remat_blocks
+                      else ""))
 
 
 def report_profile(prof, wall_us, what):
@@ -1136,7 +1167,8 @@ def lvcsr_cli(torch, workdir):
                  "softmax_ce_proj_bwd": 0,
                  "softmax_ce_wide_fwd": n_train + n_val,
                  "softmax_ce_wide_bwd": n_train, "lstm_fwd_carry": 0,
-                 "lstm_fwd_carry_save": 0, "lstm_bwd_carry": 0}
+                 "lstm_fwd_carry_save": 0, "lstm_bwd_carry": 0,
+                 "softmax_ce_fwd": 0, "softmax_ce_bwd": 0}
     here = os.getcwd()
     launches, outs = None, {}
     for label, args, epochs in (
@@ -1234,10 +1266,12 @@ def lvcsr_rates(torch, card):
 
 
 def tail_crossover(torch):
-    """Both tails, forward + backward, at N = 25,000, P = 250 and the
-    state counts K3 serves (K4 with its products outside): measured only,
-    the route stays K3 where it fits."""
+    """The three tails, forward + backward, at N = 25,000, P = 250 and the
+    state counts K3 serves (K4 and K5 with their products outside, K5's
+    in cuBLAS as its path runs them under autograd): measured only, the
+    route stays K3 where it fits and remat is off."""
     from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    from lstm_rnn_tpu_torch.ops.lstm_cell import storage_dtype
     gen = torch.Generator("cuda").manual_seed(SEED + 9)
     N, P = N_TAIL, 2 * H
     g = torch.tensor(1.0, device="cuda")
@@ -1259,10 +1293,20 @@ def tail_crossover(torch):
                     h2, W, b, tc, 1.0, dt)
                 sc.softmax_ce_wide_bwd(a, h2, W, tc, off, ssum, pt, g, 1.0,
                                        dt)
-            t3, t4 = time_ms(torch, k3, 10), time_ms(torch, k4, 10)
+            def k5():
+                hs = h2.to(storage_dtype(dt)).float()
+                Ws = W.to(storage_dtype(dt)).float()
+                a = torch.addmm(b, hs, Ws)
+                _, _, p = sc.softmax_ce_fwd(a, tc, dt)
+                dz = sc.softmax_ce_bwd(p, tc, g)
+                torch.matmul(dz, Ws.t())  # dh
+                torch.matmul(hs.t(), dz)  # dW
+                dz.sum(dim=0)  # db
+            t3, t4, t5 = (time_ms(torch, k3, 10), time_ms(torch, k4, 10),
+                          time_ms(torch, k5, 10))
             phase("crossover", f"S={S} {name}: K3 fwd+bwd {t3:.3f} ms, K4 "
-                  f"fwd+bwd (products included) {t4:.3f} ms "
-                  f"[N={N} P={P}]")
+                  f"fwd+bwd (products included) {t4:.3f} ms, K5 fwd+bwd "
+                  f"(products included) {t5:.3f} ms [N={N} P={P}]")
 
 
 def streaming_network(seed, **net_kwargs):
@@ -2036,6 +2080,315 @@ def sp_cli(torch, workdir, n=2):
         raise AssertionError(f"--seq_devices {n} training differs: {d}")
 
 
+# --remat_blocks (phases 22-25): the plain tail (K5) and the LSTM
+# checkpointed in K time blocks on the carry kernels
+# K5 against its twins on the same logits. p element by element (P_REL);
+# dz relative to its largest entry: f32 math on the same stored p in both
+# modes, the twin's in another order
+PLAIN_DZ_REL = 1e-5
+# the CLI's --remat_blocks 4 run against the run without it, 2 epochs on
+# phase 7's corpus. f32: the same f32 math in another order (K6b for
+# K1/K2, K5 and cuBLAS for K3), the bound of phase 21's SP run; the epoch
+# errors to the table's last printed digit. bf16: K5's path rounds the
+# softmax layer's dW to bf16 (the JAX package's autodiff of its bf16
+# product does the same) where K3 keeps it f32, 2^-9 of each entry every
+# step, so the weights drift apart by a share of how far training moved
+# them
+REMAT_CLI_TOL = {"float32": 1e-5, "bfloat16": 0.05}
+# peak memory of a T = 4000 step with --remat_blocks 8, at least this many
+# times below the step without it
+REMAT_MEM_GAIN = 1.5
+
+
+def plain_cost(kind, S, dtype):
+    """(bytes, flops) of K5f and K5b over N_TAIL rows of S classes: K5f
+    reads the f32 logits and the targets and writes p in the storage dtype
+    and the loss and count; K5b reads p, the targets and g and writes dz in
+    f32; a few FP32 operations per element (counted as 4)."""
+    es = 2 if dtype == "bfloat16" else 4
+    N = N_TAIL
+    if kind == "softmax_ce_fwd":
+        return N * S * 4 + N * 4 + N * S * es + 8, 4 * N * S
+    return N * S * es + N * 4 + 4 + N * S * 4, 4 * N * S
+
+
+def plain_kernels_vs_twins(torch):
+    """Phase 22: K5f and K5b against their twins on the card over
+    N = 25,000 frames at S = 183 (TIMIT) and 10,112 (LVCSR), float32 and
+    bfloat16, with a row tile of dummy frames that must give exactly zero
+    and controls the checks must reject (a zero p, rolled targets, and in
+    bf16 dz from the f32 p before its rounding); kernel, twin and library
+    times."""
+    import torch.nn.functional as F
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
+    N = N_TAIL
+    g = torch.tensor(0.37, device="cuda")
+    res = {}
+    for S in (S_STATES, S_LVCSR):
+        a = torch.randn(N, S, device="cuda", generator=gen) * 3
+        tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+        tc[::10] = -1  # dummy frames
+        tc[:64] = -1  # and a whole row tile of them
+        tl = tc.long()
+        rolled = tc.roll(1)
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            loss, cnt, p = sc.softmax_ce_fwd(a, tc, dt)
+            loss_r, cnt_r, p_r = sc.plain_fwd_reference(a, tc, dt)
+            loss_x, _, _ = sc.plain_fwd_reference(a, rolled, dt, False)
+            torch.cuda.synchronize()
+            rel, err = elem_rel(p, p_r), rel_err(p, p_r)[1]
+            lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
+            ctrl = {"zero p": elem_rel(torch.zeros_like(p_r), p_r),
+                    "loss of rolled targets": abs(
+                        loss_x.item() - loss.item()) / abs(loss.item())}
+            ms = time_ms(torch, lambda: sc.softmax_ce_fwd(a, tc, dt), 10)
+            ms_nop = time_ms(torch, lambda: sc.softmax_ce_fwd(
+                a, tc, dt, want_p=False), 10)
+            plain = time_ms(torch, lambda: sc.plain_fwd_reference(
+                a, tc, dt), 3)
+            lib = time_ms(torch, lambda: F.cross_entropy(
+                a, tl, reduction="sum", ignore_index=-1), 10)
+            res[("softmax_ce_fwd", S, name)] = dict(
+                err=err, rel=rel, loss_rel=lrel, ms=ms, plain_ms=plain,
+                library_ms=lib, cost=plain_cost("softmax_ce_fwd", S, name))
+            phase("plain-kernel", f"K5f softmax_ce_fwd S={S} {name}: p "
+                  f"max_abs_err={err:.3e} elementwise rel={rel:.3e} (tol "
+                  f"{P_REL[name]:.1e}; controls " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in ctrl.items())
+                  + f"), loss rel {lrel:.2e}, count {cnt.item()} vs "
+                  f"{cnt_r.item()}; kernel {ms:.3f} ms ({ms_nop:.3f} ms "
+                  f"without p); twin {plain:.3f} ms; F.cross_entropy "
+                  f"{lib:.3f} ms [N={N} S={S}]")
+            if not (ctrl["zero p"] > P_REL[name]
+                    and ctrl["loss of rolled targets"] > 1e-5):
+                raise AssertionError(f"the K5f checks pass a wrong p or "
+                                     f"loss: {ctrl}")
+            if not (rel <= P_REL[name] and lrel <= 1e-5
+                    and abs(cnt.item() - cnt_r.item()) <= 1):
+                raise AssertionError("K5f disagrees with its twin")
+            del p_r
+
+            dz = sc.softmax_ce_bwd(p, tc, g)
+            dz_r = sc.plain_dz_reference(p, tc, g)
+            torch.cuda.synchronize()
+            rel, err = rel_err(dz, dz_r)
+            ctrl = {"zero dz": rel_err(torch.zeros_like(dz_r), dz_r)[0],
+                    "dz of rolled targets": rel_err(sc.plain_dz_reference(
+                        p, rolled, g), dz_r)[0]}
+            if name == "bfloat16":
+                p32 = sc.plain_fwd_reference(a, tc)[2]
+                ctrl["dz of the f32 p"] = rel_err(
+                    sc.plain_dz_reference(p32, tc, g), dz_r)[0]
+                del p32
+            dummy_zero = not dz[:64].any()
+            ms = time_ms(torch, lambda: sc.softmax_ce_bwd(p, tc, g), 10)
+            plain = time_ms(torch, lambda: sc.plain_dz_reference(p, tc, g),
+                            3)
+            res[("softmax_ce_bwd", S, name)] = dict(
+                err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=None,
+                cost=plain_cost("softmax_ce_bwd", S, name))
+            phase("plain-kernel", f"K5b softmax_ce_bwd S={S} {name}: dz "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                  f"{PLAIN_DZ_REL:.0e}; controls " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in ctrl.items())
+                  + f"); dummy tile exactly zero: {dummy_zero}; kernel "
+                  f"{ms:.3f} ms; twin {plain:.3f} ms")
+            if not all(v > PLAIN_DZ_REL for v in ctrl.values()):
+                raise AssertionError(f"the dz check passes a wrong dz: "
+                                     f"{ctrl}")
+            if not (dummy_zero and rel <= PLAIN_DZ_REL):
+                raise AssertionError("K5b disagrees with its twin")
+            del p, dz, dz_r
+        del a
+        torch.cuda.empty_cache()
+    return res
+
+
+def remat_expect(k, layers=5, dirs=2):
+    """One remat training step's launches: per layer and direction k K6b-f
+    in the forward, k more in the recompute and k K6b-b; one K5f, one
+    K5b; nothing else."""
+    blocks = layers * dirs * k
+    expect = {name: 0 for name in wrappers()}
+    expect.update(lstm_fwd_carry_save=2 * blocks, lstm_bwd_carry=blocks,
+                  softmax_ce_fwd=1, softmax_ce_bwd=1)
+    return expect
+
+
+def remat_steps(torch):
+    """Phase 23: one SGD step with --remat_blocks from the same weights as
+    the plain kernel step: TIMIT at K = 4 and K = 3 (not a divisor of
+    T = 500) on ragged rows, and LVCSR at K = 4 against the fused K4 step
+    (f32): the loss, the update and the exact launches; the control, the
+    bf16 remat step against the f32 kernel step, must fail the update
+    check."""
+    w = wrappers()
+    for lvcsr in (False, True):
+        states = S_LVCSR if lvcsr else S_STATES
+        batch, _ = recipe_batch(torch, full=False, seed=23, states=states)
+        runs = [("kernel", 0, "float32"), ("remat K=4", 4, "float32")]
+        if not lvcsr:
+            runs += [("remat K=3", 3, "float32"), ("control", 4, "bfloat16")]
+        out = {}
+        for label, k, dtype in runs:
+            tr = make_trainer("auto", dtype, lvcsr=lvcsr)
+            tr.net.remat_blocks = k
+            before = {n: {j: v.detach().clone() for j, v in l.items()}
+                      for n, l in tr.params.items()}
+            for f in w.values():
+                f.launches = 0  # the step's run starts here
+            err, _ = tr.train_step(*batch)
+            torch.cuda.synchronize()
+            counts = {n: f.launches for n, f in w.items()}
+            upd = torch.cat([(tr.params[n][j].detach()
+                              - before[n][j]).flatten()
+                             for n in sorted(before) for j in sorted(before[n])])
+            out[label] = (err.item(), upd, counts)
+            del tr, before
+        l_k, u_k, _ = out["kernel"]
+        what = "LVCSR" if lvcsr else "TIMIT"
+        for label, k, _ in runs[1:]:
+            loss, upd, counts = out[label]
+            lrel = abs(loss - l_k) / abs(l_k)
+            urel = ((upd - u_k).abs().max() / u_k.abs().max()).item()
+            phase("remat-step", f"one {what} SGD step T={T_TRAIN} B={B} "
+                  f"{label} vs the kernel step (f32): loss {loss:.6f} vs "
+                  f"{l_k:.6f} (rel {lrel:.2e}, tol {STEP_TOL['loss']:.0e}); "
+                  f"update rel {urel:.2e} (tol {STEP_TOL['update']:.0e}); "
+                  f"launches " + str({n: c for n, c in counts.items() if c}))
+            if label == "control":
+                if not urel > STEP_TOL["update"]:
+                    raise AssertionError("the update check passes the bf16 "
+                                         "control")
+                continue
+            check_counts(counts, remat_expect(k))
+            if not (lrel <= STEP_TOL["loss"] and urel <= STEP_TOL["update"]):
+                raise AssertionError(f"the {what} remat step ({label}) "
+                                     f"disagrees with the kernel step")
+        del out
+        torch.cuda.empty_cache()
+
+
+def remat_cli(torch, workdir, tables):
+    """Phase 24: cli.main(--train true --remat_blocks 4) on phase 7's
+    corpus and settings, f32 and bf16, 2 epochs: the exact launch count of
+    every kernel (per train fraction 80 K6b-f, 40 K6b-b, one K5f and one
+    K5b; per val fraction 5 K0 and one K5f), and the epoch errors and
+    trained weights against phase 7's runs without the flag. Returns the
+    f32 run's launches."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    paths, net_path = write_train_corpus(workdir)
+    (train_nc, _), (val_nc, _) = paths["train"], paths["val"]
+    n_train = DataSet([train_nc], parallel_sequences=50,
+                      trunc_seq_length=500).num_fractions()
+    n_val = DataSet([val_nc], parallel_sequences=50).num_fractions()
+    epochs = 2
+    expect = {k: 0 for k in wrappers()}
+    expect.update(lstm_fwd=5 * n_val * epochs,
+                  lstm_fwd_carry_save=80 * n_train * epochs,
+                  lstm_bwd_carry=40 * n_train * epochs,
+                  softmax_ce_fwd=(n_train + n_val) * epochs,
+                  softmax_ce_bwd=n_train * epochs)
+    launches = None
+    w0 = _weights(net_path)
+    for name in ("float32", "bfloat16"):
+        out = os.path.join(workdir, f"remat_{name}.jsn")
+        args = ["--network", net_path, "--train", "true",
+                "--train_file", train_nc, "--val_file", val_nc,
+                "--truncate_seq", "500", "--parallel_sequences", "50",
+                "--stochastic", "true", "--shuffle_fractions", "true",
+                "--learning_rate", "1e-4", "--momentum", "0.9",
+                "--max_epochs", str(epochs), "--random_seed", str(SEED),
+                "--compute_dtype", name, "--save_network", out,
+                "--remat_blocks", "4"]
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0  # the remat training path's run starts here
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        wall = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in w.items()}
+        text = buf.getvalue()
+        rows = [ln for ln in text.splitlines()
+                if ln.strip()[:1].isdigit() and "|" in ln]
+        for ln in rows:
+            phase("remat-cli", f"{name} |{ln}")
+        if rc != 0 or len(rows) != epochs:
+            print(text[-3000:])
+            raise AssertionError(f"cli --remat_blocks 4 {name} returned {rc}")
+        errs = np.array(epoch_errors(rows))
+        want = np.array(tables[name])
+        derr = float(np.abs(errs - want).max())
+        a = _weights(out)
+        b = _weights(os.path.join(workdir, f"trained_{name}.jsn"))
+        dw = max(float(np.abs(a[k] - b[k]).max(initial=0.0)) for k in b)
+        moved = max(float(np.abs(b[k] - w0[k]).max(initial=0.0)) for k in b)
+        tol = REMAT_CLI_TOL[name] * (moved if name == "bfloat16" else 1.0)
+        phase("remat-cli", f"{name}: {wall:.1f} s wall for {epochs} epochs; "
+              f"launches {counts}; vs the run without the flag: epoch "
+              f"errors max |d| {derr:.3e}, weights max |d| {dw:.3e} (tol "
+              f"{tol:.3e}; training moved them {moved:.3e})")
+        check_counts(counts, expect)
+        if name == "float32" and not derr <= 1.001e-2:
+            raise AssertionError(f"--remat_blocks epoch errors differ: "
+                                 f"{derr}")
+        if not dw <= tol:
+            raise AssertionError(f"--remat_blocks weights differ: {dw}")
+        if launches is None:
+            launches = counts
+    return launches
+
+
+def remat_rates_memory(torch, card):
+    """Phase 25: training frames/s and peak device memory of one step on
+    bench.py's fraction (B=50, every row full) at T = 500 with and without
+    --remat_blocks 4, and at T = 4000 with and without --remat_blocks 8,
+    f32 and bf16; synchronised, after a warm-up step. Peak memory is
+    torch.cuda.max_memory_allocated over the timed steps."""
+    peaks = {}
+    for T, k, reps in ((T_TRAIN, 4, 5), (4000, 8, 2)):
+        batch, frames = recipe_batch(torch, T=T)
+        for name in ("float32", "bfloat16"):
+            for kk in (0, k):
+                tr = make_trainer("auto", name)
+                tr.net.remat_blocks = kk
+                tr.train_step(*batch)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    tr.train_step(*batch)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) / reps
+                peak = torch.cuda.max_memory_allocated()
+                peaks[(T, name, kk)] = peak
+                phase("remat-rate", f"T={T} {name} remat_blocks={kk}: "
+                      f"{frames / dt:,.0f} frames/s ({1e3 * dt:.1f} ms per "
+                      f"step of {frames} frames, mean of {reps}); peak "
+                      f"{peak / 2 ** 20:,.0f} MiB ({(peak - base) / 2 ** 20:,.0f}"
+                      f" MiB above the {base / 2 ** 20:,.0f} resident) on "
+                      f"{card}")
+                del tr
+                torch.cuda.empty_cache()
+            gain = peaks[(T, name, 0)] / peaks[(T, name, k)]
+            phase("remat-rate", f"T={T} {name}: peak memory {gain:.2f}x "
+                  f"lower with remat_blocks={k}")
+            if T > T_TRAIN and not gain >= REMAT_MEM_GAIN:
+                raise AssertionError(f"--remat_blocks {k} saves too little "
+                                     f"memory at T={T}: {gain:.2f}x")
+        del batch
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2072,9 +2425,11 @@ def main():
         forward_rates(torch, nc, card)
         profile_fraction(torch, nc)
         step_kernel_vs_scan(torch)
-        launches = train_end_to_end(torch, workdir)
+        launches, tables = train_end_to_end(torch, workdir)
         lvcsr_step_fused_vs_unfused(torch)
         lvcsr_launches = lvcsr_cli(torch, workdir)
+        # phase 24 compares with phase 7's trained networks, kept here
+        remat_launches = remat_cli(torch, workdir, tables)
     launches["lstm_fwd"] = launches_fwd
     for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
         launches[k] = lvcsr_launches[k]
@@ -2103,6 +2458,13 @@ def main():
     for k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
         launches[k] = sp_launches[k]
     sp_rates(torch, card, [sp_mesh(torch)])
+    with torch.no_grad():
+        pres = plain_kernels_vs_twins(torch)
+    remat_steps(torch)
+    remat_rates_memory(torch, card)
+    profile_step(torch, remat_blocks=4)
+    for k in ("softmax_ce_fwd", "softmax_ce_bwd"):
+        launches[k] = remat_launches[k]
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -2111,7 +2473,9 @@ def main():
               "softmax_ce_wide_bwd": "softmax_ce_wide.cu",
               "lstm_fwd_carry": "lstm_fwd.cu",
               "lstm_fwd_carry_save": "lstm_fwd.cu",
-              "lstm_bwd_carry": "lstm_bwd.cu"}
+              "lstm_bwd_carry": "lstm_bwd.cu",
+              "softmax_ce_fwd": "softmax_ce_plain.cu",
+              "softmax_ce_bwd": "softmax_ce_plain.cu"}
     replaces = {"lstm_fwd": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_fwd_save": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_bwd": "lstm_rnn_tpu/ops/lstm_cell.py:284",
@@ -2121,12 +2485,15 @@ def main():
                 "softmax_ce_wide_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:575",
                 "lstm_fwd_carry": "lstm_rnn_tpu/ops/lstm_cell.py:164",
                 "lstm_fwd_carry_save": "lstm_rnn_tpu/ops/lstm_cell.py:164",
-                "lstm_bwd_carry": "lstm_rnn_tpu/ops/lstm_cell.py:284"}
+                "lstm_bwd_carry": "lstm_rnn_tpu/ops/lstm_cell.py:284",
+                "softmax_ce_fwd": "lstm_rnn_tpu/ops/softmax_ce.py:163",
+                "softmax_ce_bwd": "lstm_rnn_tpu/ops/softmax_ce.py:169"}
     # each kernel at the shape its path gives it: K0 at P=250, T=800; K1
     # and K2 at P=250, T=500; the tails over 25,000 frames (K3 at 183
     # states, K4 at 10,112); the carry kernel at P=250 over one 64-frame
     # chunk of the streaming stack; the K6b kernels at P=250 over one
-    # 125-frame SP block of a TIMIT layer, dir_offset 0
+    # 125-frame SP block of a TIMIT layer, dir_offset 0; K5 over the
+    # TIMIT remat step's 25,000 frames of 183 states
     rows = {"lstm_fwd": (res[(250, "float32")], res[(250, "bfloat16")])}
     for k in ("lstm_fwd_save", "lstm_bwd", "softmax_ce_proj_fwd",
               "softmax_ce_proj_bwd"):
@@ -2137,6 +2504,9 @@ def main():
     for k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
         rows[k] = (cgres[(k, 250, 0, "float32")],
                    cgres[(k, 250, 0, "bfloat16")])
+    for k in ("softmax_ce_fwd", "softmax_ce_bwd"):
+        rows[k] = (pres[(k, S_STATES, "float32")],
+                   pres[(k, S_STATES, "bfloat16")])
     kernels = []
     for k, (r32, r16) in rows.items():
         b32, by32 = bound(*r32["cost"], "float32")

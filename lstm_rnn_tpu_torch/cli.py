@@ -18,6 +18,12 @@ Counterpart of lstm_rnn_tpu/cli.py (the `currennt` binary's behaviour,
   net in N-frame chunks, each LSTM layer's state carried from chunk to
   chunk (online serving; the output equals the whole-sequence forward).
 
+`--remat_blocks K` (train mode; forward mode ignores it, as the JAX CLI
+does) checkpoints every LSTM layer's recurrence in K time blocks, so that
+backward holds one block's residuals, and takes the plain softmax tail
+(K5): on the card through the carry kernels, on the CPU through the scan
+twins (models/lstm.py).
+
 `--seq_devices N` (both modes) cuts every fraction's time axis into N
 blocks on the first N GPUs (on the CPU with `--device cpu`: the CPU N
 times) and runs the sequence-parallel path (parallel/sequence.py):
@@ -202,10 +208,9 @@ def _apply_streamed(net: Network, params, x, pt, chunk: int):
 def _check_trainable(cfg: Config) -> None:
     """Refuse the training features the port does not have yet."""
     missing = [
-        (cfg.weight_noise_sigma > 0, "--weight_noise_sigma", "item 7"),
-        (cfg.input_noise_sigma > 0, "--input_noise_sigma", "item 7"),
-        (cfg.init_rng != "numpy", "--init_rng currennt", "item 5"),
-        (cfg.remat_blocks != 0, "--remat_blocks", "item 3"),
+        (cfg.weight_noise_sigma > 0, "--weight_noise_sigma", "item 1"),
+        (cfg.input_noise_sigma > 0, "--input_noise_sigma", "item 1"),
+        (cfg.init_rng != "numpy", "--init_rng currennt", "item 1"),
         (cfg.fuse_fractions != 1 or bool(cfg.device_cache)
          or bool(cfg.profile_dir),
          "--fuse_fractions/--device_cache/--profile_dir",
@@ -282,6 +287,7 @@ def train_mode(cfg: Config, device: torch.device) -> int:
     net = Network(net_doc["layers"], net_doc.get("weights"),
                   input_size_override=train_set.input_pattern_size,
                   backend=cfg.lstm_backend, compute_dtype=cfg.compute_dtype)
+    net.remat_blocks = cfg.remat_blocks
     if train_set.output_pattern_size != net.target_size:
         raise RuntimeError("Post output layer size != target pattern size "
                            "of the training set")

@@ -10,11 +10,14 @@ Port-specific:
   --device       auto|cpu|cuda (auto follows --cuda); tpu is refused
   --lstm_backend auto|scan|pallas: pallas names the Hopper kernel
   --seq_devices  k > 1: sequence parallelism over a k-block seq mesh, with
-                 --num_devices 1 or k (parallel/)
+                 --num_devices 1 or k (parallel/); k <= 1 is off
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
-never silently ignored: --num_devices other than 1 (or than
---seq_devices), --model_devices and --pipeline_devices other than 1,
---f32_matmul 3x, --compilation_cache_dir and the multi-host flags.
+never silently ignored: a --num_devices that resolves to more than one
+device (0: every device available) other than --seq_devices's count,
+--model_devices and --pipeline_devices above 1, --f32_matmul 3x,
+--compilation_cache_dir and the multi-host flags. --model_devices 0 and
+--pipeline_devices 0 resolve to no parallelism, as the JAX CLI resolves
+them off a TPU.
 --seq_devices with --stream_chunk, --model_devices or --pipeline_devices
 is refused with the JAX CLI's messages.
 """
@@ -144,11 +147,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto = cuda when --cuda is true, else cpu; cuda "
                         "raises when no GPU is visible")
     g.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel devices (only 1 is ported)")
+                   help="data-parallel devices, 0 = all (only counts that "
+                        "resolve to one device, or to --seq_devices, are "
+                        "ported)")
     g.add_argument("--model_devices", type=int, default=1,
-                   help="tensor-parallel shard count (only 1 is ported)")
+                   help="tensor-parallel shard count, 0 = auto (1 off a "
+                        "TPU; only 1 is ported)")
     g.add_argument("--pipeline_devices", type=int, default=1,
-                   help="pipeline-parallel stage count (only 1 is ported)")
+                   help="pipeline-parallel stage count (counts above 1 are "
+                        "not ported)")
     g.add_argument("--pipeline_microbatches", type=int, default=0,
                    help="microbatches per pipeline data shard (pipeline "
                         "parallelism is not ported yet)")
@@ -350,13 +357,23 @@ def serialize_options(ns: argparse.Namespace) -> str:
     return " ".join(parts)
 
 
+def _visible_devices(ns: argparse.Namespace) -> int:
+    """The devices `--num_devices 0` means (every one available, as in
+    the JAX CLI): the GPUs torch sees, or 1 on the CPU."""
+    if ns.device == "cpu" or (ns.device == "auto" and not ns.cuda):
+        return 1
+    import torch
+    return max(1, torch.cuda.device_count())
+
+
 def _check_supported(ns: argparse.Namespace) -> None:
     """Refuse the flags whose features the port does not have yet, and
     the combinations the JAX CLI refuses (lstm_rnn_tpu/cli.py:341-344,
-    :577-586)."""
-    sp = ns.seq_devices
-    if sp < 1:
-        raise ValueError(f"--seq_devices must be at least 1, got {sp}")
+    :577-586). Device counts resolve as the JAX CLI resolves them on a
+    host without a TPU: --seq_devices and --pipeline_devices count only
+    above 1, --model_devices 0 is the TP heuristic (1 off a TPU), and
+    --num_devices 0 is every device available."""
+    sp = max(1, ns.seq_devices)
     if sp > 1 and (ns.model_devices > 1 or ns.pipeline_devices > 1):
         raise ValueError("seq_devices > 1 does not combine with "
                          "model_devices or pipeline_devices")
@@ -366,8 +383,9 @@ def _check_supported(ns: argparse.Namespace) -> None:
     unsupported = [
         (f"--{k} {getattr(ns, k)}", "parallelism")
         for k in ("model_devices", "pipeline_devices")
-        if getattr(ns, k) != 1]
-    if ns.num_devices not in (1, sp):
+        if getattr(ns, k) > 1]
+    n = ns.num_devices if ns.num_devices > 0 else _visible_devices(ns)
+    if n not in (1, sp):
         # data parallelism, alone or composed with --seq_devices (the JAX
         # package's composed_mesh); --num_devices k with --seq_devices k is
         # the 1-D seq mesh

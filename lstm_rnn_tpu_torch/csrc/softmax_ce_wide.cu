@@ -23,7 +23,8 @@
 //
 // Design and what bounds it on this card. K4f is one block per row: three
 // passes over the row (min/max, exp sum, then p and its first argmax),
-// block-wide reductions through shuffles; the first pass reads the row
+// block-wide reductions through shuffles (softmax_common.cuh's group_*,
+// which K5f shares); the first pass reads the row
 // from device memory, the next two mostly from L2. Loss and count are
 // per-row partials added in a fixed order (no float atomics). It must read
 // the logits once: 1.0 GB in f32 at N = 25,000, S = 10,112, so bytes bound
@@ -54,68 +55,6 @@ constexpr int kWideThreads = 256;
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideRows = 64;  // rows per K4b tile (one db partial each)
 
-// block-wide min and max; every thread gets both
-__device__ __forceinline__ void block_min_max(float& mn, float& mx,
-                                              float* s_a, float* s_b) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int o = 16; o > 0; o >>= 1) {
-    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  }
-  if (lane == 0) {
-    s_a[warp] = mn;
-    s_b[warp] = mx;
-  }
-  __syncthreads();
-  mn = s_a[0];
-  mx = s_b[0];
-  for (int w = 1; w < kWideWarps; ++w) {
-    mn = fminf(mn, s_a[w]);
-    mx = fmaxf(mx, s_b[w]);
-  }
-  __syncthreads();  // the scratch is reused by the next reduction
-}
-
-// block-wide sum, the same order in every block; every thread gets it
-__device__ __forceinline__ float block_sum(float v, float* s_a) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (lane == 0) s_a[warp] = v;
-  __syncthreads();
-  v = s_a[0];
-  for (int w = 1; w < kWideWarps; ++w) v += s_a[w];
-  __syncthreads();
-  return v;
-}
-
-// block-wide first argmax: the largest value, ties to the lowest index
-__device__ __forceinline__ int block_argmax(float best, int arg, float* s_a,
-                                            int* s_i) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
-    if (ob > best || (ob == best && oa < arg)) {
-      best = ob;
-      arg = oa;
-    }
-  }
-  if (lane == 0) {
-    s_a[warp] = best;
-    s_i[warp] = arg;
-  }
-  __syncthreads();
-  best = s_a[0];
-  arg = s_i[0];
-  for (int w = 1; w < kWideWarps; ++w)
-    if (s_a[w] > best || (s_a[w] == best && s_i[w] < arg)) {
-      best = s_a[w];
-      arg = s_i[w];
-    }
-  __syncthreads();
-  return arg;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
     wide_fwd_kernel(const T* __restrict__ a, const int* __restrict__ tc,
@@ -133,14 +72,14 @@ __global__ void __launch_bounds__(kWideThreads)
     mn = fminf(mn, v);
     mx = fmaxf(mx, v);
   }
-  block_min_max(mn, mx, s_a, s_b);
+  group_min_max<kWideWarps>(mn, mx, s_a, s_b);
   // the reference's max search starts at FLT_MIN (SoftmaxLayer.cu:60)
   const float off = 0.5f * (mn + fmaxf(mx, kRealMin));
 
   float sum = 0.0f;
   for (int s = threadIdx.x; s < S; s += kWideThreads)
     sum += safe_exp(as_f32(ar[s]) - off);
-  sum = block_sum(sum, s_a);
+  sum = group_sum<kWideWarps>(sum, s_a);
 
   // p and its first argmax: two different e can round to the same p
   float best = -CUDART_INF_F;
@@ -152,7 +91,7 @@ __global__ void __launch_bounds__(kWideThreads)
       arg = s;
     }
   }
-  arg = block_argmax(best, arg, s_a, s_i);
+  arg = group_argmax<kWideWarps>(best, arg, s_a, s_i);
 
   if (threadIdx.x == 0) {
     const int t = tc[row];

@@ -1,7 +1,9 @@
-// What the two classification tails share (softmax_ce.cu: logits in the
-// kernel, K3; softmax_ce_wide.cu: logits from a product outside, K4): the
-// reference's constants and safeExp, and the fixed-order reduction of the
-// per-block loss and count partials.
+// What the classification tails share (softmax_ce.cu: logits in the
+// kernel, K3; softmax_ce_wide.cu: logits from a product outside, K4;
+// softmax_ce_plain.cu: the plain tail from materialized logits, K5): the
+// reference's constants and safeExp, the row reductions of a thread group
+// that owns one row (K4f, K5f), and the fixed-order reduction of the
+// per-row or per-block loss and count partials.
 
 #pragma once
 
@@ -18,6 +20,83 @@ __device__ __forceinline__ float safe_exp(float x) {
   if (x <= kLogZero) return 0.0f;
   if (x >= kCeExpLimit) return kRealMax;
   return expf(x);
+}
+
+// Reductions over the kWarps warps that own one row: one warp (kWarps ==
+// 1: shuffles only, no shared memory, no barrier) or the whole block
+// (kWarps = blockDim.x / 32: the warps' results meet in the kWarps-entry
+// shared scratch). Every thread of the group gets the result, reduced in
+// the same order in every group.
+
+// min and max
+template <int kWarps>
+__device__ __forceinline__ void group_min_max(float& mn, float& mx,
+                                              float* s_a, float* s_b) {
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  if constexpr (kWarps > 1) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane == 0) {
+      s_a[warp] = mn;
+      s_b[warp] = mx;
+    }
+    __syncthreads();
+    mn = s_a[0];
+    mx = s_b[0];
+    for (int w = 1; w < kWarps; ++w) {
+      mn = fminf(mn, s_a[w]);
+      mx = fmaxf(mx, s_b[w]);
+    }
+    __syncthreads();  // the scratch is reused by the next reduction
+  }
+}
+
+// sum
+template <int kWarps>
+__device__ __forceinline__ float group_sum(float v, float* s_a) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if constexpr (kWarps > 1) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane == 0) s_a[warp] = v;
+    __syncthreads();
+    v = s_a[0];
+    for (int w = 1; w < kWarps; ++w) v += s_a[w];
+    __syncthreads();
+  }
+  return v;
+}
+
+// first argmax: the largest value, ties to the lowest index
+template <int kWarps>
+__device__ __forceinline__ int group_argmax(float best, int arg, float* s_a,
+                                            int* s_i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+  if constexpr (kWarps > 1) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane == 0) {
+      s_a[warp] = best;
+      s_i[warp] = arg;
+    }
+    __syncthreads();
+    best = s_a[0];
+    arg = s_i[0];
+    for (int w = 1; w < kWarps; ++w)
+      if (s_a[w] > best || (s_a[w] == best && s_i[w] < arg)) {
+        best = s_a[w];
+        arg = s_i[w];
+      }
+    __syncthreads();
+  }
+  return arg;
 }
 
 // loss[0] = sum of part_loss, cnt[0] = sum of part_cnt, in a fixed order

@@ -304,7 +304,7 @@ class DataSet:
         if self.noise_deviation:
             raise NotImplementedError(
                 "skip_epochs with input noise (not ported: ROADMAP.md, "
-                "queue 1 item 7)")
+                "queue 1 item 1)")
         for _ in range(n):
             self._shuffle()
 

@@ -1,0 +1,124 @@
+"""An LSTM layer in time blocks on the carry kernels: the wavefront
+schedule shared by sequence parallelism (parallel/sequence.py: block i on
+device i of a mesh) and by gradient checkpointing (`--remat_blocks`,
+models/lstm.py: every block on one device, each one checkpointed).
+
+A layer's time axis is cut into n blocks. In round r the block holding
+time block r scans its frames from the carried (h, c) and hands its final
+state to block r + 1; a BLSTM layer's backward half runs the opposite
+wavefront (block n-1 first). Both directions' blocks of a round are
+launched before either carry moves, so on a mesh two devices work in
+every round. The carry hop is `.to(mesh[i +- 1])` (a no-op when the device
+repeats); autograd carries the carry cotangents back along it.
+
+The kernel route (`fused_wavefront`) runs each block of each direction
+through `lstm_scan_fused_carry` (D = 1, dir_offset = d, prefix lengths
+from the block's pattypes): under autograd its forward with residuals and
+its BPTT (K6b), without it the inference carry kernel (K6f). With
+`remat`, each block's call goes under `torch.utils.checkpoint` (non-
+reentrant): the forward keeps only the block's inputs and carries, and the
+backward runs the block's forward again for its residuals before the BPTT.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from lstm_rnn_tpu_torch.ops.lstm_cell import lstm_scan_fused_carry
+
+
+def per_device(p, mesh):
+    """{device: the layer's parameters on it}, one copy per distinct
+    device of the mesh."""
+    return {dev: {k: v.to(dev) for k, v in p.items()} for dev in set(mesh)}
+
+
+def wavefront(run_block, n_dirs: int, mesh, batch: int, hidden: int):
+    """The round schedule shared by the routes. run_block(d, i, h0, c0)
+    scans direction d over block i from (h0, c0) [1, B, H] f32 on mesh[i]
+    and returns (y [Tl, B, H] on mesh[i], hf, cf). Direction 0's carry
+    enters block 0 and travels up, direction 1's enters block n-1 and
+    travels down, both from zero. Returns outs[d][i]."""
+    n = len(mesh)
+    zero = [torch.zeros(1, batch, hidden, device=mesh[0]),
+            torch.zeros(1, batch, hidden, device=mesh[n - 1])]
+    state = [(zero[d], zero[d]) for d in range(n_dirs)]
+    outs = [[None] * n for _ in range(n_dirs)]
+    for r in range(n):
+        ran = []
+        for d in range(n_dirs):
+            i = r if d == 0 else n - 1 - r
+            y, hf, cf = run_block(d, i, *state[d])
+            outs[d][i] = y
+            ran.append((i, hf, cf))
+        # every direction's block of the round is launched before a carry
+        # moves, so the two active devices compute together
+        for d, (i, hf, cf) in enumerate(ran):
+            j = i + 1 if d == 0 else i - 1
+            if 0 <= j < n:
+                state[d] = (hf.to(mesh[j]), cf.to(mesh[j]))
+    return outs
+
+
+def fused_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
+                    compute_dtype, remat: bool = False):
+    """The kernel route's wavefront: each block of each direction is one
+    `lstm_scan_fused_carry` call (D = 1; dir_offset = 1 runs the BLSTM's
+    backward half descending over the block's natural-order arrays),
+    the input projection inside it; with `remat`, a checkpointed one.
+    Validity is each row's prefix within the block: a row's valid frames
+    are a global prefix, so within a block they are a prefix too (zero
+    frames in the blocks after its end). Returns outs[d][i]."""
+    n_dirs = 2 if bidirectional else 1
+    _, P, _, H = params["W_in"].shape
+    on = per_device(params, mesh)
+    lengths = [(pt != 0).sum(dim=0, dtype=torch.int32) for pt in pts]
+
+    def block(d, i, x, h0, c0):
+        dev = mesh[i]
+        p = on[dev]
+        # the kernel entry points make the block's GPU current; the guard
+        # restores the caller's
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            y, (hf, cf) = lstm_scan_fused_carry(
+                x, p["W_in"][d:d + 1].reshape(1, P, 4 * H),
+                p["W_rec"][d:d + 1].reshape(1, H, 4 * H),
+                p["peep"][d:d + 1], p["b"][d:d + 1].reshape(1, 4 * H),
+                lengths[i], h0, c0, float(bias_mult), True, compute_dtype,
+                True, None, d)
+        return y, hf, cf
+
+    def run(d, i, h0, c0):
+        if remat:
+            return checkpoint(block, d, i, xs[i], h0, c0,
+                              use_reentrant=False)
+        return block(d, i, xs[i], h0, c0)
+
+    return wavefront(run, n_dirs, mesh, xs[0].shape[1], H)
+
+
+def pad_time(x, targets, pattypes, n: int):
+    """Pad T to a multiple of n with PATTYPE_NONE rows: numerically inert
+    (the losses and counters mask them; the LSTM zeroes h and c there, and
+    a row's valid frames stay a prefix). The JAX package pads to a
+    multiple of 16 n on its sequence-parallel kernel route, because its
+    Mosaic kernels chunk time by 16 and local chunk padding would zero
+    mid-stream carries; the CUDA kernels have no such rule. targets may be
+    None; pattypes may be any [T, ...] validity whose zero is invalid (the
+    scan's step mask). Returns (x, targets, pattypes, the original T)."""
+    t = x.shape[0]
+    dt = -t % n
+    if not dt:
+        return x, targets, pattypes, t
+    x = torch.cat([x, x.new_zeros((dt,) + x.shape[1:])])
+    pattypes = torch.cat([pattypes, pattypes.new_zeros((dt,)
+                                                       + pattypes.shape[1:])])
+    if targets is not None:
+        fill = -1 if targets.dim() == 2 else 0
+        targets = torch.cat([targets, targets.new_full(
+            (dt,) + targets.shape[1:], fill)])
+    return x, targets, pattypes, t

@@ -22,12 +22,35 @@ routes clip the gate deltas to +-1 (the reference's limitedError): the
 scan route through grad_clip on each preactivation and the split
 og-peephole path of `lstm_cell_step`, so that it reproduces the BPTT
 kernel's deltas and is an independent check of it.
+
+`remat_blocks=K` (the CLI's --remat_blocks, training only) checkpoints the
+recurrence in k = min(K, T) equal time blocks, T padded with zero-mask
+steps to a multiple of k and the outputs sliced back: backward then holds
+one block's intermediates plus the layer's inputs and the k block-boundary
+carries, and recomputes each block's forward once. k <= 1 is no remat.
+The scan route checkpoints `_lstm_scan` block by block, as the JAX package
+does. The kernel route does too, where the JAX package does not: there
+remat forces the scan backend and refuses an explicit pallas one
+(lstm_rnn_tpu/models/lstm.py:218-224, :247-252), because its Mosaic
+kernel keeps its own residuals for the whole sequence and takes no carry.
+The port's carry kernels take one, so each block of each direction runs
+as a checkpointed `lstm_scan_fused_carry` call (its forward with residuals
+and its BPTT, K6b) in the wavefront that sequence parallelism runs
+(models/blocks.py), on the one device. The port's scan route is a Python
+time loop, the plain twin, which trains more than 100x slower than the
+kernels on an H100 (PERF.md): it stays off every path that a card runs.
+The values and gradients are the JAX package's: K checkpointed time
+blocks. Without autograd the flag changes nothing (no backward, so no
+residuals), and the kernel route runs the inference kernel on the whole
+layer.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from lstm_rnn_tpu_torch.models.blocks import fused_wavefront, pad_time
 from lstm_rnn_tpu_torch.models.feedforward import round_operand
 from lstm_rnn_tpu_torch.ops.activations import grad_clip
 from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_cell_step,
@@ -39,7 +62,7 @@ BACKENDS = ("auto", "scan", "pallas")
 
 
 def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype,
-               init=None, return_carry: bool = False):
+               init=None, return_carry: bool = False, remat_blocks: int = 0):
     """The scan path: a Python time loop over both (or one) directions,
     differentiable by autograd.
 
@@ -52,8 +75,18 @@ def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype,
     init: an explicit starting state (h, c), [D, B, H] f32 each, and
     return_carry=True also returns the final (h, c), h before storage
     rounding: the streaming hooks (lstm_forward_streaming carries the
-    state from chunk to chunk)."""
+    state from chunk to chunk).
+
+    remat_blocks=K: the scan in k = min(K, T) checkpointed time blocks
+    (see the module docstring); return_carry then raises, because the
+    padding steps would zero the returned state."""
     T, D, B, _, H = acts.shape
+    k = min(remat_blocks, T) if remat_blocks else 0
+    if k > 1:
+        if return_carry:
+            raise ValueError("return_carry is not supported with "
+                             "remat_blocks")
+        return _remat_scan(acts, w_rec, peep, mask, compute_dtype, k, init)
     fast = compute_dtype == torch.bfloat16
     sdtype = storage_dtype(compute_dtype)
     w = round_operand(w_rec, compute_dtype).reshape(D, H, 4 * H)
@@ -75,6 +108,46 @@ def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype,
     return (ys, (h_m, c)) if return_carry else ys
 
 
+def _remat_scan(acts, w_rec, peep, mask, compute_dtype, k: int, init):
+    """`_lstm_scan` over k checkpointed time blocks of ceil(T / k) steps,
+    T padded with zero-mask steps (after every real frame of each scan
+    order, where the state is zero anyway) and the output sliced back."""
+    _, D, B, _, H = acts.shape
+    acts, _, mask, T = pad_time(acts, None, mask, k)
+    tb = acts.shape[0] // k
+
+    def block(a, m, h0, c0):
+        ys, (h, c) = _lstm_scan(a, w_rec, peep, m, compute_dtype,
+                                init=(h0, c0), return_carry=True)
+        return ys, h, c
+
+    h, c = init if init is not None else (acts.new_zeros(D, B, H),
+                                          acts.new_zeros(D, B, H))
+    ys = []
+    for i in range(k):
+        y, h, c = checkpoint(block, acts[i * tb:(i + 1) * tb],
+                             mask[i * tb:(i + 1) * tb], h, c,
+                             use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys)[:T]
+
+
+def _remat_fused(params, x, pattypes, bias_mult: float, bidirectional: bool,
+                 k: int, compute_dtype: torch.dtype):
+    """The kernel route under remat: the layer in k checkpointed time
+    blocks of ceil(T / k) frames, every block on x's device, through the
+    carry kernels' wavefront. Returns [T, B, L] in the storage dtype."""
+    T = x.shape[0]
+    x, _, pattypes, _ = pad_time(x, None, pattypes, k)
+    tb = x.shape[0] // k
+    outs = fused_wavefront(params, list(x.split(tb)),
+                           list(pattypes.split(tb)), bias_mult,
+                           bidirectional, [x.device] * k, compute_dtype,
+                           remat=True)
+    ys = [torch.cat([o[i] for o in outs], dim=-1) for i in range(k)]
+    return torch.cat(ys)[:T]
+
+
 def _scan_acts_valid(x, pattypes, w_in, b, bias_mult: float,
                      compute_dtype: torch.dtype):
     """Input projection + bias as [T, D, B, 4, H] f32, and the validity
@@ -92,13 +165,16 @@ def _scan_acts_valid(x, pattypes, w_in, b, bias_mult: float,
 
 def lstm_forward(params, x, pattypes, bias_mult: float, bidirectional: bool,
                  backend: str = "auto",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat_blocks: int = 0):
     """x: [T, B, P], pattypes: [T, B] int8 -> outputs [T, B, L] in x's dtype.
 
     L = H unidirectional, 2H bidirectional ([fw | bw] per frame). The
     kernel path needs each row's valid frames to be a prefix (trailing
     padding only), which every DataSet fraction is by construction; the
-    scan path masks per step and takes any pattern."""
+    scan path masks per step and takes any pattern. remat_blocks=K
+    checkpoints the recurrence in K time blocks when autograd records (see
+    the module docstring)."""
     w_in, w_rec, b, peep = (params["W_in"], params["W_rec"], params["b"],
                             params["peep"])
     T, B, P = x.shape
@@ -108,6 +184,12 @@ def lstm_forward(params, x, pattypes, bias_mult: float, bidirectional: bool,
                          f"{bidirectional}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    k = min(remat_blocks, T) if remat_blocks else 0
+    if backend != "scan" and k > 1 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_in, w_rec, b, peep)):
+        ys = _remat_fused(params, x, pattypes, bias_mult, bidirectional, k,
+                          compute_dtype)
+        return ys.to(x.dtype)
     if backend != "scan":
         lengths = (pattypes != 0).sum(dim=0, dtype=torch.int32)
         ys = lstm_scan_fused(x, w_in.reshape(D, P, 4 * H),
@@ -123,7 +205,8 @@ def lstm_forward(params, x, pattypes, bias_mult: float, bidirectional: bool,
         mask = torch.cat([valid, valid.flip(0)], dim=1)
     else:
         mask = valid
-    ys = _lstm_scan(acts, w_rec, peep, mask, compute_dtype)  # [T, D, B, H]
+    ys = _lstm_scan(acts, w_rec, peep, mask, compute_dtype,
+                    remat_blocks=remat_blocks)  # [T, D, B, H]
     if bidirectional:
         ys = torch.cat([ys[:, 0], ys.flip(0)[:, 1]], dim=-1)
     else:

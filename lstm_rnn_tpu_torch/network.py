@@ -14,8 +14,10 @@ view (128-lane cells, network.py:352-488) is a TPU tiling rule the Hopper
 kernels do not need. Streaming serving (`init_stream_state`,
 `apply_streaming`) runs unidirectional stacks chunk by chunk on the carry
 kernel. Sequence parallelism runs the net's layers block by block
-(parallel/sequence.py). Not ported yet (ROADMAP.md): data, tensor and
-pipeline parallelism, and the plain (K5) softmax tail.
+(parallel/sequence.py). `remat_blocks` (the CLI's --remat_blocks, set in
+train mode) checkpoints every LSTM layer's recurrence in K time blocks
+(models/lstm.py) and takes the plain tail (K5) in `loss_and_count_fused`.
+Not ported yet (ROADMAP.md): data, tensor and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
                                                    softmax_forward)
 from lstm_rnn_tpu_torch.models.lstm import (lstm_forward,
                                             lstm_forward_streaming)
-from lstm_rnn_tpu_torch.ops.softmax_ce import (proj_tail_fits,
+from lstm_rnn_tpu_torch.ops.softmax_ce import (_no_tf32, proj_tail_fits,
+                                               softmax_ce_fused,
                                                softmax_ce_proj_fused,
                                                softmax_ce_wide_fused,
                                                tail_smem_optin)
@@ -149,6 +152,9 @@ class Network:
         self.compute_dtype = DTYPES[compute_dtype]  # matmul operand dtype
         self.loss_fn, self.task_kind = losses_mod.LOSSES[specs[-1].type]
         self.is_classification = self.task_kind == "classification"
+        # --remat_blocks K (train mode): gradient checkpointing of the LSTM
+        # recurrences in K time blocks, and the plain tail; 0 = off
+        self.remat_blocks = 0
 
         # numpy parameters: from the JSON weights section, the rest drawn
         # on demand by init_params
@@ -229,7 +235,8 @@ class Network:
             elif s.type in ioc.LSTM_TYPES:
                 x = lstm_forward(p, x, pattypes, s.bias, ioc.LSTM_TYPES[s.type],
                                  backend=self.backend,
-                                 compute_dtype=self.compute_dtype)
+                                 compute_dtype=self.compute_dtype,
+                                 remat_blocks=self.remat_blocks)
             elif s.type == "softmax":
                 x = softmax_forward(p, x, s.bias, self.compute_dtype)
             else:
@@ -298,23 +305,37 @@ class Network:
         the softmax, the loss and the count, with the tail's backward
         kernels under autograd. targets [T, B] int (-1 = dummy).
 
-        The tail is K3 (the product inside the kernel) when its logits
-        block fits a block's shared memory (`proj_tail_fits`: S <= 832 on
-        the H100, and on the CPU, which takes the H100's route), and K4
-        (the product outside, the wide kernels) otherwise: the LVCSR
-        recipe's 10,112 states."""
+        Under remat (`remat_blocks` > 0) the tail is K5, as in the JAX
+        package: the logits materialized by the softmax layer's product
+        outside (feedforward_forward, under autograd), then the plain
+        kernel pair (softmax_ce_fused). Otherwise it is K3 (the product
+        inside the kernel) when its logits block fits a block's shared
+        memory (`proj_tail_fits`: S <= 832 on the H100, and on the CPU,
+        which takes the H100's route), and K4 (the product outside, the
+        wide kernels) above: the LVCSR recipe's 10,112 states. The JAX
+        package reaches K5 under remat because its tail takes K3 and K4
+        only on the padded view, which remat drops; the port has no padded
+        view, so remat itself is the route."""
         if not self.supports_fused_tail():
             raise ValueError("the fused tail needs a softmax -> "
                              "multiclass_classification net")
         s = self.specs[-2]
         x = self._apply_layers(params, inputs, pattypes, self.specs[1:-2])
         t, b, p_dim = x.shape
+        n = t * b
+        if self.remat_blocks > 0:
+            if x.is_cuda:
+                _no_tf32(self.compute_dtype)
+            a = feedforward_forward(params[s.name], x, "identity", s.bias,
+                                    self.compute_dtype)
+            return softmax_ce_fused(a.reshape(n, s.size), targets.reshape(n),
+                                    s.size, self.compute_dtype)
         tail = (softmax_ce_proj_fused
                 if proj_tail_fits(s.size, tail_smem_optin(x.device))
                 else softmax_ce_wide_fused)
         return tail(
-            x.reshape(t * b, p_dim), params[s.name]["W"], params[s.name]["b"],
-            targets.reshape(t * b), s.size, float(s.bias), self.compute_dtype)
+            x.reshape(n, p_dim), params[s.name]["W"], params[s.name]["b"],
+            targets.reshape(n), s.size, float(s.bias), self.compute_dtype)
 
     def get_outputs(self, y, seq_info) -> tuple:
         """Segment padded activations back into per-sequence outputs

@@ -132,6 +132,10 @@ def _declare(lib) -> None:
     lib.softmax_ce_wide_bwd.argtypes = [p] * 12 + [i] * 3 + [
         ctypes.c_float, i, i, p]
     lib.softmax_ce_wide_bwd.restype = i
+    lib.softmax_ce_plain_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.softmax_ce_plain_fwd.restype = i
+    lib.softmax_ce_plain_bwd.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.softmax_ce_plain_bwd.restype = i
     for name in ("lstm_bwd_splits", "softmax_ce_splits",
                  "softmax_ce_wide_row_tiles"):
         getattr(lib, name).argtypes = [i]

@@ -1,8 +1,9 @@
 """The fused classification tail on the GPU: identity feedforward ->
 CURRENNT softmax -> multiclass cross-entropy -> accuracy count.
 
-Counterpart of lstm_rnn_tpu/ops/softmax_ce.py. Two tails, each a pair of
-kernels behind wrappers with a launch count; `proj_tail_fits` picks one.
+Counterpart of lstm_rnn_tpu/ops/softmax_ce.py. Three tails, each a pair of
+kernels behind wrappers with a launch count; Network.loss_and_count_fused
+picks one (K5 under remat, else K3 where `proj_tail_fits`, else K4).
 
 The projection tail (`softmax_ce_proj_fused`, whose custom VJP in the JAX
 package launches `_fwd_proj_kernel` and `_bwd_proj_kernel`; K3), in
@@ -34,6 +35,19 @@ product outside the kernels, as in the JAX package (`wide_logits`):
   h^T . dz (the kernel's own GEMM) and db = bias_mult * sum dz; dh =
   dz . W^T is one product outside.
 
+The plain tail (`softmax_ce_fused`: `_fwd_kernel` and `_bwd_kernel`; K5),
+in csrc/softmax_ce_plain.cu, the tail of --remat_blocks training
+(Network.loss_and_count_fused), from logits a [N, S] f32 materialized by
+the softmax layer's product outside, under autograd:
+
+- `softmax_ce_fwd`: the loss, the count, and p [N, S] in the storage dtype
+  when the caller trains (want_p); the count from the f32 p;
+- `softmax_ce_bwd`: dz = g p (onehot (-1/p_c) - s), masked, from the
+  stored p, in f32 (a's dtype).
+
+The twins share the JAX package's bodies (`_row_probs`, `_tail_fwd_body`
+as `_loss_count`, `_tail_dz`) across the three tails.
+
 Precision: float32 mode is true f32. bfloat16 mode rounds h and W to bf16
 (f32 accumulation), stores p (K3) or the logits (K4) in bf16, rounds dz to
 bf16 before the products (db sums the unrounded dz), as the JAX kernels
@@ -56,6 +70,58 @@ from lstm_rnn_tpu_torch.ops.lstm_cell import (_check_compute_dtype, _on_cuda,
                                               storage_dtype)
 
 
+def _row_probs(a):
+    """The CURRENNT softmax of f32 logits [N, S] (the JAX package's
+    `_row_probs`): the offset (min + max) / 2 with the max floored at
+    REAL_MIN, safeExp, p = e / sum e. Returns (p, off [N, 1], ssum
+    [N, 1])."""
+    mn = a.amin(dim=-1, keepdim=True)
+    mx = torch.clamp_min(a.amax(dim=-1, keepdim=True), REAL_MIN)
+    off = 0.5 * (mn + mx)
+    e = safe_exp(a - off)
+    ssum = e.sum(dim=-1, keepdim=True)
+    return e / ssum, off, ssum
+
+
+def _loss_count(p, targets):
+    """(loss, count, pt) of the f32 p [N, S] (the JAX package's
+    `_tail_fwd_body`): pt = p[target] (0 on a dummy row), loss = sum of
+    -log max(pt, REAL_MIN) and the count of first-argmax == target, both
+    over rows with target >= 0."""
+    tc = targets.long()
+    valid = tc >= 0
+    pt = torch.where(valid, p.gather(1, tc.clamp_min(0)[:, None])[:, 0],
+                     torch.zeros_like(p[:, 0]))
+    loss = -(torch.log(torch.clamp_min(pt, REAL_MIN)) * valid).sum()
+    # the first argmax of p, not of e: two different e can round to the
+    # same p (torch.argmax returns the first maximal index)
+    cnt = ((p.argmax(dim=-1) == tc) & valid).sum().to(torch.int32)
+    return loss, cnt, pt
+
+
+def _tail_dz(p, targets, pt, g):
+    """dz [N, S] f32 (the JAX package's `_tail_dz`): g p (onehot inv -
+    pt inv), masked to rows with target >= 0, inv = -1/max(pt,
+    REAL_MIN); p [N, S] and pt [N] f32, g the loss cotangent."""
+    tc = targets.long()
+    valid = (tc >= 0).float()[:, None]
+    onehot = torch.zeros_like(p).scatter_(
+        1, tc.clamp_min(0)[:, None], 1.0) * valid
+    inv = -1.0 / torch.clamp_min(pt, REAL_MIN)[:, None]
+    return p * (onehot * inv - pt[:, None] * inv) * valid * g.float()
+
+
+def plain_dz_reference(p, targets, g):
+    """dz [N, S] f32 from a stored p [N, S] (storage dtype) and the loss
+    cotangent g: K5b's plain twin, and the dz of K3b's; pt is read from
+    the stored p."""
+    pf = p.float()
+    tc = targets.long()
+    pt = torch.where(tc >= 0, pf.gather(1, tc.clamp_min(0)[:, None])[:, 0],
+                     torch.zeros_like(pf[:, 0]))
+    return _tail_dz(pf, targets, pt, g)
+
+
 def softmax_ce_fwd_reference(h2, W, b, targets, bias_mult: float,
                              compute_dtype: torch.dtype = torch.float32,
                              want_p: bool = True):
@@ -65,17 +131,8 @@ def softmax_ce_fwd_reference(h2, W, b, targets, bias_mult: float,
     sdtype = storage_dtype(compute_dtype)
     a = torch.matmul(h2.to(sdtype).float(), W.to(sdtype).float())
     a = a + bias_mult * b.float()
-    mn = a.amin(dim=-1, keepdim=True)
-    mx = torch.clamp_min(a.amax(dim=-1, keepdim=True), REAL_MIN)
-    e = safe_exp(a - 0.5 * (mn + mx))
-    p = e / e.sum(dim=-1, keepdim=True)
-    tc = targets.long()
-    valid = tc >= 0
-    p_t = torch.where(valid, p.gather(1, tc.clamp_min(0)[:, None])[:, 0],
-                      torch.zeros_like(p[:, 0]))
-    loss = -(torch.log(torch.clamp_min(p_t, REAL_MIN)) * valid).sum()
-    # torch.argmax returns the first maximal index, as the reference does
-    cnt = ((p.argmax(dim=-1) == tc) & valid).sum().to(torch.int32)
+    p, _, _ = _row_probs(a)
+    loss, cnt, _ = _loss_count(p, targets)
     return loss, cnt, (p.to(sdtype) if want_p else None)
 
 
@@ -85,14 +142,7 @@ def softmax_ce_bwd_reference(p, h2, W, targets, g, bias_mult: float,
     dtype) and the loss cotangent g (a scalar tensor). Returns (dh [N, P]
     in the storage dtype, dW [P, S] f32, db [S] f32)."""
     sdtype = storage_dtype(compute_dtype)
-    pf = p.float()
-    tc = targets.long()
-    valid = (tc >= 0).float()[:, None]
-    onehot = torch.zeros_like(pf).scatter_(
-        1, tc.clamp_min(0)[:, None], 1.0) * valid
-    p_t = (pf * onehot).sum(dim=-1, keepdim=True)
-    inv = -1.0 / torch.clamp_min(p_t, REAL_MIN)
-    dz = pf * (onehot * inv - p_t * inv) * valid * g.float()
+    dz = plain_dz_reference(p, targets, g)
     dzc = dz.to(sdtype).float()
     dh = torch.matmul(dzc, W.to(sdtype).float().t()).to(sdtype)
     dw = torch.matmul(h2.to(sdtype).float().t(), dzc)
@@ -289,21 +339,8 @@ def wide_logits(h2, W, b, bias_mult: float,
 
 def wide_stats_reference(a, targets):
     """K4f's plain twin: (loss, count, off, ssum, pt) from the logits."""
-    af = a.float()
-    mn = af.amin(dim=-1, keepdim=True)
-    mx = torch.clamp_min(af.amax(dim=-1, keepdim=True), REAL_MIN)
-    off = 0.5 * (mn + mx)
-    e = safe_exp(af - off)
-    ssum = e.sum(dim=-1, keepdim=True)
-    p = e / ssum
-    tc = targets.long()
-    valid = tc >= 0
-    pt = torch.where(valid, p.gather(1, tc.clamp_min(0)[:, None])[:, 0],
-                     torch.zeros_like(p[:, 0]))
-    loss = -(torch.log(torch.clamp_min(pt, REAL_MIN)) * valid).sum()
-    # the first argmax of p, not of e: two different e can round to the
-    # same p (torch.argmax returns the first maximal index)
-    cnt = ((p.argmax(dim=-1) == tc) & valid).sum().to(torch.int32)
+    p, off, ssum = _row_probs(a.float())
+    loss, cnt, pt = _loss_count(p, targets)
     return loss, cnt, off[:, 0], ssum[:, 0], pt
 
 
@@ -337,16 +374,9 @@ def softmax_ce_wide_bwd_reference(a, h2, W, targets, off, ssum, pt, g,
 
 def wide_dz_reference(a, targets, off, ssum, pt, g):
     """dz [N, S] f32 (not rounded) of K4b's twin: p recomputed from the
-    logits and the forward's stats, dz = g p (onehot inv - pt inv) valid
-    with inv = -1/max(pt, REAL_MIN)."""
+    logits and the forward's stats, then `_tail_dz`."""
     p = safe_exp(a.float() - off[:, None]) / ssum[:, None]
-    tc = targets.long()
-    valid = (tc >= 0).float()[:, None]
-    onehot = torch.zeros_like(p).scatter_(
-        1, tc.clamp_min(0)[:, None], 1.0) * valid
-    inv = -1.0 / torch.clamp_min(pt, REAL_MIN)[:, None]
-    srow = pt[:, None] * inv
-    return p * (onehot * inv - srow) * valid * g.float()
+    return _tail_dz(p, targets, pt, g)
 
 
 def _wide_dh(dzc, W, out_dtype, compute_dtype):
@@ -504,4 +534,118 @@ def softmax_ce_wide_fused(h2, W, b, targets, S: int, bias_mult: float,
                                         compute_dtype)
     loss, cnt, *_ = softmax_ce_wide_fwd(h2, W, b, targets, bias_mult,
                                         compute_dtype, want_stats=False)
+    return loss, cnt
+
+
+# ----------------------------------------------------------- the plain tail
+def plain_fwd_reference(a, targets,
+                        compute_dtype: torch.dtype = torch.float32,
+                        want_p: bool = True):
+    """K5f's plain twin: (loss f32 scalar, count int32 scalar, p [N, S] in
+    the storage dtype or None) from the logits a [N, S]; the count from
+    the f32 p, before it is rounded for the store."""
+    p, _, _ = _row_probs(a.float())
+    loss, cnt, _ = _loss_count(p, targets)
+    return loss, cnt, (p.to(storage_dtype(compute_dtype)) if want_p
+                       else None)
+
+
+def _check_logits(a, targets):
+    if a.dim() != 2 or tuple(targets.shape) != (a.shape[0],):
+        raise ValueError(f"a must be [N, S] and targets [N]; got "
+                         f"{tuple(a.shape)} and {tuple(targets.shape)}")
+
+
+def softmax_ce_fwd(a, targets, compute_dtype: torch.dtype = torch.float32,
+                   want_p: bool = True):
+    """K5f: (loss, count, p or None) from the logits a [N, S] (read in
+    f32), p in the storage dtype when want_p; the CUDA kernel on a CUDA
+    tensor, the twin on a CPU one."""
+    _check_compute_dtype(compute_dtype)
+    _check_logits(a, targets)
+    if not _on_cuda(a, "softmax_ce_fwd"):
+        return plain_fwd_reference(a, targets, compute_dtype, want_p)
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
+    N, S = a.shape
+    sdtype = storage_dtype(compute_dtype)
+    dev = a.device
+    ac = a.float().contiguous()
+    tc = targets.to(device=dev, dtype=torch.int32).contiguous()
+    p = torch.empty((N, S), dtype=sdtype, device=dev) if want_p else None
+    part_loss = torch.empty(N, dtype=torch.float32, device=dev)
+    part_cnt = torch.empty(N, dtype=torch.int32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    cnt = torch.empty((), dtype=torch.int32, device=dev)
+    err = lib.softmax_ce_plain_fwd(
+        _ptr(ac), _ptr(tc), _ptr(p) if want_p else None, _ptr(part_loss),
+        _ptr(part_cnt), _ptr(loss), _ptr(cnt), N, S,
+        int(sdtype == torch.bfloat16), dev.index, _stream(a))
+    _raise_on(err, "softmax_ce_plain_fwd launch")
+    softmax_ce_fwd.launches += 1
+    return loss, cnt, p
+
+
+softmax_ce_fwd.launches = 0
+
+
+def softmax_ce_bwd(p, targets, g):
+    """K5b: dz [N, S] f32 from the forward's stored p [N, S] (f32 or
+    bf16) and the loss cotangent g (a scalar tensor on p's device: the
+    kernel reads it, no host sync); the CUDA kernel on a CUDA tensor, the
+    twin on a CPU one."""
+    _check_logits(p, targets)
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"p must be float32 or bfloat16, got {p.dtype}")
+    if not _on_cuda(p, "softmax_ce_bwd"):
+        return plain_dz_reference(p, targets, g)
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
+    N, S = p.shape
+    dev = p.device
+    tc = targets.to(device=dev, dtype=torch.int32).contiguous()
+    gc = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    dz = torch.empty((N, S), dtype=torch.float32, device=dev)
+    err = lib.softmax_ce_plain_bwd(
+        _ptr(p.contiguous()), _ptr(tc), _ptr(gc), _ptr(dz), N, S,
+        int(p.dtype == torch.bfloat16), dev.index, _stream(p))
+    _raise_on(err, "softmax_ce_plain_bwd launch")
+    softmax_ce_bwd.launches += 1
+    return dz
+
+
+softmax_ce_bwd.launches = 0
+
+
+class SoftmaxCeFused(torch.autograd.Function):
+    """softmax_ce_fused with the gradient to the logits (the JAX package's
+    custom VJP): the forward stores p in the storage dtype, the backward
+    is K5b from it; dz in a's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, targets, compute_dtype):
+        loss, cnt, p = softmax_ce_fwd(a, targets, compute_dtype, want_p=True)
+        ctx.save_for_backward(p, targets)
+        ctx.a_dtype = a.dtype
+        ctx.mark_non_differentiable(cnt)
+        return loss, cnt
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_cnt):
+        p, targets = ctx.saved_tensors
+        return softmax_ce_bwd(p, targets, g_loss).to(ctx.a_dtype), None, None
+
+
+def softmax_ce_fused(a, targets, S: int,
+                     compute_dtype: torch.dtype = torch.float32):
+    """The plain tail (K5) from materialized logits a [N, S] (exact width;
+    the JAX call's 128-lane padding is a TPU tiling rule) and targets [N]
+    int (-1 = dummy frame). Returns (loss f32 scalar, correct count int32
+    scalar); the gradient flows to a when autograd records, else the
+    forward runs alone and stores no p."""
+    if a.shape[-1] != S:
+        raise ValueError(f"a has {a.shape[-1]} columns, expected S={S}")
+    if torch.is_grad_enabled() and a.requires_grad:
+        return SoftmaxCeFused.apply(a, targets, compute_dtype)
+    loss, cnt, _ = softmax_ce_fwd(a, targets, compute_dtype, want_p=False)
     return loss, cnt

@@ -6,11 +6,12 @@ mesh[i] (parallel/mesh.py: an ordered list of devices, which may name one
 device several times). Everything frame-local runs block by block: the
 LSTM input projections, the feedforward and softmax layers, the loss and
 the count, summed on mesh[0] (the JAX package's psum). The LSTM recurrence
-runs as a wavefront: in round r the block holding time block r scans its
-frames from the carried (h, c) and hands its final state to block r + 1;
-a BLSTM layer's backward half runs the opposite wavefront (block n-1
-first), and both directions' blocks of a round are launched before either
-carry moves, so two devices work in every round.
+runs as a wavefront (models/blocks.py, whose schedule --remat_blocks
+shares): in round r the block holding time block r scans its frames from
+the carried (h, c) and hands its final state to block r + 1; a BLSTM
+layer's backward half runs the opposite wavefront (block n-1 first), and
+both directions' blocks of a round are launched before either carry
+moves, so two devices work in every round.
 
 Where the JAX package uses shard_map and ppermute, the port uses plain
 tensors on the mesh's devices:
@@ -24,7 +25,7 @@ tensors on the mesh's devices:
   its own device from the start.
 
 Two routes, as the JAX package has them: the kernel route
-(`_fused_wavefront`, backend "auto"/"pallas") runs each block of each
+(`fused_wavefront`, backend "auto"/"pallas") runs each block of each
 direction through `lstm_scan_fused_carry` (D = 1, dir_offset = d, prefix
 lengths from the block's pattypes): under autograd its forward with
 residuals and its BPTT (K6b), without it the inference carry kernel (K6f);
@@ -37,48 +38,14 @@ The JAX package's multi-controller layout (a "data" axis composed with
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from lstm_rnn_tpu_torch import io_currennt as ioc
+from lstm_rnn_tpu_torch.models.blocks import (fused_wavefront, pad_time,
+                                              per_device, wavefront)
 from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
                                                    softmax_forward)
 from lstm_rnn_tpu_torch.models.lstm import _lstm_scan, _scan_acts_valid
-from lstm_rnn_tpu_torch.ops.lstm_cell import lstm_scan_fused_carry
-
-
-def _per_device(p, mesh):
-    """{device: the layer's parameters on it}, one copy per distinct
-    device of the mesh."""
-    return {dev: {k: v.to(dev) for k, v in p.items()} for dev in set(mesh)}
-
-
-def _wavefront(run_block, n_dirs: int, mesh, batch: int, hidden: int):
-    """The round schedule shared by both routes. run_block(d, i, h0, c0)
-    scans direction d over block i from (h0, c0) [1, B, H] f32 on mesh[i]
-    and returns (y [Tl, B, H] on mesh[i], hf, cf). Direction 0's carry
-    enters block 0 and travels up, direction 1's enters block n-1 and
-    travels down, both from zero. Returns outs[d][i]."""
-    n = len(mesh)
-    zero = [torch.zeros(1, batch, hidden, device=mesh[0]),
-            torch.zeros(1, batch, hidden, device=mesh[n - 1])]
-    state = [(zero[d], zero[d]) for d in range(n_dirs)]
-    outs = [[None] * n for _ in range(n_dirs)]
-    for r in range(n):
-        ran = []
-        for d in range(n_dirs):
-            i = r if d == 0 else n - 1 - r
-            y, hf, cf = run_block(d, i, *state[d])
-            outs[d][i] = y
-            ran.append((i, hf, cf))
-        # every direction's block of the round is launched before a carry
-        # moves, so the two active devices compute together
-        for d, (i, hf, cf) in enumerate(ran):
-            j = i + 1 if d == 0 else i - 1
-            if 0 <= j < n:
-                state[d] = (hf.to(mesh[j]), cf.to(mesh[j]))
-    return outs
 
 
 def _scan_block(acts, w_rec, peep, mask, compute_dtype, h0, c0):
@@ -100,7 +67,7 @@ def _scan_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
     time-reversed blocks)."""
     n_dirs = 2 if bidirectional else 1
     H = params["W_in"].shape[-1]
-    on = _per_device(params, mesh)
+    on = per_device(params, mesh)
     proj = [_scan_acts_valid(x, pt, on[dev]["W_in"], on[dev]["b"],
                              bias_mult, compute_dtype)
             for x, pt, dev in zip(xs, pts, mesh)]
@@ -117,38 +84,7 @@ def _scan_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
         ys = ys[:, 0]
         return (ys.flip(0) if d else ys), h_t, c_t
 
-    return _wavefront(run, n_dirs, mesh, xs[0].shape[1], H)
-
-
-def _fused_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
-                     compute_dtype):
-    """The kernel route's wavefront: each block of each direction is one
-    `lstm_scan_fused_carry` call (D = 1; dir_offset = 1 runs the BLSTM's
-    backward half descending over the block's natural-order arrays),
-    the input projection inside it. Validity is each row's prefix within
-    the block: a row's valid frames are a global prefix, so within a block
-    they are a prefix too (zero frames in the blocks after its end)."""
-    n_dirs = 2 if bidirectional else 1
-    _, P, _, H = params["W_in"].shape
-    on = _per_device(params, mesh)
-    lengths = [(pt != 0).sum(dim=0, dtype=torch.int32) for pt in pts]
-
-    def run(d, i, h0, c0):
-        dev = mesh[i]
-        p = on[dev]
-        # the kernel entry points make the block's GPU current; the guard
-        # restores the caller's
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
-            y, (hf, cf) = lstm_scan_fused_carry(
-                xs[i], p["W_in"][d:d + 1].reshape(1, P, 4 * H),
-                p["W_rec"][d:d + 1].reshape(1, H, 4 * H),
-                p["peep"][d:d + 1], p["b"][d:d + 1].reshape(1, 4 * H),
-                lengths[i], h0, c0, float(bias_mult), True, compute_dtype,
-                True, None, d)
-        return y, hf, cf
-
-    return _wavefront(run, n_dirs, mesh, xs[0].shape[1], H)
+    return wavefront(run, n_dirs, mesh, xs[0].shape[1], H)
 
 
 def lstm_forward_seq(params, xs, pts, bias_mult: float, bidirectional: bool,
@@ -164,7 +100,7 @@ def lstm_forward_seq(params, xs, pts, bias_mult: float, bidirectional: bool,
     if w_in.shape[0] != (2 if bidirectional else 1):
         raise ValueError(f"W_in has {w_in.shape[0]} directions; "
                          f"bidirectional={bidirectional}")
-    route = _scan_wavefront if backend == "scan" else _fused_wavefront
+    route = _scan_wavefront if backend == "scan" else fused_wavefront
     outs = route(params, xs, pts, bias_mult, bidirectional, mesh,
                  compute_dtype)
     ys = []
@@ -173,28 +109,6 @@ def lstm_forward_seq(params, xs, pts, bias_mult: float, bidirectional: bool,
             [outs[0][i], outs[1][i]], dim=-1)
         ys.append(y.to(x.dtype))
     return ys
-
-
-def _pad_time(x, targets, pattypes, n: int):
-    """Pad T to a multiple of n with PATTYPE_NONE rows: numerically inert
-    (the losses and counters mask them; the LSTM zeroes h and c there, and
-    a row's valid frames stay a prefix). The JAX package pads to a
-    multiple of 16 n on its kernel route, because its Mosaic kernels chunk
-    time by 16 and local chunk padding would zero mid-stream carries; the
-    CUDA kernels have no such rule. Returns (x, targets, pattypes, the
-    original T)."""
-    t = x.shape[0]
-    dt = -t % n
-    if not dt:
-        return x, targets, pattypes, t
-    x = torch.cat([x, x.new_zeros((dt,) + x.shape[1:])])
-    pattypes = torch.cat([pattypes, pattypes.new_zeros((dt,)
-                                                       + pattypes.shape[1:])])
-    if targets is not None:
-        fill = -1 if targets.dim() == 2 else 0
-        targets = torch.cat([targets, targets.new_full(
-            (dt,) + targets.shape[1:], fill)])
-    return x, targets, pattypes, t
 
 
 def loss_and_count_seq(net, params, x, targets, pattypes, mesh):
@@ -216,7 +130,7 @@ def apply_seq(net, params, x, pattypes, mesh):
 
 def _seq_run(net, params, x, targets, pattypes, mesh, want_outputs):
     n = len(mesh)
-    x, targets, pattypes, t = _pad_time(x, targets, pattypes, n)
+    x, targets, pattypes, t = pad_time(x, targets, pattypes, n)
     tl = x.shape[0] // n
 
     def split(a):
@@ -229,7 +143,7 @@ def _seq_run(net, params, x, targets, pattypes, mesh, want_outputs):
             hs = lstm_forward_seq(p, hs, pts, s.bias, ioc.LSTM_TYPES[s.type],
                                   mesh, net.compute_dtype, net.backend)
             continue
-        on = _per_device(p, mesh)
+        on = per_device(p, mesh)
         if s.type == "softmax":
             hs = [softmax_forward(on[dev], h, s.bias, net.compute_dtype)
                   for h, dev in zip(hs, mesh)]

@@ -25,13 +25,20 @@ is the fused tail (Network.loss_and_count_fused): per training fraction
 the LSTM layers run the training forward and the BPTT kernel and the tail
 its forward and backward kernels; validation and test passes run without
 gradients, through the inference forward and the tail's forward only.
-The metrics stay on the device until the end of a pass.
+With `net.remat_blocks` (--remat_blocks K) the fused tail stays on, as
+the JAX Trainer's does on the TPU: per training fraction each LSTM layer
+runs as K checkpointed time blocks per direction on the carry kernels (the
+forward with residuals twice, once more in the recompute, and the carry
+BPTT) and the tail is the plain pair (K5); validation and test passes are
+unchanged but for the tail, K5's forward. The metrics stay on the device
+until the end of a pass.
 
 With `seq_mesh` (sequence parallelism, parallel/sequence.py) each
 fraction's time axis is cut into blocks, one per device of the mesh: the
 loss is `loss_and_count_seq` (the unfused tail: `net.loss_fn` and
 `net.correct_count` per block), its LSTM blocks run the carry kernels
-(K6b under autograd, K6f in the validation and test passes), and the
+(K6b under autograd, K6f in the validation and test passes; remat_blocks
+is ignored, as in the JAX package), and the
 parameters, their gradients and the SGD update stay on the mesh's first
 device.
 
@@ -42,7 +49,7 @@ A restored run also replays the training set's per-epoch shuffles of the
 epochs already done, so that it sees the fraction order the uninterrupted
 run would have seen (the JAX package starts the shuffle stream afresh).
 
-Not ported (ROADMAP.md): weight noise and input noise (queue item 7)
+Not ported (ROADMAP.md): weight noise and input noise (queue 1 item 1)
 raise; the JAX package's TPU machinery (stacked epochs, the device cache,
 warm compiles, VMEM probes, fuse_fractions) has no counterpart here, and
 CUDA Graphs come later.
@@ -81,12 +88,12 @@ class Trainer:
         if weight_noise_sigma > 0:
             raise NotImplementedError(
                 "weight noise is not ported to PyTorch yet (ROADMAP.md, "
-                "queue 1 item 7)")
+                "queue 1 item 1)")
         if any(ds is not None and ds.noise_deviation > 0
                for ds in (train_set, validation_set, test_set)):
             raise NotImplementedError(
                 "input noise is not ported to PyTorch yet (ROADMAP.md, "
-                "queue 1 item 7)")
+                "queue 1 item 1)")
         self.net = net
         self.train_set = train_set
         self.validation_set = validation_set

@@ -115,14 +115,55 @@ def test_train_mode_is_not_ported(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--input_noise_sigma", "0.5"], ["--init_rng", "currennt"],
-    ["--remat_blocks", "2"], ["--fuse_fractions", "4"],
-    ["--device_cache", "true"],
+    ["--fuse_fractions", "4"], ["--device_cache", "true"],
 ])
 def test_unported_training_flags_raise(tmp_path, flag):
     args = _setup(tmp_path) + ["--device", "cpu"]
     args[args.index("--train") + 1] = "true"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(args + flag)
+
+
+@pytest.mark.parametrize("flag", [["--model_devices", "0"],
+                                  ["--pipeline_devices", "0"],
+                                  ["--num_devices", "0"]])
+def test_device_counts_of_one_device_run(tmp_path, flag):
+    """--model_devices 0 (the TP heuristic, 1 off a TPU), --pipeline_devices
+    0 (pipelines count above 1 only) and --num_devices 0 (every device: the
+    CPU is one) resolve to no parallelism, as the JAX CLI resolves them on
+    one device: the run equals the one without the flag."""
+    common = _setup(tmp_path) + ["--device", "cpu"]
+    for extra, out in (([], "plain.csv"), (flag, "flag.csv")):
+        assert cli.main(common + extra + ["--ff_output_file",
+                                          str(tmp_path / out)]) == 0
+    assert ((tmp_path / "plain.csv").read_text()
+            == (tmp_path / "flag.csv").read_text())
+
+
+@pytest.mark.parametrize("flag, match", [
+    (["--model_devices", "2"], "--model_devices 2 is not supported"),
+    (["--pipeline_devices", "2"], "--pipeline_devices 2 is not supported"),
+    (["--num_devices", "2"], "--num_devices 2 is not supported"),
+])
+def test_parallelism_stays_refused(tmp_path, flag, match):
+    """Device counts that need tensor, pipeline or data parallelism are
+    refused before any work."""
+    with pytest.raises(ValueError, match=match):
+        cli.main(_setup(tmp_path) + ["--device", "cpu"] + flag)
+
+
+def test_num_devices_zero_counts_the_gpus(monkeypatch):
+    """--num_devices 0 on the card means every GPU torch sees: data
+    parallelism (refused) on four, no mesh on one."""
+    from lstm_rnn_tpu_torch.config import parse_config
+    argv = ["--network", "n.jsn", "--num_devices", "0", "--device", "cuda"]
+    monkeypatch.setattr("torch.cuda.device_count", lambda: 4)
+    with pytest.raises(ValueError, match="--num_devices 0 is not supported"):
+        parse_config(argv)
+    # a 4-block seq mesh on the four is the 1-D mesh, not DP x SP
+    assert parse_config(argv + ["--seq_devices", "4"]).num_devices == 0
+    monkeypatch.setattr("torch.cuda.device_count", lambda: 1)
+    assert parse_config(argv).num_devices == 0
 
 
 @pytest.mark.parametrize("flag", [["--device", "cuda"], ["--cuda", "true"]])

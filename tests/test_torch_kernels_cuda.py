@@ -1,9 +1,11 @@
 """The Hopper kernels against their plain twins, on the card: the LSTM
 forward (csrc/lstm_fwd.cu, inference, training, carry/step-mask and
 carry-with-residuals variants), its BPTT with and without a carry
-(csrc/lstm_bwd.cu), the fused softmax + CE tail (csrc/softmax_ce.cu) and
-the wide tail (csrc/softmax_ce_wide.cu), at small and full TIMIT and LVCSR
-width, float32 and bfloat16 modes, and the wrappers' refusals.
+(csrc/lstm_bwd.cu), the fused softmax + CE tail (csrc/softmax_ce.cu),
+the wide tail (csrc/softmax_ce_wide.cu) and the plain tail
+(csrc/softmax_ce_plain.cu), at small and full TIMIT and LVCSR width,
+float32 and bfloat16 modes, the wrappers' refusals, and the routes of
+--remat_blocks training through the carry kernels and the plain tail.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -597,3 +599,116 @@ def test_carry_autograd_routes_through_k6b_and_counts():
         lstm_bwd_carry(args[0], args[1], args[2], args[3], args[5], h, c, g,
                        h0.detach(), c0, torch.zeros_like(h),
                        hf.detach().double(), cf.detach())
+
+
+# ------------------------------------------------------ the plain tail (K5)
+# p element by element (P_REL); dz relative to its largest entry: f32 sum-
+# order noise in p; bf16 dz comes from the same stored p on both sides
+PLAIN_DZ_REL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(70, 7), (1000, 183), (1000, 1025),
+                                   (2500, 10112)])
+def test_plain_tail_matches_twin(shape, dtype):
+    """K5f and K5b against their twins, one warp per row (S <= 1024) and
+    one block per row above; dummy rows, a tied maximum and a row whose
+    exp sum overflows."""
+    N, S = shape
+    g = torch.Generator("cuda").manual_seed(N + S)
+    a = torch.randn(N, S, device="cuda", generator=g) * 3
+    tc = torch.randint(0, S, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    tc[::7] = -1
+    a[1] = 0.0
+    a[1, 2] = a[1, 4] = 5.0
+    tc[1] = 2
+    a[2] = -3e30
+    a[2, 0] = a[2, S - 1] = 0.0
+    loss, cnt, p = sc.softmax_ce_fwd(a, tc, dtype)
+    loss_r, cnt_r, p_r = sc.plain_fwd_reference(a, tc, dtype)
+    loss0, cnt0, p0 = sc.softmax_ce_fwd(a, tc, dtype, want_p=False)
+    torch.cuda.synchronize()
+    assert p.dtype == lstm_cell.storage_dtype(dtype) and p0 is None
+    assert loss0.item() == loss.item() and cnt0.item() == cnt.item()
+    assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
+    assert abs(cnt.item() - cnt_r.item()) <= 1
+    assert _elem_rel(p, p_r) <= P_REL[dtype], _elem_rel(p, p_r)
+    for wrong in (torch.zeros_like(p_r), p_r.roll(1, dims=1)):
+        assert _elem_rel(wrong, p_r) > P_REL[dtype]
+    gl = torch.tensor(0.37, device="cuda")
+    dz = sc.softmax_ce_bwd(p, tc, gl)
+    dz_r = sc.plain_dz_reference(p, tc, gl)
+    torch.cuda.synchronize()
+    assert dz.dtype == torch.float32 and dz.shape == (N, S)
+    assert _rel_err(dz, dz_r) <= PLAIN_DZ_REL, _rel_err(dz, dz_r)
+    assert not dz[::7].any() and torch.isfinite(dz).all()
+    assert _rel_err(torch.zeros_like(dz_r), dz_r) > PLAIN_DZ_REL
+
+
+def test_plain_tail_counts_and_refuses():
+    a = torch.randn(9, 5, device="cuda")
+    a.requires_grad_(True)
+    tc = torch.randint(0, 5, (9,), device="cuda", dtype=torch.int32)
+    before = (sc.softmax_ce_fwd.launches, sc.softmax_ce_bwd.launches)
+    loss, _ = sc.softmax_ce_fused(a, tc, 5)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (sc.softmax_ce_fwd.launches, sc.softmax_ce_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(a.grad).all()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sc.softmax_ce_bwd(torch.zeros(9, 5, device="cuda",
+                                      dtype=torch.float16), tc,
+                          torch.tensor(1.0, device="cuda"))
+    with pytest.raises(ValueError, match="targets"):
+        sc.softmax_ce_fwd(a.detach(), tc[:4])
+
+
+def test_remat_step_routes_through_carry_kernels_and_k5():
+    """A remat_blocks=3 training step on a two-layer net (T = 8: padded
+    to 9) launches per layer and direction 3 K6b-f forward, 3 more in the
+    recompute and 3 K6b-b, one K5f and one K5b, nothing of K0-K4; its
+    loss and gradients equal the plain kernel step's."""
+    from lstm_rnn_tpu_torch.network import Network
+    layers = [{"name": "input", "type": "input", "size": 5},
+              {"name": "l1", "type": "blstm", "size": 8, "bias": 1.0},
+              {"name": "l2", "type": "lstm", "size": 6, "bias": 1.0},
+              {"name": "output", "type": "softmax", "size": 11, "bias": 1.0},
+              {"name": "postoutput", "type": "multiclass_classification",
+               "size": 11}]
+    gen = torch.Generator("cuda").manual_seed(4)
+    x = torch.randn(8, 4, 5, device="cuda", generator=gen)
+    lengths = torch.tensor([8, 5, 1, 3], device="cuda")
+    pt = (torch.arange(8, device="cuda")[:, None] < lengths).to(torch.int8)
+    tc = torch.randint(0, 11, (8, 4), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    tc[pt == 0] = -1
+    wrappers = {"k0": lstm_scan_fused, "k1": lstm_fwd_save, "k2": lstm_bwd,
+                "k6f": lstm_scan_fused_carry, "k6bf": lstm_fwd_save_carry,
+                "k6bb": lstm_bwd_carry, "k3f": sc.softmax_ce_proj_fwd,
+                "k3b": sc.softmax_ce_proj_bwd, "k4f": sc.softmax_ce_wide_fwd,
+                "k4b": sc.softmax_ce_wide_bwd, "k5f": sc.softmax_ce_fwd,
+                "k5b": sc.softmax_ce_bwd}
+    out = {}
+    for k in (0, 3):
+        net = Network(layers)
+        net.init_params(3)
+        net.remat_blocks = k
+        params = net.device_params("cuda")
+        leaves = [params[n][j] for n in sorted(params)
+                  for j in sorted(params[n])]
+        for v in leaves:
+            v.requires_grad_(True)
+        before = {n: f.launches for n, f in wrappers.items()}
+        loss, _ = net.loss_and_count_fused(params, x, tc, pt)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[k] = (loss.item(), grads, {n: f.launches - before[n]
+                                        for n, f in wrappers.items()
+                                        if f.launches != before[n]})
+    assert out[3][2] == {"k6bf": 18, "k6bb": 9, "k5f": 1, "k5b": 1}
+    assert out[0][2] == {"k1": 2, "k2": 2, "k3f": 1, "k3b": 1}
+    assert out[3][0] == pytest.approx(out[0][0], rel=1e-5)
+    for got, want in zip(out[3][1], out[0][1]):
+        assert _rel_err(got, want) <= 1e-4

@@ -295,16 +295,32 @@ def test_cli_train_seq_devices_matches_jax(tmp_path, capsys):
      "stream_chunk does not combine with pipeline_devices or seq_devices"),
     (["--pipeline_devices", "2"],
      "seq_devices > 1 does not combine with model_devices"),
-    (["--seq_devices", "0"], "--seq_devices must be at least 1"),
 ])
 def test_cli_refuses_seq_combinations(tmp_path, extra, match):
-    """Composed DP x SP, streaming and pipelines with --seq_devices, and a
-    seq mesh of no block, are refused before any work; streaming and
-    pipelines with the JAX CLI's messages."""
+    """Composed DP x SP, streaming and pipelines with --seq_devices are
+    refused before any work; streaming and pipelines with the JAX CLI's
+    messages."""
     nc, common = _cli_setup(tmp_path)
     with pytest.raises(ValueError, match=match):
         cli.main(common + ["--train", "false", "--ff_input_file", nc,
                            "--seq_devices", "2"] + extra)
+
+
+def test_cli_seq_devices_zero_runs_without_sp(tmp_path, capsys):
+    """`--seq_devices 0` is off, as in the JAX CLI (which tests only
+    seq_devices > 1): both CLIs serve without a seq mesh, and the port's
+    dump equals its dump without the flag and the JAX CLI's."""
+    nc, common = _cli_setup(tmp_path)
+    args = common + ["--train", "false", "--ff_input_file", nc]
+    for name, main, extra in (("jax", jax_cli.main, ["--seq_devices", "0"]),
+                              ("port", cli.main, ["--seq_devices", "0"]),
+                              ("one", cli.main, [])):
+        assert main(args + extra + ["--ff_output_file",
+                                    str(tmp_path / f"{name}.csv")]) == 0
+    assert "Sequence-parallel mesh" not in capsys.readouterr().out
+    assert ((tmp_path / "port.csv").read_text()
+            == (tmp_path / "one.csv").read_text())
+    _assert_csv_close(tmp_path / "port.csv", tmp_path / "jax.csv")
 
 
 def test_mesh_refusals(monkeypatch):
