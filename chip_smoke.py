@@ -10,7 +10,10 @@ weights from a seed, and holds every kernel against its plain twin:
 
 1. device: torch/CUDA versions, the card's name and power limit; TF32 off;
 2. build: compiles the CUDA kernels from csrc/ with nvcc (one process per
-   source, in parallel);
+   source, in parallel), prints ptxas's registers and spills, and counts
+   the HGMMA (wgmma) instructions in the SASS of every instance of the
+   GEMM engine (csrc/gemm.cuh): more than 0 in each bf16 instance, 0 in
+   each f32 one;
 3. the inference forward kernel (K0) against its twin at one layer's full
    width (D=2, H=125, B=50, T=800, P=117 and P=250), float32 and bfloat16;
 4. the training kernels against their twins, with times: the forward with
@@ -101,6 +104,21 @@ weights from a seed, and holds every kernel against its plain twin:
     `--remat_blocks` at T=500 (K=4) and T=4000 (K=8), f32 and bf16; the
     T=4000 step's peak must fall at least 1.5x; a profile of one f32
     remat step (K=4, T=500) by kernel.
+
+26. the GEMM engine (csrc/gemm.cuh's gemm_kernel, which every projection,
+    weight-gradient, dx and tail dh/dW product of the paths above runs
+    in) against its twin at every main-path shape (ops/gemm.py
+    MAIN_PATH_CASES: dW_in at P = 117 and 250, dW_rec with the shift -B
+    and +B, dx over two directions, the tails' dh and dW at S = 183 and
+    dW at 10,112, the projection over 25,000, 40,000, 6,250 and 4,096
+    rows), f32 and bf16, with controls that must fail (a zero output, a
+    wrong shift, a dropped split, a zeroed direction), a second launch
+    bit for bit equal to the first, and its times beside the twin's, one
+    torch.matmul-family call's (TF32 off) and the bound.
+
+Every path's run also counts the engine's launches by product and checks
+them against what its kernels' launches imply; the profiles (phases 5, 8,
+12, 17, 20, 25) give the engine's device time per product.
 
 scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
 GPUs.
@@ -358,15 +376,17 @@ def end_to_end(torch, workdir):
           f"lengths {lengths.min()}..{lengths.max()}, {n_frac} fractions")
 
     host_phases(nc, net_path)
-    lstm_scan_fused.launches = 0  # the main path's run starts here
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0  # the main path's run starts here
     wall = run_cli(nc, net_path, os.path.join(workdir, "f32"))
+    counts = {k: f.launches for k, f in w.items()}
     launches = lstm_scan_fused.launches
     y32, worst = read_outputs(os.path.join(workdir, "f32"), tags, lengths)
     phase("e2e", f"float32 CLI run {wall:.2f} s wall; {launches} kernel "
-          f"launches for {n_frac} fractions; row sums within {worst:.1e}")
-    if launches != 5 * n_frac:
-        raise AssertionError(f"{launches} kernel launches, expected "
-                             f"5 per fraction ({5 * n_frac})")
+          f"launches for {n_frac} fractions ({counts['gemm:proj']} "
+          f"projections in the GEMM engine); row sums within {worst:.1e}")
+    check_counts(counts, {**dict.fromkeys(w, 0), "lstm_fwd": 5 * n_frac})
 
     before = lstm_scan_fused.launches
     wall16 = run_cli(nc, net_path, os.path.join(workdir, "bf16"),
@@ -390,7 +410,7 @@ def end_to_end(torch, workdir):
         raise AssertionError("the scan backend launched the kernel")
     if not dscan <= SCAN_TOL:
         raise AssertionError(f"kernel path and scan path disagree: {dscan}")
-    return launches, nc
+    return counts, nc
 
 
 def forward_rates(torch, nc, card):
@@ -782,9 +802,13 @@ def write_train_corpus(workdir):
 
 
 def wrappers():
+    """Every launch count of the port: the kernels' wrappers, and the GEMM
+    engine's per product ("gemm:<use>")."""
+    from lstm_rnn_tpu_torch.ops import gemm as ge
     from lstm_rnn_tpu_torch.ops import lstm_cell as lc
     from lstm_rnn_tpu_torch.ops import softmax_ce as sc
-    return {"lstm_fwd": lc.lstm_scan_fused, "lstm_fwd_save": lc.lstm_fwd_save,
+    return {**{f"gemm:{u}": c for u, c in ge.LAUNCHES.items()},
+            "lstm_fwd": lc.lstm_scan_fused, "lstm_fwd_save": lc.lstm_fwd_save,
             "lstm_bwd": lc.lstm_bwd,
             "softmax_ce_proj_fwd": sc.softmax_ce_proj_fwd,
             "softmax_ce_proj_bwd": sc.softmax_ce_proj_bwd,
@@ -797,8 +821,28 @@ def wrappers():
             "softmax_ce_bwd": sc.softmax_ce_bwd}
 
 
+def gemm_expect(kernels, layers=5):
+    """The GEMM engine's launches per product that a path's kernel
+    launches imply, on a stack whose first layer's input takes no
+    gradient: one projection per LSTM forward; dW_in and dW_rec per BPTT,
+    dx per BPTT of the other layers; dh and dW per K3b, dW per K4b."""
+    fwd = sum(kernels[k] for k in ("lstm_fwd", "lstm_fwd_save",
+                                   "lstm_fwd_carry", "lstm_fwd_carry_save"))
+    bwd = kernels["lstm_bwd"] + kernels["lstm_bwd_carry"]
+    k3b, k4b = kernels["softmax_ce_proj_bwd"], kernels["softmax_ce_wide_bwd"]
+    return {"gemm:proj": fwd, "gemm:dW_in": bwd, "gemm:dW_rec": bwd,
+            "gemm:dx": bwd * (layers - 1) // layers, "gemm:tail_dh": k3b,
+            "gemm:tail_dW": k3b + k4b}
+
+
+def gemm_total(counts):
+    return sum(v for k, v in counts.items() if k.startswith("gemm:"))
+
+
 def check_counts(counts, expect):
-    """Every kernel's launches on a path's run, exactly as expected."""
+    """Every kernel's launches on a path's run, exactly as expected, and
+    the GEMM engine's per product as the kernels' imply."""
+    expect = {**expect, **gemm_expect(expect)}
     if counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
 
@@ -925,22 +969,31 @@ def profile_step(torch, lvcsr=False, remat_blocks=0):
     tr.net.remat_blocks = remat_blocks
     tr.train_step(*batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train_step(*batch)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+    # steps 1 and 2 open the trace (a window's first launches go
+    # missing), step 3 is the one recorded
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=1, warmup=1,
+                                                  active=1)) as prof:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(*batch)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+            prof.step()
     report_profile(prof, wall_us, f"one {'LVCSR' if lvcsr else 'TIMIT'} "
                    f"training step T={T_TRAIN} f32"
                    + (f" remat_blocks={remat_blocks}" if remat_blocks
                       else ""))
 
 
+def dev_us(e):
+    """A profiler event's own device microseconds."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
 def report_profile(prof, wall_us, what):
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) or 0)
     # device-side events only: a host op (an autograd node) also reports
     # the device time of the kernels it launched, which would count twice,
     # and so does a scheduled profile's step annotation
@@ -959,6 +1012,23 @@ def report_profile(prof, wall_us, what):
         if dev_us(e) > 0:
             phase("profile", f"  {dev_us(e) / 1e3:9.3f} ms  "
                   f"{e.count:5d}x  {e.key[:90]}")
+    # the GEMM engine's instances carry their product in their name
+    per = {}
+    for e in events:
+        for tag, use in GEMM_TAGS.items():
+            if "gemm_kernel<" in e.key and f"::{tag}," in e.key:
+                ms, n = per.get(use, (0.0, 0))
+                per[use] = (ms + dev_us(e) / 1e3, n + e.count)
+    if per:
+        phase("profile", "  GEMM engine by product: " + ", ".join(
+            f"{u} {ms:.3f} ms ({n}x)" for u, (ms, n) in per.items())
+            + f"; all {sum(ms for ms, _ in per.values()):.3f} ms")
+
+
+# the GEMM engine's use tags (csrc/gemm.cuh) and the products they name
+GEMM_TAGS = {"GemmDwIn": "dW_in", "GemmDwRec": "dW_rec", "GemmDx": "dx",
+             "GemmProj": "proj", "GemmTailDw": "tail dW",
+             "GemmTailDh": "tail dh"}
 
 
 def wide_cost(kind, dtype):
@@ -1837,9 +1907,11 @@ def chained_blocks_vs_whole(torch):
     if not max(e[0] for e in errs) <= CHAIN_REL:
         raise AssertionError(f"chained blocks differ from the whole layer: "
                              f"{errs}")
-    if n_c != {"lstm_fwd_carry_save": 2 * N_SEQ,
-               "lstm_bwd_carry": 2 * N_SEQ} or n_w != {"lstm_fwd_save": 1,
-                                                         "lstm_bwd": 1}:
+    gemm = ("gemm:proj", "gemm:dW_in", "gemm:dW_rec", "gemm:dx")
+    if n_c != {"lstm_fwd_carry_save": 2 * N_SEQ, "lstm_bwd_carry": 2 * N_SEQ,
+               **dict.fromkeys(gemm, 2 * N_SEQ)} or n_w != {
+                   "lstm_fwd_save": 1, "lstm_bwd": 1,
+                   **dict.fromkeys(gemm, 1)}:
         raise AssertionError(f"launches chained {n_c}, whole {n_w}")
 
 
@@ -2147,12 +2219,15 @@ def plain_kernels_vs_twins(torch):
             ms = time_ms(torch, lambda: sc.softmax_ce_fwd(a, tc, dt), 10)
             ms_nop = time_ms(torch, lambda: sc.softmax_ce_fwd(
                 a, tc, dt, want_p=False), 10)
+            dev_ms = sum(prof_ms(torch, [lambda: sc.softmax_ce_fwd(
+                a, tc, dt)], 10).values()) or None
             plain = time_ms(torch, lambda: sc.plain_fwd_reference(
                 a, tc, dt), 3)
             lib = time_ms(torch, lambda: F.cross_entropy(
                 a, tl, reduction="sum", ignore_index=-1), 10)
             res[("softmax_ce_fwd", S, name)] = dict(
                 err=err, rel=rel, loss_rel=lrel, ms=ms, plain_ms=plain,
+                device_ms=dev_ms,
                 library_ms=lib, cost=plain_cost("softmax_ce_fwd", S, name))
             phase("plain-kernel", f"K5f softmax_ce_fwd S={S} {name}: p "
                   f"max_abs_err={err:.3e} elementwise rel={rel:.3e} (tol "
@@ -2160,7 +2235,8 @@ def plain_kernels_vs_twins(torch):
                       f"{k} {v:.2e}" for k, v in ctrl.items())
                   + f"), loss rel {lrel:.2e}, count {cnt.item()} vs "
                   f"{cnt_r.item()}; kernel {ms:.3f} ms ({ms_nop:.3f} ms "
-                  f"without p); twin {plain:.3f} ms; F.cross_entropy "
+                  f"without p; on the device {fmt_ms(dev_ms)}); twin "
+                  f"{plain:.3f} ms; F.cross_entropy "
                   f"{lib:.3f} ms [N={N} S={S}]")
             if not (ctrl["zero p"] > P_REL[name]
                     and ctrl["loss of rolled targets"] > 1e-5):
@@ -2185,17 +2261,21 @@ def plain_kernels_vs_twins(torch):
                 del p32
             dummy_zero = not dz[:64].any()
             ms = time_ms(torch, lambda: sc.softmax_ce_bwd(p, tc, g), 10)
+            dev_ms = sum(prof_ms(torch, [lambda: sc.softmax_ce_bwd(
+                p, tc, g)], 10).values()) or None
             plain = time_ms(torch, lambda: sc.plain_dz_reference(p, tc, g),
                             3)
             res[("softmax_ce_bwd", S, name)] = dict(
                 err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=None,
+                device_ms=dev_ms,
                 cost=plain_cost("softmax_ce_bwd", S, name))
             phase("plain-kernel", f"K5b softmax_ce_bwd S={S} {name}: dz "
                   f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
                   f"{PLAIN_DZ_REL:.0e}; controls " + ", ".join(
                       f"{k} {v:.2e}" for k, v in ctrl.items())
                   + f"); dummy tile exactly zero: {dummy_zero}; kernel "
-                  f"{ms:.3f} ms; twin {plain:.3f} ms")
+                  f"{ms:.3f} ms (on the device {fmt_ms(dev_ms)}); twin "
+                  f"{plain:.3f} ms")
             if not all(v > PLAIN_DZ_REL for v in ctrl.values()):
                 raise AssertionError(f"the dz check passes a wrong dz: "
                                      f"{ctrl}")
@@ -2389,6 +2469,236 @@ def remat_rates_memory(torch, card):
         torch.cuda.empty_cache()
 
 
+def kernel_label(mangled):
+    """A kernel's name, and for the GEMM engine its product and dtype."""
+    import re
+    # the length-prefixed name: lowercase, after the digits of its length
+    m = re.search(r"\d+([a-z_]+?(?:kernel|partials))(?![a-z_])", mangled)
+    name = m.group(1) if m else mangled[:60]
+    if name == "gemm_kernel":
+        tag = next((t for t in GEMM_TAGS if t in mangled), "?")
+        name += f" {tag} {'bf16' if '__nv_bfloat16' in mangled else 'f32'}"
+    return name
+
+
+def report_ptxas(log):
+    """ptxas's registers and spills, one line per kernel instance."""
+    name = "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_label(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            phase("build", f"{name}: {line.split(':', 1)[1].strip()}; "
+                  f"{spill}")
+
+
+def check_hgmma(_build):
+    """The HGMMA (wgmma) instructions in the SASS of every instance of the
+    GEMM engine: the bf16 instances run on the tensor cores, the f32 ones
+    (true f32) must not."""
+    counts = _build.sass_counts("HGMMA")
+    if not counts:
+        raise AssertionError("no gemm_kernel instance in the SASS")
+    import re
+    for name, n in sorted(counts.items()):
+        src = re.search(r"_\d+_(\w+?)_cu_", name)
+        phase("build", f"SASS {n:3d} HGMMA  {kernel_label(name)} "
+              f"({src.group(1) if src else '?'}.cu)")
+        if (n > 0) != ("__nv_bfloat16" in name):
+            raise AssertionError(f"{name}: {n} HGMMA instructions")
+
+
+# the GEMM engine against its twin (phase 26), relative to each output's
+# largest entry. f32: true f32 on both sides, summed in another order. bf16:
+# exact products summed in f32, the tensor cores adding in another order
+# than the twin's matmul. Where the output is rounded to bf16 (dx's
+# planes, the tail's dh), a sum on the other side of a rounding boundary
+# moves an element by one bf16 ulp (2^-8 of it): the bound is 2^-7
+GEMM_REL = {"float32": 1e-5, "bfloat16": 1e-4}
+GEMM_ROUNDED_REL = 2.0 ** -7
+
+
+def prof_ms(torch, fns, reps):
+    """Device milliseconds of one launch of each kernel that the calls
+    fns make (each called `reps` times after a warm-up call), from one
+    profile: {kernel name: ms}, each kernel's device time over the
+    launches the profiler recorded (it may miss some). A call's host work
+    does not count, so a short kernel is not timed at the host's pace.
+    {} when three profiles in a row record no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        per = {e.key: dev_us(e) / 1e3 / e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev_us(e) > 0}
+        if per:
+            return per
+    return {}
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def gemm_cost(use, a, b, M, N, K, kw, dtype):
+    """(bytes, flops) of one engine launch: each distinct operand read
+    once (rows x cols in the operand dtype), the bias, the output written
+    once (f32; dh in the operand dtype), 2 M N K per output or group."""
+    es = 2 if dtype == "bfloat16" else 4
+    seen = {(v.t.data_ptr(), v.offset): v.rows * v.cols for v in (*a, *b)}
+    pairs = max(kw.get("outputs", 1), kw.get("ngroups", 1))
+    outs = kw.get("outputs", 1)
+    nbytes = sum(seen.values()) * es + outs * M * N * (
+        es if use == "tail_dh" else 4)
+    if use == "proj":
+        nbytes += outs * N * 4
+    return nbytes, 2 * M * N * K * pairs
+
+
+def gemm_library(torch, use, a, b, M, N, K, kw):
+    """One torch call that computes the product on the same operands
+    (laid out outside the timed call): the yardstick of library_ms."""
+    dt = a[0].t.dtype
+    if use == "proj":
+        D = kw["outputs"]
+        x, w = a[0].t, b[0].t.reshape(D, K, N)
+        bias = kw["bias"].to(dt)[:, None, :]
+        return lambda: torch.baddbmm(bias, x.expand(D, M, K), w)
+    if use == "dW_in":
+        x, da = a[0].t, b[0].t.reshape(-1, K, N)
+        return lambda: torch.matmul(x.T, da)
+    if use == "dW_rec":
+        hs, ds = [], []
+        for va, vb in zip(a, b):
+            lo, hi = max(0, -va.shift), min(K, va.rows - va.shift)
+            h = va.t.reshape(-1)[va.offset:].as_strided(
+                (va.rows, va.cols), (va.ld, 1))
+            hs.append(h[lo + va.shift:hi + va.shift])
+            ds.append(vb.t.reshape(-1, K, N)[len(ds), lo:hi])
+        hs, ds = torch.stack(hs), torch.stack(ds)
+        return lambda: torch.bmm(hs.transpose(1, 2), ds)
+    if use == "dx":
+        da = a[0].t.reshape(2, M, K)
+        w = b[0].t.reshape(2, N, K)
+        a2, w2 = torch.cat([da[0], da[1]], 1), torch.cat([w[0], w[1]], 1)
+        return lambda: torch.matmul(a2, w2.T)
+    if use == "tail_dh":
+        dz, w = a[0].t, b[0].t
+        return lambda: torch.matmul(dz, w.T)
+    h, dz = a[0].t, b[0].t
+    return lambda: torch.matmul(h.T, dz)
+
+
+def gemm_controls(torch, ge, use, a, b, M, N, K, kw, dt, want):
+    """Wrong results the check must reject: a zero output; dW_rec with
+    the other direction's shift; a weight gradient with its first split
+    dropped; dx with one direction's plane dropped; the projection with a
+    direction (or, for one direction, the bias) dropped."""
+    ref = ge.gemm_reference
+    ctrl = {"zero": torch.zeros_like(want)}
+    if use == "dW_rec":
+        flipped = [v._replace(shift=-v.shift) for v in a]
+        ctrl["other shift"] = ref(use, flipped, b, M, N, K,
+                                  compute_dtype=dt, **kw)
+    if use in ge.SPLIT_USES:
+        k1 = ge.split_ranges(K, kw["nsplit"])[0][1]
+        first = ref(use, a, b, M, N, k1, outputs=kw.get("outputs", 1),
+                    compute_dtype=dt)
+        ctrl["dropped split"] = want - first
+    if use == "dx":
+        A, B = ge._operands(use, a[1], b[1], M, N, K)
+        ctrl["one direction"] = want - (A @ B).to(dt).float()
+    if use == "proj":
+        drop = want.clone()
+        if kw["outputs"] == 2:
+            drop[1] = 0
+        else:
+            drop -= kw["bias"][:, None, :]
+        ctrl["dropped direction" if kw["outputs"] == 2 else "no bias"] = drop
+    return ctrl
+
+
+def gemm_engine_vs_twin(torch):
+    """Phase 26: the GEMM engine at every main-path shape, f32 and bf16:
+    against its twin with controls that must fail, a second launch bit
+    for bit, the device time (profiler) beside the twin's, one torch
+    call's and the bound."""
+    from lstm_rnn_tpu_torch.ops import gemm as ge
+    phase("gemm", f"TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} "
+          f"for the library calls (torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32})")
+    res = {}
+    for name in ge.MAIN_PATH_CASES:
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            gen = torch.Generator("cuda").manual_seed(SEED + 26)
+            use, a, b, M, N, K, kw = ge.main_path_case(name, dt, "cuda", gen)
+            got = ge.gemm(use, a, b, M, N, K, compute_dtype=dt, **kw)
+            again = ge.gemm(use, a, b, M, N, K, compute_dtype=dt, **kw)
+            want = ge.gemm_reference(use, a, b, M, N, K, compute_dtype=dt,
+                                     **kw)
+            torch.cuda.synchronize()
+            tol = (GEMM_ROUNDED_REL if dname == "bfloat16"
+                   and use in ("dx", "tail_dh") else GEMM_REL[dname])
+            rel, err = rel_err(got, want)
+            same = torch.equal(got, again)
+            ctrl = {k: rel_err(v, want)[0] for k, v in gemm_controls(
+                torch, ge, use, a, b, M, N, K, kw, dt, want).items()}
+            del got, again, want
+            reps = 10
+            def run():
+                return ge.gemm(use, a, b, M, N, K, compute_dtype=dt, **kw)
+            lib = gemm_library(torch, use, a, b, M, N, K, kw)
+            # the engine's kernels (the product, and the partials' sum)
+            # and the library call's, in one profile
+            per = prof_ms(torch, [run, lib], reps)
+            ours = {k: v for k, v in per.items()
+                    if "gemm_kernel" in k or "sum_partials" in k}
+            ms = sum(ours.values())
+            kms = sum(v for k, v in ours.items() if "gemm_kernel" in k)
+            lib_ms = sum(v for k, v in per.items() if k not in ours)
+            clock = "profiler"
+            if not kms or not lib_ms:  # CUDA events: host included
+                ms = kms = time_ms(torch, run, reps)
+                lib_ms = time_ms(torch, lib, reps)
+                clock = "CUDA events"
+            plain = time_ms(torch, lambda: ge.gemm_reference(
+                use, a, b, M, N, K, compute_dtype=dt, **kw), 2)
+            cost = gemm_cost(use, a, b, M, N, K, kw, dname)
+            bms, by = bound(*cost, dname)
+            res[(name, dname)] = dict(err=err, rel=rel, ms=ms,
+                                      kernel_ms=kms, plain_ms=plain,
+                                      library_ms=lib_ms, cost=cost)
+            phase("gemm", f"{name} {dname} [M={M} N={N} K={K}"
+                  + "".join(f" {k}={v}" for k, v in kw.items()
+                            if k in ("outputs", "nsplit", "ngroups"))
+                  + f"]: rel {rel:.2e} (tol {tol:.0e}; controls "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in ctrl.items())
+                  + f"); repeat bit for bit: {same}; {ms:.4f} ms on the "
+                  f"device ({clock}; {kms:.4f} in gemm_kernel, "
+                  f"{cost[1] / kms / 1e9:.1f} TFLOP/s); twin {plain:.3f} ms;"
+                  f" torch {lib_ms:.4f} ms; bound {bms:.4f} ms ({by})")
+            if not all(v > tol for v in ctrl.values()):
+                raise AssertionError(f"the GEMM check passes a wrong "
+                                     f"result: {ctrl}")
+            if not (rel <= tol and same):
+                raise AssertionError(f"the GEMM engine disagrees with its "
+                                     f"twin at {name} {dname}: {rel}")
+            del a, b, kw, lib
+            torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2411,9 +2721,8 @@ def main():
     _build.load()
     phase("build", f"kernel library ready in {time.perf_counter() - t0:.1f} s"
           f" ({os.path.relpath(_build.library_path(), REPO)})")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            phase("build", line.strip())
+    report_ptxas(_build.build_log())
+    check_hgmma(_build)
 
     with torch.inference_mode():
         res = kernel_vs_twin(torch)
@@ -2430,7 +2739,10 @@ def main():
         lvcsr_launches = lvcsr_cli(torch, workdir)
         # phase 24 compares with phase 7's trained networks, kept here
         remat_launches = remat_cli(torch, workdir, tables)
-    launches["lstm_fwd"] = launches_fwd
+    gemm_paths = {"serving": gemm_total(launches_fwd),
+                  "TIMIT training": gemm_total(launches)}
+    launches["lstm_fwd"] = launches_fwd["lstm_fwd"]
+    gemm_paths["LVCSR training"] = gemm_total(lvcsr_launches)
     for k in ("softmax_ce_wide_fwd", "softmax_ce_wide_bwd"):
         launches[k] = lvcsr_launches[k]
     train_rates(torch, card)
@@ -2444,8 +2756,9 @@ def main():
         chained_vs_whole(torch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             nc, _, tags, lengths = write_inputs(workdir)
-            launches["lstm_fwd_carry"] = stream_cli(torch, workdir, nc, tags,
-                                                    lengths)["lstm_fwd_carry"]
+            stream_launches = stream_cli(torch, workdir, nc, tags, lengths)
+        launches["lstm_fwd_carry"] = stream_launches["lstm_fwd_carry"]
+        gemm_paths["streaming"] = gemm_total(stream_launches)
         stream_rates(torch, card)
     with torch.no_grad():
         cgres = carry_grad_kernels_vs_twins(torch)
@@ -2457,6 +2770,7 @@ def main():
         sp_cli(torch, workdir)
     for k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
         launches[k] = sp_launches[k]
+    gemm_paths["SP training"] = gemm_total(sp_launches)
     sp_rates(torch, card, [sp_mesh(torch)])
     with torch.no_grad():
         pres = plain_kernels_vs_twins(torch)
@@ -2465,6 +2779,9 @@ def main():
     profile_step(torch, remat_blocks=4)
     for k in ("softmax_ce_fwd", "softmax_ce_bwd"):
         launches[k] = remat_launches[k]
+    gemm_paths["remat training"] = gemm_total(remat_launches)
+    with torch.no_grad():
+        gres = gemm_engine_vs_twin(torch)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -2529,6 +2846,36 @@ def main():
             kernels[-1]["us_per_step_bf16"] = r16["us_per_step"]
         if k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
             kernels[-1]["variant"] = "carry=True, save=True, dir_offset=0"
+        if "device_ms" in r32:  # K5 at S=183: the call's kernels alone
+            kernels[-1]["device_ms"] = r32["device_ms"]
+            kernels[-1]["device_ms_bf16"] = r16["device_ms"]
+    # the GEMM engine at the dW_in product of a TIMIT layer (P = 250: the
+    # largest share of its time on the training step), every shape beside
+    g32, g16 = gres[("dW_in:250", "float32")], gres[("dW_in:250", "bfloat16")]
+    kernels.append({
+        "name": "gemm", "route": "cuda",
+        "source": "lstm_rnn_tpu_torch/csrc/gemm.cuh",
+        "replaces": "lstm_rnn_tpu/ops/lstm_cell.py:449",
+        "replaces_also": ["lstm_rnn_tpu/ops/lstm_cell.py:227",
+                          "lstm_rnn_tpu/ops/lstm_cell.py:475",
+                          "lstm_rnn_tpu/ops/lstm_cell.py:491",
+                          "lstm_rnn_tpu/ops/softmax_ce.py:361",
+                          "lstm_rnn_tpu/ops/softmax_ce.py:575"],
+        "variant": "dW_in at P=250 (T*B=25,000 rows, two directions)",
+        "launches": sum(gemm_paths.values()),
+        "launches_by_path": gemm_paths,
+        "max_abs_err": g32["err"], "ms": g32["ms"],
+        "plain_ms": g32["plain_ms"],
+        "bound_ms": bound(*g32["cost"], "float32")[0],
+        "bound_by": bound(*g32["cost"], "float32")[1],
+        "library_ms": g32["library_ms"],
+        "max_abs_err_bf16": g16["err"], "ms_bf16": g16["ms"],
+        "plain_ms_bf16": g16["plain_ms"],
+        "bound_ms_bf16": bound(*g16["cost"], "bfloat16")[0],
+        "library_ms_bf16": g16["library_ms"],
+        "shapes": {f"{n} {d}": {"ms": r["ms"], "library_ms": r["library_ms"],
+                                "bound_ms": bound(*r["cost"], d)[0]}
+                   for (n, d), r in gres.items()}})
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,63 @@
-// A tiled shared-memory GEMM with transpose flags, and a deterministic
-// reduction of partial sums, for the training kernels (lstm_bwd.cu,
-// softmax_ce.cu). The TPU kernels compute these matrix products in their
-// own bodies (dW_in = x^T . da, dW_rec = h_prev^T . da, dx = da . W_in^T,
-// logits = h . W, dh = dz . W^T, dW = h^T . dz); here they run in this
-// hand-written kernel, on the FP32 pipes (bf16 operands are exact in f32).
+// The matrix-product engine of the LSTM and tail kernels, for NVIDIA
+// Hopper (sm_90a): one GEMM with transpose flags, a row shift, two operand
+// pairs per launch, split-K into per-split partials and a deterministic
+// reduction of them. The TPU kernels compute these products in their own
+// bodies (lstm_rnn_tpu/ops/lstm_cell.py: the projection x . W_in + b at
+// :227; dW_in = x^T . da, dW_rec = h_prev^T . da and dx = da . W_in^T at
+// :449, :475 and :491; ops/softmax_ce.py: the tails' dh = dz . W^T and
+// dW = h^T . dz in _bwd_proj_kernel and _bwd_wide_kernel); here every one
+// of them, for K0, K1, K2, K3b, K4b, K6f, K6b-f and K6b-b, runs in
+// gemm_kernel. (K3f's in-kernel logits product is softmax_ce.cu's own
+// tile_mma.)
 //
 // An operand is a View: element (r, c) of a row-major matrix with leading
 // dimension `ld`, rows shifted by `shift` (the scan-previous h of dW_rec),
 // zero outside [0, rows) x [0, cols). A(m, k) = a(m, k), or a(k, m) when
-// transposed; B(k, n) = b(k, n), or b(n, k) when transposed. Each tile is
-// loaded along the operand's contiguous axis, so neighbouring threads read
-// neighbouring addresses.
+// transposed; B(k, n) = b(k, n), or b(n, k) when transposed. A launch
+// computes, for output d (grid.z = outputs * nsplit), split s of the K
+// range, pair d's A . B through the epilogue; with ngroups > 1 (one
+// output, one split) the sum over g of round_to<R>(A_g . B_g), each
+// pair's product rounded before it is added (dx of a BLSTM layer: one
+// plane per direction, rounded to the storage dtype).
 //
-// Split-K (long reductions over T*B rows) writes one partial product per
-// split; sum_partials adds them in a fixed order: the result does not
-// depend on scheduling, and no float atomics are used.
+// Design and what bounds it on this card. The products are large (dW at
+// M = 117-250, N = 500 or 10,112 over K = 25,000 rows; dx, dh and the
+// projection at M = 4,096-40,000), so operations bound them: 67 TFLOP/s
+// on the FP32 pipes for f32 parity mode (true f32: the tensor cores have
+// no f32 mode, and TF32 would change the numbers), 989 TFLOP/s on the
+// tensor cores for bf16 operands. Two bodies, one kernel:
+//
+// * bf16 (gemm_wgmma): a 128 x 128 block tile, two warpgroups each
+//   computing 64 x 128 with wgmma.mma_async m64n128k16 (f32 accumulators
+//   in registers, both operands in shared memory), BK = 64 per stage in a
+//   ring of three stages. Operands whose contiguous axis is K are stored
+//   K-major, the others (x^T, h^T, da and dz of the dW products, W_in of
+//   the projection) MN-major, read through wgmma's transpose bits: no
+//   copy is transposed. Both layouts use the 128-byte swizzle, so the stores
+//   and wgmma's reads are free of bank conflicts. The main path's
+//   operands rarely allow TMA or cp.async (bf16 rows of 117, 125, 183 and
+//   250 elements are 2- or 4-byte aligned), so every thread stages 16-byte
+//   segments through registers with the widest load that the operand's
+//   base and ld allow (decided on the host, View::vec), zero-filled at
+//   the edges: the loads of stage k+2 are in flight while the tensor
+//   cores run stage k, and the stores land while stage k+1 waits in the
+//   ring.
+// * f32 (gemm_simt): a register-blocked SIMT GEMM, 128 x 128 block tile,
+//   256 threads with 8 x 8 outputs each (a warp covers 64 x 32 as 8 x 4
+//   threads, each thread two 4-row and two 4-column strips): four 16-byte
+//   shared loads feed 64 FMAs. BK = 16 in a ring of three k-major stages
+//   (dynamic shared memory, 50.7 KB: two blocks share an SM at 128
+//   registers without spills), padded so that the transposing writes are
+//   free of bank conflicts, filled by cp.async element by element (4
+//   bytes: any f32 row allows it, and the copy zero-fills the edges), so
+//   two stages of loads are in flight while one computes and no register
+//   holds them.
+//
+// Split-K writes one partial product per split (splits start on a
+// stage boundary); sum_partials adds them in a fixed order, so the result
+// does not depend on scheduling, and no float atomics are used. The first
+// template argument of gemm_kernel names the product (GemmProj, GemmDwIn,
+// ...), so that a profile tells the uses apart.
 
 #pragma once
 
@@ -22,13 +65,10 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
-
-constexpr int kGemmTileM = 64;
-constexpr int kGemmTileN = 64;
-constexpr int kGemmTileK = 16;
-constexpr int kGemmThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
 __device__ __forceinline__ float as_f32(float v) { return v; }
 __device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
@@ -52,11 +92,20 @@ __device__ __forceinline__ float round_to(float v) {
   return as_f32(f32_to<T>(v));
 }
 
+// The engine's uses, named in the kernel's first template argument.
+struct GemmProj {};    // x . W_in[d] + bias_mult * b[d] (K0, K1, K6f, K6b-f)
+struct GemmDwIn {};    // x^T . da[d] (K2, K6b-b)
+struct GemmDwRec {};   // h_prev^T . da[d] (K2, K6b-b)
+struct GemmDx {};      // sum_d round(da[d] . W_in[d]^T) (K2, K6b-b)
+struct GemmTailDh {};  // dz . W^T (K3b)
+struct GemmTailDw {};  // h^T . dz (K3b, K4b)
+
 template <typename T>
 struct View {
   const T* p;
   long long ld;
   int rows, cols, shift;
+  int vec;  // bytes of the widest load p and ld allow: 2 (bf16), 4, 8, 16
   __device__ __forceinline__ float operator()(int r, int c) const {
     const int rr = r + shift;
     if (rr < 0 || rr >= rows || c >= cols) return 0.0f;
@@ -67,70 +116,58 @@ struct View {
 template <typename T>
 __host__ __device__ View<T> make_view(const void* p, long long ld, int rows,
                                       int cols, int shift = 0) {
-  return View<T>{static_cast<const T*>(p), ld, rows, cols, shift};
+  // the lowest set bit of (address | row bytes | 16)
+  const unsigned long long bits = reinterpret_cast<unsigned long long>(p) |
+                                  static_cast<unsigned long long>(ld) *
+                                      sizeof(T) |
+                                  16ull;
+  return View<T>{static_cast<const T*>(p), ld, rows, cols, shift,
+                 static_cast<int>(bits & (~bits + 1))};
 }
 
-using TileA = float[kGemmTileK][kGemmTileM + 4];  // k-major
-using TileB = float[kGemmTileK][kGemmTileN + 4];
-
-// acc += A[m0:m0+64, k_begin:k_end] . B[k_begin:k_end, n0:n0+64] for this
-// thread's 4 x 4 outputs (rows tm.., columns tn.. of the tile). Every
-// thread of the block must call it (it synchronises).
-template <bool kTA, bool kTB, typename TA, typename TB>
-__device__ __forceinline__ void tile_mma(const View<TA>& a,
-                                         const View<TB>& b, int m0, int n0,
-                                         int k_begin, int k_end,
-                                         float (&acc)[4][4], TileA& as,
-                                         TileB& bs) {
-  const int tid = threadIdx.x;
-  const int tm = (tid / 16) * 4;
-  const int tn = (tid % 16) * 4;
-  for (int k0 = k_begin; k0 < k_end; k0 += kGemmTileK) {
-    for (int i = tid; i < kGemmTileM * kGemmTileK; i += kGemmThreads) {
-      int mm, kk;
-      if (kTA) {
-        kk = i / kGemmTileM;
-        mm = i % kGemmTileM;
-      } else {
-        mm = i / kGemmTileK;
-        kk = i % kGemmTileK;
-      }
-      const int k = k0 + kk;
-      as[kk][mm] = k < k_end ? (kTA ? a(k, m0 + mm) : a(m0 + mm, k)) : 0.0f;
+// 16 bytes of row r of v from column c (c a multiple of 16 / sizeof(T)):
+// zero where !ok, outside [0, rows) and at columns >= cend
+template <typename T>
+__device__ __forceinline__ uint4 load_seg(const View<T>& v, int r, int c,
+                                          int cend, bool ok) {
+  constexpr int E = 16 / sizeof(T);
+  using Bits = typename std::conditional<sizeof(T) == 2, unsigned short,
+                                         unsigned int>::type;
+  union {
+    uint4 q;
+    uint2 h[2];
+    unsigned int w[4];
+    Bits e[E];
+  } s;
+  s.q = make_uint4(0u, 0u, 0u, 0u);
+  const int rr = r + v.shift;
+  if (!ok || rr < 0 || rr >= v.rows || c >= cend) return s.q;
+  const T* p = v.p + static_cast<size_t>(rr) * v.ld + c;
+  if (c + E <= cend && v.vec >= 4) {
+    if (v.vec == 16) return *reinterpret_cast<const uint4*>(p);
+    if (v.vec == 8) {
+      const uint2* q = reinterpret_cast<const uint2*>(p);
+      s.h[0] = q[0];
+      s.h[1] = q[1];
+      return s.q;
     }
-    for (int i = tid; i < kGemmTileK * kGemmTileN; i += kGemmThreads) {
-      int nn, kk;
-      if (kTB) {
-        nn = i / kGemmTileK;
-        kk = i % kGemmTileK;
-      } else {
-        kk = i / kGemmTileN;
-        nn = i % kGemmTileN;
-      }
-      const int k = k0 + kk;
-      bs[kk][nn] = k < k_end ? (kTB ? b(n0 + nn, k) : b(k, n0 + nn)) : 0.0f;
-    }
-    __syncthreads();
+    const unsigned int* q = reinterpret_cast<const unsigned int*>(p);
 #pragma unroll
-    for (int kk = 0; kk < kGemmTileK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][tm]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tn]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < 4; ++i) s.w[i] = q[i];
+    return s.q;
   }
+  const Bits* q = reinterpret_cast<const Bits*>(p);
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    if (c + i < cend) s.e[i] = q[i];
+  return s.q;
 }
 
 // Operands of one launch: up to two (A, B) pairs, one per direction.
-template <typename TA, typename TB>
+template <typename T>
 struct GemmArgs {
-  View<TA> a[2];
-  View<TB> b[2];
+  View<T> a[2];
+  View<T> b[2];
   int M, N, K;
   // grid.z = outputs * nsplit: output d = z / nsplit takes pair d and the
   // K range of split z % nsplit. ngroups > 1 (one output, nsplit = 1): the
@@ -140,40 +177,40 @@ struct GemmArgs {
   int ngroups;
 };
 
-template <typename TA, bool kTA, typename TB, bool kTB, typename R,
-          class Epi>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(GemmArgs<TA, TB> g, Epi epi) {
-  __shared__ __align__(16) TileA as;
-  __shared__ __align__(16) TileB bs;
-  const int z = blockIdx.z;
-  const int d = z / g.nsplit;
-  const int split = z % g.nsplit;
-  const int kchunk = (g.K + g.nsplit - 1) / g.nsplit;
-  const int k_begin = split * kchunk;
-  const int k_end = min(g.K, k_begin + kchunk);
-  const int m0 = blockIdx.x * kGemmTileM;
-  const int n0 = blockIdx.y * kGemmTileN;
-  float total[4][4] = {};
-  for (int gi = 0; gi < g.ngroups; ++gi) {
-    const int v = g.ngroups > 1 ? gi : d;
-    float acc[4][4] = {};
-    tile_mma<kTA, kTB>(g.a[v], g.b[v], m0, n0, k_begin, k_end, acc, as, bs);
+constexpr int kEngineBM = 128;  // block tile, both bodies
+constexpr int kEngineBN = 128;
+constexpr int kEngineThreads = 256;
+constexpr int kSimtBK = 16;
+constexpr int kSimtStages = 3;
+constexpr int kSimtPad = 4;  // k-major rows of 132 floats
+constexpr int kWgBK = 64;    // 128 bytes of bf16: one swizzle row
+constexpr int kWgStages = 3;
+constexpr int kWgTileBytes = kEngineBM * kWgBK * 2;  // one operand's stage
+constexpr int kWgSmem = kWgStages * 2 * kWgTileBytes + 1024;
+constexpr int kSimtSmem =
+    kSimtStages * 2 * kSimtBK * (kEngineBM + kSimtPad) * 4;
+
+// Epilogues: epi.put<W>(d, split, m, n, v, add) takes output d's elements
+// (m, n .. n + W - 1) of split `split` in one store, and returns false,
+// storing nothing, where that store would be misaligned (the caller then
+// puts them one by one); add is true for every group after the first
+// (ngroups > 1), which the output adds to the value already there.
+
+// v into W consecutive floats at dst (plus what is there when add)
+template <int W>
+__device__ __forceinline__ bool put_f32(float* dst, const float (&v)[W],
+                                        bool add) {
+  if (reinterpret_cast<unsigned long long>(dst) % (4 * W)) return false;
+  float t[W];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) total[i][j] += round_to<R>(acc[i][j]);
-  }
-  const int tm = (threadIdx.x / 16) * 4;
-  const int tn = (threadIdx.x % 16) * 4;
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + tm + i;
-    if (m >= g.M) continue;
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tn + j;
-      if (n < g.N) epi(d, split, m, n, total[i][j]);
-    }
-  }
+  for (int i = 0; i < W; ++i) t[i] = add ? dst[i] + v[i] : v[i];
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(t[0], t[1], t[2], t[3]);
+  else if constexpr (W == 2)
+    *reinterpret_cast<float2*>(dst) = make_float2(t[0], t[1]);
+  else
+    *dst = t[0];
+  return true;
 }
 
 // out[m, n] (row-major, ld N) in the output type
@@ -181,9 +218,26 @@ template <typename Out>
 struct EpiStore {
   Out* out;
   int N;
-  __device__ __forceinline__ void operator()(int, int, int m, int n,
-                                             float v) const {
-    out[static_cast<size_t>(m) * N + n] = f32_to<Out>(v);
+  template <int W>
+  __device__ __forceinline__ bool put(int, int, int m, int n,
+                                      const float (&v)[W], bool add) const {
+    Out* o = out + static_cast<size_t>(m) * N + n;
+    if constexpr (std::is_same<Out, float>::value) {
+      return put_f32<W>(o, v, add);
+    } else {
+      if constexpr (W == 1) {
+        *o = f32_to<Out>(add ? as_f32(*o) + v[0] : v[0]);
+        return true;
+      } else {
+        if (add || reinterpret_cast<unsigned long long>(o) % (2 * W))
+          return false;
+#pragma unroll
+        for (int i = 0; i < W; i += 2)
+          *reinterpret_cast<__nv_bfloat162*>(o + i) =
+              __floats2bfloat162_rn(v[i], v[i + 1]);
+        return true;
+      }
+    }
   }
 };
 
@@ -192,28 +246,464 @@ struct EpiPartial {
   float* part;
   long long split_stride, d_stride;
   int N;
-  __device__ __forceinline__ void operator()(int d, int split, int m, int n,
-                                             float v) const {
-    part[split * split_stride + d * d_stride + static_cast<long long>(m) * N +
-         n] = v;
+  template <int W>
+  __device__ __forceinline__ bool put(int d, int split, int m, int n,
+                                      const float (&v)[W], bool) const {
+    return put_f32<W>(part + split * split_stride + d * d_stride +
+                          static_cast<long long>(m) * N + n,
+                      v, false);
   }
 };
 
-template <typename TA, bool kTA, typename TB, bool kTB, typename R,
-          class Epi>
-cudaError_t launch_gemm(const GemmArgs<TA, TB>& g, int outputs, Epi epi,
+// out[d, m, n] = v + bias_mult * bias[d, n] (f32), the bias product
+// rounded on its own, as the reference adds bias_mult * bias to the
+// finished matmul
+struct EpiBias {
+  float* out;
+  const float* bias;
+  float bias_mult;
+  long long d_stride;
+  int N;
+  template <int W>
+  __device__ __forceinline__ bool put(int d, int, int m, int n,
+                                      const float (&v)[W], bool) const {
+    float t[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      t[i] = v[i] + __fmul_rn(bias_mult, bias[d * N + n + i]);
+    return put_f32<W>(out + d * d_stride + static_cast<long long>(m) * N + n,
+                      t, false);
+  }
+};
+
+// output elements (m, n .. n + W - 1), those below N, through the
+// epilogue: one store where it is aligned, else one by one
+template <int W, class Epi>
+__device__ __forceinline__ void epi_put(const Epi& epi, int d, int split,
+                                        int m, int n, int N,
+                                        const float (&v)[W], bool add) {
+  if (n + W <= N && epi.template put<W>(d, split, m, n, v, add)) return;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float one[1] = {v[i]};
+    if (n + i < N) epi.template put<1>(d, split, m, n + i, one, add);
+  }
+}
+
+// ------------------------------------------------------------ f32: SIMT
+struct SimtStage {
+  float a[kSimtBK][kEngineBM + kSimtPad];  // A(m, k) at a[k][m]
+  float b[kSimtBK][kEngineBN + kSimtPad];  // B(k, n) at b[k][n]
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One stage's 4 elements of v for this thread, by cp.async (4 bytes each,
+// zero-filled where invalid): along a row (r, c .. c + 3), valid columns
+// below cend, into dst[0], dst[stride], ...; the row is valid when ok and
+// r + shift lies in [0, rows).
+__device__ __forceinline__ void simt_copy4(const View<float>& v, int r, int c,
+                                           int cend, bool ok, float* dst,
+                                           int stride) {
+  const int rr = r + v.shift;
+  ok = ok && rr >= 0 && rr < v.rows;
+  const float* row = ok ? v.p + static_cast<size_t>(rr) * v.ld : v.p;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bool in = ok && c + e < cend;
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + e * stride));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(in ? row + c + e : v.p), "r"(in ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// Start stage k0's copies: thread t moves 4 elements of A and 4 of B. Along
+// K (A untransposed, B transposed): row t / 2, k from 4 (t % 2), stored
+// down the k-major tile; across (the other two): k-row t / 32, m or n
+// from 4 (t % 32), stored along it.
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void simt_fetch(const View<float>& a,
+                                           const View<float>& b, int m0,
+                                           int n0, int k0, int k_end,
+                                           SimtStage& st) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int h = 0; h < kSimtBK; h += 8) {  // 8 k of A and of B per pass
+    const int ka = h + (t % 2) * 4, kr = h + t / 32, c4 = (t % 32) * 4;
+    if (!kTA)
+      simt_copy4(a, m0 + t / 2, k0 + ka, min(a.cols, k_end), true,
+                 &st.a[ka][t / 2], kEngineBM + kSimtPad);
+    else
+      simt_copy4(a, k0 + kr, m0 + c4, a.cols, k0 + kr < k_end,
+                 &st.a[kr][c4], 1);
+    if (kTB)
+      simt_copy4(b, n0 + t / 2, k0 + ka, min(b.cols, k_end), true,
+                 &st.b[ka][t / 2], kEngineBN + kSimtPad);
+    else
+      simt_copy4(b, k0 + kr, n0 + c4, b.cols, k0 + kr < k_end,
+                 &st.b[kr][c4], 1);
+  }
+}
+
+// acc[i][j] = A(m0 + simt_row(i), k range) . B(k range, n0 + simt_col(j))
+__device__ __forceinline__ int simt_row(int i) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp / 4) * 64 + (i / 4) * 32 + (lane / 4) * 4 + i % 4;
+}
+__device__ __forceinline__ int simt_col(int j) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp % 4) * 32 + (j / 4) * 16 + (lane % 4) * 4 + j % 4;
+}
+
+// A ring of kSimtStages stages: the copies of the next ones are in flight
+// while one computes
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void simt_mainloop(const View<float>& a,
+                                              const View<float>& b, int m0,
+                                              int n0, int k_begin, int k_end,
+                                              float (&acc)[8][8],
+                                              SimtStage* st) {
+  const int nk = (k_end - k_begin + kSimtBK - 1) / kSimtBK;
+  if (nk <= 0) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ar = (warp / 4) * 64 + (lane / 4) * 4;
+  const int bc = (warp % 4) * 32 + (lane % 4) * 4;
+#pragma unroll
+  for (int s = 0; s < kSimtStages - 1; ++s) {
+    if (s < nk)
+      simt_fetch<kTA, kTB>(a, b, m0, n0, k_begin + s * kSimtBK, k_end, st[s]);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // stage kt has landed for every thread, and every thread is done with
+    // stage kt - 1, which the copies below refill
+    cp_async_wait<kSimtStages - 2>();
+    __syncthreads();
+    const int next = kt + kSimtStages - 1;
+    if (next < nk)
+      simt_fetch<kTA, kTB>(a, b, m0, n0, k_begin + next * kSimtBK, k_end,
+                           st[next % kSimtStages]);
+    cp_async_commit();
+    const SimtStage& cur = st[kt % kSimtStages];
+#pragma unroll
+    for (int kk = 0; kk < kSimtBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&cur.a[kk][ar]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&cur.a[kk][ar + 32]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&cur.b[kk][bc]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&cur.b[kk][bc + 16]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next group
+}
+
+template <bool kTA, bool kTB, typename R, class Epi>
+__device__ __forceinline__ void gemm_simt(const GemmArgs<float>& g,
+                                          const Epi& epi) {
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  SimtStage* st = reinterpret_cast<SimtStage*>(gemm_smem);
+  const int z = blockIdx.z;
+  const int d = z / g.nsplit;
+  const int split = z % g.nsplit;
+  const int m0 = blockIdx.x * kEngineBM;
+  const int n0 = blockIdx.y * kEngineBN;
+  const int kchunk =
+      ((g.K + g.nsplit - 1) / g.nsplit + kWgBK - 1) / kWgBK * kWgBK;
+  const int k_begin = split * kchunk;
+  const int k_end = min(g.K, k_begin + kchunk);
+  for (int gi = 0; gi < g.ngroups; ++gi) {
+    const int v = g.ngroups > 1 ? gi : d;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    simt_mainloop<kTA, kTB>(g.a[v], g.b[v], m0, n0, k_begin, k_end, acc, st);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + simt_row(i);
+      if (m >= g.M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; j += 4) {  // four adjacent columns
+        const float v[4] = {round_to<R>(acc[i][j]), round_to<R>(acc[i][j + 1]),
+                            round_to<R>(acc[i][j + 2]),
+                            round_to<R>(acc[i][j + 3])};
+        epi_put<4>(epi, d, split, m, n0 + simt_col(j), g.N, v, gi > 0);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- bf16: wgmma
+// A stage holds A [128 x 64] then B [64 x 128], 16 KB each, in wgmma's
+// 128-byte-swizzled layouts: K-major, row r (m or n) at r * 128 bytes with
+// its eight 16-byte k chunks; MN-major, per 64-wide m/n atom (8 KB each)
+// k-row k at k * 128 bytes with its eight 16-byte m/n chunks. The swizzle
+// moves chunk j of 128-byte row i to chunk j ^ (i % 8) inside each
+// 1024-byte group, which the hardware undoes from the address bits.
+__device__ __forceinline__ unsigned swz(unsigned off) {
+  return off ^ ((off >> 3) & 0x70u);
+}
+
+// wgmma's shared-memory descriptor. MN-major: lbo the stride of the 64-wide
+// m/n atoms, sbo that of the 8-row k groups; K-major: sbo the stride of
+// the 8-row m/n groups (lbo unused by the 128-byte swizzle: 16)
+__device__ __forceinline__ unsigned long long wg_desc(unsigned saddr,
+                                                      unsigned lbo,
+                                                      unsigned sbo) {
+  return static_cast<unsigned long long>((saddr & 0x3FFFFu) >> 4) |
+         static_cast<unsigned long long>((lbo & 0x3FFFFu) >> 4) << 16 |
+         static_cast<unsigned long long>((sbo & 0x3FFFFu) >> 4) << 32 |
+         1ull << 62;  // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator registers across an
+// asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A . B for one 64 x 128 x 16 step; kTA / kTB: the operand is
+// MN-major (wgmma's transpose bit)
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 unsigned long long da,
+                                                 unsigned long long db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// One stage's operands in registers: four 16-byte segments of A and four
+// of B per thread (segment s = t + 256 i of the stage's 1,024). K-major:
+// row s / 8, k chunk s % 8; MN-major: k-row s / 16, m/n chunk s % 16.
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void wg_load(const View<__nv_bfloat16>& a,
+                                        const View<__nv_bfloat16>& b, int m0,
+                                        int n0, int k0, int k_end,
+                                        uint4 (&ra)[4], uint4 (&rb)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = threadIdx.x + kEngineThreads * i;
+    if (!kTA)
+      ra[i] = load_seg(a, m0 + s / 8, k0 + (s % 8) * 8, min(a.cols, k_end),
+                       true);
+    else
+      ra[i] = load_seg(a, k0 + s / 16, m0 + (s % 16) * 8, a.cols,
+                       k0 + s / 16 < k_end);
+    if (kTB)
+      rb[i] = load_seg(b, n0 + s / 8, k0 + (s % 8) * 8, min(b.cols, k_end),
+                       true);
+    else
+      rb[i] = load_seg(b, k0 + s / 16, n0 + (s % 16) * 8, b.cols,
+                       k0 + s / 16 < k_end);
+  }
+}
+
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void wg_store(unsigned char* stage,
+                                         const uint4 (&ra)[4],
+                                         const uint4 (&rb)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned s = threadIdx.x + kEngineThreads * i;
+    const unsigned kmaj = (s / 8) * 128 + (s % 8) * 16;
+    const unsigned mnmaj = (s % 16) / 8 * 8192 + (s / 16) * 128 +
+                           (s % 8) * 16;
+    *reinterpret_cast<uint4*>(stage + swz(kTA ? mnmaj : kmaj)) = ra[i];
+    *reinterpret_cast<uint4*>(stage + kWgTileBytes +
+                              swz(kTB ? kmaj : mnmaj)) = rb[i];
+  }
+}
+
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void wg_mainloop(
+    const View<__nv_bfloat16>& a, const View<__nv_bfloat16>& b, int m0,
+    int n0, int k_begin, int k_end, float (&acc)[64], unsigned char* smem) {
+  const int nk = (k_end - k_begin + kWgBK - 1) / kWgBK;
+  if (nk <= 0) return;
+  const int wg = threadIdx.x / 128;
+  const unsigned sbase =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  uint4 ra[4], rb[4];
+  for (int s = 0; s < 2 && s < nk; ++s) {
+    wg_load<kTA, kTB>(a, b, m0, n0, k_begin + s * kWgBK, k_end, ra, rb);
+    wg_store<kTA, kTB>(smem + s * 2 * kWgTileBytes, ra, rb);
+  }
+  fence_async_smem();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 2 < nk;
+    if (more)
+      wg_load<kTA, kTB>(a, b, m0, n0, k_begin + (kt + 2) * kWgBK, k_end, ra,
+                        rb);
+    // this warpgroup's 64 rows of A (one m atom, or rows 64 wg ..) and all
+    // of B; a k16 step is 32 bytes along a K-major row, 16 k-rows (2,048
+    // bytes) of an MN-major atom
+    const unsigned sa =
+        sbase + (kt % kWgStages) * 2 * kWgTileBytes + wg * 8192;
+    const unsigned sb =
+        sbase + (kt % kWgStages) * 2 * kWgTileBytes + kWgTileBytes;
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < kWgBK / 16; ++j) {
+      const unsigned long long da =
+          wg_desc(sa + j * (kTA ? 2048 : 32), kTA ? 8192 : 16, 1024);
+      const unsigned long long db =
+          wg_desc(sb + j * (kTB ? 32 : 2048), kTB ? 16 : 8192, 1024);
+      wgmma_m64n128k16<kTA ? 1 : 0, kTB ? 0 : 1>(acc, da, db);
+    }
+    wg_commit();
+    wg_wait<1>();
+    fence_acc(acc);
+    // every warpgroup is done with stage kt - 1, which the stores below
+    // refill, and the stores of the iteration before (stage kt + 1) are
+    // visible to the next wgmma
+    __syncthreads();
+    if (more) {
+      wg_store<kTA, kTB>(smem + ((kt + 2) % kWgStages) * 2 * kWgTileBytes,
+                         ra, rb);
+      fence_async_smem();
+    }
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+}
+
+template <bool kTA, bool kTB, typename R, class Epi>
+__device__ __forceinline__ void gemm_wgmma(const GemmArgs<__nv_bfloat16>& g,
+                                           const Epi& epi) {
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  // the swizzle repeats every 1024 bytes: align the ring to it
+  const unsigned s0 =
+      static_cast<unsigned>(__cvta_generic_to_shared(gemm_smem));
+  unsigned char* smem = gemm_smem + ((1024u - (s0 & 1023u)) & 1023u);
+  const int z = blockIdx.z;
+  const int d = z / g.nsplit;
+  const int split = z % g.nsplit;
+  const int m0 = blockIdx.x * kEngineBM;
+  const int n0 = blockIdx.y * kEngineBN;
+  const int kchunk =
+      ((g.K + g.nsplit - 1) / g.nsplit + kWgBK - 1) / kWgBK * kWgBK;
+  const int k_begin = split * kchunk;
+  const int k_end = min(g.K, k_begin + kchunk);
+  // accumulator fragment of m64nNk16: warp w of the warpgroup holds rows
+  // 16 w .. 16 w + 15; register 4 j + q is row lane / 4 + 8 (q / 2),
+  // column 8 j + 2 (lane % 4) + q % 2
+  const int lane = threadIdx.x % 32;
+  const int row0 =
+      m0 + (threadIdx.x / 128) * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+  const int col0 = n0 + (lane % 4) * 2;
+  for (int gi = 0; gi < g.ngroups; ++gi) {
+    const int v = g.ngroups > 1 ? gi : d;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    if (gi > 0) __syncthreads();  // the last group's wgmma read the ring
+    wg_mainloop<kTA, kTB>(g.a[v], g.b[v], m0, n0, k_begin, k_end, acc, smem);
+    // two adjacent columns in one store, but for the split-K partials:
+    // there the wider store's address arithmetic spills, and costs more
+    // than it saves
+    constexpr int kW = std::is_same<Epi, EpiPartial>::value ? 1 : 2;
+#pragma unroll
+    for (int i = 0; i < 64; i += kW) {
+      const int m = row0 + 8 * ((i % 4) / 2);
+      float v[kW];
+#pragma unroll
+      for (int w = 0; w < kW; ++w) v[w] = round_to<R>(acc[i + w]);
+      if (m < g.M)
+        epi_put<kW>(epi, d, split, m, col0 + 8 * (i / 4) + i % 2, g.N, v,
+                    gi > 0);
+    }
+  }
+}
+
+// Use names the product (for a profile); T is float (the SIMT body) or
+// __nv_bfloat16 (wgmma); R is the type each group's product is rounded to.
+// Two blocks share an SM: each one's loads and epilogue hide behind the
+// other's products.
+template <class Use, typename T, bool kTA, bool kTB, typename R, class Epi>
+__global__ void __launch_bounds__(kEngineThreads, 2)
+    gemm_kernel(GemmArgs<T> g, Epi epi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    gemm_wgmma<kTA, kTB, R>(g, epi);
+  else
+    gemm_simt<kTA, kTB, R>(g, epi);
+}
+
+template <class Use, typename T, bool kTA, bool kTB, typename R, class Epi>
+cudaError_t launch_gemm(const GemmArgs<T>& g, int outputs, Epi epi,
                         cudaStream_t stream) {
-  const dim3 grid((g.M + kGemmTileM - 1) / kGemmTileM,
-                  (g.N + kGemmTileN - 1) / kGemmTileN, outputs * g.nsplit);
-  gemm_kernel<TA, kTA, TB, kTB, R, Epi>
-      <<<grid, kGemmThreads, 0, stream>>>(g, epi);
+  const dim3 grid((g.M + kEngineBM - 1) / kEngineBM,
+                  (g.N + kEngineBN - 1) / kEngineBN, outputs * g.nsplit);
+  auto kernel = gemm_kernel<Use, T, kTA, kTB, R, Epi>;
+  const int smem =
+      std::is_same<T, __nv_bfloat16>::value ? kWgSmem : kSimtSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kEngineThreads, smem, stream>>>(g, epi);
   return cudaGetLastError();
 }
 
-// K splits for a reduction of length K: about one split per 1024 rows,
-// at most 32 (the partial buffer holds nsplit copies of the output)
+// K splits for a reduction of length K: about one split per 192 rows, at
+// most 32 (the partial buffer holds nsplit copies of the output), so that
+// a dW of a few output tiles still fills the card
 inline int gemm_splits(int K) {
-  int s = K / 1024;
+  int s = K / 192;
   return s < 1 ? 1 : (s > 32 ? 32 : s);
 }
 

@@ -52,10 +52,11 @@
 //    in the storage dtype and adds its dpeep/dbias terms into per-block
 //    partial sums (one row of [ceil(B/4), D, 7H] per block). Each block
 //    stops at the longest row of its block and writes zero deltas after it.
-// 2. dW_in and dW_rec: gemm.cuh's tiled GEMM over the T*B rows, split-K
-//    into per-split partials, summed in order by sum_partials (the TPU
-//    kernel accumulates them chunk by chunk in VMEM; here da makes one
-//    round trip through device memory).
+// 2. dW_in and dW_rec: gemm.cuh's GEMM (wgmma in bf16, a register-blocked
+//    SIMT body in f32) over the T*B rows, split-K into per-split partials,
+//    summed in order by sum_partials (the TPU kernel accumulates them
+//    chunk by chunk in VMEM; here da makes one round trip through device
+//    memory).
 // 3. dx = sum_d da[d] . W_in[d]^T, the same GEMM, both directions in one
 //    launch (skipped for the first hidden layer, need_dx = 0).
 // 4. sum_partials for dpeep/dbias (times bias_mult for dbias).
@@ -471,10 +472,10 @@ cudaError_t launch_bptt_w(const void* dh, const void* gates, const float* c,
       state, stream);
 }
 
-// The weight gradients and dx from da. X: compute dtype of x and W_in;
-// S: storage dtype of h and da. Direction dd's scan ascends time when
-// dd + dir_offset == 0.
-template <typename X, typename S>
+// The weight gradients and dx from da. S: the dtype of x, W_in, h and da
+// (the compute and storage dtypes are one in each mode). Direction dd's
+// scan ascends time when dd + dir_offset == 0.
+template <typename S>
 cudaError_t launch_grads(const void* x, const void* h, const void* da,
                          const void* w_in, float* dx, float* w_part,
                          float* w_out, int T, int B, int P, int H, int D,
@@ -486,9 +487,9 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
   const long long L_all = L_in + static_cast<long long>(D) * H * G;
   cudaError_t err;
   {  // dW_in[d] = x^T . da[d]
-    GemmArgs<X, S> g{};
+    GemmArgs<S> g{};
     for (int dd = 0; dd < D; ++dd) {
-      g.a[dd] = make_view<X>(x, P, M, P);
+      g.a[dd] = make_view<S>(x, P, M, P);
       g.b[dd] = make_view<S>(static_cast<const S*>(da) +
                                  static_cast<size_t>(dd) * M * G,
                              G, M, G);
@@ -498,13 +499,13 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
     g.K = M;
     g.nsplit = ns;
     g.ngroups = 1;
-    err = launch_gemm<X, true, S, false, float>(
+    err = launch_gemm<GemmDwIn, S, true, false, float>(
         g, D, EpiPartial{w_part, L_all, static_cast<long long>(P) * G, G},
         stream);
     if (err != cudaSuccess) return err;
   }
   {  // dW_rec[d] = h_prev^T . da[d]; h_prev is h one step back in scan order
-    GemmArgs<S, S> g{};
+    GemmArgs<S> g{};
     for (int dd = 0; dd < D; ++dd) {
       g.a[dd] = make_view<S>(static_cast<const S*>(h) + dd * H,
                              static_cast<long long>(D) * H, M, H,
@@ -518,7 +519,7 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
     g.K = M;
     g.nsplit = ns;
     g.ngroups = 1;
-    err = launch_gemm<S, true, S, false, float>(
+    err = launch_gemm<GemmDwRec, S, true, false, float>(
         g, D,
         EpiPartial{w_part + L_in, L_all, static_cast<long long>(H) * G, G},
         stream);
@@ -528,12 +529,12 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
                             stream);
   if (err != cudaSuccess) return err;
   if (need_dx) {  // dx = sum_d round(da[d] . W_in[d]^T)
-    GemmArgs<S, X> g{};
+    GemmArgs<S> g{};
     for (int dd = 0; dd < D; ++dd) {
       g.a[dd] = make_view<S>(static_cast<const S*>(da) +
                                  static_cast<size_t>(dd) * M * G,
                              G, M, G);
-      g.b[dd] = make_view<X>(static_cast<const X*>(w_in) +
+      g.b[dd] = make_view<S>(static_cast<const S*>(w_in) +
                                  static_cast<size_t>(dd) * P * G,
                              G, P, G);
     }
@@ -542,8 +543,8 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
     g.K = G;
     g.nsplit = 1;
     g.ngroups = D;
-    err = launch_gemm<S, false, X, true, S>(g, 1, EpiStore<float>{dx, P},
-                                            stream);
+    err = launch_gemm<GemmDx, S, false, true, S>(
+        g, 1, EpiStore<float>{dx, P}, stream);
   }
   return err;
 }
@@ -587,8 +588,8 @@ cudaError_t run_bwd(const void* x, const void* dh, const void* gates,
       dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D, clip, ca,
       device, stream);
   if (err != cudaSuccess) return err;
-  err = launch_grads<S, S>(x, h, da, w_in, dx, w_part, w_out, T, B, P, H, D,
-                           kCarry ? ca.dir_offset : 0, need_dx, stream);
+  err = launch_grads<S>(x, h, da, w_in, dx, w_part, w_out, T, B, P, H, D,
+                        kCarry ? ca.dir_offset : 0, need_dx, stream);
   if (err != cudaSuccess) return err;
   if constexpr (kCarry) {
     const int n = 4 * H * H;

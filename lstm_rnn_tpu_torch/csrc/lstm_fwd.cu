@@ -32,13 +32,14 @@
 // Design and what bounds it on this card. Two launches per layer (all
 // variants; the recurrence is item 2, 3 or 4):
 //
-// 1. proj_kernel, a tiled shared-memory GEMM [T*B, P] x [P, 4H] per
-//    direction into an f32 scratch buffer. The TPU kernel computes this
-//    product in its own body, chunk by chunk, so the [D, T, B, 4H] tensor
-//    never reaches HBM; here it makes one round trip through device memory
+// 1. The input projection, [T*B, P] x [P, 4H] per direction plus the bias,
+//    into an f32 scratch buffer, in gemm.cuh's GEMM (GemmProj: wgmma in
+//    bf16, the register-blocked SIMT body in f32; the bias product in the
+//    epilogue, rounded on its own). The TPU kernel computes this product
+//    in its own body, chunk by chunk, so the [D, T, B, 4H] tensor never
+//    reaches HBM; here it makes one round trip through device memory
 //    (160 MB at T=800, B=50, H=125 in f32). Fusing it back into the
-//    recurrence is later work. The GEMM runs on the FP32 pipes (bf16
-//    products are exact in f32), not on the tensor cores.
+//    recurrence is later work.
 // 2. rec_kernel, the recurrence: grid (D, ceil(B / 4)), a time loop
 //    inside each block. It is latency-bound, not throughput-bound: T steps
 //    depend on each other, each step is a [4, H] x [H, 4H] product that
@@ -100,6 +101,8 @@
 
 #include <cstddef>
 
+#include "gemm.cuh"
+
 namespace {
 
 constexpr float kExpLimit = 88.722839f;
@@ -116,87 +119,6 @@ __device__ __forceinline__ float tanh2_exact(float x) {
 
 __device__ __forceinline__ float sigmoid_plain(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// ------------------------------------------------------------ projection
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 16;
-constexpr int kProjThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-// a[d, m, n] = sum_k x[m, k] * w[d, k, n] + bias_mult * bias[d, n]
-template <typename In>
-__global__ void __launch_bounds__(kProjThreads)
-    proj_kernel(const In* __restrict__ x, const In* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ a, int M,
-                int K, int N, float bias_mult) {
-  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // k-major
-  __shared__ __align__(16) float ws[kTileK][kTileN + 4];
-  const int d = blockIdx.z;
-  const int m0 = blockIdx.x * kTileM;
-  const int n0 = blockIdx.y * kTileN;
-  const In* wd = w + static_cast<size_t>(d) * K * N;
-  const int tid = threadIdx.x;
-  const int tm = (tid / 16) * 4;
-  const int tn = (tid % 16) * 4;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    for (int i = tid; i < kTileM * kTileK; i += kProjThreads) {
-      const int mm = i / kTileK, kk = i % kTileK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      xs[kk][mm] = (gm < M && gk < K)
-                       ? to_f32(x[static_cast<size_t>(gm) * K + gk])
-                       : 0.0f;
-    }
-    for (int i = tid; i < kTileK * kTileN; i += kProjThreads) {
-      const int kk = i / kTileN, nn = i % kTileN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      ws[kk][nn] = (gk < K && gn < N)
-                       ? to_f32(wd[static_cast<size_t>(gk) * N + gn])
-                       : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[kk][tm]);
-      const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][tn]);
-      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + tm + i;
-    if (gm >= M) continue;
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tn + j;
-      if (gn < N)
-        // the bias product is rounded on its own, as the reference adds
-        // bias_mult * bias to the finished matmul
-        a[(static_cast<size_t>(d) * M + gm) * N + gn] =
-            acc[i][j] + __fmul_rn(bias_mult, bias[d * N + gn]);
-    }
-  }
 }
 
 // ------------------------------------------------------------ recurrence
@@ -314,7 +236,7 @@ __device__ __forceinline__ void rec_body(
       if (r < nb) {
         const size_t src = (static_cast<size_t>(d) * B + b0 + r) * H + j;
         // the product reads the fed-back h as stored (rounded in bf16)
-        h = to_f32(from_f32<Out>(ca.h0[src]));
+        h = as_f32(f32_to<Out>(ca.h0[src]));
         c = ca.c0[src];
       }
       hs[j * kRows + r] = h;
@@ -434,9 +356,9 @@ __device__ __forceinline__ void rec_body(
         h_new = tanh2_exact(c_new) * og;
       }
       const bool valid = use_mask ? step_valid_s[r] != 0 : t < len_s[r];
-      const Out hv = from_f32<Out>(valid ? h_new : 0.0f);
+      const Out hv = f32_to<Out>(valid ? h_new : 0.0f);
       cs[r * H + j] = valid ? c_new : 0.0f;
-      hs[j * kRows + r] = to_f32(hv);
+      hs[j * kRows + r] = as_f32(hv);
       out[(static_cast<size_t>(t) * B + b0 + r) * DH +
           static_cast<size_t>(d) * H + j] = hv;
       if (kCarry && s == s_cap) {
@@ -448,10 +370,10 @@ __device__ __forceinline__ void rec_body(
         const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
         c_out[row * H + j] = valid ? c_new : 0.0f;
         Out* gr = g_out + row * G + j;
-        gr[0] = from_f32<Out>(valid ? ni : 0.0f);
-        gr[H] = from_f32<Out>(valid ? ig : 0.0f);
-        gr[2 * H] = from_f32<Out>(valid ? fg : 0.0f);
-        gr[3 * H] = from_f32<Out>(valid ? og : 0.0f);
+        gr[0] = f32_to<Out>(valid ? ni : 0.0f);
+        gr[H] = f32_to<Out>(valid ? ig : 0.0f);
+        gr[2 * H] = f32_to<Out>(valid ? fg : 0.0f);
+        gr[3 * H] = f32_to<Out>(valid ? og : 0.0f);
       }
     }
     __syncthreads();
@@ -464,12 +386,12 @@ __device__ __forceinline__ void rec_body(
     const int rem = static_cast<int>(i % per_t);
     const int r = rem / H, j = rem - r * H;
     out[(t * B + b0 + r) * DH + static_cast<size_t>(d) * H + j] =
-        from_f32<Out>(0.0f);
+        f32_to<Out>(0.0f);
     if (kSave) {
       const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
       c_out[row * H + j] = 0.0f;
       for (int gi = 0; gi < 4; ++gi)
-        g_out[row * G + gi * H + j] = from_f32<Out>(0.0f);
+        g_out[row * G + gi * H + j] = f32_to<Out>(0.0f);
     }
   }
 }
@@ -591,6 +513,29 @@ cudaError_t launch_rec_dtype(const float* a, const void* w_rec,
       stream);
 }
 
+// a[d] = x . w[d] + bias_mult * bias[d] for each direction d, in gemm.cuh's
+// GEMM (output d takes pair d; x is shared), the bias in the epilogue
+template <typename T>
+cudaError_t launch_proj(const void* x, const void* w, const float* bias,
+                        float* a, int M, int K, int N, int D, float bias_mult,
+                        cudaStream_t stream) {
+  GemmArgs<T> g{};
+  for (int d = 0; d < D; ++d) {
+    g.a[d] = make_view<T>(x, K, M, K);
+    g.b[d] = make_view<T>(static_cast<const T*>(w) +
+                              static_cast<size_t>(d) * K * N,
+                          N, K, N);
+  }
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.nsplit = 1;
+  g.ngroups = 1;
+  return launch_gemm<GemmProj, T, false, false, float>(
+      g, D, EpiBias{a, bias, bias_mult, static_cast<long long>(M) * N, N},
+      stream);
+}
+
 // The carry entry points' shape rules (as the wrapper's _check_carry):
 // dir_offset 0, or 1 with D = 1; carry_t in [1, T]; a descending
 // direction needs carry_t = T.
@@ -615,16 +560,10 @@ int lstm_fwd_proj(const void* x, const void* w, const float* bias, float* a,
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN, D);
   if (bf16)
-    proj_kernel<__nv_bfloat16><<<grid, kProjThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), bias, a, M, K, N, bias_mult);
-  else
-    proj_kernel<float><<<grid, kProjThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), bias, a,
-        M, K, N, bias_mult);
-  return cudaGetLastError();
+    return launch_proj<__nv_bfloat16>(x, w, bias, a, M, K, N, D, bias_mult,
+                                      stream);
+  return launch_proj<float>(x, w, bias, a, M, K, N, D, bias_mult, stream);
 }
 
 // Recurrence. a [D, T, B, 4H] f32; w_rec [D, H, 4H] f32 or bf16; peep

@@ -24,17 +24,18 @@
 // exact (no 128-lane padding of S or P).
 //
 // Design and what bounds it on this card. The forward is one kernel per
-// block of 64 rows: the [64, S] logits tile is computed by gemm.cuh's
-// tiled product into shared memory, then one warp per row takes min, max,
-// the exp sum and the argmax with shuffles; the logits never reach device
+// block of 64 rows: the [64, S] logits tile is computed by tile_mma, a
+// tiled product on the FP32 pipes, into shared memory, then one warp per
+// row takes min, max, the exp sum and the argmax with shuffles; the
+// logits never reach device
 // memory, as in the TPU kernel. Loss and count are per-block partials,
 // added in a fixed order by a one-block reduction: no float atomics, the
 // same sum on every run. At N = 25,000, P = 250, S = 183 the product
 // (2.3 GFLOP) bounds it; the kernel runs it on the FP32 pipes, not the
 // tensor cores. The backward writes dzc once to device memory (18 MB in
 // f32; the TPU kernel keeps it in VMEM) with per-block db partials, then
-// runs dh and split-K dW through the same tiled GEMM, and sums the
-// partials in order.
+// runs dh and split-K dW through gemm.cuh's GEMM (wgmma in bf16), and sums
+// the partials in order.
 //
 // Launch rules: the entry points launch on the caller's stream, allocate
 // nothing, never synchronise, and return cudaGetLastError().
@@ -49,6 +50,69 @@
 #include "softmax_common.cuh"
 
 namespace {
+
+// K3f's [64, S] logits tile: a tiled shared-memory product on the FP32 pipes
+// (the engine's first GEMM, kept here for K3f until its own redesign)
+constexpr int kGemmTileM = 64;
+constexpr int kGemmTileN = 64;
+constexpr int kGemmTileK = 16;
+constexpr int kGemmThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+using TileA = float[kGemmTileK][kGemmTileM + 4];  // k-major
+using TileB = float[kGemmTileK][kGemmTileN + 4];
+
+// acc += A[m0:m0+64, k_begin:k_end] . B[k_begin:k_end, n0:n0+64] for this
+// thread's 4 x 4 outputs (rows tm.., columns tn.. of the tile). Every
+// thread of the block must call it (it synchronises).
+template <bool kTA, bool kTB, typename TA, typename TB>
+__device__ __forceinline__ void tile_mma(const View<TA>& a,
+                                         const View<TB>& b, int m0, int n0,
+                                         int k_begin, int k_end,
+                                         float (&acc)[4][4], TileA& as,
+                                         TileB& bs) {
+  const int tid = threadIdx.x;
+  const int tm = (tid / 16) * 4;
+  const int tn = (tid % 16) * 4;
+  for (int k0 = k_begin; k0 < k_end; k0 += kGemmTileK) {
+    for (int i = tid; i < kGemmTileM * kGemmTileK; i += kGemmThreads) {
+      int mm, kk;
+      if (kTA) {
+        kk = i / kGemmTileM;
+        mm = i % kGemmTileM;
+      } else {
+        mm = i / kGemmTileK;
+        kk = i % kGemmTileK;
+      }
+      const int k = k0 + kk;
+      as[kk][mm] = k < k_end ? (kTA ? a(k, m0 + mm) : a(m0 + mm, k)) : 0.0f;
+    }
+    for (int i = tid; i < kGemmTileK * kGemmTileN; i += kGemmThreads) {
+      int nn, kk;
+      if (kTB) {
+        nn = i / kGemmTileK;
+        kk = i % kGemmTileK;
+      } else {
+        kk = i / kGemmTileN;
+        nn = i % kGemmTileN;
+      }
+      const int k = k0 + kk;
+      bs[kk][nn] = k < k_end ? (kTB ? b(n0 + nn, k) : b(k, n0 + nn)) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGemmTileK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][tm]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tn]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
 
 constexpr int kCeRows = 64;  // rows per block (the GEMM tile's M)
 constexpr int kCeWarps = kGemmThreads / 32;
@@ -233,7 +297,7 @@ cudaError_t ce_bwd(const void* p, const void* h, const void* w,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   {  // dh = dzc . W^T
-    GemmArgs<T, T> ga{};
+    GemmArgs<T> ga{};
     ga.a[0] = make_view<T>(dz, S, N, S);
     ga.b[0] = make_view<T>(w, S, P, S);
     ga.M = N;
@@ -241,13 +305,13 @@ cudaError_t ce_bwd(const void* p, const void* h, const void* w,
     ga.K = S;
     ga.nsplit = 1;
     ga.ngroups = 1;
-    err = launch_gemm<T, false, T, true, float>(
+    err = launch_gemm<GemmTailDh, T, false, true, float>(
         ga, 1, EpiStore<T>{static_cast<T*>(dh), P}, stream);
     if (err != cudaSuccess) return err;
   }
   const int ns = gemm_splits(N);
   {  // dW = h^T . dzc, split over the rows
-    GemmArgs<T, T> ga{};
+    GemmArgs<T> ga{};
     ga.a[0] = make_view<T>(h, P, N, P);
     ga.b[0] = make_view<T>(dz, S, N, S);
     ga.M = P;
@@ -256,9 +320,8 @@ cudaError_t ce_bwd(const void* p, const void* h, const void* w,
     ga.nsplit = ns;
     ga.ngroups = 1;
     const long long L = static_cast<long long>(P) * S;
-    err = launch_gemm<T, true, T, false, float>(ga, 1,
-                                                EpiPartial{w_part, L, 0, S},
-                                                stream);
+    err = launch_gemm<GemmTailDw, T, true, false, float>(
+        ga, 1, EpiPartial{w_part, L, 0, S}, stream);
     if (err != cudaSuccess) return err;
     err = launch_sum_partials(w_part, ns, L, dw, L, L, 1.0f, stream);
     if (err != cudaSuccess) return err;

@@ -31,9 +31,9 @@
 // it. K4b is a grid of (256 columns x 64 rows) tiles: each thread walks
 // one column down the tile's rows, recomputes p, writes dzc and keeps its
 // column's db partial; the per-tile db partials [row tiles, S] are summed
-// in order. dW = h^T . dzc then runs in gemm.cuh's tiled product, split
-// over the rows, with the fixed-order sum of the partials: 2 N P S
-// operations on the FP32 pipes, which bound K4b in f32. The TPU kernel
+// in order. dW = h^T . dzc then runs in gemm.cuh's GEMM, split over the
+// rows, with the fixed-order sum of the partials: 2 N P S operations, on
+// the FP32 pipes in f32 (they bound K4b), on the tensor cores in bf16. The TPU kernel
 // keeps dz in VMEM and accumulates dW per column block; here dzc is
 // written once (the dh product outside needs it anyway).
 //
@@ -175,7 +175,7 @@ cudaError_t wide_bwd(const void* a, const void* h, const int* tc,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int ns = gemm_splits(N);
-  GemmArgs<T, T> ga{};  // dW = h^T . dzc, split over the rows
+  GemmArgs<T> ga{};  // dW = h^T . dzc, split over the rows
   ga.a[0] = make_view<T>(h, P, N, P);
   ga.b[0] = make_view<T>(dz, S, N, S);
   ga.M = P;
@@ -184,7 +184,7 @@ cudaError_t wide_bwd(const void* a, const void* h, const int* tc,
   ga.nsplit = ns;
   ga.ngroups = 1;
   const long long L = static_cast<long long>(P) * S;
-  err = launch_gemm<T, true, T, false, float>(
+  err = launch_gemm<GemmTailDw, T, true, false, float>(
       ga, 1, EpiPartial{w_part, L, 0, S}, stream);
   if (err != cudaSuccess) return err;
   err = launch_sum_partials(w_part, ns, L, dw, L, L, 1.0f, stream);

@@ -72,6 +72,34 @@ def build_log() -> str:
         return f.read()
 
 
+def _cuda_tool(name: str) -> str:
+    return os.path.join(os.path.dirname(_nvcc()), name)
+
+
+def sass_counts(opcode: str, name_part: str = "gemm_kernel"):
+    """{kernel: count} of the SASS instructions whose opcode starts with
+    `opcode` (e.g. HGMMA, the tensor cores' warpgroup product) in each
+    kernel of the built library whose mangled name contains
+    `name_part`, read with cuobjdump -sass."""
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", library_path()],
+                         capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if name_part in name:
+                counts[name] = 0
+            else:
+                name = None
+        elif name is not None and "*/" in line:
+            tok = line.split("*/", 1)[1].split()
+            if tok and tok[0].startswith("@"):  # a predicate
+                tok = tok[1:]
+            if tok and tok[0].startswith(opcode):
+                counts[name] += 1
+    return counts
+
+
 def _run_all(cmds):
     """Run the commands in parallel; raise on the first that failed.
     Returns their combined output."""
@@ -109,6 +137,10 @@ def _declare(lib) -> None:
     lib.lstm_fwd_proj.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i,
                                   i, p]
     lib.lstm_fwd_proj.restype = i
+    ll = ctypes.c_longlong
+    lib.gemm_run.argtypes = [i, p, p, ll, i, i, i, i, p, p, ll, i, i] \
+        + [i] * 6 + [p, ctypes.c_float, p, p, i, i, p]
+    lib.gemm_run.restype = i
     lib.lstm_fwd_rec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.lstm_fwd_rec.restype = i
     lib.lstm_fwd_rec_carry.argtypes = [p] * 10 + [i] * 8 + [p]
@@ -161,3 +193,5 @@ def load():
 if __name__ == "__main__":
     load()
     print(build_log())
+    for kernel, n in sorted(sass_counts("HGMMA").items()):
+        print(f"{n:5d} HGMMA  {kernel}")

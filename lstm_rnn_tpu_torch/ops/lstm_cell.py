@@ -6,9 +6,10 @@ Counterpart of lstm_rnn_tpu/ops/lstm_cell.py (`lstm_scan_fused` and
 behind one wrapper with a launch count:
 
 - `lstm_scan_fused` without gradients: the inference forward
-  (`_fwd_kernel` save=False), csrc/lstm_fwd.cu, two launches per layer: a
-  tiled input projection into an f32 scratch buffer, then the recurrence
-  over both directions (see the note at the top of the source);
+  (`_fwd_kernel` save=False), csrc/lstm_fwd.cu, two launches per layer: the
+  input projection into an f32 scratch buffer (csrc/gemm.cuh's GEMM), then
+  the recurrence over both directions (see the note at the top of the
+  source);
 - `lstm_fwd_save`: the training forward (`_fwd_kernel` save=True), the
   same launches, with the residuals c and gates written by the recurrence;
 - `lstm_bwd`: the BPTT (`_bwd_kernel`), csrc/lstm_bwd.cu, with the weight
@@ -56,6 +57,7 @@ import torch
 
 from lstm_rnn_tpu_torch.models.feedforward import round_operand
 from lstm_rnn_tpu_torch.ops.activations import logistic, tanh2
+from lstm_rnn_tpu_torch.ops.gemm import count_launches
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -751,6 +753,7 @@ def _launch_proj(x, w_in, bias, bias_mult: float):
         ctypes.c_float(bias_mult), int(x.dtype == torch.bfloat16),
         x.device.index, _stream(x))
     _raise_on(err, "lstm_fwd_proj launch")
+    count_launches("proj")
     return a
 
 
@@ -869,6 +872,7 @@ def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
             _ptr(w_out), _ptr(pb_out), _ptr(dx) if need_dx else None,
             _ptr(dh0), _ptr(dc0), T, B, P, H, D, carry_t, dir_offset, *tail)
         _raise_on(err, "lstm_bwd_carry launch")
+    count_launches("dW_in", "dW_rec", *(("dx",) if need_dx else ()))
     grads = (dx, w_out[:D * P * G].view(D, P, G),
              w_out[D * P * G:].view(D, H, G),
              pb_out[:, :3 * H].reshape(D, 3, H),

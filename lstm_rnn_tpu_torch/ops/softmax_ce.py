@@ -32,7 +32,7 @@ product outside the kernels, as in the JAX package (`wide_logits`):
   stats (offset, exp sum, target probability) when the caller trains
   (want_stats); the [N, S] probabilities are never stored;
 - `softmax_ce_wide_bwd`: p recomputed from a and the stats, dz, dW =
-  h^T . dz (the kernel's own GEMM) and db = bias_mult * sum dz; dh =
+  h^T . dz (csrc/gemm.cuh's GEMM) and db = bias_mult * sum dz; dh =
   dz . W^T is one product outside.
 
 The plain tail (`softmax_ce_fused`: `_fwd_kernel` and `_bwd_kernel`; K5),
@@ -65,6 +65,7 @@ import ctypes
 import torch
 
 from lstm_rnn_tpu_torch.ops.activations import REAL_MIN, safe_exp
+from lstm_rnn_tpu_torch.ops.gemm import count_launches
 from lstm_rnn_tpu_torch.ops.lstm_cell import (_check_compute_dtype, _on_cuda,
                                               _ptr, _raise_on, _stream,
                                               storage_dtype)
@@ -269,6 +270,7 @@ def softmax_ce_proj_bwd(p, h2, W, targets, g, bias_mult: float = 1.0,
         N, P, S, ctypes.c_float(bias_mult), int(sdtype == torch.bfloat16),
         dev.index, _stream(h2))
     _raise_on(err, "softmax_ce_bwd launch")
+    count_launches("tail_dh", "tail_dW")
     softmax_ce_proj_bwd.launches += 1
     return dh, dw, db
 
@@ -450,6 +452,7 @@ def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):
         _ptr(w_part), _ptr(dw), _ptr(db), N, P, S, ctypes.c_float(bias_mult),
         int(a.dtype == torch.bfloat16), dev.index, _stream(a))
     _raise_on(err, "softmax_ce_wide_bwd launch")
+    count_launches("tail_dW")
     return dz, dw, db
 
 

@@ -712,3 +712,105 @@ def test_remat_step_routes_through_carry_kernels_and_k5():
     assert out[3][0] == pytest.approx(out[0][0], rel=1e-5)
     for got, want in zip(out[3][1], out[0][1]):
         assert _rel_err(got, want) <= 1e-4
+
+
+# ------------------------------------------------- the GEMM engine (gemm.cuh)
+from lstm_rnn_tpu_torch.ops import gemm as ge  # noqa: E402
+from lstm_rnn_tpu_torch.ops.gemm import View  # noqa: E402
+
+# the engine against its twin, relative to each output's largest entry:
+# f32 sums in another order (true f32 on both sides); in bf16 the products
+# are exact and the sums f32, the tensor cores adding in another order;
+# where the output is rounded to bf16 (dx's planes, the tail's dh), a sum
+# on the other side of a rounding boundary moves it by one bf16 ulp
+GEMM_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+GEMM_ROUNDED_REL = 2.0 ** -7
+
+
+def gemm_case(name, dtype, seed=0):
+    return ge.main_path_case(name, dtype, "cuda",
+                             torch.Generator("cuda").manual_seed(seed))
+
+
+# the main path's products (ops/gemm.py: 25,000 rows of the training
+# fraction; the projection also over 40,000, 6,250 and 4,096 rows)
+GEMM_CASES = ge.MAIN_PATH_CASES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", GEMM_CASES)
+def test_gemm_matches_twin_at_main_path_shapes(name, dtype):
+    use, a, b, M, N, K, kw = gemm_case(name, dtype)
+    got = ge.gemm(use, a, b, M, N, K, compute_dtype=dtype, **kw)
+    want = ge.gemm_reference(use, a, b, M, N, K, compute_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = (GEMM_ROUNDED_REL if dtype == torch.bfloat16
+           and use in ("dx", "tail_dh") else GEMM_REL[dtype])
+    assert _rel_err(got, want) <= tol, _rel_err(got, want)
+    assert _rel_err(torch.zeros_like(want), want) > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use", ge.USES)
+def test_gemm_small_odd_shapes_match_twin(use, dtype):
+    """Every product at widths that end inside a tile and a K that ends
+    inside a stage, split-K where the product splits."""
+    g = torch.Generator("cuda").manual_seed(7)
+
+    def t(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+    M, N, K = 131, 67, 203
+    ta, tb = ge.TRANSPOSE[use]
+    npairs = 2 if use in ("proj", "dW_in", "dW_rec", "dx") else 1
+    a_t, b_t = t(npairs, K if ta else M, M if ta else K), \
+        t(npairs, N if tb else K, K if tb else N)
+    ar, ac = a_t.shape[1:]
+    br, bc = b_t.shape[1:]
+    shifts = (-3, 3) if use == "dW_rec" else (0, 0)
+    a = [View(a_t, p * ar * ac, ac, ar, ac, shifts[p]) for p in range(npairs)]
+    b = [View(b_t, p * br * bc, bc, br, bc) for p in range(npairs)]
+    kw = {}
+    if use == "dx":
+        kw["ngroups"] = 2
+    elif npairs == 2:
+        kw["outputs"] = 2
+    if use in ge.SPLIT_USES:
+        kw["nsplit"] = 3
+    if use == "proj":
+        kw.update(bias=torch.randn(2, N, device="cuda", generator=g),
+                  bias_mult=0.5)
+    got = ge.gemm(use, a, b, M, N, K, compute_dtype=dtype, **kw)
+    want = ge.gemm_reference(use, a, b, M, N, K, compute_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    tol = (GEMM_ROUNDED_REL if dtype == torch.bfloat16
+           and use in ("dx", "tail_dh") else GEMM_REL[dtype])
+    assert _rel_err(got, want) <= tol, _rel_err(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_is_bitwise_repeatable(dtype):
+    """Split-K partials summed in a fixed order: two launches on the same
+    inputs give the same bits."""
+    for name in ("dW_in:250", "dx"):
+        use, a, b, M, N, K, kw = gemm_case(name, dtype, seed=3)
+        first = ge.gemm(use, a, b, M, N, K, compute_dtype=dtype, **kw)
+        second = ge.gemm(use, a, b, M, N, K, compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_gemm_counts_launches_by_use():
+    """A training step's BPTT and projection launches count in the
+    engine's uses: one proj per forward, dW_in and dW_rec per backward,
+    dx where the layer's input needs a gradient."""
+    args = make_layer(6, 3, 5, 4, 2)
+    for c in ge.LAUNCHES.values():
+        c.launches = 0
+    x = args[0].clone().requires_grad_(True)
+    w_in = args[1].clone().requires_grad_(True)
+    out = lstm_scan_fused(x, w_in, *args[2:], 1.0, torch.float32)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert {u: c.launches for u, c in ge.LAUNCHES.items()} == dict(
+        proj=1, dW_in=1, dW_rec=1, dx=1, tail_dh=0, tail_dW=0)
