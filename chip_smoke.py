@@ -12,14 +12,18 @@ weights from a seed, and holds every kernel against its plain twin:
 2. build: compiles the CUDA kernels from csrc/ with nvcc (one process per
    source, in parallel), prints ptxas's registers and spills, and counts
    the HGMMA (wgmma) instructions in the SASS of every instance of the
-   GEMM engine (csrc/gemm.cuh): more than 0 in each bf16 instance, 0 in
-   each f32 one;
+   GEMM engine (csrc/gemm.cuh) and of K3f (csrc/softmax_ce.cu's
+   ce_fwd_kernel): more than 0 in each bf16 instance, 0 in each f32 one;
 3. the inference forward kernel (K0) against its twin at one layer's full
    width (D=2, H=125, B=50, T=800, P=117 and P=250), float32 and bfloat16;
 4. the training kernels against their twins, with times: the forward with
    residuals (K1) and the BPTT (K2) at T=500, B=50, P=117 (the first
    layer: no dx) and P=250, and the softmax + CE tail's forward and
    backward (K3f, K3b) at N=25,000, P=250, S=183; float32 and bfloat16;
+   K3f on operands already in the storage dtype, timed on the device (the
+   profiler: its kernel and the loss reduction) beside one
+   `F.cross_entropy(addmm(...))` on the same operands, timed the same way,
+   and by CUDA events (host work included);
 5. serving end to end: writes a TIMIT-shaped .nc and network.jsn, runs
    `cli.main(--train false ... htk)` in f32 and bf16 and with
    `--lstm_backend scan`, checks the files, the posteriors and the K0
@@ -36,7 +40,8 @@ weights from a seed, and holds every kernel against its plain twin:
    scan path, and a profile of one kernel-path step by kernel;
 9. the wide tail's kernels (K4f, K4b) against their twins at the LVCSR
    tail (N=25,000, P=250, S=10,112), f32 and bf16, with controls and a
-   row tile of dummy frames, and their times (phase 4's order);
+   row tile of dummy frames, and their times (phase 4's order; K4f and
+   `F.cross_entropy` on the same logits on the device, as phase 4);
 10. one LVCSR SGD step, fused tail (K4) vs unfused tail, f32;
 11. the LVCSR recipe through `cli.main(examples/lvcsr_physical_states/
     config.cfg ...)` on a synthetic 10,112-state corpus, f32 with its
@@ -45,7 +50,8 @@ weights from a seed, and holds every kernel against its plain twin:
     uninterrupted run, and the seconds an LVCSR autosave's dump takes;
 12. LVCSR training frames/s (f32, bf16) and a profile of one f32 step;
 13. the K3/K4/K5 crossover: the three tails, forward + backward with
-    their products, at S = 183, 512 and 832 (measured only);
+    their products, at S = 183, 512 and 832 (K3 where it fits the card:
+    S <= 704 on an H100; measured only);
 14. the carry kernel (K6 forward + K7) against its twin at the streaming
     width (117 -> 5 x LSTM(250) -> softmax(183), the TIMIT stack with every
     BLSTM made an LSTM: one layer, D=1, H=250, B=64, a 64-frame chunk, P=117
@@ -640,8 +646,12 @@ def train_kernels_vs_twins(torch):
     g = torch.tensor(1.0, device="cuda")
     for name in ("float32", "bfloat16"):
         dt = getattr(torch, name)
-        loss, cnt, p = sc.softmax_ce_proj_fwd(h2, W, b, tc, 1.0, dt)
-        loss_r, cnt_r, p_r = sc.softmax_ce_fwd_reference(h2, W, b, tc, 1.0,
+        # the operands in the storage dtype, as the path hands them over:
+        # the kernel and the library call are timed on the same tensors
+        hs, Ws, bs = h2.to(dt), W.to(dt), b.to(dt)
+        tl = tc.long()
+        loss, cnt, p = sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0, dt)
+        loss_r, cnt_r, p_r = sc.softmax_ce_fwd_reference(hs, Ws, b, tc, 1.0,
                                                          dt)
         torch.cuda.synchronize()
         rel, err = elem_rel(p, p_r), rel_err(p, p_r)[1]
@@ -651,29 +661,41 @@ def train_kernels_vs_twins(torch):
                     "rolled": p_r.roll(1, dims=1)}
         ctrl = {k: elem_rel(v, p_r) for k, v in controls.items()}
         lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
-        ms = time_ms(torch, lambda: sc.softmax_ce_proj_fwd(
-            h2, W, b, tc, 1.0, dt), 10)
+
+        def k3f():
+            return sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0, dt)
+
+        def lib_call():
+            return F.cross_entropy(torch.addmm(bs, hs, Ws), tl,
+                                   reduction="sum", ignore_index=-1)
+        ms = time_ms(torch, k3f, 10)
         ms_nop = time_ms(torch, lambda: sc.softmax_ce_proj_fwd(
-            h2, W, b, tc, 1.0, dt, want_p=False), 10)
+            hs, Ws, b, tc, 1.0, dt, want_p=False), 10)
         plain = time_ms(torch, lambda: sc.softmax_ce_fwd_reference(
-            h2, W, b, tc, 1.0, dt), 10)
-        hs, Ws = h2.to(dt), W.to(dt)
-        tl = tc.long()
-        lib = time_ms(torch, lambda: F.cross_entropy(
-            torch.addmm(b.to(dt), hs, Ws), tl, reduction="sum",
-            ignore_index=-1), 10)
+            hs, Ws, b, tc, 1.0, dt), 10)
+        lib = time_ms(torch, lib_call, 10)
+        # device time: the kernel and its loss reduction, and the library
+        # call's kernels, each summed (one launch of each per call)
+        dev_k = prof_ms(torch, [k3f], 20)
+        dev = sum(dev_k.values())
+        lib_dev = sum(prof_ms(torch, [lib_call], 20).values())
         res[("softmax_ce_proj_fwd", P, name)] = dict(
-            err=err, rel=rel, loss_rel=lrel, ms=ms, plain_ms=plain,
-            library_ms=lib,
+            err=err, rel=rel, loss_rel=lrel, ms=dev if dev else ms,
+            events_ms=ms, plain_ms=plain,
+            library_ms=lib_dev if lib_dev else lib, library_events_ms=lib,
             cost=tail_cost("softmax_ce_proj_fwd", P, name))
         phase("train-kernel", f"K3f softmax_ce_proj_fwd {name}: p "
               f"max_abs_err={err:.3e} elementwise rel={rel:.3e} (tol "
               f"{P_REL[name]:.1e}; controls " + ", ".join(
                   f"{k} {v:.2e}" for k, v in ctrl.items()) + f"), loss rel "
               f"{lrel:.2e}, "
-              f"count {cnt.item()} vs {cnt_r.item()}; kernel {ms:.3f} ms "
-              f"({ms_nop:.3f} ms without p); twin {plain:.3f} ms; "
-              f"F.cross_entropy(addmm) {lib:.3f} ms [N={N} P={P} S={S}]")
+              f"count {cnt.item()} vs {cnt_r.item()}; on the device "
+              f"{fmt_ms(dev or None)} (" + ", ".join(
+                  f"{short_key(k)} {v:.4f}" for k, v in dev_k.items())
+              + f"), F.cross_entropy(addmm) {fmt_ms(lib_dev or None)} on "
+              f"the device; CUDA events: kernel {ms:.3f} ms ({ms_nop:.3f} "
+              f"ms without p), F.cross_entropy(addmm) {lib:.3f} ms; twin "
+              f"{plain:.3f} ms [N={N} P={P} S={S}, operands in {name}]")
         if not all(v > P_REL[name] for v in ctrl.values()):
             raise AssertionError(f"the p check passes a wrong p: {ctrl}")
         if not (rel <= P_REL[name] and lrel <= 1e-5
@@ -1091,11 +1113,17 @@ def wide_kernels_vs_twins(torch):
         ms_all = time_ms(torch, lambda: sc.softmax_ce_wide_fwd(
             h2, W, b, tc, 1.0, dt), 5)
         plain = time_ms(torch, lambda: sc.wide_stats_reference(a, tc), 3)
-        lib = time_ms(torch, lambda: F.cross_entropy(
-            a, tl, reduction="sum", ignore_index=-1), 10)
+
+        def lib_call():
+            return F.cross_entropy(a, tl, reduction="sum", ignore_index=-1)
+        lib = time_ms(torch, lib_call, 10)
+        dev_k = prof_ms(torch, [lambda: sc._launch_wide_fwd(a, tc)], 10)
+        dev = sum(dev_k.values())
+        lib_dev = sum(prof_ms(torch, [lib_call], 10).values())
         res[("softmax_ce_wide_fwd", name)] = dict(
-            err=serr, rel=max(srel.values()), loss_rel=lrel, ms=ms,
-            plain_ms=plain, library_ms=lib,
+            err=serr, rel=max(srel.values()), loss_rel=lrel,
+            ms=dev if dev else ms, events_ms=ms, plain_ms=plain,
+            library_ms=lib_dev if lib_dev else lib, library_events_ms=lib,
             cost=wide_cost("softmax_ce_wide_fwd", name))
         phase("wide-kernel", f"K4f softmax_ce_wide_fwd {name}: stats "
               f"max_abs_err={serr:.3e}, elementwise rel " + ", ".join(
@@ -1103,9 +1131,12 @@ def wide_kernels_vs_twins(torch):
               + f" (tol {lim:.0e}" + "".join(
                   f"; control {k} {v:.2e}" for k, v in ctrl.items())
               + f"), loss rel {lrel:.2e}, count {cnt.item()} vs "
-              f"{cnt_r.item()}; kernel {ms:.3f} ms ({ms_all:.3f} ms with "
-              f"the logits product); twin {plain:.3f} ms; F.cross_entropy "
-              f"{lib:.3f} ms [N={N} P={P} S={S}]")
+              f"{cnt_r.item()}; on the device {fmt_ms(dev or None)} ("
+              + ", ".join(f"{short_key(k)} {v:.4f}" for k, v in dev_k.items())
+              + f"), F.cross_entropy {fmt_ms(lib_dev or None)} on the "
+              f"device; CUDA events: kernel {ms:.3f} ms ({ms_all:.3f} ms "
+              f"with the logits product), F.cross_entropy {lib:.3f} ms; twin "
+              f"{plain:.3f} ms [N={N} P={P} S={S}]")
         if not all(v > lim for v in ctrl.values()):
             raise AssertionError(f"the stats check passes a wrong one: {ctrl}")
         if not (max(srel.values()) <= lim and lrel <= 1e-5
@@ -1336,10 +1367,11 @@ def lvcsr_rates(torch, card):
 
 
 def tail_crossover(torch):
-    """The three tails, forward + backward, at N = 25,000, P = 250 and the
-    state counts K3 serves (K4 and K5 with their products outside, K5's
-    in cuBLAS as its path runs them under autograd): measured only, the
-    route stays K3 where it fits and remat is off."""
+    """The three tails, forward + backward, at N = 25,000, P = 250 and
+    S = 183, 512, 832 (K3 where it fits the card; K4 and K5 with their
+    products outside, K5's in cuBLAS as its path runs them under
+    autograd): measured only, the route stays K3 where it fits and remat
+    is off."""
     from lstm_rnn_tpu_torch.ops import softmax_ce as sc
     from lstm_rnn_tpu_torch.ops.lstm_cell import storage_dtype
     gen = torch.Generator("cuda").manual_seed(SEED + 9)
@@ -1372,9 +1404,11 @@ def tail_crossover(torch):
                 torch.matmul(dz, Ws.t())  # dh
                 torch.matmul(hs.t(), dz)  # dW
                 dz.sum(dim=0)  # db
-            t3, t4, t5 = (time_ms(torch, k3, 10), time_ms(torch, k4, 10),
-                          time_ms(torch, k5, 10))
-            phase("crossover", f"S={S} {name}: K3 fwd+bwd {t3:.3f} ms, K4 "
+            fits = sc.proj_tail_fits(S, sc.tail_smem_optin("cuda"))
+            t3 = (f"{time_ms(torch, k3, 10):.3f} ms" if fits else
+                  "does not fit the card (the route takes K4)")
+            t4, t5 = time_ms(torch, k4, 10), time_ms(torch, k5, 10)
+            phase("crossover", f"S={S} {name}: K3 fwd+bwd {t3}, K4 "
                   f"fwd+bwd (products included) {t4:.3f} ms, K5 fwd+bwd "
                   f"(products included) {t5:.3f} ms [N={N} P={P}]")
 
@@ -2470,14 +2504,21 @@ def remat_rates_memory(torch, card):
 
 
 def kernel_label(mangled):
-    """A kernel's name, and for the GEMM engine its product and dtype."""
+    """A kernel's name, and for the GEMM engine its product and dtype, for
+    the tails' forwards (K3f, K4f) their dtype and integer template
+    arguments."""
     import re
     # the length-prefixed name: lowercase, after the digits of its length
     m = re.search(r"\d+([a-z_]+?(?:kernel|partials))(?![a-z_])", mangled)
     name = m.group(1) if m else mangled[:60]
+    dtype = "bf16" if "__nv_bfloat16" in mangled else "f32"
     if name == "gemm_kernel":
         tag = next((t for t in GEMM_TAGS if t in mangled), "?")
-        name += f" {tag} {'bf16' if '__nv_bfloat16' in mangled else 'f32'}"
+        name += f" {tag} {dtype}"
+    elif name in ("ce_fwd_kernel", "wide_fwd_kernel"):
+        # template arguments: Li3E (int 3), Lb0E (bool false)
+        args = re.findall(r"L[ib](\d+)E", mangled)
+        name += f"<{dtype}, {', '.join(args)}>"
     return name
 
 
@@ -2496,18 +2537,19 @@ def report_ptxas(log):
 
 def check_hgmma(_build):
     """The HGMMA (wgmma) instructions in the SASS of every instance of the
-    GEMM engine: the bf16 instances run on the tensor cores, the f32 ones
-    (true f32) must not."""
-    counts = _build.sass_counts("HGMMA")
-    if not counts:
-        raise AssertionError("no gemm_kernel instance in the SASS")
+    GEMM engine and of K3f: the bf16 instances run on the tensor cores,
+    the f32 ones (true f32) must not."""
     import re
-    for name, n in sorted(counts.items()):
-        src = re.search(r"_\d+_(\w+?)_cu_", name)
-        phase("build", f"SASS {n:3d} HGMMA  {kernel_label(name)} "
-              f"({src.group(1) if src else '?'}.cu)")
-        if (n > 0) != ("__nv_bfloat16" in name):
-            raise AssertionError(f"{name}: {n} HGMMA instructions")
+    for part in ("gemm_kernel", "ce_fwd_kernel"):
+        counts = _build.sass_counts("HGMMA", part)
+        if not counts:
+            raise AssertionError(f"no {part} instance in the SASS")
+        for name, n in sorted(counts.items()):
+            src = re.search(r"_\d+_(\w+?)_cu_", name)
+            phase("build", f"SASS {n:3d} HGMMA  {kernel_label(name)} "
+                  f"({src.group(1) if src else '?'}.cu)")
+            if (n > 0) != ("__nv_bfloat16" in name):
+                raise AssertionError(f"{name}: {n} HGMMA instructions")
 
 
 # the GEMM engine against its twin (phase 26), relative to each output's
@@ -2548,6 +2590,12 @@ def prof_ms(torch, fns, reps):
 
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def short_key(key):
+    """A profiler key's kernel name with its template arguments."""
+    name = key.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    return name.removeprefix("void ")[:60]
 
 
 def gemm_cost(use, a, b, M, N, K, kw, dtype):
@@ -2846,6 +2894,10 @@ def main():
             kernels[-1]["us_per_step_bf16"] = r16["us_per_step"]
         if k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
             kernels[-1]["variant"] = "carry=True, save=True, dir_offset=0"
+        if "events_ms" in r32:  # K3f, K4f: ms on the device, events beside
+            for k2, r in (("", r32), ("_bf16", r16)):
+                kernels[-1]["events_ms" + k2] = r["events_ms"]
+                kernels[-1]["library_events_ms" + k2] = r["library_events_ms"]
         if "device_ms" in r32:  # K5 at S=183: the call's kernels alone
             kernels[-1]["device_ms"] = r32["device_ms"]
             kernels[-1]["device_ms_bf16"] = r16["device_ms"]

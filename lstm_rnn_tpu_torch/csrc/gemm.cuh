@@ -7,8 +7,9 @@
 // :449, :475 and :491; ops/softmax_ce.py: the tails' dh = dz . W^T and
 // dW = h^T . dz in _bwd_proj_kernel and _bwd_wide_kernel); here every one
 // of them, for K0, K1, K2, K3b, K4b, K6f, K6b-f and K6b-b, runs in
-// gemm_kernel. (K3f's in-kernel logits product is softmax_ce.cu's own
-// tile_mma.)
+// gemm_kernel. (K3f computes its logits inside its own kernel,
+// softmax_ce.cu's ce_fwd_kernel, from this file's parts: View, load_seg,
+// the swizzle and wgmma descriptors, the cp.async copies.)
 //
 // An operand is a View: element (r, c) of a row-major matrix with leading
 // dimension `ld`, rows shifted by `shift` (the scan-previous h of dW_rec),

@@ -99,6 +99,44 @@ __device__ __forceinline__ int group_argmax(float best, int arg, float* s_a,
   return arg;
 }
 
+// the sum of v and the first argmax of best (the largest value, ties to
+// the lowest index) in one reduction; the sum in group_sum's order
+template <int kWarps>
+__device__ __forceinline__ float group_sum_argmax(float v, float& best,
+                                                  int& arg, float* s_a,
+                                                  float* s_b, int* s_i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+  if constexpr (kWarps > 1) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane == 0) {
+      s_a[warp] = v;
+      s_b[warp] = best;
+      s_i[warp] = arg;
+    }
+    __syncthreads();
+    v = s_a[0];
+    best = s_b[0];
+    arg = s_i[0];
+    for (int w = 1; w < kWarps; ++w) {
+      v += s_a[w];
+      if (s_b[w] > best || (s_b[w] == best && s_i[w] < arg)) {
+        best = s_b[w];
+        arg = s_i[w];
+      }
+    }
+    __syncthreads();
+  }
+  return v;
+}
+
 // loss[0] = sum of part_loss, cnt[0] = sum of part_cnt, in a fixed order
 __global__ void ce_reduce_kernel(const float* __restrict__ part_loss,
                                  const int* __restrict__ part_cnt, int n,

@@ -309,8 +309,8 @@ class Network:
         package: the logits materialized by the softmax layer's product
         outside (feedforward_forward, under autograd), then the plain
         kernel pair (softmax_ce_fused). Otherwise it is K3 (the product
-        inside the kernel) when its logits block fits a block's shared
-        memory (`proj_tail_fits`: S <= 832 on the H100, and on the CPU,
+        inside the kernel) when its forward fits a block's shared memory
+        (`proj_tail_fits`: S <= 704 on the H100, and on the CPU,
         which takes the H100's route), and K4 (the product outside, the
         wide kernels) above: the LVCSR recipe's 10,112 states. The JAX
         package reaches K5 under remat because its tail takes K3 and K4

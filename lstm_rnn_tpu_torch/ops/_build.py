@@ -11,7 +11,8 @@ no nvcc; only a launch needs it.
 
 Usage: `load()` returns the ctypes library; `python -m
 lstm_rnn_tpu_torch.ops._build` builds and prints the compiler's report
-(registers, shared memory and spills per kernel).
+(registers, shared memory and spills per kernel) and the HGMMA count of
+each instance of the GEMM engine and of K3f.
 """
 
 from __future__ import annotations
@@ -193,5 +194,6 @@ def load():
 if __name__ == "__main__":
     load()
     print(build_log())
-    for kernel, n in sorted(sass_counts("HGMMA").items()):
-        print(f"{n:5d} HGMMA  {kernel}")
+    for part in ("gemm_kernel", "ce_fwd_kernel"):
+        for kernel, n in sorted(sass_counts("HGMMA", part).items()):
+            print(f"{n:5d} HGMMA  {kernel}")

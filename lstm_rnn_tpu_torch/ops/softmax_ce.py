@@ -7,11 +7,12 @@ picks one (K5 under remat, else K3 where `proj_tail_fits`, else K4).
 
 The projection tail (`softmax_ce_proj_fused`, whose custom VJP in the JAX
 package launches `_fwd_proj_kernel` and `_bwd_proj_kernel`; K3), in
-csrc/softmax_ce.cu, for nets whose [64, S] logits block fits a block's
-shared memory (S <= 832 on the H100):
+csrc/softmax_ce.cu, for nets whose forward fits a block's shared memory
+(`proj_tail_fits`: S <= 704 on the H100):
 
 - `softmax_ce_proj_fwd`: logits = h . W + bias_mult * b in the kernel's
-  own tiled product, the CURRENNT softmax (offset (min + max) / 2 with the
+  own product (wgmma in bf16, register-blocked SIMT in f32), the CURRENNT
+  softmax (offset (min + max) / 2 with the
   max floored at REAL_MIN, safeExp), loss = sum of -log max(p[target],
   REAL_MIN) and the first-argmax == target count over rows with
   target >= 0, and p [N, S] when the caller trains (want_p);
@@ -150,21 +151,51 @@ def softmax_ce_bwd_reference(p, h2, W, targets, g, bias_mult: float,
     return dh, dw, bias_mult * dz.sum(dim=0)
 
 
-# K3's forward keeps a [64, S] f32 logits block in shared memory (S rounded
-# up to the GEMM tile's 64 columns: csrc/softmax_ce.cu, ce_width) beside
-# its GEMM tiles (16 KB is their margin)
+# K3's forward footprint in shared memory (csrc/softmax_ce.cu: kCeRows,
+# kCeChunk, kCeMaxChunks, kCeWideChunks, kCeTile, kCeStaticBytes,
+# ce_ring_bytes, ce_smem_bytes; gemm.cuh: kSimtBK, kSimtPad; a CPU test
+# reads them from the sources): 64 rows a block; S <= 256 in one pass of
+# 64-column chunks, the logits in registers (bf16) or in a [64, S] f32
+# block over the stage ring (f32); above, passes of 128 columns into that
+# block beside the ring. (The persistent bf16 body with W resident, taken
+# at S <= 256 where it fits on its own, does not bound the route.)
 _PROJ_ROWS = 64
-_PROJ_SMEM_MARGIN = 16 * 1024
+_PROJ_CHUNK = 64
+_PROJ_MAX_CHUNKS = 4
+_PROJ_WIDE_CHUNKS = 2
+_PROJ_TILE = 64 * 64 * 2  # a bf16 stage's A tile, or one chunk of B
+_PROJ_STATIC = 6 * _PROJ_ROWS * 4  # a loss and a hit per row, 3 warpgroups
+_SIMT_BK, _SIMT_PAD = 16, 4
 # an H100's shared memory per block (opt-in): the budget on the CPU, so
 # that the twins take the route the card takes
 H100_SMEM_OPTIN = 232_448
 
 
+def _proj_ring_bytes(bf16: bool, nch: int) -> int:
+    if bf16:  # two stages, plus 1 KB to align the 128-byte swizzle
+        return 2 * (1 + nch) * _PROJ_TILE + 1024
+    return 2 * _SIMT_BK * (_PROJ_ROWS + _SIMT_PAD + nch * _PROJ_CHUNK
+                           + _SIMT_PAD) * 4
+
+
+def proj_smem_bytes(S: int, bf16: bool) -> int:
+    """Shared memory a block of K3's forward takes at S classes (dynamic
+    and static), in bf16 or f32 mode."""
+    logits = _PROJ_ROWS * (-(-S // 8) * 8) * 4
+    if S > _PROJ_MAX_CHUNKS * _PROJ_CHUNK:
+        dyn = _proj_ring_bytes(bf16, _PROJ_WIDE_CHUNKS) + logits
+    else:
+        ring = _proj_ring_bytes(bf16, -(-S // _PROJ_CHUNK))
+        dyn = ring if bf16 else max(ring, logits)
+    return dyn + _PROJ_STATIC
+
+
 def proj_tail_fits(S: int, smem_optin: int) -> bool:
     """True when K3's forward fits S classes in `smem_optin` bytes of
-    shared memory per block (S <= 832 on the H100); wider nets take K4."""
-    width = -(-S // 64) * 64
-    return _PROJ_ROWS * width * 4 + _PROJ_SMEM_MARGIN <= smem_optin
+    shared memory per block in both modes (S <= 704 on the H100); wider
+    nets take K4."""
+    return max(proj_smem_bytes(S, True),
+               proj_smem_bytes(S, False)) <= smem_optin
 
 
 def tail_smem_optin(device) -> int:
@@ -202,8 +233,8 @@ def softmax_ce_proj_fwd(h2, W, b, targets, bias_mult: float = 1.0,
     have = tail_smem_optin(h2.device)
     if not proj_tail_fits(S, have):
         raise ValueError(
-            f"softmax_ce_proj_fwd: the [64, {S}] logits block does not fit "
-            f"the card's {have} bytes of shared memory per block; "
+            f"softmax_ce_proj_fwd: {S} classes do not fit the card's "
+            f"{have} bytes of shared memory per block; "
             f"softmax_ce_wide_fused serves such nets")
     from lstm_rnn_tpu_torch.ops import _build
     lib = _build.load()

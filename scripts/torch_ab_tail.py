@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""A/B of the port's tail forward kernels between two checkouts, on one
+CUDA GPU.
+
+    python3 scripts/torch_ab_tail.py PARENT_DIR CHANGE_DIR
+
+Each directory holds a `lstm_rnn_tpu_torch/` package (for example the
+parent commit unpacked with `git archive` into a directory .gitignore
+lists). The checkouts run in turns, parent, change, change, parent, each
+in its own process (each builds its own kernel library), and each prints,
+f32 and bf16, on operands already in the storage dtype:
+
+- K3f (`softmax_ce_proj_fwd`, want_p on) at the TIMIT tail, N = 25,000,
+  P = 250, S = 183, beside `F.cross_entropy(addmm(b, h, W), t, sum,
+  ignore_index=-1)`;
+- K4f (`_launch_wide_fwd`) at the LVCSR tail, N = 25,000, S = 10,112,
+  beside `F.cross_entropy(a, t, sum, ignore_index=-1)`;
+
+each as device time per call from the profiler (the kernel and its loss
+reduction; the library call's kernels summed) and as CUDA events around
+20 calls (host work included), and the compiler's registers and spills of
+the two kernels. Prints the card's name and power limit first. Imports
+torch and the port only.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+
+def device_ms(torch, fn, reps=20):
+    """Device milliseconds of one call of fn: each kernel's mean device
+    time times its launches per call, from one profile of `reps` calls
+    after a warm-up (a profile may miss a window's first launches). {} of
+    kernels when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
+            per[e.key] = us / 1e3 / e.count * max(1, round(e.count / reps))
+    return sum(per.values()), per
+
+
+def events_ms(torch, fn, reps=20):
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def worker(root, label):
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, os.path.abspath(root))
+    from lstm_rnn_tpu_torch.ops import _build
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    name = None
+    for line in _build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("ce_fwd_kernel" in name or "wide_fwd_kernel" in name) \
+                and ("spill" in line or "registers" in line):
+            short = re.sub(r".*?((ce|wide)_fwd_kernel)", r"\1", name)[:60]
+            print(f"{label} {short}: {line.strip()[:90]}")
+
+    def show(what, fn, lib):
+        dev, per = device_ms(torch, fn)
+        ldev, lper = device_ms(torch, lib)
+        print(f"{label} {what}: device {dev:.4f} ms ("
+              + ", ".join(f"{k[:40]} {v:.4f}" for k, v in per.items())
+              + f"), events {events_ms(torch, fn):.4f} ms; library device "
+              f"{ldev:.4f} ms ({len(lper)} kernels), events "
+              f"{events_ms(torch, lib):.4f} ms", flush=True)
+
+    gen = torch.Generator("cuda").manual_seed(1234)
+    N, P = 25_000, 250
+    for S in (183, 10112):
+        h2 = torch.randn(N, P, device="cuda", generator=gen) * 0.5
+        W = (torch.rand(P, S, device="cuda", generator=gen) - 0.5) * 0.2
+        b = (torch.rand(S, device="cuda", generator=gen) - 0.5) * 0.2
+        tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+        tc[::10] = -1
+        tl = tc.long()
+        with torch.no_grad():
+            for dt in (torch.float32, torch.bfloat16):
+                name = str(dt)[6:]
+                if S == 183:
+                    hs, Ws, bs = h2.to(dt), W.to(dt), b.to(dt)
+                    show(f"K3f {name} [N={N} P={P} S={S}]",
+                         lambda: sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0,
+                                                        dt),
+                         lambda: F.cross_entropy(
+                             torch.addmm(bs, hs, Ws), tl, reduction="sum",
+                             ignore_index=-1))
+                else:
+                    a = sc.wide_logits(h2, W, b, 1.0, dt)
+                    show(f"K4f {name} [N={N} S={S}]",
+                         lambda: sc._launch_wide_fwd(a, tc),
+                         lambda: F.cross_entropy(a, tl, reduction="sum",
+                                                 ignore_index=-1))
+                    del a
+        del h2, W
+        torch.cuda.empty_cache()
+
+
+def main():
+    if sys.argv[1:2] == ["--worker"]:
+        worker(*sys.argv[2:4])
+        return 0
+    parent, change = sys.argv[1:3]
+    subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], check=True)
+    for root, label in ((parent, "parent-1"), (change, "change-1"),
+                        (change, "change-2"), (parent, "parent-2")):
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--worker", root, label], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

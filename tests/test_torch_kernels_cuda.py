@@ -413,6 +413,89 @@ def test_tail_matches_twin(shape, dtype):
     assert not got[0][::7].any()  # dummy rows
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [117, 250])
+@pytest.mark.parametrize("S", [183, 256, 257, 704])
+def test_tail_fwd_at_every_body(S, P, dtype):
+    """K3f on each of its bodies: one pass of 3 or 4 chunks (S = 183,
+    256; bf16 with the softmax on the accumulators) and the passes into
+    the shared logits block (257, and 704, the H100's limit), h rows 4- or
+    2-byte aligned (P = 250, 117), N off the 64-row tile, bias_mult 0.8,
+    dummy rows; without p the same loss and count; a second launch bit for
+    bit equal to the first."""
+    h, w, b, tc = _tail(1037, P, S, seed=S + P)
+    hs, ws = h.to(dtype), w.to(dtype)
+    loss, cnt, p = softmax_ce_proj_fwd(hs, ws, b, tc, 0.8, dtype)
+    loss2, cnt2, p2 = softmax_ce_proj_fwd(hs, ws, b, tc, 0.8, dtype)
+    loss0, cnt0, p0 = softmax_ce_proj_fwd(hs, ws, b, tc, 0.8, dtype,
+                                          want_p=False)
+    loss_r, cnt_r, p_r = softmax_ce_fwd_reference(hs, ws, b, tc, 0.8, dtype)
+    torch.cuda.synchronize()
+    assert p0 is None and p.dtype == p_r.dtype == hs.dtype
+    assert torch.equal(p, p2) and loss2.item() == loss.item() == loss0.item()
+    assert cnt2.item() == cnt.item() == cnt0.item()
+    assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
+    # a near-tie between the two sum orders may flip one argmax
+    assert abs(cnt.item() - cnt_r.item()) <= 1
+    assert _elem_rel(p, p_r) <= P_REL[dtype], _elem_rel(p, p_r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [183, 257])
+def test_tail_fwd_counts_the_first_of_tied_maxima(S, dtype):
+    """Columns 1 and 3 of W are equal and far the largest logits of every
+    row: p ties there bit for bit, and the count takes the first argmax
+    (column 1), exactly."""
+    h, w, b, tc = _tail(300, 117, S, seed=5)
+    h = h.abs()
+    w[:, 1] = w[:, 3] = 0.3
+    b[3] = b[1]
+    tc[:] = 1
+    tc[150:] = 3
+    tc[::7] = -1
+    for targets, want in ((tc, int(((tc == 1)).sum())),
+                          (torch.where(tc >= 0, 3, -1).to(tc), 0)):
+        loss, cnt, p = softmax_ce_proj_fwd(h, w, b, targets, 0.8, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(p[:, 1], p[:, 3])
+        assert (p.float().argmax(dim=1) == 1).all()
+        assert cnt.item() == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("S", [7, 10111, 10112, 12345])
+def test_wide_fwd_at_any_alignment(S, offset, dtype):
+    """K4f on logits whose base is 16-byte aligned or one element off it
+    (a contiguous view at storage offset 1), at an odd pitch (10,111), a
+    tiny row (7), the LVCSR width (10,112: 16-byte loads) and a row wider
+    than its register holding (12,345: the multi-pass body): the stats
+    element by element, the loss and the count against the twin, a second
+    launch bit for bit; rows whose maxima tie count their first."""
+    N = 300
+    g = torch.Generator("cuda").manual_seed(S + offset)
+    buf = torch.randn(N * S + offset, device="cuda", generator=g) * 3
+    a = buf.to(dtype)[offset:].view(N, S)
+    assert a.is_contiguous() and a.storage_offset() == offset
+    tc = torch.randint(0, S, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    tc[::7] = -1
+    got = sc._launch_wide_fwd(a, tc)
+    again = sc._launch_wide_fwd(a, tc)
+    loss_r, cnt_r, *stats_r = sc.wide_stats_reference(a, tc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    loss, cnt, *stats = got
+    assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
+    assert abs(cnt.item() - cnt_r.item()) <= 1
+    for name, x, y in zip(("off", "ssum", "pt"), stats, stats_r):
+        assert _elem_rel(x, y) <= STAT_REL, (name, _elem_rel(x, y))
+    if S > 3:  # every row ties at columns 1 and 3, far above the rest
+        a[:, 1] = a[:, 3] = 100.0
+        ones = torch.where(tc >= 0, 1, -1).to(tc)
+        assert sc._launch_wide_fwd(a, ones)[1].item() == int((tc >= 0).sum())
+
+
 def test_tail_too_wide_for_shared_memory_raises():
     """An LVCSR-scale softmax (10112 states) does not fit the kernel's
     shared memory: the wrapper refuses it and names the wide tail."""

@@ -12,6 +12,9 @@ Hopper kernels are held against the twins on the card
 """
 
 import functools
+import re
+from fractions import Fraction
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ import torch
 
 from lstm_rnn_tpu.ops.softmax_ce import _wide_fwd_impl, wide_plan
 from lstm_rnn_tpu.ops.softmax_ce import softmax_ce_wide_fused as jax_tail
+from lstm_rnn_tpu_torch.ops import softmax_ce as sc
 from lstm_rnn_tpu_torch.ops.softmax_ce import (H100_SMEM_OPTIN,
                                                proj_tail_fits,
                                                softmax_ce_wide_bwd,
@@ -32,6 +36,7 @@ N, P, PP, S = 512, 100, 128, 1500
 BIAS_MULT, G = 0.8, 0.37  # G: the loss cotangent
 DUMMY = (5, 17, 40, 300)  # rows with target -1
 DTYPES = ["float32", "bfloat16"]
+CSRC = Path(__file__).resolve().parents[1] / "lstm_rnn_tpu_torch" / "csrc"
 
 
 def _inputs():
@@ -140,11 +145,97 @@ def test_twins_count_no_launch():
             softmax_ce_wide_bwd.launches) == before
 
 
-@pytest.mark.parametrize("S_, fits", [(183, True), (832, True),
-                                      (833, False), (10112, False)])
+@pytest.mark.parametrize("S_, fits", [(183, True), (704, True),
+                                      (705, False), (10112, False)])
 def test_route_at_the_h100_budget(S_, fits):
-    """K3 holds a [64, S] f32 logits block (S rounded up to 64) plus 16 KB
-    of GEMM tiles in shared memory: 832 classes fit an H100's 232,448
-    bytes, 833 do not. The CPU takes the H100's budget."""
+    """K3's forward holds, beside its stage ring, a [64, S] f32 logits
+    block (S rounded up to 8) once S > 256: 704 classes fit an H100's
+    232,448 bytes, 705 do not. The CPU takes the H100's budget."""
     assert tail_smem_optin("cpu") == H100_SMEM_OPTIN == 232_448
     assert proj_tail_fits(S_, H100_SMEM_OPTIN) is fits
+
+
+def _source_ints(path, names):
+    src = path.read_text()
+    return {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+            for n in names}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_route_footprint_follows_the_kernel_source(bf16):
+    """proj_tail_fits states K3's real footprint: its constants are the
+    kernel's (csrc/softmax_ce.cu, csrc/gemm.cuh), and its bytes at every
+    S are those of ce_smem_bytes plus the static per-row arrays (three
+    warpgroups' worth), written
+    here from the source's constants."""
+    c = _source_ints(CSRC / "softmax_ce.cu",
+                     ("kCeRows", "kCeChunk", "kCeMaxChunks", "kCeWideChunks"))
+    g = _source_ints(CSRC / "gemm.cuh", ("kSimtBK", "kSimtPad", "kWgBK"))
+    src = (CSRC / "softmax_ce.cu").read_text()
+    assert "constexpr int kCeTile = kCeRows * kWgBK * 2;" in src
+    assert "constexpr int kCeStaticBytes = 6 * kCeRows * 4;" in src
+    assert "return (S + 7) / 8 * 8;" in src  # the logits block's pitch
+    assert (sc._PROJ_ROWS, sc._PROJ_CHUNK, sc._PROJ_MAX_CHUNKS,
+            sc._PROJ_WIDE_CHUNKS) == tuple(c.values())
+    assert (sc._SIMT_BK, sc._SIMT_PAD) == (g["kSimtBK"], g["kSimtPad"])
+    tile = c["kCeRows"] * g["kWgBK"] * 2
+
+    def ring(nch):
+        if bf16:
+            return 2 * (1 + nch) * tile + 1024
+        return 2 * g["kSimtBK"] * (c["kCeRows"] + 2 * g["kSimtPad"]
+                                   + nch * c["kCeChunk"]) * 4
+
+    one_pass = c["kCeMaxChunks"] * c["kCeChunk"]
+    for S_ in range(1, 1200):
+        logits = c["kCeRows"] * ((S_ + 7) // 8 * 8) * 4
+        if S_ > one_pass:
+            want = ring(c["kCeWideChunks"]) + logits
+        elif bf16:
+            want = ring(-(-S_ // c["kCeChunk"]))
+        else:
+            want = max(ring(-(-S_ // c["kCeChunk"])), logits)
+        assert sc.proj_smem_bytes(S_, bf16) == want + 6 * c["kCeRows"] * 4
+
+
+def _rn32(q):
+    """q (a Fraction) rounded to the nearest binary32, ties to even, with
+    the subnormal floor; as a Fraction."""
+    if q == 0:
+        return Fraction(0)
+    if q < 0:
+        return -_rn32(-q)
+    e = q.numerator.bit_length() - q.denominator.bit_length()
+    while Fraction(2) ** e > q:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= q:
+        e += 1
+    ulp = Fraction(2) ** (max(e, -126) - 23)
+    m = q / ulp
+    fl = m.numerator // m.denominator
+    rem = m - fl
+    if rem > Fraction(1, 2) or (rem == Fraction(1, 2) and fl % 2):
+        fl += 1
+    return fl * ulp
+
+
+def test_k3f_division_is_correctly_rounded():
+    """K3f's p = e / sum (csrc/softmax_ce.cu ce_div): q = e * RN(1/s), then
+    one FMA correction from the exact remainder, fma(fma(-q, s, e), inv,
+    q), equals the correctly rounded quotient e / s for 0 < e <= s with a
+    normal quotient; each FMA rounds once, emulated here exactly."""
+    src = (CSRC / "softmax_ce.cu").read_text()
+    assert "const float q = e * inv;" in src
+    assert "fmaf(fmaf(-q, s, e), inv, q)" in src
+    assert "inv[hf] = __frcp_rn(sum[hf]);" in src
+    rng = np.random.RandomState(8)
+    f32 = lambda x: Fraction(float(np.float32(x)))  # noqa: E731
+    for _ in range(4000):
+        s = f32(rng.uniform(1.0, 5e4) * 2.0 ** rng.randint(-20, 21))
+        e = f32(float(s) * rng.uniform() ** rng.choice([1, 3, 10]))
+        if e == 0:
+            continue
+        inv = _rn32(1 / s)
+        q = _rn32(e * inv)
+        got = _rn32(q + _rn32(e - q * s) * inv)
+        assert got == _rn32(e / s), (float(e), float(s))
