@@ -14,11 +14,18 @@ weights from a seed, and holds every kernel against its plain twin:
    the HGMMA (wgmma) instructions in the SASS of every instance of the
    GEMM engine (csrc/gemm.cuh) and of K3f (csrc/softmax_ce.cu's
    ce_fwd_kernel): more than 0 in each bf16 instance, 0 in each f32 one;
+   and the thread-block cluster each recurrence path takes (csrc/
+   recurrence.cuh: n, threads, shared memory, W_rec on chip or from L2,
+   the clusters the card holds at once), against ops/lstm_cell.py's
+   mirror of the plan;
 3. the inference forward kernel (K0) against its twin at one layer's full
-   width (D=2, H=125, B=50, T=800, P=117 and P=250), float32 and bfloat16;
+   width (D=2, H=125, B=50, T=800, P=117 and P=250), float32 and bfloat16,
+   with the recurrence's time alone and per step;
 4. the training kernels against their twins, with times: the forward with
    residuals (K1) and the BPTT (K2) at T=500, B=50, P=117 (the first
-   layer: no dx) and P=250, and the softmax + CE tail's forward and
+   layer: no dx) and P=250, with each recurrence's time alone and per step
+   (K1's by CUDA events, K2's bptt_kernel by the profiler's device time),
+   and the softmax + CE tail's forward and
    backward (K3f, K3b) at N=25,000, P=250, S=183; float32 and bfloat16;
    K3f on operands already in the storage dtype, timed on the device (the
    profiler: its kernel and the loss reduction) beside one
@@ -79,7 +86,8 @@ weights from a seed, and holds every kernel against its plain twin:
     blocks the carry kernel K6f (no residuals, prefix lengths, no step
     mask: what SP serving and the SP Trainer's validation passes launch)
     against its twin at phase 14's tolerance, with zero carries as the
-    control that must fail;
+    control that must fail; and the recurrences of K6f, K6b-f and K6b-b
+    alone, per step;
 19. four chained K6b blocks per direction (parallel/sequence.py's kernel
     wavefront on a mesh of cuda:0 four times) against K1 + K2 on the whole
     T=500 BLSTM layer: h and every gradient, f32;
@@ -256,6 +264,52 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(torch, fn, part, reps=5):
+    """Mean device milliseconds of one launch of the kernel whose profiler
+    name holds `part` (the BPTT recurrence alone: its entry point also
+    launches the weight-gradient products), over `reps` calls after one
+    warm-up; by the launches the profiler recorded, since the first ones
+    of a window can go missing."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if part in e.key]
+    n = sum(e.count for e in events)
+    if n == 0:
+        raise AssertionError(f"the profiler recorded no {part} launch")
+    return sum(dev_us(e) for e in events) / 1e3 / n
+
+
+def report_plans(torch):
+    """The cluster each recurrence path takes (the kernel library's plan
+    on the card beside ops/lstm_cell.py's mirror, which must agree): n,
+    threads and shared memory a CTA, W_rec on chip or from L2, and the
+    clusters of that size the card holds at once."""
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    for what, width, kind in (
+            ("K0, K1, K6f/K6b-f on an SP block", H, "fwd"),
+            ("K2, K6b-b", H, "bwd"),
+            ("K6f+K7 at the streaming width", H_STREAM, "fwd")):
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            card = lc.recurrence_plan_on_card(width, dt, kind)
+            mine = lc.recurrence_plan(width, dt, kind)
+            phase("build", f"plan {kind} H={width} {name} ({what}): "
+                  f"cluster of "
+                  f"{card['n']}, {card['threads']} threads, "
+                  f"{card['smem']:,} B shared a CTA, W_rec "
+                  f"{'on chip' if card['w_on_chip'] else 'from L2'}; "
+                  f"{card['active_clusters']} such clusters at once")
+            if any(card[k] != mine[k] for k in ("n", "threads", "smem",
+                                                 "w_on_chip")):
+                raise AssertionError(f"the plan's mirror disagrees with the "
+                                     f"kernel library: {mine} vs {card}")
+
+
 def kernel_vs_twin(torch):
     from lstm_rnn_tpu_torch.ops import lstm_cell
     from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_scan_fused,
@@ -284,13 +338,16 @@ def kernel_vs_twin(torch):
                 a, w_rec, args[3], args[5]), 10)
             phase("kernel", f"P={P} {name}: max_abs_err={err:.3e} "
                   f"(tol {TOL[name]:.0e}); kernel {ms:.3f} ms "
-                  f"(proj {proj:.3f} ms, rec {rec:.3f} ms); twin "
+                  f"(proj {proj:.3f} ms, rec {rec:.3f} ms = "
+                  f"{1e3 * rec / T_LAYER:.2f} us per step); twin "
                   f"{plain:.1f} ms "
                   f"[T={T_LAYER} B={B} H={H} D={D}]")
             if not err <= TOL[name]:
                 raise AssertionError(f"kernel disagrees with its twin: "
                                      f"{err} > {TOL[name]} (P={P}, {name})")
             res[(P, name)] = {"err": err, "ms": ms, "plain_ms": plain,
+                              "rec_ms": rec,
+                              "us_per_step": 1e3 * rec / T_LAYER,
                               "cost": lstm_cost("lstm_fwd", P,
                                                 args[5].cpu().numpy(), name)}
     return res
@@ -600,13 +657,21 @@ def train_kernels_vs_twins(torch):
             ms = time_ms(torch, lambda: lc.lstm_fwd_save(*args, 1.0, dt), 10)
             plain = time_ms(torch, lambda: lc.lstm_scan_reference(
                 *args, 1.0, dt, save=True), 1)
+            a = lc._launch_proj(args[0].to(dt), args[1].to(dt), args[4], 1.0)
+            w_rec = args[2].to(dt)
+            rec = time_ms(torch, lambda: lc._launch_rec(
+                a, w_rec, args[3], args[5], save=True), 10)
+            del a
             res[("lstm_fwd_save", P, name)] = dict(
-                err=err, rel=rel, ms=ms, plain_ms=plain,
+                err=err, rel=rel, ms=ms, plain_ms=plain, rec_ms=rec,
+                us_per_step=1e3 * rec / T_TRAIN,
                 cost=lstm_cost("lstm_fwd_save", P, lens, name))
             phase("train-kernel", f"K1 lstm_fwd_save P={P} {name}: "
                   f"max_abs_err={err:.3e} rel={rel:.3e} [{each}] (tol "
-                  f"{REL['lstm_fwd_save'][name]:.1e}); kernel {ms:.3f} ms; "
-                  f"twin {plain:.1f} ms [T={T_TRAIN} B={B} H={H} D={D}]")
+                  f"{REL['lstm_fwd_save'][name]:.1e}); kernel {ms:.3f} ms "
+                  f"(rec {rec:.3f} ms = {1e3 * rec / T_TRAIN:.2f} us per "
+                  f"step); twin {plain:.1f} ms [T={T_TRAIN} B={B} H={H} "
+                  f"D={D}]")
             if not (rel <= REL["lstm_fwd_save"][name]
                     and all(torch.isfinite(g.float()).all() for g in got)):
                 raise AssertionError(f"K1 disagrees with its twin: {rel}")
@@ -624,12 +689,17 @@ def train_kernels_vs_twins(torch):
             ms = time_ms(torch, lambda: lc.lstm_bwd(*bwd_args), 5)
             plain = time_ms(torch, lambda: lc.lstm_scan_bwd_reference(
                 *bwd_args), 1)
+            rec = kernel_device_ms(torch, lambda: lc.lstm_bwd(*bwd_args),
+                                   "bptt_kernel")
             res[("lstm_bwd", P, name)] = dict(
-                err=err, rel=rel, ms=ms, plain_ms=plain,
+                err=err, rel=rel, ms=ms, plain_ms=plain, rec_ms=rec,
+                us_per_step=1e3 * rec / T_TRAIN,
                 cost=lstm_cost("lstm_bwd", P, lens, name, need_dx))
             phase("train-kernel", f"K2 lstm_bwd P={P} need_dx={need_dx} "
                   f"{name}: max_abs_err={err:.3e} rel={rel:.3e} [{each}] "
-                  f"(tol {REL['lstm_bwd'][name]:.1e}); kernel {ms:.3f} ms; twin "
+                  f"(tol {REL['lstm_bwd'][name]:.1e}); kernel {ms:.3f} ms "
+                  f"(bptt_kernel {rec:.3f} ms on the device = "
+                  f"{1e3 * rec / T_TRAIN:.2f} us per step); twin "
                   f"{plain:.1f} ms")
             if not (rel <= REL["lstm_bwd"][name] and all(
                     torch.isfinite(a).all() for a in got if a is not None)):
@@ -1517,7 +1587,7 @@ def carry_kernel_vs_twin(torch):
                                      f"chunk: {ctrl}")
             res[(P, name)] = {
                 "err": max(err), "ms": ms, "plain_ms": plain,
-                "us_per_step": 1e3 * rec / T,
+                "rec_ms": rec, "us_per_step": 1e3 * rec / T,
                 "cost": lstm_cost("lstm_fwd_carry", P, steps, name, T=T,
                                   D=1, H=Hs)}
     return res
@@ -1791,12 +1861,23 @@ def carry_grad_kernels_vs_twins(torch):
                 ms_6 = time_ms(torch, k6f, 10)
                 b_6 = bound(*lstm_cost("lstm_fwd_carry", P, lens, name,
                                        T=T_BLOCK, D=1), name)[0]
+                a = lc._launch_proj(args[0].to(dt), args[1].to(dt), args[4],
+                                    1.0)
+                w_rec = args[2].to(dt)
+                rec_6 = time_ms(torch, lambda: lc._launch_rec_carry(
+                    a, w_rec, args[3], args[5], None, h0, c0, T_BLOCK,
+                    dir_offset), 10)
+                rec_f = time_ms(torch, lambda: lc._launch_rec_carry(
+                    a, w_rec, args[3], args[5], None, h0, c0, T_BLOCK,
+                    dir_offset, save=True), 10)
+                del a
                 phase("carry-grad", f"K6f P={P} dir_offset={dir_offset} "
                       f"{name}, prefix lengths: max_abs_err h {err_6[0]:.3e}"
                       f", hf {err_6[1]:.3e}, cf {err_6[2]:.3e} (tol "
                       f"{TOL[name]:.0e}; control zero carries {ctrl_6:.2e});"
-                      f" kernel {ms_6:.3f} ms (bound {b_6:.3f}) [T={T_BLOCK} "
-                      f"B={B} H={H} D=1]")
+                      f" kernel {ms_6:.3f} ms (bound {b_6:.3f}; recurrence "
+                      f"{rec_6:.3f} ms = {1e3 * rec_6 / T_BLOCK:.2f} us per "
+                      f"step) [T={T_BLOCK} B={B} H={H} D=1]")
                 if not (all(torch.isfinite(t.float()).all()
                             for t in (got_6[0], *got_6[1]))
                         and max(err_6) <= TOL[name]):
@@ -1833,6 +1914,7 @@ def carry_grad_kernels_vs_twins(torch):
                                                    if a is not None]))
                 ms_f = time_ms(torch, fwd, 10)
                 ms_b = time_ms(torch, bwd, 5)
+                rec_b = kernel_device_ms(torch, bwd, "bptt_carry_kernel")
                 plain_f = time_ms(torch, lambda: (
                     lc.lstm_scan_carry_reference(*args, h0, c0, 1.0, dt,
                                                  None, dir_offset, None,
@@ -1849,15 +1931,19 @@ def carry_grad_kernels_vs_twins(torch):
                       f"{name}: rel {frel:.2e} [" + per_output(
                           ("h", "c", "gates", "hf", "cf"), errs) + f"] (tol "
                       f"{lim_f:.1e}; control zero carries {fctrl:.2e}); "
-                      f"kernel {ms_f:.3f} ms (bound {b_f:.3f}); twin "
-                      f"{plain_f:.1f} ms [T={T_BLOCK} B={B} H={H} D=1]")
+                      f"kernel {ms_f:.3f} ms (bound {b_f:.3f}; recurrence "
+                      f"{rec_f:.3f} ms = {1e3 * rec_f / T_BLOCK:.2f} us per "
+                      f"step); twin {plain_f:.1f} ms [T={T_BLOCK} B={B} "
+                      f"H={H} D=1]")
                 phase("carry-grad", f"K6b-b P={P} dir_offset={dir_offset} "
                       f"need_dx={need_dx} {name}: rel {brel:.2e} [" +
                       per_output(("dx", "dW_in", "dW_rec", "dpeep", "dbias",
                                   "dh0", "dc0"), errs_b) + f"] (tol "
                       f"{lim_b:.1e}; controls " + ", ".join(
                           f"{k} {v:.2e}" for k, v in bctrl.items())
-                      + f"); kernel {ms_b:.3f} ms (bound {b_b:.3f}); twin "
+                      + f"); kernel {ms_b:.3f} ms (bound {b_b:.3f}; "
+                      f"bptt_carry_kernel {rec_b:.3f} ms on the device = "
+                      f"{1e3 * rec_b / T_BLOCK:.2f} us per step); twin "
                       f"{plain_b:.1f} ms")
                 if not (finite and frel <= lim_f and brel <= lim_b):
                     raise AssertionError(f"K6b disagrees with its twins "
@@ -1867,11 +1953,14 @@ def carry_grad_kernels_vs_twins(torch):
                                               for v in bctrl.values())):
                     raise AssertionError(f"the K6b check passes a wrong "
                                          f"input: {fctrl}, {bctrl}")
-                for kind, err, rel, ms, plain in (
-                        ("lstm_fwd_carry_save", ferr, frel, ms_f, plain_f),
-                        ("lstm_bwd_carry", berr, brel, ms_b, plain_b)):
+                for kind, err, rel, ms, plain, rec in (
+                        ("lstm_fwd_carry_save", ferr, frel, ms_f, plain_f,
+                         rec_f),
+                        ("lstm_bwd_carry", berr, brel, ms_b, plain_b,
+                         rec_b)):
                     res[(kind, P, dir_offset, name)] = dict(
-                        err=err, rel=rel, ms=ms, plain_ms=plain,
+                        err=err, rel=rel, ms=ms, plain_ms=plain, rec_ms=rec,
+                        us_per_step=1e3 * rec / T_BLOCK,
                         cost=lstm_cost(kind, P, lens, name, need_dx,
                                        T=T_BLOCK, D=1))
     return res
@@ -2771,6 +2860,7 @@ def main():
           f" ({os.path.relpath(_build.library_path(), REPO)})")
     report_ptxas(_build.build_log())
     check_hgmma(_build)
+    report_plans(torch)
 
     with torch.inference_mode():
         res = kernel_vs_twin(torch)
@@ -2888,10 +2978,12 @@ def main():
             "library_ms_bf16": r16.get("library_ms")})
         if "loss_rel" in r32:
             kernels[-1]["loss_rel_err"] = r32["loss_rel"]
+        if "us_per_step" in r32:  # the recurrence alone, a step of it
+            for k2, r in (("", r32), ("_bf16", r16)):
+                kernels[-1]["recurrence_ms" + k2] = r["rec_ms"]
+                kernels[-1]["us_per_step" + k2] = r["us_per_step"]
         if k == "lstm_fwd_carry":
             kernels[-1]["variant"] = "carry=True, with_mask=True"
-            kernels[-1]["us_per_step"] = r32["us_per_step"]
-            kernels[-1]["us_per_step_bf16"] = r16["us_per_step"]
         if k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
             kernels[-1]["variant"] = "carry=True, save=True, dir_offset=0"
         if "events_ms" in r32:  # K3f, K4f: ms on the device, events beside

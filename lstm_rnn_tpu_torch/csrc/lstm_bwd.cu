@@ -38,20 +38,34 @@
 // Design and what bounds it on this card. Four launches (five with a
 // carry):
 //
-// 1. bptt_kernel, the recurrence: grid (D, ceil(B / 4)), a time loop inside
-//    each block, as lstm_fwd.cu's rec_kernel. Latency-bound: the steps
-//    depend on each other and each is a [4, 4H] x [4H, H] product. The
-//    product runs against W_rec^T, which the wrapper passes as a transposed
-//    copy [D, 4H, Hp] (Hp = H rounded up to 4, zero columns), so each
-//    thread reads 4 adjacent output columns with one 16-byte (f32) or
-//    8-byte (bf16) load per k, k split over up to 16 thread groups. The
-//    copy is staged in shared memory when it fits beside the state (bf16 at
-//    H = 125: 125 KB); f32 (250 KB) is re-read from L2 every step. A
-//    step's loads of dh, the four gates, c and c_prev are issued before the
-//    product, so they land while it runs. The step writes da [D, T, B, 4H]
-//    in the storage dtype and adds its dpeep/dbias terms into per-block
-//    partial sums (one row of [ceil(B/4), D, 7H] per block). Each block
-//    stops at the longest row of its block and writes zero deltas after it.
+// 1. bptt_kernel, the recurrence, on thread-block clusters
+//    (recurrence.cuh), as lstm_fwd.cu's rec_kernel: grid (n, ceil(B / 8),
+//    D), one cluster of n CTAs per direction and group of 8 rows, a time
+//    loop inside each CTA. Latency-bound: the steps depend on each other
+//    and each is a [8, 4H] x [4H, H] product per cluster. CTA i owns the
+//    cells J_i and keeps their rows of W_rec[d] (columns J_i of the
+//    transposed copy [D, 4H, Hp] the wrapper passes) in shared memory for
+//    the whole loop (f32 at H = 125 and n = 8: 32 KB a CTA; the old design
+//    re-read all 250 KB from L2 every step). A step: each warp sums e's
+//    product for its four cells and 8 rows over the rounded deltas of the
+//    step before (from the step's parity buffer): its 32 lanes split k,
+//    each delta read serving four cells, and a reduce-scatter of shuffles
+//    leaves lane L with row L % 8 of cell L / 8. Both modes run true f32
+//    FMAs on the SIMT pipes, W's rows held in f32 (bf16 W widens exactly).
+//    On the tensor cores (mma.sync m16n8k16, the four cells as A's rows)
+//    the bf16 BPTT step took 4.31 us against 2.78 on the SIMT pipes at
+//    H = 125 on an H100: 32 dependent k steps and the operand's packing
+//    outweigh the FMAs saved. Lane r of each group of 8 then runs the
+//    cell-error step of (row r, its cell) with cs_err_next, fg_next and
+//    its own unrounded ig/fg deltas in registers (its dh, gates, c and c_prev
+//    loaded a step ahead), writes da [D, T, B, 4H] in the storage dtype
+//    and adds its dpeep/dbias terms in registers; then the group's 4 x 8
+//    deltas, rounded to the compute dtype, go into the other parity buffer
+//    of every CTA of the cluster as 16-byte DSMEM stores, and the CTAs
+//    meet at one cluster barrier. Each cluster stops at the longest row of
+//    its group and writes zero deltas after it; at the end each cell's
+//    dpeep/dbias terms are summed over its 8 rows (shuffles, a fixed
+//    order) into one partial per group ([ceil(B/8), D, 7H]).
 // 2. dW_in and dW_rec: gemm.cuh's GEMM (wgmma in bf16, a register-blocked
 //    SIMT body in f32) over the T*B rows, split-K into per-split partials,
 //    summed in order by sum_partials (the TPU kernel accumulates them
@@ -66,10 +80,11 @@
 //    direction descends when d + dir_offset > 0) as (hf, cf). So: c_prev
 //    at the scan edge is c0 and the edge's fg delta is not zeroed; dhf
 //    joins e and dcf joins cs_err at the capture step; after the last BPTT
-//    step, one more product gives dh0 = round(da) . W_rec^T, and dc0 =
-//    fg_next cs_err_next + p_ig da[ig] + p_fg da[fg], all from shared
-//    memory. Every step runs: the longest-row shortcut would leave a
-//    descending direction's dh0/dc0 to an unmasked state, where the
+//    step, one more product pass over that step's exchanged deltas gives
+//    dh0 = round(da) . W_rec^T, and dc0 = fg_next cs_err_next + p_ig
+//    da[ig] + p_fg da[fg] comes from each lane's registers. Every step
+//    runs: the longest-row shortcut would leave a descending direction's
+//    dh0/dc0 to an unmasked state, where the
 //    invalid steps after a row's end are what zero them. dW_rec's h_prev
 //    view shifts by the scan direction (dir_offset included) and reads zero
 //    before the edge row; edge_grad_kernel then adds the rank-B term
@@ -85,81 +100,9 @@
 #include <cstddef>
 
 #include "gemm.cuh"
+#include "recurrence.cuh"
 
 namespace {
-
-constexpr float kBwdExpLimit = 88.722839f;
-
-__device__ __forceinline__ float bwd_logistic(float x) {
-  if (x >= kBwdExpLimit) return 1.0f;
-  if (x <= -kBwdExpLimit) return 0.0f;
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float bwd_tanh2(float x) {
-  return 2.0f * bwd_logistic(2.0f * x) - 1.0f;
-}
-
-constexpr int kBpttThreads = 512;
-constexpr int kBpttRows = 4;
-constexpr int kBpttMaxKSplit = 16;
-constexpr int kPre = 2;  // cell items per thread whose loads are issued early
-
-__host__ __device__ inline size_t bptt_align4(size_t n) {
-  return (n + 3) & ~static_cast<size_t>(3);
-}
-
-// Shared-memory layout of bptt_kernel, offsets in floats.
-struct BpttLayout {
-  int ksplit, hp;
-  size_t da;    // [rows][4H] da_next (f32, unrounded)
-  size_t das;   // [4H][rows] da_next rounded to the compute dtype (k-major)
-  size_t part;  // [ksplit][rows][hp] partial sums of da_next . W_rec^T
-  size_t cse;   // [rows][H] cs_err_next
-  size_t fgn;   // [rows][H] fg_next
-  size_t peep;  // [3][H]
-  size_t acc;   // [rows][7H] dpeep (3H) and dbias (4H) sums of each row
-  size_t w;     // [4H][hp] W_rec^T, when staged in shared memory
-};
-
-__host__ __device__ inline BpttLayout bptt_layout(int H) {
-  BpttLayout L;
-  const size_t G = 4 * static_cast<size_t>(H);
-  L.hp = (H + 3) & ~3;
-  const int quads = L.hp / 4;
-  int ks = kBpttThreads / quads;
-  if (ks < 1) ks = 1;
-  if (ks > kBpttMaxKSplit) ks = kBpttMaxKSplit;
-  if (ks > static_cast<int>(G)) ks = static_cast<int>(G);
-  L.ksplit = ks;
-  const size_t R = kBpttRows;
-  L.da = 0;
-  L.das = L.da + bptt_align4(R * G);
-  L.part = L.das + bptt_align4(G * R);
-  L.cse = L.part + bptt_align4(static_cast<size_t>(ks) * R * L.hp);
-  L.fgn = L.cse + bptt_align4(R * H);
-  L.peep = L.fgn + bptt_align4(R * H);
-  L.acc = L.peep + bptt_align4(3 * static_cast<size_t>(H));
-  L.w = L.acc + bptt_align4(R * 7 * static_cast<size_t>(H));
-  return L;
-}
-
-__device__ __forceinline__ float4 bwd_load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 bwd_load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// One cell item's inputs at step t: dh, the four gates, c[t], c_prev.
-struct CellIn {
-  float dh, g[4], c, cp;
-};
 
 // The carry variant's operands (unused without kCarry).
 struct BpttCarry {
@@ -172,14 +115,22 @@ struct BpttCarry {
   int dir_offset;    // direction d walks descending if d + it > 0
 };
 
-// The BPTT, shared by bptt_kernel and bptt_carry_kernel.
+// One (row, cell) item's inputs at step t: dh, the four gates, c[t],
+// c_prev.
+struct CellIn {
+  float dh, g[4], c, cp;
+};
+
+// The BPTT, shared by bptt_kernel and bptt_carry_kernel: one CTA of a
+// cluster (see item 1 and recurrence.cuh).
 // S: storage dtype (dh, gates, da); W: compute dtype of W_rec^T.
-// kPlain: plain tanh (bf16 mode); kWShared: W_rec^T staged in shared memory.
-// kCarry: the K6b backward (see the note at the top): c_prev at the scan
-// edge is ca.c0 (its fg delta is not zeroed), dhf and dcf join at the
-// capture step, every step runs, and dh0/dc0 are written after the last.
-// Each variant is an entry point of its own, so that bptt_kernel compiles
-// as it did without the carry (lstm_fwd.cu's rec_body does the same).
+// kPlain: plain tanh (bf16 mode); kWShared: the CTA's rows of W_rec are
+// staged in shared memory (otherwise read from L2 every step).
+// kCarry: the K6b backward (see item 5): c_prev at the scan edge is ca.c0
+// (its fg delta is not zeroed), dhf and dcf join at the capture step,
+// every step runs, and dh0/dc0 are written after the last. Each variant
+// is an entry point of its own, so that bptt_kernel compiles without the
+// carry's operands (lstm_fwd.cu's rec_body does the same).
 template <typename S, typename W, bool kPlain, bool kWShared, bool kCarry>
 __device__ __forceinline__ void bptt_body(
     const S* __restrict__ dh, const S* __restrict__ gates,
@@ -188,80 +139,168 @@ __device__ __forceinline__ void bptt_body(
     S* __restrict__ da_out, float* __restrict__ pb_part, int T, int B, int H,
     int clip, const BpttCarry& ca) {
   extern __shared__ __align__(16) float smem[];
-  const BpttLayout L = bptt_layout(H);
+  const RecPlan P = rec_plan(H, sizeof(W), true);
   const int G = 4 * H;
-  const int HP = L.hp;
-  const int KS = L.ksplit;
-  const int KC = (G + KS - 1) / KS;  // k (gate columns) per split
-  const int QH = HP / 4;             // column quads of the product
-  float* da_s = smem + L.da;
-  float* das = smem + L.das;
-  float* part = smem + L.part;
-  float* cse = smem + L.cse;
-  float* fgn = smem + L.fgn;
-  float* ps = smem + L.peep;
-  float* acc = smem + L.acc;
-  W* ws = reinterpret_cast<W*>(smem + L.w);
-  __shared__ int len_s[kBpttRows];
-  __shared__ int tmax_s;
-
-  const int d = blockIdx.x;
-  const int D = gridDim.x;
+  const int HP = (H + 3) & ~3;  // the row stride of w_rec_t
+  const int rank = blockIdx.x;
   const int blk = blockIdx.y;
-  const int b0 = blk * kBpttRows;
-  const int nb = min(kBpttRows, B - b0);
+  const int b0 = blk * kRecRows;
+  const int d = blockIdx.z;
+  const int D = gridDim.z;
+  const int nb = min(kRecRows, B - b0);
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
   const size_t DH = static_cast<size_t>(D) * H;
   // the direction's scan ascends time (BPTT then walks it descending);
   // without kCarry this is d == 0
   const int dd = d + (kCarry ? ca.dir_offset : 0);
+  int j0, nj;
+  rec_slice(H, P.n, rank, j0, nj);
+  const int lane = tid & 31;
+  const int ks = lane & (kLanesPerCell - 1);
+  const int jl = (tid >> 5) * kCellsPerWarp + (lane >> 3);
+  const int j = j0 + jl;
+  const int r = ks;
+  const bool active = jl < nj && r < nb;
 
-  for (size_t i = tid; i < L.w; i += kBpttThreads) smem[i] = 0.0f;
+  float* dbuf = smem;  // [2][P.op] da_next rounded to W, k-major over 4H
+  // [cpad][P.ws] the CTA's rows of W_rec, in f32 in both modes (bf16 W
+  // widens exactly; the product's reads then need no unpacking)
+  float* ws = smem + 2 * P.op;
+  for (size_t i = tid; i < 2 * P.op; i += nthreads) dbuf[i] = 0.0f;
   const W* wd = w_rec_t + static_cast<size_t>(d) * G * HP;
   if (kWShared) {
-    for (int i = tid; i < G * HP; i += kBpttThreads) ws[i] = wd[i];
-    wd = ws;
+    // row j of W_rec = column j of W_rec^T, k contiguous; zero past 4H and
+    // for the rows of the padding cells
+    const int cpad = round_up(P.cmax, kCellsPerWarp);
+    for (int i = tid; i < cpad * P.ws; i += nthreads) {
+      const int k = i / cpad, cc = i - k * cpad;
+      ws[static_cast<size_t>(cc) * P.ws + k] =
+          cc < nj && k < G ? as_f32(wd[static_cast<size_t>(k) * HP + j0 + cc])
+                           : 0.0f;
+    }
   }
-  if (tid < kBpttRows)
-    len_s[tid] = tid < nb ? min(max(lengths[b0 + tid], 0), T) : 0;
-  __syncthreads();
-  for (int i = tid; i < 3 * H; i += kBpttThreads) ps[i] = peep[d * 3 * H + i];
-  if (tid == 0) {
-    int m = 0;
-    for (int r = 0; r < kBpttRows; ++r) m = max(m, len_s[r]);
-    tmax_s = m;
+  int tmax_rows = 0, len_r = 0;
+  for (int rr = 0; rr < nb; ++rr) {
+    const int len = min(max(lengths[b0 + rr], 0), T);
+    tmax_rows = max(tmax_rows, len);
+    if (rr == r) len_r = len;
   }
-  __syncthreads();
-  const int tmax = kCarry ? T : tmax_s;
-  const int n_items = nb * H;
+  const int tmax = kCarry ? T : tmax_rows;
   // the step whose state the forward emitted as (hf, cf) (kCarry)
   const int t_cap = kCarry && dd == 0 ? ca.carry_t - 1 : 0;
+  float p_ig = 0.0f, p_fg = 0.0f, p_og = 0.0f;
+  if (jl < nj) {
+    const float* pd = peep + static_cast<size_t>(d) * 3 * H + j;
+    p_ig = pd[0];
+    p_fg = pd[H];
+    p_og = pd[2 * H];
+  }
+  // every CTA has started and zeroed its buffers before any peer writes
+  cluster_sync();
 
-  auto load_in = [&](int p, int t) {
+  auto load_in = [&](int t) {
     CellIn in;
-    const int r = p / H, j = p - r * H;
     const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
     in.dh = as_f32(dh[(static_cast<size_t>(t) * B + b0 + r) * DH +
                       static_cast<size_t>(d) * H + j]);
 #pragma unroll
-    for (int gi = 0; gi < 4; ++gi) in.g[gi] = as_f32(gates[row * G + gi * H + j]);
+    for (int gi = 0; gi < 4; ++gi)
+      in.g[gi] = as_f32(gates[row * G + gi * H + j]);
     in.c = c[row * H + j];
     const bool edge = dd == 0 ? t <= 0 : t >= T - 1;
     const int tn = dd == 0 ? t - 1 : t + 1;
     const size_t state = (static_cast<size_t>(d) * B + b0 + r) * H + j;
     in.cp = edge ? (kCarry ? ca.c0[state] : 0.0f)
-                 : c[((static_cast<size_t>(d) * T + tn) * B + b0 + r) * H + j];
+                 : c[((static_cast<size_t>(d) * T + tn) * B + b0 + r) * H +
+                     j];
     return in;
   };
 
-  // one cell item: the deltas of (row r, cell j) at step t
-  auto cell = [&](int p, int t, const CellIn& in) {
-    const int r = p / H, j = p - r * H;
-    float e = in.dh;
-    for (int kq = 0; kq < KS; ++kq)
-      e += part[(static_cast<size_t>(kq) * kBpttRows + r) * HP + j];
+  // The product's lanes differ from the cell phase's: the warp's 32
+  // lanes split k over its four cells (lane L sums the k quads L, L + 32,
+  // ...), so each delta read from shared memory serves four cells, and
+  // the reduce-scatter over the warp leaves lane L with row L % 8 of cell
+  // L / 8, the cell phase's (row, cell).
+  const int KQ = P.kp / (4 * 32);  // k quads a lane sums
+  const int jw = (tid >> 5) * kCellsPerWarp;  // the warp's first cell
+  // e's product at the parity of pass s: sum over k of da_next[row][k] *
+  // W_rec[j][k] for the warp's four cells and eight rows
+  auto product = [&](int s) {
+    const float* dsrc = dbuf + (s & 1) * P.op;
+    float e[kCellsPerWarp * kRecRows];  // [cell][row]
+#pragma unroll
+    for (int i = 0; i < kCellsPerWarp * kRecRows; ++i) e[i] = 0.0f;
+#pragma unroll 2
+    for (int i = 0; i < KQ; ++i) {
+      const int q = lane + 32 * i;  // quad of k
+      float wk[kCellsPerWarp][4];
+#pragma unroll
+      for (int cw = 0; cw < kCellsPerWarp; ++cw) {
+        float4 w4;
+        if (kWShared) {
+          w4 = load4(ws + static_cast<size_t>(jw + cw) * P.ws + 4 * q);
+        } else {
+          float wv[4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int k = 4 * q + kk;
+            wv[kk] = jw + cw < nj && k < G
+                         ? as_f32(wd[static_cast<size_t>(k) * HP + j0 + jw +
+                                     cw])
+                         : 0.0f;
+          }
+          w4 = make_float4(wv[0], wv[1], wv[2], wv[3]);
+        }
+        wk[cw][0] = w4.x;
+        wk[cw][1] = w4.y;
+        wk[cw][2] = w4.z;
+        wk[cw][3] = w4.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* dk = dsrc + q * kQuadFloats + kk * kRecRows;
+        const float4 lo = *reinterpret_cast<const float4*>(dk);
+        const float4 hi = *reinterpret_cast<const float4*>(dk + 4);
+        const float dr8[kRecRows] = {lo.x, lo.y, lo.z, lo.w,
+                                     hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int cw = 0; cw < kCellsPerWarp; ++cw)
+#pragma unroll
+          for (int rr = 0; rr < kRecRows; ++rr)
+            e[cw * kRecRows + rr] =
+                fmaf(dr8[rr], wk[cw][kk], e[cw * kRecRows + rr]);
+      }
+    }
+    fold_half<16>(e, 16, (lane & 16) != 0);
+    fold_half<8>(e, 8, (lane & 8) != 0);
+    fold_half<4>(e, 4, (lane & 4) != 0);
+    fold_half<2>(e, 2, (lane & 2) != 0);
+    fold_half<1>(e, 1, (lane & 1) != 0);
+    return e[0];
+  };
+
+  // the cell's recurrent state: cs_err_next, fg_next, and this step's
+  // unrounded ig/fg deltas (the next step's peephole terms)
+  float cse = 0.0f, fgn = 0.0f, da_ig = 0.0f, da_fg = 0.0f;
+  // dpeep (ig, fg, og) and dbias (4 gates) terms of (row r, cell j)
+  float acc7[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  CellIn nxt = {};
+  if (active && tmax > 0) nxt = load_in(dd == 0 ? tmax - 1 : 0);
+  // this group's deltas in every peer: lane ks stores rows 4 (ks / 4) ..
+  // + 3 of gate ks % 4
+  const int gsel = ks & 3;
+  const unsigned d_dst =
+      smem_u32(dbuf + op_off(gsel * H + j) + 4 * (ks >> 2));
+  const int src0 = (lane & ~(kLanesPerCell - 1)) | (ks & 4);
+
+  for (int s = 0; s < tmax; ++s) {
+    const int t = dd == 0 ? tmax - 1 - s : s;
+    const CellIn in = nxt;
+    if (active && s + 1 < tmax) nxt = load_in(dd == 0 ? t - 1 : t + 1);
+    float e = in.dh + product(s);
     float dcf = 0.0f;
-    if (kCarry && t == t_cap) {
+    if (kCarry && active && t == t_cap) {
       // the final (h, c) are this step's through an identity: their
       // cotangents join e and the cell-state error here
       const size_t src = (static_cast<size_t>(d) * B + b0 + r) * H + j;
@@ -269,13 +308,12 @@ __device__ __forceinline__ void bptt_body(
       dcf = ca.dcf[src];
     }
     const float ni = in.g[0], ig = in.g[1], fg = in.g[2], og = in.g[3];
-    const float tanh_c = kPlain ? tanhf(in.c) : bwd_tanh2(in.c);
+    const float tanh_c = kPlain ? tanhf(in.c) : tanh2_exact(in.c);
     const float og_delta = og * (1.0f - og) * tanh_c * e;
-    float* dar = da_s + r * G;
-    float cs_err = og * (1.0f - tanh_c * tanh_c) * e +
-                   ps[2 * H + j] * og_delta +
-                   fgn[r * H + j] * cse[r * H + j] +
-                   ps[j] * dar[H + j] + ps[H + j] * dar[2 * H + j];
+    // the UNCLIPPED og delta feeds the cell-state error; the clipped
+    // ig/fg deltas of the step before feed it through the peepholes
+    float cs_err = og * (1.0f - tanh_c * tanh_c) * e + p_og * og_delta +
+                   fgn * cse + p_ig * da_ig + p_fg * da_fg;
     if (kCarry) cs_err += dcf;
     // with a carry the scan edge has a previous cell state, c0
     const bool edge = !kCarry && (dd == 0 ? t <= 0 : t >= T - 1);
@@ -284,113 +322,95 @@ __device__ __forceinline__ void bptt_body(
     dv[1] = ig * (1.0f - ig) * ni * cs_err;
     dv[2] = edge ? 0.0f : fg * (1.0f - fg) * in.cp * cs_err;
     dv[3] = og_delta;
-    const float m = t < len_s[r] ? 1.0f : 0.0f;
-    const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
-    float* ac = acc + r * 7 * H;
+    const float m = active && t < len_r ? 1.0f : 0.0f;
+    float dr[4];  // rounded to the compute dtype: the next product's
 #pragma unroll
     for (int gi = 0; gi < 4; ++gi) {
       float v = dv[gi];
       if (clip) v = fminf(fmaxf(v, -1.0f), 1.0f);
       v *= m;
-      dar[gi * H + j] = v;
-      das[(gi * H + j) * kBpttRows + r] = round_to<W>(v);
-      const S st = f32_to<S>(v);
-      da_out[row * G + gi * H + j] = st;
-      ac[3 * H + gi * H + j] += as_f32(st);  // dbias, from the stored da
-      dv[gi] = as_f32(st);
+      dr[gi] = round_to<W>(v);
+      dv[gi] = v;
     }
-    ac[j] += in.cp * dv[1];          // dpeep ig: c_prev
-    ac[H + j] += in.cp * dv[2];      // dpeep fg: c_prev
-    ac[2 * H + j] += in.c * dv[3];   // dpeep og: c
-    cse[r * H + j] = cs_err * m;
-    fgn[r * H + j] = fg * m;
-  };
-
-  // kCarry: one pass more after the last step, whose product is dh0
-  const int n_pass = tmax + (kCarry ? 1 : 0);
-  for (int s = 0; s < n_pass; ++s) {
-    const int t = dd == 0 ? tmax - 1 - s : s;
-    const bool after = kCarry && s == tmax;
-    // issue this step's cell loads now; they land while the product runs
-    CellIn pre[kPre];
+    da_ig = dv[1];
+    da_fg = dv[2];
+    cse = cs_err * m;
+    fgn = fg * m;
+    // the group's deltas, gate gsel and rows 4 (ks / 4) .. + 3 in lane ks,
+    // into every peer's buffer of the next parity (rows past nb are zero)
+    float qv[4];
 #pragma unroll
-    for (int it = 0; it < kPre; ++it) {
-      const int p = tid + it * kBpttThreads;
-      if (p < n_items && !after) pre[it] = load_in(p, t);
+    for (int mm = 0; mm < 4; ++mm) {
+      const float x0 = __shfl_sync(kFull, dr[0], src0 + mm);
+      const float x1 = __shfl_sync(kFull, dr[1], src0 + mm);
+      const float x2 = __shfl_sync(kFull, dr[2], src0 + mm);
+      const float x3 = __shfl_sync(kFull, dr[3], src0 + mm);
+      qv[mm] = gsel == 0 ? x0 : gsel == 1 ? x1 : gsel == 2 ? x2 : x3;
     }
-    // partial products da_next . W_rec^T: one (k slice, 4 adjacent output
-    // columns) item per thread, all rows of the block
-    for (int item = tid; item < KS * QH; item += kBpttThreads) {
-      const int kq = item / QH, q = item - kq * QH;
-      const int k0 = kq * KC, k1 = min(G, k0 + KC);
-      float a4[kBpttRows][4] = {};
-      const W* wq = wd + 4 * q;
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) {
-        const float4 w4 = bwd_load4(wq + static_cast<size_t>(k) * HP);
-        const float4 h4 = *reinterpret_cast<const float4*>(das + k * kBpttRows);
-        const float hr[4] = {h4.x, h4.y, h4.z, h4.w};
+    if (jl < nj) {
+      const unsigned dst =
+          d_dst + static_cast<unsigned>(((s + 1) & 1) * P.op * sizeof(float));
+      const float4 q4 = make_float4(qv[0], qv[1], qv[2], qv[3]);
+      for (int p = 0; p < P.n; ++p) st_peer(peer_addr(dst, p), q4);
+    }
+    cluster_arrive();
+    if (active) {
+      const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
 #pragma unroll
-        for (int i = 0; i < kBpttRows; ++i) {
-          a4[i][0] = fmaf(hr[i], w4.x, a4[i][0]);
-          a4[i][1] = fmaf(hr[i], w4.y, a4[i][1]);
-          a4[i][2] = fmaf(hr[i], w4.z, a4[i][2]);
-          a4[i][3] = fmaf(hr[i], w4.w, a4[i][3]);
-        }
+      for (int gi = 0; gi < 4; ++gi) {
+        const S st = f32_to<S>(dv[gi]);
+        da_out[row * G + gi * H + j] = st;
+        acc7[3 + gi] += as_f32(st);  // dbias, from the stored da
+        dv[gi] = as_f32(st);
       }
-      float* pq = part + static_cast<size_t>(kq) * kBpttRows * HP + 4 * q;
-#pragma unroll
-      for (int r = 0; r < kBpttRows; ++r)
-        *reinterpret_cast<float4*>(pq + r * HP) =
-            make_float4(a4[r][0], a4[r][1], a4[r][2], a4[r][3]);
+      acc7[0] += in.cp * dv[1];  // dpeep ig: c_prev
+      acc7[1] += in.cp * dv[2];  // dpeep fg: c_prev
+      acc7[2] += in.c * dv[3];   // dpeep og: c
     }
-    __syncthreads();
-    if (after) {
-      // after the last step the recurrence's remaining terms are the
-      // initial state's gradients: dh0 = round(da) . W_rec^T, the product
-      // just taken, and dc0 = the cell-state terms of the virtual step
-      // before the scan
-      for (int p = tid; p < n_items; p += kBpttThreads) {
-        const int r = p / H, j = p - r * H;
-        float v = 0.0f;
-        for (int kq = 0; kq < KS; ++kq)
-          v += part[(static_cast<size_t>(kq) * kBpttRows + r) * HP + j];
-        const float* dar = da_s + r * G;
-        const size_t dst = (static_cast<size_t>(d) * B + b0 + r) * H + j;
-        ca.dh0[dst] = v;
-        ca.dc0[dst] = fgn[r * H + j] * cse[r * H + j] + ps[j] * dar[H + j] +
-                      ps[H + j] * dar[2 * H + j];
-      }
-      break;
-    }
-#pragma unroll
-    for (int it = 0; it < kPre; ++it) {
-      const int p = tid + it * kBpttThreads;
-      if (p < n_items) cell(p, t, pre[it]);
-    }
-    for (int p = tid + kPre * kBpttThreads; p < n_items; p += kBpttThreads)
-      cell(p, t, load_in(p, t));
-    __syncthreads();
+    // the peers' deltas of this step have landed; after the last step no
+    // peer touches this CTA's shared memory again
+    cluster_wait();
   }
-  // steps past the block's longest row: zero deltas for all its rows
-  const size_t per_t = static_cast<size_t>(nb) * G;
-  const size_t n_pad = static_cast<size_t>(T - tmax) * per_t;
-  for (size_t i = tid; i < n_pad; i += kBpttThreads) {
-    const size_t t = tmax + i / per_t;
-    const size_t rem = i % per_t;
-    da_out[((static_cast<size_t>(d) * T + t) * B + b0) * G + rem] =
-        f32_to<S>(0.0f);
+  if constexpr (kCarry) {
+    // after the last step the recurrence's remaining terms are the
+    // initial state's gradients: dh0 = round(da) . W_rec^T over the last
+    // step's exchanged deltas, and dc0 = the cell-state terms of the
+    // virtual step before the scan
+    const float v = product(tmax);
+    if (active) {
+      const size_t dst = (static_cast<size_t>(d) * B + b0 + r) * H + j;
+      ca.dh0[dst] = v;
+      ca.dc0[dst] = fgn * cse + p_ig * da_ig + p_fg * da_fg;
+    }
   }
-  // this block's dpeep/dbias partial: rows summed in order
-  for (int col = tid; col < 7 * H; col += kBpttThreads) {
-    float sum = 0.0f;
-    for (int r = 0; r < nb; ++r) sum += acc[r * 7 * H + col];
-    pb_part[(static_cast<size_t>(blk) * D + d) * 7 * H + col] = sum;
+  // steps past the cluster's longest row: zero deltas for all its rows
+  if (active) {
+    for (int t = tmax; t < T; ++t) {
+      const size_t row = (static_cast<size_t>(d) * T + t) * B + b0 + r;
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi)
+        da_out[row * G + gi * H + j] = f32_to<S>(0.0f);
+    }
+  }
+  // this group's dpeep/dbias partial: each cell's 8 rows summed in a fixed
+  // order (a butterfly of shuffles; rows past nb add zero)
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    float v = acc7[i];
+    v += __shfl_xor_sync(kFull, v, 4);
+    v += __shfl_xor_sync(kFull, v, 2);
+    v += __shfl_xor_sync(kFull, v, 1);
+    acc7[i] = v;
+  }
+  if (jl < nj && ks == 0) {
+    float* pb = pb_part + (static_cast<size_t>(blk) * D + d) * 7 * H;
+    for (int i = 0; i < 3; ++i) pb[i * H + j] = acc7[i];
+    for (int gi = 0; gi < 4; ++gi) pb[3 * H + gi * H + j] = acc7[3 + gi];
   }
 }
 
 template <typename S, typename W, bool kPlain, bool kWShared>
-__global__ void __launch_bounds__(kBpttThreads)
+__global__ void __launch_bounds__(kRecMaxThreads)
     bptt_kernel(const S* __restrict__ dh, const S* __restrict__ gates,
                 const float* __restrict__ c, const W* __restrict__ w_rec_t,
                 const float* __restrict__ peep,
@@ -402,7 +422,7 @@ __global__ void __launch_bounds__(kBpttThreads)
 }
 
 template <typename S, typename W, bool kPlain, bool kWShared>
-__global__ void __launch_bounds__(kBpttThreads)
+__global__ void __launch_bounds__(kRecMaxThreads)
     bptt_carry_kernel(const S* __restrict__ dh, const S* __restrict__ gates,
                       const float* __restrict__ c,
                       const W* __restrict__ w_rec_t,
@@ -415,61 +435,50 @@ __global__ void __launch_bounds__(kBpttThreads)
                                           clip, ca);
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch_bptt_kernel(Kernel kernel, size_t smem, dim3 grid,
-                               cudaStream_t stream, Args... args) {
-  // opt in whatever the size: the static part counts against 48 KB too
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kBpttThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
+// One variant on its route: grid (n, ceil(B / 8), D). query: the plan's
+// clusters the card holds at once into *active, no launch.
 template <typename S, typename W, bool kPlain, bool kWShared, bool kCarry>
-cudaError_t launch_bptt(const void* dh, const void* gates, const float* c,
+cudaError_t launch_bptt(const RecPlan& p, size_t smem, const void* dh,
+                        const void* gates, const float* c,
                         const void* w_rec_t, const float* peep,
                         const int* lengths, void* da, float* pb_part, int T,
                         int B, int H, int D, int clip, const BpttCarry& ca,
-                        size_t smem, cudaStream_t stream) {
-  const dim3 grid(D, (B + kBpttRows - 1) / kBpttRows);
+                        int* active, bool query, cudaStream_t stream) {
+  const dim3 grid(p.n, (B + kRecRows - 1) / kRecRows, D);
   const S* dh_s = static_cast<const S*>(dh);
   const S* g_s = static_cast<const S*>(gates);
   const W* w_s = static_cast<const W*>(w_rec_t);
   S* da_s = static_cast<S*>(da);
   if constexpr (kCarry)
-    return launch_bptt_kernel(bptt_carry_kernel<S, W, kPlain, kWShared>,
-                              smem, grid, stream, dh_s, g_s, c, w_s, peep,
-                              lengths, da_s, pb_part, T, B, H, clip, ca);
+    return launch_cluster(bptt_carry_kernel<S, W, kPlain, kWShared>, p, smem,
+                          grid, stream, active, query, dh_s, g_s, c, w_s,
+                          peep, lengths, da_s, pb_part, T, B, H, clip, ca);
   else
-    return launch_bptt_kernel(bptt_kernel<S, W, kPlain, kWShared>, smem,
-                              grid, stream, dh_s, g_s, c, w_s, peep, lengths,
-                              da_s, pb_part, T, B, H, clip);
+    return launch_cluster(bptt_kernel<S, W, kPlain, kWShared>, p, smem, grid,
+                          stream, active, query, dh_s, g_s, c, w_s, peep,
+                          lengths, da_s, pb_part, T, B, H, clip);
 }
 
+// The plan's route (rec_route), as lstm_fwd.cu's launch_rec_w.
 template <typename S, typename W, bool kPlain, bool kCarry>
 cudaError_t launch_bptt_w(const void* dh, const void* gates, const float* c,
                           const void* w_rec_t, const float* peep,
                           const int* lengths, void* da, float* pb_part, int T,
                           int B, int H, int D, int clip, const BpttCarry& ca,
-                          int device, cudaStream_t stream) {
-  int smem_max = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+                          int device, cudaStream_t stream,
+                          int* active = nullptr, bool query = false) {
+  const RecPlan p = rec_plan(H, sizeof(W), true);
+  size_t smem = 0;
+  bool on_chip = false;
+  const cudaError_t err = rec_route(p, device, &smem, &on_chip);
   if (err != cudaSuccess) return err;
-  const BpttLayout L = bptt_layout(H);
-  const size_t state = L.w * sizeof(float);
-  const size_t with_w =
-      state + static_cast<size_t>(4) * H * L.hp * sizeof(W);
-  if (with_w <= static_cast<size_t>(smem_max))
+  if (on_chip)
     return launch_bptt<S, W, kPlain, true, kCarry>(
-        dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D, clip,
-        ca, with_w, stream);
-  if (state > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
+        p, smem, dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H,
+        D, clip, ca, active, query, stream);
   return launch_bptt<S, W, kPlain, false, kCarry>(
-      dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D, clip, ca,
-      state, stream);
+      p, smem, dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D,
+      clip, ca, active, query, stream);
 }
 
 // The weight gradients and dx from da. S: the dtype of x, W_in, h and da
@@ -599,7 +608,7 @@ cudaError_t run_bwd(const void* x, const void* dh, const void* gates,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const int nblk = (B + kBpttRows - 1) / kBpttRows;
+  const int nblk = (B + kRecRows - 1) / kRecRows;
   return launch_sum_partials(pb_part, nblk, static_cast<long long>(D) * 7 * H,
                              pb_out, 7LL * H, 3LL * H, bias_mult, stream);
 }
@@ -614,7 +623,7 @@ extern "C" {
 // (bf16 = 1: all four bf16, else f32); c [D, T, B, H] f32; w_rec_t
 // [D, G, Hp] (W_rec transposed, zero-padded columns) in the compute dtype;
 // peep [D, 3, H] f32; lengths [B] int32. Scratch: da [D, T, B, G] storage
-// dtype, pb_part [ceil(B/4), D, 7H] f32, w_part [nsplit, L] f32 with
+// dtype, pb_part [ceil(B/8), D, 7H] f32, w_part [nsplit, L] f32 with
 // L = D*P*G + D*H*G and nsplit = lstm_bwd_splits(T*B). Outputs: w_out [L]
 // f32 = dW_in [D, P, G] then dW_rec [D, H, G]; pb_out [D, 7H] f32 = dpeep
 // [D, 3, H] then dbias [D, G] (times bias_mult); dx [T, B, P] f32 when
@@ -678,6 +687,31 @@ int lstm_bwd_carry(const void* x, const void* dh, const void* gates,
       x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, h0, ca, da, pb_part,
       w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip, need_dx,
       device, stream);
+}
+
+// The cluster plan of the BPTT recurrence at width H, as bptt_kernel
+// takes it: info as lstm_fwd_rec_plan's.
+int lstm_bwd_plan(int H, int bf16, int device, int* info) {
+  if (H < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const RecPlan p = rec_plan(H, bf16 ? 2 : 4, true);
+  size_t smem = 0;
+  bool on_chip = false;
+  err = rec_route(p, device, &smem, &on_chip);
+  if (err != cudaSuccess) return err;
+  info[0] = p.n;
+  info[1] = p.threads;
+  info[2] = static_cast<int>(smem);
+  info[3] = on_chip ? 1 : 0;
+  const BpttCarry none = {};
+  if (bf16)
+    return launch_bptt_w<__nv_bfloat16, __nv_bfloat16, true, false>(
+        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, 1, 1, H, 1, 0, none, device, nullptr, &info[4], true);
+  return launch_bptt_w<float, float, false, false>(
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      1, 1, H, 1, 0, none, device, nullptr, &info[4], true);
 }
 
 // K splits of the weight-gradient reduction over M = T*B rows (the

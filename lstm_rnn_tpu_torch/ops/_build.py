@@ -169,6 +169,11 @@ def _declare(lib) -> None:
     lib.softmax_ce_plain_fwd.restype = i
     lib.softmax_ce_plain_bwd.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.softmax_ce_plain_bwd.restype = i
+    for name in ("lstm_fwd_rec_plan", "lstm_bwd_plan"):
+        getattr(lib, name).argtypes = [i, i, i, p]
+        getattr(lib, name).restype = i
+    lib.lstm_act_probe.argtypes = [p, p, i, i, p]
+    lib.lstm_act_probe.restype = i
     for name in ("lstm_bwd_splits", "softmax_ce_splits",
                  "softmax_ce_wide_row_tiles"):
         getattr(lib, name).argtypes = [i]

@@ -52,6 +52,7 @@ tensor it runs its plain twin (`lstm_scan_reference`,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -707,6 +708,104 @@ class LstmScanFusedCarry(torch.autograd.Function):
                 None, None, None, None)
 
 
+# The recurrences' cluster plan, as csrc/recurrence.cuh's rec_plan picks
+# it (a CPU test reads these constants from that file): one cluster of n
+# CTAs per direction and group of REC_ROWS rows, CTA i owning a slice of
+# the H cells and the part of W_rec they need, in shared memory when it
+# fits beside the two parity buffers of the exchanged operand, else read
+# from L2 every step.
+REC_ROWS = 8
+LANES_PER_CELL = 8
+CELLS_PER_WARP = 32 // LANES_PER_CELL
+CELLS_PER_CTA = 16
+MAX_CLUSTER = 16
+REC_MAX_THREADS = 512
+QUAD_FLOATS = 36
+# the shared memory a block may opt into on an H100
+SMEM_OPTIN = 232_448
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def recurrence_plan(H: int, compute_dtype: torch.dtype, kind: str) -> dict:
+    """The cluster plan of the forward (kind "fwd": rec_kernel and its
+    carry variants) or the BPTT ("bwd") recurrence at width H: n (CTAs of
+    a cluster), slices [(start, count)] of the cells per CTA, threads a
+    CTA, smem (dynamic shared memory a CTA, bytes), w_on_chip (W_rec's
+    slice in shared memory, else from L2), state (bytes of the parity
+    buffers, on chip on every route) and w (bytes of the W slice). ok is
+    False for a width no CTA takes (the state does not fit or too many
+    threads): the kernels refuse it."""
+    if kind not in ("fwd", "bwd"):
+        raise ValueError(f"kind must be 'fwd' or 'bwd', got {kind!r}")
+    wbytes = 2 if compute_dtype == torch.bfloat16 else 4
+    n = min(MAX_CLUSTER, max(1, -(-H // CELLS_PER_CTA)))
+    cmax = -(-H // n)
+    cpad = _round_up(cmax, CELLS_PER_WARP)
+    if kind == "bwd":  # W's rows held in f32 in both modes
+        kp = ws = _round_up(4 * H, 4 * 32)
+        w = cpad * ws * 4
+    else:
+        kp = _round_up(H, 2 * LANES_PER_CELL)
+        ws = _round_up(H, 16) + 8
+        w = cpad * ws * 4 * wbytes
+    state = 2 * (kp // 4) * QUAD_FLOATS * 4
+    base, extra = divmod(H, n)
+    slices = [(i * base + min(i, extra), base + (i < extra))
+              for i in range(n)]
+    threads = cpad * LANES_PER_CELL
+    on_chip = state + w <= SMEM_OPTIN
+    return dict(n=n, slices=slices, threads=threads, state=state, w=w,
+                w_on_chip=on_chip, smem=state + w if on_chip else state,
+                ok=state <= SMEM_OPTIN and threads <= REC_MAX_THREADS)
+
+
+def recurrence_plan_on_card(H: int, compute_dtype: torch.dtype, kind: str,
+                            device: int = 0) -> dict:
+    """The plan as the kernel library computes it on CUDA device `device`
+    (lstm_fwd_rec_plan / lstm_bwd_plan): n, threads, smem, w_on_chip, and
+    active_clusters, the clusters of that size the card holds at once.
+    Raises where a launch would."""
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
+    info = (ctypes.c_int * 5)()
+    fn = lib.lstm_fwd_rec_plan if kind == "fwd" else lib.lstm_bwd_plan
+    err = fn(H, int(compute_dtype == torch.bfloat16), device,
+             ctypes.cast(info, ctypes.c_void_p))
+    _raise_on(err, f"the {kind} recurrence's plan at H={H}")
+    return dict(n=info[0], threads=info[1], smem=info[2],
+                w_on_chip=bool(info[3]), active_clusters=info[4])
+
+
+def activation_probe(x: torch.Tensor) -> torch.Tensor:
+    """[4, n] f32 of a CUDA f32 x [n], as the recurrence kernels compute
+    them: the plain sigmoid (bf16 mode) by the correctly rounded
+    reciprocal, the same by the IEEE division, CURRENNT's logistic by the
+    reciprocal, and by the division (csrc/lstm_fwd.cu act_probe_kernel)."""
+    from lstm_rnn_tpu_torch.ops import _build
+    x = x.float().contiguous()
+    out = torch.empty((4, x.numel()), dtype=torch.float32, device=x.device)
+    err = _build.load().lstm_act_probe(_ptr(x), _ptr(out), x.numel(),
+                                       x.device.index, _stream(x))
+    _raise_on(err, "lstm_act_probe launch")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan(H: int, compute_dtype, kind: str) -> None:
+    """Refuse, before a launch, a width whose recurrence no CTA takes
+    (cached: it runs before every launch)."""
+    plan = recurrence_plan(H, compute_dtype, kind)
+    if not plan["ok"]:
+        raise ValueError(
+            f"H={H} is too wide for the {kind} recurrence kernel: a CTA of "
+            f"its cluster of {plan['n']} would need {plan['threads']} "
+            f"threads (at most {REC_MAX_THREADS}) and {plan['state']:,} "
+            f"bytes of shared memory (at most {SMEM_OPTIN:,})")
+
+
 def _check_cuda_operands(x, **named):
     """Every operand on x's device and contiguous, in the dtype its kernel
     reads."""
@@ -775,6 +874,7 @@ def _launch_rec(a, w_rec, peep, lengths, save: bool = False):
     H = G // 4
     bf16 = _rec_w_is_bf16(w_rec)
     sdtype = torch.bfloat16 if bf16 else torch.float32
+    _check_plan(H, sdtype, "fwd")
     out = torch.empty((T, B, D * H), dtype=sdtype, device=a.device)
     c = g = None
     if save:
@@ -800,6 +900,7 @@ def _launch_rec_carry(a, w_rec, peep, lengths, mask, h0, c0, carry_t: int,
     H = G // 4
     bf16 = _rec_w_is_bf16(w_rec)
     sdtype = torch.bfloat16 if bf16 else torch.float32
+    _check_plan(H, sdtype, "fwd")
     out = torch.empty((T, B, D * H), dtype=sdtype, device=a.device)
     hf = torch.empty((D, B, H), dtype=torch.float32, device=a.device)
     cf = torch.empty_like(hf)
@@ -835,8 +936,9 @@ def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
     hp = (H + 3) // 4 * 4
     dev = x.device
     sdtype = storage_dtype(compute_dtype)
-    # W_rec^T with zero-padded columns: the product da . W_rec^T reads four
-    # adjacent output columns per load
+    _check_plan(H, compute_dtype, "bwd")
+    # W_rec^T with zero-padded columns, as csrc/lstm_bwd.cu takes it (each
+    # CTA of the BPTT's cluster stages its cells' columns once)
     w_rec_t = torch.zeros((D, G, hp), dtype=compute_dtype, device=dev)
     w_rec_t[:, :, :H] = w_rec.to(compute_dtype).transpose(1, 2)
     xc = x.to(compute_dtype).contiguous()
@@ -845,7 +947,8 @@ def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
     n_w = D * P * G + D * H * G
     f32 = dict(dtype=torch.float32, device=dev)
     da = torch.empty((D, T, B, G), dtype=sdtype, device=dev)
-    pb_part = torch.empty(((B + 3) // 4, D, 7 * H), **f32)
+    # one dpeep/dbias partial per cluster's group of rows
+    pb_part = torch.empty((-(-B // REC_ROWS), D, 7 * H), **f32)
     w_part = torch.empty((nsplit, n_w), **f32)
     w_out = torch.empty(n_w, **f32)
     pb_out = torch.empty((D, 7 * H), **f32)

@@ -897,3 +897,181 @@ def test_gemm_counts_launches_by_use():
     torch.cuda.synchronize()
     assert {u: c.launches for u, c in ge.LAUNCHES.items()} == dict(
         proj=1, dW_in=1, dW_rec=1, dx=1, tail_dh=0, tail_dW=0)
+
+
+# ---------------------------------------- the recurrences' cluster plan
+# Every recurrence runs on a cluster of n CTAs, each owning a slice of the
+# H cells (ops/lstm_cell.py recurrence_plan). These hold the kernels
+# against their twins where the slices are uneven, at the largest cluster,
+# on the L2 route, at the streaming width, on an SP block descending and
+# with one row, at the tolerances above; every case also launches twice
+# and asserts the same bits.
+def _tensors(out):
+    """The tensors of a kernel's output, nested tuples flattened."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return [] if out is None else [out]
+
+
+def _same_bits(fn):
+    """fn() twice: every output tensor equal bit for bit. Returns the
+    first call's outputs."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    for a, b in zip(_tensors(first), _tensors(second), strict=True):
+        assert torch.equal(a, b)
+    return first
+
+
+def _train_vs_twins(args, dtype, need_dx=True, seed=1):
+    """K1 and K2 against their twins (REL), each launched twice."""
+    T, B, _ = args[0].shape
+    D, _, G = args[1].shape
+    got = _same_bits(lambda: lstm_fwd_save(*args, 0.7, dtype))
+    want = lstm_scan_reference(*args, 0.7, dtype, save=True)
+    for name, g, w in zip(("h", "c", "gates"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+    h, c, gates = got
+    dh = torch.randn(T, B, D * G // 4, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    x, w_in, w_rec, peep, _, lengths = args
+    bwd = (x, w_in, w_rec, peep, lengths, h, c, gates, dh, 0.7, True, dtype,
+           need_dx)
+    got = _same_bits(lambda: lstm_bwd(*bwd))
+    want = lstm_scan_bwd_reference(*bwd)
+    for name, g, w in zip(("dx", "dW_in", "dW_rec", "dpeep", "dbias"), got,
+                          want):
+        if g is None:
+            continue
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(9, 11, 7, 5, 2), (13, 10, 33, 125, 2),
+                                   (11, 9, 31, 130, 2)])
+def test_cluster_slices_match_twin(shape, dtype):
+    """H = 5 (one CTA), 125 (n = 8: slices of 16 and 15) and 130 (n = 9:
+    15 and 14): the inference forward, K1 and K2."""
+    H = shape[3]
+    plan = lstm_cell.recurrence_plan(H, dtype, "fwd")
+    assert sum(c for _, c in plan["slices"]) == H
+    args = _empty_block(make_layer(*shape, seed=H))
+    with torch.inference_mode():
+        got = _same_bits(lambda: lstm_scan_fused(*args, 0.7, dtype))
+        want = lstm_scan_reference(*args, 0.7, dtype)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    _train_vs_twins(args, dtype)
+
+
+@pytest.mark.parametrize("H", [300, 512])
+def test_cluster_largest_and_l2_route_match_twin(H):
+    """f32 at H = 300 (a cluster of 16, W_rec's slice in shared memory)
+    and at H = 512 (a cluster of 16, W_rec's slice from L2)."""
+    for kind in ("fwd", "bwd"):
+        plan = lstm_cell.recurrence_plan(H, torch.float32, kind)
+        card = lstm_cell.recurrence_plan_on_card(H, torch.float32, kind)
+        assert plan["n"] == card["n"] == 16
+        assert plan["w_on_chip"] == card["w_on_chip"] == (H == 300)
+        assert (plan["threads"], plan["smem"]) == (card["threads"],
+                                                   card["smem"])
+    args = _empty_block(make_layer(7, 9, 33, H, 2, seed=H))
+    with torch.inference_mode():
+        got = _same_bits(lambda: lstm_scan_fused(*args, 0.7))
+        want = lstm_scan_reference(*args, 0.7)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    _train_vs_twins(args, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["gaps", "none"])
+def test_cluster_streaming_width_matches_twin(mask_kind, dtype):
+    """The carry kernel at the streaming width (H = 250, D = 1, B = 64: a
+    cluster of 16), with the step mask and with prefix lengths."""
+    args, h0, c0, mask = carry_inputs(64, 64, 250, 250, 1, mask_kind, seed=9)
+    with torch.inference_mode():
+        got = _same_bits(lambda: lstm_scan_fused_carry(
+            *args, h0, c0, 0.7, True, dtype, True, None, 0, mask))
+        want = lstm_scan_carry_reference(*args, h0, c0, 0.7, dtype, None, 0,
+                                         mask)
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert torch.isfinite(g.float()).all()
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_sp_block_descending_matches_twin(dtype):
+    """K6b forward and backward on one SP block of a TIMIT layer walked
+    descending (dir_offset 1), ragged rows, each launched twice."""
+    args, h0, c0, dh, dhf, dcf = _carry_grad_inputs((125, 50, 250, 125, 1),
+                                                    11, "ragged")
+    got = _same_bits(lambda: lstm_fwd_save_carry(*args, h0, c0, 0.7, dtype,
+                                                 None, 1))
+    want = lstm_scan_carry_reference(*args, h0, c0, 0.7, dtype, None, 1,
+                                     save=True)
+    for g, w in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        assert _rel_err(g, w) <= REL[dtype]
+    h, c, gates, _ = got
+    x, w_in, w_rec, peep, _, lengths = args
+    bwd = (x, w_in, w_rec, peep, lengths, h, c, gates, h0, c0, dh, dhf, dcf,
+           0.7, True, dtype, True, None, 1)
+    got = _same_bits(lambda: lstm_bwd_carry(*bwd))
+    want = lstm_scan_carry_bwd_reference(*bwd)
+    for name, g, w in zip(("dx", "dW_in", "dW_rec", "dpeep", "dbias", "dh0",
+                           "dc0"), got, want):
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cluster_single_row_matches_twin(dtype):
+    """B = 1: a cluster whose group holds one row (seven lanes of each
+    group idle) in the forward, K1 + K2, and the carry kernels."""
+    args = make_layer(9, 1, 7, 125, 2, seed=12)
+    with torch.inference_mode():
+        got = _same_bits(lambda: lstm_scan_fused(*args, 0.7, dtype))
+        want = lstm_scan_reference(*args, 0.7, dtype)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    _train_vs_twins(args, dtype)
+    cargs, h0, c0, mask = carry_inputs(9, 1, 7, 125, 1, "gaps", seed=12)
+    errs = _carry_errs(cargs, h0, c0, mask, dtype)
+    assert max(errs) <= TOL[dtype], errs
+    gargs, h0, c0, dh, dhf, dcf = _carry_grad_inputs((9, 1, 7, 125, 1), 12,
+                                                     "full")
+    h, c, g, _ = lstm_fwd_save_carry(*gargs, h0, c0, 0.7, dtype)
+    x, w_in, w_rec, peep, _, lengths = gargs
+    bwd = (x, w_in, w_rec, peep, lengths, h, c, g, h0, c0, dh, dhf, dcf, 0.7,
+           True, dtype)
+    got = _same_bits(lambda: lstm_bwd_carry(*bwd))
+    want = lstm_scan_carry_bwd_reference(*bwd)
+    for name, a, b in zip(("dx", "dW_in", "dW_rec", "dpeep", "dbias", "dh0",
+                           "dc0"), got, want):
+        assert _rel_err(a, b) <= REL[dtype], (name, _rel_err(a, b))
+
+
+def test_sigmoid_reciprocal_is_the_division_bit_for_bit():
+    """The recurrences' sigmoids take __frcp_rn(1 + expf(-x)) where they
+    took 1 / (1 + expf(-x)): the correctly rounded reciprocal is the
+    correctly rounded quotient, bit for bit, over a sweep that crosses
+    CURRENNT's saturation at +-88.722839 and the x whose sigmoid is a
+    denormal (below -87.33)."""
+    lim = 88.722839
+    sweep = [torch.linspace(-120.0, 120.0, 2_000_001),
+             torch.linspace(-89.5, -86.5, 300_001),
+             torch.linspace(86.5, 89.5, 30_001),
+             torch.tensor([lim, -lim, 0.0, -0.0, 1e-30, -1e-30, 1e-45])]
+    x = torch.cat(sweep).cuda()
+    for side in (lim, -lim):  # the neighbours of the saturation points
+        v = torch.tensor([side], dtype=torch.float32)
+        for _ in range(4):
+            x = torch.cat([x, v.cuda()])
+            v = torch.nextafter(v, torch.tensor([-200.0]))
+    out = lstm_cell.activation_probe(x)
+    torch.cuda.synchronize()
+    bits = out.view(torch.int32)
+    assert torch.equal(bits[0], bits[1])  # plain sigmoid (bf16 mode)
+    assert torch.equal(bits[2], bits[3])  # CURRENNT's logistic (f32 mode)
+    tiny = out[1][(out[1] > 0) & (out[1] < torch.finfo(torch.float32).tiny)]
+    assert tiny.numel() > 1000  # the sweep reached denormal results
+    assert (out[2][x >= lim] == 1.0).all() and (out[2][x <= -lim] == 0).all()
