@@ -12,8 +12,9 @@ weights from a seed, and holds every kernel against its plain twin:
 2. build: compiles the CUDA kernels from csrc/ with nvcc (one process per
    source, in parallel), prints ptxas's registers and spills, and counts
    the HGMMA (wgmma) instructions in the SASS of every instance of the
-   GEMM engine (csrc/gemm.cuh) and of K3f (csrc/softmax_ce.cu's
-   ce_fwd_kernel): more than 0 in each bf16 instance, 0 in each f32 one;
+   GEMM engine (csrc/gemm.cuh), of K3f (csrc/softmax_ce.cu's
+   ce_fwd_kernel) and of K4b (csrc/softmax_ce_wide.cu's wide_bwd_*):
+   more than 0 in each bf16 instance, 0 in each f32 one;
    and the thread-block cluster each recurrence path takes (csrc/
    recurrence.cuh: n, threads, shared memory, W_rec on chip or from L2,
    the clusters the card holds at once), against ops/lstm_cell.py's
@@ -46,16 +47,20 @@ weights from a seed, and holds every kernel against its plain twin:
    full, lr 1e-4, momentum 0.9) on the kernel path (f32, bf16) and the
    scan path, and a profile of one kernel-path step by kernel;
 9. the wide tail's kernels (K4f, K4b) against their twins at the LVCSR
-   tail (N=25,000, P=250, S=10,112), f32 and bf16, with controls and a
-   row tile of dummy frames, and their times (phase 4's order; K4f and
-   `F.cross_entropy` on the same logits on the device, as phase 4);
+   tail (N=25,000, P=250, S=10,112), f32 and bf16, with controls, a row
+   tile of dummy frames and K4b launched twice (the same bits), and their
+   times (phase 4's order; K4f and `F.cross_entropy` on the same logits,
+   and K4b, on the device, as phase 4); K4's two products outside its
+   kernels (the logits, dh) on the device, this route beside the twins'
+   f32 products, and cuBLAS's dW on K4b's operands as a yardstick;
 10. one LVCSR SGD step, fused tail (K4) vs unfused tail, f32;
 11. the LVCSR recipe through `cli.main(examples/lvcsr_physical_states/
     config.cfg ...)` on a synthetic 10,112-state corpus, f32 with its
     autosave and bf16 without: the exact launch count of every kernel (no
     K3), the autosaves, `--continue epoch001.autosave` against the
     uninterrupted run, and the seconds an LVCSR autosave's dump takes;
-12. LVCSR training frames/s (f32, bf16) and a profile of one f32 step;
+12. LVCSR training frames/s (f32, bf16) and a profile of one f32 and one
+    bf16 step (the bf16 step must run no library GEMM in f32);
 13. the K3/K4/K5 crossover: the three tails, forward + backward with
     their products, at S = 183, 512 and 832 (K3 where it fits the card:
     S <= 704 on an H100; measured only);
@@ -120,15 +125,16 @@ weights from a seed, and holds every kernel against its plain twin:
     remat step (K=4, T=500) by kernel.
 
 26. the GEMM engine (csrc/gemm.cuh's gemm_kernel, which every projection,
-    weight-gradient, dx and tail dh/dW product of the paths above runs
-    in) against its twin at every main-path shape (ops/gemm.py
+    weight-gradient, dx and K3b dh/dW product of the paths above runs
+    in, and K4's logits and dh in bf16 mode, held and timed in phase 9)
+    against its twin at every main-path shape (ops/gemm.py
     MAIN_PATH_CASES: dW_in at P = 117 and 250, dW_rec with the shift -B
-    and +B, dx over two directions, the tails' dh and dW at S = 183 and
-    dW at 10,112, the projection over 25,000, 40,000, 6,250 and 4,096
-    rows), f32 and bf16, with controls that must fail (a zero output, a
-    wrong shift, a dropped split, a zeroed direction), a second launch
-    bit for bit equal to the first, and its times beside the twin's, one
-    torch.matmul-family call's (TF32 off) and the bound.
+    and +B, dx over two directions, K3b's dh and dW at S = 183, the
+    projection over 25,000, 40,000, 6,250 and 4,096 rows), f32 and bf16,
+    with controls that must fail (a zero output, a wrong shift, a dropped
+    split, a zeroed direction), a second launch bit for bit equal to the
+    first, and its times beside the twin's, one torch.matmul-family
+    call's (TF32 off) and the bound.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -913,28 +919,33 @@ def wrappers():
             "softmax_ce_bwd": sc.softmax_ce_bwd}
 
 
-def gemm_expect(kernels, layers=5):
+def gemm_expect(kernels, layers=5, bf16=False):
     """The GEMM engine's launches per product that a path's kernel
     launches imply, on a stack whose first layer's input takes no
     gradient: one projection per LSTM forward; dW_in and dW_rec per BPTT,
-    dx per BPTT of the other layers; dh and dW per K3b, dW per K4b."""
+    dx per BPTT of the other layers; dh and dW per K3b; in bf16 mode the
+    logits per K4f and dh per K4b (K4b's dW is its own kernel's, and in
+    f32 mode K4's two products run in cuBLAS)."""
     fwd = sum(kernels[k] for k in ("lstm_fwd", "lstm_fwd_save",
                                    "lstm_fwd_carry", "lstm_fwd_carry_save"))
     bwd = kernels["lstm_bwd"] + kernels["lstm_bwd_carry"]
-    k3b, k4b = kernels["softmax_ce_proj_bwd"], kernels["softmax_ce_wide_bwd"]
+    k3b = kernels["softmax_ce_proj_bwd"]
+    k4f, k4b = kernels["softmax_ce_wide_fwd"], kernels["softmax_ce_wide_bwd"]
     return {"gemm:proj": fwd, "gemm:dW_in": bwd, "gemm:dW_rec": bwd,
             "gemm:dx": bwd * (layers - 1) // layers, "gemm:tail_dh": k3b,
-            "gemm:tail_dW": k3b + k4b}
+            "gemm:tail_dW": k3b, "gemm:tail_logits": k4f if bf16 else 0,
+            "gemm:wide_dh": k4b if bf16 else 0}
 
 
 def gemm_total(counts):
     return sum(v for k, v in counts.items() if k.startswith("gemm:"))
 
 
-def check_counts(counts, expect):
+def check_counts(counts, expect, bf16=False):
     """Every kernel's launches on a path's run, exactly as expected, and
-    the GEMM engine's per product as the kernels' imply."""
-    expect = {**expect, **gemm_expect(expect)}
+    the GEMM engine's per product as the kernels' imply (bf16: the run's
+    compute dtype)."""
+    expect = {**expect, **gemm_expect(expect, bf16=bf16)}
     if counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
 
@@ -1052,12 +1063,12 @@ def train_rates(torch, card):
               f"{reps}) on {card}")
 
 
-def profile_step(torch, lvcsr=False, remat_blocks=0):
-    """Device time by kernel over one kernel-path training step (f32),
-    with --remat_blocks when remat_blocks > 0."""
+def profile_step(torch, lvcsr=False, remat_blocks=0, dtype="float32"):
+    """Device time by kernel over one kernel-path training step (f32, or
+    `dtype`), with --remat_blocks when remat_blocks > 0."""
     from torch.profiler import ProfilerActivity, profile
     batch, _ = recipe_batch(torch, states=S_LVCSR if lvcsr else S_STATES)
-    tr = make_trainer("auto", "float32", lvcsr)
+    tr = make_trainer("auto", dtype, lvcsr)
     tr.net.remat_blocks = remat_blocks
     tr.train_step(*batch)
     torch.cuda.synchronize()
@@ -1073,10 +1084,19 @@ def profile_step(torch, lvcsr=False, remat_blocks=0):
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
             prof.step()
-    report_profile(prof, wall_us, f"one {'LVCSR' if lvcsr else 'TIMIT'} "
-                   f"training step T={T_TRAIN} f32"
-                   + (f" remat_blocks={remat_blocks}" if remat_blocks
-                      else ""))
+    events = report_profile(
+        prof, wall_us, f"one {'LVCSR' if lvcsr else 'TIMIT'} training step "
+        f"T={T_TRAIN} {'f32' if dtype == 'float32' else 'bf16'}"
+        + (f" remat_blocks={remat_blocks}" if remat_blocks else ""))
+    if events and dtype == "bfloat16":
+        # bf16 mode runs every product on the tensor cores: no library
+        # GEMM on the FP32 pipes (cuBLAS's sgemm / ...f32f32...ffma)
+        f32 = [e.key for e in events
+               if any(t in e.key for t in ("sgemm", "f32f32", "ffma"))]
+        phase("profile", f"  f32 library GEMMs in this bf16 step: "
+              f"{f32 or 'none'}")
+        if f32:
+            raise AssertionError(f"a bf16 step ran f32 GEMMs: {f32}")
 
 
 def dev_us(e):
@@ -1097,7 +1117,7 @@ def report_profile(prof, wall_us, what):
     if busy <= 0:
         phase("profile", f"{what}: device time by kernel not measured (the "
               "profiler recorded no device time)")
-        return
+        return []
     phase("profile", f"{what}: device busy {busy / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}%)")
     for e in events[:12]:
@@ -1115,12 +1135,14 @@ def report_profile(prof, wall_us, what):
         phase("profile", "  GEMM engine by product: " + ", ".join(
             f"{u} {ms:.3f} ms ({n}x)" for u, (ms, n) in per.items())
             + f"; all {sum(ms for ms, _ in per.values()):.3f} ms")
+    return events
 
 
 # the GEMM engine's use tags (csrc/gemm.cuh) and the products they name
 GEMM_TAGS = {"GemmDwIn": "dW_in", "GemmDwRec": "dW_rec", "GemmDx": "dx",
              "GemmProj": "proj", "GemmTailDw": "tail dW",
-             "GemmTailDh": "tail dh"}
+             "GemmTailDh": "tail dh", "GemmTailLogits": "tail logits",
+             "GemmWideDh": "wide dh"}
 
 
 def wide_cost(kind, dtype):
@@ -1161,7 +1183,16 @@ def wide_kernels_vs_twins(torch):
         loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h2, W, b, tc,
                                                              1.0, dt)
         loss_r, cnt_r, off_r, ssum_r, pt_r = sc.wide_stats_reference(a, tc)
+        # the logits product (bf16: the engine on the tensor cores; f32:
+        # cuBLAS with the bias in its epilogue) against the twin's, each
+        # rounded to the storage dtype: f32 sums in another order, and in
+        # bf16 a sum on the other side of a rounding boundary (dz's bound)
+        a_rel, _ = rel_err(a, sc.wide_logits_reference(h2, W, b, 1.0, dt))
         torch.cuda.synchronize()
+        phase("wide-kernel", f"logits product {name} against the twin's: "
+              f"rel {a_rel:.2e} (tol {WIDE_REL['dz'][name]:.1e})")
+        if not a_rel <= WIDE_REL["dz"][name]:
+            raise AssertionError("the logits product disagrees with its twin")
         pairs = {"off": (off, off_r), "ssum": (ssum, ssum_r),
                  "pt": (pt, pt_r)}
         srel = {k: elem_rel(x, y) for k, (x, y) in pairs.items()}
@@ -1214,15 +1245,21 @@ def wide_kernels_vs_twins(torch):
             raise AssertionError("K4f disagrees with its twin")
 
         hc = h2.to(a.dtype)
-        dz, dw, db = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, 1.0)
+
+        def k4b():
+            return sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, 1.0)
+        dz, dw, db = k4b()
+        again = k4b()
         dz_r = sc.wide_dz_reference(a, tc, off, ssum, pt, g)
         dzc_r = dz_r.to(a.dtype)
         dw_r = torch.matmul(hc.float().t(), dzc_r.float())
         db_r = dz_r.sum(dim=0)
         del dz_r
         dh = sc._wide_dh(dz, W, h2.dtype, dt)
-        dh_r = sc._wide_dh(dzc_r, W, h2.dtype, dt)
+        dh_r = sc.wide_dh_reference(dzc_r, W, h2.dtype, dt)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip((dz, dw, db), again))
+        del again
         outs = {"dz": (dz, dzc_r), "dW": (dw, dw_r), "db": (db, db_r),
                 "dh": (dh, dh_r)}
         errs = {k: rel_err(x, y) for k, (x, y) in outs.items()}
@@ -1231,8 +1268,12 @@ def wide_kernels_vs_twins(torch):
         ctrl = {"zero dz": rel_err(torch.zeros_like(dzc_r), dzc_r)[0],
                 "rolled dz": rel_err(dzc_r.roll(1, dims=1), dzc_r)[0]}
         dummy_zero = not dz[:64].any() and not dh[:64].any()
-        ms = time_ms(torch, lambda: sc._launch_wide_bwd(
-            a, hc, tc, off, ssum, pt, g, 1.0), 5)
+        # K4b's kernels on the device (the packing of h, the fused kernel,
+        # the sums of the row splits' partials); events around the call
+        # and around the call with the dh product, host work included
+        dev_k = prof_ms(torch, [k4b], 5)
+        dev = sum(dev_k.values())
+        ms = time_ms(torch, k4b, 5)
         ms_all = time_ms(torch, lambda: sc.softmax_ce_wide_bwd(
             a, h2, W, tc, off, ssum, pt, g, 1.0, dt), 5)
 
@@ -1241,19 +1282,43 @@ def wide_kernels_vs_twins(torch):
             dc = d.to(a.dtype)
             return dc, torch.matmul(hc.float().t(), dc.float()), d.sum(0)
         plain = time_ms(torch, plain_bwd, 3)
+        # the two products outside the kernels on the device, this route
+        # (bf16: the engine on the tensor cores; f32: cuBLAS, the bias in
+        # addmm's epilogue) beside the twins' (f32 on the storage dtype's
+        # values, the bias added in a pass of its own); cuBLAS's dW on the
+        # same operands as a yardstick of K4b's product (no single call
+        # computes K4b's function)
+        prods = {k: sum(prof_ms(torch, [f], 5).values()) for k, f in (
+            ("logits", lambda: sc.wide_logits(h2, W, b, 1.0, dt)),
+            ("logits twin",
+             lambda: sc.wide_logits_reference(h2, W, b, 1.0, dt)),
+            ("dh", lambda: sc._wide_dh(dz, W, h2.dtype, dt)),
+            ("dh twin", lambda: sc.wide_dh_reference(dz, W, h2.dtype, dt)),
+            ("cuBLAS dW", lambda: torch.matmul(hc.t(), dz)))}
         res[("softmax_ce_wide_bwd", name)] = dict(
             err=max(e[1] for k, e in errs.items() if k != "dh"),
-            rel=max(e[0] for e in errs.values()), ms=ms, plain_ms=plain,
-            library_ms=None, cost=wide_cost("softmax_ce_wide_bwd", name))
+            rel=max(e[0] for e in errs.values()), ms=dev if dev else ms,
+            events_ms=ms, plain_ms=plain, library_ms=None,
+            library_events_ms=None, cost=wide_cost("softmax_ce_wide_bwd",
+                                                   name),
+            products_ms=prods)
         phase("wide-kernel", f"K4b softmax_ce_wide_bwd {name}: " + ", ".join(
             f"{k} rel {e[0]:.2e} (tol {lims[k]:.1e})"
             for k, e in errs.items()) + "; controls " + ", ".join(
             f"{k} {v:.2e}" for k, v in ctrl.items()) + f"; dummy tile "
-            f"exactly zero: {dummy_zero}; kernel {ms:.3f} ms ({ms_all:.3f} "
-            f"ms with the dh product); twin {plain:.3f} ms")
+            f"exactly zero: {dummy_zero}; a second launch bit for bit "
+            f"equal: {same}; on the device {fmt_ms(dev or None)} ("
+            + ", ".join(f"{short_key(k)} {v:.4f}" for k, v in dev_k.items())
+            + f"); CUDA events: kernel {ms:.3f} ms ({ms_all:.3f} ms with "
+            f"the dh product); twin {plain:.3f} ms")
+        phase("wide-kernel", f"K4 products outside {name}, on the device: "
+              + ", ".join(f"{k} {fmt_ms(v or None)}"
+                          for k, v in prods.items())
+              + f" [N={N} P={P} S={S}]")
         if not all(v > lims["dz"] for v in ctrl.values()):
             raise AssertionError(f"the dz check passes a wrong dz: {ctrl}")
-        if not (dummy_zero and all(errs[k][0] <= lims[k] for k in errs)):
+        if not (dummy_zero and same
+                and all(errs[k][0] <= lims[k] for k in errs)):
             raise AssertionError("K4b disagrees with its twin")
         del loss, a, off, ssum, pt, dz, dw, db, dzc_r, dw_r, db_r, dh, dh_r
         torch.cuda.empty_cache()
@@ -1373,7 +1438,8 @@ def lvcsr_cli(torch, workdir):
             raise AssertionError(f"cli (LVCSR, {label}) returned {rc}")
         phase("lvcsr", f"{label}: {wall:.1f} s wall for {epochs} epoch(s); "
               f"launches {counts}")
-        check_counts(counts, {k: v * epochs for k, v in per_epoch.items()})
+        check_counts(counts, {k: v * epochs for k, v in per_epoch.items()},
+                     bf16=label == "bfloat16")
         if label == "float32":
             launches = counts
             saves = sorted(os.listdir(rundir))
@@ -2604,7 +2670,8 @@ def kernel_label(mangled):
     if name == "gemm_kernel":
         tag = next((t for t in GEMM_TAGS if t in mangled), "?")
         name += f" {tag} {dtype}"
-    elif name in ("ce_fwd_kernel", "wide_fwd_kernel"):
+    elif name in ("ce_fwd_kernel", "wide_fwd_kernel",
+                  "wide_bwd_wgmma_kernel", "wide_bwd_simt_kernel"):
         # template arguments: Li3E (int 3), Lb0E (bool false)
         args = re.findall(r"L[ib](\d+)E", mangled)
         name += f"<{dtype}, {', '.join(args)}>"
@@ -2626,10 +2693,11 @@ def report_ptxas(log):
 
 def check_hgmma(_build):
     """The HGMMA (wgmma) instructions in the SASS of every instance of the
-    GEMM engine and of K3f: the bf16 instances run on the tensor cores,
-    the f32 ones (true f32) must not."""
+    GEMM engine (K4's bf16 logits and dh products among them), of K3f and
+    of K4b: the bf16 instances run on the tensor cores, the f32 ones (true
+    f32) must not."""
     import re
-    for part in ("gemm_kernel", "ce_fwd_kernel"):
+    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_"):
         counts = _build.sass_counts("HGMMA", part)
         if not counts:
             raise AssertionError(f"no {part} instance in the SASS")
@@ -2652,12 +2720,13 @@ GEMM_ROUNDED_REL = 2.0 ** -7
 
 
 def prof_ms(torch, fns, reps):
-    """Device milliseconds of one launch of each kernel that the calls
-    fns make (each called `reps` times after a warm-up call), from one
-    profile: {kernel name: ms}, each kernel's device time over the
-    launches the profiler recorded (it may miss some). A call's host work
-    does not count, so a short kernel is not timed at the host's pace.
-    {} when three profiles in a row record no device time."""
+    """Device milliseconds of each kernel that the calls fns make, a call
+    (each fn called `reps` times after a warm-up call), from one profile:
+    {kernel name: ms}, each kernel's device time over the launches the
+    profiler recorded (it may miss some) times its launches a call (no
+    two fns launch the same kernel). A call's host work does not count,
+    so a short kernel is not timed at the host's pace. {} when three
+    profiles in a row record no device time."""
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
         fn()
@@ -2669,7 +2738,9 @@ def prof_ms(torch, fns, reps):
                 for _ in range(reps):
                     fn()
             torch.cuda.synchronize()
-        per = {e.key: dev_us(e) / 1e3 / e.count for e in prof.key_averages()
+        per = {e.key: dev_us(e) / 1e3 / e.count
+               * max(1, round(e.count / reps))
+               for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and dev_us(e) > 0}
         if per:
@@ -2887,6 +2958,7 @@ def main():
     profile_step(torch)
     lvcsr_rates(torch, card)
     profile_step(torch, lvcsr=True)
+    profile_step(torch, lvcsr=True, dtype="bfloat16")
     with torch.no_grad():
         tail_crossover(torch)
     with torch.inference_mode():
@@ -2986,10 +3058,13 @@ def main():
             kernels[-1]["variant"] = "carry=True, with_mask=True"
         if k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
             kernels[-1]["variant"] = "carry=True, save=True, dir_offset=0"
-        if "events_ms" in r32:  # K3f, K4f: ms on the device, events beside
+        if "events_ms" in r32:  # K3f, K4f, K4b: ms on the device, events
             for k2, r in (("", r32), ("_bf16", r16)):
                 kernels[-1]["events_ms" + k2] = r["events_ms"]
                 kernels[-1]["library_events_ms" + k2] = r["library_events_ms"]
+        if "products_ms" in r32:  # K4's products outside, on the device
+            kernels[-1]["products_ms"] = r32["products_ms"]
+            kernels[-1]["products_ms_bf16"] = r16["products_ms"]
         if "device_ms" in r32:  # K5 at S=183: the call's kernels alone
             kernels[-1]["device_ms"] = r32["device_ms"]
             kernels[-1]["device_ms_bf16"] = r16["device_ms"]

@@ -40,7 +40,7 @@ cudaError_t run(int use, const void* const (&as)[2],
     case kProj:
       return launch_gemm<GemmProj, T, false, false, float>(
           g, outputs,
-          EpiBias{static_cast<float*>(out), bias, bias_mult, MN, g.N},
+          EpiBias<float>{static_cast<float*>(out), bias, bias_mult, MN, g.N},
           stream);
     case kDwIn:
       err = launch_gemm<GemmDwIn, T, true, false, float>(

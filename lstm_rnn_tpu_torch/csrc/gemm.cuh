@@ -4,12 +4,14 @@
 // reduction of them. The TPU kernels compute these products in their own
 // bodies (lstm_rnn_tpu/ops/lstm_cell.py: the projection x . W_in + b at
 // :227; dW_in = x^T . da, dW_rec = h_prev^T . da and dx = da . W_in^T at
-// :449, :475 and :491; ops/softmax_ce.py: the tails' dh = dz . W^T and
-// dW = h^T . dz in _bwd_proj_kernel and _bwd_wide_kernel); here every one
-// of them, for K0, K1, K2, K3b, K4b, K6f, K6b-f and K6b-b, runs in
-// gemm_kernel. (K3f computes its logits inside its own kernel,
-// softmax_ce.cu's ce_fwd_kernel, from this file's parts: View, load_seg,
-// the swizzle and wgmma descriptors, the cp.async copies.)
+// :449, :475 and :491; ops/softmax_ce.py: dh = dz . W^T and dW = h^T .
+// dz in _bwd_proj_kernel); here every one of them, for K0, K1, K2, K3b,
+// K6f, K6b-f and K6b-b, runs in gemm_kernel, and so do K4's two products
+// outside its kernels in bf16 mode (the logits and dh). (K3f computes its
+// logits inside its own kernel, softmax_ce.cu's ce_fwd_kernel, and K4b its
+// dW inside its own, softmax_ce_wide.cu's wide_bwd_wgmma_kernel, from this
+// file's parts: View, load_seg, the swizzle and wgmma descriptors, the
+// cp.async copies.)
 //
 // An operand is a View: element (r, c) of a row-major matrix with leading
 // dimension `ld`, rows shifted by `shift` (the scan-previous h of dW_rec),
@@ -99,7 +101,12 @@ struct GemmDwIn {};    // x^T . da[d] (K2, K6b-b)
 struct GemmDwRec {};   // h_prev^T . da[d] (K2, K6b-b)
 struct GemmDx {};      // sum_d round(da[d] . W_in[d]^T) (K2, K6b-b)
 struct GemmTailDh {};  // dz . W^T (K3b)
-struct GemmTailDw {};  // h^T . dz (K3b, K4b)
+struct GemmTailDw {};  // h^T . dz (K3b)
+// K4's two products outside its kernels, bf16 mode only (in f32 mode they
+// run in cuBLAS): the logits h . W + bias_mult * b rounded to bf16 (K4f's
+// input) and dh = dzc . W^T in h's dtype (K4b's)
+struct GemmTailLogits {};
+struct GemmWideDh {};
 
 template <typename T>
 struct View {
@@ -214,6 +221,23 @@ __device__ __forceinline__ bool put_f32(float* dst, const float (&v)[W],
   return true;
 }
 
+// v rounded into W consecutive bf16 at dst (W = 1, or an even W where dst
+// is aligned to the W values)
+template <int W>
+__device__ __forceinline__ bool put_bf16(__nv_bfloat16* dst,
+                                         const float (&v)[W]) {
+  if constexpr (W == 1) {
+    *dst = __float2bfloat16_rn(v[0]);
+  } else {
+    if (reinterpret_cast<unsigned long long>(dst) % (2 * W)) return false;
+#pragma unroll
+    for (int i = 0; i < W; i += 2)
+      *reinterpret_cast<__nv_bfloat162*>(dst + i) =
+          __floats2bfloat162_rn(v[i], v[i + 1]);
+  }
+  return true;
+}
+
 // out[m, n] (row-major, ld N) in the output type
 template <typename Out>
 struct EpiStore {
@@ -230,13 +254,7 @@ struct EpiStore {
         *o = f32_to<Out>(add ? as_f32(*o) + v[0] : v[0]);
         return true;
       } else {
-        if (add || reinterpret_cast<unsigned long long>(o) % (2 * W))
-          return false;
-#pragma unroll
-        for (int i = 0; i < W; i += 2)
-          *reinterpret_cast<__nv_bfloat162*>(o + i) =
-              __floats2bfloat162_rn(v[i], v[i + 1]);
-        return true;
+        return !add && put_bf16<W>(o, v);
       }
     }
   }
@@ -256,11 +274,12 @@ struct EpiPartial {
   }
 };
 
-// out[d, m, n] = v + bias_mult * bias[d, n] (f32), the bias product
+// out[d, m, n] = v + bias_mult * bias[d, n] (bias f32), the bias product
 // rounded on its own, as the reference adds bias_mult * bias to the
-// finished matmul
+// finished matmul; the sum stored in Out (f32, or rounded once to bf16)
+template <typename Out>
 struct EpiBias {
-  float* out;
+  Out* out;
   const float* bias;
   float bias_mult;
   long long d_stride;
@@ -272,8 +291,11 @@ struct EpiBias {
 #pragma unroll
     for (int i = 0; i < W; ++i)
       t[i] = v[i] + __fmul_rn(bias_mult, bias[d * N + n + i]);
-    return put_f32<W>(out + d * d_stride + static_cast<long long>(m) * N + n,
-                      t, false);
+    Out* o = out + d * d_stride + static_cast<long long>(m) * N + n;
+    if constexpr (std::is_same<Out, float>::value)
+      return put_f32<W>(o, t, false);
+    else
+      return put_bf16<W>(o, t);
   }
 };
 

@@ -560,7 +560,7 @@ cudaError_t launch_proj(const void* x, const void* w, const float* bias,
   g.nsplit = 1;
   g.ngroups = 1;
   return launch_gemm<GemmProj, T, false, false, float>(
-      g, D, EpiBias{a, bias, bias_mult, static_cast<long long>(M) * N, N},
+      g, D, EpiBias<float>{a, bias, bias_mult, static_cast<long long>(M) * N, N},
       stream);
 }
 

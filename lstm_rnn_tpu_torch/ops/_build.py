@@ -12,7 +12,7 @@ no nvcc; only a launch needs it.
 Usage: `load()` returns the ctypes library; `python -m
 lstm_rnn_tpu_torch.ops._build` builds and prints the compiler's report
 (registers, shared memory and spills per kernel) and the HGMMA count of
-each instance of the GEMM engine and of K3f.
+each instance of the GEMM engine, of K3f and of K4b.
 """
 
 from __future__ import annotations
@@ -162,9 +162,14 @@ def _declare(lib) -> None:
     lib.softmax_ce_bwd.restype = i
     lib.softmax_ce_wide_fwd.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.softmax_ce_wide_fwd.restype = i
-    lib.softmax_ce_wide_bwd.argtypes = [p] * 12 + [i] * 3 + [
+    lib.softmax_ce_wide_bwd.argtypes = [p] * 14 + [i] * 4 + [
         ctypes.c_float, i, i, p]
     lib.softmax_ce_wide_bwd.restype = i
+    lib.softmax_ce_wide_logits.argtypes = [p] * 4 + [i] * 3 + [
+        ctypes.c_float, i, p]
+    lib.softmax_ce_wide_logits.restype = i
+    lib.softmax_ce_wide_dh.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.softmax_ce_wide_dh.restype = i
     lib.softmax_ce_plain_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.softmax_ce_plain_fwd.restype = i
     lib.softmax_ce_plain_bwd.argtypes = [p] * 4 + [i] * 4 + [p]
@@ -174,8 +179,7 @@ def _declare(lib) -> None:
         getattr(lib, name).restype = i
     lib.lstm_act_probe.argtypes = [p, p, i, i, p]
     lib.lstm_act_probe.restype = i
-    for name in ("lstm_bwd_splits", "softmax_ce_splits",
-                 "softmax_ce_wide_row_tiles"):
+    for name in ("lstm_bwd_splits", "softmax_ce_splits"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = i
     lib.lstm_err_str.argtypes = [i]
@@ -199,6 +203,6 @@ def load():
 if __name__ == "__main__":
     load()
     print(build_log())
-    for part in ("gemm_kernel", "ce_fwd_kernel"):
+    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_"):
         for kernel, n in sorted(sass_counts("HGMMA", part).items()):
             print(f"{n:5d} HGMMA  {kernel}")

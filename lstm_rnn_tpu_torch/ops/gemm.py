@@ -3,11 +3,14 @@ its plain twin, its launch count by product, and a wrapper of its test
 entry point (csrc/gemm.cu).
 
 Every projection, weight-gradient, dx and tail dh/dW product of K0, K1,
-K2, K3b, K4b, K6f, K6b-f and K6b-b runs in one GEMM, `gemm_kernel`,
+K2, K3b, K6f, K6b-f and K6b-b runs in one GEMM, `gemm_kernel`,
 launched from inside those kernels' C entry points. The TPU kernels
 compute the same products in their own bodies
-(lstm_rnn_tpu/ops/lstm_cell.py:227, :449, :475, :491; the tails'
-`_bwd_proj_kernel` and `_bwd_wide_kernel`). The products (`USES`):
+(lstm_rnn_tpu/ops/lstm_cell.py:227, :449, :475, :491; the projection
+tail's `_bwd_proj_kernel`). (K4b computes its dW in its own kernel; the
+engine also runs the wide tail's two products outside its kernels in
+bf16 mode, which ops/softmax_ce.py launches and counts here as
+`tail_logits` and `wide_dh`.) The products (`USES`):
 
 - proj:    out[d] = x . W_in[d] + bias_mult * b[d]           (f32)
 - dW_in:   out[d] = x^T . da[d]                               (f32)
@@ -28,8 +31,9 @@ the f32 sum; the projection adds the bias product rounded on its own.
 
 `LAUNCHES[use].launches` counts the engine's launches on the main path;
 the wrappers that launch it (lstm_cell's projection and BPTT, softmax_ce's
-K3b and K4b, and `gemm` here) add to it. `main_path_case` lays out each
-product at the shape the main path gives it.
+K3b and the wide tail's products, and `gemm` here) add to it.
+`main_path_case` lays out each product at the shape the main path gives
+it.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ SPLIT_ALIGN = 64
 
 # Launches of the engine on the main path, one count per use, kept as the
 # kernels' wrappers keep theirs (chip_smoke.py resets and reads them)
-LAUNCHES = {u: types.SimpleNamespace(launches=0) for u in USES}
+LAUNCHES = {u: types.SimpleNamespace(launches=0)
+            for u in USES + ("tail_logits", "wide_dh")}
 
 
 def count_launches(*uses: str) -> None:
@@ -221,14 +226,14 @@ def gemm(use: str, a: Sequence[View], b: Sequence[View], M: int, N: int,
 
 
 # main_path_case's products: the training fraction's T*B = 25,000 rows
-# (bench.py's T = 500, B = 50), H = 125, P = 117 or 250, S = 183 (TIMIT)
-# or 10,112 (LVCSR); the projection also over 40,000 rows (serving,
-# T = 800), 6,250 (an SP or remat block, T = 125) and 4,096 (a streamed
-# 64-frame chunk of 64 streams, D = 1, H = 250)
+# (bench.py's T = 500, B = 50), H = 125, P = 117 or 250, S = 183 (TIMIT's
+# tail, K3b); the projection also over 40,000 rows (serving, T = 800),
+# 6,250 (an SP or remat block, T = 125) and 4,096 (a streamed 64-frame
+# chunk of 64 streams, D = 1, H = 250)
 MAIN_PATH_CASES = ("proj:train117", "proj:train250", "proj:serve",
                    "proj:block", "proj:stream", "dW_in:117", "dW_in:250",
                    "dW_rec:asc", "dW_rec:desc", "dx", "tail_dh",
-                   "tail_dW:183", "tail_dW:10112")
+                   "tail_dW:183")
 
 
 def main_path_case(name: str, dtype: torch.dtype, device,

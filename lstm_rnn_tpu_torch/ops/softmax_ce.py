@@ -32,9 +32,11 @@ product outside the kernels, as in the JAX package (`wide_logits`):
 - `softmax_ce_wide_fwd`: from a, the loss, the count and three per-row
   stats (offset, exp sum, target probability) when the caller trains
   (want_stats); the [N, S] probabilities are never stored;
-- `softmax_ce_wide_bwd`: p recomputed from a and the stats, dz, dW =
-  h^T . dz (csrc/gemm.cuh's GEMM) and db = bias_mult * sum dz; dh =
-  dz . W^T is one product outside.
+- `softmax_ce_wide_bwd`: one fused kernel: p recomputed from a and the
+  stats, dz stored once, dW = h^T . dz accumulated per column block on
+  the chip (wgmma in bf16, register-blocked SIMT in f32) and db =
+  bias_mult * sum dz (`wide_bwd_plan` lays out its launch); dh = dz . W^T
+  is one product outside.
 
 The plain tail (`softmax_ce_fused`: `_fwd_kernel` and `_bwd_kernel`; K5),
 in csrc/softmax_ce_plain.cu, the tail of --remat_blocks training
@@ -53,15 +55,19 @@ Precision: float32 mode is true f32. bfloat16 mode rounds h and W to bf16
 (f32 accumulation), stores p (K3) or the logits (K4) in bf16, rounds dz to
 bf16 before the products (db sums the unrounded dz), as the JAX kernels
 do; K3 returns dh in bf16, K4 in h's dtype. The two products outside K4
-run in f32 on the storage dtype's values (a product of two bf16 values is
-exact in f32); in float32 mode they refuse to run with TF32 on. On a CUDA
-tensor each wrapper launches its kernel or raises; on a CPU tensor it runs
-its plain twin.
+(the logits, dh) run in bf16 mode on the card in csrc/gemm.cuh's engine
+on the tensor cores, bf16 operands with f32 sums, as the JAX package's
+bf16 dots with f32 accumulation; in float32 mode in cuBLAS, true f32,
+refusing to run with TF32 on; their twins in f32 on the storage dtype's
+values (a product of two bf16 values is exact in f32). On a CUDA tensor
+each wrapper launches its kernel or raises; on a CPU tensor it runs its
+plain twin.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -358,16 +364,31 @@ def _no_tf32(compute_dtype) -> None:
             "mode: set torch.backends.cuda.matmul.allow_tf32 = False")
 
 
-def wide_logits(h2, W, b, bias_mult: float,
-                compute_dtype: torch.dtype = torch.float32):
-    """a = h . W + bias_mult * b [N, S]: the product outside K4 (an XLA
-    product in the JAX package), in f32 on the storage dtype's values,
-    then rounded once to the storage dtype; K4's stats come from this
-    rounded a."""
+def wide_logits_reference(h2, W, b, bias_mult: float,
+                          compute_dtype: torch.dtype = torch.float32):
+    """a = h . W + bias_mult * b [N, S] plainly (the twin's): in f32 on
+    the storage dtype's values, the bias product added to the finished
+    product, then rounded once to the storage dtype."""
     sdtype = storage_dtype(compute_dtype)
     a = torch.matmul(h2.to(sdtype).float(), W.to(sdtype).float())
     a += bias_mult * b.float()
     return a.to(sdtype)
+
+
+def wide_logits(h2, W, b, bias_mult: float,
+                compute_dtype: torch.dtype = torch.float32):
+    """a = h . W + bias_mult * b [N, S] in the storage dtype: the product
+    outside K4 (an XLA product in the JAX package); K4's stats come from
+    this rounded a. On the card in bf16 mode the engine on the tensor
+    cores (`_launch_wide_logits`), in f32 mode cuBLAS in true f32 with the
+    bias added in its epilogue; on the CPU the twin."""
+    if not h2.is_cuda:
+        return wide_logits_reference(h2, W, b, bias_mult, compute_dtype)
+    sdtype = storage_dtype(compute_dtype)
+    if sdtype == torch.bfloat16:
+        return _launch_wide_logits(h2.to(sdtype), W.to(sdtype), b,
+                                   bias_mult)
+    return torch.addmm(bias_mult * b.float(), h2.float(), W.float())
 
 
 def wide_stats_reference(a, targets):
@@ -384,7 +405,7 @@ def softmax_ce_wide_fwd_reference(h2, W, b, targets, bias_mult: float,
     targets [N] int (-1 = dummy). Returns (loss f32 scalar, count int32
     scalar, a [N, S] in the storage dtype, off, ssum, pt [N] f32 or three
     None without want_stats)."""
-    a = wide_logits(h2, W, b, bias_mult, compute_dtype)
+    a = wide_logits_reference(h2, W, b, bias_mult, compute_dtype)
     loss, cnt, off, ssum, pt = wide_stats_reference(a, targets)
     if not want_stats:
         off = ssum = pt = None
@@ -401,7 +422,7 @@ def softmax_ce_wide_bwd_reference(a, h2, W, targets, off, ssum, pt, g,
     dz = wide_dz_reference(a, targets, off, ssum, pt, g)
     dzc = dz.to(sdtype)
     dw = torch.matmul(h2.to(sdtype).float().t(), dzc.float())
-    return (_wide_dh(dzc, W, h2.dtype, compute_dtype), dw,
+    return (wide_dh_reference(dzc, W, h2.dtype, compute_dtype), dw,
             bias_mult * dz.sum(dim=0))
 
 
@@ -412,11 +433,21 @@ def wide_dz_reference(a, targets, off, ssum, pt, g):
     return _tail_dz(p, targets, pt, g)
 
 
-def _wide_dh(dzc, W, out_dtype, compute_dtype):
-    """dh = dzc . W^T: the product outside K4b, in f32, cast to h's
-    dtype."""
+def wide_dh_reference(dzc, W, out_dtype, compute_dtype):
+    """dh = dzc . W^T plainly (the twin's): in f32 on the storage dtype's
+    values, cast to h's dtype."""
     wc = W.to(storage_dtype(compute_dtype)).float()
     return torch.matmul(dzc.float(), wc.t()).to(out_dtype)
+
+
+def _wide_dh(dzc, W, out_dtype, compute_dtype):
+    """dh = dzc . W^T in h's dtype: the product outside K4b. On the card
+    in bf16 mode the engine on the tensor cores (`_launch_wide_dh`), in
+    f32 mode cuBLAS in true f32; on the CPU the twin."""
+    sdtype = storage_dtype(compute_dtype)
+    if dzc.is_cuda and sdtype == torch.bfloat16:
+        return _launch_wide_dh(dzc, W.to(sdtype), out_dtype)
+    return wide_dh_reference(dzc, W, out_dtype, compute_dtype)
 
 
 def _check_stats(N, *stats):
@@ -455,10 +486,54 @@ def _launch_wide_fwd(a, targets, want_stats: bool = True):
     return (loss, cnt, *stats)
 
 
+# K4b's tiles (csrc/softmax_ce_wide.cu: kBwdCols, kBwdPass, kBwdMaxPasses,
+# kBwdRowsBf16, kBwdRowsF32, kRowFloats; a CPU test reads them): a block
+# owns 128 columns of S and a pass of 256 rows of dW (P <= 1,024: four
+# passes), and walks its split of the rows in tiles of 64 (bf16) or 32
+# (f32) rows, each with its rows' eight constants
+_BWD_COLS, _BWD_PASS, _BWD_MAX_PASSES = 128, 256, 4
+_BWD_ROWS = {True: 64, False: 32}
+_BWD_ROW_FLOATS = 8
+_BWD_MAX_SPLITS = 16
+H100_SMS = 132
+
+
+def wide_bwd_plan(N: int, P: int, S: int, bf16: bool,
+                  sms: int = H100_SMS) -> dict:
+    """K4b's launch at N rows, P and S: its passes over P, its row tiles,
+    its row splits (one block an SM: the fewest splits, up to 16, that
+    fill `sms` SMs in near-whole waves, none without rows) and the packed
+    h's shape ([hp_rows, hp_cols]; the rows' constants are [hp_rows, 8]
+    f32). Raises where the kernel does not take P."""
+    passes = -(-P // _BWD_PASS)
+    if not 1 <= passes <= _BWD_MAX_PASSES:
+        raise ValueError(f"K4b takes 1 <= P <= {_BWD_PASS * _BWD_MAX_PASSES}"
+                         f" ({_BWD_MAX_PASSES} passes of {_BWD_PASS}); got "
+                         f"P={P}")
+    rows = _BWD_ROWS[bf16]
+    ntiles = -(-N // rows)
+    per = -(-S // _BWD_COLS) * passes
+    best, fill = 1, 0.0
+    for s in range(1, min(_BWD_MAX_SPLITS, ntiles) + 1):
+        blocks = per * s
+        f = blocks / (-(-blocks // sms) * sms)
+        if f > fill + 0.02:
+            best, fill = s, f
+    tps = -(-ntiles // best)
+    return dict(passes=passes, rows=rows, ntiles=ntiles,
+                nsplit=-(-ntiles // tps), hp_rows=ntiles * rows,
+                hp_cols=passes * _BWD_PASS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):
-    """K4b alone: dz, then dW = hc^T . dz in the kernel's GEMM and db.
-    a [N, S] and hc [N, P] in the storage dtype, on the card. Returns
-    (dz [N, S] storage dtype, dW [P, S] f32, db [S] f32)."""
+    """K4b alone, one fused kernel: dz, dW = hc^T . dzc and db. a [N, S]
+    and hc [N, P] in the storage dtype, on the card. Returns (dz [N, S]
+    storage dtype, dW [P, S] f32, db [S] f32)."""
     from lstm_rnn_tpu_torch.ops import _build
     lib = _build.load()
     N, S = a.shape
@@ -468,23 +543,66 @@ def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):
                          f"{tuple(hc.shape)}")
     _check_stats(N, off, ssum, pt)
     dev = a.device
+    bf16 = a.dtype == torch.bfloat16
+    plan = wide_bwd_plan(N, P, S, bf16, _sm_count(dev.index))
     tc = targets.to(device=dev, dtype=torch.int32).contiguous()
     gc = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
+    ns = plan["nsplit"]
     dz = torch.empty((N, S), dtype=a.dtype, device=dev)
-    db_part = torch.empty((lib.softmax_ce_wide_row_tiles(N), S), **f32)
-    w_part = torch.empty((lib.softmax_ce_splits(N), P * S), **f32)
+    hp = torch.empty((plan["hp_rows"], plan["hp_cols"]), dtype=a.dtype,
+                     device=dev)
+    rowc = torch.empty((plan["hp_rows"], _BWD_ROW_FLOATS), **f32)
+    db_part = torch.empty((ns, S), **f32)
+    w_part = torch.empty((ns, P * S), **f32) if ns > 1 else None
     dw = torch.empty((P, S), **f32)
     db = torch.empty(S, **f32)
     err = lib.softmax_ce_wide_bwd(
         _ptr(a.contiguous()), _ptr(hc.contiguous()), _ptr(tc),
         _ptr(off.contiguous()), _ptr(ssum.contiguous()),
-        _ptr(pt.contiguous()), _ptr(gc), _ptr(dz), _ptr(db_part),
-        _ptr(w_part), _ptr(dw), _ptr(db), N, P, S, ctypes.c_float(bias_mult),
-        int(a.dtype == torch.bfloat16), dev.index, _stream(a))
+        _ptr(pt.contiguous()), _ptr(gc), _ptr(dz), _ptr(hp), _ptr(rowc),
+        _ptr(db_part),
+        _ptr(w_part) if ns > 1 else None, _ptr(dw), _ptr(db), N, P, S, ns,
+        ctypes.c_float(bias_mult), int(bf16), dev.index, _stream(a))
     _raise_on(err, "softmax_ce_wide_bwd launch")
-    count_launches("tail_dW")
     return dz, dw, db
+
+
+def _launch_wide_logits(hc, wc, b, bias_mult: float):
+    """K4f's logits product in bf16 mode: a [N, S] bf16 = round(hc . wc +
+    bias_mult * b) in csrc/gemm.cuh's engine (hc [N, P], wc [P, S] bf16 on
+    the card, b [S])."""
+    from lstm_rnn_tpu_torch.ops import _build
+    N, P = hc.shape
+    S = wc.shape[1]
+    dev = hc.device
+    a = torch.empty((N, S), dtype=torch.bfloat16, device=dev)
+    err = _build.load().softmax_ce_wide_logits(
+        _ptr(hc.contiguous()), _ptr(wc.contiguous()),
+        _ptr(b.to(device=dev, dtype=torch.float32).contiguous()), _ptr(a),
+        N, P, S, ctypes.c_float(bias_mult), dev.index, _stream(hc))
+    _raise_on(err, "softmax_ce_wide_logits launch")
+    count_launches("tail_logits")
+    return a
+
+
+def _launch_wide_dh(dzc, wc, out_dtype):
+    """K4b's dh product in bf16 mode: dh [N, P] = dzc . wc^T in out_dtype
+    (f32 sums, stored in f32 or rounded to bf16) in csrc/gemm.cuh's engine
+    (dzc [N, S], wc [P, S] bf16 on the card)."""
+    from lstm_rnn_tpu_torch.ops import _build
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dh is float32 or bfloat16, not {out_dtype}")
+    N, S = dzc.shape
+    P = wc.shape[0]
+    dev = dzc.device
+    dh = torch.empty((N, P), dtype=out_dtype, device=dev)
+    err = _build.load().softmax_ce_wide_dh(
+        _ptr(dzc.contiguous()), _ptr(wc.contiguous()), _ptr(dh), N, P, S,
+        int(out_dtype == torch.float32), dev.index, _stream(dzc))
+    _raise_on(err, "softmax_ce_wide_dh launch")
+    count_launches("wide_dh")
+    return dh
 
 
 def softmax_ce_wide_fwd(h2, W, b, targets, bias_mult: float = 1.0,

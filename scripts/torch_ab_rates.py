@@ -2,7 +2,7 @@
 """A/B of chip_smoke.py's training rates between two checkouts, on one
 CUDA GPU.
 
-    python3 scripts/torch_ab_rates.py PARENT_DIR CHANGE_DIR
+    python3 scripts/torch_ab_rates.py PARENT_DIR CHANGE_DIR [PHASES]
 
 Each directory holds `chip_smoke.py` and its `lstm_rnn_tpu_torch/`
 package (for example the parent commit unpacked with `git archive` into a
@@ -11,8 +11,9 @@ change, parent, each in its own process (each builds its own kernel
 library), and each runs its own chip_smoke.py's rate phases: the TIMIT
 and LVCSR training steps (phases 8 and 12), the sequence-parallel step on
 four blocks of one card beside the single-device step (phase 20), and the
---remat_blocks steps with their peak memory (phase 25), f32 and bf16.
-Each line is prefixed by the run's label. Prints the card's name and
+--remat_blocks steps with their peak memory (phase 25), f32 and bf16;
+PHASES (for example 8,12) runs only those of the four. Each line is
+prefixed by the run's label. Prints the card's name and
 power limit first. Imports torch and the port only.
 """
 
@@ -23,7 +24,7 @@ import subprocess
 import sys
 
 
-def worker(root, label):
+def worker(root, label, phases):
     import torch
     sys.path.insert(0, os.path.abspath(root))
     import chip_smoke as cs
@@ -33,11 +34,13 @@ def worker(root, label):
     _build.load()
     card = cs.card_line()
     out = io.StringIO()
+    runs = {"8": lambda: cs.train_rates(torch, card),
+            "12": lambda: cs.lvcsr_rates(torch, card),
+            "20": lambda: cs.sp_rates(torch, card, [cs.sp_mesh(torch)]),
+            "25": lambda: cs.remat_rates_memory(torch, card)}
     with contextlib.redirect_stdout(out):
-        cs.train_rates(torch, card)
-        cs.lvcsr_rates(torch, card)
-        cs.sp_rates(torch, card, [cs.sp_mesh(torch)])
-        cs.remat_rates_memory(torch, card)
+        for phase in phases.split(","):
+            runs[phase]()
     for line in out.getvalue().splitlines():
         if "frames/s" in line:
             print(f"{label} {line}", flush=True)
@@ -45,15 +48,16 @@ def worker(root, label):
 
 def main():
     if sys.argv[1:2] == ["--worker"]:
-        worker(*sys.argv[2:4])
+        worker(*sys.argv[2:5])
         return 0
     parent, change = sys.argv[1:3]
+    phases = sys.argv[3] if len(sys.argv) > 3 else "8,12,20,25"
     subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"], check=True)
     for root, label in ((parent, "parent-1"), (change, "change-1"),
                         (change, "change-2"), (parent, "parent-2")):
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--worker", root, label], check=True)
+                        "--worker", root, label, phases], check=True)
     return 0
 
 

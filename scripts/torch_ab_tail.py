@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of the port's tail forward kernels between two checkouts, on one
-CUDA GPU.
+"""A/B of the port's tail kernels between two checkouts, on one CUDA GPU.
 
     python3 scripts/torch_ab_tail.py PARENT_DIR CHANGE_DIR
 
@@ -15,11 +14,16 @@ f32 and bf16, on operands already in the storage dtype:
   ignore_index=-1)`;
 - K4f (`_launch_wide_fwd`) at the LVCSR tail, N = 25,000, S = 10,112,
   beside `F.cross_entropy(a, t, sum, ignore_index=-1)`;
+- K4b (`_launch_wide_bwd`) at the LVCSR tail, P = 250, beside cuBLAS's
+  dW on the same operands (`torch.matmul(h^T, dz)`, a yardstick: no one
+  call computes K4b's function);
+- K4's two products outside its kernels as each checkout routes them:
+  the logits (`wide_logits`) and dh (`_wide_dh`);
 
-each as device time per call from the profiler (the kernel and its loss
-reduction; the library call's kernels summed) and as CUDA events around
-20 calls (host work included), and the compiler's registers and spills of
-the two kernels. Prints the card's name and power limit first. Imports
+each as device time per call from the profiler (the kernels of the call;
+the library call's kernels summed) and as CUDA events around 20 calls
+(host work included), and the compiler's registers and spills of the
+tail kernels. Prints the card's name and power limit first. Imports
 torch and the port only.
 """
 
@@ -76,19 +80,22 @@ def worker(root, label):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-        elif name and ("ce_fwd_kernel" in name or "wide_fwd_kernel" in name) \
+        elif name and re.search(r"(ce|wide)_fwd_kernel|wide_(dz|bwd_\w+)_"
+                                r"kernel", name) \
                 and ("spill" in line or "registers" in line):
-            short = re.sub(r".*?((ce|wide)_fwd_kernel)", r"\1", name)[:60]
+            short = re.sub(r".*?((ce|wide)_\w+_kernel)", r"\1", name)[:60]
             print(f"{label} {short}: {line.strip()[:90]}")
 
-    def show(what, fn, lib):
+    def show(what, fn, lib=None):
         dev, per = device_ms(torch, fn)
-        ldev, lper = device_ms(torch, lib)
-        print(f"{label} {what}: device {dev:.4f} ms ("
-              + ", ".join(f"{k[:40]} {v:.4f}" for k, v in per.items())
-              + f"), events {events_ms(torch, fn):.4f} ms; library device "
-              f"{ldev:.4f} ms ({len(lper)} kernels), events "
-              f"{events_ms(torch, lib):.4f} ms", flush=True)
+        text = (f"{label} {what}: device {dev:.4f} ms ("
+                + ", ".join(f"{k[:40]} {v:.4f}" for k, v in per.items())
+                + f"), events {events_ms(torch, fn):.4f} ms")
+        if lib is not None:
+            ldev, lper = device_ms(torch, lib)
+            text += (f"; library device {ldev:.4f} ms ({len(lper)} kernels),"
+                     f" events {events_ms(torch, lib):.4f} ms")
+        print(text, flush=True)
 
     gen = torch.Generator("cuda").manual_seed(1234)
     N, P = 25_000, 250
@@ -117,7 +124,19 @@ def worker(root, label):
                          lambda: sc._launch_wide_fwd(a, tc),
                          lambda: F.cross_entropy(a, tl, reduction="sum",
                                                  ignore_index=-1))
-                    del a
+                    _, _, off, ssum, pt = sc._launch_wide_fwd(a, tc)
+                    hc, g = h2.to(dt), torch.tensor(1.0, device="cuda")
+                    dz = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g,
+                                             1.0)[0]
+                    show(f"K4b {name} [N={N} P={P} S={S}]",
+                         lambda: sc._launch_wide_bwd(a, hc, tc, off, ssum,
+                                                     pt, g, 1.0),
+                         lambda: torch.matmul(hc.t(), dz))
+                    show(f"logits product {name}",
+                         lambda: sc.wide_logits(h2, W, b, 1.0, dt))
+                    show(f"dh product {name}",
+                         lambda: sc._wide_dh(dz, W, h2.dtype, dt))
+                    del a, dz
         del h2, W
         torch.cuda.empty_cache()
 

@@ -516,15 +516,20 @@ WIDE_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(70, 7, 1001), (1000, 131, 2049),
-                                   (2500, 250, 10112)])
-def test_wide_tail_matches_twin(shape, dtype):
+@pytest.mark.parametrize("shape, bias_mult", [
+    ((70, 7, 1001), 0.8), ((1000, 131, 2049), 0.8),
+    ((2500, 250, 10112), 0.8),
+    ((600, 256, 1001), 0.8),  # one whole pass of 256 rows of dW
+    ((600, 300, 2049), 0.8),  # two passes
+    ((25_000, 250, 10112), 1.0)])  # the LVCSR tail and recipe
+def test_wide_tail_matches_twin(shape, bias_mult, dtype):
     """S off every multiple of 32/64/128 but the last, N off the 64-row
-    tile; the first tile's rows are all dummies."""
+    tile; the first tile's rows are all dummies. K4b launched twice gives
+    the same bits (its row splits are summed in a fixed order)."""
     h, w, b, tc = _tail(*shape)
     tc[:64] = -1
-    loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h, w, b, tc, 0.8,
-                                                         dtype)
+    loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h, w, b, tc,
+                                                         bias_mult, dtype)
     loss_r, cnt_r, off_r, ssum_r, pt_r = sc.wide_stats_reference(a, tc)
     torch.cuda.synchronize()
     assert a.dtype == lstm_cell.storage_dtype(dtype)
@@ -533,23 +538,61 @@ def test_wide_tail_matches_twin(shape, dtype):
     for name, x, y in (("off", off, off_r), ("ssum", ssum, ssum_r),
                        ("pt", pt, pt_r)):
         assert _elem_rel(x, y) <= STAT_REL, (name, _elem_rel(x, y))
-    loss0, cnt0, _, *none = sc.softmax_ce_wide_fwd(h, w, b, tc, 0.8, dtype,
-                                                   want_stats=False)
+    loss0, cnt0, _, *none = sc.softmax_ce_wide_fwd(h, w, b, tc, bias_mult,
+                                                   dtype, want_stats=False)
     assert none == [None] * 3 and loss0.item() == loss.item()
     g = torch.tensor(0.37, device="cuda")
     hc = h.to(a.dtype)
-    dz, dw, db = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, 0.8)
+    dz, dw, db = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, bias_mult)
+    again = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, bias_mult)
     dz_r = sc.wide_dz_reference(a, tc, off, ssum, pt, g).to(a.dtype)
-    got = sc.softmax_ce_wide_bwd(a, h, w, tc, off, ssum, pt, g, 0.8, dtype)
+    got = sc.softmax_ce_wide_bwd(a, h, w, tc, off, ssum, pt, g, bias_mult,
+                                 dtype)
     want = sc.softmax_ce_wide_bwd_reference(a, h, w, tc, off, ssum, pt, g,
-                                            0.8, dtype)
+                                            bias_mult, dtype)
     torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip((dz, dw, db), again))
     assert _rel_err(dz, dz_r) <= DZ_REL[dtype], _rel_err(dz, dz_r)
     for name, x, y in zip(("dh", "dW", "db"), got, want):
         assert x.dtype == y.dtype and x.shape == y.shape, name
         assert _rel_err(x, y) <= WIDE_REL[dtype], (name, _rel_err(x, y))
     # the all-dummy tile: exactly zero
     assert not dz[:64].any() and not got[0][:64].any()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(70, 7, 1001), (1000, 131, 2049),
+                                   (2500, 250, 10112)])
+def test_wide_bf16_products_match_twin(shape, out_dtype):
+    """K4's two products outside its kernels in bf16 mode, on the tensor
+    cores (gemm.cuh's GemmTailLogits and GemmWideDh), against their twins
+    in f32 on the bf16 values: the logits rounded to bf16 on both sides
+    (a sum on the other side of a rounding boundary moves an element by
+    one bf16 ulp: DZ_REL), dh f32 sums in another order or rounded to
+    bf16 (WIDE_REL); S off the 64/128 multiples, the first tile's rows
+    all dummies (their dh exactly zero); one engine launch each."""
+    from lstm_rnn_tpu_torch.ops.gemm import LAUNCHES
+    bf = torch.bfloat16
+    h, w, b, tc = _tail(*shape)
+    tc[:64] = -1
+    before = {u: LAUNCHES[u].launches for u in ("tail_logits", "wide_dh")}
+    a = sc.wide_logits(h, w, b, 0.8, bf)
+    a_r = sc.wide_logits_reference(h, w, b, 0.8, bf)
+    _, _, off, ssum, pt = sc.wide_stats_reference(a, tc)
+    dzc = sc.wide_dz_reference(a, tc, off, ssum, pt,
+                               torch.tensor(0.37, device="cuda")).to(bf)
+    dh = sc._wide_dh(dzc, w, out_dtype, bf)
+    dh_r = sc.wide_dh_reference(dzc, w, out_dtype, bf)
+    no_bias = sc.wide_logits(h, w, torch.zeros_like(b), 0.8, bf)
+    torch.cuda.synchronize()
+    assert a.dtype == bf and a.shape == a_r.shape
+    assert _rel_err(a, a_r) <= DZ_REL[bf], _rel_err(a, a_r)
+    assert _rel_err(no_bias, a_r) > DZ_REL[bf]  # the check sees the bias
+    assert dh.dtype == out_dtype and dh.shape == dh_r.shape
+    assert _rel_err(dh, dh_r) <= WIDE_REL[bf], _rel_err(dh, dh_r)
+    assert not dh[:64].any()
+    assert {u: LAUNCHES[u].launches - n for u, n in before.items()} == {
+        "tail_logits": 2, "wide_dh": 1}
 
 
 def test_loss_and_count_fused_takes_the_wide_tail():
@@ -572,13 +615,17 @@ def test_loss_and_count_fused_takes_the_wide_tail():
     pt = torch.ones(9, 4, dtype=torch.int8, device="cuda")
     tc = torch.randint(0, 10112, (9, 4), device="cuda", generator=g,
                        dtype=torch.int32)
+    from lstm_rnn_tpu_torch.ops.gemm import LAUNCHES
     wrappers = (sc.softmax_ce_proj_fwd, sc.softmax_ce_proj_bwd,
-                sc.softmax_ce_wide_fwd, sc.softmax_ce_wide_bwd)
+                sc.softmax_ce_wide_fwd, sc.softmax_ce_wide_bwd,
+                LAUNCHES["tail_dW"], LAUNCHES["tail_dh"])
     before = [f.launches for f in wrappers]
     loss, _ = net.loss_and_count_fused(params, x, tc, pt)
     loss.backward()
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(wrappers, before)] == [0, 0, 1, 1]
+    # K4b computes its dW in its own kernel: no engine tail product
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [
+        0, 0, 1, 1, 0, 0]
     assert torch.isfinite(params["output"]["W"].grad).all()
 
 
@@ -896,7 +943,8 @@ def test_gemm_counts_launches_by_use():
     out.sum().backward()
     torch.cuda.synchronize()
     assert {u: c.launches for u, c in ge.LAUNCHES.items()} == dict(
-        proj=1, dW_in=1, dW_rec=1, dx=1, tail_dh=0, tail_dW=0)
+        proj=1, dW_in=1, dW_rec=1, dx=1, tail_dh=0, tail_dW=0,
+        tail_logits=0, wide_dh=0)
 
 
 # ---------------------------------------- the recurrences' cluster plan

@@ -33,7 +33,9 @@ from lstm_rnn_tpu_torch.ops.softmax_ce import (H100_SMEM_OPTIN,
                                                tail_smem_optin)
 
 N, P, PP, S = 512, 100, 128, 1500
-BIAS_MULT, G = 0.8, 0.37  # G: the loss cotangent
+# a layer's bias_mult (the LVCSR recipe's softmax: 1.0), and G the loss
+# cotangent
+BIAS_MULTS, G = (0.8, 1.0), 0.37
 DUMMY = (5, 17, 40, 300)  # rows with target -1
 DTYPES = ["float32", "bfloat16"]
 CSRC = Path(__file__).resolve().parents[1] / "lstm_rnn_tpu_torch" / "csrc"
@@ -55,7 +57,7 @@ def _inputs():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax(dtype):
+def _jax(dtype, bias_mult):
     h, w, b, tc = _inputs()
     dt = jnp.dtype(dtype)
     spw = wide_plan(N, PP, S, dt)[0]
@@ -63,13 +65,13 @@ def _jax(dtype):
     wp = jnp.asarray(np.pad(w, ((0, PP - P), (0, spw - S))))
     bp = jnp.asarray(np.pad(b, (0, spw - S)))
     t2 = jnp.asarray(tc[:, None])
-    f = functools.partial(jax_tail, targets=t2, S=S, bias_mult=BIAS_MULT,
+    f = functools.partial(jax_tail, targets=t2, S=S, bias_mult=bias_mult,
                           interpret=True, compute_dtype=dt)
     loss, vjp = jax.vjp(lambda *a: f(*a)[0], hp, wp, bp)
     cnt = f(hp, wp, bp)[1]
     dh, dw, db = vjp(jnp.asarray(G, jnp.float32))
     (_, _), (a, _, _, _, off, ssum, pt) = _wide_fwd_impl(
-        hp, wp, bp, t2, S, BIAS_MULT, True, dt)
+        hp, wp, bp, t2, S, bias_mult, True, dt)
     f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
     return dict(loss=float(loss), cnt=int(cnt), a=f32(a)[:, :S],
                 off=f32(off)[:, 0], ssum=f32(ssum)[:, 0], pt=f32(pt)[:, 0],
@@ -87,11 +89,12 @@ def _tolerance(dtype, ref):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_wide_forward_matches_jax(dtype):
-    want = _jax(dtype)
+@pytest.mark.parametrize("bias_mult", BIAS_MULTS)
+def test_wide_forward_matches_jax(bias_mult, dtype):
+    want = _jax(dtype, bias_mult)
     h, w, b, tc = (torch.tensor(x) for x in _inputs())
     dt = getattr(torch, dtype)
-    loss, cnt, a, off, ssum, pt = softmax_ce_wide_fwd(h, w, b, tc, BIAS_MULT,
+    loss, cnt, a, off, ssum, pt = softmax_ce_wide_fwd(h, w, b, tc, bias_mult,
                                                       dt)
     assert loss.dtype == torch.float32 and cnt.dtype == torch.int32
     assert a.dtype == dt and a.shape == (N, S)
@@ -109,21 +112,22 @@ def test_wide_forward_matches_jax(dtype):
     # argmax (class 1) is row 11's target and not row 10's
     assert a[10, 1] == a[10, 3] == a[10].max()
     # without stats the forward keeps none, and gives the same loss
-    loss0, cnt0, _, *stats = softmax_ce_wide_fwd(h, w, b, tc, BIAS_MULT, dt,
+    loss0, cnt0, _, *stats = softmax_ce_wide_fwd(h, w, b, tc, bias_mult, dt,
                                                  want_stats=False)
     assert stats == [None] * 3
     assert float(loss0) == float(loss) and int(cnt0) == int(cnt)
     with torch.no_grad():
-        loss1, cnt1 = softmax_ce_wide_fused(h, w, b, tc, S, BIAS_MULT, dt)
+        loss1, cnt1 = softmax_ce_wide_fused(h, w, b, tc, S, bias_mult, dt)
     assert float(loss1) == float(loss) and int(cnt1) == int(cnt)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_wide_gradients_match_jax(dtype):
-    want = _jax(dtype)
+@pytest.mark.parametrize("bias_mult", BIAS_MULTS)
+def test_wide_gradients_match_jax(bias_mult, dtype):
+    want = _jax(dtype, bias_mult)
     h, w, b, tc = _inputs()
     ts = [torch.tensor(x, requires_grad=True) for x in (h, w, b)]
-    loss, cnt = softmax_ce_wide_fused(*ts, torch.tensor(tc), S, BIAS_MULT,
+    loss, cnt = softmax_ce_wide_fused(*ts, torch.tensor(tc), S, bias_mult,
                                       getattr(torch, dtype))
     np.testing.assert_allclose(float(loss.detach()), want["loss"], rtol=1e-5)
     dh, dw, db = torch.autograd.grad(loss, ts, torch.tensor(G))
@@ -198,6 +202,62 @@ def test_route_footprint_follows_the_kernel_source(bf16):
         assert sc.proj_smem_bytes(S_, bf16) == want + 6 * c["kCeRows"] * 4
 
 
+@pytest.mark.parametrize("bf16", [True, False])
+def test_k4b_tiles_follow_the_kernel_source(bf16):
+    """wide_bwd_plan states K4b's real launch: its tile constants are the
+    kernel's (csrc/softmax_ce_wide.cu), a block's shared memory (the
+    source's Bwd<T>::kSmem, written here from its constants) fits an
+    H100's 232,448 bytes at every P, P above one pass of 256 rows of dW
+    takes more passes, and a P the kernel does not take raises, with no
+    other route."""
+    src = (CSRC / "softmax_ce_wide.cu").read_text()
+    c = _source_ints(CSRC / "softmax_ce_wide.cu",
+                     ("kBwdCols", "kBwdPass", "kBwdStages", "kBwdMaxPasses",
+                      "kBwdRowsBf16", "kBwdRowsF32", "kRowFloats"))
+    assert (sc._BWD_COLS, sc._BWD_PASS, sc._BWD_MAX_PASSES) == (
+        c["kBwdCols"], c["kBwdPass"], c["kBwdMaxPasses"])
+    assert sc._BWD_ROWS == {True: c["kBwdRowsBf16"],
+                            False: c["kBwdRowsF32"]}
+    assert sc._BWD_ROW_FLOATS == c["kRowFloats"]
+    assert "constexpr int kRowBytes = kRowFloats * 4;" in src
+    for line in ("kZBytes = kRows * kBwdCols * kEs;",
+                 "kHBytes = kRows * kBwdPass * kEs;",
+                 "kStageBytes = kZBytes + kHBytes + kRows * kRowBytes;",
+                 "kSmem = kBwdStages * kStageBytes + 1024;",
+                 "kRows = kBf16 ? kBwdRowsBf16 : kBwdRowsF32;"):
+        assert f"static constexpr int {line}" in src, line
+    rows, es = sc._BWD_ROWS[bf16], 2 if bf16 else 4
+    smem = c["kBwdStages"] * (rows * (c["kBwdCols"] + c["kBwdPass"]) * es
+                              + rows * c["kRowFloats"] * 4) + 1024
+    # one footprint at every P: the passes over P are blocks of their own
+    assert smem <= H100_SMEM_OPTIN
+    N, S_ = 25_000, 10_112
+    for P_, passes in ((7, 1), (250, 1), (256, 1), (300, 2), (512, 2),
+                       (1024, 4)):
+        plan = sc.wide_bwd_plan(N, P_, S_, bf16)
+        assert plan["passes"] == passes
+        assert (plan["hp_rows"], plan["hp_cols"]) == (
+            -(-N // rows) * rows, passes * c["kBwdPass"])
+    with pytest.raises(ValueError, match="P <= 1024"):
+        sc.wide_bwd_plan(N, 1025, S_, bf16)
+
+
+@pytest.mark.parametrize("N_, S_", [(25_000, 10_112), (70, 1001),
+                                    (1000, 2049), (64, 7)])
+def test_k4b_splits_fill_the_card_and_none_is_empty(N_, S_):
+    """The row splits: at the LVCSR tail 79 column blocks x 5 splits fill
+    132 SMs in three waves less one block; at every shape each split gets
+    rows (the kernel refuses an empty one) and the splits cover them."""
+    for bf16 in (True, False):
+        plan = sc.wide_bwd_plan(N_, 250, S_, bf16)
+        ns, nt = plan["nsplit"], plan["ntiles"]
+        tps = -(-nt // ns)
+        assert 1 <= ns <= min(16, nt) and -(-nt // tps) == ns
+        assert (ns - 1) * tps < nt <= ns * tps
+        if (N_, S_) == (25_000, 10_112):
+            assert ns == 5 and nt == (391 if bf16 else 782)
+
+
 def _rn32(q):
     """q (a Fraction) rounded to the nearest binary32, ties to even, with
     the subnormal floor; as a Fraction."""
@@ -220,14 +280,20 @@ def _rn32(q):
 
 
 def test_k3f_division_is_correctly_rounded():
-    """K3f's p = e / sum (csrc/softmax_ce.cu ce_div): q = e * RN(1/s), then
-    one FMA correction from the exact remainder, fma(fma(-q, s, e), inv,
-    q), equals the correctly rounded quotient e / s for 0 < e <= s with a
-    normal quotient; each FMA rounds once, emulated here exactly."""
+    """K3f's and K4b's p = e / sum (csrc/softmax_ce.cu ce_div, and
+    csrc/softmax_ce_wide.cu's bwd_dz from the row's 1 / sum): q = e *
+    RN(1/s), then one FMA correction from the exact remainder,
+    fma(fma(-q, s, e), inv, q), equals the correctly rounded quotient
+    e / s for 0 < e <= s with a normal quotient; each FMA rounds once,
+    emulated here exactly."""
     src = (CSRC / "softmax_ce.cu").read_text()
     assert "const float q = e * inv;" in src
     assert "fmaf(fmaf(-q, s, e), inv, q)" in src
     assert "inv[hf] = __frcp_rn(sum[hf]);" in src
+    wide = (CSRC / "softmax_ce_wide.cu").read_text()
+    assert "const float rs = __frcp_rn(sum);" in wide
+    assert "const float q = ex * c0[k].z;" in wide
+    assert "fmaf(fmaf(-q, c0[k].y, ex), c0[k].z, q)" in wide
     rng = np.random.RandomState(8)
     f32 = lambda x: Fraction(float(np.float32(x)))  # noqa: E731
     for _ in range(4000):
