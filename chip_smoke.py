@@ -31,7 +31,10 @@ weights from a seed, and holds every kernel against its plain twin:
    K3f on operands already in the storage dtype, timed on the device (the
    profiler: its kernel and the loss reduction) beside one
    `F.cross_entropy(addmm(...))` on the same operands, timed the same way,
-   and by CUDA events (host work included);
+   and by CUDA events (host work included); K3b the same way beside
+   cuBLAS's dh + dW on its operands, at most four kernels a call, its dz
+   (the kernels' own view of it) the twin's bit for bit at g = 1 and a
+   second launch bit for bit equal to the first;
 5. serving end to end: writes a TIMIT-shaped .nc and network.jsn, runs
    `cli.main(--train false ... htk)` in f32 and bf16 and with
    `--lstm_backend scan`, checks the files, the posteriors and the K0
@@ -125,16 +128,27 @@ weights from a seed, and holds every kernel against its plain twin:
     remat step (K=4, T=500) by kernel.
 
 26. the GEMM engine (csrc/gemm.cuh's gemm_kernel, which every projection,
-    weight-gradient, dx and K3b dh/dW product of the paths above runs
-    in, and K4's logits and dh in bf16 mode, held and timed in phase 9)
-    against its twin at every main-path shape (ops/gemm.py
-    MAIN_PATH_CASES: dW_in at P = 117 and 250, dW_rec with the shift -B
-    and +B, dx over two directions, K3b's dh and dW at S = 183, the
-    projection over 25,000, 40,000, 6,250 and 4,096 rows), f32 and bf16,
-    with controls that must fail (a zero output, a wrong shift, a dropped
-    split, a zeroed direction), a second launch bit for bit equal to the
-    first, and its times beside the twin's, one torch.matmul-family
-    call's (TF32 off) and the bound.
+    weight-gradient and dx product of the paths above runs in, and K4's
+    logits and dh in bf16 mode, held and timed in phase 9) against its
+    twin at every main-path shape (ops/gemm.py MAIN_PATH_CASES: dW_in at
+    P = 117 and 250, dW_rec with the shift -B and +B, dx over two
+    directions, the tail's dh and dW at S = 183 (instances no path runs
+    since K3b's redesign), the projection over 25,000, 40,000, 6,250 and
+    4,096 rows), f32 and bf16, with controls that must fail (a zero
+    output, a wrong shift, a dropped split, a zeroed direction), a second
+    launch bit for bit equal to the first, and its times beside the
+    twin's, one torch.matmul-family call's (TF32 off) and the bound;
+27. backend "auto" on an LSTM layer no recurrence kernel takes (801 cells
+    per direction training, 1,025 serving): the scan route, no kernel
+    launch, backend "scan"'s values and gradients bit for bit, and an
+    explicit "pallas" refused;
+28. a 705-class softmax fed by 1,025 units (past K3's S and K4b's P): one
+    training step through the materialized logits and K5 (one K5f, one
+    K5b, no K3 or K4) against the unfused loss;
+29. the bf16 softmax layer's product and its two gradient products on
+    the tensor cores: no f32 library GEMM in a profile of serving's
+    softmax and one backward, the values of round_operand's f32 matmul,
+    and the product's device time beside that route's.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -779,22 +793,51 @@ def train_kernels_vs_twins(torch):
             raise AssertionError("K3f disagrees with its twin")
         got = sc.softmax_ce_proj_bwd(p, h2, W, tc, g, 1.0, dt)
         want = sc.softmax_ce_bwd_reference(p, h2, W, tc, g, 1.0, dt)
+        # dz never leaves the chip: the kernels' own view of it (before
+        # its rounding) against the twin's, bit for bit at g = 1, and a
+        # second launch's outputs against the first's
+        dz = torch.empty(N, S, device="cuda")
+        first = sc._launch_proj_bwd(p, hs, Ws, tc, g, 1.0, dz_out=dz)
+        again = sc._launch_proj_bwd(p, hs, Ws, tc, g, 1.0)
+        dz_r = sc.plain_dz_reference(p, tc, g)
         torch.cuda.synchronize()
+        dz_bits = torch.equal(dz.view(torch.int32), dz_r.view(torch.int32))
+        same = all(torch.equal(a, c) for a, c in zip(first, again))
         errs = [rel_err(a, c) for a, c in zip(got, want)]
         rel, err = max(e[0] for e in errs), max(e[1] for e in errs)
         each = per_output(("dh", "dW", "db"), errs)
-        ms = time_ms(torch, lambda: sc.softmax_ce_proj_bwd(
-            p, h2, W, tc, g, 1.0, dt), 10)
+        dzc = dz_r.to(dt)
+        del dz, first, again
+
+        def k3b():
+            return sc.softmax_ce_proj_bwd(p, hs, Ws, tc, g, 1.0, dt)
+
+        def lib_call():  # cuBLAS's dh and dW on the same operands
+            return torch.matmul(dzc, Ws.t()), torch.matmul(hs.t(), dzc)
+        ms = time_ms(torch, k3b, 10)
+        lib = time_ms(torch, lib_call, 10)
         plain = time_ms(torch, lambda: sc.softmax_ce_bwd_reference(
             p, h2, W, tc, g, 1.0, dt), 10)
+        dev_k = prof_ms(torch, [k3b], 20)
+        dev = sum(dev_k.values())
+        lib_dev = sum(prof_ms(torch, [lib_call], 20).values())
         res[("softmax_ce_proj_bwd", P, name)] = dict(
-            err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=None,
+            err=err, rel=rel, ms=dev if dev else ms, events_ms=ms,
+            plain_ms=plain, library_ms=lib_dev if lib_dev else lib,
+            library_events_ms=lib, launches_per_call=len(dev_k),
             cost=tail_cost("softmax_ce_proj_bwd", P, name))
         phase("train-kernel", f"K3b softmax_ce_proj_bwd {name}: "
               f"max_abs_err={err:.3e} rel={rel:.3e} [{each}] (tol "
-              f"{REL['softmax_ce'][name]:.1e}); kernel {ms:.3f} ms; twin "
-              f"{plain:.3f} ms")
-        if not rel <= REL["softmax_ce"][name]:
+              f"{REL['softmax_ce'][name]:.1e}); dz the twin's bit for bit: "
+              f"{dz_bits}; repeat bit for bit: {same}; on the device "
+              f"{fmt_ms(dev or None)} in {len(dev_k)} kernels (" + ", ".join(
+                  f"{short_key(k)} {v:.4f}" for k, v in dev_k.items())
+              + f"), cuBLAS dh + dW {fmt_ms(lib_dev or None)} on the device;"
+              f" CUDA events: kernel {ms:.3f} ms, cuBLAS {lib:.3f} ms; twin "
+              f"{plain:.3f} ms [N={N} P={P} S={S}]")
+        if dev_k and len(dev_k) > 4:
+            raise AssertionError(f"K3b launched {len(dev_k)} kernels")
+        if not (rel <= REL["softmax_ce"][name] and dz_bits and same):
             raise AssertionError(f"K3b disagrees with its twin: {rel}")
     return res
 
@@ -923,17 +966,17 @@ def gemm_expect(kernels, layers=5, bf16=False):
     """The GEMM engine's launches per product that a path's kernel
     launches imply, on a stack whose first layer's input takes no
     gradient: one projection per LSTM forward; dW_in and dW_rec per BPTT,
-    dx per BPTT of the other layers; dh and dW per K3b; in bf16 mode the
-    logits per K4f and dh per K4b (K4b's dW is its own kernel's, and in
-    f32 mode K4's two products run in cuBLAS)."""
+    dx per BPTT of the other layers; in bf16 mode the logits per K4f and
+    dh per K4b (K4b's dW is its own kernel's, and in f32 mode K4's two
+    products run in cuBLAS). K3b's dh and dW are its own kernels' (PR 11):
+    the engine's tail_dh and tail_dW run on no path."""
     fwd = sum(kernels[k] for k in ("lstm_fwd", "lstm_fwd_save",
                                    "lstm_fwd_carry", "lstm_fwd_carry_save"))
     bwd = kernels["lstm_bwd"] + kernels["lstm_bwd_carry"]
-    k3b = kernels["softmax_ce_proj_bwd"]
     k4f, k4b = kernels["softmax_ce_wide_fwd"], kernels["softmax_ce_wide_bwd"]
     return {"gemm:proj": fwd, "gemm:dW_in": bwd, "gemm:dW_rec": bwd,
-            "gemm:dx": bwd * (layers - 1) // layers, "gemm:tail_dh": k3b,
-            "gemm:tail_dW": k3b, "gemm:tail_logits": k4f if bf16 else 0,
+            "gemm:dx": bwd * (layers - 1) // layers, "gemm:tail_dh": 0,
+            "gemm:tail_dW": 0, "gemm:tail_logits": k4f if bf16 else 0,
             "gemm:wide_dh": k4b if bf16 else 0}
 
 
@@ -2697,7 +2740,8 @@ def check_hgmma(_build):
     of K4b: the bf16 instances run on the tensor cores, the f32 ones (true
     f32) must not."""
     import re
-    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_"):
+    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_", "pb_dh_kernel",
+                 "pb_dw_kernel"):
         counts = _build.sass_counts("HGMMA", part)
         if not counts:
             raise AssertionError(f"no {part} instance in the SASS")
@@ -2907,6 +2951,159 @@ def gemm_engine_vs_twin(torch):
     return res
 
 
+def wide_lstm_route(torch):
+    """Phase 27: backend "auto" trains a BLSTM layer of 801 cells per
+    direction and serves one of 1,025 on the scan route (no recurrence
+    kernel has a CTA for them), on the card, with backend "scan"'s values
+    and gradients bit for bit and no kernel launch; "pallas" raises."""
+    from lstm_rnn_tpu_torch.models.lstm import lstm_forward
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    kern = (lc.lstm_scan_fused, lc.lstm_fwd_save, lc.lstm_bwd)
+    for H, grad in ((801, True), (1025, False)):
+        gen = torch.Generator("cuda").manual_seed(SEED + H)
+        u = lambda *sh: (torch.rand(*sh, device="cuda",  # noqa: E731
+                                    generator=gen) - 0.5) * 0.2
+        params = {"W_in": u(2, 16, 4, H), "W_rec": u(2, H, 4, H),
+                  "b": u(2, 4, H), "peep": u(2, 3, H)}
+        x = torch.randn(8, 4, 16, device="cuda", generator=gen)
+        pt = torch.ones(8, 4, dtype=torch.int8, device="cuda")
+        pt[6:, 1] = 0
+        outs = []
+        for backend in ("auto", "scan"):
+            ps = {k: v.clone().requires_grad_(grad) for k, v in params.items()}
+            before = [f.launches for f in kern]
+            t0 = time.perf_counter()
+            with torch.set_grad_enabled(grad):
+                y = lstm_forward(ps, x, pt, 1.0, True, backend=backend)
+                grads = (torch.autograd.grad(y.sum(), list(ps.values()))
+                         if grad else ())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = [f.launches - n for f, n in zip(kern, before)]
+            outs.append((y, grads))
+        same = torch.equal(outs[0][0], outs[1][0]) and all(
+            torch.equal(a, c) for a, c in zip(outs[0][1], outs[1][1]))
+        try:
+            with torch.set_grad_enabled(grad):
+                lstm_forward({k: v.clone().requires_grad_(grad)
+                              for k, v in params.items()}, x, pt, 1.0, True,
+                             backend="pallas")
+            refused = False
+        except ValueError:
+            refused = True
+        phase("route", f"LSTM H={H} per direction "
+              f"{'training' if grad else 'serving'}, backend auto: scan "
+              f"route, kernel launches {launched}, values"
+              f"{' and gradients' if grad else ''} those of backend scan bit "
+              f"for bit: {same}; explicit pallas refused: {refused}; "
+              f"{wall:.2f} s wall [T=8 B=4 P=16]")
+        if launched != [0, 0, 0] or not same or not refused:
+            raise AssertionError(f"the wide LSTM route failed at H={H}")
+
+
+def wide_p_tail_route(torch):
+    """Phase 28: a 705-class softmax fed by 1,025 units (past K3's S and
+    K4b's P) trains through the materialized logits and K5 on the card:
+    one K5f and one K5b, no K3 or K4 launch, finite gradients, and the
+    unfused loss."""
+    from lstm_rnn_tpu_torch.network import Network
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    net = Network([
+        {"name": "input", "type": "input", "size": 39},
+        {"name": "l1", "type": "feedforward_tanh", "size": 1025,
+         "bias": 1.0},
+        {"name": "output", "type": "softmax", "size": 705, "bias": 1.0},
+        {"name": "postoutput", "type": "multiclass_classification",
+         "size": 705}])
+    net.init_params(SEED)
+    params = net.device_params("cuda")
+    for layer in params.values():
+        for v in layer.values():
+            v.requires_grad_(True)
+    gen = torch.Generator("cuda").manual_seed(SEED + 28)
+    x = torch.randn(100, 50, 39, device="cuda", generator=gen)
+    pt = torch.ones(100, 50, dtype=torch.int8, device="cuda")
+    tc = torch.randint(0, 705, (100, 50), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    wr = (sc.softmax_ce_proj_fwd, sc.softmax_ce_proj_bwd,
+          sc.softmax_ce_wide_fwd, sc.softmax_ce_wide_bwd, sc.softmax_ce_fwd,
+          sc.softmax_ce_bwd)
+    before = [f.launches for f in wr]
+    loss, _ = net.loss_and_count_fused(params, x, tc, pt)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = [f.launches - n for f, n in zip(wr, before)]
+    with torch.no_grad():
+        ref = net.loss(params, x, tc, pt)
+    lrel = abs(loss.item() - ref.item()) / abs(ref.item())
+    finite = all(torch.isfinite(v.grad).all() for layer in params.values()
+                 for v in layer.values())
+    phase("route", f"softmax(705) over 1,025 units, one training step of "
+          f"5,000 frames: launches K3f/K3b/K4f/K4b/K5f/K5b {launched}, loss "
+          f"rel {lrel:.2e} against the unfused tail, gradients finite: "
+          f"{finite}")
+    if launched != [0, 0, 0, 0, 1, 1] or lrel > 1e-5 or not finite:
+        raise AssertionError("the wide-P tail route failed")
+
+
+def bf16_feedforward(torch):
+    """Phase 29: in bf16 mode the softmax layer's product and its two
+    gradient products run on the tensor cores (no f32 library GEMM in a
+    profile of serving's softmax and of one backward), with the CPU
+    route's values (round_operand's f32 matmul, here on the card): the
+    forward to f32 sum-order noise, the gradients to one bf16 ulp; the
+    device time of the forward product beside that route's."""
+    from torch.profiler import ProfilerActivity, profile
+    from lstm_rnn_tpu_torch.models import feedforward as ff
+    gen = torch.Generator("cuda").manual_seed(SEED + 29)
+    x = torch.randn(500, 50, 2 * H, device="cuda", generator=gen)
+    params = {"W": (torch.rand(2 * H, S_STATES, device="cuda",
+                               generator=gen) - 0.5) * 0.2,
+              "b": (torch.rand(S_STATES, device="cuda", generator=gen)
+                    - 0.5) * 0.2}
+    dy = torch.randn(500, 50, S_STATES, device="cuda", generator=gen)
+    bf = torch.bfloat16
+
+    def grads(route_fn):
+        xg = x.clone().requires_grad_(True)
+        wg = params["W"].clone().requires_grad_(True)
+        a = route_fn(xg, wg) + params["b"]
+        gx, gw = torch.autograd.grad(a, (xg, wg), dy)
+        return a.detach(), gx, gw
+
+    def f32_route(xg, wg):
+        return torch.matmul(ff.round_operand(xg, bf), ff.round_operand(wg, bf))
+    got = grads(lambda xg, wg: ff._product(xg, wg, bf))
+    want = grads(f32_route)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, c)[0] for a, c in zip(got, want)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            ff.softmax_forward(params, x, 1.0, bf)
+        grads(lambda xg, wg: ff._product(xg, wg, bf))
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    f32 = [k for k in keys if any(t in k for t in ("sgemm", "f32f32",
+                                                     "ffma"))]
+    new_ms = prof_ms(torch, [lambda: ff._product(x, params["W"], bf)], 10)
+    old_ms = prof_ms(torch, [lambda: f32_route(x, params["W"])], 10)
+    phase("route", f"bf16 softmax layer [25,000 x {2 * H} . {2 * H} x "
+          f"{S_STATES}]: rel err a {errs[0]:.2e} (tol 1e-5), dx {errs[1]:.2e},"
+          f" dW {errs[2]:.2e} (tol 2^-7) against round_operand's f32 "
+          f"matmul; f32 library GEMMs: {f32 or 'none'} (of {len(keys)} "
+          f"kernels); the product on the device {sum(new_ms.values()):.4f} ms"
+          f" (" + ", ".join(f"{short_key(k)} {v:.4f}"
+                            for k, v in new_ms.items())
+          + f"), the f32 route's {sum(old_ms.values()):.4f} ms")
+    if not keys:
+        phase("route", "  (the profiler recorded no device time: the "
+              "library-GEMM check was not made)")
+    if f32 or errs[0] > 1e-5 or max(errs[1:]) > 2.0 ** -7:
+        raise AssertionError("the bf16 feedforward products failed")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2992,6 +3189,9 @@ def main():
     gemm_paths["remat training"] = gemm_total(remat_launches)
     with torch.no_grad():
         gres = gemm_engine_vs_twin(torch)
+    wide_lstm_route(torch)
+    wide_p_tail_route(torch)
+    bf16_feedforward(torch)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -3078,7 +3278,6 @@ def main():
         "replaces_also": ["lstm_rnn_tpu/ops/lstm_cell.py:227",
                           "lstm_rnn_tpu/ops/lstm_cell.py:475",
                           "lstm_rnn_tpu/ops/lstm_cell.py:491",
-                          "lstm_rnn_tpu/ops/softmax_ce.py:361",
                           "lstm_rnn_tpu/ops/softmax_ce.py:575"],
         "variant": "dW_in at P=250 (T*B=25,000 rows, two directions)",
         "launches": sum(gemm_paths.values()),

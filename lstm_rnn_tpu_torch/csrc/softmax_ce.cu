@@ -60,10 +60,42 @@
 // p = e / sum is correctly rounded without a division per element
 // (ce_div). Loss and count are per-row values added in row order into a
 // per-tile partial, and the partials in a fixed order by a one-block
-// reduction: no float atomics, the same sum on every run. The backward
-// writes dzc once to device memory (18 MB in f32; the TPU kernel keeps it
-// in VMEM) with per-block db partials, then runs dh and split-K dW through
-// gemm.cuh's GEMM (wgmma in bf16), and sums the partials in order.
+// reduction: no float atomics, the same sum on every run.
+//
+// The backward (K3b) keeps dz out of device memory, as the TPU kernel keeps
+// it in VMEM: it must read p, h and W and write dh, dW and db, 34 MB in
+// bf16 at N = 25,000, P = 250, S = 183 (0.010 ms at 3.35 TB/s, which bounds
+// it), and its two products are 4.6 GFLOP (0.068 ms on the FP32 pipes,
+// which bound f32). Four launches:
+// * pb_prep_kernel: each row's constants once (p_t read from p at the
+//   target, inv, -s and inv - s: no kernel after divides), and W packed,
+//   zero-padded to [256k, 64k] (bf16) or transposed to [32k, 256k] (f32),
+//   so that every copy of it is an aligned 16 bytes.
+// * dh = dzc . W^T. Rows of p are rarely 16-byte aligned (183 bf16 are
+//   366 bytes), but its 16-byte chunks are: a row's columns are copied
+//   as the aligned chunks that hold them by cp.async (pb_fill_seg) and
+//   read from their shift (pb_shift). dz is formed from p and the row
+//   constants in the twin's operation order (pb_dz8), rounded to the
+//   storage dtype into shared memory, and multiplied there: wgmma
+//   m64n128k16 on dz and W's packed rows, both K-major (bf16), or on the
+//   FP32 pipes (f32). Up to 192 classes (the main path) pb_dh_res_kernel:
+//   one persistent block an SM holds its columns of W in shared memory
+//   and walks 64-row tiles, the next tile's p landing while this tile's
+//   product runs, dh staged through shared memory and stored in whole
+//   rows. Above, pb_dh_kernel: a block a 64-row tile, W's chunks of S
+//   from L2.
+// * pb_dw_kernel: dW = h^T . dzc and db, a block per 128 rows (of P) x 192
+//   columns (of S) of dW over a split of the rows (enough splits to give
+//   every SM one block), walking its rows in tiles through a three-stage
+//   cp.async ring (h's rows, p's segments, the rows' constants). dz is
+//   formed again, db summed from it unrounded, and dW accumulated in
+//   registers: three wgmma m64n64k16 chunks a warpgroup, h and dz both
+//   MN-major, a tile's dz formed while the tensor cores run the last
+//   one's (bf16); 8 x 12 outputs a thread, the next tile's dz formed
+//   between this one's FMAs (f32). The partial tile is staged through
+//   shared memory and stored in whole rows.
+// * sum_partials: the splits' dW and db partials, one buffer, in a fixed
+//   order (no float atomics: a second launch gives the same bits).
 //
 // Launch rules: the entry points launch on the caller's stream, allocate
 // nothing, never synchronise, and return cudaGetLastError().
@@ -89,7 +121,6 @@ constexpr int kCeTile = kCeRows * kWgBK * 2;
 // the forward's static shared memory: a loss and a hit per row, for up to
 // three warpgroups
 constexpr int kCeStaticBytes = 6 * kCeRows * 4;
-constexpr int kCeDzThreads = 256;
 
 template <typename T>
 constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -141,8 +172,10 @@ __host__ __device__ constexpr int ce_smem_bytes(int S, bool bf16) {
 }
 
 // ------------------------------------------------------------ bf16: wgmma
-// d += A . B for one 64 x 64 x 16 step: A K-major, B MN-major (wgmma's
-// transpose bit), f32 accumulators
+// d += A . B for one 64 x 64 x 16 step, f32 accumulators; kTA / kTB: the
+// operand is MN-major (wgmma's transpose bit). K3f: A K-major, B MN-major;
+// K3b's dW: both MN-major.
+template <int kTA = 0, int kTB = 1>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
                                                 unsigned long long da,
                                                 unsigned long long db) {
@@ -154,7 +187,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -163,7 +196,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
 }
 
 // keep the compiler from moving the accumulators across an asynchronous
@@ -942,42 +975,835 @@ __global__ void __launch_bounds__(ce_threads<T, kNch, kMode>(),
     ce_put_tile(row_loss, row_hit, blockIdx.x, part_loss, part_cnt);
 }
 
-// dzc [N, S] (storage dtype) and per-block db partials [nblk, S] from the
-// stored p; g is the loss cotangent (one f32 on the device)
-template <typename PT>
-__global__ void __launch_bounds__(kCeDzThreads)
-    ce_dz_kernel(const PT* __restrict__ p, const int* __restrict__ tc,
-                 const float* __restrict__ g, PT* __restrict__ dz,
-                 float* __restrict__ db_part, int N, int S) {
-  __shared__ float inv_s[kCeRows], sv_s[kCeRows], valid_s[kCeRows];
-  __shared__ int tc_s[kCeRows];
-  const int m0 = blockIdx.x * kCeRows;
-  const int nr = min(kCeRows, N - m0);
-  if (threadIdx.x < nr) {
-    const int gm = m0 + threadIdx.x;
-    const int t = tc[gm];
-    const float pt =
-        (t >= 0 && t < S) ? as_f32(p[static_cast<size_t>(gm) * S + t]) : 0.0f;
+// ------------------------------------------------------------------- K3b
+// Its tiles (ops/softmax_ce.py proj_bwd_plan mirrors them, and a CPU test
+// reads them here). dh: a block owns kPbRows rows and kPbDhCols columns
+// (of P) of dh and walks S in chunks of kPbDhKBf16 / kPbDhKF32 columns.
+// dW: a block owns kPbDwRows rows (of P: a pass) and kPbDwCols columns (of
+// S) of dW, and walks its split of the rows in tiles of kPbDwTileBf16 /
+// kPbDwTileF32 rows through a ring of kPbDwStages stages.
+constexpr int kPbThreads = 256;
+constexpr int kPbRows = 64;
+constexpr int kPbDhCols = 256;
+constexpr int kPbDhKBf16 = 64;  // one 128-byte swizzle row of bf16
+constexpr int kPbDhKF32 = 32;
+constexpr int kPbDwRows = 128;  // two warpgroups' 64 (bf16)
+constexpr int kPbDwCols = 192;  // three 64-column chunks
+constexpr int kPbDwTileBf16 = 64;  // one wgmma K of 64
+constexpr int kPbDwTileF32 = 32;
+constexpr int kPbDwStages = 3;
+// the dW kernel's threads that form dz: 24 chunks of 8 columns x 8 rows
+constexpr int kPbDzThreads = 192;
+
+// dh's stage: W's chunk (kPbDhCols packed rows), the chunk's p segments of
+// the tile's rows, dz's chunk; each a multiple of 1 KB, so that the
+// swizzled tiles stay aligned
+template <typename T>
+struct PbDh {
+  static constexpr int kEs = static_cast<int>(sizeof(T));
+  static constexpr int kK = is_bf16<T> ? kPbDhKBf16 : kPbDhKF32;
+  // the 16-byte chunks that kK columns of a row span, wherever they begin
+  static constexpr int kSegs = kK * kEs / 16 + 1;
+  static constexpr int kWBytes = kPbDhCols * kK * kEs;
+  static constexpr int kSegBytes = kPbRows * kSegs * 16;
+  static constexpr int kZBytes = kPbRows * kK * kEs;
+  static constexpr int kStage = kWBytes + kSegBytes + kZBytes;
+  static constexpr int kSmem = 2 * kStage + 1024;
+};
+
+// dW's stage: h's tile (the pass's kPbDwRows columns of h), the tile's p
+// segments of the block's columns, the rows' constants; then two dz tiles
+// (the next is formed while the tensor cores or the FMAs read this one)
+template <typename T>
+struct PbDw {
+  static constexpr int kEs = static_cast<int>(sizeof(T));
+  static constexpr int kRows = is_bf16<T> ? kPbDwTileBf16 : kPbDwTileF32;
+  static constexpr int kSegs = kPbDwCols * kEs / 16 + 1;
+  static constexpr int kHBytes = kRows * kPbDwRows * kEs;
+  static constexpr int kSegBytes = kRows * kSegs * 16;
+  static constexpr int kStage =
+      (kHBytes + kSegBytes + kRows * 16 + 1023) / 1024 * 1024;
+  static constexpr int kZBytes = kRows * kPbDwCols * kEs;
+  static constexpr int kSmem = kPbDwStages * kStage + 2 * kZBytes + 1024;
+};
+
+// 16 bytes at src into shared dst by cp.async, the first n of them (the
+// rest zero-filled)
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src,
+                                             int n) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// The p segment of matrix row `row` from column c0: it begins in the
+// 16-byte chunk that holds element (row, c0), pb_shift elements before it.
+// Rows of p are rarely 16-byte aligned (183 bf16 are 366 bytes), but the
+// chunks of p are, so every copy is an aligned 16 bytes.
+template <typename T>
+__device__ __forceinline__ int pb_shift(int row, int S, int c0) {
+  return static_cast<int>((static_cast<long long>(row) * S + c0) %
+                          (16 / static_cast<int>(sizeof(T))));
+}
+
+// Start the copies of the p segments of kR rows from row0, columns from
+// c0, segs chunks a row, into dst (row r at r segs 16 bytes); bytes past
+// the end of p, and rows past N, are zero-filled
+template <typename T, int kR>
+__device__ __forceinline__ void pb_fill_seg(const T* p, int N, int S,
+                                            int row0, int c0, int segs,
+                                            unsigned char* dst) {
+  const long long total = static_cast<long long>(N) * S * sizeof(T);
+  for (int i = threadIdx.x; i < kR * segs; i += kPbThreads) {
+    const int r = i / segs, q = i % segs;
+    const int row = row0 + r;
+    const long long a =
+        ((static_cast<long long>(row) * S + c0) * sizeof(T) & ~15ll) + 16 * q;
+    const long long left = row < N ? total - a : 0;
+    const int n = left <= 0 ? 0 : (left >= 16 ? 16 : static_cast<int>(left));
+    cp_async16_n(dst + i * 16, reinterpret_cast<const char*>(p) + (n ? a : 0),
+                 n);
+  }
+}
+
+// dz of columns c .. c + 7 of one row, from the row's p segment (seg; its
+// column c0 at element sh) and constants rc = {-s, inv - s, target, 0}:
+// the twin's p (onehot inv - s) valid g as (p k) g, k = inv - s at the
+// target column and -s elsewhere. These are the twin's bits for any g: its
+// valid is 1 on a real row, and a dummy row (pt = 0) has k = +0 at every
+// column, as the twin's (onehot inv - s) is. 0 at columns >= S and on rows
+// past N (zero constants and p).
+template <typename T>
+__device__ __forceinline__ void pb_dz8(const unsigned char* seg, int sh,
+                                       int c0, int c, int S, float4 rc,
+                                       float g, float (&d)[8]) {
+  const T* v = reinterpret_cast<const T*>(seg) + sh + (c - c0);
+  const int et = __float_as_int(rc.z) - c;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float pv = c + e < S ? as_f32(v[e]) : 0.0f;
+    d[e] = __fmul_rn(__fmul_rn(pv, e == et ? rc.y : rc.x), g);
+  }
+}
+
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&d)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b2 = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&b2);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The rows' constants rowc[r] = {-s, inv - s, target, 0}, inv = -1 /
+// max(pt, REAL_MIN), s = pt inv, pt = p[r, target] (0 on a dummy row),
+// once a row, so that no kernel after divides; and W packed, zero-padded:
+// bf16 wp[n, k] = W[n, k] ([pp, sp], dh's K-major B operand), f32
+// wp[k, n] = W[n, k] ([sp, pp], dh's SIMT rows)
+template <typename T>
+__global__ void pb_prep_kernel(const T* __restrict__ p,
+                               const int* __restrict__ tc,
+                               const T* __restrict__ w, int N, int P, int S,
+                               float4* __restrict__ rowc, T* __restrict__ wp,
+                               int pp, int sp) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first =
+      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  for (long long r = first; r < N; r += stride) {
+    const int t = tc[r];
+    const float pt = (t >= 0 && t < S) ? as_f32(p[r * S + t]) : 0.0f;
     const float inv = -1.0f / fmaxf(pt, kRealMin);
-    inv_s[threadIdx.x] = inv;
-    sv_s[threadIdx.x] = pt * inv;
-    valid_s[threadIdx.x] = t >= 0 ? 1.0f : 0.0f;
-    tc_s[threadIdx.x] = t;
+    const float s = pt * inv;
+    rowc[r] = make_float4(-s, inv - s, __int_as_float(t), 0.0f);
+  }
+  const long long nw = static_cast<long long>(pp) * sp;
+  for (long long i = first; i < nw; i += stride) {
+    long long n, k;
+    if constexpr (is_bf16<T>) {
+      n = i / sp;
+      k = i % sp;
+    } else {
+      k = i / pp;
+      n = i % pp;
+    }
+    wp[i] = (n < P && k < S) ? w[n * S + k] : f32_to<T>(0.0f);
+  }
+}
+
+// dh = dzc . W^T for kPbRows rows and kPbDhCols columns. Per chunk of S:
+// the chunk's p segments and W's packed chunk copied by cp.async two
+// chunks ahead, dz formed from p into shared memory (rounded to T), the
+// product on it. bf16: two warpgroups, each 64 x 128 of dh by wgmma
+// m64n128k16, dz and W both K-major; f32: 8 x 8 outputs a thread (a warp
+// 32 rows x 64 columns, two 4-row and two 4-column strips a thread).
+template <typename T>
+__global__ void __launch_bounds__(kPbThreads, 2)
+    pb_dh_kernel(const T* __restrict__ p, const float4* __restrict__ rowc,
+                 const T* __restrict__ wp, const float* __restrict__ g,
+                 T* __restrict__ dh, int N, int P, int S, int pp, int sp) {
+  using G = PbDh<T>;
+  constexpr int kK = G::kK;
+  extern __shared__ __align__(16) unsigned char pb_smem[];
+  __shared__ float4 rc_s[kPbRows];
+  const unsigned s0 =
+      static_cast<unsigned>(__cvta_generic_to_shared(pb_smem));
+  unsigned char* ring = pb_smem + ((1024u - (s0 & 1023u)) & 1023u);
+  const int m0 = blockIdx.x * kPbRows, n0 = blockIdx.y * kPbDhCols;
+  const int nk = (S + kK - 1) / kK;
+  if (threadIdx.x < kPbRows) {
+    const int row = m0 + threadIdx.x;
+    rc_s[threadIdx.x] =
+        row < N ? rowc[row] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const float gv = g[0];
+  auto fill = [&](int kc) {
+    unsigned char* st = ring + (kc % 2) * G::kStage;
+    for (int i = threadIdx.x; i < G::kWBytes / 16; i += kPbThreads) {
+      if constexpr (is_bf16<T>) {  // row n, 16-byte k chunk q, K-major
+        const int n = i / 8, q = i % 8;
+        cp_async16_n(st + swz(n * 128 + q * 16),
+                     wp + static_cast<size_t>(n0 + n) * sp + kc * kK + q * 8,
+                     16);
+      } else {  // k-row k of the packed W^T, 16-byte n chunk q
+        const int k = i / (kPbDhCols / 4), q = i % (kPbDhCols / 4);
+        cp_async16_n(st + k * (kPbDhCols * 4) + q * 16,
+                     wp + static_cast<size_t>(kc * kK + k) * pp + n0 + q * 4,
+                     16);
+      }
+    }
+    pb_fill_seg<T, kPbRows>(p, N, S, m0, kc * kK, G::kSegs,
+                            st + G::kWBytes);
+  };
+  fill(0);
+  cp_async_commit();
+  if (nk > 1) fill(1);
+  cp_async_commit();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const bool mma = n0 + wg * 128 < P;  // bf16: the warpgroup's columns
+  const int ar = (warp / 4) * 32 + (lane / 8) * 4;  // f32: the strips
+  const int bc = (warp % 4) * 64 + (lane % 8) * 4;
+  float acc[64], accf[8][8];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) accf[i][j] = 0.0f;
+  for (int kc = 0; kc < nk; ++kc) {
+    unsigned char* st = ring + (kc % 2) * G::kStage;
+    unsigned char* zs = st + G::kWBytes + G::kSegBytes;
+    const int c0 = kc * kK;
+    cp_async_wait<1>();
+    __syncthreads();  // chunk kc has landed for every thread; rc_s is set
+    if constexpr (is_bf16<T>) {
+      // dz [64 rows, 64 k] K-major: row r's 16-byte k chunk j
+      for (int u = threadIdx.x; u < kPbRows * 8; u += kPbThreads) {
+        const int r = u / 8, j = u % 8;
+        float d[8];
+        pb_dz8<T>(st + G::kWBytes + r * G::kSegs * 16,
+                  pb_shift<T>(m0 + r, S, c0), c0, c0 + 8 * j, S, rc_s[r], gv,
+                  d);
+        *reinterpret_cast<uint4*>(zs + swz(r * 128 + j * 16)) =
+            pack_bf16x8(d);
+      }
+      fence_async_smem();  // dz, for wgmma's reads
+    } else {
+      // dz [32 k, 64 rows]: thread t's row t % 64, columns 8 (t / 64) ..
+      const int r = threadIdx.x % kPbRows, j = threadIdx.x / kPbRows;
+      float d[8];
+      pb_dz8<T>(st + G::kWBytes + r * G::kSegs * 16,
+                pb_shift<T>(m0 + r, S, c0), c0, c0 + 8 * j, S, rc_s[r], gv,
+                d);
+      float* z = reinterpret_cast<float*>(zs);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) z[(8 * j + e) * kPbRows + r] = d[e];
+    }
+    __syncthreads();  // dz of chunk kc is whole
+    if constexpr (is_bf16<T>) {
+      if (mma) {
+        const unsigned sw =
+            static_cast<unsigned>(__cvta_generic_to_shared(st)) + wg * 16384;
+        const unsigned sz =
+            static_cast<unsigned>(__cvta_generic_to_shared(zs));
+        fence_acc(acc);
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < kK / 16; ++j)
+          wgmma_m64n128k16<0, 0>(acc, wg_desc(sz + j * 32, 16, 1024),
+                                 wg_desc(sw + j * 32, 16, 1024));
+        wg_commit();
+        wg_wait<0>();
+        fence_acc(acc);
+      }
+    } else {
+      const float* z = reinterpret_cast<const float*>(zs);
+      const float* w = reinterpret_cast<const float*>(st);
+#pragma unroll 8
+      for (int kk = 0; kk < kK; ++kk) {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(z + kk * kPbRows + ar);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(z + kk * kPbRows + ar + 16);
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(w + kk * kPbDhCols + bc);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(w + kk * kPbDhCols + bc + 32);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            accf[i][j] = fmaf(av[i], bv[j], accf[i][j]);
+      }
+    }
+    __syncthreads();  // every thread is done with chunk kc's stage
+    if (kc + 2 < nk) fill(kc + 2);
+    cp_async_commit();
+  }
+  EpiStore<T> epi{dh, P};
+  if constexpr (is_bf16<T>) {
+    if (mma) {
+      // register 4 j + q: row lane / 4 + 8 (q / 2) of the warp's 16,
+      // column 8 j + 2 (lane % 4) + q % 2
+      const int mr = m0 + (warp % 4) * 16 + lane / 4;
+      const int nc = n0 + wg * 128 + (lane % 4) * 2;
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int m = mr + 8 * ((i % 4) / 2);
+        const float v[2] = {acc[i], acc[i + 1]};
+        if (m < N) epi_put<2>(epi, 0, 0, m, nc + 8 * (i / 4), P, v, false);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ar + (i / 4) * 16 + i % 4;
+      if (m >= N) continue;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float v[4] = {accf[i][4 * s], accf[i][4 * s + 1],
+                            accf[i][4 * s + 2], accf[i][4 * s + 3]};
+        epi_put<4>(epi, 0, 0, m, n0 + bc + 32 * s, P, v, false);
+      }
+    }
+  }
+}
+
+// The resident dh body, taken where W's block of columns fits beside a
+// tile (S <= kPbResMax: the main path's 183 classes):
+// one persistent block an SM keeps kPbResColsBf16 / kPbResColsF32 columns
+// (of P) of the packed W in shared memory and walks the row tiles b,
+// b + gridDim.x, ... . A tile: its p segments over all of S and its rows'
+// constants by cp.async (the next tile's land while this one's product
+// and stores run), dz formed into shared memory, the product (bf16: two
+// warpgroups, each 64 x 128 by wgmma m64n128k16 over S's 64-column atoms;
+// f32: 8 x 4 outputs a thread), and dh staged through shared memory and
+// stored row by row, a warp's stores consecutive elements (the
+// accumulators of a warp scatter over 8 or 16 rows).
+constexpr int kPbResColsBf16 = 256;
+constexpr int kPbResColsF32 = 128;
+constexpr int kPbResMax = 192;
+
+template <typename T>
+struct PbRes {
+  static constexpr int kEs = static_cast<int>(sizeof(T));
+  static constexpr int kCols = is_bf16<T> ? kPbResColsBf16 : kPbResColsF32;
+  // dh's staging pitch (elements): rows 16 bytes apart in the banks
+  static constexpr int kOutLd = kCols + 16 / kEs;
+  // p segment buffers: bf16 two (the copies run two tiles ahead), f32 one
+  // (its W block and dz leave no room for a second)
+  static constexpr int kSegBufs = is_bf16<T> ? 2 : 1;
+  // shared memory at sp columns (S rounded up as the packed W): W's block,
+  // the p segments, dz (then dh's staging), the rows' constants
+  __host__ __device__ static constexpr int w_bytes(int sp) {
+    return kCols * sp * kEs;
+  }
+  __host__ __device__ static constexpr int segs(int sp) {
+    return sp * kEs / 16 + 1;
+  }
+  __host__ __device__ static constexpr int seg_bytes(int sp) {
+    return kPbRows * segs(sp) * 16;
+  }
+  __host__ __device__ static constexpr int z_bytes(int sp) {
+    return kPbRows * (sp > kOutLd ? sp : kOutLd) * kEs;
+  }
+  __host__ __device__ static constexpr int smem(int sp) {
+    return w_bytes(sp) + kSegBufs * (seg_bytes(sp) + kPbRows * 16) +
+           z_bytes(sp) + 1024;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kPbThreads, 1)
+    pb_dh_res_kernel(const T* __restrict__ p, const float4* __restrict__ rowc,
+                     const T* __restrict__ wp, const float* __restrict__ g,
+                     T* __restrict__ dh, int N, int P, int S, int pp,
+                     int sp) {
+  using G = PbRes<T>;
+  extern __shared__ __align__(16) unsigned char pb_smem[];
+  const unsigned s0 =
+      static_cast<unsigned>(__cvta_generic_to_shared(pb_smem));
+  unsigned char* wres = pb_smem + ((1024u - (s0 & 1023u)) & 1023u);
+  unsigned char* zs = wres + G::w_bytes(sp);
+  // buffer b: its p segments, then its rows' constants
+  unsigned char* bufs = zs + G::z_bytes(sp);
+  const int buf_bytes = G::seg_bytes(sp) + kPbRows * 16;
+  const int segs = G::segs(sp);
+  const int n0 = blockIdx.y * G::kCols;
+  const int ntiles = (N + kPbRows - 1) / kPbRows;
+  const float gv = g[0];
+  // W's block: bf16 K-major atoms of 64 columns of S ([kCols rows x 128
+  // bytes] each), f32 [sp, kCols]
+  for (int i = threadIdx.x; i < G::kCols * sp * G::kEs / 16;
+       i += kPbThreads) {
+    if constexpr (is_bf16<T>) {
+      const int n = i / (sp / 8), k8 = i % (sp / 8);
+      cp_async16_n(wres + (k8 / 8) * (G::kCols * 128) +
+                       swz(n * 128 + (k8 % 8) * 16),
+                   wp + static_cast<size_t>(n0 + n) * sp + 8 * k8, 16);
+    } else {
+      const int k = i / (G::kCols / 4), q = i % (G::kCols / 4);
+      cp_async16_n(wres + k * (G::kCols * 4) + q * 16,
+                   wp + static_cast<size_t>(k) * pp + n0 + 4 * q, 16);
+    }
+  }
+  // the block's j-th tile's p segments and constants into buffer j %
+  // kSegBufs
+  auto fill = [&](int j) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    if (tile >= ntiles) return;
+    const int m0 = tile * kPbRows;
+    unsigned char* b = bufs + (j % G::kSegBufs) * buf_bytes;
+    pb_fill_seg<T, kPbRows>(p, N, S, m0, 0, segs, b);
+    float4* rc = reinterpret_cast<float4*>(b + G::seg_bytes(sp));
+    for (int r = threadIdx.x; r < kPbRows; r += kPbThreads)
+      cp_async16_n(rc + r, m0 + r < N ? rowc + m0 + r : rowc,
+                   m0 + r < N ? 16 : 0);
+  };
+  for (int j = 0; j < G::kSegBufs; ++j) {
+    fill(j);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const bool mma = n0 + wg * 128 < P;  // bf16: the warpgroup's columns
+  const int ar = (warp / 2) * 16 + (lane / 16) * 8;  // f32: 8 rows
+  const int bc = (warp % 2) * 64 + (lane % 16) * 4;  // and 4 columns
+  const int cw = min(G::kCols, P - n0);
+  for (int j = 0, tile = blockIdx.x; tile < ntiles;
+       ++j, tile += gridDim.x) {
+    const int m0 = tile * kPbRows;
+    const unsigned char* seg = bufs + (j % G::kSegBufs) * buf_bytes;
+    const float4* rc_s =
+        reinterpret_cast<const float4*>(seg + G::seg_bytes(sp));
+    cp_async_wait<G::kSegBufs - 1>();
+    // the tile (and W) have landed, and every thread is done with the
+    // last tile's staging
+    __syncthreads();
+    if constexpr (is_bf16<T>) {
+      // dz K-major in 64-column atoms: row r's 16-byte k chunk j
+      for (int u = threadIdx.x; u < kPbRows * (sp / 8); u += kPbThreads) {
+        const int r = u / (sp / 8), j = u % (sp / 8);
+        float d[8];
+        pb_dz8<T>(seg + r * segs * 16, pb_shift<T>(m0 + r, S, 0), 0, 8 * j,
+                  S, rc_s[r], gv, d);
+        *reinterpret_cast<uint4*>(zs + (j / 8) * 8192 +
+                                  swz(r * 128 + (j % 8) * 16)) =
+            pack_bf16x8(d);
+      }
+      fence_async_smem();
+    } else {
+      // dz [sp, 64]: thread t's row t % 64, column chunks t / 64 + 4 i
+      const int r = threadIdx.x % kPbRows;
+      for (int j = threadIdx.x / kPbRows; j < sp / 8; j += 4) {
+        float d[8];
+        pb_dz8<T>(seg + r * segs * 16, pb_shift<T>(m0 + r, S, 0), 0, 8 * j,
+                  S, rc_s[r], gv, d);
+        float* z = reinterpret_cast<float*>(zs);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) z[(8 * j + e) * kPbRows + r] = d[e];
+      }
+    }
+    __syncthreads();  // dz is whole; this buffer is free
+    fill(j + G::kSegBufs);
+    cp_async_commit();
+    float acc[64], accf[8][4];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) accf[i][j] = 0.0f;
+    if constexpr (is_bf16<T>) {
+      if (mma) {
+        const unsigned sw =
+            static_cast<unsigned>(__cvta_generic_to_shared(wres)) +
+            wg * 16384;
+        const unsigned sz =
+            static_cast<unsigned>(__cvta_generic_to_shared(zs));
+        fence_acc(acc);
+        wg_fence();
+        for (int a = 0; a < sp / 64; ++a)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            wgmma_m64n128k16<0, 0>(
+                acc, wg_desc(sz + a * 8192 + j * 32, 16, 1024),
+                wg_desc(sw + a * (G::kCols * 128) + j * 32, 16, 1024));
+        wg_commit();
+        wg_wait<0>();
+        fence_acc(acc);
+      }
+    } else {
+      const float* z = reinterpret_cast<const float*>(zs);
+      const float* w = reinterpret_cast<const float*>(wres);
+#pragma unroll 8
+      for (int k = 0; k < sp; ++k) {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(z + k * kPbRows + ar);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(z + k * kPbRows + ar + 4);
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(w + k * G::kCols + bc);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            accf[i][j] = fmaf(av[i], bv[j], accf[i][j]);
+      }
+    }
+    __syncthreads();  // every thread is done with dz: stage dh over it
+    T* out = reinterpret_cast<T*>(zs);  // [kPbRows, kOutLd]
+    if constexpr (is_bf16<T>) {
+      if (mma) {
+        // register 4 j + q: row lane / 4 + 8 (q / 2) of the warp's 16,
+        // column 8 j + 2 (lane % 4) + q % 2
+        const int mr = (warp % 4) * 16 + lane / 4;
+#pragma unroll
+        for (int i = 0; i < 64; i += 2)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + (mr + 8 * ((i % 4) / 2)) * G::kOutLd + wg * 128 +
+              8 * (i / 4) + 2 * (lane % 4)) =
+              __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(out + (ar + i) * G::kOutLd + bc) =
+            make_float4(accf[i][0], accf[i][1], accf[i][2], accf[i][3]);
+    }
+    __syncthreads();
+    const int rows = min(kPbRows, N - m0);
+    if (cw == P) {
+      // the tile's rows are one contiguous stretch of dh, aligned to 16
+      // bytes (64 rows of P elements): stored 16 bytes at a time
+      constexpr int E = 16 / G::kEs;
+      const int n = rows * P;
+      T* base = dh + static_cast<long long>(m0) * P;
+      for (int f = threadIdx.x * E; f < n; f += kPbThreads * E) {
+        union {
+          uint4 q;
+          T e[E];
+        } v;
+        int r = f / P, c = f % P;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          v.e[e] = out[r * G::kOutLd + c];
+          if (++c == P) {
+            c = 0;
+            ++r;
+          }
+        }
+        if (f + E <= n) {
+          *reinterpret_cast<uint4*>(base + f) = v.q;
+        } else {
+          for (int e = 0; f + e < n; ++e) base[f + e] = v.e[e];
+        }
+      }
+    } else {  // rows of the block's columns
+      for (int r = warp; r < rows; r += kPbThreads / 32)
+        for (int c = lane; c < cw; c += 32)
+          dh[static_cast<long long>(m0 + r) * P + n0 + c] =
+              out[r * G::kOutLd + c];
+    }
+  }
+}
+
+// dW's partial over one split of the rows: dW[mp0 .., n0 ..] += h^T . dzc
+// tile by tile, with dz formed from p on the chip, and (the first pass)
+// db's partial from the unrounded dz. bf16: two warpgroups, each 64 rows of
+// dW by kNch wgmma m64n64k16 chunks, h and dz both MN-major; f32: 8 x 12
+// outputs a thread (a warp 32 rows x 96 columns). Writes
+// part[split, m S + n] (dW) and part[split, P S + n] (db); dz_out, where
+// not null, receives dz (f32, unrounded) from the first pass.
+// kHWords: h's rows allow 4-byte copies (f32, or an even P in bf16), else
+// they are copied element by element through registers.
+template <typename T, int kNch, bool kHWords>
+__global__ void __launch_bounds__(kPbThreads, 1)
+    pb_dw_kernel(const T* __restrict__ p, const T* __restrict__ h,
+                 const float4* __restrict__ rowc, const float* __restrict__ g,
+                 float* __restrict__ part, float* __restrict__ dz_out, int N,
+                 int P, int S, int ntiles, int tps) {
+  using G = PbDw<T>;
+  constexpr int kR = G::kRows;
+  extern __shared__ __align__(16) unsigned char pb_smem[];
+  const unsigned s0 =
+      static_cast<unsigned>(__cvta_generic_to_shared(pb_smem));
+  unsigned char* ring = pb_smem + ((1024u - (s0 & 1023u)) & 1023u);
+  unsigned char* zbuf = ring + kPbDwStages * G::kStage;
+  const int n0 = blockIdx.x * kPbDwCols, split = blockIdx.y;
+  const int mp0 = blockIdx.z * kPbDwRows;
+  const bool first = blockIdx.z == 0;
+  const int t0 = split * tps;
+  const int nt = min(ntiles, t0 + tps) - t0;
+  const long long L = static_cast<long long>(P) * S + S;
+  const float gv = g[0];
+  auto fill = [&](int i) {  // row tile t0 + i into stage i % kPbDwStages
+    unsigned char* st = ring + (i % kPbDwStages) * G::kStage;
+    const int row0 = (t0 + i) * kR;
+    // h's columns mp0 .. of the tile's rows: bf16 MN-major (64-wide m
+    // atoms, k-row r at r 128 bytes), f32 [k][m]
+    if constexpr (kHWords) {
+      constexpr int kWords = kPbDwRows * G::kEs / 4;
+      for (int q = threadIdx.x; q < kR * kWords; q += kPbThreads) {
+        const int r = q / kWords, c = (q % kWords) * 4 / G::kEs;
+        const int row = row0 + r, col = mp0 + c;
+        const bool ok = row < N && col < P;
+        unsigned off;
+        if constexpr (is_bf16<T>)
+          off = (c / 64) * 8192 + swz(r * 128 + (c % 64) * 2);
+        else
+          off = (r * kPbDwRows + c) * 4;
+        cp_async4(st + off, ok ? h + static_cast<size_t>(row) * P + col : h,
+                  ok);
+      }
+    } else {
+      for (int q = threadIdx.x; q < kR * kPbDwRows; q += kPbThreads) {
+        const int r = q / kPbDwRows, c = q % kPbDwRows;
+        const int row = row0 + r, col = mp0 + c;
+        *reinterpret_cast<T*>(st + (c / 64) * 8192 +
+                              swz(r * 128 + (c % 64) * 2)) =
+            (row < N && col < P) ? h[static_cast<size_t>(row) * P + col]
+                                 : f32_to<T>(0.0f);
+      }
+    }
+    pb_fill_seg<T, kR>(p, N, S, row0, n0, G::kSegs, st + G::kHBytes);
+    for (int r = threadIdx.x; r < kR; r += kPbThreads) {
+      const int row = row0 + r;
+      cp_async16_n(st + G::kHBytes + G::kSegBytes + r * 16,
+                   row < N ? rowc + row : rowc, row < N ? 16 : 0);
+    }
+  };
+  if (nt > 0) fill(0);
+  cp_async_commit();
+  if (nt > 1) fill(1);
+  cp_async_commit();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const bool mma = mp0 + wg * 64 < P;  // bf16: the warpgroup's rows
+  const int ar = (warp / 2) * 32 + (lane / 8) * 4;  // f32: the strips
+  const int bc = (warp % 2) * 96 + (lane % 8) * 4;
+  const bool fma_rows = mp0 + (warp / 2) * 32 < P;
+  // dz: thread t < kPbDzThreads forms column chunk t % 24 of rows t / 24
+  // + 8 i, and sums db over them
+  const int zj = threadIdx.x % 24, zg = threadIdx.x / 24;
+  float acc[kNch][32], accf[8][12], db[8];
+#pragma unroll
+  for (int c = 0; c < kNch; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) accf[i][j] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) db[e] = 0.0f;
+  // dz of row group rr of tile i (stage st) into zs: thread t <
+  // kPbDzThreads forms column chunk zj of tile row zg + 8 rr, and the first
+  // pass adds it into db
+  auto form = [&](int i, const unsigned char* st, unsigned char* zs,
+                  int rr) {
+    const int r = zg + 8 * rr, row = (t0 + i) * kR + r;
+    const int c = n0 + 8 * zj;
+    const float4 rc = *reinterpret_cast<const float4*>(
+        st + G::kHBytes + G::kSegBytes + r * 16);
+    float d[8];
+    pb_dz8<T>(st + G::kHBytes + r * G::kSegs * 16, pb_shift<T>(row, S, n0),
+              n0, c, S, rc, gv, d);
+    if (first) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) db[e] += d[e];
+      if (dz_out != nullptr && row < N)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (c + e < S) dz_out[static_cast<size_t>(row) * S + c + e] = d[e];
+    }
+    if constexpr (is_bf16<T>) {
+      *reinterpret_cast<uint4*>(zs + (zj / 8) * 8192 +
+                                swz(r * 128 + (zj % 8) * 16)) =
+          pack_bf16x8(d);
+    } else {
+      float4* z = reinterpret_cast<float4*>(zs) + (r * kPbDwCols + 8 * zj) / 4;
+      z[0] = make_float4(d[0], d[1], d[2], d[3]);
+      z[1] = make_float4(d[4], d[5], d[6], d[7]);
+    }
+  };
+  if constexpr (is_bf16<T>) {
+    for (int i = 0; i < nt; ++i) {
+      unsigned char* st = ring + (i % kPbDwStages) * G::kStage;
+      unsigned char* zs = zbuf + (i % 2) * G::kZBytes;
+      cp_async_wait<kPbDwStages - 2>();
+      __syncthreads();  // tile i has landed for every thread
+      if (threadIdx.x < kPbDzThreads)
+#pragma unroll
+        for (int rr = 0; rr < kR / 8; ++rr) form(i, st, zs, rr);
+      fence_async_smem();  // dz, and this thread's copies of tile i
+      wg_wait<0>();        // tile i - 1's product, this warpgroup's
+      fence_chunks<kNch>(acc);
+      // dz of tile i is whole, and both warpgroups are done with tile
+      // i - 1, whose stage the copies below refill
+      __syncthreads();
+      if (i + kPbDwStages - 1 < nt) fill(i + kPbDwStages - 1);
+      cp_async_commit();
+      if (mma) {
+        // a k16 step is 16 rows (2,048 bytes) of each MN-major tile
+        const unsigned sh =
+            static_cast<unsigned>(__cvta_generic_to_shared(st)) + wg * 8192;
+        const unsigned sz =
+            static_cast<unsigned>(__cvta_generic_to_shared(zs));
+        fence_chunks<kNch>(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kR / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < kNch; ++c)
+            if (n0 + 64 * c < S)
+              wgmma_m64n64k16<1, 1>(acc[c],
+                                    wg_desc(sh + kk * 2048, 8192, 1024),
+                                    wg_desc(sz + c * 8192 + kk * 2048, 8192,
+                                            1024));
+        wg_commit();
+      }
+    }
+  } else {
+    // f32: dz of tile i + 1 is formed between the FMAs of tile i (two dz
+    // buffers), so that its arithmetic fills their idle issue slots and
+    // one barrier a tile is left
+    if (nt > 0) {
+      cp_async_wait<kPbDwStages - 2>();
+      __syncthreads();  // tile 0 has landed
+      if (threadIdx.x < kPbDzThreads)
+#pragma unroll
+        for (int rr = 0; rr < kR / 8; ++rr) form(0, ring, zbuf, rr);
+    }
+    for (int i = 0; i < nt; ++i) {
+      const unsigned char* st = ring + (i % kPbDwStages) * G::kStage;
+      const float* hs = reinterpret_cast<const float*>(st);
+      const float* z =
+          reinterpret_cast<const float*>(zbuf + (i % 2) * G::kZBytes);
+      unsigned char* st1 = ring + ((i + 1) % kPbDwStages) * G::kStage;
+      unsigned char* zs1 = zbuf + ((i + 1) % 2) * G::kZBytes;
+      cp_async_wait<0>();  // tile i + 1's copies
+      // dz of tile i is whole, tile i + 1 has landed, and every thread is
+      // done with tile i - 1: its stage (refilled below) and dz buffer
+      // (tile i + 1's)
+      __syncthreads();
+      if (i + kPbDwStages - 1 < nt) fill(i + kPbDwStages - 1);
+      cp_async_commit();
+      const bool next = i + 1 < nt && threadIdx.x < kPbDzThreads;
+#pragma unroll 1
+      for (int q = 0; q < kR / 8; ++q) {
+        if (fma_rows) {
+#pragma unroll
+          for (int kk = 8 * q; kk < 8 * q + 8; ++kk) {
+            const float4 a0 =
+                *reinterpret_cast<const float4*>(hs + kk * kPbDwRows + ar);
+            const float4 a1 = *reinterpret_cast<const float4*>(
+                hs + kk * kPbDwRows + ar + 16);
+            float bv[12];
+#pragma unroll
+            for (int s = 0; s < 3; ++s) {
+              const float4 b = *reinterpret_cast<const float4*>(
+                  z + kk * kPbDwCols + bc + 32 * s);
+              bv[4 * s] = b.x;
+              bv[4 * s + 1] = b.y;
+              bv[4 * s + 2] = b.z;
+              bv[4 * s + 3] = b.w;
+            }
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w,
+                                 a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+            for (int a = 0; a < 8; ++a)
+#pragma unroll
+              for (int b = 0; b < 12; ++b)
+                accf[a][b] = fmaf(av[a], bv[b], accf[a][b]);
+          }
+        }
+        if (next) form(i + 1, st1, zs1, q);
+      }
+    }
+  }
+  static_assert(kPbDwRows * (kPbDwCols + 4) * 4 <= kPbDwStages * G::kStage,
+                "dW's staging tile fits the ring");
+  // dW's partial tile through shared memory (the ring, free by now), then
+  // stored row by row, a warp's stores 32 consecutive floats: rows of S
+  // floats are rarely 16-byte aligned, and the accumulators of a warp
+  // scatter over 8 or 16 rows
+  constexpr int kLd = kPbDwCols + 4;
+  float* tile = reinterpret_cast<float*>(ring);  // [kPbDwRows, kLd]
+  if constexpr (is_bf16<T>) {
+    wg_wait<0>();
+    fence_chunks<kNch>(acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+  if constexpr (is_bf16<T>) {
+    if (mma) {
+      // register 4 j + q of a chunk: row lane / 4 + 8 (q / 2) of the
+      // warp's 16, column 8 j + 2 (lane % 4) + q % 2
+      const int mr = wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+      for (int c = 0; c < kNch; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2)
+          *reinterpret_cast<float2*>(
+              tile + (mr + 8 * ((i % 4) / 2)) * kLd + 64 * c + 8 * (i / 4) +
+              2 * (lane % 4)) = make_float2(acc[c][i], acc[c][i + 1]);
+    }
+  } else if (fma_rows) {
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int s = 0; s < 3; ++s)
+        *reinterpret_cast<float4*>(tile + (ar + (a / 4) * 16 + a % 4) * kLd +
+                                   bc + 32 * s) =
+            make_float4(accf[a][4 * s], accf[a][4 * s + 1],
+                        accf[a][4 * s + 2], accf[a][4 * s + 3]);
   }
   __syncthreads();
-  const float gv = g[0];
-  for (int col = threadIdx.x; col < S; col += kCeDzThreads) {
-    float dbs = 0.0f;
-    for (int r = 0; r < nr; ++r) {
-      const size_t i = static_cast<size_t>(m0 + r) * S + col;
-      const float oh = col == tc_s[r] ? 1.0f : 0.0f;
-      float v = as_f32(p[i]) * (oh * inv_s[r] - sv_s[r]);
-      v = v * valid_s[r];
-      v = v * gv;
-      dz[i] = f32_to<PT>(v);
-      dbs += v;
+  float* out = part + split * L;
+  const int rows = min(kPbDwRows, P - mp0), cols = min(kPbDwCols, S - n0);
+  for (int r = warp; r < rows; r += kPbThreads / 32)
+    for (int c = lane; c < cols; c += 32)
+      out[static_cast<long long>(mp0 + r) * S + n0 + c] = tile[r * kLd + c];
+  if (first) {  // db's partial: the row groups' column sums, in order
+    __syncthreads();  // every thread is done with the tile
+    float* red = reinterpret_cast<float*>(ring);  // [8, kPbDwCols]
+    if (threadIdx.x < kPbDzThreads)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) red[zg * kPbDwCols + 8 * zj + e] = db[e];
+    __syncthreads();
+    if (threadIdx.x < kPbDwCols && n0 + threadIdx.x < S) {
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) s += red[q * kPbDwCols + threadIdx.x];
+      part[split * L + static_cast<long long>(P) * S + n0 + threadIdx.x] = s;
     }
-    db_part[static_cast<size_t>(blockIdx.x) * S + col] = dbs;
   }
 }
 
@@ -1069,47 +1895,129 @@ cudaError_t ce_fwd(const void* h, const void* w, const float* b,
   return launch_ce_reduce(part_loss, part_cnt, nblk, loss, cnt, stream);
 }
 
+template <typename T, int kNch, bool kHWords>
+cudaError_t pb_dw_launch(dim3 grid, const void* p, const void* h,
+                         const float4* rowc, const float* g, float* part,
+                         float* dz_out, int N, int P, int S, int ntiles,
+                         int tps, cudaStream_t stream) {
+  auto kernel = pb_dw_kernel<T, kNch, kHWords>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PbDw<T>::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kPbThreads, PbDw<T>::kSmem, stream>>>(
+      static_cast<const T*>(p), static_cast<const T*>(h), rowc, g, part,
+      dz_out, N, P, S, ntiles, tps);
+  return cudaGetLastError();
+}
+
+// the bf16 body's 64-column chunks: ceil(S / 64) up to three (the f32 body
+// has one instance)
+template <typename T, bool kHWords>
+cudaError_t pb_dw_chunks(dim3 grid, const void* p, const void* h,
+                         const float4* rowc, const float* g, float* part,
+                         float* dz_out, int N, int P, int S, int ntiles,
+                         int tps, cudaStream_t stream) {
+  if constexpr (is_bf16<T>) {
+    if (S <= 64)
+      return pb_dw_launch<T, 1, kHWords>(grid, p, h, rowc, g, part, dz_out,
+                                         N, P, S, ntiles, tps, stream);
+    if (S <= 128)
+      return pb_dw_launch<T, 2, kHWords>(grid, p, h, rowc, g, part, dz_out,
+                                         N, P, S, ntiles, tps, stream);
+  }
+  return pb_dw_launch<T, 3, kHWords>(grid, p, h, rowc, g, part, dz_out, N, P,
+                                     S, ntiles, tps, stream);
+}
+
+// dh: the resident body where W's block of columns fits (S <= 192), one
+// persistent block an SM; else the streamed one, a block a tile
+template <typename T>
+cudaError_t pb_dh(const void* p, const float4* rc, const void* wp,
+                  const float* g, void* dh, int N, int P, int S, int pp,
+                  int sp, cudaStream_t stream) {
+  using R = PbRes<T>;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (N + kPbRows - 1) / kPbRows;
+  if (S <= kPbResMax && R::smem(sp) <= optin) {
+    const int pcs = (P + R::kCols - 1) / R::kCols;
+    int per = sms / pcs;
+    per = per < 1 ? 1 : (per > ntiles ? ntiles : per);
+    err = cudaFuncSetAttribute(pb_dh_res_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               R::smem(sp));
+    if (err != cudaSuccess) return err;
+    pb_dh_res_kernel<T><<<dim3(per, pcs), kPbThreads, R::smem(sp), stream>>>(
+        static_cast<const T*>(p), rc, static_cast<const T*>(wp), g,
+        static_cast<T*>(dh), N, P, S, pp, sp);
+    return cudaGetLastError();
+  }
+  using D = PbDh<T>;
+  err = cudaFuncSetAttribute(pb_dh_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             D::kSmem);
+  if (err != cudaSuccess) return err;
+  pb_dh_kernel<T><<<dim3(ntiles, pp / kPbDhCols), kPbThreads, D::kSmem,
+                    stream>>>(static_cast<const T*>(p), rc,
+                              static_cast<const T*>(wp), g,
+                              static_cast<T*>(dh), N, P, S, pp, sp);
+  return cudaGetLastError();
+}
+
+// K3b: four launches (prep; dh; dW and db partials; their sum)
 template <typename T>
 cudaError_t ce_bwd(const void* p, const void* h, const void* w,
-                   const int* tc, const float* g, void* dz, float* db_part,
-                   float* w_part, void* dh, float* dw, float* db, int N,
-                   int P, int S, float bias_mult, cudaStream_t stream) {
-  const int nblk = (N + kCeRows - 1) / kCeRows;
-  ce_dz_kernel<T><<<nblk, kCeDzThreads, 0, stream>>>(
-      static_cast<const T*>(p), tc, g, static_cast<T*>(dz), db_part, N, S);
+                   const int* tc, const float* g, float* rowc, void* wp,
+                   float* part, void* dh, float* out, float* dz_out, int N,
+                   int P, int S, int nsplit, float bias_mult,
+                   cudaStream_t stream) {
+  using D = PbDh<T>;
+  using W = PbDw<T>;
+  const int pp = (P + kPbDhCols - 1) / kPbDhCols * kPbDhCols;
+  const int sp = (S + D::kK - 1) / D::kK * D::kK;
+  const int ntiles = (N + W::kRows - 1) / W::kRows;
+  if (nsplit < 1 || nsplit > ntiles) return cudaErrorInvalidValue;
+  const int tps = (ntiles + nsplit - 1) / nsplit;
+  if ((ntiles + tps - 1) / tps != nsplit)  // a split without rows
+    return cudaErrorInvalidValue;
+  // p's chunks by 16-byte copies, h's rows by 4-byte ones
+  if (reinterpret_cast<unsigned long long>(p) % 16 ||
+      reinterpret_cast<unsigned long long>(h) % 4)
+    return cudaErrorMisalignedAddress;
+  const long long work = static_cast<long long>(pp) * sp > N
+                             ? static_cast<long long>(pp) * sp
+                             : N;
+  const long long blocks = (work + 255) / 256;
+  pb_prep_kernel<T><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256,
+                      0, stream>>>(
+      static_cast<const T*>(p), tc, static_cast<const T*>(w), N, P, S,
+      reinterpret_cast<float4*>(rowc), static_cast<T*>(wp), pp, sp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  {  // dh = dzc . W^T
-    GemmArgs<T> ga{};
-    ga.a[0] = make_view<T>(dz, S, N, S);
-    ga.b[0] = make_view<T>(w, S, P, S);
-    ga.M = N;
-    ga.N = P;
-    ga.K = S;
-    ga.nsplit = 1;
-    ga.ngroups = 1;
-    err = launch_gemm<GemmTailDh, T, false, true, float>(
-        ga, 1, EpiStore<T>{static_cast<T*>(dh), P}, stream);
-    if (err != cudaSuccess) return err;
-  }
-  const int ns = gemm_splits(N);
-  {  // dW = h^T . dzc, split over the rows
-    GemmArgs<T> ga{};
-    ga.a[0] = make_view<T>(h, P, N, P);
-    ga.b[0] = make_view<T>(dz, S, N, S);
-    ga.M = P;
-    ga.N = S;
-    ga.K = N;
-    ga.nsplit = ns;
-    ga.ngroups = 1;
-    const long long L = static_cast<long long>(P) * S;
-    err = launch_gemm<GemmTailDw, T, true, false, float>(
-        ga, 1, EpiPartial{w_part, L, 0, S}, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_sum_partials(w_part, ns, L, dw, L, L, 1.0f, stream);
-    if (err != cudaSuccess) return err;
-  }
-  return launch_sum_partials(db_part, nblk, S, db, S, 0, bias_mult, stream);
+  const float4* rc = reinterpret_cast<const float4*>(rowc);
+  err = pb_dh<T>(p, rc, wp, g, dh, N, P, S, pp, sp, stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kPbDwCols - 1) / kPbDwCols, nsplit,
+                  (P + kPbDwRows - 1) / kPbDwRows);
+  if constexpr (is_bf16<T>)
+    err = P % 2 == 0 ? pb_dw_chunks<T, true>(grid, p, h, rc, g, part, dz_out,
+                                             N, P, S, ntiles, tps, stream)
+                     : pb_dw_chunks<T, false>(grid, p, h, rc, g, part, dz_out,
+                                              N, P, S, ntiles, tps, stream);
+  else
+    err = pb_dw_chunks<T, true>(grid, p, h, rc, g, part, dz_out, N, P, S,
+                                ntiles, tps, stream);
+  if (err != cudaSuccess) return err;
+  const long long L = static_cast<long long>(P) * S + S;
+  return launch_sum_partials(part, nsplit, L, out, L,
+                             static_cast<long long>(P) * S, bias_mult,
+                             stream);
 }
 
 }  // namespace
@@ -1135,26 +2043,28 @@ int softmax_ce_fwd(const void* h, const void* w, const float* b,
                        P, S, bias_mult, stream);
 }
 
-// Backward. p [N, S], h [N, P], w [P, S] in the storage dtype (bf16 = 1:
-// bf16, else f32); tc [N] int32; g [1] f32 (the loss cotangent). Scratch:
-// dz [N, S] (as p), db_part [nblk, S] f32, w_part [nsplit, P*S] f32 with
-// nsplit = softmax_ce_splits(N). Outputs: dh [N, P] (as p), dw [P, S] f32,
-// db [S] f32 (times bias_mult).
+// Backward (K3b). p [N, S] (16-byte aligned), h [N, P] (4-byte aligned)
+// and w [P, S] in the storage dtype (bf16 = 1: bf16, else f32); tc [N]
+// int32; g [1] f32 (the loss cotangent). Outputs: dh [N, P] (as p); out
+// [P * S + S] f32, dW [P, S] then db [S] (times bias_mult). nsplit: the
+// dW kernel's row splits, 1 .. row tiles with none empty (ops/softmax_ce.py
+// proj_bwd_plan). Scratch: rowc [N, 4] f32, wp [pp * sp] (as p; pp = P
+// rounded up to 256, sp = S rounded up to 64 in bf16, 32 in f32), part
+// [nsplit, P * S + S] f32. dz_out: null, or [N, S] f32 to receive dz
+// before its rounding (a test's view of what never leaves the chip).
 int softmax_ce_bwd(const void* p, const void* h, const void* w,
-                   const int* tc, const float* g, void* dz, float* db_part,
-                   float* w_part, void* dh, float* dw, float* db, int N,
-                   int P, int S, float bias_mult, int bf16, int device,
-                   cudaStream_t stream) {
+                   const int* tc, const float* g, float* rowc, void* wp,
+                   float* part, void* dh, float* out, float* dz_out, int N,
+                   int P, int S, int nsplit, float bias_mult, int bf16,
+                   int device, cudaStream_t stream) {
   if (N < 1 || P < 1 || S < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (bf16)
-    return ce_bwd<__nv_bfloat16>(p, h, w, tc, g, dz, db_part, w_part, dh, dw,
-                                 db, N, P, S, bias_mult, stream);
-  return ce_bwd<float>(p, h, w, tc, g, dz, db_part, w_part, dh, dw, db, N, P,
-                       S, bias_mult, stream);
+    return ce_bwd<__nv_bfloat16>(p, h, w, tc, g, rowc, wp, part, dh, out,
+                                 dz_out, N, P, S, nsplit, bias_mult, stream);
+  return ce_bwd<float>(p, h, w, tc, g, rowc, wp, part, dh, out, dz_out, N, P,
+                       S, nsplit, bias_mult, stream);
 }
-
-int softmax_ce_splits(int N) { return gemm_splits(N); }
 
 }  // extern "C"

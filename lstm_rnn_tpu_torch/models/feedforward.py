@@ -9,9 +9,14 @@ quirks are kept. The JAX package leaves these layers to XLA outside any
 kernel, so the port leaves them to torch.
 
 Precision: float32 mode is true fp32 (callers keep TF32 off). bfloat16 mode
-rounds both operands to bf16 and multiplies in float32, which is exact per
-product, so the result is a bf16-operand product with float32 accumulation
-on any device.
+rounds both operands to bf16 and accumulates in float32, as the JAX
+package's bf16 einsum with float32 accumulation: on the CPU as f32 products
+of the rounded operands (exact per product); on the card on the tensor
+cores (`_Bf16Product`: `torch.mm` on bf16 operands with f32 output), the
+same values summed in another order. Its two gradient products take the
+f32 cotangent as two bf16 parts (hi + lo, 16 bits of its 24), so that they
+too run on the tensor cores and give the CPU's gradients to well inside the
+bf16 rounding that the operands' casts apply to them.
 """
 
 from __future__ import annotations
@@ -26,12 +31,60 @@ def round_operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return t.to(compute_dtype).float()
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b of bf16 operands with f32 sums and f32 output (the tensor
+    cores' product on the card)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _Bf16Product(torch.autograd.Function):
+    """x2 . W [M, L] f32 of x2 [M, P] and W [P, L] rounded to bf16, on the
+    card's tensor cores. The gradients are those of round_operand's
+    product (each rounded to bf16 by the cast's backward, then to the
+    input's dtype), their products taking the f32 cotangent as bf16 hi +
+    lo."""
+
+    @staticmethod
+    def forward(ctx, x2, W):
+        xb, wb = x2.to(torch.bfloat16), W.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x2.dtype, W.dtype)
+        return _mm_f32(xb, wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        hi = g.to(torch.bfloat16)
+        lo = (g - hi.float()).to(torch.bfloat16)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = wb.t()
+            dx = (_mm_f32(hi, wt) + _mm_f32(lo, wt)).to(
+                torch.bfloat16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            xt = xb.t()
+            dw = (_mm_f32(xt, hi) + _mm_f32(xt, lo)).to(
+                torch.bfloat16).to(ctx.dtypes[1])
+        return dx, dw
+
+
+def _product(x: torch.Tensor, W: torch.Tensor,
+             compute_dtype: torch.dtype) -> torch.Tensor:
+    """x [..., P] . W [P, L] in float32 at the compute dtype's precision:
+    bf16 mode on the card on the tensor cores, else round_operand's f32
+    matmul."""
+    if compute_dtype == torch.bfloat16 and x.is_cuda:
+        a = _Bf16Product.apply(x.reshape(-1, x.shape[-1]), W)
+        return a.reshape(*x.shape[:-1], W.shape[-1])
+    return torch.matmul(round_operand(x, compute_dtype),
+                        round_operand(W, compute_dtype))
+
+
 def feedforward_forward(params, x: torch.Tensor, activation: str,
                         bias_mult: float,
                         compute_dtype: torch.dtype = torch.float32):
     """x: [T, B, P] -> [T, B, L] float32. params: {"W": [P, L], "b": [L]}."""
-    a = torch.matmul(round_operand(x, compute_dtype),
-                     round_operand(params["W"], compute_dtype))
+    a = _product(x, params["W"], compute_dtype)
     a = a + bias_mult * params["b"]
     return ACTIVATIONS[activation](a)
 

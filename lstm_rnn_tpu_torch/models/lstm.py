@@ -17,7 +17,12 @@ unidirectional layer from a carried state): backend "auto" or "pallas"
 `lstm_scan_fused` (streaming: `lstm_scan_fused_carry`, inference only),
 which launches the CUDA kernels for a CUDA tensor and runs their twins
 for a CPU tensor, and whose gradient is the BPTT kernel; backend "scan"
-runs `_lstm_scan` on either device, and autograd differentiates it. Both
+runs `_lstm_scan` on either device, and autograd differentiates it.
+Where no CTA of the recurrence kernels takes the width (`kernel_route`:
+ops/lstm_cell.py recurrence_fits, from the plan alone; H >= 801 per
+direction with autograd, H >= 1,025 without), "auto" takes the scan
+route and an explicit "pallas" raises, as the JAX package's VMEM guard
+does (lstm_rnn_tpu/models/lstm.py: "auto" falls back to lax.scan). Both
 routes clip the gate deltas to +-1 (the reference's limitedError): the
 scan route through grad_clip on each preactivation and the split
 og-peephole path of `lstm_cell_step`, so that it reproduces the BPTT
@@ -56,9 +61,35 @@ from lstm_rnn_tpu_torch.ops.activations import grad_clip
 from lstm_rnn_tpu_torch.ops.lstm_cell import (lstm_cell_step,
                                               lstm_scan_fused,
                                               lstm_scan_fused_carry,
-                                              storage_dtype)
+                                              recurrence_fits, storage_dtype)
 
 BACKENDS = ("auto", "scan", "pallas")
+
+
+def kernel_route(backend: str, H: int, compute_dtype: torch.dtype,
+                 need_grad: bool) -> bool:
+    """True when a layer of H cells per direction takes the recurrence
+    kernels: backend "auto" or "pallas" and a width the kernels take
+    (recurrence_fits). "auto" takes the scan route otherwise; an explicit
+    "pallas" raises there."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "scan":
+        return False
+    if recurrence_fits(H, compute_dtype, need_grad):
+        return True
+    if backend == "pallas":
+        raise ValueError(
+            f"lstm_backend=pallas: a layer of H={H} cells per direction "
+            f"({'training' if need_grad else 'inference'}, "
+            f"{str(compute_dtype).removeprefix('torch.')}) is wider than any "
+            f"CTA of the recurrence kernels takes; use lstm_backend=auto "
+            f"(falls back to the scan) or scan")
+    return False
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype,
@@ -182,15 +213,14 @@ def lstm_forward(params, x, pattypes, bias_mult: float, bidirectional: bool,
     if D != (2 if bidirectional else 1):
         raise ValueError(f"W_in has {D} directions; bidirectional="
                          f"{bidirectional}")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    need_grad = _needs_grad(x, w_in, w_rec, b, peep)
+    kernels = kernel_route(backend, H, compute_dtype, need_grad)
     k = min(remat_blocks, T) if remat_blocks else 0
-    if backend != "scan" and k > 1 and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w_in, w_rec, b, peep)):
+    if kernels and k > 1 and need_grad:
         ys = _remat_fused(params, x, pattypes, bias_mult, bidirectional, k,
                           compute_dtype)
         return ys.to(x.dtype)
-    if backend != "scan":
+    if kernels:
         lengths = (pattypes != 0).sum(dim=0, dtype=torch.int32)
         ys = lstm_scan_fused(x, w_in.reshape(D, P, 4 * H),
                              w_rec.reshape(D, H, 4 * H), peep,
@@ -234,9 +264,8 @@ def lstm_forward_streaming(params, x, pattypes, bias_mult: float, carry,
     if w_in.shape[0] != 1:
         raise ValueError("a bidirectional layer cannot stream (its backward "
                          "half consumes the future)")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend != "scan":
+    if kernel_route(backend, w_in.shape[-1], compute_dtype,
+                    _needs_grad(x, w_in, w_rec, b, peep)):
         return _streaming_fused(params, x, pattypes, bias_mult, carry,
                                 compute_dtype)
     acts, valid = _scan_acts_valid(x, pattypes, w_in, b, bias_mult,

@@ -38,7 +38,8 @@ from lstm_rnn_tpu_torch.ops.softmax_ce import (_no_tf32, proj_tail_fits,
                                                softmax_ce_fused,
                                                softmax_ce_proj_fused,
                                                softmax_ce_wide_fused,
-                                               tail_smem_optin)
+                                               tail_smem_optin,
+                                               wide_tail_fits)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -312,7 +313,9 @@ class Network:
         inside the kernel) when its forward fits a block's shared memory
         (`proj_tail_fits`: S <= 704 on the H100, and on the CPU,
         which takes the H100's route), and K4 (the product outside, the
-        wide kernels) above: the LVCSR recipe's 10,112 states. The JAX
+        wide kernels) above: the LVCSR recipe's 10,112 states, where K4b
+        takes P (`wide_tail_fits`: P <= 1,024), else K5 again, as the
+        JAX package falls back where its wide_plan refuses. The JAX
         package reaches K5 under remat because its tail takes K3 and K4
         only on the padded view, which remat drops; the port has no padded
         view, so remat itself is the route."""
@@ -323,16 +326,15 @@ class Network:
         x = self._apply_layers(params, inputs, pattypes, self.specs[1:-2])
         t, b, p_dim = x.shape
         n = t * b
-        if self.remat_blocks > 0:
+        proj = proj_tail_fits(s.size, tail_smem_optin(x.device))
+        if self.remat_blocks > 0 or not (proj or wide_tail_fits(p_dim)):
             if x.is_cuda:
                 _no_tf32(self.compute_dtype)
             a = feedforward_forward(params[s.name], x, "identity", s.bias,
                                     self.compute_dtype)
             return softmax_ce_fused(a.reshape(n, s.size), targets.reshape(n),
                                     s.size, self.compute_dtype)
-        tail = (softmax_ce_proj_fused
-                if proj_tail_fits(s.size, tail_smem_optin(x.device))
-                else softmax_ce_wide_fused)
+        tail = softmax_ce_proj_fused if proj else softmax_ce_wide_fused
         return tail(
             x.reshape(n, p_dim), params[s.name]["W"], params[s.name]["b"],
             targets.reshape(n), s.size, float(s.bias), self.compute_dtype)

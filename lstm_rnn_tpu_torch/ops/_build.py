@@ -12,7 +12,7 @@ no nvcc; only a launch needs it.
 Usage: `load()` returns the ctypes library; `python -m
 lstm_rnn_tpu_torch.ops._build` builds and prints the compiler's report
 (registers, shared memory and spills per kernel) and the HGMMA count of
-each instance of the GEMM engine, of K3f and of K4b.
+each instance of the GEMM engine, of K3f, of K4b and of K3b.
 """
 
 from __future__ import annotations
@@ -157,7 +157,7 @@ def _declare(lib) -> None:
     lib.softmax_ce_fwd.argtypes = [p] * 9 + [i] * 3 + [ctypes.c_float, i, i,
                                                        p]
     lib.softmax_ce_fwd.restype = i
-    lib.softmax_ce_bwd.argtypes = [p] * 11 + [i] * 3 + [ctypes.c_float, i, i,
+    lib.softmax_ce_bwd.argtypes = [p] * 11 + [i] * 4 + [ctypes.c_float, i, i,
                                                         p]
     lib.softmax_ce_bwd.restype = i
     lib.softmax_ce_wide_fwd.argtypes = [p] * 9 + [i] * 4 + [p]
@@ -179,9 +179,8 @@ def _declare(lib) -> None:
         getattr(lib, name).restype = i
     lib.lstm_act_probe.argtypes = [p, p, i, i, p]
     lib.lstm_act_probe.restype = i
-    for name in ("lstm_bwd_splits", "softmax_ce_splits"):
-        getattr(lib, name).argtypes = [i]
-        getattr(lib, name).restype = i
+    lib.lstm_bwd_splits.argtypes = [i]
+    lib.lstm_bwd_splits.restype = i
     lib.lstm_err_str.argtypes = [i]
     lib.lstm_err_str.restype = ctypes.c_char_p
 
@@ -203,6 +202,7 @@ def load():
 if __name__ == "__main__":
     load()
     print(build_log())
-    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_"):
+    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_", "pb_dh_kernel",
+                 "pb_dw_kernel"):
         for kernel, n in sorted(sass_counts("HGMMA", part).items()):
             print(f"{n:5d} HGMMA  {kernel}")

@@ -2,15 +2,16 @@
 its plain twin, its launch count by product, and a wrapper of its test
 entry point (csrc/gemm.cu).
 
-Every projection, weight-gradient, dx and tail dh/dW product of K0, K1,
-K2, K3b, K6f, K6b-f and K6b-b runs in one GEMM, `gemm_kernel`,
-launched from inside those kernels' C entry points. The TPU kernels
-compute the same products in their own bodies
-(lstm_rnn_tpu/ops/lstm_cell.py:227, :449, :475, :491; the projection
-tail's `_bwd_proj_kernel`). (K4b computes its dW in its own kernel; the
+Every projection, weight-gradient and dx product of K0, K1, K2, K6f,
+K6b-f and K6b-b runs in one GEMM, `gemm_kernel`, launched from inside
+those kernels' C entry points. The TPU kernels compute the same products
+in their own bodies (lstm_rnn_tpu/ops/lstm_cell.py:227, :449, :475,
+:491). (K3b and K4b compute their products in their own kernels; the
 engine also runs the wide tail's two products outside its kernels in
 bf16 mode, which ops/softmax_ce.py launches and counts here as
-`tail_logits` and `wide_dh`.) The products (`USES`):
+`tail_logits` and `wide_dh`. tail_dh and tail_dW, K3b's products before
+its kernels formed their own, run on no path: only `gemm` here launches
+them.) The products (`USES`):
 
 - proj:    out[d] = x . W_in[d] + bias_mult * b[d]           (f32)
 - dW_in:   out[d] = x^T . da[d]                               (f32)
@@ -31,7 +32,7 @@ the f32 sum; the projection adds the bias product rounded on its own.
 
 `LAUNCHES[use].launches` counts the engine's launches on the main path;
 the wrappers that launch it (lstm_cell's projection and BPTT, softmax_ce's
-K3b and the wide tail's products, and `gemm` here) add to it.
+wide-tail products, and `gemm` here) add to it.
 `main_path_case` lays out each product at the shape the main path gives
 it.
 """
@@ -227,7 +228,8 @@ def gemm(use: str, a: Sequence[View], b: Sequence[View], M: int, N: int,
 
 # main_path_case's products: the training fraction's T*B = 25,000 rows
 # (bench.py's T = 500, B = 50), H = 125, P = 117 or 250, S = 183 (TIMIT's
-# tail, K3b); the projection also over 40,000 rows (serving, T = 800),
+# tail, whose dh and dW K3b's own kernels compute since PR 11); the
+# projection also over 40,000 rows (serving, T = 800),
 # 6,250 (an SP or remat block, T = 125) and 4,096 (a streamed 64-frame
 # chunk of 64 streams, D = 1, H = 250)
 MAIN_PATH_CASES = ("proj:train117", "proj:train250", "proj:serve",

@@ -762,6 +762,18 @@ def recurrence_plan(H: int, compute_dtype: torch.dtype, kind: str) -> dict:
                 ok=state <= SMEM_OPTIN and threads <= REC_MAX_THREADS)
 
 
+def recurrence_fits(H: int, compute_dtype: torch.dtype,
+                    need_grad: bool) -> bool:
+    """True when the recurrence kernels take width H: the forward's plan
+    is ok and, when autograd records (need_grad), the BPTT's too (the
+    forward and its BPTT are one autograd Function: a layer that trains
+    takes both kernels or neither). Decided from the plan alone, the same
+    on the CPU as on the card."""
+    return (recurrence_plan(H, compute_dtype, "fwd")["ok"]
+            and (not need_grad
+                 or recurrence_plan(H, compute_dtype, "bwd")["ok"]))
+
+
 def recurrence_plan_on_card(H: int, compute_dtype: torch.dtype, kind: str,
                             device: int = 0) -> dict:
     """The plan as the kernel library computes it on CUDA device `device`

@@ -3,7 +3,8 @@ CURRENNT softmax -> multiclass cross-entropy -> accuracy count.
 
 Counterpart of lstm_rnn_tpu/ops/softmax_ce.py. Three tails, each a pair of
 kernels behind wrappers with a launch count; Network.loss_and_count_fused
-picks one (K5 under remat, else K3 where `proj_tail_fits`, else K4).
+picks one (K5 under remat, else K3 where `proj_tail_fits`, else K4 where
+`wide_tail_fits`, else K5).
 
 The projection tail (`softmax_ce_proj_fused`, whose custom VJP in the JAX
 package launches `_fwd_proj_kernel` and `_bwd_proj_kernel`; K3), in
@@ -17,7 +18,9 @@ csrc/softmax_ce.cu, for nets whose forward fits a block's shared memory
   REAL_MIN) and the first-argmax == target count over rows with
   target >= 0, and p [N, S] when the caller trains (want_p);
 - `softmax_ce_proj_bwd`: dz = g p (onehot (-1/p_c) - s), masked, from the
-  stored p; dh = dz . W^T, dW = h^T . dz, db = bias_mult * sum dz.
+  stored p; dh = dz . W^T, dW = h^T . dz, db = bias_mult * sum dz, in four
+  launches that form dz on the chip and never store it (`proj_bwd_plan`
+  lays them out).
 
 `softmax_ce_proj_fused` with gradients goes through SoftmaxCeProjFused
 (forward with want_p, backward kernel); without, it runs the forward with
@@ -175,6 +178,13 @@ _SIMT_BK, _SIMT_PAD = 16, 4
 # an H100's shared memory per block (opt-in): the budget on the CPU, so
 # that the twins take the route the card takes
 H100_SMEM_OPTIN = 232_448
+# an H100's SMs: the CPU plans the launches the card makes
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _proj_ring_bytes(bf16: bool, nch: int) -> int:
@@ -270,6 +280,87 @@ def softmax_ce_proj_fwd(h2, W, b, targets, bias_mult: float = 1.0,
 softmax_ce_proj_fwd.launches = 0
 
 
+# K3b's tiles (csrc/softmax_ce.cu: kPbRows, kPbDhCols, kPbDhKBf16,
+# kPbDhKF32, kPbResColsBf16, kPbResColsF32, kPbResMax, kPbDwRows,
+# kPbDwCols, kPbDwTileBf16, kPbDwTileF32; a CPU test reads them): W packed
+# zero-padded to [pp, sp] (sp: S rounded up to 64 in bf16, 32 in f32); dh
+# in tiles of 64 rows, by persistent blocks that hold 256 (bf16) or 128
+# (f32) columns of W resident where S <= 192, else by blocks of 256
+# columns over chunks of S; dW in blocks of
+# 128 rows (of P: a pass) x 192 columns (of S) over a split of the row
+# tiles of 64 (bf16) or 32 (f32) rows
+_PB_ROWS, _PB_DH_COLS = 64, 256
+_PB_DH_K = {True: 64, False: 32}
+_PB_RES_COLS = {True: 256, False: 128}
+_PB_RES_MAX = 192
+_PB_DW_ROWS, _PB_DW_COLS = 128, 192
+_PB_DW_TILE = {True: 64, False: 32}
+
+
+def proj_bwd_plan(N: int, P: int, S: int, bf16: bool,
+                  sms: int = H100_SMS) -> dict:
+    """K3b's launch at N rows, P and S: W's packed shape (pp, sp), dh's
+    body (resident or streamed) and grid, and the dW kernel's column
+    blocks, passes over P, row tiles and row splits (one block an SM: as
+    many splits as fill `sms` SMs once, none without rows); its partials
+    are [nsplit, P S + S] f32."""
+    rows = _PB_DW_TILE[bf16]
+    ntiles = -(-N // rows)
+    cols, passes = -(-S // _PB_DW_COLS), -(-P // _PB_DW_ROWS)
+    want = max(1, min(ntiles, round(sms / (cols * passes))))
+    tps = -(-ntiles // want)
+    k = _PB_DH_K[bf16]
+    dh_tiles = -(-N // _PB_ROWS)
+    resident = S <= _PB_RES_MAX
+    if resident:
+        pcs = -(-P // _PB_RES_COLS[bf16])
+        dh_grid = (max(1, min(dh_tiles, sms // pcs)), pcs)
+    else:
+        dh_grid = (dh_tiles, -(-P // _PB_DH_COLS))
+    return dict(pp=-(-P // _PB_DH_COLS) * _PB_DH_COLS, sp=-(-S // k) * k,
+                dh_resident=resident, dh_grid=dh_grid, cols=cols,
+                passes=passes, rows=rows, ntiles=ntiles, tps=tps,
+                nsplit=-(-ntiles // tps))
+
+
+def _launch_proj_bwd(p, hc, wc, targets, g, bias_mult: float,
+                     dz_out=None):
+    """K3b's four launches on the card (p, hc [N, P] and wc [P, S] in the
+    storage dtype): (dh [N, P] storage dtype, dW [P, S] f32, db [S] f32).
+    dz_out, an [N, S] f32 tensor or None, receives dz before its rounding
+    (a test's view of what never leaves the chip)."""
+    from lstm_rnn_tpu_torch.ops import _build
+    lib = _build.load()
+    N, S = p.shape
+    P = hc.shape[1]
+    dev = p.device
+    bf16 = p.dtype == torch.bfloat16
+    plan = proj_bwd_plan(N, P, S, bf16, _sm_count(dev.index))
+    # p's rows are copied in aligned 16-byte chunks, h's in 4-byte words
+    pc = p.contiguous() if p.data_ptr() % 16 == 0 else p.clone()
+    hc = hc.contiguous() if hc.data_ptr() % 4 == 0 else hc.clone()
+    tc = targets.to(device=dev, dtype=torch.int32).contiguous()
+    gc = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    rowc = torch.empty((N, 4), **f32)
+    wp = torch.empty(plan["pp"] * plan["sp"], dtype=p.dtype, device=dev)
+    part = torch.empty((plan["nsplit"], P * S + S), **f32)
+    dh = torch.empty((N, P), dtype=p.dtype, device=dev)
+    out = torch.empty(P * S + S, **f32)
+    if dz_out is not None and (dz_out.dtype != torch.float32
+                               or tuple(dz_out.shape) != (N, S)
+                               or not dz_out.is_contiguous()):
+        raise ValueError("dz_out must be a contiguous [N, S] float32 tensor")
+    err = lib.softmax_ce_bwd(
+        _ptr(pc), _ptr(hc), _ptr(wc.contiguous()), _ptr(tc), _ptr(gc),
+        _ptr(rowc), _ptr(wp), _ptr(part), _ptr(dh), _ptr(out),
+        _ptr(dz_out) if dz_out is not None else None, N, P, S,
+        plan["nsplit"], ctypes.c_float(bias_mult), int(bf16), dev.index,
+        _stream(p))
+    _raise_on(err, "softmax_ce_bwd launch")
+    return dh, out[:P * S].view(P, S), out[P * S:]
+
+
 def softmax_ce_proj_bwd(p, h2, W, targets, g, bias_mult: float = 1.0,
                         compute_dtype: torch.dtype = torch.float32):
     """(dh, dW, db): the CUDA kernels on a CUDA tensor, the twin on a CPU
@@ -280,36 +371,13 @@ def softmax_ce_proj_bwd(p, h2, W, targets, g, bias_mult: float = 1.0,
     if not _on_cuda(h2, "softmax_ce_proj_bwd"):
         return softmax_ce_bwd_reference(p, h2, W, targets, g, bias_mult,
                                         compute_dtype)
-    from lstm_rnn_tpu_torch.ops import _build
-    lib = _build.load()
-    N, P = h2.shape
-    S = W.shape[1]
     sdtype = storage_dtype(compute_dtype)
-    if p.dtype != sdtype or tuple(p.shape) != (N, S):
+    if p.dtype != sdtype or tuple(p.shape) != (h2.shape[0], W.shape[1]):
         raise ValueError(f"p must be [N, S] in {sdtype}")
-    dev = h2.device
-    hc = h2.to(sdtype).contiguous()
-    wc = W.to(sdtype).contiguous()
-    tc = targets.to(device=dev, dtype=torch.int32).contiguous()
-    gc = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
-    nblk = (N + 63) // 64
-    nsplit = lib.softmax_ce_splits(N)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dz = torch.empty((N, S), dtype=sdtype, device=dev)
-    db_part = torch.empty((nblk, S), **f32)
-    w_part = torch.empty((nsplit, P * S), **f32)
-    dh = torch.empty((N, P), dtype=sdtype, device=dev)
-    dw = torch.empty((P, S), **f32)
-    db = torch.empty(S, **f32)
-    err = lib.softmax_ce_bwd(
-        _ptr(p.contiguous()), _ptr(hc), _ptr(wc), _ptr(tc), _ptr(gc),
-        _ptr(dz), _ptr(db_part), _ptr(w_part), _ptr(dh), _ptr(dw), _ptr(db),
-        N, P, S, ctypes.c_float(bias_mult), int(sdtype == torch.bfloat16),
-        dev.index, _stream(h2))
-    _raise_on(err, "softmax_ce_bwd launch")
-    count_launches("tail_dh", "tail_dW")
+    out = _launch_proj_bwd(p, h2.to(sdtype), W.to(sdtype), targets, g,
+                           bias_mult)
     softmax_ce_proj_bwd.launches += 1
-    return dh, dw, db
+    return out
 
 
 softmax_ce_proj_bwd.launches = 0
@@ -495,7 +563,14 @@ _BWD_COLS, _BWD_PASS, _BWD_MAX_PASSES = 128, 256, 4
 _BWD_ROWS = {True: 64, False: 32}
 _BWD_ROW_FLOATS = 8
 _BWD_MAX_SPLITS = 16
-H100_SMS = 132
+
+
+def wide_tail_fits(P: int) -> bool:
+    """True when K4b takes a softmax layer fed by P units (P <= 1,024:
+    four passes of 256 rows of dW); a wider net's wide softmax takes the
+    materialized logits and K5, as the JAX package's does where its
+    wide_plan refuses."""
+    return 1 <= P <= _BWD_PASS * _BWD_MAX_PASSES
 
 
 def wide_bwd_plan(N: int, P: int, S: int, bf16: bool,
@@ -523,11 +598,6 @@ def wide_bwd_plan(N: int, P: int, S: int, bf16: bool,
     return dict(passes=passes, rows=rows, ntiles=ntiles,
                 nsplit=-(-ntiles // tps), hp_rows=ntiles * rows,
                 hp_cols=passes * _BWD_PASS)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):

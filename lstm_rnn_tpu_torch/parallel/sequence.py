@@ -45,7 +45,8 @@ from lstm_rnn_tpu_torch.models.blocks import (fused_wavefront, pad_time,
                                               per_device, wavefront)
 from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
                                                    softmax_forward)
-from lstm_rnn_tpu_torch.models.lstm import _lstm_scan, _scan_acts_valid
+from lstm_rnn_tpu_torch.models.lstm import (_lstm_scan, _needs_grad,
+                                          _scan_acts_valid, kernel_route)
 
 
 def _scan_block(acts, w_rec, peep, mask, compute_dtype, h0, c0):
@@ -95,12 +96,15 @@ def lstm_forward_seq(params, xs, pts, bias_mult: float, bidirectional: bool,
     mesh[i] (the JAX function takes one device's block inside shard_map;
     here one call takes them all). Returns the [Tl, B, L] output blocks
     (L = H or 2H, [fw | bw] per frame) in the inputs' dtype. backend
-    "scan" takes the scan route, any other the kernel route."""
+    "scan" takes the scan route, any other the kernel route where the
+    kernels take the width (models/lstm.py kernel_route)."""
     w_in = params["W_in"]
     if w_in.shape[0] != (2 if bidirectional else 1):
         raise ValueError(f"W_in has {w_in.shape[0]} directions; "
                          f"bidirectional={bidirectional}")
-    route = _scan_wavefront if backend == "scan" else fused_wavefront
+    kernels = kernel_route(backend, w_in.shape[-1], compute_dtype,
+                           _needs_grad(*xs, *params.values()))
+    route = fused_wavefront if kernels else _scan_wavefront
     outs = route(params, xs, pts, bias_mult, bidirectional, mesh,
                  compute_dtype)
     ys = []

@@ -12,6 +12,10 @@ f32 and bf16, on operands already in the storage dtype:
 - K3f (`softmax_ce_proj_fwd`, want_p on) at the TIMIT tail, N = 25,000,
   P = 250, S = 183, beside `F.cross_entropy(addmm(b, h, W), t, sum,
   ignore_index=-1)`;
+- K3b (`softmax_ce_proj_bwd`) on K3f's p, beside cuBLAS's dh + dW on the
+  same operands (`torch.matmul(dzc, W^T)` and `torch.matmul(h^T, dzc)`
+  with dzc the twin's dz in the storage dtype: a yardstick, no one call
+  computes K3b's function);
 - K4f (`_launch_wide_fwd`) at the LVCSR tail, N = 25,000, S = 10,112,
   beside `F.cross_entropy(a, t, sum, ignore_index=-1)`;
 - K4b (`_launch_wide_bwd`) at the LVCSR tail, P = 250, beside cuBLAS's
@@ -81,9 +85,9 @@ def worker(root, label):
         if m:
             name = m.group(1)
         elif name and re.search(r"(ce|wide)_fwd_kernel|wide_(dz|bwd_\w+)_"
-                                r"kernel", name) \
+                                r"kernel|pb_\w+_kernel|ce_dz_kernel", name) \
                 and ("spill" in line or "registers" in line):
-            short = re.sub(r".*?((ce|wide)_\w+_kernel)", r"\1", name)[:60]
+            short = re.sub(r".*?((ce|wide|pb)_\w+_kernel)", r"\1", name)[:60]
             print(f"{label} {short}: {line.strip()[:90]}")
 
     def show(what, fn, lib=None):
@@ -118,6 +122,15 @@ def worker(root, label):
                          lambda: F.cross_entropy(
                              torch.addmm(bs, hs, Ws), tl, reduction="sum",
                              ignore_index=-1))
+                    p = sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0, dt)[2]
+                    g = torch.tensor(1.0, device="cuda")
+                    dzc = sc.plain_dz_reference(p, tc, g).to(dt)
+                    show(f"K3b {name} [N={N} P={P} S={S}]",
+                         lambda: sc.softmax_ce_proj_bwd(p, hs, Ws, tc, g,
+                                                        1.0, dt),
+                         lambda: (torch.matmul(dzc, Ws.t()),
+                                  torch.matmul(hs.t(), dzc)))
+                    del p, dzc
                 else:
                     a = sc.wide_logits(h2, W, b, 1.0, dt)
                     show(f"K4f {name} [N={N} S={S}]",

@@ -1123,3 +1123,184 @@ def test_sigmoid_reciprocal_is_the_division_bit_for_bit():
     tiny = out[1][(out[1] > 0) & (out[1] < torch.finfo(torch.float32).tiny)]
     assert tiny.numel() > 1000  # the sweep reached denormal results
     assert (out[2][x >= lim] == 1.0).all() and (out[2][x <= -lim] == 0).all()
+
+
+# --------------------------------- K3b, dz formed on the chip (PR 11 design)
+# K3b at the widths its bodies split at: S in one 64-column chunk, in three
+# (the TIMIT tail's 183), at 256 (two dW column blocks, the second one
+# chunk), above it and at the route's limit of 704; P one pass of dW and
+# two. N ends inside a row tile of either mode.
+K3B_WIDTHS = [(S, P) for S in (5, 183, 256, 300, 704) for P in (100, 250)]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,P", K3B_WIDTHS)
+def test_k3b_matches_twin_at_every_width(S, P, dtype):
+    """dh, dW and db within the tail's bounds of the twin; dz (the kernel's
+    view of it, before rounding) the twin's bit for bit at g = 1 and at g
+    = 0.37; a second launch the same bits; dummy rows a zero dh."""
+    N = 1037
+    h, w, b, tc = _tail(N, P, S, seed=S + P)
+    sd = lstm_cell.storage_dtype(dtype)
+    _, _, p = softmax_ce_proj_fwd(h, w, b, tc, 0.8, dtype)
+    hs, ws = h.to(sd), w.to(sd)
+    for gv in (1.0, 0.37):
+        g = torch.tensor(gv, device="cuda")
+        dz = torch.full((N, S), float("nan"), device="cuda")
+        got = _same_bits(lambda: sc._launch_proj_bwd(p, hs, ws, tc, g, 0.8,
+                                                     dz_out=dz))
+        want = softmax_ce_bwd_reference(p, h, w, tc, g, 0.8, dtype)
+        dz_r = sc.plain_dz_reference(p, tc, g)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(dz), _bits(dz_r))
+        for name, x, y in zip(("dh", "dW", "db"), got, want):
+            assert x.dtype == y.dtype and x.shape == y.shape, name
+            assert _rel_err(x, y) <= TAIL_REL[dtype], (name, _rel_err(x, y))
+        assert not got[0][tc == -1].any()
+    # the check rejects dW with a split's rows left out
+    assert _rel_err(want[1] - hs[:64].float().t() @ dz_r[:64].to(sd).float(),
+                    want[1]) > TAIL_REL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3b_makes_four_launches(dtype):
+    """One K3b call is four kernel launches: the rows' constants and W's
+    packing, dh, dW with db, and their partials' sum."""
+    from torch.profiler import ProfilerActivity, profile
+    h, w, b, tc = _tail(25_000, 250, 183, seed=5)
+    sd = lstm_cell.storage_dtype(dtype)
+    _, _, p = softmax_ce_proj_fwd(h, w, b, tc, 1.0, dtype)
+    g = torch.tensor(1.0, device="cuda")
+    args = (p, h.to(sd), w.to(sd), tc, g, 1.0)
+    sc._launch_proj_bwd(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sc._launch_proj_bwd(*args)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    if not kernels:
+        pytest.skip("the profiler recorded no device activity")
+    assert sum(kernels.values()) <= 4 * 3, kernels
+    for part in ("pb_prep_kernel", "pb_dh_", "pb_dw_kernel", "sum_partials"):
+        assert any(part in k for k in kernels), (part, kernels)
+
+
+def test_wide_lstm_layers_take_the_scan_route():
+    """On the card, backend "auto" trains a layer of 801 cells per
+    direction and serves one of 1,025 through the scan route (no kernel
+    launch), with the values of backend "scan"; "pallas" raises."""
+    from lstm_rnn_tpu_torch.models.lstm import lstm_forward
+    for H, grad in ((801, True), (1025, False)):
+        args = make_layer(3, 2, 4, H, 2, seed=H)
+        params = {"W_in": args[1].view(2, 4, 4, H),
+                  "W_rec": args[2].view(2, H, 4, H),
+                  "b": args[4].view(2, 4, H), "peep": args[3]}
+        pt = torch.ones(3, 2, dtype=torch.int8, device="cuda")
+        outs = []
+        for backend in ("auto", "scan"):
+            p = {k: v.clone().requires_grad_(grad) for k, v in params.items()}
+            before = (lstm_scan_fused.launches, lstm_fwd_save.launches,
+                      lstm_bwd.launches)
+            with torch.set_grad_enabled(grad):
+                y = lstm_forward(p, args[0], pt, 1.0, True, backend=backend)
+                if grad:
+                    y.sum().backward()
+            torch.cuda.synchronize()
+            assert (lstm_scan_fused.launches, lstm_fwd_save.launches,
+                    lstm_bwd.launches) == before
+            outs.append((y, [v.grad for v in p.values()] if grad else []))
+        assert torch.equal(outs[0][0], outs[1][0])
+        for a, c in zip(outs[0][1], outs[1][1]):
+            assert torch.equal(a, c)
+        with pytest.raises(ValueError, match="lstm_backend=pallas"), \
+                torch.set_grad_enabled(grad):
+            lstm_forward({k: v.clone().requires_grad_(grad)
+                          for k, v in params.items()}, args[0], pt, 1.0,
+                         True, backend="pallas")
+
+
+def test_wide_softmax_over_wide_layer_takes_k5():
+    """A 705-class softmax fed by 1,025 units is past K3's S and K4b's P:
+    the fused tail takes the materialized logits and K5 (one launch each
+    way), trains, and matches the unfused loss."""
+    from lstm_rnn_tpu_torch.network import Network
+    net = Network([
+        {"name": "input", "type": "input", "size": 5},
+        {"name": "l1", "type": "feedforward_tanh", "size": 1025, "bias": 1.0},
+        {"name": "output", "type": "softmax", "size": 705, "bias": 1.0},
+        {"name": "postoutput", "type": "multiclass_classification",
+         "size": 705}])
+    net.init_params(3)
+    params = net.device_params("cuda")
+    for layer in params.values():
+        for v in layer.values():
+            v.requires_grad_(True)
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn(9, 4, 5, device="cuda", generator=g)
+    pt = torch.ones(9, 4, dtype=torch.int8, device="cuda")
+    tc = torch.randint(0, 705, (9, 4), device="cuda", generator=g,
+                       dtype=torch.int32)
+    wrappers = (sc.softmax_ce_proj_fwd, sc.softmax_ce_proj_bwd,
+                sc.softmax_ce_wide_fwd, sc.softmax_ce_wide_bwd,
+                sc.softmax_ce_fwd, sc.softmax_ce_bwd)
+    before = [f.launches for f in wrappers]
+    loss, _ = net.loss_and_count_fused(params, x, tc, pt)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [
+        0, 0, 0, 0, 1, 1]
+    assert torch.isfinite(params["output"]["W"].grad).all()
+    with torch.no_grad():
+        ref = net.loss(params, x, tc, pt)
+    assert loss.item() == pytest.approx(ref.item(), rel=1e-5)
+
+
+def test_bf16_feedforward_products_on_the_tensor_cores():
+    """In bf16 mode the softmax layer's product runs no f32 library GEMM
+    (cuBLAS's sgemm, ...f32f32..., ffma) forward or backward, and gives the
+    CPU route's values: the forward to f32 sum-order noise, the gradients
+    (rounded to bf16 by the operands' casts) to one bf16 ulp of the largest
+    entry."""
+    from torch.profiler import ProfilerActivity, profile
+    from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
+                                                       softmax_forward)
+    gen = np.random.RandomState(11)
+    x0 = torch.tensor(gen.randn(40, 25, 250), dtype=torch.float32)
+    w0 = torch.tensor(gen.uniform(-0.1, 0.1, (250, 183)), dtype=torch.float32)
+    b0 = torch.tensor(gen.uniform(-0.1, 0.1, 183), dtype=torch.float32)
+    dy = torch.tensor(gen.randn(40, 25, 183), dtype=torch.float32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        x = x0.to(dev).detach().requires_grad_(True)
+        params = {"W": w0.to(dev).detach().requires_grad_(True),
+                  "b": b0.to(dev)}
+        a = feedforward_forward(params, x, "identity", 1.0, torch.bfloat16)
+        (a * dy.to(dev)).sum().backward()
+        res[dev] = (a.detach().cpu(), x.grad.cpu(), params["W"].grad.cpu())
+    for name, got, want, tol in zip(("a", "dx", "dW"), res["cuda"],
+                                    res["cpu"], (1e-5, 2.0 ** -7, 2.0 ** -7)):
+        assert _rel_err(got, want) <= tol, (name, _rel_err(got, want))
+    x = x0.cuda()
+    params = {"W": w0.cuda(), "b": b0.cuda()}
+    softmax_forward(params, x, 1.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            softmax_forward(params, x, 1.0, torch.bfloat16)
+        xg = x.clone().requires_grad_(True)
+        feedforward_forward(params, xg, "identity", 1.0,
+                            torch.bfloat16).sum().backward()
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not keys:
+        pytest.skip("the profiler recorded no device activity")
+    f32 = [k for k in keys if any(t in k for t in ("sgemm", "f32f32",
+                                                    "ffma"))]
+    assert not f32, f32

@@ -208,8 +208,8 @@ def test_k4b_tiles_follow_the_kernel_source(bf16):
     kernel's (csrc/softmax_ce_wide.cu), a block's shared memory (the
     source's Bwd<T>::kSmem, written here from its constants) fits an
     H100's 232,448 bytes at every P, P above one pass of 256 rows of dW
-    takes more passes, and a P the kernel does not take raises, with no
-    other route."""
+    takes more passes, and a P the kernel does not take raises (the
+    network's fused tail routes such a net to K5: wide_tail_fits)."""
     src = (CSRC / "softmax_ce_wide.cu").read_text()
     c = _source_ints(CSRC / "softmax_ce_wide.cu",
                      ("kBwdCols", "kBwdPass", "kBwdStages", "kBwdMaxPasses",
@@ -240,6 +240,7 @@ def test_k4b_tiles_follow_the_kernel_source(bf16):
             -(-N // rows) * rows, passes * c["kBwdPass"])
     with pytest.raises(ValueError, match="P <= 1024"):
         sc.wide_bwd_plan(N, 1025, S_, bf16)
+    assert sc.wide_tail_fits(1024) and not sc.wide_tail_fits(1025)
 
 
 @pytest.mark.parametrize("N_, S_", [(25_000, 10_112), (70, 1001),
