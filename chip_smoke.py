@@ -10,7 +10,9 @@ weights from a seed, and holds every kernel against its plain twin:
 
 1. device: torch/CUDA versions, the card's name and power limit; TF32 off;
 2. build: compiles the CUDA kernels from csrc/ with nvcc (one process per
-   source, in parallel), prints ptxas's registers and spills, and counts
+   source, in parallel), prints ptxas's registers and spills (failing if
+   an instance of K5f, csrc/softmax_ce_plain.cu's plain_fwd_kernel,
+   spills: it holds its row in registers), and counts
    the HGMMA (wgmma) instructions in the SASS of every instance of the
    GEMM engine (csrc/gemm.cuh), of K3f (csrc/softmax_ce.cu's
    ce_fwd_kernel) and of K4b (csrc/softmax_ce_wide.cu's wide_bwd_*):
@@ -113,7 +115,10 @@ weights from a seed, and holds every kernel against its plain twin:
 22. the plain tail's kernels (K5f, K5b) against their twins over
     N=25,000 frames at S=183 and S=10,112, f32 and bf16, with a row tile
     of dummy frames and controls that must fail (a zero p, rolled
-    targets, dz from the f32 p in bf16 mode), and their times;
+    targets, dz from the f32 p in bf16 mode), K5f launched twice (the
+    same bits) and the body and vector width it takes, and their times
+    (phase 9's order: K5f and `F.cross_entropy` on the same logits on
+    the device, and by CUDA events; K5b on the device);
 23. one SGD step with `--remat_blocks` against the kernel step from the
     same weights (f32, ragged rows): TIMIT at K=4 and K=3 (not a divisor
     of T=500), LVCSR at K=4 against the fused K4 step, the loss, the
@@ -125,7 +130,8 @@ weights from a seed, and holds every kernel against its plain twin:
 25. training frames/s and peak device memory of a step with and without
     `--remat_blocks` at T=500 (K=4) and T=4000 (K=8), f32 and bf16; the
     T=4000 step's peak must fall at least 1.5x; a profile of one f32
-    remat step (K=4, T=500) by kernel.
+    remat step (K=4, T=500) by kernel, TIMIT's and LVCSR's (K5f at 183
+    and at 10,112 classes).
 
 26. the GEMM engine (csrc/gemm.cuh's gemm_kernel, which every projection,
     weight-gradient and dx product of the paths above runs in, and K4's
@@ -2421,8 +2427,10 @@ def plain_kernels_vs_twins(torch):
     N = 25,000 frames at S = 183 (TIMIT) and 10,112 (LVCSR), float32 and
     bfloat16, with a row tile of dummy frames that must give exactly zero
     and controls the checks must reject (a zero p, rolled targets, and in
-    bf16 dz from the f32 p before its rounding); kernel, twin and library
-    times."""
+    bf16 dz from the f32 p before its rounding) and a second K5f launch
+    that must give the same bits; kernel, twin and library times, the
+    kernels' and the library call's on the device (the profiler) beside
+    CUDA events."""
     import torch.nn.functional as F
     from lstm_rnn_tpu_torch.ops import softmax_ce as sc
     gen = torch.Generator("cuda").manual_seed(SEED + 11)
@@ -2440,36 +2448,59 @@ def plain_kernels_vs_twins(torch):
         for name in ("float32", "bfloat16"):
             dt = getattr(torch, name)
             loss, cnt, p = sc.softmax_ce_fwd(a, tc, dt)
+            loss2, cnt2, p2 = sc.softmax_ce_fwd(a, tc, dt)
             loss_r, cnt_r, p_r = sc.plain_fwd_reference(a, tc, dt)
             loss_x, _, _ = sc.plain_fwd_reference(a, rolled, dt, False)
             torch.cuda.synchronize()
+            same = (torch.equal(p, p2) and loss2.item() == loss.item()
+                    and cnt2.item() == cnt.item())
+            del p2
+            plan = sc.plain_fwd_plan(S, a.data_ptr(), p.data_ptr(),
+                                     p.element_size())
             rel, err = elem_rel(p, p_r), rel_err(p, p_r)[1]
             lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
             ctrl = {"zero p": elem_rel(torch.zeros_like(p_r), p_r),
                     "loss of rolled targets": abs(
                         loss_x.item() - loss.item()) / abs(loss.item())}
-            ms = time_ms(torch, lambda: sc.softmax_ce_fwd(a, tc, dt), 10)
+
+            def k5f():
+                return sc.softmax_ce_fwd(a, tc, dt)
+
+            def lib_call():
+                return F.cross_entropy(a, tl, reduction="sum",
+                                       ignore_index=-1)
+            ms = time_ms(torch, k5f, 10)
             ms_nop = time_ms(torch, lambda: sc.softmax_ce_fwd(
                 a, tc, dt, want_p=False), 10)
-            dev_ms = sum(prof_ms(torch, [lambda: sc.softmax_ce_fwd(
-                a, tc, dt)], 10).values()) or None
+            dev_k = prof_ms(torch, [k5f], 10,
+                            ("plain_fwd_kernel", "ce_reduce_kernel"))
+            dev = sum(dev_k.values())
             plain = time_ms(torch, lambda: sc.plain_fwd_reference(
                 a, tc, dt), 3)
-            lib = time_ms(torch, lambda: F.cross_entropy(
-                a, tl, reduction="sum", ignore_index=-1), 10)
+            lib = time_ms(torch, lib_call, 10)
+            # log_softmax and nll_loss's kernels
+            lib_dev = sum(prof_ms(torch, [lib_call], 10,
+                                  ("softmax", "nll_loss")).values())
             res[("softmax_ce_fwd", S, name)] = dict(
-                err=err, rel=rel, loss_rel=lrel, ms=ms, plain_ms=plain,
-                device_ms=dev_ms,
-                library_ms=lib, cost=plain_cost("softmax_ce_fwd", S, name))
-            phase("plain-kernel", f"K5f softmax_ce_fwd S={S} {name}: p "
+                err=err, rel=rel, loss_rel=lrel, ms=dev if dev else ms,
+                events_ms=ms, plain_ms=plain,
+                library_ms=lib_dev if lib_dev else lib,
+                library_events_ms=lib,
+                cost=plain_cost("softmax_ce_fwd", S, name))
+            phase("plain-kernel", f"K5f softmax_ce_fwd S={S} {name} "
+                  f"({plan[0]} body, {plan[1]} values a thread held, "
+                  f"{plan[2]} a vector): p "
                   f"max_abs_err={err:.3e} elementwise rel={rel:.3e} (tol "
                   f"{P_REL[name]:.1e}; controls " + ", ".join(
                       f"{k} {v:.2e}" for k, v in ctrl.items())
                   + f"), loss rel {lrel:.2e}, count {cnt.item()} vs "
-                  f"{cnt_r.item()}; kernel {ms:.3f} ms ({ms_nop:.3f} ms "
-                  f"without p; on the device {fmt_ms(dev_ms)}); twin "
-                  f"{plain:.3f} ms; F.cross_entropy "
-                  f"{lib:.3f} ms [N={N} S={S}]")
+                  f"{cnt_r.item()}; a second launch bit for bit: {same}; "
+                  f"on the device {fmt_ms(dev or None)} (" + ", ".join(
+                      f"{short_key(k)} {v:.4f}" for k, v in dev_k.items())
+                  + f"), F.cross_entropy {fmt_ms(lib_dev or None)} on the "
+                  f"device; CUDA events: kernel {ms:.3f} ms ({ms_nop:.3f} "
+                  f"ms without p), F.cross_entropy {lib:.3f} ms; twin "
+                  f"{plain:.3f} ms [N={N} S={S}]")
             if not (ctrl["zero p"] > P_REL[name]
                     and ctrl["loss of rolled targets"] > 1e-5):
                 raise AssertionError(f"the K5f checks pass a wrong p or "
@@ -2477,6 +2508,8 @@ def plain_kernels_vs_twins(torch):
             if not (rel <= P_REL[name] and lrel <= 1e-5
                     and abs(cnt.item() - cnt_r.item()) <= 1):
                 raise AssertionError("K5f disagrees with its twin")
+            if not same:
+                raise AssertionError("a second K5f launch gave other bits")
             del p_r
 
             dz = sc.softmax_ce_bwd(p, tc, g)
@@ -2494,12 +2527,12 @@ def plain_kernels_vs_twins(torch):
             dummy_zero = not dz[:64].any()
             ms = time_ms(torch, lambda: sc.softmax_ce_bwd(p, tc, g), 10)
             dev_ms = sum(prof_ms(torch, [lambda: sc.softmax_ce_bwd(
-                p, tc, g)], 10).values()) or None
+                p, tc, g)], 10, ("plain_bwd_kernel",)).values()) or None
             plain = time_ms(torch, lambda: sc.plain_dz_reference(p, tc, g),
                             3)
             res[("softmax_ce_bwd", S, name)] = dict(
-                err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=None,
-                device_ms=dev_ms,
+                err=err, rel=rel, ms=dev_ms or ms, events_ms=ms,
+                plain_ms=plain, library_ms=None, library_events_ms=None,
                 cost=plain_cost("softmax_ce_bwd", S, name))
             phase("plain-kernel", f"K5b softmax_ce_bwd S={S} {name}: dz "
                   f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
@@ -2714,7 +2747,8 @@ def kernel_label(mangled):
         tag = next((t for t in GEMM_TAGS if t in mangled), "?")
         name += f" {tag} {dtype}"
     elif name in ("ce_fwd_kernel", "wide_fwd_kernel",
-                  "wide_bwd_wgmma_kernel", "wide_bwd_simt_kernel"):
+                  "wide_bwd_wgmma_kernel", "wide_bwd_simt_kernel",
+                  "plain_fwd_kernel"):
         # template arguments: Li3E (int 3), Lb0E (bool false)
         args = re.findall(r"L[ib](\d+)E", mangled)
         name += f"<{dtype}, {', '.join(args)}>"
@@ -2722,7 +2756,10 @@ def kernel_label(mangled):
 
 
 def report_ptxas(log):
-    """ptxas's registers and spills, one line per kernel instance."""
+    """ptxas's registers and spills, one line per kernel instance; K5f
+    (plain_fwd_kernel), which holds its row in registers, must spill
+    nothing."""
+    import re
     name = "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -2732,6 +2769,9 @@ def report_ptxas(log):
         elif "registers" in line:
             phase("build", f"{name}: {line.split(':', 1)[1].strip()}; "
                   f"{spill}")
+            if name.startswith("plain_fwd_kernel") and any(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", spill)):
+                raise AssertionError(f"{name} spills: {spill}")
 
 
 def check_hgmma(_build):
@@ -2763,14 +2803,16 @@ GEMM_REL = {"float32": 1e-5, "bfloat16": 1e-4}
 GEMM_ROUNDED_REL = 2.0 ** -7
 
 
-def prof_ms(torch, fns, reps):
+def prof_ms(torch, fns, reps, expect=()):
     """Device milliseconds of each kernel that the calls fns make, a call
     (each fn called `reps` times after a warm-up call), from one profile:
     {kernel name: ms}, each kernel's device time over the launches the
     profiler recorded (it may miss some) times its launches a call (no
     two fns launch the same kernel). A call's host work does not count,
-    so a short kernel is not timed at the host's pace. {} when three
-    profiles in a row record no device time."""
+    so a short kernel is not timed at the host's pace. A profile counts
+    only if each name in `expect` (a part of a kernel's name, any case)
+    matches a kernel recorded at least `reps` times: a profile can miss a
+    whole kernel. {} when three profiles in a row do not count."""
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
         fn()
@@ -2782,12 +2824,13 @@ def prof_ms(torch, fns, reps):
                 for _ in range(reps):
                     fn()
             torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and dev_us(e) > 0]
         per = {e.key: dev_us(e) / 1e3 / e.count
-               * max(1, round(e.count / reps))
-               for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and dev_us(e) > 0}
-        if per:
+               * max(1, round(e.count / reps)) for e in events}
+        if per and all(any(x.lower() in e.key.lower() and e.count >= reps
+                           for e in events) for x in expect):
             return per
     return {}
 
@@ -3184,6 +3227,7 @@ def main():
     remat_steps(torch)
     remat_rates_memory(torch, card)
     profile_step(torch, remat_blocks=4)
+    profile_step(torch, lvcsr=True, remat_blocks=4)
     for k in ("softmax_ce_fwd", "softmax_ce_bwd"):
         launches[k] = remat_launches[k]
     gemm_paths["remat training"] = gemm_total(remat_launches)
@@ -3258,16 +3302,20 @@ def main():
             kernels[-1]["variant"] = "carry=True, with_mask=True"
         if k in ("lstm_fwd_carry_save", "lstm_bwd_carry"):
             kernels[-1]["variant"] = "carry=True, save=True, dir_offset=0"
-        if "events_ms" in r32:  # K3f, K4f, K4b: ms on the device, events
+        if "events_ms" in r32:  # K3, K4, K5: ms on the device, events
             for k2, r in (("", r32), ("_bf16", r16)):
                 kernels[-1]["events_ms" + k2] = r["events_ms"]
                 kernels[-1]["library_events_ms" + k2] = r["library_events_ms"]
         if "products_ms" in r32:  # K4's products outside, on the device
             kernels[-1]["products_ms"] = r32["products_ms"]
             kernels[-1]["products_ms_bf16"] = r16["products_ms"]
-        if "device_ms" in r32:  # K5 at S=183: the call's kernels alone
-            kernels[-1]["device_ms"] = r32["device_ms"]
-            kernels[-1]["device_ms_bf16"] = r16["device_ms"]
+        if k in ("softmax_ce_fwd", "softmax_ce_bwd"):
+            # K5 at the LVCSR width too (the row above is TIMIT's)
+            for k2, d in (("", "float32"), ("_bf16", "bfloat16")):
+                r = pres[(k, S_LVCSR, d)]
+                kernels[-1][f"lvcsr{k2}"] = {
+                    "ms": r["ms"], "library_ms": r["library_ms"],
+                    "bound_ms": bound(*r["cost"], d)[0]}
     # the GEMM engine at the dW_in product of a TIMIT layer (P = 250: the
     # largest share of its time on the training step), every shape beside
     g32, g16 = gres[("dW_in:250", "float32")], gres[("dW_in:250", "bfloat16")]

@@ -28,12 +28,13 @@
 // 1.0 GB in f32 (0.5 GB in bf16) at N = 25,000, S = 10,112, so bytes bound
 // it. A block of 256 threads per row reads the row once, with the widest
 // vector load that the base and the row pitch allow (16 bytes at S =
-// 10,112; decided per launch, as make_view decides), and keeps it in
-// registers as loaded (up to kWideHold = 40 values a thread: rows of up to
-// 10,240 classes; bf16 two to a register).
+// 10,112; decided per launch by softmax_common.cuh's row_vec_elems), and
+// keeps it in registers as loaded (RowVec, up to kWideHold = 40 values a
+// thread: rows of up to 10,240 classes; bf16 two to a register).
 // From there min/max; then safe_exp once per element, with the exp sum
 // and the first argmax of e in the same pass; block-wide reductions
-// through shuffles (softmax_common.cuh's group_*, which K5f shares). The
+// through shuffles (softmax_common.cuh's group_*). K5f shares RowVec,
+// the width rule and the reductions. The
 // first argmax of p = e / sum is that of e unless an earlier e within
 // 2^-20 of the largest rounds to the same p: only then, rarely, p is taken
 // by division (a division per element would bound the kernel by
@@ -91,45 +92,6 @@ namespace {
 // from device memory once
 constexpr int kWideFwdThreads = 256;
 constexpr int kWideHold = 40;
-
-// E consecutive elements of T as they lie in memory: one load of E *
-// sizeof(T) bytes (aligned to it), converted to f32 on use
-template <typename T, int E>
-struct RowVec {
-  static constexpr int kBytes = E * static_cast<int>(sizeof(T));
-  unsigned u[kBytes >= 4 ? kBytes / 4 : 1];
-
-  __device__ __forceinline__ void load(const T* p) {
-    if constexpr (kBytes == 16) {
-      const uint4 q = *reinterpret_cast<const uint4*>(p);
-      u[0] = q.x;
-      u[1] = q.y;
-      u[2] = q.z;
-      u[3] = q.w;
-    } else if constexpr (kBytes == 8) {
-      const uint2 q = *reinterpret_cast<const uint2*>(p);
-      u[0] = q.x;
-      u[1] = q.y;
-    } else if constexpr (kBytes == 4) {
-      u[0] = *reinterpret_cast<const unsigned*>(p);
-    } else {  // one bf16, in the high half: exact in f32
-      u[0] = static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
-             << 16;
-    }
-  }
-  __device__ __forceinline__ void to_f32(float (&v)[E]) const {
-    if constexpr (sizeof(T) == 4 || kBytes == 2) {
-#pragma unroll
-      for (int i = 0; i < E; ++i) v[i] = __uint_as_float(u[i]);
-    } else {  // two bf16 a word, the first in the low half
-#pragma unroll
-      for (int i = 0; i < kBytes / 4; ++i) {
-        v[2 * i] = __uint_as_float(u[i] << 16);
-        v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-      }
-    }
-  }
-};
 
 // The row's stats and partials from the block's reductions
 __device__ __forceinline__ void wide_put_row(int row, int t, float off,
@@ -805,14 +767,8 @@ cudaError_t wide_fwd(const void* a, const int* tc, float* off, float* ssum,
                      float* pt, float* part_loss, int* part_cnt, float* loss,
                      int* cnt, int N, int S, cudaStream_t stream) {
   const T* at = static_cast<const T*>(a);
-  // the widest load every row allows: the lowest set bit of (base | row
-  // bytes | 16), as make_view decides
-  const unsigned long long bits = reinterpret_cast<unsigned long long>(a) |
-                                  static_cast<unsigned long long>(S) *
-                                      sizeof(T) |
-                                  16ull;
   cudaError_t err;
-  switch (static_cast<int>((bits & (~bits + 1)) / sizeof(T))) {
+  switch (row_vec_elems(a, static_cast<size_t>(S) * sizeof(T), sizeof(T))) {
     case 8:
       if constexpr (sizeof(T) == 2) {
         err = wide_fwd_e<T, 8>(at, tc, off, ssum, pt, part_loss, part_cnt, N,

@@ -1,13 +1,16 @@
 // What the classification tails share (softmax_ce.cu: logits in the
 // kernel, K3; softmax_ce_wide.cu: logits from a product outside, K4;
 // softmax_ce_plain.cu: the plain tail from materialized logits, K5): the
-// reference's constants and safeExp, the row reductions of a thread group
-// that owns one row (K4f, K5f), and the fixed-order reduction of the
-// per-row or per-block loss and count partials.
+// reference's constants and safeExp, the vector load of a row and its
+// width rule, the row reductions of a thread group that owns one row (K4f,
+// K5f), and the fixed-order reduction of the per-row or per-block loss and
+// count partials.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace {
 
@@ -20,6 +23,56 @@ __device__ __forceinline__ float safe_exp(float x) {
   if (x <= kLogZero) return 0.0f;
   if (x >= kCeExpLimit) return kRealMax;
   return expf(x);
+}
+
+// E consecutive elements of T as they lie in memory: one load of E *
+// sizeof(T) bytes (aligned to it), converted to f32 on use
+template <typename T, int E>
+struct RowVec {
+  static constexpr int kBytes = E * static_cast<int>(sizeof(T));
+  unsigned u[kBytes >= 4 ? kBytes / 4 : 1];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kBytes == 16) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      u[0] = q.x;
+      u[1] = q.y;
+      u[2] = q.z;
+      u[3] = q.w;
+    } else if constexpr (kBytes == 8) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      u[0] = q.x;
+      u[1] = q.y;
+    } else if constexpr (kBytes == 4) {
+      u[0] = *reinterpret_cast<const unsigned*>(p);
+    } else {  // one bf16, in the high half: exact in f32
+      u[0] = static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+             << 16;
+    }
+  }
+  __device__ __forceinline__ void to_f32(float (&v)[E]) const {
+    if constexpr (sizeof(T) == 4 || kBytes == 2) {
+#pragma unroll
+      for (int i = 0; i < E; ++i) v[i] = __uint_as_float(u[i]);
+    } else {  // two bf16 a word, the first in the low half
+#pragma unroll
+      for (int i = 0; i < kBytes / 4; ++i) {
+        v[2 * i] = __uint_as_float(u[i] << 16);
+        v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+      }
+    }
+  }
+};
+
+// The widest vector (in elements of elem bytes, up to 16 bytes) that every
+// row of a [rows, row_bytes / elem] array at base allows: the lowest set
+// bit of (base | row bytes | 16), as make_view decides (K4f's loads; K5f's
+// loads of the logits and stores of p)
+inline int row_vec_elems(const void* base, size_t row_bytes, size_t elem) {
+  const unsigned long long bits = reinterpret_cast<unsigned long long>(base) |
+                                  static_cast<unsigned long long>(row_bytes) |
+                                  16ull;
+  return static_cast<int>((bits & (~bits + 1)) / elem);
 }
 
 // Reductions over the kWarps warps that own one row: one warp (kWarps ==

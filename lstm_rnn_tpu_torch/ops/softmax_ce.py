@@ -47,7 +47,9 @@ in csrc/softmax_ce_plain.cu, the tail of --remat_blocks training
 the softmax layer's product outside, under autograd:
 
 - `softmax_ce_fwd`: the loss, the count, and p [N, S] in the storage dtype
-  when the caller trains (want_p); the count from the f32 p;
+  when the caller trains (want_p); the count from the f32 p; one read of
+  each row into registers, a warp or the block a row (`plain_fwd_plan`
+  mirrors the launch);
 - `softmax_ce_bwd`: dz = g p (onehot (-1/p_c) - s), masked, from the
   stored p, in f32 (a's dtype).
 
@@ -770,6 +772,45 @@ def plain_fwd_reference(a, targets,
     loss, cnt, _ = _loss_count(p, targets)
     return loss, cnt, (p.to(storage_dtype(compute_dtype)) if want_p
                        else None)
+
+
+# K5f's bodies (csrc/softmax_ce_plain.cu: kPlainThreads, kWarpRowMaxS,
+# kWarpHoldNarrow, kWarpHold, kBlockHold; a CPU test reads them): a warp a
+# row, holding up to 8 values a lane up to 256 classes and 32 up to 1,024;
+# the 256-thread block a row, holding up to 40 values a thread, up to
+# 10,240; three passes over wider rows
+_PLAIN_THREADS, _PLAIN_WARP_MAX_S = 256, 1024
+_PLAIN_WARP_HOLD_NARROW, _PLAIN_WARP_HOLD, _PLAIN_BLOCK_HOLD = 8, 32, 40
+
+
+def _row_vec_elems(addr: int, row_bytes: int, elem: int) -> int:
+    """softmax_common.cuh's row_vec_elems: the widest vector, in elements
+    of `elem` bytes and up to 16 bytes, that every row allows: the lowest
+    set bit of (base | row bytes | 16)."""
+    bits = addr | row_bytes | 16
+    return (bits & -bits) // elem
+
+
+def plain_fwd_plan(S: int, a_addr: int, p_addr: int | None = None,
+                   p_itemsize: int = 4) -> tuple[str, int, int]:
+    """K5f's launch over rows of S classes, as softmax_ce_plain.cu's
+    plain_fwd decides it: (body, hold, E). body is "warp" or "block" (the
+    row held in registers, `hold` values a thread) or "passes" (hold 0);
+    E the f32 logits a vector load (and p's values a store): the widest
+    that the base and row pitch of a (at a_addr) and of p (at p_addr, None
+    without p) allow."""
+    if S <= 32 * _PLAIN_WARP_HOLD_NARROW:
+        body, hold = "warp", _PLAIN_WARP_HOLD_NARROW
+    elif S <= _PLAIN_WARP_MAX_S:
+        body, hold = "warp", _PLAIN_WARP_HOLD
+    elif S <= _PLAIN_THREADS * _PLAIN_BLOCK_HOLD:
+        body, hold = "block", _PLAIN_BLOCK_HOLD
+    else:
+        body, hold = "passes", 0
+    E = _row_vec_elems(a_addr, 4 * S, 4)
+    if p_addr is not None:
+        E = min(E, _row_vec_elems(p_addr, p_itemsize * S, p_itemsize))
+    return body, hold, min(E, 4)
 
 
 def _check_logits(a, targets):

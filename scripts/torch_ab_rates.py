@@ -8,13 +8,14 @@ Each directory holds `chip_smoke.py` and its `lstm_rnn_tpu_torch/`
 package (for example the parent commit unpacked with `git archive` into a
 directory .gitignore lists). The checkouts run in turns, parent, change,
 change, parent, each in its own process (each builds its own kernel
-library), and each runs its own chip_smoke.py's rate phases: the TIMIT
-and LVCSR training steps (phases 8 and 12), the sequence-parallel step on
-four blocks of one card beside the single-device step (phase 20), and the
---remat_blocks steps with their peak memory (phase 25), f32 and bf16;
-PHASES (for example 8,12) runs only those of the four. Each line is
-prefixed by the run's label. Prints the card's name and
-power limit first. Imports torch and the port only.
+library), and each runs its own chip_smoke.py's rate phases: serving
+over a TIMIT-shaped corpus (phase 5), the TIMIT and LVCSR training steps
+(phases 8 and 12), streaming in 64-frame chunks (phase 17), the
+sequence-parallel step on four blocks of one card beside the
+single-device step (phase 20), and the --remat_blocks steps with their
+peak memory (phase 25), f32 and bf16; PHASES (for example 8,12) runs only
+those of the six. Each line is prefixed by the run's label. Prints the
+card's name and power limit first. Imports torch and the port only.
 """
 
 import contextlib
@@ -22,6 +23,7 @@ import io
 import os
 import subprocess
 import sys
+import tempfile
 
 
 def worker(root, label, phases):
@@ -34,7 +36,16 @@ def worker(root, label, phases):
     _build.load()
     card = cs.card_line()
     out = io.StringIO()
-    runs = {"8": lambda: cs.train_rates(torch, card),
+
+    def serving():
+        with tempfile.TemporaryDirectory(prefix="ab_rates_") as workdir:
+            cs.forward_rates(torch, cs.write_inputs(workdir)[0], card)
+
+    def streaming():
+        with torch.inference_mode():
+            cs.stream_rates(torch, card)
+    runs = {"5": serving, "17": streaming,
+            "8": lambda: cs.train_rates(torch, card),
             "12": lambda: cs.lvcsr_rates(torch, card),
             "20": lambda: cs.sp_rates(torch, card, [cs.sp_mesh(torch)]),
             "25": lambda: cs.remat_rates_memory(torch, card)}
@@ -51,7 +62,7 @@ def main():
         worker(*sys.argv[2:5])
         return 0
     parent, change = sys.argv[1:3]
-    phases = sys.argv[3] if len(sys.argv) > 3 else "8,12,20,25"
+    phases = sys.argv[3] if len(sys.argv) > 3 else "5,8,12,17,20,25"
     subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"], check=True)
     for root, label in ((parent, "parent-1"), (change, "change-1"),

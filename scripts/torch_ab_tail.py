@@ -23,6 +23,10 @@ f32 and bf16, on operands already in the storage dtype:
   call computes K4b's function);
 - K4's two products outside its kernels as each checkout routes them:
   the logits (`wide_logits`) and dh (`_wide_dh`);
+- K5f (`softmax_ce_fwd`, want_p on) at N = 25,000, S = 183 and 10,112,
+  on f32 logits (N(0, 9)), beside `F.cross_entropy(a, t, sum,
+  ignore_index=-1)`, and K5b (`softmax_ce_bwd`) on K5f's p (no one call
+  computes its function);
 
 each as device time per call from the profiler (the kernels of the call;
 the library call's kernels summed) and as CUDA events around 20 calls
@@ -84,10 +88,12 @@ def worker(root, label):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-        elif name and re.search(r"(ce|wide)_fwd_kernel|wide_(dz|bwd_\w+)_"
-                                r"kernel|pb_\w+_kernel|ce_dz_kernel", name) \
+        elif name and re.search(r"(ce|wide|plain)_fwd_kernel|wide_(dz|bwd_"
+                                r"\w+)_kernel|pb_\w+_kernel|ce_dz_kernel|"
+                                r"plain_bwd_kernel", name) \
                 and ("spill" in line or "registers" in line):
-            short = re.sub(r".*?((ce|wide|pb)_\w+_kernel)", r"\1", name)[:60]
+            short = re.sub(r".*?((ce|wide|pb|plain)_\w+_kernel)", r"\1",
+                           name)[:60]
             print(f"{label} {short}: {line.strip()[:90]}")
 
     def show(what, fn, lib=None):
@@ -111,9 +117,19 @@ def worker(root, label):
                            dtype=torch.int32)
         tc[::10] = -1
         tl = tc.long()
+        a5 = torch.randn(N, S, device="cuda", generator=gen) * 3
         with torch.no_grad():
             for dt in (torch.float32, torch.bfloat16):
                 name = str(dt)[6:]
+                show(f"K5f {name} [N={N} S={S}]",
+                     lambda: sc.softmax_ce_fwd(a5, tc, dt),
+                     lambda: F.cross_entropy(a5, tl, reduction="sum",
+                                             ignore_index=-1))
+                p5 = sc.softmax_ce_fwd(a5, tc, dt)[2]
+                g5 = torch.tensor(1.0, device="cuda")
+                show(f"K5b {name} [N={N} S={S}]",
+                     lambda: sc.softmax_ce_bwd(p5, tc, g5))
+                del p5
                 if S == 183:
                     hs, Ws, bs = h2.to(dt), W.to(dt), b.to(dt)
                     show(f"K3f {name} [N={N} P={P} S={S}]",
@@ -150,7 +166,7 @@ def worker(root, label):
                     show(f"dh product {name}",
                          lambda: sc._wide_dh(dz, W, h2.dtype, dt))
                     del a, dz
-        del h2, W
+        del h2, W, a5
         torch.cuda.empty_cache()
 
 

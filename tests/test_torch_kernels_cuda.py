@@ -738,15 +738,25 @@ PLAIN_DZ_REL = 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(70, 7), (1000, 183), (1000, 1025),
-                                   (2500, 10112)])
-def test_plain_tail_matches_twin(shape, dtype):
-    """K5f and K5b against their twins, one warp per row (S <= 1024) and
-    one block per row above; dummy rows, a tied maximum and a row whose
-    exp sum overflows."""
+@pytest.mark.parametrize("shape, offset", [
+    ((70, 7), 0), ((1000, 183), 0), ((1000, 256), 0), ((1000, 257), 0),
+    ((1000, 1024), 0), ((1000, 1025), 0),
+    ((2500, 10112), 0), ((300, 10112), 1), ((300, 10111), 0),
+    ((300, 10240), 0), ((300, 10241), 0)])
+def test_plain_tail_matches_twin(shape, offset, dtype):
+    """K5f and K5b against their twins, one warp per row (S <= 1024: 8
+    values a lane up to 256, 32 above), one block per row holding it in
+    registers (S <= 10,240) and three passes
+    above, at each body's edges; 16-byte vectors (S = 10,112), an odd
+    pitch (10,111: one value a vector) and logits 4 bytes off 16-byte
+    alignment (a view into a flat buffer at offset 1); dummy rows, a tied
+    maximum and a row whose exp sum overflows. A second launch gives the
+    same bits; the tied row counts its first maximum only."""
     N, S = shape
-    g = torch.Generator("cuda").manual_seed(N + S)
-    a = torch.randn(N, S, device="cuda", generator=g) * 3
+    g = torch.Generator("cuda").manual_seed(N + S + offset)
+    buf = torch.randn(N * S + offset, device="cuda", generator=g) * 3
+    a = buf[offset:].view(N, S)
+    assert a.is_contiguous() and a.storage_offset() == offset
     tc = torch.randint(0, S, (N,), device="cuda", generator=g,
                        dtype=torch.int32)
     tc[::7] = -1
@@ -755,17 +765,32 @@ def test_plain_tail_matches_twin(shape, dtype):
     tc[1] = 2
     a[2] = -3e30
     a[2, 0] = a[2, S - 1] = 0.0
+    sd = lstm_cell.storage_dtype(dtype)
+    body = "warp" if S <= 1024 else "block" if S <= 10240 else "passes"
+    E = 1 if offset or S % 2 else 4 if S % 4 == 0 else 2
+    assert sc.plain_fwd_plan(S, a.data_ptr(), 1 << 20, sd.itemsize)[::2] == (
+        body, E)
     loss, cnt, p = sc.softmax_ce_fwd(a, tc, dtype)
+    loss2, cnt2, p2 = sc.softmax_ce_fwd(a, tc, dtype)
     loss_r, cnt_r, p_r = sc.plain_fwd_reference(a, tc, dtype)
     loss0, cnt0, p0 = sc.softmax_ce_fwd(a, tc, dtype, want_p=False)
     torch.cuda.synchronize()
-    assert p.dtype == lstm_cell.storage_dtype(dtype) and p0 is None
+    assert p.dtype == sd and p0 is None
+    assert torch.equal(p, p2) and loss2.item() == loss.item()
+    assert cnt2.item() == cnt.item()
     assert loss0.item() == loss.item() and cnt0.item() == cnt.item()
     assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
     assert abs(cnt.item() - cnt_r.item()) <= 1
     assert _elem_rel(p, p_r) <= P_REL[dtype], _elem_rel(p, p_r)
     for wrong in (torch.zeros_like(p_r), p_r.roll(1, dims=1)):
         assert _elem_rel(wrong, p_r) > P_REL[dtype]
+    # the tied row alone: its first maximum (2) counts, its second (4) not
+    one = a[1:2].clone()
+    for t, want in ((2, 1), (4, 0)):
+        tt = torch.tensor([t], device="cuda", dtype=torch.int32)
+        _, c1, p1 = sc.softmax_ce_fwd(one, tt, dtype)
+        torch.cuda.synchronize()
+        assert p1[0, 2] == p1[0, 4] and c1.item() == want
     gl = torch.tensor(0.37, device="cuda")
     dz = sc.softmax_ce_bwd(p, tc, gl)
     dz_r = sc.plain_dz_reference(p, tc, gl)

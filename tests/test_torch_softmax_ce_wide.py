@@ -281,8 +281,9 @@ def _rn32(q):
 
 
 def test_k3f_division_is_correctly_rounded():
-    """K3f's and K4b's p = e / sum (csrc/softmax_ce.cu ce_div, and
-    csrc/softmax_ce_wide.cu's bwd_dz from the row's 1 / sum): q = e *
+    """K3f's, K4b's and K5f's p = e / sum (csrc/softmax_ce.cu ce_div,
+    csrc/softmax_ce_wide.cu's bwd_dz from the row's 1 / sum, and
+    csrc/softmax_ce_plain.cu's plain_p from plain_row's): q = e *
     RN(1/s), then one FMA correction from the exact remainder,
     fma(fma(-q, s, e), inv, q), equals the correctly rounded quotient
     e / s for 0 < e <= s with a normal quotient; each FMA rounds once,
@@ -295,6 +296,10 @@ def test_k3f_division_is_correctly_rounded():
     assert "const float rs = __frcp_rn(sum);" in wide
     assert "const float q = ex * c0[k].z;" in wide
     assert "fmaf(fmaf(-q, c0[k].y, ex), c0[k].z, q)" in wide
+    plain = (CSRC / "softmax_ce_plain.cu").read_text()
+    assert "r.rs = finite ? __frcp_rn(r.sum) : 0.0f;" in plain
+    assert "const float q = e * r.rs;" in plain
+    assert "fmaf(fmaf(-q, r.sum, e), r.rs, q)" in plain
     rng = np.random.RandomState(8)
     f32 = lambda x: Fraction(float(np.float32(x)))  # noqa: E731
     for _ in range(4000):
