@@ -154,7 +154,32 @@ weights from a seed, and holds every kernel against its plain twin:
 29. the bf16 softmax layer's product and its two gradient products on
     the tensor cores: no f32 library GEMM in a profile of serving's
     softmax and one backward, the values of round_operand's f32 matmul,
-    and the product's device time beside that route's.
+    and the product's device time beside that route's;
+30. the three CHiME recipes (examples/speech_autoencoding_chime,
+    examples/speech_recognition_chime/{no_,}subsampling: 39 inputs, cells
+    78, 128, 150 and 51 per direction, softmax(51) over 102 units) at
+    their published widths: each width's cluster plan (it must fit), K0,
+    K1 and K2 at every layer's shape and K3f/K3b at the recognition tail
+    against their twins at phase 3/4's tolerances, with their times; then
+    `cli.main(--train true)` with each recipe's config.cfg and
+    network.jsn (normal init, input noise 0.1 or 0.6, 50 parallel
+    sequences, stochastic, shuffled fractions) on synthetic CHiME-shaped
+    corpora (150 train and 50 val sequences of 200-700 frames), 2 epochs,
+    f32 and bf16: the epoch table, the exact launches, the weights moved,
+    the trained net serving in forward mode; the control, the same run
+    with --input_noise_sigma 0, must train to other errors;
+31. weight noise on the card: the Trainer's first draw equals numpy's
+    stream bit for bit; one noisy SGD step on the TIMIT recipe batch
+    through the kernel route against the scan route, SP on 2 blocks of
+    cuda:0 and --remat_blocks 4 against the kernel route, with the step
+    at the clean weights as the control that must fail; the step's
+    frames/s with --weight_noise_sigma 0.01 beside the step without it
+    (TIMIT and CHiME no_subsampling, f32 and bf16), the host draw alone,
+    and a profile of one noisy step of each (device busy against wall);
+32. `cli.main --init_rng currennt` on the TIMIT network.jsn (no weights)
+    with --learning_rate 0: the saved weights are the host replay of the
+    reference's stream (utils/rng_compat.py) bit for bit, and the run
+    launched its kernels.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -631,9 +656,8 @@ def lstm_cost(kind, P, lengths, dtype, need_dx=True, T=None, D=D, H=H):
     return nbytes, flops
 
 
-def tail_cost(kind, P, dtype):
+def tail_cost(kind, P, dtype, N=N_TAIL, S=S_STATES):
     es = 2 if dtype == "bfloat16" else 4
-    N, S = N_TAIL, S_STATES
     if kind == "softmax_ce_proj_fwd":
         return (N * P * es + P * S * es + S * 4 + N * 4 + N * S * es + 8,
                 2 * N * P * S)
@@ -848,11 +872,12 @@ def train_kernels_vs_twins(torch):
     return res
 
 
-def recipe_batch(torch, T=T_TRAIN, full=True, seed=0, states=S_STATES):
+def recipe_batch(torch, T=T_TRAIN, full=True, seed=0, states=S_STATES,
+                 inputs=117):
     """bench.py's fraction: N(0, 1) inputs, random targets of `states`
     states, every row full (or ragged lengths 300..T with full=False)."""
     rng = np.random.RandomState(seed)
-    x = rng.randn(T, B, 117).astype(np.float32)
+    x = rng.randn(T, B, inputs).astype(np.float32)
     lengths = np.full(B, T) if full else rng.randint(300, T + 1, B)
     pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
     tc = rng.randint(0, states, (T, B)).astype(np.int32)
@@ -861,7 +886,8 @@ def recipe_batch(torch, T=T_TRAIN, full=True, seed=0, states=S_STATES):
             torch.from_numpy(pt).cuda()), int(lengths.sum())
 
 
-def make_trainer(backend, dtype, lvcsr=False):
+def make_trainer(backend, dtype, lvcsr=False, **kw):
+    """The recipe step's Trainer (kw: weight_noise_sigma, seed, seq_mesh)."""
     from lstm_rnn_tpu_torch.models.flagship import (build_lvcsr_network,
                                                     build_timit_network)
     from lstm_rnn_tpu_torch.trainer import Trainer
@@ -869,7 +895,7 @@ def make_trainer(backend, dtype, lvcsr=False):
     net = build(seed=3, backend=backend, compute_dtype=dtype)
     # no device named: the Trainer takes the card
     return Trainer(net, None, learning_rate=1e-4, momentum=0.9,
-                   hybrid_online_batch=True)
+                   hybrid_online_batch=True, **kw)
 
 
 def step_kernel_vs_scan(torch):
@@ -990,11 +1016,11 @@ def gemm_total(counts):
     return sum(v for k, v in counts.items() if k.startswith("gemm:"))
 
 
-def check_counts(counts, expect, bf16=False):
+def check_counts(counts, expect, bf16=False, layers=5):
     """Every kernel's launches on a path's run, exactly as expected, and
     the GEMM engine's per product as the kernels' imply (bf16: the run's
-    compute dtype)."""
-    expect = {**expect, **gemm_expect(expect, bf16=bf16)}
+    compute dtype; layers: the LSTM layers of the stack)."""
+    expect = {**expect, **gemm_expect(expect, layers=layers, bf16=bf16)}
     if counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
 
@@ -1115,10 +1141,19 @@ def train_rates(torch, card):
 def profile_step(torch, lvcsr=False, remat_blocks=0, dtype="float32"):
     """Device time by kernel over one kernel-path training step (f32, or
     `dtype`), with --remat_blocks when remat_blocks > 0."""
-    from torch.profiler import ProfilerActivity, profile
     batch, _ = recipe_batch(torch, states=S_LVCSR if lvcsr else S_STATES)
     tr = make_trainer("auto", dtype, lvcsr)
     tr.net.remat_blocks = remat_blocks
+    return profile_trainer_step(
+        torch, tr, batch, f"one {'LVCSR' if lvcsr else 'TIMIT'} training "
+        f"step T={T_TRAIN} {'f32' if dtype == 'float32' else 'bf16'}"
+        + (f" remat_blocks={remat_blocks}" if remat_blocks else ""), dtype)
+
+
+def profile_trainer_step(torch, tr, batch, what, dtype="float32"):
+    """Device time by kernel over the third of three train_step calls of
+    `tr` on `batch`, after a warm-up step: busy against wall."""
+    from torch.profiler import ProfilerActivity, profile
     tr.train_step(*batch)
     torch.cuda.synchronize()
     # steps 1 and 2 open the trace (a window's first launches go
@@ -1133,10 +1168,7 @@ def profile_step(torch, lvcsr=False, remat_blocks=0, dtype="float32"):
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
             prof.step()
-    events = report_profile(
-        prof, wall_us, f"one {'LVCSR' if lvcsr else 'TIMIT'} training step "
-        f"T={T_TRAIN} {'f32' if dtype == 'float32' else 'bf16'}"
-        + (f" remat_blocks={remat_blocks}" if remat_blocks else ""))
+    events = report_profile(prof, wall_us, what)
     if events and dtype == "bfloat16":
         # bf16 mode runs every product on the tensor cores: no library
         # GEMM on the FP32 pipes (cuBLAS's sgemm / ...f32f32...ffma)
@@ -1146,6 +1178,7 @@ def profile_step(torch, lvcsr=False, remat_blocks=0, dtype="float32"):
               f"{f32 or 'none'}")
         if f32:
             raise AssertionError(f"a bf16 step ran f32 GEMMs: {f32}")
+    return events, wall_us
 
 
 def dev_us(e):
@@ -3147,6 +3180,586 @@ def bf16_feedforward(torch):
         raise AssertionError("the bf16 feedforward products failed")
 
 
+# ------------------------------------------------ CHiME and noise (30-32)
+# the three CHiME recipes at their published widths: 39 inputs -> BLSTM
+# (156, 256, 156) -> 39 regression outputs (autoencoding), and BLSTM(156,
+# 300, 102) -> softmax(51), with feedforward_tanh(39) and (75) between the
+# BLSTMs in the subsampling net
+CHIME = {"autoencoding": os.path.join(REPO, "examples",
+                                      "speech_autoencoding_chime"),
+         "no_subsampling": os.path.join(REPO, "examples",
+                                        "speech_recognition_chime",
+                                        "no_subsampling"),
+         "subsampling": os.path.join(REPO, "examples",
+                                     "speech_recognition_chime",
+                                     "subsampling")}
+CHIME_IN, CHIME_STATES = 39, 51
+# the synthetic corpora's longest sequence (lengths 200-700), the longest
+# fraction of a CHiME run
+T_CHIME = 700
+# every LSTM layer of the three nets: (P, H per direction, dx); the
+# subsampling net's feedforward_tanh layers give P = 39 and 75
+CHIME_LAYERS = [(39, 78, False), (156, 128, True), (256, 78, True),
+                (156, 150, True), (300, 51, True), (39, 150, True),
+                (75, 51, True)]
+# the recognition nets' softmax(51) over the last BLSTM's 102 units
+CHIME_P, CHIME_N = 102, T_CHIME * B
+# weight noise: the rate phase's sigma (31d), and the steps' (31b-c), at
+# which the step taken at the clean weights must fail STEP_TOL
+WN_SIGMA, WN_CHECK_SIGMA = 0.01, 0.05
+
+
+def timed(torch, fn):
+    """(fn(), its device milliseconds by CUDA events around one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def chime_plans(torch):
+    """Phase 30a: the cluster of each CHiME width (n = 5, 8, 10 and 4 CTAs
+    at H = 78, 128, 150 and 51, with uneven slices), the library's plan
+    beside ops/lstm_cell.py's mirror; each must fit the card."""
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    for width in sorted({h for _, h, _ in CHIME_LAYERS}):
+        for kind in ("fwd", "bwd"):
+            for name in ("float32", "bfloat16"):
+                dt = getattr(torch, name)
+                card = lc.recurrence_plan_on_card(width, dt, kind)
+                mine = lc.recurrence_plan(width, dt, kind)
+                phase("chime", f"plan {kind} H={width} {name}: cluster of "
+                      f"{card['n']} (slices {mine['slices']}), "
+                      f"{card['threads']} threads, {card['smem']:,} B "
+                      f"shared a CTA, W_rec "
+                      f"{'on chip' if card['w_on_chip'] else 'from L2'}; "
+                      f"{card['active_clusters']} such clusters at once")
+                if any(card[k] != mine[k] for k in ("n", "threads", "smem",
+                                                     "w_on_chip")):
+                    raise AssertionError(f"the plan's mirror disagrees with "
+                                         f"the kernel library: {mine} vs "
+                                         f"{card}")
+                if not card["active_clusters"] > 0:
+                    raise AssertionError(f"no cluster of H={width} fits")
+
+
+def chime_layer(torch, P, H, seed):
+    """One CHiME BLSTM layer's operands at T_CHIME, B = 50: +-0.1 weights,
+    N(0, 1) inputs, the corpus's lengths (200-700) with a full row, a row
+    of length 1 and an empty kernel block; dh for the BPTT."""
+    rng = np.random.RandomState(seed)
+
+    def u(*s):
+        return torch.tensor(rng.uniform(-0.1, 0.1, s), dtype=torch.float32,
+                            device="cuda")
+    x = torch.tensor(rng.randn(T_CHIME, B, P), dtype=torch.float32,
+                     device="cuda")
+    lengths = rng.randint(200, T_CHIME + 1, B)
+    lengths[0], lengths[1], lengths[4:8] = T_CHIME, 1, 0
+    dh = torch.tensor(rng.randn(T_CHIME, B, D * H), dtype=torch.float32,
+                      device="cuda")
+    return (x, u(D, P, 4 * H), u(D, H, 4 * H), u(D, 3, H), u(D, 4 * H),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda")), dh
+
+
+def chime_kernels_vs_twins(torch):
+    """Phase 30a: K0, K1 and K2 at every CHiME layer's width and K3f/K3b
+    at the recognition tail (S = 51 over P = 102, below one 64-column
+    wgmma chunk), f32 and bf16, against their twins at phase 3/4's
+    tolerances, with their times (CUDA events; the twins one call) and
+    K3's on the device beside one PyTorch call."""
+    import torch.nn.functional as F
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    res = {}
+    for P, H, need_dx in CHIME_LAYERS:
+        args, dh = chime_layer(torch, P, H, seed=P * 1000 + H)
+        lens = args[5].cpu().numpy()
+        shape = f"P={P} H={H}"
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            got = lc.lstm_scan_fused(*args, 1.0, dt)
+            want, plain0 = timed(torch, lambda: lc.lstm_scan_reference(
+                *args, 1.0, dt))
+            err0 = (got.float() - want.float()).abs().max().item()
+            ms0 = time_ms(torch, lambda: lc.lstm_scan_fused(*args, 1.0, dt),
+                          5)
+            got = lc.lstm_fwd_save(*args, 1.0, dt)
+            want, plain1 = timed(torch, lambda: lc.lstm_scan_reference(
+                *args, 1.0, dt, save=True))
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            rel1, err1 = max(e[0] for e in errs), max(e[1] for e in errs)
+            ms1 = time_ms(torch, lambda: lc.lstm_fwd_save(*args, 1.0, dt), 5)
+            fin = all(torch.isfinite(g.float()).all() for g in got)
+            h, c, g = got
+            bwd = (args[0], args[1], args[2], args[3], args[5], h, c, g, dh,
+                   1.0, True, dt, need_dx)
+            got = lc.lstm_bwd(*bwd)
+            want, plain2 = timed(torch, lambda: lc.lstm_scan_bwd_reference(
+                *bwd))
+            errs = [rel_err(a, b) if a is not None else (0.0, 0.0)
+                    for a, b in zip(got, want)]
+            rel2, err2 = max(e[0] for e in errs), max(e[1] for e in errs)
+            fin = fin and all(torch.isfinite(a).all() for a in got
+                              if a is not None)
+            ms2 = time_ms(torch, lambda: lc.lstm_bwd(*bwd), 5)
+            del got, want, h, c, g
+            for k, err, ms, plain, need in (
+                    ("lstm_fwd", err0, ms0, plain0, False),
+                    ("lstm_fwd_save", err1, ms1, plain1, False),
+                    ("lstm_bwd", err2, ms2, plain2, need_dx)):
+                res[(k, shape, name)] = dict(
+                    err=err, ms=ms, plain_ms=plain,
+                    cost=lstm_cost(k, P, lens, name, need, T=T_CHIME, H=H))
+            phase("chime", f"{shape} dx={need_dx} {name} [T={T_CHIME} "
+                  f"B={B}]: K0 max_abs_err={err0:.3e} (tol {TOL[name]:.0e}) "
+                  f"{ms0:.3f} ms; K1 rel={rel1:.3e} (tol "
+                  f"{REL['lstm_fwd_save'][name]:.1e}) {ms1:.3f} ms; K2 "
+                  f"rel={rel2:.3e} (tol {REL['lstm_bwd'][name]:.1e}) "
+                  f"{ms2:.3f} ms; twins {plain0:.0f} / {plain1:.0f} / "
+                  f"{plain2:.0f} ms")
+            if not (err0 <= TOL[name] and rel1 <= REL["lstm_fwd_save"][name]
+                    and rel2 <= REL["lstm_bwd"][name] and fin):
+                raise AssertionError(f"a CHiME-width LSTM kernel disagrees "
+                                     f"with its twin ({shape}, {name})")
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 30)
+    P, N, S = CHIME_P, CHIME_N, CHIME_STATES
+    h2 = torch.randn(N, P, device="cuda", generator=gen) * 0.5
+    W = (torch.rand(P, S, device="cuda", generator=gen) - 0.5) * 0.2
+    b = (torch.rand(S, device="cuda", generator=gen) - 0.5) * 0.2
+    tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    tc[::9] = -1  # dummy frames
+    g = torch.tensor(1.0, device="cuda")
+    shape = f"S={S} P={P}"
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        hs, Ws, bs = h2.to(dt), W.to(dt), b.to(dt)
+        tl = tc.long()
+        loss, cnt, p = sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0, dt)
+        (loss_r, cnt_r, p_r), plain_f = timed(
+            torch, lambda: sc.softmax_ce_fwd_reference(hs, Ws, b, tc, 1.0, dt))
+        rel = elem_rel(p, p_r)
+        ctrl = elem_rel(p_r.roll(1, dims=1), p_r)
+        lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
+
+        def k3f():
+            return sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0, dt)
+
+        def lib_f():
+            return F.cross_entropy(torch.addmm(bs, hs, Ws), tl,
+                                   reduction="sum", ignore_index=-1)
+        dev_f = sum(prof_ms(torch, [k3f], 20, expect=("ce_fwd",)).values())
+        lib_fd = sum(prof_ms(torch, [lib_f], 20).values())
+        ms_f = time_ms(torch, k3f, 10)
+        got = sc.softmax_ce_proj_bwd(p, h2, W, tc, g, 1.0, dt)
+        again = sc.softmax_ce_proj_bwd(p, h2, W, tc, g, 1.0, dt)
+        want, plain_b = timed(torch, lambda: sc.softmax_ce_bwd_reference(
+            p, h2, W, tc, g, 1.0, dt))
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        errs = [rel_err(a, c) for a, c in zip(got, want)]
+        brel, berr = max(e[0] for e in errs), max(e[1] for e in errs)
+
+        def k3b():
+            return sc.softmax_ce_proj_bwd(p, hs, Ws, tc, g, 1.0, dt)
+        dev_b = sum(prof_ms(torch, [k3b], 20, expect=("pb_dw",)).values())
+        ms_b = time_ms(torch, k3b, 10)
+        res[("softmax_ce_proj_fwd", shape, name)] = dict(
+            err=rel_err(p, p_r)[1], ms=dev_f or ms_f, events_ms=ms_f,
+            plain_ms=plain_f, library_ms=lib_fd or None,
+            cost=tail_cost("softmax_ce_proj_fwd", P, name, N, S))
+        res[("softmax_ce_proj_bwd", shape, name)] = dict(
+            err=berr, ms=dev_b or ms_b, events_ms=ms_b, plain_ms=plain_b,
+            library_ms=None,
+            cost=tail_cost("softmax_ce_proj_bwd", P, name, N, S))
+        phase("chime", f"K3f {shape} {name} [N={N}]: p elementwise rel "
+              f"{rel:.2e} (tol {P_REL[name]:.1e}; rolled-p control "
+              f"{ctrl:.2e}), loss rel {lrel:.2e}, count {cnt.item()} vs "
+              f"{cnt_r.item()}; on the device {fmt_ms(dev_f or None)}, "
+              f"F.cross_entropy(addmm) {fmt_ms(lib_fd or None)}; events "
+              f"{ms_f:.4f} ms; twin {plain_f:.2f} ms. K3b rel {brel:.2e} "
+              f"[{per_output(('dh', 'dW', 'db'), errs)}] (tol "
+              f"{REL['softmax_ce'][name]:.1e}), repeat bit for bit: {same};"
+              f" on the device {fmt_ms(dev_b or None)}, events {ms_b:.4f} "
+              f"ms; twin {plain_b:.2f} ms")
+        if not ctrl > P_REL[name]:
+            raise AssertionError("the p check passes a rolled p")
+        if not (rel <= P_REL[name] and lrel <= 1e-5
+                and abs(cnt.item() - cnt_r.item()) <= 1
+                and brel <= REL["softmax_ce"][name] and same):
+            raise AssertionError(f"K3 disagrees with its twin at {shape}")
+    return res
+
+
+def write_chime_corpus(workdir):
+    """CHiME-shaped corpora (39 features, 150 train and 50 val sequences
+    of 200-700 frames): 51-class labels for the recognition nets, 39
+    regression targets (a clean version of the input) for the
+    autoencoder."""
+    from lstm_rnn_tpu_torch.data.netcdf3 import strings_to_chars, write_netcdf
+    rng = np.random.RandomState(SEED + 30)
+    paths = {}
+    for task in ("recognition", "autoencoding"):
+        for name, n_seq in (("train", 150), ("val", 50)):
+            lengths = rng.randint(200, T_CHIME + 1, n_seq)
+            total = int(lengths.sum())
+            x = rng.randn(total, CHIME_IN).astype(np.float32)
+            dims = {"numSeqs": n_seq, "numTimesteps": total,
+                    "inputPattSize": CHIME_IN, "maxSeqTagLength": 24}
+            if task == "recognition":
+                dims["numLabels"] = CHIME_STATES
+                target = ("targetClasses", ["numTimesteps"],
+                          rng.randint(0, CHIME_STATES, total).astype(np.int32))
+            else:
+                dims["targetPattSize"] = CHIME_IN
+                target = ("targetPatterns", ["numTimesteps",
+                                             "targetPattSize"],
+                          (0.5 * x + 0.1 * rng.randn(total, CHIME_IN)
+                           ).astype(np.float32))
+            path = os.path.join(workdir, f"chime_{task}_{name}.nc")
+            write_netcdf(path, dims, [
+                ("seqTags", ["numSeqs", "maxSeqTagLength"],
+                 strings_to_chars([f"{name}{i:04d}" for i in range(n_seq)],
+                                  24)),
+                ("seqLengths", ["numSeqs"], lengths.astype(np.int32)),
+                ("inputs", ["numTimesteps", "inputPattSize"], x), target])
+            paths[(task, name)] = (path, lengths)
+    return paths
+
+
+def chime_cli(torch, workdir):
+    """Phase 30b: cli.main(--train true) with each CHiME recipe's
+    config.cfg and network.jsn (normal init, input noise 0.1 or 0.6,
+    parallel_sequences 50, stochastic, shuffled fractions), 2 epochs, f32
+    and bf16: the epoch table, the exact launches (per training fraction
+    3 K1 + 3 K2, per val fraction 3 K0; K3f/K3b per fraction for the
+    recognition nets, none for the autoencoder), the weights moved, and
+    the trained f32 net serves the val set in forward mode. The control:
+    no_subsampling f32 with --input_noise_sigma 0 trains to other
+    errors. Returns each kernel's launches over these runs."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.network import Network
+    from lstm_rnn_tpu_torch.writers import read_htk
+    paths = write_chime_corpus(workdir)
+    n_train = DataSet([paths[("recognition", "train")][0]],
+                      parallel_sequences=50).num_fractions()
+    n_val = DataSet([paths[("recognition", "val")][0]],
+                    parallel_sequences=50).num_fractions()
+    totals, tables = {}, {}
+    here = os.getcwd()
+    runs = [(r, d, []) for r in CHIME for d in ("float32", "bfloat16")]
+    runs.append(("no_subsampling", "float32", ["--input_noise_sigma", "0"]))
+    for recipe, name, extra in runs:
+        rdir = CHIME[recipe]
+        task = "autoencoding" if recipe == "autoencoding" else "recognition"
+        (train_nc, train_len), (val_nc, val_len) = (paths[(task, "train")],
+                                                    paths[(task, "val")])
+        label = f"{recipe} {name}" + (" input_noise_sigma 0" if extra
+                                      else "")
+        rundir = os.path.join(workdir, "chime_" + label.replace(" ", "_"))
+        os.makedirs(rundir)
+        out = os.path.join(rundir, "trained.jsn")
+        args = [os.path.join(rdir, "config.cfg"), "--network",
+                os.path.join(rdir, "network.jsn"), "--train_file", train_nc,
+                "--val_file", val_nc, "--max_epochs", "2",
+                "--random_seed", str(SEED), "--compute_dtype", name,
+                "--save_network", out, *extra]
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0  # this CHiME run starts here
+        buf = io.StringIO()
+        os.chdir(rundir)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(args)
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        counts = {k: f.launches for k, f in w.items()}
+        text = buf.getvalue()
+        rows = [ln for ln in text.splitlines()
+                if ln.strip()[:1].isdigit() and "|" in ln]
+        for ln in rows:
+            phase("chime-cli", f"{label} |{ln}")
+        noise_line = [ln for ln in text.splitlines()
+                      if ln.startswith("Using input noise")]
+        if rc != 0 or len(rows) != 2 or bool(noise_line) == bool(extra):
+            print(text[-3000:])
+            raise AssertionError(f"cli (CHiME {label}) returned {rc}")
+        k3 = task == "recognition"
+        expect = {k: 0 for k in w if not k.startswith("gemm:")}
+        expect.update(lstm_fwd=3 * n_val * 2, lstm_fwd_save=3 * n_train * 2,
+                      lstm_bwd=3 * n_train * 2,
+                      softmax_ce_proj_fwd=(n_train + n_val) * 2 * k3,
+                      softmax_ce_proj_bwd=n_train * 2 * k3)
+        check_counts(counts, expect, bf16=name == "bfloat16", layers=3)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        cells = [ln.replace("%", " ").replace("|", " ").split()
+                 for ln in rows]
+        tables[label] = [float(c[3] if k3 else c[2]) for c in cells]
+        if not np.isfinite(tables[label]).all():
+            raise AssertionError(f"non-finite training error: {rows}")
+        start = Network.from_json_file(os.path.join(rdir, "network.jsn"),
+                                       input_size_override=CHIME_IN)
+        start.init_params(SEED, dist="normal", normal_sigma=0.1)
+        trained = Network.from_json_file(out)
+        moved = max(float(np.abs(trained.params[n][k]
+                                 - start.params[n][k]).max())
+                    for n in start.params for k in start.params[n])
+        phase("chime-cli", f"{label}: {wall:.1f} s wall for 2 epochs "
+              f"({n_train} train fractions of {len(train_len)} sequences, "
+              f"{int(train_len.sum())} frames; {n_val} val); "
+              f"{noise_line[0] if noise_line else 'no input noise'}; max "
+              f"|w - w0| = {moved:.3e}; launches "
+              + str({k: v for k, v in counts.items() if v}))
+        if not moved > 0:
+            raise AssertionError("training did not move the weights")
+        if name == "float32" and not extra:
+            outdir = os.path.join(rundir, "served")
+            run_cli(val_nc, out, outdir)
+            tags = [f"val{i:04d}" for i in range(len(val_len))]
+            if k3:
+                _, worst = read_outputs(outdir, tags, val_len, CHIME_STATES)
+                what = f"rows sum to 1 within {worst:.1e}"
+            else:
+                for tag, n in zip(tags, val_len):
+                    y, _, _ = read_htk(os.path.join(outdir, tag + ".htk"))
+                    if y.shape != (n, CHIME_IN) or not np.isfinite(y).all():
+                        raise AssertionError(f"{tag}: {y.shape}")
+                what = f"{CHIME_IN} finite outputs a frame"
+            phase("chime-cli", f"{label}: the trained net serves the val "
+                  f"set in forward mode: {len(tags)} HTK files, {what}")
+    noisy = tables["no_subsampling float32"]
+    clean = tables["no_subsampling float32 input_noise_sigma 0"]
+    phase("chime-cli", f"control: training errors with input noise 0.6 "
+          f"{noisy}, without {clean}")
+    if noisy[0] == clean[0] or noisy[1] == clean[1]:
+        raise AssertionError("input noise did not change the training "
+                             "errors")
+    return totals
+
+
+def noise_draw_on_card(torch):
+    """Phase 31a: the Trainer's first weight-noise draw on the card equals
+    numpy's RandomState(seed & 0x7FFFFFFF).normal, leaf by leaf in sorted
+    layer and key order, bit for bit."""
+    seed = 2 ** 32 - 7  # the mask matters
+    tr = make_trainer("auto", "float32", weight_noise_sigma=WN_SIGMA,
+                      seed=seed)
+    noise = tr._draw_noise()
+    torch.cuda.synchronize()
+    rng = np.random.RandomState(seed & 0x7FFFFFFF)
+    n = 0
+    for name in sorted(tr.params):
+        for k in sorted(tr.params[name]):
+            want = rng.normal(0.0, WN_SIGMA, tuple(tr.params[name][k].shape)
+                              ).astype(np.float32)
+            got = noise[name][k]
+            if not (got.is_cuda and np.array_equal(
+                    got.cpu().numpy().view(np.int32), want.view(np.int32))):
+                raise AssertionError(f"the draw of {name}/{k} is not numpy's")
+            n += want.size
+    phase("noise", f"the first weight-noise draw on the card ({n:,} normals "
+          f"over {sum(len(v) for v in tr.params.values())} leaves, seed "
+          f"{seed}): numpy's stream, bit for bit")
+
+
+def noisy_steps(torch):
+    """Phases 31b-c: one weight-noise SGD step (sigma WN_CHECK_SIGMA) on
+    the TIMIT recipe batch (T=500, B=50, ragged rows, f32) from the same
+    weights and the same draw, through the kernel route, the scan route,
+    SP on 2 blocks of cuda:0 and --remat_blocks 4: the loss and the update
+    of each against the kernel step's within STEP_TOL, and the exact
+    launches; the control, the kernel step at the clean weights, must
+    fail the update check against the noisy scan step."""
+    batch, _ = recipe_batch(torch, full=False, seed=31)
+    cuda0 = torch.device("cuda", 0)
+    w = wrappers()
+    runs = (("kernel", "auto", WN_CHECK_SIGMA, None, 0),
+            ("scan", "scan", WN_CHECK_SIGMA, None, 0),
+            ("control", "auto", 0.0, None, 0),
+            ("SP on 2 blocks of cuda:0", "auto", WN_CHECK_SIGMA,
+             [cuda0] * 2, 0),
+            ("remat K=4", "auto", WN_CHECK_SIGMA, None, 4))
+    out = {}
+    for label, backend, sigma, mesh, k in runs:
+        tr = make_trainer(backend, "float32", weight_noise_sigma=sigma,
+                          seed=SEED, seq_mesh=mesh)
+        tr.net.remat_blocks = k
+        before = [v.detach().clone() for v in tr._leaves(tr.params)]
+        for f in w.values():
+            f.launches = 0  # the step's run starts here
+        t0 = time.perf_counter()
+        err, _ = tr.train_step(*batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        upd = torch.cat([(v.detach() - b0).flatten()
+                         for v, b0 in zip(tr._leaves(tr.params), before)])
+        out[label] = (err.item(), upd, {n: f.launches for n, f in w.items()},
+                      wall)
+        del tr, before
+    l_k, u_k, _, _ = out["kernel"]
+    l_s, u_s, _, _ = out["scan"]
+
+    def rels(a, b):
+        return (abs(a[0] - b[0]) / abs(b[0]),
+                ((a[1] - b[1]).abs().max() / b[1].abs().max()).item())
+    zero = {n: 0 for n in w if not n.startswith("gemm:")}
+    expect = {"kernel": {**zero, "lstm_fwd_save": 5, "lstm_bwd": 5,
+                         "softmax_ce_proj_fwd": 1, "softmax_ce_proj_bwd": 1},
+              "SP on 2 blocks of cuda:0": {**zero,
+                                           "lstm_fwd_carry_save": 20,
+                                           "lstm_bwd_carry": 20},
+              "remat K=4": remat_expect(4)}
+    for label, ref in (("kernel", "scan"), ("control", "scan"),
+                       ("SP on 2 blocks of cuda:0", "kernel"),
+                       ("remat K=4", "kernel")):
+        lrel, urel = rels(out[label], out[ref])
+        loss, _, counts, wall = out[label]
+        phase("noise-step", f"one noisy TIMIT SGD step (sigma "
+              f"{WN_CHECK_SIGMA}, f32, T={T_TRAIN} B={B}) {label} vs {ref}: "
+              f"loss {loss:.6f} vs {out[ref][0]:.6f} (rel {lrel:.2e}, tol "
+              f"{STEP_TOL['loss']:.0e}); update rel {urel:.2e} (tol "
+              f"{STEP_TOL['update']:.0e}); {wall:.2f} s wall (first call); "
+              f"launches " + str({n: c for n, c in counts.items() if c}))
+        if label == "control":
+            if not urel > STEP_TOL["update"]:
+                raise AssertionError("the update check passes the step "
+                                     "taken at the clean weights")
+            continue
+        check_counts(counts, expect[label])
+        if not (lrel <= STEP_TOL["loss"] and urel <= STEP_TOL["update"]):
+            raise AssertionError(f"the noisy step ({label}) disagrees with "
+                                 f"the {ref} step")
+    del out
+    torch.cuda.empty_cache()
+
+
+def chime_trainer(recipe, dtype, **kw):
+    """A CHiME recipe's Trainer on the card: the recipe's network.jsn,
+    normal init (sigma 0.1) from a seed."""
+    from lstm_rnn_tpu_torch.network import Network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    net = Network.from_json_file(os.path.join(CHIME[recipe], "network.jsn"),
+                                 compute_dtype=dtype)
+    net.init_params(3, dist="normal", normal_sigma=0.1)
+    return Trainer(net, None, learning_rate=1e-5, momentum=0.9,
+                   hybrid_online_batch=True, **kw)
+
+
+def noisy_rates(torch, card):
+    """Phase 31d: the training step's frames/s with --weight_noise_sigma
+    0.01 beside the same step without it (T=500, B=50, every row full,
+    mean of 5 after a warm-up), TIMIT and CHiME no_subsampling, f32 and
+    bf16; the host draw alone; a profile of one noisy f32 step of each:
+    device busy against wall."""
+    nets = (("TIMIT", lambda d, **kw: make_trainer("auto", d, **kw),
+             recipe_batch(torch)),
+            ("CHiME no_subsampling",
+             lambda d, **kw: chime_trainer("no_subsampling", d, **kw),
+             recipe_batch(torch, states=CHIME_STATES, inputs=CHIME_IN)))
+    for what, make, (batch, frames) in nets:
+        for dtype in ("float32", "bfloat16"):
+            ms = {}
+            for sigma in (0.0, WN_SIGMA):
+                tr = make(dtype, weight_noise_sigma=sigma, seed=SEED)
+                tr.train_step(*batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    tr.train_step(*batch)
+                torch.cuda.synchronize()
+                ms[sigma] = 1e3 * (time.perf_counter() - t0) / 5
+            t0 = time.perf_counter()
+            for _ in range(5):
+                tr._draw_noise()
+            torch.cuda.synchronize()
+            draw = 1e3 * (time.perf_counter() - t0) / 5
+            n = sum(v.numel() for v in tr._leaves(tr.params))
+            phase("noise-rate", f"{what} train step {dtype}: clean "
+                  f"{frames / ms[0.0] * 1e3:,.0f} frames/s ({ms[0.0]:.1f} "
+                  f"ms), weight noise {WN_SIGMA} "
+                  f"{frames / ms[WN_SIGMA] * 1e3:,.0f} frames/s "
+                  f"({ms[WN_SIGMA]:.1f} ms); the draw alone {draw:.1f} ms "
+                  f"({n:,} normals) on {card}")
+            del tr
+        tr = make("float32", weight_noise_sigma=WN_SIGMA, seed=SEED)
+        events, wall_us = profile_trainer_step(
+            torch, tr, batch, f"one noisy {what} training step T={T_TRAIN}"
+            f" f32 (weight noise {WN_SIGMA})")
+        busy = sum(dev_us(e) for e in events)
+        phase("noise-rate", f"{what} noisy f32 step: device busy "
+              + (f"{100 * busy / wall_us:.1f}% of wall" if busy
+                 else "not measured"))
+        del tr
+    torch.cuda.empty_cache()
+
+
+def init_rng_cli(torch, workdir):
+    """Phase 32: cli.main on the TIMIT network.jsn (no weights section)
+    with --init_rng currennt, uniform init, --learning_rate 0, 1 epoch:
+    the saved weights equal rng_compat's host replay of the reference's
+    stream bit for bit (and not the numpy stream's), and the run launched
+    its kernels (5 K1, 5 K2, one K3f and one K3b per fraction)."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch import io_currennt as ioc
+    from lstm_rnn_tpu_torch.network import Network
+    paths = write_corpus(workdir, "rng", S_STATES, (50,), SEED + 32)
+    train_nc, train_len = paths["train"]
+    net_path = os.path.join(REPO, "examples", "phoneme_recognition_timit",
+                            "network.jsn")
+    out = os.path.join(workdir, "rng_initial.jsn")
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0  # the run starts here
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--network", net_path, "--train", "true",
+                       "--train_file", train_nc, "--init_rng", "currennt",
+                       "--weights_dist", "uniform", "--learning_rate", "0",
+                       "--max_epochs", "1", "--parallel_sequences", "50",
+                       "--random_seed", str(SEED), "--save_network", out])
+    wall = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in w.items()}
+    if rc != 0:
+        print(buf.getvalue()[-3000:])
+        raise AssertionError(f"cli --init_rng currennt returned {rc}")
+    zero = {n: 0 for n in w if not n.startswith("gemm:")}
+    check_counts(counts, {**zero, "lstm_fwd_save": 5, "lstm_bwd": 5,
+                          "softmax_ce_proj_fwd": 1, "softmax_ce_proj_bwd": 1})
+    saved = _weights(out)
+    for init_rng in ("currennt", "numpy"):
+        replay = Network.from_json_file(net_path)
+        replay.init_params(SEED, init_rng=init_rng)
+        flat = ioc.weights_section_from_params(replay.layers_json(),
+                                               replay.params)
+        same = all(np.array_equal(
+            np.asarray(saved[(n, k)], np.float32).view(np.int32),
+            np.asarray(v, np.float32).view(np.int32))
+            for n, sec in flat.items() for k, v in sec.items())
+        if same != (init_rng == "currennt"):
+            raise AssertionError(f"the saved weights and the {init_rng} "
+                                 f"replay: equal {same}")
+    n = sum(np.asarray(v).size for v in saved.values())
+    phase("init-rng", f"cli --init_rng currennt on the TIMIT network "
+          f"({len(train_len)} sequences, 1 epoch, lr 0, {wall:.1f} s): the "
+          f"{n:,} saved weights are rng_compat's replay bit for bit (the "
+          f"numpy stream's are not); launches "
+          + str({k: v for k, v in counts.items() if v}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3236,6 +3849,15 @@ def main():
     wide_lstm_route(torch)
     wide_p_tail_route(torch)
     bf16_feedforward(torch)
+    with torch.no_grad():
+        chime_plans(torch)
+        chres = chime_kernels_vs_twins(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        chime_launches = chime_cli(torch, workdir)
+        init_rng_cli(torch, workdir)
+    noise_draw_on_card(torch)
+    noisy_steps(torch)
+    noisy_rates(torch, card)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -3316,6 +3938,26 @@ def main():
                 kernels[-1][f"lvcsr{k2}"] = {
                     "ms": r["ms"], "library_ms": r["library_ms"],
                     "bound_ms": bound(*r["cost"], d)[0]}
+    # the CHiME recipes' shapes of the kernels on their path (phase 30a),
+    # and the launches of phase 30b's six runs and its control
+    for row in kernels:
+        shapes = sorted({sh for (k, sh, _) in chres if k == row["name"]})
+        if not shapes:
+            continue
+        row["chime_launches"] = chime_launches[row["name"]]
+        row["chime"] = {}
+        for sh in shapes:
+            r32, r16 = chres[(row["name"], sh, "float32")], chres[
+                (row["name"], sh, "bfloat16")]
+            row["chime"][sh] = {
+                "max_abs_err": r32["err"], "ms": r32["ms"],
+                "plain_ms": r32["plain_ms"],
+                "bound_ms": bound(*r32["cost"], "float32")[0],
+                "library_ms": r32.get("library_ms"),
+                "max_abs_err_bf16": r16["err"], "ms_bf16": r16["ms"],
+                "plain_ms_bf16": r16["plain_ms"],
+                "bound_ms_bf16": bound(*r16["cost"], "bfloat16")[0],
+                "library_ms_bf16": r16.get("library_ms")}
     # the GEMM engine at the dW_in product of a TIMIT layer (P = 250: the
     # largest share of its time on the training step), every shape beside
     g32, g16 = gres[("dW_in:250", "float32")], gres[("dW_in:250", "bfloat16")]

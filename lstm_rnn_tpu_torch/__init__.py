@@ -8,8 +8,9 @@ This package imports torch and numpy only — never jax and never
 lstm_rnn_tpu.
 
 Ported: the forward-pass (posterior dump) mode, streaming serving,
-training, and sequence parallelism in one process (`parallel/`); the rest
-follows (ROADMAP.md).
+training (weight noise, input noise and --init_rng currennt included),
+and sequence parallelism in one process (`parallel/`); the rest follows
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

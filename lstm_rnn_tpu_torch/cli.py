@@ -10,8 +10,11 @@ Counterpart of lstm_rnn_tpu/cli.py (the `currennt` binary's behaviour,
   optimizer state after every epoch (`[prefix_]epochNNN.autosave`, the JSON
   dump on a worker thread while the next epoch trains), `--autosave_best`
   the best network at every new lowest validation error, and `--continue
-  FILE` resumes from an autosave with the configuration it stores. Weight
-  noise and input noise are not ported yet and raise (ROADMAP.md);
+  FILE` resumes from an autosave with the configuration it stores (the
+  shuffles, the input noise and the weight noise of the epochs done are
+  replayed or discarded, so that the resumed run equals the uninterrupted
+  one); `--weight_noise_sigma`, `--input_noise_sigma` and `--init_rng
+  currennt` draw the JAX package's streams;
 - `--train false`: runs the network over `--ff_input_file` and writes the
   output layer's activations as single_csv, per-sequence csv or HTK files;
   with `--stream_chunk N` each fraction streams through a unidirectional
@@ -208,9 +211,6 @@ def _apply_streamed(net: Network, params, x, pt, chunk: int):
 def _check_trainable(cfg: Config) -> None:
     """Refuse the training features the port does not have yet."""
     missing = [
-        (cfg.weight_noise_sigma > 0, "--weight_noise_sigma", "item 1"),
-        (cfg.input_noise_sigma > 0, "--input_noise_sigma", "item 1"),
-        (cfg.init_rng != "numpy", "--init_rng currennt", "item 1"),
         (cfg.fuse_fractions != 1 or bool(cfg.device_cache)
          or bool(cfg.profile_dir),
          "--fuse_fractions/--device_cache/--profile_dir",
@@ -295,7 +295,8 @@ def train_mode(cfg: Config, device: torch.device) -> int:
                     uniform_min=cfg.weights_uniform_min,
                     uniform_max=cfg.weights_uniform_max,
                     normal_mean=cfg.weights_normal_mean,
-                    normal_sigma=cfg.weights_normal_sigma)
+                    normal_sigma=cfg.weights_normal_sigma,
+                    init_rng=cfg.init_rng)
     _print_layers(net)
     if cfg.optimizer != "steepest_descent":
         raise RuntimeError("Unknown optimizer type")
@@ -312,8 +313,8 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         max_epochs=max_epochs, max_epochs_no_best=cfg.max_epochs_no_best,
         validate_every=cfg.validate_every, test_every=cfg.test_every,
         hybrid_online_batch=cfg.hybrid_online_batch,
-        weight_noise_sigma=cfg.weight_noise_sigma, device=device,
-        seq_mesh=seq_mesh)
+        weight_noise_sigma=cfg.weight_noise_sigma, seed=cfg.random_seed,
+        device=device, seq_mesh=seq_mesh)
 
     info_rows = ""
     if cfg.continue_file:
@@ -401,6 +402,9 @@ def _echo_settings(cfg: Config):
         if cfg.shuffle_sequences:
             print("Sequences will be shuffled within and across mini-batches "
                   "during training.")
+        if cfg.input_noise_sigma:
+            print("Using input noise with a standard deviation of "
+                  f"{cfg.input_noise_sigma}.")
         print(f"The trained network will be written to "
               f"'{cfg.save_network}'.")
         if os.path.exists(cfg.save_network):

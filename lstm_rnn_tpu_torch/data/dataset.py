@@ -106,6 +106,16 @@ class Fraction:
     seq_info: List[dict] = field(default_factory=list)  # {tag, length, originalSeqIdx}
 
 
+def discard_normals(rng: np.random.RandomState, n: int,
+                    chunk: int = 1 << 22) -> None:
+    """Advance `rng` past n Gaussian draws, `chunk` at a time. The legacy
+    Gaussian keeps its spare value from call to call, so this leaves the
+    stream where any split of n normal() draws leaves it."""
+    while n > 0:
+        rng.standard_normal(min(chunk, n))
+        n -= min(chunk, n)
+
+
 def _bucket_lengths(max_len: int) -> List[int]:
     """Bucket inventory: 16, 24, 32, 48, 64, ... up to >= max_len."""
     buckets = []
@@ -298,15 +308,17 @@ class DataSet:
 
     def skip_epochs(self, n: int) -> None:
         """Draw the per-epoch shuffles of n epochs without assembling them,
-        so that a run restored after n epochs goes on with the fraction
-        order the uninterrupted run had. Input noise draws from the same
-        stream per fraction and cannot be skipped this way."""
-        if self.noise_deviation:
-            raise NotImplementedError(
-                "skip_epochs with input noise (not ported: ROADMAP.md, "
-                "queue 1 item 1)")
+        and with input noise discard each epoch's noise draws, so that a
+        run restored after n epochs goes on with the fraction order and the
+        noise the uninterrupted run had: an epoch draws one N(0, sigma) per
+        input value of every sequence it emits (each sequence once, after
+        the shuffle; _make_fraction, before frame splicing)."""
+        per_epoch = (sum(s.length for s in self.sequences)
+                     * self.input_pattern_size if self.noise_deviation
+                     else 0)
         for _ in range(n):
             self._shuffle()
+            discard_normals(self._rng, per_epoch)
 
     def _padded_length(self, max_len: int) -> int:
         if self._buckets is None:

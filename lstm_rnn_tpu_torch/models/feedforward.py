@@ -27,7 +27,10 @@ from lstm_rnn_tpu_torch.ops.activations import ACTIVATIONS, REAL_MIN, safe_exp
 
 
 def round_operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """A matmul operand in the compute dtype's precision, held in float32."""
+    """A matmul operand in the compute dtype's precision, held in float32
+    (float64 in the CPU scan route's float64 mode)."""
+    if compute_dtype == torch.float64:
+        return t.to(torch.float64)
     return t.to(compute_dtype).float()
 
 

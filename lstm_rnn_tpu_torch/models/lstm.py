@@ -133,7 +133,7 @@ def _lstm_scan(acts, w_rec, peep, mask, compute_dtype: torch.dtype,
         h_new, c_new, _ = lstm_cell_step(a, c, peep, fast, grad_clip)
         h_m = h_new * mask[t]
         ys.append(h_m.to(sdtype))
-        h = ys[-1].float()
+        h = ys[-1].to(acts.dtype)
         c = c_new * mask[t]
     ys = torch.stack(ys)
     return (ys, (h_m, c)) if return_carry else ys

@@ -64,7 +64,11 @@ COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def storage_dtype(compute_dtype: torch.dtype) -> torch.dtype:
-    return torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+    """bf16 in bf16 mode, float64 in the scan route's float64 mode (CPU
+    only: no kernel takes it), else float32."""
+    if compute_dtype in (torch.bfloat16, torch.float64):
+        return compute_dtype
+    return torch.float32
 
 
 def lstm_cell_step(a, c, peep, fast: bool, gclip=None):

@@ -45,25 +45,42 @@ device.
 The optimizer state for autosaves (Optimizer.cu:326-341,
 SteepestDescentOptimizer.cu:118-123) goes out through `export_state` and
 comes back through `import_state`, in the reference's layer-array layout.
-A restored run also replays the training set's per-epoch shuffles of the
-epochs already done, so that it sees the fraction order the uninterrupted
-run would have seen (the JAX package starts the shuffle stream afresh).
+A restored run also replays the training set's per-epoch shuffles and
+input-noise draws of the epochs already done, and discards the weight-noise
+draws of those epochs, so that it sees the fraction order and the noise the
+uninterrupted run would have seen (the JAX package starts both streams
+afresh at the seed).
 
-Not ported (ROADMAP.md): weight noise and input noise (queue 1 item 1)
-raise; the JAX package's TPU machinery (stacked epochs, the device cache,
-warm compiles, VMEM probes, fuse_fractions) has no counterpart here, and
-CUDA Graphs come later.
+Weight noise (`weight_noise_sigma` > 0, Optimizer.cu:58-84): once per
+training fraction, in stochastic and batch mode alike, N(0, sigma) is drawn
+for every parameter from the host stream `RandomState(seed & 0x7FFFFFFF)`,
+in float64 cast to float32, leaf by leaf in the JAX package's tree order
+(sorted layer names, then sorted keys); the gradient is taken at params +
+noise (fresh leaves) and the update goes to the clean params. Validation
+and test passes draw nothing. The draw stays on the host, as in the JAX
+package, so that the stream is the same; its copy to the card does not
+synchronise. Input noise is the DataSet's (data/dataset.py).
+
+`float64` parameters (a Network with compute_dtype "float64", the scan
+backend, on the CPU only) train the scan route in float64: the port's
+counterpart of the JAX package's x64 epoch against the float64 oracle.
+
+Not ported (ROADMAP.md): the JAX package's TPU machinery (stacked epochs,
+the device cache, warm compiles, VMEM probes, fuse_fractions) has no
+counterpart here, and CUDA Graphs come later.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from lstm_rnn_tpu_torch import io_currennt as ioc
-from lstm_rnn_tpu_torch.data.dataset import DataSet, Fraction
+from lstm_rnn_tpu_torch.data.dataset import (DataSet, Fraction,
+                                             discard_normals)
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
 from lstm_rnn_tpu_torch.parallel.sequence import loss_and_count_seq
@@ -83,17 +100,8 @@ class Trainer:
                  max_epochs: int = -1, max_epochs_no_best: int = 20,
                  validate_every: int = 1, test_every: int = 1,
                  hybrid_online_batch: bool = False,
-                 weight_noise_sigma: float = 0.0, device=None,
-                 seq_mesh=None):
-        if weight_noise_sigma > 0:
-            raise NotImplementedError(
-                "weight noise is not ported to PyTorch yet (ROADMAP.md, "
-                "queue 1 item 1)")
-        if any(ds is not None and ds.noise_deviation > 0
-               for ds in (train_set, validation_set, test_set)):
-            raise NotImplementedError(
-                "input noise is not ported to PyTorch yet (ROADMAP.md, "
-                "queue 1 item 1)")
+                 weight_noise_sigma: float = 0.0, seed: int = 1,
+                 device=None, seq_mesh=None):
         self.net = net
         self.train_set = train_set
         self.validation_set = validation_set
@@ -104,6 +112,9 @@ class Trainer:
         self.validate_every = validate_every
         self.test_every = test_every
         self.hybrid_online_batch = hybrid_online_batch
+        self.weight_noise_sigma = weight_noise_sigma
+        # the JAX Trainer's weight-noise stream (its trainer.py:89)
+        self._noise_rng = np.random.RandomState(seed & 0x7FFFFFFF)
         # the card unless the caller names a device (raises without a GPU);
         # under a seq mesh, the mesh's first device
         self.seq_mesh = seq_mesh
@@ -114,6 +125,10 @@ class Trainer:
             device = seq_mesh[0]
         self.device = select_device() if device is None \
             else torch.device(device)
+        # float64 parameters train the scan route on the CPU only
+        self.dtype = net.param_dtype
+        if self.dtype == torch.float64 and self.device.type != "cpu":
+            raise ValueError("float64 parameters train on the CPU only")
         # per-layer learning rates (>= 0 overrides the global one,
         # SteepestDescentOptimizer.cu:78-80)
         self.layer_lr: Dict[str, float] = {
@@ -123,7 +138,7 @@ class Trainer:
         # the fused tail is off under a seq mesh, as in the JAX Trainer
         self.fused_tail = (net.backend != "scan" and seq_mesh is None
                            and net.supports_fused_tail())
-        self.params = params_from_numpy(net.params, self.device)
+        self.params = params_from_numpy(net.params, self.device, self.dtype)
         for layer in self.params.values():
             for v in layer.values():
                 v.requires_grad_(True)
@@ -159,12 +174,35 @@ class Trainer:
     def _leaves(self, tree):
         return [tree[n][k] for n in sorted(tree) for k in sorted(tree[n])]
 
-    def grad_fraction(self, inputs, targets, pattypes):
-        """(error, correct, grads) at the current parameters; grads in the
-        parameter tree's layout."""
-        err, correct = self.loss_and_metrics(self.params, inputs, targets,
-                                             pattypes)
-        grads = torch.autograd.grad(err, self._leaves(self.params))
+    def _draw_noise(self):
+        """One weight-noise draw: N(0, sigma) for every parameter from the
+        host stream, float64 cast to float32, leaf by leaf in the JAX tree
+        order (trainer.py:569-580 of the JAX package), copied to the
+        parameters' device without a synchronisation."""
+        sig = self.weight_noise_sigma
+        return {n: {k: torch.from_numpy(self._noise_rng.normal(
+                    0.0, sig, tuple(self.params[n][k].shape)).astype(
+                        np.float32)).to(self.device, non_blocking=True)
+                    for k in sorted(self.params[n])}
+                for n in sorted(self.params)}
+
+    def _point(self):
+        """Where a training fraction's gradient is taken: the parameters,
+        or with weight noise fresh leaves at params + one draw (the update
+        still goes to the clean parameters)."""
+        if self.weight_noise_sigma <= 0:
+            return self.params
+        noise = self._draw_noise()
+        return {n: {k: (v.detach() + noise[n][k]).requires_grad_(True)
+                    for k, v in layer.items()}
+                for n, layer in self.params.items()}
+
+    def grad_fraction(self, inputs, targets, pattypes, at=None):
+        """(error, correct, grads) at `at` (default: the current
+        parameters); grads in the parameter tree's layout."""
+        at = self.params if at is None else at
+        err, correct = self.loss_and_metrics(at, inputs, targets, pattypes)
+        grads = torch.autograd.grad(err, self._leaves(at))
         it = iter(grads)
         tree = {n: {k: next(it) for k in sorted(self.params[n])}
                 for n in sorted(self.params)}
@@ -182,17 +220,20 @@ class Trainer:
                 self.params[name][k].add_(v)
 
     def train_step(self, inputs, targets, pattypes):
-        """Stochastic mode: gradients at the current weights, then the
-        update. Returns (error, correct) of the fraction before it."""
-        err, correct, grads = self.grad_fraction(inputs, targets, pattypes)
+        """Stochastic mode: gradients at the current weights (plus a draw
+        of weight noise), then the update. Returns (error, correct) of the
+        fraction before it."""
+        err, correct, grads = self.grad_fraction(inputs, targets, pattypes,
+                                                 self._point())
         self.sgd_update(grads)
         return err, correct
 
     def accum_step(self, grad_acc, inputs, targets, pattypes):
         """Batch mode: add the fraction's gradients to grad_acc (None on
-        the first fraction), no update. Returns (grad_acc, error,
-        correct)."""
-        err, correct, grads = self.grad_fraction(inputs, targets, pattypes)
+        the first fraction), no update; with weight noise, at a draw of
+        it. Returns (grad_acc, error, correct)."""
+        err, correct, grads = self.grad_fraction(inputs, targets, pattypes,
+                                                 self._point())
         if grad_acc is None:
             return grads, err, correct
         for name, layer in grads.items():
@@ -207,7 +248,7 @@ class Trainer:
     # ------------------------------------------------------------------ epoch
     def _device_batch(self, frac: Fraction):
         dev = self.device
-        return (torch.from_numpy(frac.inputs).to(dev),
+        return (torch.from_numpy(frac.inputs).to(dev, self.dtype),
                 torch.from_numpy(frac.targets).to(dev),
                 torch.from_numpy(frac.pattypes).to(dev))
 
@@ -229,7 +270,7 @@ class Trainer:
             self.sgd_update(grad_acc)
         if not errs:
             return None, None
-        return (torch.stack([e.float() for e in errs]).sum(),
+        return (torch.stack([e.to(self.dtype) for e in errs]).sum(),
                 torch.stack([c.to(torch.int64) for c in corrs]).sum())
 
     @staticmethod
@@ -380,3 +421,19 @@ class Trainer:
             doc["steepest_descent_optimizer_weight_deltas"]), self.device)
         if self.train_set is not None:
             self.train_set.skip_epochs(self.cur_epoch)
+            if self.weight_noise_sigma > 0:
+                self.skip_noise(self.cur_epoch)
+
+    def skip_noise(self, epochs: int) -> float:
+        """Discard the weight-noise draws of `epochs` training epochs (one
+        draw of every parameter per training fraction), so that a restored
+        run goes on with the noise of the uninterrupted one. Returns and
+        prints the seconds it took."""
+        t0 = time.perf_counter()
+        n_params = sum(v.numel() for v in self._leaves(self.params))
+        discard_normals(self._noise_rng,
+                        epochs * self.train_set.num_fractions() * n_params)
+        seconds = time.perf_counter() - t0
+        print(f"Skipped the weight noise of {epochs} epochs in "
+              f"{seconds:.2f} s")
+        return seconds

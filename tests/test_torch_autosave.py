@@ -114,14 +114,27 @@ def test_autosave_best_matches_jax(tmp_path, monkeypatch):
                                    err_msg=str(k))
 
 
-@pytest.mark.parametrize("shuffle", ["false", "true"])
+# the flags of each case: fractions in order or shuffled; shuffled with
+# input noise (the DataSet's stream); weight noise (the Trainer's stream)
+CONTINUE_CASES = {
+    "false": ["--shuffle_fractions", "false"],
+    "true": ["--shuffle_fractions", "true"],
+    "input_noise": ["--shuffle_fractions", "true", "--input_noise_sigma",
+                    "0.6"],
+    "weight_noise": ["--weight_noise_sigma", "0.05"],
+}
+
+
+@pytest.mark.parametrize("shuffle", list(CONTINUE_CASES))
 def test_continue_equals_straight_run(tmp_path, monkeypatch, shuffle):
     """3 epochs straight == 2 epochs + autosave + --continue for 1 more
     (JAX tests/test_cli.py:56-92): the resumed run restores weights,
     momentum and counters; with shuffled fractions it also replays the
-    shuffles of the epochs done."""
+    shuffles of the epochs done, with input noise the noise draws of
+    those epochs, and with weight noise it discards that stream's draws
+    (where the JAX package starts both streams again at the seed)."""
     args = _args(tmp_path, "--max_epochs", "3", "--autosave", "true",
-                 "--shuffle_fractions", shuffle)
+                 *CONTINUE_CASES[shuffle])
     _run(cli.main, args, tmp_path / "straight", monkeypatch)
     autosave = tmp_path / "straight" / "epoch002.autosave"
     doc = _load(autosave)

@@ -1,7 +1,8 @@
 """The port's CLI (lstm_rnn_tpu_torch.cli) in forward-pass mode against the
 JAX package's, on the same tiny .nc file and network.jsn: the posterior
 dumps must match (single_csv and HTK), and the flags the port does not
-support yet must fail loudly."""
+support yet must fail loudly. Train mode with the noise flags and
+--init_rng currennt: tests/test_torch_noise.py, test_torch_rng_compat.py."""
 
 import json
 
@@ -103,21 +104,13 @@ def test_stream_chunk_refuses_blstm(tmp_path, capsys):
         assert "Computing outputs" not in out
 
 
-def test_train_mode_is_not_ported(tmp_path):
-    """Train mode is ported; the training features that are not (weight
-    noise here; the rest in test_unported_training_flags_raise) refuse to
-    run instead of being ignored."""
-    args = _setup(tmp_path)
-    args[args.index("--train") + 1] = "true"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(args + ["--device", "cpu", "--weight_noise_sigma", "0.1"])
-
-
 @pytest.mark.parametrize("flag", [
-    ["--input_noise_sigma", "0.5"], ["--init_rng", "currennt"],
     ["--fuse_fractions", "4"], ["--device_cache", "true"],
+    ["--profile_dir", "prof"],
 ])
 def test_unported_training_flags_raise(tmp_path, flag):
+    """The JAX package's TPU dispatch flags refuse to run instead of being
+    ignored."""
     args = _setup(tmp_path) + ["--device", "cpu"]
     args[args.index("--train") + 1] = "true"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -4,8 +4,10 @@ carry-with-residuals variants), its BPTT with and without a carry
 (csrc/lstm_bwd.cu), the fused softmax + CE tail (csrc/softmax_ce.cu),
 the wide tail (csrc/softmax_ce_wide.cu) and the plain tail
 (csrc/softmax_ce_plain.cu), at small and full TIMIT and LVCSR width,
-float32 and bfloat16 modes, the wrappers' refusals, and the routes of
---remat_blocks training through the carry kernels and the plain tail.
+float32 and bfloat16 modes, the wrappers' refusals, the routes of
+--remat_blocks training through the carry kernels and the plain tail, the
+CHiME recipes' layer and tail shapes, and a weight-noise step of the
+kernel route against the scan route.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -1329,3 +1331,88 @@ def test_bf16_feedforward_products_on_the_tensor_cores():
     f32 = [k for k in keys if any(t in k for t in ("sgemm", "f32f32",
                                                     "ffma"))]
     assert not f32, f32
+
+
+# ------------------------------------------------- the CHiME recipes' shapes
+# Every LSTM layer of the three CHiME recipes (examples/speech_*_chime):
+# (P, H per direction, dx): 39 inputs, cells 78, 128, 150 and 51 (clusters
+# of 5, 8, 10 and 4 CTAs with uneven slices), the subsampling net's
+# feedforward_tanh widths 39 and 75 as the next layer's input. P = 39 is a
+# 78-byte bf16 row, only 2-byte aligned.
+CHIME_LAYERS = [(39, 78, False), (156, 128, True), (256, 78, True),
+                (156, 150, True), (300, 51, True), (39, 150, True),
+                (75, 51, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,H,need_dx", CHIME_LAYERS)
+def test_chime_layers_match_twins(P, H, need_dx, dtype):
+    """K0, K1 and K2 at each CHiME layer's width (T = 90, B = 50, ragged
+    rows and an empty block), each launched twice for the same bits."""
+    for kind in ("fwd", "bwd"):
+        card = lstm_cell.recurrence_plan_on_card(H, dtype, kind)
+        plan = lstm_cell.recurrence_plan(H, dtype, kind)
+        assert card["n"] == plan["n"] == -(-H // 16)
+        assert card["active_clusters"] > 0
+    args = _empty_block(make_layer(90, 50, P, H, 2, seed=P + H))
+    with torch.inference_mode():
+        got = _same_bits(lambda: lstm_scan_fused(*args, 1.0, dtype))
+        want = lstm_scan_reference(*args, 1.0, dtype)
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    _train_vs_twins(args, dtype, need_dx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chime_tail_matches_twin(dtype):
+    """K3f and K3b at the recognition nets' softmax (S = 51 over P = 102:
+    below one 64-column wgmma chunk), with dummy frames."""
+    h, w, b, tc = _tail(5000, 102, 51, seed=3)
+    loss, cnt, p = softmax_ce_proj_fwd(h, w, b, tc, 1.0, dtype)
+    loss_r, cnt_r, p_r = softmax_ce_fwd_reference(h, w, b, tc, 1.0, dtype)
+    torch.cuda.synchronize()
+    assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
+    assert abs(cnt.item() - cnt_r.item()) <= 1
+    assert _elem_rel(p, p_r) <= P_REL[dtype], _elem_rel(p, p_r)
+    g = torch.tensor(1.0, device="cuda")
+    got = _same_bits(lambda: softmax_ce_proj_bwd(p, h, w, tc, g, 1.0, dtype))
+    want = softmax_ce_bwd_reference(p, h, w, tc, g, 1.0, dtype)
+    for name, x, y in zip(("dh", "dW", "db"), got, want):
+        assert _rel_err(x, y) <= TAIL_REL[dtype], (name, _rel_err(x, y))
+
+
+def test_noisy_step_kernel_route_matches_scan_route():
+    """One weight-noise SGD step of the CHiME recognition net (f32, T =
+    60, B = 8, ragged rows): the kernel route and the scan route from the
+    same weights and the same draw give the same loss and update (the
+    kernel step taken at the clean weights does not)."""
+    import os
+    from lstm_rnn_tpu_torch.network import Network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "speech_recognition_chime",
+        "no_subsampling", "network.jsn")
+    rng = np.random.RandomState(4)
+    T, B = 60, 8
+    lengths = rng.randint(20, T + 1, B)
+    pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
+    tc = np.where(pt > 0, rng.randint(0, 51, (T, B)), -1).astype(np.int32)
+    batch = [torch.from_numpy(a).cuda() for a in (
+        rng.randn(T, B, 39).astype(np.float32), tc, pt)]
+    out = {}
+    for label, backend, sigma in (("kernel", "auto", 0.05),
+                                  ("scan", "scan", 0.05),
+                                  ("clean", "auto", 0.0)):
+        net = Network.from_json_file(path, backend=backend)
+        net.init_params(3, dist="normal", normal_sigma=0.1)
+        tr = Trainer(net, None, learning_rate=1e-2, momentum=0.9,
+                     hybrid_online_batch=True, weight_noise_sigma=sigma,
+                     seed=8)
+        before = [v.detach().clone() for v in tr._leaves(tr.params)]
+        err, _ = tr.train_step(*batch)
+        upd = torch.cat([(v.detach() - b).flatten() for v, b in
+                         zip(tr._leaves(tr.params), before)])
+        out[label] = (err.item(), upd)
+    (l_k, u_k), (l_s, u_s) = out["kernel"], out["scan"]
+    assert abs(l_k - l_s) <= 1e-5 * abs(l_s)
+    assert _rel_err(u_k, u_s) <= 1e-4
+    assert _rel_err(out["clean"][1], u_s) > 1e-4

@@ -12,6 +12,7 @@ same fraction order from the data seed.
 
 import numpy as np
 import pytest
+import torch
 
 from lstm_rnn_tpu.data.dataset import DataSet as JaxDataSet
 from lstm_rnn_tpu.network import Network as JaxNetwork
@@ -98,3 +99,55 @@ def test_trainer_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         Trainer(net, None)
     assert Trainer(net, None, device="cpu").device.type == "cpu"
+
+
+def test_one_epoch_f64_matches_oracle(tmp_path):
+    """The port's twin of the JAX package's
+    test_one_epoch_f64_machine_epsilon (tests/test_end_to_end.py) on a
+    corpus made from a seed: one stochastic epoch of the scan route with
+    float64 parameters on the CPU against the float64 oracle, at that
+    test's bounds (the loss within 1e-8 relative, the class error
+    identical, every update within max(1e-9, 1e-5 x its scale))."""
+    from tests import oracle_net
+    nc = str(tmp_path / "t.nc")
+    _write_classification_nc(nc, TRAIN_LENGTHS, seed=1)
+    ds = DataSet([nc], parallel_sequences=3, sort_by_length=True,
+                 prefetch=False)
+    net = Network(LAYERS, backend="scan", compute_dtype="float64")
+    net.init_params(7)
+    params0 = {k: {kk: np.asarray(vv, np.float64) for kk, vv in v.items()}
+               for k, v in net.params.items()}
+    tr = Trainer(net, ds, learning_rate=0.05, momentum=0.9, max_epochs=1,
+                 hybrid_online_batch=True, device="cpu")
+    assert all(v.dtype == torch.float64 for v in tr._leaves(tr.params))
+    tr.train_epoch()
+    fracs = [(f.inputs, f.targets, f.pattypes) for f in ds.fractions()]
+    assert len(fracs) > 1  # updates between fractions are under test
+    layer_lr = {s.name: s.learning_rate for s in net.specs
+                if s.learning_rate >= 0}
+    p_ref, _, err_ref, correct_ref = oracle_net.train_epoch(
+        net.specs, params0, fracs, lr=0.05, momentum=0.9, layer_lr=layer_lr,
+        stochastic=True)
+    want = err_ref / ds.total_sequences
+    assert abs(tr.cur_training_error - want) < 1e-8 * abs(want)
+    assert tr.cur_training_class_error == 1.0 - correct_ref / ds.total_timesteps
+    for name in p_ref:
+        for kk in p_ref[name]:
+            upd_ref = p_ref[name][kk] - params0[name][kk]
+            upd = tr.params[name][kk].detach().numpy() - params0[name][kk]
+            err = np.abs(upd - upd_ref).max()
+            scale = np.abs(upd_ref).max()
+            assert err <= max(1e-9, 1e-5 * scale), (
+                f"{name}.{kk}: f64 update err {err:.3e} vs scale "
+                f"{scale:.3e}")
+
+
+def test_float64_stays_on_the_cpu_scan_route():
+    """The card's paths are f32 and bf16: float64 takes the scan backend
+    and a CPU Trainer."""
+    with pytest.raises(ValueError, match="backend 'scan'"):
+        Network(LAYERS, compute_dtype="float64")
+    net = Network(LAYERS, backend="scan", compute_dtype="float64")
+    net.init_params(7)
+    with pytest.raises(ValueError, match="CPU only"):
+        Trainer(net, None, device="meta")
