@@ -179,14 +179,41 @@ weights from a seed, and holds every kernel against its plain twin:
 32. `cli.main --init_rng currennt` on the TIMIT network.jsn (no weights)
     with --learning_rate 0: the saved weights are the host replay of the
     reference's stream (utils/rng_compat.py) bit for bit, and the run
-    launched its kernels.
+    launched its kernels;
+33. data parallelism's per-rank shapes: the TIMIT recipe's 50 sequences
+    over 4 GPUs pad to 13 rows a rank (the last rank's 2 empty), over 2
+    to 25: K0, K1 and K2 at one layer (P = 117 and 250, T = 500) and
+    K3f/K3b (S = 183) and K4f/K4b (S = 10,112) over its frames at B = 13
+    and 25 with the last row empty, f32 and bf16, against their twins at
+    phase 3, 4 and 9's tolerances, the empty row's outputs exactly zero,
+    with times; and the recipe step on one GPU at B = 13, 25 and 50
+    (TIMIT f32 and bf16, LVCSR f32);
+34. data parallelism on one card: two ranks on cuda:0 over gloo, through
+    `Trainer(data_group=)` in spawned workers (parallel/launch.py): the
+    recipe step (B = 50, and B = 49 padded to 50) against the
+    one-process step from the same weights (loss, count, every rank's
+    update within 1e-6 relative, the ranks' parameters equal), with a
+    rank's exact launches (5 K1, 5 K2, one K3f, one K3b); the controls
+    that must fail (the gradient all-reduce left out, padding rows that
+    carry real targets); 2 epochs over phase 7's corpus against the
+    one-process Trainer; and, on one GPU, the CLI's --num_devices 2
+    refused with the JAX CLI's message;
+35. data parallelism on distinct GPUs, when torch sees at least 2 (over
+    NCCL): the CLI's --num_devices 2 (and 4 with 4 GPUs) against
+    --num_devices 1, train (2 epochs over phase 7's corpus: weights and
+    epoch errors) and forward (phase 5's corpus: the posteriors); two CLI
+    processes with --coordinator_address/--num_processes/--process_id,
+    each seeing half of the GPUs, against --num_devices of the same
+    total; and the step's frames/s and the gradient all-reduce's time on
+    1, 2 and 4 GPUs (TIMIT f32 and bf16 at parallel_sequences 50 and at
+    50 a GPU, LVCSR f32 at 50 a GPU).
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
 12, 17, 20, 25) give the engine's device time per product.
 
 scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
-GPUs.
+GPUs; scripts/torch_dp_multigpu.py runs phase 35 alone.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -1227,14 +1254,14 @@ GEMM_TAGS = {"GemmDwIn": "dW_in", "GemmDwRec": "dW_rec", "GemmDx": "dx",
              "GemmWideDh": "wide dh"}
 
 
-def wide_cost(kind, dtype):
-    """(bytes, flops) of K4f and K4b at the LVCSR tail: K4f reads the
-    logits, the targets and writes three per-row stats (its elementwise
-    work, a few FP32 operations per logit, counted as 4); K4b reads the
-    logits, h, the targets and the stats, writes dz, dW and db, and runs
-    the dW product."""
+def wide_cost(kind, dtype, N=N_TAIL):
+    """(bytes, flops) of K4f and K4b at the LVCSR tail over N frames: K4f
+    reads the logits, the targets and writes three per-row stats (its
+    elementwise work, a few FP32 operations per logit, counted as 4); K4b
+    reads the logits, h, the targets and the stats, writes dz, dW and db,
+    and runs the dW product."""
     es = 2 if dtype == "bfloat16" else 4
-    N, P, S = N_TAIL, 2 * H, S_LVCSR
+    P, S = 2 * H, S_LVCSR
     if kind == "softmax_ce_wide_fwd":
         return N * S * es + N * 4 + 3 * N * 4 + 8, 4 * N * S
     return (N * S * es + N * P * es + N * 4 + 3 * N * 4 + 4 + N * S * es
@@ -3760,6 +3787,740 @@ def init_rng_cli(torch, workdir):
           + str({k: v for k, v in counts.items() if v}))
 
 
+
+# data parallelism (phases 33-35): the TIMIT recipe's 50 parallel
+# sequences over k GPUs, B padded to a multiple of k: 13 rows a rank on 4
+# (52 rows, the last rank's 2 empty), 25 on 2
+DP_ROWS = (13, 25)
+# a DP step on two ranks against the one-process step from the same
+# weights (f32): the same kernels over the same rows, each weight-gradient
+# sum split between the ranks and finished by the all-reduce, so only the
+# order of f32 additions differs (1.7e-7 of the largest gradient on the
+# CPU twins); the loss, the update (the momentum delta v = -lr g of the
+# first step: the weights' own rounding, an ulp of 0.1 against updates of
+# 1e-4, would hide it) relative to its largest entry, and the weights
+# relative to theirs; the 2-epoch Trainer's errors and weights the same way
+DP_TOL = 1e-6
+# the CLI's --num_devices k (and two multi-host processes) against one GPU
+# after 2 epochs: the JAX test's rtol (tests/test_distributed.py:104-110),
+# relative to each tensor's largest entry; the epoch errors to the table's
+# printed digits; served posteriors as phase 16's (STREAM_TOL)
+DP_CLI_TOL = 1e-5
+# phase 34's steps: (name, rows, leave the all-reduce out, padding rows
+# with real targets); the last two are controls that must fail
+DP_VARIANTS = (("full", B, False, False), ("padded", B - 1, False, False),
+               ("no all-reduce", B, True, False),
+               ("padding with targets", B - 1, False, True))
+
+
+def dp_batch(rows, states, seed, T=T_TRAIN, inputs=117):
+    """bench.py's fraction with `rows` sequences, every row full: host
+    arrays (inputs, targets, pattypes) as a DataSet fraction holds them."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(T, rows, inputs).astype(np.float32)
+    tc = rng.randint(0, states, (T, rows)).astype(np.int32)
+    return x, tc, np.ones((T, rows), np.int8)
+
+
+def on_card(torch, arrays, device="cuda"):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+def rank_block(torch, arrays, group, real_pad_targets=False):
+    """This rank's block of a host fraction, B padded to a multiple of the
+    world size (parallel/data.py), on its device. real_pad_targets: the
+    control, padding rows made real frames with class 1."""
+    from lstm_rnn_tpu_torch.parallel.data import pad_batch
+    rows = arrays[2].shape[1]
+    x, tc, pt = pad_batch(*arrays, group.size)
+    if real_pad_targets:
+        tc, pt = tc.copy(), pt.copy()
+        tc[:, rows:], pt[:, rows:] = 1, 1
+    return on_card(torch, group.block(x, tc, pt), group.device)
+
+
+def dp_rank_layer(torch, P, rows, seed):
+    """One BLSTM layer's operands at T_TRAIN for one rank's block of
+    `rows` sequences: full rows (the recipe step's), a ragged row, a row
+    of length 1 and the last row empty (a padding row); dh for the BPTT."""
+    rng = np.random.RandomState(seed)
+
+    def u(*s):
+        return torch.tensor(rng.uniform(-0.1, 0.1, s), dtype=torch.float32,
+                            device="cuda")
+    x = torch.tensor(rng.randn(T_TRAIN, rows, P), dtype=torch.float32,
+                     device="cuda")
+    lengths = np.full(rows, T_TRAIN)
+    lengths[1], lengths[2], lengths[-1] = 1, rng.randint(2, T_TRAIN), 0
+    dh = torch.tensor(rng.randn(T_TRAIN, rows, D * H), dtype=torch.float32,
+                      device="cuda")
+    return (x, u(D, P, 4 * H), u(D, H, 4 * H), u(D, 3, H), u(D, 4 * H),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda")), dh
+
+
+def dp_rank_kernels(torch):
+    """Phase 33a: K0, K1 and K2 at one TIMIT layer (P = 117 without dx, P
+    = 250 with it), and K3f/K3b (S = 183) and K4f/K4b (S = 10,112) over
+    its frames, at one rank's block of B = 13 and 25 sequences (T = 500,
+    the last row empty), f32 and bf16, against their twins at phase 3, 4
+    and 9's tolerances; the empty row's outputs exactly zero; times."""
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    res = {}
+    for rows in DP_ROWS:
+        for P, need_dx in ((117, False), (250, True)):
+            args, dh = dp_rank_layer(torch, P, rows, seed=rows * 1000 + P)
+            lens = args[5].cpu().numpy()
+            for name in ("float32", "bfloat16"):
+                dt = getattr(torch, name)
+                with torch.inference_mode():
+                    y = lc.lstm_scan_fused(*args, 1.0, dt)
+                    err0 = (y.float() - lc.lstm_scan_reference(
+                        *args, 1.0, dt).float()).abs().max().item()
+                    empty = not y[:, -1].any()
+                    ms0 = time_ms(torch, lambda: lc.lstm_scan_fused(
+                        *args, 1.0, dt), 5)
+                got = lc.lstm_fwd_save(*args, 1.0, dt)
+                want = lc.lstm_scan_reference(*args, 1.0, dt, save=True)
+                errs = [rel_err(g, w) for g, w in zip(got, want)]
+                rel1, err1 = max(e[0] for e in errs), max(e[1] for e in errs)
+                fin = all(torch.isfinite(g.float()).all() for g in got)
+                ms1 = time_ms(torch, lambda: lc.lstm_fwd_save(*args, 1.0, dt),
+                              5)
+                h, c, g = got
+                bwd = (args[0], args[1], args[2], args[3], args[5], h, c, g,
+                       dh, 1.0, True, dt, need_dx)
+                got = lc.lstm_bwd(*bwd)
+                want = lc.lstm_scan_bwd_reference(*bwd)
+                errs = [rel_err(a, b) if a is not None else (0.0, 0.0)
+                        for a, b in zip(got, want)]
+                rel2, err2 = max(e[0] for e in errs), max(e[1] for e in errs)
+                fin = fin and all(torch.isfinite(a).all() for a in got
+                                  if a is not None)
+                empty = empty and (not need_dx or not got[0][:, -1].any())
+                ms2 = time_ms(torch, lambda: lc.lstm_bwd(*bwd), 5)
+                del got, want, h, c, g
+                for k, err, ms, need in (("lstm_fwd", err0, ms0, False),
+                                         ("lstm_fwd_save", err1, ms1, False),
+                                         ("lstm_bwd", err2, ms2, need_dx)):
+                    res[(k, f"B={rows} P={P}", name)] = dict(
+                        err=err, ms=ms, cost=lstm_cost(
+                            k, P, lens, name, need, T=T_TRAIN))
+                phase("dp-kernel", f"B={rows} P={P} dx={need_dx} {name} "
+                      f"[T={T_TRAIN}, row {rows - 1} empty]: K0 "
+                      f"max_abs_err={err0:.3e} (tol {TOL[name]:.0e}) "
+                      f"{ms0:.3f} ms; K1 rel={rel1:.3e} (tol "
+                      f"{REL['lstm_fwd_save'][name]:.1e}) {ms1:.3f} ms; K2 "
+                      f"rel={rel2:.3e} (tol {REL['lstm_bwd'][name]:.1e}) "
+                      f"{ms2:.3f} ms; the empty row's h and dx exactly "
+                      f"zero: {empty}")
+                if not (err0 <= TOL[name]
+                        and rel1 <= REL["lstm_fwd_save"][name]
+                        and rel2 <= REL["lstm_bwd"][name] and fin and empty):
+                    raise AssertionError(f"an LSTM kernel disagrees with its "
+                                         f"twin at B={rows}, P={P}, {name}")
+    gen = torch.Generator("cuda").manual_seed(SEED + 33)
+    g = torch.tensor(1.0, device="cuda")
+    for rows in DP_ROWS:
+        N, P = rows * T_TRAIN, 2 * H
+        h2 = torch.randn(N, P, device="cuda", generator=gen) * 0.5
+        for S in (S_STATES, S_LVCSR):
+            W = (torch.rand(P, S, device="cuda", generator=gen) - 0.5) * 0.2
+            b = (torch.rand(S, device="cuda", generator=gen) - 0.5) * 0.2
+            tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                               dtype=torch.int32)
+            tc[rows - 1::rows] = -1  # the empty row's frames ([T, B] order)
+            for name in ("float32", "bfloat16"):
+                dt = getattr(torch, name)
+                if S == S_STATES:
+                    res.update(dp_rank_k3(torch, rows, h2, W, b, tc, g, name,
+                                          dt))
+                else:
+                    res.update(dp_rank_k4(torch, rows, h2, W, b, tc, g, name,
+                                          dt))
+    return res
+
+
+def dp_rank_k3(torch, rows, h2, W, b, tc, g, name, dt):
+    """K3f and K3b at one rank's frames against their twins (phase 4's
+    checks), the empty row's dh exactly zero."""
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    N, P = h2.shape
+    hs, Ws = h2.to(dt), W.to(dt)
+    loss, cnt, p = sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0, dt)
+    loss_r, cnt_r, p_r = sc.softmax_ce_fwd_reference(hs, Ws, b, tc, 1.0, dt)
+    rel = elem_rel(p, p_r)
+    lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
+    got = sc.softmax_ce_proj_bwd(p, h2, W, tc, g, 1.0, dt)
+    want = sc.softmax_ce_bwd_reference(p, h2, W, tc, g, 1.0, dt)
+    errs = [rel_err(a, c) for a, c in zip(got, want)]
+    brel, berr = max(e[0] for e in errs), max(e[1] for e in errs)
+    empty = not got[0][rows - 1::rows].any()
+    ms_f = time_ms(torch, lambda: sc.softmax_ce_proj_fwd(hs, Ws, b, tc, 1.0,
+                                                         dt), 10)
+    ms_b = time_ms(torch, lambda: sc.softmax_ce_proj_bwd(p, hs, Ws, tc, g,
+                                                         1.0, dt), 10)
+    phase("dp-kernel", f"K3 B={rows} (N={N}) {name}: K3f p elementwise rel "
+          f"{rel:.2e} (tol {P_REL[name]:.1e}), loss rel {lrel:.2e}, count "
+          f"{cnt.item()} vs {cnt_r.item()}, {ms_f:.4f} ms; K3b rel "
+          f"{brel:.2e} [{per_output(('dh', 'dW', 'db'), errs)}] (tol "
+          f"{REL['softmax_ce'][name]:.1e}), {ms_b:.4f} ms (CUDA events); "
+          f"the empty row's dh exactly zero: {empty}")
+    if not (rel <= P_REL[name] and lrel <= 1e-5
+            and abs(cnt.item() - cnt_r.item()) <= 1
+            and brel <= REL["softmax_ce"][name] and empty):
+        raise AssertionError(f"K3 disagrees with its twin at B={rows}")
+    shape = f"B={rows} P={P}"
+    return {("softmax_ce_proj_fwd", shape, name): dict(
+                err=rel_err(p, p_r)[1], ms=ms_f,
+                cost=tail_cost("softmax_ce_proj_fwd", P, name, N)),
+            ("softmax_ce_proj_bwd", shape, name): dict(
+                err=berr, ms=ms_b,
+                cost=tail_cost("softmax_ce_proj_bwd", P, name, N))}
+
+
+def dp_rank_k4(torch, rows, h2, W, b, tc, g, name, dt):
+    """K4f and K4b at one rank's frames against their twins (phase 9's
+    checks), the empty row's dz exactly zero."""
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    N, P = h2.shape
+    loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h2, W, b, tc, 1.0,
+                                                         dt)
+    loss_r, cnt_r, off_r, ssum_r, pt_r = sc.wide_stats_reference(a, tc)
+    pairs = ((off, off_r), (ssum, ssum_r), (pt, pt_r))
+    srel = max(elem_rel(x, y) for x, y in pairs)
+    serr = max(rel_err(x, y)[1] for x, y in pairs)
+    lrel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
+    hc = h2.to(a.dtype)
+    dz, dw, db = sc._launch_wide_bwd(a, hc, tc, off, ssum, pt, g, 1.0)
+    dz_r = sc.wide_dz_reference(a, tc, off, ssum, pt, g)
+    dzc_r = dz_r.to(a.dtype)
+    outs = {"dz": (dz, dzc_r),
+            "dW": (dw, torch.matmul(hc.float().t(), dzc_r.float())),
+            "db": (db, dz_r.sum(dim=0))}
+    errs = {k: rel_err(x, y) for k, (x, y) in outs.items()}
+    lims = {"dz": WIDE_REL["dz"][name], "dW": WIDE_REL["dW"][name],
+            "db": WIDE_REL["dW"][name]}
+    empty = not dz[rows - 1::rows].any()
+    del dz_r, dzc_r, outs
+    ms_f = time_ms(torch, lambda: sc.softmax_ce_wide_fwd(h2, W, b, tc, 1.0,
+                                                         dt), 5)
+    ms_b = time_ms(torch, lambda: sc.softmax_ce_wide_bwd(
+        a, h2, W, tc, off, ssum, pt, g, 1.0, dt), 5)
+    phase("dp-kernel", f"K4 B={rows} (N={N}) {name}: K4f stats elementwise "
+          f"rel {srel:.2e} (tol {WIDE_REL['stats'][name]:.0e}), loss rel "
+          f"{lrel:.2e}, count {cnt.item()} vs {cnt_r.item()}, {ms_f:.3f} ms "
+          f"with its logits product; K4b " + ", ".join(
+              f"{k} rel {e[0]:.2e} (tol {lims[k]:.1e})"
+              for k, e in errs.items())
+          + f", {ms_b:.3f} ms with its dh product (CUDA events); the empty "
+          f"row's dz exactly zero: {empty}")
+    if not (srel <= WIDE_REL["stats"][name] and lrel <= 1e-5
+            and abs(cnt.item() - cnt_r.item()) <= 1 and empty
+            and all(e[0] <= lims[k] for k, e in errs.items())):
+        raise AssertionError(f"K4 disagrees with its twin at B={rows}")
+    shape = f"B={rows} P={P}"
+    return {("softmax_ce_wide_fwd", shape, name): dict(
+                err=serr, ms=ms_f, cost=wide_cost("softmax_ce_wide_fwd",
+                                                  name, N)),
+            ("softmax_ce_wide_bwd", shape, name): dict(
+                err=max(e[1] for e in errs.values()), ms=ms_b,
+                cost=wide_cost("softmax_ce_wide_bwd", name, N))}
+
+
+def step_ms(torch, tr, batch, reps=5):
+    """Mean wall ms of a training step, synchronised, after a warm-up."""
+    tr.train_step(*batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tr.train_step(*batch)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def dp_rank_steps(torch, card):
+    """Phase 33b: the recipe step on one GPU at one rank's block, B = 13
+    and 25 full rows, beside B = 50: TIMIT f32 and bf16, LVCSR f32 (what
+    a DP step costs a rank before its all-reduce)."""
+    out = {}
+    for label, lvcsr, dtype in (("TIMIT f32", False, "float32"),
+                                ("TIMIT bf16", False, "bfloat16"),
+                                ("LVCSR f32", True, "float32")):
+        for rows in (*DP_ROWS, B):
+            batch = on_card(torch, dp_batch(
+                rows, S_LVCSR if lvcsr else S_STATES, seed=33))
+            tr = make_trainer("auto", dtype, lvcsr)
+            ms = step_ms(torch, tr, batch)
+            out[(label, rows)] = ms
+            phase("dp-step", f"{label} step at B={rows} on one GPU: "
+                  f"{ms:.2f} ms ({1e3 * rows * T_TRAIN / ms:,.0f} frames/s, "
+                  f"mean of 5) on {card}")
+            del tr, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _epoch_trainer(group, workdir):
+    """The 2-epoch Trainer of phase 34 over phase 7's corpus (stochastic,
+    shuffled fractions, f32), data-parallel over `group` (None: one
+    process); returns (trainer, train set, val set)."""
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.config import parse_config
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    paths = {k: os.path.join(workdir, f"timit_{k}.nc")
+             for k in ("train", "val")}
+    cfg = parse_config(["--train", "true", "--network", "x",
+                        "--train_file", paths["train"],
+                        "--val_file", paths["val"], "--truncate_seq", "500",
+                        "--parallel_sequences", "50", "--stochastic", "true",
+                        "--shuffle_fractions", "true", "--random_seed",
+                        str(SEED)])
+    train, val = cli._load_dataset(cfg, "train"), cli._load_dataset(cfg,
+                                                                    "val")
+    net = build_timit_network(seed=SEED)
+    return Trainer(net, train, val, learning_rate=1e-4, momentum=0.9,
+                   max_epochs=2, hybrid_online_batch=True,
+                   device=None if group else "cuda",
+                   data_group=group), train, val
+
+
+def _run_epochs(torch, tr):
+    rows = []
+    finished = False
+    while not finished:
+        finished = tr.train_epoch()
+        rows.append((tr.cur_training_error, tr.cur_training_class_error,
+                     tr.cur_validation_error, tr.cur_validation_class_error))
+    torch.cuda.synchronize()
+    return rows
+
+
+def _dp_card_worker(group, workdir):
+    """Phase 34 on one rank: each of DP_VARIANTS' steps from fresh
+    weights, then the 2-epoch Trainer; the rank's losses, counts,
+    parameters and launches to workdir."""
+    import contextlib
+    import io
+    import torch
+    w = wrappers()
+    out = {}
+    for name, rows, skip, real_pad in DP_VARIANTS:
+        blk = rank_block(torch, dp_batch(rows, S_STATES, seed=34), group,
+                         real_pad)
+        tr = make_trainer("auto", "float32", data_group=group)
+        if skip:
+            tr._sum_over_ranks = lambda tensors: None
+        for f in w.values():
+            f.launches = 0  # the rank's step starts here
+        err, corr = tr.train_step(*blk)
+        torch.cuda.synchronize()
+        out[name] = dict(err=err.item(), corr=int(corr),
+                         params=tr.exact_params(),
+                         velocity=tr.exact_params(tr.velocity),
+                         launches={k: f.launches for k, f in w.items()})
+        del tr, blk
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr, _, _ = _epoch_trainer(group, workdir)
+    for f in w.values():
+        f.launches = 0  # the rank's 2 epochs start here
+    t0 = time.perf_counter()
+    rows = _run_epochs(torch, tr)
+    out["epochs"] = dict(rows=rows, params=tr.exact_params(),
+                         wall=time.perf_counter() - t0,
+                         launches={k: f.launches for k, f in w.items()})
+    torch.save(out, os.path.join(workdir, f"dp_rank{group.rank}.pt"))
+
+
+def _tree_rel(got, want):
+    """max |got - want| / max |want| over every leaf of two parameter
+    trees (numpy, exact_params' layout)."""
+    num = max(float(np.abs(np.asarray(got[n][k]) - want[n][k]).max())
+              for n in want for k in want[n])
+    return num / max(float(np.abs(want[n][k]).max())
+                     for n in want for k in want[n])
+
+
+def dp_on_one_card(torch, workdir):
+    """Phase 34: two ranks on cuda:0 over gloo, through Trainer(
+    data_group=) in spawned workers (parallel/launch.py start): the
+    recipe step (T = 500, B = 50 full rows; and B = 49, padded to 50, its
+    empty row on rank 1) against the one-process step from the same
+    weights, the losses summed, the counts summed and every rank's update
+    within DP_TOL, with the exact launches a rank; the controls (the
+    all-reduce left out, padding rows with real targets) must fail; then 2
+    epochs over phase 7's corpus against the one-process Trainer; and the
+    CLI's --num_devices 2 refused on one GPU with the JAX CLI's message.
+    Returns a rank's launches of the full step."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    write_train_corpus(workdir)
+    t0 = time.perf_counter()
+    start(_dp_card_worker, [torch.device("cuda", 0)] * 2, (workdir,),
+          backend="gloo")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"dp_rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    single = {}
+    for rows in (B, B - 1):
+        tr = make_trainer("auto", "float32")
+        err, corr = tr.train_step(*on_card(torch, dp_batch(rows, S_STATES,
+                                                           seed=34)))
+        single[rows] = (err.item(), int(corr), tr.exact_params(),
+                        tr.exact_params(tr.velocity))
+        del tr
+    for name, rows, *_ in DP_VARIANTS:
+        err1, corr1, want, want_v = single[rows]
+        err = sum(r[name]["err"] for r in ranks)
+        corr = sum(r[name]["corr"] for r in ranks)
+        lrel = abs(err - err1) / abs(err1)
+        urel = max(_tree_rel(r[name]["velocity"], want_v) for r in ranks)
+        wrel = max(_tree_rel(r[name]["params"], want) for r in ranks)
+        same = all(np.array_equal(ranks[0][name]["params"][n][k],
+                                  ranks[1][name]["params"][n][k])
+                   for n in want for k in want[n])
+        ok = (lrel <= DP_TOL and corr == corr1 and urel <= DP_TOL
+              and wrel <= DP_TOL)
+        phase("dp-card", f"{name} (B={rows} over 2 ranks of cuda:0, gloo, "
+              f"f32): loss {err:.6f} vs {err1:.6f} (rel {lrel:.2e}), count "
+              f"{corr} vs {corr1}, update rel {urel:.2e}, weights rel "
+              f"{wrel:.2e} (tol {DP_TOL:.0e}); the ranks' parameters equal: "
+              f"{same}; " + ("matches" if ok else "differs"))
+        if (name in ("full", "padded")) != ok:
+            raise AssertionError(f"the DP step '{name}' "
+                                 + ("differs" if not ok else
+                                    "passes the check"))
+        if name in ("full", "padded") and not same:
+            raise AssertionError("the ranks' parameters differ")
+    for r, rank in enumerate(ranks):
+        zero = {k: 0 for k in rank["full"]["launches"]
+                if not k.startswith("gemm:")}
+        check_counts(rank["full"]["launches"], {
+            **zero, "lstm_fwd_save": 5, "lstm_bwd": 5,
+            "softmax_ce_proj_fwd": 1, "softmax_ce_proj_bwd": 1})
+    phase("dp-card", f"rank launches of one step: "
+          + str({k: v for k, v in ranks[0]["full"]["launches"].items()
+                 if v}) + f" (both ranks; workers {wall:.1f} s wall)")
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr, train, val = _epoch_trainer(None, workdir)
+    rows1 = _run_epochs(torch, tr)
+    n_train, n_val = train.num_fractions(), val.num_fractions()
+    zero = {k: 0 for k in ranks[0]["epochs"]["launches"]
+            if not k.startswith("gemm:")}
+    for r, rank in enumerate(ranks):
+        ep = rank["epochs"]
+        # the errors (columns 0, 2) relative; the class errors to a frame
+        err_rel = max(abs(a[i] - b[i]) / abs(b[i]) for a, b in
+                      zip(ep["rows"], rows1) for i in (0, 2))
+        cls = max(abs(a[i] - b[i]) for a, b in zip(ep["rows"], rows1)
+                  for i in (1, 3))
+        wrel = _tree_rel(ep["params"], tr.exact_params())
+        phase("dp-card", f"rank {r}, 2 epochs of Trainer(data_group=) over "
+              f"phase 7's corpus ({ep['wall']:.1f} s): epochs {ep['rows']} "
+              f"against one process's {rows1}: errors rel {err_rel:.2e}, "
+              f"class errors within {cls:.2e}, weights rel {wrel:.2e} (tol "
+              f"{DP_TOL:.0e})")
+        if not (err_rel <= DP_TOL and wrel <= DP_TOL
+                and cls <= 1.5 / min(train.total_timesteps,
+                                     val.total_timesteps)):
+            raise AssertionError("DP training differs from one process")
+        check_counts(ep["launches"], {
+            **zero, "lstm_fwd": 5 * n_val * 2,
+            "lstm_fwd_save": 5 * n_train * 2, "lstm_bwd": 5 * n_train * 2,
+            "softmax_ce_proj_fwd": (n_train + n_val) * 2,
+            "softmax_ce_proj_bwd": n_train * 2})
+    del tr
+    if torch.cuda.device_count() < 2:
+        nc, net_path, _, _ = write_inputs(workdir)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--network", net_path, "--train", "false",
+                           "--ff_input_file", nc, "--ff_output_file",
+                           os.path.join(workdir, "dp2"), "--num_devices",
+                           "2"])
+        text = buf.getvalue()
+        want = "num_devices=2 but only 1 devices available"
+        if rc == 0 or want not in text or "Computing" in text:
+            raise AssertionError(f"--num_devices 2 ran on one GPU (rc {rc})")
+        phase("dp-card", f"cli --num_devices 2 on one GPU: refused (rc "
+              f"{rc}): {text.strip().splitlines()[-1][:100]}")
+    torch.cuda.empty_cache()
+    return ranks[0]["full"]["launches"]
+
+
+def cli_process(args, cwd, env=None):
+    """Start `python -m lstm_rnn_tpu_torch.cli args` in a process group of
+    its own (a data-parallel run's workers are its children); `finish`
+    waits for it."""
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    os.makedirs(cwd, exist_ok=True)
+    p = subprocess.Popen([sys.executable, "-m", "lstm_rnn_tpu_torch.cli",
+                          *args], cwd=cwd, env=env, text=True,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         start_new_session=True)
+    return p
+
+
+def finish(p, what, timeout=900):
+    """The output of a cli_process, which must exit 0 within `timeout`
+    seconds (else its process group is killed and the phase fails)."""
+    import signal
+    try:
+        out = p.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f"{what} did not end within {timeout} s")
+    if p.returncode != 0:
+        print(out[-4000:])
+        raise AssertionError(f"{what} returned {p.returncode}")
+    return out
+
+
+def _flat_rel(got, want):
+    """max over the weights sections of a saved network (_weights) of max
+    |got - want| / max |want|."""
+    return max(float(np.abs(got[k] - want[k]).max(initial=0.0)
+                     / max(1e-30, np.abs(want[k]).max(initial=0.0)))
+               for k in want)
+
+
+def _table_rows(text):
+    return [ln for ln in text.splitlines()
+            if ln.strip()[:1].isdigit() and "|" in ln]
+
+
+def _rows_close(a, b):
+    """Two epoch tables' errors: relative DP_CLI_TOL plus half a unit of
+    the printed digit (class errors to 0.01%, errors to 0.001)."""
+    return all(abs(x - y) <= DP_CLI_TOL * abs(y) + (0.005 if i % 2 == 0
+                                                    else 0.0005)
+               for ra, rb in zip(epoch_errors(a), epoch_errors(b))
+               for i, (x, y) in enumerate(zip(ra, rb)))
+
+
+def dp_cli(torch, workdir, n):
+    """Phase 35a-c: the CLI on n GPUs over NCCL. Train mode: --num_devices
+    k (k = 2, and 4 with 4 GPUs) on phase 7's corpus for 2 epochs
+    (stochastic, shuffled fractions, f32) against --num_devices 1: the
+    weights and the epoch table; two CLI processes with the multi-host
+    flags, each seeing half of the GPUs (CUDA_VISIBLE_DEVICES), against
+    --num_devices of the same total. Forward mode: --num_devices k over
+    phase 5's corpus against one GPU, the HTK posteriors."""
+    paths, net_path = write_train_corpus(workdir)
+    ks = [k for k in (2, 4) if k <= n]
+    train = ["--network", net_path, "--train", "true", "--train_file",
+             paths["train"][0], "--val_file", paths["val"][0],
+             "--truncate_seq", "500", "--parallel_sequences", "50",
+             "--stochastic", "true", "--shuffle_fractions", "true",
+             "--learning_rate", "1e-4", "--momentum", "0.9", "--max_epochs",
+             "2", "--random_seed", str(SEED)]
+    runs = {}
+    for k in (1, *ks):
+        d = os.path.join(workdir, f"dp_train{k}")
+        t0 = time.perf_counter()
+        out = finish(cli_process(train + ["--num_devices", str(k)], d),
+                     f"cli --num_devices {k}")
+        runs[k] = (d, out, time.perf_counter() - t0)
+        for ln in _table_rows(out):
+            phase("dp-cli", f"--num_devices {k} |{ln}")
+    base = _weights(os.path.join(runs[1][0], "trained_network.jsn"))
+    half = n // 2 if n >= 2 else 1
+    port = _free_port()
+    procs = []
+    for i in range(2):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(
+            str(j) for j in range(i * half, (i + 1) * half)))
+        procs.append(cli_process(train + [
+            "--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
+            "2", "--process_id", str(i)],
+            os.path.join(workdir, f"dp_mh{i}"), env))
+    t0 = time.perf_counter()
+    outs = [finish(p, f"multi-host process {i}") for i, p in
+            enumerate(procs)]
+    mh_wall = time.perf_counter() - t0
+    if "over 2 hosts" not in outs[0] or os.listdir(os.path.join(
+            workdir, "dp_mh1")):
+        raise AssertionError("the multi-host run's banner or files")
+    for k, (d, out, wall) in runs.items():
+        if k == 1:
+            continue
+        w = _weights(os.path.join(d, "trained_network.jsn"))
+        rel = _flat_rel(w, base)
+        close = _rows_close(_table_rows(out), _table_rows(runs[1][1]))
+        phase("dp-cli", f"train --num_devices {k} vs 1 ({wall:.1f} s vs "
+              f"{runs[1][2]:.1f} s wall, 2 epochs): weights rel {rel:.2e} "
+              f"(tol {DP_CLI_TOL:.0e}); epoch errors to the table's digits:"
+              f" {close}")
+        if not (rel <= DP_CLI_TOL and close):
+            raise AssertionError(f"--num_devices {k} training differs")
+    mh = _weights(os.path.join(workdir, "dp_mh0", "trained_network.jsn"))
+    same = runs[2 * half][0]
+    want = _weights(os.path.join(same, "trained_network.jsn"))
+    rel = _flat_rel(mh, want)
+    phase("dp-cli", f"train, 2 processes x {half} GPU(s) with the multi-host "
+          f"flags ({mh_wall:.1f} s wall) vs --num_devices {2 * half}: "
+          f"weights rel {rel:.2e} (tol {DP_CLI_TOL:.0e}); process 1 wrote "
+          "nothing")
+    if not rel <= DP_CLI_TOL:
+        raise AssertionError("multi-host training differs")
+    nc, net_path, tags, lengths = write_inputs(workdir)
+    outs = {}
+    for k in (1, *ks):
+        d = os.path.join(workdir, f"dp_ff{k}")
+        t0 = time.perf_counter()
+        finish(cli_process(["--network", net_path, "--train", "false",
+                            "--ff_input_file", nc, "--parallel_sequences",
+                            "50", "--ff_output_format", "htk",
+                            "--ff_output_file", d, "--num_devices", str(k)],
+                           workdir + f"/dp_ff_cwd{k}"), f"forward {k}")
+        outs[k], _ = read_outputs(d, tags, lengths)
+        if k > 1:
+            diff = max(float(np.abs(a - b).max())
+                       for a, b in zip(outs[k], outs[1]))
+            phase("dp-cli", f"forward --num_devices {k} vs 1 "
+                  f"({time.perf_counter() - t0:.1f} s wall): max |p_dp - p|"
+                  f" = {diff:.3e} (tol {STREAM_TOL:.0e})")
+            if not diff <= STREAM_TOL:
+                raise AssertionError(f"DP serving differs: {diff}")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# phase 35d's steps: (label, LVCSR, compute dtype, B a GPU fixed at 50
+# (False: parallel_sequences 50 over k GPUs) )
+DP_RATES = (("TIMIT f32", False, "float32", False),
+            ("TIMIT f32", False, "float32", True),
+            ("TIMIT bf16", False, "bfloat16", False),
+            ("TIMIT bf16", False, "bfloat16", True),
+            ("LVCSR f32", True, "float32", True))
+
+
+def _dp_rates_worker(group, out_path):
+    """Phase 35d on one rank of n: for each of DP_RATES and k = 1, 2, 4
+    (<= n) GPUs, the recipe step of ranks 0..k-1 (k = 1: no group), timed
+    (mean of 5 after a warm-up, a barrier before and after), the packed
+    all-reduce of the gradients alone (CUDA events, mean of 10), and on
+    rank 0 a profile of 3 steps (the NCCL kernels' device time a step);
+    rank 0 writes the results as JSON."""
+    import json as _json
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from lstm_rnn_tpu_torch.parallel.data import DataGroup, all_reduce_sum
+    ks = [k for k in (1, 2, 4, 8) if k <= group.size]
+    groups = {k: dist.new_group(list(range(k))) for k in ks if k > 1}
+    out = []
+    for label, lvcsr, dtype, per_gpu in DP_RATES:
+        for k in ks:
+            if k == 1 and per_gpu and not lvcsr:
+                continue  # the same one-GPU step as parallel_sequences 50
+            rows = B * k if per_gpu else B
+            if group.rank < k:
+                sub = groups.get(k)
+                dg = (DataGroup(group.rank, k, group.device, group=sub)
+                      if sub is not None else None)
+                arrays = dp_batch(rows, S_LVCSR if lvcsr else S_STATES,
+                                  seed=35)
+                batch = (rank_block(torch, arrays, dg) if dg is not None
+                         else on_card(torch, arrays, group.device))
+                tr = make_trainer("auto", dtype, lvcsr, data_group=dg,
+                                  device=None if dg else group.device)
+
+                def sync():
+                    torch.cuda.synchronize()
+                    if sub is not None:
+                        dist.barrier(group=sub)
+                tr.train_step(*batch)
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    tr.train_step(*batch)
+                sync()
+                ms = 1e3 * (time.perf_counter() - t0) / 5
+                leaves = [torch.zeros_like(p) for p in tr._leaves(tr.params)]
+                mb = sum(t.numel() * t.element_size() for t in leaves) / 1e6
+                ar_ms = nccl_ms = busy_ms = None
+                if sub is not None:
+                    all_reduce_sum(leaves, sub)
+                    sync()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(10):
+                        all_reduce_sum(leaves, sub)
+                    end.record()
+                    sync()
+                    ar_ms = start.elapsed_time(end) / 10
+                if group.rank == 0:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(3):
+                            tr.train_step(*batch)
+                        torch.cuda.synchronize()
+                    ev = prof.key_averages()
+                    busy = sum(dev_us(e) for e in ev)
+                    if busy:
+                        busy_ms = busy / 3e3
+                        nccl_ms = sum(dev_us(e) for e in ev
+                                      if "nccl" in e.key.lower()) / 3e3
+                else:
+                    for _ in range(3):
+                        tr.train_step(*batch)
+                sync()
+                if group.rank == 0:
+                    out.append(dict(label=label, k=k, rows=rows,
+                                    per_gpu=per_gpu, ms=ms,
+                                    frames_s=1e3 * rows * T_TRAIN / ms,
+                                    allreduce_mb=mb, allreduce_ms=ar_ms,
+                                    nccl_ms=nccl_ms, busy_ms=busy_ms))
+                del tr, batch, leaves
+                torch.cuda.empty_cache()
+            dist.barrier()
+    if group.rank == 0:
+        with open(out_path, "w") as f:
+            _json.dump(out, f)
+
+
+def dp_rates(torch, card, workdir, n):
+    """Phase 35d: training frames/s and the all-reduce's time per step on
+    1, 2 and 4 GPUs (n workers over NCCL, parallel/launch.py): TIMIT f32
+    and bf16 at parallel_sequences 50 and at 50 a GPU, LVCSR f32 at 50 a
+    GPU, each beside the one-GPU step of the same call."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    path = os.path.join(workdir, "dp_rates.json")
+    start(_dp_rates_worker, [torch.device("cuda", j) for j in range(n)],
+          (path,))
+    with open(path) as f:
+        res = json.load(f)
+    one = {r["label"]: r for r in res if r["k"] == 1}
+    for r in res:
+        base = one[r["label"]]
+        phase("dp-rate", f"{r['label']} B={r['rows']} "
+              f"({'50 a GPU' if r['per_gpu'] else 'parallel_sequences 50'})"
+              f" on {r['k']} GPU(s): {r['frames_s']:,.0f} frames/s "
+              f"({r['ms']:.2f} ms a step, mean of 5; "
+              f"{r['frames_s'] / base['frames_s']:.2f}x the one-GPU step's "
+              f"{base['frames_s']:,.0f}); all-reduce of "
+              f"{r['allreduce_mb']:.2f} MB alone "
+              + (f"{r['allreduce_ms']:.3f} ms" if r["allreduce_ms"]
+                 is not None else "none")
+              + ", NCCL kernels in a profiled step "
+              + fmt_ms(r["nccl_ms"]) + f", device busy {fmt_ms(r['busy_ms'])}"
+              f" a step on rank 0; {card}")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3858,6 +4619,18 @@ def main():
     noise_draw_on_card(torch)
     noisy_steps(torch)
     noisy_rates(torch, card)
+    with torch.no_grad():
+        dres = dp_rank_kernels(torch)
+    dp_rank_steps(torch, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        dp_launches = dp_on_one_card(torch, workdir)
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            dp_cli(torch, workdir, torch.cuda.device_count())
+            dp_rates(torch, card, workdir, torch.cuda.device_count())
+    else:
+        phase("dp-cli", "phase 35 (DP on distinct GPUs) was not run: torch "
+              "sees one GPU")
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -3958,6 +4731,22 @@ def main():
                 "plain_ms_bf16": r16["plain_ms"],
                 "bound_ms_bf16": bound(*r16["cost"], "bfloat16")[0],
                 "library_ms_bf16": r16.get("library_ms")}
+    # each data-parallel rank's shapes (phase 33a: one rank's block of B =
+    # 13 and 25 sequences) and a rank's launches of one DP step (phase 34)
+    for row in kernels:
+        shapes = sorted({sh for (k, sh, _) in dres if k == row["name"]})
+        if not shapes:
+            continue
+        row["dp_launches_per_rank_step"] = dp_launches[row["name"]]
+        row["per_rank"] = {}
+        for sh in shapes:
+            r32, r16 = dres[(row["name"], sh, "float32")], dres[
+                (row["name"], sh, "bfloat16")]
+            row["per_rank"][sh] = {
+                "max_abs_err": r32["err"], "ms": r32["ms"],
+                "bound_ms": bound(*r32["cost"], "float32")[0],
+                "max_abs_err_bf16": r16["err"], "ms_bf16": r16["ms"],
+                "bound_ms_bf16": bound(*r16["cost"], "bfloat16")[0]}
     # the GEMM engine at the dW_in product of a TIMIT layer (P = 250: the
     # largest share of its time on the training step), every shape beside
     g32, g16 = gres[("dW_in:250", "float32")], gres[("dW_in:250", "bfloat16")]

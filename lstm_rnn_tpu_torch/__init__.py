@@ -9,8 +9,8 @@ lstm_rnn_tpu.
 
 Ported: the forward-pass (posterior dump) mode, streaming serving,
 training (weight noise, input noise and --init_rng currennt included),
-and sequence parallelism in one process (`parallel/`); the rest follows
-(ROADMAP.md).
+sequence parallelism in one process and data parallelism over processes,
+on one host or several (`parallel/`); the rest follows (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -33,6 +33,17 @@ times) and runs the sequence-parallel path (parallel/sequence.py):
 training through `Trainer(seq_mesh=)`, serving through `apply_seq`.
 `--num_devices` must then be 1 or N.
 
+`--num_devices k` (both modes; 0: every GPU torch sees) runs data
+parallelism, one worker process per GPU over a torch.distributed group
+(parallel/launch.py, parallel/data.py): each fraction's batch split over
+the workers in contiguous blocks, the gradients and the metrics summed
+over them; on the CPU (`--device cpu`) k CPU workers over gloo. The
+multi-host flags `--coordinator_address host:port --num_processes N
+--process_id i` join N such processes, one per host, each with a worker
+per local GPU. Global rank 0 prints the epoch table and writes every file
+(the trained network, the autosaves, `.best.jsn`, the forward outputs,
+which it gathers from the ranks); the others write nothing.
+
 Device: `--cuda true` (the default) or `--device cuda` runs on the GPU, the
 LSTM layers and the classification tail through the Hopper kernels; a
 missing GPU is an error, not a move to the CPU. `--device cpu` /
@@ -57,6 +68,8 @@ from lstm_rnn_tpu_torch import writers
 from lstm_rnn_tpu_torch.config import Config, parse_config
 from lstm_rnn_tpu_torch.data.dataset import DataSet
 from lstm_rnn_tpu_torch.network import Network
+from lstm_rnn_tpu_torch.parallel import launch
+from lstm_rnn_tpu_torch.parallel.data import gather_blocks
 from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
 from lstm_rnn_tpu_torch.parallel.sequence import apply_seq
 from lstm_rnn_tpu_torch.trainer import Trainer
@@ -122,7 +135,10 @@ def _print_layers(net: Network):
     print(f"Total weights: {total}\n")
 
 
-def forward_mode(cfg: Config, device: torch.device) -> int:
+def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
+    """Forward-pass mode on `device`; under a data group (DP serving, the
+    JAX CLI's cli.py:712-750) each rank computes its block of every
+    fraction and rank 0 gathers the blocks and writes the files."""
     print(f"Reading network from '{cfg.network}'... ", end="")
     net_doc = ioc.load_network_json(cfg.network)
     print("done.\n")
@@ -143,6 +159,9 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
     if seq_mesh is not None:
         device = seq_mesh[0]
         print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}}")
+    if group is not None:
+        print(group.mesh_line("serving mesh"))
+    writes = group is None or group.is_coordinator
     params = net.device_params(device)
 
     means = stdevs = None
@@ -159,33 +178,52 @@ def forward_mode(cfg: Config, device: torch.device) -> int:
         means, stdevs = ff_set.output_means, ff_set.output_stdevs
         print("Outputs will be scaled by mean and standard deviation specified in NC file.")
 
-    lag = cfg.output_time_lag
-    fmt = cfg.ff_output_format
     for frac_idx, frac in enumerate(ff_set.fractions(), start=1):
         print(f"Computing outputs for data fraction {frac_idx}...", end="",
               flush=True)
         with torch.inference_mode():
-            x = torch.from_numpy(frac.inputs).to(device)
-            pt = torch.from_numpy(frac.pattypes).to(device)
-            if seq_mesh is not None:
-                y = apply_seq(net, params, x, pt, seq_mesh)
-            elif chunk > 0:
-                y = _apply_streamed(net, params, x, pt, chunk)
+            if group is not None:
+                y = _apply_block(net, params, frac, group)
             else:
-                y = net.apply(params, x, pt)
-        tags, outs = net.get_outputs(y, frac.seq_info)
-        if fmt == "single_csv":
-            writers.write_single_csv(cfg.ff_output_file, tags, outs, lag,
-                                     means, stdevs, append=frac_idx > 1)
-        elif fmt == "csv":
-            writers.write_csv(cfg.ff_output_file, tags, outs, lag, means,
-                              stdevs)
-        else:
-            writers.write_htk(cfg.ff_output_file, tags, outs, lag, means,
-                              stdevs, feature_period=cfg.feature_period,
-                              kind=cfg.ff_output_kind)
+                x = torch.from_numpy(frac.inputs).to(device)
+                pt = torch.from_numpy(frac.pattypes).to(device)
+                if seq_mesh is not None:
+                    y = apply_seq(net, params, x, pt, seq_mesh)
+                elif chunk > 0:
+                    y = _apply_streamed(net, params, x, pt, chunk)
+                else:
+                    y = net.apply(params, x, pt)
+        if writes:
+            _write_outputs(cfg, *net.get_outputs(y, frac.seq_info), means,
+                           stdevs, append=frac_idx > 1)
         print(" done.")
     return 0
+
+
+def _write_outputs(cfg: Config, tags, outs, means, stdevs, append: bool):
+    """One fraction's outputs in --ff_output_format."""
+    lag, fmt = cfg.output_time_lag, cfg.ff_output_format
+    if fmt == "single_csv":
+        writers.write_single_csv(cfg.ff_output_file, tags, outs, lag, means,
+                                 stdevs, append=append)
+    elif fmt == "csv":
+        writers.write_csv(cfg.ff_output_file, tags, outs, lag, means, stdevs)
+    else:
+        writers.write_htk(cfg.ff_output_file, tags, outs, lag, means, stdevs,
+                          feature_period=cfg.feature_period,
+                          kind=cfg.ff_output_kind)
+
+
+def _apply_block(net: Network, params, frac, group):
+    """DP serving of one fraction: B padded to a multiple of the world
+    size with PATTYPE_NONE rows, this rank's block through the net, the
+    blocks gathered on rank 0 ([T, B, S] with the padding dropped; None on
+    the other ranks)."""
+    x, _, pt = group.block(frac.inputs, None, frac.pattypes)
+    y = net.apply(params, torch.from_numpy(x).to(group.device),
+                  torch.from_numpy(pt).to(group.device))
+    y = gather_blocks(y, group)
+    return None if y is None else y[:, :frac.pattypes.shape[1]]
 
 
 def _seq_mesh(cfg: Config, device: torch.device):
@@ -274,7 +312,9 @@ def _join_saver(t: threading.Thread) -> None:
         raise t.holder[0]
 
 
-def train_mode(cfg: Config, device: torch.device) -> int:
+def train_mode(cfg: Config, device: torch.device, group=None) -> int:
+    """Train mode on `device`; under a data group every rank trains its
+    block of each fraction and rank 0 prints and writes."""
     network_file = cfg.continue_file or cfg.network
     print(f"Reading network from '{network_file}'... ", end="")
     net_doc = ioc.load_network_json(network_file)
@@ -306,6 +346,9 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         device = seq_mesh[0]
         print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}} "
               "(time axis sharded)")
+    if group is not None:
+        print(group.mesh_line())
+    writes = group is None or group.is_coordinator
     max_epochs = cfg.max_epochs if cfg.max_epochs != 2**32 - 1 else -1
     trainer = Trainer(
         net, train_set, val_set, test_set,
@@ -314,7 +357,7 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         validate_every=cfg.validate_every, test_every=cfg.test_every,
         hybrid_online_batch=cfg.hybrid_online_batch,
         weight_noise_sigma=cfg.weight_noise_sigma, seed=cfg.random_seed,
-        device=device, seq_mesh=seq_mesh)
+        device=device, seq_mesh=seq_mesh, data_group=group)
 
     info_rows = ""
     if cfg.continue_file:
@@ -354,7 +397,7 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         if trainer.did_validate:
             best = trainer.epochs_since_lowest == 0
             row += "  yes   " if best else "  no    "
-            if best and cfg.autosave_best:
+            if best and cfg.autosave_best and writes:
                 base = cfg.autosave_prefix or os.path.splitext(cfg.network)[0]
                 net.params = trainer.exact_params(trainer.best_params)
                 net.save(base + ".best.jsn")
@@ -365,7 +408,7 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         sys.stdout.write(row)
         sys.stdout.flush()
         info_rows += row
-        if cfg.autosave:
+        if cfg.autosave and writes:
             if saver is not None:
                 _join_saver(saver)
             saver = _save_autosave(cfg, net, trainer, info_rows)
@@ -385,8 +428,9 @@ def train_mode(cfg: Config, device: torch.device) -> int:
         print(f"Final training set error: {trainer.cur_training_error}")
     print()
     print(f"Storing the trained network in '{cfg.save_network}'... ", end="")
-    net.params = trainer.exact_params()
-    net.save(cfg.save_network)
+    if writes:
+        net.params = trainer.exact_params()
+        net.save(cfg.save_network)
     print("done.")
     return 0
 
@@ -451,12 +495,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     print("TF32 is off: float32 matmuls run in true fp32.")
     _echo_settings(cfg)
     try:
-        if cfg.train:
-            return train_mode(cfg, device)
-        return forward_mode(cfg, device)
+        return launch.run(cfg, device,
+                          train_mode if cfg.train else forward_mode)
     except Exception as e:
         print(f"FAILED: {e}")
         traceback.print_exc(file=sys.stderr)
+        if isinstance(e, launch.WorkerError):
+            sys.stderr.write(e.worker_traceback)
         return 2
 
 

@@ -11,13 +11,17 @@ Port-specific:
   --lstm_backend auto|scan|pallas: pallas names the Hopper kernel
   --seq_devices  k > 1: sequence parallelism over a k-block seq mesh, with
                  --num_devices 1 or k (parallel/); k <= 1 is off
+  --num_devices  k: data parallelism, one worker process per GPU (0: every
+                 GPU torch sees; with --device cpu, k CPU workers)
+  --coordinator_address host:port, --num_processes N, --process_id i:
+                 multi-host data parallelism (parallel/launch.py)
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
-never silently ignored: a --num_devices that resolves to more than one
-device (0: every device available) other than --seq_devices's count,
---model_devices and --pipeline_devices above 1, --f32_matmul 3x,
---compilation_cache_dir and the multi-host flags. --model_devices 0 and
---pipeline_devices 0 resolve to no parallelism, as the JAX CLI resolves
-them off a TPU.
+never silently ignored: data parallelism composed with --seq_devices (a
+--num_devices other than 1 or its count, or multi-host), data-parallel
+streaming (--stream_chunk with more than one device in forward mode),
+--model_devices and --pipeline_devices above 1, --f32_matmul 3x and
+--compilation_cache_dir. --model_devices 0 and --pipeline_devices 0
+resolve to no parallelism, as the JAX CLI resolves them off a TPU.
 --seq_devices with --stream_chunk, --model_devices or --pipeline_devices
 is refused with the JAX CLI's messages.
 """
@@ -147,9 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto = cuda when --cuda is true, else cpu; cuda "
                         "raises when no GPU is visible")
     g.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel devices, 0 = all (only counts that "
-                        "resolve to one device, or to --seq_devices, are "
-                        "ported)")
+                   help="data-parallel devices (GPUs, one worker process "
+                        "each), 0 = all; on the CPU, CPU workers")
     g.add_argument("--model_devices", type=int, default=1,
                    help="tensor-parallel shard count, 0 = auto (1 off a "
                         "TPU; only 1 is ported)")
@@ -204,11 +207,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = p.add_argument_group("Multi-host options (extensions)")
     g.add_argument("--coordinator_address", default="",
-                   help="multi-host coordinator (not ported yet)")
+                   help="multi-host coordinator host:port (process 0 "
+                        "serves the rendezvous there)")
     g.add_argument("--num_processes", type=int, default=0,
-                   help="multi-host process count (not ported yet)")
+                   help="multi-host process count (one process per host)")
     g.add_argument("--process_id", type=int, default=-1,
-                   help="multi-host rank (not ported yet)")
+                   help="multi-host rank of this process, 0..N-1")
     return p
 
 
@@ -372,7 +376,19 @@ def _check_supported(ns: argparse.Namespace) -> None:
     :577-586). Device counts resolve as the JAX CLI resolves them on a
     host without a TPU: --seq_devices and --pipeline_devices count only
     above 1, --model_devices 0 is the TP heuristic (1 off a TPU), and
-    --num_devices 0 is every device available."""
+    --num_devices 0 is every device available. Data parallelism
+    (--num_devices k, the multi-host flags) is ported; composed with
+    --seq_devices or with --stream_chunk serving it is not."""
+    multihost = bool(ns.coordinator_address)
+    if multihost and not (ns.num_processes >= 1
+                          and 0 <= ns.process_id < ns.num_processes):
+        raise ValueError(
+            "--coordinator_address needs --num_processes N >= 1 and "
+            f"--process_id in 0..N-1 (got {ns.num_processes}, "
+            f"{ns.process_id})")
+    if not multihost and (ns.num_processes > 1 or ns.process_id > 0):
+        raise ValueError("--num_processes/--process_id need "
+                         "--coordinator_address")
     sp = max(1, ns.seq_devices)
     if sp > 1 and (ns.model_devices > 1 or ns.pipeline_devices > 1):
         raise ValueError("seq_devices > 1 does not combine with "
@@ -385,18 +401,22 @@ def _check_supported(ns: argparse.Namespace) -> None:
         for k in ("model_devices", "pipeline_devices")
         if getattr(ns, k) > 1]
     n = ns.num_devices if ns.num_devices > 0 else _visible_devices(ns)
-    if n not in (1, sp):
-        # data parallelism, alone or composed with --seq_devices (the JAX
-        # package's composed_mesh); --num_devices k with --seq_devices k is
-        # the 1-D seq mesh
-        unsupported.insert(0, (f"--num_devices {ns.num_devices}",
-                               "parallelism"))
+    if sp > 1 and (n not in (1, sp) or multihost):
+        # data parallelism composed with --seq_devices (the JAX package's
+        # composed_mesh); --num_devices k with --seq_devices k is the 1-D
+        # seq mesh
+        unsupported.insert(0, (f"--num_devices {ns.num_devices}"
+                               if n not in (1, sp) else
+                               "multi-host --seq_devices",
+                               "parallelism, DP x SP"))
+    if ns.stream_chunk > 0 and not ns.train and (n > 1 or multihost):
+        unsupported.append((f"--stream_chunk with --num_devices "
+                            f"{ns.num_devices}" if n > 1 else
+                            "multi-host --stream_chunk",
+                            "parallelism, DP streaming"))
     if ns.f32_matmul != "6x":
         unsupported.append((f"--f32_matmul {ns.f32_matmul}",
                             "the training step and its precision modes"))
-    if ns.coordinator_address or ns.num_processes > 1 or ns.process_id > 0:
-        unsupported.append(("multi-host (--coordinator_address/"
-                            "--num_processes/--process_id)", "parallelism"))
     if ns.compilation_cache_dir:
         unsupported.append(("--compilation_cache_dir",
                             "the port compiles nothing per shape"))

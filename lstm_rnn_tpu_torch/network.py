@@ -17,7 +17,9 @@ kernel. Sequence parallelism runs the net's layers block by block
 (parallel/sequence.py). `remat_blocks` (the CLI's --remat_blocks, set in
 train mode) checkpoints every LSTM layer's recurrence in K time blocks
 (models/lstm.py) and takes the plain tail (K5) in `loss_and_count_fused`.
-Not ported yet (ROADMAP.md): data, tensor and pipeline parallelism.
+Data parallelism runs the net unchanged on each rank's block of a
+fraction (parallel/data.py, the Trainer's data_group). Not ported yet
+(ROADMAP.md): tensor and pipeline parallelism.
 """
 
 from __future__ import annotations

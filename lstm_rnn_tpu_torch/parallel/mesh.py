@@ -8,9 +8,10 @@ torch.distributed process group is involved. A mesh may name one device
 several times (all blocks on one card, or on the CPU): the port's
 counterpart of the JAX tests' forced host devices, which the CPU tests and
 chip_smoke.py on one card use. The CLI on CUDA builds a mesh of distinct
-GPUs only. The JAX package's composed_mesh (data parallelism composed with
-sequence parallelism) is not ported: config.py refuses --num_devices other
-than 1 or --seq_devices.
+GPUs only. Data parallelism runs in processes of its own (data.py,
+launch.py); the JAX package's composed_mesh (data parallelism composed
+with sequence parallelism) is not ported: config.py refuses --num_devices
+other than 1 or --seq_devices, and multi-host runs with --seq_devices.
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ the scan route (`_scan_block`, backend "scan") runs `_lstm_scan` from the
 carried state, and autograd differentiates it.
 
 The JAX package's multi-controller layout (a "data" axis composed with
-"seq") is not ported: composed meshes are refused (parallel/mesh.py).
+"seq") is not ported: composed meshes are refused (config.py), and
+Trainer(seq_mesh=, data_group=) raises.
 """
 
 from __future__ import annotations

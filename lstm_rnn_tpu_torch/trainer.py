@@ -42,6 +42,17 @@ is ignored, as in the JAX package), and the
 parameters, their gradients and the SGD update stay on the mesh's first
 device.
 
+With `data_group` (data parallelism, parallel/data.py: one process per
+device, launched by parallel/launch.py) every rank holds the same
+parameters and velocity and sees the same fractions and noise draws; each
+fraction's batch is padded to a multiple of the world size with inert rows
+and the rank runs its contiguous block of it through the route above. The
+gradients are summed over the ranks before each update (stochastic mode:
+once per fraction; batch mode: once per pass, on the accumulated
+gradients), in one collective per dtype, and each rank then applies the
+same update; the error sums and correct counts of a pass are summed over
+the ranks once, at its end. DP does not compose with a seq mesh here.
+
 The optimizer state for autosaves (Optimizer.cu:326-341,
 SteepestDescentOptimizer.cu:118-123) goes out through `export_state` and
 comes back through `import_state`, in the reference's layer-array layout.
@@ -83,6 +94,7 @@ from lstm_rnn_tpu_torch.data.dataset import (DataSet, Fraction,
                                              discard_normals)
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
+from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
 from lstm_rnn_tpu_torch.parallel.sequence import loss_and_count_seq
 from lstm_rnn_tpu_torch.utils.device import select_device
 
@@ -101,7 +113,7 @@ class Trainer:
                  validate_every: int = 1, test_every: int = 1,
                  hybrid_online_batch: bool = False,
                  weight_noise_sigma: float = 0.0, seed: int = 1,
-                 device=None, seq_mesh=None):
+                 device=None, seq_mesh=None, data_group=None):
         self.net = net
         self.train_set = train_set
         self.validation_set = validation_set
@@ -118,6 +130,17 @@ class Trainer:
         # the card unless the caller names a device (raises without a GPU);
         # under a seq mesh, the mesh's first device
         self.seq_mesh = seq_mesh
+        self.data_group = data_group
+        if data_group is not None:
+            if seq_mesh is not None:
+                raise NotImplementedError(
+                    "data parallelism with a seq mesh (DP x SP) is not "
+                    "ported to PyTorch yet (ROADMAP.md, queue 1)")
+            if device is not None and (torch.device(device)
+                                       != data_group.device):
+                raise ValueError(f"device {device} is not the data group's "
+                                 f"device {data_group.device}")
+            device = data_group.device
         if seq_mesh is not None:
             if device is not None and torch.device(device) != seq_mesh[0]:
                 raise ValueError(f"device {device} is not the seq mesh's "
@@ -208,10 +231,19 @@ class Trainer:
                 for n in sorted(self.params)}
         return err.detach(), correct, tree
 
+    def _sum_over_ranks(self, tensors) -> None:
+        """Sum tensors over the data group's ranks, in place (a no-op
+        without a group)."""
+        if self.data_group is not None:
+            all_reduce_sum(tensors, self.data_group.group)
+
     @torch.no_grad()
     def sgd_update(self, grads) -> None:
         """v <- momentum * v - lr * g, then w <- w + v, in that order
-        (trainer.py:486-495 of the JAX package), per layer's lr."""
+        (trainer.py:486-495 of the JAX package), per layer's lr. Under a
+        data group the gradients are first summed over the ranks (the JAX
+        package's psum), so every rank applies the same update."""
+        self._sum_over_ranks(self._leaves(grads))
         for name, layer in grads.items():
             lr = self.layer_lr[name]
             for k, g in layer.items():
@@ -247,13 +279,20 @@ class Trainer:
 
     # ------------------------------------------------------------------ epoch
     def _device_batch(self, frac: Fraction):
+        """The fraction's arrays on the device; under a data group, this
+        rank's block of them after padding B to a multiple of the world
+        size (only the block is moved)."""
+        arrays = (frac.inputs, frac.targets, frac.pattypes)
+        if self.data_group is not None:
+            arrays = self.data_group.block(*arrays)
         dev = self.device
-        return (torch.from_numpy(frac.inputs).to(dev, self.dtype),
-                torch.from_numpy(frac.targets).to(dev),
-                torch.from_numpy(frac.pattypes).to(dev))
+        return (torch.from_numpy(arrays[0]).to(dev, self.dtype),
+                torch.from_numpy(arrays[1]).to(dev),
+                torch.from_numpy(arrays[2]).to(dev))
 
     def _process_dataset(self, ds: DataSet, update: bool):
-        """One pass over ds; returns (error sum, correct) device scalars."""
+        """One pass over ds; returns (error sum, correct) device scalars,
+        summed over a data group's ranks once, at the end."""
         errs, corrs = [], []
         grad_acc = None
         for frac in ds.fractions():
@@ -270,8 +309,10 @@ class Trainer:
             self.sgd_update(grad_acc)
         if not errs:
             return None, None
-        return (torch.stack([e.to(self.dtype) for e in errs]).sum(),
-                torch.stack([c.to(torch.int64) for c in corrs]).sum())
+        err = torch.stack([e.detach().to(self.dtype) for e in errs]).sum()
+        corr = torch.stack([c.to(torch.int64) for c in corrs]).sum()
+        self._sum_over_ranks([err, corr])
+        return err, corr
 
     @staticmethod
     def _fetch_metrics(ds: DataSet, err_dev, corr_dev):

@@ -1,7 +1,8 @@
 """The port's CLI (lstm_rnn_tpu_torch.cli) in forward-pass mode against the
 JAX package's, on the same tiny .nc file and network.jsn: the posterior
 dumps must match (single_csv and HTK), and the flags the port does not
-support yet must fail loudly. Train mode with the noise flags and
+support yet must fail loudly. Data parallelism and the multi-host flags:
+tests/test_torch_data_parallel.py. Train mode with the noise flags and
 --init_rng currennt: tests/test_torch_noise.py, test_torch_rng_compat.py."""
 
 import json
@@ -78,12 +79,11 @@ def test_forward_htk_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num_devices", "2"], ["--model_devices", "2"],
-    # --seq_devices alone is ported (test_torch_sequence.py); composed with
-    # data parallelism it is not
+    ["--model_devices", "2"],
+    # --seq_devices alone is ported (test_torch_sequence.py), and so is data
+    # parallelism (test_torch_data_parallel.py); composed they are not
     ["--pipeline_devices", "2"], ["--seq_devices", "2", "--num_devices", "4"],
-    ["--f32_matmul", "3x"],
-    ["--coordinator_address", "localhost:1234"], ["--device", "tpu"],
+    ["--f32_matmul", "3x"], ["--device", "tpu"],
 ])
 def test_unsupported_flags_raise(tmp_path, flag):
     with pytest.raises(ValueError, match="ROADMAP"):
@@ -136,27 +136,31 @@ def test_device_counts_of_one_device_run(tmp_path, flag):
 @pytest.mark.parametrize("flag, match", [
     (["--model_devices", "2"], "--model_devices 2 is not supported"),
     (["--pipeline_devices", "2"], "--pipeline_devices 2 is not supported"),
-    (["--num_devices", "2"], "--num_devices 2 is not supported"),
 ])
 def test_parallelism_stays_refused(tmp_path, flag, match):
-    """Device counts that need tensor, pipeline or data parallelism are
-    refused before any work."""
+    """Device counts that need tensor or pipeline parallelism are refused
+    before any work."""
     with pytest.raises(ValueError, match=match):
         cli.main(_setup(tmp_path) + ["--device", "cpu"] + flag)
 
 
 def test_num_devices_zero_counts_the_gpus(monkeypatch):
     """--num_devices 0 on the card means every GPU torch sees: data
-    parallelism (refused) on four, no mesh on one."""
+    parallelism over the four, worker j on cuda:j, and no worker at all
+    on one."""
+    import torch
     from lstm_rnn_tpu_torch.config import parse_config
+    from lstm_rnn_tpu_torch.parallel.launch import plan
     argv = ["--network", "n.jsn", "--num_devices", "0", "--device", "cuda"]
+    cuda = torch.device("cuda", 0)
     monkeypatch.setattr("torch.cuda.device_count", lambda: 4)
-    with pytest.raises(ValueError, match="--num_devices 0 is not supported"):
-        parse_config(argv)
+    assert plan(parse_config(argv), cuda).devices == tuple(
+        torch.device("cuda", j) for j in range(4))
     # a 4-block seq mesh on the four is the 1-D mesh, not DP x SP
-    assert parse_config(argv + ["--seq_devices", "4"]).num_devices == 0
+    cfg = parse_config(argv + ["--seq_devices", "4"])
+    assert cfg.num_devices == 0 and plan(cfg, cuda) is None
     monkeypatch.setattr("torch.cuda.device_count", lambda: 1)
-    assert parse_config(argv).num_devices == 0
+    assert plan(parse_config(argv), cuda) is None
 
 
 @pytest.mark.parametrize("flag", [["--device", "cuda"], ["--cuda", "true"]])

@@ -6,8 +6,11 @@ the wide tail (csrc/softmax_ce_wide.cu) and the plain tail
 (csrc/softmax_ce_plain.cu), at small and full TIMIT and LVCSR width,
 float32 and bfloat16 modes, the wrappers' refusals, the routes of
 --remat_blocks training through the carry kernels and the plain tail, the
-CHiME recipes' layer and tail shapes, and a weight-noise step of the
-kernel route against the scan route.
+CHiME recipes' layer and tail shapes, a weight-noise step of the kernel
+route against the scan route, and data parallelism: the kernels at a
+rank's rows (13 and 25 of the TIMIT recipe's 50, one empty) and a
+Trainer(data_group=) step of two ranks (on cuda:0 over gloo; on two GPUs
+over NCCL) against the one-process step.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -1416,3 +1419,176 @@ def test_noisy_step_kernel_route_matches_scan_route():
     assert abs(l_k - l_s) <= 1e-5 * abs(l_s)
     assert _rel_err(u_k, u_s) <= 1e-4
     assert _rel_err(out["clean"][1], u_s) > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: each rank runs every training kernel on its block of
+# the fraction. The TIMIT recipe's 50 sequences pad to 13 rows a rank on 4
+# GPUs (the last rank's 2 rows empty), 25 on 2.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [13, 25])
+@pytest.mark.parametrize("P", [117, 250])
+def test_per_rank_lstm_kernels_match_twin(P, B, dtype):
+    """K0, K1 and K2 at one TIMIT layer's width and one rank's rows, the
+    last row empty: the twin's values, and the empty row's h and dx
+    exactly zero."""
+    T, H, D = 60, 125, 2
+    args = list(make_layer(T, B, P, H, D, seed=B + P))
+    args[5] = args[5].clone()
+    args[5][-1] = 0
+    with torch.inference_mode():
+        y = lstm_scan_fused(*args, 1.0, dtype)
+        y_r = lstm_scan_reference(*args, 1.0, dtype)
+    assert (y.float() - y_r.float()).abs().max().item() <= TOL[dtype]
+    assert not y[:, -1].any()
+    got = lstm_fwd_save(*args, 1.0, dtype)
+    want = lstm_scan_reference(*args, 1.0, dtype, save=True)
+    for name, g, w in zip(("h", "c", "gates"), got, want):
+        assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+    h, c, gates = got
+    dh = torch.randn(T, B, D * H, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(B)) * 3.0
+    x, w_in, w_rec, peep, _, lengths = args
+    need_dx = P == 250
+    bwd = (x, w_in, w_rec, peep, lengths, h, c, gates, dh, 1.0, True, dtype,
+           need_dx)
+    got, want = lstm_bwd(*bwd), lstm_scan_bwd_reference(*bwd)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dW_in", "dW_rec", "dpeep", "dbias"), got,
+                          want):
+        if g is not None:
+            assert torch.isfinite(g).all(), name
+            assert _rel_err(g, w) <= REL[dtype], (name, _rel_err(g, w))
+    if need_dx:
+        assert not got[0][:, -1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [13, 25])
+@pytest.mark.parametrize("S", [183, 10112])
+def test_per_rank_tails_match_twin(S, B, dtype):
+    """K3f/K3b (S = 183) and K4f/K4b (S = 10,112) over one rank's frames
+    ([T, B] order, T = 60), the last row's frames dummies: the twins'
+    values, and those frames' dh exactly zero."""
+    T, P = 60, 250
+    h, w, b, tc = _tail(T * B, P, S, seed=B)
+    tc[B - 1::B] = -1
+    g = torch.tensor(1.0, device="cuda")
+    if S == 183:
+        loss, cnt, p = softmax_ce_proj_fwd(h, w, b, tc, 1.0, dtype)
+        loss_r, cnt_r, p_r = softmax_ce_fwd_reference(h, w, b, tc, 1.0,
+                                                      dtype)
+        assert _elem_rel(p, p_r) <= P_REL[dtype]
+        got = softmax_ce_proj_bwd(p, h, w, tc, g, 1.0, dtype)
+        want = softmax_ce_bwd_reference(p, h, w, tc, g, 1.0, dtype)
+        rel = TAIL_REL[dtype]
+    else:
+        loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h, w, b, tc,
+                                                             1.0, dtype)
+        loss_r, cnt_r, *stats = sc.wide_stats_reference(a, tc)
+        for x, y in zip((off, ssum, pt), stats):
+            assert _elem_rel(x, y) <= STAT_REL
+        got = sc.softmax_ce_wide_bwd(a, h, w, tc, off, ssum, pt, g, 1.0,
+                                     dtype)
+        want = sc.softmax_ce_wide_bwd_reference(a, h, w, tc, off, ssum, pt,
+                                                g, 1.0, dtype)
+        rel = WIDE_REL[dtype]
+    torch.cuda.synchronize()
+    assert abs(loss.item() - loss_r.item()) <= 1e-5 * abs(loss_r.item())
+    assert abs(cnt.item() - cnt_r.item()) <= 1
+    for name, x, y in zip(("dh", "dW", "db"), got, want):
+        assert _rel_err(x, y) <= rel, (name, _rel_err(x, y))
+    assert not got[0][B - 1::B].any()
+
+
+def _dp_net():
+    from lstm_rnn_tpu_torch.network import Network
+    net = Network([
+        {"name": "input", "type": "input", "size": 3},
+        {"name": "l1", "type": "blstm", "size": 16, "bias": 1.0},
+        {"name": "l2", "type": "blstm", "size": 16, "bias": 1.0},
+        {"name": "output", "type": "softmax", "size": 7, "bias": 1.0},
+        {"name": "postoutput", "type": "multiclass_classification",
+         "size": 7}])
+    net.init_params(5)
+    return net
+
+
+def _dp_batch(b):
+    """T = 30, b rows (ragged, the last empty), host arrays."""
+    rng = np.random.RandomState(7)
+    T = 30
+    lengths = rng.randint(1, T + 1, b)
+    lengths[-1] = 0
+    pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
+    tc = np.where(pt > 0, rng.randint(0, 7, (T, b)), -1).astype(np.int32)
+    return rng.randn(T, b, 3).astype(np.float32), tc, pt
+
+
+def _dp_trainer(group=None, device="cuda"):
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    return Trainer(_dp_net(), None, learning_rate=1e-2, momentum=0.9,
+                   hybrid_online_batch=True, data_group=group,
+                   device=None if group else device)
+
+
+def _dp_step_worker(group, out_dir, b):
+    """One SGD step of Trainer(data_group=) on this rank's block of the
+    padded batch, on its GPU: its loss, count, momentum delta and
+    parameters, and its kernel launches."""
+    tr = _dp_trainer(group)
+    blk = [torch.from_numpy(a).to(group.device)
+           for a in group.block(*_dp_batch(b))]
+    before = (lstm_fwd_save.launches, lstm_bwd.launches,
+              softmax_ce_proj_fwd.launches, softmax_ce_proj_bwd.launches)
+    err, corr = tr.train_step(*blk)
+    torch.cuda.synchronize()
+    after = (lstm_fwd_save.launches, lstm_bwd.launches,
+             softmax_ce_proj_fwd.launches, softmax_ce_proj_bwd.launches)
+    torch.save({"err": err.item(), "corr": int(corr),
+                "v": tr.exact_params(tr.velocity), "w": tr.exact_params(),
+                "launches": [x - y for x, y in zip(after, before)]},
+               f"{out_dir}/rank{group.rank}.pt")
+
+
+def _dp_step_matches(tmp_path, devices, backend):
+    """The ranks' step against the one-process step on cuda:0 from the
+    same weights: losses and counts summed, every rank's momentum delta
+    within 1e-6 of the largest (f32 sums split between the ranks), the
+    ranks' weights equal, and each rank launched K1 and K2 once a layer
+    and K3f and K3b once."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    b = 9
+    tr = _dp_trainer()
+    err, corr = tr.train_step(*(torch.from_numpy(a).cuda()
+                                for a in _dp_batch(b)))
+    want_v = tr.exact_params(tr.velocity)
+    start(_dp_step_worker, devices, (str(tmp_path), b), backend=backend)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(len(devices))]
+    assert abs(sum(r["err"] for r in ranks) - err.item()) <= (
+        1e-6 * abs(err.item()))
+    assert sum(r["corr"] for r in ranks) == int(corr)
+    vmax = max(np.abs(v).max() for layer in want_v.values()
+               for v in layer.values())
+    for r in ranks:
+        assert r["launches"] == [2, 2, 1, 1]
+        d = max(np.abs(r["v"][n][k] - want_v[n][k]).max()
+                for n in want_v for k in want_v[n])
+        assert d <= 1e-6 * vmax, d / vmax
+        assert all(np.array_equal(r["w"][n][k], ranks[0]["w"][n][k])
+                   for n in want_v for k in want_v[n])
+
+
+def test_two_rank_gloo_step_on_one_gpu(tmp_path):
+    """Two ranks on cuda:0 over gloo through Trainer(data_group=)."""
+    _dp_step_matches(tmp_path, [torch.device("cuda", 0)] * 2, "gloo")
+
+
+def test_nccl_step_on_two_gpus(tmp_path):
+    """Two ranks on cuda:0 and cuda:1 over NCCL through
+    Trainer(data_group=)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    _dp_step_matches(tmp_path, [torch.device("cuda", j) for j in range(2)],
+                     None)
