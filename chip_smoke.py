@@ -206,14 +206,40 @@ weights from a seed, and holds every kernel against its plain twin:
     each seeing half of the GPUs, against --num_devices of the same
     total; and the step's frames/s and the gradient all-reduce's time on
     1, 2 and 4 GPUs (TIMIT f32 and bf16 at parallel_sequences 50 and at
-    50 a GPU, LVCSR f32 at 50 a GPU).
+    50 a GPU, LVCSR f32 at 50 a GPU);
+36. data parallelism composed with sequence parallelism (DP x SP) on one
+    card: K6b-f, K6b-b and K6f at a rank's block (B = 25 of 50, T = 250
+    of 500, P = 117 and 250, both directions, f32 and bf16) against their
+    twins at phase 18's tolerances, an all-padding block's outputs exactly
+    zero; two ranks on cuda:0 over gloo, each with a 2-block seq mesh of
+    cuda:0, through Trainer(seq_mesh=, data_group=): the recipe step (B =
+    50, and 49) against the one-process 2-block SP step (loss, count,
+    every rank's update within 1e-6), a rank's exact launches (20 K6b-f,
+    20 K6b-b), the controls that must fail (no all-reduce, padding rows
+    with real targets), a rank all padding adding exactly zero, 2 epochs
+    over phase 7's corpus against the one-process SP Trainer; the CLI's
+    --num_devices 4 --seq_devices 2 refused on fewer than 4 GPUs;
+37. data-parallel streaming on one card: K6f+K7 at a rank's 32 streams
+    against its twin at phase 14's tolerance; two ranks on cuda:0 over
+    gloo stream 32 streams each through the CLI's DP streaming path
+    (cli._apply_block) in 64-frame chunks, f32 and bf16, against the
+    one-process streamed forward of all 64, with a rank's exact launches;
+38. DP x SP and DP streaming on distinct GPUs, when torch sees at least
+    4 (over NCCL): the CLI's --num_devices 4 --seq_devices 2 against
+    --seq_devices 2 and one GPU (train, 2 epochs) and one GPU (forward),
+    two multi-host processes of 2 GPUs with --seq_devices 2 against it,
+    --stream_chunk 64 --num_devices 2 and 4 against one GPU; training
+    frames/s of DP x SP 2 x 2 beside one GPU, --seq_devices 4 and
+    --num_devices 4, and streaming frames/s and chunk latency on 1, 2
+    and 4 GPUs.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
 12, 17, 20, 25) give the engine's device time per product.
 
 scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
-GPUs; scripts/torch_dp_multigpu.py runs phase 35 alone.
+GPUs; scripts/torch_dp_multigpu.py runs phase 35 alone, and
+scripts/torch_dp_sp_multigpu.py phase 38.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -1960,29 +1986,29 @@ SP_STEP_TOL = {"loss": 1e-5, "grad": 1e-4}
 SP_EPOCH_TOL = 1e-5
 
 
-def carry_grad_layer(torch, P, seed):
-    """One SP block of a TIMIT layer, one direction: the recipe's +-0.1
-    weights, N(0, 1) inputs; non-zero (h0, c0) of the size a block hands
-    on and non-zero cotangents; lengths full, ending inside the block
-    (rows 8-19), 0 (rows 4-7: one whole kernel block, and row 1) and 1
-    (row 2)."""
+def carry_grad_layer(torch, P, seed, T=T_BLOCK, rows=B):
+    """One SP block of a TIMIT layer, one direction, T frames of `rows`
+    sequences: the recipe's +-0.1 weights, N(0, 1) inputs; non-zero (h0,
+    c0) of the size a block hands on and non-zero cotangents; lengths
+    full, ending inside the block (rows 8-19), 0 (rows 4-7: one whole
+    kernel block, and row 1) and 1 (row 2)."""
     rng = np.random.RandomState(seed)
 
     def u(lo, hi, *s):
         return torch.tensor(rng.uniform(lo, hi, s), dtype=torch.float32,
                             device="cuda")
-    T = T_BLOCK
-    x = torch.tensor(rng.randn(T, B, P), dtype=torch.float32, device="cuda")
-    lengths = np.full(B, T)
+    x = torch.tensor(rng.randn(T, rows, P), dtype=torch.float32,
+                     device="cuda")
+    lengths = np.full(rows, T)
     lengths[8:20] = rng.randint(1, T, 12)
     lengths[4:8], lengths[1], lengths[2] = 0, 0, 1
     args = (x, u(-0.1, 0.1, 1, P, 4 * H), u(-0.1, 0.1, 1, H, 4 * H),
             u(-0.1, 0.1, 1, 3, H), u(-0.1, 0.1, 1, 4 * H),
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
-    carry = (u(-0.9, 0.9, 1, B, H), u(-3.0, 3.0, 1, B, H))
-    cts = (torch.tensor(rng.randn(T, B, H), dtype=torch.float32,
+    carry = (u(-0.9, 0.9, 1, rows, H), u(-3.0, 3.0, 1, rows, H))
+    cts = (torch.tensor(rng.randn(T, rows, H), dtype=torch.float32,
                         device="cuda"),
-           u(-1.0, 1.0, 1, B, H), u(-1.0, 1.0, 1, B, H))
+           u(-1.0, 1.0, 1, rows, H), u(-1.0, 1.0, 1, rows, H))
     return args, carry, cts
 
 
@@ -4062,10 +4088,11 @@ def dp_rank_steps(torch, card):
     return out
 
 
-def _epoch_trainer(group, workdir):
-    """The 2-epoch Trainer of phase 34 over phase 7's corpus (stochastic,
-    shuffled fractions, f32), data-parallel over `group` (None: one
-    process); returns (trainer, train set, val set)."""
+def _epoch_trainer(group, workdir, mesh=None):
+    """The 2-epoch Trainer of phases 34 and 36 over phase 7's corpus
+    (stochastic, shuffled fractions, f32), data-parallel over `group`
+    (None: one process), sequence-parallel over `mesh` (None: no SP);
+    returns (trainer, train set, val set)."""
     from lstm_rnn_tpu_torch import cli
     from lstm_rnn_tpu_torch.config import parse_config
     from lstm_rnn_tpu_torch.models.flagship import build_timit_network
@@ -4083,8 +4110,8 @@ def _epoch_trainer(group, workdir):
     net = build_timit_network(seed=SEED)
     return Trainer(net, train, val, learning_rate=1e-4, momentum=0.9,
                    max_epochs=2, hybrid_online_batch=True,
-                   device=None if group else "cuda",
-                   data_group=group), train, val
+                   device=None if group or mesh else "cuda",
+                   seq_mesh=mesh, data_group=group), train, val
 
 
 def _run_epochs(torch, tr):
@@ -4521,6 +4548,739 @@ def dp_rates(torch, card, workdir, n):
     return res
 
 
+# DP x SP and data-parallel streaming (phases 36-38): each data-parallel
+# rank's block of B runs sequence-parallel on a seq mesh of its own (DP x
+# SP), or streams its block of the concurrent streams chunk by chunk from
+# its own carried state (DP streaming). On one card two ranks share
+# cuda:0 over gloo, each DP x SP rank with a 2-block mesh of cuda:0.
+DPSP_SEQ = 2
+# a DP x SP rank's block: the recipe's 50 rows over 2 ranks, T = 500 over
+# 2 blocks
+DPSP_ROWS, DPSP_T = B // 2, T_TRAIN // DPSP_SEQ
+# a DP streaming rank's streams: the streaming stack's 64 over 2 ranks
+DPSTREAM_ROWS = B_STREAM // 2
+# K6b-f, K6b-b and K6f launches of one DP x SP rank's training step: 5
+# layers x 2 directions x 2 blocks
+DPSP_PER_STEP = 5 * 2 * DPSP_SEQ
+
+
+def dp_sp_rank_kernels(torch):
+    """Phase 36a: K6b-f and K6b-b (the DP x SP training step's blocks) and
+    K6f (its validation passes' and DP x SP serving's blocks) at one
+    rank's block (B = 25 of the recipe's 50, T = 250 of 500; P = 117
+    without dx, P = 250 with it; both directions; f32 and bf16) against
+    their twins at phase 18's tolerances, from non-zero carries, zero
+    carries as the K6b-f control that must fail, with times; and a block
+    whose rows are all padding (no valid frame, zero carries and final
+    cotangents, N(0, 1) inputs and output cotangents): every output of the
+    three kernels exactly zero; the twins' times (dir_offset 0)."""
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    res = {}
+    for P, need_dx in ((117, False), (250, True)):
+        args, (h0, c0), (dh, dhf, dcf) = carry_grad_layer(
+            torch, P, P + 36, T=DPSP_T, rows=DPSP_ROWS)
+        lens = args[5].cpu().numpy()
+        z = torch.zeros_like(h0)
+        pad_args = args[:5] + (torch.zeros_like(args[5]),)
+        shape = f"B={DPSP_ROWS} T={DPSP_T} P={P}"
+        for dir_offset in (0, 1):
+            for name in ("float32", "bfloat16"):
+                dt = getattr(torch, name)
+
+                def fwd(a=args, hh=h0, cc=c0):
+                    return lc.lstm_fwd_save_carry(*a, hh, cc, 1.0, dt, None,
+                                                  dir_offset)
+
+                def k6f(a=args, hh=h0, cc=c0):
+                    return lc.lstm_scan_fused_carry(*a, hh, cc, 1.0, True, dt,
+                                                    True, None, dir_offset)
+                got = fwd()
+                want = lc.lstm_scan_carry_reference(
+                    *args, h0, c0, 1.0, dt, None, dir_offset, None, True)
+                errs = [rel_err(g, w) for g, w in zip((*got[:3], *got[3]),
+                                                      (*want[:3], *want[3]))]
+                ctrl = max(rel_err(g, w)[0] for g, w in zip(
+                    (*fwd(hh=z, cc=z)[:3],), want[:3]))
+                got6 = k6f()
+                want6 = lc.lstm_scan_carry_reference(*args, h0, c0, 1.0, dt,
+                                                     None, dir_offset)
+                err6 = max((g.float() - w.float()).abs().max().item()
+                           for g, w in zip((got6[0], *got6[1]),
+                                           (want6[0], *want6[1])))
+                h, c, g, _ = got
+                bwd_args = (args[0], args[1], args[2], args[3], args[5], h,
+                            c, g, h0, c0, dh, dhf, dcf, 1.0, True, dt,
+                            need_dx, None, dir_offset)
+                got_b = lc.lstm_bwd_carry(*bwd_args)
+                want_b = lc.lstm_scan_carry_bwd_reference(*bwd_args)
+                errs_b = [rel_err(a, b) if a is not None else (0.0, 0.0)
+                          for a, b in zip(got_b, want_b)]
+                # the all-padding block: what a rank whose rows are all
+                # padding runs
+                pf = fwd(pad_args, z, z)
+                ph, pc, pg, _ = pf
+                pb = lc.lstm_bwd_carry(
+                    args[0], args[1], args[2], args[3], pad_args[5], ph, pc,
+                    pg, z, z, dh, z, z, 1.0, True, dt, need_dx, None,
+                    dir_offset)
+                p6 = k6f(pad_args, z, z)
+                zero = not any(t.any().item() for t in (
+                    *pf[:3], *pf[3], p6[0], *p6[1],
+                    *[t for t in pb if t is not None]))
+                torch.cuda.synchronize()
+                finite = all(torch.isfinite(t.float()).all() for t in (
+                    *got[:3], *got[3], got6[0], *[t for t in got_b
+                                                   if t is not None]))
+                ms_f = time_ms(torch, fwd, 10)
+                ms_b = time_ms(torch, lambda: lc.lstm_bwd_carry(*bwd_args), 5)
+                ms_6 = time_ms(torch, k6f, 10)
+                frel, brel = max(e[0] for e in errs), max(e[0] for e in errs_b)
+                lim_f, lim_b = REL["lstm_fwd_save"][name], REL["lstm_bwd"][name]
+                phase("dpsp-kernel", f"{shape} dir_offset={dir_offset} {name}:"
+                      f" K6b-f rel {frel:.2e} (tol {lim_f:.1e}; control zero "
+                      f"carries {ctrl:.2e}) {ms_f:.3f} ms; K6b-b rel "
+                      f"{brel:.2e} [" + per_output(
+                          ("dx", "dW_in", "dW_rec", "dpeep", "dbias", "dh0",
+                           "dc0"), errs_b) + f"] (tol {lim_b:.1e}) "
+                      f"{ms_b:.3f} ms; K6f max_abs_err {err6:.3e} (tol "
+                      f"{TOL[name]:.0e}) {ms_6:.3f} ms; an all-padding "
+                      f"block's outputs exactly zero: {zero}")
+                if not (finite and frel <= lim_f and brel <= lim_b
+                        and err6 <= TOL[name] and zero):
+                    raise AssertionError(f"K6b/K6f at a DP x SP rank's block "
+                                         f"(P={P}, dir_offset={dir_offset}, "
+                                         f"{name}): {frel}, {brel}, {err6}, "
+                                         f"all-padding zero {zero}")
+                if not ctrl > lim_f:
+                    raise AssertionError(f"the K6b-f check passes zero "
+                                         f"carries: {ctrl}")
+                if dir_offset:
+                    continue
+                plain = [time_ms(torch, fn, 1) for fn in (
+                    lambda: lc.lstm_scan_carry_reference(
+                        *args, h0, c0, 1.0, dt, None, 0, None, True),
+                    lambda: lc.lstm_scan_carry_bwd_reference(*bwd_args),
+                    lambda: lc.lstm_scan_carry_reference(
+                        *args, h0, c0, 1.0, dt, None, 0))]
+                for kind, err, ms, plain_ms, dx in (
+                        ("lstm_fwd_carry_save", max(e[1] for e in errs),
+                         ms_f, plain[0], False),
+                        ("lstm_bwd_carry", max(e[1] for e in errs_b), ms_b,
+                         plain[1], need_dx),
+                        ("lstm_fwd_carry", err6, ms_6, plain[2], False)):
+                    res[(kind, shape, name)] = dict(
+                        err=err, ms=ms, plain_ms=plain_ms,
+                        cost=lstm_cost(kind, P, lens, name, dx, T=DPSP_T,
+                                       D=1))
+    return res
+
+
+def _dpsp_card_worker(group, workdir):
+    """Phase 36b-c on one rank (its seq mesh: cuda:0 twice): each of
+    DP_VARIANTS' steps from fresh weights, a step of one sequence (rank
+    1's block all padding: its loss, count and gradients before the
+    all-reduce), then the 2-epoch Trainer; the rank's results and
+    launches to workdir."""
+    import contextlib
+    import io
+    import torch
+    mesh = list(group.seq_mesh)
+    w = wrappers()
+    out = {}
+    for name, rows, skip, real_pad in DP_VARIANTS:
+        blk = rank_block(torch, dp_batch(rows, S_STATES, seed=36), group,
+                         real_pad)
+        tr = make_trainer("auto", "float32", seq_mesh=mesh, data_group=group)
+        if skip:
+            tr._sum_over_ranks = lambda tensors: None
+        for f in w.values():
+            f.launches = 0  # the rank's step starts here
+        err, corr = tr.train_step(*blk)
+        torch.cuda.synchronize()
+        out[name] = dict(err=err.item(), corr=int(corr),
+                         params=tr.exact_params(),
+                         velocity=tr.exact_params(tr.velocity),
+                         launches={k: f.launches for k, f in w.items()})
+        if name == "full":  # the step's wall, both ranks sharing the card
+            out["step_ms"] = step_ms(torch, tr, blk)
+        del tr, blk
+    tr = make_trainer("auto", "float32", seq_mesh=mesh, data_group=group)
+    err, corr, grads = tr.grad_fraction(*rank_block(
+        torch, dp_batch(1, S_STATES, seed=36), group))
+    out["one row"] = dict(err=err.item(), corr=int(corr), zero=not any(
+        g.any().item() for layer in grads.values() for g in layer.values()))
+    del tr, grads
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr, _, _ = _epoch_trainer(group, workdir, mesh)
+    for f in w.values():
+        f.launches = 0  # the rank's 2 epochs start here
+    t0 = time.perf_counter()
+    rows = _run_epochs(torch, tr)
+    out["epochs"] = dict(rows=rows, params=tr.exact_params(),
+                         wall=time.perf_counter() - t0,
+                         launches={k: f.launches for k, f in w.items()})
+    torch.save(out, os.path.join(workdir, f"dpsp_rank{group.rank}.pt"))
+
+
+def dp_sp_on_one_card(torch, workdir):
+    """Phase 36b-d: two DP x SP ranks on cuda:0 over gloo, each with a
+    2-block seq mesh of cuda:0, through Trainer(seq_mesh=, data_group=) in
+    spawned workers: the recipe step (T = 500, B = 50 full rows; and B =
+    49, its padding row on rank 1) against the one-process step on the
+    same 2-block mesh from the same weights (the losses and counts summed,
+    every rank's update within DP_TOL), with a rank's exact launches (20
+    K6b-f, 20 K6b-b, nothing else); the controls (the all-reduce left out,
+    padding rows with real targets) must fail; one sequence over the two
+    ranks: rank 1's loss, count and gradients exactly zero; 2 epochs over
+    phase 7's corpus against the one-process SP Trainer; and, on fewer
+    than 4 GPUs, the CLI's --num_devices 4 --seq_devices 2 refused with
+    the JAX CLI's message. Returns a rank's launches of the full step and
+    of the 2 epochs."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    write_train_corpus(workdir)
+    mesh = [torch.device("cuda", 0)] * DPSP_SEQ
+    t0 = time.perf_counter()
+    start(_dpsp_card_worker, [mesh] * 2, (workdir,), backend="gloo")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"dpsp_rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    single = {}
+    for rows in (B, B - 1):
+        tr = make_trainer("auto", "float32", seq_mesh=mesh)
+        batch = on_card(torch, dp_batch(rows, S_STATES, seed=36))
+        err, corr = tr.train_step(*batch)
+        single[rows] = (err.item(), int(corr), tr.exact_params(),
+                        tr.exact_params(tr.velocity))
+        if rows == B:
+            one_ms = step_ms(torch, tr, batch)
+        del tr, batch
+    for name, rows, *_ in DP_VARIANTS:
+        err1, corr1, want, want_v = single[rows]
+        err = sum(r[name]["err"] for r in ranks)
+        corr = sum(r[name]["corr"] for r in ranks)
+        lrel = abs(err - err1) / abs(err1)
+        urel = max(_tree_rel(r[name]["velocity"], want_v) for r in ranks)
+        wrel = max(_tree_rel(r[name]["params"], want) for r in ranks)
+        same = all(np.array_equal(ranks[0][name]["params"][n][k],
+                                  ranks[1][name]["params"][n][k])
+                   for n in want for k in want[n])
+        ok = (lrel <= DP_TOL and corr == corr1 and urel <= DP_TOL
+              and wrel <= DP_TOL)
+        phase("dpsp-card", f"{name} (B={rows} over 2 ranks x {DPSP_SEQ} "
+              f"blocks of cuda:0, gloo, f32) vs one process's {DPSP_SEQ}-"
+              f"block SP step: loss {err:.6f} vs {err1:.6f} (rel "
+              f"{lrel:.2e}), count {corr} vs {corr1}, update rel "
+              f"{urel:.2e}, weights rel {wrel:.2e} (tol {DP_TOL:.0e}); the "
+              f"ranks' parameters equal: {same}; "
+              + ("matches" if ok else "differs"))
+        if (name in ("full", "padded")) != ok:
+            raise AssertionError(f"the DP x SP step '{name}' "
+                                 + ("differs" if not ok else
+                                    "passes the check"))
+        if name in ("full", "padded") and not same:
+            raise AssertionError("the DP x SP ranks' parameters differ")
+    expect_step = {k: 0 for k in ranks[0]["full"]["launches"]
+                   if not k.startswith("gemm:")}
+    expect_step.update(lstm_fwd_carry_save=DPSP_PER_STEP,
+                       lstm_bwd_carry=DPSP_PER_STEP)
+    for rank in ranks:
+        check_counts(rank["full"]["launches"], expect_step)
+    pad = ranks[1]["one row"]
+    phase("dpsp-card", "rank launches of one step: " + str(
+        {k: v for k, v in ranks[0]["full"]["launches"].items() if v})
+        + f" (both ranks; workers {wall:.1f} s wall); the B={B} step "
+        f"{ranks[0]['step_ms']:.2f} ms on rank 0 (both ranks sharing the "
+        f"card, mean of 5) against {one_ms:.2f} ms in one process on the "
+        f"same 2-block mesh; one sequence over "
+        f"the two ranks: rank 1 (all padding) loss {pad['err']}, count "
+        f"{pad['corr']}, gradients exactly zero: {pad['zero']}")
+    if not (pad["err"] == 0.0 and pad["corr"] == 0 and pad["zero"]):
+        raise AssertionError(f"an all-padding DP x SP rank adds {pad}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr, train, val = _epoch_trainer(None, workdir, mesh)
+    t0 = time.perf_counter()
+    rows1 = _run_epochs(torch, tr)
+    wall1 = time.perf_counter() - t0
+    n_train, n_val = train.num_fractions(), val.num_fractions()
+    expect = {k: 0 for k in ranks[0]["epochs"]["launches"]
+              if not k.startswith("gemm:")}
+    expect.update(lstm_fwd_carry=DPSP_PER_STEP * n_val * 2,
+                  lstm_fwd_carry_save=DPSP_PER_STEP * n_train * 2,
+                  lstm_bwd_carry=DPSP_PER_STEP * n_train * 2)
+    for r, rank in enumerate(ranks):
+        ep = rank["epochs"]
+        err_rel = max(abs(a[i] - b[i]) / abs(b[i]) for a, b in
+                      zip(ep["rows"], rows1) for i in (0, 2))
+        cls = max(abs(a[i] - b[i]) for a, b in zip(ep["rows"], rows1)
+                  for i in (1, 3))
+        wrel = _tree_rel(ep["params"], tr.exact_params())
+        phase("dpsp-card", f"rank {r}, 2 epochs of Trainer(seq_mesh=, "
+              f"data_group=) over phase 7's corpus ({ep['wall']:.1f} s): "
+              f"epochs {ep['rows']} against one process's {DPSP_SEQ}-block "
+              f"SP Trainer's {rows1} ({wall1:.1f} s): errors rel "
+              f"{err_rel:.2e}, class errors "
+              f"within {cls:.2e}, weights rel {wrel:.2e} (tol {DP_TOL:.0e})")
+        if not (err_rel <= DP_TOL and wrel <= DP_TOL
+                and cls <= 1.5 / min(train.total_timesteps,
+                                     val.total_timesteps)):
+            raise AssertionError("DP x SP training differs from one process")
+        check_counts(ep["launches"], expect)
+    del tr
+    if torch.cuda.device_count() < 4:
+        nc, net_path, _, _ = write_inputs(workdir)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--network", net_path, "--train", "false",
+                           "--ff_input_file", nc, "--ff_output_file",
+                           os.path.join(workdir, "dpsp4"), "--num_devices",
+                           "4", "--seq_devices", "2"])
+        text = buf.getvalue()
+        want = (f"num_devices=4 but only {torch.cuda.device_count()} "
+                "devices available")
+        if rc == 0 or want not in text or "Computing" in text:
+            raise AssertionError(f"--num_devices 4 --seq_devices 2 ran on "
+                                 f"{torch.cuda.device_count()} GPU(s) (rc "
+                                 f"{rc})")
+        phase("dpsp-card", f"cli --num_devices 4 --seq_devices 2 on "
+              f"{torch.cuda.device_count()} GPU(s): refused (rc {rc}): "
+              f"{text.strip().splitlines()[-1][:100]}")
+    torch.cuda.empty_cache()
+    return ranks[0]["full"]["launches"], ranks[0]["epochs"]["launches"]
+
+
+def dp_stream_rank_kernel(torch):
+    """Phase 37a: the carry kernel K6f+K7 at one DP streaming rank's
+    streams (B = 32 of the 64, one 64-frame chunk of the streaming stack's
+    layer, H = 250, P = 117 and 250) against its twin at phase 14's
+    tolerance, from non-zero carries with chunk_mask's step patterns; zero
+    carries as the control that must fail; its time beside the twin's."""
+    from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    T, Bs, Hs = CHUNK, DPSTREAM_ROWS, H_STREAM
+    mask = chunk_mask(torch, T, Bs)
+    steps = mask.sum(dim=1).cpu().numpy()
+    res = {}
+    for P in (117, 250):
+        rng = np.random.RandomState(P + 37)
+
+        def u(lo, hi, *shape):
+            return torch.tensor(rng.uniform(lo, hi, shape),
+                                dtype=torch.float32, device="cuda")
+        x = torch.tensor(rng.randn(T, Bs, P), dtype=torch.float32,
+                         device="cuda")
+        args = (x, u(-0.1, 0.1, 1, P, 4 * Hs), u(-0.1, 0.1, 1, Hs, 4 * Hs),
+                u(-0.1, 0.1, 1, 3, Hs), u(-0.1, 0.1, 1, 4 * Hs),
+                torch.full((Bs,), T, dtype=torch.int32, device="cuda"))
+        h0, c0 = u(-0.9, 0.9, 1, Bs, Hs), u(-3.0, 3.0, 1, Bs, Hs)
+        z = torch.zeros_like(h0)
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+
+            def kernel(h=h0, c=c0):
+                return lc.lstm_scan_fused_carry(*args, h, c, 1.0, True, dt,
+                                                True, None, 0, mask)
+            want = lc.lstm_scan_carry_reference(*args, h0, c0, 1.0, dt,
+                                                None, 0, mask)
+
+            def errs(got):
+                return [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip((got[0], *got[1]),
+                                        (want[0], *want[1]))]
+            got = kernel()
+            torch.cuda.synchronize()
+            err = max(errs(got))
+            ctrl = max(errs(kernel(z, z)))
+            finite = all(torch.isfinite(g.float()).all()
+                         for g in (got[0], *got[1]))
+            ms = time_ms(torch, kernel, 20)
+            plain = time_ms(torch, lambda: lc.lstm_scan_carry_reference(
+                *args, h0, c0, 1.0, dt, None, 0, mask), 1)
+            phase("dpstream-kernel", f"B={Bs} P={P} {name}: max_abs_err "
+                  f"{err:.3e} (tol {TOL[name]:.0e}; control zero carries "
+                  f"{ctrl:.2e}); kernel {ms:.3f} ms, twin {plain:.1f} ms "
+                  f"[T={T} H={Hs} D=1, {int(steps.sum())} valid steps]")
+            if not (finite and err <= TOL[name]):
+                raise AssertionError(f"the carry kernel at a DP streaming "
+                                     f"rank's B={Bs} (P={P}, {name}): {err}")
+            if not ctrl > TOL[name]:
+                raise AssertionError(f"the check passes zero carries: {ctrl}")
+            res[("lstm_fwd_carry", f"B={Bs} P={P}", name)] = dict(
+                err=err, ms=ms, plain_ms=plain,
+                cost=lstm_cost("lstm_fwd_carry", P, steps, name, T=T, D=1,
+                               H=Hs))
+    return res
+
+
+def _stream_fraction(torch, seed):
+    """stream_batch's T_STREAM frames of B_STREAM streams as a DataSet
+    fraction's host arrays (inputs, pattypes)."""
+    import types
+    x, pt = stream_batch(torch, seed)
+    return types.SimpleNamespace(inputs=x.cpu().numpy(),
+                                 pattypes=pt.cpu().numpy())
+
+
+def _dp_stream_worker(group, workdir):
+    """Phase 37b on one rank: its block of the 64 streams through the
+    CLI's DP streaming path (cli._apply_block with --stream_chunk's
+    chunks: B padded to parallel_sequences 64 over the ranks, the rank's
+    32 streams in 64-frame chunks from a fresh state on its device, the
+    blocks gathered on rank 0), f32 and bf16, after a warm-up; rank 0
+    saves the posteriors, every rank its launches and wall."""
+    import torch
+    from lstm_rnn_tpu_torch import cli
+    frac = _stream_fraction(torch, SEED + 37)
+    w = wrappers()
+    out = {}
+    for name in ("float32", "bfloat16"):
+        net = streaming_network(SEED, compute_dtype=name)
+        params = net.device_params(group.device)
+        with torch.inference_mode():
+            cli._apply_block(net, params, frac, group, CHUNK, B_STREAM)
+            torch.cuda.synchronize()
+            for f in w.values():
+                f.launches = 0  # the rank's streamed fraction starts here
+            t0 = time.perf_counter()
+            y = cli._apply_block(net, params, frac, group, CHUNK, B_STREAM)
+            torch.cuda.synchronize()
+        out[name] = dict(y=None if y is None else y.cpu(),
+                         wall=time.perf_counter() - t0,
+                         launches={k: f.launches for k, f in w.items()})
+    torch.save(out, os.path.join(workdir, f"dpstream_rank{group.rank}.pt"))
+
+
+def dp_streaming_on_one_card(torch, workdir):
+    """Phase 37b: two DP streaming ranks on cuda:0 over gloo stream 32 of
+    the 64 streams each (stream_batch's T = 512, every eighth stream
+    ending early) through the streaming stack in 64-frame chunks, f32 and
+    bf16, against the one-process streamed forward of all 64 (phase 15's
+    `stream`): the gathered posteriors within STREAM_TOL, the last LSTM
+    layer's rows the same kernels' on fewer rows; each rank's exact
+    launches (5 carry launches a chunk, nothing else). Returns a rank's
+    launches (f32)."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    t0 = time.perf_counter()
+    start(_dp_stream_worker, [torch.device("cuda", 0)] * 2, (workdir,),
+          backend="gloo")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"dpstream_rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    x, pt = stream_batch(torch, SEED + 37)
+    chunks = -(-T_STREAM // CHUNK)
+    for name in ("float32", "bfloat16"):
+        net = streaming_network(SEED, compute_dtype=name)
+        params = net.device_params("cuda")
+        with torch.inference_mode():
+            stream(net, params, x, pt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y1 = stream(net, params, x, pt)
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t1
+        y = ranks[0][name]["y"].cuda()
+        diff = (y - y1).abs().max().item()
+        expect = {k: 0 for k in ranks[0][name]["launches"]
+                  if not k.startswith("gemm:")}
+        expect["lstm_fwd_carry"] = 5 * chunks
+        for rank in ranks:
+            check_counts(rank[name]["launches"], expect,
+                         bf16=name == "bfloat16")
+        phase("dpstream-card", f"{name}: 2 ranks x {DPSTREAM_ROWS} streams "
+              f"on cuda:0 (gloo), {chunks} chunks of {CHUNK} frames: "
+              f"posteriors vs one process's {B_STREAM} streams max diff "
+              f"{diff:.3e} (tol {STREAM_TOL:.0e}), bit-identical: "
+              f"{torch.equal(y, y1)}; rank launches "
+              + str({k: v for k, v in ranks[0][name]['launches'].items()
+                     if v})
+              + f"; the streamed fraction {ranks[0][name]['wall']:.3f} s "
+              f"on rank 0 (both ranks sharing the card) against "
+              f"{wall1:.3f} s in one process (workers {wall:.1f} s wall)")
+        if not (y.shape == y1.shape and torch.isfinite(y).all()
+                and diff <= STREAM_TOL):
+            raise AssertionError(f"DP streaming differs from one process "
+                                 f"({name}): {diff}")
+    return ranks[0]["float32"]["launches"]
+
+
+def _mesh_sync(torch, group):
+    """Synchronise every GPU of a rank's seq mesh (its device alone
+    without one), then the ranks."""
+    import torch.distributed as dist
+    for dev in set(group.seq_mesh or (group.device,)):
+        torch.cuda.synchronize(dev)
+    dist.barrier()
+
+
+def _dpsp_rates_worker(group, out_path):
+    """Phase 38d on one rank: the recipe step (T = 500, B = 50 over the
+    ranks: parallel_sequences 50) f32 and bf16, Trainer(data_group=) with
+    the rank's seq mesh if it has one; mean of 5 after a warm-up, the
+    ranks synchronised before and after; rank 0 writes the times."""
+    import json as _json
+    import torch
+    out = {}
+    mesh = list(group.seq_mesh) if group.seq_mesh else None
+    for label, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        tr = make_trainer("auto", dtype, seq_mesh=mesh, data_group=group)
+        batch = rank_block(torch, dp_batch(B, S_STATES, seed=38), group)
+        tr.train_step(*batch)
+        _mesh_sync(torch, group)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tr.train_step(*batch)
+        _mesh_sync(torch, group)
+        out[label] = 1e3 * (time.perf_counter() - t0) / 5
+        del tr, batch
+        torch.cuda.empty_cache()
+    if group.rank == 0:
+        with open(out_path, "w") as f:
+            _json.dump(out, f)
+
+
+def _dp_stream_rates_worker(group, out_path):
+    """Phase 38e on one rank: the rank's block of 64 full streams (T =
+    512) through the streaming stack in 64-frame chunks, f32 and bf16:
+    the whole stream 3 times (the ranks synchronised before and after),
+    then chunk by chunk, each chunk synchronised (a stream's wait for its
+    chunk's posteriors); rank 0 writes the times."""
+    import json as _json
+    import torch
+    import torch.distributed as dist
+    from lstm_rnn_tpu_torch.parallel.data import local_block
+    rng = np.random.RandomState(SEED + 38)
+    x = local_block(torch.from_numpy(rng.randn(
+        T_STREAM, B_STREAM, 117).astype(np.float32)), group.rank,
+        group.size).contiguous().to(group.device)
+    pt = torch.ones(T_STREAM, x.shape[1], dtype=torch.int8,
+                    device=group.device)
+    out = {}
+    for name in ("float32", "bfloat16"):
+        net = streaming_network(SEED, compute_dtype=name)
+        params = net.device_params(group.device)
+        with torch.inference_mode():
+            stream(net, params, x, pt)
+            _mesh_sync(torch, group)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                stream(net, params, x, pt)
+            _mesh_sync(torch, group)
+            wall = (time.perf_counter() - t0) / 3
+            state = net.init_stream_state(x.shape[1], group.device)
+            lat = []
+            for lo in range(0, T_STREAM, CHUNK):
+                t1 = time.perf_counter()
+                _, state = net.apply_streaming(params, x[lo:lo + CHUNK],
+                                               pt[lo:lo + CHUNK], state)
+                torch.cuda.synchronize(group.device)
+                lat.append(1e3 * (time.perf_counter() - t1))
+            dist.barrier()
+        out[name] = dict(frames_s=T_STREAM * B_STREAM / wall,
+                         chunk_ms=float(np.mean(lat)),
+                         chunk_ms_min=float(min(lat)))
+    if group.rank == 0:
+        with open(out_path, "w") as f:
+            _json.dump(out, f)
+
+
+def dp_sp_cli(torch, workdir, n):
+    """Phase 38a-c on n >= 4 GPUs over NCCL: the CLI's --num_devices 4
+    --seq_devices 2 (2 ranks, each a 2-GPU seq mesh) on phase 7's corpus
+    for 2 epochs against --seq_devices 2 on 2 GPUs (the same route: the
+    weights and the epoch table within DP_CLI_TOL) and against one GPU
+    (the epoch table); two CLI processes with the multi-host flags and
+    --seq_devices 2, each seeing 2 GPUs, against --num_devices 4
+    --seq_devices 2; forward mode --num_devices 4 --seq_devices 2 over
+    phase 5's corpus against one GPU (STREAM_TOL); and DP streaming,
+    --stream_chunk 64 --num_devices 2 and 4 with the streaming stack
+    against --stream_chunk 64 on one GPU (STREAM_TOL)."""
+    paths, net_path = write_train_corpus(workdir)
+    train = ["--network", net_path, "--train", "true", "--train_file",
+             paths["train"][0], "--val_file", paths["val"][0],
+             "--truncate_seq", "500", "--parallel_sequences", "50",
+             "--stochastic", "true", "--shuffle_fractions", "true",
+             "--learning_rate", "1e-4", "--momentum", "0.9", "--max_epochs",
+             "2", "--random_seed", str(SEED)]
+    runs = {}
+    for label, extra in (("dpsp", ["--num_devices", "4", "--seq_devices",
+                                   "2"]),
+                         ("sp2", ["--seq_devices", "2"]), ("one", [])):
+        d = os.path.join(workdir, f"dpsp_train_{label}")
+        t0 = time.perf_counter()
+        out = finish(cli_process(train + extra, d), f"cli {label}")
+        runs[label] = (d, out, time.perf_counter() - t0)
+        for ln in _table_rows(out):
+            phase("dpsp-cli", f"{' '.join(extra) or 'one GPU'} |{ln}")
+    if "DP x SP mesh: {'data': 2, 'seq': 2}" not in runs["dpsp"][1]:
+        raise AssertionError("the DP x SP run's banner")
+    w = {k: _weights(os.path.join(d, "trained_network.jsn"))
+         for k, (d, _, _) in runs.items()}
+    rel = _flat_rel(w["dpsp"], w["sp2"])
+    tables = {k: _rows_close(_table_rows(runs["dpsp"][1]),
+                             _table_rows(runs[k][1])) for k in ("sp2", "one")}
+    phase("dpsp-cli", f"train --num_devices 4 --seq_devices 2 vs "
+          f"--seq_devices 2 ({runs['dpsp'][2]:.1f} s vs "
+          f"{runs['sp2'][2]:.1f} s wall; one GPU {runs['one'][2]:.1f} s): "
+          f"weights rel {rel:.2e} (tol {DP_CLI_TOL:.0e}); epoch errors to "
+          f"the table's digits: vs --seq_devices 2 {tables['sp2']}, vs one "
+          f"GPU {tables['one']}; vs one GPU's weights rel "
+          f"{_flat_rel(w['dpsp'], w['one']):.2e} (another route: K6b and "
+          "the unfused tail against K1/K2 and K3)")
+    if not (rel <= DP_CLI_TOL and all(tables.values())):
+        raise AssertionError("DP x SP training differs")
+    port = _free_port()
+    procs = []
+    for i in range(2):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=f"{2 * i},{2 * i + 1}")
+        procs.append(cli_process(train + [
+            "--seq_devices", "2", "--coordinator_address",
+            f"127.0.0.1:{port}", "--num_processes", "2", "--process_id",
+            str(i)], os.path.join(workdir, f"dpsp_mh{i}"), env))
+    t0 = time.perf_counter()
+    outs = [finish(p, f"multi-host DP x SP process {i}")
+            for i, p in enumerate(procs)]
+    mh_wall = time.perf_counter() - t0
+    if "DP x SP mesh: {'data': 2, 'seq': 2}" not in outs[0] or os.listdir(
+            os.path.join(workdir, "dpsp_mh1")):
+        raise AssertionError("the multi-host DP x SP run's banner or files")
+    rel = _flat_rel(_weights(os.path.join(workdir, "dpsp_mh0",
+                                          "trained_network.jsn")),
+                    w["dpsp"])
+    phase("dpsp-cli", f"train, 2 processes x 2 GPUs with --seq_devices 2 "
+          f"and the multi-host flags ({mh_wall:.1f} s wall) vs --num_devices "
+          f"4 --seq_devices 2: weights rel {rel:.2e} (tol {DP_CLI_TOL:.0e}); "
+          "process 1 wrote nothing")
+    if not rel <= DP_CLI_TOL:
+        raise AssertionError("multi-host DP x SP training differs")
+    nc, net_path, tags, lengths = write_inputs(workdir)
+    outs = {}
+    for label, extra in (("dpsp", ["--num_devices", "4", "--seq_devices",
+                                   "2"]), ("one", [])):
+        d = os.path.join(workdir, f"dpsp_ff_{label}")
+        t0 = time.perf_counter()
+        finish(cli_process(["--network", net_path, "--train", "false",
+                            "--ff_input_file", nc, "--parallel_sequences",
+                            "50", "--ff_output_format", "htk",
+                            "--ff_output_file", d, *extra],
+                           d + "_cwd"), f"forward {label}")
+        outs[label] = (read_outputs(d, tags, lengths)[0],
+                       time.perf_counter() - t0)
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(outs["dpsp"][0], outs["one"][0]))
+    phase("dpsp-cli", f"forward --num_devices 4 --seq_devices 2 vs one GPU "
+          f"({outs['dpsp'][1]:.1f} s vs {outs['one'][1]:.1f} s wall): max "
+          f"|p - p_1| = {diff:.3e} (tol {STREAM_TOL:.0e})")
+    if not diff <= STREAM_TOL:
+        raise AssertionError(f"DP x SP serving differs: {diff}")
+    uni = os.path.join(workdir, "streaming.jsn")
+    streaming_network(SEED).save(uni)
+    outs = {}
+    for k in (1, 2, 4):
+        d = os.path.join(workdir, f"dpstream_ff{k}")
+        t0 = time.perf_counter()
+        text = finish(cli_process(
+            ["--network", uni, "--train", "false", "--ff_input_file", nc,
+             "--parallel_sequences", "64", "--ff_output_format", "htk",
+             "--ff_output_file", d, "--stream_chunk", str(CHUNK),
+             "--num_devices", str(k)], d + "_cwd"), f"streaming {k}")
+        if k > 1 and (f"Data-parallel streaming mesh: {{'data': {k}}}"
+                      not in text):
+            raise AssertionError("the DP streaming run's banner")
+        outs[k] = (read_outputs(d, tags, lengths)[0],
+                   time.perf_counter() - t0)
+    for k in (2, 4):
+        diff = max(float(np.abs(a - b).max())
+                   for a, b in zip(outs[k][0], outs[1][0]))
+        phase("dpsp-cli", f"streaming forward --stream_chunk {CHUNK} "
+              f"--num_devices {k} vs one GPU ({outs[k][1]:.1f} s vs "
+              f"{outs[1][1]:.1f} s wall): max |p - p_1| = {diff:.3e} (tol "
+              f"{STREAM_TOL:.0e})")
+        if not diff <= STREAM_TOL:
+            raise AssertionError(f"DP streaming differs: {diff}")
+
+
+def dp_sp_rates(torch, card, workdir, n):
+    """Phase 38d-e on n >= 4 GPUs: training frames/s of the recipe step at
+    parallel_sequences 50, f32 and bf16, on one GPU, 1-D SP on 4 GPUs (one
+    process), DP x SP 2 x 2 and DP on 4 (worker processes over NCCL); and
+    streaming frames/s and a chunk's latency of 64 streams (T = 512,
+    64-frame chunks) on 1, 2 and 4 GPUs (B = 64, 32, 16 a GPU)."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    batch, frames = recipe_batch(torch)
+    gpus = [torch.device("cuda", j) for j in range(4)]
+    rates = {}
+    for label, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        for name, mesh in (("one GPU", None), ("--seq_devices 4", gpus)):
+            tr = make_trainer("auto", dtype, seq_mesh=mesh)
+            tr.train_step(*batch)
+            sync_all(torch)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                tr.train_step(*batch)
+            sync_all(torch)
+            rates[(label, name)] = 1e3 * (time.perf_counter() - t0) / 5
+            del tr
+    for name, devices in (("--num_devices 4 --seq_devices 2",
+                           [gpus[:2], gpus[2:]]),
+                          ("--num_devices 4", gpus)):
+        path = os.path.join(workdir, "dpsp_rates.json")
+        start(_dpsp_rates_worker, devices, (path,))
+        with open(path) as f:
+            for label, ms in json.load(f).items():
+                rates[(label, name)] = ms
+    for label in ("f32", "bf16"):
+        one = rates[(label, "one GPU")]
+        for name in ("one GPU", "--seq_devices 4",
+                     "--num_devices 4 --seq_devices 2", "--num_devices 4"):
+            ms = rates[(label, name)]
+            phase("dpsp-rate", f"TIMIT {label} train step, "
+                  f"parallel_sequences 50, {name}: {1e3 * frames / ms:,.0f} "
+                  f"frames/s ({ms:.2f} ms a step, mean of 5; {one / ms:.2f}x "
+                  f"one GPU) on {card}")
+    srates = {}
+    x = torch.from_numpy(np.random.RandomState(SEED + 38).randn(
+        T_STREAM, B_STREAM, 117).astype(np.float32)).cuda()
+    pt = torch.ones(T_STREAM, B_STREAM, dtype=torch.int8, device="cuda")
+    for name in ("float32", "bfloat16"):
+        net = streaming_network(SEED, compute_dtype=name)
+        params = net.device_params("cuda")
+        with torch.inference_mode():
+            stream(net, params, x, pt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                stream(net, params, x, pt)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3
+            state = net.init_stream_state(B_STREAM, "cuda")
+            lat = []
+            for lo in range(0, T_STREAM, CHUNK):
+                t1 = time.perf_counter()
+                _, state = net.apply_streaming(params, x[lo:lo + CHUNK],
+                                               pt[lo:lo + CHUNK], state)
+                torch.cuda.synchronize()
+                lat.append(1e3 * (time.perf_counter() - t1))
+        srates[(name, 1)] = dict(frames_s=T_STREAM * B_STREAM / wall,
+                                 chunk_ms=float(np.mean(lat)),
+                                 chunk_ms_min=float(min(lat)))
+    for k in (2, 4):
+        path = os.path.join(workdir, "dpstream_rates.json")
+        start(_dp_stream_rates_worker, gpus[:k], (path,))
+        with open(path) as f:
+            for name, r in json.load(f).items():
+                srates[(name, k)] = r
+    for (name, k), r in sorted(srates.items()):
+        one = srates[(name, 1)]["frames_s"]
+        phase("dpsp-rate", f"streaming {name}, {B_STREAM} streams on {k} "
+              f"GPU(s) ({B_STREAM // k} a GPU): {r['frames_s']:,.0f} "
+              f"frames/s ({r['frames_s'] / one:.2f}x one GPU, mean of 3); "
+              f"a {CHUNK}-frame chunk {r['chunk_ms']:.3f} ms host wall "
+              f"(min {r['chunk_ms_min']:.3f}, rank 0) on {card}")
+    return rates, srates
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4631,6 +5391,22 @@ def main():
     else:
         phase("dp-cli", "phase 35 (DP on distinct GPUs) was not run: torch "
               "sees one GPU")
+    with torch.no_grad():
+        dsres = dp_sp_rank_kernels(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        dpsp_step, dpsp_epochs = dp_sp_on_one_card(torch, workdir)
+    with torch.inference_mode():
+        dstres = dp_stream_rank_kernel(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        dpstream_launches = dp_streaming_on_one_card(torch, workdir)
+    if torch.cuda.device_count() >= 4:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            dp_sp_cli(torch, workdir, torch.cuda.device_count())
+            dp_sp_rates(torch, card, workdir, torch.cuda.device_count())
+    else:
+        phase("dpsp-cli", "phase 38 (DP x SP and DP streaming on distinct "
+              f"GPUs) was not run: torch sees {torch.cuda.device_count()} "
+              "GPU(s), it needs 4")
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -4747,6 +5523,36 @@ def main():
                 "bound_ms": bound(*r32["cost"], "float32")[0],
                 "max_abs_err_bf16": r16["err"], "ms_bf16": r16["ms"],
                 "bound_ms_bf16": bound(*r16["cost"], "bfloat16")[0]}
+    # a DP x SP rank's block (phase 36a: B = 25, T = 250) and a rank's
+    # launches of one step and of 2 epochs (phase 36b-c); a DP streaming
+    # rank's 32 streams (phase 37a) and its launches over one fraction
+    # (phase 37b)
+    for row in kernels:
+        for key, found, launches in (
+                ("dp_sp", dsres, {"step": dpsp_step,
+                                  "2 epochs": dpsp_epochs}),
+                ("dp_stream", dstres, {"fraction": dpstream_launches})):
+            shapes = sorted({sh for (k, sh, _) in found if k == row["name"]})
+            if not shapes:
+                continue
+            row[f"{key}_launches_per_rank"] = {
+                what: counts[row["name"]] for what, counts in
+                launches.items()}
+            row[f"{key}_per_rank"] = {}
+            for sh in shapes:
+                r32, r16 = found[(row["name"], sh, "float32")], found[
+                    (row["name"], sh, "bfloat16")]
+                row[f"{key}_per_rank"][sh] = {
+                    "max_abs_err": r32["err"], "ms": r32["ms"],
+                    "plain_ms": r32["plain_ms"],
+                    "bound_ms": bound(*r32["cost"], "float32")[0],
+                    "max_abs_err_bf16": r16["err"], "ms_bf16": r16["ms"],
+                    "plain_ms_bf16": r16["plain_ms"],
+                    "bound_ms_bf16": bound(*r16["cost"], "bfloat16")[0]}
+    gemm_paths["DP x SP training (a rank, 2 epochs)"] = gemm_total(
+        dpsp_epochs)
+    gemm_paths["DP streaming (a rank, one fraction)"] = gemm_total(
+        dpstream_launches)
     # the GEMM engine at the dW_in product of a TIMIT layer (P = 250: the
     # largest share of its time on the training step), every shape beside
     g32, g16 = gres[("dW_in:250", "float32")], gres[("dW_in:250", "bfloat16")]

@@ -31,7 +31,6 @@ twins (models/lstm.py).
 blocks on the first N GPUs (on the CPU with `--device cpu`: the CPU N
 times) and runs the sequence-parallel path (parallel/sequence.py):
 training through `Trainer(seq_mesh=)`, serving through `apply_seq`.
-`--num_devices` must then be 1 or N.
 
 `--num_devices k` (both modes; 0: every GPU torch sees) runs data
 parallelism, one worker process per GPU over a torch.distributed group
@@ -43,6 +42,19 @@ multi-host flags `--coordinator_address host:port --num_processes N
 per local GPU. Global rank 0 prints the epoch table and writes every file
 (the trained network, the autosaves, `.best.jsn`, the forward outputs,
 which it gathers from the ranks); the others write nothing.
+
+The two compose (DP x SP): `--num_devices n --seq_devices N` with n
+other than 1 and N (N must divide n), or `--seq_devices N` with the
+multi-host flags in train mode, starts a worker per group of N GPUs
+(n / N of them; on the CPU, CPU workers each with the CPU N times), and
+each rank trains or serves its block of B sequence-parallel on its own
+seq mesh (`Trainer(seq_mesh=, data_group=)`, `apply_seq`). With
+`--stream_chunk` in forward mode, `--num_devices k` streams: every
+fraction's B padded to parallel_sequences rounded up to a multiple of k,
+each rank streaming its block chunk by chunk from its own carried state.
+Multi-host serving is plain data-parallel serving only: sequence-parallel
+and streaming serving over several hosts are refused with the JAX CLI's
+message.
 
 Device: `--cuda true` (the default) or `--device cuda` runs on the GPU, the
 LSTM layers and the classification tail through the Hopper kernels; a
@@ -69,7 +81,7 @@ from lstm_rnn_tpu_torch.config import Config, parse_config
 from lstm_rnn_tpu_torch.data.dataset import DataSet
 from lstm_rnn_tpu_torch.network import Network
 from lstm_rnn_tpu_torch.parallel import launch
-from lstm_rnn_tpu_torch.parallel.data import gather_blocks
+from lstm_rnn_tpu_torch.parallel.data import gather_blocks, pad_batch
 from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
 from lstm_rnn_tpu_torch.parallel.sequence import apply_seq
 from lstm_rnn_tpu_torch.trainer import Trainer
@@ -137,8 +149,9 @@ def _print_layers(net: Network):
 
 def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
     """Forward-pass mode on `device`; under a data group (DP serving, the
-    JAX CLI's cli.py:712-750) each rank computes its block of every
-    fraction and rank 0 gathers the blocks and writes the files."""
+    JAX CLI's cli.py:712-750; DP x SP serving, :604-618; DP streaming,
+    :619-711) each rank computes its block of every fraction and rank 0
+    gathers the blocks and writes the files."""
     print(f"Reading network from '{cfg.network}'... ", end="")
     net_doc = ioc.load_network_json(cfg.network)
     print("done.\n")
@@ -155,12 +168,14 @@ def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
         net.init_stream_state(1, device)  # refuses a bidirectional net
         print(f"Streaming forward: {chunk}-frame chunks, carried LSTM "
               "state")
-    seq_mesh = _seq_mesh(cfg, device)
+    seq_mesh = _seq_mesh(cfg, device, group)
     if seq_mesh is not None:
         device = seq_mesh[0]
-        print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}}")
+        if group is None:
+            print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}}")
     if group is not None:
-        print(group.mesh_line("serving mesh"))
+        print(group.mesh_line("streaming mesh" if chunk > 0
+                              else "serving mesh"))
     writes = group is None or group.is_coordinator
     params = net.device_params(device)
 
@@ -183,7 +198,8 @@ def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
               flush=True)
         with torch.inference_mode():
             if group is not None:
-                y = _apply_block(net, params, frac, group)
+                y = _apply_block(net, params, frac, group, chunk,
+                                 _stream_width(cfg, group))
             else:
                 x = torch.from_numpy(frac.inputs).to(device)
                 pt = torch.from_numpy(frac.pattypes).to(device)
@@ -214,24 +230,66 @@ def _write_outputs(cfg: Config, tags, outs, means, stdevs, append: bool):
                           kind=cfg.ff_output_kind)
 
 
-def _apply_block(net: Network, params, frac, group):
-    """DP serving of one fraction: B padded to a multiple of the world
-    size with PATTYPE_NONE rows, this rank's block through the net, the
-    blocks gathered on rank 0 ([T, B, S] with the padding dropped; None on
-    the other ranks)."""
-    x, _, pt = group.block(frac.inputs, None, frac.pattypes)
-    y = net.apply(params, torch.from_numpy(x).to(group.device),
-                  torch.from_numpy(pt).to(group.device))
+def _apply_block(net: Network, params, frac, group, chunk: int = 0,
+                 width: int = 1):
+    """DP serving of one fraction: B padded with PATTYPE_NONE rows to
+    `width` (streaming) and to a multiple of the world size, this rank's
+    block through the net (apply_seq on the rank's seq mesh under DP x
+    SP; chunk by chunk from a fresh state on the rank's device with
+    `chunk`), the blocks gathered on rank 0 ([T, B, S] with the padding
+    dropped; None on the other ranks)."""
+    b = frac.pattypes.shape[1]
+    x, _, pt = pad_batch(frac.inputs, None, frac.pattypes, max(width, b))
+    x, _, pt = group.block(x, None, pt)
+    x = torch.from_numpy(x).to(group.device)
+    pt = torch.from_numpy(pt).to(group.device)
+    if group.seq_mesh is not None:
+        y = apply_seq(net, params, x, pt, list(group.seq_mesh))
+    elif chunk > 0:
+        y = _apply_streamed(net, params, x, pt, chunk)
+    else:
+        y = net.apply(params, x, pt)
     y = gather_blocks(y, group)
-    return None if y is None else y[:, :frac.pattypes.shape[1]]
+    return None if y is None else y[:, :b]
 
 
-def _seq_mesh(cfg: Config, device: torch.device):
-    """The seq mesh of --seq_devices N > 1 on `device`'s type (None
-    without): the first N GPUs, or the CPU N times."""
+def _stream_width(cfg: Config, group) -> int:
+    """The batch width every fraction streams at under DP streaming:
+    parallel_sequences rounded up to a multiple of the world size, as the
+    JAX CLI pads it (lstm_rnn_tpu/cli.py:636-639); 1 (no padding beyond
+    the world size's) otherwise."""
+    if cfg.stream_chunk <= 0:
+        return 1
+    width = max(1, cfg.parallel_sequences)
+    return width + -width % group.size
+
+
+def _seq_mesh(cfg: Config, device: torch.device, group=None):
+    """The seq mesh of --seq_devices N > 1 (None without): a DP x SP
+    rank's own (its group's); else on `device`'s type the first N GPUs,
+    or the CPU N times."""
+    if group is not None:
+        return None if group.seq_mesh is None else list(group.seq_mesh)
     if cfg.seq_devices <= 1:
         return None
     return make_seq_mesh(cfg.seq_devices, device.type)
+
+
+def _check_servable(cfg: Config) -> None:
+    """Refuse, before any worker starts, what forward mode cannot serve:
+    sequence-parallel or streaming serving over several hosts, in the JAX
+    CLI's words (lstm_rnn_tpu/cli.py:538-546), and, for a run of several
+    workers, --stream_chunk on a bidirectional net (the check
+    init_stream_state makes in a one-process run)."""
+    if cfg.num_processes > 1 and (cfg.seq_devices > 1
+                                  or cfg.stream_chunk > 0):
+        raise RuntimeError(
+            "pipeline/seq/streaming serving is single-host; multi-host "
+            "forward passes run plain data-parallel serving (every host "
+            "computes its batch shard, the coordinator writes)")
+    if cfg.stream_chunk > 0 and cfg.num_devices != 1:
+        layers = ioc.load_network_json(cfg.network)["layers"]
+        Network(layers).init_stream_state(1, "cpu")
 
 
 def _apply_streamed(net: Network, params, x, pt, chunk: int):
@@ -341,11 +399,12 @@ def train_mode(cfg: Config, device: torch.device, group=None) -> int:
     if cfg.optimizer != "steepest_descent":
         raise RuntimeError("Unknown optimizer type")
 
-    seq_mesh = _seq_mesh(cfg, device)
+    seq_mesh = _seq_mesh(cfg, device, group)
     if seq_mesh is not None:
         device = seq_mesh[0]
-        print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}} "
-              "(time axis sharded)")
+        if group is None:
+            print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}} "
+                  "(time axis sharded)")
     if group is not None:
         print(group.mesh_line())
     writes = group is None or group.is_coordinator
@@ -495,6 +554,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     print("TF32 is off: float32 matmuls run in true fp32.")
     _echo_settings(cfg)
     try:
+        if not cfg.train:
+            _check_servable(cfg)
         return launch.run(cfg, device,
                           train_mode if cfg.train else forward_mode)
     except Exception as e:

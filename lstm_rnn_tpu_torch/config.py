@@ -9,21 +9,28 @@ Configuration.cpp:236-250).
 Port-specific:
   --device       auto|cpu|cuda (auto follows --cuda); tpu is refused
   --lstm_backend auto|scan|pallas: pallas names the Hopper kernel
-  --seq_devices  k > 1: sequence parallelism over a k-block seq mesh, with
-                 --num_devices 1 or k (parallel/); k <= 1 is off
+  --seq_devices  k > 1: sequence parallelism over a k-block seq mesh
+                 (parallel/); k <= 1 is off. With --num_devices 1 or k
+                 one process drives the mesh; with a larger count n (k
+                 must divide it) or the multi-host flags, data
+                 parallelism composed with it (DP x SP): a worker process
+                 per seq mesh of k GPUs
   --num_devices  k: data parallelism, one worker process per GPU (0: every
-                 GPU torch sees; with --device cpu, k CPU workers)
+                 GPU torch sees; with --device cpu, k CPU workers); in
+                 forward mode also with --stream_chunk (data-parallel
+                 streaming: each worker streams its block of B)
   --coordinator_address host:port, --num_processes N, --process_id i:
-                 multi-host data parallelism (parallel/launch.py)
+                 multi-host data parallelism, alone or with --seq_devices
+                 in train mode (parallel/launch.py)
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
-never silently ignored: data parallelism composed with --seq_devices (a
---num_devices other than 1 or its count, or multi-host), data-parallel
-streaming (--stream_chunk with more than one device in forward mode),
---model_devices and --pipeline_devices above 1, --f32_matmul 3x and
---compilation_cache_dir. --model_devices 0 and --pipeline_devices 0
-resolve to no parallelism, as the JAX CLI resolves them off a TPU.
---seq_devices with --stream_chunk, --model_devices or --pipeline_devices
-is refused with the JAX CLI's messages.
+never silently ignored: --model_devices and --pipeline_devices above 1,
+--f32_matmul 3x and --compilation_cache_dir (and, in parallel/launch.py,
+a seq group that would span hosts). --model_devices 0 and
+--pipeline_devices 0 resolve to no parallelism, as the JAX CLI resolves
+them off a TPU. --seq_devices with --stream_chunk, --model_devices or
+--pipeline_devices, and a --seq_devices that does not divide
+--num_devices, are refused with the JAX CLI's messages (multi-host
+sequence-parallel or streaming serving too, in cli.py).
 """
 
 from __future__ import annotations
@@ -372,13 +379,14 @@ def _visible_devices(ns: argparse.Namespace) -> int:
 
 def _check_supported(ns: argparse.Namespace) -> None:
     """Refuse the flags whose features the port does not have yet, and
-    the combinations the JAX CLI refuses (lstm_rnn_tpu/cli.py:341-344,
-    :577-586). Device counts resolve as the JAX CLI resolves them on a
-    host without a TPU: --seq_devices and --pipeline_devices count only
-    above 1, --model_devices 0 is the TP heuristic (1 off a TPU), and
-    --num_devices 0 is every device available. Data parallelism
-    (--num_devices k, the multi-host flags) is ported; composed with
-    --seq_devices or with --stream_chunk serving it is not."""
+    the combinations the JAX CLI refuses (lstm_rnn_tpu/cli.py:341-355,
+    :577-586; parallel/mesh.py:87-90). Device counts resolve as the JAX
+    CLI resolves them on a host without a TPU: --seq_devices and
+    --pipeline_devices count only above 1, --model_devices 0 is the TP
+    heuristic (1 off a TPU), and --num_devices 0 is every device
+    available. Data parallelism (--num_devices k, the multi-host flags),
+    alone, composed with --seq_devices or with --stream_chunk serving, is
+    ported."""
     multihost = bool(ns.coordinator_address)
     if multihost and not (ns.num_processes >= 1
                           and 0 <= ns.process_id < ns.num_processes):
@@ -401,19 +409,10 @@ def _check_supported(ns: argparse.Namespace) -> None:
         for k in ("model_devices", "pipeline_devices")
         if getattr(ns, k) > 1]
     n = ns.num_devices if ns.num_devices > 0 else _visible_devices(ns)
-    if sp > 1 and (n not in (1, sp) or multihost):
-        # data parallelism composed with --seq_devices (the JAX package's
-        # composed_mesh); --num_devices k with --seq_devices k is the 1-D
-        # seq mesh
-        unsupported.insert(0, (f"--num_devices {ns.num_devices}"
-                               if n not in (1, sp) else
-                               "multi-host --seq_devices",
-                               "parallelism, DP x SP"))
-    if ns.stream_chunk > 0 and not ns.train and (n > 1 or multihost):
-        unsupported.append((f"--stream_chunk with --num_devices "
-                            f"{ns.num_devices}" if n > 1 else
-                            "multi-host --stream_chunk",
-                            "parallelism, DP streaming"))
+    if sp > 1 and not multihost and n > 1 and n != sp and n % sp:
+        # the JAX package's composed_mesh (parallel/mesh.py:87-90); a
+        # multi-host run counts each host's devices (parallel/launch.py)
+        raise ValueError(f"seq_devices={sp} must divide num_devices={n}")
     if ns.f32_matmul != "6x":
         unsupported.append((f"--f32_matmul {ns.f32_matmul}",
                             "the training step and its precision modes"))
@@ -427,4 +426,3 @@ def _check_supported(ns: argparse.Namespace) -> None:
         raise ValueError(
             f"{flag} is not supported by the PyTorch port yet; see "
             f"ROADMAP.md ({item})")
-

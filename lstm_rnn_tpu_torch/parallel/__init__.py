@@ -1,5 +1,6 @@
 """Parallelism of the port: sequence parallelism in one process
-(`mesh.py`, `sequence.py`), and data parallelism, single-host and
-multi-host, one worker process per device over torch.distributed
-(`data.py`, `launch.py`). DP composed with SP, tensor and pipeline
-parallelism are still to port (ROADMAP.md, queue 1)."""
+(`mesh.py`, `sequence.py`), data parallelism, single-host and multi-host,
+one worker process per device over torch.distributed (`data.py`,
+`launch.py`), and the two composed (DP x SP: a worker per seq mesh).
+Tensor and pipeline parallelism are still to port (ROADMAP.md, queue
+1)."""

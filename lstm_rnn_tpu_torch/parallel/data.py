@@ -22,6 +22,12 @@ torch.distributed process group (NCCL on CUDA, gloo on the CPU):
   costs one collective;
 - serving outputs come back to rank 0 (`gather_blocks`), which writes
   every file.
+
+Composed with sequence parallelism (DP x SP), a rank also holds its seq
+mesh (`DataGroup.seq_mesh`, parallel/mesh.py `composed_mesh`): its block
+of B runs through parallel/sequence.py on that mesh, whose first device is
+the rank's `device`, where its parameters live; the gradients summed into
+them over the blocks are then summed over the ranks as above.
 """
 
 from __future__ import annotations
@@ -38,13 +44,15 @@ from lstm_rnn_tpu_torch.ops.masking import PATTYPE_NONE
 @dataclasses.dataclass(frozen=True)
 class DataGroup:
     """One rank of a data-parallel run: its global rank, the world size,
-    its device, the processes (hosts) of the job, and the torch.distributed
-    group (None: the default group)."""
+    its device, the processes (hosts) of the job, the torch.distributed
+    group (None: the default group) and, under DP x SP, the rank's seq
+    mesh (a tuple of devices whose first is `device`; None without SP)."""
     rank: int
     size: int
     device: torch.device
     hosts: int = 1
     group: Any = None
+    seq_mesh: Optional[tuple] = None
 
     @property
     def is_coordinator(self) -> bool:
@@ -52,7 +60,11 @@ class DataGroup:
         return self.rank == 0
 
     def mesh_line(self, what: str = "mesh") -> str:
-        """The JAX CLI's banner (lstm_rnn_tpu/cli.py:378, :718)."""
+        """The JAX CLI's banner (lstm_rnn_tpu/cli.py:352, :378, :615, :678,
+        :727): "DP x SP mesh" with a seq mesh, whatever the mode."""
+        if self.seq_mesh is not None:
+            return (f"DP x SP mesh: {{'data': {self.size}, "
+                    f"'seq': {len(self.seq_mesh)}}}")
         hosts = f" over {self.hosts} hosts" if self.hosts > 1 else ""
         return f"Data-parallel {what}: {{'data': {self.size}}}{hosts}"
 

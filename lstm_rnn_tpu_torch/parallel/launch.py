@@ -11,14 +11,25 @@ several GPUs fed, so each GPU gets its own.
   CPU with `--device cpu`: k CPU workers, the port's counterpart of the
   JAX tests' forced host devices). 0 means every GPU torch sees; more
   than torch sees is refused with the JAX CLI's message.
+- `--num_devices n --seq_devices sp` (DP x SP): with n 1 or sp, the run
+  stays one process on a 1-D seq mesh (no worker). Otherwise sp must
+  divide n (refused in the JAX words) and n / sp workers start, worker j
+  driving the seq mesh cuda:j*sp .. cuda:j*sp+sp-1 (parallel/mesh.py
+  `composed_mesh`), its current device and NCCL's the mesh's first; on
+  the CPU, n / sp CPU workers, each with the CPU named sp times.
 - Multi-host, `--coordinator_address host:port --num_processes N
   --process_id i`: the process on each host starts one worker per local
-  GPU (one on the CPU) and `--num_devices` is ignored, as in the JAX CLI:
-  every process's devices take part. Global rank = i * local + j, world =
-  N * local, so rank order is process-major. Process 0 serves the
+  GPU (one on the CPU), or with `--seq_devices sp` one per group of sp
+  local GPUs (L / sp of L; one CPU worker on the CPU), and
+  `--num_devices` is ignored, as in the JAX CLI: every process's devices
+  take part. Global rank = i * local + j, world = N * local, so rank
+  order is process-major: each host owns a contiguous block of B and
+  every seq group, with its carry hops, stays inside a host. A seq group
+  that would span hosts (sp not dividing L) is refused by name: one
+  process cannot drive another host's GPUs. Process 0 serves the
   rendezvous store at the coordinator's port; every process posts its
-  local count there, and a host whose count differs from the others' is
-  refused by name before any worker starts.
+  local worker count there, and a host whose count differs from the
+  others' is refused by name before any worker starts.
 - The group's backend is NCCL on CUDA and gloo on the CPU; there is no
   fallback. The kernel library is built once, in the launching process,
   before the workers start.
@@ -30,11 +41,13 @@ several GPUs fed, so each GPU gets its own.
   launcher.
 
 `run(cfg, device, body)` is the CLI's entry: it calls `body(cfg, device)`
-in this process when the run has one device, else `body(cfg,
+in this process when the run has no worker, else `body(cfg,
 group.device, group)` in every worker (`group`: parallel/data.py's
-DataGroup). `start(fn, devices, backend)` runs `fn(group, *args)` in one
-worker per device of a list, which may name one device several times
-(chip_smoke.py runs two ranks on cuda:0 over gloo that way).
+DataGroup, with the worker's seq mesh under DP x SP). `start(fn, devices,
+backend)` runs `fn(group, *args)` in one worker per entry of a list, a
+device or a seq mesh (a list of devices), which may name one device
+several times (chip_smoke.py runs two ranks on cuda:0 over gloo that way,
+each with a seq mesh of cuda:0 twice under DP x SP).
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from lstm_rnn_tpu_torch.parallel.data import DataGroup
+from lstm_rnn_tpu_torch.parallel.mesh import composed_mesh
 
 # seconds a collective, the rendezvous or a host's arrival may take before
 # the run fails
@@ -58,13 +72,16 @@ TIMEOUT_S = 600.0
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Where a run's workers go: `local` devices on each of `hosts`
-    processes, this one `process_id`, the store at `addr` (host, port;
-    None: a loopback store of this process)."""
+    """Where a run's workers go: a worker per entry of `devices` on each
+    of `hosts` processes, this one `process_id`, the store at `addr`
+    (host, port; None: a loopback store of this process). Under DP x SP,
+    `meshes[j]` is worker j's seq mesh, whose first device is
+    `devices[j]` (None: no seq mesh)."""
     devices: tuple
     hosts: int = 1
     process_id: int = 0
     addr: Optional[tuple] = None
+    meshes: Optional[tuple] = None
 
     @property
     def world(self) -> int:
@@ -91,27 +108,41 @@ def _coordinator(address: str):
 
 
 def plan(cfg, device: torch.device) -> Optional[Plan]:
-    """The run's workers, or None for a run on one device in this process
-    (no group). `device` is the device the CLI selected (its type picks
-    GPUs or CPU workers). A --seq_devices run is never data-parallel here
-    (config.py refuses DP x SP)."""
+    """The run's workers, or None for a run in this process (no group: one
+    device, or a 1-D seq mesh). `device` is the device the CLI selected
+    (its type picks GPUs or CPU workers)."""
     multihost = bool(cfg.coordinator_address)
-    if cfg.seq_devices > 1:
-        return None
+    sp = max(1, cfg.seq_devices)
     if device.type == "cpu":
-        k = 1 if multihost else max(1, cfg.num_devices)
-        devices = (torch.device("cpu"),) * k
+        # a multi-host process is one CPU worker (the CPU sp times with SP)
+        n = sp if multihost else max(1, cfg.num_devices)
     else:
         n_avail = torch.cuda.device_count()
-        k = n_avail if multihost or cfg.num_devices == 0 else cfg.num_devices
-        if k > n_avail:
+        n = n_avail if multihost or cfg.num_devices == 0 else cfg.num_devices
+        if n > n_avail:
             raise RuntimeError(
-                f"num_devices={k} but only {n_avail} devices available")
-        devices = tuple(torch.device("cuda", j) for j in range(k))
+                f"num_devices={n} but only {n_avail} devices available")
+    meshes = None
+    if sp > 1:
+        if multihost and n % sp:
+            raise ValueError(
+                f"--seq_devices {sp} over a host of {n} devices would put a "
+                "seq group across hosts, which the PyTorch port does not "
+                "support; see ROADMAP.md (parallelism, a cross-host seq "
+                "group)")
+        groups, composed = composed_mesh(n, sp, device.type)
+        if not (composed or multihost):
+            return None  # the 1-D seq mesh, in this process
+        meshes = tuple(tuple(m) for m in groups)
+        devices = tuple(m[0] for m in meshes)
+    elif device.type == "cpu":
+        devices = (torch.device("cpu"),) * n
+    else:
+        devices = tuple(torch.device("cuda", j) for j in range(n))
     if not multihost:
-        return Plan(devices) if len(devices) > 1 else None
+        return Plan(devices, meshes=meshes) if len(devices) > 1 else None
     return Plan(devices, hosts=cfg.num_processes, process_id=cfg.process_id,
-                addr=_coordinator(cfg.coordinator_address))
+                addr=_coordinator(cfg.coordinator_address), meshes=meshes)
 
 
 def _timeout():
@@ -168,7 +199,7 @@ def _worker(j: int, p: Plan, addr, backend: str, fn: Callable, args):
     import torch.distributed as dist
     _die_with_parent()
     rank = p.process_id * len(p.devices) + j
-    device = p.devices[j]
+    device = p.devices[j]  # under DP x SP its seq mesh's first
     if rank != 0:  # rank 0 prints; the others stay silent
         sys.stdout = open(os.devnull, "w")
     if device.type == "cuda":
@@ -184,7 +215,9 @@ def _worker(j: int, p: Plan, addr, backend: str, fn: Callable, args):
                             rank=rank, world_size=p.world,
                             timeout=_timeout())
     try:
-        rc = fn(DataGroup(rank, p.world, device, hosts=p.hosts), *args)
+        rc = fn(DataGroup(rank, p.world, device, hosts=p.hosts,
+                          seq_mesh=p.meshes[j] if p.meshes else None),
+                *args)
         if rc:
             raise RuntimeError(f"rank {rank} returned {rc}")
         dist.barrier()
@@ -231,11 +264,19 @@ def launch(p: Plan, fn: Callable, args=(), backend: Optional[str] = None
         raise
 
 
-def start(fn: Callable, devices: Sequence[torch.device], args=(),
+def start(fn: Callable, devices: Sequence, args=(),
           backend: Optional[str] = None) -> None:
     """Run fn(group, *args) in len(devices) workers of one host, worker j
-    on devices[j] (a device may repeat: then the backend must be gloo)."""
-    launch(Plan(tuple(torch.device(d) for d in devices)), fn, args, backend)
+    on devices[j]: a device, or a seq mesh (a list of devices, every entry
+    a list: DP x SP, worker j on its mesh's first device). A device may
+    repeat: then the backend must be gloo."""
+    if all(isinstance(d, (list, tuple)) for d in devices):
+        meshes = tuple(tuple(torch.device(x) for x in m) for m in devices)
+        launch(Plan(tuple(m[0] for m in meshes), meshes=meshes), fn, args,
+               backend)
+    else:
+        launch(Plan(tuple(torch.device(d) for d in devices)), fn, args,
+               backend)
 
 
 def _cli_worker(group: DataGroup, body: Callable, cfg) -> int:
@@ -244,7 +285,8 @@ def _cli_worker(group: DataGroup, body: Callable, cfg) -> int:
 
 def run(cfg, device: torch.device, body: Callable) -> int:
     """The CLI's mode `body(cfg, device[, group])`: in this process on one
-    device, or data-parallel in a worker per device of plan(cfg, device)."""
+    device or a 1-D seq mesh, or data-parallel in a worker per device (or
+    seq mesh) of plan(cfg, device)."""
     p = plan(cfg, device)
     if p is None:
         return body(cfg, device)

@@ -32,9 +32,13 @@ residuals and its BPTT (K6b), without it the inference carry kernel (K6f);
 the scan route (`_scan_block`, backend "scan") runs `_lstm_scan` from the
 carried state, and autograd differentiates it.
 
-The JAX package's multi-controller layout (a "data" axis composed with
-"seq") is not ported: composed meshes are refused (config.py), and
-Trainer(seq_mesh=, data_group=) raises.
+Composed with data parallelism (DP x SP, the JAX package's ('data',
+'seq') mesh, whose `data_ax` shards B), each data-parallel rank is a
+worker process of its own (parallel/launch.py) that calls these functions
+on its block of B and its own seq mesh: the blocks' gradients are summed
+into the leaves on the mesh's first device by autograd, as above, and the
+psum over 'data' is the data group's all-reduce that follows
+(Trainer(seq_mesh=, data_group=), parallel/data.py).
 """
 
 from __future__ import annotations

@@ -51,7 +51,11 @@ gradients are summed over the ranks before each update (stochastic mode:
 once per fraction; batch mode: once per pass, on the accumulated
 gradients), in one collective per dtype, and each rank then applies the
 same update; the error sums and correct counts of a pass are summed over
-the ranks once, at its end. DP does not compose with a seq mesh here.
+the ranks once, at its end. With both (DP x SP) the rank's block goes
+through `loss_and_count_seq` on the rank's seq mesh, whose first device
+is the group's: the blocks' gradients reach the leaves there through
+autograd, on the mesh devices' streams, so the update's stream waits for
+every device of the mesh before the all-reduce packs them.
 
 The optimizer state for autosaves (Optimizer.cu:326-341,
 SteepestDescentOptimizer.cu:118-123) goes out through `export_state` and
@@ -132,10 +136,11 @@ class Trainer:
         self.seq_mesh = seq_mesh
         self.data_group = data_group
         if data_group is not None:
-            if seq_mesh is not None:
-                raise NotImplementedError(
-                    "data parallelism with a seq mesh (DP x SP) is not "
-                    "ported to PyTorch yet (ROADMAP.md, queue 1)")
+            if seq_mesh is not None and (torch.device(seq_mesh[0])
+                                         != data_group.device):
+                raise ValueError(f"the seq mesh's first device {seq_mesh[0]}"
+                                 " is not the data group's device "
+                                 f"{data_group.device}")
             if device is not None and (torch.device(device)
                                        != data_group.device):
                 raise ValueError(f"device {device} is not the data group's "
@@ -233,9 +238,16 @@ class Trainer:
 
     def _sum_over_ranks(self, tensors) -> None:
         """Sum tensors over the data group's ranks, in place (a no-op
-        without a group)."""
-        if self.data_group is not None:
-            all_reduce_sum(tensors, self.data_group.group)
+        without a group). Under DP x SP the tensors were summed on the
+        mesh's first device from work on its other GPUs: this device's
+        stream first waits for theirs."""
+        if self.data_group is None:
+            return
+        if self.seq_mesh is not None and self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            for dev in set(self.seq_mesh) - {self.device}:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+        all_reduce_sum(tensors, self.data_group.group)
 
     @torch.no_grad()
     def sgd_update(self, grads) -> None:

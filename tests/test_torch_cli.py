@@ -80,9 +80,10 @@ def test_forward_htk_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--model_devices", "2"],
-    # --seq_devices alone is ported (test_torch_sequence.py), and so is data
-    # parallelism (test_torch_data_parallel.py); composed they are not
-    ["--pipeline_devices", "2"], ["--seq_devices", "2", "--num_devices", "4"],
+    # --seq_devices and data parallelism are ported, alone and composed
+    # (test_torch_sequence.py, test_torch_data_parallel.py,
+    # test_torch_dp_sp.py); data parallelism with tensor parallelism is not
+    ["--pipeline_devices", "2"], ["--model_devices", "2", "--num_devices", "4"],
     ["--f32_matmul", "3x"], ["--device", "tpu"],
 ])
 def test_unsupported_flags_raise(tmp_path, flag):

@@ -302,6 +302,11 @@ def test_rendezvous_refuses_unequal_hosts():
     ["--coordinator_address", "h:1", "--num_processes", "2",
      "--process_id", "0"],
     ["--train", "true", "--num_devices", "2", "--stream_chunk", "4"],
+    # DP x SP and DP streaming (tests/test_torch_dp_sp.py)
+    ["--num_devices", "4", "--seq_devices", "2"],
+    ["--seq_devices", "2", "--coordinator_address", "h:1",
+     "--num_processes", "2", "--process_id", "0"],
+    ["--num_devices", "2", "--stream_chunk", "4"],
 ])
 def test_config_lets_data_parallelism_through(argv):
     from lstm_rnn_tpu_torch.config import parse_config
@@ -309,21 +314,22 @@ def test_config_lets_data_parallelism_through(argv):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--num_devices", "4", "--seq_devices", "2"],
-     "--num_devices 4 is not supported.*DP x SP"),
-    (["--seq_devices", "2", "--coordinator_address", "h:1",
-      "--num_processes", "2", "--process_id", "0"],
-     "multi-host --seq_devices is not supported.*DP x SP"),
-    (["--num_devices", "2", "--stream_chunk", "4"],
-     "--stream_chunk with --num_devices 2 is not supported.*DP streaming"),
+    (["--num_devices", "3", "--seq_devices", "2"],
+     "seq_devices=2 must divide num_devices=3"),
+    (["--num_devices", "4", "--seq_devices", "2", "--stream_chunk", "4"],
+     "stream_chunk does not combine with pipeline_devices or seq_devices"),
+    (["--num_devices", "4", "--model_devices", "2"],
+     "--model_devices 2 is not supported.*ROADMAP"),
     (["--num_processes", "2", "--process_id", "1"],
      "need --coordinator_address"),
     (["--coordinator_address", "h:1", "--num_processes", "2",
       "--process_id", "2"], "--process_id in 0..N-1"),
 ])
 def test_config_refuses_data_parallel_combinations(argv, match):
-    """DP x SP and DP streaming stay refused, naming ROADMAP; the
-    multi-host flags must be complete."""
+    """A --seq_devices that does not divide --num_devices and streaming
+    with a seq mesh are refused in the JAX CLI's words, data parallelism
+    composed with tensor parallelism naming ROADMAP; the multi-host flags
+    must be complete."""
     from lstm_rnn_tpu_torch.config import parse_config
     with pytest.raises(ValueError, match=match):
         parse_config(["--network", "n.jsn", "--device", "cpu"] + argv)
@@ -446,9 +452,12 @@ def test_trainer_step_matches_one_process(tmp_path, b, k):
 
 
 def test_trainer_refuses_dp_with_seq_mesh():
+    """DP x SP trains (tests/test_torch_dp_sp.py), but a seq mesh whose
+    first device is not the data group's is refused."""
     group = dp.DataGroup(0, 2, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="DP x SP"):
-        _tiny_trainer(group, seq_mesh=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="is not the data group's device"):
+        _tiny_trainer(group, seq_mesh=[torch.device("cuda", 0),
+                                       torch.device("cpu")])
 
 
 # -------------------------------------------------------------- CLI training

@@ -10,7 +10,12 @@ CHiME recipes' layer and tail shapes, a weight-noise step of the kernel
 route against the scan route, and data parallelism: the kernels at a
 rank's rows (13 and 25 of the TIMIT recipe's 50, one empty) and a
 Trainer(data_group=) step of two ranks (on cuda:0 over gloo; on two GPUs
-over NCCL) against the one-process step.
+over NCCL) against the one-process step; and DP x SP and data-parallel
+streaming: K6b and K6f at a DP x SP rank's block (B = 25, T = 250), an
+all-padding block's outputs exactly zero, K6f+K7 at a streaming rank's 32
+streams, and a Trainer(seq_mesh=, data_group=) step of two ranks (on
+cuda:0 over gloo, each with a 2-block mesh of cuda:0; on four GPUs over
+NCCL, each with a mesh of two) against the one-process SP step.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -1525,11 +1530,11 @@ def _dp_batch(b):
     return rng.randn(T, b, 3).astype(np.float32), tc, pt
 
 
-def _dp_trainer(group=None, device="cuda"):
+def _dp_trainer(group=None, device="cuda", mesh=None):
     from lstm_rnn_tpu_torch.trainer import Trainer
     return Trainer(_dp_net(), None, learning_rate=1e-2, momentum=0.9,
                    hybrid_online_batch=True, data_group=group,
-                   device=None if group else device)
+                   seq_mesh=mesh, device=None if group or mesh else device)
 
 
 def _dp_step_worker(group, out_dir, b):
@@ -1592,3 +1597,120 @@ def test_nccl_step_on_two_gpus(tmp_path):
         pytest.skip("needs two GPUs")
     _dp_step_matches(tmp_path, [torch.device("cuda", j) for j in range(2)],
                      None)
+
+
+# ---------------------------------------------------------------------------
+# DP x SP and data-parallel streaming: a DP x SP rank's block of the TIMIT
+# recipe's SP step (B = 25 of 50, T = 250 of 500 over 2 blocks), and a DP
+# streaming rank's 32 of the streaming stack's 64 streams.
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dir_offset", [0, 1])
+def test_dp_sp_rank_block_matches_twin(dir_offset, dtype, need_dx):
+    """K6b forward and backward (rows full, ending inside the block, a
+    block of empty rows, a row of length 1) and K6f (prefix lengths) at a
+    DP x SP rank's block of a TIMIT layer: the twins' values."""
+    test_carry_grad_matches_twin((250, 25, 250, 125, 1), "ragged", None,
+                                 dir_offset, dtype, need_dx)
+    args, h0, c0, _ = carry_inputs(250, 25, 250, 125, 1, "none", seed=25)
+    args[5][4:8] = 0
+    errs = _carry_errs(args, h0, c0, None, dtype, None, dir_offset)
+    assert max(errs) <= TOL[dtype], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dir_offset", [0, 1])
+def test_dp_sp_all_padding_block_is_zero(dir_offset, dtype):
+    """A block whose rows are all padding (no valid frame, zero carries
+    and final cotangents; N(0, 1) inputs and output cotangents): every
+    output of K6b-f, K6b-b and K6f exactly zero."""
+    args = list(make_layer(60, 25, 250, 125, 1, seed=7))
+    args[5] = torch.zeros_like(args[5])
+    z = torch.zeros(1, 25, 125, device="cuda")
+    dh = torch.randn(60, 25, 125, device="cuda")
+    h, c, g, (hf, cf) = lstm_fwd_save_carry(*args, z, z, 1.0, dtype, None,
+                                            dir_offset)
+    x, w_in, w_rec, peep, _, lengths = args
+    grads = lstm_bwd_carry(x, w_in, w_rec, peep, lengths, h, c, g, z, z, dh,
+                           z, z, 1.0, True, dtype, True, None, dir_offset)
+    with torch.inference_mode():
+        y, (hf6, cf6) = lstm_scan_fused_carry(*args, z, z, 1.0, True, dtype,
+                                              True, None, dir_offset)
+    torch.cuda.synchronize()
+    for t in (h, c, g, hf, cf, *grads, y, hf6, cf6):
+        assert not t.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [117, 250])
+def test_dp_stream_rank_matches_twin(P, dtype):
+    """K6f+K7 over a 64-frame chunk of a DP streaming rank's 32 streams
+    (the streaming stack's LSTM(250)), with a step mask of gaps."""
+    args, h0, c0, mask = carry_inputs(64, 32, P, 250, 1, "gaps", seed=P + 1)
+    assert max(_carry_errs(args, h0, c0, mask, dtype)) <= TOL[dtype]
+
+
+def _dpsp_step_worker(group, out_dir, b):
+    """One SGD step of Trainer(seq_mesh=, data_group=) on this rank's
+    block of the padded batch, on its seq mesh: its loss, count, momentum
+    delta and parameters, and its K6b, K1 and K2 launches."""
+    tr = _dp_trainer(group, mesh=list(group.seq_mesh))
+    blk = [torch.from_numpy(a).to(group.device)
+           for a in group.block(*_dp_batch(b))]
+    before = (lstm_fwd_save_carry.launches, lstm_bwd_carry.launches,
+              lstm_fwd_save.launches, lstm_bwd.launches)
+    err, corr = tr.train_step(*blk)
+    for dev in set(group.seq_mesh):
+        torch.cuda.synchronize(dev)
+    after = (lstm_fwd_save_carry.launches, lstm_bwd_carry.launches,
+             lstm_fwd_save.launches, lstm_bwd.launches)
+    torch.save({"err": err.item(), "corr": int(corr),
+                "v": tr.exact_params(tr.velocity), "w": tr.exact_params(),
+                "launches": [x - y for x, y in zip(after, before)]},
+               f"{out_dir}/rank{group.rank}.pt")
+
+
+def _dpsp_step_matches(tmp_path, meshes, backend):
+    """The ranks' DP x SP step against the one-process step on a 2-block
+    mesh of cuda:0 from the same weights: losses and counts summed, every
+    rank's momentum delta within 1e-6 of the largest, the ranks' weights
+    equal, and each rank launched K6b-f and K6b-b once a layer, direction
+    and block (8) and no K1 or K2."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    b = 9
+    tr = _dp_trainer(mesh=[torch.device("cuda", 0)] * 2)
+    err, corr = tr.train_step(*(torch.from_numpy(a).cuda()
+                                for a in _dp_batch(b)))
+    want_v = tr.exact_params(tr.velocity)
+    start(_dpsp_step_worker, meshes, (str(tmp_path), b), backend=backend)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(len(meshes))]
+    assert abs(sum(r["err"] for r in ranks) - err.item()) <= (
+        1e-6 * abs(err.item()))
+    assert sum(r["corr"] for r in ranks) == int(corr)
+    vmax = max(np.abs(v).max() for layer in want_v.values()
+               for v in layer.values())
+    for r in ranks:
+        assert r["launches"] == [8, 8, 0, 0]
+        d = max(np.abs(r["v"][n][k] - want_v[n][k]).max()
+                for n in want_v for k in want_v[n])
+        assert d <= 1e-6 * vmax, d / vmax
+        assert all(np.array_equal(r["w"][n][k], ranks[0]["w"][n][k])
+                   for n in want_v for k in want_v[n])
+
+
+def test_two_rank_gloo_dp_sp_step_on_one_gpu(tmp_path):
+    """Two DP x SP ranks on cuda:0 over gloo, each a 2-block mesh of
+    cuda:0."""
+    _dpsp_step_matches(tmp_path, [[torch.device("cuda", 0)] * 2] * 2,
+                       "gloo")
+
+
+def test_nccl_dp_sp_step_on_four_gpus(tmp_path):
+    """Two DP x SP ranks over NCCL, rank j on the mesh cuda:2j,
+    cuda:2j+1."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four GPUs")
+    _dpsp_step_matches(tmp_path, [[torch.device("cuda", 2 * j),
+                                   torch.device("cuda", 2 * j + 1)]
+                                  for j in range(2)], None)

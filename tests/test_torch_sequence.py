@@ -290,15 +290,16 @@ def test_cli_train_seq_devices_matches_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--num_devices", "4"], "--num_devices 4 is not supported"),
+    (["--num_devices", "3"], "seq_devices=2 must divide num_devices=3"),
     (["--stream_chunk", "4"],
      "stream_chunk does not combine with pipeline_devices or seq_devices"),
     (["--pipeline_devices", "2"],
      "seq_devices > 1 does not combine with model_devices"),
 ])
 def test_cli_refuses_seq_combinations(tmp_path, extra, match):
-    """Composed DP x SP, streaming and pipelines with --seq_devices are
-    refused before any work; streaming and pipelines with the JAX CLI's
+    """A --num_devices that --seq_devices does not divide (DP x SP runs:
+    tests/test_torch_dp_sp.py), streaming and pipelines with
+    --seq_devices are refused before any work, with the JAX CLI's
     messages."""
     nc, common = _cli_setup(tmp_path)
     with pytest.raises(ValueError, match=match):
