@@ -231,7 +231,21 @@ weights from a seed, and holds every kernel against its plain twin:
     --stream_chunk 64 --num_devices 2 and 4 against one GPU; training
     frames/s of DP x SP 2 x 2 beside one GPU, --seq_devices 4 and
     --num_devices 4, and streaming frames/s and chunk latency on 1, 2
-    and 4 GPUs.
+    and 4 GPUs;
+39. the data feed and the dispatch flags: the native runtime (runtime/,
+    the JSON formatter, built with g++ at first use; a failed build fails
+    the run) and its seconds; the LVCSR autosave's JSON dump
+    through the native formatter (its seconds; its bytes against the
+    pure-Python dump's); `cli.main(--train true)` on phase 7's corpus
+    with --bucket_lengths true, 3 epochs f32, plain, with --device_cache
+    true and with --fuse_fractions 4 (accepted, one fraction at a time)
+    --profile_dir: the tables' errors, trained_network.jsn and every
+    kernel's exact launches alike, every lookup of epochs 2-3 a hit and
+    no byte copied from the host in their passes, the trace naming
+    rec_kernel, bptt_kernel, ce_fwd_kernel and gemm_kernel; two child
+    processes on one fresh --compilation_cache_dir, the first building
+    the kernels there, the second loading them; epoch 2's
+    frames/s and the device's busy share with the cache off and on.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -5281,6 +5295,322 @@ def dp_sp_rates(torch, card, workdir, n):
     return rates, srates
 
 
+# ----------------------------------------------------- the data feed (39)
+def _table_errors(rows):
+    """An epoch table's rows without their duration and throughput (and
+    cache) columns: what two runs of the same updates print alike."""
+    return ["|".join(c for i, c in enumerate(r.split("|"))
+                     if i not in (1, 6)) for r in rows]
+
+
+def native_runtime():
+    """39a: the native runtime (the JSON formatter), built with this host's
+    g++ at its first use in this process; a failed build fails the run."""
+    from lstm_rnn_tpu_torch import runtime
+    runtime.load()
+    built = (f"built with g++ in {runtime.build_seconds:.2f} s"
+             if runtime.build_seconds is not None else
+             "loaded (built before this process)")
+    phase("dispatch", f"native runtime "
+          f"{os.path.relpath(runtime.library_path(), REPO)}: {built}")
+
+
+def autosave_native_vs_python(workdir, meanwhile):
+    """39f: the LVCSR autosave's dump through the native formatter, its
+    seconds beside the 19.7 s a pure-Python dump of it took on an H100
+    at 700 W (PERF.md), and its bytes against the pure-Python dump of the
+    same autosave, which runs after meanwhile() has started what it
+    starts (returned): its seconds are not a measurement."""
+    import filecmp
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch import io_currennt as ioc
+    from lstm_rnn_tpu_torch.config import parse_config
+    from lstm_rnn_tpu_torch.models.flagship import build_lvcsr_network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    cfg = parse_config([os.path.join(LVCSR_DIR, "config.cfg"), "--network",
+                        os.path.join(LVCSR_DIR, "network.jsn"),
+                        "--autosave_prefix", os.path.join(workdir, "dump")])
+    net = build_lvcsr_network(seed=SEED)
+    tr = Trainer(net, None)
+    saver = cli._save_autosave(cfg, net, tr, "rows")
+    cli._join_saver(saver)
+    native_s, path = saver.seconds, saver.path
+    os.replace(path, path + ".native")
+    started = meanwhile()
+    dump = ioc.dump_doc_json
+    ioc.dump_doc_json = ioc.dump_doc_json_python
+    try:
+        saver = cli._save_autosave(cfg, net, tr, "rows")
+        cli._join_saver(saver)
+    finally:
+        ioc.dump_doc_json = dump
+    same = filecmp.cmp(path, path + ".native", shallow=False)
+    phase("dispatch", f"LVCSR autosave ({os.path.getsize(path) / 2**20:.0f}"
+          f" MiB): JSON dump {native_s:.2f} s native (pure Python on an "
+          f"H100 at 700 W: 19.7 s); the pure-Python dump of it (beside a "
+          f"kernel build) {saver.seconds:.1f} s, bytes "
+          f"{'equal' if same else 'DIFFER'}")
+    os.remove(path)
+    os.remove(path + ".native")
+    if not same:
+        raise AssertionError("the native autosave's bytes differ from the "
+                             "pure-Python dump's")
+    return started
+
+
+def _child(args, cwd):
+    """cli.main(args) in a child process that then prints where the kernel
+    library and the native runtime are and whether it built the kernels
+    (`BUILD <seconds or None> <kernels> <runtime>`)."""
+    code = ("import sys\n"
+            "from lstm_rnn_tpu_torch import cli, runtime\n"
+            "from lstm_rnn_tpu_torch.ops import _build\n"
+            "rc = cli.main(sys.argv[1:])\n"
+            "print('BUILD', _build.build_seconds, _build.library_path(), "
+            "runtime.library_path())\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    os.makedirs(cwd, exist_ok=True)
+    return subprocess.Popen([sys.executable, "-c", code, *args], cwd=cwd,
+                            env=env, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _build_line(out, what):
+    line = [ln for ln in out.splitlines() if ln.startswith("BUILD ")]
+    if not line:
+        print(out[-3000:])
+        raise AssertionError(f"{what}: no BUILD line")
+    _, seconds, kernels, native = line[-1].split(" ")
+    return (None if seconds == "None" else float(seconds)), kernels, native
+
+
+def dispatch_cli(torch, workdir):
+    """39b-d: cli.main on phase 7's corpus (TIMIT recipe, f32, 3 epochs,
+    --bucket_lengths true so that same-shape runs form) without the
+    dispatch flags, with --device_cache true, and with --fuse_fractions 4
+    --profile_dir: the tables' errors, trained_network.jsn and the exact
+    launches alike; every lookup of epochs 2-3 a hit and no byte copied
+    from the host in their passes; the trace names the kernels. Returns
+    the launches of the plain run."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    paths, net_path = write_train_corpus(workdir)
+    (train_nc, _), (val_nc, _) = paths["train"], paths["val"]
+    n_train = DataSet([train_nc], parallel_sequences=50,
+                      trunc_seq_length=500).num_fractions()
+    n_val = DataSet([val_nc], parallel_sequences=50).num_fractions()
+    epochs = 3
+    expect = {"lstm_fwd": 5 * n_val * epochs,
+              "lstm_fwd_save": 5 * n_train * epochs,
+              "lstm_bwd": 5 * n_train * epochs,
+              "softmax_ce_proj_fwd": (n_train + n_val) * epochs,
+              "softmax_ce_proj_bwd": n_train * epochs,
+              "softmax_ce_wide_fwd": 0, "softmax_ce_wide_bwd": 0,
+              "lstm_fwd_carry": 0, "lstm_fwd_carry_save": 0,
+              "lstm_bwd_carry": 0, "softmax_ce_fwd": 0, "softmax_ce_bwd": 0}
+    made = []
+
+    class Recording(Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    prof_dir = os.path.join(workdir, "dispatch_trace")
+    runs = {}
+    for label, extra in (("plain", []),
+                         ("cache", ["--device_cache", "true"]),
+                         ("fuse", ["--fuse_fractions", "4", "--profile_dir",
+                                   prof_dir])):
+        out = os.path.join(workdir, f"dispatch_{label}.jsn")
+        args = ["--network", net_path, "--train", "true",
+                "--train_file", train_nc, "--val_file", val_nc,
+                "--truncate_seq", "500", "--parallel_sequences", "50",
+                "--hybrid_online_batch", "true", "--shuffle_fractions",
+                "true", "--bucket_lengths", "true", "--learning_rate", "1e-4",
+                "--momentum", "0.9", "--max_epochs", str(epochs),
+                "--random_seed", str(SEED), "--save_network", out, *extra]
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0  # this run of the path starts here
+        buf = io.StringIO()
+        cli.Trainer = Recording
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(args)
+            wall = time.perf_counter() - t0
+        finally:
+            cli.Trainer = Trainer
+        counts = {k: f.launches for k, f in w.items()}
+        text = buf.getvalue()
+        rows = _table_rows(text)
+        for ln in rows:
+            phase("dispatch", f"{label} |{ln}")
+        if rc != 0 or len(rows) != epochs:
+            print(text[-3000:])
+            raise AssertionError(f"cli --train true ({label}) returned {rc}")
+        check_counts(counts, expect)
+        with open(out, "rb") as f:
+            runs[label] = (rows, f.read(), counts, made[-1])
+        phase("dispatch", f"{label}: {wall:.1f} s wall; bytes copied from "
+              f"the host a pass (train, val; by epoch) "
+              f"{made[-1].h2d_bytes}; launches as expected")
+    plain = runs["plain"]
+    for label in ("cache", "fuse"):
+        rows, blob, counts, tr = runs[label]
+        if _table_errors(rows) != _table_errors(plain[0]):
+            raise AssertionError(f"{label}: the epoch table's errors differ")
+        if blob != plain[1]:
+            raise AssertionError(f"{label}: trained_network.jsn differs")
+        if counts != plain[2]:
+            raise AssertionError(f"{label}: other launches {counts}")
+    rows, _, _, tr = runs["cache"]
+    brackets = [r[r.index("[cache"):] if "[cache" in r else "" for r in rows]
+    for e, b in enumerate(brackets[1:], start=2):
+        hits, looks = b.split()[1].split("/")
+        if hits != looks or int(looks) != n_train + n_val:
+            raise AssertionError(f"epoch {e}: {b}")
+    if tr.h2d_bytes[2:] != [0] * (2 * (epochs - 1)) or tr.h2d_bytes[0] <= 0:
+        raise AssertionError(f"bytes copied with the cache: {tr.h2d_bytes}")
+    phase("dispatch", f"--device_cache true: tables' errors and "
+          f"trained_network.jsn bit for bit the plain run's; brackets "
+          f"{brackets}; epochs 2-3 copy 0 bytes from the host")
+    phase("dispatch", f"--fuse_fractions 4 (accepted, one fraction at a "
+          f"time): trained_network.jsn bit for bit the plain run's, "
+          f"launches equal ({runs['fuse'][2]['lstm_bwd']} K2, "
+          f"{runs['fuse'][2]['softmax_ce_proj_bwd']} K3b); staging buffers "
+          f"allocated {runs['fuse'][3]._staging.allocations}")
+    trace = os.path.join(prof_dir, "trace_rank0.json")
+    with open(trace) as f:
+        doc = json.load(f)
+    names = {ev.get("name", "") for ev in doc["traceEvents"]}
+    missing = [k for k in ("rec_kernel", "bptt_kernel", "ce_fwd_kernel",
+                           "gemm_kernel") if not any(k in n for n in names)]
+    phase("dispatch", f"--profile_dir: {os.path.getsize(trace) / 2**20:.1f} "
+          f"MiB Chrome trace of epoch 1, {len(doc['traceEvents'])} events; "
+          f"kernels missing: {missing or 'none'}")
+    if missing:
+        raise AssertionError(f"the trace names no {missing}")
+    return train_nc, val_nc, net_path
+
+
+def dispatch_trainer(train_nc, val_nc, cache):
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    kw = {"parallel_sequences": 50, "sort_by_length": True,
+          "bucket_lengths": True}
+    train = DataSet([train_nc], trunc_seq_length=500,
+                    fraction_shuffling=True, seed=SEED, **kw)
+    val = DataSet([val_nc], **kw)
+    return Trainer(build_timit_network(seed=SEED), train, val,
+                   learning_rate=1e-4, momentum=0.9,
+                   hybrid_online_batch=True, device="cuda",
+                   device_cache=cache)
+
+
+def compilation_cache_children(workdir, nc, net_path, first):
+    """39e: a second child given the same fresh --compilation_cache_dir as
+    the first (started earlier): the first built the kernel library
+    there, the second loads it without building; both place the native
+    runtime there too (built at its first use, which serving does not
+    make)."""
+    cache = os.path.join(workdir, "compile_cache")
+    outs = []
+    for i, p in enumerate((first, None)):
+        if p is None:
+            p = _child(_child_args(workdir, nc, net_path, 1), os.path.join(
+                workdir, "child1"))
+        outs.append(_build_line(finish(p, f"child {i}", 900),
+                                f"child {i}"))
+    (s0, k0, n0), (s1, k1, n1) = outs
+    files = sorted(os.listdir(cache))
+    phase("dispatch", f"--compilation_cache_dir: child 0 built the kernels "
+          f"in {s0} s into {os.path.relpath(k0, workdir)}, child 1 built "
+          f"{'nothing' if s1 is None else f'again ({s1} s)'}; the directory "
+          f"holds {files}")
+    for k, n in ((k0, n0), (k1, n1)):
+        if os.path.dirname(k) != cache or os.path.dirname(n) != cache:
+            raise AssertionError(f"a library outside {cache}: {k}, {n}")
+    if s0 is None or s1 is not None or k0 != k1:
+        raise AssertionError("the compile cache was not built once and "
+                             "then loaded")
+    if os.path.basename(k0) not in files:
+        raise AssertionError(f"{cache} lacks the kernel library: {files}")
+    with open(os.path.join(workdir, "child0.csv"), "rb") as a, \
+            open(os.path.join(workdir, "child1.csv"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the two children served other outputs")
+
+
+def _child_args(workdir, nc, net_path, i):
+    return ["--network", net_path, "--train", "false", "--ff_input_file", nc,
+            "--parallel_sequences", "50", "--ff_output_format", "single_csv",
+            "--ff_output_file", os.path.join(workdir, f"child{i}.csv"),
+            "--compilation_cache_dir", os.path.join(workdir, "compile_cache")]
+
+
+def dispatch_rates(torch, card, train_nc, val_nc):
+    """39g: epoch 2's frames/s (training frames over the epoch's wall,
+    train and val passes, as the CLI counts) and the device's busy share
+    over epoch 3 (profiler), with the cache off and on, on phase 7's
+    corpus with length buckets; f32."""
+    from torch.profiler import ProfilerActivity, profile
+    for cache in (False, True):
+        tr = dispatch_trainer(train_nc, val_nc, cache)
+        frames = tr.train_set.total_timesteps
+        tr.train_epoch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            tr.train_epoch()
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t1
+        busy = sum(dev_us(e) for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        phase("dispatch", f"rates cache={'on' if cache else 'off'}: epoch "
+              f"2 {wall:.3f} s, {frames / wall:,.0f} frames/s; epoch 3 "
+              f"under the profiler {wall3:.3f} s, device busy "
+              f"{busy / 1e6:.3f} s ({100 * busy / 1e6 / wall3:.1f}%); bytes "
+              f"from the host epoch 2 {tr.h2d_bytes[2:4]} ({card})")
+        del tr
+        torch.cuda.empty_cache()
+
+
+def dispatch_phase(torch, card):
+    """Phase 39 (the data feed and the dispatch flags)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        nc, net_path, _, _ = write_inputs(workdir)
+        native_runtime()
+        # 39e's first child builds the kernels (nvcc, ~1 min) while the
+        # pure-Python autosave dump and 39b-d run here
+        children = []
+        try:
+            autosave_native_vs_python(workdir, lambda: children.append(
+                _child(_child_args(workdir, nc, net_path, 0),
+                       os.path.join(workdir, "child0"))))
+            train_nc, val_nc, _ = dispatch_cli(torch, workdir)
+        except BaseException:
+            import signal
+            for p in children:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+            raise
+        compilation_cache_children(workdir, nc, net_path, children[0])
+        dispatch_rates(torch, card, train_nc, val_nc)
+    phase("dispatch", f"phase 39 took {time.perf_counter() - t0:.0f} s")
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5407,6 +5737,7 @@ def main():
         phase("dpsp-cli", "phase 38 (DP x SP and DP streaming on distinct "
               f"GPUs) was not run: torch sees {torch.cuda.device_count()} "
               "GPU(s), it needs 4")
+    dispatch_phase(torch, card)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":

@@ -10,7 +10,9 @@ lstm_rnn_tpu.
 Ported: the forward-pass (posterior dump) mode, streaming serving,
 training (weight noise, input noise and --init_rng currennt included),
 sequence parallelism in one process and data parallelism over processes,
-on one host or several (`parallel/`); the rest follows (ROADMAP.md).
+on one host or several (`parallel/`), and the data feed: pinned
+non-blocking copies, the device cache and the native JSON formatter
+(`runtime/`); the rest follows (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -56,6 +56,17 @@ Multi-host serving is plain data-parallel serving only: sequence-parallel
 and streaming serving over several hosts are refused with the JAX CLI's
 message.
 
+The JAX package's dispatch flags: in train mode `--device_cache true`
+goes to the Trainer's data feed (trainer.py; the epoch row then ends with
+the cache's `[cache hits/lookups hit, N MiB]`, as the JAX CLI's does);
+`--fuse_fractions K` is accepted, so a JAX config file runs, and changes
+nothing: the Trainer takes one fraction at a time until CUDA Graphs;
+`--profile_dir DIR` traces the first epoch with torch.profiler into
+`DIR/trace_rank<r>.json`, a file a rank; in both modes
+`--compilation_cache_dir DIR` builds the kernel library and the native
+runtime into DIR (ops/_build.py `use_dir`), in this process and in every
+worker.
+
 Device: `--cuda true` (the default) or `--device cuda` runs on the GPU, the
 LSTM layers and the classification tail through the Hopper kernels; a
 missing GPU is an error, not a move to the CPU. `--device cpu` /
@@ -65,6 +76,7 @@ fp32: TF32 is switched off.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
@@ -80,6 +92,7 @@ from lstm_rnn_tpu_torch import writers
 from lstm_rnn_tpu_torch.config import Config, parse_config
 from lstm_rnn_tpu_torch.data.dataset import DataSet
 from lstm_rnn_tpu_torch.network import Network
+from lstm_rnn_tpu_torch.ops import _build
 from lstm_rnn_tpu_torch.parallel import launch
 from lstm_rnn_tpu_torch.parallel.data import gather_blocks, pad_batch
 from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
@@ -152,6 +165,7 @@ def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
     JAX CLI's cli.py:712-750; DP x SP serving, :604-618; DP streaming,
     :619-711) each rank computes its block of every fraction and rank 0
     gathers the blocks and writes the files."""
+    _use_build_dir(cfg)
     print(f"Reading network from '{cfg.network}'... ", end="")
     net_doc = ioc.load_network_json(cfg.network)
     print("done.\n")
@@ -304,19 +318,33 @@ def _apply_streamed(net: Network, params, x, pt, chunk: int):
     return torch.cat(outs)
 
 
-def _check_trainable(cfg: Config) -> None:
-    """Refuse the training features the port does not have yet."""
-    missing = [
-        (cfg.fuse_fractions != 1 or bool(cfg.device_cache)
-         or bool(cfg.profile_dir),
-         "--fuse_fractions/--device_cache/--profile_dir",
-         "the JAX package's TPU dispatch machinery; CUDA Graphs come later"),
-    ]
-    for bad, flag, where in missing:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported to PyTorch yet (ROADMAP.md, queue 1: "
-                f"{where})")
+def _use_build_dir(cfg: Config) -> None:
+    """--compilation_cache_dir: build the kernel library and the native
+    runtime into (and load them from) that directory, in this process (the
+    CLI's and each worker's, before its first build)."""
+    if cfg.compilation_cache_dir:
+        _build.use_dir(cfg.compilation_cache_dir)
+
+
+@contextlib.contextmanager
+def _profiled(directory: str, device: torch.device, group=None):
+    """Trace the body with torch.profiler (the CPU and, on a GPU, CUDA
+    activities) and write a Chrome trace into `directory`, one file a
+    rank: the JAX CLI's jax.profiler.trace of the first epoch."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = os.path.join(directory,
+                        f"trace_rank{0 if group is None else group.rank}"
+                        ".json")
+    prof.export_chrome_trace(path)
+    print(f"Wrote the trace of epoch 1 to '{path}'")
 
 
 def _save_autosave(cfg: Config, net: Network, trainer: Trainer,
@@ -373,6 +401,7 @@ def _join_saver(t: threading.Thread) -> None:
 def train_mode(cfg: Config, device: torch.device, group=None) -> int:
     """Train mode on `device`; under a data group every rank trains its
     block of each fraction and rank 0 prints and writes."""
+    _use_build_dir(cfg)
     network_file = cfg.continue_file or cfg.network
     print(f"Reading network from '{network_file}'... ", end="")
     net_doc = ioc.load_network_json(network_file)
@@ -416,7 +445,8 @@ def train_mode(cfg: Config, device: torch.device, group=None) -> int:
         validate_every=cfg.validate_every, test_every=cfg.test_every,
         hybrid_online_batch=cfg.hybrid_online_batch,
         weight_noise_sigma=cfg.weight_noise_sigma, seed=cfg.random_seed,
-        device=device, seq_mesh=seq_mesh, data_group=group)
+        device=device, seq_mesh=seq_mesh, data_group=group,
+        device_cache=cfg.device_cache)
 
     info_rows = ""
     if cfg.continue_file:
@@ -442,7 +472,11 @@ def train_mode(cfg: Config, device: torch.device, group=None) -> int:
     finished = trainer.finished  # a restored autosave may be finished
     while not finished:
         t0 = time.time()
-        finished = trainer.train_epoch()
+        if cfg.profile_dir and trainer.cur_epoch == 0:
+            with _profiled(cfg.profile_dir, device, group):
+                finished = trainer.train_epoch()
+        else:
+            finished = trainer.train_epoch()
         duration = time.time() - t0
         row = f" {trainer.cur_epoch:5d} | {duration:8.1f} |"
         row += fmt_err(trainer.cur_training_error,
@@ -463,7 +497,14 @@ def train_mode(cfg: Config, device: torch.device, group=None) -> int:
         else:
             row += "        "
         fps = train_set.total_timesteps / max(duration, 1e-9)
-        row += f"| {fps:,.0f} fr/s\n"
+        row += f"| {fps:,.0f} fr/s"
+        if trainer.device_cache:
+            st = trainer.device_cache_stats()
+            lookups = st["hits"] + st["misses"]
+            if lookups:
+                row += (f"  [cache {st['hits']}/{lookups} hit, "
+                        f"{st['bytes'] / 2**20:.0f} MiB]")
+        row += "\n"
         sys.stdout.write(row)
         sys.stdout.flush()
         info_rows += row
@@ -545,8 +586,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         for i in range(n):
             print(f"{i}: {torch.cuda.get_device_name(i)}")
         return 0
-    if cfg.train:
-        _check_trainable(cfg)
+    _use_build_dir(cfg)
     device = select_device(cfg.device, cfg.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -24,8 +24,8 @@ Port-specific:
                  in train mode (parallel/launch.py)
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
 never silently ignored: --model_devices and --pipeline_devices above 1,
---f32_matmul 3x and --compilation_cache_dir (and, in parallel/launch.py,
-a seq group that would span hosts). --model_devices 0 and
+and --f32_matmul 3x (and, in parallel/launch.py, a seq group that would
+span hosts). --model_devices 0 and
 --pipeline_devices 0 resolve to no parallelism, as the JAX CLI resolves
 them off a TPU. --seq_devices with --stream_chunk, --model_devices or
 --pipeline_devices, and a --seq_devices that does not divide
@@ -202,15 +202,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "on CUDA (its plain twin on CPU), scan = the plain "
                         "PyTorch scan")
     g.add_argument("--fuse_fractions", type=int, default=1,
-                   help="training only: K same-shape updates per dispatch")
+                   help="accepted for the JAX package's config files; "
+                        "the port steps one fraction at a time")
     g.add_argument("--device_cache", type=_str2bool, default=None,
                    help="training only: keep assembled fractions on the "
-                        "device across epochs")
+                        "device across epochs (default off)")
     g.add_argument("--compilation_cache_dir", default="",
-                   help="compile cache of the JAX package; the port "
-                        "compiles nothing per shape and refuses it")
+                   help="build directory of the CUDA kernel library and "
+                        "the native runtime (default: the package's "
+                        "_build/)")
     g.add_argument("--profile_dir", default="",
-                   help="training only: profiler trace of the first epoch")
+                   help="training only: torch.profiler Chrome trace of the "
+                        "first epoch, a file a rank")
 
     g = p.add_argument_group("Multi-host options (extensions)")
     g.add_argument("--coordinator_address", default="",
@@ -416,9 +419,6 @@ def _check_supported(ns: argparse.Namespace) -> None:
     if ns.f32_matmul != "6x":
         unsupported.append((f"--f32_matmul {ns.f32_matmul}",
                             "the training step and its precision modes"))
-    if ns.compilation_cache_dir:
-        unsupported.append(("--compilation_cache_dir",
-                            "the port compiles nothing per shape"))
     if ns.device == "tpu":
         unsupported.append(("--device tpu", "the JAX package (lstm_rnn_tpu)"))
     if unsupported:

@@ -19,8 +19,13 @@ Reproduces `currennt_lib/src/data_sets/DataSet.cpp` semantics:
   sequence shuffling drawn from one numpy stream seeded with `seed`, in the
   JAX package's order, so one seed gives the same fraction order in both.
 
-Counterpart of lstm_rnn_tpu/data/dataset.py, numpy only. Not ported: the
-native C++ assembly and the Trainer's device-cache keys (ROADMAP.md).
+- fractions whose contents are the same every epoch (no input noise, no
+  sequence shuffling) carry a key (`Fraction.key`: the DataSet's token and
+  its sequences' ids), under which the Trainer's device cache keeps them
+  on the device; `lazy_fractions` hands out each fraction's key and shape
+  before assembling it, so a cache hit skips the assembly.
+
+Counterpart of lstm_rnn_tpu/data/dataset.py, numpy only.
 
 Length bucketing (off unless asked for) pads fractions up to a small set
 of bucket lengths (powers-of-two progression) instead of their exact max
@@ -31,6 +36,7 @@ stops each block at its longest row, so bucketing changes no result.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -84,7 +90,7 @@ class _DiskCache:
 
 @dataclass
 class SequenceRef:
-    """One sequence in the corpus.
+    """One sequence (or a truncated piece of one) in the corpus.
 
     `inputs`/`targets` are ndarrays for RAM-resident corpora, or
     (offset, shape, dtype) cache references resolved via the DataSet's
@@ -95,6 +101,7 @@ class SequenceRef:
     inputs: object  # [length, input_size] float32 (array or cache ref)
     targets: object  # [length, target_size] float32 / [length] int32
     original_idx: int = 0  # piece index of a truncated sequence
+    uid: int = -1  # corpus-wide id, stable across epochs (a cache key part)
 
 
 @dataclass
@@ -104,6 +111,42 @@ class Fraction:
     pattypes: np.ndarray      # [T, B] int8
     targets: np.ndarray       # [T, B, out] float32 or [T, B] int32 (classes)
     seq_info: List[dict] = field(default_factory=list)  # {tag, length, originalSeqIdx}
+    # the member sequences' identity when the fraction's contents are the
+    # same every epoch (no input noise, no sequence shuffling); None: not
+    # cacheable. The Trainer keeps keyed fractions on the device.
+    key: object = None
+
+    @property
+    def shape(self):
+        """The padded [T, B, input] shape (a LazyFraction's before its
+        assembly)."""
+        return self.inputs.shape
+
+
+class LazyFraction:
+    """A fraction whose key and shape are known up front and whose arrays
+    are assembled at their first access: on a device-cache hit the
+    Trainer never touches them, and the assembly is skipped."""
+
+    __slots__ = ("key", "shape", "_ds", "_idx", "_real")
+
+    def __init__(self, ds, first_idx, key, shape):
+        self.key = key
+        self.shape = shape
+        self._ds = ds
+        self._idx = first_idx
+        self._real = None
+
+    def __getattr__(self, name):
+        if self._real is None:
+            self._real = self._ds._make_fraction(self._idx)
+        return getattr(self._real, name)
+
+
+# numbers each DataSet, namespacing its fractions' keys: one Trainer's
+# device cache holds the train, validation and test sets' fractions, whose
+# sequence ids all start at 0
+_DATASET_COUNTER = itertools.count(1)
 
 
 def discard_normals(rng: np.random.RandomState, n: int,
@@ -150,6 +193,7 @@ class DataSet:
                  bucket_major_shuffle: bool = True, prefetch: bool = True):
         if not (0 < fraction <= 1):
             raise ValueError("Invalid fraction")
+        self._cache_token = next(_DATASET_COUNTER)
         self.parallel_sequences = parallel_sequences
         self.fraction_shuffling = fraction_shuffling
         self.sequence_shuffling = sequence_shuffling
@@ -191,6 +235,8 @@ class DataSet:
             self.output_stdevs = np.ones(self.output_pattern_size, np.float32)
         if sort_by_length:
             self.sequences.sort(key=lambda s: s.length)
+        for i, s in enumerate(self.sequences):
+            s.uid = i
         # bucket_lengths: False = exact fraction lengths, True = power-of-2
         # inventory, "single" = ONE bucket at the corpus max (every fraction
         # the same shape), or an explicit inventory
@@ -339,6 +385,13 @@ class DataSet:
         return self._cache.get(seq.inputs), self._cache.get(seq.targets)
 
     # -------------------------------------------------------- fraction builder
+    def _key(self, seqs):
+        """The cache key of a fraction of `seqs`: None under input noise or
+        sequence shuffling (the contents change every epoch)."""
+        if self.noise_deviation or self.sequence_shuffling:
+            return None
+        return (self._cache_token,) + tuple(s.uid for s in seqs)
+
     def _make_fraction(self, first_idx: int) -> Fraction:
         b = self.parallel_sequences
         seqs = self.sequences[first_idx : first_idx + b]
@@ -398,9 +451,28 @@ class DataSet:
             info.append({"tag": seq.tag, "length": L,
                          "originalSeqIdx": seq.original_idx})
         return Fraction(inputs=inputs, pattypes=pattypes, targets=targets,
-                        seq_info=info)
+                        seq_info=info, key=self._key(seqs))
 
     # --------------------------------------------------------------- iteration
+    def fraction_meta(self, first_idx: int):
+        """(cache key, padded [T, B, input] shape) of the fraction that
+        starts at `first_idx`, without assembling it. B is the width the
+        fraction is assembled at, parallel_sequences, also for a short
+        last fraction."""
+        b = self.parallel_sequences
+        seqs = self.sequences[first_idx:first_idx + b]
+        t_pad = self._padded_length(max(s.length for s in seqs))
+        ctx = self.left_context + self.right_context + 1
+        return self._key(seqs), (t_pad, b, self.input_pattern_size * ctx)
+
+    def lazy_fractions(self):
+        """One epoch of LazyFraction handles, in the order and with the
+        shuffles of fractions() (no prefetch thread: a device-cache hit
+        assembles nothing)."""
+        for s in self._shuffle():
+            key, shape = self.fraction_meta(s)
+            yield LazyFraction(self, s, key, shape)
+
     def fractions(self):
         """One epoch of fractions; shuffles (if enabled) at epoch start and
         prefetches assembly on a background thread (DataSet.cpp:632-668)."""

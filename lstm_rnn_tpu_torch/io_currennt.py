@@ -168,25 +168,67 @@ def load_network_json(path: str) -> Dict[str, Any]:
 
 
 def dump_doc_json(doc: Dict[str, Any], f) -> None:
-    """json.dump(doc, indent=1) with numpy arrays accepted anywhere in the
-    doc. Float arrays widen to float64 lists, so every value prints as
-    Python's shortest repr (the JAX package's native formatter writes the
-    same text faster; porting it is later work)."""
+    """json.dump(doc, f, indent=1) with numpy arrays accepted anywhere in
+    the doc: the bytes of dump_doc_json_python, written faster. Each 1-D
+    float array of 512 values or more is formatted by the native runtime
+    (runtime/jsonfmt.cpp: Python's repr of every value, at the array's
+    indentation) and spliced in where json.dumps wrote a placeholder token;
+    the rest of the doc goes through json.dumps. Without the native
+    library (said once on stderr), or when a string of the doc equals a
+    token, the whole doc takes the pure-Python dump."""
+    from lstm_rnn_tpu_torch import runtime
+    if not runtime.available():
+        dump_doc_json_python(doc, f)
+        return
+    arrays: List[np.ndarray] = []
+    s = json.dumps(_plain(doc, arrays), indent=1)
+    quoted = ['"%s"' % _TOKEN.format(i) for i in range(len(arrays))]
+    # a doc string equal to a token would take the splice below (json
+    # escapes quotes, so a token cannot hide inside a longer string)
+    if any(s.count(q) != 1 for q in quoted):
+        dump_doc_json_python(doc, f)
+        return
+    pos = 0
+    for arr, q in zip(arrays, quoted):
+        at = s.index(q, pos)
+        # the array's depth: the indentation of the line it starts on
+        line = s[s.rfind("\n", 0, at) + 1:at]
+        f.write(s[pos:at])
+        f.write(runtime.fmt_f64_json(
+            arr, level=len(line) - len(line.lstrip(" "))).decode("ascii"))
+        pos = at + len(q)
+    f.write(s[pos:])
 
-    def walk(x):
-        if isinstance(x, np.ndarray):
-            # keep integer/bool arrays' parsed types intact — only float
-            # arrays may widen to float64 (value-identical)
-            if np.issubdtype(x.dtype, np.floating):
-                return np.asarray(x, np.float64).tolist()
+
+def dump_doc_json_python(doc: Dict[str, Any], f) -> None:
+    """json.dump(doc, f, indent=1) with numpy arrays accepted anywhere in
+    the doc, in pure Python: float arrays widen to float64 lists (every
+    value printed as Python's shortest repr), integer and bool arrays keep
+    their types. dump_doc_json's fallback and reference."""
+    json.dump(_plain(doc), f, indent=1)
+
+
+_TOKEN = "@@LRT_JSONFMT_ARRAY_{}@@"
+
+
+def _plain(x, arrays: Optional[List[np.ndarray]] = None):
+    """The doc as json writes it: float arrays widened to float64 lists
+    (value-identical), integer and bool arrays with their parsed types.
+    With `arrays`, each 1-D float array of 512 values or more is appended
+    there and replaced by its token (a nested or integer array keeps its
+    shape and its ints)."""
+    if isinstance(x, np.ndarray):
+        if not np.issubdtype(x.dtype, np.floating):
             return x.tolist()
-        if isinstance(x, dict):
-            return {k: walk(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [walk(v) for v in x]
-        return x
-
-    json.dump(walk(doc), f, indent=1)
+        if arrays is not None and x.size >= 512 and x.ndim == 1:
+            arrays.append(x)
+            return _TOKEN.format(len(arrays) - 1)
+        return np.asarray(x, np.float64).tolist()
+    if isinstance(x, dict):
+        return {k: _plain(v, arrays) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v, arrays) for v in x]
+    return x
 
 
 def save_network_json(path: str, layers: List[Dict[str, Any]], params,

@@ -2,7 +2,8 @@
 
 Each source compiles in its own nvcc process, all started together, and
 the objects link into one shared library with a plain C interface,
-`_build/liblstm_kernels_<hash>.so` inside the package; the hash covers the
+`_build/liblstm_kernels_<hash>.so` inside the package (or in the directory
+`use_dir` names: the CLI's --compilation_cache_dir); the hash covers the
 sources and the flags, so an edited source rebuilds and an unchanged one
 loads the library already built. Only the repository's sources and the
 installed CUDA toolkit are used. Importing this module builds nothing: the
@@ -36,6 +37,15 @@ _lock = threading.Lock()
 _lib = None
 # seconds the last build in this process took (None: loaded a built library)
 build_seconds = None
+
+
+def use_dir(path: str) -> None:
+    """Build into and load from `path` (created at the first build) in
+    place of the package's _build/, for this process: the CLI's
+    --compilation_cache_dir. The native runtime (runtime/) builds there
+    too. A library this process already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path)
 
 
 def _nvcc() -> str:

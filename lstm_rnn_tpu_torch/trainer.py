@@ -80,9 +80,25 @@ synchronise. Input noise is the DataSet's (data/dataset.py).
 backend, on the CPU only) train the scan route in float64: the port's
 counterpart of the JAX package's x64 epoch against the float64 oracle.
 
-Not ported (ROADMAP.md): the JAX package's TPU machinery (stacked epochs,
-the device cache, warm compiles, VMEM probes, fuse_fractions) has no
-counterpart here, and CUDA Graphs come later.
+The data feed (lstm_rnn_tpu/trainer.py:91-129, :650-691, :741-757):
+- a fraction reaches the device through pinned host memory (`_Staging`)
+  with a copy that does not synchronise, so the host queues the next
+  fraction's work while the card runs this one's;
+- `device_cache` keeps fractions whose contents are the same every epoch
+  (`Fraction.key`) on the device after their first copy, up to
+  `device_cache_bytes` (default 40% of the card's memory), evicting
+  entries unused for two epochs or more, not the least recently used:
+  a cyclic epoch over a corpus above the budget keeps its admitted prefix
+  instead of missing every time. Off unless asked for, as the JAX
+  Trainer's is off a TPU. With the cache on, fractions come as
+  LazyFraction handles, so a hit assembles nothing. Under a data group
+  the rank's block is cached, under a seq mesh the fraction on the mesh's
+  first device. `h2d_bytes` counts the bytes copied from the host, one
+  integer a pass.
+The JAX package's fused groups (`fuse_fractions`) and stacked epoch (a
+fori_loop over device-resident fractions, for the TPU's dispatch
+latency) wait for CUDA Graphs: one fraction at a time, the copies no
+longer synchronising, a group of them gained nothing on the H100.
 """
 
 from __future__ import annotations
@@ -108,6 +124,53 @@ def _clone(tree):
             for n, layer in tree.items()}
 
 
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dt)).dtype
+
+
+class _Staging:
+    """Host buffers of the copies to the device. On a GPU: pinned, reused
+    round robin, and written again only once the copy that last read one
+    has completed (its event), so the host stays up to SLOTS copies ahead
+    of the card without a synchronisation and never rewrites bytes in
+    flight. On the CPU a fresh tensor each time, which is the device's
+    (nothing is copied)."""
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: List[Optional[torch.Tensor]] = [None] * self.SLOTS
+        self._events: List[Any] = [None] * self.SLOTS
+        self._next = 0
+        self.allocations = 0  # pinned buffers allocated
+
+    def to_device(self, nbytes: int, fill) -> torch.Tensor:
+        """A uint8 device tensor of nbytes whose bytes fill(host numpy
+        uint8 array) wrote."""
+        if self.device.type != "cuda":
+            host = torch.empty(nbytes, dtype=torch.uint8)
+            fill(host.numpy())
+            return host
+        i = self._next
+        self._next = (i + 1) % self.SLOTS
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        if self._bufs[i] is None or self._bufs[i].numel() < nbytes:
+            self._bufs[i] = torch.empty(nbytes, dtype=torch.uint8,
+                                        pin_memory=True)
+            self.allocations += 1
+        host = self._bufs[i][:nbytes]
+        fill(host.numpy())
+        dev = host.to(self.device, non_blocking=True)
+        self._events[i] = torch.cuda.Event()
+        self._events[i].record(torch.cuda.current_stream(self.device))
+        return dev
+
+
 class Trainer:
     def __init__(self, net: Network, train_set: DataSet,
                  validation_set: Optional[DataSet] = None,
@@ -117,7 +180,9 @@ class Trainer:
                  validate_every: int = 1, test_every: int = 1,
                  hybrid_online_batch: bool = False,
                  weight_noise_sigma: float = 0.0, seed: int = 1,
-                 device=None, seq_mesh=None, data_group=None):
+                 device=None, seq_mesh=None, data_group=None,
+                 device_cache: Optional[bool] = None,
+                 device_cache_bytes: Optional[int] = None):
         self.net = net
         self.train_set = train_set
         self.validation_set = validation_set
@@ -173,6 +238,21 @@ class Trainer:
         self.velocity = {n: {k: torch.zeros_like(v) for k, v in l.items()}
                          for n, l in self.params.items()}
         self.best_params = _clone(self.params)
+
+        self._staging = _Staging(self.device)
+        self.device_cache = bool(device_cache)
+        # key -> [(inputs, targets, pattypes), bytes, epoch last used]
+        self._dev_cache: Dict[Any, list] = {}
+        self._dev_cache_budget = (self._auto_cache_bytes(self.device)
+                                  if device_cache_bytes is None
+                                  else int(device_cache_bytes))
+        self._dev_cache_bytes = 0
+        # this epoch's lookups (the CLI prints them in the epoch row)
+        self.cache_hits = 0
+        self.cache_misses = 0
+        # bytes copied from the host to the device, one entry a pass
+        self.h2d_bytes: List[int] = []
+        self._pass_bytes = 0
 
         # optimizer state (Optimizer.cu constructor)
         self.finished = False
@@ -290,24 +370,93 @@ class Trainer:
         return self.loss_and_metrics(self.params, inputs, targets, pattypes)
 
     # ------------------------------------------------------------------ epoch
-    def _device_batch(self, frac: Fraction):
-        """The fraction's arrays on the device; under a data group, this
-        rank's block of them after padding B to a multiple of the world
-        size (only the block is moved)."""
+    @staticmethod
+    def _auto_cache_bytes(device: torch.device, fraction: float = 0.4,
+                          fallback: int = 6 * 1024**3) -> int:
+        """The device cache's budget: 40% of the card's memory (the rest
+        for the parameters, the velocity and a step's activations), 6 GiB
+        off CUDA."""
+        if device.type != "cuda":
+            return fallback
+        return int(torch.cuda.mem_get_info(device)[1] * fraction)
+
+    def _to_device(self, host: tuple) -> tuple:
+        """A fraction's (inputs, targets, pattypes) host arrays on the
+        device in one copy from a staging buffer, the inputs in the
+        parameters' dtype; the three tensors are views of the copy."""
+        kinds = [(np.dtype(_NP_DTYPE[self.dtype]), host[0].shape)] + [
+            (host[j].dtype, host[j].shape) for j in (1, 2)]
+        sizes = [int(np.prod(shape)) * dt.itemsize for dt, shape in kinds]
+        offsets, total = [], 0
+        for size in sizes:
+            total = -(-total // 64) * 64
+            offsets.append(total)
+            total += size
+
+        def fill(buf):
+            for h, (dt, shape), off, size in zip(host, kinds, offsets,
+                                                 sizes):
+                buf[off:off + size].view(dt).reshape(shape)[...] = h
+
+        dev = self._staging.to_device(total, fill)
+        self._pass_bytes += sum(sizes)
+        return tuple(dev[off:off + size].view(_torch_dtype(dt)).view(shape)
+                     for (dt, shape), off, size in zip(kinds, offsets,
+                                                       sizes))
+
+    def _cache_evict_stale(self, need: int) -> None:
+        """Evict entries unused for two epochs or more until `need` bytes
+        fit (or none is left stale); entries used this epoch or the last
+        stay."""
+        if self._dev_cache_bytes + need <= self._dev_cache_budget:
+            return
+        horizon = self.cur_epoch - 1
+        for key in [k for k, e in self._dev_cache.items() if e[2] < horizon]:
+            self._dev_cache_bytes -= self._dev_cache.pop(key)[1]
+            if self._dev_cache_bytes + need <= self._dev_cache_budget:
+                return
+
+    def _cache_put(self, key, batch) -> None:
+        """Admit a fraction's device tensors under key if the budget has
+        room after evicting stale entries."""
+        nbytes = sum(a.numel() * a.element_size() for a in batch)
+        self._cache_evict_stale(nbytes)
+        if self._dev_cache_bytes + nbytes <= self._dev_cache_budget:
+            self._dev_cache[key] = [batch, nbytes, self.cur_epoch]
+            self._dev_cache_bytes += nbytes
+
+    def _device_batch(self, frac: Fraction) -> tuple:
+        """The fraction's (inputs, targets, pattypes) on the device (under a
+        data group this rank's block, after padding B to a multiple of the
+        world size): a cached fraction where it lies, else copied (and
+        cached after the copy when keyed)."""
+        key = frac.key if self.device_cache else None
+        if key is not None:
+            hit = self._dev_cache.get(key)
+            if hit is not None:
+                hit[2] = self.cur_epoch
+                self.cache_hits += 1
+                return hit[0]
+            self.cache_misses += 1
         arrays = (frac.inputs, frac.targets, frac.pattypes)
         if self.data_group is not None:
             arrays = self.data_group.block(*arrays)
-        dev = self.device
-        return (torch.from_numpy(arrays[0]).to(dev, self.dtype),
-                torch.from_numpy(arrays[1]).to(dev),
-                torch.from_numpy(arrays[2]).to(dev))
+        batch = self._to_device(arrays)
+        if key is not None:
+            self._cache_put(key, batch)
+        return batch
 
     def _process_dataset(self, ds: DataSet, update: bool):
         """One pass over ds; returns (error sum, correct) device scalars,
-        summed over a data group's ranks once, at the end."""
+        summed over a data group's ranks once, at the end. With the
+        device cache on and ds cacheable, the fractions are lazy handles:
+        a hit assembles nothing."""
         errs, corrs = [], []
         grad_acc = None
-        for frac in ds.fractions():
+        lazy = (self.device_cache and ds.noise_deviation == 0.0
+                and not ds.sequence_shuffling)
+        self._pass_bytes = 0
+        for frac in (ds.lazy_fractions() if lazy else ds.fractions()):
             batch = self._device_batch(frac)
             if not update:
                 err, corr = self.eval_step(*batch)
@@ -317,6 +466,7 @@ class Trainer:
                 grad_acc, err, corr = self.accum_step(grad_acc, *batch)
             errs.append(err)
             corrs.append(corr)
+        self.h2d_bytes.append(self._pass_bytes)
         if update and not self.hybrid_online_batch and grad_acc is not None:
             self.sgd_update(grad_acc)
         if not errs:
@@ -325,6 +475,12 @@ class Trainer:
         corr = torch.stack([c.to(torch.int64) for c in corrs]).sum()
         self._sum_over_ranks([err, corr])
         return err, corr
+
+    def device_cache_stats(self) -> Dict[str, int]:
+        """This epoch's lookups and the cache's entries and bytes."""
+        return {"hits": self.cache_hits, "misses": self.cache_misses,
+                "entries": len(self._dev_cache),
+                "bytes": self._dev_cache_bytes}
 
     @staticmethod
     def _fetch_metrics(ds: DataSet, err_dev, corr_dev):
@@ -339,6 +495,8 @@ class Trainer:
         if self.finished:
             return True
         self.cur_epoch += 1
+        self.cache_hits = 0
+        self.cache_misses = 0
         train_res = self._process_dataset(self.train_set, update=True)
         has_val = (self.validation_set is not None
                    and not self.validation_set.empty)

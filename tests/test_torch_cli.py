@@ -1,11 +1,14 @@
 """The port's CLI (lstm_rnn_tpu_torch.cli) in forward-pass mode against the
 JAX package's, on the same tiny .nc file and network.jsn: the posterior
 dumps must match (single_csv and HTK), and the flags the port does not
-support yet must fail loudly. Data parallelism and the multi-host flags:
-tests/test_torch_data_parallel.py. Train mode with the noise flags and
+support yet must fail loudly; in train mode, the dispatch flags against
+the run without them and the JAX CLI's run with them. Data parallelism
+and the multi-host flags: tests/test_torch_data_parallel.py. Train mode with the noise flags and
 --init_rng currennt: tests/test_torch_noise.py, test_torch_rng_compat.py."""
 
 import json
+import os
+import re
 
 import numpy as np
 import pytest
@@ -107,15 +110,58 @@ def test_stream_chunk_refuses_blstm(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--fuse_fractions", "4"], ["--device_cache", "true"],
-    ["--profile_dir", "prof"],
+    ["--profile_dir", "prof"], ["--compilation_cache_dir", "cache"],
 ])
-def test_unported_training_flags_raise(tmp_path, flag):
-    """The JAX package's TPU dispatch flags refuse to run instead of being
-    ignored."""
-    args = _setup(tmp_path) + ["--device", "cpu"]
-    args[args.index("--train") + 1] = "true"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(args + flag)
+def test_dispatch_flags_train(tmp_path, capsys, monkeypatch, flag):
+    """The JAX package's dispatch flags in train mode: the trained network
+    is byte for byte the run's without the flag, and within the tolerance
+    of test_train_matches_jax of the JAX CLI's run with it. --device_cache
+    prints the JAX CLI's cache bracket in the epoch rows, --profile_dir
+    writes a Chrome trace of the first epoch, --compilation_cache_dir
+    points the kernel build (ops/_build.py) at the directory, which on the
+    CPU builds no kernel."""
+    import jax
+
+    from lstm_rnn_tpu import io_currennt as jax_ioc
+    from lstm_rnn_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    if flag[0] != "--fuse_fractions":
+        flag = [flag[0], str(tmp_path / flag[1]) if flag[1] != "true"
+                else flag[1]]
+    assert cli.main(_train_args(tmp_path, str(tmp_path / "plain.jsn"))) == 0
+    capsys.readouterr()
+    assert cli.main(_train_args(tmp_path, str(tmp_path / "port.jsn"))
+                    + flag) == 0
+    out = capsys.readouterr().out
+    cache_dir = jax.config.jax_compilation_cache_dir
+    try:
+        assert jax_cli.main(_train_args(tmp_path, str(tmp_path / "jax.jsn"))
+                            + flag) == 0
+    finally:  # the JAX CLI sets the process's compile cache
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    out_jax = capsys.readouterr().out
+    assert ((tmp_path / "port.jsn").read_bytes()
+            == (tmp_path / "plain.jsn").read_bytes())
+    want = jax_ioc.load_network_json(str(tmp_path / "jax.jsn"))["weights"]
+    got = jax_ioc.load_network_json(str(tmp_path / "port.jsn"))["weights"]
+    for name, layer in want.items():
+        for part, values in layer.items():
+            np.testing.assert_allclose(got[name][part], values, rtol=0,
+                                       atol=1e-5, err_msg=f"{name}/{part}")
+    brackets = re.findall(r"\[cache .*\]", out)
+    if flag[0] == "--device_cache":
+        assert brackets == re.findall(r"\[cache .*\]", out_jax)
+        assert brackets == ["[cache 0/3 hit, 0 MiB]",
+                            "[cache 3/3 hit, 0 MiB]"]
+    else:
+        assert brackets == []
+    if flag[0] == "--profile_dir":
+        with open(tmp_path / "prof" / "trace_rank0.json") as f:
+            assert json.load(f)["traceEvents"]
+        assert "Wrote the trace of epoch 1" in out
+    if flag[0] == "--compilation_cache_dir":
+        assert _build.BUILD_DIR == str(tmp_path / "cache")
+        assert not os.path.exists(_build.library_path())
 
 
 @pytest.mark.parametrize("flag", [["--model_devices", "0"],

@@ -58,12 +58,12 @@ def corpus(tmp_path_factory):
 
 
 def _train_args(c, *extra):
-    """tests/test_distributed.py:57-66 without --fuse_fractions."""
+    """tests/test_distributed.py:57-66."""
     return ["--network", str(c / "net.jsn"), "--train", "true",
             "--train_file", str(c / "train.nc"), "--stochastic", "true",
             "--learning_rate", "1e-3", "--parallel_sequences", "4",
             "--random_seed", "5", "--max_epochs", "2", "--device", "cpu",
-            "--bucket_lengths", "true", *extra]
+            "--fuse_fractions", "4", "--bucket_lengths", "true", *extra]
 
 
 def _env():

@@ -355,12 +355,11 @@ def test_multihost_dp_x_sp_matches_jax_and_num_devices(corpus, root):
     """Two port processes with the multi-host flags and --seq_devices 2
     (each one CPU worker on a 2-block mesh: a ('data': 2, 'seq': 2) run)
     against the JAX CLI's two processes of 2 host devices each (tests/
-    test_distributed.py:124-165, on its corpus and flags but
-    --fuse_fractions, which the port refuses) and the port's
-    --num_devices 4 --seq_devices 2; process 1 prints and writes
+    test_distributed.py:124-165, on its corpus and flags) and the
+    port's --num_devices 4 --seq_devices 2; process 1 prints and writes
     nothing."""
     from tests.test_distributed import _cli_env
-    extra = ("--bucket_lengths", "true")
+    extra = ("--fuse_fractions", "4", "--bucket_lengths", "true")
     args = _train_args(corpus, *extra, "--seq_devices", "2", nc="dist.nc",
                        net="dist.jsn")
     dirs = [root / "mh0", root / "mh1"]

@@ -15,7 +15,10 @@ streaming: K6b and K6f at a DP x SP rank's block (B = 25, T = 250), an
 all-padding block's outputs exactly zero, K6f+K7 at a streaming rank's 32
 streams, and a Trainer(seq_mesh=, data_group=) step of two ranks (on
 cuda:0 over gloo, each with a 2-block mesh of cuda:0; on four GPUs over
-NCCL, each with a mesh of two) against the one-process SP step.
+NCCL, each with a mesh of two) against the one-process SP step; the data
+feed: cached epochs against the plain Trainer, bit for bit, in stochastic
+and batch mode, epoch 2 copying no byte from the host, and the pinned
+staging buffers reused while their copies are in flight.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -1714,3 +1717,82 @@ def test_nccl_dp_sp_step_on_four_gpus(tmp_path):
     _dpsp_step_matches(tmp_path, [[torch.device("cuda", 2 * j),
                                    torch.device("cuda", 2 * j + 1)]
                                   for j in range(2)], None)
+
+
+# --------------------------------------------------------------- data feed
+def _feed_trainer(tmp_path, **kw):
+    """Trainer over a small corpus made from a seed (3 inputs, 24 train and
+    8 val sequences of 5-40 frames in two length buckets, 4 a fraction,
+    shuffled fractions), the _dp_net on cuda:0, 2 epochs, stochastic."""
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.data.netcdf3 import strings_to_chars, write_netcdf
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    rng = np.random.RandomState(3)
+    sets = []
+    for name, n in (("train", 24), ("val", 8)):
+        lengths = rng.randint(5, 41, n)
+        total = int(lengths.sum())
+        path = str(tmp_path / f"{name}.nc")
+        write_netcdf(path, {"numSeqs": n, "numTimesteps": total,
+                            "inputPattSize": 3, "numLabels": 7,
+                            "maxSeqTagLength": 8}, [
+            ("seqTags", ["numSeqs", "maxSeqTagLength"],
+             strings_to_chars([f"s{i}" for i in range(n)], 8)),
+            ("seqLengths", ["numSeqs"], lengths.astype(np.int32)),
+            ("inputs", ["numTimesteps", "inputPattSize"],
+             rng.randn(total, 3).astype(np.float32)),
+            ("targetClasses", ["numTimesteps"],
+             rng.randint(0, 7, total).astype(np.int32))])
+        sets.append(DataSet([path], parallel_sequences=4,
+                            sort_by_length=True, fraction_shuffling=True,
+                            seed=3, bucket_lengths=(24, 48)))
+    kw = {"hybrid_online_batch": True, **kw}
+    return Trainer(_dp_net(), *sets, learning_rate=1e-2, momentum=0.9,
+                   max_epochs=2, device="cuda", **kw)
+
+
+def _feed_run(t):
+    rows = []
+    while True:
+        done = t.train_epoch()
+        rows.append((t.cur_training_error, t.cur_validation_error))
+        if done:
+            return rows, t.exact_params()
+
+
+@pytest.mark.parametrize("hybrid", [True, False],
+                         ids=["stochastic", "batch"])
+def test_cached_epochs_match_on_the_card(tmp_path, hybrid):
+    """Cached epochs run the same kernels on the same inputs as the plain
+    run: its errors and weights bit for bit; epoch 2 copies no byte from
+    the host (train and val passes); the pinned buffers are reused."""
+    rows, params = _feed_run(_feed_trainer(tmp_path,
+                                           hybrid_online_batch=hybrid))
+    t = _feed_trainer(tmp_path, hybrid_online_batch=hybrid,
+                      device_cache=True)
+    got_rows, got = _feed_run(t)
+    assert got_rows == rows
+    for n in params:
+        for k in params[n]:
+            np.testing.assert_array_equal(got[n][k], params[n][k])
+    assert t.h2d_bytes[0] > 0 and t.h2d_bytes[2:] == [0, 0]
+    assert t.device_cache_stats()["misses"] == 0
+    assert t._staging.allocations <= 2 * t._staging.SLOTS
+
+
+def test_staging_never_rewrites_a_copy_in_flight():
+    """The pinned staging buffers are reused round robin while the stream
+    is busy: every copy still lands with its own bytes (a buffer is
+    written again only after its last copy's event), two allocations."""
+    from lstm_rnn_tpu_torch.trainer import _Staging
+    st = _Staging(torch.device("cuda"))
+    a = torch.randn(2048, 2048, device="cuda")
+    outs = []
+    for i in range(8):
+        for _ in range(4):  # queue work ahead of the copy
+            a = torch.tanh(a @ a)
+        outs.append(st.to_device(1 << 20, lambda buf, i=i: buf.fill(i)))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert out.device.type == "cuda" and bool((out == i).all()), i
+    assert st.allocations == st.SLOTS
