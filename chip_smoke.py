@@ -16,7 +16,9 @@ weights from a seed, and holds every kernel against its plain twin:
    the HGMMA (wgmma) instructions in the SASS of every instance of the
    GEMM engine (csrc/gemm.cuh), of K3f (csrc/softmax_ce.cu's
    ce_fwd_kernel) and of K4b (csrc/softmax_ce_wide.cu's wide_bwd_*):
-   more than 0 in each bf16 instance, 0 in each f32 one;
+   more than 0 in each bf16 instance and in each 3x instance
+   (--f32_matmul 3x: gemm3x_kernel, wide_bwd_3x_kernel), 0 in each f32
+   one;
    and the thread-block cluster each recurrence path takes (csrc/
    recurrence.cuh: n, threads, shared memory, W_rec on chip or from L2,
    the clusters the card holds at once), against ops/lstm_cell.py's
@@ -138,9 +140,10 @@ weights from a seed, and holds every kernel against its plain twin:
     logits and dh in bf16 mode, held and timed in phase 9) against its
     twin at every main-path shape (ops/gemm.py MAIN_PATH_CASES: dW_in at
     P = 117 and 250, dW_rec with the shift -B and +B, dx over two
-    directions, the tail's dh and dW at S = 183 (instances no path runs
-    since K3b's redesign), the projection over 25,000, 40,000, 6,250 and
-    4,096 rows), f32 and bf16, with controls that must fail (a zero
+    directions, the tail's dh and dW at S = 183 (in f32 and bf16 no path
+    runs them since K3b's redesign; phase 40 holds their 3x instances,
+    which the 3x TIMIT tail runs), the projection over 25,000, 40,000,
+    6,250 and 4,096 rows), f32 and bf16, with controls that must fail (a zero
     output, a wrong shift, a dropped split, a zeroed direction), a second
     launch bit for bit equal to the first, and its times beside the
     twin's, one torch.matmul-family call's (TF32 off) and the bound;
@@ -246,6 +249,28 @@ weights from a seed, and holds every kernel against its plain twin:
     processes on one fresh --compilation_cache_dir, the first building
     the kernels there, the second loading them; epoch 2's
     frames/s and the device's busy share with the cache off and on.
+40. --f32_matmul 3x (f32 products as three bf16 passes on the tensor
+    cores): (a) the engine's 3x instance (gemm3x_kernel) at every
+    main-path shape of phase 26 against its 3x twin (f32 sum-order noise),
+    against the exact f32 product at THREE_PASS_REL, with the 1-pass bf16
+    product as the control that must read above it, a second launch bit
+    for bit, and its device time beside phase 26's f32 SIMT body, one
+    torch call's (TF32 off) and the 3x bound; (b) K4 in 3x at the LVCSR
+    tail: the logits (also at TIMIT's 183 states, the 3x route's) and dh
+    in the engine's 3x instance and K4b's 3x instance (wide_bwd_3x_kernel)
+    the same way, K4b launched twice, its dummy tile exactly zero; (c,
+    run beside phases 7 and 11 on their corpora) `cli.main(--train true
+    --f32_matmul 3x)` for TIMIT and LVCSR, 2 epochs: the epoch errors
+    within 1e-3 of the f32 runs' and every kernel's exact launches (the
+    TIMIT tail on the 3x route: the engine's 3x logits, K5f, K5b, its 3x
+    tail_dh and tail_dW; no K3); (d) bench.py's recipe step, TIMIT and
+    LVCSR, in f32, 3x and bf16 in turns, and a profile of one 3x step;
+41. the tools and recipes on the card: HTK files -> the port's htk2nc
+    -> nc_standardize -> `cli.main(--train true)` (the TIMIT recipe's
+    config.cfg, 1 epoch) -> forward mode with HTK output ->
+    test_post_conv.py; then every examples/*/run_torch.sh at once, each
+    generating its corpus through its fallback and training its recipe
+    one epoch at its widths: each must store trained_network.jsn.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -262,6 +287,7 @@ before it the kernels' JSON; the last line of stdout is the contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -341,8 +367,13 @@ T_STREAM, B_STREAM, CHUNK, H_STREAM = 512, 64, 64, 250
 STREAM_TOL = 1e-5
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """One line of the run's report, tagged with its phase and the
+    seconds since the script started."""
+    print(f"[{name} {time.perf_counter() - _T0:.0f}s] {msg}", flush=True)
 
 
 def card_line():
@@ -1043,7 +1074,9 @@ def write_train_corpus(workdir):
 
 def wrappers():
     """Every launch count of the port: the kernels' wrappers, and the GEMM
-    engine's per product ("gemm:<use>")."""
+    engine's per product ("gemm:<use>"; "gemm:<use>:3x" and
+    "softmax_ce_wide_bwd_3x" count the launches of the 3x instances among
+    them)."""
     from lstm_rnn_tpu_torch.ops import gemm as ge
     from lstm_rnn_tpu_torch.ops import lstm_cell as lc
     from lstm_rnn_tpu_torch.ops import softmax_ce as sc
@@ -1054,6 +1087,7 @@ def wrappers():
             "softmax_ce_proj_bwd": sc.softmax_ce_proj_bwd,
             "softmax_ce_wide_fwd": sc.softmax_ce_wide_fwd,
             "softmax_ce_wide_bwd": sc.softmax_ce_wide_bwd,
+            "softmax_ce_wide_bwd_3x": sc.WIDE_BWD_3X,
             "lstm_fwd_carry": lc.lstm_scan_fused_carry,
             "lstm_fwd_carry_save": lc.lstm_fwd_save_carry,
             "lstm_bwd_carry": lc.lstm_bwd_carry,
@@ -1061,33 +1095,49 @@ def wrappers():
             "softmax_ce_bwd": sc.softmax_ce_bwd}
 
 
-def gemm_expect(kernels, layers=5, bf16=False):
+def gemm_expect(kernels, layers=5, bf16=False, x3=False):
     """The GEMM engine's launches per product that a path's kernel
     launches imply, on a stack whose first layer's input takes no
     gradient: one projection per LSTM forward; dW_in and dW_rec per BPTT,
     dx per BPTT of the other layers; in bf16 mode the logits per K4f and
     dh per K4b (K4b's dW is its own kernel's, and in f32 mode K4's two
-    products run in cuBLAS). K3b's dh and dW are its own kernels' (PR 11):
-    the engine's tail_dh and tail_dW run on no path."""
+    products run in cuBLAS). K3b's dh and dW are its own kernels'.
+    In 3x mode (x3, f32, no remat) every product takes the 3x instance,
+    K4's two products too, and the TIMIT tail's 3x route adds the logits
+    per K5f and tail_dh and tail_dW per K5b."""
     fwd = sum(kernels[k] for k in ("lstm_fwd", "lstm_fwd_save",
                                    "lstm_fwd_carry", "lstm_fwd_carry_save"))
     bwd = kernels["lstm_bwd"] + kernels["lstm_bwd_carry"]
     k4f, k4b = kernels["softmax_ce_wide_fwd"], kernels["softmax_ce_wide_bwd"]
-    return {"gemm:proj": fwd, "gemm:dW_in": bwd, "gemm:dW_rec": bwd,
-            "gemm:dx": bwd * (layers - 1) // layers, "gemm:tail_dh": 0,
-            "gemm:tail_dW": 0, "gemm:tail_logits": k4f if bf16 else 0,
-            "gemm:wide_dh": k4b if bf16 else 0}
+    k5f, k5b = (kernels.get(k, 0) for k in ("softmax_ce_fwd",
+                                            "softmax_ce_bwd"))
+    out = {"gemm:proj": fwd, "gemm:dW_in": bwd, "gemm:dW_rec": bwd,
+           "gemm:dx": bwd * (layers - 1) // layers,
+           "gemm:tail_dh": k5b if x3 else 0,
+           "gemm:tail_dW": k5b if x3 else 0,
+           "gemm:tail_logits": (k4f + (k5f if x3 else 0)
+                                if bf16 or x3 else 0),
+           "gemm:wide_dh": k4b if bf16 or x3 else 0}
+    out.update({f"{k}:3x": v if x3 else 0 for k, v in list(out.items())})
+    return out
 
 
 def gemm_total(counts):
-    return sum(v for k, v in counts.items() if k.startswith("gemm:"))
+    """The engine's launches of a run (a 3x launch counts once, under its
+    use)."""
+    return sum(v for k, v in counts.items()
+               if k.startswith("gemm:") and not k.endswith(":3x"))
 
 
-def check_counts(counts, expect, bf16=False, layers=5):
+def check_counts(counts, expect, bf16=False, layers=5, x3=False):
     """Every kernel's launches on a path's run, exactly as expected, and
     the GEMM engine's per product as the kernels' imply (bf16: the run's
-    compute dtype; layers: the LSTM layers of the stack)."""
-    expect = {**expect, **gemm_expect(expect, layers=layers, bf16=bf16)}
+    compute dtype; layers: the LSTM layers of the stack; x3: a run with
+    --f32_matmul 3x, where every K4b launch takes its 3x instance)."""
+    expect = {**expect, **gemm_expect(expect, layers=layers, bf16=bf16,
+                                      x3=x3)}
+    expect.setdefault("softmax_ce_wide_bwd_3x",
+                      expect["softmax_ce_wide_bwd"] if x3 else 0)
     if counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
 
@@ -1277,7 +1327,8 @@ def report_profile(prof, wall_us, what):
     per = {}
     for e in events:
         for tag, use in GEMM_TAGS.items():
-            if "gemm_kernel<" in e.key and f"::{tag}," in e.key:
+            if (("gemm_kernel<" in e.key or "gemm3x_kernel<" in e.key)
+                    and f"::{tag}," in e.key):
                 ms, n = per.get(use, (0.0, 0))
                 per[use] = (ms + dev_us(e) / 1e3, n + e.count)
     if per:
@@ -1555,7 +1606,7 @@ def lvcsr_cli(torch, workdir):
                  "lstm_fwd_carry_save": 0, "lstm_bwd_carry": 0,
                  "softmax_ce_fwd": 0, "softmax_ce_bwd": 0}
     here = os.getcwd()
-    launches, outs = None, {}
+    launches, outs, tables = None, {}, {}
     for label, args, epochs in (
             ("float32", base, 2),
             ("bfloat16", base + ["--compute_dtype", "bfloat16",
@@ -1587,6 +1638,7 @@ def lvcsr_cli(torch, workdir):
             raise AssertionError(f"cli (LVCSR, {label}) returned {rc}")
         phase("lvcsr", f"{label}: {wall:.1f} s wall for {epochs} epoch(s); "
               f"launches {counts}")
+        tables[label] = epoch_errors(rows)
         check_counts(counts, {k: v * epochs for k, v in per_epoch.items()},
                      bf16=label == "bfloat16")
         if label == "float32":
@@ -1628,7 +1680,7 @@ def lvcsr_cli(torch, workdir):
           f"dump on the worker thread, {t2 - t0:.1f} s in all, "
           f"{os.path.getsize(saver.path) / 2**20:.0f} MiB")
     os.remove(saver.path)
-    return launches
+    return launches, tables
 
 
 def lvcsr_rates(torch, card):
@@ -2840,15 +2892,23 @@ def kernel_label(mangled):
     arguments."""
     import re
     # the length-prefixed name: lowercase, after the digits of its length
-    m = re.search(r"\d+([a-z_]+?(?:kernel|partials))(?![a-z_])", mangled)
-    name = m.group(1) if m else mangled[:60]
+    # the length-prefixed name that ends in kernel or partials
+    name = mangled[:60]
+    for m in re.finditer(r"(?=([0-9]+))", mangled):
+        end = m.start() + len(m.group(1))
+        cand = mangled[end:end + int(m.group(1))]
+        if re.fullmatch(r"[a-z_][a-z0-9_]*(?:kernel|partials)", cand):
+            name = cand
+            break
     dtype = "bf16" if "__nv_bfloat16" in mangled else "f32"
-    if name == "gemm_kernel":
+    if "3x_kernel" in name:
+        dtype = "3x"
+    if name in ("gemm_kernel", "gemm3x_kernel"):
         tag = next((t for t in GEMM_TAGS if t in mangled), "?")
         name += f" {tag} {dtype}"
     elif name in ("ce_fwd_kernel", "wide_fwd_kernel",
                   "wide_bwd_wgmma_kernel", "wide_bwd_simt_kernel",
-                  "plain_fwd_kernel"):
+                  "wide_bwd_3x_kernel", "plain_fwd_kernel"):
         # template arguments: Li3E (int 3), Lb0E (bool false)
         args = re.findall(r"L[ib](\d+)E", mangled)
         name += f"<{dtype}, {', '.join(args)}>"
@@ -2877,11 +2937,12 @@ def report_ptxas(log):
 def check_hgmma(_build):
     """The HGMMA (wgmma) instructions in the SASS of every instance of the
     GEMM engine (K4's bf16 logits and dh products among them), of K3f and
-    of K4b: the bf16 instances run on the tensor cores, the f32 ones (true
-    f32) must not."""
+    of K4b: the bf16 instances and the 3x ones (gemm3x_kernel,
+    wide_bwd_3x_kernel: f32 as three bf16 passes) run on the tensor cores,
+    the f32 ones (true f32) must not."""
     import re
-    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_", "pb_dh_kernel",
-                 "pb_dw_kernel"):
+    for part in ("gemm_kernel", "gemm3x_kernel", "ce_fwd_kernel",
+                 "wide_bwd_", "pb_dh_kernel", "pb_dw_kernel"):
         counts = _build.sass_counts("HGMMA", part)
         if not counts:
             raise AssertionError(f"no {part} instance in the SASS")
@@ -2889,7 +2950,7 @@ def check_hgmma(_build):
             src = re.search(r"_\d+_(\w+?)_cu_", name)
             phase("build", f"SASS {n:3d} HGMMA  {kernel_label(name)} "
                   f"({src.group(1) if src else '?'}.cu)")
-            if (n > 0) != ("__nv_bfloat16" in name):
+            if (n > 0) != ("__nv_bfloat16" in name or "3x_kernel" in name):
                 raise AssertionError(f"{name}: {n} HGMMA instructions")
 
 
@@ -5611,6 +5672,527 @@ def dispatch_phase(torch, card):
         dispatch_rates(torch, card, train_nc, val_nc)
     phase("dispatch", f"phase 39 took {time.perf_counter() - t0:.0f} s")
 
+# --------------------------------------- --f32_matmul 3x (phases 40a-40d)
+# the 3x instances against their 3x twins, relative to each output's
+# largest entry: f32 sums in another order (the kernel adds the three
+# passes into one set of accumulators, the twin adds three finished
+# products), and inside each 64-k stage the tensor cores add without
+# f32's round to nearest (the engine sums the stages in f32). An H100
+# read at most 6.2e-7 at the engine's main-path shapes and 5.2e-6 to
+# 1.4e-5 at K4's long reductions (dh over K = 2,049-10,112, K4b's dW over
+# splits of 1,024 rows): 3x phase 4/9's f32 bound
+THREE_PASS_TWIN_REL = 3e-5
+# the 3x products against the exact f32 product (the twin without the
+# split, true f32 with TF32 off), relative to each output's largest entry:
+# the split drops lo . lo and rounds lo, about 2^-17 of each product's
+# size, spread by the sums over K; the 1-pass bf16 product, the control,
+# must read above it
+THREE_PASS_REL = 2.0 ** -14
+# the 3x CLI runs' training and validation errors against the f32 runs'
+# (the JAX package's bound, tests/test_end_to_end.py:415-416)
+THREE_PASS_EPOCH_REL = 1e-3
+
+
+@contextlib.contextmanager
+def three_pass():
+    """--f32_matmul 3x's switch (ops/gemm.py F32_MATMUL_3X) on, restored
+    after."""
+    from lstm_rnn_tpu_torch.ops import gemm as ge
+    before = ge.F32_MATMUL_3X
+    ge.F32_MATMUL_3X = True
+    try:
+        yield
+    finally:
+        ge.F32_MATMUL_3X = before
+
+
+def three_pass_bound(cost):
+    """(ms, by) of a product in 3x: its f32 bytes at the HBM rate against
+    three bf16 passes of its operations at the tensor cores' rate."""
+    nbytes, flops = cost
+    return bound(nbytes, 3 * flops, "bfloat16")
+
+
+def device_ms(torch, fn, part, lib=None, reps=10):
+    """(ms of fn's kernels, ms of lib's, clock): one profile of both,
+    fn's kernels those whose name holds `part` or sum_partials; CUDA
+    events (host work included) where the profile misses either."""
+    per = prof_ms(torch, [fn] + ([lib] if lib else []), reps)
+    ours = {k: v for k, v in per.items()
+            if part in k or "sum_partials" in k}
+    ms = sum(ours.values())
+    lib_ms = sum(v for k, v in per.items() if k not in ours)
+    if ms and (lib is None or lib_ms):
+        return ms, lib_ms if lib else None, "profiler"
+    return (time_ms(torch, fn, reps),
+            time_ms(torch, lib, reps) if lib else None, "CUDA events")
+
+
+def three_pass_engine(torch, gres):
+    """Phase 40a: the engine's 3x instance (gemm3x_kernel) at every
+    main-path shape of phase 26 against its 3x twin, against the exact f32
+    product with the 1-pass bf16 product as the control, a second launch
+    bit for bit; its device time beside phase 26's f32 SIMT body and one
+    torch call's (TF32 off), and the 3x bound."""
+    from lstm_rnn_tpu_torch.ops import gemm as ge
+    res = {}
+    for name in ge.MAIN_PATH_CASES:
+        gen = torch.Generator("cuda").manual_seed(SEED + 40)
+        use, a, b, M, N, K, kw = ge.main_path_case(name, torch.float32,
+                                                   "cuda", gen)
+        got = ge.gemm(use, a, b, M, N, K, x3=True, **kw)
+        again = ge.gemm(use, a, b, M, N, K, x3=True, **kw)
+        want = ge.gemm_reference(use, a, b, M, N, K, x3=True, **kw)
+        exact = ge.gemm_reference(use, a, b, M, N, K, **kw)
+        rb = [v._replace(t=v.t.to(torch.bfloat16).float()) for v in a + b]
+        ctrl = ge.gemm_reference(use, rb[:len(a)], rb[len(a):], M, N, K,
+                                 **kw)
+        torch.cuda.synchronize()
+        rel, err = rel_err(got, want)
+        rel_x, rel_c = rel_err(got, exact)[0], rel_err(ctrl, exact)[0]
+        same = torch.equal(got, again)
+        del got, again, want, exact, ctrl, rb
+
+        def run():
+            return ge.gemm(use, a, b, M, N, K, x3=True, **kw)
+        ms, lib_ms, clock = device_ms(
+            torch, run, "gemm3x_kernel",
+            gemm_library(torch, use, a, b, M, N, K, kw))
+        plain = time_ms(torch, lambda: ge.gemm_reference(
+            use, a, b, M, N, K, x3=True, **kw), 2)
+        cost = gemm_cost(use, a, b, M, N, K, kw, "float32")
+        bms, by = three_pass_bound(cost)
+        f32 = gres[(name, "float32")]
+        res[name] = dict(err=err, rel=rel, rel_exact=rel_x, ms=ms,
+                         plain_ms=plain, library_ms=lib_ms, f32_ms=f32["ms"],
+                         bound=(bms, by), cost=cost)
+        phase("3x", f"engine {name} [M={M} N={N} K={K}]: vs its 3x twin "
+              f"rel {rel:.2e} (tol {THREE_PASS_TWIN_REL:.0e}); vs exact f32 "
+              f"rel {rel_x:.2e} (bound {THREE_PASS_REL:.1e}; control, the "
+              f"1-pass bf16 product, {rel_c:.2e}); repeat bit for bit: "
+              f"{same}; {ms:.4f} ms on the device ({clock}; "
+              f"{3 * cost[1] / ms / 1e9:.1f} bf16 TFLOP/s), f32 SIMT body "
+              f"{f32['ms']:.4f} ms, torch (TF32 off) {fmt_ms(lib_ms)}, "
+              f"twin {plain:.3f} ms; 3x bound {bms:.4f} ms ({by}), f32 "
+              f"bound {bound(*cost, 'float32')[0]:.4f} ms")
+        if not (rel <= THREE_PASS_TWIN_REL and rel_x <= THREE_PASS_REL
+                and same):
+            raise AssertionError(f"the 3x engine disagrees at {name}")
+        if not rel_c > THREE_PASS_REL:
+            raise AssertionError(f"the 3x bound passes the 1-pass bf16 "
+                                 f"product at {name}: {rel_c}")
+        del a, b, kw
+        torch.cuda.empty_cache()
+    return res
+
+
+def three_pass_tails(torch, wres):
+    """Phase 40b: K4 in 3x at the LVCSR tail (N = 25,000, P = 250, S =
+    10,112): the logits (the engine's 3x GemmTailLogits, also at TIMIT's
+    S = 183, the 3x route's), K4b's 3x instance and dh (the engine's 3x
+    GemmWideDh), each against its 3x twin and against the exact f32
+    product with the 1-pass bf16 control, K4b launched twice; device
+    times beside phase 9's f32 kernels and one torch call's, and the 3x
+    bounds."""
+    from lstm_rnn_tpu_torch.ops import softmax_ce as sc
+    gen = torch.Generator("cuda").manual_seed(SEED + 41)
+    N, P = N_TAIL, 2 * H
+    res = {}
+    h2 = torch.randn(N, P, device="cuda", generator=gen) * 0.5
+    hb = h2.to(torch.bfloat16).float()
+    f32 = torch.float32
+    for S in (S_STATES, S_LVCSR):
+        W = (torch.rand(P, S, device="cuda", generator=gen) - 0.5) * 0.2
+        b = (torch.rand(S, device="cuda", generator=gen) - 0.5) * 0.2
+        a = sc._launch_wide_logits(h2, W, b, 1.0)
+        errs = {"logits": (
+            rel_err(a, sc.wide_logits_reference(h2, W, b, 1.0, f32, True)),
+            rel_err(a, sc.wide_logits_reference(h2, W, b, 1.0, f32))[0],
+            rel_err(sc.wide_logits_reference(hb, W.to(torch.bfloat16)
+                                             .float(), b, 1.0, f32),
+                    sc.wide_logits_reference(h2, W, b, 1.0, f32))[0])}
+        ms, lib, _ = device_ms(
+            torch, lambda: sc._launch_wide_logits(h2, W, b, 1.0),
+            "gemm3x_kernel", lambda: torch.addmm(b, h2, W))
+        cost = (4 * (N * P + P * S + S + N * S), 2 * N * P * S)
+        timing = {"logits": (ms, lib, cost)}
+        if S == S_LVCSR:
+            tc = torch.randint(0, S, (N,), device="cuda", generator=gen,
+                               dtype=torch.int32)
+            tc[::10] = -1
+            tc[:64] = -1
+            g = torch.tensor(1.0, device="cuda")
+            _, _, off, ssum, pt = sc._launch_wide_fwd(a, tc)
+
+            def k4b():
+                return sc._launch_wide_bwd(a, h2, tc, off, ssum, pt, g, 1.0,
+                                           x3=True)
+            dz, dw, db = k4b()
+            again = k4b()
+            _, dw_r, db_r = sc.softmax_ce_wide_bwd_reference(
+                a, h2, W, tc, off, ssum, pt, g, 1.0, f32, x3=True)
+            dz_r = sc.wide_dz_reference(a, tc, off, ssum, pt, g)
+            dw_x = torch.matmul(h2.t(), dz_r)
+            dw_c = torch.matmul(hb.t(), dz_r.to(torch.bfloat16).float())
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip((dz, dw, db),
+                                                          again))
+            zero = not dz[:64].any()
+            del again
+            errs["K4b dW"] = (rel_err(dw, dw_r), rel_err(dw, dw_x)[0],
+                              rel_err(dw_c, dw_x)[0])
+            dz_rel, db_rel = rel_err(dz, dz_r)[0], rel_err(db, db_r)[0]
+            dh = sc._launch_wide_dh(dz, W, f32)
+            errs["dh"] = (
+                rel_err(dh, sc.wide_dh_reference(dz, W, f32, f32, True)),
+                rel_err(dh, sc.wide_dh_reference(dz, W, f32, f32))[0],
+                rel_err(sc.wide_dh_reference(dz.to(torch.bfloat16).float(),
+                                             W.to(torch.bfloat16).float(),
+                                             f32, f32),
+                        sc.wide_dh_reference(dz, W, f32, f32))[0])
+            per = prof_ms(torch, [k4b], 5)
+            # CUDA events beside the profile: a profile that records part
+            # of a launch's time (one read half of the step profiles'
+            # 1.79 ms) yields to them
+            events = time_ms(torch, k4b, 5)
+            k4b_ms = sum(per.values())
+            if k4b_ms < 0.8 * events:
+                k4b_ms = events
+            cublas_dw, _, _ = device_ms(
+                torch, lambda: torch.matmul(h2.t(), dz), "gemm")
+            nbytes, flops = wide_cost("softmax_ce_wide_bwd", "float32")
+            timing["K4b dW"] = (k4b_ms, cublas_dw, (nbytes, flops))
+            ms, lib, _ = device_ms(
+                torch, lambda: sc._launch_wide_dh(dz, W, f32),
+                "gemm3x_kernel", lambda: torch.matmul(dz, W.t()))
+            timing["dh"] = (ms, lib, (4 * (N * S + P * S + N * P),
+                                      2 * N * P * S))
+            plain = time_ms(torch, lambda: sc.softmax_ce_wide_bwd_reference(
+                a, h2, W, tc, off, ssum, pt, g, 1.0, f32, x3=True), 2)
+            f32_k4b = wres[("softmax_ce_wide_bwd", "float32")]
+            phase("3x", f"K4b 3x instance [N={N} P={P} S={S}]: dz rel "
+                  f"{dz_rel:.2e}, db rel {db_rel:.2e} (tol "
+                  f"{THREE_PASS_TWIN_REL:.0e}); dummy tile exactly zero: "
+                  f"{zero}; a second launch bit for bit equal: {same}; on "
+                  f"the device " + ", ".join(
+                      f"{short_key(k)} {v:.4f}" for k, v in per.items())
+                  + f"; CUDA events {events:.4f} ms; f32 K4b (phase 9) "
+                  f"{f32_k4b['ms']:.4f} ms; cuBLAS's dW alone (TF32 off) "
+                  f"{cublas_dw:.4f} ms; twin {plain:.3f} ms")
+            if not (dz_rel <= THREE_PASS_TWIN_REL and db_rel
+                    <= THREE_PASS_TWIN_REL and same and zero):
+                raise AssertionError("K4b's 3x instance disagrees")
+            res["softmax_ce_wide_bwd_3x"] = dict(
+                err=errs["K4b dW"][0][1], rel=errs["K4b dW"][0][0],
+                rel_exact=errs["K4b dW"][1], ms=k4b_ms, plain_ms=plain,
+                cublas_dw_ms=cublas_dw, f32_ms=f32_k4b["ms"],
+                bound=three_pass_bound((nbytes, flops)),
+                cost=(nbytes, flops))
+            del dz, dw, db, dz_r, dw_r, db_r, dw_x, dw_c, dh
+        for k, ((rel, err), rel_x, rel_c) in errs.items():
+            ms, lib, cost = timing[k]
+            bms, by = three_pass_bound(cost)
+            phase("3x", f"{k} 3x [N={N} P={P} S={S}]: vs its 3x twin rel "
+                  f"{rel:.2e} (tol {THREE_PASS_TWIN_REL:.0e}); vs exact f32 "
+                  f"rel {rel_x:.2e} (bound {THREE_PASS_REL:.1e}; control "
+                  f"{rel_c:.2e}); {ms:.4f} ms on the device, torch (TF32 "
+                  f"off) {fmt_ms(lib)}; 3x bound {bms:.4f} ms ({by}), f32 "
+                  f"bound {bound(*cost, 'float32')[0]:.4f} ms")
+            res[(k, S)] = dict(rel=rel, err=err, rel_exact=rel_x, ms=ms,
+                               library_ms=lib, bound=(bms, by))
+            if not (rel <= THREE_PASS_TWIN_REL and rel_x <= THREE_PASS_REL):
+                raise AssertionError(f"the 3x {k} disagrees at S={S}")
+            if not rel_c > THREE_PASS_REL:
+                raise AssertionError(f"the 3x bound passes the 1-pass bf16 "
+                                     f"{k} at S={S}: {rel_c}")
+        del a, W, b
+        torch.cuda.empty_cache()
+    return res
+
+
+def three_pass_cli(torch, workdir, tables, lvcsr_tables):
+    """Phase 40c: cli.main(--train true --f32_matmul 3x) on phase 7's
+    TIMIT corpus and phase 11's LVCSR corpus, 2 epochs each as those
+    phases ran f32: the epoch errors within THREE_PASS_EPOCH_REL of the f32
+    runs', every kernel's exact launches (the TIMIT tail on the 3x route:
+    the engine's 3x logits, K5f and K5b, its 3x tail_dh and tail_dW; no
+    K3), the weights moved."""
+    import io
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    out = {}
+    timit = [os.path.join(workdir, f"timit_{n}.nc") for n in ("train",
+                                                              "val")]
+    lvcsr = [os.path.join(workdir, f"lvcsr_{n}.nc") for n in ("train",
+                                                              "val")]
+    runs = (
+        ("TIMIT", timit, tables["float32"],
+         ["--network", os.path.join(workdir, "network_train.jsn"),
+          "--train", "true", "--truncate_seq", "500",
+          "--parallel_sequences", "50", "--stochastic", "true",
+          "--shuffle_fractions", "true", "--learning_rate", "1e-4",
+          "--momentum", "0.9"]),
+        ("LVCSR", lvcsr, lvcsr_tables["float32"],
+         [os.path.join(LVCSR_DIR, "config.cfg"), "--network",
+          os.path.join(LVCSR_DIR, "network.jsn"), "--autosave", "false"]))
+    here = os.getcwd()
+    for label, (train_nc, val_nc), want, args in runs:
+        n_train = DataSet([train_nc], parallel_sequences=50,
+                          trunc_seq_length=500).num_fractions()
+        n_val = DataSet([val_nc], parallel_sequences=50).num_fractions()
+        zero = {k: 0 for k in wrappers() if not k.startswith("gemm:")}
+        if label == "TIMIT":
+            per_epoch = {**zero, "lstm_fwd": 5 * n_val,
+                         "lstm_fwd_save": 5 * n_train,
+                         "lstm_bwd": 5 * n_train,
+                         "softmax_ce_fwd": n_train + n_val,
+                         "softmax_ce_bwd": n_train}
+        else:
+            per_epoch = {**zero, "lstm_fwd": 5 * n_val,
+                         "lstm_fwd_save": 5 * n_train,
+                         "lstm_bwd": 5 * n_train,
+                         "softmax_ce_wide_fwd": n_train + n_val,
+                         "softmax_ce_wide_bwd": n_train,
+                         "softmax_ce_wide_bwd_3x": n_train}
+        rundir = os.path.join(workdir, f"x3_{label}")
+        os.makedirs(rundir)
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0  # the 3x path's run starts here
+        buf = io.StringIO()
+        os.chdir(rundir)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(args + [
+                    "--train_file", train_nc, "--val_file", val_nc,
+                    "--max_epochs", "2", "--random_seed", str(SEED),
+                    "--f32_matmul", "3x", "--save_network",
+                    os.path.join(rundir, "trained.jsn")])
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        counts = {k: f.launches for k, f in w.items()}
+        text = buf.getvalue()
+        rows = [ln for ln in text.splitlines()
+                if ln.strip()[:1].isdigit() and "|" in ln]
+        for ln in rows:
+            phase("3x-cli", f"{label} 3x |{ln}")
+        if rc != 0 or len(rows) != 2:
+            print(text[-3000:])
+            raise AssertionError(f"cli --f32_matmul 3x ({label}) returned "
+                                 f"{rc}")
+        got = epoch_errors(rows)
+        # the training and validation errors (cells 1 and 3 of a row)
+        worst = max(abs(g[i] - f[i]) / abs(f[i]) for g, f in zip(got, want)
+                    for i in (1, 3))
+        phase("3x-cli", f"{label}: {wall:.1f} s wall for 2 epochs; errors "
+              f"against the f32 run's: max rel {worst:.2e} (tol "
+              f"{THREE_PASS_EPOCH_REL:.0e}); launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if not worst <= THREE_PASS_EPOCH_REL:
+            raise AssertionError(f"the 3x {label} run's errors {got} are "
+                                 f"off the f32 run's {want}")
+        check_counts(counts, {k: v * 2 for k, v in per_epoch.items()},
+                     x3=True)
+        out[label] = counts
+    return out
+
+
+def three_pass_rates(torch, card):
+    """Phase 40d: bench.py's recipe step (T=500, B=50, every row full) in
+    f32, 3x and bf16, TIMIT and LVCSR, in turns on one card, mean of 5
+    after a warm-up step; and a profile of one 3x step of each."""
+    from lstm_rnn_tpu_torch.ops import gemm as ge
+    for lvcsr in (False, True):
+        what = "LVCSR" if lvcsr else "TIMIT"
+        batch, frames = recipe_batch(
+            torch, states=S_LVCSR if lvcsr else S_STATES)
+        for label, dtype, x3 in (("f32", "float32", False),
+                                 ("3x", "float32", True),
+                                 ("bf16", "bfloat16", False)):
+            tr = make_trainer("auto", dtype, lvcsr=lvcsr)
+            with three_pass() if x3 else contextlib.nullcontext():
+                before = ge.LAUNCHES["dW_in:3x"].launches
+                tr.train_step(*batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    tr.train_step(*batch)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) / 5
+                if x3 != (ge.LAUNCHES["dW_in:3x"].launches > before):
+                    raise AssertionError("the 3x step's mode is off")
+                if x3:
+                    profile_trainer_step(
+                        torch, tr, batch, f"one {what} training step "
+                        f"T={T_TRAIN} 3x")
+            phase("3x-rate", f"{what} train step {label}: "
+                  f"{frames / dt:,.0f} frames/s ({1e3 * dt:.2f} ms per step "
+                  f"of {frames} frames, mean of 5) on {card}")
+            del tr
+
+
+# ------------------------------------------ tools and recipes (phase 41)
+def tools_chain(torch, workdir):
+    """Phase 41a: the port's tools at the TIMIT recipe's widths on the
+    card: HTK features and numeric state labels -> htk2nc (--no_label_map
+    183) -> nc_standardize (the train set's statistics, applied to the val
+    set) -> cli.main(--train true, the recipe's config.cfg, 1 epoch) ->
+    forward mode with HTK output -> examples/phoneme_recognition_timit/
+    test_post_conv.py with a state map."""
+    import io
+    import struct
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.data.netcdf3 import NetCDF3File
+    from lstm_rnn_tpu_torch.tools import htk2nc, nc_standardize
+    from lstm_rnn_tpu_torch.writers import read_htk
+    d = os.path.join(workdir, "tools")
+    os.makedirs(os.path.join(d, "htk"))
+    rng = np.random.RandomState(SEED + 41)
+    means = rng.randn(S_STATES, 117).astype(np.float32)
+    t0 = time.perf_counter()
+    ncs = {}
+    for part, n_seq in (("train", 60), ("val", 20)):
+        lines = []
+        for i in range(n_seq):
+            n = int(rng.randint(100, 301))
+            lab = rng.randint(0, S_STATES, n)
+            x = means[lab] + rng.randn(n, 117).astype(np.float32)
+            feat = os.path.join(d, "htk", f"{part}{i:03d}.htk")
+            with open(feat, "wb") as f:
+                f.write(struct.pack(">IIHH", n, 100000, 117 * 4, 9))
+                f.write((3.0 * x + 5.0).astype(">f4").tobytes())
+            labels = feat[:-4] + ".labels"
+            with open(labels, "w") as f:
+                f.write("\n".join(str(v) for v in lab) + "\n")
+            lines.append(f"{part}{i:03d} 1 {feat} {labels}")
+        mapping = os.path.join(d, f"{part}.map")
+        with open(mapping, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        ncs[part] = os.path.join(d, f"{part}.nc")
+        if htk2nc.main(["--mapping_list", mapping, "--nc", ncs[part],
+                        "--no_label_map", str(S_STATES)]) != 0:
+            raise AssertionError(f"htk2nc {part} failed")
+    if (nc_standardize.main([ncs["train"], "-"]) != 0
+            or nc_standardize.main([ncs["val"], ncs["train"]]) != 0):
+        raise AssertionError("nc_standardize failed")
+    xs = NetCDF3File(ncs["train"]).read("inputs")
+    dims = NetCDF3File(ncs["val"]).dimensions
+    t_tools = time.perf_counter() - t0
+    trained = os.path.join(d, "trained_network.jsn")
+    timit = os.path.join(REPO, "examples", "phoneme_recognition_timit")
+    here = os.getcwd()
+    os.chdir(d)
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([os.path.join(timit, "config.cfg"), "--network",
+                           os.path.join(timit, "network.jsn"),
+                           "--train_file", ncs["train"], "--val_file",
+                           ncs["val"], "--max_epochs", "1", "--random_seed",
+                           str(SEED), "--save_network", trained])
+        t_train = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    rows = [ln for ln in buf.getvalue().splitlines()
+            if ln.strip()[:1].isdigit() and "|" in ln]
+    if rc != 0 or len(rows) != 1:
+        print(buf.getvalue()[-3000:])
+        raise AssertionError(f"cli --train true on htk2nc's corpus: {rc}")
+    outdir = os.path.join(d, "post")
+    with contextlib.redirect_stdout(io.StringIO()):
+        t_serve = run_cli(ncs["val"], trained, outdir)
+    names = sorted(os.listdir(outdir))
+    with open(os.path.join(d, "test.scp"), "w") as f:
+        f.write("".join(f"post/{n}\n" for n in names))
+    perm = rng.permutation(S_STATES)  # output k takes posterior perm[k]
+    with open(os.path.join(d, "state.map"), "w") as f:
+        f.write("".join(f"{v}:{k}\n" for k, v in enumerate(perm)))
+    r = subprocess.run([sys.executable, os.path.join(timit,
+                                                     "test_post_conv.py"),
+                        "test.scp", "state.map", "conv"], cwd=d,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"test_post_conv.py: {r.stdout}{r.stderr}")
+    worst = 0.0
+    for n in names:
+        y, _, _ = read_htk(os.path.join(outdir, n))
+        z, _, _ = read_htk(os.path.join(d, "conv", "post", n))
+        if y.shape[1] != S_STATES or not np.array_equal(z, y[:, perm]):
+            raise AssertionError(f"{n}: test_post_conv.py's output is not "
+                                 "the permuted posteriors")
+        worst = max(worst, float(np.abs(y.sum(-1) - 1).max()))
+    phase("tools", f"htk2nc + nc_standardize: {dims['numSeqs']} val "
+          f"sequences ({dims['numTimesteps']} frames), train inputs "
+          f"standardized to mean {np.abs(xs.mean(0)).max():.1e} and std "
+          f"within {np.abs(xs.std(0, ddof=1) - 1).max():.1e} of 1, "
+          f"{t_tools:.1f} s; cli --train true 1 epoch |{rows[0]}| "
+          f"{t_train:.1f} s; forward mode {len(names)} HTK files "
+          f"{t_serve:.1f} s (rows sum to 1 within {worst:.1e}); "
+          "test_post_conv.py permuted every file's 183 states")
+    if worst > 1e-5:
+        raise AssertionError("the served posteriors do not sum to 1")
+
+
+RUN_TORCH = ("phoneme_recognition_timit", "lvcsr_physical_states",
+             "speech_autoencoding_chime",
+             "speech_recognition_chime/no_subsampling",
+             "speech_recognition_chime/subsampling")
+
+
+def recipes_on_card(workdir):
+    """Phase 41b: every examples/*/run_torch.sh in a copy of examples/,
+    the five at once on the card, each generating its corpus through its
+    fallback (make_example_data_torch.py's defaults: 60 train sequences of
+    80-200 frames) and training its config.cfg at the recipe's widths for
+    one epoch; each must store trained_network.jsn."""
+    import shutil
+    ex = os.path.join(workdir, "examples")
+    shutil.copytree(os.path.join(REPO, "examples"), ex)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = {}
+    for recipe in RUN_TORCH:
+        d = os.path.join(ex, recipe)
+        log = open(os.path.join(d, "run_torch.log"), "w")
+        procs[recipe] = (subprocess.Popen(
+            ["sh", "run_torch.sh", "--max_epochs", "1", "--random_seed",
+             str(SEED), "--autosave", "false"], cwd=d, env=env,
+            stdout=log, stderr=subprocess.STDOUT), log)
+    failed = []
+    try:
+        for recipe, (p, log) in procs.items():
+            try:
+                rc = p.wait(timeout=max(1, 300 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            d = os.path.join(ex, recipe)
+            with open(os.path.join(d, "run_torch.log")) as f:
+                text = f.read()
+            rows = [ln for ln in text.splitlines()
+                    if ln.strip()[:1].isdigit() and "|" in ln]
+            ok = (rc == 0 and os.path.exists(os.path.join(
+                d, "trained_network.jsn")) and len(rows) == 1)
+            phase("recipes", f"{recipe}/run_torch.sh: rc {rc}, "
+                  f"trained_network.jsn {'stored' if ok else 'MISSING'}; "
+                  + (f"|{rows[0]}" if rows else text[-1500:]))
+            if not ok:
+                failed.append(recipe)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    phase("recipes", f"the five run_torch.sh took {time.perf_counter() - t0:.1f}"
+          " s together")
+    if failed:
+        raise AssertionError(f"run_torch.sh failed: {failed}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5649,9 +6231,11 @@ def main():
         step_kernel_vs_scan(torch)
         launches, tables = train_end_to_end(torch, workdir)
         lvcsr_step_fused_vs_unfused(torch)
-        lvcsr_launches = lvcsr_cli(torch, workdir)
+        lvcsr_launches, lvcsr_tables = lvcsr_cli(torch, workdir)
         # phase 24 compares with phase 7's trained networks, kept here
         remat_launches = remat_cli(torch, workdir, tables)
+        # phase 40c trains on phase 7's and phase 11's corpora, kept here
+        x3_launches = three_pass_cli(torch, workdir, tables, lvcsr_tables)
     gemm_paths = {"serving": gemm_total(launches_fwd),
                   "TIMIT training": gemm_total(launches)}
     launches["lstm_fwd"] = launches_fwd["lstm_fwd"]
@@ -5738,6 +6322,13 @@ def main():
               f"GPUs) was not run: torch sees {torch.cuda.device_count()} "
               "GPU(s), it needs 4")
     dispatch_phase(torch, card)
+    with torch.no_grad():
+        x3_engine = three_pass_engine(torch, gres)
+        x3_tails = three_pass_tails(torch, wres)
+    three_pass_rates(torch, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        tools_chain(torch, workdir)
+        recipes_on_card(workdir)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -5910,6 +6501,56 @@ def main():
         "shapes": {f"{n} {d}": {"ms": r["ms"], "library_ms": r["library_ms"],
                                 "bound_ms": bound(*r["cost"], d)[0]}
                    for (n, d), r in gres.items()}})
+    # the 3x instances (phase 40): the engine's at dW_in P=250, every
+    # shape beside, and K4b's at the LVCSR tail; launches of phase 40c's
+    # two CLI runs (TIMIT and LVCSR, 2 epochs each)
+    e3 = x3_engine["dW_in:250"]
+    k4_products = {f"{key[0]} S={key[1]}": {
+        "ms": r["ms"], "library_ms": r["library_ms"],
+        "bound_ms": r["bound"][0], "rel_err_vs_exact_f32": r["rel_exact"]}
+        for key, r in x3_tails.items()
+        if isinstance(key, tuple) and key[0] != "K4b dW"}
+    kernels.append({
+        "name": "gemm_3x", "route": "cuda",
+        "source": "lstm_rnn_tpu_torch/csrc/gemm.cuh",
+        "replaces": "lstm_rnn_tpu/ops/lstm_cell.py:449",
+        "replaces_also": ["lstm_rnn_tpu/ops/lstm_cell.py:227",
+                          "lstm_rnn_tpu/ops/lstm_cell.py:475",
+                          "lstm_rnn_tpu/ops/lstm_cell.py:491",
+                          "lstm_rnn_tpu/ops/softmax_ce.py:355",
+                          "lstm_rnn_tpu/ops/softmax_ce.py:375",
+                          "lstm_rnn_tpu/ops/softmax_ce.py:378",
+                          "lstm_rnn_tpu/ops/softmax_ce.py:633",
+                          "lstm_rnn_tpu/ops/softmax_ce.py:699"],
+        "variant": "--f32_matmul 3x (gemm3x_kernel), dW_in at P=250",
+        "launches": sum(v for c in x3_launches.values()
+                        for k, v in c.items()
+                        if k.startswith("gemm:") and k.endswith(":3x")),
+        "launches_by_path": {k: {u: v for u, v in c.items()
+                                 if u.endswith(":3x") and v}
+                             for k, c in x3_launches.items()},
+        "max_abs_err": e3["err"], "rel_err_vs_exact_f32": e3["rel_exact"],
+        "ms": e3["ms"], "plain_ms": e3["plain_ms"],
+        "bound_ms": e3["bound"][0], "bound_by": e3["bound"][1],
+        "library_ms": e3["library_ms"], "f32_simt_ms": e3["f32_ms"],
+        "shapes": {n: {"ms": r["ms"], "f32_simt_ms": r["f32_ms"],
+                       "library_ms": r["library_ms"],
+                       "bound_ms": r["bound"][0],
+                       "rel_err_vs_exact_f32": r["rel_exact"]}
+                   for n, r in x3_engine.items()},
+        "k4_products": k4_products})
+    k3 = x3_tails["softmax_ce_wide_bwd_3x"]
+    kernels.append({
+        "name": "softmax_ce_wide_bwd_3x", "route": "cuda",
+        "source": "lstm_rnn_tpu_torch/csrc/softmax_ce_wide.cu",
+        "replaces": "lstm_rnn_tpu/ops/softmax_ce.py:575",
+        "variant": "--f32_matmul 3x (wide_bwd_3x_kernel), the LVCSR tail",
+        "launches": x3_launches["LVCSR"]["softmax_ce_wide_bwd_3x"],
+        "max_abs_err": k3["err"], "rel_err_vs_exact_f32": k3["rel_exact"],
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
+        "library_ms": None, "cublas_dW_ms": k3["cublas_dw_ms"],
+        "f32_simt_ms": k3["f32_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

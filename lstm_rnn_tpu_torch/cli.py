@@ -92,7 +92,7 @@ from lstm_rnn_tpu_torch import writers
 from lstm_rnn_tpu_torch.config import Config, parse_config
 from lstm_rnn_tpu_torch.data.dataset import DataSet
 from lstm_rnn_tpu_torch.network import Network
-from lstm_rnn_tpu_torch.ops import _build
+from lstm_rnn_tpu_torch.ops import _build, gemm
 from lstm_rnn_tpu_torch.parallel import launch
 from lstm_rnn_tpu_torch.parallel.data import gather_blocks, pad_batch
 from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
@@ -400,7 +400,20 @@ def _join_saver(t: threading.Thread) -> None:
 
 def train_mode(cfg: Config, device: torch.device, group=None) -> int:
     """Train mode on `device`; under a data group every rank trains its
-    block of each fraction and rank 0 prints and writes."""
+    block of each fraction and rank 0 prints and writes. --f32_matmul 3x
+    turns on ops/gemm.py's F32_MATMUL_3X for the run, as the JAX CLI sets
+    lstm_cell.F32_MATMUL_3X in train mode (lstm_rnn_tpu/cli.py:283-285);
+    the switch is restored after it, so that one process may run the CLI
+    again."""
+    before = gemm.F32_MATMUL_3X
+    gemm.F32_MATMUL_3X = cfg.f32_matmul == "3x"
+    try:
+        return _train(cfg, device, group)
+    finally:
+        gemm.F32_MATMUL_3X = before
+
+
+def _train(cfg: Config, device: torch.device, group) -> int:
     _use_build_dir(cfg)
     network_file = cfg.continue_file or cfg.network
     print(f"Reading network from '{network_file}'... ", end="")

@@ -22,10 +22,15 @@ Port-specific:
   --coordinator_address host:port, --num_processes N, --process_id i:
                  multi-host data parallelism, alone or with --seq_devices
                  in train mode (parallel/launch.py)
+  --f32_matmul 3x: in train mode with float32, the projections, weight
+                 gradients, dx and the softmax tail's products as three
+                 bf16 passes on the tensor cores (ops/gemm.py
+                 F32_MATMUL_3X); nothing in bfloat16 mode or on the scan
+                 route
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
-never silently ignored: --model_devices and --pipeline_devices above 1,
-and --f32_matmul 3x (and, in parallel/launch.py, a seq group that would
-span hosts). --model_devices 0 and
+never silently ignored: --model_devices and --pipeline_devices above 1
+(and, in parallel/launch.py, a seq group that would span hosts).
+--model_devices 0 and
 --pipeline_devices 0 resolve to no parallelism, as the JAX CLI resolves
 them off a TPU. --seq_devices with --stream_chunk, --model_devices or
 --pipeline_devices, and a --seq_devices that does not divide
@@ -195,7 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="float32 = true fp32 (TF32 off); bfloat16 = bf16 "
                         "matmul operands, f32 state and accumulation")
     g.add_argument("--f32_matmul", default="6x", choices=["6x", "3x"],
-                   help="6x = true fp32 (the only mode ported yet)")
+                   help="6x = true fp32; 3x = the f32 products as three "
+                        "bf16 passes (hi/lo split) on the tensor cores")
     g.add_argument("--lstm_backend", default="auto",
                    choices=["auto", "scan", "pallas"],
                    help="LSTM recurrence: auto/pallas = the Hopper kernel "
@@ -416,9 +422,6 @@ def _check_supported(ns: argparse.Namespace) -> None:
         # the JAX package's composed_mesh (parallel/mesh.py:87-90); a
         # multi-host run counts each host's devices (parallel/launch.py)
         raise ValueError(f"seq_devices={sp} must divide num_devices={n}")
-    if ns.f32_matmul != "6x":
-        unsupported.append((f"--f32_matmul {ns.f32_matmul}",
-                            "the training step and its precision modes"))
     if ns.device == "tpu":
         unsupported.append(("--device tpu", "the JAX package (lstm_rnn_tpu)"))
     if unsupported:

@@ -56,11 +56,24 @@
 //   two stages of loads are in flight while one computes and no register
 //   holds them.
 //
+// * f32 as three bf16 passes (gemm3x_kernel, --f32_matmul 3x): the
+//   operands stay f32 in device memory and take the bf16 body's path with
+//   twice its registers and stages: each 16-byte bf16 segment is read as
+//   two 16-byte f32 halves, split in registers into hi = RN_bf16(v) and lo
+//   = RN_bf16(v - hi) (the JAX package's _kdot, lstm_rnn_tpu/ops/
+//   lstm_cell.py:82-100), and stored as A_hi, B_hi, A_lo, B_lo (64 KB a
+//   stage, three stages: one block an SM); each k16 step issues three
+//   wgmma, hi . hi, hi . lo and lo . hi, into the same f32 accumulators
+//   (lo . lo lies below f32 rounding). About 2^-16 of each product's
+//   magnitude is lost against true f32 (2^-24): the mode's error contract.
+//   Three bf16 passes at 989 TFLOP/s bound a product about 5x below one
+//   f32 pass at 67; the operands' f32 bytes are read once.
+//
 // Split-K writes one partial product per split (splits start on a
 // stage boundary); sum_partials adds them in a fixed order, so the result
 // does not depend on scheduling, and no float atomics are used. The first
-// template argument of gemm_kernel names the product (GemmProj, GemmDwIn,
-// ...), so that a profile tells the uses apart.
+// template argument of gemm_kernel (and gemm3x_kernel) names the product
+// (GemmProj, GemmDwIn, ...), so that a profile tells the uses apart.
 
 #pragma once
 
@@ -100,11 +113,12 @@ struct GemmProj {};    // x . W_in[d] + bias_mult * b[d] (K0, K1, K6f, K6b-f)
 struct GemmDwIn {};    // x^T . da[d] (K2, K6b-b)
 struct GemmDwRec {};   // h_prev^T . da[d] (K2, K6b-b)
 struct GemmDx {};      // sum_d round(da[d] . W_in[d]^T) (K2, K6b-b)
-struct GemmTailDh {};  // dz . W^T (K3b)
-struct GemmTailDw {};  // h^T . dz (K3b)
-// K4's two products outside its kernels, bf16 mode only (in f32 mode they
-// run in cuBLAS): the logits h . W + bias_mult * b rounded to bf16 (K4f's
-// input) and dh = dzc . W^T in h's dtype (K4b's)
+struct GemmTailDh {};  // dz . W^T (the 3x TIMIT tail, after K5b)
+struct GemmTailDw {};  // h^T . dz (the 3x TIMIT tail, after K5b)
+// K4's two products outside its kernels, in bf16 mode and in 3x mode (in
+// f32 mode they run in cuBLAS): the logits h . W + bias_mult * b in the
+// storage dtype (K4f's input; in 3x mode also the TIMIT tail's, before
+// K5f) and dh = dzc . W^T in h's dtype (K4b's)
 struct GemmTailLogits {};
 struct GemmWideDh {};
 
@@ -195,6 +209,8 @@ constexpr int kWgBK = 64;    // 128 bytes of bf16: one swizzle row
 constexpr int kWgStages = 3;
 constexpr int kWgTileBytes = kEngineBM * kWgBK * 2;  // one operand's stage
 constexpr int kWgSmem = kWgStages * 2 * kWgTileBytes + 1024;
+// 3x: A_hi, B_hi, A_lo, B_lo a stage (197,632 bytes in all)
+constexpr int kWg3Smem = kWgStages * 4 * kWgTileBytes + 1024;
 constexpr int kSimtSmem =
     kSimtStages * 2 * kSimtBK * (kEngineBM + kSimtPad) * 4;
 
@@ -575,6 +591,13 @@ __device__ __forceinline__ void wg_load(const View<__nv_bfloat16>& a,
   }
 }
 
+// byte offset in its tile of segment s, MN-major or K-major (swizzled)
+__device__ __forceinline__ unsigned wg_seg_off(unsigned s, bool mn_major) {
+  const unsigned kmaj = (s / 8) * 128 + (s % 8) * 16;
+  const unsigned mnmaj = (s % 16) / 8 * 8192 + (s / 16) * 128 + (s % 8) * 16;
+  return swz(mn_major ? mnmaj : kmaj);
+}
+
 template <bool kTA, bool kTB>
 __device__ __forceinline__ void wg_store(unsigned char* stage,
                                          const uint4 (&ra)[4],
@@ -582,63 +605,186 @@ __device__ __forceinline__ void wg_store(unsigned char* stage,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const unsigned s = threadIdx.x + kEngineThreads * i;
-    const unsigned kmaj = (s / 8) * 128 + (s % 8) * 16;
-    const unsigned mnmaj = (s % 16) / 8 * 8192 + (s / 16) * 128 +
-                           (s % 8) * 16;
-    *reinterpret_cast<uint4*>(stage + swz(kTA ? mnmaj : kmaj)) = ra[i];
-    *reinterpret_cast<uint4*>(stage + kWgTileBytes +
-                              swz(kTB ? kmaj : mnmaj)) = rb[i];
+    *reinterpret_cast<uint4*>(stage + wg_seg_off(s, kTA)) = ra[i];
+    *reinterpret_cast<uint4*>(stage + kWgTileBytes + wg_seg_off(s, !kTB)) =
+        rb[i];
   }
 }
 
+// 3x: wg_load's segments of f32 operands, each as two 16-byte halves
+// (ra[2 i], ra[2 i + 1]: eight k, or m/n, values from the segment's start)
 template <bool kTA, bool kTB>
-__device__ __forceinline__ void wg_mainloop(
-    const View<__nv_bfloat16>& a, const View<__nv_bfloat16>& b, int m0,
-    int n0, int k_begin, int k_end, float (&acc)[64], unsigned char* smem) {
+__device__ __forceinline__ void wg3_load(const View<float>& a,
+                                         const View<float>& b, int m0,
+                                         int n0, int k0, int k_end,
+                                         uint4 (&ra)[8], uint4 (&rb)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = threadIdx.x + kEngineThreads * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!kTA)
+        ra[2 * i + h] = load_seg(a, m0 + s / 8, k0 + (s % 8) * 8 + 4 * h,
+                                 min(a.cols, k_end), true);
+      else
+        ra[2 * i + h] = load_seg(a, k0 + s / 16, m0 + (s % 16) * 8 + 4 * h,
+                                 a.cols, k0 + s / 16 < k_end);
+      if (kTB)
+        rb[2 * i + h] = load_seg(b, n0 + s / 8, k0 + (s % 8) * 8 + 4 * h,
+                                 min(b.cols, k_end), true);
+      else
+        rb[2 * i + h] = load_seg(b, k0 + s / 16, n0 + (s % 16) * 8 + 4 * h,
+                                 b.cols, k0 + s / 16 < k_end);
+    }
+  }
+}
+
+// the eight f32 values of (f0, f1) split into bf16 hi = RN(v) and lo =
+// RN(v - hi), each packed into 16 bytes (the first value in the low half
+// of the first word); v - hi is exact in f32, and zeros split to zeros
+__device__ __forceinline__ void split_bf16x8(const uint4& f0, const uint4& f1,
+                                             uint4& hi, uint4& lo) {
+  const float v[8] = {__uint_as_float(f0.x), __uint_as_float(f0.y),
+                      __uint_as_float(f0.z), __uint_as_float(f0.w),
+                      __uint_as_float(f1.x), __uint_as_float(f1.y),
+                      __uint_as_float(f1.z), __uint_as_float(f1.w)};
+  unsigned h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 hh = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    const float2 back = __bfloat1622float2(hh);
+    const __nv_bfloat162 ll =
+        __floats2bfloat162_rn(v[2 * i] - back.x, v[2 * i + 1] - back.y);
+    h[i] = *reinterpret_cast<const unsigned*>(&hh);
+    l[i] = *reinterpret_cast<const unsigned*>(&ll);
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// 3x: split each segment and store its hi half into A_hi / B_hi (the
+// stage's first two tiles) and its lo half into A_lo / B_lo (the next two)
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void wg3_store(unsigned char* stage,
+                                          const uint4 (&ra)[8],
+                                          const uint4 (&rb)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned s = threadIdx.x + kEngineThreads * i;
+    uint4 hi, lo;
+    split_bf16x8(ra[2 * i], ra[2 * i + 1], hi, lo);
+    *reinterpret_cast<uint4*>(stage + wg_seg_off(s, kTA)) = hi;
+    *reinterpret_cast<uint4*>(stage + 2 * kWgTileBytes +
+                              wg_seg_off(s, kTA)) = lo;
+    split_bf16x8(rb[2 * i], rb[2 * i + 1], hi, lo);
+    *reinterpret_cast<uint4*>(stage + kWgTileBytes + wg_seg_off(s, !kTB)) =
+        hi;
+    *reinterpret_cast<uint4*>(stage + 3 * kWgTileBytes +
+                              wg_seg_off(s, !kTB)) = lo;
+  }
+}
+
+// T = __nv_bfloat16: the bf16 body; T = float: the 3x body (the operands
+// split into hi and lo as they are stored, three wgmma a k16 step). The
+// tensor cores add each step's products into the accumulators without
+// f32's round to nearest, and the error grows with K: three passes into
+// one set of accumulators read 7.8e-5 of the largest entry from the
+// twin's f32 sums at K = 10,112 (K4's dh) on an H100, 2.3e-6 to 3.1e-6
+// over the splits of 781 rows of the dW products. So the 3x body sums a
+// stage's 64 k in `part` and adds it to acc in f32 after the stage (then
+// 5.2e-6 to 1.4e-5 at K4's dh, at most 6.2e-7 at every main-path shape;
+// the wait for each stage's products cost 3-4%: dW_rec 0.129 -> 0.134
+// ms, dx 0.243 -> 0.251 ms).
+template <bool kTA, bool kTB, typename T>
+__device__ __forceinline__ void wg_mainloop(const View<T>& a,
+                                            const View<T>& b, int m0, int n0,
+                                            int k_begin, int k_end,
+                                            float (&acc)[64],
+                                            unsigned char* smem) {
+  constexpr bool k3x = std::is_same<T, float>::value;
+  constexpr int kStage = (k3x ? 4 : 2) * kWgTileBytes;
+  constexpr int kRegs = k3x ? 8 : 4;
   const int nk = (k_end - k_begin + kWgBK - 1) / kWgBK;
   if (nk <= 0) return;
   const int wg = threadIdx.x / 128;
   const unsigned sbase =
       static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  uint4 ra[4], rb[4];
+  uint4 ra[kRegs], rb[kRegs];
+  float part[k3x ? 64 : 1];
+  if constexpr (k3x) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+  }
   for (int s = 0; s < 2 && s < nk; ++s) {
-    wg_load<kTA, kTB>(a, b, m0, n0, k_begin + s * kWgBK, k_end, ra, rb);
-    wg_store<kTA, kTB>(smem + s * 2 * kWgTileBytes, ra, rb);
+    if constexpr (k3x) {
+      wg3_load<kTA, kTB>(a, b, m0, n0, k_begin + s * kWgBK, k_end, ra, rb);
+      wg3_store<kTA, kTB>(smem + s * kStage, ra, rb);
+    } else {
+      wg_load<kTA, kTB>(a, b, m0, n0, k_begin + s * kWgBK, k_end, ra, rb);
+      wg_store<kTA, kTB>(smem + s * kStage, ra, rb);
+    }
   }
   fence_async_smem();
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
     const bool more = kt + 2 < nk;
-    if (more)
-      wg_load<kTA, kTB>(a, b, m0, n0, k_begin + (kt + 2) * kWgBK, k_end, ra,
-                        rb);
+    if (more) {
+      if constexpr (k3x)
+        wg3_load<kTA, kTB>(a, b, m0, n0, k_begin + (kt + 2) * kWgBK, k_end,
+                           ra, rb);
+      else
+        wg_load<kTA, kTB>(a, b, m0, n0, k_begin + (kt + 2) * kWgBK, k_end,
+                          ra, rb);
+    }
     // this warpgroup's 64 rows of A (one m atom, or rows 64 wg ..) and all
     // of B; a k16 step is 32 bytes along a K-major row, 16 k-rows (2,048
     // bytes) of an MN-major atom
-    const unsigned sa =
-        sbase + (kt % kWgStages) * 2 * kWgTileBytes + wg * 8192;
-    const unsigned sb =
-        sbase + (kt % kWgStages) * 2 * kWgTileBytes + kWgTileBytes;
-    fence_acc(acc);
+    const unsigned sa = sbase + (kt % kWgStages) * kStage + wg * 8192;
+    const unsigned sb = sbase + (kt % kWgStages) * kStage + kWgTileBytes;
+    if constexpr (k3x)
+      fence_acc(part);
+    else
+      fence_acc(acc);
     wg_fence();
 #pragma unroll
     for (int j = 0; j < kWgBK / 16; ++j) {
-      const unsigned long long da =
-          wg_desc(sa + j * (kTA ? 2048 : 32), kTA ? 8192 : 16, 1024);
-      const unsigned long long db =
-          wg_desc(sb + j * (kTB ? 32 : 2048), kTB ? 16 : 8192, 1024);
-      wgmma_m64n128k16<kTA ? 1 : 0, kTB ? 0 : 1>(acc, da, db);
+      const unsigned oa = j * (kTA ? 2048 : 32), ob = j * (kTB ? 32 : 2048);
+      const unsigned long long da = wg_desc(sa + oa, kTA ? 8192 : 16, 1024);
+      const unsigned long long db = wg_desc(sb + ob, kTB ? 16 : 8192, 1024);
+      if constexpr (k3x) {  // hi . hi, hi . lo, then lo . hi
+        constexpr unsigned kLo = 2 * kWgTileBytes;
+        wgmma_m64n128k16<kTA ? 1 : 0, kTB ? 0 : 1>(part, da, db);
+        wgmma_m64n128k16<kTA ? 1 : 0, kTB ? 0 : 1>(
+            part, da, wg_desc(sb + kLo + ob, kTB ? 16 : 8192, 1024));
+        wgmma_m64n128k16<kTA ? 1 : 0, kTB ? 0 : 1>(
+            part, wg_desc(sa + kLo + oa, kTA ? 8192 : 16, 1024), db);
+      } else {
+        wgmma_m64n128k16<kTA ? 1 : 0, kTB ? 0 : 1>(acc, da, db);
+      }
     }
     wg_commit();
-    wg_wait<1>();
-    fence_acc(acc);
+    if constexpr (k3x) {
+      // the stage's sum, into acc in f32
+      wg_wait<0>();
+      fence_acc(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc[i] += part[i];
+        part[i] = 0.0f;
+      }
+    } else {
+      wg_wait<1>();
+      fence_acc(acc);
+    }
     // every warpgroup is done with stage kt - 1, which the stores below
     // refill, and the stores of the iteration before (stage kt + 1) are
     // visible to the next wgmma
     __syncthreads();
     if (more) {
-      wg_store<kTA, kTB>(smem + ((kt + 2) % kWgStages) * 2 * kWgTileBytes,
-                         ra, rb);
+      if constexpr (k3x)
+        wg3_store<kTA, kTB>(smem + ((kt + 2) % kWgStages) * kStage, ra, rb);
+      else
+        wg_store<kTA, kTB>(smem + ((kt + 2) % kWgStages) * kStage, ra, rb);
       fence_async_smem();
     }
   }
@@ -646,8 +792,8 @@ __device__ __forceinline__ void wg_mainloop(
   fence_acc(acc);
 }
 
-template <bool kTA, bool kTB, typename R, class Epi>
-__device__ __forceinline__ void gemm_wgmma(const GemmArgs<__nv_bfloat16>& g,
+template <bool kTA, bool kTB, typename R, typename T, class Epi>
+__device__ __forceinline__ void gemm_wgmma(const GemmArgs<T>& g,
                                            const Epi& epi) {
   extern __shared__ __align__(16) unsigned char gemm_smem[];
   // the swizzle repeats every 1024 bytes: align the ring to it
@@ -676,7 +822,8 @@ __device__ __forceinline__ void gemm_wgmma(const GemmArgs<__nv_bfloat16>& g,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
     if (gi > 0) __syncthreads();  // the last group's wgmma read the ring
-    wg_mainloop<kTA, kTB>(g.a[v], g.b[v], m0, n0, k_begin, k_end, acc, smem);
+    wg_mainloop<kTA, kTB, T>(g.a[v], g.b[v], m0, n0, k_begin, k_end, acc,
+                             smem);
     // two adjacent columns in one store, but for the split-K partials:
     // there the wider store's address arithmetic spills, and costs more
     // than it saves
@@ -707,19 +854,43 @@ __global__ void __launch_bounds__(kEngineThreads, 2)
     gemm_simt<kTA, kTB, R>(g, epi);
 }
 
-template <class Use, typename T, bool kTA, bool kTB, typename R, class Epi>
-cudaError_t launch_gemm(const GemmArgs<T>& g, int outputs, Epi epi,
-                        cudaStream_t stream) {
+// f32 operands as three bf16 passes (--f32_matmul 3x): the wgmma body on
+// f32 Views, one block an SM (its ring takes 197,632 bytes), so that up
+// to 255 registers a thread hold the f32 halves in flight beside the
+// accumulators
+template <class Use, bool kTA, bool kTB, typename R, class Epi>
+__global__ void __launch_bounds__(kEngineThreads, 1)
+    gemm3x_kernel(GemmArgs<float> g, Epi epi) {
+  gemm_wgmma<kTA, kTB, R>(g, epi);
+}
+
+template <typename T, class Epi>
+cudaError_t launch_engine(void (*kernel)(GemmArgs<T>, Epi), int smem,
+                          const GemmArgs<T>& g, int outputs, const Epi& epi,
+                          cudaStream_t stream) {
   const dim3 grid((g.M + kEngineBM - 1) / kEngineBM,
                   (g.N + kEngineBN - 1) / kEngineBN, outputs * g.nsplit);
-  auto kernel = gemm_kernel<Use, T, kTA, kTB, R, Epi>;
-  const int smem =
-      std::is_same<T, __nv_bfloat16>::value ? kWgSmem : kSimtSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kEngineThreads, smem, stream>>>(g, epi);
   return cudaGetLastError();
+}
+
+// x3 (f32 operands only): the 3x instance in place of the SIMT body
+template <class Use, typename T, bool kTA, bool kTB, typename R, class Epi>
+cudaError_t launch_gemm(const GemmArgs<T>& g, int outputs, Epi epi,
+                        cudaStream_t stream, bool x3 = false) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_engine<T, Epi>(gemm_kernel<Use, T, kTA, kTB, R, Epi>,
+                                 kWgSmem, g, outputs, epi, stream);
+  } else {
+    if (x3)
+      return launch_engine<T, Epi>(gemm3x_kernel<Use, kTA, kTB, R, Epi>,
+                                   kWg3Smem, g, outputs, epi, stream);
+    return launch_engine<T, Epi>(gemm_kernel<Use, T, kTA, kTB, R, Epi>,
+                                 kSimtSmem, g, outputs, epi, stream);
+  }
 }
 
 // K splits for a reduction of length K: about one split per 192 rows, at

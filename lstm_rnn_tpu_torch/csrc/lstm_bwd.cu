@@ -74,6 +74,12 @@
 // 3. dx = sum_d da[d] . W_in[d]^T, the same GEMM, both directions in one
 //    launch (skipped for the first hidden layer, need_dx = 0).
 // 4. sum_partials for dpeep/dbias (times bias_mult for dbias).
+// --f32_matmul 3x (x3): the products of 2 and 3 run in the engine's 3x
+//    instance (f32 as three bf16 passes on the tensor cores, the JAX
+//    kernel's _kdot(use3) at :449, :475, :491); the BPTT's step product
+//    (da . W_rec^T, and dh0) and edge_grad_kernel stay exact FP32 on the
+//    SIMT pipes: a latency-bound step gains nothing from three passes, and
+//    exact f32 lies inside the 3x mode's error.
 // 5. The carry variant (lstm_bwd_carry): bptt_carry_kernel, bptt_kernel's
 //    body with kCarry. The forward started from (h0, c0) and emitted its
 //    state at step carry_t - 1 (ascending) or t = 0 (descending; a
@@ -488,7 +494,8 @@ template <typename S>
 cudaError_t launch_grads(const void* x, const void* h, const void* da,
                          const void* w_in, float* dx, float* w_part,
                          float* w_out, int T, int B, int P, int H, int D,
-                         int dir_offset, int need_dx, cudaStream_t stream) {
+                         int dir_offset, int need_dx, bool x3,
+                         cudaStream_t stream) {
   const int G = 4 * H;
   const int M = T * B;
   const int ns = gemm_splits(M);
@@ -510,7 +517,7 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
     g.ngroups = 1;
     err = launch_gemm<GemmDwIn, S, true, false, float>(
         g, D, EpiPartial{w_part, L_all, static_cast<long long>(P) * G, G},
-        stream);
+        stream, x3);
     if (err != cudaSuccess) return err;
   }
   {  // dW_rec[d] = h_prev^T . da[d]; h_prev is h one step back in scan order
@@ -531,7 +538,7 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
     err = launch_gemm<GemmDwRec, S, true, false, float>(
         g, D,
         EpiPartial{w_part + L_in, L_all, static_cast<long long>(H) * G, G},
-        stream);
+        stream, x3);
     if (err != cudaSuccess) return err;
   }
   err = launch_sum_partials(w_part, ns, L_all, w_out, L_all, L_all, 1.0f,
@@ -553,7 +560,7 @@ cudaError_t launch_grads(const void* x, const void* h, const void* da,
     g.nsplit = 1;
     g.ngroups = D;
     err = launch_gemm<GemmDx, S, false, true, S>(
-        g, 1, EpiStore<float>{dx, P}, stream);
+        g, 1, EpiStore<float>{dx, P}, stream, x3);
   }
   return err;
 }
@@ -592,13 +599,13 @@ cudaError_t run_bwd(const void* x, const void* dh, const void* gates,
                     void* da, float* pb_part, float* w_part, float* w_out,
                     float* pb_out, float* dx, int T, int B, int P, int H,
                     int D, float bias_mult, int clip, int need_dx,
-                    int device, cudaStream_t stream) {
+                    bool x3, int device, cudaStream_t stream) {
   cudaError_t err = launch_bptt_w<S, S, kPlain, kCarry>(
       dh, gates, c, w_rec_t, peep, lengths, da, pb_part, T, B, H, D, clip, ca,
       device, stream);
   if (err != cudaSuccess) return err;
   err = launch_grads<S>(x, h, da, w_in, dx, w_part, w_out, T, B, P, H, D,
-                        kCarry ? ca.dir_offset : 0, need_dx, stream);
+                        kCarry ? ca.dir_offset : 0, need_dx, x3, stream);
   if (err != cudaSuccess) return err;
   if constexpr (kCarry) {
     const int n = 4 * H * H;
@@ -628,14 +635,16 @@ extern "C" {
 // f32 = dW_in [D, P, G] then dW_rec [D, H, G]; pb_out [D, 7H] f32 = dpeep
 // [D, 3, H] then dbias [D, G] (times bias_mult); dx [T, B, P] f32 when
 // need_dx (the sum of the directions' planes, each rounded to the storage
-// dtype first).
+// dtype first). x3 = 1 (f32 only, --f32_matmul 3x): the weight gradients
+// and dx in the engine's 3x instance.
 int lstm_bwd(const void* x, const void* dh, const void* gates, const float* c,
              const void* h, const void* w_in, const void* w_rec_t,
              const float* peep, const int* lengths, void* da, float* pb_part,
              float* w_part, float* w_out, float* pb_out, float* dx, int T,
              int B, int P, int H, int D, float bias_mult, int clip,
-             int need_dx, int bf16, int device, cudaStream_t stream) {
-  if (T < 1 || B < 1 || P < 1 || H < 1 || D < 1 || D > 2)
+             int need_dx, int bf16, int x3, int device,
+             cudaStream_t stream) {
+  if (T < 1 || B < 1 || P < 1 || H < 1 || D < 1 || D > 2 || (x3 && bf16))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -644,11 +653,11 @@ int lstm_bwd(const void* x, const void* dh, const void* gates, const float* c,
     return run_bwd<__nv_bfloat16, true, false>(
         x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, nullptr, none, da,
         pb_part, w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip,
-        need_dx, device, stream);
+        need_dx, false, device, stream);
   return run_bwd<float, false, false>(
       x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, nullptr, none, da,
       pb_part, w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip,
-      need_dx, device, stream);
+      need_dx, x3 != 0, device, stream);
 }
 
 // BPTT of one layer from an initial state (K6b backward). As lstm_bwd,
@@ -666,7 +675,7 @@ int lstm_bwd_carry(const void* x, const void* dh, const void* gates,
                    float* pb_part, float* w_part, float* w_out, float* pb_out,
                    float* dx, float* dh0, float* dc0, int T, int B, int P,
                    int H, int D, int carry_t, int dir_offset, float bias_mult,
-                   int clip, int need_dx, int bf16, int device,
+                   int clip, int need_dx, int bf16, int x3, int device,
                    cudaStream_t stream) {
   if (T < 1 || B < 1 || P < 1 || H < 1 || D < 1 || D > 2)
     return cudaErrorInvalidValue;
@@ -675,6 +684,7 @@ int lstm_bwd_carry(const void* x, const void* dh, const void* gates,
   if (carry_t < 1 || carry_t > T) return cudaErrorInvalidValue;
   if ((D == 2 || dir_offset == 1) && carry_t != T)
     return cudaErrorInvalidValue;
+  if (x3 && bf16) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const BpttCarry ca = {c0, dhf, dcf, dh0, dc0, carry_t, dir_offset};
@@ -682,11 +692,11 @@ int lstm_bwd_carry(const void* x, const void* dh, const void* gates,
     return run_bwd<__nv_bfloat16, true, true>(
         x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, h0, ca, da, pb_part,
         w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip, need_dx,
-        device, stream);
+        false, device, stream);
   return run_bwd<float, false, true>(
       x, dh, gates, c, h, w_in, w_rec_t, peep, lengths, h0, ca, da, pb_part,
       w_part, w_out, pb_out, dx, T, B, P, H, D, bias_mult, clip, need_dx,
-      device, stream);
+      x3 != 0, device, stream);
 }
 
 // The cluster plan of the BPTT recurrence at width H, as bptt_kernel

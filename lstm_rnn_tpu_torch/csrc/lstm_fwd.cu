@@ -39,7 +39,12 @@
 //    in its own body, chunk by chunk, so the [D, T, B, 4H] tensor never
 //    reaches HBM; here it makes one round trip through device memory
 //    (160 MB at T=800, B=50, H=125 in f32). Fusing it back into the
-//    recurrence is later work.
+//    recurrence is later work. Under --f32_matmul 3x (f32, x3 = 1) it
+//    runs in the engine's 3x instance (gemm3x_kernel: three bf16 passes
+//    on the tensor cores, the TPU kernel's _kdot(use3) at :227); the
+//    recurrence's h . W_rec stays exact FP32 (the TPU kernel splits it
+//    too, :242): a latency-bound step gains nothing from three passes,
+//    and exact f32 lies inside the 3x mode's error.
 // 2. rec_kernel, the recurrence, on thread-block clusters
 //    (recurrence.cuh): grid (n, ceil(B / 8), D), one cluster of n CTAs
 //    per direction and group of 8 rows, a time loop inside each CTA. It
@@ -546,7 +551,7 @@ __global__ void act_probe_kernel(const float* __restrict__ x,
 template <typename T>
 cudaError_t launch_proj(const void* x, const void* w, const float* bias,
                         float* a, int M, int K, int N, int D, float bias_mult,
-                        cudaStream_t stream) {
+                        bool x3, cudaStream_t stream) {
   GemmArgs<T> g{};
   for (int d = 0; d < D; ++d) {
     g.a[d] = make_view<T>(x, K, M, K);
@@ -561,7 +566,7 @@ cudaError_t launch_proj(const void* x, const void* w, const float* bias,
   g.ngroups = 1;
   return launch_gemm<GemmProj, T, false, false, float>(
       g, D, EpiBias<float>{a, bias, bias_mult, static_cast<long long>(M) * N, N},
-      stream);
+      stream, x3);
 }
 
 // The carry entry points' shape rules (as the wrapper's _check_carry):
@@ -580,18 +585,20 @@ bool carry_ok(int T, int B, int H, int D, int carry_t, int dir_offset) {
 extern "C" {
 
 // Input projection. x [M, K] and w [D, K, N] are both f32 (bf16 = 0) or
-// both bf16 (bf16 = 1); bias [D, N] f32; a [D, M, N] f32.
+// both bf16 (bf16 = 1); bias [D, N] f32; a [D, M, N] f32. x3 = 1 (f32
+// only, --f32_matmul 3x): the engine's 3x instance.
 int lstm_fwd_proj(const void* x, const void* w, const float* bias, float* a,
                   int M, int K, int N, int D, float bias_mult, int bf16,
-                  int device, cudaStream_t stream) {
-  if (M < 1 || K < 1 || N < 1 || D < 1 || D > 2)
+                  int x3, int device, cudaStream_t stream) {
+  if (M < 1 || K < 1 || N < 1 || D < 1 || D > 2 || (x3 && bf16))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (bf16)
     return launch_proj<__nv_bfloat16>(x, w, bias, a, M, K, N, D, bias_mult,
-                                      stream);
-  return launch_proj<float>(x, w, bias, a, M, K, N, D, bias_mult, stream);
+                                      false, stream);
+  return launch_proj<float>(x, w, bias, a, M, K, N, D, bias_mult, x3 != 0,
+                            stream);
 }
 
 // Recurrence. a [D, T, B, 4H] f32; w_rec [D, H, 4H] f32 or bf16; peep

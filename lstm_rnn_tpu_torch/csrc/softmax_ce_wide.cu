@@ -22,7 +22,8 @@
 // (dh = dzc . W^T is one product outside, as in the JAX package; in bf16
 // mode it runs in gemm.cuh's engine, as does the logits product, both on
 // the tensor cores with f32 sums: softmax_ce_wide_logits and
-// softmax_ce_wide_dh below.)
+// softmax_ce_wide_dh below; under --f32_matmul 3x both run in the
+// engine's 3x instance, f32 as three bf16 passes.)
 //
 // Design and what bounds it on this card. K4f must read the logits once:
 // 1.0 GB in f32 (0.5 GB in bf16) at N = 25,000, S = 10,112, so bytes bound
@@ -70,6 +71,20 @@
 //   16 x 8 block of dW (the engine's register-blocked SIMT body, twice the
 //   outputs a thread: six 16-byte shared loads feed 128 FMAs), true f32.
 //   2 N P S operations on the FP32 pipes bound it: 1.89 ms at 67 TFLOP/s.
+// * 3x (wide_bwd_3x_kernel, --f32_matmul 3x in f32 mode; the TPU
+//   kernel's _kdot(h, dzc, use3) at softmax_ce.py:602): the bf16 kernel's
+//   tiles and warpgroups on f32 operands. bwd_prep_kernel packs h as two
+//   bf16 planes, hi = RN(h) and lo = RN(h - hi), once (the split is not
+//   repeated for each of the 79 column blocks); the logits arrive in f32
+//   and dz is formed from them in f32 as in the f32 kernel, stored in f32
+//   for dh and summed into db unrounded, then split in registers into
+//   dz_hi and dz_lo, written over the tile's logits (32 KB of f32 make
+//   room for both bf16 halves; one barrier lets every thread read its
+//   logits first); dW += h_hi dz_hi + h_hi dz_lo + h_lo dz_hi, three
+//   wgmma a k16 step. A stage holds 98 KB (logits, h's two planes, the
+//   constants), so the ring has two stages. Bound: the f32 logits in and
+//   dz out (2 GB at the LVCSR tail, 0.60 ms at 3.35 TB/s) against 3 x 2 N
+//   P S bf16 operations (0.38 ms at 989 TFLOP/s).
 // The row splits leave f32 partials of dW and db, summed in a fixed order
 // (sum_partials; no float atomics: a second launch gives the same bits).
 
@@ -290,11 +305,33 @@ struct Bwd {
   static constexpr int kSmem = kBwdStages * kStageBytes + 1024;
 };
 
+// The 3x instance's tiles: the bf16 kernel's 64-row tiles and 512 threads
+// on f32 logits (a thread's dz chunks are four f32 columns), h as two bf16
+// planes, and a ring of two stages of kStageBytes (100,352 bytes)
+constexpr int kBwdRows3x = 64;
+constexpr int kBwd3xStages = 2;
+struct Bwd3x {
+  static constexpr int kRows = kBwdRows3x;
+  static constexpr int kThreads = kBwdThreadsBf16;
+  static constexpr int kE = 4;
+  static constexpr int kChunksRow = kBwdCols / kE;
+  static constexpr int kRowStep = kThreads / kChunksRow;
+  static constexpr int kChunks = kRows / kRowStep;
+  // the f32 logits [kRows, kBwdCols], then dz_hi and dz_lo over them
+  static constexpr int kZBytes = kRows * kBwdCols * 4;
+  static constexpr int kZHalf = kRows * kBwdCols * 2;
+  static constexpr int kHPlane = kRows * kBwdPass * 2;  // h_hi, then h_lo
+  static constexpr int kHBytes = 2 * kHPlane;
+  static constexpr int kStageBytes = kZBytes + kHBytes + kRows * kRowBytes;
+  static constexpr int kSmem = kBwd3xStages * kStageBytes + 1024;
+};
+
 template <typename T>
 struct BwdArgs {
   const T* a;  // the logits [N, S]
   View<T> av;  // the same, for copies through registers
   const T* hp;  // h packed: [row tiles * kRows, hp_ld], zero-padded
+  const __nv_bfloat16* hx;  // 3x: h packed as its hi plane, then its lo
   const float* rowc;  // the rows' constants [row tiles * kRows, kRowFloats]
   T* dz;
   float* db_part;  // [nsplit, S]
@@ -336,6 +373,26 @@ __device__ __forceinline__ unsigned bwd_h_off(int r, int c) {
     return Bwd<T>::kZBytes + r * (kBwdPass * 4) + c * 16;
 }
 
+// The constants of the warp's kChunks * (32 / kChunksRow) = 4 rows (the
+// rows its threads' dz chunks lie in) into stage st, two 16-byte halves
+// each, by its lanes 0 .. 7: every row's consumers and copier share a warp
+template <class G>
+__device__ __forceinline__ void bwd_fill_consts(const float* rowc,
+                                                unsigned char* st, int row0) {
+  constexpr int kPer = 32 / G::kChunksRow;  // r0 values a warp holds
+  static_assert(G::kChunks * kPer * 2 == 8, "eight halves a warp");
+  const int lane = threadIdx.x % 32;
+  if (lane < 8) {
+    const int sel = lane / 2;
+    const int r = (threadIdx.x / 32) * kPer + sel % kPer +
+                  (sel / kPer) * G::kRowStep;
+    cp_async_zfill<16>(
+        st + G::kZBytes + G::kHBytes + r * kRowBytes + (lane % 2) * 16,
+        rowc + static_cast<size_t>(row0 + r) * kRowFloats + (lane % 2) * 4,
+        true);
+  }
+}
+
 // Start the copies of row tile `tile` into stage st: the logits of the
 // block's columns (cp.async where kAligned, else through registers), h's
 // columns of this pass and its rows' constants
@@ -369,21 +426,49 @@ __device__ __forceinline__ void bwd_fill(const BwdArgs<T>& g,
                            pass * kBwdPass + k * G::kE,
                        true);
   }
-  // the constants of the warp's kChunks * (32 / kChunksRow) = 4 rows (the
-  // rows its threads' dz chunks lie in), two 16-byte halves each, by its
-  // lanes 0 .. 7: every row's consumers and copier share a warp
-  constexpr int kPer = 32 / G::kChunksRow;  // r0 values a warp holds
-  static_assert(G::kChunks * kPer * 2 == 8, "eight halves a warp");
-  const int lane = threadIdx.x % 32;
-  if (lane < 8) {
-    const int sel = lane / 2;
-    const int r = (threadIdx.x / 32) * kPer + sel % kPer +
-                  (sel / kPer) * G::kRowStep;
+  bwd_fill_consts<G>(g.rowc, st, row0);
+}
+
+// 3x: the copies of row tile `tile` into stage st: the f32 logits of the
+// block's columns in plain rows (as the f32 kernel's), h's hi and lo
+// planes of this pass in the bf16 kernel's MN-major layout, and the rows'
+// constants
+template <bool kAligned>
+__device__ __forceinline__ void bwd_fill3x(const BwdArgs<float>& g,
+                                           unsigned char* st, int tile,
+                                           int n0, int pass) {
+  using G = Bwd3x;
+  const int row0 = tile * G::kRows;
+#pragma unroll
+  for (int i = 0; i < G::kRows * G::kChunksRow / G::kThreads; ++i) {
+    const int c = threadIdx.x + i * G::kThreads;
+    const int r = c / G::kChunksRow, j = c % G::kChunksRow;
+    const int row = row0 + r, col = n0 + j * G::kE;
+    unsigned char* dst = st + r * (kBwdCols * 4) + j * 16;
+    if constexpr (kAligned) {
+      const bool ok = row < g.N && col < g.S;
+      cp_async_zfill<16>(
+          dst, ok ? g.a + static_cast<size_t>(row) * g.S + col : g.a, ok);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = load_seg(g.av, row, col, g.S, true);
+    }
+  }
+  constexpr int kHChunksRow = kBwdPass / 8;  // bf16 chunks a row
+  constexpr int kPlaneChunks = G::kRows * kHChunksRow;
+  const size_t plane = static_cast<size_t>(g.ntiles) * G::kRows * g.hp_ld;
+#pragma unroll
+  for (int i = 0; i < 2 * kPlaneChunks / G::kThreads; ++i) {
+    const int c = threadIdx.x + i * G::kThreads;
+    const int lo = c / kPlaneChunks, cc = c % kPlaneChunks;
+    const int r = cc / kHChunksRow, k = cc % kHChunksRow;
     cp_async_zfill<16>(
-        st + G::kZBytes + G::kHBytes + r * kRowBytes + (lane % 2) * 16,
-        g.rowc + static_cast<size_t>(row0 + r) * kRowFloats + (lane % 2) * 4,
+        st + G::kZBytes + lo * G::kHPlane +
+            swz((k / 8) * 8192 + r * 128 + (k % 8) * 16),
+        g.hx + lo * plane + static_cast<size_t>(row0 + r) * g.hp_ld +
+            pass * kBwdPass + k * 8,
         true);
   }
+  bwd_fill_consts<G>(g.rowc, st, row0);
 }
 
 // dz of the thread's kChunks chunks of the tile in stage st (chunk j of
@@ -479,6 +564,85 @@ __device__ __forceinline__ void bwd_dz(const BwdArgs<T>& g, unsigned char* st,
   }
 }
 
+// 3x: dz of the thread's kChunks chunks of four f32 columns, as bwd_dz
+// computes it in f32 (added into db when `store`, and stored to device
+// memory in f32), then split into bf16 hi = RN(dz) and lo = RN(dz - hi)
+// and written over the tile's logits as dz_hi [kRows, kBwdCols] and dz_lo
+// after it, in the bf16 kernel's MN-major layout. The split layout puts a
+// chunk where other threads' logits lie: every thread reads its logits
+// before any writes (one barrier), and, as bwd_dz, reads all its chunks
+// first and writes them last. (A form that computed and stored each
+// chunk before reading the next crashed ptxas of CUDA 12.9.)
+template <bool kAligned>
+__device__ __forceinline__ void bwd_dz3x(const BwdArgs<float>& g,
+                                         unsigned char* st, int j, int r0,
+                                         int row0, int col0, bool store,
+                                         float (&db)[Bwd3x::kE]) {
+  using G = Bwd3x;
+  constexpr int C = G::kChunks;
+  const float4* rc =
+      reinterpret_cast<const float4*>(st + G::kZBytes + G::kHBytes);
+  float4 raw[C], c0[C], c1[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int r = r0 + k * G::kRowStep;
+    raw[k] = *reinterpret_cast<const float4*>(st + r * (kBwdCols * 4) +
+                                              j * 16);
+    c0[k] = rc[2 * r];
+    c1[k] = rc[2 * r + 1];
+  }
+  uint2 hi[C], lo[C];
+  float4 out[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int et = __float_as_int(c1[k].y) - col0;  // the target's element
+    const float v[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // bwd_dz's arithmetic
+      const float ex = fminf(expf(v[e] - c0[k].x), kRealMax);
+      const float q = ex * c0[k].z;
+      const float p = fmaf(fmaf(-q, c0[k].y, ex), c0[k].z, q);
+      d[e] = p * (e == et ? c1[k].x : c0[k].w);
+      if (store) db[e] += d[e];
+    }
+    out[k] = make_float4(d[0], d[1], d[2], d[3]);
+    unsigned h[2], l[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat162 hh = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+      const float2 back = __bfloat1622float2(hh);
+      const __nv_bfloat162 ll =
+          __floats2bfloat162_rn(d[2 * i] - back.x, d[2 * i + 1] - back.y);
+      h[i] = *reinterpret_cast<const unsigned*>(&hh);
+      l[i] = *reinterpret_cast<const unsigned*>(&ll);
+    }
+    hi[k] = make_uint2(h[0], h[1]);
+    lo[k] = make_uint2(l[0], l[1]);
+  }
+  __syncthreads();  // every thread has read its logits
+  const int jb = j / 2;  // the 16-byte bf16 chunk, and its half
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int r = r0 + k * G::kRowStep, row = row0 + r;
+    const unsigned off =
+        swz((jb / 8) * 8192 + r * 128 + (jb % 8) * 16) + (j % 2) * 8;
+    *reinterpret_cast<uint2*>(st + off) = hi[k];
+    *reinterpret_cast<uint2*>(st + G::kZHalf + off) = lo[k];
+    if (store && row < g.N && col0 < g.S) {
+      float* dst = g.dz + static_cast<size_t>(row) * g.S + col0;
+      if constexpr (kAligned) {
+        *reinterpret_cast<float4*>(dst) = out[k];
+      } else {
+        const float o[4] = {out[k].x, out[k].y, out[k].z, out[k].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col0 + e < g.S) dst[e] = o[e];
+      }
+    }
+  }
+}
+
 // v into dst[0 .. W - 1], those of them below `room`
 template <int W>
 __device__ __forceinline__ void bwd_put(float* dst, const float (&v)[W],
@@ -491,12 +655,11 @@ __device__ __forceinline__ void bwd_put(float* dst, const float (&v)[W],
 
 // The block's db partial: the threads' column sums, added over the row
 // groups in order, into db_part[split] (ring: the free stages)
-template <typename T>
+template <typename T, class G = Bwd<T>>
 __device__ __forceinline__ void bwd_db(const BwdArgs<T>& g,
                                        unsigned char* ring, int j, int r0,
                                        int n0, int split,
-                                       const float (&db)[Bwd<T>::kE]) {
-  using G = Bwd<T>;
+                                       const float (&db)[G::kE]) {
   float* red = reinterpret_cast<float*>(ring);  // [kRowStep, kBwdCols]
   __syncthreads();  // every thread is done with the ring
 #pragma unroll
@@ -696,23 +859,112 @@ __global__ void __launch_bounds__(kBwdThreadsF32, 1)
   if (store) bwd_db<float>(g, ring, j, r0, n0, split, db);
 }
 
+// 3x: the bf16 kernel's grid, warpgroups and epilogue on f32 operands:
+// thread t computes dz of f32 chunk t % 32 of tile rows t / 32 + 16 k;
+// each k16 step of a tile issues h_hi . dz_hi, h_hi . dz_lo and h_lo .
+// dz_hi into the same accumulators.
+template <bool kAligned>
+__global__ void __launch_bounds__(kBwdThreadsBf16, 1)
+    wide_bwd_3x_kernel(BwdArgs<float> g) {
+  using G = Bwd3x;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  const unsigned s0 =
+      static_cast<unsigned>(__cvta_generic_to_shared(bwd_smem));
+  const unsigned pad = (1024u - (s0 & 1023u)) & 1023u;
+  unsigned char* ring = bwd_smem + pad;
+  const int n0 = blockIdx.x * kBwdCols, split = blockIdx.y;
+  const int pass = blockIdx.z;
+  const int t0 = split * g.tps;
+  const int nt = min(g.ntiles, t0 + g.tps) - t0;
+  const bool store = pass == 0;
+  const int wg = threadIdx.x / 128;
+  const bool mma = pass * kBwdPass + wg * 64 < g.P;
+  const int j = threadIdx.x % G::kChunksRow, r0 = threadIdx.x / G::kChunksRow;
+  float acc[64], db[G::kE];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < G::kE; ++e) db[e] = 0.0f;
+  for (int s = 0; s < kBwd3xStages - 1; ++s) {
+    if (s < nt)
+      bwd_fill3x<kAligned>(g, ring + s * G::kStageBytes, t0 + s, n0, pass);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nt; ++i) {
+    unsigned char* st = ring + (i % kBwd3xStages) * G::kStageBytes;
+    cp_async_wait<kBwd3xStages - 2>();  // as in the bf16 kernel
+    __syncwarp();
+    bwd_dz3x<kAligned>(g, st, j, r0, (t0 + i) * G::kRows, n0 + j * G::kE,
+                       store, db);
+    fence_async_smem();  // dz and h, for wgmma's reads
+    wg_wait<0>();        // tile i - 1's product, this warpgroup's
+    fence_acc(acc);
+    // dz of tile i is whole, and every warpgroup is done with tile i - 1,
+    // whose stage the copies below refill
+    __syncthreads();
+    if (i + kBwd3xStages - 1 < nt)
+      bwd_fill3x<kAligned>(
+          g, ring + ((i + kBwd3xStages - 1) % kBwd3xStages) * G::kStageBytes,
+          t0 + i + kBwd3xStages - 1, n0, pass);
+    cp_async_commit();
+    if (mma) {
+      const unsigned sz =
+          static_cast<unsigned>(__cvta_generic_to_shared(st));
+      const unsigned sh = sz + G::kZBytes + wg * 8192;
+      fence_acc(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::kRows / 16; ++kk) {
+        const unsigned long long hh = wg_desc(sh + kk * 2048, 8192, 1024);
+        const unsigned long long zh = wg_desc(sz + kk * 2048, 8192, 1024);
+        wgmma_m64n128k16<1, 1>(acc, hh, zh);
+        wgmma_m64n128k16<1, 1>(
+            acc, hh, wg_desc(sz + G::kZHalf + kk * 2048, 8192, 1024));
+        wgmma_m64n128k16<1, 1>(
+            acc, wg_desc(sh + G::kHPlane + kk * 2048, 8192, 1024), zh);
+      }
+      wg_commit();
+    }
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  if (mma) {  // the bf16 kernel's epilogue
+    float* out = g.wout + static_cast<size_t>(split) * g.P * g.S;
+    const int lane = threadIdx.x % 32;
+    const int m0 =
+        pass * kBwdPass + wg * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+    const int c0 = n0 + (lane % 4) * 2;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int m = m0 + 8 * ((i % 4) / 2), n = c0 + 8 * (i / 4);
+      const float v[2] = {acc[i], acc[i + 1]};
+      if (m < g.P) bwd_put<2>(out + static_cast<size_t>(m) * g.S + n, v,
+                              g.S - n);
+    }
+  }
+  if (store) bwd_db<float, Bwd3x>(g, ring, j, r0, n0, split, db);
+}
+
 // K4b's operands laid out for its copies, over `rows` rows (the row
 // tiles'): hp[r, c] = h[r, c] for r < N, c < P, else 0 (h in the [rows,
 // ld] copy the kernel reads in aligned 16-byte chunks), and rowc[r] = the
 // row's constants {off, ssum, 1 / ssum, -s g, (inv - s) g, target, 0, 0}
 // with inv = -1 / max(pt, REAL_MIN), s = pt inv, g the loss cotangent (all
 // zero past N; off = +inf, ssum = 1 where ssum is infinite), so that the
-// kernel divides nowhere
-template <typename T>
+// kernel divides nowhere. k3x (f32 h): the copy is two bf16 planes,
+// hi = RN(h) in hp[0, rows * ld) and lo = RN(h - hi) after it.
+template <typename T, bool k3x>
 __global__ void bwd_prep_kernel(const T* __restrict__ h, int N, int P,
-                                T* __restrict__ hp, int rows, int ld,
+                                void* __restrict__ hp_out, int rows, int ld,
                                 const float* __restrict__ off,
                                 const float* __restrict__ ssum,
                                 const float* __restrict__ pt,
                                 const int* __restrict__ tc,
                                 const float* __restrict__ g,
                                 float* __restrict__ rowc) {
-  constexpr int E = 16 / static_cast<int>(sizeof(T));  // a 16-byte chunk
+  using S = typename std::conditional<k3x, __nv_bfloat16, T>::type;
+  constexpr int E = 16 / static_cast<int>(sizeof(S));  // a 16-byte chunk
+  S* hp = static_cast<S*>(hp_out);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = blockIdx.x * static_cast<long long>(blockDim.x) +
                           threadIdx.x;
@@ -722,12 +974,23 @@ __global__ void bwd_prep_kernel(const T* __restrict__ h, int N, int P,
     const int c0 = static_cast<int>(i % (ld / E)) * E;
     union {
       uint4 q;
-      T e[E];
-    } v;
+      S e[E];
+    } v, lo;
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      v.e[e] = (r < N && c0 + e < P) ? h[r * P + c0 + e] : f32_to<T>(0.0f);
+    for (int e = 0; e < E; ++e) {
+      const bool in = r < N && c0 + e < P;
+      if constexpr (k3x) {
+        const float x = in ? as_f32(h[r * P + c0 + e]) : 0.0f;
+        v.e[e] = __float2bfloat16_rn(x);
+        lo.e[e] = __float2bfloat16_rn(x - __bfloat162float(v.e[e]));
+      } else {
+        v.e[e] = in ? h[r * P + c0 + e] : f32_to<T>(0.0f);
+      }
+    }
     *reinterpret_cast<uint4*>(hp + r * ld + c0) = v.q;
+    if constexpr (k3x)
+      *reinterpret_cast<uint4*>(hp + static_cast<long long>(rows) * ld +
+                                r * ld + c0) = lo.q;
   }
   for (long long r = first; r < rows; r += stride) {
     float v[kRowFloats] = {};
@@ -808,16 +1071,32 @@ cudaError_t launch_wide_bwd(const BwdArgs<T>& g, dim3 grid,
   return cudaGetLastError();
 }
 
+template <bool kAligned>
+cudaError_t launch_wide_bwd3x(const BwdArgs<float>& g, dim3 grid,
+                              cudaStream_t stream) {
+  auto kernel = wide_bwd_3x_kernel<kAligned>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd3x::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, Bwd3x::kThreads, Bwd3x::kSmem, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// x3 (T = float only): the 3x instance, on h packed as bf16 hi and lo
 template <typename T>
 cudaError_t wide_bwd(const void* a, const void* h, const int* tc,
                      const float* off, const float* ssum, const float* pt,
                      const float* g, void* dz, void* hp, float* rowc,
                      float* db_part, float* w_part, float* dw, float* db,
                      int N, int P, int S, int nsplit, float bias_mult,
-                     cudaStream_t stream) {
+                     bool x3, cudaStream_t stream) {
   using G = Bwd<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (x3 && !kF32) return cudaErrorInvalidValue;
+  const int kRows = x3 ? Bwd3x::kRows : G::kRows;
+  const int kPackE = x3 ? 8 : G::kE;  // elements of a packed 16-byte chunk
   const int passes = (P + kBwdPass - 1) / kBwdPass;
-  const int ntiles = (N + G::kRows - 1) / G::kRows;
+  const int ntiles = (N + kRows - 1) / kRows;
   if (passes > kBwdMaxPasses || nsplit < 1 || nsplit > ntiles)
     return cudaErrorInvalidValue;
   const int tps = (ntiles + nsplit - 1) / nsplit;
@@ -826,7 +1105,8 @@ cudaError_t wide_bwd(const void* a, const void* h, const int* tc,
   BwdArgs<T> args;
   args.a = static_cast<const T*>(a);
   args.av = make_view<T>(a, S, N, S);
-  args.hp = static_cast<const T*>(hp);
+  args.hp = x3 ? nullptr : static_cast<const T*>(hp);
+  args.hx = x3 ? static_cast<const __nv_bfloat16*>(hp) : nullptr;
   args.rowc = rowc;
   args.dz = static_cast<T*>(dz);
   args.db_part = db_part;
@@ -837,13 +1117,16 @@ cudaError_t wide_bwd(const void* a, const void* h, const int* tc,
   args.hp_ld = passes * kBwdPass;
   args.ntiles = ntiles;
   args.tps = tps;
-  const int rows = ntiles * G::kRows;
-  const long long blocks =
-      (static_cast<long long>(rows) * (args.hp_ld / G::kE) + 255) / 256;
-  bwd_prep_kernel<T><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256,
-                       0, stream>>>(static_cast<const T*>(h), N, P,
-                                    static_cast<T*>(hp), rows, args.hp_ld,
-                                    off, ssum, pt, tc, g, rowc);
+  const int rows = ntiles * kRows;
+  long long blocks =
+      (static_cast<long long>(rows) * (args.hp_ld / kPackE) + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  auto prep = bwd_prep_kernel<T, false>;
+  if constexpr (kF32)
+    if (x3) prep = bwd_prep_kernel<T, true>;
+  prep<<<static_cast<int>(blocks), 256, 0, stream>>>(
+      static_cast<const T*>(h), N, P, hp, rows, args.hp_ld, off, ssum, pt, tc,
+      g, rowc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // every chunk of the logits and of dz 16-byte aligned: cp.async
@@ -852,8 +1135,17 @@ cudaError_t wide_bwd(const void* a, const void* h, const int* tc,
         reinterpret_cast<unsigned long long>(dz) |
         static_cast<unsigned long long>(S) * sizeof(T)) & 15ull) == 0;
   const dim3 grid((S + kBwdCols - 1) / kBwdCols, nsplit, passes);
-  err = aligned ? launch_wide_bwd<T, true>(args, grid, stream)
-                : launch_wide_bwd<T, false>(args, grid, stream);
+  if constexpr (kF32) {
+    if (x3)
+      err = aligned ? launch_wide_bwd3x<true>(args, grid, stream)
+                    : launch_wide_bwd3x<false>(args, grid, stream);
+    else
+      err = aligned ? launch_wide_bwd<T, true>(args, grid, stream)
+                    : launch_wide_bwd<T, false>(args, grid, stream);
+  } else {
+    err = aligned ? launch_wide_bwd<T, true>(args, grid, stream)
+                  : launch_wide_bwd<T, false>(args, grid, stream);
+  }
   if (err != cudaSuccess) return err;
   const long long L = static_cast<long long>(P) * S;
   if (nsplit > 1) {
@@ -895,32 +1187,50 @@ int softmax_ce_wide_fwd(const void* a, const int* tc, float* off,
 // hp [row tiles * rows, passes * 256] as a (rows 64 in bf16, 32 in f32;
 // passes = ceil(P / 256) <= 4), rowc [row tiles * rows, 8] f32, db_part
 // [nsplit, S] f32, w_part [nsplit, P * S] f32 (unused when nsplit is 1).
+// x3 = 1 (f32 only, --f32_matmul 3x): the 3x instance, dW on the tensor
+// cores as three bf16 passes; its rows are 64 a tile and hp is two bf16
+// planes [2, row tiles * 64, passes * 256].
 int softmax_ce_wide_bwd(const void* a, const void* h, const int* tc,
                         const float* off, const float* ssum, const float* pt,
                         const float* g, void* dz, void* hp, float* rowc,
                         float* db_part, float* w_part, float* dw, float* db,
                         int N, int P, int S, int nsplit, float bias_mult,
-                        int bf16, int device, cudaStream_t stream) {
-  if (N < 1 || P < 1 || S < 1) return cudaErrorInvalidValue;
+                        int bf16, int x3, int device, cudaStream_t stream) {
+  if (N < 1 || P < 1 || S < 1 || (x3 && bf16)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (bf16)
     return wide_bwd<__nv_bfloat16>(a, h, tc, off, ssum, pt, g, dz, hp, rowc,
                                    db_part, w_part, dw, db, N, P, S, nsplit,
-                                   bias_mult, stream);
+                                   bias_mult, false, stream);
   return wide_bwd<float>(a, h, tc, off, ssum, pt, g, dz, hp, rowc, db_part,
-                         w_part, dw, db, N, P, S, nsplit, bias_mult, stream);
+                         w_part, dw, db, N, P, S, nsplit, bias_mult, x3 != 0,
+                         stream);
 }
 
 // The logits product in bf16 mode: a [N, S] bf16 = round(h . W + bias_mult
 // * b) for h [N, P] and W [P, S] bf16, b [S] f32: gemm.cuh's engine on the
-// tensor cores, f32 sums, the bias product rounded on its own.
+// tensor cores, f32 sums, the bias product rounded on its own. x3 = 1
+// (--f32_matmul 3x): h, W and a f32, in the engine's 3x instance.
 int softmax_ce_wide_logits(const void* h, const void* w, const float* b,
                            void* a, int N, int P, int S, float bias_mult,
-                           int device, cudaStream_t stream) {
+                           int x3, int device, cudaStream_t stream) {
   if (N < 1 || P < 1 || S < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (x3) {
+    GemmArgs<float> ga{};
+    ga.a[0] = make_view<float>(h, P, N, P);
+    ga.b[0] = make_view<float>(w, S, P, S);
+    ga.M = N;
+    ga.N = S;
+    ga.K = P;
+    ga.nsplit = 1;
+    ga.ngroups = 1;
+    return launch_gemm<GemmTailLogits, float, false, false, float>(
+        ga, 1, EpiBias<float>{static_cast<float*>(a), b, bias_mult, 0, S},
+        stream, true);
+  }
   using T = __nv_bfloat16;
   GemmArgs<T> ga{};
   ga.a[0] = make_view<T>(h, P, N, P);
@@ -936,11 +1246,26 @@ int softmax_ce_wide_logits(const void* h, const void* w, const float* b,
 
 // The dh product in bf16 mode: dh [N, P] = dzc . W^T for dzc [N, S] and
 // W [P, S] bf16, f32 sums stored in f32 (out_f32 = 1) or rounded to bf16.
+// x3 = 1 (--f32_matmul 3x): dz, W and dh f32, in the engine's 3x instance.
 int softmax_ce_wide_dh(const void* dz, const void* w, void* dh, int N, int P,
-                       int S, int out_f32, int device, cudaStream_t stream) {
-  if (N < 1 || P < 1 || S < 1) return cudaErrorInvalidValue;
+                       int S, int out_f32, int x3, int device,
+                       cudaStream_t stream) {
+  if (N < 1 || P < 1 || S < 1 || (x3 && !out_f32))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (x3) {
+    GemmArgs<float> ga{};
+    ga.a[0] = make_view<float>(dz, S, N, S);
+    ga.b[0] = make_view<float>(w, S, P, S);
+    ga.M = N;
+    ga.N = P;
+    ga.K = S;
+    ga.nsplit = 1;
+    ga.ngroups = 1;
+    return launch_gemm<GemmWideDh, float, false, true, float>(
+        ga, 1, EpiStore<float>{static_cast<float*>(dh), P}, stream, true);
+  }
   using T = __nv_bfloat16;
   GemmArgs<T> ga{};
   ga.a[0] = make_view<T>(dz, S, N, S);

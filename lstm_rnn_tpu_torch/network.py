@@ -36,7 +36,9 @@ from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
                                                    softmax_forward)
 from lstm_rnn_tpu_torch.models.lstm import (lstm_forward,
                                             lstm_forward_streaming)
+from lstm_rnn_tpu_torch.ops.gemm import use3
 from lstm_rnn_tpu_torch.ops.softmax_ce import (_no_tf32, proj_tail_fits,
+                                               softmax_ce_3x_fused,
                                                softmax_ce_fused,
                                                softmax_ce_proj_fused,
                                                softmax_ce_wide_fused,
@@ -375,7 +377,10 @@ class Network:
         JAX package falls back where its wide_plan refuses. The JAX
         package reaches K5 under remat because its tail takes K3 and K4
         only on the padded view, which remat drops; the port has no padded
-        view, so remat itself is the route."""
+        view, so remat itself is the route. Under --f32_matmul 3x
+        (ops/gemm.py `use3`) K3's route takes `softmax_ce_3x_fused`: its
+        products in the engine's 3x instance around K5, where K3f and K3b
+        have no 3x body."""
         if not self.supports_fused_tail():
             raise ValueError("the fused tail needs a softmax -> "
                              "multiclass_classification net")
@@ -391,6 +396,10 @@ class Network:
                                     self.compute_dtype)
             return softmax_ce_fused(a.reshape(n, s.size), targets.reshape(n),
                                     s.size, self.compute_dtype)
+        if proj and use3(self.compute_dtype):
+            return softmax_ce_3x_fused(
+                x.reshape(n, p_dim), params[s.name]["W"], params[s.name]["b"],
+                targets.reshape(n), s.size, float(s.bias))
         tail = softmax_ce_proj_fused if proj else softmax_ce_wide_fused
         return tail(
             x.reshape(n, p_dim), params[s.name]["W"], params[s.name]["b"],

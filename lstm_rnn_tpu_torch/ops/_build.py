@@ -13,7 +13,8 @@ no nvcc; only a launch needs it.
 Usage: `load()` returns the ctypes library; `python -m
 lstm_rnn_tpu_torch.ops._build` builds and prints the compiler's report
 (registers, shared memory and spills per kernel) and the HGMMA count of
-each instance of the GEMM engine, of K3f, of K4b and of K3b.
+each instance of the GEMM engine (its 3x instances among them), of K3f,
+of K4b and of K3b.
 """
 
 from __future__ import annotations
@@ -146,11 +147,11 @@ def _compile(out: str) -> None:
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_fwd_proj.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i,
-                                  i, p]
+                                  i, i, p]
     lib.lstm_fwd_proj.restype = i
     ll = ctypes.c_longlong
     lib.gemm_run.argtypes = [i, p, p, ll, i, i, i, i, p, p, ll, i, i] \
-        + [i] * 6 + [p, ctypes.c_float, p, p, i, i, p]
+        + [i] * 6 + [p, ctypes.c_float, p, p, i, i, i, p]
     lib.gemm_run.restype = i
     lib.lstm_fwd_rec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.lstm_fwd_rec.restype = i
@@ -158,11 +159,11 @@ def _declare(lib) -> None:
     lib.lstm_fwd_rec_carry.restype = i
     lib.lstm_fwd_rec_carry_save.argtypes = [p] * 11 + [i] * 8 + [p]
     lib.lstm_fwd_rec_carry_save.restype = i
-    lib.lstm_bwd.argtypes = [p] * 15 + [i] * 5 + [ctypes.c_float] + [i] * 4 \
+    lib.lstm_bwd.argtypes = [p] * 15 + [i] * 5 + [ctypes.c_float] + [i] * 5 \
         + [p]
     lib.lstm_bwd.restype = i
     lib.lstm_bwd_carry.argtypes = [p] * 21 + [i] * 7 + [ctypes.c_float] \
-        + [i] * 4 + [p]
+        + [i] * 5 + [p]
     lib.lstm_bwd_carry.restype = i
     lib.softmax_ce_fwd.argtypes = [p] * 9 + [i] * 3 + [ctypes.c_float, i, i,
                                                        p]
@@ -173,12 +174,12 @@ def _declare(lib) -> None:
     lib.softmax_ce_wide_fwd.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.softmax_ce_wide_fwd.restype = i
     lib.softmax_ce_wide_bwd.argtypes = [p] * 14 + [i] * 4 + [
-        ctypes.c_float, i, i, p]
+        ctypes.c_float, i, i, i, p]
     lib.softmax_ce_wide_bwd.restype = i
     lib.softmax_ce_wide_logits.argtypes = [p] * 4 + [i] * 3 + [
-        ctypes.c_float, i, p]
+        ctypes.c_float, i, i, p]
     lib.softmax_ce_wide_logits.restype = i
-    lib.softmax_ce_wide_dh.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.softmax_ce_wide_dh.argtypes = [p] * 3 + [i] * 6 + [p]
     lib.softmax_ce_wide_dh.restype = i
     lib.softmax_ce_plain_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.softmax_ce_plain_fwd.restype = i
@@ -212,7 +213,7 @@ def load():
 if __name__ == "__main__":
     load()
     print(build_log())
-    for part in ("gemm_kernel", "ce_fwd_kernel", "wide_bwd_", "pb_dh_kernel",
-                 "pb_dw_kernel"):
+    for part in ("gemm_kernel", "gemm3x_kernel", "ce_fwd_kernel",
+                 "wide_bwd_", "pb_dh_kernel", "pb_dw_kernel"):
         for kernel, n in sorted(sass_counts("HGMMA", part).items()):
             print(f"{n:5d} HGMMA  {kernel}")

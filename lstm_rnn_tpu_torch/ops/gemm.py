@@ -8,10 +8,10 @@ those kernels' C entry points. The TPU kernels compute the same products
 in their own bodies (lstm_rnn_tpu/ops/lstm_cell.py:227, :449, :475,
 :491). (K3b and K4b compute their products in their own kernels; the
 engine also runs the wide tail's two products outside its kernels in
-bf16 mode, which ops/softmax_ce.py launches and counts here as
+bf16 and 3x mode, which ops/softmax_ce.py launches and counts here as
 `tail_logits` and `wide_dh`. tail_dh and tail_dW, K3b's products before
-its kernels formed their own, run on no path: only `gemm` here launches
-them.) The products (`USES`):
+its kernels formed their own, run on the 3x TIMIT tail, launched by
+`gemm` here.) The products (`USES`):
 
 - proj:    out[d] = x . W_in[d] + bias_mult * b[d]           (f32)
 - dW_in:   out[d] = x^T . da[d]                               (f32)
@@ -35,6 +35,20 @@ the wrappers that launch it (lstm_cell's projection and BPTT, softmax_ce's
 wide-tail products, and `gemm` here) add to it.
 `main_path_case` lays out each product at the shape the main path gives
 it.
+
+--f32_matmul 3x (`F32_MATMUL_3X`, the JAX package's
+lstm_rnn_tpu/ops/lstm_cell.py F32_MATMUL_3X): in float32 mode every
+product above, and K4's two products outside its kernels, runs as three
+bf16 passes on the tensor cores (csrc/gemm.cuh's gemm3x_kernel): each f32
+operand split as a = hi + lo, hi = RN_bf16(a), lo = RN_bf16(a - hi), and
+hi.hi + hi.lo + lo.hi summed in f32, as the JAX package's `_kdot(...,
+use3=True)` (lstm_cell.py:82-100) forms them. About 2^-16 of a product's
+magnitude is lost where true f32 loses 2^-24; exact f32, which the LSTM
+recurrence's step product keeps in this mode, lies inside that contract.
+The wrappers read the switch when they launch (`use3`), the twins take
+it as `x3` and split with `matmul3`; `LAUNCHES[use + ":3x"]` counts the
+launches of the 3x instance among those of its use. The mode does nothing
+in bfloat16 mode and on the scan route.
 """
 
 from __future__ import annotations
@@ -46,6 +60,9 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 USES = ("proj", "dW_in", "dW_rec", "dx", "tail_dh", "tail_dW")
+# the uses outside gemm_run: K4's logits and dh (ops/softmax_ce.py), the
+# logits also of the 3x TIMIT tail
+WIDE_USES = ("tail_logits", "wide_dh")
 # (A transposed, B transposed) per use, as the main path launches them
 TRANSPOSE = {"proj": (False, False), "dW_in": (True, False),
              "dW_rec": (True, False), "dx": (False, True),
@@ -56,14 +73,50 @@ SPLIT_ALIGN = 64
 
 
 # Launches of the engine on the main path, one count per use, kept as the
-# kernels' wrappers keep theirs (chip_smoke.py resets and reads them)
-LAUNCHES = {u: types.SimpleNamespace(launches=0)
-            for u in USES + ("tail_logits", "wide_dh")}
+# kernels' wrappers keep theirs (chip_smoke.py resets and reads them);
+# "<use>:3x" counts those of them that took the 3x instance
+LAUNCHES = {u + sfx: types.SimpleNamespace(launches=0)
+            for u in USES + WIDE_USES for sfx in ("", ":3x")}
+
+# --f32_matmul 3x: the process-wide switch the wrappers read at launch (the
+# CLI's train mode sets it for its run)
+F32_MATMUL_3X = False
 
 
-def count_launches(*uses: str) -> None:
+def use3(compute_dtype: torch.dtype) -> bool:
+    """True when the f32 products take the 3x instance: the switch is
+    on and the compute dtype is float32 (the JAX package's `_use3`)."""
+    return F32_MATMUL_3X and compute_dtype == torch.float32
+
+
+def split_bf16(t: torch.Tensor):
+    """(hi, lo) of an f32 tensor as f32 tensors holding bf16 values: hi =
+    RN_bf16(t), lo = RN_bf16(t - hi) (round to nearest even, as the JAX
+    package's astype and the kernels' __float2bfloat16_rn)."""
+    hi = t.to(torch.bfloat16)
+    lo = (t - hi.float()).to(torch.bfloat16)
+    return hi.float(), lo.float()
+
+
+def matmul3(a: torch.Tensor, b: torch.Tensor, fn=torch.matmul):
+    """fn(a, b) as three bf16 passes (`_kdot(..., use3=True)`): fn(ah,
+    bh) + fn(ah, bl) + fn(al, bh) of the split f32 operands, each pass an
+    f32 product of bf16 values (exact products, f32 sums)."""
+    ah, al = split_bf16(a)
+    bh, bl = split_bf16(b)
+    return fn(ah, bh) + fn(ah, bl) + fn(al, bh)
+
+
+def product(a: torch.Tensor, b: torch.Tensor, x3: bool, fn=torch.matmul):
+    """fn(a, b), split into three bf16 passes when x3."""
+    return matmul3(a, b, fn) if x3 else fn(a, b)
+
+
+def count_launches(*uses: str, x3: bool = False) -> None:
     for u in uses:
         LAUNCHES[u].launches += 1
+        if x3:
+            LAUNCHES[u + ":3x"].launches += 1
 
 
 def splits(K: int) -> int:
@@ -115,18 +168,20 @@ def gemm_reference(use: str, a: Sequence[View], b: Sequence[View], M: int,
                    N: int, K: int, outputs: int = 1, nsplit: int = 1,
                    ngroups: int = 1, bias: Optional[torch.Tensor] = None,
                    bias_mult: float = 1.0,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32,
+                   x3: bool = False):
     """The engine's function, plainly: a and b hold one View per pair
     (output d, or group g of dx, takes pair d or g). Returns proj and the
     dW uses as [outputs, M, N] f32, dx as [M, N] f32, tail_dh as [M, N]
-    in the operand dtype."""
+    in the operand dtype. x3 (f32): each product as three bf16 passes."""
     _check_args(use, outputs, nsplit, ngroups)
+    _check_x3(x3, compute_dtype)
     bf16 = compute_dtype == torch.bfloat16
     if use == "dx":
         total = None
         for g in range(ngroups):
             A, B = _operands(use, a[g], b[g], M, N, K)
-            plane = A @ B
+            plane = product(A, B, x3)
             if bf16:  # each direction's plane rounded before the sum
                 plane = plane.to(torch.bfloat16).float()
             total = plane if total is None else total + plane
@@ -136,7 +191,7 @@ def gemm_reference(use: str, a: Sequence[View], b: Sequence[View], M: int,
         A, B = _operands(use, a[d], b[d], M, N, K)
         acc = None
         for k0, k1 in split_ranges(K, nsplit):
-            part = A[:, k0:k1] @ B[k0:k1]
+            part = product(A[:, k0:k1], B[k0:k1], x3)
             acc = part if acc is None else acc + part
         if use == "proj":
             acc = acc + bias_mult * bias[d].float()
@@ -144,6 +199,11 @@ def gemm_reference(use: str, a: Sequence[View], b: Sequence[View], M: int,
     if use == "tail_dh":
         return outs[0].to(compute_dtype)
     return torch.stack(outs)
+
+
+def _check_x3(x3, compute_dtype):
+    if x3 and compute_dtype != torch.float32:
+        raise ValueError("the 3x instance takes float32 operands")
 
 
 def _check_args(use, outputs, nsplit, ngroups):
@@ -162,17 +222,19 @@ def _check_args(use, outputs, nsplit, ngroups):
 def gemm(use: str, a: Sequence[View], b: Sequence[View], M: int, N: int,
          K: int, outputs: int = 1, nsplit: int = 1, ngroups: int = 1,
          bias: Optional[torch.Tensor] = None, bias_mult: float = 1.0,
-         compute_dtype: torch.dtype = torch.float32):
+         compute_dtype: torch.dtype = torch.float32, x3: bool = False):
     """One launch of the engine for `use` on a CUDA tensor (csrc/gemm.cu's
-    gemm_run: the instance the main path launches for that product); the
-    twin, gemm_reference, on a CPU tensor. The pairs share ld, rows and
-    cols (and b's shift is 0), as on the main path; every operand is in
-    compute_dtype."""
+    gemm_run: the instance the main path launches for that product, the 3x
+    instance with x3); the twin, gemm_reference, on a CPU tensor. The
+    pairs share ld, rows and cols (and b's shift is 0), as on the main
+    path; every operand is in compute_dtype. The 3x TIMIT tail launches
+    tail_dh and tail_dW here."""
     _check_args(use, outputs, nsplit, ngroups)
+    _check_x3(x3, compute_dtype)
     views = list(a) + list(b)
     if views[0].t.device.type == "cpu":
         return gemm_reference(use, a, b, M, N, K, outputs, nsplit, ngroups,
-                              bias, bias_mult, compute_dtype)
+                              bias, bias_mult, compute_dtype, x3)
     from lstm_rnn_tpu_torch.ops import _build
     from lstm_rnn_tpu_torch.ops.lstm_cell import _raise_on, _stream
     dev = views[0].t.device
@@ -220,15 +282,17 @@ def gemm(use: str, a: Sequence[View], b: Sequence[View], M: int, N: int,
         ctypes.c_float(bias_mult),
         ctypes.c_void_p(part.data_ptr()) if part is not None else None,
         ctypes.c_void_p(out.data_ptr()),
-        int(compute_dtype == torch.bfloat16), dev.index, _stream(out))
-    _raise_on(err, f"gemm_run ({use}) launch")
-    count_launches(use)
+        int(compute_dtype == torch.bfloat16), int(x3), dev.index,
+        _stream(out))
+    _raise_on(err, f"gemm_run ({use}{' 3x' if x3 else ''}) launch")
+    count_launches(use, x3=x3)
     return out
 
 
 # main_path_case's products: the training fraction's T*B = 25,000 rows
 # (bench.py's T = 500, B = 50), H = 125, P = 117 or 250, S = 183 (TIMIT's
-# tail, whose dh and dW K3b's own kernels compute since PR 11); the
+# tail, whose dh and dW K3b's own kernels compute in f32 and bf16 mode,
+# the engine's in 3x mode); the
 # projection also over 40,000 rows (serving, T = 800),
 # 6,250 (an SP or remat block, T = 125) and 4,096 (a streamed 64-frame
 # chunk of 64 streams, D = 1, H = 250)

@@ -43,6 +43,20 @@ product are bf16; state and accumulation stay f32; sigma and tanh are the
 plain functions (the JAX kernel's `_cell_acts(fast=True)`); h, the gates
 and the BPTT deltas are stored in bf16.
 
+--f32_matmul 3x (float32 mode, ops/gemm.py `F32_MATMUL_3X`): the
+projection, dW_in, dW_rec and dx run in the engine's 3x instance, three
+bf16 passes on the tensor cores (the JAX kernels' `_kdot(..., use3)` at
+lstm_cell.py:227, :449, :475, :491). The recurrence's step product,
+h . W_rec in the forward and da . W_rec^T (and the carry's dh0) in the
+BPTT, stays exact FP32 on the SIMT pipes, where the JAX kernels split it
+too (:242, :385, :436): it is latency-bound (2.1-2.4 us a step at H =
+125), three bf16 passes there would be slower and less exact than one
+f32 FMA, and exact f32 lies inside the 3x mode's error (about 2^-16 of
+each product against f32's 2^-24). So does the carry BPTT's dW_rec edge
+term (h0^T . da at the scan edge, edge_grad_kernel). The wrappers read
+the switch at launch; the twins take it as `x3` and split the same
+products (ops/gemm.py `matmul3`).
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain twin (`lstm_scan_reference`,
 `lstm_scan_bwd_reference`, `lstm_scan_carry_reference`,
@@ -58,7 +72,7 @@ import torch
 
 from lstm_rnn_tpu_torch.models.feedforward import round_operand
 from lstm_rnn_tpu_torch.ops.activations import logistic, tanh2
-from lstm_rnn_tpu_torch.ops.gemm import count_launches
+from lstm_rnn_tpu_torch.ops.gemm import count_launches, product, use3
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -105,21 +119,22 @@ def _validity(lengths, T: int, device):
 
 
 def _twin_loop(x, w_in, w_rec, peep, bias, bias_mult, compute_dtype,
-               valid, h, c, desc, save=False, cap=None):
+               valid, h, c, desc, save=False, cap=None, x3=False):
     """The forward kernels' time loop, shared by their twins. valid [T, B]
     float (1 valid, 0 not); h, c [D, B, H] f32 starting state (the product
     reads h rounded to the compute dtype, as the kernel does); desc[d]:
     direction d walks time descending over the natural-order arrays;
     cap[d]: the step s whose state is direction d's final one (returned as
     (hf, cf), hf before storage rounding). Returns (out, c_res, g_res, hf,
-    cf), the residuals None unless save."""
+    cf), the residuals None unless save. x3: the projection as three bf16
+    passes (the recurrence's product stays exact)."""
     T, B, P = x.shape
     D, _, G = w_in.shape
     H = G // 4
     fast = compute_dtype == torch.bfloat16
     sdtype = storage_dtype(compute_dtype)
-    a = torch.matmul(round_operand(x.reshape(T * B, P), compute_dtype),
-                     round_operand(w_in, compute_dtype))
+    a = product(round_operand(x.reshape(T * B, P), compute_dtype),
+                round_operand(w_in, compute_dtype), x3)
     a = (a + bias_mult * bias[:, None]).view(D, T, B, G)
     w = round_operand(w_rec, compute_dtype)
     out = torch.empty(T, B, D * H, dtype=sdtype, device=x.device)
@@ -156,10 +171,11 @@ def _twin_loop(x, w_in, w_rec, peep, bias, bias_mult, compute_dtype,
 def lstm_scan_reference(x, w_in, w_rec, peep, bias, lengths,
                         bias_mult: float = 1.0,
                         compute_dtype: torch.dtype = torch.float32,
-                        save: bool = False):
+                        save: bool = False, x3: bool = False):
     """The forward kernels' plain-torch twin: a Python time loop over the
     same math, rounding at the same points. Direction 1 walks time
-    descending over the natural-order arrays, as the kernel does.
+    descending over the natural-order arrays, as the kernel does. x3: the
+    --f32_matmul 3x twin (the projection as three bf16 passes).
 
     save=True also returns the training residuals, as lstm_fwd_save:
     (h, c [D, T, B, H] f32, gates [D, T, B, 4H] in the storage dtype),
@@ -169,7 +185,8 @@ def lstm_scan_reference(x, w_in, w_rec, peep, bias, lengths,
     zero = torch.zeros(D, B, G // 4, device=x.device)
     out, c_res, g_res, _, _ = _twin_loop(
         x, w_in, w_rec, peep, bias, bias_mult, compute_dtype,
-        _validity(lengths, T, x.device), zero, zero, (False, True)[:D], save)
+        _validity(lengths, T, x.device), zero, zero, (False, True)[:D], save,
+        x3=x3)
     if save:
         return out, c_res, g_res
     return out
@@ -179,7 +196,8 @@ def lstm_scan_carry_reference(x, w_in, w_rec, peep, bias, lengths, h0, c0,
                               bias_mult: float = 1.0,
                               compute_dtype: torch.dtype = torch.float32,
                               carry_t=None, dir_offset: int = 0,
-                              step_mask=None, save: bool = False):
+                              step_mask=None, save: bool = False,
+                              x3: bool = False):
     """The carry kernels' plain-torch twin (the JAX package's `_fwd_kernel`
     with carry=True, save=False and an optional step mask): the time loop
     of lstm_scan_reference from (h0, c0) [D, B, H] f32, with validity from
@@ -202,7 +220,7 @@ def lstm_scan_carry_reference(x, w_in, w_rec, peep, bias, lengths, h0, c0,
     out, c_res, g_res, hf, cf = _twin_loop(
         x, w_in, w_rec, peep, bias, bias_mult, compute_dtype, valid,
         h0.float(), c0.float(), desc, save,
-        cap=[T - 1 if desc[d] else carry_t - 1 for d in range(D)])
+        cap=[T - 1 if desc[d] else carry_t - 1 for d in range(D)], x3=x3)
     if save:
         return out, c_res, g_res, (hf, cf)
     return out, (hf, cf)
@@ -220,15 +238,16 @@ def _scan_prev(full, asc: bool, edge):
 def lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
                             bias_mult: float = 1.0, clip: bool = True,
                             compute_dtype: torch.dtype = torch.float32,
-                            need_dx: bool = True):
+                            need_dx: bool = True, x3: bool = False):
     """The BPTT kernel's plain-torch twin: a Python loop over the math of
     the JAX package's `_bwd_kernel` (lstm_rnn_tpu/ops/lstm_cell.py:346-494),
     rounding at the same points, then the weight gradients as plain
     products. h, c, gates are lstm_fwd_save's outputs; dh [T, B, D*H].
     Returns (dx [T, B, P] f32 or None, dW_in [D, P, 4H], dW_rec [D, H, 4H],
-    dpeep [D, 3, H], dbias [D, 4H]), all f32."""
+    dpeep [D, 3, H], dbias [D, 4H]), all f32. x3: dW_in, dW_rec and dx as
+    three bf16 passes (the step product stays exact)."""
     return _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
-                     bias_mult, clip, compute_dtype, need_dx)
+                     bias_mult, clip, compute_dtype, need_dx, x3=x3)
 
 
 def lstm_scan_carry_bwd_reference(x, w_in, w_rec, peep, lengths, h, c,
@@ -236,7 +255,7 @@ def lstm_scan_carry_bwd_reference(x, w_in, w_rec, peep, lengths, h, c,
                                   bias_mult: float = 1.0, clip: bool = True,
                                   compute_dtype: torch.dtype = torch.float32,
                                   need_dx: bool = True, carry_t=None,
-                                  dir_offset: int = 0):
+                                  dir_offset: int = 0, x3: bool = False):
     """The carry BPTT kernel's plain-torch twin (the JAX package's
     `_bwd_kernel` with carry=True, lstm_cell.py:304-311, :346-440,
     :471-479): lstm_scan_bwd_reference with the carry's edges. h, c, gates
@@ -248,15 +267,17 @@ def lstm_scan_carry_bwd_reference(x, w_in, w_rec, peep, lengths, h, c,
     error at the capture step (carry_t - 1 ascending, t = 0 descending).
     Returns lstm_scan_bwd_reference's five outputs and then (dh0, dc0)
     [D, B, H] f32: dh0 = round(da) . W_rec^T and dc0 = fg cs_err + p_ig
-    da[ig] + p_fg da[fg] after the last BPTT step."""
+    da[ig] + p_fg da[fg] after the last BPTT step. x3: as in
+    lstm_scan_bwd_reference, with dW_rec's edge term h0^T . da exact, as
+    the kernel adds it."""
     carry_t = x.shape[0] if carry_t is None else carry_t
     return _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
                      bias_mult, clip, compute_dtype, need_dx,
-                     (h0, c0, dhf, dcf, carry_t, dir_offset))
+                     (h0, c0, dhf, dcf, carry_t, dir_offset), x3=x3)
 
 
 def _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
-              clip, compute_dtype, need_dx, carry=None):
+              clip, compute_dtype, need_dx, carry=None, x3=False):
     """The BPTT twins' shared loop; carry = (h0, c0, dhf, dcf, carry_t,
     dir_offset) or None (zero state, no final-state cotangents)."""
     T, B, P = x.shape
@@ -326,14 +347,28 @@ def _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
     daf = da.float()  # the stored deltas feed every product and sum
     da2 = daf.view(D, T * B, G)
     xr = round_operand(x, compute_dtype).reshape(T * B, P)
-    dw_in = torch.einsum("mp,dmg->dpg", xr, da2)
+    dw_in = product(xr, da2, x3,
+                    lambda u, v: torch.einsum("mp,dmg->dpg", u, v))
     hs = h.float().view(T, B, D, H)
     # the edge row's h_prev: h0 as the product reads it (zero without one)
     edge_h = (torch.zeros(D, B, H, device=dev) if carry is None
               else round_operand(h0.float(), compute_dtype))
-    h_prev = torch.stack([_scan_prev(hs[:, :, d], asc[d], edge_h[d])
-                          for d in range(D)])
-    dw_rec = torch.einsum("dmh,dmg->dhg", h_prev.reshape(D, T * B, H), da2)
+
+    def h_prev(edge):
+        return torch.stack([_scan_prev(hs[:, :, d], asc[d], edge[d])
+                            for d in range(D)]).reshape(D, T * B, H)
+
+    def rec(u, v):
+        return torch.einsum("dmh,dmg->dhg", u, v)
+
+    if x3:
+        # the product reads zero at the edge rows; their term h0^T . da is
+        # added in exact f32 (edge_grad_kernel)
+        inner = h_prev(torch.zeros_like(edge_h))
+        dw_rec = product(inner, da2, True, rec) + rec(h_prev(edge_h) - inner,
+                                                      da2)
+    else:
+        dw_rec = rec(h_prev(edge_h), da2)
     c_prev = torch.stack([_scan_prev(c[d], asc[d], edge_c[d])
                           for d in range(D)])
     dpeep = torch.stack([(c_prev * daf[..., H:2 * H]).sum((1, 2)),
@@ -343,8 +378,8 @@ def _bwd_twin(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
     dx = None
     if need_dx:
         # one plane per direction in the storage dtype, summed in f32
-        planes = torch.einsum("dmg,dpg->dmp", da2,
-                              round_operand(w_in, compute_dtype))
+        planes = product(da2, round_operand(w_in, compute_dtype), x3,
+                         lambda u, v: torch.einsum("dmg,dpg->dmp", u, v))
         dx = planes.to(sdtype).float().sum(0).view(T, B, P)
     if carry is None:
         return dx, dw_in, dw_rec, dpeep, dbias
@@ -409,12 +444,13 @@ def lstm_scan_fused(x, w_in, w_rec, peep, bias, lengths,
         return LstmScanFused.apply(x, w_in, w_rec, peep, bias, lengths,
                                    float(bias_mult), bool(clip),
                                    compute_dtype)
+    x3 = use3(compute_dtype)
     if not _on_cuda(x, "lstm_scan_fused"):
-        return lstm_scan_reference(*args, bias_mult, compute_dtype)
+        return lstm_scan_reference(*args, bias_mult, compute_dtype, x3=x3)
     _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
                          lengths=lengths)
     a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
-                     bias_mult)
+                     bias_mult, x3)
     out = _launch_rec(a, w_rec.to(compute_dtype), peep, lengths)
     lstm_scan_fused.launches += 1
     return out
@@ -433,13 +469,14 @@ def lstm_fwd_save(x, w_in, w_rec, peep, bias, lengths,
     _check_compute_dtype(compute_dtype)
     args = (x, w_in, w_rec, peep, bias, lengths)
     _check_shapes(*args)
+    x3 = use3(compute_dtype)
     if not _on_cuda(x, "lstm_fwd_save"):
         return lstm_scan_reference(*args, bias_mult, compute_dtype,
-                                   save=True)
+                                   save=True, x3=x3)
     _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
                          lengths=lengths)
     a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
-                     bias_mult)
+                     bias_mult, x3)
     out = _launch_rec(a, w_rec.to(compute_dtype), peep, lengths, save=True)
     lstm_fwd_save.launches += 1
     return out
@@ -465,10 +502,11 @@ def lstm_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
+    x3 = use3(compute_dtype)
     if not _on_cuda(x, "lstm_bwd"):
         return lstm_scan_bwd_reference(x, w_in, w_rec, peep, lengths, h, c,
                                        gates, dh, bias_mult, clip,
-                                       compute_dtype, need_dx)
+                                       compute_dtype, need_dx, x3=x3)
     _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep,
                          lengths=lengths, h=h, c=c, gates=gates)
     if h.dtype != sdtype or gates.dtype != sdtype:
@@ -476,7 +514,7 @@ def lstm_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh,
                         f"residuals), got {h.dtype} and {gates.dtype}")
     out = _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates,
                       dh.to(sdtype).contiguous(), bias_mult, clip,
-                      compute_dtype, need_dx)
+                      compute_dtype, need_dx, x3=x3)
     lstm_bwd.launches += 1
     return out
 
@@ -553,10 +591,11 @@ def lstm_scan_fused_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
             x, w_in, w_rec, peep, bias, lengths, h0, c0, float(bias_mult),
             bool(clip), compute_dtype, bool(need_dx), carry_t, dir_offset)
         return h, (hf, cf)
+    x3 = use3(compute_dtype)
     if not _on_cuda(x, "lstm_scan_fused_carry"):
         return lstm_scan_carry_reference(*args, h0, c0, bias_mult,
                                          compute_dtype, carry_t, dir_offset,
-                                         step_mask)
+                                         step_mask, x3=x3)
     _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
                          lengths=lengths, h0=h0, c0=c0)
     mask = None
@@ -566,7 +605,7 @@ def lstm_scan_fused_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
                              f"{x.device}")
         mask = (step_mask != 0).to(torch.uint8).contiguous()
     a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
-                     bias_mult)
+                     bias_mult, x3)
     out = _launch_rec_carry(a, w_rec.to(compute_dtype), peep, lengths, mask,
                             h0, c0, carry_t, dir_offset)
     lstm_scan_fused_carry.launches += 1
@@ -589,14 +628,15 @@ def lstm_fwd_save_carry(x, w_in, w_rec, peep, bias, lengths, h0, c0,
     _check_shapes(*args)
     carry_t = x.shape[0] if carry_t is None else int(carry_t)
     _check_carry(x, w_in, h0, c0, carry_t, dir_offset, None)
+    x3 = use3(compute_dtype)
     if not _on_cuda(x, "lstm_fwd_save_carry"):
         return lstm_scan_carry_reference(*args, h0, c0, bias_mult,
                                           compute_dtype, carry_t, dir_offset,
-                                          save=True)
+                                          save=True, x3=x3)
     _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep, bias=bias,
                          lengths=lengths, h0=h0, c0=c0)
     a = _launch_proj(x.to(compute_dtype), w_in.to(compute_dtype), bias,
-                     bias_mult)
+                     bias_mult, x3)
     out = _launch_rec_carry(a, w_rec.to(compute_dtype), peep, lengths, None,
                             h0, c0, carry_t, dir_offset, save=True)
     lstm_fwd_save_carry.launches += 1
@@ -630,11 +670,12 @@ def lstm_bwd_carry(x, w_in, w_rec, peep, lengths, h, c, gates, h0, c0, dh,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
+    x3 = use3(compute_dtype)
     if not _on_cuda(x, "lstm_bwd_carry"):
         return lstm_scan_carry_bwd_reference(
             x, w_in, w_rec, peep, lengths, h, c, gates, h0.float(),
             c0.float(), dh, dhf.float(), dcf.float(), bias_mult, clip,
-            compute_dtype, need_dx, carry_t, dir_offset)
+            compute_dtype, need_dx, carry_t, dir_offset, x3=x3)
     _check_cuda_operands(x=x, w_in=w_in, w_rec=w_rec, peep=peep,
                          lengths=lengths, h=h, c=c, gates=gates, h0=h0, c0=c0,
                          dhf=dhf, dcf=dcf)
@@ -644,7 +685,7 @@ def lstm_bwd_carry(x, w_in, w_rec, peep, lengths, h, c, gates, h0, c0, dh,
     out = _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates,
                       dh.to(sdtype).contiguous(), bias_mult, clip,
                       compute_dtype, need_dx,
-                      (h0, c0, dhf, dcf, carry_t, dir_offset))
+                      (h0, c0, dhf, dcf, carry_t, dir_offset), x3=x3)
     lstm_bwd_carry.launches += 1
     return out
 
@@ -856,19 +897,20 @@ def _raise_on(err: int, what: str) -> None:
                            f"({_build.load().lstm_err_str(err).decode()})")
 
 
-def _launch_proj(x, w_in, bias, bias_mult: float):
+def _launch_proj(x, w_in, bias, bias_mult: float, x3: bool = False):
     """Input projection a[d] = x . w_in[d] + bias_mult * bias[d] into an
-    f32 [D, T, B, 4H] buffer. x and w_in share the compute dtype."""
+    f32 [D, T, B, 4H] buffer. x and w_in share the compute dtype; x3 (f32)
+    takes the engine's 3x instance."""
     from lstm_rnn_tpu_torch.ops import _build
     T, B, P = x.shape
     D, _, G = w_in.shape
     a = torch.empty((D, T, B, G), dtype=torch.float32, device=x.device)
     err = _build.load().lstm_fwd_proj(
         _ptr(x), _ptr(w_in), _ptr(bias), _ptr(a), T * B, P, G, D,
-        ctypes.c_float(bias_mult), int(x.dtype == torch.bfloat16),
+        ctypes.c_float(bias_mult), int(x.dtype == torch.bfloat16), int(x3),
         x.device.index, _stream(x))
     _raise_on(err, "lstm_fwd_proj launch")
-    count_launches("proj")
+    count_launches("proj", x3=x3)
     return a
 
 
@@ -940,10 +982,11 @@ def _launch_rec_carry(a, w_rec, peep, lengths, mask, h0, c0, carry_t: int,
 
 
 def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
-                clip, compute_dtype, need_dx, carry=None):
+                clip, compute_dtype, need_dx, carry=None, x3=False):
     """BPTT, weight gradients and dx (csrc/lstm_bwd.cu). dh is in the
     storage dtype. carry = (h0, c0, dhf, dcf, carry_t, dir_offset) runs
-    the carry variant and also returns (dh0, dc0)."""
+    the carry variant and also returns (dh0, dc0); x3 (f32) runs the
+    weight gradients and dx in the engine's 3x instance."""
     from lstm_rnn_tpu_torch.ops import _build
     lib = _build.load()
     T, B, P = x.shape
@@ -970,7 +1013,8 @@ def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
     pb_out = torch.empty((D, 7 * H), **f32)
     dx = torch.empty((T, B, P), **f32) if need_dx else None
     tail = (ctypes.c_float(bias_mult), int(clip), int(need_dx),
-            int(compute_dtype == torch.bfloat16), dev.index, _stream(x))
+            int(compute_dtype == torch.bfloat16), int(x3), dev.index,
+            _stream(x))
     if carry is None:
         err = lib.lstm_bwd(
             _ptr(xc), _ptr(dh), _ptr(gates), _ptr(c), _ptr(h), _ptr(w_in_c),
@@ -991,7 +1035,7 @@ def _launch_bwd(x, w_in, w_rec, peep, lengths, h, c, gates, dh, bias_mult,
             _ptr(w_out), _ptr(pb_out), _ptr(dx) if need_dx else None,
             _ptr(dh0), _ptr(dc0), T, B, P, H, D, carry_t, dir_offset, *tail)
         _raise_on(err, "lstm_bwd_carry launch")
-    count_launches("dW_in", "dW_rec", *(("dx",) if need_dx else ()))
+    count_launches("dW_in", "dW_rec", *(("dx",) if need_dx else ()), x3=x3)
     grads = (dx, w_out[:D * P * G].view(D, P, G),
              w_out[D * P * G:].view(D, H, G),
              pb_out[:, :3 * H].reshape(D, 3, H),

@@ -67,17 +67,30 @@ refusing to run with TF32 on; their twins in f32 on the storage dtype's
 values (a product of two bf16 values is exact in f32). On a CUDA tensor
 each wrapper launches its kernel or raises; on a CPU tensor it runs its
 plain twin.
+
+--f32_matmul 3x (float32 mode, ops/gemm.py `F32_MATMUL_3X`; the JAX
+kernels' `_kdot(..., use3)`): K4's logits and dh run in the engine's 3x
+instance, and K4b's dW in its own 3x instance (`wide_bwd_3x_kernel`: h and
+dz split into bf16 hi and lo, three wgmma a step), where f32 mode runs
+cuBLAS and the SIMT body. A K3 tail takes the plain route instead
+(`softmax_ce_3x_fused`): the engine's 3x logits, K5f and K5b, then the
+engine's 3x tail_dh and tail_dW, K3's function with its products in 3x;
+K3f and K3b have no 3x body. The remat route's K5 tail keeps its f32
+product, as in the JAX package. The twins take the mode as `x3` and split
+the same products (ops/gemm.py `matmul3`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
 from lstm_rnn_tpu_torch.ops.activations import REAL_MIN, safe_exp
-from lstm_rnn_tpu_torch.ops.gemm import count_launches
+from lstm_rnn_tpu_torch.ops.gemm import (View, count_launches, gemm,
+                                         product, splits, use3)
 from lstm_rnn_tpu_torch.ops.lstm_cell import (_check_compute_dtype, _on_cuda,
                                               _ptr, _raise_on, _stream,
                                               storage_dtype)
@@ -435,12 +448,14 @@ def _no_tf32(compute_dtype) -> None:
 
 
 def wide_logits_reference(h2, W, b, bias_mult: float,
-                          compute_dtype: torch.dtype = torch.float32):
+                          compute_dtype: torch.dtype = torch.float32,
+                          x3: bool = False):
     """a = h . W + bias_mult * b [N, S] plainly (the twin's): in f32 on
-    the storage dtype's values, the bias product added to the finished
-    product, then rounded once to the storage dtype."""
+    the storage dtype's values (x3: as three bf16 passes), the bias
+    product added to the finished product, then rounded once to the
+    storage dtype."""
     sdtype = storage_dtype(compute_dtype)
-    a = torch.matmul(h2.to(sdtype).float(), W.to(sdtype).float())
+    a = product(h2.to(sdtype).float(), W.to(sdtype).float(), x3)
     a += bias_mult * b.float()
     return a.to(sdtype)
 
@@ -451,11 +466,13 @@ def wide_logits(h2, W, b, bias_mult: float,
     outside K4 (an XLA product in the JAX package); K4's stats come from
     this rounded a. On the card in bf16 mode the engine on the tensor
     cores (`_launch_wide_logits`), in f32 mode cuBLAS in true f32 with the
-    bias added in its epilogue; on the CPU the twin."""
+    bias added in its epilogue, in 3x mode the engine's 3x instance; on
+    the CPU the twin."""
+    x3 = use3(compute_dtype)
     if not h2.is_cuda:
-        return wide_logits_reference(h2, W, b, bias_mult, compute_dtype)
+        return wide_logits_reference(h2, W, b, bias_mult, compute_dtype, x3)
     sdtype = storage_dtype(compute_dtype)
-    if sdtype == torch.bfloat16:
+    if sdtype == torch.bfloat16 or x3:
         return _launch_wide_logits(h2.to(sdtype), W.to(sdtype), b,
                                    bias_mult)
     return torch.addmm(bias_mult * b.float(), h2.float(), W.float())
@@ -470,12 +487,13 @@ def wide_stats_reference(a, targets):
 
 def softmax_ce_wide_fwd_reference(h2, W, b, targets, bias_mult: float,
                                   compute_dtype: torch.dtype = torch.float32,
-                                  want_stats: bool = True):
+                                  want_stats: bool = True, x3: bool = False):
     """The wide forward's plain-torch twin. h2 [N, P], W [P, S], b [S],
     targets [N] int (-1 = dummy). Returns (loss f32 scalar, count int32
     scalar, a [N, S] in the storage dtype, off, ssum, pt [N] f32 or three
-    None without want_stats)."""
-    a = wide_logits_reference(h2, W, b, bias_mult, compute_dtype)
+    None without want_stats). x3: the logits product in three bf16
+    passes."""
+    a = wide_logits_reference(h2, W, b, bias_mult, compute_dtype, x3)
     loss, cnt, off, ssum, pt = wide_stats_reference(a, targets)
     if not want_stats:
         off = ssum = pt = None
@@ -484,15 +502,17 @@ def softmax_ce_wide_fwd_reference(h2, W, b, targets, bias_mult: float,
 
 def softmax_ce_wide_bwd_reference(a, h2, W, targets, off, ssum, pt, g,
                                   bias_mult: float,
-                                  compute_dtype: torch.dtype = torch.float32):
+                                  compute_dtype: torch.dtype = torch.float32,
+                                  x3: bool = False):
     """The wide backward's plain-torch twin, from the forward's logits and
     stats and the loss cotangent g (a scalar tensor). Returns (dh [N, P] in
-    h2's dtype, dW [P, S] f32, db [S] f32)."""
+    h2's dtype, dW [P, S] f32, db [S] f32). x3: dW and dh in three bf16
+    passes."""
     sdtype = storage_dtype(compute_dtype)
     dz = wide_dz_reference(a, targets, off, ssum, pt, g)
     dzc = dz.to(sdtype)
-    dw = torch.matmul(h2.to(sdtype).float().t(), dzc.float())
-    return (wide_dh_reference(dzc, W, h2.dtype, compute_dtype), dw,
+    dw = product(h2.to(sdtype).float().t(), dzc.float(), x3)
+    return (wide_dh_reference(dzc, W, h2.dtype, compute_dtype, x3), dw,
             bias_mult * dz.sum(dim=0))
 
 
@@ -503,21 +523,23 @@ def wide_dz_reference(a, targets, off, ssum, pt, g):
     return _tail_dz(p, targets, pt, g)
 
 
-def wide_dh_reference(dzc, W, out_dtype, compute_dtype):
+def wide_dh_reference(dzc, W, out_dtype, compute_dtype, x3: bool = False):
     """dh = dzc . W^T plainly (the twin's): in f32 on the storage dtype's
-    values, cast to h's dtype."""
+    values (x3: as three bf16 passes), cast to h's dtype."""
     wc = W.to(storage_dtype(compute_dtype)).float()
-    return torch.matmul(dzc.float(), wc.t()).to(out_dtype)
+    return product(dzc.float(), wc.t(), x3).to(out_dtype)
 
 
 def _wide_dh(dzc, W, out_dtype, compute_dtype):
     """dh = dzc . W^T in h's dtype: the product outside K4b. On the card
     in bf16 mode the engine on the tensor cores (`_launch_wide_dh`), in
-    f32 mode cuBLAS in true f32; on the CPU the twin."""
+    f32 mode cuBLAS in true f32, in 3x mode the engine's 3x instance; on
+    the CPU the twin."""
     sdtype = storage_dtype(compute_dtype)
-    if dzc.is_cuda and sdtype == torch.bfloat16:
+    x3 = use3(compute_dtype)
+    if dzc.is_cuda and (sdtype == torch.bfloat16 or x3):
         return _launch_wide_dh(dzc, W.to(sdtype), out_dtype)
-    return wide_dh_reference(dzc, W, out_dtype, compute_dtype)
+    return wide_dh_reference(dzc, W, out_dtype, compute_dtype, x3)
 
 
 def _check_stats(N, *stats):
@@ -557,12 +579,19 @@ def _launch_wide_fwd(a, targets, want_stats: bool = True):
 
 
 # K4b's tiles (csrc/softmax_ce_wide.cu: kBwdCols, kBwdPass, kBwdMaxPasses,
-# kBwdRowsBf16, kBwdRowsF32, kRowFloats; a CPU test reads them): a block
-# owns 128 columns of S and a pass of 256 rows of dW (P <= 1,024: four
-# passes), and walks its split of the rows in tiles of 64 (bf16) or 32
-# (f32) rows, each with its rows' eight constants
+# kBwdRowsBf16, kBwdRowsF32, kBwdRows3x, kRowFloats; a CPU test reads
+# them): a block owns 128 columns of S and a pass of 256 rows of dW (P <=
+# 1,024: four passes), and walks its split of the rows in tiles of 64
+# (bf16 and 3x) or 32 (f32) rows, each with its rows' eight constants
 _BWD_COLS, _BWD_PASS, _BWD_MAX_PASSES = 128, 256, 4
 _BWD_ROWS = {True: 64, False: 32}
+_BWD_ROWS_3X = 64
+# the 3x instance's splits hold at most 16 row tiles (1,024 rows): its
+# tensor cores add each step's products without f32's round to nearest,
+# an error that grows with the rows a split sums (2.5e-5 of dW's largest
+# entry over 5,000 rows on an H100, 5.5e-6 over 1,024), where the splits'
+# partials are summed in f32
+_BWD_3X_TILES = 16
 _BWD_ROW_FLOATS = 8
 _BWD_MAX_SPLITS = 16
 
@@ -576,18 +605,20 @@ def wide_tail_fits(P: int) -> bool:
 
 
 def wide_bwd_plan(N: int, P: int, S: int, bf16: bool,
-                  sms: int = H100_SMS) -> dict:
+                  sms: int = H100_SMS, x3: bool = False) -> dict:
     """K4b's launch at N rows, P and S: its passes over P, its row tiles,
     its row splits (one block an SM: the fewest splits, up to 16, that
-    fill `sms` SMs in near-whole waves, none without rows) and the packed
-    h's shape ([hp_rows, hp_cols]; the rows' constants are [hp_rows, 8]
-    f32). Raises where the kernel does not take P."""
+    fill `sms` SMs in near-whole waves, none without rows; the 3x
+    instance, x3, at least enough that none sums more than _BWD_3X_TILES
+    tiles) and the packed h's shape ([hp_rows, hp_cols]; the rows'
+    constants are [hp_rows, 8] f32; x3 packs h as two bf16 planes of that
+    shape). Raises where the kernel does not take P."""
     passes = -(-P // _BWD_PASS)
     if not 1 <= passes <= _BWD_MAX_PASSES:
         raise ValueError(f"K4b takes 1 <= P <= {_BWD_PASS * _BWD_MAX_PASSES}"
                          f" ({_BWD_MAX_PASSES} passes of {_BWD_PASS}); got "
                          f"P={P}")
-    rows = _BWD_ROWS[bf16]
+    rows = _BWD_ROWS_3X if x3 else _BWD_ROWS[bf16]
     ntiles = -(-N // rows)
     per = -(-S // _BWD_COLS) * passes
     best, fill = 1, 0.0
@@ -596,16 +627,24 @@ def wide_bwd_plan(N: int, P: int, S: int, bf16: bool,
         f = blocks / (-(-blocks // sms) * sms)
         if f > fill + 0.02:
             best, fill = s, f
+    if x3:
+        best = max(best, -(-ntiles // _BWD_3X_TILES))
     tps = -(-ntiles // best)
     return dict(passes=passes, rows=rows, ntiles=ntiles,
                 nsplit=-(-ntiles // tps), hp_rows=ntiles * rows,
                 hp_cols=passes * _BWD_PASS)
 
 
-def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):
+# the launches of K4b's 3x instance among softmax_ce_wide_bwd's
+WIDE_BWD_3X = types.SimpleNamespace(launches=0)
+
+
+def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float,
+                     x3: bool = False):
     """K4b alone, one fused kernel: dz, dW = hc^T . dzc and db. a [N, S]
-    and hc [N, P] in the storage dtype, on the card. Returns (dz [N, S]
-    storage dtype, dW [P, S] f32, db [S] f32)."""
+    and hc [N, P] in the storage dtype, on the card; x3 (f32): the 3x
+    instance. Returns (dz [N, S] storage dtype, dW [P, S] f32, db [S]
+    f32)."""
     from lstm_rnn_tpu_torch.ops import _build
     lib = _build.load()
     N, S = a.shape
@@ -616,14 +655,18 @@ def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):
     _check_stats(N, off, ssum, pt)
     dev = a.device
     bf16 = a.dtype == torch.bfloat16
-    plan = wide_bwd_plan(N, P, S, bf16, _sm_count(dev.index))
+    if x3 and bf16:
+        raise ValueError("K4b's 3x instance takes float32 logits and h")
+    plan = wide_bwd_plan(N, P, S, bf16, _sm_count(dev.index), x3)
     tc = targets.to(device=dev, dtype=torch.int32).contiguous()
     gc = g.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     ns = plan["nsplit"]
     dz = torch.empty((N, S), dtype=a.dtype, device=dev)
-    hp = torch.empty((plan["hp_rows"], plan["hp_cols"]), dtype=a.dtype,
-                     device=dev)
+    hp = (torch.empty((2, plan["hp_rows"], plan["hp_cols"]),
+                      dtype=torch.bfloat16, device=dev) if x3 else
+          torch.empty((plan["hp_rows"], plan["hp_cols"]), dtype=a.dtype,
+                      device=dev))
     rowc = torch.empty((plan["hp_rows"], _BWD_ROW_FLOATS), **f32)
     db_part = torch.empty((ns, S), **f32)
     w_part = torch.empty((ns, P * S), **f32) if ns > 1 else None
@@ -635,45 +678,54 @@ def _launch_wide_bwd(a, hc, targets, off, ssum, pt, g, bias_mult: float):
         _ptr(pt.contiguous()), _ptr(gc), _ptr(dz), _ptr(hp), _ptr(rowc),
         _ptr(db_part),
         _ptr(w_part) if ns > 1 else None, _ptr(dw), _ptr(db), N, P, S, ns,
-        ctypes.c_float(bias_mult), int(bf16), dev.index, _stream(a))
-    _raise_on(err, "softmax_ce_wide_bwd launch")
+        ctypes.c_float(bias_mult), int(bf16), int(x3), dev.index,
+        _stream(a))
+    _raise_on(err, f"softmax_ce_wide_bwd{' 3x' if x3 else ''} launch")
+    if x3:
+        WIDE_BWD_3X.launches += 1
     return dz, dw, db
 
 
 def _launch_wide_logits(hc, wc, b, bias_mult: float):
     """K4f's logits product in bf16 mode: a [N, S] bf16 = round(hc . wc +
     bias_mult * b) in csrc/gemm.cuh's engine (hc [N, P], wc [P, S] bf16 on
-    the card, b [S])."""
+    the card, b [S]); with f32 hc and wc (3x mode), a [N, S] f32 in the
+    engine's 3x instance."""
     from lstm_rnn_tpu_torch.ops import _build
     N, P = hc.shape
     S = wc.shape[1]
     dev = hc.device
-    a = torch.empty((N, S), dtype=torch.bfloat16, device=dev)
+    x3 = hc.dtype == torch.float32
+    a = torch.empty((N, S), dtype=hc.dtype, device=dev)
     err = _build.load().softmax_ce_wide_logits(
         _ptr(hc.contiguous()), _ptr(wc.contiguous()),
         _ptr(b.to(device=dev, dtype=torch.float32).contiguous()), _ptr(a),
-        N, P, S, ctypes.c_float(bias_mult), dev.index, _stream(hc))
+        N, P, S, ctypes.c_float(bias_mult), int(x3), dev.index, _stream(hc))
     _raise_on(err, "softmax_ce_wide_logits launch")
-    count_launches("tail_logits")
+    count_launches("tail_logits", x3=x3)
     return a
 
 
 def _launch_wide_dh(dzc, wc, out_dtype):
     """K4b's dh product in bf16 mode: dh [N, P] = dzc . wc^T in out_dtype
     (f32 sums, stored in f32 or rounded to bf16) in csrc/gemm.cuh's engine
-    (dzc [N, S], wc [P, S] bf16 on the card)."""
+    (dzc [N, S], wc [P, S] bf16 on the card); with f32 dzc and wc (3x
+    mode), dh in f32 from the engine's 3x instance."""
     from lstm_rnn_tpu_torch.ops import _build
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dh is float32 or bfloat16, not {out_dtype}")
     N, S = dzc.shape
     P = wc.shape[0]
     dev = dzc.device
+    x3 = dzc.dtype == torch.float32
+    if x3 and (wc.dtype != torch.float32 or out_dtype != torch.float32):
+        raise ValueError("the 3x dh product is float32 throughout")
     dh = torch.empty((N, P), dtype=out_dtype, device=dev)
     err = _build.load().softmax_ce_wide_dh(
         _ptr(dzc.contiguous()), _ptr(wc.contiguous()), _ptr(dh), N, P, S,
-        int(out_dtype == torch.float32), dev.index, _stream(dzc))
+        int(out_dtype == torch.float32), int(x3), dev.index, _stream(dzc))
     _raise_on(err, "softmax_ce_wide_dh launch")
-    count_launches("wide_dh")
+    count_launches("wide_dh", x3=x3)
     return dh
 
 
@@ -687,7 +739,8 @@ def softmax_ce_wide_fwd(h2, W, b, targets, bias_mult: float = 1.0,
     _check(h2, W, b, targets)
     if not _on_cuda(h2, "softmax_ce_wide_fwd"):
         return softmax_ce_wide_fwd_reference(h2, W, b, targets, bias_mult,
-                                             compute_dtype, want_stats)
+                                             compute_dtype, want_stats,
+                                             use3(compute_dtype))
     _no_tf32(compute_dtype)
     a = wide_logits(h2, W, b, bias_mult, compute_dtype)
     out = _launch_wide_fwd(a, targets, want_stats)
@@ -710,13 +763,14 @@ def softmax_ce_wide_bwd(a, h2, W, targets, off, ssum, pt, g,
     sdtype = storage_dtype(compute_dtype)
     if a.dtype != sdtype or tuple(a.shape) != (h2.shape[0], W.shape[1]):
         raise ValueError(f"a must be [N, S] in {sdtype}")
+    x3 = use3(compute_dtype)
     if not _on_cuda(h2, "softmax_ce_wide_bwd"):
         return softmax_ce_wide_bwd_reference(a, h2, W, targets, off, ssum,
                                              pt, g, bias_mult,
-                                             compute_dtype)
+                                             compute_dtype, x3)
     _no_tf32(compute_dtype)
     dz, dw, db = _launch_wide_bwd(a, h2.to(sdtype), targets, off, ssum, pt,
-                                  g, bias_mult)
+                                  g, bias_mult, x3)
     softmax_ce_wide_bwd.launches += 1
     return _wide_dh(dz, W, h2.dtype, compute_dtype), dw, db
 
@@ -759,6 +813,59 @@ def softmax_ce_wide_fused(h2, W, b, targets, S: int, bias_mult: float,
     loss, cnt, *_ = softmax_ce_wide_fwd(h2, W, b, targets, bias_mult,
                                         compute_dtype, want_stats=False)
     return loss, cnt
+
+
+# ------------------------------------------------- the 3x projection tail
+def _tail3x_grads(h2, W, dz, bias_mult: float):
+    """(dh [N, P], dW [P, S], db [S]) of the 3x tail from dz [N, S] f32:
+    dh = dz . W^T and dW = h2^T . dz in the engine's 3x tail_dh and
+    tail_dW (split over the N rows; the twins on the CPU), db = bias_mult
+    * sum dz."""
+    N, P = h2.shape
+    S = W.shape[1]
+    h2, W, dz = h2.contiguous(), W.contiguous(), dz.contiguous()
+    dh = gemm("tail_dh", [View(dz, 0, S, N, S)], [View(W, 0, S, P, S)], N, P,
+              S, x3=True)
+    dw = gemm("tail_dW", [View(h2, 0, P, N, P)], [View(dz, 0, S, N, S)], P, S,
+              N, nsplit=splits(N), x3=True)[0]
+    return dh, dw, bias_mult * dz.sum(dim=0)
+
+
+class _Tail3xProduct(torch.autograd.Function):
+    """The softmax layer's product a = h2 . W + bias_mult * b [N, S] f32
+    of the 3x tail, with its gradients (`_tail3x_grads`)."""
+
+    @staticmethod
+    def forward(ctx, h2, W, b, bias_mult):
+        ctx.save_for_backward(h2, W)
+        ctx.bias_mult = bias_mult
+        return wide_logits(h2, W, b, bias_mult, torch.float32)
+
+    @staticmethod
+    def backward(ctx, da):
+        h2, W = ctx.saved_tensors
+        dh, dw, db = _tail3x_grads(h2, W, da.float(), ctx.bias_mult)
+        return dh.to(h2.dtype), dw.to(W.dtype), db, None
+
+
+def softmax_ce_3x_fused(h2, W, b, targets, S: int, bias_mult: float):
+    """K3's tail under --f32_matmul 3x (the JAX kernels' _fwd_proj_kernel
+    and _bwd_proj_kernel with use3): the logits in the engine's 3x
+    tail_logits, the CURRENNT softmax, loss and count in K5f, dz in K5b,
+    then dh and dW in the engine's 3x tail_dh and tail_dW. Returns (loss
+    f32 scalar, correct count int32 scalar); gradients flow to h2, W and b
+    when autograd records."""
+    if W.shape[-1] != S:
+        raise ValueError(f"W has {W.shape[-1]} columns, expected S={S}")
+    if not use3(torch.float32):
+        raise RuntimeError("the 3x tail runs with --f32_matmul 3x on "
+                           "(ops/gemm.py F32_MATMUL_3X)")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h2, W, b)):
+        a = _Tail3xProduct.apply(h2, W, b, float(bias_mult))
+    else:
+        a = wide_logits(h2, W, b, bias_mult, torch.float32)
+    return softmax_ce_fused(a, targets, S, torch.float32)
 
 
 # ----------------------------------------------------------- the plain tail

@@ -87,11 +87,25 @@ def test_forward_htk_matches_jax(tmp_path):
     # (test_torch_sequence.py, test_torch_data_parallel.py,
     # test_torch_dp_sp.py); data parallelism with tensor parallelism is not
     ["--pipeline_devices", "2"], ["--model_devices", "2", "--num_devices", "4"],
-    ["--f32_matmul", "3x"], ["--device", "tpu"],
+    ["--device", "tpu"],
 ])
 def test_unsupported_flags_raise(tmp_path, flag):
     with pytest.raises(ValueError, match="ROADMAP"):
         cli.main(_setup(tmp_path) + ["--device", "cpu"] + flag)
+
+
+def test_f32_matmul_3x_accepted(tmp_path):
+    """--f32_matmul 3x is ported (tests/test_torch_f32_matmul_3x.py
+    trains with it): the flag parses, and forward mode, which the JAX CLI
+    runs without the mode (it sets it in train mode only), writes the
+    bytes of the run without the flag."""
+    common = _setup(tmp_path) + ["--device", "cpu"]
+    outs = []
+    for name, extra in (("6x", []), ("3x", ["--f32_matmul", "3x"])):
+        out = tmp_path / f"{name}.csv"
+        assert cli.main(common + extra + ["--ff_output_file", str(out)]) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
 
 
 def test_stream_chunk_refuses_blstm(tmp_path, capsys):

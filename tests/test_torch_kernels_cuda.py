@@ -28,6 +28,8 @@ this file there without the repository's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -980,9 +982,162 @@ def test_gemm_counts_launches_by_use():
     out = lstm_scan_fused(x, w_in, *args[2:], 1.0, torch.float32)
     out.sum().backward()
     torch.cuda.synchronize()
-    assert {u: c.launches for u, c in ge.LAUNCHES.items()} == dict(
-        proj=1, dW_in=1, dW_rec=1, dx=1, tail_dh=0, tail_dW=0,
-        tail_logits=0, wide_dh=0)
+    want = dict(proj=1, dW_in=1, dW_rec=1, dx=1, tail_dh=0, tail_dW=0,
+                tail_logits=0, wide_dh=0)
+    want.update({f"{u}:3x": 0 for u in list(want)})
+    assert {u: c.launches for u, c in ge.LAUNCHES.items()} == want
+
+
+# --f32_matmul 3x (gemm.cuh's gemm3x_kernel, softmax_ce_wide.cu's
+# wide_bwd_3x_kernel) against the twins' split products: f32 sums in
+# another order (the kernel adds the three passes into one accumulator,
+# the twin adds three finished products), relative to each output's
+# largest entry; the 3x product against the exact f32 one within the
+# mode's contract, and the 1-pass bf16 product, the control, outside it
+THREE_PASS_REL = 2.0 ** -14
+# K4's long reductions in 3x against the 3x twins: inside each 64-k stage
+# the tensor cores add without f32's round to nearest; an H100 read 1.1e-5
+# to 1.4e-5 for dh over K = 2,049-10,112 (the engine's main-path shapes
+# hold GEMM_REL)
+THREE_PASS_TWIN_REL = 3e-5
+
+
+@contextlib.contextmanager
+def _three_pass():
+    before = ge.F32_MATMUL_3X
+    ge.F32_MATMUL_3X = True
+    try:
+        yield
+    finally:
+        ge.F32_MATMUL_3X = before
+
+
+def _one_pass(use, a, b, M, N, K, kw):
+    """The control: the product of the bf16-rounded operands."""
+    rb = [v._replace(t=v.t.to(torch.bfloat16).float()) for v in a + b]
+    return ge.gemm_reference(use, rb[:len(a)], rb[len(a):], M, N, K, **kw)
+
+
+@pytest.mark.parametrize("name", GEMM_CASES)
+def test_gemm_3x_matches_twin_at_main_path_shapes(name):
+    use, a, b, M, N, K, kw = gemm_case(name, torch.float32)
+    before = (ge.LAUNCHES[use].launches, ge.LAUNCHES[use + ":3x"].launches)
+    got = ge.gemm(use, a, b, M, N, K, x3=True, **kw)
+    again = ge.gemm(use, a, b, M, N, K, x3=True, **kw)
+    want = ge.gemm_reference(use, a, b, M, N, K, x3=True, **kw)
+    exact = ge.gemm_reference(use, a, b, M, N, K, **kw)
+    torch.cuda.synchronize()
+    assert (ge.LAUNCHES[use].launches - before[0],
+            ge.LAUNCHES[use + ":3x"].launches - before[1]) == (2, 2)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= GEMM_REL[torch.float32], \
+        _rel_err(got, want)
+    assert _rel_err(got, exact) <= THREE_PASS_REL, _rel_err(got, exact)
+    assert _rel_err(_one_pass(use, a, b, M, N, K, kw), exact) \
+        > THREE_PASS_REL
+
+
+@pytest.mark.parametrize("use", ge.USES)
+def test_gemm_3x_small_odd_shapes_match_twin(use):
+    """The 3x instance where widths end inside a tile and K inside a
+    stage, zero-filled edges splitting to zero."""
+    g = torch.Generator("cuda").manual_seed(11)
+    M, N, K = 131, 67, 203
+    ta, tb = ge.TRANSPOSE[use]
+    npairs = 2 if use in ("proj", "dW_in", "dW_rec", "dx") else 1
+    a_t = torch.randn(npairs, K if ta else M, M if ta else K, device="cuda",
+                      generator=g)
+    b_t = torch.randn(npairs, N if tb else K, K if tb else N, device="cuda",
+                      generator=g)
+    ar, ac = a_t.shape[1:]
+    br, bc = b_t.shape[1:]
+    shifts = (-3, 3) if use == "dW_rec" else (0, 0)
+    a = [View(a_t, p * ar * ac, ac, ar, ac, shifts[p]) for p in range(npairs)]
+    b = [View(b_t, p * br * bc, bc, br, bc) for p in range(npairs)]
+    kw = {}
+    if use == "dx":
+        kw["ngroups"] = 2
+    elif npairs == 2:
+        kw["outputs"] = 2
+    if use in ge.SPLIT_USES:
+        kw["nsplit"] = 3
+    if use == "proj":
+        kw.update(bias=torch.randn(2, N, device="cuda", generator=g),
+                  bias_mult=0.5)
+    got = ge.gemm(use, a, b, M, N, K, x3=True, **kw)
+    want = ge.gemm_reference(use, a, b, M, N, K, x3=True, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= GEMM_REL[torch.float32], \
+        _rel_err(got, want)
+    with pytest.raises(ValueError, match="float32"):
+        ge.gemm(use, a, b, M, N, K, x3=True, compute_dtype=torch.bfloat16,
+                **kw)
+
+
+def test_layer_3x_routes_through_the_3x_engine():
+    """A training layer with the switch on: the projection, dW_in,
+    dW_rec and dx launch the 3x instance (counted under their uses and as
+    3x), and the layer's h and gradients match the 3x twins at K1/K2's
+    tolerances."""
+    args = make_layer(40, 6, 33, 20, 2, seed=4)
+    for c in ge.LAUNCHES.values():
+        c.launches = 0
+    ts = [a.clone().requires_grad_(True) for a in args[:5]]
+    with _three_pass():
+        out = lstm_scan_fused(*ts, args[5], 0.7, torch.float32)
+        grads = torch.autograd.grad(out, ts, torch.ones_like(out))
+    torch.cuda.synchronize()
+    n = {u: c.launches for u, c in ge.LAUNCHES.items() if c.launches}
+    assert n == {"proj": 1, "dW_in": 1, "dW_rec": 1, "dx": 1,
+                 "proj:3x": 1, "dW_in:3x": 1, "dW_rec:3x": 1, "dx:3x": 1}
+    cpu = [a.detach().cpu() for a in args]
+    h_r, c_r, g_r = lstm_scan_reference(*cpu, 0.7, torch.float32,
+                                        save=True, x3=True)
+    assert _rel_err(out.cpu(), h_r) <= REL[torch.float32]
+    want = lstm_scan_bwd_reference(
+        cpu[0], cpu[1], cpu[2], cpu[3], cpu[5], h_r, c_r, g_r,
+        torch.ones_like(h_r), 0.7, True, torch.float32, True, x3=True)
+    for name, x, y in zip(("dx", "dW_in", "dW_rec", "dpeep", "dbias"),
+                          grads, want):
+        assert _rel_err(x.cpu(), y) <= REL[torch.float32], name
+
+
+@pytest.mark.parametrize("shape", [(70, 7, 1001), (1000, 131, 2049),
+                                   (600, 300, 2049), (25_000, 250, 10112)])
+def test_wide_tail_3x_matches_twin(shape):
+    """K4 in 3x mode: the logits and dh in the engine's 3x instance, K4b's
+    3x instance (h and dz split into bf16 hi and lo, dW in three wgmma a
+    step) against the 3x twins, dz (f32) against the twin's, the first
+    tile's rows all dummies, K4b launched twice giving the same bits."""
+    h, w, b, tc = _tail(*shape)
+    tc[:64] = -1
+    f32 = torch.float32
+    before = sc.WIDE_BWD_3X.launches
+    with _three_pass():
+        loss, cnt, a, off, ssum, pt = sc.softmax_ce_wide_fwd(h, w, b, tc,
+                                                             0.8, f32)
+        g = torch.tensor(0.37, device="cuda")
+        dz, dw, db = sc._launch_wide_bwd(a, h, tc, off, ssum, pt, g, 0.8,
+                                         x3=True)
+        again = sc._launch_wide_bwd(a, h, tc, off, ssum, pt, g, 0.8, x3=True)
+        got = sc.softmax_ce_wide_bwd(a, h, w, tc, off, ssum, pt, g, 0.8, f32)
+    a_r = sc.wide_logits_reference(h, w, b, 0.8, f32, x3=True)
+    want = sc.softmax_ce_wide_bwd_reference(a, h, w, tc, off, ssum, pt, g,
+                                            0.8, f32, x3=True)
+    exact = sc.softmax_ce_wide_bwd_reference(a, h, w, tc, off, ssum, pt, g,
+                                             0.8, f32)
+    dz_r = sc.wide_dz_reference(a, tc, off, ssum, pt, g)
+    torch.cuda.synchronize()
+    assert sc.WIDE_BWD_3X.launches - before == 3
+    assert _rel_err(a, a_r) <= GEMM_REL[f32]
+    assert all(torch.equal(x, y) for x, y in zip((dz, dw, db), again))
+    assert _rel_err(dz, dz_r) <= DZ_REL[f32]
+    for name, x, y, z in zip(("dh", "dW", "db"), got, want, exact):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert _rel_err(x, y) <= THREE_PASS_TWIN_REL, (name, _rel_err(x, y))
+        assert _rel_err(x, z) <= THREE_PASS_REL, (name, _rel_err(x, z))
+    assert not dz[:64].any() and not got[0][:64].any()
 
 
 # ---------------------------------------- the recurrences' cluster plan
