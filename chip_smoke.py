@@ -272,13 +272,40 @@ weights from a seed, and holds every kernel against its plain twin:
     generating its corpus through its fallback and training its recipe
     one epoch at its widths: each must store trained_network.jsn.
 
+42. pipeline parallelism on one card (a pipe mesh of cuda:0 k times):
+    the TIMIT recipe step (T=500, B=50, every row full) at 2 stages (2
+    and 4 microbatches) and 4 (4), and the LVCSR step at 2 (K4 at the
+    last stage), each against the one-GPU step from the same weights in
+    f32 and bf16 (loss, count, every gradient), with the exact launches
+    that the per-microbatch checkpointing implies (K1 and the tail's
+    forward twice a microbatch, K2 and its backward once); two controls
+    that must fail (a microbatch dropped, the microbatches' targets
+    swapped); `apply_pipelined` against `apply` over phase 5's corpus
+    (K0 5 m times a fraction); the step's ms and peak memory against one
+    GPU, f32 and bf16, and a profiled pipelined step's busy share;
+43. tensor parallelism on one card (a model mesh of cuda:0 k times): the
+    TIMIT step at model_devices 5 (K3 in its tail, the LSTM layers on
+    the scan cell) and the CHiME autoencoding step at its full widths at
+    2, against the one-GPU kernel step (f32), their exact launches, the
+    TP step's time beside one GPU's and a profiled TP step's busy share;
+    under bf16 the TP stack's hidden output against the one-GPU f32
+    kernel stack (the TP layers compute in f32), the bf16 kernel stack
+    the control;
+44. with 2+ GPUs: the CLI's --num_devices 2 --pipeline_devices 2 (train
+    and forward) and --num_devices 2 --model_devices 2 (train, CHiME
+    autoencoding) against one GPU, with 4 DP x PP and DP x TP too; the
+    pipelined and TP steps on distinct GPUs with each GPU's peak memory.
+    On one GPU the CLI's refusal of both in the JAX CLI's words, and a
+    line saying what was not run.
+
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
 12, 17, 20, 25) give the engine's device time per product.
 
 scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
-GPUs; scripts/torch_dp_multigpu.py runs phase 35 alone, and
-scripts/torch_dp_sp_multigpu.py phase 38.
+GPUs; scripts/torch_dp_multigpu.py runs phase 35 alone,
+scripts/torch_dp_sp_multigpu.py phase 38 and scripts/torch_pp_tp.py
+phases 42-44.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -6193,6 +6220,481 @@ def recipes_on_card(workdir):
         raise AssertionError(f"run_torch.sh failed: {failed}")
 
 
+# pipeline and tensor parallelism (phases 42-44). On one card a mesh names
+# cuda:0 k times: every stage or shard runs on the card, the copies
+# between them are no-ops, and what a mesh of distinct GPUs adds (the
+# peer copies, the overlap) shows in phase 44 only.
+# (stages, microbatches) of the pipelined TIMIT steps; LVCSR at (2, 2)
+PP_CONFIGS = ((2, 2), (2, 4), (4, 4))
+# a pipelined step against the one-GPU step from the same weights: the
+# same kernels over a microbatch's rows (their outputs row by row as the
+# whole batch's), each weight gradient summed over the microbatches by
+# autograd, so in f32 sums in another order: phase 20's bounds, in bf16
+# too: the kernels' gradient outputs are f32 there as well (the H100 read
+# 6.6e-7 in f32 and at most 1.8e-5 in bf16, the LVCSR softmax's dW; the
+# CPU twins, whose bf16 products round their outputs to bf16 once a
+# microbatch, read 3.7e-3 there)
+PP_STEP_TOL = {"loss": 1e-5, "grad": 1e-4}
+# the tensor-parallel shard counts: TIMIT's 125 cells per direction over
+# 5 (2 and 4 do not divide it), CHiME autoencoding's 78 / 128 / 78 over 2
+TP_TIMIT, TP_CHIME = 5, 2
+# a tensor-parallel step (the scan cell in f32) against the one-GPU kernel
+# step: phase 6's bounds for the kernel path against the scan path
+TP_STEP_TOL = {"loss": 1e-5, "grad": 1e-4}
+# the TP layers' hidden output under --compute_dtype bfloat16 against the
+# one-GPU f32 kernel stack: f32 arithmetic on both sides (TOL's f32 bound);
+# the one-GPU bf16 kernel stack, the control, must read above it
+TP_BF16_REL = 1e-5
+
+
+def pp_expect(m, lvcsr=False, layers=5):
+    """Launches of one pipelined training step over m microbatches: every
+    (stage, microbatch) forward runs under torch.utils.checkpoint, so each
+    LSTM layer's training forward (K1) and the tail's forward (K3f, or K4f
+    on the LVCSR net) run twice per microbatch (the forward and its
+    recompute), the BPTT (K2) and the tail's backward once."""
+    expect = dict.fromkeys(k for k in wrappers() if not k.startswith(
+        "gemm:"))
+    expect = {k: 0 for k in expect}
+    expect.update(lstm_fwd_save=2 * layers * m, lstm_bwd=layers * m)
+    tail = "softmax_ce_wide" if lvcsr else "softmax_ce_proj"
+    expect.update({f"{tail}_fwd": 2 * m, f"{tail}_bwd": m})
+    return expect
+
+
+def _grad_rel(g, want):
+    """(max over the tree of each gradient's rel_err, the leaf's name)."""
+    return max((rel_err(g[n][k], want[n][k])[0], f"{n}/{k}")
+               for n in want for k in want[n])
+
+
+def _zero_launches():
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    return w
+
+
+def _step_check(torch, tr, batch, ref, what, expect, bf16, tol):
+    """One grad_fraction of `tr` against `ref` (err, corr, grads): the
+    loss, the count, every gradient; its exact launches (expect, None:
+    not checked). Returns (loss rel, grad rel, launches)."""
+    w = _zero_launches()
+    err, corr, g = tr.grad_fraction(*batch)
+    sync_all(torch)
+    counts = {k: f.launches for k, f in w.items()}
+    e1, c1, g1 = ref
+    lrel = abs(err.item() - e1) / abs(e1)
+    grel, leaf = _grad_rel(g, g1)
+    phase(what[0], f"{what[1]}: loss {err.item():.6f} vs {e1:.6f} (rel "
+          f"{lrel:.2e}, tol {tol['loss']:.0e}); count {int(corr)} vs {c1};"
+          f" gradients rel {grel:.2e} (worst {leaf}; tol "
+          f"{tol['grad']:.1e}); launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if expect is not None:
+        check_counts(counts, expect, bf16=bf16)
+    if not (lrel <= tol["loss"] and int(corr) == c1
+            and grel <= tol["grad"]):
+        raise AssertionError(f"{what[1]} differs from the one-GPU step")
+    return lrel, grel, counts
+
+
+def _one_gpu_ref(torch, dtype, lvcsr, batch):
+    tr = make_trainer("auto", dtype, lvcsr)
+    err, corr, g = tr.grad_fraction(*batch)
+    return tr, (err.item(), int(corr), g)
+
+
+def _peak_mib(torch, fn, devices):
+    """fn() and the peak device memory it allocated, MiB, per distinct
+    device."""
+    devs = sorted({torch.device(d).index or 0 for d in devices})
+    sync_all(torch)
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    fn()
+    sync_all(torch)
+    return {d: torch.cuda.max_memory_allocated(d) / 2**20 for d in devs}
+
+
+def pp_steps(torch, card, mesh_of=None, configs=PP_CONFIGS, lvcsr=True):
+    """Phase 42a-b: the TIMIT recipe step (T = 500, B = 50, every row
+    full) pipelined over (stages, microbatches) = (2, 2), (2, 4), (4, 4),
+    and the LVCSR step at (2, 2), K4 at the last stage, each against the
+    one-GPU step from the same weights in f32 and bf16: the loss, the
+    count, every gradient (PP_STEP_TOL) and the exact launches
+    (pp_expect); the controls that must fail (a microbatch dropped, the
+    microbatches' targets swapped); then the step's ms and the peak
+    memory against one GPU, and a profiled pipelined step's busy share.
+    mesh_of(k): the pipe mesh (default: cuda:0 k times)."""
+    mesh_of = mesh_of or (lambda k: [torch.device("cuda", 0)] * k)
+    out = {}
+    for lvcsr, configs in ((False, configs),
+                           *(((True, ((2, 2),)),) if lvcsr else ())):
+        name = "LVCSR" if lvcsr else "TIMIT"
+        batch, frames = recipe_batch(torch, seed=42,
+                                     states=S_LVCSR if lvcsr else S_STATES)
+        for dtype in ("float32", "bfloat16"):
+            _, ref = _one_gpu_ref(torch, dtype, lvcsr, batch)
+            for k, m in configs:
+                mesh = mesh_of(k)
+                tr = make_trainer("auto", dtype, lvcsr, pipe_mesh=mesh,
+                                  pipeline_microbatches=m)
+                _, _, counts = _step_check(
+                    torch, tr, batch, ref,
+                    ("pp-step", f"{name} {dtype} pp={k} m={m} on "
+                     f"{mesh_name(mesh).replace('blocks', 'stages')}"),
+                    pp_expect(m, lvcsr), dtype == "bfloat16", PP_STEP_TOL)
+                out[(name, dtype, k, m)] = counts
+                del tr
+            if not lvcsr and dtype == "float32":
+                pp_controls(torch, batch, ref, mesh_of(2))
+    return out
+
+
+def pp_controls(torch, batch, ref, mesh):
+    """Phase 42a's controls: the pipelined step with microbatch 1 of 2
+    dropped (its columns never reach the loss) and with the two
+    microbatches' targets swapped must fail PP_STEP_TOL."""
+    x, tc, pt = batch
+    half = x.shape[1] // 2
+    e1, _, g1 = ref
+    for label, args in (
+            ("a microbatch dropped", (x[:, :half], tc[:, :half],
+                                      pt[:, :half])),
+            ("targets swapped", (x, torch.cat([tc[:, half:], tc[:, :half]],
+                                              1), pt))):
+        tr = make_trainer("auto", "float32", pipe_mesh=mesh,
+                          pipeline_microbatches=1 if "dropped" in label
+                          else 2)
+        err, _, g = tr.grad_fraction(*args)
+        lrel = abs(err.item() - e1) / abs(e1)
+        grel, _ = _grad_rel(g, g1)
+        phase("pp-step", f"control ({label}): loss rel {lrel:.2e}, "
+              f"gradients rel {grel:.2e}")
+        if lrel <= PP_STEP_TOL["loss"] and grel <= PP_STEP_TOL["grad"]:
+            raise AssertionError(f"the PP check passes its control "
+                                 f"({label})")
+
+
+def pp_rates(torch, card, mesh_of=None, configs=PP_CONFIGS):
+    """Phase 42d: the TIMIT step's ms (mean of 3 after a warm-up) and peak
+    device memory, one GPU and each pipelined configuration, f32 and
+    bf16, on `card`; a profile of one pipelined f32 step (2 stages, 2
+    microbatches): device busy against wall."""
+    mesh_of = mesh_of or (lambda k: [torch.device("cuda", 0)] * k)
+    batch, frames = recipe_batch(torch, seed=42)
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        for k, m in ((1, 1), *configs):
+            kw = {} if k == 1 else {"pipe_mesh": mesh_of(k),
+                                    "pipeline_microbatches": m}
+            tr = make_trainer("auto", dtype, **kw)
+            ms = step_ms(torch, tr, batch, reps=3)
+            peak = _peak_mib(torch, lambda: tr.train_step(*batch),
+                             kw.get("pipe_mesh", ["cuda:0"]))
+            label = "one GPU" if k == 1 else f"pp={k} m={m}"
+            res[(dtype, label)] = (ms, peak)
+            phase("pp-rate", f"TIMIT step {dtype} {label}: {ms:.2f} ms "
+                  f"({frames / ms * 1e3:,.0f} frames/s), peak memory "
+                  + ", ".join(f"cuda:{d} {v:,.0f} MiB"
+                              for d, v in peak.items()) + f" on {card}")
+            if k == 2 and m == 2 and dtype == "float32":
+                profile_trainer_step(torch, tr, batch, f"one pipelined "
+                                     f"TIMIT step pp=2 m=2 T={T_TRAIN} f32")
+            del tr
+    return res
+
+
+def pp_serving(torch, workdir, mesh_of=None):
+    """Phase 42c: apply_pipelined over phase 5's corpus at 2 stages (m = 2)
+    and 4 (m = 4) against apply (K0): the posteriors (STREAM_TOL) and 5 m
+    K0 launches per fraction, nothing else."""
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    from lstm_rnn_tpu_torch.parallel.pipeline import apply_pipelined
+    mesh_of = mesh_of or (lambda k: [torch.device("cuda", 0)] * k)
+    nc, _, _, _ = write_inputs(workdir)
+    net = build_timit_network(seed=SEED)
+    params = net.device_params("cuda")
+    batches, want = [], []
+    with torch.inference_mode():
+        for frac in DataSet([nc], parallel_sequences=50,
+                            prefetch=False).fractions():
+            batches.append((torch.from_numpy(frac.inputs).cuda(),
+                            torch.from_numpy(frac.pattypes).cuda()))
+            want.append(net.apply(params, *batches[-1]))
+    out = {}
+    for k, m in ((2, 2), (4, 4)):
+        w = _zero_launches()
+        with torch.inference_mode():
+            got = [apply_pipelined(net, params, x, pt, mesh_of(k), m)
+                   for x, pt in batches]
+        sync_all(torch)
+        counts = {key: f.launches for key, f in w.items()}
+        worst = max((a - b).abs().max().item() for a, b in zip(got, want))
+        expect = {key: 0 for key in counts if not key.startswith("gemm:")}
+        expect["lstm_fwd"] = 5 * m * len(batches)
+        phase("pp-serve", f"apply_pipelined pp={k} m={m} vs apply over "
+              f"phase 5's corpus ({len(batches)} fractions): max |p_pp - p|"
+              f" = {worst:.3e} (tol {STREAM_TOL:.0e}); launches "
+              + ", ".join(f"{key} {v}" for key, v in counts.items() if v))
+        check_counts(counts, expect)
+        if not worst <= STREAM_TOL:
+            raise AssertionError(f"apply_pipelined differs: {worst}")
+        out[(k, m)] = 5 * m
+    return out
+
+
+def tp_trainer(torch, dtype, n, recipe=None, mesh=None):
+    """The recipe step's Trainer (TIMIT, or a CHiME recipe) with its LSTM
+    layers sharded over a model mesh of n (default cuda:0 n times);
+    n = 1: no mesh."""
+    kw = {}
+    if n > 1:
+        kw["model_mesh"] = mesh or [torch.device("cuda", 0)] * n
+    if recipe:
+        return chime_trainer(recipe, dtype, **kw)
+    return make_trainer("auto", dtype, **kw)
+
+
+def chime_ae_batch(torch, T=T_TRAIN, seed=43):
+    """A CHiME autoencoding fraction: 50 rows of N(0, 1) features, ragged
+    lengths T/2..T, regression targets a clean version of the input."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(T, B, CHIME_IN).astype(np.float32)
+    lengths = rng.randint(T // 2, T + 1, B)
+    lengths[0] = T
+    pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
+    y = (0.5 * x + 0.1 * rng.randn(T, B, CHIME_IN)).astype(np.float32)
+    y[pt == 0] = 0
+    return tuple(torch.from_numpy(a).cuda() for a in (x, y, pt))
+
+
+def tp_steps(torch, card, mesh_of=None,
+             cases=((None, TP_TIMIT), ("autoencoding", TP_CHIME)),
+             bf16=True):
+    """Phase 43a-c: tensor parallelism. The TIMIT step at model_devices 5
+    (K3 in its tail) and the CHiME autoencoding step (39 -> BLSTM 156 /
+    256 / 156 -> 39, sse) at 2, each against the one-GPU kernel step from
+    the same weights (f32, TP_STEP_TOL), with the exact launches (TIMIT:
+    one K3f and one K3b, no K0-K2; CHiME: none), the TP step's wall
+    against one GPU's, and a profile of a TP step on a cut fraction (T =
+    10: a TP step issues some two thousand host operations a layer and
+    time step, too many for a trace of the full one): its busy share;
+    under bf16 the TIMIT TP stack's hidden output against the one-GPU
+    f32 kernel stack (tp_bf16). mesh_of(k): the model mesh (default:
+    cuda:0 k times)."""
+    from torch.profiler import ProfilerActivity, profile
+    mesh_of = mesh_of or (lambda k: [torch.device("cuda", 0)] * k)
+    res = {}
+    for recipe, n in cases:
+        name = "TIMIT" if recipe is None else "CHiME autoencoding"
+        batch = (recipe_batch(torch, seed=43)[0] if recipe is None
+                 else chime_ae_batch(torch))
+        one = tp_trainer(torch, "float32", 1, recipe)
+        err, corr, g = one.grad_fraction(*batch)
+        ref = (err.item(), int(corr), g)
+        tr = tp_trainer(torch, "float32", n, recipe, mesh_of(n))
+        expect = {k: 0 for k in wrappers() if not k.startswith("gemm:")}
+        if recipe is None:
+            expect.update(softmax_ce_proj_fwd=1, softmax_ce_proj_bwd=1)
+        mesh = mesh_name(mesh_of(n)).replace("blocks", "shards")
+        sync_all(torch)
+        t0 = time.perf_counter()
+        _, _, counts = _step_check(
+            torch, tr, batch, ref, ("tp-step", f"{name} f32 model_devices="
+                                    f"{n} on {mesh}"), expect, False,
+            TP_STEP_TOL)
+        tp_s = time.perf_counter() - t0
+        ms1 = step_ms(torch, one, batch, reps=3)
+        phase("tp-rate", f"{name} step f32 (T={batch[0].shape[0]}, B={B}): "
+              f"TP on {mesh} {tp_s:.2f} s (forward and backward, "
+              f"synchronised), one GPU {ms1:.2f} ms a step, on {card}")
+        cut = tuple(a[:10] for a in batch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync_all(torch)
+            t0 = time.perf_counter()
+            tr.train_step(*cut)
+            sync_all(torch)
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        report_profile(prof, wall_us, f"one TP {name} step on {mesh}, a "
+                       f"fraction cut to T=10, f32")
+        res[name] = (tp_s, ms1, counts)
+        del tr, one
+    if bf16:
+        tp_bf16(torch, mesh_of(TP_TIMIT))
+    return res
+
+
+def tp_bf16(torch, mesh):
+    """Phase 43b: under --compute_dtype bfloat16 the TP layers compute in
+    f32 (the JAX package's TP takes no compute dtype): the TIMIT stack's
+    hidden output (the five BLSTMs) on the model mesh against the one-GPU
+    f32 kernel stack, and the one-GPU bf16 kernel stack as the control."""
+    from lstm_rnn_tpu_torch.models.flagship import build_timit_network
+    (x, _, pt), _ = recipe_batch(torch, seed=44)
+    outs = {}
+    with torch.inference_mode():
+        for label, dtype, tp in (("TP bf16", "bfloat16", True),
+                                 ("one GPU f32", "float32", False),
+                                 ("one GPU bf16", "bfloat16", False)):
+            net = build_timit_network(seed=3, compute_dtype=dtype)
+            net.model_mesh = mesh if tp else None
+            outs[label] = net.apply_layer_range(net.device_params("cuda"),
+                                                x, pt, 0, 5).float()
+    rel = rel_err(outs["TP bf16"], outs["one GPU f32"])[0]
+    ctl = rel_err(outs["one GPU bf16"], outs["one GPU f32"])[0]
+    phase("tp-bf16", f"TIMIT stack's hidden output, bf16 mode, TP on "
+          f"{len(mesh)} shards vs the one-GPU f32 kernels: rel {rel:.2e} "
+          f"(tol {TP_BF16_REL:.0e}); control (the one-GPU bf16 kernels): "
+          f"{ctl:.2e}")
+    if not (rel <= TP_BF16_REL and ctl > TP_BF16_REL):
+        raise AssertionError("TP under bf16 does not compute in f32")
+
+
+def _errors_close(a, b):
+    """Two epoch tables' training and validation columns (classification
+    or regression), number by number: relative DP_CLI_TOL plus half a unit
+    of the printed digit."""
+    import re
+
+    def numbers(rows):
+        return [re.findall(r"-?\d+\.\d+", c)
+                for r in rows for c in r.split("|")[2:4]]
+    na, nb = numbers(a), numbers(b)
+    return len(na) == len(nb) > 0 and all(
+        len(x) == len(y) and all(
+            abs(float(u) - float(v)) <= DP_CLI_TOL * abs(float(v))
+            + 0.5 * 10.0 ** -len(v.split(".")[1]) for u, v in zip(x, y))
+        for x, y in zip(na, nb))
+
+
+def pp_tp_cli(torch, workdir, n):
+    """Phase 44 (distinct GPUs): the CLI's --num_devices 2
+    --pipeline_devices 2 in train (phase 7's corpus, 2 epochs) and forward
+    mode (phase 5's corpus) against one GPU; --num_devices 2
+    --model_devices 2 in train mode on CHiME autoencoding (1 epoch)
+    against one GPU; with 4 GPUs DP x PP (--num_devices 4
+    --pipeline_devices 2) and DP x TP (--num_devices 4 --model_devices 2)
+    the same way; then the pipelined step's ms and each GPU's peak memory
+    on distinct GPUs, and the TP CHiME step's."""
+    paths, net_path = write_train_corpus(workdir)
+    train = ["--network", net_path, "--train", "true", "--train_file",
+             paths["train"][0], "--val_file", paths["val"][0],
+             "--truncate_seq", "500", "--parallel_sequences", "50",
+             "--stochastic", "true", "--shuffle_fractions", "true",
+             "--learning_rate", "1e-4", "--momentum", "0.9", "--max_epochs",
+             "2", "--random_seed", str(SEED)]
+    cpaths = write_chime_corpus(workdir)
+    ae = CHIME["autoencoding"]
+    chime = [os.path.join(ae, "config.cfg"), "--network",
+             os.path.join(ae, "network.jsn"), "--train_file",
+             cpaths[("autoencoding", "train")][0], "--val_file",
+             cpaths[("autoencoding", "val")][0], "--max_epochs", "1",
+             "--random_seed", str(SEED), "--input_noise_sigma", "0"]
+    runs = [("pp", train, ["--num_devices", "2", "--pipeline_devices",
+                           "2"], "Pipeline mesh: {'pipe': 2}"),
+            ("tp", chime, ["--num_devices", "2", "--model_devices", "2"],
+             "DP x TP mesh: {'data': 1, 'model': 2}")]
+    if n >= 4:
+        runs += [("dp_pp", train, ["--num_devices", "4",
+                                   "--pipeline_devices", "2"],
+                  "DP x PP mesh: {'data': 2, 'pipe': 2}"),
+                 ("dp_tp", chime, ["--num_devices", "4", "--model_devices",
+                                   "2"],
+                  "DP x TP mesh: {'data': 2, 'model': 2}")]
+    base = {}
+    for label, args, flags, banner in runs:
+        key = "chime" if args is chime else "timit"
+        if key not in base:
+            d = os.path.join(workdir, f"pptp_{key}_one")
+            base[key] = (d, finish(cli_process(args, d), f"{key} one GPU"))
+        d = os.path.join(workdir, f"pptp_{label}")
+        t0 = time.perf_counter()
+        out = finish(cli_process(args + flags, d), f"cli {label}")
+        wall = time.perf_counter() - t0
+        rel = _flat_rel(_weights(os.path.join(d, "trained_network.jsn")),
+                        _weights(os.path.join(base[key][0],
+                                              "trained_network.jsn")))
+        close = _errors_close(_table_rows(out), _table_rows(base[key][1]))
+        phase("pptp-cli", f"train {' '.join(flags)} ({wall:.1f} s wall) vs "
+              f"one GPU: banner {banner in out}; weights rel {rel:.2e} "
+              f"(tol {DP_CLI_TOL:.0e}); epoch errors to the table's digits:"
+              f" {close}")
+        for ln in _table_rows(out):
+            phase("pptp-cli", f"{label} |{ln}")
+        if not (banner in out and rel <= DP_CLI_TOL and close):
+            raise AssertionError(f"cli {label} differs from one GPU")
+    nc, net_path, tags, lengths = write_inputs(workdir)
+    outs = {}
+    for label, flags in (("one", []), ("pp", ["--num_devices", "2",
+                                               "--pipeline_devices", "2"]),
+                         *((("dp_pp", ["--num_devices", "4",
+                                       "--pipeline_devices", "2"]),)
+                           if n >= 4 else ())):
+        d = os.path.join(workdir, f"pptp_ff_{label}")
+        finish(cli_process(["--network", net_path, "--train", "false",
+                            "--ff_input_file", nc, "--parallel_sequences",
+                            "50", "--ff_output_format", "htk",
+                            "--ff_output_file", d, *flags],
+                           d + "_cwd"), f"forward {label}")
+        outs[label], _ = read_outputs(d, tags, lengths)
+        if label != "one":
+            diff = max(float(np.abs(a - b).max())
+                       for a, b in zip(outs[label], outs["one"]))
+            phase("pptp-cli", f"forward {' '.join(flags)} vs one GPU: max "
+                  f"|p - p_1| = {diff:.3e} (tol {STREAM_TOL:.0e})")
+            if not diff <= STREAM_TOL:
+                raise AssertionError(f"forward {label} differs: {diff}")
+
+
+def pp_tp_refused_on_one_gpu(torch, workdir):
+    """Phase 44 on one GPU: the CLI's --num_devices 2 --pipeline_devices 2
+    and --num_devices 2 --model_devices 2 refused with the JAX CLI's
+    message before any work."""
+    import contextlib
+    import io
+    from lstm_rnn_tpu_torch import cli
+    nc, net_path, _, _ = write_inputs(workdir)
+    for flags, mode in ((["--pipeline_devices", "2"], "false"),
+                        (["--model_devices", "2"], "true")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--network", net_path, "--train", mode,
+                           "--train_file", nc, "--ff_input_file", nc,
+                           "--ff_output_file", os.path.join(workdir, "x"),
+                           "--num_devices", "2", *flags])
+        text = buf.getvalue()
+        want = "num_devices=2 but only 1 devices available"
+        if rc == 0 or want not in text or "Computing" in text:
+            raise AssertionError(f"{flags} ran on one GPU (rc {rc})")
+        phase("pptp-cli", f"--num_devices 2 {' '.join(flags)} on one GPU: "
+              f"refused (rc {rc}): {text.strip().splitlines()[-1][:100]}")
+    phase("pptp-cli", "phase 44 (PP and TP on distinct GPUs: the CLI's "
+          "--pipeline_devices 2 and --model_devices 2, DP x PP and DP x TP)"
+          " was not run: torch sees one GPU")
+
+
+def pp_tp_distinct(torch, card, n):
+    """Phase 44d: on distinct GPUs (stage or shard j on cuda:j), the
+    pipelined TIMIT steps that fit the GPUs (2 stages, and 4 with 4 GPUs)
+    and the LVCSR one against one GPU, their ms and each GPU's peak
+    memory; the TP CHiME autoencoding step over 2 GPUs (and TIMIT's over
+    5 with 5) against one GPU, with its time."""
+    def gpus(k):
+        return [torch.device("cuda", j) for j in range(k)]
+    configs = tuple(c for c in PP_CONFIGS if c[0] <= n)
+    pp_steps(torch, card, mesh_of=gpus, configs=configs)
+    pp_rates(torch, card, mesh_of=gpus, configs=configs)
+    tp_steps(torch, card, mesh_of=gpus,
+             cases=(("autoencoding", TP_CHIME),
+                    *(((None, TP_TIMIT),) if n >= TP_TIMIT else ())),
+             bf16=False)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6329,6 +6831,18 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         tools_chain(torch, workdir)
         recipes_on_card(workdir)
+    pp_launches = pp_steps(torch, card)
+    pp_rates(torch, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        pp_serve = pp_serving(torch, workdir)
+    tp_res = tp_steps(torch, card)
+    n_gpus = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        if n_gpus >= 2:
+            pp_tp_cli(torch, workdir, n_gpus)
+            pp_tp_distinct(torch, card, n_gpus)
+        else:
+            pp_tp_refused_on_one_gpu(torch, workdir)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -6471,6 +6985,30 @@ def main():
                     "max_abs_err_bf16": r16["err"], "ms_bf16": r16["ms"],
                     "plain_ms_bf16": r16["plain_ms"],
                     "bound_ms_bf16": bound(*r16["cost"], "bfloat16")[0]}
+    # pipeline parallelism (phase 42): the launches of one pipelined step
+    # of each configuration (its microbatches are phase 33a's rank shapes:
+    # B = 25 at m = 2, 13 at m = 4) and of one served fraction; tensor
+    # parallelism (phase 43): the TP steps' tail launches
+    for row in kernels:
+        pp = {f"{name} {dtype} pp={k} m={m}": counts[row["name"]]
+              for (name, dtype, k, m), counts in pp_launches.items()
+              if counts[row["name"]]}
+        if pp:
+            row["pp_launches_per_step"] = pp
+            row["pp_microbatch_shapes"] = "per_rank (B = 25 at m = 2, 13 " \
+                "at m = 4)"
+        if row["name"] == "lstm_fwd":
+            row["pp_launches_per_served_fraction"] = {
+                f"pp={k} m={m}": n for (k, m), n in pp_serve.items()}
+        tp = {f"{name} model_devices="
+              f"{TP_TIMIT if name == 'TIMIT' else TP_CHIME}":
+              counts[row["name"]] for name, (_, _, counts) in tp_res.items()
+              if counts[row["name"]]}
+        if tp:
+            row["tp_launches_per_step"] = tp
+    for (name, dtype, k, m), counts in pp_launches.items():
+        gemm_paths[f"PP {name} {dtype} step pp={k} m={m}"] = gemm_total(
+            counts)
     gemm_paths["DP x SP training (a rank, 2 epochs)"] = gemm_total(
         dpsp_epochs)
     gemm_paths["DP streaming (a rank, one fraction)"] = gemm_total(

@@ -52,9 +52,22 @@ seq mesh (`Trainer(seq_mesh=, data_group=)`, `apply_seq`). With
 `--stream_chunk` in forward mode, `--num_devices k` streams: every
 fraction's B padded to parallel_sequences rounded up to a multiple of k,
 each rank streaming its block chunk by chunk from its own carried state.
-Multi-host serving is plain data-parallel serving only: sequence-parallel
-and streaming serving over several hosts are refused with the JAX CLI's
-message.
+Multi-host serving is plain data-parallel serving only: sequence-parallel,
+pipelined and streaming serving over several hosts are refused with the
+JAX CLI's message.
+
+`--pipeline_devices k` (both modes) splits the hidden layers into k
+stages on the first k GPUs (the CPU k times with `--device cpu`) and runs
+GPipe's schedule over `--pipeline_microbatches` microbatches
+(parallel/pipeline.py): training through `Trainer(pipe_mesh=)`, serving
+through `apply_pipelined`; `--num_devices n` above k composes it with
+data parallelism (DP x PP), a worker per pipe mesh. `--model_devices k`
+(train mode, `--num_devices n` > 1, k dividing n) shards every LSTM
+layer's cells over k GPUs (parallel/tensor.py, `Trainer(model_mesh=)`),
+one process for n == k, a worker per model mesh above (DP x TP); 0 picks
+the count as the JAX CLI's heuristic does (`_auto_model_devices`). The
+banners are the JAX CLI's ("Pipeline mesh", "DP x PP mesh", "DP x TP
+mesh"); forward mode ignores --model_devices, as the JAX CLI does.
 
 The JAX package's dispatch flags: in train mode `--device_cache true`
 goes to the Trainer's data feed (trainer.py; the epoch row then ends with
@@ -96,6 +109,7 @@ from lstm_rnn_tpu_torch.ops import _build, gemm
 from lstm_rnn_tpu_torch.parallel import launch
 from lstm_rnn_tpu_torch.parallel.data import gather_blocks, pad_batch
 from lstm_rnn_tpu_torch.parallel.mesh import make_seq_mesh
+from lstm_rnn_tpu_torch.parallel.pipeline import apply_pipelined, stage_ranges
 from lstm_rnn_tpu_torch.parallel.sequence import apply_seq
 from lstm_rnn_tpu_torch.trainer import Trainer
 from lstm_rnn_tpu_torch.utils.device import describe, select_device
@@ -162,9 +176,9 @@ def _print_layers(net: Network):
 
 def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
     """Forward-pass mode on `device`; under a data group (DP serving, the
-    JAX CLI's cli.py:712-750; DP x SP serving, :604-618; DP streaming,
-    :619-711) each rank computes its block of every fraction and rank 0
-    gathers the blocks and writes the files."""
+    JAX CLI's cli.py:712-750; DP x SP serving, :604-618; DP x PP serving,
+    :587-603; DP streaming, :619-711) each rank computes its block of
+    every fraction and rank 0 gathers the blocks and writes the files."""
     _use_build_dir(cfg)
     print(f"Reading network from '{cfg.network}'... ", end="")
     net_doc = ioc.load_network_json(cfg.network)
@@ -182,11 +196,12 @@ def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
         net.init_stream_state(1, device)  # refuses a bidirectional net
         print(f"Streaming forward: {chunk}-frame chunks, carried LSTM "
               "state")
-    seq_mesh = _seq_mesh(cfg, device, group)
-    if seq_mesh is not None:
-        device = seq_mesh[0]
+    axis, mesh = _mesh(cfg, device, group)
+    if mesh is not None:
+        device = mesh[0]
         if group is None:
-            print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}}")
+            name = "Sequence-parallel" if axis == "seq" else "Pipeline"
+            print(f"{name} mesh: {{'{axis}': {len(mesh)}}}")
     if group is not None:
         print(group.mesh_line("streaming mesh" if chunk > 0
                               else "serving mesh"))
@@ -213,12 +228,16 @@ def forward_mode(cfg: Config, device: torch.device, group=None) -> int:
         with torch.inference_mode():
             if group is not None:
                 y = _apply_block(net, params, frac, group, chunk,
-                                 _stream_width(cfg, group))
+                                 _stream_width(cfg, group),
+                                 cfg.pipeline_microbatches)
             else:
                 x = torch.from_numpy(frac.inputs).to(device)
                 pt = torch.from_numpy(frac.pattypes).to(device)
-                if seq_mesh is not None:
-                    y = apply_seq(net, params, x, pt, seq_mesh)
+                if axis == "seq":
+                    y = apply_seq(net, params, x, pt, mesh)
+                elif axis == "pipe":
+                    y = apply_pipelined(net, params, x, pt, mesh,
+                                        cfg.pipeline_microbatches)
                 elif chunk > 0:
                     y = _apply_streamed(net, params, x, pt, chunk)
                 else:
@@ -245,11 +264,12 @@ def _write_outputs(cfg: Config, tags, outs, means, stdevs, append: bool):
 
 
 def _apply_block(net: Network, params, frac, group, chunk: int = 0,
-                 width: int = 1):
+                 width: int = 1, microbatches: int = 0):
     """DP serving of one fraction: B padded with PATTYPE_NONE rows to
     `width` (streaming) and to a multiple of the world size, this rank's
     block through the net (apply_seq on the rank's seq mesh under DP x
-    SP; chunk by chunk from a fresh state on the rank's device with
+    SP; apply_pipelined over `microbatches` on its pipe mesh under DP x
+    PP; chunk by chunk from a fresh state on the rank's device with
     `chunk`), the blocks gathered on rank 0 ([T, B, S] with the padding
     dropped; None on the other ranks)."""
     b = frac.pattypes.shape[1]
@@ -259,6 +279,9 @@ def _apply_block(net: Network, params, frac, group, chunk: int = 0,
     pt = torch.from_numpy(pt).to(group.device)
     if group.seq_mesh is not None:
         y = apply_seq(net, params, x, pt, list(group.seq_mesh))
+    elif group.pipe_mesh is not None:
+        y = apply_pipelined(net, params, x, pt, list(group.pipe_mesh),
+                            microbatches)
     elif chunk > 0:
         y = _apply_streamed(net, params, x, pt, chunk)
     else:
@@ -278,24 +301,93 @@ def _stream_width(cfg: Config, group) -> int:
     return width + -width % group.size
 
 
-def _seq_mesh(cfg: Config, device: torch.device, group=None):
-    """The seq mesh of --seq_devices N > 1 (None without): a DP x SP
-    rank's own (its group's); else on `device`'s type the first N GPUs,
-    or the CPU N times."""
+def _mesh(cfg: Config, device: torch.device, group=None):
+    """(axis, mesh) of the run: a composed rank's own seq, pipe or model
+    mesh (its group's); else, for --seq_devices, --pipeline_devices or (in
+    train mode) --model_devices k > 1, on `device`'s type the first k
+    GPUs or the CPU k times; (None, None) without."""
     if group is not None:
-        return None if group.seq_mesh is None else list(group.seq_mesh)
-    if cfg.seq_devices <= 1:
-        return None
-    return make_seq_mesh(cfg.seq_devices, device.type)
+        for axis in ("seq", "pipe", "model"):
+            mesh = getattr(group, f"{axis}_mesh")
+            if mesh is not None:
+                return axis, list(mesh)
+        return None, None
+    axis, k = launch.mesh_axis(cfg)
+    if axis is None:
+        return None, None
+    return axis, make_seq_mesh(k, device.type)
+
+
+def _check_stages(cfg: Config) -> None:
+    """Refuse, before any worker starts and any fraction is computed, a
+    pipeline of more stages than the net has hidden layers, in the JAX
+    words (lstm_rnn_tpu/parallel/pipeline.py:49-56)."""
+    if cfg.pipeline_devices > 1:
+        layers = ioc.load_network_json(cfg.continue_file or cfg.network)[
+            "layers"]
+        stage_ranges(len(layers) - 2, cfg.pipeline_devices)
+
+
+def _auto_model_devices(net: Network, parallel_sequences: int,
+                        n_devices: int, device_type: str = "cuda") -> int:
+    """--model_devices 0: the smallest tensor-parallel shard count (a
+    divisor of the device count dividing every LSTM layer's cells) that
+    brings each layer's cells per direction back inside the recurrence
+    kernels' reach (ops/lstm_cell.py `recurrence_fits`, in training), the
+    JAX CLI's heuristic (lstm_rnn_tpu/cli.py:228-275) with the port's
+    bound in place of its VMEM one. 1 when nothing is too wide, when no
+    valid count fits a layer (its scan route then runs on one device), on
+    the CPU (as the JAX CLI off a TPU) and on the scan backend.
+    parallel_sequences is the JAX signature's: the port's bound does not
+    depend on it."""
+    if n_devices <= 1 or device_type != "cuda" or net.backend == "scan":
+        return 1
+    from lstm_rnn_tpu_torch.ops.lstm_cell import recurrence_fits
+    widths = [s.size // (2 if ioc.LSTM_TYPES[s.type] else 1)
+              for s in net.specs[1:-1] if s.type in ioc.LSTM_TYPES]
+    if not widths:
+        return 1
+    valid = [k for k in range(1, n_devices + 1)
+             if n_devices % k == 0 and all(h % k == 0 for h in widths)]
+    need = 1
+    for h in widths:
+        m = next((k for k in valid
+                  if recurrence_fits(-(-h // k), net.compute_dtype, True)),
+                 None)
+        if m is None:
+            return 1
+        need = max(need, m)
+    return need
+
+
+def _resolve_model_devices(cfg: Config, device: torch.device) -> None:
+    """Train mode's --model_devices 0, resolved before the run's workers
+    start (an explicit pipeline or sequence request wins, as in the JAX
+    CLI), with the JAX CLI's line when tensor parallelism engages."""
+    if not cfg.train or cfg.model_devices != 0:
+        return
+    m = 1
+    if cfg.pipeline_devices <= 1 and cfg.seq_devices <= 1:
+        n = (cfg.num_devices if cfg.num_devices > 0 else
+             (torch.cuda.device_count() if device.type == "cuda" else 1))
+        doc = ioc.load_network_json(cfg.continue_file or cfg.network)
+        net = Network(doc["layers"], backend=cfg.lstm_backend,
+                      compute_dtype=cfg.compute_dtype)
+        m = _auto_model_devices(net, cfg.parallel_sequences, n, device.type)
+    cfg.args.model_devices = m
+    if m > 1:
+        print(f"Tensor parallelism auto-engaged: model_devices={m} (an "
+              "LSTM layer is wider than the recurrence kernels take)")
 
 
 def _check_servable(cfg: Config) -> None:
     """Refuse, before any worker starts, what forward mode cannot serve:
-    sequence-parallel or streaming serving over several hosts, in the JAX
-    CLI's words (lstm_rnn_tpu/cli.py:538-546), and, for a run of several
-    workers, --stream_chunk on a bidirectional net (the check
+    sequence-parallel, pipelined or streaming serving over several hosts,
+    in the JAX CLI's words (lstm_rnn_tpu/cli.py:538-546), and, for a run
+    of several workers, --stream_chunk on a bidirectional net (the check
     init_stream_state makes in a one-process run)."""
     if cfg.num_processes > 1 and (cfg.seq_devices > 1
+                                  or cfg.pipeline_devices > 1
                                   or cfg.stream_chunk > 0):
         raise RuntimeError(
             "pipeline/seq/streaming serving is single-host; multi-host "
@@ -441,14 +533,20 @@ def _train(cfg: Config, device: torch.device, group) -> int:
     if cfg.optimizer != "steepest_descent":
         raise RuntimeError("Unknown optimizer type")
 
-    seq_mesh = _seq_mesh(cfg, device, group)
-    if seq_mesh is not None:
-        device = seq_mesh[0]
-        if group is None:
-            print(f"Sequence-parallel mesh: {{'seq': {len(seq_mesh)}}} "
-                  "(time axis sharded)")
+    axis, mesh = _mesh(cfg, device, group)
+    if mesh is not None:
+        device = mesh[0]
     if group is not None:
         print(group.mesh_line())
+    elif axis == "seq":
+        print(f"Sequence-parallel mesh: {{'seq': {len(mesh)}}} "
+              "(time axis sharded)")
+    elif axis == "pipe":
+        print(f"Pipeline mesh: {{'pipe': {len(mesh)}}} "
+              f"({len(net.specs) - 2} hidden layers over {len(mesh)} "
+              "stages)")
+    elif axis == "model":
+        print(f"DP x TP mesh: {{'data': 1, 'model': {len(mesh)}}}")
     writes = group is None or group.is_coordinator
     max_epochs = cfg.max_epochs if cfg.max_epochs != 2**32 - 1 else -1
     trainer = Trainer(
@@ -458,7 +556,9 @@ def _train(cfg: Config, device: torch.device, group) -> int:
         validate_every=cfg.validate_every, test_every=cfg.test_every,
         hybrid_online_batch=cfg.hybrid_online_batch,
         weight_noise_sigma=cfg.weight_noise_sigma, seed=cfg.random_seed,
-        device=device, seq_mesh=seq_mesh, data_group=group,
+        device=device, data_group=group,
+        **({f"{axis}_mesh": mesh} if mesh is not None else {}),
+        pipeline_microbatches=cfg.pipeline_microbatches,
         device_cache=cfg.device_cache)
 
     info_rows = ""
@@ -609,6 +709,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         if not cfg.train:
             _check_servable(cfg)
+        _check_stages(cfg)
+        _resolve_model_devices(cfg, device)
         return launch.run(cfg, device,
                           train_mode if cfg.train else forward_mode)
     except Exception as e:

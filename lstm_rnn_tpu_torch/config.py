@@ -27,15 +27,26 @@ Port-specific:
                  bf16 passes on the tensor cores (ops/gemm.py
                  F32_MATMUL_3X); nothing in bfloat16 mode or on the scan
                  route
+  --pipeline_devices k > 1 (both modes): pipeline parallelism over k
+                 stages (parallel/pipeline.py), --pipeline_microbatches
+                 its microbatches; composed with --num_devices n as DP x
+                 PP like --seq_devices
+  --model_devices k > 1 (train mode): tensor parallelism, every LSTM
+                 layer's cells over k devices (parallel/tensor.py);
+                 needs --num_devices n > 1, DP x TP when n > k; 0 is the
+                 JAX heuristic (cli.py `_auto_model_devices`: 1 on the
+                 CPU); forward mode ignores it, as the JAX CLI does
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
-never silently ignored: --model_devices and --pipeline_devices above 1
-(and, in parallel/launch.py, a seq group that would span hosts).
---model_devices 0 and
---pipeline_devices 0 resolve to no parallelism, as the JAX CLI resolves
-them off a TPU. --seq_devices with --stream_chunk, --model_devices or
---pipeline_devices, and a --seq_devices that does not divide
---num_devices, are refused with the JAX CLI's messages (multi-host
-sequence-parallel or streaming serving too, in cli.py).
+never silently ignored: --device tpu (and, in parallel/launch.py, a seq,
+pipe or model group that would span hosts). --pipeline_devices 0
+resolves to no parallelism, as the JAX CLI resolves it. The combinations
+the JAX CLI refuses are refused in its words: --seq_devices with
+--stream_chunk, --model_devices or --pipeline_devices; --pipeline_devices
+with --model_devices (train mode) or --stream_chunk (forward mode);
+--model_devices above 1 on one device; a --seq_devices,
+--pipeline_devices or --model_devices that does not divide --num_devices
+(multi-host sequence-parallel, pipelined or streaming serving too, and a
+stage count above the hidden layers', in cli.py).
 """
 
 from __future__ import annotations
@@ -166,14 +177,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel devices (GPUs, one worker process "
                         "each), 0 = all; on the CPU, CPU workers")
     g.add_argument("--model_devices", type=int, default=1,
-                   help="tensor-parallel shard count, 0 = auto (1 off a "
-                        "TPU; only 1 is ported)")
+                   help="tensor-parallel shard count for LSTM cells (train "
+                        "mode; must divide num_devices, DP x TP when "
+                        "num_devices exceeds it); 0 = auto (1 on the CPU)")
     g.add_argument("--pipeline_devices", type=int, default=1,
-                   help="pipeline-parallel stage count (counts above 1 are "
-                        "not ported)")
+                   help="pipeline-parallel stage count: the hidden layers "
+                        "in N contiguous stages, one a device, over "
+                        "microbatches of the fraction's batch (GPipe)")
     g.add_argument("--pipeline_microbatches", type=int, default=0,
-                   help="microbatches per pipeline data shard (pipeline "
-                        "parallelism is not ported yet)")
+                   help="microbatches per pipeline data shard (0 = stage "
+                        "count)")
     g.add_argument("--stream_chunk", type=int, default=0,
                    help="forward mode: stream each fraction through a "
                         "unidirectional net in N-frame chunks with carried "
@@ -388,14 +401,11 @@ def _visible_devices(ns: argparse.Namespace) -> int:
 
 def _check_supported(ns: argparse.Namespace) -> None:
     """Refuse the flags whose features the port does not have yet, and
-    the combinations the JAX CLI refuses (lstm_rnn_tpu/cli.py:341-355,
-    :577-586; parallel/mesh.py:87-90). Device counts resolve as the JAX
-    CLI resolves them on a host without a TPU: --seq_devices and
-    --pipeline_devices count only above 1, --model_devices 0 is the TP
-    heuristic (1 off a TPU), and --num_devices 0 is every device
-    available. Data parallelism (--num_devices k, the multi-host flags),
-    alone, composed with --seq_devices or with --stream_chunk serving, is
-    ported."""
+    the combinations the JAX CLI refuses (lstm_rnn_tpu/cli.py:336-358,
+    :577-586; parallel/mesh.py:58-93). Device counts resolve as the JAX
+    CLI resolves them: --seq_devices and --pipeline_devices count only
+    above 1, --model_devices 0 is the TP heuristic (resolved in cli.py),
+    and --num_devices 0 is every device available."""
     multihost = bool(ns.coordinator_address)
     if multihost and not (ns.num_processes >= 1
                           and 0 <= ns.process_id < ns.num_processes):
@@ -407,25 +417,29 @@ def _check_supported(ns: argparse.Namespace) -> None:
         raise ValueError("--num_processes/--process_id need "
                          "--coordinator_address")
     sp = max(1, ns.seq_devices)
-    if sp > 1 and (ns.model_devices > 1 or ns.pipeline_devices > 1):
+    pp = max(1, ns.pipeline_devices)
+    # forward mode never reads --model_devices (lstm_rnn_tpu/cli.py:536+)
+    tp = ns.model_devices if ns.train else 1
+    if sp > 1 and (ns.model_devices > 1 or pp > 1):
         raise ValueError("seq_devices > 1 does not combine with "
                          "model_devices or pipeline_devices")
-    if sp > 1 and ns.stream_chunk > 0:
+    if ns.train and pp > 1 and tp > 1:
+        raise ValueError("pipeline_devices > 1 does not combine with "
+                         "model_devices")
+    if (sp > 1 or (pp > 1 and not ns.train)) and ns.stream_chunk > 0:
         raise ValueError("stream_chunk does not combine with "
                          "pipeline_devices or seq_devices")
-    unsupported = [
-        (f"--{k} {getattr(ns, k)}", "parallelism")
-        for k in ("model_devices", "pipeline_devices")
-        if getattr(ns, k) > 1]
     n = ns.num_devices if ns.num_devices > 0 else _visible_devices(ns)
-    if sp > 1 and not multihost and n > 1 and n != sp and n % sp:
-        # the JAX package's composed_mesh (parallel/mesh.py:87-90); a
-        # multi-host run counts each host's devices (parallel/launch.py)
-        raise ValueError(f"seq_devices={sp} must divide num_devices={n}")
+    if tp > 1 and n <= 1 and not multihost:
+        raise ValueError("model_devices > 1 requires num_devices > 1")
+    # the JAX package's composed_mesh and make_mesh_2d (parallel/mesh.py:
+    # 58-93); a multi-host run counts each host's devices
+    # (parallel/launch.py)
+    for flag, k in (("seq_devices", sp), ("pipeline_devices", pp),
+                    ("model_devices", tp)):
+        if k > 1 and not multihost and n > 1 and n != k and n % k:
+            raise ValueError(f"{flag}={k} must divide num_devices={n}")
     if ns.device == "tpu":
-        unsupported.append(("--device tpu", "the JAX package (lstm_rnn_tpu)"))
-    if unsupported:
-        flag, item = unsupported[0]
         raise ValueError(
-            f"{flag} is not supported by the PyTorch port yet; see "
-            f"ROADMAP.md ({item})")
+            "--device tpu is not supported by the PyTorch port yet; see "
+            "ROADMAP.md (the JAX package (lstm_rnn_tpu))")

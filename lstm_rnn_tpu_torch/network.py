@@ -18,8 +18,12 @@ kernel. Sequence parallelism runs the net's layers block by block
 train mode) checkpoints every LSTM layer's recurrence in K time blocks
 (models/lstm.py) and takes the plain tail (K5) in `loss_and_count_fused`.
 Data parallelism runs the net unchanged on each rank's block of a
-fraction (parallel/data.py, the Trainer's data_group). Not ported yet
-(ROADMAP.md): tensor and pipeline parallelism.
+fraction (parallel/data.py, the Trainer's data_group). Pipeline
+parallelism runs each stage's hidden layers through `apply_layer_range`,
+the last stage ending with `fused_tail` (parallel/pipeline.py). With a
+`model_mesh` of more than one device (tensor parallelism, the CLI's
+--model_devices) every LSTM layer takes parallel/tensor.py's cell-sharded
+scan, `validate_tp` checking that the mesh divides every layer's cells.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from lstm_rnn_tpu_torch.ops.softmax_ce import (_no_tf32, proj_tail_fits,
                                                softmax_ce_wide_fused,
                                                tail_smem_optin,
                                                wide_tail_fits)
+from lstm_rnn_tpu_torch.parallel.tensor import lstm_forward_tp
 from lstm_rnn_tpu_torch.utils.rng_compat import (CurrenntInitStream,
                                                  currennt_init_flat)
 
@@ -167,6 +172,10 @@ class Network:
         # --remat_blocks K (train mode): gradient checkpointing of the LSTM
         # recurrences in K time blocks, and the plain tail; 0 = off
         self.remat_blocks = 0
+        # --model_devices k (train mode): the model mesh, a list of k
+        # devices over which every LSTM layer's cells are sharded
+        # (parallel/tensor.py); None = no tensor parallelism
+        self.model_mesh = None
 
         # numpy parameters: from the JSON weights section, the rest drawn
         # on demand by init_params
@@ -278,16 +287,34 @@ class Network:
         pattypes: [T, B] int8, on the params' device.
         Returns [T, B, output_size] float32.
         """
-        return self._apply_layers(params, inputs, pattypes,
-                                  self.specs[1:-1])
+        return self.apply_layer_range(params, inputs, pattypes, 0,
+                                      len(self.specs) - 2)
+
+    def apply_layer_range(self, params, x, pattypes, lo: int, hi: int):
+        """Hidden layers [lo, hi) (0-indexed into specs[1:-1], the softmax
+        layer counted): a pipeline stage's work (parallel/pipeline.py) and
+        the whole of `apply` (lstm_rnn_tpu/network.py:243-273)."""
+        return self._apply_layers(params, x, pattypes,
+                                  self.specs[1 + lo:1 + hi])
 
     def _apply_layers(self, params, x, pattypes, specs, state=None):
         """The layers of `specs` in order. With `state` (streaming), each
         LSTM layer runs one chunk from its carried state and the new state
-        is returned beside the output."""
+        is returned beside the output. With a model mesh, consecutive LSTM
+        layers hand each other the full output already on every device of
+        the mesh (lstm_forward_tp's replicas)."""
         new_state = {}
+        replicas = None  # the previous TP layer's output on each device
         for s in specs:
             p = params[s.name]
+            tp = self._tp_size() > 1 and s.type in ioc.LSTM_TYPES
+            if tp and state is None:
+                replicas = lstm_forward_tp(
+                    p, replicas or x, pattypes, s.bias,
+                    ioc.LSTM_TYPES[s.type], self.model_mesh)
+                x = replicas[0]
+                continue
+            replicas = None
             if s.type in ioc.LSTM_TYPES and state is not None:
                 x, new_state[s.name] = lstm_forward_streaming(
                     p, x, pattypes, s.bias, state[s.name],
@@ -303,6 +330,25 @@ class Network:
                 x = feedforward_forward(p, x, ioc.FEEDFORWARD_TYPES[s.type],
                                         s.bias, self.compute_dtype)
         return x if state is None else (x, new_state)
+
+    # ----------------------------------------------- tensor parallelism
+    def _tp_size(self) -> int:
+        return len(self.model_mesh) if self.model_mesh else 1
+
+    def validate_tp(self) -> None:
+        """Every LSTM layer's cells per direction must divide over the
+        model mesh (parallel/tensor.py shards them evenly), refused in the
+        JAX package's words (lstm_rnn_tpu/network.py:280-291)."""
+        n = self._tp_size()
+        if n <= 1:
+            return
+        for s in self.specs[1:-1]:
+            if s.type in ioc.LSTM_TYPES:
+                d = 2 if ioc.LSTM_TYPES[s.type] else 1
+                if (s.size // d) % n:
+                    raise ValueError(
+                        f"model_devices={n} must divide layer '{s.name}' "
+                        f"cells per direction ({s.size // d})")
 
     # ------------------------------------------------- streaming inference
     #
@@ -359,6 +405,11 @@ class Network:
         return (self.specs[-2].type == "softmax"
                 and self.specs[-1].type == "multiclass_classification")
 
+    def takes_fused_tail(self) -> bool:
+        """The Trainer's and the pipeline's last stage's choice: the fused
+        tail on the kernel backends wherever the net ends in it."""
+        return self.backend != "scan" and self.supports_fused_tail()
+
     def loss_and_count_fused(self, params, inputs, targets, pattypes):
         """(total error, correct count) through the fused softmax + CE tail:
         the hidden layers as in `apply`, then the softmax layer's product,
@@ -381,11 +432,18 @@ class Network:
         (ops/gemm.py `use3`) K3's route takes `softmax_ce_3x_fused`: its
         products in the engine's 3x instance around K5, where K3f and K3b
         have no 3x body."""
+        x = self.apply_layer_range(params, inputs, pattypes, 0,
+                                   len(self.specs) - 3)
+        return self.fused_tail(params, x, targets)
+
+    def fused_tail(self, params, x, targets):
+        """(total error, correct count) of the fused tail alone, from the
+        softmax layer's input x [T, B, P] on its device: the route of
+        `loss_and_count_fused`, which a pipeline's last stage ends with."""
         if not self.supports_fused_tail():
             raise ValueError("the fused tail needs a softmax -> "
                              "multiclass_classification net")
         s = self.specs[-2]
-        x = self._apply_layers(params, inputs, pattypes, self.specs[1:-2])
         t, b, p_dim = x.shape
         n = t * b
         proj = proj_tail_fits(s.size, tail_smem_optin(x.device))

@@ -1,6 +1,6 @@
-"""Parallelism of the port: sequence parallelism in one process
-(`mesh.py`, `sequence.py`), data parallelism, single-host and multi-host,
-one worker process per device over torch.distributed (`data.py`,
-`launch.py`), and the two composed (DP x SP: a worker per seq mesh).
-Tensor and pipeline parallelism are still to port (ROADMAP.md, queue
-1)."""
+"""Parallelism of the port: sequence, pipeline and tensor parallelism in
+one process (`mesh.py`, `sequence.py`, `pipeline.py`, `tensor.py`), data
+parallelism, single-host and multi-host, one worker process per device
+over torch.distributed (`data.py`, `launch.py`), and data parallelism
+composed with each of the three (DP x SP, DP x PP, DP x TP: a worker per
+mesh)."""

@@ -27,7 +27,11 @@ Composed with sequence parallelism (DP x SP), a rank also holds its seq
 mesh (`DataGroup.seq_mesh`, parallel/mesh.py `composed_mesh`): its block
 of B runs through parallel/sequence.py on that mesh, whose first device is
 the rank's `device`, where its parameters live; the gradients summed into
-them over the blocks are then summed over the ranks as above.
+them over the blocks are then summed over the ranks as above. Composed
+with pipeline or tensor parallelism (DP x PP, DP x TP) the rank holds a
+pipe mesh (`pipe_mesh`: its block runs parallel/pipeline.py's stages) or a
+model mesh (`model_mesh`: its LSTM layers shard their cells,
+parallel/tensor.py) the same way.
 """
 
 from __future__ import annotations
@@ -45,14 +49,17 @@ from lstm_rnn_tpu_torch.ops.masking import PATTYPE_NONE
 class DataGroup:
     """One rank of a data-parallel run: its global rank, the world size,
     its device, the processes (hosts) of the job, the torch.distributed
-    group (None: the default group) and, under DP x SP, the rank's seq
-    mesh (a tuple of devices whose first is `device`; None without SP)."""
+    group (None: the default group) and, under DP x SP, DP x PP or DP x
+    TP, the rank's seq, pipe or model mesh (a tuple of devices whose
+    first is `device`; at most one of them, None without)."""
     rank: int
     size: int
     device: torch.device
     hosts: int = 1
     group: Any = None
     seq_mesh: Optional[tuple] = None
+    pipe_mesh: Optional[tuple] = None
+    model_mesh: Optional[tuple] = None
 
     @property
     def is_coordinator(self) -> bool:
@@ -60,11 +67,15 @@ class DataGroup:
         return self.rank == 0
 
     def mesh_line(self, what: str = "mesh") -> str:
-        """The JAX CLI's banner (lstm_rnn_tpu/cli.py:352, :378, :615, :678,
-        :727): "DP x SP mesh" with a seq mesh, whatever the mode."""
-        if self.seq_mesh is not None:
-            return (f"DP x SP mesh: {{'data': {self.size}, "
-                    f"'seq': {len(self.seq_mesh)}}}")
+        """The JAX CLI's banner (lstm_rnn_tpu/cli.py:352, :359, :369, :378,
+        :600, :615, :678, :727): "DP x SP mesh", "DP x PP mesh" or "DP x TP
+        mesh" with a rank's mesh, whatever the mode."""
+        for name, axis, mesh in (("SP", "seq", self.seq_mesh),
+                                 ("PP", "pipe", self.pipe_mesh),
+                                 ("TP", "model", self.model_mesh)):
+            if mesh is not None:
+                return (f"DP x {name} mesh: {{'data': {self.size}, "
+                        f"'{axis}': {len(mesh)}}}")
         hosts = f" over {self.hosts} hosts" if self.hosts > 1 else ""
         return f"Data-parallel {what}: {{'data': {self.size}}}{hosts}"
 

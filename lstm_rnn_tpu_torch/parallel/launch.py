@@ -17,16 +17,23 @@ several GPUs fed, so each GPU gets its own.
   driving the seq mesh cuda:j*sp .. cuda:j*sp+sp-1 (parallel/mesh.py
   `composed_mesh`), its current device and NCCL's the mesh's first; on
   the CPU, n / sp CPU workers, each with the CPU named sp times.
+- `--num_devices n --pipeline_devices k` (DP x PP, both modes) and, in
+  train mode, `--num_devices n --model_devices k` (DP x TP) start workers
+  the same way: with n 1 or k (model: n == k) the run stays one process
+  on a 1-D pipe or model mesh; otherwise k must divide n and worker j
+  drives the mesh cuda:j*k .. cuda:j*k+k-1. Forward mode ignores
+  --model_devices, as the JAX CLI's forward mode never reads it.
 - Multi-host, `--coordinator_address host:port --num_processes N
   --process_id i`: the process on each host starts one worker per local
-  GPU (one on the CPU), or with `--seq_devices sp` one per group of sp
-  local GPUs (L / sp of L; one CPU worker on the CPU), and
+  GPU (one on the CPU), or with a mesh of k (--seq_devices,
+  --pipeline_devices, --model_devices in train mode) one per group of k
+  local GPUs (L / k of L; one CPU worker on the CPU), and
   `--num_devices` is ignored, as in the JAX CLI: every process's devices
   take part. Global rank = i * local + j, world = N * local, so rank
   order is process-major: each host owns a contiguous block of B and
-  every seq group, with its carry hops, stays inside a host. A seq group
-  that would span hosts (sp not dividing L) is refused by name: one
-  process cannot drive another host's GPUs. Process 0 serves the
+  every group, with its hops, stays inside a host. A group that would
+  span hosts (k not dividing L) is refused by name: one process cannot
+  drive another host's GPUs. Process 0 serves the
   rendezvous store at the coordinator's port; every process posts its
   local worker count there, and a host whose count differs from the
   others' is refused by name before any worker starts.
@@ -43,11 +50,11 @@ several GPUs fed, so each GPU gets its own.
 `run(cfg, device, body)` is the CLI's entry: it calls `body(cfg, device)`
 in this process when the run has no worker, else `body(cfg,
 group.device, group)` in every worker (`group`: parallel/data.py's
-DataGroup, with the worker's seq mesh under DP x SP). `start(fn, devices,
-backend)` runs `fn(group, *args)` in one worker per entry of a list, a
-device or a seq mesh (a list of devices), which may name one device
-several times (chip_smoke.py runs two ranks on cuda:0 over gloo that way,
-each with a seq mesh of cuda:0 twice under DP x SP).
+DataGroup, with the worker's seq, pipe or model mesh). `start(fn,
+devices, backend, axis)` runs `fn(group, *args)` in one worker per entry
+of a list, a device or a mesh (a list of devices) of the given axis,
+which may name one device several times (chip_smoke.py runs two ranks on
+cuda:0 over gloo that way, each with a mesh of cuda:0 twice).
 """
 
 from __future__ import annotations
@@ -75,13 +82,15 @@ class Plan:
     """Where a run's workers go: a worker per entry of `devices` on each
     of `hosts` processes, this one `process_id`, the store at `addr`
     (host, port; None: a loopback store of this process). Under DP x SP,
-    `meshes[j]` is worker j's seq mesh, whose first device is
-    `devices[j]` (None: no seq mesh)."""
+    DP x PP or DP x TP, `meshes[j]` is worker j's mesh of the `axis`
+    "seq", "pipe" or "model", whose first device is `devices[j]` (None:
+    no mesh)."""
     devices: tuple
     hosts: int = 1
     process_id: int = 0
     addr: Optional[tuple] = None
     meshes: Optional[tuple] = None
+    axis: str = "seq"
 
     @property
     def world(self) -> int:
@@ -107,15 +116,33 @@ def _coordinator(address: str):
     return host.strip("[]"), int(port)
 
 
+# the rank mesh's axis -> its flag
+FLAGS = {"seq": "seq_devices", "pipe": "pipeline_devices",
+         "model": "model_devices"}
+
+
+def mesh_axis(cfg):
+    """(axis, k) of the run's mesh: --seq_devices, --pipeline_devices or,
+    in train mode, --model_devices above 1 (the config refuses two of
+    them together); (None, 1) without."""
+    for axis, k in (("seq", cfg.seq_devices),
+                    ("pipe", cfg.pipeline_devices),
+                    ("model", cfg.model_devices if cfg.train else 1)):
+        if k > 1:
+            return axis, k
+    return None, 1
+
+
 def plan(cfg, device: torch.device) -> Optional[Plan]:
     """The run's workers, or None for a run in this process (no group: one
-    device, or a 1-D seq mesh). `device` is the device the CLI selected
-    (its type picks GPUs or CPU workers)."""
+    device, or a 1-D seq, pipe or model mesh). `device` is the device the
+    CLI selected (its type picks GPUs or CPU workers)."""
     multihost = bool(cfg.coordinator_address)
-    sp = max(1, cfg.seq_devices)
+    axis, k = mesh_axis(cfg)
     if device.type == "cpu":
-        # a multi-host process is one CPU worker (the CPU sp times with SP)
-        n = sp if multihost else max(1, cfg.num_devices)
+        # a multi-host process is one CPU worker (the CPU k times with a
+        # mesh)
+        n = k if multihost else max(1, cfg.num_devices)
     else:
         n_avail = torch.cuda.device_count()
         n = n_avail if multihost or cfg.num_devices == 0 else cfg.num_devices
@@ -123,26 +150,29 @@ def plan(cfg, device: torch.device) -> Optional[Plan]:
             raise RuntimeError(
                 f"num_devices={n} but only {n_avail} devices available")
     meshes = None
-    if sp > 1:
-        if multihost and n % sp:
+    if axis is not None:
+        if multihost and n % k:
             raise ValueError(
-                f"--seq_devices {sp} over a host of {n} devices would put a "
-                "seq group across hosts, which the PyTorch port does not "
-                "support; see ROADMAP.md (parallelism, a cross-host seq "
-                "group)")
-        groups, composed = composed_mesh(n, sp, device.type)
+                f"--{FLAGS[axis]} {k} over a host of {n} devices would put "
+                f"a {axis} group across hosts, which the PyTorch port does "
+                "not support; see ROADMAP.md (parallelism, a cross-host "
+                f"{axis} group)")
+        groups, composed = composed_mesh(n, k, device.type, FLAGS[axis])
         if not (composed or multihost):
-            return None  # the 1-D seq mesh, in this process
+            return None  # the 1-D mesh, in this process
         meshes = tuple(tuple(m) for m in groups)
         devices = tuple(m[0] for m in meshes)
     elif device.type == "cpu":
         devices = (torch.device("cpu"),) * n
     else:
         devices = tuple(torch.device("cuda", j) for j in range(n))
+    axis = axis or "seq"
     if not multihost:
-        return Plan(devices, meshes=meshes) if len(devices) > 1 else None
+        return (Plan(devices, meshes=meshes, axis=axis) if len(devices) > 1
+                else None)
     return Plan(devices, hosts=cfg.num_processes, process_id=cfg.process_id,
-                addr=_coordinator(cfg.coordinator_address), meshes=meshes)
+                addr=_coordinator(cfg.coordinator_address), meshes=meshes,
+                axis=axis)
 
 
 def _timeout():
@@ -199,7 +229,7 @@ def _worker(j: int, p: Plan, addr, backend: str, fn: Callable, args):
     import torch.distributed as dist
     _die_with_parent()
     rank = p.process_id * len(p.devices) + j
-    device = p.devices[j]  # under DP x SP its seq mesh's first
+    device = p.devices[j]  # with a mesh, its first
     if rank != 0:  # rank 0 prints; the others stay silent
         sys.stdout = open(os.devnull, "w")
     if device.type == "cuda":
@@ -215,8 +245,8 @@ def _worker(j: int, p: Plan, addr, backend: str, fn: Callable, args):
                             rank=rank, world_size=p.world,
                             timeout=_timeout())
     try:
-        rc = fn(DataGroup(rank, p.world, device, hosts=p.hosts,
-                          seq_mesh=p.meshes[j] if p.meshes else None),
+        mesh = {f"{p.axis}_mesh": p.meshes[j]} if p.meshes else {}
+        rc = fn(DataGroup(rank, p.world, device, hosts=p.hosts, **mesh),
                 *args)
         if rc:
             raise RuntimeError(f"rank {rank} returned {rc}")
@@ -265,15 +295,15 @@ def launch(p: Plan, fn: Callable, args=(), backend: Optional[str] = None
 
 
 def start(fn: Callable, devices: Sequence, args=(),
-          backend: Optional[str] = None) -> None:
+          backend: Optional[str] = None, axis: str = "seq") -> None:
     """Run fn(group, *args) in len(devices) workers of one host, worker j
-    on devices[j]: a device, or a seq mesh (a list of devices, every entry
-    a list: DP x SP, worker j on its mesh's first device). A device may
-    repeat: then the backend must be gloo."""
+    on devices[j]: a device, or a mesh of `axis` "seq", "pipe" or "model"
+    (a list of devices, every entry a list: worker j on its mesh's first
+    device). A device may repeat: then the backend must be gloo."""
     if all(isinstance(d, (list, tuple)) for d in devices):
         meshes = tuple(tuple(torch.device(x) for x in m) for m in devices)
-        launch(Plan(tuple(m[0] for m in meshes), meshes=meshes), fn, args,
-               backend)
+        launch(Plan(tuple(m[0] for m in meshes), meshes=meshes, axis=axis),
+               fn, args, backend)
     else:
         launch(Plan(tuple(torch.device(d) for d in devices)), fn, args,
                backend)
@@ -285,8 +315,8 @@ def _cli_worker(group: DataGroup, body: Callable, cfg) -> int:
 
 def run(cfg, device: torch.device, body: Callable) -> int:
     """The CLI's mode `body(cfg, device[, group])`: in this process on one
-    device or a 1-D seq mesh, or data-parallel in a worker per device (or
-    seq mesh) of plan(cfg, device)."""
+    device or a 1-D mesh, or data-parallel in a worker per device (or
+    mesh) of plan(cfg, device)."""
     p = plan(cfg, device)
     if p is None:
         return body(cfg, device)

@@ -57,6 +57,16 @@ is the group's: the blocks' gradients reach the leaves there through
 autograd, on the mesh devices' streams, so the update's stream waits for
 every device of the mesh before the all-reduce packs them.
 
+With `pipe_mesh` (pipeline parallelism, parallel/pipeline.py) the loss is
+`loss_and_count_pipelined` over `pipeline_microbatches` microbatches (0:
+the stage count), its last stage ending with the fused tail where the net
+takes it; with `model_mesh` (tensor parallelism, parallel/tensor.py) the
+net's LSTM layers shard their cells over the mesh, and the fused tail
+follows on the mesh's first device. Either mesh composes with a data
+group as the seq mesh does: its first device is the group's, where the
+parameters, the gradients and the update stay, and the update's stream
+waits for every device of the mesh before the all-reduce.
+
 The optimizer state for autosaves (Optimizer.cu:326-341,
 SteepestDescentOptimizer.cu:118-123) goes out through `export_state` and
 comes back through `import_state`, in the reference's layer-array layout.
@@ -115,6 +125,8 @@ from lstm_rnn_tpu_torch.data.dataset import (DataSet, Fraction,
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
 from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
+from lstm_rnn_tpu_torch.parallel.pipeline import (loss_and_count_pipelined,
+                                                  stage_ranges)
 from lstm_rnn_tpu_torch.parallel.sequence import loss_and_count_seq
 from lstm_rnn_tpu_torch.utils.device import select_device
 
@@ -181,6 +193,8 @@ class Trainer:
                  hybrid_online_batch: bool = False,
                  weight_noise_sigma: float = 0.0, seed: int = 1,
                  device=None, seq_mesh=None, data_group=None,
+                 pipe_mesh=None, model_mesh=None,
+                 pipeline_microbatches: int = 0,
                  device_cache: Optional[bool] = None,
                  device_cache_bytes: Optional[int] = None):
         self.net = net
@@ -197,25 +211,42 @@ class Trainer:
         # the JAX Trainer's weight-noise stream (its trainer.py:89)
         self._noise_rng = np.random.RandomState(seed & 0x7FFFFFFF)
         # the card unless the caller names a device (raises without a GPU);
-        # under a seq mesh, the mesh's first device
+        # under a mesh, the mesh's first device
         self.seq_mesh = seq_mesh
+        self.pipe_mesh = pipe_mesh
+        self.model_mesh = model_mesh
+        self.pipeline_microbatches = pipeline_microbatches
         self.data_group = data_group
+        meshes = [(kind, [torch.device(d) for d in m]) for kind, m in (
+            ("seq", seq_mesh), ("pipe", pipe_mesh), ("model", model_mesh))
+            if m is not None]
+        if len(meshes) > 1:
+            raise ValueError("the Trainer takes one of seq_mesh, pipe_mesh "
+                             "and model_mesh")
+        # every device of the rank's mesh (the update waits for them all)
+        self.mesh_devices = meshes[0][1] if meshes else []
         if data_group is not None:
-            if seq_mesh is not None and (torch.device(seq_mesh[0])
-                                         != data_group.device):
-                raise ValueError(f"the seq mesh's first device {seq_mesh[0]}"
-                                 " is not the data group's device "
-                                 f"{data_group.device}")
+            if meshes and meshes[0][1][0] != data_group.device:
+                raise ValueError(f"the {meshes[0][0]} mesh's first device "
+                                 f"{meshes[0][1][0]} is not the data "
+                                 f"group's device {data_group.device}")
             if device is not None and (torch.device(device)
                                        != data_group.device):
                 raise ValueError(f"device {device} is not the data group's "
                                  f"device {data_group.device}")
             device = data_group.device
-        if seq_mesh is not None:
-            if device is not None and torch.device(device) != seq_mesh[0]:
-                raise ValueError(f"device {device} is not the seq mesh's "
-                                 f"first device {seq_mesh[0]}")
-            device = seq_mesh[0]
+        if meshes:
+            kind, mesh = meshes[0]
+            if device is not None and torch.device(device) != mesh[0]:
+                raise ValueError(f"device {device} is not the {kind} mesh's "
+                                 f"first device {mesh[0]}")
+            device = mesh[0]
+        if pipe_mesh is not None:
+            stage_ranges(len(net.specs) - 2, len(pipe_mesh))
+        # tensor parallelism: the net's LSTM layers shard over the mesh
+        net.model_mesh = self.mesh_devices if model_mesh is not None \
+            else None
+        net.validate_tp()
         self.device = select_device() if device is None \
             else torch.device(device)
         # float64 parameters train the scan route on the CPU only
@@ -228,9 +259,10 @@ class Trainer:
             s.name: (s.learning_rate if s.learning_rate >= 0
                      else learning_rate)
             for s in net.trainable_specs()}
-        # the fused tail is off under a seq mesh, as in the JAX Trainer
-        self.fused_tail = (net.backend != "scan" and seq_mesh is None
-                           and net.supports_fused_tail())
+        # the fused tail is off under a seq mesh, as in the JAX Trainer;
+        # under a pipe mesh the last stage takes it, under a model mesh it
+        # follows the sharded LSTM layers on the mesh's first device
+        self.fused_tail = seq_mesh is None and net.takes_fused_tail()
         self.params = params_from_numpy(net.params, self.device, self.dtype)
         for layer in self.params.values():
             for v in layer.values():
@@ -272,6 +304,10 @@ class Trainer:
         if self.seq_mesh is not None:
             return loss_and_count_seq(self.net, params, inputs, targets,
                                       pattypes, self.seq_mesh)
+        if self.pipe_mesh is not None:
+            return loss_and_count_pipelined(
+                self.net, params, inputs, targets, pattypes,
+                self.mesh_devices, self.pipeline_microbatches)
         if self.fused_tail:
             return self.net.loss_and_count_fused(params, inputs, targets,
                                                  pattypes)
@@ -318,14 +354,14 @@ class Trainer:
 
     def _sum_over_ranks(self, tensors) -> None:
         """Sum tensors over the data group's ranks, in place (a no-op
-        without a group). Under DP x SP the tensors were summed on the
-        mesh's first device from work on its other GPUs: this device's
-        stream first waits for theirs."""
+        without a group). Under DP x SP, DP x PP and DP x TP the tensors
+        were summed on the mesh's first device from work on its other
+        GPUs: this device's stream first waits for every one of theirs."""
         if self.data_group is None:
             return
-        if self.seq_mesh is not None and self.device.type == "cuda":
+        if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
-            for dev in set(self.seq_mesh) - {self.device}:
+            for dev in set(self.mesh_devices) - {self.device}:
                 stream.wait_stream(torch.cuda.current_stream(dev))
         all_reduce_sum(tensors, self.data_group.group)
 

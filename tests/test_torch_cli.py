@@ -82,16 +82,27 @@ def test_forward_htk_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
+    # tensor and pipeline parallelism are ported (test_torch_tensor.py,
+    # test_torch_pipeline.py): in forward mode --model_devices is ignored,
+    # as the JAX CLI's forward mode ignores it, and --pipeline_devices
+    # serves pipelined; only --device tpu is still refused
     ["--model_devices", "2"],
-    # --seq_devices and data parallelism are ported, alone and composed
-    # (test_torch_sequence.py, test_torch_data_parallel.py,
-    # test_torch_dp_sp.py); data parallelism with tensor parallelism is not
     ["--pipeline_devices", "2"], ["--model_devices", "2", "--num_devices", "4"],
     ["--device", "tpu"],
 ])
 def test_unsupported_flags_raise(tmp_path, flag):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        cli.main(_setup(tmp_path) + ["--device", "cpu"] + flag)
+    """--device tpu raises naming ROADMAP; the parallelism flags this
+    test once refused serve the posteriors of the run without them."""
+    common = _setup(tmp_path) + ["--device", "cpu"]
+    if flag[0] == "--device":
+        with pytest.raises(ValueError, match="ROADMAP"):
+            cli.main(common + flag)
+        return
+    for extra, out in (([], "plain.csv"), (flag, "flag.csv")):
+        assert cli.main(common + extra + ["--ff_output_file",
+                                          str(tmp_path / out)]) == 0
+    _assert_csv_close(tmp_path / "flag.csv", tmp_path / "plain.csv",
+                      rtol=1e-5, atol=1e-7)
 
 
 def test_f32_matmul_3x_accepted(tmp_path):
@@ -195,12 +206,15 @@ def test_device_counts_of_one_device_run(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag, match", [
-    (["--model_devices", "2"], "--model_devices 2 is not supported"),
-    (["--pipeline_devices", "2"], "--pipeline_devices 2 is not supported"),
+    (["--train", "true", "--model_devices", "2"],
+     "model_devices > 1 requires num_devices > 1"),
+    (["--pipeline_devices", "2", "--stream_chunk", "4"],
+     "stream_chunk does not combine with pipeline_devices or seq_devices"),
 ])
 def test_parallelism_stays_refused(tmp_path, flag, match):
-    """Device counts that need tensor or pipeline parallelism are refused
-    before any work."""
+    """The device counts the JAX CLI refuses for tensor and pipeline
+    parallelism are refused before any work, in its words
+    (lstm_rnn_tpu/cli.py:356-358, :580-586)."""
     with pytest.raises(ValueError, match=match):
         cli.main(_setup(tmp_path) + ["--device", "cpu"] + flag)
 

@@ -318,18 +318,18 @@ def test_config_lets_data_parallelism_through(argv):
      "seq_devices=2 must divide num_devices=3"),
     (["--num_devices", "4", "--seq_devices", "2", "--stream_chunk", "4"],
      "stream_chunk does not combine with pipeline_devices or seq_devices"),
-    (["--num_devices", "4", "--model_devices", "2"],
-     "--model_devices 2 is not supported.*ROADMAP"),
+    (["--train", "true", "--num_devices", "3", "--model_devices", "2"],
+     "model_devices=2 must divide num_devices=3"),
     (["--num_processes", "2", "--process_id", "1"],
      "need --coordinator_address"),
     (["--coordinator_address", "h:1", "--num_processes", "2",
       "--process_id", "2"], "--process_id in 0..N-1"),
 ])
 def test_config_refuses_data_parallel_combinations(argv, match):
-    """A --seq_devices that does not divide --num_devices and streaming
-    with a seq mesh are refused in the JAX CLI's words, data parallelism
-    composed with tensor parallelism naming ROADMAP; the multi-host flags
-    must be complete."""
+    """A --seq_devices that does not divide --num_devices, streaming
+    with a seq mesh, and data parallelism composed with tensor parallelism
+    over a count the model mesh does not divide are refused in the JAX
+    CLI's words; the multi-host flags must be complete."""
     from lstm_rnn_tpu_torch.config import parse_config
     with pytest.raises(ValueError, match=match):
         parse_config(["--network", "n.jsn", "--device", "cpu"] + argv)

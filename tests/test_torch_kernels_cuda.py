@@ -18,7 +18,12 @@ cuda:0 over gloo, each with a 2-block mesh of cuda:0; on four GPUs over
 NCCL, each with a mesh of two) against the one-process SP step; the data
 feed: cached epochs against the plain Trainer, bit for bit, in stochastic
 and batch mode, epoch 2 copying no byte from the host, and the pinned
-staging buffers reused while their copies are in flight.
+staging buffers reused while their copies are in flight; pipeline and
+tensor parallelism: a pipelined and a tensor-parallel step on a mesh of
+cuda:0 against the one-device step, with their exact launches, and DP x
+PP and DP x TP steps of two ranks (on cuda:0 over gloo, each with a mesh
+of cuda:0 twice; on four GPUs over NCCL, each with a mesh of two) against
+the one-process step on the same kind of mesh.
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -1872,6 +1877,121 @@ def test_nccl_dp_sp_step_on_four_gpus(tmp_path):
     _dpsp_step_matches(tmp_path, [[torch.device("cuda", 2 * j),
                                    torch.device("cuda", 2 * j + 1)]
                                   for j in range(2)], None)
+
+
+# ---------------------------------------------- pipeline and tensor (DP x)
+def _mesh_trainer(axis, mesh, group=None):
+    """_dp_trainer with a pipe or model mesh (and a data group)."""
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    return Trainer(_dp_net(), None, learning_rate=1e-2, momentum=0.9,
+                   hybrid_online_batch=True, data_group=group,
+                   **{f"{axis}_mesh": list(mesh)})
+
+
+# launches of one _dp_net step (2 BLSTM layers, K3 tail) on a pipe mesh of
+# m = 2 microbatches: every (stage, microbatch) forward under a
+# checkpoint, so K1 and K3f twice per microbatch, K2 and K3b once; on a
+# model mesh the LSTM layers run the sharded scan cell, the tail K3 once
+MESH_LAUNCHES = {"pipe": [8, 4, 4, 2], "model": [0, 0, 1, 1]}
+
+
+def _launches():
+    return (lstm_fwd_save.launches, lstm_bwd.launches,
+            softmax_ce_proj_fwd.launches, softmax_ce_proj_bwd.launches)
+
+
+def _mesh_step_worker(group, out_dir, b, axis):
+    """One SGD step of Trainer(pipe_mesh= or model_mesh=, data_group=) on
+    this rank's block, on its mesh: its loss, count, momentum delta,
+    parameters and K1, K2, K3f, K3b launches."""
+    mesh = getattr(group, f"{axis}_mesh")
+    tr = _mesh_trainer(axis, mesh, group)
+    blk = [torch.from_numpy(a).to(group.device)
+           for a in group.block(*_dp_batch(b))]
+    before = _launches()
+    err, corr = tr.train_step(*blk)
+    for dev in set(mesh):
+        torch.cuda.synchronize(dev)
+    torch.save({"err": err.item(), "corr": int(corr),
+                "v": tr.exact_params(tr.velocity), "w": tr.exact_params(),
+                "launches": [x - y for x, y in zip(_launches(), before)]},
+               f"{out_dir}/rank{group.rank}.pt")
+
+
+def _mesh_step_matches(tmp_path, axis, meshes, backend):
+    """The ranks' DP x PP or DP x TP step against the one-process step on
+    a 2-device mesh of cuda:0 of the same kind, from the same weights:
+    losses and counts summed, every rank's momentum delta within 1e-6 of
+    the largest, the ranks' weights equal, each rank's exact launches."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    b = 9
+    tr = _mesh_trainer(axis, [torch.device("cuda", 0)] * 2)
+    err, corr = tr.train_step(*(torch.from_numpy(a).cuda()
+                                for a in _dp_batch(b)))
+    want_v = tr.exact_params(tr.velocity)
+    start(_mesh_step_worker, meshes, (str(tmp_path), b, axis),
+          backend=backend, axis=axis)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(len(meshes))]
+    assert abs(sum(r["err"] for r in ranks) - err.item()) <= (
+        1e-6 * abs(err.item()))
+    assert sum(r["corr"] for r in ranks) == int(corr)
+    vmax = max(np.abs(v).max() for layer in want_v.values()
+               for v in layer.values())
+    for r in ranks:
+        assert r["launches"] == MESH_LAUNCHES[axis]
+        d = max(np.abs(r["v"][n][k] - want_v[n][k]).max()
+                for n in want_v for k in want_v[n])
+        assert d <= 1e-6 * vmax, d / vmax
+        assert all(np.array_equal(r["w"][n][k], ranks[0]["w"][n][k])
+                   for n in want_v for k in want_v[n])
+
+
+@pytest.mark.parametrize("axis", ["pipe", "model"])
+def test_mesh_step_matches_one_gpu(axis):
+    """A pipelined (2 stages, 2 microbatches) and a tensor-parallel (2
+    shards) step on a mesh of cuda:0 twice against the one-device kernel
+    step from the same weights: the loss (1e-5 relative) and every
+    momentum delta (1e-4 of the largest; the TP layers run the scan cell,
+    the pipeline the same kernels over half the rows), the exact
+    launches."""
+    b = 9
+    batch = [torch.from_numpy(a).cuda() for a in _dp_batch(b)]
+    one = _dp_trainer()
+    err1, corr1 = one.train_step(*batch)
+    tr = _mesh_trainer(axis, [torch.device("cuda", 0)] * 2)
+    before = _launches()
+    err, corr = tr.train_step(*batch)
+    torch.cuda.synchronize()
+    assert [x - y for x, y in zip(_launches(), before)] == \
+        MESH_LAUNCHES[axis]
+    assert abs(err.item() - err1.item()) <= 1e-5 * abs(err1.item())
+    assert int(corr) == int(corr1)
+    want, got = one.exact_params(one.velocity), tr.exact_params(tr.velocity)
+    vmax = max(np.abs(v).max() for layer in want.values()
+               for v in layer.values())
+    d = max(np.abs(got[n][k] - want[n][k]).max() for n in want
+            for k in want[n])
+    assert d <= 1e-4 * vmax, d / vmax
+
+
+@pytest.mark.parametrize("axis", ["pipe", "model"])
+def test_two_rank_gloo_mesh_step_on_one_gpu(tmp_path, axis):
+    """Two DP x PP or DP x TP ranks on cuda:0 over gloo, each a 2-device
+    mesh of cuda:0."""
+    _mesh_step_matches(tmp_path, axis, [[torch.device("cuda", 0)] * 2] * 2,
+                       "gloo")
+
+
+@pytest.mark.parametrize("axis", ["pipe", "model"])
+def test_nccl_mesh_step_on_four_gpus(tmp_path, axis):
+    """Two DP x PP or DP x TP ranks over NCCL, rank j on the mesh
+    cuda:2j, cuda:2j+1."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four GPUs")
+    _mesh_step_matches(tmp_path, axis, [[torch.device("cuda", 2 * j),
+                                         torch.device("cuda", 2 * j + 1)]
+                                        for j in range(2)], None)
 
 
 # --------------------------------------------------------------- data feed
