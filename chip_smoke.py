@@ -296,7 +296,23 @@ weights from a seed, and holds every kernel against its plain twin:
     autoencoding) against one GPU, with 4 DP x PP and DP x TP too; the
     pipelined and TP steps on distinct GPUs with each GPU's peak memory.
     On one GPU the CLI's refusal of both in the JAX CLI's words, and a
-    line saying what was not run.
+    line saying what was not run;
+45. a seq or pipe mesh over two processes on one card (two workers on
+    cuda:0 over gloo, parallel/launch.py start(span=True), every message
+    staged through host memory): the hop (parallel/hop.py) of a TIMIT
+    carry and a stage message, f32 and bf16, values and cotangents bit
+    for bit, its µs, and the zero-cotangent control that must fail; the
+    TIMIT SP step (a block a process) and the pipelined step (m = 2, a
+    stage a process), summed over the processes, against the same mesh
+    from one process, with each process's exact launches;
+46. with 2+ GPUs, the same over NCCL between processes of their own GPUs
+    (f32 and bf16, the LVCSR pipelined step, SP over 1 + 2 GPUs with 3
+    and over 2 x 2 and 4 x 1 with 4), each step's ms, peak MiB a GPU and
+    each process's busy share, the same meshes from one process and one
+    GPU for comparison, and the CLI's multi-host --seq_devices and
+    --pipeline_devices (a process each CUDA_VISIBLE_DEVICES) against
+    one process on as many GPUs. On one GPU a line saying it was not
+    run.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -304,8 +320,8 @@ them against what its kernels' launches imply; the profiles (phases 5, 8,
 
 scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
 GPUs; scripts/torch_dp_multigpu.py runs phase 35 alone,
-scripts/torch_dp_sp_multigpu.py phase 38 and scripts/torch_pp_tp.py
-phases 42-44.
+scripts/torch_dp_sp_multigpu.py phase 38, scripts/torch_pp_tp.py
+phases 42-44 and scripts/torch_cross_host.py phases 45-46.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -6695,6 +6711,502 @@ def pp_tp_distinct(torch, card, n):
              bf16=False)
 
 
+# a seq or pipe mesh over several processes (phases 45-46, parallel/
+# launch.py's spanning plan and parallel/hop.py): each process a worker
+# (launch.start(span=True)) driving its own positions of one mesh. On one
+# card two processes share cuda:0 over gloo (NCCL takes one rank a GPU),
+# every message staged through host memory; with 2+ GPUs each process
+# drives its own GPUs and the hops go over NCCL, the multi-host CLI's
+# layout (one process a host, CUDA_VISIBLE_DEVICES a process).
+# the hop's messages: a TIMIT carry (h and c of one direction at B = 50,
+# H = 125, one message) and a pipelined step's stage message at m = 2
+HOP_SHAPES = (("carry", (2, 1, B, H)), ("stage message", (T_TRAIN, B // 2,
+                                                          2 * H)))
+HOP_WARMUP, HOP_REPS = 5, 50
+# seconds any wait of a span launch or a CLI run of phases 45-46 may take
+# (a hop or collective that hangs fails the phase in this time)
+XH_TIMEOUT_S = 300
+
+
+def _sync(torch, devices):
+    for d in sorted({torch.device(d).index or 0 for d in devices}):
+        torch.cuda.synchronize(d)
+
+
+def _hop_case(torch, group, shape, dtype, zero_cotangents=False):
+    """One hop from position 0 (rank 0) to position 1 (rank 1) of the span
+    and its cotangent back through parallel/hop.py's chain: on rank 1
+    whether the received values equal the sent ones bit for bit, on rank
+    0 whether the cotangent that came back equals rank 1's. The control
+    sends zero cotangents back."""
+    from lstm_rnn_tpu_torch.parallel import hop
+    dev = group.device
+    rng = np.random.RandomState(45)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    backward = hop._Recv.backward
+    if zero_cotangents:
+        def zeros_back(ctx, g_token, g_y):
+            peer, bwd = ctx.meta
+            hop._send(torch.zeros_like(g_y), peer, bwd)
+            return g_token, None, None, None, None, None, None
+        hop._Recv.backward = staticmethod(zeros_back)
+    try:
+        if group.rank == 0:
+            xr = x.clone().requires_grad_(True)
+            chain = hop.Chain(group.span, hop.anchor([xr], dev))
+            chain.send(xr, 0, 1)
+            grad, = torch.autograd.grad(
+                chain.close(torch.zeros((), device=dev)), [xr])
+            return torch.equal(grad, g)
+        w = torch.zeros((), device=dev, requires_grad=True)
+        chain = hop.Chain(group.span, hop.anchor([w], dev))
+        y = chain.recv(0, 1, shape, dtype)
+        torch.autograd.grad(chain.close((y * g).sum().float()), [w])
+        return torch.equal(y, x)
+    finally:
+        hop._Recv.backward = backward
+
+
+def _barrier(group):
+    """A barrier of the group on the process's own device (NCCL would
+    guess the device from the rank)."""
+    import torch.distributed as dist
+    if group.device.type == "cuda" and dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[group.device.index])
+    else:
+        dist.barrier()
+
+
+def _hop_us(torch, group, shape, dtype):
+    """µs a one-way hop of a [shape] message between ranks 0 and 1: the
+    mean of HOP_REPS round trips (up, then down) after HOP_WARMUP, with
+    the devices synchronised at the ends."""
+    from lstm_rnn_tpu_torch.parallel import hop
+    dev, groups = group.device, group.span.groups
+    x = torch.zeros(shape, dtype=dtype, device=dev)
+
+    def round_trip():
+        if group.rank == 0:
+            hop._send(x, 1, groups["up"])
+            hop._recv(shape, dtype, dev, 1, groups["down"])
+        else:
+            y = hop._recv(shape, dtype, dev, 0, groups["up"])
+            hop._send(y, 0, groups["down"])
+    for _ in range(HOP_WARMUP):
+        round_trip()
+    torch.cuda.synchronize(dev)
+    _barrier(group)
+    t0 = time.perf_counter()
+    for _ in range(HOP_REPS):
+        round_trip()
+    torch.cuda.synchronize(dev)
+    return 1e6 * (time.perf_counter() - t0) / (2 * HOP_REPS)
+
+
+def _span_expect(kind, span, rank, m=0, lvcsr=False):
+    """The exact launches of one span training step on `rank`'s positions
+    of the TIMIT or LVCSR stack (5 BLSTM layers and the softmax): SP runs
+    the carry pair (K6b) once a layer, direction and owned block, and the
+    unfused tail; PP's owned stages run their layers' K1 twice a
+    microbatch (the checkpoint's recompute) and K2 once, the last stage
+    the tail's forward twice and backward once. The GEMM engine's
+    products follow, dx on every BPTT but the first layer's (its input is
+    the data; a later stage's input is a received message, which takes
+    one)."""
+    from lstm_rnn_tpu_torch.parallel.pipeline import stage_ranges
+    expect = {k: 0 for k in wrappers() if not k.startswith("gemm:")}
+    own = [i for i in range(len(span)) if span.owners[i] == rank]
+    if kind == "seq":
+        expect.update(lstm_fwd_carry_save=10 * len(own),
+                      lstm_bwd_carry=10 * len(own))
+        first = 2 * len(own)
+    else:
+        ranges = [stage_ranges(6, len(span))[i] for i in own]
+        layers = sum(min(hi, 5) - min(lo, 5) for lo, hi in ranges)
+        expect.update(lstm_fwd_save=2 * m * layers, lstm_bwd=m * layers)
+        if len(span) - 1 in own:
+            tail = "softmax_ce_wide" if lvcsr else "softmax_ce_proj"
+            expect.update({f"{tail}_fwd": 2 * m, f"{tail}_bwd": m})
+        first = m if 0 in own else 0
+    expect.update(gemm_expect(expect))
+    expect["gemm:dx"] = expect["lstm_bwd"] + expect["lstm_bwd_carry"] - first
+    expect["softmax_ce_wide_bwd_3x"] = 0
+    return expect
+
+
+def _busy(torch, tr, batch, devices):
+    """(compute ms, NCCL ms, wall ms) of one profiled train_step of `tr` in
+    this process, after the warm-ups of the caller: the device time of
+    this process's kernels on its GPUs, the NCCL kernels apart (they run
+    on streams of their own, beside the compute, and wait there for the
+    peer, so their time says nothing of how busy the GPU was)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync(torch, devices)
+        t0 = time.perf_counter()
+        tr.train_step(*batch)
+        _sync(torch, devices)
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith("ProfilerStep")]
+    nccl = sum(dev_us(e) for e in events if "nccl" in e.key.lower()) / 1e3
+    return sum(dev_us(e) for e in events) / 1e3 - nccl, nccl, wall
+
+
+def _span_card_worker(group, workdir, plan):
+    """Phases 45-46 on one process of a span: the hop's cases and times
+    (plan["hop"], ranks 0 and 1), then each step of plan["steps"] ((kind,
+    LVCSR, dtype, m)): the step's error, count and gradients summed over
+    the group against the reference (on rank 0), this rank's exact
+    launches, and with plan["rates"] the step's ms (mean of 3 after a
+    warm-up), each local GPU's peak MiB and a profiled step's busy ms.
+    The reference is the same mesh driven from one process, every
+    position on rank 0's GPU: the same kernels on the same blocks or
+    microbatches (phases 20 and 42 hold that against one GPU). Writes its
+    results to workdir."""
+    import torch
+    from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
+    out = {"hop": {}, "steps": {}, "local": [str(d) for d in
+                                            group.span.local]}
+    devices = group.span.local
+    if plan.get("hop"):
+        for name, shape in HOP_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                key = f"{name} {tuple(shape)} {str(dtype)[6:]}"
+                out["hop"][key] = dict(
+                    exact=_hop_case(torch, group, shape, dtype),
+                    control=_hop_case(torch, group, shape, dtype, True),
+                    us=_hop_us(torch, group, shape, dtype),
+                    bytes=int(np.prod(shape)) * (4 if dtype == torch.float32
+                                                 else 2))
+    for kind, lvcsr, dtype, m in plan["steps"]:
+        batch, frames = recipe_batch(
+            torch, seed=42, states=S_LVCSR if lvcsr else S_STATES)
+        kw = ({"seq_mesh": group.span} if kind == "seq" else
+              {"pipe_mesh": group.span, "pipeline_microbatches": m})
+        tr = make_trainer("auto", dtype, lvcsr, data_group=group, **kw)
+        w = _zero_launches()
+        err, corr, g = tr.grad_fraction(*batch)
+        _sync(torch, devices)
+        counts = {k: f.launches for k, f in w.items()}
+        expect = _span_expect(kind, group.span, group.rank, m, lvcsr)
+        tot = [err.detach().float(), corr.to(torch.int64)]
+        all_reduce_sum(tot)
+        all_reduce_sum(tr._leaves(g))
+        res = dict(counts=counts, expect_ok=counts == expect, expect=expect)
+        if group.rank == 0:
+            # the same mesh in one process: every position on this GPU
+            mesh = [group.device] * len(group.span)
+            ref = make_trainer("auto", dtype, lvcsr, **(
+                {"seq_mesh": mesh} if kind == "seq" else
+                {"pipe_mesh": mesh, "pipeline_microbatches": m}))
+            e1, c1, g1 = ref.grad_fraction(*batch)
+            e1, c1 = e1.item(), int(c1)
+            del ref
+            grel, leaf = _grad_rel(g, g1)
+            res.update(loss_rel=abs(tot[0].item() - e1) / abs(e1),
+                       corr=(int(tot[1]), c1), grad_rel=grel, leaf=leaf)
+        if plan.get("rates"):
+            ms = []
+            for _ in range(2):  # the warm-up, then the mean of 3
+                _barrier(group)
+                _sync(torch, devices)
+                t0 = time.perf_counter()
+                for _ in range(3 if ms else 1):
+                    tr.train_step(*batch)
+                _sync(torch, devices)
+                ms.append(1e3 * (time.perf_counter() - t0) / (3 if ms
+                                                              else 1))
+            res["ms"] = ms[1]
+            res["frames"] = frames
+            res["peak_mib"] = _peak_mib_on(
+                torch, lambda: tr.train_step(*batch), devices)
+            res["busy_ms"], res["nccl_ms"], res["wall_ms"] = _busy(
+                torch, tr, batch, devices)
+        out["steps"][(kind, lvcsr, dtype, m)] = res
+        del tr
+    torch.save(out, os.path.join(workdir, f"span_rank{group.rank}.pt"))
+
+
+def _peak_mib_on(torch, fn, devices):
+    """fn() and the peak memory it allocated, MiB, on each of `devices`."""
+    idx = sorted({torch.device(d).index or 0 for d in devices})
+    _sync(torch, devices)
+    for d in idx:
+        torch.cuda.reset_peak_memory_stats(d)
+    fn()
+    _sync(torch, devices)
+    return {d: torch.cuda.max_memory_allocated(d) / 2**20 for d in idx}
+
+
+def _span_run(torch, layout, plan, workdir, backend=None):
+    """launch.start of _span_card_worker over the processes of `layout`
+    (each a list of GPU indices, its positions in mesh order): each
+    rank's results, and the wall seconds of the launch."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    for f in glob.glob(os.path.join(workdir, "span_rank*.pt")):
+        os.remove(f)
+    t0 = time.perf_counter()
+    start(_span_card_worker, [[torch.device("cuda", j) for j in part]
+                              for part in layout], (workdir, plan),
+          backend=backend, span=True, timeout_s=XH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    return [torch.load(os.path.join(workdir, f"span_rank{r}.pt"),
+                       weights_only=False)
+            for r in range(len(layout))], wall
+
+
+def _layout_name(layout):
+    return " + ".join(f"[{', '.join(f'cuda:{j}' for j in part)}]"
+                      for part in layout)
+
+
+def _report_span(torch, card, layout, ranks, how):
+    """The phase lines of one span launch, and its checks: the hop's cases
+    bit-exact and their controls failing, each step within SP_STEP_TOL or
+    PP_STEP_TOL of the same mesh driven from one process, with every
+    rank's exact launches.
+    Returns {(kind, lvcsr, dtype, m): [each rank's step results]}."""
+    name = _layout_name(layout)
+    for key, r0 in ranks[0]["hop"].items():
+        r1 = ranks[1]["hop"][key]
+        ok = r0["exact"] and r1["exact"]
+        ctl = r0["control"]
+        phase("xh-hop", f"{key} over {how} ({name}): values and cotangents "
+              f"bit-exact {ok}; control (zero cotangents) passes {ctl}; "
+              f"{r0['us']:.1f} µs a hop ({r0['bytes'] / r0['us'] / 1e3:.2f}"
+              f" GB/s) on {card}")
+        if not ok or ctl:
+            raise AssertionError(f"the hop of {key} over {how}")
+    out = {}
+    for key in ranks[0]["steps"]:
+        kind, lvcsr, dtype, m = key
+        rs = [r["steps"][key] for r in ranks]
+        r0 = rs[0]
+        tol = SP_STEP_TOL if kind == "seq" else PP_STEP_TOL
+        what = (f"{'LVCSR' if lvcsr else 'TIMIT'} {dtype} "
+                f"{'SP' if kind == 'seq' else f'PP m={m}'} over {name} "
+                f"({how})")
+        phase("xh-step", f"{what}: loss rel {r0['loss_rel']:.2e} (tol "
+              f"{tol['loss']:.0e}), count {r0['corr'][0]} vs "
+              f"{r0['corr'][1]}, gradients rel {r0['grad_rel']:.2e} (worst "
+              f"{r0['leaf']}; tol {tol['grad']:.0e}) against the mesh from "
+              "one process; launches " + "; ".join(
+                  f"rank {i}: " + ", ".join(f"{k} {v}" for k, v in
+                                            r["counts"].items() if v)
+                  for i, r in enumerate(rs)))
+        for i, r in enumerate(rs):
+            if not r["expect_ok"]:
+                raise AssertionError(f"{what}: rank {i} launched "
+                                     f"{r['counts']}, expected "
+                                     f"{r['expect']}")
+        if not (r0["loss_rel"] <= tol["loss"] and r0["corr"][0] ==
+                r0["corr"][1] and r0["grad_rel"] <= tol["grad"]):
+            raise AssertionError(f"{what} differs from one process's")
+        if "ms" in r0:
+            phase("xh-rate", f"{what}: {r0['ms']:.2f} ms a step ("
+                  f"{r0['frames'] / r0['ms'] * 1e3:,.0f} frames/s); " +
+                  "; ".join(
+                      f"rank {i} peak " + ", ".join(
+                          f"cuda:{d} {v:,.0f} MiB" for d, v in
+                          r["peak_mib"].items())
+                      + f", kernels {r['busy_ms']:.2f} ms (NCCL "
+                      f"{r['nccl_ms']:.2f} beside) in a profiled step of "
+                      f"{r['wall_ms']:.2f} ms: busy "
+                      f"{_share(r['busy_ms'], r['wall_ms'], r)}, "
+                      f"{_share(r['busy_ms'], r['ms'], r)} of an unprofiled "
+                      "step" for i, r in enumerate(rs))
+                  + f" on {card}")
+        out[key] = rs
+    return out
+
+
+def _share(busy_ms, wall_ms, r):
+    """busy_ms as a share of wall_ms on each of the process's GPUs."""
+    return f"{100 * busy_ms / wall_ms / len(r['peak_mib']):.1f}%"
+
+
+def cross_host_on_one_card(torch, card, workdir):
+    """Phase 45: a seq and a pipe mesh over two processes sharing cuda:0
+    over gloo (launch.start(span=True); every message staged through
+    host memory, the backend's choice). 45a the hop: a TIMIT carry and a
+    stage message, f32 and bf16, values and cotangents bit for bit, µs a
+    hop, the zero-cotangent control; 45b the TIMIT SP step (one block a
+    process) and the pipelined step (m = 2, a stage a process) in f32
+    against the same mesh from one process, each process's exact
+    launches (SP: 10 K6b-f and 10 K6b-b; PP: K1 / K2 of its own stage's
+    layers, the tail on the last). Returns each step's results a
+    process."""
+    ranks, wall = _span_run(torch, [[0], [0]], {
+        "hop": True, "steps": [("seq", False, "float32", 0),
+                               ("pipe", False, "float32", 2)]},
+        workdir, backend="gloo")
+    phase("xh-card", f"two processes on cuda:0 over gloo: {wall:.1f} s "
+          "wall (spawn, the hop's cases, two steps)")
+    return _report_span(torch, card, [[0], [0]], ranks,
+                        "gloo, staged through host memory")
+
+
+def _in_process_ms(torch, kind, k, dtype, m=2, lvcsr=False):
+    """The recipe step's ms on a seq or pipe mesh of cuda:0 .. cuda:k-1
+    driven from this process (k = 1: one GPU), and its peak MiB a GPU."""
+    batch, _ = recipe_batch(torch, seed=42,
+                            states=S_LVCSR if lvcsr else S_STATES)
+    gpus = [torch.device("cuda", j) for j in range(k)]
+    kw = {} if k == 1 else ({"seq_mesh": gpus} if kind == "seq" else
+                            {"pipe_mesh": gpus, "pipeline_microbatches": m})
+    tr = make_trainer("auto", dtype, lvcsr, **kw)
+    ms = step_ms(torch, tr, batch, reps=3)
+    peak = _peak_mib(torch, lambda: tr.train_step(*batch), gpus)
+    del tr
+    return ms, peak
+
+
+def cross_host_distinct(torch, card, workdir, n):
+    """Phase 46a-c (2+ GPUs): spans over processes of their own GPUs, the
+    hops over NCCL. 46a two processes of one GPU: the hop (as 45a), the
+    TIMIT SP and PP (m = 2) steps in f32 and bf16 and the LVCSR PP step
+    in f32 against the same mesh from one process with each process's
+    exact launches, their ms,
+    each GPU's peak MiB and each process's busy share; 46b with 3 GPUs
+    SP over processes of one and two GPUs (k = 3), with 4 SP over two
+    processes of two GPUs and over four of one (k = 4); 46c the same
+    steps driven from one process (--seq_devices k, --pipeline_devices 2
+    on k GPUs) and on one GPU, in this call."""
+    gpus_rates = {"rates": True}
+    layouts = [([[0], [1]], dict(gpus_rates, hop=True, steps=[
+        ("seq", False, "float32", 0), ("seq", False, "bfloat16", 0),
+        ("pipe", False, "float32", 2), ("pipe", False, "bfloat16", 2),
+        ("pipe", True, "float32", 2)]))]
+    sp = [("seq", False, "float32", 0), ("seq", False, "bfloat16", 0)]
+    if n >= 3:
+        layouts.append(([[0], [1, 2]], dict(gpus_rates, steps=sp)))
+    else:
+        phase("xh-gpus", "SP over processes of 1 + 2 GPUs (k = 3) was not "
+              f"run: torch sees {n} GPUs")
+    if n >= 4:
+        layouts += [([[0, 1], [2, 3]], dict(gpus_rates, steps=sp)),
+                    ([[0], [1], [2], [3]], dict(gpus_rates, steps=sp))]
+    else:
+        phase("xh-gpus", "SP over 2 x 2 and 4 x 1 GPUs (k = 4) was not run:"
+              f" torch sees {n} GPUs")
+    res = {}
+    for layout, plan in layouts:
+        ranks, wall = _span_run(torch, layout, plan, workdir)
+        phase("xh-gpus", f"{_layout_name(layout)} over NCCL: {wall:.1f} s "
+              "wall")
+        res[_layout_name(layout)] = _report_span(torch, card, layout, ranks,
+                                                 "NCCL")
+    for dtype in ("float32", "bfloat16"):
+        for kind, k in (("one GPU", 1), ("seq", 2), ("seq", 3), ("seq", 4),
+                        ("pipe", 2)):
+            if k > n:
+                continue
+            ms, peak = _in_process_ms(torch, kind, k, dtype)
+            label = {"one GPU": "on one GPU", "seq": f"--seq_devices {k}",
+                     "pipe": f"--pipeline_devices {k} m=2"}[kind]
+            phase("xh-rate", f"TIMIT {dtype} {label} from one process: "
+                  f"{ms:.2f} ms a step, peak " + ", ".join(
+                      f"cuda:{d} {v:,.0f} MiB" for d, v in peak.items())
+                  + f" on {card}")
+    ms, peak = _in_process_ms(torch, "pipe", 2, "float32", lvcsr=True)
+    phase("xh-rate", f"LVCSR float32 --pipeline_devices 2 m=2 from one "
+          f"process: {ms:.2f} ms a step, peak " + ", ".join(
+              f"cuda:{d} {v:,.0f} MiB" for d, v in peak.items())
+          + f" on {card}")
+    return res
+
+
+def cross_host(torch, card, workdir, n):
+    """Phases 45-46: a seq or pipe mesh over processes on one card, and
+    with 2+ GPUs over processes of their own GPUs and through the CLI.
+    Returns {layout: {step: each process's results}}."""
+    res = {"[cuda:0] + [cuda:0]": cross_host_on_one_card(torch, card,
+                                                        workdir)}
+    if n >= 2:
+        res.update(cross_host_distinct(torch, card, workdir, n))
+        cross_host_cli(torch, workdir, n)
+    else:
+        phase("xh-gpus", "phase 46 (a seq or pipe mesh over processes of "
+              "their own GPUs, the hops over NCCL, and the CLI's "
+              "multi-host --seq_devices / --pipeline_devices) was not run: "
+              "torch sees one GPU")
+    return res
+
+
+def cross_host_cli(torch, workdir, n):
+    """Phase 46d (2+ GPUs): the CLI as processes of their own GPUs
+    (CUDA_VISIBLE_DEVICES a process, the multi-host flags), training the
+    TIMIT recipe on phase 7's corpus for 2 epochs with --seq_devices 2
+    and --pipeline_devices 2 over two processes of one GPU, --seq_devices
+    3 over one and two (3+ GPUs) and --seq_devices 4 over two and two (4
+    GPUs), each against the same flag from one process on as many GPUs:
+    the weights (DP_CLI_TOL), the epoch errors to the table's digits, the
+    JAX banner on process 0, and nothing written by the others."""
+    paths, net_path = write_train_corpus(workdir)
+    train = ["--network", net_path, "--train", "true", "--train_file",
+             paths["train"][0], "--val_file", paths["val"][0],
+             "--truncate_seq", "500", "--parallel_sequences", "50",
+             "--stochastic", "true", "--shuffle_fractions", "true",
+             "--learning_rate", "1e-4", "--momentum", "0.9", "--max_epochs",
+             "2", "--random_seed", str(SEED)]
+    runs = [("--seq_devices", [[0], [1]],
+             "Sequence-parallel mesh: {'seq': 2} (time axis sharded)"),
+            ("--pipeline_devices", [[0], [1]],
+             "Pipeline mesh: {'pipe': 2} (6 hidden layers over 2 stages)")]
+    if n >= 3:
+        runs.append(("--seq_devices", [[0], [1, 2]],
+                     "Sequence-parallel mesh: {'seq': 3} (time axis "
+                     "sharded)"))
+    if n >= 4:
+        runs.append(("--seq_devices", [[0, 1], [2, 3]],
+                     "Sequence-parallel mesh: {'seq': 4} (time axis "
+                     "sharded)"))
+    for flag, layout, banner in runs:
+        k = sum(map(len, layout))
+        tag = f"{flag.strip('-')}_{'_'.join(str(len(p)) for p in layout)}"
+        one = os.path.join(workdir, f"xh_{tag}_one")
+        t0 = time.perf_counter()
+        base = finish(cli_process(train + [flag, str(k)], one, dict(
+            os.environ, CUDA_VISIBLE_DEVICES=",".join(map(str, range(k))))),
+            f"{flag} {k} from one process", XH_TIMEOUT_S)
+        wall1 = time.perf_counter() - t0
+        port = _free_port()
+        dirs = [os.path.join(workdir, f"xh_{tag}_p{i}")
+                for i in range(len(layout))]
+        t0 = time.perf_counter()
+        procs = [cli_process(train + [
+            flag, str(k), "--coordinator_address", f"127.0.0.1:{port}",
+            "--num_processes", str(len(layout)), "--process_id", str(i)],
+            d, dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(
+                map(str, part))))
+            for i, (part, d) in enumerate(zip(layout, dirs))]
+        outs = [finish(p, f"{flag} {k} process {i}", XH_TIMEOUT_S)
+                for i, p in enumerate(procs)]
+        wall = time.perf_counter() - t0
+        rel = _flat_rel(_weights(os.path.join(dirs[0],
+                                              "trained_network.jsn")),
+                        _weights(os.path.join(one, "trained_network.jsn")))
+        close = _errors_close(_table_rows(outs[0]), _table_rows(base))
+        silent = all(not os.listdir(d) and "mesh" not in o
+                     for d, o in zip(dirs[1:], outs[1:]))
+        phase("xh-cli", f"train {flag} {k} over {_layout_name(layout)} "
+              f"({wall:.1f} s wall) vs one process on {k} GPUs ({wall1:.1f}"
+              f" s): banner {banner in outs[0]}; weights rel {rel:.2e} (tol"
+              f" {DP_CLI_TOL:.0e}); epoch errors to the table's digits: "
+              f"{close}; the other processes silent and wrote nothing: "
+              f"{silent}")
+        for ln in _table_rows(outs[0]):
+            phase("xh-cli", f"{tag} |{ln}")
+        if not (banner in outs[0] and rel <= DP_CLI_TOL and close
+                and silent):
+            raise AssertionError(f"the CLI's {flag} {k} over processes "
+                                 "differs from one process")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6843,6 +7355,8 @@ def main():
             pp_tp_distinct(torch, card, n_gpus)
         else:
             pp_tp_refused_on_one_gpu(torch, workdir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        xh_steps = cross_host(torch, card, workdir, n_gpus)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -7009,6 +7523,22 @@ def main():
     for (name, dtype, k, m), counts in pp_launches.items():
         gemm_paths[f"PP {name} {dtype} step pp={k} m={m}"] = gemm_total(
             counts)
+    # a mesh over processes (phases 45-46): each process's launches of one
+    # step, by layout
+    for row in kernels:
+        xh = {f"{layout} {'LVCSR' if lvcsr else 'TIMIT'} {dtype} "
+              f"{'SP' if kind == 'seq' else f'PP m={m}'}":
+              [r["counts"][row["name"]] for r in rs]
+              for layout, steps in xh_steps.items()
+              for (kind, lvcsr, dtype, m), rs in steps.items()
+              if any(r["counts"][row["name"]] for r in rs)}
+        if xh:
+            row["cross_host_launches_per_process_step"] = xh
+    for layout, steps in xh_steps.items():
+        for (kind, lvcsr, dtype, m), rs in steps.items():
+            gemm_paths[f"{layout} {'LVCSR' if lvcsr else 'TIMIT'} {dtype} "
+                       f"{'SP' if kind == 'seq' else f'PP m={m}'} (each "
+                       "process)"] = sum(gemm_total(r["counts"]) for r in rs)
     gemm_paths["DP x SP training (a rank, 2 epochs)"] = gemm_total(
         dpsp_epochs)
     gemm_paths["DP streaming (a rank, one fraction)"] = gemm_total(

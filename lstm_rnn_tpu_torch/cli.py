@@ -43,6 +43,14 @@ per local GPU. Global rank 0 prints the epoch table and writes every file
 (the trained network, the autosaves, `.best.jsn`, the forward outputs,
 which it gathers from the ranks); the others write nothing.
 
+With the multi-host flags in train mode, `--seq_devices k` or
+`--pipeline_devices k` where k is the global device count (every
+process's GPUs, hosts of any size) trains the JAX package's 1-D seq or
+pipe mesh over all of them: a worker a process drives the positions of
+its own GPUs, in process order, and a carry or stage message between two
+processes goes over torch.distributed (parallel/hop.py). The banners are
+the one-process ones, printed by process 0.
+
 The two compose (DP x SP): `--num_devices n --seq_devices N` with n
 other than 1 and N (N must divide n), or `--seq_devices N` with the
 multi-host flags in train mode, starts a worker per group of N GPUs
@@ -307,6 +315,8 @@ def _mesh(cfg: Config, device: torch.device, group=None):
     train mode) --model_devices k > 1, on `device`'s type the first k
     GPUs or the CPU k times; (None, None) without."""
     if group is not None:
+        if group.span is not None:
+            return group.span.axis, group.span
         for axis in ("seq", "pipe", "model"):
             mesh = getattr(group, f"{axis}_mesh")
             if mesh is not None:
@@ -535,8 +545,8 @@ def _train(cfg: Config, device: torch.device, group) -> int:
 
     axis, mesh = _mesh(cfg, device, group)
     if mesh is not None:
-        device = mesh[0]
-    if group is not None:
+        device = mesh[0] if group is None else group.device
+    if group is not None and group.span is None:
         print(group.mesh_line())
     elif axis == "seq":
         print(f"Sequence-parallel mesh: {{'seq': {len(mesh)}}} "

@@ -21,7 +21,9 @@ Port-specific:
                  streaming: each worker streams its block of B)
   --coordinator_address host:port, --num_processes N, --process_id i:
                  multi-host data parallelism, alone or with --seq_devices
-                 in train mode (parallel/launch.py)
+                 in train mode (parallel/launch.py); in train mode with
+                 --seq_devices or --pipeline_devices k = every host's
+                 devices in all, one seq or pipe mesh over the hosts
   --f32_matmul 3x: in train mode with float32, the projections, weight
                  gradients, dx and the softmax tail's products as three
                  bf16 passes on the tensor cores (ops/gemm.py
@@ -37,9 +39,11 @@ Port-specific:
                  JAX heuristic (cli.py `_auto_model_devices`: 1 on the
                  CPU); forward mode ignores it, as the JAX CLI does
 Flags the port does not support yet raise a ValueError naming ROADMAP.md,
-never silently ignored: --device tpu (and, in parallel/launch.py, a seq,
-pipe or model group that would span hosts). --pipeline_devices 0
-resolves to no parallelism, as the JAX CLI resolves it. The combinations
+never silently ignored: --device tpu (and, in parallel/launch.py, the
+cross-host groups the JAX package cannot train either: a composed group
+whose row crosses a host, tensor parallelism across hosts).
+--pipeline_devices 0 resolves to no parallelism, as the JAX CLI resolves
+it. The combinations
 the JAX CLI refuses are refused in its words: --seq_devices with
 --stream_chunk, --model_devices or --pipeline_devices; --pipeline_devices
 with --model_devices (train mode) or --stream_chunk (forward mode);

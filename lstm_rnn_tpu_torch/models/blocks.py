@@ -9,7 +9,10 @@ state to block r + 1; a BLSTM layer's backward half runs the opposite
 wavefront (block n-1 first). Both directions' blocks of a round are
 launched before either carry moves, so on a mesh two devices work in
 every round. The carry hop is `.to(mesh[i +- 1])` (a no-op when the device
-repeats); autograd carries the carry cotangents back along it.
+repeats); autograd carries the carry cotangents back along it. On a mesh
+that spans processes (parallel/mesh.py `SpanMesh`) each process runs its
+own blocks, and a carry between two processes goes through parallel/
+hop.py's chain.
 
 The kernel route (`fused_wavefront`) runs each block of each direction
 through `lstm_scan_fused_carry` (D = 1, dir_offset = d, prefix lengths
@@ -32,50 +35,81 @@ from lstm_rnn_tpu_torch.ops.lstm_cell import lstm_scan_fused_carry
 
 def per_device(p, mesh):
     """{device: the layer's parameters on it}, one copy per distinct
-    device of the mesh."""
-    return {dev: {k: v.to(dev) for k, v in p.items()} for dev in set(mesh)}
+    device of the mesh that this process drives."""
+    return {dev: {k: v.to(dev) for k, v in p.items()}
+            for dev in set(mesh) - {None}}
 
 
-def wavefront(run_block, n_dirs: int, mesh, batch: int, hidden: int):
+def wavefront(run_block, n_dirs: int, mesh, batch: int, hidden: int,
+              chain=None):
     """The round schedule shared by the routes. run_block(d, i, h0, c0)
     scans direction d over block i from (h0, c0) [1, B, H] f32 on mesh[i]
     and returns (y [Tl, B, H] on mesh[i], hf, cf). Direction 0's carry
     enters block 0 and travels up, direction 1's enters block n-1 and
-    travels down, both from zero. Returns outs[d][i]."""
+    travels down, both from zero. Returns outs[d][i].
+
+    With `chain` (parallel/hop.py: the mesh spans processes, mesh[i] is
+    None where another process owns block i) only this process's blocks
+    run; a carry whose next block another process owns goes to it
+    through the chain as one [2, 1, B, H] message (h and c), and one that
+    arrives from another process comes the same way. outs[d][i] is None
+    for another process's block."""
     n = len(mesh)
-    zero = [torch.zeros(1, batch, hidden, device=mesh[0]),
-            torch.zeros(1, batch, hidden, device=mesh[n - 1])]
-    state = [(zero[d], zero[d]) for d in range(n_dirs)]
+
+    def own(i):
+        return chain is None or chain.span.owns(i)
+
+    state = [None] * n_dirs
+    for d in range(n_dirs):
+        i = 0 if d == 0 else n - 1
+        if own(i):
+            zero = torch.zeros(1, batch, hidden, device=mesh[i])
+            state[d] = (zero, zero)
     outs = [[None] * n for _ in range(n_dirs)]
     for r in range(n):
         ran = []
         for d in range(n_dirs):
             i = r if d == 0 else n - 1 - r
-            y, hf, cf = run_block(d, i, *state[d])
-            outs[d][i] = y
-            ran.append((i, hf, cf))
+            if own(i):
+                y, hf, cf = run_block(d, i, *state[d])
+                outs[d][i] = y
+                ran.append((d, i, hf, cf))
+            else:
+                ran.append((d, i, None, None))
         # every direction's block of the round is launched before a carry
-        # moves, so the two active devices compute together
-        for d, (i, hf, cf) in enumerate(ran):
+        # moves, so the two active devices compute together; every
+        # process takes the hops in this one order
+        for d, i, hf, cf in ran:
             j = i + 1 if d == 0 else i - 1
-            if 0 <= j < n:
+            if not 0 <= j < n:
+                continue
+            if own(i) and own(j):
                 state[d] = (hf.to(mesh[j]), cf.to(mesh[j]))
+            elif own(i):
+                chain.send(torch.stack([hf, cf]), i, j)
+            elif own(j):
+                hc = chain.recv(i, j, (2, 1, batch, hidden), torch.float32)
+                state[d] = (hc[0], hc[1])
     return outs
 
 
 def fused_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
-                    compute_dtype, remat: bool = False):
+                    compute_dtype, remat: bool = False, chain=None):
     """The kernel route's wavefront: each block of each direction is one
     `lstm_scan_fused_carry` call (D = 1; dir_offset = 1 runs the BLSTM's
     backward half descending over the block's natural-order arrays),
     the input projection inside it; with `remat`, a checkpointed one.
     Validity is each row's prefix within the block: a row's valid frames
     are a global prefix, so within a block they are a prefix too (zero
-    frames in the blocks after its end). Returns outs[d][i]."""
+    frames in the blocks after its end). With `chain` (a mesh that spans
+    processes) xs[i] and pts[i] are None for another process's block,
+    which takes no call. Returns outs[d][i]."""
     n_dirs = 2 if bidirectional else 1
     _, P, _, H = params["W_in"].shape
     on = per_device(params, mesh)
-    lengths = [(pt != 0).sum(dim=0, dtype=torch.int32) for pt in pts]
+    lengths = [None if pt is None else
+               (pt != 0).sum(dim=0, dtype=torch.int32) for pt in pts]
+    batch = next(x for x in xs if x is not None).shape[1]
 
     def block(d, i, x, h0, c0):
         dev = mesh[i]
@@ -98,7 +132,7 @@ def fused_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
                               use_reentrant=False)
         return block(d, i, xs[i], h0, c0)
 
-    return wavefront(run, n_dirs, mesh, xs[0].shape[1], H)
+    return wavefront(run, n_dirs, mesh, batch, H, chain)
 
 
 def pad_time(x, targets, pattypes, n: int):

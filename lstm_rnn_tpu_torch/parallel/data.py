@@ -32,6 +32,12 @@ with pipeline or tensor parallelism (DP x PP, DP x TP) the rank holds a
 pipe mesh (`pipe_mesh`: its block runs parallel/pipeline.py's stages) or a
 model mesh (`model_mesh`: its LSTM layers shard their cells,
 parallel/tensor.py) the same way.
+
+A seq or pipe mesh that spans processes (`DataGroup.span`) reuses the
+group without its batch split: every process takes the whole fraction,
+runs its own blocks or stages, and `all_reduce_sum` adds up the
+processes' gradients and (error, count), as the JAX package's psum over
+the mesh axis does.
 """
 
 from __future__ import annotations
@@ -51,7 +57,14 @@ class DataGroup:
     its device, the processes (hosts) of the job, the torch.distributed
     group (None: the default group) and, under DP x SP, DP x PP or DP x
     TP, the rank's seq, pipe or model mesh (a tuple of devices whose
-    first is `device`; at most one of them, None without)."""
+    first is `device`; at most one of them, None without).
+
+    With `span` (parallel/mesh.py `SpanMesh`: a 1-D seq or pipe mesh over
+    every process's devices) the ranks are the mesh's processes, not
+    data-parallel ones: each holds its positions of the one mesh, whose
+    owners and hop groups `span` gives, `device` is its first one
+    (`span.home`), every rank takes the whole fraction (`block`), and the
+    sums over the ranks add up the processes' shares of one step."""
     rank: int
     size: int
     device: torch.device
@@ -60,6 +73,7 @@ class DataGroup:
     seq_mesh: Optional[tuple] = None
     pipe_mesh: Optional[tuple] = None
     model_mesh: Optional[tuple] = None
+    span: Any = None
 
     @property
     def is_coordinator(self) -> bool:
@@ -82,7 +96,9 @@ class DataGroup:
     def block(self, inputs, targets, pattypes):
         """This rank's contiguous host arrays of a fraction's [T, B, ...]
         arrays, B padded to a multiple of the world size (pad_batch);
-        targets may be None."""
+        targets may be None. Under a span, the whole fraction."""
+        if self.span is not None:
+            return [inputs, targets, pattypes]
         return [None if a is None else np.ascontiguousarray(
                     local_block(a, self.rank, self.size))
                 for a in pad_batch(inputs, targets, pattypes, self.size)]

@@ -31,12 +31,26 @@ several GPUs fed, so each GPU gets its own.
   `--num_devices` is ignored, as in the JAX CLI: every process's devices
   take part. Global rank = i * local + j, world = N * local, so rank
   order is process-major: each host owns a contiguous block of B and
-  every group, with its hops, stays inside a host. A group that would
-  span hosts (k not dividing L) is refused by name: one process cannot
-  drive another host's GPUs. Process 0 serves the
+  every group, with its hops, stays inside a host. Process 0 serves the
   rendezvous store at the coordinator's port; every process posts its
   local worker count there, and a host whose count differs from the
   others' is refused by name before any worker starts.
+- A seq or pipe mesh over every host (train mode; the JAX package's 1-D
+  mesh over `global_devices`, lstm_rnn_tpu/parallel/mesh.py:30-34):
+  with the multi-host flags and --seq_devices or --pipeline_devices k
+  not dividing a host's L, where k is the global device count, each
+  process starts ONE worker, which drives its L GPUs as positions
+  off_i .. off_i + L_i - 1 of the one mesh (process-major; the hosts may
+  differ in size, so this plan alone lifts the same-count check). Each
+  process posts its L, and the rendezvous refuses the span by name unless
+  the counts add up to k. The worker's DataGroup holds the mesh
+  (`DataGroup.span`, parallel/mesh.py `SpanMesh`) with the hops' process
+  groups (parallel/hop.py). A composed group whose row would cross a host
+  (k not dividing L and short of the global count) and tensor
+  parallelism across hosts are refused by name before any worker starts:
+  the JAX package fails there too (mesh.py:132, "Invalid host data").
+  `local_devices` gives a process its devices (every GPU torch sees; on
+  the CPU the CPU k times, which a test may replace).
 - The group's backend is NCCL on CUDA and gloo on the CPU; there is no
   fallback. The kernel library is built once, in the launching process,
   before the workers start.
@@ -54,7 +68,8 @@ DataGroup, with the worker's seq, pipe or model mesh). `start(fn,
 devices, backend, axis)` runs `fn(group, *args)` in one worker per entry
 of a list, a device or a mesh (a list of devices) of the given axis,
 which may name one device several times (chip_smoke.py runs two ranks on
-cuda:0 over gloo that way, each with a mesh of cuda:0 twice).
+cuda:0 over gloo that way, each with a mesh of cuda:0 twice); with
+`span=True` the lists are the workers' parts of one spanning mesh.
 """
 
 from __future__ import annotations
@@ -69,8 +84,9 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from lstm_rnn_tpu_torch.parallel import hop
 from lstm_rnn_tpu_torch.parallel.data import DataGroup
-from lstm_rnn_tpu_torch.parallel.mesh import composed_mesh
+from lstm_rnn_tpu_torch.parallel.mesh import composed_mesh, span_mesh
 
 # seconds a collective, the rendezvous or a host's arrival may take before
 # the run fails
@@ -84,17 +100,29 @@ class Plan:
     (host, port; None: a loopback store of this process). Under DP x SP,
     DP x PP or DP x TP, `meshes[j]` is worker j's mesh of the `axis`
     "seq", "pipe" or "model", whose first device is `devices[j]` (None:
-    no mesh)."""
+    no mesh). With `span` = k > 0 the workers' meshes are their parts of
+    one k-position seq or pipe mesh over every process (worker j's part
+    `meshes[j]`, in rank order): one worker a process in a multi-host
+    run. `timeout_s` bounds every collective, hop and wait of the run
+    (0: TIMEOUT_S)."""
     devices: tuple
     hosts: int = 1
     process_id: int = 0
     addr: Optional[tuple] = None
     meshes: Optional[tuple] = None
     axis: str = "seq"
+    span: int = 0
+    timeout_s: float = 0.0
 
     @property
     def world(self) -> int:
         return len(self.devices) * self.hosts
+
+    @property
+    def local_count(self) -> int:
+        """What this process posts at the rendezvous: its worker count, or
+        under a span its devices (the positions it owns)."""
+        return len(self.meshes[0]) if self.span else len(self.devices)
 
 
 class WorkerError(RuntimeError):
@@ -133,30 +161,67 @@ def mesh_axis(cfg):
     return None, 1
 
 
+def local_devices(device_type: str, k: int = 1) -> List[torch.device]:
+    """This process's devices in a multi-host run: every GPU torch sees;
+    on the CPU, the CPU k times (a mesh's worth, so that a process is one
+    CPU worker with its own mesh). A test that wants a CPU process of
+    another shape replaces this function."""
+    if device_type == "cpu":
+        return [torch.device("cpu")] * k
+    return [torch.device("cuda", j) for j in range(torch.cuda.device_count())]
+
+
+def _spans(axis: str, k: int, n: int, hosts: int) -> bool:
+    """Whether a multi-host run's k-position mesh of `axis` over hosts of
+    n local devices (this one's) spans every host, the one cross-host
+    layout the JAX package trains; refuses the others by name. A spanning
+    k is the global device count, which the rendezvous checks: every host
+    holds at least one device, so k >= n + hosts - 1 here."""
+    if not n % k:
+        return False  # whole groups on every host
+    refused = (f"--{FLAGS[axis]} {k} over a host of {n} devices would put "
+               f"a {axis} group across hosts")
+    if axis == "model":
+        raise ValueError(
+            f"{refused}: tensor parallelism across hosts, where the JAX "
+            "package fails too (lstm_rnn_tpu/parallel/mesh.py:132, "
+            "'Invalid host data': its TP mesh is always 2-D); see "
+            "ROADMAP.md (Not to port)")
+    if k < n + hosts - 1:
+        raise ValueError(
+            f"{refused} inside a composed ('data', '{axis}') mesh, where "
+            "the JAX package fails too (lstm_rnn_tpu/parallel/mesh.py:132, "
+            f"'Invalid host data'); a {axis} group crosses hosts only as "
+            "one 1-D mesh over every host's devices (k = the global device "
+            "count); see ROADMAP.md (Not to port)")
+    return True
+
+
 def plan(cfg, device: torch.device) -> Optional[Plan]:
     """The run's workers, or None for a run in this process (no group: one
     device, or a 1-D seq, pipe or model mesh). `device` is the device the
     CLI selected (its type picks GPUs or CPU workers)."""
     multihost = bool(cfg.coordinator_address)
     axis, k = mesh_axis(cfg)
-    if device.type == "cpu":
-        # a multi-host process is one CPU worker (the CPU k times with a
-        # mesh)
-        n = k if multihost else max(1, cfg.num_devices)
+    if multihost:
+        local = local_devices(device.type, k)
+        n = len(local)
+    elif device.type == "cpu":
+        n = max(1, cfg.num_devices)
     else:
         n_avail = torch.cuda.device_count()
-        n = n_avail if multihost or cfg.num_devices == 0 else cfg.num_devices
+        n = n_avail if cfg.num_devices == 0 else cfg.num_devices
         if n > n_avail:
             raise RuntimeError(
                 f"num_devices={n} but only {n_avail} devices available")
     meshes = None
     if axis is not None:
-        if multihost and n % k:
-            raise ValueError(
-                f"--{FLAGS[axis]} {k} over a host of {n} devices would put "
-                f"a {axis} group across hosts, which the PyTorch port does "
-                "not support; see ROADMAP.md (parallelism, a cross-host "
-                f"{axis} group)")
+        if multihost and _spans(axis, k, n, cfg.num_processes):
+            # one worker drives this host's part of the one mesh
+            return Plan((local[0],), hosts=cfg.num_processes,
+                        process_id=cfg.process_id,
+                        addr=_coordinator(cfg.coordinator_address),
+                        meshes=(tuple(local),), axis=axis, span=k)
         groups, composed = composed_mesh(n, k, device.type, FLAGS[axis])
         if not (composed or multihost):
             return None  # the 1-D mesh, in this process
@@ -175,28 +240,35 @@ def plan(cfg, device: torch.device) -> Optional[Plan]:
                 axis=axis)
 
 
-def _timeout():
-    return datetime.timedelta(seconds=TIMEOUT_S)
+def _timeout(p: Optional[Plan] = None):
+    return datetime.timedelta(seconds=p.timeout_s if p and p.timeout_s
+                              else TIMEOUT_S)
 
 
 def _serve_store(p: Plan):
     """The rendezvous store: a loopback one on a free port for one host;
     for several, process 0 serves it at the coordinator's port and the
     others connect. Every process posts its local device count and host
-    name, and all of them check that the counts agree. Returns (store,
-    addr)."""
+    name (`Plan.local_count`), and all of them check that the counts
+    agree, or under a span that they add up to its k. Returns (store,
+    addr, counts): counts[r] the positions rank r owns under a span (its
+    mesh part's length on one host), else None."""
     import torch.distributed as dist
     if p.addr is None:
         store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
-                              wait_for_workers=False, timeout=_timeout())
-        return store, ("127.0.0.1", store.port)
+                              wait_for_workers=False, timeout=_timeout(p))
+        counts = [len(m) for m in p.meshes] if p.span else None
+        if counts is not None and sum(counts) != p.span:
+            raise ValueError(f"a span of {p.span} positions was given "
+                             f"parts of {counts}")
+        return store, ("127.0.0.1", store.port), counts
     host, port = p.addr
     store = dist.TCPStore(host, port, None, is_master=p.process_id == 0,
-                          wait_for_workers=False, timeout=_timeout())
+                          wait_for_workers=False, timeout=_timeout(p))
     store.set(f"host/{p.process_id}",
-              f"{len(p.devices)} {socket.gethostname()}")
+              f"{p.local_count} {socket.gethostname()}")
     keys = [f"host/{i}" for i in range(p.hosts)]
-    store.wait(keys, _timeout())
+    store.wait(keys, _timeout(p))
     counts = {}
     for i, key in enumerate(keys):
         n, name = store.get(key).decode().split(" ", 1)
@@ -204,14 +276,24 @@ def _serve_store(p: Plan):
     # process 0 serves the store until every process has read the counts
     store.set(f"read/{p.process_id}", "1")
     if p.process_id == 0:
-        store.wait([f"read/{i}" for i in range(p.hosts)], _timeout())
+        store.wait([f"read/{i}" for i in range(p.hosts)], _timeout(p))
+    hosts = ", ".join(f"process {i} on {name} has {n}"
+                      for i, (n, name) in sorted(counts.items()))
+    if p.span:
+        if sum(n for n, _ in counts.values()) != p.span:
+            raise RuntimeError(
+                f"--{FLAGS[p.axis]} {p.span} over hosts of "
+                f"{sum(n for n, _ in counts.values())} devices in all: a "
+                f"{p.axis} group across hosts must span every host's "
+                f"devices, and no composed mesh may cross a host (the JAX "
+                "package fails there too, lstm_rnn_tpu/parallel/"
+                f"mesh.py:132): {hosts}")
+        return store, p.addr, [counts[i][0] for i in range(p.hosts)]
     if len({n for n, _ in counts.values()}) > 1:
         raise RuntimeError(
             "every host of a multi-host run must have the same number of "
-            "devices: " + ", ".join(
-                f"process {i} on {name} has {n}"
-                for i, (n, name) in sorted(counts.items())))
-    return store, p.addr
+            "devices: " + hosts)
+    return store, p.addr, None
 
 
 def _die_with_parent() -> None:
@@ -225,7 +307,8 @@ def _die_with_parent() -> None:
         pass
 
 
-def _worker(j: int, p: Plan, addr, backend: str, fn: Callable, args):
+def _worker(j: int, p: Plan, addr, counts, backend: str, fn: Callable,
+            args):
     import torch.distributed as dist
     _die_with_parent()
     rank = p.process_id * len(p.devices) + j
@@ -240,12 +323,19 @@ def _worker(j: int, p: Plan, addr, backend: str, fn: Callable, args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     store = dist.TCPStore(addr[0], addr[1], None, is_master=False,
-                          timeout=_timeout())
+                          timeout=_timeout(p))
     dist.init_process_group(backend, store=dist.PrefixStore("dp", store),
                             rank=rank, world_size=p.world,
-                            timeout=_timeout())
+                            timeout=_timeout(p))
     try:
-        mesh = {f"{p.axis}_mesh": p.meshes[j]} if p.meshes else {}
+        if p.span:
+            # the hops' groups first: every rank makes them in this order
+            span = dataclasses.replace(
+                span_mesh(p.axis, counts, rank, p.meshes[j]),
+                groups=hop.new_groups(backend, _timeout(p)))
+            mesh = {"span": span}
+        else:
+            mesh = {f"{p.axis}_mesh": p.meshes[j]} if p.meshes else {}
         rc = fn(DataGroup(rank, p.world, device, hosts=p.hosts, **mesh),
                 *args)
         if rc:
@@ -281,11 +371,11 @@ def launch(p: Plan, fn: Callable, args=(), backend: Optional[str] = None
         from lstm_rnn_tpu_torch.ops import _build
         _build.load()
     # held until the workers are done: process 0's store serves them all
-    store, addr = _serve_store(p)
+    store, addr, counts = _serve_store(p)
     sys.stdout.flush()
     sys.stderr.flush()
     try:
-        mp.spawn(_worker, args=(p, addr, backend, fn, tuple(args)),
+        mp.spawn(_worker, args=(p, addr, counts, backend, fn, tuple(args)),
                  nprocs=len(p.devices), join=True, daemon=True)
     except ProcessException as e:
         if store.check(["first_failure"]):
@@ -295,18 +385,24 @@ def launch(p: Plan, fn: Callable, args=(), backend: Optional[str] = None
 
 
 def start(fn: Callable, devices: Sequence, args=(),
-          backend: Optional[str] = None, axis: str = "seq") -> None:
+          backend: Optional[str] = None, axis: str = "seq",
+          span: bool = False, timeout_s: float = 0.0) -> None:
     """Run fn(group, *args) in len(devices) workers of one host, worker j
     on devices[j]: a device, or a mesh of `axis` "seq", "pipe" or "model"
     (a list of devices, every entry a list: worker j on its mesh's first
-    device). A device may repeat: then the backend must be gloo."""
+    device). With `span`, the lists are the workers' parts of one seq or
+    pipe mesh in rank order (group.span: each worker the processes' hops
+    of a mesh over several hosts). A device may repeat: then the backend
+    must be gloo. `timeout_s` (0: TIMEOUT_S) bounds every wait of the
+    run."""
     if all(isinstance(d, (list, tuple)) for d in devices):
         meshes = tuple(tuple(torch.device(x) for x in m) for m in devices)
-        launch(Plan(tuple(m[0] for m in meshes), meshes=meshes, axis=axis),
-               fn, args, backend)
+        launch(Plan(tuple(m[0] for m in meshes), meshes=meshes, axis=axis,
+                    span=sum(map(len, meshes)) if span else 0,
+                    timeout_s=timeout_s), fn, args, backend)
     else:
-        launch(Plan(tuple(torch.device(d) for d in devices)), fn, args,
-               backend)
+        launch(Plan(tuple(torch.device(d) for d in devices),
+                    timeout_s=timeout_s), fn, args, backend)
 
 
 def _cli_worker(group: DataGroup, body: Callable, cfg) -> int:
@@ -320,8 +416,9 @@ def run(cfg, device: torch.device, body: Callable) -> int:
     p = plan(cfg, device)
     if p is None:
         return body(cfg, device)
-    if p.hosts > 1 and cfg.num_devices not in (0, 1, p.world):
-        print(f"Multi-host run spans all {p.world} global devices "
+    total = p.span or p.world
+    if p.hosts > 1 and cfg.num_devices not in (0, 1, total):
+        print(f"Multi-host run spans all {total} global devices "
               "(--num_devices ignored: every process must participate)")
     launch(p, _cli_worker, (body, cfg))
     return 0

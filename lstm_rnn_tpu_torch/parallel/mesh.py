@@ -19,11 +19,18 @@ package's 2-D ('data', axis) mesh, whose row j is rank j's group of
 consecutive devices (`make_mesh_2d`: adjacent devices share a model
 group). The ranks run in worker processes (parallel/launch.py), each
 driving its group's GPUs.
+
+A seq or pipe mesh may also span processes (`SpanMesh`, `span_mesh`):
+the JAX package's 1-D mesh over every process's devices, which its
+multi-host CLI trains when the flag's k is the global device count. Each
+process drives its own positions, and a hop between two processes goes
+over torch.distributed (parallel/hop.py).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import dataclasses
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
@@ -69,3 +76,59 @@ def composed_mesh(num_devices: int, k: int, device_type: str = "cuda",
         return [make_seq_mesh(k, device_type, j * k)
                 for j in range(num_devices // k)], True
     return [make_seq_mesh(k, device_type)], False
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanMesh:
+    """A 1-D seq or pipe mesh that spans processes: the JAX package's mesh
+    over every process's devices in process-major order (lstm_rnn_tpu/
+    parallel/mesh.py `global_devices`), held by one of its processes.
+    Process r owns the positions `offsets[r] .. offsets[r] + counts[r] -
+    1`, one a local device. `devices[i]` is position i's device where
+    this process owns it, None where another does; `owners[i]` is the
+    rank that owns it. `groups` holds the torch.distributed groups of the
+    hops (parallel/hop.py `new_groups`: one a direction of travel), None
+    until the worker has made them.
+
+    Indexing and len() read it as a mesh; code that places work on its
+    devices asks `owns(i)` first."""
+    axis: str
+    rank: int
+    owners: tuple
+    devices: tuple
+    groups: Any = None
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def __getitem__(self, i):
+        return self.devices[i]
+
+    def owns(self, i: int) -> bool:
+        return self.owners[i] == self.rank
+
+    @property
+    def local(self) -> List[torch.device]:
+        """This process's devices, in mesh order."""
+        return [d for d in self.devices if d is not None]
+
+    @property
+    def home(self) -> torch.device:
+        """The first owned position's device: where the parameters, the
+        gradients and this process's share of the loss live."""
+        return self.local[0]
+
+
+def span_mesh(axis: str, counts: Sequence[int], rank: int,
+              local: Sequence[torch.device]) -> SpanMesh:
+    """The spanning mesh of `axis` as process `rank` holds it: counts[r]
+    positions for process r, in rank order, this process's on `local`
+    (its devices, len(local) == counts[rank])."""
+    if len(local) != counts[rank]:
+        raise ValueError(f"process {rank} posted {counts[rank]} devices but "
+                         f"holds {len(local)}")
+    owners = tuple(r for r, n in enumerate(counts) for _ in range(n))
+    off = sum(counts[:rank])
+    devices = [None] * len(owners)
+    devices[off:off + len(local)] = [torch.device(d) for d in local]
+    return SpanMesh(axis, rank, owners, tuple(devices))

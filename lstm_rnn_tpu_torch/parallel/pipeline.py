@@ -62,6 +62,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from lstm_rnn_tpu_torch.ops.masking import PATTYPE_NONE
+from lstm_rnn_tpu_torch.parallel import hop
 
 
 def stage_ranges(n_layers: int, n_stages: int) -> List[Tuple[int, int]]:
@@ -83,7 +84,15 @@ def loss_and_count_pipelined(net, params, x, targets, pattypes,
     mesh[0]. x [T, B, F], targets [T, B] int or [T, B, W], pattypes
     [T, B], all on mesh[0] with the parameters. microbatches: m (0 = the
     stage count). Differentiable: autograd gives the one-device
-    gradients on mesh[0]."""
+    gradients on mesh[0].
+
+    On a pipe mesh that spans processes (parallel/mesh.py `SpanMesh`)
+    every process passes the whole fraction on its first device
+    (`mesh.home`) and runs its own stages: the error and count are the
+    last stage's process's (zero elsewhere), and each process's gradients
+    are those of its stages' layers (zero for the others'), so that their
+    sums over the processes are the fraction's. The stage messages and
+    their cotangents cross over parallel/hop.py's chain."""
     return _pipelined(net, params, x, targets, pattypes, mesh, microbatches)
 
 
@@ -118,7 +127,12 @@ def _device_guard(dev: torch.device):
 
 
 def _pipelined(net, params, x, targets, pattypes, mesh, microbatches):
-    mesh = [torch.device(d) for d in mesh]
+    chain = hop.step_chain(mesh, params)
+    if chain is not None and targets is None:
+        raise ValueError("pipelined serving over several processes is not "
+                         "supported (the JAX CLI refuses it too)")
+    if chain is None:
+        mesh = [torch.device(d) for d in mesh]
     n_stages = len(mesh)
     hidden = net.specs[1:-1]
     ranges = stage_ranges(len(hidden), n_stages)
@@ -129,21 +143,25 @@ def _pipelined(net, params, x, targets, pattypes, mesh, microbatches):
     bm = x.shape[1] // m
     fused = not want_outputs and net.takes_fused_tail()
     last = n_stages - 1
+    own = [chain is None or mesh.owns(s) for s in range(n_stages)]
+    home = mesh[0] if chain is None else mesh.home
 
-    # each stage's own layers, one differentiable copy per call
+    # each owned stage's own layers, one differentiable copy per call
     stage_params = [
         {s.name: {k: v.to(mesh[i]) for k, v in params[s.name].items()}
-         for s in hidden[lo:hi]}
+         for s in hidden[lo:hi]} if own[i] else None
         for i, (lo, hi) in enumerate(ranges)]
 
     def cols(a, i, dev):
         return None if a is None else \
             a[:, i * bm:(i + 1) * bm].to(dev).contiguous()
 
-    # microbatch i's pattypes on every stage's device, its targets on the
-    # last stage's
-    pts = [[cols(pattypes, i, dev) for dev in mesh] for i in range(m)]
-    tgs = [cols(targets, i, mesh[last]) for i in range(m)]
+    # microbatch i's pattypes on every owned stage's device, its targets
+    # on the last stage's
+    pts = [[cols(pattypes, i, dev) if own[s] else None
+            for s, dev in enumerate(mesh)] for i in range(m)]
+    tgs = [cols(targets, i, mesh[last]) if own[last] else None
+           for i in range(m)]
 
     def stage(s, i, inp):
         lo, hi = ranges[s]
@@ -167,27 +185,52 @@ def _pipelined(net, params, x, targets, pattypes, mesh, microbatches):
             return checkpoint(stage, s, i, inp, use_reentrant=False)
         return stage(s, i, inp)
 
+    def message(s):
+        """The [T, bm, width] message stage s hands on: the output of its
+        last layer, in the inputs' dtype."""
+        return (x.shape[0], bm, hidden[ranges[s][1] - 1].size), x.dtype
+
     # GPipe's ticks: stage s on microbatch k - s; msgs[s] holds the
-    # message stage s received at the previous tick
+    # message stage s received at the previous tick. A message to another
+    # process goes once every owned stage of the tick has been issued,
+    # outside the stage's checkpoint (a recompute sends nothing), and
+    # every process takes those hops in one order
     msgs = [None] * n_stages
     results = [None] * m
     for k in range(m + n_stages - 1):
         sent = [None] * n_stages
+        out = [None] * n_stages
         for s in range(n_stages):
             i = k - s
-            if not 0 <= i < m:
+            if not (0 <= i < m and own[s]):
                 continue
             inp = cols(x, i, mesh[0]) if s == 0 else msgs[s]
-            out = run(s, i, inp)
+            out[s] = run(s, i, inp)
             if s == last:
-                results[i] = out
+                results[i] = out[s]
+            elif own[s + 1]:
+                sent[s + 1] = out[s].to(mesh[s + 1], non_blocking=True)
+        for s in range(n_stages - 1):
+            if not 0 <= k - s < m or own[s] == own[s + 1]:
+                continue
+            if own[s]:
+                shape, dtype = message(s)
+                if (tuple(out[s].shape), out[s].dtype) != (shape, dtype):
+                    raise RuntimeError(
+                        f"stage {s} would send {tuple(out[s].shape)} "
+                        f"{out[s].dtype}; stage {s + 1} expects {shape} "
+                        f"{dtype}")
+                chain.send(out[s], s, s + 1)
             else:
-                sent[s + 1] = out.to(mesh[s + 1], non_blocking=True)
+                sent[s + 1] = chain.recv(s, s + 1, *message(s))
         msgs = sent
 
-    home = mesh[0]
     if want_outputs:
         return torch.cat([y.to(home) for y in results], dim=1)[:, :b]
+    if not own[last]:
+        err = torch.zeros((), dtype=x.dtype, device=home)
+        return chain.close(err), torch.zeros((), dtype=torch.int64,
+                                             device=home)
     err = torch.stack([e.to(home) for e, _ in results]).sum()
     corr = torch.stack([c.to(home) for _, c in results]).sum()
-    return err, corr
+    return (err if chain is None else chain.close(err)), corr

@@ -52,6 +52,7 @@ from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
                                                    softmax_forward)
 from lstm_rnn_tpu_torch.models.lstm import (_lstm_scan, _needs_grad,
                                           _scan_acts_valid, kernel_route)
+from lstm_rnn_tpu_torch.parallel import hop
 
 
 def _scan_block(acts, w_rec, peep, mask, compute_dtype, h0, c0):
@@ -67,16 +68,18 @@ def _scan_block(acts, w_rec, peep, mask, compute_dtype, h0, c0):
 
 
 def _scan_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
-                    compute_dtype):
+                    compute_dtype, chain=None):
     """The scan route's wavefront: each block's projections once, then
     `_scan_block` per direction and block (the backward half over
-    time-reversed blocks)."""
+    time-reversed blocks). With `chain`, this process's blocks only."""
     n_dirs = 2 if bidirectional else 1
     H = params["W_in"].shape[-1]
     on = per_device(params, mesh)
-    proj = [_scan_acts_valid(x, pt, on[dev]["W_in"], on[dev]["b"],
+    proj = [None if x is None else
+            _scan_acts_valid(x, pt, on[dev]["W_in"], on[dev]["b"],
                              bias_mult, compute_dtype)
             for x, pt, dev in zip(xs, pts, mesh)]
+    batch = next(x for x in xs if x is not None).shape[1]
 
     def run(d, i, h0, c0):
         acts, valid = proj[i]
@@ -90,12 +93,12 @@ def _scan_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
         ys = ys[:, 0]
         return (ys.flip(0) if d else ys), h_t, c_t
 
-    return wavefront(run, n_dirs, mesh, xs[0].shape[1], H)
+    return wavefront(run, n_dirs, mesh, batch, H, chain)
 
 
 def lstm_forward_seq(params, xs, pts, bias_mult: float, bidirectional: bool,
                      mesh, compute_dtype: torch.dtype = torch.float32,
-                     backend: str = "auto"):
+                     backend: str = "auto", chain=None):
     """One (B)LSTM layer over a time-sharded sequence. xs, pts: the
     [Tl, B, P] input blocks and their [Tl, B] pattypes, block i on
     mesh[i] (the JAX function takes one device's block inside shard_map;
@@ -108,12 +111,16 @@ def lstm_forward_seq(params, xs, pts, bias_mult: float, bidirectional: bool,
         raise ValueError(f"W_in has {w_in.shape[0]} directions; "
                          f"bidirectional={bidirectional}")
     kernels = kernel_route(backend, w_in.shape[-1], compute_dtype,
-                           _needs_grad(*xs, *params.values()))
+                           _needs_grad(*(x for x in xs if x is not None),
+                                       *params.values()))
     route = fused_wavefront if kernels else _scan_wavefront
     outs = route(params, xs, pts, bias_mult, bidirectional, mesh,
-                 compute_dtype)
+                 compute_dtype, chain=chain)
     ys = []
     for i, x in enumerate(xs):
+        if x is None:
+            ys.append(None)
+            continue
         y = outs[0][i] if len(outs) == 1 else torch.cat(
             [outs[0][i], outs[1][i]], dim=-1)
         ys.append(y.to(x.dtype))
@@ -124,7 +131,14 @@ def loss_and_count_seq(net, params, x, targets, pattypes, mesh):
     """(total error, correct count) of the full net, sequence-parallel,
     on mesh[0]. x [T, B, F], targets [T, B] int or [T, B, W], pattypes
     [T, B], all on mesh[0] with the parameters. Differentiable: autograd
-    gives the single-device gradients, summed over the blocks."""
+    gives the single-device gradients, summed over the blocks.
+
+    On a mesh that spans processes (parallel/mesh.py `SpanMesh`) every
+    process passes the whole fraction on its first device (`mesh.home`,
+    where its parameters live) and gets the error and count of its own
+    blocks there: their sums over the processes are the fraction's, and
+    so are the sums of the gradients autograd gives each of them (the
+    carries' cotangents cross over parallel/hop.py's chain)."""
     return _seq_run(net, params, x, targets, pattypes, mesh,
                     want_outputs=False)
 
@@ -141,32 +155,41 @@ def _seq_run(net, params, x, targets, pattypes, mesh, want_outputs):
     n = len(mesh)
     x, targets, pattypes, t = pad_time(x, targets, pattypes, n)
     tl = x.shape[0] // n
+    chain = hop.step_chain(mesh, params)
+    if chain is not None and want_outputs:
+        raise ValueError("sequence-parallel serving over several processes "
+                         "is not supported (the JAX CLI refuses it too)")
+    home = mesh[0] if chain is None else mesh.home
+    owned = [i for i in range(n) if chain is None or mesh.owns(i)]
 
     def split(a):
-        return [a[i * tl:(i + 1) * tl].to(dev) for i, dev in enumerate(mesh)]
+        out = [None] * n
+        for i in owned:
+            out[i] = a[i * tl:(i + 1) * tl].to(mesh[i])
+        return out
 
     hs, pts = split(x), split(pattypes)
     for s in net.specs[1:-1]:
         p = params[s.name]
         if s.type in ioc.LSTM_TYPES:
             hs = lstm_forward_seq(p, hs, pts, s.bias, ioc.LSTM_TYPES[s.type],
-                                  mesh, net.compute_dtype, net.backend)
+                                  mesh, net.compute_dtype, net.backend,
+                                  chain)
             continue
         on = per_device(p, mesh)
-        if s.type == "softmax":
-            hs = [softmax_forward(on[dev], h, s.bias, net.compute_dtype)
-                  for h, dev in zip(hs, mesh)]
-        else:
-            hs = [feedforward_forward(on[dev], h,
-                                      ioc.FEEDFORWARD_TYPES[s.type], s.bias,
-                                      net.compute_dtype)
-                  for h, dev in zip(hs, mesh)]
-    home = mesh[0]
+        for i in owned:
+            if s.type == "softmax":
+                hs[i] = softmax_forward(on[mesh[i]], hs[i], s.bias,
+                                        net.compute_dtype)
+            else:
+                hs[i] = feedforward_forward(on[mesh[i]], hs[i],
+                                            ioc.FEEDFORWARD_TYPES[s.type],
+                                            s.bias, net.compute_dtype)
     if want_outputs:
         return torch.cat([h.to(home) for h in hs])[:t]
     tgs = split(targets)
-    err = torch.stack([net.loss_fn(h, tg, pt).to(home)
-                       for h, tg, pt in zip(hs, tgs, pts)]).sum()
-    corr = torch.stack([net.correct_count(h, tg, pt).to(home)
-                        for h, tg, pt in zip(hs, tgs, pts)]).sum()
-    return err, corr
+    err = torch.stack([net.loss_fn(hs[i], tgs[i], pts[i]).to(home)
+                       for i in owned]).sum()
+    corr = torch.stack([net.correct_count(hs[i], tgs[i], pts[i]).to(home)
+                        for i in owned]).sum()
+    return (err if chain is None else chain.close(err)), corr

@@ -67,6 +67,14 @@ group as the seq mesh does: its first device is the group's, where the
 parameters, the gradients and the update stay, and the update's stream
 waits for every device of the mesh before the all-reduce.
 
+A seq or pipe mesh that spans processes (parallel/mesh.py `SpanMesh`, the
+JAX package's 1-D mesh over every host's devices) comes with the data
+group that holds it (`DataGroup.span`): every process takes the whole
+fraction, runs its own blocks or stages (the carries and stage messages
+cross over parallel/hop.py), and the group's sums add up the processes'
+shares of the gradients, the errors and the counts, so that every process
+applies the same update. A process's first owned device is its device.
+
 The optimizer state for autosaves (Optimizer.cu:326-341,
 SteepestDescentOptimizer.cu:118-123) goes out through `export_state` and
 comes back through `import_state`, in the reference's layer-array layout.
@@ -125,6 +133,7 @@ from lstm_rnn_tpu_torch.data.dataset import (DataSet, Fraction,
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
 from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
+from lstm_rnn_tpu_torch.parallel.mesh import SpanMesh
 from lstm_rnn_tpu_torch.parallel.pipeline import (loss_and_count_pipelined,
                                                   stage_ranges)
 from lstm_rnn_tpu_torch.parallel.sequence import loss_and_count_seq
@@ -217,9 +226,17 @@ class Trainer:
         self.model_mesh = model_mesh
         self.pipeline_microbatches = pipeline_microbatches
         self.data_group = data_group
-        meshes = [(kind, [torch.device(d) for d in m]) for kind, m in (
+        # a mesh that spans processes lists this process's devices only
+        meshes = [(kind, m.local if isinstance(m, SpanMesh)
+                   else [torch.device(d) for d in m]) for kind, m in (
             ("seq", seq_mesh), ("pipe", pipe_mesh), ("model", model_mesh))
             if m is not None]
+        self.span = next((m for m in (seq_mesh, pipe_mesh)
+                          if isinstance(m, SpanMesh)), None)
+        if self.span is not None and (
+                data_group is None or data_group.span is not self.span):
+            raise ValueError("a mesh that spans processes trains with the "
+                             "data group that holds it (DataGroup.span)")
         if len(meshes) > 1:
             raise ValueError("the Trainer takes one of seq_mesh, pipe_mesh "
                              "and model_mesh")
@@ -307,7 +324,8 @@ class Trainer:
         if self.pipe_mesh is not None:
             return loss_and_count_pipelined(
                 self.net, params, inputs, targets, pattypes,
-                self.mesh_devices, self.pipeline_microbatches)
+                self.span if self.span is not None else self.mesh_devices,
+                self.pipeline_microbatches)
         if self.fused_tail:
             return self.net.loss_and_count_fused(params, inputs, targets,
                                                  pattypes)
@@ -346,8 +364,13 @@ class Trainer:
         parameters); grads in the parameter tree's layout."""
         at = self.params if at is None else at
         err, correct = self.loss_and_metrics(at, inputs, targets, pattypes)
-        grads = torch.autograd.grad(err, self._leaves(at))
-        it = iter(grads)
+        leaves = self._leaves(at)
+        # on a pipe mesh over processes a process's loss reaches only its
+        # stages' layers: the others' gradients are its zero share
+        grads = torch.autograd.grad(err, leaves,
+                                    allow_unused=self.span is not None)
+        it = (torch.zeros_like(v) if g is None else g
+              for g, v in zip(grads, leaves))
         tree = {n: {k: next(it) for k in sorted(self.params[n])}
                 for n in sorted(self.params)}
         return err.detach(), correct, tree
