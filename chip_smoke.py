@@ -241,9 +241,11 @@ weights from a seed, and holds every kernel against its plain twin:
     through the native formatter (its seconds; its bytes against the
     pure-Python dump's); `cli.main(--train true)` on phase 7's corpus
     with --bucket_lengths true, 3 epochs f32, plain, with --device_cache
-    true and with --fuse_fractions 4 (accepted, one fraction at a time)
-    --profile_dir: the tables' errors, trained_network.jsn and every
-    kernel's exact launches alike, every lookup of epochs 2-3 a hit and
+    true and with --fuse_fractions 4 --profile_dir (the step graphs,
+    captured under the profiler): the tables' errors, trained_network.jsn
+    and every kernel's exact launches alike (a capture's launches counted
+    once a replay of its graph), the fused run's warm-ups, captures and
+    replays, every lookup of epochs 2-3 a hit and
     no byte copied from the host in their passes, the trace naming
     rec_kernel, bptt_kernel, ce_fwd_kernel and gemm_kernel; two child
     processes on one fresh --compilation_cache_dir, the first building
@@ -312,7 +314,26 @@ weights from a seed, and holds every kernel against its plain twin:
     GPU for comparison, and the CLI's multi-host --seq_devices and
     --pipeline_devices (a process each CUDA_VISIBLE_DEVICES) against
     one process on as many GPUs. On one GPU a line saying it was not
-    run.
+    run;
+47. --fuse_fractions (graphs.py, the Trainer's fused passes) on phase 7's
+    corpus (LVCSR: its sizes and seed, 10,112 labels): (a) `cli.main(
+    --train true --fuse_fractions 8 --device_cache true)` against
+    --fuse_fractions 1 for TIMIT f32 and bf16, the remat K=4 TIMIT step
+    and LVCSR in f32, 2 epochs each, each run whole under the profiler:
+    the tables' errors and trained_network.jsn (bit for bit for TIMIT,
+    within GRAPH_REL for the others, naming the layers whose bits moved),
+    the profiled kernels equal by name (the fused run's two int64 fills
+    a capture, torch's RNG bookkeeping, aside), the profiler's bptt
+    kernels equal to the K2 and K6b-b launches of the wrappers' counts (a
+    capture's counted once a replay) and those the unfused run's, the
+    stacked epoch taken (no decline line), a warm-up for each mode and
+    shape used, a capture for each used twice, a replay for every other
+    step;
+    (b) the same four as Trainers, fuse 1 and 8, the device cache off and
+    on: the first two epochs' walls (warm-ups, captures and their
+    seconds), three more epochs' walls and their median ms a step, a
+    profiled epoch's busy share, the graphs' pool MiB. The spread of many
+    epochs and the 8-shape LVCSR case: scripts/torch_fused_rates.py.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -1170,6 +1191,19 @@ def gemm_total(counts):
     use)."""
     return sum(v for k, v in counts.items()
                if k.startswith("gemm:") and not k.endswith(":3x"))
+
+
+def graph_executed(tr, counts):
+    """The launches that ran in a Trainer's run whose wrappers counted
+    `counts` (by wrappers()' names): the wrappers saw a step graph's
+    kernels once, at its capture, and a replay calls no wrapper, so each
+    capture's recorded launches count once a replay instead
+    (graphs.py `GraphStats.executed`); without graphs, `counts`."""
+    from lstm_rnn_tpu_torch.graphs import launch_counters
+    name = {id(c): n for n, c in launch_counters().items()}
+    w = wrappers()
+    return {k: tr.graph_stats.executed(name[id(w[k])], n)
+            for k, n in counts.items()}
 
 
 def check_counts(counts, expect, bf16=False, layers=5, x3=False):
@@ -5494,10 +5528,11 @@ def dispatch_cli(torch, workdir):
     """39b-d: cli.main on phase 7's corpus (TIMIT recipe, f32, 3 epochs,
     --bucket_lengths true so that same-shape runs form) without the
     dispatch flags, with --device_cache true, and with --fuse_fractions 4
-    --profile_dir: the tables' errors, trained_network.jsn and the exact
-    launches alike; every lookup of epochs 2-3 a hit and no byte copied
-    from the host in their passes; the trace names the kernels. Returns
-    the launches of the plain run."""
+    --profile_dir (the step graphs, captured in the profiled epoch 1): the
+    tables' errors, trained_network.jsn and the exact launches alike; the
+    fused run's warm-ups, captures and replays; every lookup of epochs 2-3
+    a hit and no byte copied from the host in their passes; the trace
+    names the kernels. Returns the launches of the plain run."""
     import contextlib
     import io
     from lstm_rnn_tpu_torch import cli
@@ -5550,7 +5585,8 @@ def dispatch_cli(torch, workdir):
             wall = time.perf_counter() - t0
         finally:
             cli.Trainer = Trainer
-        counts = {k: f.launches for k, f in w.items()}
+        counts = graph_executed(made[-1],
+                                {k: f.launches for k, f in w.items()})
         text = buf.getvalue()
         rows = _table_rows(text)
         for ln in rows:
@@ -5584,11 +5620,23 @@ def dispatch_cli(torch, workdir):
     phase("dispatch", f"--device_cache true: tables' errors and "
           f"trained_network.jsn bit for bit the plain run's; brackets "
           f"{brackets}; epochs 2-3 copy 0 bytes from the host")
-    phase("dispatch", f"--fuse_fractions 4 (accepted, one fraction at a "
-          f"time): trained_network.jsn bit for bit the plain run's, "
-          f"launches equal ({runs['fuse'][2]['lstm_bwd']} K2, "
-          f"{runs['fuse'][2]['softmax_ce_proj_bwd']} K3b); staging buffers "
-          f"allocated {runs['fuse'][3]._staging.allocations}")
+    fused = runs["fuse"][3]
+    st = fused.graph_stats.as_dict()
+    want = expected_graphs(fused, epochs)
+    got = (st["warmups"], st["captures"], st["replays"])
+    if got != want or st["eager"]:
+        raise AssertionError(f"--fuse_fractions 4: (warm-ups, captures, "
+                             f"replays) {got}, eager {st['eager']}; want "
+                             f"{want}")
+    phase("dispatch", f"--fuse_fractions 4 (the step graphs, the cache "
+          f"off: the grouped route): trained_network.jsn bit for bit the "
+          f"plain run's, launches equal ({runs['fuse'][2]['lstm_bwd']} K2, "
+          f"{runs['fuse'][2]['softmax_ce_proj_bwd']} K3b: the wrappers' "
+          f"counts with each capture's launches counted once a replay); "
+          f"warm-ups {got[0]}, captures {got[1]} (one a mode and shape "
+          f"used twice), replays {got[2]} (the steps less the warm-ups), "
+          f"the captures under the profiler; staging buffers allocated "
+          f"{fused._staging.allocations}")
     trace = os.path.join(prof_dir, "trace_rank0.json")
     with open(trace) as f:
         doc = json.load(f)
@@ -7207,6 +7255,356 @@ def cross_host_cli(torch, workdir, n):
                                  "differs from one process")
 
 
+# ------------------------------------------------- step graphs (phase 47)
+# (recipe, compute dtype, remat blocks); the CLI runs take GRAPH_EPOCHS
+# epochs, so that most of a fused run's steps are replays
+GRAPH_RUNS = (("TIMIT", "float32", 0), ("TIMIT", "bfloat16", 0),
+              ("remat", "float32", 4), ("LVCSR", "float32", 0))
+GRAPH_EPOCHS = 2
+# the runs whose steps hold cuBLAS products (the LVCSR tail's f32 logits
+# and dh, the remat softmax layer's product), which may pick another
+# algorithm under capture: the JAX Trainer's fused tolerance
+# (tests/test_fused.py); the TIMIT runs are held bit for bit
+GRAPH_REL = 1e-6
+
+
+def _graph_net(workdir, recipe):
+    """The recipe's network.jsn without weights (the CLI draws them from
+    --random_seed): TIMIT's 5 x BLSTM(250), softmax(183) or LVCSR's
+    softmax(10,112)."""
+    from lstm_rnn_tpu_torch.models.flagship import timit_dblstm_layers
+    path = os.path.join(workdir, f"network_{recipe}.jsn")
+    with open(path, "w") as f:
+        json.dump({"layers": timit_dblstm_layers(
+            num_states=S_LVCSR if recipe == "LVCSR" else S_STATES)}, f)
+    return path
+
+
+def _graph_args(dtype, remat, epochs, train_nc, val_nc, net, out):
+    return ["--network", net, "--train", "true", "--train_file", train_nc,
+            "--val_file", val_nc, "--truncate_seq", "500",
+            "--parallel_sequences", "50", "--hybrid_online_batch", "true",
+            "--shuffle_fractions", "true", "--bucket_lengths", "true",
+            "--learning_rate", "1e-4", "--momentum", "0.9",
+            "--max_epochs", str(epochs), "--random_seed", str(SEED),
+            "--compute_dtype", dtype, "--remat_blocks", str(remat),
+            "--save_network", out]
+
+
+def expected_graphs(tr, epochs):
+    """(warm-ups, captures, replays) of a fused run of `epochs` epochs:
+    a warm-up for each (mode, shape) used, a capture for each used twice
+    or more, a replay for every other step."""
+    from collections import Counter
+    uses = Counter()
+    for ds, mode in ((tr.train_set, "train"), (tr.validation_set, "eval")):
+        for f in ds.lazy_fractions():
+            uses[mode, tuple(f.shape)] += epochs
+    return (len(uses), sum(1 for n in uses.values() if n > 1),
+            sum(uses.values()) - len(uses))
+
+
+def _profiled_kernels(prof):
+    """{kernel name: launches} of a profile's device events."""
+    from collections import Counter
+    return Counter({e.key: e.count for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and not e.key.startswith(("ProfilerStep", "Memcpy",
+                                              "Memset"))})
+
+
+def graphs_cli(torch, workdir, corpora):
+    """47a: cli.main on phase 7's corpus (LVCSR: its sizes with 10,112
+    labels), each of GRAPH_RUNS for GRAPH_EPOCHS epochs with
+    --fuse_fractions 8 --device_cache true against --fuse_fractions 1,
+    each run whole under torch.profiler: the epoch tables' errors and
+    trained_network.jsn (bit for bit for TIMIT, within GRAPH_REL for
+    remat and LVCSR), the kernels the profiler saw, by name, equal (but
+    for the two int64 fills with which torch's CUDA generator opens each
+    capture); the
+    profiler's bptt kernels equal to the K2 and K6b-b launches that the
+    wrappers' counts give (each capture's counted once a replay), and
+    those equal to the unfused run's; one capture per (mode, shape) used
+    twice, the replays the fractions less the warm-ups, and the stacked
+    epoch taken (no decline line). A pair whose profile lost records
+    (seen as bptt counts below the wrappers') runs once more."""
+    import contextlib
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    made = []
+
+    class Recording(Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def run(name, label, args):
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0
+        buf = io.StringIO()
+        cli.Trainer = Recording
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # a profile's first kernel records can go missing (on the
+                # card, up to some 45 of them): open it on launches of a
+                # kernel no step runs (an int16 fill), left out below
+                for _ in range(200):
+                    torch.empty(8, dtype=torch.int16, device="cuda").fill_(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            cli.Trainer = Trainer
+        tr = made.pop()
+        text = buf.getvalue()
+        rows = _table_rows(text)
+        if rc != 0 or len(rows) != GRAPH_EPOCHS:
+            print(text[-3000:])
+            raise AssertionError(f"{name} {label}: cli returned {rc}")
+        declined = [ln for ln in text.splitlines() if "declined" in ln]
+        if declined:
+            raise AssertionError(f"{name} {label}: {declined}")
+        counts = graph_executed(tr, {k: f.launches for k, f in w.items()})
+        kernels = _profiled_kernels(prof)
+        for k in [k for k in kernels if "FillFunctor<short>" in k]:
+            del kernels[k]
+        seen = tuple(sum(n for k, n in kernels.items() if part in k)
+                     for part in ("bptt_kernel", "bptt_carry_kernel"))
+        lost = seen != (counts["lstm_bwd"], counts["lstm_bwd_carry"])
+        st = tr.graph_stats.as_dict()
+        want = expected_graphs(tr, GRAPH_EPOCHS)
+        tr.drop_graphs()
+        return dict(rows=rows, counts=counts, kernels=kernels, seen=seen,
+                    lost=lost, wall=wall, st=st, want=want)
+
+    nets = {}
+    for recipe, dtype, remat in GRAPH_RUNS:
+        name = f"{recipe} {'f32' if dtype == 'float32' else 'bf16'}"
+        lvcsr = "LVCSR" if recipe == "LVCSR" else "TIMIT"
+        train_nc, val_nc = corpora[lvcsr]
+        if lvcsr not in nets:
+            nets[lvcsr] = _graph_net(workdir, lvcsr)
+        for attempt in range(2):
+            runs, outs = {}, {}
+            for label, extra in (("fuse 1", []),
+                                 ("fuse 8", ["--fuse_fractions", "8",
+                                             "--device_cache", "true"])):
+                outs[label] = os.path.join(
+                    workdir, f"graphs_{label[-1]}_{recipe}_{dtype}.jsn")
+                runs[label] = run(name, label, _graph_args(
+                    dtype, remat, GRAPH_EPOCHS, train_nc, val_nc,
+                    nets[lvcsr], outs[label]) + extra)
+            if not any(r["lost"] for r in runs.values()):
+                break
+            phase("graphs", f"{name}: a profile lost kernel records (bptt "
+                  f"seen {[r['seen'] for r in runs.values()]}): the pair "
+                  "runs again")
+        else:
+            raise AssertionError(
+                f"{name}: the profiler saw bptt "
+                f"{[r['seen'] for r in runs.values()]}, the wrappers' "
+                f"counts {[r['counts']['lstm_bwd'] for r in runs.values()]}")
+        one, fused = runs["fuse 1"], runs["fuse 8"]
+        for label, r in runs.items():
+            for ln in r["rows"]:
+                phase("graphs", f"{name} {label} |{ln}")
+        if fused["counts"] != one["counts"]:
+            raise AssertionError(f"{name}: launches {fused['counts']} "
+                                 f"against {one['counts']}")
+        st = fused["st"]
+        # the one kernel a capture launches itself: torch's CUDA generator
+        # fills its two int64 graph-safe RNG tensors (seed, offset) as
+        # each capture begins, outside the graph
+        extra = {k: 2 * st["captures"] for k in fused["kernels"]
+                 if "FillFunctor<long>" in k}
+        less = {k: n - extra.get(k, 0) for k, n in fused["kernels"].items()}
+        diff = {k: (less.get(k, 0), one["kernels"][k])
+                for k in one["kernels"] | fused["kernels"]
+                if less.get(k, 0) != one["kernels"][k]}
+        if diff:
+            raise AssertionError(f"{name}: the profiled kernels differ "
+                                 f"(fused less the captures' int64 fills "
+                                 f"{sum(extra.values())}, unfused): {diff}")
+        got = (st["warmups"], st["captures"], st["replays"])
+        if got != fused["want"] or st["eager"]:
+            raise AssertionError(f"{name}: (warm-ups, captures, replays) "
+                                 f"{got}, eager {st['eager']}; want "
+                                 f"{fused['want']}")
+        with open(outs["fuse 1"], "rb") as f1, open(outs["fuse 8"],
+                                                    "rb") as f8:
+            same = f1.read() == f8.read()
+        rel = 0.0
+        if not same:
+            a, b = _weights(outs["fuse 8"]), _weights(outs["fuse 1"])
+            rel = max(float(np.abs(a[k] - b[k]).max()
+                            / max(np.abs(b[k]).max(), 1e-30)) for k in b)
+            moved = sorted({k[0] for k in b if not np.array_equal(a[k],
+                                                                  b[k])})
+        errs8, errs1 = epoch_errors(fused["rows"]), epoch_errors(one["rows"])
+        if recipe == "TIMIT" and (not same or errs8 != errs1):
+            raise AssertionError(f"{name}: the fused run's table or "
+                                 "trained_network.jsn differs")
+        if rel > GRAPH_REL or not all(
+                abs(x - y) <= GRAPH_REL * abs(y) + (0.005 if i % 2 == 0
+                                                    else 0.0005)
+                for r8, r1 in zip(errs8, errs1)
+                for i, (x, y) in enumerate(zip(r8, r1))):
+            raise AssertionError(f"{name}: rel {rel:.2e} > {GRAPH_REL}")
+        phase("graphs", f"{name}: --fuse_fractions 8 --device_cache true "
+              f"({fused['wall']:.1f} s wall under the profiler) against "
+              f"--fuse_fractions 1 ({one['wall']:.1f} s): "
+              f"trained_network.jsn "
+              + ("bit for bit" if same else
+                 f"within rel {rel:.2e} (layers whose bits moved: {moved})")
+              + f", table errors {'equal' if errs8 == errs1 else 'close'}; "
+              f"the profiler's kernels equal by name "
+              f"({sum(one['kernels'].values())} in "
+              f"{len(one['kernels'])} names; the fused run's besides: "
+              f"{sum(extra.values())} int64 fills, 2 a capture), its "
+              f"bptt / bptt_carry "
+              f"{fused['seen']} the wrappers' K2 / K6b-b counts; warm-ups "
+              f"{got[0]}, captures {got[1]}, replays {got[2]} (the "
+              f"fractions less the warm-ups); capture s "
+              f"{[round(x, 3) for x in st['capture_seconds']]}"
+              f", pools {sum(st['pool_bytes']) / 2**20:.0f} MiB")
+        torch.cuda.empty_cache()
+
+
+def _fused_trainer(train_nc, val_nc, recipe, dtype, remat, fuse, cache):
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.models.flagship import (build_lvcsr_network,
+                                                    build_timit_network)
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    kw = {"parallel_sequences": 50, "sort_by_length": True,
+          "bucket_lengths": True}
+    train = DataSet([train_nc], trunc_seq_length=500,
+                    fraction_shuffling=True, seed=SEED, **kw)
+    val = DataSet([val_nc], **kw)
+    build = build_lvcsr_network if recipe == "LVCSR" else build_timit_network
+    net = build(seed=SEED, compute_dtype=dtype)
+    net.remat_blocks = remat
+    return Trainer(net, train, val, learning_rate=1e-4, momentum=0.9,
+                   hybrid_online_batch=True, device="cuda",
+                   fuse_fractions=fuse, device_cache=cache)
+
+
+def _profiled_epoch(torch, tr):
+    """(wall s, device-busy s, copies by name) of the third of three
+    epochs under the profiler: the first two open its trace (a window's
+    first launches go missing, as do a few more after a cheap opening
+    step; a schedule that ends its cycle on a new one clears what the last
+    one recorded)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            tr.train_epoch()
+            torch.cuda.synchronize()
+            prof.step()
+        t0 = time.perf_counter()
+        tr.train_epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith("ProfilerStep")]
+    busy = sum(dev_us(e) for e in events) / 1e6
+    copies = {e.key: e.count for e in events
+              if e.key.startswith(("Memcpy", "Memset"))}
+    return wall, busy, copies
+
+
+def fused_epochs(torch, tr, timed):
+    """A Trainer's epochs: the walls of epochs 1 (a warm-up a mode and
+    shape) and 2 (the captures of the shapes that come once an epoch), of
+    `timed` epochs after them, each synchronised, and (wall, busy s,
+    copies) of the third of three epochs under the profiler."""
+    walls = []
+    for _ in range(2 + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_epoch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls[:2], walls[2:], _profiled_epoch(torch, tr)
+
+
+def graphs_rates(torch, card, corpora, timed=3):
+    """47b: each of GRAPH_RUNS' configurations as a Trainer on phase 7's
+    corpus, --fuse_fractions 1 and 8, each with the device cache off and
+    on (`fused_epochs`): epochs 1 and 2, `timed` epochs and their median
+    wall a step, a profiled epoch's device-busy share, the captures'
+    seconds and the pools' MiB. A few epochs of 7 steps each: the spread
+    of many epochs, and what a gain stands on, are
+    scripts/torch_fused_rates.py's."""
+    import statistics
+    out = {}
+    for recipe, dtype, remat in GRAPH_RUNS:
+        name = f"{recipe} {'f32' if dtype == 'float32' else 'bf16'}"
+        for cache in (False, True):
+            for fuse in (1, 8):
+                tr = _fused_trainer(*corpora[recipe if recipe == "LVCSR"
+                                             else "TIMIT"],
+                                    recipe, dtype, remat, fuse, cache)
+                steps = (tr.train_set.num_fractions()
+                         + tr.validation_set.num_fractions())
+                first, walls, (pwall, busy, copies) = fused_epochs(
+                    torch, tr, timed)
+                med = statistics.median(walls)
+                st = tr.graph_stats.as_dict()
+                out[(name, fuse, cache)] = dict(
+                    epochs=walls, step_ms=1e3 * med / steps,
+                    busy=busy / pwall if pwall else 0.0,
+                    pool_mib=sum(st["pool_bytes"]) / 2**20,
+                    capture_s=st["capture_seconds"])
+                phase("graphs", f"{name} fuse={fuse} cache="
+                      f"{'on' if cache else 'off'}: epochs 1-2 "
+                      f"{first[0]:.4f}, {first[1]:.4f} s, epochs 3-"
+                      f"{2 + timed} {[round(w, 4) for w in walls]} s "
+                      f"(median {1e3 * med / steps:.2f} ms a step, {steps} "
+                      f"steps); profiled epoch {pwall:.4f} s, busy "
+                      f"{busy:.4f} s ({100 * busy / pwall:.1f}%); captures "
+                      f"{st['captures']} in {sum(st['capture_seconds']):.3f}"
+                      f" s ({[round(x, 3) for x in st['capture_seconds']]}),"
+                      f" pools {sum(st['pool_bytes']) / 2**20:.1f} MiB; "
+                      f"copies {copies} ({card})")
+                tr.drop_graphs()
+                del tr
+                torch.cuda.empty_cache()
+    return out
+
+
+def graph_corpora(workdir):
+    """{"TIMIT" | "LVCSR": (train .nc, val .nc)}: phase 7's corpus (200
+    train and 100 val sequences of 300-800 frames) with 183 and 10,112
+    labels."""
+    corpora = {}
+    for recipe, states in (("TIMIT", S_STATES), ("LVCSR", S_LVCSR)):
+        paths = write_corpus(workdir, recipe, states, (200, 100), SEED + 1)
+        corpora[recipe] = (paths["train"][0], paths["val"][0])
+    return corpora
+
+
+def graphs_phase(torch, card):
+    """Phase 47 (--fuse_fractions: the step graphs and the stacked epoch)
+    on phase 7's corpus."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        corpora = graph_corpora(workdir)
+        graphs_cli(torch, workdir, corpora)
+        res = graphs_rates(torch, card, corpora)
+    phase("graphs", f"phase 47 took {time.perf_counter() - t0:.0f} s")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7357,6 +7755,7 @@ def main():
             pp_tp_refused_on_one_gpu(torch, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         xh_steps = cross_host(torch, card, workdir, n_gpus)
+    graphs_phase(torch, card)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -7619,6 +8018,8 @@ def main():
         "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
         "library_ms": None, "cublas_dW_ms": k3["cublas_dw_ms"],
         "f32_simt_ms": k3["f32_ms"]})
+    phase("done", f"chip_smoke.py took {time.perf_counter() - _T0:.0f} s "
+          "in all, the build included")
     print(json.dumps({"kernels": kernels}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -80,8 +80,13 @@ mesh"); forward mode ignores --model_devices, as the JAX CLI does.
 The JAX package's dispatch flags: in train mode `--device_cache true`
 goes to the Trainer's data feed (trainer.py; the epoch row then ends with
 the cache's `[cache hits/lookups hit, N MiB]`, as the JAX CLI's does);
-`--fuse_fractions K` is accepted, so a JAX config file runs, and changes
-nothing: the Trainer takes one fraction at a time until CUDA Graphs;
+`--fuse_fractions K` fuses the passes that the JAX Trainer fuses
+(stochastic training without weight noise, every evaluation pass): on the
+card each fraction steps through a CUDA graph of its shape's step
+(graphs.py), and with `--device_cache true` and K at least the pass's
+fraction count the pass runs as the stacked epoch; the JAX CLI's
+"Epoch-resident fast path declined: ..." lines name a declined gate, once
+each (trainer.py). The values are the unfused run's;
 `--profile_dir DIR` traces the first epoch with torch.profiler into
 `DIR/trace_rank<r>.json`, a file a rank; in both modes
 `--compilation_cache_dir DIR` builds the kernel library and the native
@@ -569,7 +574,7 @@ def _train(cfg: Config, device: torch.device, group) -> int:
         device=device, data_group=group,
         **({f"{axis}_mesh": mesh} if mesh is not None else {}),
         pipeline_microbatches=cfg.pipeline_microbatches,
-        device_cache=cfg.device_cache)
+        fuse_fractions=cfg.fuse_fractions, device_cache=cfg.device_cache)
 
     info_rows = ""
     if cfg.continue_file:

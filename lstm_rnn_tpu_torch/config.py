@@ -225,8 +225,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "on CUDA (its plain twin on CPU), scan = the plain "
                         "PyTorch scan")
     g.add_argument("--fuse_fractions", type=int, default=1,
-                   help="accepted for the JAX package's config files; "
-                        "the port steps one fraction at a time")
+                   help="K > 1: stochastic training without weight "
+                        "noise and evaluation step through CUDA graphs of "
+                        "the step (one a fraction shape); with "
+                        "--device_cache and K >= the pass's fractions, the "
+                        "stacked epoch")
     g.add_argument("--device_cache", type=_str2bool, default=None,
                    help="training only: keep assembled fractions on the "
                         "device across epochs (default off)")

@@ -128,8 +128,10 @@ def fused_wavefront(params, xs, pts, bias_mult, bidirectional, mesh,
 
     def run(d, i, h0, c0):
         if remat:
+            # the block draws no random numbers: the RNG state needs no
+            # saving and restoring (nor reading in a step graph's capture)
             return checkpoint(block, d, i, xs[i], h0, c0,
-                              use_reentrant=False)
+                              use_reentrant=False, preserve_rng_state=False)
         return block(d, i, xs[i], h0, c0)
 
     return wavefront(run, n_dirs, mesh, batch, H, chain)

@@ -158,7 +158,7 @@ def _remat_scan(acts, w_rec, peep, mask, compute_dtype, k: int, init):
     for i in range(k):
         y, h, c = checkpoint(block, acts[i * tb:(i + 1) * tb],
                              mask[i * tb:(i + 1) * tb], h, c,
-                             use_reentrant=False)
+                             use_reentrant=False, preserve_rng_state=False)
         ys.append(y)
     return torch.cat(ys)[:T]
 

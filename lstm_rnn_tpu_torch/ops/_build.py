@@ -20,6 +20,7 @@ of K4b and of K3b.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -88,15 +89,21 @@ def _cuda_tool(name: str) -> str:
     return os.path.join(os.path.dirname(_nvcc()), name)
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(path: str) -> str:
+    """cuobjdump -sass of a built library (tens of seconds; a library's
+    path names its sources' hash, so one dump serves every query)."""
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", path],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def sass_counts(opcode: str, name_part: str = "gemm_kernel"):
     """{kernel: count} of the SASS instructions whose opcode starts with
     `opcode` (e.g. HGMMA, the tensor cores' warpgroup product) in each
     kernel of the built library whose mangled name contains
     `name_part`, read with cuobjdump -sass."""
-    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", library_path()],
-                         capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
-    for line in out.splitlines():
+    for line in _sass(library_path()).splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             if name_part in name:

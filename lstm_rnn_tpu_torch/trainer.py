@@ -113,10 +113,43 @@ The data feed (lstm_rnn_tpu/trainer.py:91-129, :650-691, :741-757):
   the rank's block is cached, under a seq mesh the fraction on the mesh's
   first device. `h2d_bytes` counts the bytes copied from the host, one
   integer a pass.
-The JAX package's fused groups (`fuse_fractions`) and stacked epoch (a
-fori_loop over device-resident fractions, for the TPU's dispatch
-latency) wait for CUDA Graphs: one fraction at a time, the copies no
-longer synchronising, a group of them gained nothing on the H100.
+
+`fuse_fractions` K > 1 (lstm_rnn_tpu/trainer.py:1022-1108, :772-955): the
+JAX Trainer's fused passes, with its gate. Training passes in stochastic
+mode without weight noise, and every evaluation pass, step their
+fractions through CUDA graphs (graphs.py `StepGraph`): one graph per
+fraction shape and mode, captured from the eager step on the shape's
+second fraction (its first is the warm-up) and replayed for the rest, in
+the pass's order. On the TPU a group of K same-shape fractions was one
+jitted fori_loop; here it is K replays, so nothing is stacked for a group
+and the JAX package's group byte cap (`MAX_GROUP_STACK_BYTES`, a guard of
+the TPU runtime's per-program limit) has no counterpart. Batch-mode and
+weight-noise passes step one fraction at a time.
+- The stacked epoch (`_try_stacked_epoch`): with the device cache on, a
+  pass of cacheable fractions, no more than K of them and no more than
+  `STACKED_MAX_SHAPES` shapes, stays on the device, held by the pass's
+  entry in place of the fractions' cache entries (the JAX Trainer's
+  lookups: misses when it is built, hits when a pass runs from it); each
+  step copies its fraction into the graph's static buffers, as a cache
+  hit does. The JAX Trainer's per-shape stacks at power-of-two widths
+  fed a whole-epoch program; a graph replays one fraction a step, so
+  they have no counterpart here. Where a gate fails the JAX Trainer's
+  line names it, once a reason ("Epoch-resident fast path declined:
+  ..."), and the pass takes the grouped route. Its background compile
+  has no counterpart (the warm-up step takes its place), nor has its
+  multi-process stack.
+- The step graphs' pools count against the device cache's budget
+  (`_cache_room`), so that the two together stay within it.
+- A graph holds the addresses of the parameters, the velocity, its static
+  buffers, and the layers' learning rates and the momentum: the graphs
+  are dropped where any of them is rebound (`import_state`, the swap to
+  the best weights at the end, and any other change `_binding` sees
+  before a step).
+- Scope: one CUDA device, no data group and no seq, pipe or model mesh.
+  Under those the passes step one fraction at a time (the same values),
+  and the Trainer says so once. On the CPU there is no graph: the fused
+  passes run the same steps eagerly, in the same order and with the same
+  bookkeeping, so that they equal the unfused run bit for bit.
 """
 
 from __future__ import annotations
@@ -130,6 +163,7 @@ import torch
 from lstm_rnn_tpu_torch import io_currennt as ioc
 from lstm_rnn_tpu_torch.data.dataset import (DataSet, Fraction,
                                              discard_normals)
+from lstm_rnn_tpu_torch.graphs import GraphStats, StepGraph
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
 from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
@@ -204,6 +238,7 @@ class Trainer:
                  device=None, seq_mesh=None, data_group=None,
                  pipe_mesh=None, model_mesh=None,
                  pipeline_microbatches: int = 0,
+                 fuse_fractions: int = 1,
                  device_cache: Optional[bool] = None,
                  device_cache_bytes: Optional[int] = None):
         self.net = net
@@ -302,6 +337,17 @@ class Trainer:
         # bytes copied from the host to the device, one entry a pass
         self.h2d_bytes: List[int] = []
         self._pass_bytes = 0
+
+        # fused passes: step graphs by (mode, shapes, dtypes), the
+        # addresses they were captured against, the per-DataSet stacked
+        # epochs, and the reasons already printed
+        self.fuse_fractions = max(1, int(fuse_fractions))
+        self._graphs: Dict[Any, StepGraph] = {}
+        self._graph_binding = None
+        self.graph_stats = GraphStats()
+        self._stacked: Dict[Any, dict] = {}
+        self._stacked_decline_reasons: set = set()
+        self._notes: set = set()
 
         # optimizer state (Optimizer.cu constructor)
         self.finished = False
@@ -463,16 +509,23 @@ class Trainer:
                      for (dt, shape), off, size in zip(kinds, offsets,
                                                        sizes))
 
+    def _cache_room(self) -> int:
+        """The bytes the cache may hold: its budget less the step graphs'
+        pools, so that the two together stay within the budget."""
+        return self._dev_cache_budget - sum(g.pool_bytes
+                                            for g in self._graphs.values())
+
     def _cache_evict_stale(self, need: int) -> None:
         """Evict entries unused for two epochs or more until `need` bytes
         fit (or none is left stale); entries used this epoch or the last
         stay."""
-        if self._dev_cache_bytes + need <= self._dev_cache_budget:
+        room = self._cache_room()
+        if self._dev_cache_bytes + need <= room:
             return
         horizon = self.cur_epoch - 1
         for key in [k for k, e in self._dev_cache.items() if e[2] < horizon]:
             self._dev_cache_bytes -= self._dev_cache.pop(key)[1]
-            if self._dev_cache_bytes + need <= self._dev_cache_budget:
+            if self._dev_cache_bytes + need <= room:
                 return
 
     def _cache_put(self, key, batch) -> None:
@@ -480,7 +533,7 @@ class Trainer:
         room after evicting stale entries."""
         nbytes = sum(a.numel() * a.element_size() for a in batch)
         self._cache_evict_stale(nbytes)
-        if self._dev_cache_bytes + nbytes <= self._dev_cache_budget:
+        if self._dev_cache_bytes + nbytes <= self._cache_room():
             self._dev_cache[key] = [batch, nbytes, self.cur_epoch]
             self._dev_cache_bytes += nbytes
 
@@ -505,26 +558,180 @@ class Trainer:
             self._cache_put(key, batch)
         return batch
 
+    # ------------------------------------------------------- fused passes
+    # distinct fraction shapes above which the stacked epoch declines: the
+    # JAX Trainer's bound, whose decline line is kept word for word (there
+    # a compiled whole-epoch program a shape; here a step graph a shape
+    # and mode, each with its own pool)
+    STACKED_MAX_SHAPES = 8
+
+    def _note(self, msg: str) -> None:
+        """Print msg once in the Trainer's life."""
+        if msg not in self._notes:
+            self._notes.add(msg)
+            print(msg, flush=True)
+
+    def _note_stacked_decline(self, reason: str) -> None:
+        """Name why the stacked epoch declined, once a reason, in the JAX
+        Trainer's words (its trainer.py:759-766)."""
+        if reason not in self._stacked_decline_reasons:
+            self._stacked_decline_reasons.add(reason)
+            print(f"Epoch-resident fast path declined: {reason}", flush=True)
+
+    def _fuse(self, update: bool) -> int:
+        """The pass's fuse count: K for stochastic training without weight
+        noise and for every evaluation pass (the JAX gate,
+        lstm_rnn_tpu/trainer.py:1031-1033), else 1; 1 outside the graphs'
+        scope, which the Trainer names once."""
+        fuse = (self.fuse_fractions
+                if not update or (self.hybrid_online_batch
+                                  and self.weight_noise_sigma <= 0) else 1)
+        if fuse > 1 and (self.data_group is not None or self.mesh_devices):
+            where = ("a data group" if self.data_group is not None
+                     else "a seq, pipe or model mesh")
+            self._note(f"fuse_fractions={fuse}: the step graphs take one "
+                       f"device; under {where} every pass steps one "
+                       "fraction at a time (the same values)")
+            return 1
+        return fuse
+
+    def _binding(self) -> tuple:
+        """What a step graph holds: the parameters' and velocity's
+        addresses, the layers' learning rates and the momentum."""
+        return (tuple(v.data_ptr() for v in self._leaves(self.params)),
+                tuple(v.data_ptr() for v in self._leaves(self.velocity)),
+                tuple(sorted(self.layer_lr.items())), self.momentum)
+
+    def drop_graphs(self) -> None:
+        """Forget every step graph (and free its pool): the next fraction
+        of each shape warms up and captures again."""
+        self._graphs.clear()
+        self._graph_binding = None
+
+    def _fused_step(self, batch, update: bool):
+        """One step of a fused pass: (error, correct) of the fraction. On
+        a CUDA device through its shape's step graph, on the CPU the eager
+        step."""
+        step = self.train_step if update else self.eval_step
+        if self.device.type != "cuda":
+            return step(*batch)
+        binding = self._binding()
+        if binding != self._graph_binding:
+            self.drop_graphs()
+            self._graph_binding = binding
+        key = (update,) + tuple((tuple(a.shape), a.dtype) for a in batch)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(
+                ("train" if update else "eval", tuple(batch[0].shape)),
+                step, batch, self.graph_stats, self._note)
+        return graph(batch)
+
+    def _frame_bytes(self, w: int) -> int:
+        """Device bytes a frame of a fraction takes: the inputs in the
+        parameters' dtype, the targets (an int32 class or the dense f32
+        row), one pattype byte."""
+        tw = (1 if "classification" in self.net.specs[-1].type
+              else self.net.target_size)
+        return w * _NP_DTYPE[self.dtype]().itemsize + 4 * tw + 1
+
+    def _try_stacked_epoch(self, fracs, update: bool, fuse: int):
+        """The stacked epoch (lstm_rnn_tpu/trainer.py:781-955): when a whole
+        pass of cacheable fractions fits the cache's room and spans few
+        shapes, its fractions stay on the device, held by the pass's entry
+        in place of their cache entries, and each step takes its fraction
+        from there. On the TPU the entry was one stack a shape for a
+        whole-epoch program; a step graph takes one fraction a step, so
+        the entry holds the fractions as the cache does. Returns the
+        steps' (error, correct) pairs, or None when a gate declines (the
+        grouped route then runs), in the JAX Trainer's words."""
+        if not fracs:
+            return None
+        if not self.device_cache:
+            return self._note_stacked_decline("device cache is off")
+        if len(fracs) > fuse:
+            return self._note_stacked_decline(
+                f"fuse_fractions={fuse} < {len(fracs)} fractions — raise "
+                "--fuse_fractions to cover the whole pass")
+        keys = [f.key for f in fracs]
+        if any(k is None for k in keys):
+            return self._note_stacked_decline(
+                "fractions are not epoch-invariant (input noise or "
+                "per-epoch sequence shuffling)")
+        shapes = {tuple(f.shape) for f in fracs}
+        if len(shapes) > self.STACKED_MAX_SHAPES:
+            return self._note_stacked_decline(
+                f"{len(shapes)} distinct fraction shapes > "
+                f"{self.STACKED_MAX_SHAPES} (one whole-epoch compile each) "
+                "— use --bucket_lengths single/pow2")
+        token = keys[0][0]  # the DataSet's namespace
+        entry = self._stacked.get(token)
+        if entry is not None and any(k not in entry["rows"] for k in keys):
+            # the corpus' membership changed: drop the entry
+            self._dev_cache_bytes -= entry["bytes"]
+            del self._stacked[token]
+            entry = None
+        if entry is None:
+            est = sum(t * b * self._frame_bytes(w)
+                      for t, b, w in (f.shape for f in fracs))
+            reclaim = sum(self._dev_cache[k][1] for k in keys
+                          if k in self._dev_cache)
+            room = self._cache_room()
+            if self._dev_cache_bytes - reclaim + est > room:
+                free = room - (self._dev_cache_bytes - reclaim)
+                return self._note_stacked_decline(
+                    f"stacked corpus needs ~{est / 2**30:.2f} GiB but only "
+                    f"{max(free, 0) / 2**30:.2f} GiB of device_cache_bytes "
+                    f"remain (budget {self._dev_cache_budget / 2**30:.2f} "
+                    "GiB)")
+            entry = self._stacked[token] = {"rows": {}, "bytes": 0}
+            for f, k in zip(fracs, keys):
+                # the entry supersedes the fraction's own cache entry
+                old = self._dev_cache.pop(k, None)
+                if old is not None:
+                    self._dev_cache_bytes -= old[1]
+                batch = self._to_device((f.inputs, f.targets, f.pattypes))
+                nbytes = sum(a.numel() * a.element_size() for a in batch)
+                entry["rows"][k] = batch
+                entry["bytes"] += nbytes
+                self._dev_cache_bytes += nbytes
+                self.cache_misses += 1
+        else:
+            self.cache_hits += len(keys)
+        return [self._fused_step(entry["rows"][k], update) for k in keys]
+
     def _process_dataset(self, ds: DataSet, update: bool):
         """One pass over ds; returns (error sum, correct) device scalars,
         summed over a data group's ranks once, at the end. With the
         device cache on and ds cacheable, the fractions are lazy handles:
-        a hit assembles nothing."""
-        errs, corrs = [], []
+        a hit assembles nothing. A fused pass (`_fuse`) first tries the
+        stacked epoch, and else steps each fraction through its shape's
+        graph, in the pass's order; the sums are the same either way."""
         grad_acc = None
         lazy = (self.device_cache and ds.noise_deviation == 0.0
                 and not ds.sequence_shuffling)
+        fuse = self._fuse(update)
         self._pass_bytes = 0
-        for frac in (ds.lazy_fractions() if lazy else ds.fractions()):
-            batch = self._device_batch(frac)
-            if not update:
-                err, corr = self.eval_step(*batch)
-            elif self.hybrid_online_batch:
-                err, corr = self.train_step(*batch)
-            else:
-                grad_acc, err, corr = self.accum_step(grad_acc, *batch)
-            errs.append(err)
-            corrs.append(corr)
+        fracs = ds.lazy_fractions() if lazy else ds.fractions()
+        steps = None
+        if fuse > 1 and lazy:
+            fracs = list(fracs)
+            steps = self._try_stacked_epoch(fracs, update, fuse)
+        if steps is None:
+            steps = []
+            for frac in fracs:
+                batch = self._device_batch(frac)
+                if fuse > 1:
+                    steps.append(self._fused_step(batch, update))
+                elif not update:
+                    steps.append(self.eval_step(*batch))
+                elif self.hybrid_online_batch:
+                    steps.append(self.train_step(*batch))
+                else:
+                    grad_acc, err, corr = self.accum_step(grad_acc, *batch)
+                    steps.append((err, corr))
+        errs = [err for err, _ in steps]
+        corrs = [corr for _, corr in steps]
         self.h2d_bytes.append(self._pass_bytes)
         if update and not self.hybrid_online_batch and grad_acc is not None:
             self.sgd_update(grad_acc)
@@ -590,6 +797,7 @@ class Trainer:
                 or (self.max_epochs >= 0
                     and self.cur_epoch >= self.max_epochs)):
             self.params = self.best_params
+            self.drop_graphs()
             self.finished = True
         return self.finished
 
@@ -689,6 +897,7 @@ class Trainer:
             doc["optimizer_best_weights"]), self.device)
         self.velocity = params_from_numpy(self._params_from_layer_arrays(
             doc["steepest_descent_optimizer_weight_deltas"]), self.device)
+        self.drop_graphs()
         if self.train_set is not None:
             self.train_set.skip_epochs(self.cur_epoch)
             if self.weight_noise_sigma > 0:

@@ -23,7 +23,12 @@ tensor parallelism: a pipelined and a tensor-parallel step on a mesh of
 cuda:0 against the one-device step, with their exact launches, and DP x
 PP and DP x TP steps of two ranks (on cuda:0 over gloo, each with a mesh
 of cuda:0 twice; on four GPUs over NCCL, each with a mesh of two) against
-the one-process step on the same kind of mesh.
+the one-process step on the same kind of mesh; the step graphs
+(lstm_rnn_tpu_torch/graphs.py, --fuse_fractions): training and
+evaluation steps of a TIMIT-shaped net through warm-up, capture and
+replays against the same steps eager, bit for bit, in f32, bf16 and
+under remat, with their launches, and the stale-buffer control (a replay
+without the next fraction copied in gives another loss).
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -2071,3 +2076,122 @@ def test_staging_never_rewrites_a_copy_in_flight():
     for i, out in enumerate(outs):
         assert out.device.type == "cuda" and bool((out == i).all()), i
     assert st.allocations == st.SLOTS
+
+
+# ---------------------------------------------------- step graphs (graphs.py)
+def _graph_net(dtype, remat):
+    """A TIMIT-shaped net cut in depth: 117 inputs, 2 BLSTM(250) (125
+    cells a direction), softmax(183)."""
+    from lstm_rnn_tpu_torch.network import Network
+    net = Network([{"name": "input", "type": "input", "size": 117},
+                   {"name": "l1", "type": "blstm", "size": 250, "bias": 1.0},
+                   {"name": "l2", "type": "blstm", "size": 250, "bias": 1.0},
+                   {"name": "output", "type": "softmax", "size": 183,
+                    "bias": 1.0},
+                   {"name": "postoutput", "type": "multiclass_classification",
+                    "size": 183}],
+                  compute_dtype="bfloat16" if dtype == "bf16" else "float32")
+    net.init_params(7)
+    net.remat_blocks = 4 if remat else 0
+    return net
+
+
+def _graph_fractions(n, T=60, B=16):
+    """n fractions of [T, B] (ragged rows) on the card."""
+    rng = np.random.RandomState(11)
+    out = []
+    for _ in range(n):
+        lengths = rng.randint(1, T + 1, B)
+        pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
+        tc = np.where(pt > 0, rng.randint(0, 183, (T, B)), -1).astype(
+            np.int32)
+        out.append(tuple(torch.from_numpy(a).cuda() for a in (
+            rng.randn(T, B, 117).astype(np.float32), tc, pt)))
+    return out
+
+
+def _graph_trainer(dtype, remat):
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    return Trainer(_graph_net(dtype, remat), None, learning_rate=1e-3,
+                   momentum=0.9, hybrid_online_batch=True, device="cuda",
+                   fuse_fractions=4)
+
+
+@pytest.mark.parametrize("dtype, remat", [("f32", False), ("bf16", False),
+                                          ("f32", True)],
+                         ids=["f32", "bf16", "remat"])
+def test_step_graph_replay_matches_eager(dtype, remat):
+    """Four training steps and two evaluation steps through the step
+    graphs (warm-up, capture and replays) against the same steps eager:
+    the losses, counts and weights bit for bit, one capture a mode,
+    replays = steps - warm-ups, and the launches that ran (the wrappers'
+    counts with each capture's counted once a replay) equal."""
+    from lstm_rnn_tpu_torch.graphs import launch_counters
+    fracs = _graph_fractions(4)
+    runs = []
+    for fused in (False, True):
+        tr = _graph_trainer(dtype, remat)
+        before = {k: c.launches for k, c in launch_counters().items()}
+        out = []
+        for f in fracs:
+            out.append(tr._fused_step(f, True) if fused else tr.train_step(*f))
+        for f in fracs[:2]:
+            out.append(tr._fused_step(f, False) if fused
+                       else tr.eval_step(*f))
+        torch.cuda.synchronize()
+        counts = {k: c.launches - before[k]
+                  for k, c in launch_counters().items()}
+        runs.append(([(e.item(), int(c)) for e, c in out],
+                     tr.exact_params(), counts, tr.graph_stats))
+    (eager, p_eager, n_eager, _), (graph, p_graph, n_graph, stats) = runs
+    assert graph == eager
+    for n in p_eager:
+        for k in p_eager[n]:
+            np.testing.assert_array_equal(p_graph[n][k], p_eager[n][k],
+                                          err_msg=f"{n}/{k}")
+    tail = "softmax_ce_fwd" if remat else "softmax_ce_proj_fwd"
+    # the wrappers saw each graph's kernels once, at its capture: 4 of
+    # the 6 steps called them
+    assert n_eager[tail] == 6 and n_graph[tail] == 4
+    assert {k: stats.executed(k, n) for k, n in n_graph.items()} == n_eager
+    st = stats.as_dict()
+    assert (st["warmups"], st["captures"], st["replays"]) == (2, 2, 4)
+    assert all(b > 0 for b in st["pool_bytes"])
+
+
+def test_step_graph_stale_buffers_change_the_loss():
+    """The control: a replay whose static buffers still hold the last
+    fraction gives another loss than the eager step on the next one, so
+    the replay's comparison above can fail; with the next fraction
+    copied in, it gives the eager step's loss."""
+    fracs = _graph_fractions(3)
+    tr = _graph_trainer("f32", False)
+    for f in fracs[:2]:
+        tr._fused_step(f, False)  # warm-up, then capture and replay
+    graph = next(iter(tr._graphs.values()))
+    want = tr.eval_step(*fracs[2])[0].item()
+    graph.graph.replay()  # fracs[1] still in the static buffers
+    stale = graph.out[0].item()
+    got = tr._fused_step(fracs[2], False)[0].item()
+    assert got == want
+    assert stale != want
+    assert stale == tr.eval_step(*fracs[1])[0].item()
+
+
+def test_step_graph_that_does_not_fit_runs_eagerly(capsys):
+    """A shape whose capture would not fit in free memory (its warm-up's
+    need set past the card's memory) steps eagerly, with the eager step's
+    values, captures nothing, and the Trainer names it once."""
+    fracs = _graph_fractions(4)
+    want = _graph_trainer("f32", False)
+    want_out = [want.train_step(*f)[0].item() for f in fracs]
+    tr = _graph_trainer("f32", False)
+    got = [tr._fused_step(fracs[0], True)[0].item()]
+    graph = next(iter(tr._graphs.values()))
+    graph.need = 1 << 50
+    got += [tr._fused_step(f, True)[0].item() for f in fracs[1:]]
+    assert got == want_out
+    st = tr.graph_stats.as_dict()
+    assert (st["warmups"], st["captures"], st["replays"], st["eager"]) == (
+        1, 0, 0, 3)
+    assert capsys.readouterr().out.count("it runs eagerly") == 1
