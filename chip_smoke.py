@@ -7477,7 +7477,8 @@ def graphs_cli(torch, workdir, corpora):
         torch.cuda.empty_cache()
 
 
-def _fused_trainer(train_nc, val_nc, recipe, dtype, remat, fuse, cache):
+def _fused_trainer(train_nc, val_nc, recipe, dtype, remat, fuse, cache,
+                   device="cuda", **trainer_kw):
     from lstm_rnn_tpu_torch.data.dataset import DataSet
     from lstm_rnn_tpu_torch.models.flagship import (build_lvcsr_network,
                                                     build_timit_network)
@@ -7491,8 +7492,8 @@ def _fused_trainer(train_nc, val_nc, recipe, dtype, remat, fuse, cache):
     net = build(seed=SEED, compute_dtype=dtype)
     net.remat_blocks = remat
     return Trainer(net, train, val, learning_rate=1e-4, momentum=0.9,
-                   hybrid_online_batch=True, device="cuda",
-                   fuse_fractions=fuse, device_cache=cache)
+                   hybrid_online_batch=True, device=device,
+                   fuse_fractions=fuse, device_cache=cache, **trainer_kw)
 
 
 def _profiled_epoch(torch, tr):
@@ -7603,6 +7604,442 @@ def graphs_phase(torch, card):
         res = graphs_rates(torch, card, corpora)
     phase("graphs", f"phase 47 took {time.perf_counter() - t0:.0f} s")
     return res
+
+
+# ------------------------- fused passes under DP and the meshes (phase 48)
+# timed epochs a fuse count; the fused runs and the unfused ones are held
+# bit for bit, or at 4 ranks within the fused tests' tolerance (rel 1e-6,
+# atol 1e-8; tests/test_fused.py) where NCCL's order of four may move
+FUSED_TIMED = 20
+FUSED_ATOL = 1e-8
+
+
+def _flat_close(a, b, rel=GRAPH_REL, atol=FUSED_ATOL):
+    return all(np.allclose(a[n][k], b[n][k], rtol=rel, atol=atol)
+               for n in b for k in b[n])
+
+
+def _same_params(a, b):
+    return all(np.array_equal(a[n][k], b[n][k]) for n in b for k in b[n])
+
+
+def _group_trainer(corpora, fuse, group=None, mesh=None, axis="seq", m=0):
+    """Phase 7's TIMIT f32 Trainer with the device cache on and fuse
+    `fuse`, on a data group's rank and/or a one-process mesh (`axis`,
+    its first device the Trainer's); validation never stops it."""
+    kw = {f"{axis}_mesh": mesh} if mesh is not None else {}
+    if axis == "pipe":
+        kw["pipeline_microbatches"] = m
+    device = (group.device if group is not None
+              else mesh[0] if mesh is not None else "cuda")
+    return _fused_trainer(*corpora["TIMIT"], "TIMIT", "float32", 0, fuse,
+                          True, device=device, data_group=group,
+                          max_epochs_no_best=10**6, **kw)
+
+
+def _profiled_group_epoch(torch, tr, devices):
+    """(wall s, compute s, NCCL s) of the third of three epochs under the
+    profiler (as `_profiled_epoch`), the device time of the kernels on
+    `devices` with NCCL's apart (they wait on streams of their own)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            tr.train_epoch()
+            _sync(torch, devices)
+            prof.step()
+        t0 = time.perf_counter()
+        tr.train_epoch()
+        _sync(torch, devices)
+        wall = time.perf_counter() - t0
+        prof.step()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith("ProfilerStep")]
+    nccl = sum(dev_us(e) for e in events if "nccl" in e.key.lower()) / 1e6
+    return wall, sum(dev_us(e) for e in events) / 1e6 - nccl, nccl
+
+
+def _fused_layout_runs(torch, corpora, devices, runs, timed, group=None,
+                       mesh=None, axis="seq", m=0):
+    """Each (label, fuse, eager rank) of `runs` on a fresh Trainer:
+    GRAPH_EPOCHS epochs (the parameters and epoch errors after them),
+    then `timed` epochs' walls and a profiled epoch (`timed` 0, or a run
+    with an eager rank: none). On the eager rank (a data group's rank, or
+    None) the graphs decline their capture (`_fits`), so that its steps
+    run eagerly beside the other ranks' replays."""
+    from lstm_rnn_tpu_torch import graphs
+    out = {}
+    for label, fuse, eager_rank in runs:
+        tr = _group_trainer(corpora, fuse, group, mesh, axis, m)
+        fits = graphs.StepGraph._fits
+        eager = eager_rank is not None and group.rank == eager_rank
+        if eager:
+            graphs.StepGraph._fits = lambda self: (
+                self.note(f"the step of shape {self.key} runs eagerly "
+                          "(declined for the check)"), False)[1]
+        try:
+            rows = []
+            for _ in range(GRAPH_EPOCHS):
+                tr.train_epoch()
+                rows.append((tr.cur_training_error,
+                             tr.cur_training_class_error,
+                             tr.cur_validation_error,
+                             tr.cur_validation_class_error))
+            r = dict(rows=rows, params=tr.exact_params())
+            if timed and eager_rank is None:
+                walls = []
+                for _ in range(timed):
+                    _sync(torch, devices)
+                    t0 = time.perf_counter()
+                    tr.train_epoch()
+                    _sync(torch, devices)
+                    walls.append(time.perf_counter() - t0)
+                r["walls"] = walls
+                r["steps"] = (tr.train_set.num_fractions()
+                              + tr.validation_set.num_fractions())
+                r["profiled"] = _profiled_group_epoch(torch, tr, devices)
+        finally:
+            graphs.StepGraph._fits = fits
+        r["stats"] = tr.graph_stats.as_dict()
+        out[label] = r
+        tr.drop_graphs()
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+FUSED_RUNS = (("fuse 1", 1, None), ("fuse 8", 8, None))
+
+
+def _fused_dp_worker(group, workdir, corpora, runs, timed):
+    """Phase 48b-c on one rank of a data group (its own GPU, or under DP x
+    SP its seq mesh): `_fused_layout_runs`, to workdir."""
+    import torch
+    mesh = group.seq_mesh
+    devices = list(mesh) if mesh is not None else [group.device]
+    out = _fused_layout_runs(torch, corpora, devices, runs, timed, group,
+                             mesh=list(mesh) if mesh is not None else None)
+    torch.save(out, os.path.join(workdir, f"fused_rank{group.rank}.pt"))
+
+
+def _report_fused(torch, card, what, res, ranks=1, exact=True):
+    """Phase 48's checks and lines of one layout: each fused run (and a
+    rank's eager one) against the unfused run, bit for bit (or with
+    `exact` False within GRAPH_REL / FUSED_ATOL, saying which held); the
+    graphs' counts; the timed epochs' median, min and max, the ms a step
+    and the profiled epoch's busy share, fuse 1 and 8."""
+    import statistics
+    one = res["fuse 1"]
+    for label, r in res.items():
+        if label == "fuse 1":
+            continue
+        same = _same_params(r["params"], one["params"]) and (
+            r["rows"] == one["rows"])
+        close = _flat_close(r["params"], one["params"])
+        st = r["stats"]
+        phase("fused-group", f"{what} {label} against fuse 1 after "
+              f"{GRAPH_EPOCHS} epochs: weights and epoch errors "
+              + ("bit for bit" if same else
+                 "within rel 1e-6 / atol 1e-8" if close else "DIFFER")
+              + f"; warm-ups {st['warmups']}, captures {st['captures']} "
+              f"({[round(x, 3) for x in st['capture_seconds']]} s), "
+              f"replays {st['replays']}, eager {st['eager']}; pools "
+              f"{sum(st['pool_bytes']) / 2**20:.0f} MiB")
+        if not (same or (close and not exact)):
+            raise AssertionError(f"{what} {label} differs from fuse 1")
+        if st["eager"] or not st["captures"]:
+            raise AssertionError(f"{what} {label}: graphs {st}")
+    for label, r in res.items():
+        if "walls" not in r:
+            continue
+        w = r["walls"]
+        med = statistics.median(w)
+        wall, busy, nccl = r["profiled"]
+        phase("fused-rate", f"{what} {label}: {len(w)} epochs median "
+              f"{med:.4f} s (min {min(w):.4f}, max {max(w):.4f}), "
+              f"{1e3 * med / r['steps']:.2f} ms a step ({r['steps']} steps)"
+              f"; profiled epoch {wall:.4f} s, kernels {busy:.4f} s (NCCL "
+              f"{nccl:.4f} beside) over {ranks} GPU(s): busy "
+              f"{100 * busy / (wall * ranks):.1f}% ({card})")
+
+
+def fused_dp_one_rank(torch, workdir, corpora):
+    """48a: the CLI's training body (cli.train_mode) in one NCCL rank on
+    cuda:0 (parallel/launch.py start), phase 7's corpus, GRAPH_EPOCHS
+    epochs, --fuse_fractions 8 --device_cache true against
+    --fuse_fractions 1, each under the profiler: trained_network.jsn and
+    the epoch table bit for bit; the stacked epoch taken; the launches
+    that ran (the wrappers' counts with each capture's once a replay)
+    equal the unfused run's, and the profiler's bptt_kernel, ce_fwd_kernel
+    and pb_dw_kernel equal them (K2, K3f, K3b); the collectives that ran
+    one a training step and two a pass (its error and its count)."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    net = _graph_net(workdir, "TIMIT")
+    base = _graph_args("float32", 0, GRAPH_EPOCHS, *corpora["TIMIT"], net,
+                       "")[:-1]
+    outs = [os.path.join(workdir, f"fdp_{k}.jsn") for k in (1, 8)]
+    runs = [("fuse 1", base + [outs[0]]),
+            ("fuse 8", base + [outs[1], "--fuse_fractions", "8",
+                               "--device_cache", "true"])]
+    for attempt in range(2):
+        t0 = time.perf_counter()
+        start(_fused_cli_worker, [torch.device("cuda", 0)], (workdir, runs),
+              backend="nccl")
+        wall = time.perf_counter() - t0
+        res = torch.load(os.path.join(workdir, "fused_cli_rank0.pt"),
+                         weights_only=False)
+        lost = [label for label, r in res.items()
+                if r["seen"]["bptt_kernel"] != r["counts"]["lstm_bwd"]]
+        if not lost:
+            break
+        phase("fused-group", f"48a: a profile lost kernel records ({lost}):"
+              " the pair runs again")
+    else:
+        raise AssertionError(f"48a: the profiler lost records: {res}")
+    one, fused = res["fuse 1"], res["fuse 8"]
+    with open(outs[0], "rb") as f1, open(outs[1], "rb") as f8:
+        same = f1.read() == f8.read()
+    st = fused["stats"]
+    for label, r in res.items():
+        for ln in r["rows"]:
+            phase("fused-group", f"48a {label} |{ln}")
+    errs = epoch_errors(fused["rows"]) == epoch_errors(one["rows"])
+    seen_ok = all(r["seen"][k] == r["counts"][w] for r in res.values()
+                  for k, w in (("bptt_kernel", "lstm_bwd"),
+                               ("ce_fwd_kernel", "softmax_ce_proj_fwd"),
+                               ("pb_dw_kernel", "softmax_ce_proj_bwd")))
+    phase("fused-group", f"48a one NCCL rank on cuda:0 ({wall:.1f} s for "
+          f"both runs): --fuse_fractions 8 --device_cache true against "
+          f"--fuse_fractions 1: trained_network.jsn "
+          f"{'bit for bit' if same else 'DIFFERS'}, table "
+          f"errors {'equal' if errs else 'DIFFER'}; "
+          f"launches that ran {'equal' if fused['counts'] == one['counts'] else 'DIFFER'}"
+          f" (K2 {fused['counts']['lstm_bwd']}, K3f "
+          f"{fused['counts']['softmax_ce_proj_fwd']}, K3b "
+          f"{fused['counts']['softmax_ce_proj_bwd']}); the profiler's "
+          f"bptt / ce_fwd / pb_dw "
+          f"{[fused['seen'][k] for k in ('bptt_kernel', 'ce_fwd_kernel', 'pb_dw_kernel')]}"
+          f" ({'equal' if seen_ok else 'NOT equal'} to them); collectives "
+          f"that ran {fused['collectives']} and {one['collectives']} (want "
+          f"{fused['want_collectives']}: one a training step, two a pass); "
+          f"warm-ups {st['warmups']}, captures {st['captures']}, replays "
+          f"{st['replays']}, eager {st['eager']}; declined: "
+          f"{fused['declined'] or 'none'}")
+    if not (same and errs and seen_ok
+            and fused["counts"] == one["counts"]
+            and fused["collectives"] == one["collectives"]
+            == fused["want_collectives"] and not fused["declined"]
+            and st["captures"] > 0 and not st["eager"]):
+        raise AssertionError("48a: the fused run under a one-rank data "
+                             "group differs from the unfused one")
+
+
+def _fused_cli_worker(group, workdir, runs):
+    """48a in its rank: cli.train_mode(cfg, device, group) for each
+    (label, argv) of runs under the profiler, to workdir."""
+    import contextlib
+    import io
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lstm_rnn_tpu_torch import cli
+    from lstm_rnn_tpu_torch.config import parse_config
+    from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    made = []
+
+    class Recording(Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    out = {}
+    for label, argv in runs:
+        cfg = parse_config(argv)
+        w = wrappers()
+        for f in w.values():
+            f.launches = 0
+        coll = all_reduce_sum.collectives
+        buf = io.StringIO()
+        cli.Trainer = Recording
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(200):  # opens the profile (as 47a's)
+                    torch.empty(8, dtype=torch.int16,
+                                device=group.device).fill_(1)
+                torch.cuda.synchronize()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.train_mode(cfg, group.device, group)
+                torch.cuda.synchronize()
+        finally:
+            cli.Trainer = Trainer
+        tr = made.pop()
+        if rc:
+            raise RuntimeError(f"{label}: train_mode returned {rc}")
+        text = buf.getvalue()
+        kernels = _profiled_kernels(prof)
+        passes = 2 * GRAPH_EPOCHS  # training and validation each epoch
+        out[label] = dict(
+            rows=_table_rows(text),
+            declined=[ln for ln in text.splitlines() if "declined" in ln],
+            counts=graph_executed(tr, {k: f.launches for k, f in w.items()}),
+            seen={k: sum(n for name, n in kernels.items() if k in name
+                         and "carry" not in name)
+                  for k in ("bptt_kernel", "ce_fwd_kernel", "pb_dw_kernel")},
+            collectives=tr.graph_stats.executed(
+                "collectives", all_reduce_sum.collectives - coll),
+            want_collectives=(GRAPH_EPOCHS * tr.train_set.num_fractions()
+                              + 2 * passes),
+            stats=tr.graph_stats.as_dict())
+        tr.drop_graphs()
+    torch.save(out, os.path.join(workdir, f"fused_cli_rank{group.rank}.pt"))
+
+
+def fused_dp_gpus(torch, card, workdir, corpora, k, timed=FUSED_TIMED):
+    """48b: a data group of k ranks, one GPU each, over NCCL: fuse 8
+    against fuse 1 (bit for bit at 2 ranks; at 4 bit for bit or within
+    GRAPH_REL, said which), and fuse 8 with rank 1's graphs declined
+    (`_fits`) so that its steps run eagerly beside the others' replays,
+    its values the unfused run's; `timed` epochs of each fuse count."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    runs = FUSED_RUNS + (("fuse 8, rank 1 eager", 8, 1),)
+    t0 = time.perf_counter()
+    start(_fused_dp_worker, [torch.device("cuda", j) for j in range(k)],
+          (workdir, corpora, runs, timed), backend="nccl")
+    phase("fused-group", f"48b DP on {k} GPUs: {time.perf_counter() - t0:.1f}"
+          " s for its runs")
+    res = [torch.load(os.path.join(workdir, f"fused_rank{r}.pt"),
+                      weights_only=False) for r in range(k)]
+    for r in res[1:]:
+        if any(not _same_params(r[lb]["params"], res[0][lb]["params"])
+               for lb in r):
+            raise AssertionError(f"48b DP {k}: the ranks' weights differ")
+    _report_fused(torch, card, f"48b DP {k} x 1 GPU", res[0], exact=k <= 2)
+    st = res[1]["fuse 8, rank 1 eager"]["stats"]
+    phase("fused-group", f"48b DP {k}: rank 1's graphs declined: warm-ups "
+          f"{st['warmups']}, captures {st['captures']}, eager steps "
+          f"{st['eager']}, beside rank 0's replays")
+    if st["captures"] or not st["eager"]:
+        raise AssertionError(f"48b DP {k}: rank 1 did not step eagerly")
+
+
+def fused_meshes(torch, card, workdir, corpora, n, timed=FUSED_TIMED):
+    """48c: the seq mesh of 4 blocks of cuda:0 (always), and where torch
+    sees the GPUs SP over 2 GPUs and PP at 2 stages (m = 2) in one
+    process, and DP x SP 2 x 2 (two ranks, each a seq mesh of 2 GPUs):
+    fuse 8 against fuse 1, bit for bit, and `timed` epochs of each."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    cuda = [torch.device("cuda", j) for j in range(n)]
+    layouts = [("SP on 4 blocks of cuda:0", [cuda[0]] * 4, "seq", 0)]
+    if n >= 2:
+        layouts += [("SP on 2 GPUs", cuda[:2], "seq", 0),
+                    ("PP on 2 GPUs (m = 2)", cuda[:2], "pipe", 2)]
+    for what, mesh, axis, m in layouts:
+        t0 = time.perf_counter()
+        res = _fused_layout_runs(torch, corpora, list(dict.fromkeys(mesh)),
+                                 FUSED_RUNS, timed, mesh=mesh, axis=axis,
+                                 m=m)
+        phase("fused-group", f"48c {what}: {time.perf_counter() - t0:.1f} s"
+              " for its runs")
+        _report_fused(torch, card, f"48c {what}", res,
+                      ranks=len(set(mesh)))
+    if n >= 4:
+        t0 = time.perf_counter()
+        start(_fused_dp_worker, [cuda[0:2], cuda[2:4]],
+              (workdir, corpora, FUSED_RUNS, timed), backend="nccl",
+              axis="seq")
+        phase("fused-group", f"48c DP x SP 2 x 2: "
+              f"{time.perf_counter() - t0:.1f} s for its runs")
+        res = [torch.load(os.path.join(workdir, f"fused_rank{r}.pt"),
+                          weights_only=False) for r in range(2)]
+        if not all(_same_params(res[1][lb]["params"], res[0][lb]["params"])
+                   for lb in res[0]):
+            raise AssertionError("48c DP x SP: the ranks' weights differ")
+        _report_fused(torch, card, "48c DP x SP 2 x 2", res[0], ranks=2)
+
+
+def _trace_devices(directory):
+    """The devices of the kernels in a --profile_dir's Chrome traces (one
+    a rank)."""
+    found = set()
+    for name in os.listdir(directory):
+        with open(os.path.join(directory, name)) as f:
+            trace = json.load(f)
+        found |= {e.get("args", {}).get("device", e.get("pid"))
+                  for e in trace.get("traceEvents", [])
+                  if e.get("cat") == "kernel"}
+    return sorted(found)
+
+
+def multihost_from_env(torch, workdir, corpora, n):
+    """48d: the repair of multi-host auto-detection (parallel/cluster.py)
+    on the card. With 2 GPUs: two CLI processes started with
+    JAX_COORDINATOR_ADDRESS and SLURM's variables alone (SLURM_LOCALID 0
+    and 1) against the one-process --num_devices 2 run, bit for bit, each
+    process's kernels on cuda:{SLURM_LOCALID} (its --profile_dir trace);
+    on one card one process from the environment (SLURM_NTASKS=1: NCCL
+    takes one rank a GPU) against the plain run. Both sides with
+    --fuse_fractions 8 --device_cache true."""
+    net = _graph_net(workdir, "TIMIT")
+    args = _graph_args("float32", 0, GRAPH_EPOCHS, *corpora["TIMIT"], net,
+                       "trained.jsn") + ["--fuse_fractions", "8",
+                                         "--device_cache", "true"]
+    k = 2 if n >= 2 else 1
+    port = _free_port()
+    t0 = time.perf_counter()
+    ref_dir = os.path.join(workdir, "env_ref")
+    # the reference and the processes at once: they share the GPUs
+    ref = cli_process(args + (["--num_devices", "2"] if k == 2 else []),
+                      ref_dir)
+    procs = []
+    for i in range(k):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   SLURM_JOB_ID="4242", SLURM_STEP_NODELIST="localhost",
+                   SLURM_NTASKS=str(k), SLURM_PROCID=str(i),
+                   SLURM_LOCALID=str(i))
+        procs.append(cli_process(args + ["--profile_dir", "prof"],
+                                 os.path.join(workdir, f"env{i}"), env))
+    outs = [finish(p, f"process {i} from the environment")
+            for i, p in enumerate(procs)]
+    finish(ref, "the flag-started run")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(ref_dir, "trained.jsn"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(workdir, "env0", "trained.jsn"), "rb") as f:
+        same = f.read() == want
+    devices = [_trace_devices(os.path.join(workdir, f"env{i}", "prof"))
+               for i in range(k)]
+    banner = ("Data-parallel mesh: {'data': 2} over 2 hosts" in outs[0]
+              if k == 2 else "Data-parallel mesh: {'data': 1}" in outs[0])
+    phase("fused-group", f"48d {k} process(es) from JAX_COORDINATOR_ADDRESS "
+          f"and SLURM's variables ({wall:.1f} s with the reference) against "
+          + ("--num_devices 2" if k == 2 else "the plain run")
+          + f": trained_network {'bit for bit' if same else 'DIFFERS'}; "
+          f"the kernels of process i on {devices}; banner "
+          f"{'printed' if banner else 'MISSING'}")
+    if not (same and banner and devices == [[i] for i in range(k)]):
+        raise AssertionError("48d: the run from the environment differs")
+
+
+def fused_group_phase(torch, card):
+    """Phase 48: --fuse_fractions under a data group and the one-process
+    seq and pipe meshes (48a-c), and multi-host runs from the environment
+    (48d), on phase 7's corpus."""
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        corpora = graph_corpora(workdir)
+        fused_dp_one_rank(torch, workdir, corpora)
+        if n >= 2:
+            for k in (2, 4):
+                if k <= n:
+                    fused_dp_gpus(torch, card, workdir, corpora, k)
+        else:
+            phase("fused-group", "48b (DP on 2 and 4 GPUs) was not run: "
+                  "torch sees one GPU")
+        fused_meshes(torch, card, workdir, corpora, n)
+        multihost_from_env(torch, workdir, corpora, n)
+    phase("fused-group", f"phase 48 took {time.perf_counter() - t0:.0f} s")
 
 
 def main():
@@ -7756,6 +8193,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         xh_steps = cross_host(torch, card, workdir, n_gpus)
     graphs_phase(torch, card)
+    fused_group_phase(torch, card)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":

@@ -23,7 +23,11 @@ Port-specific:
                  multi-host data parallelism, alone or with --seq_devices
                  in train mode (parallel/launch.py); in train mode with
                  --seq_devices or --pipeline_devices k = every host's
-                 devices in all, one seq or pipe mesh over the hosts
+                 devices in all, one seq or pipe mesh over the hosts.
+                 As in the JAX CLI, JAX_COORDINATOR_ADDRESS stands for the
+                 first, and Open MPI's or SLURM's variables for the count
+                 and the rank, binding the process to its local rank's GPU
+                 (parallel/cluster.py)
   --f32_matmul 3x: in train mode with float32, the projections, weight
                  gradients, dx and the softmax tail's products as three
                  bf16 passes on the tensor cores (ops/gemm.py
@@ -244,11 +248,14 @@ def build_parser() -> argparse.ArgumentParser:
     g = p.add_argument_group("Multi-host options (extensions)")
     g.add_argument("--coordinator_address", default="",
                    help="multi-host coordinator host:port (process 0 "
-                        "serves the rendezvous there)")
+                        "serves the rendezvous there); default "
+                        "JAX_COORDINATOR_ADDRESS")
     g.add_argument("--num_processes", type=int, default=0,
-                   help="multi-host process count (one process per host)")
+                   help="multi-host process count (0 = from Open MPI's or "
+                        "SLURM's environment)")
     g.add_argument("--process_id", type=int, default=-1,
-                   help="multi-host rank of this process, 0..N-1")
+                   help="multi-host rank of this process, 0..N-1 (-1 = "
+                        "from Open MPI's or SLURM's environment)")
     return p
 
 
@@ -379,7 +386,8 @@ _SERIALIZE_SKIP = {"options_file", "options_file_flag", "continue_file",
                    "list_devices",
                    # process identity is per-job, never replayed from an
                    # autosave (--continue keeps the live values instead)
-                   "coordinator_address", "num_processes", "process_id"}
+                   "coordinator_address", "num_processes", "process_id",
+                   "local_device_ids"}
 
 
 def serialize_options(ns: argparse.Namespace) -> str:
@@ -412,7 +420,16 @@ def _check_supported(ns: argparse.Namespace) -> None:
     :577-586; parallel/mesh.py:58-93). Device counts resolve as the JAX
     CLI resolves them: --seq_devices and --pipeline_devices count only
     above 1, --model_devices 0 is the TP heuristic (resolved in cli.py),
-    and --num_devices 0 is every device available."""
+    and --num_devices 0 is every device available. The multi-host
+    settings resolve first, from the flags and the cluster's environment
+    (parallel/cluster.py), into the namespace: the coordinator, the count,
+    the rank and `local_device_ids` (None: every local device)."""
+    from lstm_rnn_tpu_torch.parallel import cluster
+    found = cluster.resolve(ns.coordinator_address, ns.num_processes,
+                            ns.process_id)
+    ns.coordinator_address = found.coordinator
+    ns.num_processes, ns.process_id = found.num_processes, found.process_id
+    ns.local_device_ids = found.local_device_ids
     multihost = bool(ns.coordinator_address)
     if multihost and not (ns.num_processes >= 1
                           and 0 <= ns.process_id < ns.num_processes):

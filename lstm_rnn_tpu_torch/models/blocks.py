@@ -8,8 +8,10 @@ time block r scans its frames from the carried (h, c) and hands its final
 state to block r + 1; a BLSTM layer's backward half runs the opposite
 wavefront (block n-1 first). Both directions' blocks of a round are
 launched before either carry moves, so on a mesh two devices work in
-every round. The carry hop is `.to(mesh[i +- 1])` (a no-op when the device
-repeats); autograd carries the carry cotangents back along it. On a mesh
+every round. The carry hop is `move(.., mesh[i +- 1])` (parallel/mesh.py:
+`.to`, a no-op when the device repeats, whose backward between two GPUs
+a step graph can capture); autograd carries the carry cotangents back
+along it. On a mesh
 that spans processes (parallel/mesh.py `SpanMesh`) each process runs its
 own blocks, and a carry between two processes goes through parallel/
 hop.py's chain.
@@ -31,12 +33,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from lstm_rnn_tpu_torch.ops.lstm_cell import lstm_scan_fused_carry
+from lstm_rnn_tpu_torch.parallel.mesh import move
 
 
 def per_device(p, mesh):
     """{device: the layer's parameters on it}, one copy per distinct
     device of the mesh that this process drives."""
-    return {dev: {k: v.to(dev) for k, v in p.items()}
+    return {dev: {k: move(v, dev) for k, v in p.items()}
             for dev in set(mesh) - {None}}
 
 
@@ -84,7 +87,7 @@ def wavefront(run_block, n_dirs: int, mesh, batch: int, hidden: int,
             if not 0 <= j < n:
                 continue
             if own(i) and own(j):
-                state[d] = (hf.to(mesh[j]), cf.to(mesh[j]))
+                state[d] = (move(hf, mesh[j]), move(cf, mesh[j]))
             elif own(i):
                 chain.send(torch.stack([hf, cf]), i, j)
             elif own(j):

@@ -24,8 +24,12 @@ several GPUs fed, so each GPU gets its own.
   drives the mesh cuda:j*k .. cuda:j*k+k-1. Forward mode ignores
   --model_devices, as the JAX CLI's forward mode never reads it.
 - Multi-host, `--coordinator_address host:port --num_processes N
-  --process_id i`: the process on each host starts one worker per local
-  GPU (one on the CPU), or with a mesh of k (--seq_devices,
+  --process_id i` (or what parallel/cluster.py resolves from
+  JAX_COORDINATOR_ADDRESS and Open MPI's or SLURM's variables): the
+  process on each host starts one worker per local GPU (one on the CPU),
+  per GPU it is bound to (`Config.local_device_ids`: its cluster local
+  rank's, one worker on cuda:{local rank}, as jax binds such a process
+  to that one device), or with a mesh of k (--seq_devices,
   --pipeline_devices, --model_devices in train mode) one per group of k
   local GPUs (L / k of L; one CPU worker on the CPU), and
   `--num_devices` is ignored, as in the JAX CLI: every process's devices
@@ -171,6 +175,20 @@ def local_devices(device_type: str, k: int = 1) -> List[torch.device]:
     return [torch.device("cuda", j) for j in range(torch.cuda.device_count())]
 
 
+def _bound(ids, device: torch.device) -> Optional[List[torch.device]]:
+    """The GPUs a multi-host process is bound to (parallel/cluster.py:
+    its cluster local rank's, or JAX_LOCAL_DEVICE_IDS), or None: every
+    local device. On the CPU a bound process is one CPU worker, as an
+    unbound one is."""
+    if not ids or device.type != "cuda":
+        return None
+    n_avail = torch.cuda.device_count()
+    if max(ids) >= n_avail:
+        raise RuntimeError(f"local device ids {list(ids)} but only "
+                           f"{n_avail} devices available")
+    return [torch.device("cuda", i) for i in ids]
+
+
 def _spans(axis: str, k: int, n: int, hosts: int) -> bool:
     """Whether a multi-host run's k-position mesh of `axis` over hosts of
     n local devices (this one's) spans every host, the one cross-host
@@ -204,7 +222,8 @@ def plan(cfg, device: torch.device) -> Optional[Plan]:
     multihost = bool(cfg.coordinator_address)
     axis, k = mesh_axis(cfg)
     if multihost:
-        local = local_devices(device.type, k)
+        local = _bound(cfg.local_device_ids, device) or local_devices(
+            device.type, k)
         n = len(local)
     elif device.type == "cpu":
         n = max(1, cfg.num_devices)
@@ -225,8 +244,12 @@ def plan(cfg, device: torch.device) -> Optional[Plan]:
         groups, composed = composed_mesh(n, k, device.type, FLAGS[axis])
         if not (composed or multihost):
             return None  # the 1-D mesh, in this process
+        if multihost and device.type == "cuda":  # the process's own GPUs
+            groups = [[local[d.index] for d in m] for m in groups]
         meshes = tuple(tuple(m) for m in groups)
         devices = tuple(m[0] for m in meshes)
+    elif multihost:
+        devices = tuple(local)
     elif device.type == "cpu":
         devices = (torch.device("cpu"),) * n
     else:

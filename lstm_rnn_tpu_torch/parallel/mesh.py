@@ -132,3 +132,34 @@ def span_mesh(axis: str, counts: Sequence[int], rank: int,
     devices = [None] * len(owners)
     devices[off:off + len(local)] = [torch.device(d) for d in local]
     return SpanMesh(axis, rank, owners, tuple(devices))
+
+
+class _Hop(torch.autograd.Function):
+    """x.to(device) from one GPU to another, whose backward copies the
+    gradient back with x's GPU's current stream set to the stream that
+    was current there in the forward. Autograd runs the backward on the
+    thread of the gradient's GPU, where x's GPU's current stream is its
+    default stream; under a step graph's capture (graphs.py) that stream
+    is not capturing, and the copy's allocation and its barrier must land
+    in the capture. Eagerly it is the stream the plain copy uses."""
+
+    @staticmethod
+    def forward(ctx, x, device, non_blocking):
+        ctx.src = x.device
+        ctx.stream = torch.cuda.current_stream(x.device)
+        return x.to(device, non_blocking=non_blocking)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.cuda.stream(ctx.stream):
+            return g.to(ctx.src), None, None
+
+
+def move(x: torch.Tensor, device, non_blocking: bool = False):
+    """x on `device`, differentiably: `x.to(device)`, between two GPUs
+    through `_Hop`."""
+    device = torch.device(device)
+    if (x.device.type == device.type == "cuda" and device.index is not None
+            and device.index != x.device.index):
+        return _Hop.apply(x, device, non_blocking)
+    return x.to(device, non_blocking=non_blocking)

@@ -17,13 +17,16 @@ mesh's devices:
 - the host enqueues tick by tick, and each stage's work goes to its
   device's stream, so the GPUs overlap as the ticks allow;
 - a stage's output passes to the next stage by a differentiable
-  `.to(mesh[s + 1], non_blocking=True)`; autograd carries the cotangents
-  back along it (the ppermute's transpose). Messages are the activations
-  as they are, with no padding to a common width: that was for a uniform
-  ICI transfer;
+  `move(.., mesh[s + 1], non_blocking=True)` (parallel/mesh.py: `.to`,
+  whose backward between two GPUs a step graph can capture); autograd
+  carries the cotangents back along it (the ppermute's transpose).
+  Messages are the activations as they are, with no padding to a common
+  width: that was for a uniform ICI transfer;
 - every (stage, microbatch) forward runs under `torch.utils.checkpoint`
   when autograd records: GPipe's per-microbatch rematerialization, the
-  counterpart of the JAX package's `jax.checkpoint(tick)`. A stage then
+  counterpart of the JAX package's `jax.checkpoint(tick)` (no RNG state
+  is saved: a stage draws no random numbers, and so a step graph can
+  hold it, as graphs.py's do under --fuse_fractions). A stage then
   keeps only its microbatches' inputs, and the backward runs each
   (stage, microbatch) forward once more before its backward. So a
   training step launches each LSTM layer's training forward (K1) twice
@@ -32,7 +35,7 @@ mesh's devices:
   once, with the inference kernels (K0);
 - the parameters live once, on mesh[0] (the Trainer's device). Each
   stage takes a differentiable copy of its own layers once a call
-  (`.to(mesh[s])`, a no-op when the device repeats), so the gradients
+  (`move(.., mesh[s])`, a no-op when the device repeats), so the gradients
   arrive on mesh[0] and the update, the autosaves and --continue stay as
   they are.
 
@@ -63,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 
 from lstm_rnn_tpu_torch.ops.masking import PATTYPE_NONE
 from lstm_rnn_tpu_torch.parallel import hop
+from lstm_rnn_tpu_torch.parallel.mesh import move
 
 
 def stage_ranges(n_layers: int, n_stages: int) -> List[Tuple[int, int]]:
@@ -148,7 +152,7 @@ def _pipelined(net, params, x, targets, pattypes, mesh, microbatches):
 
     # each owned stage's own layers, one differentiable copy per call
     stage_params = [
-        {s.name: {k: v.to(mesh[i]) for k, v in params[s.name].items()}
+        {s.name: {k: move(v, mesh[i]) for k, v in params[s.name].items()}
          for s in hidden[lo:hi]} if own[i] else None
         for i, (lo, hi) in enumerate(ranges)]
 
@@ -182,7 +186,8 @@ def _pipelined(net, params, x, targets, pattypes, mesh, microbatches):
 
     def run(s, i, inp):
         if remat:
-            return checkpoint(stage, s, i, inp, use_reentrant=False)
+            return checkpoint(stage, s, i, inp, use_reentrant=False,
+                              preserve_rng_state=False)
         return stage(s, i, inp)
 
     def message(s):
@@ -209,7 +214,7 @@ def _pipelined(net, params, x, targets, pattypes, mesh, microbatches):
             if s == last:
                 results[i] = out[s]
             elif own[s + 1]:
-                sent[s + 1] = out[s].to(mesh[s + 1], non_blocking=True)
+                sent[s + 1] = move(out[s], mesh[s + 1], non_blocking=True)
         for s in range(n_stages - 1):
             if not 0 <= k - s < m or own[s] == own[s + 1]:
                 continue
@@ -231,6 +236,6 @@ def _pipelined(net, params, x, targets, pattypes, mesh, microbatches):
         err = torch.zeros((), dtype=x.dtype, device=home)
         return chain.close(err), torch.zeros((), dtype=torch.int64,
                                              device=home)
-    err = torch.stack([e.to(home) for e, _ in results]).sum()
+    err = torch.stack([move(e, home) for e, _ in results]).sum()
     corr = torch.stack([c.to(home) for _, c in results]).sum()
     return (err if chain is None else chain.close(err)), corr

@@ -15,11 +15,12 @@ moves, so two devices work in every round.
 
 Where the JAX package uses shard_map and ppermute, the port uses plain
 tensors on the mesh's devices:
-- the carry hop is `.to(mesh[i +- 1])`; autograd carries the carry
-  cotangents back along it (the ppermute's transpose);
-- the parameters live once, on mesh[0]; each block takes `p.to(mesh[i])`
-  (a no-op when the device repeats), so autograd sums every block's
-  gradient into the leaf (the JAX package's psum over the axis);
+- the carry hop is `move(.., mesh[i +- 1])` (parallel/mesh.py: `.to`,
+  whose backward between two GPUs a step graph can capture); autograd
+  carries the carry cotangents back along it (the ppermute's transpose);
+- the parameters live once, on mesh[0]; each block takes `move(p,
+  mesh[i])` (a no-op when the device repeats), so autograd sums every
+  block's gradient into the leaf (the JAX package's psum over the axis);
 - no per-round checkpoint is needed (the JAX package's jax.checkpoint of
   the round scan, sequence.py:159-171): each block's residuals live on
   its own device from the start.
@@ -53,6 +54,7 @@ from lstm_rnn_tpu_torch.models.feedforward import (feedforward_forward,
 from lstm_rnn_tpu_torch.models.lstm import (_lstm_scan, _needs_grad,
                                           _scan_acts_valid, kernel_route)
 from lstm_rnn_tpu_torch.parallel import hop
+from lstm_rnn_tpu_torch.parallel.mesh import move
 
 
 def _scan_block(acts, w_rec, peep, mask, compute_dtype, h0, c0):
@@ -188,7 +190,7 @@ def _seq_run(net, params, x, targets, pattypes, mesh, want_outputs):
     if want_outputs:
         return torch.cat([h.to(home) for h in hs])[:t]
     tgs = split(targets)
-    err = torch.stack([net.loss_fn(hs[i], tgs[i], pts[i]).to(home)
+    err = torch.stack([move(net.loss_fn(hs[i], tgs[i], pts[i]), home)
                        for i in owned]).sum()
     corr = torch.stack([net.correct_count(hs[i], tgs[i], pts[i]).to(home)
                         for i in owned]).sum()

@@ -145,11 +145,23 @@ weight-noise passes step one fraction at a time.
   are dropped where any of them is rebound (`import_state`, the swap to
   the best weights at the end, and any other change `_binding` sees
   before a step).
-- Scope: one CUDA device, no data group and no seq, pipe or model mesh.
-  Under those the passes step one fraction at a time (the same values),
-  and the Trainer says so once. On the CPU there is no graph: the fused
-  passes run the same steps eagerly, in the same order and with the same
-  bookkeeping, so that they equal the unfused run bit for bit.
+- Under a data group (one device a rank) a graph holds the training
+  step's packed all-reduce, on NCCL; the stacked epoch holds the rank's
+  block of each fraction, and its estimate counts the rank's padded rows
+  (the JAX one the global arrays, so the GiB figures of its decline line
+  differ by design). On a one-process seq or pipe mesh (alone, or a DP x
+  SP or DP x PP rank's) a graph spans every GPU of the mesh
+  (`mesh_devices`); on a mesh that names one GPU several times it is
+  that GPU's graph. Evaluation graphs hold no collective: a pass sums
+  its metrics over the ranks once, at its end, eagerly.
+- Scope: a model mesh (tensor parallelism: its host-driven scan cell
+  makes some 2,080 host operations a time step and layer at 5 shards, a
+  graph of millions of nodes) and a seq or pipe mesh that spans processes
+  (its hops of parallel/hop.py). Under those the passes step one fraction
+  at a time (the same values), and the Trainer says so once. On the CPU
+  there is no graph: the fused passes run the same steps eagerly, in the
+  same order and with the same bookkeeping, so that they equal the
+  unfused run bit for bit.
 """
 
 from __future__ import annotations
@@ -550,10 +562,7 @@ class Trainer:
                 self.cache_hits += 1
                 return hit[0]
             self.cache_misses += 1
-        arrays = (frac.inputs, frac.targets, frac.pattypes)
-        if self.data_group is not None:
-            arrays = self.data_group.block(*arrays)
-        batch = self._to_device(arrays)
+        batch = self._to_device(self._block(frac))
         if key is not None:
             self._cache_put(key, batch)
         return batch
@@ -582,18 +591,37 @@ class Trainer:
         """The pass's fuse count: K for stochastic training without weight
         noise and for every evaluation pass (the JAX gate,
         lstm_rnn_tpu/trainer.py:1031-1033), else 1; 1 outside the graphs'
-        scope, which the Trainer names once."""
+        scope (a model mesh, a mesh that spans processes), which the
+        Trainer names once."""
         fuse = (self.fuse_fractions
                 if not update or (self.hybrid_online_batch
                                   and self.weight_noise_sigma <= 0) else 1)
-        if fuse > 1 and (self.data_group is not None or self.mesh_devices):
-            where = ("a data group" if self.data_group is not None
-                     else "a seq, pipe or model mesh")
-            self._note(f"fuse_fractions={fuse}: the step graphs take one "
-                       f"device; under {where} every pass steps one "
-                       "fraction at a time (the same values)")
+        if fuse > 1 and (self.model_mesh is not None
+                         or self.span is not None):
+            where = ("a model mesh (tensor parallelism)"
+                     if self.model_mesh is not None
+                     else "a seq or pipe mesh that spans processes")
+            self._note(f"fuse_fractions={fuse}: no step graph holds {where}"
+                       "; every pass steps one fraction at a time (the "
+                       "same values)")
             return 1
         return fuse
+
+    def _block(self, frac: Fraction) -> tuple:
+        """The fraction's (inputs, targets, pattypes) host arrays, under a
+        data group this rank's block (B padded to a multiple of the world
+        size)."""
+        arrays = (frac.inputs, frac.targets, frac.pattypes)
+        if self.data_group is not None:
+            arrays = self.data_group.block(*arrays)
+        return arrays
+
+    def _block_rows(self, b: int) -> int:
+        """The rows of this rank's block of a fraction of b rows."""
+        dg = self.data_group
+        if dg is None or dg.span is not None:
+            return b
+        return -(-b // dg.size)
 
     def _binding(self) -> tuple:
         """What a step graph holds: the parameters' and velocity's
@@ -603,8 +631,10 @@ class Trainer:
                 tuple(sorted(self.layer_lr.items())), self.momentum)
 
     def drop_graphs(self) -> None:
-        """Forget every step graph (and free its pool): the next fraction
+        """Forget every step graph (and free its pools): the next fraction
         of each shape warms up and captures again."""
+        for graph in self._graphs.values():
+            graph.release()
         self._graphs.clear()
         self._graph_binding = None
 
@@ -624,7 +654,8 @@ class Trainer:
         if graph is None:
             graph = self._graphs[key] = StepGraph(
                 ("train" if update else "eval", tuple(batch[0].shape)),
-                step, batch, self.graph_stats, self._note)
+                step, batch, self.graph_stats, self._note,
+                self.mesh_devices)
         return graph(batch)
 
     def _frame_bytes(self, w: int) -> int:
@@ -672,7 +703,8 @@ class Trainer:
             del self._stacked[token]
             entry = None
         if entry is None:
-            est = sum(t * b * self._frame_bytes(w)
+            # the rank's rows (the JAX estimate counts the global arrays)
+            est = sum(t * self._block_rows(b) * self._frame_bytes(w)
                       for t, b, w in (f.shape for f in fracs))
             reclaim = sum(self._dev_cache[k][1] for k in keys
                           if k in self._dev_cache)
@@ -690,7 +722,7 @@ class Trainer:
                 old = self._dev_cache.pop(k, None)
                 if old is not None:
                     self._dev_cache_bytes -= old[1]
-                batch = self._to_device((f.inputs, f.targets, f.pattypes))
+                batch = self._to_device(self._block(f))
                 nbytes = sum(a.numel() * a.element_size() for a in batch)
                 entry["rows"][k] = batch
                 entry["bytes"] += nbytes

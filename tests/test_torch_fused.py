@@ -262,9 +262,11 @@ def test_stacked_decline_reason_is_printed_once(tmp_path, capsys):
 
 def test_passes_outside_the_fuse_gate_step_one_at_a_time(tmp_path, capsys):
     """Batch mode and weight noise keep stepping one fraction at a time
-    (no stack, no decline line); the validation pass still fuses. A seq
-    mesh is outside the step graphs' scope: the Trainer says so once and
-    steps one fraction at a time, with the unfused values."""
+    (no stack, no decline line); the validation pass still fuses. A model
+    mesh (tensor parallelism) is outside the step graphs' scope: the
+    Trainer says so once and steps one fraction at a time, with the
+    unfused values. (A seq or pipe mesh in one process fuses:
+    test_seq_and_pipe_meshes_fuse.)"""
     for kw in ({"hybrid_online_batch": False},
                {"weight_noise_sigma": 0.05}):
         want = _train(_trainer(tmp_path, "port", val=True, **kw))
@@ -274,14 +276,121 @@ def test_passes_outside_the_fuse_gate_step_one_at_a_time(tmp_path, capsys):
         assert len(t._stacked) == 1  # the validation set's
         assert DECLINED not in capsys.readouterr().out
     mesh = make_seq_mesh(2, "cpu")
-    want = _train(_trainer(tmp_path, "port", seq_mesh=mesh))
-    t = _trainer(tmp_path, "port", seq_mesh=mesh, fuse_fractions=8,
+    want = _train(_trainer(tmp_path, "port", model_mesh=mesh))
+    t = _trainer(tmp_path, "port", model_mesh=mesh, fuse_fractions=8,
                  device_cache=True)
     _assert_bitwise(_train(t), want)
     out = capsys.readouterr().out
-    assert out.count("under a seq, pipe or model mesh every pass steps "
-                     "one fraction at a time") == 1
+    assert out.count("fuse_fractions=8: no step graph holds a model mesh "
+                     "(tensor parallelism); every pass steps one fraction "
+                     "at a time") == 1
     assert t._stacked == {}
+
+
+@pytest.mark.parametrize("axis", ["seq", "pipe"])
+def test_seq_and_pipe_meshes_fuse(tmp_path, capsys, axis):
+    """A one-process seq or pipe mesh of 2 (the CPU twice) takes the
+    fused passes: the stacked epoch, with validation, bit for bit the
+    unfused run on the same mesh and within the JAX file's tolerance of
+    the JAX Trainer's fused run on its 2-device mesh, with its cache
+    lookups and decline lines; no note."""
+    from lstm_rnn_tpu.parallel.mesh import make_mesh
+    kw = {"lengths": TWO_BUCKETS, "ds_kw": {"bucket_lengths": True},
+          "val": True, "epochs": 2}
+    mesh = {f"{axis}_mesh": make_seq_mesh(2, "cpu")}
+    want = _train(_trainer(tmp_path, "port", **mesh, **kw))
+    capsys.readouterr()
+    t = _trainer(tmp_path, "port", fuse_fractions=8, device_cache=True,
+                 **mesh, **kw)
+    stats = []
+    got = _train(t, stats)
+    out = capsys.readouterr().out
+    _assert_bitwise(got, want)
+    assert len(t._stacked) == 2 and "one fraction at a time" not in out
+    j = _trainer(tmp_path, "jax", fuse_fractions=8, device_cache=True,
+                 **{f"{axis}_mesh": make_mesh(2, axis=axis)}, **kw)
+    jstats = []
+    _assert_close_to_jax(got, _train(j, jstats))
+    assert _declines(out) == _declines(capsys.readouterr().out) == []
+    keys = ("hits", "misses", "entries")
+    assert [[s[k] for k in keys] for s in stats] == [
+        [s[k] for k in keys] for s in jstats]
+
+
+def _data_group_runs(tmp_path, runs, **kw):
+    """The port's Trainer(data_group=) on 2 CPU workers over gloo, each
+    (name, Trainer keywords) of runs in turn: {name: [rank 0's, rank 1's
+    results]} (tests/torch_fused_worker.py)."""
+    from lstm_rnn_tpu_torch.parallel import launch
+    from tests.torch_fused_worker import train_worker
+    _trainer(tmp_path, "port", **kw)  # writes the corpora
+    ref = Network(LAYERS)
+    ref.init_params(5)
+    ds_kw = {"parallel_sequences": 3, "sort_by_length": True,
+             "prefetch": False, "fraction_shuffling": True, "seed": 11,
+             **(kw.get("ds_kw") or {})}
+    files = (str(tmp_path / "tr.nc"),
+             str(tmp_path / "va.nc") if kw.get("val") else None)
+    launch.start(train_worker, [torch.device("cpu")] * 2,
+                 (str(tmp_path), LAYERS, ref.params, files, ds_kw,
+                  kw.get("epochs", 3), runs))
+    return {name: [torch.load(tmp_path / f"{name}_rank{r}.pt",
+                              weights_only=False) for r in range(2)]
+            for name, _ in runs}
+
+
+@pytest.mark.parametrize("fuse", [2, 8])
+def test_data_group_fuses(tmp_path, capsys, fuse):
+    """A data group of 2 CPU workers (B = 3 padded to 4, 2 rows a rank)
+    with fuse K and the cache on: bit for bit its fuse-1 run, every rank
+    the same, and within the JAX file's tolerance of the JAX Trainer's
+    fused run on a 2-device data mesh, with its cache lookups and decline
+    lines (fuse 2 declines the training pass's stacked epoch and stacks
+    the validation set, fuse 8 stacks both). The stacked entries hold the
+    rank's block of each fraction, and no note is printed."""
+    from lstm_rnn_tpu.parallel.mesh import make_mesh
+    from lstm_rnn_tpu_torch.parallel.data import local_block, pad_batch
+    kw = {"lengths": TWO_BUCKETS, "ds_kw": {"bucket_lengths": True},
+          "val": True, "epochs": 2}
+    res = _data_group_runs(tmp_path, [
+        ("one", {}), ("fused", {"fuse_fractions": fuse,
+                                "device_cache": True})], **kw)
+    one, fused = res["one"], res["fused"]
+    for r in range(2):
+        _assert_bitwise((fused[r]["rows"], fused[r]["params"]),
+                        (one[0]["rows"], one[0]["params"]))
+        assert "one fraction at a time" not in fused[r]["out"]
+    capsys.readouterr()
+    j = _trainer(tmp_path, "jax", fuse_fractions=fuse, device_cache=True,
+                 mesh=make_mesh(2), **kw)
+    jstats = []
+    _assert_close_to_jax((fused[0]["rows"], fused[0]["params"]),
+                         _train(j, jstats))
+    assert _declines(fused[0]["out"]) == _declines(
+        capsys.readouterr().out)
+    assert len(_declines(fused[0]["out"])) == (1 if fuse == 2 else 0)
+    keys = ("hits", "misses", "entries")
+    assert [[s[k] for k in keys] for s in fused[0]["stats"]] == [
+        [s[k] for k in keys] for s in jstats]
+    # the entries hold each rank's block of the padded fraction
+    frames = {}
+    for which, f in (("train", "tr.nc"), ("val", "va.nc")):
+        ds = DataSet([str(tmp_path / f)], parallel_sequences=3,
+                     sort_by_length=True, prefetch=False,
+                     bucket_lengths=True)
+        frames[which] = {frac.key[1:]: pad_batch(
+            frac.inputs, frac.targets, frac.pattypes, 2)
+            for frac in ds.fractions()}
+    assert [sorted(r["stacked"]) for r in fused] == 2 * [
+        ["train", "val"] if fuse == 8 else ["val"]]
+    for r in range(2):
+        for which, entry in fused[r]["stacked"].items():
+            assert sorted(entry) == sorted(frames[which])
+            for key, rows in entry.items():
+                want = frames[which][key]
+                assert rows[0].shape[1] == 2
+                for a, b in zip(rows, want):
+                    np.testing.assert_array_equal(a, local_block(b, r, 2))
 
 
 def test_remat_fused_and_checkpoint_rng_state(tmp_path, monkeypatch):
@@ -373,7 +482,8 @@ def test_graph_pools_count_against_the_cache_budget(tmp_path, capsys):
     want = _train(_trainer(tmp_path, "port", epochs=2))
     t = _trainer(tmp_path, "port", fuse_fractions=8, device_cache=True,
                  device_cache_bytes=1 << 20, epochs=2)
-    t._graphs["pool"] = types.SimpleNamespace(pool_bytes=3 << 18)
+    t._graphs["pool"] = types.SimpleNamespace(pool_bytes=3 << 18,
+                                              release=lambda: None)
     assert t._cache_room() == 1 << 18
     t._graphs["pool"].pool_bytes = 1 << 20
     stats = []

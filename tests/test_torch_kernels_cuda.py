@@ -2180,18 +2180,111 @@ def test_step_graph_stale_buffers_change_the_loss():
 
 def test_step_graph_that_does_not_fit_runs_eagerly(capsys):
     """A shape whose capture would not fit in free memory (its warm-up's
-    need set past the card's memory) steps eagerly, with the eager step's
-    values, captures nothing, and the Trainer names it once."""
+    need on its GPU set past the card's memory) steps eagerly, with the
+    eager step's values, captures nothing, and the Trainer names it
+    once."""
     fracs = _graph_fractions(4)
     want = _graph_trainer("f32", False)
     want_out = [want.train_step(*f)[0].item() for f in fracs]
     tr = _graph_trainer("f32", False)
     got = [tr._fused_step(fracs[0], True)[0].item()]
     graph = next(iter(tr._graphs.values()))
-    graph.need = 1 << 50
+    graph.needs[graph.device] = 1 << 50
     got += [tr._fused_step(f, True)[0].item() for f in fracs[1:]]
     assert got == want_out
     st = tr.graph_stats.as_dict()
     assert (st["warmups"], st["captures"], st["replays"], st["eager"]) == (
         1, 0, 0, 3)
     assert capsys.readouterr().out.count("it runs eagerly") == 1
+
+
+def _fused_against_eager(make, fracs, fuse_steps=True):
+    """The same training and evaluation steps through a fresh Trainer's
+    step graphs and eagerly: ((losses, counts), parameters, GraphStats)
+    of each, and the collectives each issued (the graphs' counted once a
+    replay)."""
+    from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
+    runs = []
+    for fused in (False, True):
+        tr = make()
+        before = all_reduce_sum.collectives
+        out = [tr._fused_step(f, True) if fused else tr.train_step(*f)
+               for f in fracs]
+        out += [tr._fused_step(f, False) if fused else tr.eval_step(*f)
+                for f in fracs[:2]]
+        torch.cuda.synchronize()
+        issued = tr.graph_stats.executed(
+            "collectives", all_reduce_sum.collectives - before)
+        runs.append(([(e.item(), int(c)) for e, c in out],
+                     tr.exact_params(), tr.graph_stats, issued))
+        tr.drop_graphs()
+    return runs
+
+
+def test_step_graph_holds_a_one_rank_nccl_all_reduce():
+    """A data group of one rank over NCCL on cuda:0: the training step's
+    graph holds the packed all-reduce; four training and two evaluation
+    steps through the graphs equal the same steps eagerly bit for bit,
+    and each training step issued one collective, its replays counted."""
+    import torch.distributed as dist
+
+    from lstm_rnn_tpu_torch.parallel.data import DataGroup
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    # as parallel/launch.py's workers join: the communicator comes at the
+    # first collective, the warm-up step's
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        group = DataGroup(0, 1, torch.device("cuda", 0))
+        fracs = _graph_fractions(4)
+
+        def make():
+            return Trainer(_graph_net("f32", False), None,
+                           learning_rate=1e-3, momentum=0.9,
+                           hybrid_online_batch=True, data_group=group,
+                           fuse_fractions=4)
+
+        (eager, p_eager, _, n_eager), (graph, p_graph, stats, n_graph) = \
+            _fused_against_eager(make, fracs)
+    finally:
+        dist.destroy_process_group()
+    assert graph == eager
+    for n in p_eager:
+        for k in p_eager[n]:
+            np.testing.assert_array_equal(p_graph[n][k], p_eager[n][k],
+                                          err_msg=f"{n}/{k}")
+    assert n_eager == n_graph == 4
+    st = stats.as_dict()
+    assert (st["warmups"], st["captures"], st["replays"]) == (2, 2, 4)
+    assert st["launches"][0]["collectives"] == 1
+    assert "collectives" not in st["launches"][1]  # the eval graph
+
+
+@pytest.mark.parametrize("axis", ["seq", "pipe"])
+def test_step_graph_spans_a_two_gpu_mesh(axis):
+    """A seq mesh (2 time blocks) and a pipe mesh (2 stages, 2
+    microbatches) over cuda:0 and cuda:1: the step graph spans both GPUs,
+    and four training and two evaluation steps through it equal the same
+    steps eagerly on the mesh bit for bit; the pools of both GPUs count."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs")
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    mesh = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    fracs = _graph_fractions(4)
+
+    def make():
+        return Trainer(_graph_net("f32", False), None, learning_rate=1e-3,
+                       momentum=0.9, hybrid_online_batch=True,
+                       fuse_fractions=4, **{f"{axis}_mesh": mesh})
+
+    (eager, p_eager, _, _), (graph, p_graph, stats, _) = \
+        _fused_against_eager(make, fracs)
+    assert graph == eager
+    for n in p_eager:
+        for k in p_eager[n]:
+            np.testing.assert_array_equal(p_graph[n][k], p_eager[n][k],
+                                          err_msg=f"{n}/{k}")
+    st = stats.as_dict()
+    assert (st["warmups"], st["captures"], st["replays"], st["eager"]) == (
+        2, 2, 4, 0)
