@@ -285,20 +285,26 @@ weights from a seed, and holds every kernel against its plain twin:
     swapped); `apply_pipelined` against `apply` over phase 5's corpus
     (K0 5 m times a fraction); the step's ms and peak memory against one
     GPU, f32 and bf16, and a profiled pipelined step's busy share;
-43. tensor parallelism on one card (a model mesh of cuda:0 k times): the
-    TIMIT step at model_devices 5 (K3 in its tail, the LSTM layers on
-    the scan cell) and the CHiME autoencoding step at its full widths at
-    2, against the one-GPU kernel step (f32), their exact launches, the
-    TP step's time beside one GPU's and a profiled TP step's busy share;
-    under bf16 the TP stack's hidden output against the one-GPU f32
-    kernel stack (the TP layers compute in f32), the bf16 kernel stack
-    the control;
+43. tensor parallelism on one card (a model mesh of cuda:0 k times): K8f
+    (save=True) and K8b (csrc/lstm_tp.cu) at a TIMIT layer in 5 shards
+    against their twins, with failing controls, their ms, bound and the
+    twins' ms; the TIMIT step at model_devices 5 (K3 in its tail, the
+    LSTM layers on K8) and the CHiME autoencoding step at its full widths
+    at 2, against the one-GPU kernel step (f32), their exact launches
+    (one K8f and one K8b a layer and GPU, no K0-K2), the TP step's ms
+    beside PR 18's host-driven layer and one GPU's, and a profiled full
+    TP step's busy share; under bf16 the TP stack's hidden output against
+    the one-GPU f32 kernel stack (the TP layers compute in f32), the bf16
+    kernel stack the control; the phase's wall time;
 44. with 2+ GPUs: the CLI's --num_devices 2 --pipeline_devices 2 (train
     and forward) and --num_devices 2 --model_devices 2 (train, CHiME
-    autoencoding) against one GPU, with 4 DP x PP and DP x TP too; the
-    pipelined and TP steps on distinct GPUs with each GPU's peak memory.
-    On one GPU the CLI's refusal of both in the JAX CLI's words, and a
-    line saying what was not run;
+    autoencoding) against one GPU, with 4 DP x PP and DP x TP too, the
+    TP runs also fused (--fuse_fractions 8 --device_cache true) against
+    themselves bit for bit; the pipelined and TP steps on distinct GPUs
+    with each GPU's peak memory; with 4 GPUs (44e) the 1,024-cell BLSTM
+    at model_devices 4 against the one-GPU scan route. On one GPU the
+    CLI's refusal of both in the JAX CLI's words, and a line saying what
+    was not run;
 45. a seq or pipe mesh over two processes on one card (two workers on
     cuda:0 over gloo, parallel/launch.py start(span=True), every message
     staged through host memory): the hop (parallel/hop.py) of a TIMIT
@@ -333,7 +339,16 @@ weights from a seed, and holds every kernel against its plain twin:
     on: the first two epochs' walls (warm-ups, captures and their
     seconds), three more epochs' walls and their median ms a step, a
     profiled epoch's busy share, the graphs' pool MiB. The spread of many
-    epochs and the 8-shape LVCSR case: scripts/torch_fused_rates.py.
+    epochs and the 8-shape LVCSR case: scripts/torch_fused_rates.py;
+48. --fuse_fractions under a data group and the one-process seq and pipe
+    meshes, fuse 8 against fuse 1 (fused_group_phase);
+49. --fuse_fractions under a model mesh (the graphs hold K8) and on a seq
+    or pipe mesh across processes (the graphs hold the NCCL hops): fuse 8
+    against fuse 1 bit for bit, 20 timed epochs of each with the busy
+    share a GPU, the K8 launches and hop messages that ran equal; two
+    processes on one card over gloo keep one fraction at a time with the
+    Trainer's note (fused_tp_span_phase). The [done] lines give each
+    report tag's wall time and the total.
 
 Every path's run also counts the engine's launches by product and checks
 them against what its kernels' launches imply; the profiles (phases 5, 8,
@@ -342,7 +357,8 @@ them against what its kernels' launches imply; the profiles (phases 5, 8,
 scripts/torch_sp_multigpu.py runs phases 20 and 21 on a mesh of distinct
 GPUs; scripts/torch_dp_multigpu.py runs phase 35 alone,
 scripts/torch_dp_sp_multigpu.py phase 38, scripts/torch_pp_tp.py
-phases 42-44 and scripts/torch_cross_host.py phases 45-46.
+phases 42-44, scripts/torch_cross_host.py phases 45-46 and
+scripts/torch_tp_fused.py phase 43, 44's TP part and phase 49.
 
 Any failed check raises and the script exits non-zero. Imports torch and
 the port only (no jax). Exits 1 without printing a result when torch sees
@@ -434,10 +450,17 @@ STREAM_TOL = 1e-5
 _T0 = time.perf_counter()
 
 
+# each report tag's first and last second since the start (the `[done]`
+# line prints them: each phase's wall)
+_SPANS = {}
+
+
 def phase(name, msg):
     """One line of the run's report, tagged with its phase and the
     seconds since the script started."""
-    print(f"[{name} {time.perf_counter() - _T0:.0f}s] {msg}", flush=True)
+    now = time.perf_counter() - _T0
+    _SPANS.setdefault(name, [now, now])[1] = now
+    print(f"[{name} {now:.0f}s] {msg}", flush=True)
 
 
 def card_line():
@@ -1143,8 +1166,10 @@ def wrappers():
     them)."""
     from lstm_rnn_tpu_torch.ops import gemm as ge
     from lstm_rnn_tpu_torch.ops import lstm_cell as lc
+    from lstm_rnn_tpu_torch.ops import lstm_tp as tp
     from lstm_rnn_tpu_torch.ops import softmax_ce as sc
     return {**{f"gemm:{u}": c for u, c in ge.LAUNCHES.items()},
+            "lstm_tp_fwd": tp.lstm_tp_fwd, "lstm_tp_bwd": tp.lstm_tp_bwd,
             "lstm_fwd": lc.lstm_scan_fused, "lstm_fwd_save": lc.lstm_fwd_save,
             "lstm_bwd": lc.lstm_bwd,
             "softmax_ce_proj_fwd": sc.softmax_ce_proj_fwd,
@@ -1213,6 +1238,8 @@ def check_counts(counts, expect, bf16=False, layers=5, x3=False):
     --f32_matmul 3x, where every K4b launch takes its 3x instance)."""
     expect = {**expect, **gemm_expect(expect, layers=layers, bf16=bf16,
                                       x3=x3)}
+    for k in ("lstm_tp_fwd", "lstm_tp_bwd"):  # K8: TP paths only
+        expect.setdefault(k, 0)
     expect.setdefault("softmax_ce_wide_bwd_3x",
                       expect["softmax_ce_wide_bwd"] if x3 else 0)
     if counts != expect:
@@ -6305,6 +6332,10 @@ TP_TIMIT, TP_CHIME = 5, 2
 # a tensor-parallel step (the scan cell in f32) against the one-GPU kernel
 # step: phase 6's bounds for the kernel path against the scan path
 TP_STEP_TOL = {"loss": 1e-5, "grad": 1e-4}
+# K8f and K8b against their twins (phase 43a), relative to each output's
+# largest entry: TOL's f32 bound through 500 steps for the forward, the
+# BPTT's (REL's lstm_bwd) for the deltas
+TP_KERNEL_TOL = {"lstm_tp_fwd": 1e-5, "lstm_tp_bwd": 1e-4}
 # the TP layers' hidden output under --compute_dtype bfloat16 against the
 # one-GPU f32 kernel stack: f32 arithmetic on both sides (TOL's f32 bound);
 # the one-GPU bf16 kernel stack, the control, must read above it
@@ -6510,6 +6541,97 @@ def pp_serving(torch, workdir, mesh_of=None):
     return out
 
 
+def tp_cost(kind, T, Bn, Hn, Dn, gpus=1):
+    """(bytes, flops) of one K8f (with its residuals) or K8b launch set
+    over a layer of Hn cells a direction, every row full: each input read
+    once, each output written once (K8f's output once a GPU of the mesh);
+    the recurrent product over the T - 1 steps that have a step before
+    (2 flops a multiply-add) and ~30 flops a cell and step of the cell."""
+    cells = T * Dn * Bn * Hn
+    prod = 2 * (T - 1) * Dn * Bn * Hn * 4 * Hn
+    w_rec, peep, mask = Dn * Hn * 4 * Hn, Dn * 3 * Hn, T * Dn * Bn
+    if kind == "lstm_tp_fwd":
+        nbytes = 4 * (4 * cells + w_rec + peep + mask
+                      + gpus * cells + cells + 4 * cells)
+    else:
+        nbytes = 4 * (4 * cells + cells + cells + w_rec + peep + mask
+                      + 4 * cells)
+    return nbytes, prod + 30 * cells
+
+
+def tp_kernels_vs_twins(torch, reps=5):
+    """Phase 43a: K8f (save=True, the training forward) and K8b at a
+    TIMIT layer (P = 250, H = 125 cells a direction in 5 shards on
+    cuda:0, T = 500, B = 50, every row full) against their twins on the
+    same operands (K8b from the kernel's residuals), relative to each
+    output's largest entry (TP_KERNEL_TOL), with a control that must fail
+    (the twin from one shard's W_rec changed; from a changed cotangent);
+    ms by CUDA events over `reps` launches, the twins' ms once each.
+    Returns {name: the kernels JSON's numbers}."""
+    from lstm_rnn_tpu_torch.ops import lstm_tp as tp
+    from lstm_rnn_tpu_torch.parallel.tensor import _operands
+    mesh = [torch.device("cuda", 0)] * TP_TIMIT
+    rng = np.random.RandomState(SEED)
+    params = {k: torch.from_numpy(rng.uniform(-0.1, 0.1, sh).astype(
+        np.float32)).cuda() for k, sh in (
+            ("W_in", (D, 250, 4, H)), ("W_rec", (D, H, 4, H)),
+            ("b", (D, 4, H)), ("peep", (D, 3, H)))}
+    x = torch.from_numpy(rng.randn(T_TRAIN, B, 250).astype(np.float32)).cuda()
+    pt = torch.ones((T_TRAIN, B), dtype=torch.int8, device="cuda")
+    acts, w_recs, peeps, masks, _ = _operands(params, x, pt, 1.0, True, mesh)
+    w = H // TP_TIMIT
+    dys = [torch.from_numpy(rng.randn(T_TRAIN, D, B, w).astype(
+        np.float32)).cuda() for _ in mesh]
+    out = {}
+
+    def fwd():
+        return tp.lstm_tp_fwd(mesh, acts, w_recs, peeps, masks, True)
+
+    (ys, cs, gs), _ = timed(torch, fwd)
+    tp.check(mesh)
+    _, ms_f = timed(torch, lambda: [fwd() for _ in range(reps)])
+    (yt, ct, gt), plain_f = timed(torch, lambda: tp.lstm_tp_fwd_reference(
+        acts, w_recs, peeps, masks, mesh, save=True))
+    rel_f = max(rel_err(a, b)[0] for a, b in ((ys[0], yt[0]),
+                                               *zip(cs, ct), *zip(gs, gt)))
+    bad_w = [wr.clone() for wr in w_recs]
+    bad_w[2][0, 7] += 0.05
+    ctl_f = rel_err(ys[0], tp.lstm_tp_fwd_reference(
+        acts, bad_w, peeps, masks, mesh)[0][0])[0]
+
+    def bwd():
+        return tp.lstm_tp_bwd(mesh, gs, cs, w_recs, peeps, dys, masks)
+
+    da, _ = timed(torch, bwd)
+    tp.check(mesh)
+    _, ms_b = timed(torch, lambda: [bwd() for _ in range(reps)])
+    dat, plain_b = timed(torch, lambda: tp.lstm_tp_bptt_reference(
+        gs, cs, w_recs, peeps, dys, masks, mesh))
+    rel_b = max(rel_err(a, b)[0] for a, b in zip(da, dat))
+    bad_dy = [d.clone() for d in dys]
+    bad_dy[1][T_TRAIN // 2] += 1.0
+    ctl_b = max(rel_err(a, b)[0] for a, b in zip(da, tp.lstm_tp_bptt_reference(
+        gs, cs, w_recs, peeps, bad_dy, masks, mesh)))
+    for name, rel, ctl, ms, plain, err in (
+            ("lstm_tp_fwd", rel_f, ctl_f, ms_f / reps, plain_f,
+             float((ys[0] - yt[0]).abs().max())),
+            ("lstm_tp_bwd", rel_b, ctl_b, ms_b / reps, plain_b,
+             max(float((a - b).abs().max()) for a, b in zip(da, dat)))):
+        tol = TP_KERNEL_TOL[name]
+        bnd, by = bound(*tp_cost(name, T_TRAIN, B, H, D), "float32")
+        phase("tp-kernel", f"{name} (TIMIT layer, {TP_TIMIT} shards of "
+              f"cuda:0, T={T_TRAIN}, B={B}): rel {rel:.2e} (tol {tol:.0e})"
+              f", max abs {err:.2e}; control {ctl:.2e} (must exceed the "
+              f"tol); {ms:.3f} ms a launch set (bound {bnd:.4f} ms, {by})"
+              f", twin {plain:.1f} ms")
+        if not (rel <= tol and ctl > tol):
+            raise AssertionError(f"{name} differs from its twin, or its "
+                                 "control passed")
+        out[name] = {"err": err, "ms": ms, "plain_ms": plain,
+                     "bound": (bnd, by), "rel": rel}
+    return out
+
+
 def tp_trainer(torch, dtype, n, recipe=None, mesh=None):
     """The recipe step's Trainer (TIMIT, or a CHiME recipe) with its LSTM
     layers sharded over a model mesh of n (default cuda:0 n times);
@@ -6538,18 +6660,19 @@ def chime_ae_batch(torch, T=T_TRAIN, seed=43):
 def tp_steps(torch, card, mesh_of=None,
              cases=((None, TP_TIMIT), ("autoencoding", TP_CHIME)),
              bf16=True):
-    """Phase 43a-c: tensor parallelism. The TIMIT step at model_devices 5
-    (K3 in its tail) and the CHiME autoencoding step (39 -> BLSTM 156 /
-    256 / 156 -> 39, sse) at 2, each against the one-GPU kernel step from
-    the same weights (f32, TP_STEP_TOL), with the exact launches (TIMIT:
-    one K3f and one K3b, no K0-K2; CHiME: none), the TP step's wall
-    against one GPU's, and a profile of a TP step on a cut fraction (T =
-    10: a TP step issues some two thousand host operations a layer and
-    time step, too many for a trace of the full one): its busy share;
-    under bf16 the TIMIT TP stack's hidden output against the one-GPU
-    f32 kernel stack (tp_bf16). mesh_of(k): the model mesh (default:
-    cuda:0 k times)."""
+    """Phase 43b-d: tensor parallelism on K8. The TIMIT step at
+    model_devices 5 (K3 in its tail) and the CHiME autoencoding step (39
+    -> BLSTM 156 / 256 / 156 -> 39, sse) at 2, each against the one-GPU
+    kernel step from the same weights (f32, TP_STEP_TOL), with the exact
+    launches (one K8f and one K8b a layer and GPU, every shard a GPU
+    holds in that launch; TIMIT also one K3f and one K3b; no K0-K2), the
+    TP step's ms (mean of 3 after a warm-up) beside PR 18's host-driven
+    layer and one GPU's, and a profile of a full TP step: its busy share;
+    under bf16 the TIMIT TP stack's hidden output against the one-GPU f32
+    kernel stack (tp_bf16). mesh_of(k): the model mesh (default: cuda:0
+    k times)."""
     from torch.profiler import ProfilerActivity, profile
+    from lstm_rnn_tpu_torch.ops import lstm_tp
     mesh_of = mesh_of or (lambda k: [torch.device("cuda", 0)] * k)
     res = {}
     for recipe, n in cases:
@@ -6560,32 +6683,33 @@ def tp_steps(torch, card, mesh_of=None,
         err, corr, g = one.grad_fraction(*batch)
         ref = (err.item(), int(corr), g)
         tr = tp_trainer(torch, "float32", n, recipe, mesh_of(n))
+        gpus = len(set(mesh_of(n)))
+        layers = 5 if recipe is None else 3
         expect = {k: 0 for k in wrappers() if not k.startswith("gemm:")}
+        expect.update(lstm_tp_fwd=layers * gpus, lstm_tp_bwd=layers * gpus)
         if recipe is None:
             expect.update(softmax_ce_proj_fwd=1, softmax_ce_proj_bwd=1)
         mesh = mesh_name(mesh_of(n)).replace("blocks", "shards")
-        sync_all(torch)
-        t0 = time.perf_counter()
         _, _, counts = _step_check(
             torch, tr, batch, ref, ("tp-step", f"{name} f32 model_devices="
                                     f"{n} on {mesh}"), expect, False,
             TP_STEP_TOL)
-        tp_s = time.perf_counter() - t0
+        lstm_tp.check()
+        tp_ms = step_ms(torch, tr, batch, reps=3)
         ms1 = step_ms(torch, one, batch, reps=3)
         phase("tp-rate", f"{name} step f32 (T={batch[0].shape[0]}, B={B}): "
-              f"TP on {mesh} {tp_s:.2f} s (forward and backward, "
-              f"synchronised), one GPU {ms1:.2f} ms a step, on {card}")
-        cut = tuple(a[:10] for a in batch)
+              f"TP on {mesh} {tp_ms:.2f} ms a step on K8 (the host-driven "
+              "layer of PR 18: 56.6-60.6 s at 5 shards of cuda:0), one GPU "
+              f"{ms1:.2f} ms a step, on {card}")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             sync_all(torch)
             t0 = time.perf_counter()
-            tr.train_step(*cut)
+            tr.train_step(*batch)
             sync_all(torch)
             wall_us = 1e6 * (time.perf_counter() - t0)
-        report_profile(prof, wall_us, f"one TP {name} step on {mesh}, a "
-                       f"fraction cut to T=10, f32")
-        res[name] = (tp_s, ms1, counts)
+        report_profile(prof, wall_us, f"one TP {name} step on {mesh}, f32")
+        res[name] = (tp_ms, ms1, counts)
         del tr, one
     if bf16:
         tp_bf16(torch, mesh_of(TP_TIMIT))
@@ -6635,15 +6759,16 @@ def _errors_close(a, b):
         for x, y in zip(na, nb))
 
 
-def pp_tp_cli(torch, workdir, n):
+def pp_tp_cli(torch, workdir, n, kinds=("pp", "tp", "dp_pp", "dp_tp")):
     """Phase 44 (distinct GPUs): the CLI's --num_devices 2
     --pipeline_devices 2 in train (phase 7's corpus, 2 epochs) and forward
     mode (phase 5's corpus) against one GPU; --num_devices 2
     --model_devices 2 in train mode on CHiME autoencoding (1 epoch)
     against one GPU; with 4 GPUs DP x PP (--num_devices 4
     --pipeline_devices 2) and DP x TP (--num_devices 4 --model_devices 2)
-    the same way; then the pipelined step's ms and each GPU's peak memory
-    on distinct GPUs, and the TP CHiME step's."""
+    the same way, the TP runs also with --fuse_fractions 8 --device_cache
+    true against themselves bit for bit; `kinds` picks the train runs (the
+    forward runs come with "pp")."""
     paths, net_path = write_train_corpus(workdir)
     train = ["--network", net_path, "--train", "true", "--train_file",
              paths["train"][0], "--val_file", paths["val"][0],
@@ -6669,6 +6794,7 @@ def pp_tp_cli(torch, workdir, n):
                  ("dp_tp", chime, ["--num_devices", "4", "--model_devices",
                                    "2"],
                   "DP x TP mesh: {'data': 2, 'model': 2}")]
+    runs = [r for r in runs if r[0] in kinds]
     base = {}
     for label, args, flags, banner in runs:
         key = "chime" if args is chime else "timit"
@@ -6691,6 +6817,30 @@ def pp_tp_cli(torch, workdir, n):
             phase("pptp-cli", f"{label} |{ln}")
         if not (banner in out and rel <= DP_CLI_TOL and close):
             raise AssertionError(f"cli {label} differs from one GPU")
+        if label in ("tp", "dp_tp"):
+            # the same run's fused passes (step graphs holding K8): bit
+            # for bit the unfused run's network and table
+            fd = os.path.join(workdir, f"pptp_{label}_fused")
+            t0 = time.perf_counter()
+            fout = finish(cli_process(args + flags + [
+                "--fuse_fractions", "8", "--device_cache", "true"], fd),
+                f"cli {label} fused")
+            with open(os.path.join(d, "trained_network.jsn"), "rb") as f:
+                want = f.read()
+            with open(os.path.join(fd, "trained_network.jsn"), "rb") as f:
+                same = f.read() == want
+            rows = ([c for r in _table_rows(fout) for c in r.split("|")[2:4]]
+                    == [c for r in _table_rows(out)
+                        for c in r.split("|")[2:4]])
+            phase("pptp-cli", f"train {' '.join(flags)} --fuse_fractions 8 "
+                  f"--device_cache true ({time.perf_counter() - t0:.1f} s "
+                  f"wall) vs unfused: network "
+                  f"{'bit for bit' if same else 'DIFFERS'}; the table's errors "
+                  f"{'equal' if rows else 'DIFFER'}")
+            if not (same and rows):
+                raise AssertionError(f"cli {label} fused differs")
+    if "pp" not in kinds:
+        return
     nc, net_path, tags, lengths = write_inputs(workdir)
     outs = {}
     for label, flags in (("one", []), ("pp", ["--num_devices", "2",
@@ -6757,6 +6907,75 @@ def pp_tp_distinct(torch, card, n):
              cases=(("autoencoding", TP_CHIME),
                     *(((None, TP_TIMIT),) if n >= TP_TIMIT else ())),
              bf16=False)
+    if n >= WIDE_TP_N:
+        tp_wide(torch, card)
+
+
+# the layer TP exists for: a BLSTM of 1,024 cells a direction (117 inputs
+# -> BLSTM(2048) -> softmax(183)), too wide for the BPTT's cluster plan,
+# in 4 shards of 256 on 4 GPUs (phase 44e)
+WIDE_TP_H, WIDE_TP_N = 1024, 4
+
+
+def _wide_tp_net(seed=SEED):
+    from lstm_rnn_tpu_torch.network import Network
+    net = Network([{"name": "input", "type": "input", "size": 117},
+                   {"name": "wide", "type": "blstm", "size": 2 * WIDE_TP_H,
+                    "bias": 1.0},
+                   {"name": "output", "type": "softmax", "size": S_STATES,
+                    "bias": 1.0},
+                   {"name": "postoutput", "type": "multiclass_classification",
+                    "size": S_STATES}])
+    net.init_params(seed)
+    return net
+
+
+def tp_wide(torch, card):
+    """Phase 44e (4+ GPUs): the 1,024-cell BLSTM at model_devices 4 on
+    cuda:0-3 (W_rec's 4 MiB a direction and shard read from L2; the
+    exchange over NVLink). Its training step (T = 500, B = 50, every row
+    full) against the one-GPU step from the same weights, which takes the
+    scan route (the BPTT kernel's plan refuses the width): TP_STEP_TOL,
+    one K8f and one K8b a GPU; both steps' ms (mean of 3 after a warm-up)
+    and a profiled TP step's busy share a GPU."""
+    from torch.profiler import ProfilerActivity, profile
+    from lstm_rnn_tpu_torch.ops.lstm_cell import recurrence_fits
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    mesh = [torch.device("cuda", j) for j in range(WIDE_TP_N)]
+    batch, _ = recipe_batch(torch, seed=47)
+    fits = recurrence_fits(WIDE_TP_H, torch.float32, True)
+    one = Trainer(_wide_tp_net(), None, learning_rate=1e-4, momentum=0.9,
+                  hybrid_online_batch=True, device="cuda")
+    w = _zero_launches()
+    err, corr, g = one.grad_fraction(*batch)
+    ref = (err.item(), int(corr), g)
+    # the tail's kernels as the one-GPU step launched them
+    expect = {k: (f.launches if k.startswith("softmax_ce") else 0)
+              for k, f in w.items() if not k.startswith("gemm:")}
+    expect.update(lstm_tp_fwd=WIDE_TP_N, lstm_tp_bwd=WIDE_TP_N)
+    tr = Trainer(_wide_tp_net(), None, learning_rate=1e-4, momentum=0.9,
+                 hybrid_online_batch=True, model_mesh=mesh)
+    _step_check(torch, tr, batch, ref, (
+        "tp-wide", f"BLSTM({2 * WIDE_TP_H}) f32 model_devices={WIDE_TP_N} on "
+        f"{mesh_name(mesh).replace('blocks', 'shards')} against one GPU "
+        f"(the kernels take the width: {fits}; the scan route)"), expect,
+        False, TP_STEP_TOL)
+    ms_tp = step_ms(torch, tr, batch, reps=3)
+    ms1 = step_ms(torch, one, batch, reps=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync_all(torch)
+        t0 = time.perf_counter()
+        tr.train_step(*batch)
+        sync_all(torch)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    report_profile(prof, wall_us, f"one TP step of the BLSTM({2 * WIDE_TP_H})"
+                   f" net on {WIDE_TP_N} GPUs, f32 (busy over 4 GPUs: "
+                   "divide by 4)")
+    phase("tp-wide", f"BLSTM({2 * WIDE_TP_H}) step f32 (T={T_TRAIN}, B={B}): "
+          f"TP on {WIDE_TP_N} GPUs {ms_tp:.2f} ms, one GPU on the scan route "
+          f"{ms1:.2f} ms, on {card}")
+    return ms_tp, ms1
 
 
 # a seq or pipe mesh over several processes (phases 45-46, parallel/
@@ -7679,6 +7898,9 @@ def _fused_layout_runs(torch, corpora, devices, runs, timed, group=None,
                 self.note(f"the step of shape {self.key} runs eagerly "
                           "(declined for the check)"), False)[1]
         try:
+            counters = {k: c for k, c in graphs.launch_counters().items()
+                        if k.startswith(("lstm_tp_", "hop:"))}
+            before = {k: c.launches for k, c in counters.items()}
             rows = []
             for _ in range(GRAPH_EPOCHS):
                 tr.train_epoch()
@@ -7686,7 +7908,11 @@ def _fused_layout_runs(torch, corpora, devices, runs, timed, group=None,
                              tr.cur_training_class_error,
                              tr.cur_validation_error,
                              tr.cur_validation_class_error))
-            r = dict(rows=rows, params=tr.exact_params())
+            # the K8 launches and hop messages that ran (a capture's
+            # counted once a replay)
+            r = dict(rows=rows, params=tr.exact_params(), ran={
+                k: tr.graph_stats.executed(k, c.launches - before[k])
+                for k, c in counters.items()})
             if timed and eager_rank is None:
                 walls = []
                 for _ in range(timed):
@@ -7748,6 +7974,14 @@ def _report_fused(torch, card, what, res, ranks=1, exact=True):
               f"{sum(st['pool_bytes']) / 2**20:.0f} MiB")
         if not (same or (close and not exact)):
             raise AssertionError(f"{what} {label} differs from fuse 1")
+        ran = {k: v for k, v in r["ran"].items() if v}
+        if ran:
+            phase("fused-group", f"{what} {label}: K8 launches and hop "
+                  f"messages that ran {ran}, fuse 1's "
+                  f"{ {k: v for k, v in one['ran'].items() if v} }")
+        if r["ran"] != one["ran"]:
+            raise AssertionError(f"{what} {label}: launches or messages "
+                                 "that ran differ from fuse 1's")
         if st["eager"] or not st["captures"]:
             raise AssertionError(f"{what} {label}: graphs {st}")
     for label, r in res.items():
@@ -8042,6 +8276,127 @@ def fused_group_phase(torch, card):
     phase("fused-group", f"phase 48 took {time.perf_counter() - t0:.0f} s")
 
 
+# ------------------ fused passes under TP and across processes (phase 49)
+def _fused_span_worker(group, workdir, corpora, axis, m, runs, timed):
+    """Phase 49c on one process of a span over NCCL: `_fused_layout_runs`
+    on its positions of a seq or pipe mesh, to workdir."""
+    import torch
+    out = _fused_layout_runs(torch, corpora, group.span.local, runs, timed,
+                             group, mesh=group.span, axis=axis, m=m)
+    torch.save(out, os.path.join(workdir, f"fused_span_rank{group.rank}.pt"))
+
+
+def _staged_span_worker(group, workdir, corpora):
+    """Phase 49d on one of two processes sharing cuda:0 over gloo (every
+    hop staged through host memory): fuse 1 and fuse 8, GRAPH_EPOCHS
+    epochs each of the SP Trainer; the rows, weights, graph counts and
+    what the Trainer printed, to workdir."""
+    import io
+    import torch
+    out = {}
+    for label, fuse in (("fuse 1", 1), ("fuse 8", 8)):
+        tr = _group_trainer(corpora, fuse, group, group.span, "seq")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = []
+            for _ in range(GRAPH_EPOCHS):
+                tr.train_epoch()
+                rows.append((tr.cur_training_error,
+                             tr.cur_validation_error))
+        out[label] = dict(rows=rows, params=tr.exact_params(),
+                          stats=tr.graph_stats.as_dict(), out=buf.getvalue())
+        del tr
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(workdir, f"staged_rank{group.rank}.pt"))
+
+
+def fused_tp_span_phase(torch, card, distinct=False):
+    """Phase 49: --fuse_fractions under a model mesh and on a seq or pipe
+    mesh across processes, on phase 7's corpus (TIMIT f32, the cache on):
+    49a the TIMIT Trainer at model_devices 5 on cuda:0, fuse 8 against
+    fuse 1 bit for bit, FUSED_TIMED epochs of each with the busy share,
+    the K8 launches that ran equal; 49b (2+ GPUs) the same with the 5
+    shards over cuda:0 and cuda:1 (peer stores between them); 49c (2+ GPUs) SP and PP (m = 2) over two processes of one
+    GPU each over NCCL, fuse 8 against fuse 1, the hop messages that ran
+    equal; 49d two processes on cuda:0 over gloo: fuse 8 prints the
+    Trainer's note, steps eagerly (no capture) and equals fuse 1 bit for
+    bit. (CHiME autoencoding on 2 GPUs and DP x TP fused: phase 44.)
+    `distinct`: only the parts on distinct GPUs (49b-c)."""
+    from lstm_rnn_tpu_torch.parallel.launch import start
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    cuda = [torch.device("cuda", j) for j in range(n)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        corpora = graph_corpora(workdir)
+        layouts = ([] if distinct else
+                   [("49a TP 5 shards of cuda:0", [cuda[0]] * TP_TIMIT)])
+        if n >= 2:
+            # TIMIT's 125 cells take 5 shards: 3 on cuda:0, 2 on cuda:1
+            layouts.append(("49b TP 5 shards over 2 GPUs",
+                            [cuda[j % 2] for j in range(TP_TIMIT)]))
+        for what, mesh in layouts:
+            t1 = time.perf_counter()
+            res = _fused_layout_runs(torch, corpora,
+                                     list(dict.fromkeys(mesh)), FUSED_RUNS,
+                                     FUSED_TIMED, mesh=mesh, axis="model")
+            phase("fused-tp", f"{what}: {time.perf_counter() - t1:.1f} s "
+                  "for its runs")
+            _report_fused(torch, card, what, res, ranks=len(set(mesh)))
+        if n >= 2:
+            for kind, m in (("seq", 0), ("pipe", 2)):
+                t1 = time.perf_counter()
+                for f in glob.glob(os.path.join(workdir, "fused_span_*")):
+                    os.remove(f)
+                start(_fused_span_worker, [[cuda[0]], [cuda[1]]],
+                      (workdir, corpora, kind, m, FUSED_RUNS, FUSED_TIMED),
+                      backend="nccl", span=True, timeout_s=XH_TIMEOUT_S)
+                res = [torch.load(os.path.join(
+                    workdir, f"fused_span_rank{r}.pt"), weights_only=False)
+                    for r in range(2)]
+                what = (f"49c {'SP' if kind == 'seq' else 'PP m = 2'} "
+                        "over 2 processes x 1 GPU (NCCL)")
+                phase("fused-tp", f"{what}: {time.perf_counter() - t1:.1f}"
+                      " s for its runs")
+                if not all(_same_params(res[1][lb]["params"],
+                                        res[0][lb]["params"])
+                           for lb in res[0]):
+                    raise AssertionError(f"{what}: the ranks' weights "
+                                         "differ")
+                _report_fused(torch, card, what, res[0])
+        else:
+            phase("fused-tp", "49b-c (TP over 2 GPUs; SP and PP across "
+                  "processes over NCCL) were not run: torch sees one GPU")
+        if distinct:
+            phase("fused-tp", f"phase 49 (2+ GPUs) took "
+                  f"{time.perf_counter() - t0:.0f} s")
+            return
+        t1 = time.perf_counter()
+        start(_staged_span_worker, [[cuda[0]], [cuda[0]]],
+              (workdir, corpora), backend="gloo", span=True,
+              timeout_s=XH_TIMEOUT_S)
+        res = [torch.load(os.path.join(workdir, f"staged_rank{r}.pt"),
+                          weights_only=False) for r in range(2)]
+        note = ("fuse_fractions=8: no step graph holds a seq or pipe mesh "
+                "that spans processes; every pass steps one fraction at a "
+                "time (the same values)")
+        for r, rr in enumerate(res):
+            one, fused = rr["fuse 1"], rr["fuse 8"]
+            same = (fused["rows"] == one["rows"]
+                    and _same_params(fused["params"], one["params"]))
+            st = fused["stats"]
+            phase("fused-tp", f"49d SP over 2 processes on cuda:0 (gloo, "
+                  f"staged), rank {r}: fuse 8 against fuse 1 "
+                  f"{'bit for bit' if same else 'DIFFERS'}; the note "
+                  f"{'printed' if note in fused['out'] else 'MISSING'}; "
+                  f"captures {st['captures']}, warm-ups {st['warmups']} "
+                  f"({time.perf_counter() - t1:.1f} s)")
+            if not (same and note in fused["out"] and st["captures"] == 0
+                    and st["warmups"] == 0):
+                raise AssertionError("49d: the staged span fused or "
+                                     "differs")
+    phase("fused-tp", f"phase 49 took {time.perf_counter() - t0:.0f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8182,7 +8537,11 @@ def main():
     pp_rates(torch, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         pp_serve = pp_serving(torch, workdir)
+    t43 = time.perf_counter()
+    with torch.no_grad():
+        tpk = tp_kernels_vs_twins(torch)
     tp_res = tp_steps(torch, card)
+    phase("tp-step", f"phase 43 took {time.perf_counter() - t43:.0f} s")
     n_gpus = torch.cuda.device_count()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         if n_gpus >= 2:
@@ -8194,6 +8553,7 @@ def main():
         xh_steps = cross_host(torch, card, workdir, n_gpus)
     graphs_phase(torch, card)
     fused_group_phase(torch, card)
+    fused_tp_span_phase(torch, card)
 
     source = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_save": "lstm_fwd.cu",
               "lstm_bwd": "lstm_bwd.cu", "softmax_ce_proj_fwd":
@@ -8380,6 +8740,25 @@ def main():
         dpsp_epochs)
     gemm_paths["DP streaming (a rank, one fraction)"] = gemm_total(
         dpstream_launches)
+    # the TP layer's kernels (phase 43a at a TIMIT layer, 5 shards of
+    # cuda:0); launches of one TP step (phase 43b-c); no pallas_call: the
+    # JAX TP layer is a lax.scan inside shard_map, an all_gather a step
+    for k in ("lstm_tp_fwd", "lstm_tp_bwd"):
+        r = tpk[k]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "lstm_rnn_tpu_torch/csrc/lstm_tp.cu",
+            "replaces": "lstm_rnn_tpu/parallel/tensor.py:107",
+            "replaces_what": "not a pallas_call: the JAX TP layer's "
+                             "lax.scan in shard_map (all_gather a step)",
+            "variant": ("tp_rec_kernel save=True (the training forward)"
+                        if k == "lstm_tp_fwd" else "tp_bptt_kernel"),
+            "launches": tp_res["TIMIT"][2][k],
+            "launches_by_path": {f"TP {name} step": counts[k]
+                                 for name, (_, _, counts) in tp_res.items()},
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None})
     # the GEMM engine at the dW_in product of a TIMIT layer (P = 250: the
     # largest share of its time on the training step), every shape beside
     g32, g16 = gres[("dW_in:250", "float32")], gres[("dW_in:250", "bfloat16")]
@@ -8456,6 +8835,9 @@ def main():
         "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
         "library_ms": None, "cublas_dW_ms": k3["cublas_dw_ms"],
         "f32_simt_ms": k3["f32_ms"]})
+    phase("done", "each report tag's first and last line, s since the "
+          "start: " + ", ".join(f"{name} {lo:.0f}-{hi:.0f}"
+                                 for name, (lo, hi) in _SPANS.items()))
     phase("done", f"chip_smoke.py took {time.perf_counter() - _T0:.0f} s "
           "in all, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -35,8 +35,9 @@ A `StepGraph`:
   launches that ran, each capture's recorded ones counted once a replay.
 
 A step may hold a data group's collective and the work of several GPUs
-(trainer.py: DP, the one-process seq and pipe meshes, DP x SP and DP x
-PP). A graph then
+(trainer.py: DP, the one-process seq, pipe and model meshes, DP x SP,
+DP x PP and DP x TP, and a seq or pipe mesh across processes over
+NCCL). A graph then
 - captures the packed all-reduce (parallel/data.py `all_reduce_sum`) on
   NCCL: ProcessGroupNCCL joins its stream to the capture through events,
   and the warm-up's eager collective has created the communicator before
@@ -45,7 +46,13 @@ PP). A graph then
   (`_fits`) issues the same one collective a step. `all_reduce_sum`'s
   count sees a captured collective once, so it is recorded among the
   capture's launches ("collectives") and `GraphStats.executed` counts it
-  once a replay;
+  once a replay. The hops of a mesh across processes (parallel/hop.py's
+  NCCL sends and receives) land in the capture the same way, and their
+  counts ("hop:<kind>") are recorded among the capture's launches too;
+- holds a model mesh's TP kernels (ops/lstm_tp.py), one K8 launch a
+  layer and GPU on the mesh context's stream of that GPU, which joins
+  the capture through events: each launch depends only on work issued
+  before all of the layer's launches, and their flags survive replays;
 - spans every GPU of the mesh (`devices`, the graph's own first): each
   other GPU's current stream is a side stream that forks from the
   capture stream and joins it again at the end (`_mesh_streams`), so
@@ -86,18 +93,34 @@ class _Collectives:
         return all_reduce_sum.collectives
 
 
+class _Hops:
+    """parallel/hop.py's count of one kind of message this process sent
+    or received (`hop.COUNTS`), read as a launch counter."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    @property
+    def launches(self) -> int:
+        from lstm_rnn_tpu_torch.parallel import hop
+        return hop.COUNTS[self.kind]
+
+
 def launch_counters() -> Dict[str, object]:
     """Every launch counter of the port's kernels, found in ops/: each
-    object of ops/lstm_cell.py and ops/softmax_ce.py with an integer
-    `.launches` (the wrappers, the 3x counts) and the GEMM engine's
-    per-product counters (ops/gemm.py `LAUNCHES`, as "gemm:<use>"); and
-    the data group's collectives ("collectives")."""
-    from lstm_rnn_tpu_torch.ops import gemm, lstm_cell, softmax_ce
+    object of ops/lstm_cell.py, ops/lstm_tp.py and ops/softmax_ce.py with
+    an integer `.launches` (the wrappers, the 3x counts) and the GEMM
+    engine's per-product counters (ops/gemm.py `LAUNCHES`, as
+    "gemm:<use>"); the data group's collectives ("collectives") and the
+    hops of a mesh across processes ("hop:<kind>", parallel/hop.py)."""
+    from lstm_rnn_tpu_torch.ops import gemm, lstm_cell, lstm_tp, softmax_ce
+    from lstm_rnn_tpu_torch.parallel import hop
     found = {f"gemm:{u}": c for u, c in gemm.LAUNCHES.items()}
-    for module in (lstm_cell, softmax_ce):
+    for module in (lstm_cell, lstm_tp, softmax_ce):
         found.update((name, obj) for name, obj in vars(module).items()
                      if isinstance(getattr(obj, "launches", None), int))
     found["collectives"] = _Collectives()
+    found.update((f"hop:{k}", _Hops(k)) for k in hop.COUNTS)
     return found
 
 

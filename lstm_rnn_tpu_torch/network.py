@@ -311,7 +311,7 @@ class Network:
             if tp and state is None:
                 replicas = lstm_forward_tp(
                     p, replicas or x, pattypes, s.bias,
-                    ioc.LSTM_TYPES[s.type], self.model_mesh)
+                    ioc.LSTM_TYPES[s.type], self.model_mesh, name=s.name)
                 x = replicas[0]
                 continue
             replicas = None

@@ -195,6 +195,17 @@ def _declare(lib) -> None:
     for name in ("lstm_fwd_rec_plan", "lstm_bwd_plan"):
         getattr(lib, name).argtypes = [i, i, i, p]
         getattr(lib, name).restype = i
+    lib.lstm_tp_peer.argtypes = [i, i]
+    lib.lstm_tp_peer.restype = i
+    lib.lstm_tp_host_alloc.argtypes = [ctypes.c_size_t]
+    lib.lstm_tp_host_alloc.restype = p
+    d = ctypes.c_double
+    lib.lstm_tp_fwd.argtypes = [i] + [p] * 11 + [i] * 4 + [d] + [i] * 8 \
+        + [p]
+    lib.lstm_tp_fwd.restype = i
+    lib.lstm_tp_bwd.argtypes = [i] + [p] * 13 + [i] * 4 + [d] + [i] * 8 \
+        + [p]
+    lib.lstm_tp_bwd.restype = i
     lib.lstm_act_probe.argtypes = [p, p, i, i, p]
     lib.lstm_act_probe.restype = i
     lib.lstm_bwd_splits.argtypes = [i]

@@ -12,33 +12,28 @@ scan route, from the same cell code (`ops/lstm_cell.py`
 og-peephole path).
 
 Where the JAX package runs shard_map with an all_gather over ICI inside a
-`lax.scan`, the port uses plain tensors on the mesh's devices, driven from
+`lax.scan`, the port keeps the shards on the mesh's devices, driven from
 one process:
 - the parameters live once, on mesh[0] (the Trainer's device); each
   device takes a differentiable copy of its columns (`shard_lstm_params`:
-  a slice, then `.to(mesh[i])`, a no-op when the device repeats), so
-  autograd assembles the full gradients on mesh[0];
-- the exchange is the all_gather: after every step each device's new
-  h slice is copied to every device and concatenated there, so every
-  device holds that step's full h. Autograd's backward of those copies
-  sums the cotangents of every device's use of h, the reduce_scatter;
-- every device stacks the full h of every step, so the layer's output is
-  already on each device: the next tensor-parallel layer's input
-  projection reads it where it lies, with no second copy (the function
-  returns one replica per device, mesh[0]'s first).
+  a slice, then parallel/mesh.py `move`, a no-op when the device
+  repeats), so autograd assembles the full gradients on mesh[0];
+- each shard's input projection (plus bias) over all T is a plain
+  product on its device, as JAX's einsum outside the scan;
+- the recurrence is `LstmTPFused` (ops/lstm_tp.py): on the GPUs the
+  hand-written kernels K8f and K8b (csrc/lstm_tp.cu), one launch a layer
+  and GPU that runs every step, with the all_gather of h (peer stores
+  into every GPU's output) and the BPTT's reduce_scatter inside the
+  kernels; on the CPU their twins, a Python loop over time;
+- every distinct device holds the layer's whole output, so the next
+  tensor-parallel layer's input projection reads it where it lies, with
+  no second copy (the function returns one replica per mesh entry,
+  mesh[0]'s first).
 
-Per step the host issues, on each of the n devices, the recurrent
-product, the cell's element-wise operations and the masks, plus n x n
-copies and n concatenations for the exchange: a host-driven step whose
-cost grows with n, which is what a tensor-parallel layer costs.
-
-This is not a fallback from a kernel to its twin. JAX's tensor-parallel
-path is a `lax.scan` of the cell with no `pallas_call`
-(lstm_rnn_tpu/parallel/tensor.py:86-113), so it has no TPU kernel to
-port, and this loop is the port's counterpart of that scan, not a kernel
-twin standing in for a kernel. On the card it runs in the same
-operations, so a tensor-parallel layer launches none of the recurrence
-kernels K0-K2; the tail kernels still run after it.
+`lstm_forward_tp_reference` is that loop as a differentiable function of
+the parameters (autograd through every step, the delta clip wrapped
+around each gate as the scan route wraps it): the tests' plain
+counterpart of the whole layer.
 
 Numerics, as the JAX function's: it takes no compute dtype. The products
 run in the weights' dtype (f32, true f32 with TF32 off), and h is never
@@ -55,7 +50,9 @@ from typing import List, Sequence
 import torch
 
 from lstm_rnn_tpu_torch.ops.activations import grad_clip
-from lstm_rnn_tpu_torch.ops.lstm_cell import lstm_cell_step
+from lstm_rnn_tpu_torch.ops.lstm_tp import (LstmTPFused, TPSpec, _tp_loop,
+                                            lstm_tp_fwd)
+from lstm_rnn_tpu_torch.parallel.mesh import move
 
 
 def shard_lstm_params(mesh: Sequence[torch.device], params) -> List[dict]:
@@ -70,38 +67,30 @@ def shard_lstm_params(mesh: Sequence[torch.device], params) -> List[dict]:
         raise ValueError(f"hidden size {h} must divide the 'model' axis "
                          f"({n})")
     w = h // n
-    return [{k: v[..., i * w:(i + 1) * w].to(dev) for k, v in params.items()}
-            for i, dev in enumerate(mesh)]
+    return [{k: move(v[..., i * w:(i + 1) * w], dev)
+             for k, v in params.items()} for i, dev in enumerate(mesh)]
 
 
-def lstm_forward_tp(params, x, pattypes, bias_mult: float,
-                    bidirectional: bool, mesh: Sequence[torch.device],
-                    clip_gradients: bool = True) -> List[torch.Tensor]:
-    """Tensor-parallel counterpart of `lstm_forward`'s scan route.
-
-    params: one layer's tree (W_in [D, P, 4, H], ...), H divisible by the
-    mesh's length; x: [T, B, P], or a list of it on every device of the
-    mesh (the previous tensor-parallel layer's replicas); pattypes [T, B]
-    on mesh[0]. Returns the layer's output [T, B, L] ([fw | bw] per
-    frame, in x's dtype) on every device of the mesh, mesh[0]'s first."""
-    mesh = list(mesh)
-    n = len(mesh)
+def _operands(params, x, pattypes, bias_mult, bidirectional, mesh):
+    """The recurrence's operands a shard, in mesh order: its projection
+    plus bias acts [T, D, B, 4, w] (scan order: direction 1 reversed in
+    time), W_rec [D, H, 4, w], peep [D, 3, w], and the validity [T, D, B]
+    (scan order) on its device; and x's dtype."""
     d = params["W_in"].shape[0]
     if d != (2 if bidirectional else 1):
         raise ValueError(f"W_in has {d} directions; bidirectional="
                          f"{bidirectional}")
-    gclip = grad_clip if clip_gradients else None
     shards = shard_lstm_params(mesh, params)
-    xs = list(x) if isinstance(x, (list, tuple)) else [x.to(dev)
+    xs = list(x) if isinstance(x, (list, tuple)) else [move(x, dev)
                                                        for dev in mesh]
     dtype = xs[0].dtype
     T, B, _ = xs[0].shape
-    valid = (pattypes != 0).to(dtype)[:, None, :, None]  # [T, 1, B, 1]
+    valid = (pattypes != 0).to(dtype)[:, None, :]  # [T, 1, B]
     mask = torch.cat([valid, valid.flip(0)], dim=1) if bidirectional \
         else valid
-    masks = [mask.to(dev) for dev in mesh]
-
-    acts, w_recs = [], []
+    by_dev = {dev: mask.to(dev) for dev in dict.fromkeys(mesh)}
+    masks = [by_dev[dev] for dev in mesh]
+    acts = []
     for sh, xi in zip(shards, xs):
         _, P, _, w = sh["W_in"].shape
         # my cells' projections over all T at once (JAX's einsum outside
@@ -112,32 +101,56 @@ def lstm_forward_tp(params, x, pattypes, bias_mult: float,
         a = a + bias_mult * sh["b"][None, :, None]
         if bidirectional:
             a = torch.cat([a[:, 0:1], a.flip(0)[:, 1:2]], dim=1)
-        acts.append(a)
-        w_recs.append(sh["W_rec"].reshape(d, -1, 4 * w))
+        acts.append(a.contiguous())
+    w_recs = [sh["W_rec"].contiguous() for sh in shards]
+    peeps = [sh["peep"].contiguous() for sh in shards]
+    return acts, w_recs, peeps, masks, dtype
 
-    H = params["W_in"].shape[-1]
-    h_full = [xi.new_zeros(d, B, H) for xi in xs]
-    c = [xi.new_zeros(d, B, sh["W_in"].shape[-1])
-         for xi, sh in zip(xs, shards)]
-    hist = [[] for _ in mesh]
-    for t in range(T):
-        h_new = []
-        for i in range(n):
-            w = shards[i]["W_in"].shape[-1]
-            a = acts[i][t] + torch.bmm(h_full[i], w_recs[i]).view(d, B, 4, w)
-            h_i, c_i, _ = lstm_cell_step(a, c[i], shards[i]["peep"], False,
-                                         gclip)
-            h_new.append(h_i * masks[i][t])
-            c[i] = c_i * masks[i][t]
-        # the all_gather: every device assembles the full h of this step
-        h_full = [torch.cat([h.to(dev) for h in h_new], dim=-1)
-                  for dev in mesh]
-        for j in range(n):
-            hist[j].append(h_full[j])
-    outs = []
-    for j in range(n):
-        ys = torch.stack(hist[j])  # [T, D, B, H]
-        y = torch.cat([ys[:, 0], ys.flip(0)[:, 1]], dim=-1) \
-            if bidirectional else ys[:, 0]
-        outs.append(y.to(dtype))
-    return outs
+
+def _replicas(outs, mesh, dtype):
+    gpus = list(dict.fromkeys(mesh))
+    return [outs[gpus.index(dev)].to(dtype) for dev in mesh]
+
+
+def lstm_forward_tp(params, x, pattypes, bias_mult: float,
+                    bidirectional: bool, mesh: Sequence[torch.device],
+                    clip_gradients: bool = True,
+                    name: str = "a TP layer") -> List[torch.Tensor]:
+    """Tensor-parallel counterpart of `lstm_forward`'s scan route.
+
+    params: one layer's tree (W_in [D, P, 4, H], ...), H divisible by the
+    mesh's length; x: [T, B, P], or a list of it on every device of the
+    mesh (the previous tensor-parallel layer's replicas); pattypes [T, B]
+    on mesh[0]. Returns the layer's output [T, B, L] ([fw | bw] per
+    frame, in x's dtype) on every device of the mesh, mesh[0]'s first
+    (entries of one device are one tensor). The recurrence runs in
+    `LstmTPFused` where autograd records, else K8f (or its twin) alone;
+    `name` names the layer in a kernel's error."""
+    mesh = list(mesh)
+    acts, w_recs, peeps, masks, dtype = _operands(
+        params, x, pattypes, bias_mult, bidirectional, mesh)
+    ops = (*acts, *w_recs, *peeps)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        spec = TPSpec(tuple(mesh), tuple(masks), clip_gradients, name)
+        outs = LstmTPFused.apply(spec, *ops)
+    else:
+        outs, _, _ = lstm_tp_fwd(mesh, acts, w_recs, peeps, masks,
+                                 name=name)
+    return _replicas(outs, mesh, dtype)
+
+
+def lstm_forward_tp_reference(params, x, pattypes, bias_mult: float,
+                              bidirectional: bool,
+                              mesh: Sequence[torch.device],
+                              clip_gradients: bool = True
+                              ) -> List[torch.Tensor]:
+    """`lstm_forward_tp` as a Python loop over time with autograd through
+    every step (the layer before the kernels): the same operands and
+    returns. Gradients come from autograd of the loop, the delta clip
+    wrapped around each gate preactivation."""
+    mesh = list(mesh)
+    acts, w_recs, peeps, masks, dtype = _operands(
+        params, x, pattypes, bias_mult, bidirectional, mesh)
+    outs, _, _ = _tp_loop(acts, w_recs, peeps, masks, mesh,
+                          grad_clip if clip_gradients else None)
+    return _replicas(outs, mesh, dtype)

@@ -154,14 +154,21 @@ weight-noise passes step one fraction at a time.
   (`mesh_devices`); on a mesh that names one GPU several times it is
   that GPU's graph. Evaluation graphs hold no collective: a pass sums
   its metrics over the ranks once, at its end, eagerly.
-- Scope: a model mesh (tensor parallelism: its host-driven scan cell
-  makes some 2,080 host operations a time step and layer at 5 shards, a
-  graph of millions of nodes) and a seq or pipe mesh that spans processes
-  (its hops of parallel/hop.py). Under those the passes step one fraction
-  at a time (the same values), and the Trainer says so once. On the CPU
-  there is no graph: the fused passes run the same steps eagerly, in the
-  same order and with the same bookkeeping, so that they equal the
-  unfused run bit for bit.
+- On a model mesh (tensor parallelism, alone or a DP x TP rank's) a graph
+  holds the TP layers' kernels K8f and K8b (ops/lstm_tp.py: one launch a
+  layer and GPU, whose flags survive replays) and spans the mesh's GPUs
+  as above. On a seq or pipe mesh that spans processes (`span`) it holds
+  the hops of parallel/hop.py over NCCL: the warm-up step's eager hops
+  make NCCL's point-to-point communicators before any capture, the hops'
+  chain fixes their order at capture, and every process issues the same
+  messages in the same order whether it replays a graph or steps
+  eagerly. Scope: where a hop goes over gloo with CUDA tensors (two
+  processes on one card, each message staged through host memory, which
+  no capture takes) the passes step one fraction at a time (the same
+  values), and the Trainer says so once. On the CPU there is no graph:
+  the fused passes run the same steps eagerly, in the same order and
+  with the same bookkeeping, so that they equal the unfused run bit for
+  bit.
 """
 
 from __future__ import annotations
@@ -178,6 +185,7 @@ from lstm_rnn_tpu_torch.data.dataset import (DataSet, Fraction,
 from lstm_rnn_tpu_torch.graphs import GraphStats, StepGraph
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
+from lstm_rnn_tpu_torch.parallel import hop
 from lstm_rnn_tpu_torch.parallel.data import all_reduce_sum
 from lstm_rnn_tpu_torch.parallel.mesh import SpanMesh
 from lstm_rnn_tpu_torch.parallel.pipeline import (loss_and_count_pipelined,
@@ -591,19 +599,17 @@ class Trainer:
         """The pass's fuse count: K for stochastic training without weight
         noise and for every evaluation pass (the JAX gate,
         lstm_rnn_tpu/trainer.py:1031-1033), else 1; 1 outside the graphs'
-        scope (a model mesh, a mesh that spans processes), which the
-        Trainer names once."""
+        scope (a mesh across processes whose hops are staged through host
+        memory), which the Trainer names once."""
         fuse = (self.fuse_fractions
                 if not update or (self.hybrid_online_batch
                                   and self.weight_noise_sigma <= 0) else 1)
-        if fuse > 1 and (self.model_mesh is not None
-                         or self.span is not None):
-            where = ("a model mesh (tensor parallelism)"
-                     if self.model_mesh is not None
-                     else "a seq or pipe mesh that spans processes")
-            self._note(f"fuse_fractions={fuse}: no step graph holds {where}"
-                       "; every pass steps one fraction at a time (the "
-                       "same values)")
+        if fuse > 1 and self.span is not None and any(
+                hop._staged(g, self.device)
+                for g in self.span.groups.values()):
+            self._note(f"fuse_fractions={fuse}: no step graph holds a seq "
+                       "or pipe mesh that spans processes; every pass "
+                       "steps one fraction at a time (the same values)")
             return 1
         return fuse
 

@@ -166,7 +166,43 @@ def _steps_worker(group, out_dir, layout):
             calls[k] = 0
         res = _step(_port_net(net, params), group.span, kind, m, batch)
         out[(kind, net, m)] = res + (dict(hop.COUNTS), dict(calls))
+    if layout == (1, 1):
+        out.update(_span_trainer_runs(group, out_dir))
     torch.save(out, os.path.join(out_dir, f"rank{group.rank}.pt"))
+
+
+def _span_trainer_runs(group, out_dir):
+    """The Trainer on the span as a seq and as a pipe mesh (the "bi" net,
+    2 epochs over out_dir/train.nc, the device cache on) with fuse 1 and
+    fuse 4: {("trainer", axis, fuse): its rows, parameters, stacked
+    entries and the lines it printed}."""
+    import contextlib
+    import io
+
+    from lstm_rnn_tpu_torch.data.dataset import DataSet
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    from tests.torch_fused_worker import train_rows
+    out = {}
+    for axis in ("seq", "pipe"):
+        for fuse in (1, 4):
+            # a fresh copy: the CPU Trainer trains the arrays it is given
+            params = torch.load(os.path.join(out_dir, "bi.pt"),
+                                weights_only=False)
+            ds = DataSet([os.path.join(out_dir, "train.nc")],
+                         parallel_sequences=3, sort_by_length=True,
+                         prefetch=False, fraction_shuffling=True, seed=11,
+                         bucket_lengths=True)
+            t = Trainer(_port_net("bi", params), ds, learning_rate=1e-3,
+                        momentum=0.9, max_epochs=2, hybrid_online_batch=True,
+                        device="cpu", data_group=group, fuse_fractions=fuse,
+                        device_cache=True, **{f"{axis}_mesh": group.span})
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rows, weights = train_rows(t)
+            out[("trainer", axis, fuse)] = {
+                "rows": rows, "params": weights, "stacked": len(t._stacked),
+                "out": buf.getvalue()}
+    return out
 
 
 def _launch(fn, layout, out_dir, *args):
@@ -401,6 +437,11 @@ def _span_steps(layout, root):
             for net in {net for _, net, _ in STEPS[lay]}:
                 torch.save(_params(net), d / f"{net}.pt")
                 torch.save(_batch(net), d / f"{net}_batch.pt")
+            if lay == (1, 1):
+                from tests.test_data import _write_classification_nc
+                _write_classification_nc(str(d / "train.nc"),
+                                         [8, 5, 8, 4, 7, 8, 6, 8],
+                                         in_size=3, num_labels=4, seed=3)
             procs.append((lay, d, _start_launch("_steps_worker", lay, d,
                                                 lay)))
         _join([p for _, _, p in procs], "the span steps")
@@ -474,6 +515,53 @@ def test_span_step_matches_one_process_and_jax(steps_root, layout, case):
         np.testing.assert_allclose(grads[key], gj[key], rtol=grad_rtol,
                                    atol=grad_atol, err_msg=key)
     _check_counts(kind, net, m, layout, runs)
+
+
+@pytest.mark.parametrize("axis", ["seq", "pipe"])
+def test_span_trainer_fuses_bit_for_bit(steps_root, axis):
+    """The Trainer on a seq or pipe mesh over two processes (a CPU
+    position each, gloo: no hop is staged through host memory) with fuse
+    4 and the device cache: the stacked epoch on both ranks, no note, and
+    every rank's epochs and weights bit for bit its fuse-1 run."""
+    for run in _span_steps((1, 1), steps_root):
+        one, fused = run[("trainer", axis, 1)], run[("trainer", axis, 4)]
+        assert fused["rows"] == one["rows"]
+        for n in one["params"]:
+            for k in one["params"][n]:
+                np.testing.assert_array_equal(fused["params"][n][k],
+                                              one["params"][n][k])
+        assert fused["stacked"] == 1 and one["stacked"] == 0
+        assert "one fraction at a time" not in fused["out"]
+
+
+@pytest.mark.parametrize("backend, device, fuse", [
+    ("gloo", "cuda:0", 1), ("nccl", "cuda:0", 8), ("gloo", "cpu", 8)])
+def test_span_fuse_gate(monkeypatch, capsys, backend, device, fuse):
+    """The fuse gate on a mesh across processes: a hop over gloo with
+    CUDA tensors (two processes on one card: every message staged
+    through host memory, which no step graph captures) keeps one
+    fraction at a time and says so once, in the words the Trainer has
+    used since before the span fused; over NCCL, and over gloo on the
+    CPU, the pass fuses."""
+    import types
+
+    import torch.distributed as dist
+
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+    t = types.SimpleNamespace(
+        fuse_fractions=8, hybrid_online_batch=True, weight_noise_sigma=0.0,
+        span=types.SimpleNamespace(groups={"up": object(),
+                                           "down": object()}),
+        device=torch.device(device), _notes=set())
+    t._note = lambda msg: Trainer._note(t, msg)
+    assert Trainer._fuse(t, True) == fuse
+    assert Trainer._fuse(t, False) == fuse
+    out = capsys.readouterr().out
+    note = ("fuse_fractions=8: no step graph holds a seq or pipe mesh that "
+            "spans processes; every pass steps one fraction at a time (the "
+            "same values)")
+    assert out.count(note) == (1 if fuse == 1 else 0)
 
 
 def _check_counts(kind, net, m, layout, runs):

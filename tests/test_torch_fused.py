@@ -263,10 +263,12 @@ def test_stacked_decline_reason_is_printed_once(tmp_path, capsys):
 def test_passes_outside_the_fuse_gate_step_one_at_a_time(tmp_path, capsys):
     """Batch mode and weight noise keep stepping one fraction at a time
     (no stack, no decline line); the validation pass still fuses. A model
-    mesh (tensor parallelism) is outside the step graphs' scope: the
-    Trainer says so once and steps one fraction at a time, with the
-    unfused values. (A seq or pipe mesh in one process fuses:
-    test_seq_and_pipe_meshes_fuse.)"""
+    mesh (tensor parallelism: the CPU twice) takes the fused passes: the
+    stacked epoch, with validation, no note, bit for bit its unfused run
+    and within the JAX file's tolerance of the JAX Trainer's fused run on
+    its 2-device model mesh, with its cache lookups and decline lines. (A
+    seq or pipe mesh in one process: test_seq_and_pipe_meshes_fuse.)"""
+    from lstm_rnn_tpu.parallel.mesh import make_mesh_2d
     for kw in ({"hybrid_online_batch": False},
                {"weight_noise_sigma": 0.05}):
         want = _train(_trainer(tmp_path, "port", val=True, **kw))
@@ -275,16 +277,26 @@ def test_passes_outside_the_fuse_gate_step_one_at_a_time(tmp_path, capsys):
         _assert_bitwise(_train(t), want)
         assert len(t._stacked) == 1  # the validation set's
         assert DECLINED not in capsys.readouterr().out
+    kw = {"lengths": TWO_BUCKETS, "ds_kw": {"bucket_lengths": True},
+          "val": True, "epochs": 2}
     mesh = make_seq_mesh(2, "cpu")
-    want = _train(_trainer(tmp_path, "port", model_mesh=mesh))
+    want = _train(_trainer(tmp_path, "port", model_mesh=mesh, **kw))
+    capsys.readouterr()
     t = _trainer(tmp_path, "port", model_mesh=mesh, fuse_fractions=8,
-                 device_cache=True)
-    _assert_bitwise(_train(t), want)
+                 device_cache=True, **kw)
+    stats = []
+    got = _train(t, stats)
     out = capsys.readouterr().out
-    assert out.count("fuse_fractions=8: no step graph holds a model mesh "
-                     "(tensor parallelism); every pass steps one fraction "
-                     "at a time") == 1
-    assert t._stacked == {}
+    _assert_bitwise(got, want)
+    assert len(t._stacked) == 2 and "one fraction at a time" not in out
+    j = _trainer(tmp_path, "jax", fuse_fractions=8, device_cache=True,
+                 mesh=make_mesh_2d(2, 2), **kw)
+    jstats = []
+    _assert_close_to_jax(got, _train(j, jstats))
+    assert _declines(out) == _declines(capsys.readouterr().out) == []
+    keys = ("hits", "misses", "entries")
+    assert [[s[k] for k in keys] for s in stats] == [
+        [s[k] for k in keys] for s in jstats]
 
 
 @pytest.mark.parametrize("axis", ["seq", "pipe"])

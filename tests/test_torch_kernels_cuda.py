@@ -28,7 +28,12 @@ the one-process step on the same kind of mesh; the step graphs
 evaluation steps of a TIMIT-shaped net through warm-up, capture and
 replays against the same steps eager, bit for bit, in f32, bf16 and
 under remat, with their launches, and the stale-buffer control (a replay
-without the next fraction copied in gives another loss).
+without the next fraction copied in gives another loss); the
+tensor-parallel kernels (csrc/lstm_tp.cu): K8f and K8b against their
+twins at 125 cells in 5 shards on cuda:0 and 1,024 in 4 shards on four
+GPUs, a TP training step through 51 graph replays against the eager
+steps bit for bit, and a wait past its bound raising instead of hanging
+(`-k tp`).
 
 Needs a CUDA GPU and nvcc: every test carries the `cuda` marker and skips
 without a GPU (an autouse fixture decides at run time, so every worker
@@ -2288,3 +2293,143 @@ def test_step_graph_spans_a_two_gpu_mesh(axis):
     st = stats.as_dict()
     assert (st["warmups"], st["captures"], st["replays"], st["eager"]) == (
         2, 2, 4, 0)
+
+
+# ---------------------------------------------- tensor parallelism (K8)
+# K8f and K8b against their twins (ops/lstm_tp.py): the kernels sum
+# h . W_rec and the BPTT's partials in another order than the twins'
+# bmm, carried over the steps; relative to the largest entry, the
+# bounds chip_smoke holds a TP step's loss and gradients to
+# (TP_STEP_TOL)
+TP_TOL = {"fwd": 1e-5, "bwd": 1e-4}
+
+
+def _tp_case(H, mesh, T, B=50, P=117, seed=3):
+    """A bidirectional layer of H cells a direction over the model mesh
+    `mesh`: the K8 operands (parallel/tensor.py `_operands`) of ragged
+    rows, one with a gap of 5 invalid frames inside it, and an output
+    cotangent [T, D, B, w] a shard in scan order."""
+    from lstm_rnn_tpu_torch.parallel.tensor import _operands
+    rng = np.random.RandomState(seed)
+    params = {k: torch.from_numpy(rng.uniform(-0.1, 0.1, s).astype(
+        np.float32)).to(mesh[0]) for k, s in (
+            ("W_in", (2, P, 4, H)), ("W_rec", (2, H, 4, H)),
+            ("b", (2, 4, H)), ("peep", (2, 3, H)))}
+    x = torch.from_numpy(rng.randn(T, B, P).astype(np.float32)).to(mesh[0])
+    lengths = rng.randint(T // 2, T + 1, B)
+    lengths[0] = T
+    pt = (np.arange(T)[:, None] < lengths[None, :]).astype(np.int8)
+    pt[T // 3:T // 3 + 5, 0] = 0
+    acts, w_recs, peeps, masks, _ = _operands(
+        params, x, torch.from_numpy(pt).to(mesh[0]), 1.0, True, mesh)
+    w = H // len(mesh)
+    dys = [torch.from_numpy(rng.randn(T, 2, B, w).astype(np.float32)).to(d)
+           for d in mesh]
+    return acts, w_recs, peeps, masks, dys
+
+
+def _tp_rel(got, want):
+    return max(float((g.to(w.device) - w).abs().max()) for g, w in
+               zip(got, want)) / max(float(w.abs().max()) for w in want)
+
+
+@pytest.mark.parametrize("H, n, gpus, T", [(125, 5, 1, 200),
+                                           (1024, 4, 4, 60)],
+                         ids=["tp_125x5_on_one_gpu", "tp_1024x4_on_4_gpus"])
+def test_tp_kernels_match_twins(H, n, gpus, T):
+    """K8f (with its residuals) and K8b against their twins: TIMIT's 125
+    cells in 5 shards on cuda:0 (one launch covers all five), and 1,024
+    cells in 4 shards on 4 GPUs (W_rec read from L2; peer stores over
+    NVLink). Every replica of the output is the same bit for bit; one
+    launch of each kernel a GPU."""
+    from lstm_rnn_tpu_torch.ops import lstm_tp
+    if torch.cuda.device_count() < gpus:
+        pytest.skip(f"needs {gpus} GPUs")
+    mesh = [torch.device("cuda", i % gpus) for i in range(n)]
+    acts, w_recs, peeps, masks, dys = _tp_case(H, mesh, T)
+    f0, b0 = lstm_tp.lstm_tp_fwd.launches, lstm_tp.lstm_tp_bwd.launches
+    ys, cs, gs = lstm_tp.lstm_tp_fwd(mesh, acts, w_recs, peeps, masks, True)
+    da = lstm_tp.lstm_tp_bwd(mesh, gs, cs, w_recs, peeps, dys, masks)
+    for d in range(gpus):
+        torch.cuda.synchronize(d)
+    lstm_tp.check(mesh)
+    assert (lstm_tp.lstm_tp_fwd.launches - f0,
+            lstm_tp.lstm_tp_bwd.launches - b0) == (gpus, gpus)
+    assert len(ys) == gpus
+    assert all(torch.equal(y.cpu(), ys[0].cpu()) for y in ys)
+    yt, ct, gt = lstm_tp.lstm_tp_fwd_reference(acts, w_recs, peeps, masks,
+                                               mesh, save=True)
+    assert _tp_rel(ys, yt) <= TP_TOL["fwd"]
+    assert _tp_rel(cs, ct) <= TP_TOL["fwd"]
+    assert _tp_rel(gs, gt) <= TP_TOL["fwd"]
+    # K8b from the kernel's residuals against its twin from the same
+    dat = lstm_tp.lstm_tp_bptt_reference(gs, cs, w_recs, peeps, dys, masks,
+                                         mesh)
+    assert _tp_rel(da, dat) <= TP_TOL["bwd"]
+    # the control: the twin from a cotangent with one entry changed
+    dys2 = [d.clone() for d in dys]
+    dys2[0][T // 2] += 1.0
+    bad = lstm_tp.lstm_tp_bptt_reference(gs, cs, w_recs, peeps, dys2, masks,
+                                         mesh)
+    assert _tp_rel(da, bad) > TP_TOL["bwd"]
+
+
+def test_tp_step_graph_replays_bit_for_bit():
+    """The TIMIT-shaped net's training step with its LSTM layers in 5
+    shards on cuda:0, through its step graph: 52 steps (a warm-up, then
+    a capture and 51 replays) against the same 52 steps eager, the losses,
+    counts and weights bit for bit; each replay ran K8f and K8b once a
+    layer (GraphStats.executed)."""
+    from lstm_rnn_tpu_torch.ops import lstm_tp
+    from lstm_rnn_tpu_torch.trainer import Trainer
+    fracs = _graph_fractions(52, T=40)
+    mesh = [torch.device("cuda", 0)] * 5
+    runs = []
+    for fused in (False, True):
+        tr = Trainer(_graph_net("f32", False), None, learning_rate=1e-3,
+                     momentum=0.9, hybrid_online_batch=True,
+                     model_mesh=mesh, fuse_fractions=4)
+        f0, b0 = lstm_tp.lstm_tp_fwd.launches, lstm_tp.lstm_tp_bwd.launches
+        out = [tr._fused_step(f, True) if fused else tr.train_step(*f)
+               for f in fracs]
+        torch.cuda.synchronize()
+        lstm_tp.check(mesh)
+        ran = (tr.graph_stats.executed(
+                   "lstm_tp_fwd", lstm_tp.lstm_tp_fwd.launches - f0),
+               tr.graph_stats.executed(
+                   "lstm_tp_bwd", lstm_tp.lstm_tp_bwd.launches - b0))
+        runs.append(([(e.item(), int(c)) for e, c in out],
+                     tr.exact_params(), tr.graph_stats.as_dict(), ran))
+    (eager, p_eager, _, n_eager), (graph, p_graph, st, n_graph) = runs
+    assert graph == eager
+    for n in p_eager:
+        for k in p_eager[n]:
+            np.testing.assert_array_equal(p_graph[n][k], p_eager[n][k],
+                                          err_msg=f"{n}/{k}")
+    assert (st["warmups"], st["captures"], st["replays"]) == (1, 1, 51)
+    assert n_eager == n_graph == (2 * 52, 2 * 52)
+
+
+def test_tp_wait_past_its_bound_raises():
+    """A K8f launch holding shard 0 of a 2-shard mesh with no launch for
+    shard 1: its waits for shard 1's steps run into the bound (0.2 s
+    here), the launch ends, and the mesh's check raises naming the layer
+    and the GPU, within seconds instead of hanging."""
+    import ctypes
+    import time
+
+    from lstm_rnn_tpu_torch.ops import _build, lstm_tp
+    mesh = [torch.device("cuda", 0)] * 2
+    acts, w_recs, peeps, masks, _ = _tp_case(32, mesh, 20, B=8, P=5)
+    ctx = lstm_tp.MeshContext(mesh)  # its own, not the registered one
+    ys = [torch.empty((20, 8, 64), device="cuda")]
+    t0 = time.perf_counter()
+    err = lstm_tp._launch_fwd_on(
+        _build.load(), ctx, 0, [0], acts, w_recs, peeps, None, None, masks,
+        ys, ctx.layer_id("l1"), 0.2,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 10
+    with pytest.raises(RuntimeError, match="l1 on cuda:0 waited past"):
+        ctx.check()

@@ -59,10 +59,18 @@ def _layer(rng, bidirectional, T=11, B=4, P=5, L=32):
 
 @pytest.mark.parametrize("n", [2, 8])
 @pytest.mark.parametrize("bidirectional", [False, True])
-def test_lstm_forward_tp_matches_jax(rng, bidirectional, n):
+def test_lstm_forward_tp_matches_jax(rng, monkeypatch, bidirectional, n):
     """lstm_forward_tp's values and every parameter gradient against the
-    JAX package's on an n-way model mesh, uni- and bidirectional, with
-    ragged rows; every device's replica of the output is the same."""
+    JAX package's (jax.grad of its lstm_forward_tp on forced host
+    devices) on an n-way model mesh, uni- and bidirectional, with ragged
+    rows; every device's replica of the output is the same. The port's
+    gradients come from LstmTPFused's backward on the CPU: the plain BPTT
+    lstm_tp_bptt_reference, once."""
+    from lstm_rnn_tpu_torch.ops import lstm_tp
+    calls = []
+    twin = lstm_tp.lstm_tp_bptt_reference
+    monkeypatch.setattr(lstm_tp, "lstm_tp_bptt_reference",
+                        lambda *a, **k: calls.append(1) or twin(*a, **k))
     params, x, pt, dy = _layer(rng, bidirectional)
     mesh = Mesh(np.asarray(jax.devices()[:n]), ("model",))
 
@@ -84,6 +92,39 @@ def test_lstm_forward_tp_matches_jax(rng, bidirectional, n):
         np.testing.assert_allclose(g.numpy(), np.asarray(g_want[k]),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL,
                                    err_msg=k)
+    assert calls == [1]
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_lstm_tp_bptt_reference_matches_the_loop(rng, bidirectional, n):
+    """LstmTPFused on the CPU (K8f's twin forward, the plain BPTT
+    lstm_tp_bptt_reference, dW_rec and dpeep after the loop) against
+    autograd through every step of lstm_forward_tp_reference, with a
+    row that has invalid frames inside it (the masks reset h and c
+    there): the same output bit for bit, every gradient (x's too) within
+    f32 sum-order noise. The BPTT's shards exchange their partials in
+    shard order, so the gradients do not depend on how the cells are
+    cut beyond that noise."""
+    from lstm_rnn_tpu_torch.parallel.tensor import lstm_forward_tp_reference
+    params, x, pt, dy = _layer(rng, bidirectional)
+    pt = pt.copy()
+    pt[3:6, 0] = 0
+    mesh = [CPU] * n
+    results = []
+    for fn in (lstm_forward_tp, lstm_forward_tp_reference):
+        p_t = {k: torch.from_numpy(v).requires_grad_(True)
+               for k, v in params.items()}
+        xt = torch.from_numpy(x).requires_grad_(True)
+        ys = fn(p_t, xt, torch.from_numpy(pt), 1.0, bidirectional, mesh)
+        loss = (ys[0] * torch.from_numpy(dy)).sum()
+        results.append((ys[0].detach(), torch.autograd.grad(
+            loss, [xt, *p_t.values()])))
+    (y, grads), (y_ref, grads_ref) = results
+    assert torch.equal(y, y_ref)
+    for g, want in zip(grads, grads_ref):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_shard_lstm_params_owns_columns(rng):
