@@ -371,6 +371,7 @@ import contextlib
 import glob
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -5469,15 +5470,24 @@ def _table_errors(rows):
 
 
 def native_runtime():
-    """39a: the native runtime (the JSON formatter), built with this host's
-    g++ at its first use in this process; a failed build fails the run."""
+    """39a: the native runtime (the fraction assembly and the JSON
+    formatter), built with this host's g++ at its first use in this
+    process; a failed build, or a library without either entry point,
+    fails the run."""
     from lstm_rnn_tpu_torch import runtime
-    runtime.load()
+    lib = runtime.load()
+    entries = [name for name in ("lrt_assemble_fraction",
+                                 "lrt_format_f64_json")
+               if hasattr(lib, name)]
     built = (f"built with g++ in {runtime.build_seconds:.2f} s"
              if runtime.build_seconds is not None else
              "loaded (built before this process)")
     phase("dispatch", f"native runtime "
-          f"{os.path.relpath(runtime.library_path(), REPO)}: {built}")
+          f"{os.path.relpath(runtime.library_path(), REPO)}: {built}; "
+          f"entry points {entries}")
+    if len(entries) != 2:
+        raise AssertionError(f"the native runtime lacks an entry point: "
+                             f"it has {entries}")
 
 
 def autosave_native_vs_python(workdir, meanwhile):
@@ -5678,27 +5688,35 @@ def dispatch_cli(torch, workdir):
     return train_nc, val_nc, net_path
 
 
-def dispatch_trainer(train_nc, val_nc, cache):
+def dispatch_sets(train_nc, val_nc, use_native=None, prefetch=True):
+    """Phase 7's corpus as the TIMIT recipe's train (truncated at 500
+    frames, shuffled fractions) and val DataSets, with length buckets."""
     from lstm_rnn_tpu_torch.data.dataset import DataSet
+    kw = {"parallel_sequences": 50, "sort_by_length": True,
+          "bucket_lengths": True, "use_native": use_native,
+          "prefetch": prefetch}
+    return (DataSet([train_nc], trunc_seq_length=500,
+                    fraction_shuffling=True, seed=SEED, **kw),
+            DataSet([val_nc], **kw))
+
+
+def dispatch_trainer(train_nc, val_nc, cache, use_native=None,
+                     cache_bytes=None, trainer_cls=None):
     from lstm_rnn_tpu_torch.models.flagship import build_timit_network
     from lstm_rnn_tpu_torch.trainer import Trainer
-    kw = {"parallel_sequences": 50, "sort_by_length": True,
-          "bucket_lengths": True}
-    train = DataSet([train_nc], trunc_seq_length=500,
-                    fraction_shuffling=True, seed=SEED, **kw)
-    val = DataSet([val_nc], **kw)
-    return Trainer(build_timit_network(seed=SEED), train, val,
-                   learning_rate=1e-4, momentum=0.9,
-                   hybrid_online_batch=True, device="cuda",
-                   device_cache=cache)
+    train, val = dispatch_sets(train_nc, val_nc, use_native)
+    return (trainer_cls or Trainer)(
+        build_timit_network(seed=SEED), train, val, learning_rate=1e-4,
+        momentum=0.9, hybrid_online_batch=True, device="cuda",
+        device_cache=cache, device_cache_bytes=cache_bytes)
 
 
 def compilation_cache_children(workdir, nc, net_path, first):
     """39e: a second child given the same fresh --compilation_cache_dir as
     the first (started earlier): the first built the kernel library
     there, the second loads it without building; both place the native
-    runtime there too (built at its first use, which serving does not
-    make)."""
+    runtime there too (the first builds it for its DataSet's native
+    fraction assembly)."""
     cache = os.path.join(workdir, "compile_cache")
     outs = []
     for i, p in enumerate((first, None)):
@@ -5721,6 +5739,8 @@ def compilation_cache_children(workdir, nc, net_path, first):
                              "then loaded")
     if os.path.basename(k0) not in files:
         raise AssertionError(f"{cache} lacks the kernel library: {files}")
+    if os.path.basename(n0) not in files:
+        raise AssertionError(f"{cache} lacks the native runtime: {files}")
     with open(os.path.join(workdir, "child0.csv"), "rb") as a, \
             open(os.path.join(workdir, "child1.csv"), "rb") as b:
         if a.read() != b.read():
@@ -5734,36 +5754,188 @@ def _child_args(workdir, nc, net_path, i):
             "--compilation_cache_dir", os.path.join(workdir, "compile_cache")]
 
 
-def dispatch_rates(torch, card, train_nc, val_nc):
-    """39g: epoch 2's frames/s (training frames over the epoch's wall,
-    train and val passes, as the CLI counts) and the device's busy share
-    over epoch 3 (profiler), with the cache off and on, on phase 7's
-    corpus with length buckets; f32."""
+def _staging_views(torch, layout):
+    """Numpy views of a pinned buffer in the Trainer's staging layout
+    (trainer.py `_stage`: each array 64-byte aligned)."""
+    offsets, total = [], 0
+    for dt, shape in layout:
+        total = -(-total // 64) * 64
+        offsets.append(total)
+        total += int(np.prod(shape)) * dt.itemsize
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=True).numpy()
+    return [buf[o:o + int(np.prod(shape)) * dt.itemsize].view(dt).reshape(
+        shape) for (dt, shape), o in zip(layout, offsets)]
+
+
+def feed_native(torch, card, train_nc, val_nc, reps=3):
+    """39h: the native fraction assembly against the NumPy one on phase
+    7's corpus, on this host: every fraction of the train and val sets
+    byte for byte (arrays, seq_info, keys), also assembled straight into
+    pinned staging views as the Trainer does on a device-cache miss
+    (LazyFraction.assemble_into); then the mean ms to assemble one
+    fraction each way (NumPy, native, NumPy then its copy into the pinned
+    views, native into them), over reps passes of every fraction."""
+    from lstm_rnn_tpu_torch.data.dataset import LazyFraction
+    sets = {n: dispatch_sets(train_nc, val_nc, n, prefetch=False)
+            for n in (False, True)}
+    ms = {k: [] for k in ("numpy", "native", "numpy+copy", "staging")}
+    frames = nbytes = count = 0
+    for py, nat in zip(sets[False], sets[True]):
+        if nat._native is None or py._native is not None:
+            raise AssertionError("use_native did not take its path")
+        for s in range(0, len(py.sequences), py.parallel_sequences):
+            fp, fn = py._make_fraction(s), nat._make_fraction(s)
+            lazy = LazyFraction(nat, s, *nat.fraction_meta(s))
+            views = _staging_views(torch, lazy.native_layout())
+            lazy.assemble_into(*views)
+            for a, b, c in zip((fp.inputs, fp.targets, fp.pattypes),
+                               (fn.inputs, fn.targets, fn.pattypes), views):
+                if not (a.dtype == b.dtype == c.dtype and a.shape == b.shape
+                        == c.shape and a.tobytes() == b.tobytes()
+                        == c.tobytes()):
+                    raise AssertionError(f"fraction {count}: the native "
+                                         "bytes differ from NumPy's")
+            if fp.seq_info != fn.seq_info or fp.key[1:] != fn.key[1:]:
+                raise AssertionError(f"fraction {count}: seq_info or key")
+            frames += sum(i["length"] for i in fn.seq_info)
+            nbytes += sum(v.nbytes for v in views)
+            count += 1
+
+            def copied():
+                f = py._make_fraction(s)
+                for v, a in zip(views, (f.inputs, f.targets, f.pattypes)):
+                    v[...] = a
+
+            for _ in range(reps):
+                for way, run in (
+                        ("numpy", lambda: py._make_fraction(s)),
+                        ("native", lambda: nat._make_fraction(s)),
+                        ("numpy+copy", copied),
+                        ("staging", lambda: lazy.assemble_into(*views))):
+                    t0 = time.perf_counter()
+                    run()
+                    ms[way].append(1e3 * (time.perf_counter() - t0))
+    means = {k: float(np.mean(v)) for k, v in ms.items()}
+    phase("dispatch", f"native fractions: {count} fractions ({frames} "
+          f"frames) of phase 7's train and val sets byte for byte the "
+          f"NumPy ones (arrays, seq_info, keys), and assembled into pinned "
+          f"staging views too; mean ms a fraction "
+          f"({nbytes / count / 2**20:.2f} MiB each on average, {reps} "
+          f"passes): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in means.items())
+          + f" ({card})")
+    return means
+
+
+# the feed's variants in 39g: (label, use_native, device cache, native
+# assembly into the staging buffer on a miss); "half" is a budget that
+# admits about half of the fractions' bytes, so that every epoch misses
+# on the rest
+FEED_VARIANTS = (("numpy, cache off", False, "off", True),
+                 ("native, cache off", True, "off", True),
+                 ("numpy, cache half", False, "half", True),
+                 ("native copied, cache half", True, "half", False),
+                 ("staging, cache half", True, "half", True),
+                 ("native, cache on", True, "all", True))
+
+
+def dispatch_rates(torch, card, train_nc, val_nc, timed=3):
+    """39g: the feed's variants (FEED_VARIANTS) on phase 7's corpus with
+    length buckets, f32, in two rounds, the second in reverse order: epoch
+    2's frames/s (training frames over the epoch's wall, train and val
+    passes, as the CLI counts) and epochs 2..timed+1's; in the first round
+    the device's busy share over one more epoch (profiler). The trained
+    parameters of every variant are bit for bit the first's, the half
+    budget hits and misses in every later epoch, and the staging variant
+    assembles every miss into the staging buffer. Returns {label: [epoch
+    walls of both rounds]}."""
     from torch.profiler import ProfilerActivity, profile
-    for cache in (False, True):
-        tr = dispatch_trainer(train_nc, val_nc, cache)
-        frames = tr.train_set.total_timesteps
-        tr.train_epoch()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr.train_epoch()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
+    from lstm_rnn_tpu_torch.data.dataset import LazyFraction
+    from lstm_rnn_tpu_torch.trainer import Trainer
+
+    class Copying(Trainer):
+        def _native_layout(self, frac):
+            return None
+
+    # the cache's bytes of every train and val fraction
+    half = sum(int(np.prod(shape)) * dt.itemsize
+               for ds in dispatch_sets(train_nc, val_nc, False)
+               for s in range(0, len(ds.sequences), ds.parallel_sequences)
+               for dt, shape in ds.host_layout(ds.fraction_meta(s)[1])) // 2
+    staged = [0]
+    orig = LazyFraction.assemble_into
+
+    def counting(self, *views):
+        staged[0] += 1
+        return orig(self, *views)
+
+    walls = {}
+    for rnd, order in enumerate((FEED_VARIANTS, FEED_VARIANTS[::-1])):
+        ref = None
+        for label, native, cache, stage in order:
+            tr = dispatch_trainer(
+                train_nc, val_nc, cache != "off", native,
+                half if cache == "half" else None,
+                None if stage else Copying)
+            frames = tr.train_set.total_timesteps
             tr.train_epoch()
-            torch.cuda.synchronize()
-            wall3 = time.perf_counter() - t1
-        busy = sum(dev_us(e) for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
-        phase("dispatch", f"rates cache={'on' if cache else 'off'}: epoch "
-              f"2 {wall:.3f} s, {frames / wall:,.0f} frames/s; epoch 3 "
-              f"under the profiler {wall3:.3f} s, device busy "
-              f"{busy / 1e6:.3f} s ({100 * busy / 1e6 / wall3:.1f}%); bytes "
-              f"from the host epoch 2 {tr.h2d_bytes[2:4]} ({card})")
-        del tr
-        torch.cuda.empty_cache()
+            staged[0] = 0
+            LazyFraction.assemble_into = counting
+            try:
+                ws, stats = [], []
+                for _ in range(timed):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tr.train_epoch()
+                    torch.cuda.synchronize()
+                    ws.append(time.perf_counter() - t0)
+                    stats.append(tr.device_cache_stats())
+            finally:
+                LazyFraction.assemble_into = orig
+            busy_txt = ""
+            if rnd == 0:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    tr.train_epoch()
+                    torch.cuda.synchronize()
+                    wall3 = time.perf_counter() - t1
+                busy = sum(dev_us(e) for e in prof.key_averages()
+                           if str(getattr(e, "device_type", "")).endswith(
+                               "CUDA"))
+                busy_txt = (f"; one more epoch under the profiler "
+                            f"{wall3:.3f} s, device busy {busy / 1e6:.3f} s "
+                            f"({100 * busy / 1e6 / wall3:.1f}%)")
+            walls.setdefault(label, []).extend(ws)
+            misses = sum(st["misses"] for st in stats)
+            phase("dispatch", f"rates {label} (round {rnd + 1}): epoch 2 "
+                  f"{ws[0]:.4f} s, {frames / ws[0]:,.0f} frames/s; epochs "
+                  f"2-{timed + 1} {[round(w, 4) for w in ws]}; lookups "
+                  f"hit/miss {[(st['hits'], st['misses']) for st in stats]}"
+                  f", staged {staged[0]}; bytes from the host epoch 2 "
+                  f"{tr.h2d_bytes[2:4]}{busy_txt} ({card})")
+            if cache == "half" and not all(st["hits"] and st["misses"]
+                                           for st in stats):
+                raise AssertionError(f"{label}: the half budget did not "
+                                     f"hit and miss: {stats}")
+            want_staged = misses if stage and native and cache != "off" \
+                else 0
+            if staged[0] != want_staged:
+                raise AssertionError(f"{label}: {staged[0]} fractions "
+                                     f"staged natively, not {want_staged}")
+            leaves = [v.detach().clone() for v in tr._leaves(tr.params)]
+            if ref is None:
+                ref = (label, leaves)
+            elif not all(torch.equal(a, b) for a, b in zip(ref[1], leaves)):
+                raise AssertionError(f"{label}: trained parameters differ "
+                                     f"from {ref[0]}'s")
+            del tr
+            torch.cuda.empty_cache()
+    for label, ws in walls.items():
+        phase("dispatch", f"rates {label}: epoch walls of both rounds, "
+              f"median {statistics.median(ws):.4f} s, min {min(ws):.4f}, "
+              f"max {max(ws):.4f} ({card})")
+    return walls
 
 
 def dispatch_phase(torch, card):
@@ -5787,6 +5959,7 @@ def dispatch_phase(torch, card):
                 p.communicate()
             raise
         compilation_cache_children(workdir, nc, net_path, children[0])
+        feed_native(torch, card, train_nc, val_nc)
         dispatch_rates(torch, card, train_nc, val_nc)
     phase("dispatch", f"phase 39 took {time.perf_counter() - t0:.0f} s")
 

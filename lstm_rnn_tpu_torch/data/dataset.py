@@ -25,6 +25,12 @@ Reproduces `currennt_lib/src/data_sets/DataSet.cpp` semantics:
   on the device; `lazy_fractions` hands out each fraction's key and shape
   before assembling it, so a cache hit skips the assembly.
 
+- the assembly runs natively (runtime/fraction.cpp, the same bytes)
+  unless there is input noise, whose stream is NumPy's: `use_native`,
+  with the JAX package's default. A LazyFraction can be assembled
+  straight into arrays the caller owns (`assemble_into`: the Trainer's
+  pinned staging buffer on a device-cache miss).
+
 Counterpart of lstm_rnn_tpu/data/dataset.py, numpy only.
 
 Length bucketing (off unless asked for) pads fractions up to a small set
@@ -142,6 +148,21 @@ class LazyFraction:
             self._real = self._ds._make_fraction(self._idx)
         return getattr(self._real, name)
 
+    def native_layout(self):
+        """The (dtype, shape) of the fraction's inputs, targets and
+        pattypes when assemble_into can write them (its DataSet assembles
+        natively and they are not assembled yet), else None."""
+        if self._real is not None or not self._ds._assembles_natively():
+            return None
+        return self._ds.host_layout(self.shape)
+
+    def assemble_into(self, inputs, targets, pattypes) -> None:
+        """Assemble the fraction natively into the caller's C-contiguous
+        arrays of native_layout(). The handle keeps nothing of them: a
+        later attribute access assembles its own arrays, the same
+        bytes."""
+        self._ds._make_fraction(self._idx, out=(inputs, targets, pattypes))
+
 
 # numbers each DataSet, namespacing its fractions' keys: one Trainer's
 # device cache holds the train, validation and test sets' fractions, whose
@@ -157,6 +178,30 @@ def discard_normals(rng: np.random.RandomState, n: int,
     while n > 0:
         rng.standard_normal(min(chunk, n))
         n -= min(chunk, n)
+
+
+def _file_rows(arrs):
+    """(inputs, targets, first rows) when every (inputs, targets) pair of
+    arrs is a run of rows of the same two arrays (a file held in RAM),
+    at the same rows in both; else None."""
+    bases = [arrs[0][j].base for j in (0, 1)]
+    if not all(isinstance(b, np.ndarray) and b.flags.c_contiguous
+               for b in bases):
+        return None
+    first = []
+    for pair in arrs:
+        rows = set()
+        for a, base in zip(pair, bases):
+            if (a.base is not base or a.shape[1:] != base.shape[1:]
+                    or not a.flags.c_contiguous):
+                return None
+            step = base.strides[0]
+            rows.add((a.__array_interface__["data"][0]
+                      - base.__array_interface__["data"][0]) // step)
+        if len(rows) != 1:
+            return None
+        first.append(rows.pop())
+    return bases[0], bases[1], np.asarray(first, np.int64)
 
 
 def _bucket_lengths(max_len: int) -> List[int]:
@@ -190,7 +235,8 @@ class DataSet:
                  input_left_context: int = 0, input_right_context: int = 0,
                  output_time_lag: int = 0, sort_by_length: bool = False,
                  seed: int = 0, bucket_lengths: bool = False,
-                 bucket_major_shuffle: bool = True, prefetch: bool = True):
+                 bucket_major_shuffle: bool = True, prefetch: bool = True,
+                 use_native: Optional[bool] = None):
         if not (0 < fraction <= 1):
             raise ValueError("Invalid fraction")
         self._cache_token = next(_DATASET_COUNTER)
@@ -204,6 +250,17 @@ class DataSet:
         self.output_time_lag = output_time_lag
         self.prefetch = prefetch
         self._rng = np.random.RandomState(seed & 0x7FFFFFFF if seed else None)
+        # native assembly (runtime/fraction.cpp), the JAX package's gate:
+        # None takes it without input noise (the NumPy path draws the
+        # noise) when the library builds, else says why once on stderr
+        # and assembles with NumPy, the same bytes; True takes it or
+        # raises RuntimeError with the compiler's message
+        from lstm_rnn_tpu_torch import runtime
+        if use_native is None:
+            use_native = noise_deviation == 0.0 and runtime.available()
+        elif use_native:
+            runtime.load()
+        self._native = runtime if use_native else None
         # spill to a disk cache when the corpus is large or a cache path is
         # explicitly configured (cache_threshold_bytes, default 1 GiB)
         self._cache: Optional[_DiskCache] = None
@@ -288,6 +345,18 @@ class DataSet:
             if self._cache is None and (self._cache_dir
                                         or est_bytes > self.cache_threshold_bytes):
                 self._cache = _DiskCache(self._cache_dir)
+            tvar, tdtype = (("targetClasses", np.int32)
+                            if self.is_classification else
+                            ("targetPatterns", np.float32))
+            # a file held in RAM is read in one piece and its sequences
+            # are views of it, so that the native assembly reads a
+            # fraction's frames where they lie (_file_rows)
+            whole = None
+            frames = int(np.sum(lengths, dtype=np.int64))
+            if self._cache is None and frames:
+                whole = tuple(f.read(name, 0, frames).astype(dt, copy=False)
+                              for name, dt in (("inputs", np.float32),
+                                               (tvar, tdtype)))
 
             off = 0
             for i in range(n_seq):
@@ -300,15 +369,13 @@ class DataSet:
                     n = (min(trunc, remaining)
                          if trunc > 0 and remaining > 1.5 * trunc
                          else remaining)
-                    xs = f.read("inputs", off, n).astype(np.float32)
-                    if self.is_classification:
-                        ts = f.read("targetClasses", off, n).astype(np.int32)
+                    if whole is not None:
+                        xs, ts = whole[0][off:off + n], whole[1][off:off + n]
                     else:
-                        ts = f.read("targetPatterns", off,
-                                    n).astype(np.float32)
-                    if self._cache is not None:
-                        xs = self._cache.put(xs)
-                        ts = self._cache.put(ts)
+                        xs = self._cache.put(
+                            f.read("inputs", off, n).astype(np.float32))
+                        ts = self._cache.put(
+                            f.read(tvar, off, n).astype(tdtype))
                     self.sequences.append(SequenceRef(
                         tag=tags[i], length=n, inputs=xs, targets=ts,
                         original_idx=k))
@@ -392,7 +459,48 @@ class DataSet:
             return None
         return (self._cache_token,) + tuple(s.uid for s in seqs)
 
-    def _make_fraction(self, first_idx: int) -> Fraction:
+    def _assembles_natively(self) -> bool:
+        """Whether _make_fraction takes the native path (the JAX gate,
+        lstm_rnn_tpu/data/dataset.py:419)."""
+        return self._native is not None and self.noise_deviation == 0.0
+
+    def host_layout(self, shape):
+        """The (dtype, shape) of the inputs, targets and pattypes of a
+        fraction of padded [T, B, input] shape."""
+        t_pad, b, _ = shape
+        targets = ((np.dtype(np.int32), (t_pad, b))
+                   if self.is_classification else
+                   (np.dtype(np.float32), (t_pad, b,
+                                           self.output_pattern_size)))
+        return [(np.dtype(np.float32), tuple(shape)), targets,
+                (np.dtype(np.int8), (t_pad, b))]
+
+    def _assemble_native(self, seqs, t_pad: int, out):
+        """(inputs, targets, pattypes) of seqs through runtime/fraction.cpp,
+        into out's arrays when given: from their file's frames where they
+        are views of one file held in RAM, else from a concatenation of
+        their frames."""
+        arrs = [self._seq_arrays(s) for s in seqs]
+        lengths = np.asarray([s.length for s in seqs], np.int32)
+        rows = _file_rows(arrs)
+        if rows is not None:
+            inputs, targets, offsets = rows
+        else:
+            inputs = np.concatenate([a[0] for a in arrs])
+            targets = np.concatenate([a[1] for a in arrs])
+            offsets = np.zeros(len(seqs), np.int64)
+            np.cumsum(lengths[:-1], out=offsets[1:])
+        return self._native.assemble_fraction(
+            inputs, targets, offsets, lengths,
+            self.is_classification, t_pad, self.parallel_sequences,
+            self.input_pattern_size, self.output_pattern_size,
+            self.left_context, self.right_context, self.output_time_lag,
+            out=out)
+
+    def _make_fraction(self, first_idx: int, out=None) -> Fraction:
+        """The fraction of parallel_sequences sequences from first_idx;
+        out=(inputs, targets, pattypes): the native path writes into
+        these arrays of host_layout() and returns them."""
         b = self.parallel_sequences
         seqs = self.sequences[first_idx : first_idx + b]
         max_len = max(s.length for s in seqs)
@@ -400,6 +508,17 @@ class DataSet:
         ctx_len = self.left_context + self.right_context + 1
         in_size = self.input_pattern_size * ctx_len
         lag = self.output_time_lag
+        info = [{"tag": s.tag, "length": s.length,
+                 "originalSeqIdx": s.original_idx} for s in seqs]
+        if self._assembles_natively():
+            inputs, targets, pattypes = self._assemble_native(seqs, t_pad,
+                                                              out)
+            return Fraction(inputs=inputs, pattypes=pattypes,
+                            targets=targets, seq_info=info,
+                            key=self._key(seqs))
+        if out is not None:
+            raise ValueError("out= takes the native assembly, which this "
+                             "DataSet does not take")
 
         inputs = np.zeros((t_pad, b, in_size), np.float32)
         pattypes = np.full((t_pad, b), PATTYPE_NONE, np.int8)
@@ -408,7 +527,6 @@ class DataSet:
         else:
             targets = np.zeros((t_pad, b, self.output_pattern_size), np.float32)
 
-        info = []
         for i, seq in enumerate(seqs):
             L = seq.length
             xs, seq_targets = self._seq_arrays(seq)
@@ -447,9 +565,6 @@ class DataSet:
             if L > 1:
                 pattypes[L - 1, i] = PATTYPE_LAST
             pattypes[0, i] = PATTYPE_FIRST
-
-            info.append({"tag": seq.tag, "length": L,
-                         "originalSeqIdx": seq.original_idx})
         return Fraction(inputs=inputs, pattypes=pattypes, targets=targets,
                         seq_info=info, key=self._key(seqs))
 

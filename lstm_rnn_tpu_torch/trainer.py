@@ -109,7 +109,11 @@ The data feed (lstm_rnn_tpu/trainer.py:91-129, :650-691, :741-757):
   a cyclic epoch over a corpus above the budget keeps its admitted prefix
   instead of missing every time. Off unless asked for, as the JAX
   Trainer's is off a TPU. With the cache on, fractions come as
-  LazyFraction handles, so a hit assembles nothing. Under a data group
+  LazyFraction handles, so a hit assembles nothing, and a miss that the
+  DataSet assembles natively is assembled straight into the staging
+  buffer (`_native_layout`: float32 inputs, no data group splitting the
+  fraction), so its bytes are written once on the host; the device
+  tensors are the copy's, bit for bit. Under a data group
   the rank's block is cached, under a seq mesh the fraction on the mesh's
   first device. `h2d_bytes` counts the bytes copied from the host, one
   integer a pass.
@@ -181,7 +185,7 @@ import torch
 
 from lstm_rnn_tpu_torch import io_currennt as ioc
 from lstm_rnn_tpu_torch.data.dataset import (DataSet, Fraction,
-                                             discard_normals)
+                                             LazyFraction, discard_normals)
 from lstm_rnn_tpu_torch.graphs import GraphStats, StepGraph
 from lstm_rnn_tpu_torch.network import (Network, params_from_numpy,
                                         params_to_numpy)
@@ -511,6 +515,17 @@ class Trainer:
         parameters' dtype; the three tensors are views of the copy."""
         kinds = [(np.dtype(_NP_DTYPE[self.dtype]), host[0].shape)] + [
             (host[j].dtype, host[j].shape) for j in (1, 2)]
+
+        def write(views):
+            for view, h in zip(views, host):
+                view[...] = h
+
+        return self._stage(kinds, write)
+
+    def _stage(self, kinds, write) -> tuple:
+        """Three device tensors of kinds' (dtype, shape) in one copy from a
+        staging buffer: write(views) fills the buffer's three C-contiguous
+        numpy views, each 64-byte aligned."""
         sizes = [int(np.prod(shape)) * dt.itemsize for dt, shape in kinds]
         offsets, total = [], 0
         for size in sizes:
@@ -519,9 +534,9 @@ class Trainer:
             total += size
 
         def fill(buf):
-            for h, (dt, shape), off, size in zip(host, kinds, offsets,
-                                                 sizes):
-                buf[off:off + size].view(dt).reshape(shape)[...] = h
+            write([buf[off:off + size].view(dt).reshape(shape)
+                   for (dt, shape), off, size in zip(kinds, offsets,
+                                                     sizes)])
 
         dev = self._staging.to_device(total, fill)
         self._pass_bytes += sum(sizes)
@@ -557,11 +572,25 @@ class Trainer:
             self._dev_cache[key] = [batch, nbytes, self.cur_epoch]
             self._dev_cache_bytes += nbytes
 
+    def _native_layout(self, frac):
+        """The staging layout of a LazyFraction not yet assembled that can
+        be assembled natively straight into the staging buffer (no copy
+        on the host): no data group splits the block and the inputs are
+        staged as float32. None: copy the assembled arrays."""
+        if (not isinstance(frac, LazyFraction)
+                or _NP_DTYPE[self.dtype] is not np.float32
+                or (self.data_group is not None
+                    and self.data_group.span is None)):
+            return None
+        return frac.native_layout()
+
     def _device_batch(self, frac: Fraction) -> tuple:
         """The fraction's (inputs, targets, pattypes) on the device (under a
         data group this rank's block, after padding B to a multiple of the
         world size): a cached fraction where it lies, else copied (and
-        cached after the copy when keyed)."""
+        cached after the copy when keyed). A miss on a LazyFraction that
+        _native_layout admits is assembled straight into the staging
+        buffer, the same bytes the copy moves."""
         key = frac.key if self.device_cache else None
         if key is not None:
             hit = self._dev_cache.get(key)
@@ -570,7 +599,12 @@ class Trainer:
                 self.cache_hits += 1
                 return hit[0]
             self.cache_misses += 1
-        batch = self._to_device(self._block(frac))
+        layout = self._native_layout(frac)
+        if layout is not None:
+            batch = self._stage(layout, lambda views: frac.assemble_into(
+                *views))
+        else:
+            batch = self._to_device(self._block(frac))
         if key is not None:
             self._cache_put(key, batch)
         return batch
